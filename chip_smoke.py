@@ -1,0 +1,509 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``skypilot_torch``) on one
+NVIDIA GPU (written for an H100).
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``skypilot_torch/csrc`` and runs,
+in order (any failure exits non-zero; nothing is caught):
+
+1. device: the card's name and power limit (nvidia-smi), torch/CUDA
+   versions; TF32 off for float32 matmuls and convolutions.
+2. K1 (flash_fwd): Llama-3-8B prefill shapes in bf16 against
+   ``_flash_fwd_plain`` in f32 on the card (out and lse), with kernel,
+   plain, library (``F.scaled_dot_product_attention``, timed only) and
+   bound times.
+3. K4 (decode_attention): the serve path's decode shape and a batch of
+   mixed lengths, against the plain version, same columns.
+4. End-to-end numerics: llama3-8b at full width and 2 layers, bf16 on
+   the card against the same weights in f32 on the CPU (plain paths).
+5. Serve: the port's replica at llama3-8b (32 layers, random weights),
+   four requests over HTTP; the kernels' launch counts are zeroed just
+   before and read just after, and must equal layers x prefills (K1)
+   and layers x decode steps (K4).
+
+Then one ``{"kernels": [...]}`` JSON line and, last, the
+``{"ok": true, "device": {...}}`` line. ``--phases`` runs a subset (no
+final lines then). Exits non-zero without printing a result when CUDA
+is absent or the ``skypilot_torch`` package is not beside this file.
+"""
+import argparse
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
+L2_BYTES = 50 * 2 ** 20
+PHASES = ('k1', 'k4', 'e2e', 'serve')
+K1_TOL = {'out': 2e-2, 'lse': 2e-2}
+K4_TOL = 2e-2
+E2E_REL_TOL = 5e-2
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, args_list, iters):
+    """Mean ms per call over ``iters`` eager calls back to back, timed
+    with CUDA events: the host's launch overhead included. Cycles
+    through ``args_list`` (copies of the inputs, so a call finds its
+    inputs outside L2 the way the model's caller does)."""
+    for a in args_list[:2]:
+        fn(*a)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*args_list[i % len(args_list)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, args_list, iters):
+    """Mean device time per call in ms: ``iters`` calls (cycling
+    through ``args_list``) captured in one CUDA graph, whose replay is
+    timed with CUDA events, so host launch gaps drop out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for a in args_list[:2]:
+            fn(*a)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*args_list[i % len(args_list)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def copies_outside_l2(make, nbytes, first):
+    """``first`` and enough fresh copies of an input set that cycling
+    through them overflows L2 twice."""
+    n = min(16, max(1, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
+    return [first] + [make() for _ in range(n - 1)]
+
+
+# ---------------------------------------------------------------------
+# K1
+# ---------------------------------------------------------------------
+
+
+def k1_phase(torch, F, attention):
+    H, HKV, D = 32, 8, 128
+    scale = D ** -0.5
+    # (B, T, S): the serve path's prompt lengths (17, 256, 1000, 2048),
+    # batch 4, T < S, and T > S (rows that see no key).
+    cases = [(1, 17, 17), (1, 256, 256), (1, 1000, 1000),
+             (1, 2048, 2048), (4, 2048, 2048), (1, 128, 2048),
+             (1, 1000, 512)]
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    rows = []
+    for b, t, s in cases:
+        def make(b=b, t=t, s=s):
+            return (torch.randn((b, t, H, D), generator=gen, device='cuda',
+                                dtype=torch.bfloat16),
+                    torch.randn((b, s, HKV, D), generator=gen,
+                                device='cuda', dtype=torch.bfloat16),
+                    torch.randn((b, s, HKV, D), generator=gen,
+                                device='cuda', dtype=torch.bfloat16))
+        q, k, v = make()
+        out, lse = attention.flash_attention_fwd(q, k, v, causal=True,
+                                                 scale=scale)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = attention._flash_fwd_plain(
+            q.float(), k.float(), v.float(), causal=True, scale=scale)
+        err_out = (out.float() - ref_out).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        # Rows that see no key: lse = +1e30 and out = 0 on both sides.
+        empty = ref_lse >= attention.EMPTY_ROW_LSE
+        assert torch.equal(empty, lse >= attention.EMPTY_ROW_LSE)
+        assert not bool(out[empty.transpose(1, 2)].any())
+        ok = (err_out <= K1_TOL['out'] and err_lse <= K1_TOL['lse']
+              and bool(torch.isfinite(out.float()).all()))
+        # Visible (q, k) pairs under bottom-right causal alignment.
+        vis = torch.clamp(torch.arange(t) + (s - t) + 1, 0, s).sum().item()
+        flops = 4 * b * H * D * vis
+        nbytes = (2 * (q.numel() + k.numel() + v.numel() + out.numel())
+                  + 4 * lse.numel())
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+        bound_ms = 1e3 * max(t_ops, t_bytes)
+        bound_by = 'operations' if t_ops >= t_bytes else 'bytes'
+        inputs = copies_outside_l2(make, nbytes, (q, k, v))
+        iters = 20 if t * s * b >= 2 ** 22 else 100
+        mask = None
+        if t != s:
+            mask = (torch.arange(s, device='cuda')[None, :] <=
+                    torch.arange(t, device='cuda')[:, None] + (s - t))
+
+        def kernel(q, k, v):
+            return attention.flash_attention_fwd(q, k, v, causal=True,
+                                                 scale=scale)
+
+        def plain(q, k, v):
+            return attention._flash_fwd_plain(q, k, v, causal=True,
+                                              scale=scale)
+
+        def library(q, k, v):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, is_causal=mask is None, scale=scale,
+                enable_gqa=True)
+
+        kernel_ms = graph_ms(torch, kernel, inputs, iters)
+        row = dict(B=b, T=t, S=s, max_abs_err_out=err_out,
+                   max_abs_err_lse=err_lse, tol=K1_TOL, ok=ok,
+                   kernel_ms=kernel_ms,
+                   plain_ms=graph_ms(torch, plain, inputs[:2],
+                                      max(3, iters // 10)),
+                   library_ms=graph_ms(torch, library, inputs, iters),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   tflops=flops / kernel_ms / 1e9,
+                   kernel_wall_ms=cuda_ms(torch, kernel, inputs, iters))
+        log('K1 ' + json.dumps(row))
+        rows.append(row)
+        del q, k, v, out, lse, ref_out, ref_lse, inputs
+        torch.cuda.empty_cache()
+    bad = [r for r in rows if not r['ok']]
+    assert not bad, f'K1 disagrees with its plain version: {bad}'
+    main_case = next(r for r in rows if (r['B'], r['T']) == (1, 2048)
+                     and r['S'] == 2048)
+    return dict(max_abs_err=max(max(r['max_abs_err_out'],
+                                    r['max_abs_err_lse']) for r in rows),
+                ms=main_case['kernel_ms'], plain_ms=main_case['plain_ms'],
+                bound_ms=main_case['bound_ms'],
+                bound_by=main_case['bound_by'],
+                library_ms=main_case['library_ms'])
+
+
+# ---------------------------------------------------------------------
+# K4
+# ---------------------------------------------------------------------
+
+
+def k4_phase(torch, F, da):
+    HQ, HKV, HD, S = 32, 8, 128, 8192
+    scale = HD ** -0.5
+    # The serve path's decode (batch 1, max_seq 8192, a 2k context) and
+    # a batch of 8 mixed lengths.
+    cases = [[2048], [1, 511, 512, 4097, 8192, 2049, 100, 7000]]
+    gen = torch.Generator(device='cuda').manual_seed(12)
+    rows = []
+    for lens in cases:
+        b = len(lens)
+
+        def make(b=b):
+            return (torch.randn((b, HQ, HD), generator=gen, device='cuda',
+                                dtype=torch.bfloat16),
+                    torch.randn((b, S, HKV, HD), generator=gen,
+                                device='cuda', dtype=torch.bfloat16),
+                    torch.randn((b, S, HKV, HD), generator=gen,
+                                device='cuda', dtype=torch.bfloat16))
+        lengths = torch.tensor(lens, dtype=torch.int32, device='cuda')
+        q, k, v = make()
+        out = da.decode_attention(q, k, v, lengths, scale)
+        torch.cuda.synchronize()
+        ref = da._reference_decode_attention(q.float(), k.float(),
+                                             v.float(), lengths, scale)
+        err = (out.float() - ref).abs().max().item()
+        ok = err <= K4_TOL and bool(torch.isfinite(out.float()).all())
+        nbytes = (sum(2 * max(n, 1) * HKV * HD * 2 for n in lens)
+                  + 2 * 2 * q.numel() + 4 * b)
+        bound_ms = 1e3 * nbytes / PEAK_HBM_BYTES
+        inputs = copies_outside_l2(make, nbytes, (q, k, v))
+        mask = (torch.arange(S, device='cuda')[None, :] <
+                lengths.clamp(min=1)[:, None])[:, None, None, :]
+
+        def kernel(q, k, v):
+            return da.decode_attention(q, k, v, lengths, scale)
+
+        def plain(q, k, v):
+            return da._reference_decode_attention(q, k, v, lengths, scale)
+
+        def library(q, k, v):
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, scale=scale, enable_gqa=True)
+
+        kernel_ms = graph_ms(torch, kernel, inputs, 200)
+        row = dict(B=b, S=S, lengths=lens, max_abs_err=err, tol=K4_TOL,
+                   ok=ok, kernel_ms=kernel_ms,
+                   plain_ms=graph_ms(torch, plain, inputs, 20),
+                   library_ms=graph_ms(torch, library, inputs, 50),
+                   bound_ms=bound_ms, gbps=nbytes / kernel_ms / 1e6,
+                   kernel_wall_ms=cuda_ms(torch, kernel, inputs, 200))
+        log('K4 ' + json.dumps(row))
+        rows.append(row)
+        del q, k, v, out, ref, inputs
+        torch.cuda.empty_cache()
+    bad = [r for r in rows if not r['ok']]
+    assert not bad, f'K4 disagrees with its plain version: {bad}'
+    main_case = rows[0]
+    return dict(max_abs_err=max(r['max_abs_err'] for r in rows),
+                ms=main_case['kernel_ms'], plain_ms=main_case['plain_ms'],
+                bound_ms=main_case['bound_ms'], bound_by='bytes',
+                library_ms=main_case['library_ms'])
+
+
+# ---------------------------------------------------------------------
+# End-to-end numerics
+# ---------------------------------------------------------------------
+
+
+def e2e_phase(torch):
+    from skypilot_torch.models import convert, decode, llama
+    config = llama.get_config('llama3-8b', n_layers=2)
+    cfg_cpu = dataclasses.replace(config, dtype=torch.float32)
+    params = llama.init_params(config, seed=1, device='cuda')
+    cpu_params = convert.params_from_numpy(
+        convert.params_to_numpy(params), cfg_cpu, device='cpu')
+    gen = torch.Generator().manual_seed(13)
+    prompt = torch.randint(0, config.vocab_size, (1, 256), generator=gen)
+    n_new, max_seq = 9, 512  # the prefill's token + 8 greedy steps
+
+    def first_logits(p, cfg, dev):
+        with torch.inference_mode():
+            cache = decode.init_cache(cfg, 1, max_seq, device=dev)
+            logits, _ = decode.forward_cached(p, prompt.to(dev), cache,
+                                              cfg, last_only=True,
+                                              prefill=True)
+        return logits[0, -1].float().cpu()
+
+    t0 = time.perf_counter()
+    lg = first_logits(params, config, 'cuda')
+    toks_gpu = decode.greedy_generate(params, prompt.cuda(), config, n_new,
+                                      max_seq=max_seq)[0].tolist()
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lc = first_logits(cpu_params, cfg_cpu, 'cpu')
+    toks_cpu = decode.greedy_generate(cpu_params, prompt, cfg_cpu, n_new,
+                                      max_seq=max_seq)[0].tolist()
+    cpu_s = time.perf_counter() - t0
+    err = (lg - lc).abs().max().item()
+    rel = err / lc.abs().max().item()
+    agree = sum(a == b for a, b in zip(toks_gpu, toks_cpu))
+    row = dict(config='llama3-8b', layers=2, prompt=256, max_abs_err=err,
+               rel_err=rel, rel_tol=E2E_REL_TOL,
+               mean_abs_err=(lg - lc).abs().mean().item(),
+               greedy_agree=f'{agree}/{n_new}', gpu_tokens=toks_gpu,
+               cpu_tokens=toks_cpu, gpu_s=gpu_s, cpu_s=cpu_s)
+    log('E2E ' + json.dumps(row))
+    assert bool(torch.isfinite(lg).all()) and lg.shape == lc.shape
+    assert rel <= E2E_REL_TOL, f'end-to-end logits disagree: {row}'
+    del params, cpu_params
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------
+# Serve
+# ---------------------------------------------------------------------
+
+
+def _post(port, body, timeout=600):
+    req = urllib.request.Request(
+        f'http://127.0.0.1:{port}/generate', data=json.dumps(body).encode(),
+        headers={'Content-Type': 'application/json'}, method='POST')
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        status, raw = resp.status, resp.read().decode()
+        ctype = resp.headers.get('Content-Type', '')
+    ms = 1e3 * (time.perf_counter() - t0)
+    if ctype.startswith('text/event-stream'):
+        events = [ln[len('data: '):] for ln in raw.split('\n\n') if ln]
+        assert events[-1] == '[DONE]', raw[-200:]
+        ids = [int(e) for e in events[:-1]]
+    else:
+        ids = json.loads(raw)['output_ids']
+    return status, ids, ms
+
+
+def profile_request(torch, generate, prompt_ids, max_new):
+    """Where a request's time goes: the card's busy time (CUDA-only
+    profiler, so the host runs almost as unprofiled) against the wall
+    clock, and the kernels that take the most device time."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        generate(prompt_ids, max_new)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    log('PROFILE ' + json.dumps(dict(
+        prompt=len(prompt_ids), max_new=max_new, wall_ms=wall_ms,
+        device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
+        top=[dict(name=e.key[:80], calls=e.count,
+                  ms=e.self_device_time_total / 1e3) for e in top])))
+
+
+def serve_phase(torch, attention, da):
+    from skypilot_torch.models import llama
+    from skypilot_torch.recipes import serve_model
+    args = serve_model.parse_args(['--model', 'llama3-8b', '--port', '0',
+                                   '--device', 'cuda'])
+    config = llama.get_config(args.model)
+    t0 = time.perf_counter()
+    server, generate = serve_model.build_server(args)
+    setup_s = time.perf_counter() - t0
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        for _ in range(100):
+            try:
+                with urllib.request.urlopen(f'http://127.0.0.1:{port}/',
+                                            timeout=5) as r:
+                    ready = json.loads(r.read())
+                break
+            except OSError:
+                time.sleep(0.1)
+        else:
+            raise RuntimeError('replica never became ready')
+        assert ready == {'status': 'ok', 'model': 'llama3-8b'}, ready
+        gen = torch.Generator().manual_seed(14)
+        max_new = 32
+        reqs = []
+        for i, n in enumerate((17, 256, 1000, 2048)):
+            ids = torch.randint(0, config.vocab_size, (n,),
+                                generator=gen).tolist()
+            reqs.append({'prompt_ids': ids, 'max_new_tokens': max_new,
+                         'stream': i == 2})
+        torch.cuda.synchronize()
+        attention.FLASH_FWD.launches = 0
+        da.DECODE_ATTENTION.launches = 0
+        results = [_post(port, r) for r in reqs]
+        k1_launches = attention.FLASH_FWD.launches
+        k4_launches = da.DECODE_ATTENTION.launches
+        for (status, ids, _), r in zip(results, reqs):
+            assert status == 200, status
+            assert len(ids) == max_new, (len(ids), max_new)
+            assert all(0 <= t < config.vocab_size for t in ids), ids
+        # Every prefill layer through K1, every decode layer through K4
+        # (the bucket of 32 is one prefill token + 31 decode steps).
+        want_k1 = config.n_layers * len(reqs)
+        want_k4 = config.n_layers * len(reqs) * (max_new - 1)
+        log('SERVE ' + json.dumps(dict(
+            k1_launches=k1_launches, k1_expected=want_k1,
+            k4_launches=k4_launches, k4_expected=want_k4,
+            setup_s=setup_s)))
+        assert k1_launches == want_k1, (k1_launches, want_k1)
+        assert k4_launches == want_k4, (k4_launches, want_k4)
+        # TTFT: the same replica's generate() at max_new_tokens=1 (one
+        # prefill and its argmax) on the same prompts, after the counted
+        # run; per-token time is the rest of the request's latency.
+        weight_bytes = 2 * (config.num_params() -
+                            config.vocab_size * config.dim)
+        for (status, ids, ms), r in zip(results, reqs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            generate(r['prompt_ids'], 1)
+            ttft_ms = 1e3 * (time.perf_counter() - t0)
+            per_tok = (ms - ttft_ms) / (max_new - 1)
+            log('REQ ' + json.dumps(dict(
+                prompt=len(r['prompt_ids']), stream=r['stream'],
+                n_out=len(ids), latency_ms=ms, ttft_ms=ttft_ms,
+                per_token_ms=per_tok,
+                decode_weight_gbps=weight_bytes / per_tok / 1e6)))
+        profile_request(torch, generate, reqs[0]['prompt_ids'], max_new)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
+    return k1_launches, k4_launches
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--phases', default=','.join(PHASES),
+                        help=f'comma-separated subset of {PHASES}')
+    phases = parser.parse_args().phases.split(',')
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: CUDA is not available', file=sys.stderr)
+        return 2
+    try:
+        import torch.nn.functional as F
+
+        from skypilot_torch.ops import _build
+        from skypilot_torch.ops import attention
+        from skypilot_torch.ops import decode_attention as da
+    except ImportError as e:
+        print(f'chip_smoke: the skypilot_torch package is not beside this '
+              f'script ({e})', file=sys.stderr)
+        return 2
+    smi = smi_line()
+    log(f'card: {smi}')
+    log(f'torch {torch.__version__} cuda {torch.version.cuda} '
+        f'python {sys.version.split()[0]} '
+        f'device {torch.cuda.get_device_name(0)}')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f'allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} '
+        f'cudnn={torch.backends.cudnn.allow_tf32}')
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    log(f'kernels built in {time.perf_counter() - t0:.1f} s')
+    for name, path in libs.items():
+        with open(path[:-len('.so')] + '.log', errors='replace') as f:
+            for line in f:
+                if 'registers' in line or 'spill' in line:
+                    log(f'  {name}: {line.strip()}')
+    k1 = k4 = None
+    if 'k1' in phases:
+        k1 = k1_phase(torch, F, attention)
+    if 'k4' in phases:
+        k4 = k4_phase(torch, F, da)
+    if 'e2e' in phases:
+        e2e_phase(torch)
+    if 'serve' in phases:
+        k1_n, k4_n = serve_phase(torch, attention, da)
+    if set(phases) != set(PHASES):
+        return 0
+    kernels = [
+        dict(name='flash_fwd', route='cuda',
+             source='skypilot_torch/csrc/flash_fwd.cu',
+             replaces='skypilot_tpu/ops/attention.py:170', launches=k1_n,
+             **k1),
+        dict(name='decode_attention', route='cuda',
+             source='skypilot_torch/csrc/decode_attention.cu',
+             replaces='skypilot_tpu/ops/decode_attention.py:123',
+             launches=k4_n, **k4),
+    ]
+    log(smi)  # the card's name and power limit, as nvidia-smi gives them
+    log(json.dumps({'kernels': kernels}))
+    log(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

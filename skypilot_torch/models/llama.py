@@ -1,0 +1,296 @@
+"""Llama 3.x family in PyTorch — the port of
+``skypilot_tpu/models/llama.py``.
+
+Params are a plain dict of tensors in the JAX package's layout: layer
+weights STACKED along a leading ``[L, ...]`` axis and every projection
+oriented ``[in, out]`` (``x @ w``), so a JAX params tree maps onto
+this one key for key (``models/convert.py``). Only the serving-side
+pieces are here so far: configs, init, the norm/RoPE/activation
+helpers and the output head. The training forward and loss come with
+the training slice; MoE configs raise until the MoE slice (see
+ROADMAP.md).
+"""
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from skypilot_torch import device as device_lib
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    """Field for field the JAX ``LlamaConfig``; ``dtype`` is the torch
+    compute dtype (``torch.bfloat16`` or ``torch.float32``)."""
+    name: str
+    vocab_size: int
+    dim: int
+    n_layers: int
+    n_heads: int
+    n_kv_heads: int
+    ffn_hidden: int
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    max_seq_len: int = 8192
+    dtype: torch.dtype = torch.bfloat16
+    rope_scaling: bool = False
+    remat: bool = True
+    remat_saves: str = 'attn'
+    head_dim_override: Optional[int] = None
+    mlp_activation: str = 'silu'
+    tie_embeddings: bool = False
+    norm_offset: bool = False
+    scale_embeddings: bool = False
+    qkv_bias: bool = False
+    n_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 2.0
+    moe_aux_coef: float = 0.02
+
+    def __post_init__(self):
+        unknown = set(self.remat_saves.split('+')) - {
+            'attn', 'mlp', 'mlp_up', 'qkv'}
+        if unknown:
+            raise ValueError(
+                f'unknown remat_saves token(s) {sorted(unknown)} in '
+                f'{self.remat_saves!r}; valid: attn, mlp, mlp_up, qkv')
+        if self.mlp_activation not in ('silu', 'gelu_tanh'):
+            raise ValueError(
+                f'unknown mlp_activation {self.mlp_activation!r}')
+
+    @property
+    def head_dim(self) -> int:
+        if self.head_dim_override is not None:
+            return self.head_dim_override
+        return self.dim // self.n_heads
+
+    def num_params(self) -> int:
+        d, v, h = self.dim, self.vocab_size, self.ffn_hidden
+        nh, nkv, hd = self.n_heads, self.n_kv_heads, self.head_dim
+        mlp = 3 * d * h
+        if self.n_experts:
+            mlp = self.n_experts * mlp + d * self.n_experts
+        per_layer = (
+            d * nh * hd + 2 * d * nkv * hd + nh * hd * d +
+            mlp + 2 * d)
+        if self.qkv_bias:
+            per_layer += (nh + 2 * nkv) * hd
+        head = 0 if self.tie_embeddings else v * d
+        return v * d + head + self.n_layers * per_layer + d
+
+
+CONFIGS: Dict[str, LlamaConfig] = {
+    'llama3-8b': LlamaConfig(
+        name='llama3-8b', vocab_size=128256, dim=4096, n_layers=32,
+        n_heads=32, n_kv_heads=8, ffn_hidden=14336,
+        rope_theta=500000.0),
+    'llama3.1-8b': LlamaConfig(
+        name='llama3.1-8b', vocab_size=128256, dim=4096, n_layers=32,
+        n_heads=32, n_kv_heads=8, ffn_hidden=14336,
+        rope_theta=500000.0, rope_scaling=True, max_seq_len=131072),
+    'llama3.2-1b': LlamaConfig(
+        name='llama3.2-1b', vocab_size=128256, dim=2048, n_layers=16,
+        n_heads=32, n_kv_heads=8, ffn_hidden=8192,
+        rope_theta=500000.0, rope_scaling=True),
+    'llama2-7b': LlamaConfig(
+        name='llama2-7b', vocab_size=32000, dim=4096, n_layers=32,
+        n_heads=32, n_kv_heads=32, ffn_hidden=11008,
+        rope_theta=10000.0, max_seq_len=4096),
+    'gemma-2b': LlamaConfig(
+        name='gemma-2b', vocab_size=256000, dim=2048, n_layers=18,
+        n_heads=8, n_kv_heads=1, ffn_hidden=16384,
+        head_dim_override=256, rope_theta=10000.0, max_seq_len=8192,
+        mlp_activation='gelu_tanh', tie_embeddings=True,
+        norm_offset=True, scale_embeddings=True),
+    'gemma-7b': LlamaConfig(
+        name='gemma-7b', vocab_size=256000, dim=3072, n_layers=28,
+        n_heads=16, n_kv_heads=16, ffn_hidden=24576,
+        head_dim_override=256, rope_theta=10000.0, max_seq_len=8192,
+        mlp_activation='gelu_tanh', tie_embeddings=True,
+        norm_offset=True, scale_embeddings=True),
+    'qwen2.5-7b': LlamaConfig(
+        name='qwen2.5-7b', vocab_size=152064, dim=3584, n_layers=28,
+        n_heads=28, n_kv_heads=4, ffn_hidden=18944,
+        rope_theta=1000000.0, max_seq_len=32768, qkv_bias=True),
+    'qwen2.5-1.5b': LlamaConfig(
+        name='qwen2.5-1.5b', vocab_size=151936, dim=1536, n_layers=28,
+        n_heads=12, n_kv_heads=2, ffn_hidden=8960,
+        rope_theta=1000000.0, max_seq_len=32768, qkv_bias=True,
+        tie_embeddings=True),
+    'mistral-7b': LlamaConfig(
+        name='mistral-7b', vocab_size=32000, dim=4096, n_layers=32,
+        n_heads=32, n_kv_heads=8, ffn_hidden=14336,
+        rope_theta=10000.0, max_seq_len=8192),
+    'mixtral-8x7b': LlamaConfig(
+        name='mixtral-8x7b', vocab_size=32000, dim=4096, n_layers=32,
+        n_heads=32, n_kv_heads=8, ffn_hidden=14336,
+        rope_theta=1000000.0, max_seq_len=32768,
+        n_experts=8, moe_top_k=2),
+    'debug-250m': LlamaConfig(
+        name='debug-250m', vocab_size=32000, dim=1024, n_layers=8,
+        n_heads=16, n_kv_heads=4, ffn_hidden=2816),
+    'tiny': LlamaConfig(
+        name='tiny', vocab_size=512, dim=128, n_layers=2, n_heads=4,
+        n_kv_heads=2, ffn_hidden=256, max_seq_len=512,
+        dtype=torch.float32, remat=False),
+    'tiny-moe': LlamaConfig(
+        name='tiny-moe', vocab_size=512, dim=128, n_layers=2,
+        n_heads=4, n_kv_heads=2, ffn_hidden=256, max_seq_len=512,
+        dtype=torch.float32, remat=False, n_experts=4, moe_top_k=2),
+}
+
+
+def get_config(name: str, **overrides) -> LlamaConfig:
+    cfg = CONFIGS[name]
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg
+
+
+def require_dense(config: LlamaConfig) -> None:
+    """Raise for configs this slice of the port cannot run yet."""
+    if config.n_experts:
+        raise NotImplementedError(
+            f'{config.name}: MoE layers (n_experts={config.n_experts}) '
+            'are not ported yet; they come with the MoE slice in '
+            'ROADMAP.md (Queue 1, "MoE")')
+
+
+# ---------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------
+
+
+def init_params(config: LlamaConfig, seed: int = 0,
+                dtype: Optional[torch.dtype] = None,
+                device=None) -> Params:
+    """Random params in the JAX package's layout (stacked ``[L, ...]``,
+    ``[in, out]`` projections): ``normal / sqrt(fan_in)`` drawn in f32
+    from an explicit ``torch.Generator`` seeded with ``seed``, then
+    cast to ``dtype`` (default ``config.dtype``). Norms init to ones
+    (zeros under ``norm_offset``), q/k/v biases to zeros.
+
+    The draws differ from ``jax.random`` for the same seed; tests carry
+    JAX's weights across with ``convert.params_from_numpy`` instead.
+    Stacked weights are drawn one layer at a time so the f32 temporary
+    is one layer's slice, not the whole stack (8B: ~0.2 GB, not 7.5).
+    """
+    require_dense(config)
+    dev = device_lib.resolve_device(device)
+    dtype = dtype or config.dtype
+    d = config.dim
+    hd = config.head_dim
+    nh, nkv = config.n_heads, config.n_kv_heads
+    ffn = config.ffn_hidden
+    L = config.n_layers
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def dense(shape, fan_in):
+        scale = 1.0 / math.sqrt(fan_in)
+        return (torch.randn(shape, generator=gen, device=dev,
+                            dtype=torch.float32) * scale).to(dtype)
+
+    def stacked(shape, fan_in):
+        out = torch.empty((L,) + shape, dtype=dtype, device=dev)
+        for i in range(L):
+            out[i] = dense(shape, fan_in)
+        return out
+
+    def norm_init(shape):
+        fill = torch.zeros if config.norm_offset else torch.ones
+        return fill(shape, dtype=dtype, device=dev)
+
+    params: Params = {
+        'embed': dense((config.vocab_size, d), d),
+        'layers': {
+            'wq': stacked((d, nh * hd), d),
+            'wk': stacked((d, nkv * hd), d),
+            'wv': stacked((d, nkv * hd), d),
+            'wo': stacked((nh * hd, d), nh * hd),
+            'w_gate': stacked((d, ffn), d),
+            'w_up': stacked((d, ffn), d),
+            'w_down': stacked((ffn, d), ffn),
+            'attn_norm': norm_init((L, d)),
+            'mlp_norm': norm_init((L, d)),
+        },
+        'final_norm': norm_init((d,)),
+    }
+    if config.qkv_bias:
+        for name, width in (('bq', nh * hd), ('bk', nkv * hd),
+                            ('bv', nkv * hd)):
+            params['layers'][name] = torch.zeros((L, width), dtype=dtype,
+                                                 device=dev)
+    if not config.tie_embeddings:
+        params['lm_head'] = dense((d, config.vocab_size), d)
+    return params
+
+
+# ---------------------------------------------------------------------
+# Forward helpers
+# ---------------------------------------------------------------------
+
+
+def matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w for plain weights. int8 ``{'q', 's'}`` weights come with
+    the int8 slice (ROADMAP.md)."""
+    if isinstance(w, dict):
+        raise NotImplementedError(
+            'int8 {q, s} weights are not ported yet (int8 slice in '
+            'ROADMAP.md)')
+    return x @ w
+
+
+def _rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+              offset: bool = False) -> torch.Tensor:
+    xf = x.float()
+    norm = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    w = weight.float()
+    if offset:
+        w = 1.0 + w  # Gemma's zero-centered norm weights
+    return (norm * w).to(x.dtype)
+
+
+def _rope_frequencies(config: LlamaConfig, positions: torch.Tensor
+                      ) -> torch.Tensor:
+    """[T, head_dim/2] f32 rotation angles for ``positions`` [T]."""
+    hd = config.head_dim
+    exponent = torch.arange(0, hd, 2, dtype=torch.float32,
+                            device=positions.device) / hd
+    freqs = 1.0 / torch.pow(config.rope_theta, exponent)
+    if config.rope_scaling:
+        # Llama-3.1 NTK-style frequency scaling (factor 8, low/high
+        # freq cutoffs 1 and 4, original context 8192).
+        factor, low, high, orig = 8.0, 1.0, 4.0, 8192.0
+        wavelen = 2.0 * math.pi / freqs
+        ratio = orig / wavelen
+        smooth = torch.clamp((ratio - low) / (high - low), 0.0, 1.0)
+        freqs = torch.where(ratio < low, freqs / factor,
+                            torch.where(ratio > high, freqs,
+                                        (1 - smooth) * freqs / factor +
+                                        smooth * freqs))
+    return positions.float()[:, None] * freqs[None, :]
+
+
+def mlp_act(config: LlamaConfig) -> Callable[[torch.Tensor],
+                                             torch.Tensor]:
+    """The family's gated-MLP activation."""
+    if config.mlp_activation == 'silu':
+        return F.silu
+    return lambda x: F.gelu(x, approximate='tanh')
+
+
+def output_head(params: Params, config: LlamaConfig) -> torch.Tensor:
+    """[D, V] output projection — the transposed embedding when the
+    config ties them."""
+    if config.tie_embeddings:
+        return params['embed'].to(config.dtype).T
+    head = params['lm_head']
+    if isinstance(head, dict):
+        raise NotImplementedError(
+            'int8 lm_head is not ported yet (int8 slice in ROADMAP.md)')
+    return head.to(config.dtype)
