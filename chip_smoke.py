@@ -21,6 +21,19 @@ in order (any failure exits non-zero; nothing is caught):
    four requests over HTTP; the kernels' launch counts are zeroed just
    before and read just after, and must equal layers x prefills (K1)
    and layers x decode steps (K4).
+6. K1R (flash_fwd with fused RoPE): the training shapes (B 1 and 8,
+   T = S = 2048, and a ragged 1000) against ``_flash_fwd_plain`` in f32
+   with the same llama3-8b tables; library: SDPA after ``apply_rope``.
+7. BWD (flash_bwd_dq, flash_bwd_dkv): the same shapes with RoPE and a
+   T > S case without, against ``_flash_bwd_plain`` in f32 (rows that
+   see no key must get dq exactly 0); library: SDPA's backward.
+8. Train: llama3-8b at 2 layers, bf16 on the card vs f32 on the CPU
+   (LoRA loss and adapter gradients, one full-finetune step's loss and
+   grad_norm); then ``recipes/finetune`` at llama3-8b, 32 layers, bf16
+   base + LoRA rank 16, seq 2048, batch 8: one warm-up step, three
+   counted steps (K1-RoPE = 2 x 32 x 3 with the checkpoint's recompute,
+   K2 = K3 = 32 x 3), step time, tokens/s, peak memory, and a CUDA-only
+   profile of one more step.
 
 Then one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line. ``--phases`` runs a subset (no
@@ -40,10 +53,17 @@ import urllib.request
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 L2_BYTES = 50 * 2 ** 20
-PHASES = ('k1', 'k4', 'e2e', 'serve')
+PHASES = ('k1', 'k4', 'e2e', 'serve', 'k1r', 'bwd', 'train')
 K1_TOL = {'out': 2e-2, 'lse': 2e-2}
+# K2/K3 in bf16 (P and dS rounded to bf16 before their products) against
+# f32: max |err| over max |ref| per gradient.
+BWD_REL_TOL = 3e-2
 K4_TOL = 2e-2
 E2E_REL_TOL = 5e-2
+# bf16 on the card vs f32 on the CPU at 2 layers: relative loss error,
+# max |err| / max |ref| per LoRA gradient, relative loss and grad_norm
+# error of one full-finetune step (its grad_norm is bf16, as optax's).
+TRAIN_TOL = {'loss': 1e-2, 'grad': 5e-2, 'full_ft': 2e-2}
 
 
 def log(*a):
@@ -108,6 +128,33 @@ def copies_outside_l2(make, nbytes, first):
     return [first] + [make() for _ in range(n - 1)]
 
 
+def _visible_pairs(t, s):
+    """(q, k) pairs the causal bottom-right mask leaves visible."""
+    return sum(min(max(i + (s - t) + 1, 0), s) for i in range(t))
+
+
+def profile_cuda(torch, fn, label, extra):
+    """Where ``fn``'s time goes: the card's busy time (CUDA-only
+    profiler, so the host runs almost as unprofiled) against the wall
+    clock, and the kernels that take the most device time."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    log(label + ' ' + json.dumps(dict(
+        extra, wall_ms=wall_ms, device_busy_ms=busy_ms,
+        device_idle_share=1 - busy_ms / wall_ms,
+        top=[dict(name=e.key[:80], calls=e.count,
+                  ms=e.self_device_time_total / 1e3) for e in top])))
+
+
 # ---------------------------------------------------------------------
 # K1
 # ---------------------------------------------------------------------
@@ -145,9 +192,7 @@ def k1_phase(torch, F, attention):
         assert not bool(out[empty.transpose(1, 2)].any())
         ok = (err_out <= K1_TOL['out'] and err_lse <= K1_TOL['lse']
               and bool(torch.isfinite(out.float()).all()))
-        # Visible (q, k) pairs under bottom-right causal alignment.
-        vis = torch.clamp(torch.arange(t) + (s - t) + 1, 0, s).sum().item()
-        flops = 4 * b * H * D * vis
+        flops = 4 * b * H * D * _visible_pairs(t, s)
         nbytes = (2 * (q.numel() + k.numel() + v.numel() + out.numel())
                   + 4 * lse.numel())
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
@@ -198,6 +243,387 @@ def k1_phase(torch, F, attention):
                 bound_ms=main_case['bound_ms'],
                 bound_by=main_case['bound_by'],
                 library_ms=main_case['library_ms'])
+
+
+# ---------------------------------------------------------------------
+# K1 with fused RoPE, K2 and K3 (the training slice's attention)
+# ---------------------------------------------------------------------
+
+# (B, T, S): the training step's shape (B 8, seq 2048), batch 1, and a
+# ragged length; RoPE needs T == S.
+TRAIN_ATTN_CASES = [(1, 2048, 2048), (8, 2048, 2048), (1, 1000, 1000)]
+
+
+def _attn_inputs(torch, gen, b, t, s, with_do=False):
+    H, HKV, D = 32, 8, 128
+    shapes = [(b, t, H, D), (b, s, HKV, D), (b, s, HKV, D)]
+    if with_do:
+        shapes.append((b, t, H, D))
+    return tuple(torch.randn(sh, generator=gen, device='cuda',
+                             dtype=torch.bfloat16) for sh in shapes)
+
+
+def _llama_tables(torch, attention, t):
+    from skypilot_torch.models import llama
+    config = llama.get_config('llama3-8b')
+    angles = llama._rope_frequencies(
+        config, torch.arange(t, device='cuda'))
+    cos, sin = attention.rope_tables(angles)
+    return angles, cos, sin
+
+
+def k1r_phase(torch, F, attention):
+    """K1's fused-RoPE entry against the f32 plain version with the same
+    llama3-8b tables."""
+    H, D = 32, 128
+    scale = D ** -0.5
+    gen = torch.Generator(device='cuda').manual_seed(15)
+    rows = []
+    for b, t, s in TRAIN_ATTN_CASES:
+        angles, cos, sin = _llama_tables(torch, attention, t)
+
+        def make(b=b, t=t, s=s):
+            return _attn_inputs(torch, gen, b, t, s)
+        q, k, v = make()
+        before = attention.FLASH_FWD.launches
+        out, lse = attention.flash_attention_fwd(q, k, v, True, scale, cos,
+                                                 sin)
+        torch.cuda.synchronize()
+        assert attention.FLASH_FWD.launches == before  # the RoPE entry ran
+        ref_out, ref_lse = attention._flash_fwd_plain(
+            q.float(), k.float(), v.float(), True, scale, cos, sin)
+        err_out = (out.float() - ref_out).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        ok = (err_out <= K1_TOL['out'] and err_lse <= K1_TOL['lse']
+              and bool(torch.isfinite(out.float()).all()))
+        flops = 4 * b * H * D * _visible_pairs(t, s)
+        nbytes = (2 * (q.numel() + k.numel() + v.numel() + out.numel())
+                  + 4 * (lse.numel() + cos.numel() + sin.numel()))
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+        inputs = copies_outside_l2(make, nbytes, (q, k, v))
+        iters = 10 if b * t >= 2 ** 14 else 30
+
+        def kernel(q, k, v):
+            return attention.flash_attention_fwd(q, k, v, True, scale, cos,
+                                                 sin)
+
+        def plain(q, k, v):
+            return attention._flash_fwd_plain(q, k, v, True, scale, cos,
+                                              sin)
+
+        def library(q, k, v):
+            qr = attention.apply_rope(q, angles).transpose(1, 2)
+            kr = attention.apply_rope(k, angles).transpose(1, 2)
+            return F.scaled_dot_product_attention(
+                qr, kr, v.transpose(1, 2), is_causal=True, scale=scale,
+                enable_gqa=True)
+
+        kernel_ms = graph_ms(torch, kernel, inputs, iters)
+        row = dict(B=b, T=t, S=s, rope=True, max_abs_err_out=err_out,
+                   max_abs_err_lse=err_lse, tol=K1_TOL, ok=ok,
+                   kernel_ms=kernel_ms,
+                   plain_ms=graph_ms(torch, plain, inputs[:1], 2),
+                   library_ms=graph_ms(torch, library, inputs, iters),
+                   library='apply_rope x2 + SDPA (GQA, causal)',
+                   bound_ms=1e3 * max(t_ops, t_bytes),
+                   bound_by='operations' if t_ops >= t_bytes else 'bytes',
+                   tflops=flops / kernel_ms / 1e9)
+        log('K1R ' + json.dumps(row))
+        rows.append(row)
+        del q, k, v, out, lse, ref_out, ref_lse, inputs
+        torch.cuda.empty_cache()
+    bad = [r for r in rows if not r['ok']]
+    assert not bad, f'K1 with RoPE disagrees with its plain version: {bad}'
+    main_case = next(r for r in rows if r['B'] == 8)
+    return dict(max_abs_err=max(max(r['max_abs_err_out'],
+                                    r['max_abs_err_lse']) for r in rows),
+                B=8, T=2048, S=2048, ms=main_case['kernel_ms'],
+                plain_ms=main_case['plain_ms'],
+                bound_ms=main_case['bound_ms'],
+                bound_by=main_case['bound_by'],
+                library_ms=main_case['library_ms'])
+
+
+def bwd_phase(torch, F, attention):
+    """K2 (dq) and K3 (dk, dv) against ``_flash_bwd_plain`` in f32 on the
+    same inputs (q/k/v/dO random, out/lse from K1), causal with RoPE;
+    plus a T > S case without RoPE whose first T - S rows see no key."""
+    H, D = 32, 128
+    scale = D ** -0.5
+    gen = torch.Generator(device='cuda').manual_seed(16)
+    cases = [(b, t, s, True) for b, t, s in TRAIN_ATTN_CASES]
+    cases.append((1, 1000, 512, False))
+    rows = []
+    for b, t, s, rope in cases:
+        cos = sin = angles = None
+        if rope:
+            angles, cos, sin = _llama_tables(torch, attention, t)
+
+        def make(b=b, t=t, s=s):
+            q, k, v, do = _attn_inputs(torch, gen, b, t, s, with_do=True)
+            out, lse = attention.flash_attention_fwd(q, k, v, True, scale,
+                                                     cos, sin)
+            delta = (do.float() * out.float()).sum(-1).transpose(
+                1, 2).contiguous()
+            return q, k, v, out, lse, do, delta
+        q, k, v, out, lse, do, delta = make()
+        dq, dk, dv = attention.flash_attention_bwd(q, k, v, out, lse, do,
+                                                   cos, sin, True, scale)
+        torch.cuda.synchronize()
+        ref = attention._flash_bwd_plain(q.float(), k.float(), v.float(),
+                                         out.float(), lse, do.float(), cos,
+                                         sin, True, scale)
+        rel = {}
+        for name, got, want in zip(('dq', 'dk', 'dv'), (dq, dk, dv), ref):
+            rel[name] = ((got.float() - want).abs().max() /
+                         want.abs().max()).item()
+        finite = all(bool(torch.isfinite(x.float()).all())
+                     for x in (dq, dk, dv))
+        ok = finite and max(rel.values()) <= BWD_REL_TOL
+        if t > s:
+            # Rows q_pos < T - S see no key: their dq is exactly 0.
+            ok = ok and not bool(dq[:, :t - s].any())
+        vis = _visible_pairs(t, s)
+        io = 2 * (q.numel() + 2 * k.numel() + do.numel()) + 4 * 2 * lse.numel()
+        if rope:
+            io += 4 * (cos.numel() + sin.numel())
+        bounds = {}
+        for name, products, nbytes in (
+                ('dq', 3, io + 2 * q.numel()),
+                ('dkv', 4, io + 4 * k.numel())):
+            t_ops = 2 * products * b * H * D * vis / PEAK_BF16_FLOPS
+            t_bytes = nbytes / PEAK_HBM_BYTES
+            bounds[name] = (1e3 * max(t_ops, t_bytes),
+                            'operations' if t_ops >= t_bytes else 'bytes')
+        inputs = copies_outside_l2(
+            make, io, (q, k, v, out, lse, do, delta))
+        iters = 10 if b * t >= 2 ** 14 else 30
+
+        def one(kernel, outs_like):
+            def run(q, k, v, out, lse, do, delta):
+                outs = tuple(torch.empty_like(x) for x in outs_like)
+                attention._bwd_launch(kernel, q, k, v, do, lse, delta, cos,
+                                      sin, outs, True, scale)
+            return run
+
+        def plain(q, k, v, out, lse, do, delta):
+            return attention._flash_bwd_plain(q, k, v, out, lse, do, cos,
+                                              sin, True, scale)
+
+        row = dict(B=b, T=t, S=s, rope=rope, rel_err=rel, rel_tol=BWD_REL_TOL,
+                   ok=ok,
+                   dq_ms=graph_ms(torch, one(attention.FLASH_BWD_DQ, (q,)),
+                                  inputs, iters),
+                   dkv_ms=graph_ms(torch,
+                                   one(attention.FLASH_BWD_DKV, (k, v)),
+                                   inputs, iters),
+                   dq_bound_ms=bounds['dq'][0], dq_bound_by=bounds['dq'][1],
+                   dkv_bound_ms=bounds['dkv'][0],
+                   dkv_bound_by=bounds['dkv'][1])
+        row['plain_ms'] = graph_ms(torch, plain, inputs[:1], 2)
+        row['backward_ms'] = graph_ms(
+            torch, lambda *a: attention.flash_attention_bwd(
+                a[0], a[1], a[2], a[3], a[4], a[5], cos, sin, True, scale),
+            inputs, iters)
+        row['library_ms'] = _sdpa_backward_ms(torch, F, attention, q, k, v,
+                                              do, angles, scale, iters)
+        log('BWD ' + json.dumps(row))
+        rows.append(row)
+        del q, k, v, out, lse, do, delta, dq, dk, dv, ref, inputs
+        torch.cuda.empty_cache()
+    bad = [r for r in rows if not r['ok']]
+    assert not bad, f'K2/K3 disagree with their plain version: {bad}'
+    main_case = next(r for r in rows if r['B'] == 8)
+    common = dict(B=8, T=2048, S=2048, plain_ms=main_case['plain_ms'],
+                  plain_of='dq, dk and dv together',
+                  library_ms=main_case['library_ms'],
+                  library_of='dq, dk and dv together (SDPA backward)')
+    dq = dict(common, max_abs_err=max(r['rel_err']['dq'] for r in rows),
+              err_is='max |err| / max |ref|', ms=main_case['dq_ms'],
+              bound_ms=main_case['dq_bound_ms'],
+              bound_by=main_case['dq_bound_by'])
+    dkv = dict(common, max_abs_err=max(max(r['rel_err']['dk'],
+                                           r['rel_err']['dv'])
+                                       for r in rows),
+               err_is='max |err| / max |ref|', ms=main_case['dkv_ms'],
+               bound_ms=main_case['dkv_bound_ms'],
+               bound_by=main_case['dkv_bound_by'])
+    return dq, dkv
+
+
+def _sdpa_backward_ms(torch, F, attention, q, k, v, do, angles, scale,
+                      iters):
+    """Device ms of one backward of PyTorch's SDPA (GQA, causal, after
+    an external RoPE when ``angles``) through autograd, forward excluded;
+    timed only, the port never calls it."""
+    q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+    qr, kr = q, k
+    if angles is not None:
+        qr, kr = attention.apply_rope(q, angles), attention.apply_rope(
+            k, angles)
+    t, s = q.shape[1], k.shape[1]
+    mask = None
+    if t != s:
+        mask = (torch.arange(s, device='cuda')[None, :] <=
+                torch.arange(t, device='cuda')[:, None] + (s - t))
+    out = F.scaled_dot_product_attention(
+        qr.transpose(1, 2), kr.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, is_causal=mask is None, scale=scale,
+        enable_gqa=True)
+    grad = do.transpose(1, 2)
+
+    def backward():
+        torch.autograd.grad(out, (q, k, v), grad, retain_graph=True)
+    return cuda_ms(torch, backward, [()], iters)
+
+
+# ---------------------------------------------------------------------
+# Train: numerics at 2 layers, then the 8B LoRA finetune itself
+# ---------------------------------------------------------------------
+
+
+def _train_numerics(torch):
+    """llama3-8b widths at 2 layers: bf16 on the card against the same
+    weights in f32 on the CPU (plain paths), LoRA rank 16 with a
+    non-zero B (loss and every adapter gradient), then one full-finetune
+    step (loss and grad_norm)."""
+    from skypilot_torch.models import convert, llama
+    from skypilot_torch.parallel import lora as lora_lib
+    from skypilot_torch.parallel import train as train_lib
+    config = llama.get_config('llama3-8b', n_layers=2)
+    cfg_cpu = dataclasses.replace(config, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(17)
+    tokens = torch.randint(0, config.vocab_size, (1, 257), generator=gen)
+    params = llama.init_params(config, seed=2, device='cuda')
+    cpu_params = convert.params_from_numpy(
+        convert.params_to_numpy(params), cfg_cpu, device='cpu')
+    lora = lora_lib.init_lora(config, seed=3, rank=16, dtype=torch.bfloat16,
+                              device='cuda')
+    for name in ('wq_b', 'wv_b'):
+        lora[name] = (0.02 * torch.randn(lora[name].shape, generator=gen)
+                      ).to('cuda', torch.bfloat16)
+
+    def lora_grads(p, lo, cfg, dev):
+        lo = {k: v.detach().to(dev, cfg.dtype).requires_grad_(True)
+              for k, v in lo.items()}
+        loss = llama.loss_fn(p, {'tokens': tokens.to(dev)}, cfg, lora=lo,
+                             lora_scale=2.0)
+        grads = torch.autograd.grad(loss, list(lo.values()))
+        return loss.item(), {k: g.float().cpu() for k, g in zip(lo, grads)}
+
+    t0 = time.perf_counter()
+    gpu_loss, gpu_grads = lora_grads(params, lora, config, 'cuda')
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = lora_grads(cpu_params, lora, cfg_cpu, 'cpu')
+    cpu_s = time.perf_counter() - t0
+    rel = {k: ((gpu_grads[k] - cpu_grads[k]).abs().max() /
+               cpu_grads[k].abs().max()).item() for k in cpu_grads}
+    loss_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+
+    # One full-finetune step from the same weights on both sides.
+    step = train_lib.build_train_step(config)
+    batch = {'tokens': tokens}
+    _, gpu_m = step(train_lib.TrainState(
+        0, params, train_lib.default_optimizer().init(params)),
+        {'tokens': tokens.cuda()})
+    _, cpu_m = step(train_lib.TrainState(
+        0, cpu_params, train_lib.default_optimizer().init(cpu_params)),
+        batch)
+    ft = {k: (gpu_m[k].float().item(), cpu_m[k].float().item())
+          for k in ('loss', 'grad_norm')}
+    ft_rel = {k: abs(a - b) / abs(b) for k, (a, b) in ft.items()}
+    row = dict(config='llama3-8b', layers=2, B=1, T=256, lora_rank=16,
+               loss_gpu=gpu_loss, loss_cpu=cpu_loss, loss_rel_err=loss_rel,
+               lora_grad_rel_err=rel, full_ft=ft, full_ft_rel_err=ft_rel,
+               tol=TRAIN_TOL, gpu_s=gpu_s, cpu_s=cpu_s)
+    log('TRAIN_NUMERICS ' + json.dumps(row))
+    assert math.isfinite(gpu_loss) and all(
+        math.isfinite(a) for a, _ in ft.values())
+    assert loss_rel <= TRAIN_TOL['loss'], row
+    assert max(rel.values()) <= TRAIN_TOL['grad'], row
+    assert max(ft_rel.values()) <= TRAIN_TOL['full_ft'], row
+    del params, cpu_params, lora, gpu_grads, cpu_grads
+
+
+def train_phase(torch, attention):
+    """The training slice: ``recipes/finetune`` at llama3-8b (32 layers,
+    bf16 base + bf16 LoRA rank 16, seq 2048, batch 8, synthetic tokens),
+    one warm-up step, then three steps with the kernels' launch counts
+    zeroed just before and read just after."""
+    import gc
+
+    from skypilot_torch.recipes import finetune
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train_numerics(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = finetune.parse_args([
+        '--model', 'llama3-8b', '--seq', '2048', '--batch', '8',
+        '--lora-rank', '16', '--param-dtype', 'bf16', '--synthetic',
+        '--device', 'cuda'])
+    t0 = time.perf_counter()
+    config, state, step_fn, batches, dev = finetune.build(args)
+    setup_s = time.perf_counter() - t0
+    batch = {'tokens': torch.from_numpy(next(batches)).to(dev)}
+    t0 = time.perf_counter()
+    state, metrics = step_fn(state, batch)
+    warm = dict(loss=float(metrics['loss']),
+                grad_norm=float(metrics['grad_norm']),
+                ms=1e3 * (time.perf_counter() - t0))
+    kernels = {'flash_fwd': attention.FLASH_FWD,
+               'flash_fwd_rope': attention.FLASH_FWD_ROPE,
+               'flash_bwd_dq': attention.FLASH_BWD_DQ,
+               'flash_bwd_dkv': attention.FLASH_BWD_DKV}
+    n_steps = 3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    steps = []
+    for _ in range(n_steps):
+        batch = {'tokens': torch.from_numpy(next(batches)).to(dev)}
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics['loss'])  # waits for the step
+        steps.append(dict(ms=1e3 * (time.perf_counter() - t0), loss=loss,
+                          grad_norm=float(metrics['grad_norm'])))
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    tokens_per_step = args.batch * args.seq
+    total_s = sum(s['ms'] for s in steps) / 1e3
+    L = config.n_layers
+    # Under per-layer checkpointing backward runs each layer's forward
+    # (K1) again before K2 and K3.
+    fwd_per_layer = 2 if config.remat else 1
+    want = {'flash_fwd': 0, 'flash_fwd_rope': fwd_per_layer * L * n_steps,
+            'flash_bwd_dq': L * n_steps, 'flash_bwd_dkv': L * n_steps}
+    tokens_per_s = n_steps * tokens_per_step / total_s
+    # The reference's MFU convention (metrics/goodput.py): 4 N FLOPs per
+    # token for a LoRA step over a frozen base (6 N for a full finetune),
+    # N = every parameter, against the bf16 peak.
+    mfu = tokens_per_s * 4 * config.num_params() / PEAK_BF16_FLOPS
+    log('TRAIN ' + json.dumps(dict(
+        model=args.model, layers=L, seq=args.seq, batch=args.batch,
+        lora_rank=args.lora_rank, param_dtype=args.param_dtype,
+        setup_s=setup_s, warmup=warm, steps=steps,
+        step_ms_mean=1e3 * total_s / n_steps, tokens_per_s=tokens_per_s,
+        mfu_4n=mfu, max_memory_allocated_gb=peak / 1e9,
+        launches=launches, launches_expected=want)))
+    assert all(math.isfinite(s['loss']) and math.isfinite(s['grad_norm'])
+               for s in steps + [warm]), steps
+    assert launches == want, (launches, want)
+
+    def one_step():
+        nonlocal state
+        b = {'tokens': torch.from_numpy(next(batches)).to(dev)}
+        state, m = step_fn(state, b)
+        float(m['loss'])
+    profile_cuda(torch, one_step, 'TRAIN_PROFILE',
+                 dict(model=args.model, seq=args.seq, batch=args.batch))
+    del state, metrics
+    return dict(launches=launches)
 
 
 # ---------------------------------------------------------------------
@@ -341,28 +767,6 @@ def _post(port, body, timeout=600):
     return status, ids, ms
 
 
-def profile_request(torch, generate, prompt_ids, max_new):
-    """Where a request's time goes: the card's busy time (CUDA-only
-    profiler, so the host runs almost as unprofiled) against the wall
-    clock, and the kernels that take the most device time."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        generate(prompt_ids, max_new)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    log('PROFILE ' + json.dumps(dict(
-        prompt=len(prompt_ids), max_new=max_new, wall_ms=wall_ms,
-        device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
-        top=[dict(name=e.key[:80], calls=e.count,
-                  ms=e.self_device_time_total / 1e3) for e in top])))
-
-
 def serve_phase(torch, attention, da):
     from skypilot_torch.models import llama
     from skypilot_torch.recipes import serve_model
@@ -431,7 +835,10 @@ def serve_phase(torch, attention, da):
                 n_out=len(ids), latency_ms=ms, ttft_ms=ttft_ms,
                 per_token_ms=per_tok,
                 decode_weight_gbps=weight_bytes / per_tok / 1e6)))
-        profile_request(torch, generate, reqs[0]['prompt_ids'], max_new)
+        prompt_ids = reqs[0]['prompt_ids']
+        profile_cuda(torch, lambda: generate(prompt_ids, max_new),
+                     'PROFILE', dict(prompt=len(prompt_ids),
+                                     max_new=max_new))
     finally:
         server.shutdown()
         server.server_close()
@@ -476,7 +883,6 @@ def main() -> int:
             for line in f:
                 if 'registers' in line or 'spill' in line:
                     log(f'  {name}: {line.strip()}')
-    k1 = k4 = None
     if 'k1' in phases:
         k1 = k1_phase(torch, F, attention)
     if 'k4' in phases:
@@ -485,13 +891,32 @@ def main() -> int:
         e2e_phase(torch)
     if 'serve' in phases:
         k1_n, k4_n = serve_phase(torch, attention, da)
+    if 'k1r' in phases:
+        k1r = k1r_phase(torch, F, attention)
+    if 'bwd' in phases:
+        k2, k3 = bwd_phase(torch, F, attention)
+    if 'train' in phases:
+        train = train_phase(torch, attention)
     if set(phases) != set(PHASES):
         return 0
     kernels = [
+        # Top-level numbers: the serving path's prefill (no RoPE, B=1,
+        # T=S=2048); 'rope': the training step's shape with fused RoPE.
         dict(name='flash_fwd', route='cuda',
              source='skypilot_torch/csrc/flash_fwd.cu',
-             replaces='skypilot_tpu/ops/attention.py:170', launches=k1_n,
-             **k1),
+             replaces='skypilot_tpu/ops/attention.py:170',
+             launches=k1_n + train['launches']['flash_fwd_rope'],
+             launches_serve=k1_n,
+             launches_train_rope=train['launches']['flash_fwd_rope'],
+             **k1, rope=k1r),
+        dict(name='flash_bwd_dq', route='cuda',
+             source='skypilot_torch/csrc/flash_bwd.cu',
+             replaces='skypilot_tpu/ops/attention.py:263',
+             launches=train['launches']['flash_bwd_dq'], **k2),
+        dict(name='flash_bwd_dkv', route='cuda',
+             source='skypilot_torch/csrc/flash_bwd.cu',
+             replaces='skypilot_tpu/ops/attention.py:331',
+             launches=train['launches']['flash_bwd_dkv'], **k3),
         dict(name='decode_attention', route='cuda',
              source='skypilot_torch/csrc/decode_attention.cu',
              replaces='skypilot_tpu/ops/decode_attention.py:123',

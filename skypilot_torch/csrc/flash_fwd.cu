@@ -11,6 +11,13 @@
 // Unlike the TPU kernel it takes any T and S: the ragged edge of the last
 // q tile and the last K/V tile is masked in the kernel.
 //
+// Fused RoPE (skypilot_flash_fwd_rope, the TPU kernel's fuse_rope): q and
+// k arrive UN-rotated with f32 [T, D] cos/sin tables (T == S); q rows are
+// rotated as they are staged and each K tile in shared memory right after
+// its copy lands, in f32, rounded to bf16 before the dot (_rot), then q is
+// scaled as below. The entry without tables (skypilot_flash_fwd) is the
+// serving path's and runs no rotation code.
+//
 // What bounds it on the H100: at prefill lengths (T = S >= 1k) the two
 // matmuls per tile make it compute-bound (4*D FLOPs per visible q/k pair
 // against ~2*D bytes per key row reused by the 64 rows of a q tile).
@@ -27,81 +34,26 @@
 // and hidden tiles are never loaded. Shared memory (87 KB at D = 128) is
 // dynamic, above the 48 KB static limit, set with cudaFuncSetAttribute.
 // Not yet done (later work): wgmma/TMA, warp specialisation, 128-row
-// tiles.
+// tiles; with RoPE, every (q tile, head) block re-rotates the K tiles it
+// reads (K is rotated once per use, not once per kv head).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "mma_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace flash;
 
 constexpr int kBQ = 64;       // q rows per block (16 per warp)
 constexpr int kBK = 64;       // keys per K/V tile
 constexpr int kThreads = 128;
-constexpr int kPad = 8;       // bf16 of row padding: conflict-free ldmatrix
-constexpr float kEmptyLse = 1e30f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  int n = pred ? 16 : 0;  // 0 bytes read: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int D>
+template <int D, bool ROPE>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     const bf16* __restrict__ v, const float* __restrict__ cosb,
+                     const float* __restrict__ sinb, bf16* __restrict__ out,
                      float* __restrict__ lse, int T, int S, int H, int Hkv,
                      long long q_sb, long long q_st, long long q_sh,
                      long long k_sb, long long k_ss, long long k_sh,
@@ -158,19 +110,33 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_commit();
 
   // Stage q, folding scale*log2(e) in once (rounded back to bf16, as the
-  // TPU kernel does). Rows past T are zero and never stored.
-  for (int c = tid; c < kBQ * CPR; c += kThreads) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (q0 + r < T)
-      raw = *reinterpret_cast<const uint4*>(qb + (q0 + r) * q_st + col);
-    __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float2 f = __bfloat1622float2(p2[e]);
-      p2[e] = __floats2bfloat162_rn(f.x * scale_log2, f.y * scale_log2);
+  // TPU kernel does). Rows past T are zero and never stored. With RoPE a
+  // thread takes a column pair (c, c + D/2) and rotates it first.
+  if (ROPE) {
+    for (int c = tid; c < kBQ * (CPR / 2); c += kThreads) {
+      const int r = c / (CPR / 2), col = (c % (CPR / 2)) * 8;
+      uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
+      if (q0 + r < T) {
+        const bf16* row = qb + (q0 + r) * q_st;
+        lo = *reinterpret_cast<const uint4*>(row + col);
+        hi = *reinterpret_cast<const uint4*>(row + col + D / 2);
+        rope8(lo, hi, cosb + (long long)(q0 + r) * D + col,
+              sinb + (long long)(q0 + r) * D + col);
+      }
+      scale8(lo, scale_log2);
+      scale8(hi, scale_log2);
+      *reinterpret_cast<uint4*>(sQ + r * LD + col) = lo;
+      *reinterpret_cast<uint4*>(sQ + r * LD + col + D / 2) = hi;
     }
-    *reinterpret_cast<uint4*>(sQ + r * LD + col) = raw;
+  } else {
+    for (int c = tid; c < kBQ * CPR; c += kThreads) {
+      const int r = c / CPR, col = (c % CPR) * 8;
+      uint4 raw = make_uint4(0, 0, 0, 0);
+      if (q0 + r < T)
+        raw = *reinterpret_cast<const uint4*>(qb + (q0 + r) * q_st + col);
+      scale8(raw, scale_log2);
+      *reinterpret_cast<uint4*>(sQ + r * LD + col) = raw;
+    }
   }
 
   float o_acc[NT_O][4];
@@ -191,14 +157,17 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
+    bf16* tK = sK + (kt & 1) * kBK * LD;
+    const bf16* tV = sV + (kt & 1) * kBK * LD;
+    if (ROPE) {
+      rope_tile<D, LD, kThreads>(tK, kBK, kt * kBK, S, cosb, sinb, tid);
+      __syncthreads();
+    }
     if (kt == 0) {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        ldmatrix_x4(q_frag[kk], sQ + (warp * 16 + (lane & 15)) * LD +
-                                    kk * 16 + (lane >> 4) * 8);
+        load_a<LD>(q_frag[kk], sQ + warp * 16 * LD, kk, lane);
     }
-    const bf16* tK = sK + (kt & 1) * kBK * LD;
-    const bf16* tV = sV + (kt & 1) * kBK * LD;
 
     // S = (q * scale * log2e) K^T for this warp's 16 rows x 64 keys.
     float s[NT_S][4];
@@ -211,8 +180,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int np = 0; np < NT_S / 2; ++np) {
         uint32_t bk[4];
-        ldmatrix_x4(bk, tK + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
-                            kk * 16 + ((lane >> 3) & 1) * 8);
+        load_b_nk<LD>(bk, tK, np, kk, lane);
         mma_bf16(s[2 * np], q_frag[kk], bk[0], bk[1]);
         mma_bf16(s[2 * np + 1], q_frag[kk], bk[2], bk[3]);
       }
@@ -264,16 +232,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      pack_a(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int dp = 0; dp < NT_O / 2; ++dp) {
         uint32_t bv[4];
-        ldmatrix_x4_trans(bv, tV + (kk * 16 + (lane & 7) +
-                                    ((lane >> 3) & 1) * 8) * LD +
-                                  dp * 16 + (lane >> 4) * 8);
+        load_b_kn<LD>(bv, tV, kk, dp, lane);
         mma_bf16(o_acc[2 * dp], pa, bv[0], bv[1]);
         mma_bf16(o_acc[2 * dp + 1], pa, bv[2], bv[3]);
       }
@@ -305,24 +268,40 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* lse, int B, int T, int S, int H, int Hkv,
-                   const long long* st, float scale_log2, int causal,
-                   cudaStream_t stream) {
+template <int D, bool ROPE>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* cosb, const void* sinb, void* out, void* lse,
+                   int B, int T, int S, int H, int Hkv, const long long* st,
+                   float scale_log2, int causal, cudaStream_t stream) {
   const size_t smem = size_t(kBQ + 4 * kBK) * (D + kPad) * sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D, ROPE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
   dim3 grid((T + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<D, ROPE><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<const bf16*>(v), static_cast<const float*>(cosb),
+      static_cast<const float*>(sinb), static_cast<bf16*>(out),
       static_cast<float*>(lse), T, S, H, Hkv, st[0], st[1], st[2], st[3],
       st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale_log2,
       causal);
   return cudaGetLastError();
+}
+
+template <bool ROPE>
+int dispatch(const void* q, const void* k, const void* v, const void* cosb,
+             const void* sinb, void* out, void* lse, int B, int T, int S,
+             int H, int Hkv, int D, const long long* st, float scale_log2,
+             int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch<64, ROPE>(q, k, v, cosb, sinb, out, lse, B, T, S, H, Hkv,
+                            st, scale_log2, causal, s);
+  if (D == 128)
+    return launch<128, ROPE>(q, k, v, cosb, sinb, out, lse, B, T, S, H, Hkv,
+                             st, scale_log2, causal, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -336,14 +315,22 @@ extern "C" int skypilot_flash_fwd(
     int causal, void* stream) {
   const long long st[12] = {q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
                             v_sb, v_ss, v_sh, o_sb, o_st, o_sh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch<64>(q, k, v, out, lse, B, T, S, H, Hkv, st, scale_log2,
-                      causal, s);
-  if (D == 128)
-    return launch<128>(q, k, v, out, lse, B, T, S, H, Hkv, st, scale_log2,
-                       causal, s);
-  return cudaErrorInvalidValue;
+  return dispatch<false>(q, k, v, nullptr, nullptr, out, lse, B, T, S, H,
+                         Hkv, D, st, scale_log2, causal, stream);
+}
+
+// The same with fused RoPE: cos/sin are f32 [T, D] row-major, T == S.
+extern "C" int skypilot_flash_fwd_rope(
+    const void* q, const void* k, const void* v, const void* cosb,
+    const void* sinb, void* out, void* lse, int B, int T, int S, int H,
+    int Hkv, int D, long long q_sb, long long q_st, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, long long o_sb, long long o_st,
+    long long o_sh, float scale_log2, int causal, void* stream) {
+  const long long st[12] = {q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
+                            v_sb, v_ss, v_sh, o_sb, o_st, o_sh};
+  return dispatch<true>(q, k, v, cosb, sinb, out, lse, B, T, S, H, Hkv, D,
+                        st, scale_log2, causal, stream);
 }
 
 extern "C" const char* skypilot_error_string(int code) {

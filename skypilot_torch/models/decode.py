@@ -137,16 +137,6 @@ def _layer_cached(config: llama.LlamaConfig, x: torch.Tensor,
     return x + mm(gate * up, layer_params['w_down'])
 
 
-def _compute_params(params: Params, config: llama.LlamaConfig) -> Params:
-    """Params in the compute dtype (a no-op view when they already
-    are)."""
-    def cast(node):
-        if isinstance(node, dict):
-            return {k: cast(v) for k, v in node.items()}
-        return node.to(config.dtype)
-    return cast(params)
-
-
 def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
                    config: llama.LlamaConfig, last_only: bool = False,
                    prefill: bool = False
@@ -167,7 +157,7 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
     if cache.pos + t > cache.k.shape[2]:
         raise ValueError(f'cache overflow: pos {cache.pos} + {t} tokens '
                          f'> max_seq {cache.k.shape[2]}')
-    cparams = _compute_params(params, config)
+    cparams = llama.compute_params(params, config)
     pos = cache.pos
     positions = torch.arange(pos, pos + t, device=tokens.device)
     angles = llama._rope_frequencies(config, positions)

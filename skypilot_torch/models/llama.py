@@ -4,11 +4,18 @@
 Params are a plain dict of tensors in the JAX package's layout: layer
 weights STACKED along a leading ``[L, ...]`` axis and every projection
 oriented ``[in, out]`` (``x @ w``), so a JAX params tree maps onto
-this one key for key (``models/convert.py``). Only the serving-side
-pieces are here so far: configs, init, the norm/RoPE/activation
-helpers and the output head. The training forward and loss come with
-the training slice; MoE configs raise until the MoE slice (see
-ROADMAP.md).
+this one key for key (``models/convert.py``). Here: configs, init,
+the norm/RoPE/activation helpers, the training forward
+(``forward_hidden`` over ``_layer`` with LoRA q/v deltas, attention
+with RoPE fused into the flash kernels) and the loss (``loss_fn``,
+with the chunked fused LM-head + cross-entropy ``_FusedCE``). MoE
+configs and int8 weights raise until their slices (ROADMAP.md).
+
+Under ``config.remat`` each layer runs in ``torch.utils.checkpoint``
+(non-reentrant): only the layer inputs are kept, and backward runs the
+layer's forward again — the flash forward kernel included. Keeping the
+kernel's out/lse across the checkpoint (the JAX ``remat_policy``) and
+the other ``remat_saves`` tokens are later work (ROADMAP.md Queue 2).
 """
 import dataclasses
 import math
@@ -16,8 +23,10 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from skypilot_torch import device as device_lib
+from skypilot_torch.ops import attention as attention_ops
 
 Params = Dict[str, Any]
 
@@ -294,3 +303,244 @@ def output_head(params: Params, config: LlamaConfig) -> torch.Tensor:
         raise NotImplementedError(
             'int8 lm_head is not ported yet (int8 slice in ROADMAP.md)')
     return head.to(config.dtype)
+
+
+# ---------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------
+
+
+def _layer(config: LlamaConfig, x: torch.Tensor, layer_params: Params,
+           angles: torch.Tensor, attn_impl,
+           lora_params: Optional[Params] = None,
+           lora_scale: float = 1.0) -> torch.Tensor:
+    """One transformer block (dense). x: [B, T, D] -> [B, T, D].
+    LoRA deltas ``((h @ a) @ b) * lora_scale`` join q and v before
+    RoPE, which the attention impl applies."""
+    b, t, _ = x.shape
+    nh, nkv, hd = config.n_heads, config.n_kv_heads, config.head_dim
+
+    h = _rms_norm(x, layer_params['attn_norm'], config.norm_eps,
+                  config.norm_offset)
+    q = matmul(h, layer_params['wq'])
+    k = matmul(h, layer_params['wk'])
+    v = matmul(h, layer_params['wv'])
+    if config.qkv_bias:
+        q = q + layer_params['bq']
+        k = k + layer_params['bk']
+        v = v + layer_params['bv']
+    q = q.reshape(b, t, nh, hd)
+    k = k.reshape(b, t, nkv, hd)
+    v = v.reshape(b, t, nkv, hd)
+    if lora_params is not None:
+        dq = ((h @ lora_params['wq_a']) @ lora_params['wq_b']) * lora_scale
+        dv = ((h @ lora_params['wv_a']) @ lora_params['wv_b']) * lora_scale
+        q = q + dq.reshape(b, t, nh, hd).to(q.dtype)
+        v = v + dv.reshape(b, t, nkv, hd).to(v.dtype)
+    attn = attn_impl(q, k, v, angles).reshape(b, t, nh * hd)
+    x = x + matmul(attn, layer_params['wo'])
+
+    h = _rms_norm(x, layer_params['mlp_norm'], config.norm_eps,
+                  config.norm_offset)
+    gate = mlp_act(config)(
+        matmul(h, layer_params['w_gate']).float()).to(h.dtype)
+    up = matmul(h, layer_params['w_up'])
+    return x + matmul(gate * up, layer_params['w_down'])
+
+
+def default_attn_impl():
+    """Causal flash attention with RoPE fused into the kernels (K1
+    forward, K2/K3 backward on the card)."""
+    return lambda q, k, v, ang: attention_ops.flash_attention(
+        q, k, v, causal=True, rope_angles=ang)
+
+
+def embed_tokens(cparams: Params, tokens: torch.Tensor,
+                 config: LlamaConfig) -> torch.Tensor:
+    """Token embedding lookup (+ Gemma's sqrt(dim) scaling) on
+    compute-dtype params."""
+    x = cparams['embed'][tokens]
+    if config.scale_embeddings:
+        x = x * torch.tensor(math.sqrt(config.dim), dtype=x.dtype)
+    return x
+
+
+def shifted_loss_mask(batch: Dict[str, torch.Tensor],
+                      targets: torch.Tensor) -> torch.Tensor:
+    """loss_mask aligns with ``tokens``: position i contributes iff its
+    *target* token i+1 is unmasked."""
+    mask = batch.get('loss_mask')
+    if mask is None:
+        return torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+    return mask.float()[:, 1:]
+
+
+def _require_remat_supported(config: LlamaConfig) -> None:
+    if config.remat and config.remat_saves != 'attn':
+        raise NotImplementedError(
+            f'remat_saves={config.remat_saves!r}: only the default '
+            "'attn' is ported; saving mlp/mlp_up/qkv activations across "
+            'the layer checkpoint is later work (ROADMAP.md Queue 2, '
+            '"remat_saves")')
+
+
+def compute_params(params: Params, config: LlamaConfig) -> Params:
+    """Params in the compute dtype (the leaves themselves when they
+    already are); gradients flow back to f32 masters through it."""
+    def cast(node):
+        if isinstance(node, dict):
+            return {k: cast(v) for k, v in node.items()}
+        return node.to(config.dtype)
+    return cast(params)
+
+
+def forward_hidden(params: Params, tokens: torch.Tensor,
+                   config: LlamaConfig,
+                   positions: Optional[torch.Tensor] = None,
+                   attn_impl=None, lora: Optional[Params] = None,
+                   lora_scale: float = 1.0) -> torch.Tensor:
+    """tokens [B, T] int -> final hidden states [B, T, D]
+    (post-final-norm, compute dtype). Params may be f32 masters; they
+    are cast to ``config.dtype`` where used and gradients flow back to
+    them. ``lora``: optional stacked ``[L, ...]`` adapters."""
+    require_dense(config)
+    _require_remat_supported(config)
+    if attn_impl is None:
+        attn_impl = default_attn_impl()
+    _, t = tokens.shape
+    if positions is None:
+        positions = torch.arange(t, device=tokens.device)
+    angles = _rope_frequencies(config, positions)
+    cparams = compute_params(params, config)
+    x = embed_tokens(cparams, tokens, config)
+    # unbind (not w[i]): its backward stacks the per-layer grads once
+    # instead of scattering each into a zeroed [L, ...] buffer.
+    layers = {name: w.unbind(0) for name, w in cparams['layers'].items()}
+    loras = None
+    if lora is not None:
+        loras = {name: w.to(config.dtype).unbind(0)
+                 for name, w in lora.items()}
+    for i in range(config.n_layers):
+        layer_params = {name: w[i] for name, w in layers.items()}
+        layer_lora = (None if loras is None else
+                      {name: w[i] for name, w in loras.items()})
+        if config.remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _layer, config, x, layer_params, angles, attn_impl,
+                layer_lora, lora_scale, use_reentrant=False)
+        else:
+            x = _layer(config, x, layer_params, angles, attn_impl,
+                       layer_lora, lora_scale)
+    return _rms_norm(x, cparams['final_norm'], config.norm_eps,
+                     config.norm_offset)
+
+
+def forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
+            positions: Optional[torch.Tensor] = None, attn_impl=None,
+            lora: Optional[Params] = None,
+            lora_scale: float = 1.0) -> torch.Tensor:
+    """tokens [B, T] int -> logits [B, T, vocab] (f32)."""
+    x = forward_hidden(params, tokens, config, positions, attn_impl, lora,
+                       lora_scale)
+    return matmul(x, output_head(params, config)).float()
+
+
+def _ce_from_logits(logits: torch.Tensor,
+                    targets: torch.Tensor) -> torch.Tensor:
+    """Per-position NLL: logsumexp minus the target logit, in f32."""
+    lf = logits.float()
+    tgt = lf.gather(-1, targets[..., None])[..., 0]
+    return torch.logsumexp(lf, dim=-1) - tgt
+
+
+# Sequence-chunk size of the fused head + CE. 512 keeps the f32 temp at
+# B * 512 * V (~0.25 GB per batch row for the 128k Llama-3 vocab).
+LOSS_CHUNK = 512
+
+
+class _FusedCE(torch.autograd.Function):
+    """Chunked LM head + cross-entropy with the hidden-state gradient
+    computed EAGERLY in the forward (the JAX ``_fused_ce``).
+
+    dloss/dlogits = softmax - onehot is known in closed form, so each
+    chunk's dhidden = dlogits @ W^T is produced while its logits are
+    live and the [B, T, V] logits never exist at once; backward only
+    scales the stored [B, T, D] dhidden (and the [D, V] dW when the head
+    trains) by ``g / denom``. Inputs: hidden [B, T, D], lm_head [D, V],
+    targets [B, T], mask [B, T] f32. Returns the mean NLL over unmasked
+    positions."""
+
+    @staticmethod
+    def forward(ctx, hidden, lm_head, targets, mask, chunk, train_head):
+        _, t, _ = hidden.shape
+        ns = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        ms = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        dh = torch.empty_like(hidden)
+        dw = (torch.zeros(lm_head.shape, dtype=torch.float32,
+                          device=hidden.device) if train_head else None)
+        for c0 in range(0, t, chunk):
+            h = hidden[:, c0:c0 + chunk]
+            tg = targets[:, c0:c0 + chunk]
+            mk = mask[:, c0:c0 + chunk]
+            logits = (h @ lm_head).float()  # [B, C, V]
+            lse = torch.logsumexp(logits, dim=-1)
+            nll = lse - logits.gather(-1, tg[..., None])[..., 0]
+            ns = ns + (nll * mk).sum()
+            ms = ms + mk.sum()
+            dlog = torch.exp(logits.sub_(lse[..., None]))
+            dlog.scatter_add_(-1, tg[..., None],
+                              torch.full(tg[..., None].shape, -1.0,
+                                         device=dlog.device))
+            dlog = (dlog * mk[..., None]).to(h.dtype)
+            dh[:, c0:c0 + chunk] = dlog @ lm_head.T
+            if train_head:
+                dw += torch.einsum('bcd,bcv->dv', h.float(), dlog.float())
+            del logits, dlog
+        denom = torch.clamp(ms, min=1.0)
+        ctx.save_for_backward(dh, dw, denom)
+        ctx.head_meta = (lm_head.shape, lm_head.dtype)
+        ctx.train_head = train_head
+        return ns / denom
+
+    @staticmethod
+    def backward(ctx, g):
+        dh, dw, denom = ctx.saved_tensors
+        scale = g / denom
+        dhid = dh * scale.to(dh.dtype)
+        if ctx.train_head:
+            dlm = (dw * scale).to(dh.dtype)
+        else:
+            shape, dtype = ctx.head_meta
+            dlm = torch.zeros(shape, dtype=dtype, device=dh.device)
+        return dhid, dlm, None, None, None, None
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            config: LlamaConfig, lora: Optional[Params] = None,
+            lora_scale: float = 1.0, attn_impl=None) -> torch.Tensor:
+    """Causal LM cross-entropy over positions predicting
+    ``tokens[:, 1:]`` (mask-aware if the batch has 'loss_mask').
+    ``tokens`` is [B, T+1]: the forward runs on the first T."""
+    tokens = batch['tokens']
+    inputs = tokens[:, :-1]
+    targets = tokens[:, 1:]
+    hidden = forward_hidden(params, inputs, config, lora=lora,
+                            lora_scale=lora_scale, attn_impl=attn_impl)
+    mask = shifted_loss_mask(batch, targets)
+    # The head is frozen exactly when training LoRA adapters: skip its
+    # [D, V] gradient then.
+    return loss_from_hidden(params, hidden, targets, mask, config,
+                            train_lm_head=lora is None)
+
+
+def loss_from_hidden(params: Params, hidden: torch.Tensor,
+                     targets: torch.Tensor, mask: torch.Tensor,
+                     config: LlamaConfig,
+                     train_lm_head: bool = True) -> torch.Tensor:
+    """Chunked fused LM-head + CE over final hidden states."""
+    t = hidden.shape[1]
+    chunk = LOSS_CHUNK if t % LOSS_CHUNK == 0 else t
+    return _FusedCE.apply(hidden, output_head(params, config),
+                          targets.long(), mask.float(), chunk,
+                          train_lm_head)

@@ -1,22 +1,33 @@
 """Attention ops — the port of ``skypilot_tpu/ops/attention.py``.
 
-``flash_attention`` on a CUDA tensor launches K1-cuda
-(``csrc/flash_fwd.cu``, the hand-written replacement of the TPU
-kernel ``_fwd_kernel``); on a CPU tensor it runs ``_flash_fwd_plain``,
-a dense f32 computation under the same contract. Forward only: the
-backward kernels and the fused-RoPE variant come with the training
-slice (ROADMAP.md).
+``flash_attention`` on CUDA tensors launches the hand-written kernels
+that replace the TPU ones: K1-cuda (``csrc/flash_fwd.cu``, for
+``_fwd_kernel``, with or without fused RoPE) forward, and K2-cuda /
+K3-cuda (``csrc/flash_bwd.cu``, for ``_bwd_dq_kernel`` /
+``_bwd_dkv_kernel``) backward, through ``_FlashAttention``, the
+counterpart of the JAX ``custom_vjp``. On CPU tensors the same entry
+points run ``_flash_fwd_plain`` / ``_flash_bwd_plain``, dense f32
+computations under the kernels' contract; any other device raises.
 
-Contract of both paths (the TPU kernel's, ``_fwd_kernel``):
+Contract of both paths (the TPU kernels'):
 
 - q ``[B, T, H, D]``, k/v ``[B, S, Hkv, D]``; GQA is native — head
   ``h`` reads KV head ``h // (H // Hkv)``, K/V are never repeated;
 - causal masking is bottom-right aligned: ``q_pos + S - T >= k_pos``;
 - ``lse`` is f32 ``[B, H, T]`` in the log2 domain;
 - a row that sees no key (causal with T > S) gets ``out = 0`` and
-  ``lse = +1e30``. The dense reference ``dot_product_attention`` gives
-  such rows a uniform average instead; the port follows the kernel,
-  which a backward kernel depends on.
+  ``lse = +1e30``, so its backward ``P = exp2(s - lse)`` and all its
+  gradients are 0. The dense reference ``dot_product_attention`` gives
+  such rows a uniform average instead; the port follows the kernels;
+- fused RoPE (``rope_angles``, T == S): q/k come in un-rotated with
+  ``[T, D]`` f32 cos/sin tables (the angles duplicated to full width);
+  each block is rotated in f32 and rounded to the input dtype before
+  the dot (``_rot``), and dq/dk are pulled back through the inverse
+  rotation (``_rot_inv``). Only un-rotated q/k are saved for backward.
+
+Not ported: the ``remat_policy`` names that let a layer checkpoint keep
+the kernel's out/lse (ROADMAP.md Queue 2); under a plain per-layer
+checkpoint the forward kernel runs again in backward.
 """
 import ctypes
 import math
@@ -30,11 +41,19 @@ LOG2E = 1.4426950408889634
 EMPTY_ROW_LSE = 1e30
 _NEG_INF = -1e30
 
-FLASH_FWD = _build.Kernel(
-    'flash_fwd', 'skypilot_flash_fwd',
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 +
-    [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_int,
-                                ctypes.c_void_p])
+_FWD_ARGS = ([ctypes.c_int] * 6 + [ctypes.c_longlong] * 12 +
+             [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+FLASH_FWD = _build.Kernel('flash_fwd', 'skypilot_flash_fwd',
+                          [ctypes.c_void_p] * 5 + _FWD_ARGS)
+FLASH_FWD_ROPE = _build.Kernel('flash_fwd', 'skypilot_flash_fwd_rope',
+                               [ctypes.c_void_p] * 7 + _FWD_ARGS)
+_BWD_ARGS = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p]
+FLASH_BWD_DQ = _build.Kernel('flash_bwd', 'skypilot_flash_bwd_dq',
+                             _BWD_ARGS)
+FLASH_BWD_DKV = _build.Kernel('flash_bwd', 'skypilot_flash_bwd_dkv',
+                              _BWD_ARGS)
 FLASH_HEAD_DIMS = (64, 128)
 
 
@@ -70,24 +89,75 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
                      dim=-1).to(x.dtype)
 
 
+def rope_tables(angles: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[T, D/2] angles -> (cos, sin), each [T, D] f32 contiguous: the
+    angles duplicated to full width, as the kernels read them."""
+    full = torch.cat([angles, angles], dim=-1).float()
+    return torch.cos(full).contiguous(), torch.sin(full).contiguous()
+
+
+def _rot(x: torch.Tensor, cos: torch.Tensor,
+         sin: torch.Tensor) -> torch.Tensor:
+    """RoPE of [B, L, H, D] by [L, D] tables, in f32, rounded to x's
+    dtype (the TPU kernels' ``_rot``)."""
+    xf = x.float()
+    x1, x2 = xf.chunk(2, dim=-1)
+    swap = torch.cat([-x2, x1], dim=-1)
+    return (xf * cos[None, :, None] + swap * sin[None, :, None]).to(x.dtype)
+
+
+def _rot_inv(g: torch.Tensor, cos: torch.Tensor,
+             sin: torch.Tensor) -> torch.Tensor:
+    """The transpose (inverse) rotation of an f32 [B, L, H, D] gradient
+    (``_rot_inv``)."""
+    g1, g2 = g.chunk(2, dim=-1)
+    swap = torch.cat([g2, -g1], dim=-1)
+    return g * cos[None, :, None] + swap * sin[None, :, None]
+
+
+def _check_rope(t: int, s: int, d: int, cos, sin) -> None:
+    if (cos is None) != (sin is None):
+        raise ValueError('flash_attention: pass both cos and sin or '
+                         'neither')
+    if cos is None:
+        return
+    if t != s:
+        raise ValueError(f'flash_attention: fused RoPE assumes aligned '
+                         f'self-attention positions, got T={t} != S={s}')
+    if cos.shape != (t, d) or sin.shape != (t, d):
+        raise ValueError(f'flash_attention: cos/sin must be [T, D] = '
+                         f'{(t, d)}, got {tuple(cos.shape)}, '
+                         f'{tuple(sin.shape)}')
+
+
+def _causal_visible(t: int, s: int, device) -> torch.Tensor:
+    q_pos = torch.arange(t, device=device)[:, None]
+    k_pos = torch.arange(s, device=device)[None, :]
+    return k_pos <= q_pos + (s - t)
+
+
 def _flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     causal: bool = True, scale: Optional[float] = None
+                     causal: bool = True, scale: Optional[float] = None,
+                     cos: Optional[torch.Tensor] = None,
+                     sin: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense f32 (out [B,T,H,D] in q.dtype, lse f32 [B,H,T] log2)
-    under the kernel's contract (module docstring)."""
+    under the kernel's contract (module docstring); ``cos``/``sin``
+    [T, D] fuse RoPE."""
     b, t, h, d = q.shape
     _, s, hkv, _ = k.shape
     if h % hkv:
         raise ValueError(f'H={h} is not a multiple of Hkv={hkv}')
+    _check_rope(t, s, d, cos, sin)
     if scale is None:
         scale = d ** -0.5
+    if cos is not None:
+        q, k = _rot(q, cos, sin), _rot(k, cos, sin)
     qg = q.float().reshape(b, t, hkv, h // hkv, d)
     logits = torch.einsum('bthgd,bshd->bhgts', qg,
                           k.float()) * (scale * LOG2E)
     if causal:
-        q_pos = torch.arange(t, device=q.device)[:, None]
-        k_pos = torch.arange(s, device=q.device)[None, :]
-        logits = logits.masked_fill(k_pos > q_pos + (s - t),
+        logits = logits.masked_fill(~_causal_visible(t, s, q.device),
                                     -math.inf)
     m = logits.amax(dim=-1, keepdim=True)
     seen = m > -math.inf
@@ -103,69 +173,246 @@ def _flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.reshape(b, h, t))
 
 
-def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool, scale: float
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K1-cuda; raises on anything the kernel does not take."""
-    if not (k.device == q.device and v.device == q.device):
-        raise ValueError('flash_attention: q, k, v must share a device, '
-                         f'got {q.device}, {k.device}, {v.device}')
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError('flash_attention: the CUDA kernel takes bf16 '
-                        f'q/k/v, got {q.dtype}, {k.dtype}, {v.dtype}')
+def _flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     out: torch.Tensor, lse: torch.Tensor,
+                     do: torch.Tensor, cos: Optional[torch.Tensor] = None,
+                     sin: Optional[torch.Tensor] = None,
+                     causal: bool = True, scale: Optional[float] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense f32 (dq, dk, dv) under K2/K3's contract: P is rebuilt as
+    ``exp2(s - lse)`` from the saved log2-domain lse (so a row that saw
+    no key, lse = +1e30, gets zero gradients), ``delta = rowsum(do *
+    out)``, dS = P (dP - delta), the scale applied once to dq/dk, and
+    with ``cos``/``sin`` the gradients pulled back through RoPE. q/k are
+    the un-rotated inputs. Returns gradients in q/k/v's dtypes."""
+    b, t, h, d = q.shape
+    _, s, hkv, _ = k.shape
+    g = h // hkv
+    _check_rope(t, s, d, cos, sin)
+    if scale is None:
+        scale = d ** -0.5
+    qr, kr = q, k
+    if cos is not None:
+        qr, kr = _rot(q, cos, sin), _rot(k, cos, sin)
+    qf = qr.float().reshape(b, t, hkv, g, d)
+    kf, vf = kr.float(), v.float()
+    dof = do.float().reshape(b, t, hkv, g, d)
+    logits = torch.einsum('bthgd,bshd->bhgts', qf, kf) * (scale * LOG2E)
+    if causal:
+        logits = logits.masked_fill(~_causal_visible(t, s, q.device),
+                                    -math.inf)
+    p = torch.exp2(logits - lse.float().reshape(b, hkv, g, t)[..., None])
+    delta = (do.float() * out.float()).sum(-1)  # [B, T, H]
+    delta = delta.permute(0, 2, 1).reshape(b, hkv, g, t)[..., None]
+    dp = torch.einsum('bthgd,bshd->bhgts', dof, vf)
+    ds = p * (dp - delta)
+    dq = torch.einsum('bhgts,bshd->bthgd', ds, kf).reshape(b, t, h, d)
+    dk = torch.einsum('bhgts,bthgd->bshd', ds, qf)
+    dv = torch.einsum('bhgts,bthgd->bshd', p, dof)
+    dq, dk = dq * scale, dk * scale
+    if cos is not None:
+        dq, dk = _rot_inv(dq, cos, sin), _rot_inv(dk, cos, sin)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_cuda(what: str, tensors, dtype=torch.bfloat16) -> None:
+    """Device, dtype and layout checks shared by the CUDA wrappers."""
+    dev = tensors[0][1].device
+    for name, x in tensors:
+        if x.device != dev:
+            raise ValueError(f'{what}: all tensors must share a device, '
+                             f'{name} is on {x.device}, not {dev}')
+        if x.dtype != dtype:
+            raise TypeError(f'{what}: the CUDA kernel takes {dtype} '
+                            f'{name}, got {x.dtype}')
+        # 16-byte cp.async / vector loads: unit-stride rows, 8-element
+        # aligned row strides, 16-byte aligned base.
+        if (x.dim() != 4 or x.stride(3) != 1
+                or any(st % 8 for st in x.stride()[:3])
+                or x.data_ptr() % 16):
+            raise ValueError(f'{what}: {name} needs 4 dims, a unit-'
+                             'stride head_dim, strides that are '
+                             'multiples of 8 and a 16-byte aligned '
+                             f'base (shape {tuple(x.shape)}, strides '
+                             f'{x.stride()})')
+
+
+def _check_shapes(what: str, q, k, v) -> Tuple[int, ...]:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError('flash_attention: q [B,T,H,D], k/v [B,S,Hkv,D] '
+        raise ValueError(f'{what}: q [B,T,H,D], k/v [B,S,Hkv,D] '
                          f'expected, got {tuple(q.shape)}, '
                          f'{tuple(k.shape)}, {tuple(v.shape)}')
     b, t, h, d = q.shape
     bk, s, hkv, dk = k.shape
     if bk != b or dk != d or h % hkv or t < 1 or s < 1:
-        raise ValueError(f'flash_attention: incompatible shapes q '
+        raise ValueError(f'{what}: incompatible shapes q '
                          f'{tuple(q.shape)}, k/v {tuple(k.shape)}')
     if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f'flash_attention: head_dim {d} not supported '
-                         f'by the CUDA kernel (takes {FLASH_HEAD_DIMS})')
-    for name, x in (('q', q), ('k', k), ('v', v)):
-        # 16-byte cp.async / vector loads: unit-stride rows, 8-element
-        # aligned row strides, 16-byte aligned base.
-        if (x.stride(3) != 1 or any(st % 8 for st in x.stride()[:3])
-                or x.data_ptr() % 16):
-            raise ValueError(f'flash_attention: {name} needs a unit-'
-                             'stride head_dim, strides that are '
-                             'multiples of 8 and a 16-byte aligned '
-                             f'base (strides {x.stride()})')
+        raise ValueError(f'{what}: head_dim {d} not supported by the '
+                         f'CUDA kernels (they take {FLASH_HEAD_DIMS})')
+    return b, t, s, h, hkv, d
+
+
+def _check_tables(what: str, dev, cos, sin) -> None:
+    for name, x in (('cos', cos), ('sin', sin)):
+        if (x.device != dev or x.dtype != torch.float32
+                or not x.is_contiguous() or x.data_ptr() % 16):
+            raise ValueError(f'{what}: {name} must be a contiguous, '
+                             f'16-byte aligned f32 tensor on {dev}')
+
+
+def _strides(*tensors) -> list:
+    return [st for x in tensors for st in x.stride()[:3]]
+
+
+def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, scale: float, cos=None, sin=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K1-cuda (FLASH_FWD, or FLASH_FWD_ROPE with tables);
+    raises on anything the kernel does not take."""
+    b, t, s, h, hkv, d = _check_shapes('flash_attention', q, k, v)
+    _check_cuda('flash_attention', (('q', q), ('k', k), ('v', v)))
+    _check_rope(t, s, d, cos, sin)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    FLASH_FWD(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-              lse.data_ptr(), b, t, s, h, hkv, d,
-              q.stride(0), q.stride(1), q.stride(2),
-              k.stride(0), k.stride(1), k.stride(2),
-              v.stride(0), v.stride(1), v.stride(2),
-              out.stride(0), out.stride(1), out.stride(2),
-              scale * LOG2E, int(causal),
-              torch.cuda.current_stream(q.device).cuda_stream)
+    tail = [b, t, s, h, hkv, d, *_strides(q, k, v, out), scale * LOG2E,
+            int(causal), torch.cuda.current_stream(q.device).cuda_stream]
+    if cos is None:
+        FLASH_FWD(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  lse.data_ptr(), *tail)
+    else:
+        _check_tables('flash_attention', q.device, cos, sin)
+        FLASH_FWD_ROPE(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+                       lse.data_ptr(), *tail)
     return out, lse
+
+
+def _flash_bwd_cuda(q, k, v, out, lse, do, cos, sin, causal: bool,
+                    scale: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch K2-cuda then K3-cuda; delta = rowsum(do * out) is one
+    torch pass before them (XLA's pass outside the TPU kernels)."""
+    b, t, s, h, hkv, d = _check_shapes('flash_attention backward', q, k,
+                                       v)
+    _check_cuda('flash_attention backward',
+                (('q', q), ('k', k), ('v', v), ('out', out), ('do', do)))
+    _check_rope(t, s, d, cos, sin)
+    if do.shape != q.shape or out.shape != q.shape:
+        raise ValueError('flash_attention backward: out/do must match q '
+                         f'{tuple(q.shape)}')
+    if (lse.shape != (b, h, t) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError('flash_attention backward: lse must be f32 '
+                         f'[B, H, T] = {(b, h, t)} contiguous on '
+                         f'{q.device}')
+    if cos is not None:
+        _check_tables('flash_attention backward', q.device, cos, sin)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    args = (q, k, v, do, lse, delta, cos, sin)
+    _bwd_launch(FLASH_BWD_DQ, *args, (dq,), causal, scale)
+    _bwd_launch(FLASH_BWD_DKV, *args, (dk, dv), causal, scale)
+    return dq, dk, dv
+
+
+def _bwd_launch(kernel: _build.Kernel, q, k, v, do, lse, delta, cos, sin,
+                outs, causal: bool, scale: float) -> None:
+    """One launch of K2 (outs = (dq,)) or K3 (outs = (dk, dv)) on
+    inputs ``_flash_bwd_cuda`` has checked."""
+    b, t, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    tables = ([cos.data_ptr(), sin.data_ptr()] if cos is not None
+              else [None, None])
+    ptrs = (ctypes.c_void_p * 10)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *tables,
+        *(x.data_ptr() for x in outs))
+    strides = _strides(q, k, v, do, *outs)
+    strides += [0] * (18 - len(strides))
+    kernel(ptrs, b, t, s, h, hkv, d, (ctypes.c_longlong * 18)(*strides),
+           scale, scale * LOG2E, int(causal),
+           torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor, causal: bool = True,
-                        scale: Optional[float] = None
+                        scale: Optional[float] = None,
+                        cos: Optional[torch.Tensor] = None,
+                        sin: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [B,T,H,D], lse f32 [B,H,T] log2 domain). CUDA tensors go to
     K1-cuda, CPU tensors to ``_flash_fwd_plain``; any other device
-    raises."""
+    raises. ``cos``/``sin`` ([T, D] f32, T == S) fuse RoPE."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == 'cuda':
-        return _flash_fwd_cuda(q, k, v, causal, float(scale))
+        return _flash_fwd_cuda(q, k, v, causal, float(scale), cos, sin)
     if q.device.type == 'cpu':
-        return _flash_fwd_plain(q, k, v, causal, scale)
+        return _flash_fwd_plain(q, k, v, causal, scale, cos, sin)
     raise ValueError(f'flash_attention: unsupported device {q.device}')
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, cos: Optional[torch.Tensor] = None,
+                        sin: Optional[torch.Tensor] = None,
+                        causal: bool = True, scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """(dq, dk, dv) from the forward's saved (un-rotated) q/k, v, out
+    and lse. CUDA tensors go to K2-cuda and K3-cuda, CPU tensors to
+    ``_flash_bwd_plain``; any other device raises."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == 'cuda':
+        return _flash_bwd_cuda(q, k, v, out, lse, do, cos, sin, causal,
+                               float(scale))
+    if q.device.type == 'cpu':
+        return _flash_bwd_plain(q, k, v, out, lse, do, cos, sin, causal,
+                                scale)
+    raise ValueError(f'flash_attention: unsupported device {q.device}')
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The ``custom_vjp`` of the JAX ``_flash_attention``: the forward
+    saves the un-rotated q/k, v, out, lse and the tables; the backward
+    runs K2 then K3 (the plain version for CPU tensors). cos/sin get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, causal, scale):
+        out, lse = flash_attention_fwd(q, k, v, causal, scale, cos, sin)
+        ctx.save_for_backward(q, k, v, cos, sin, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, cos, sin, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         do.contiguous(), cos, sin,
+                                         ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """Flash attention forward. q: [B,T,H,D]; k,v: [B,S,Hkv,D] ->
-    [B,T,H,D]."""
-    return flash_attention_fwd(q, k, v, causal, scale)[0]
+                    causal: bool = True, scale: Optional[float] = None,
+                    rope_angles: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Flash attention. q: [B,T,H,D]; k,v: [B,S,Hkv,D] -> [B,T,H,D].
+
+    ``rope_angles`` ([T, D/2] f32, requires T == S): apply RoPE to q
+    and k inside the kernels; callers pass them un-rotated. Gradients
+    flow through ``_FlashAttention`` when autograd records."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    cos = sin = None
+    if rope_angles is not None:
+        cos, sin = rope_tables(rope_angles)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, cos, sin, causal,
+                                     float(scale))
+    return flash_attention_fwd(q, k, v, causal, scale, cos, sin)[0]

@@ -14,7 +14,7 @@ import skypilot_torch
 from skypilot_torch import device as device_lib
 from skypilot_torch.models import convert, decode, llama
 from skypilot_torch.ops import _build
-from skypilot_torch.recipes import serve_model
+from skypilot_torch.recipes import finetune, serve_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(skypilot_torch.__file__)
@@ -54,6 +54,9 @@ print(json.dumps({{'modules': names, 'bad': bad}}))
                 'skypilot_torch.models.decode', 'skypilot_torch.ops._build',
                 'skypilot_torch.ops.attention',
                 'skypilot_torch.ops.decode_attention',
+                'skypilot_torch.parallel.lora',
+                'skypilot_torch.parallel.train',
+                'skypilot_torch.recipes.finetune',
                 'skypilot_torch.recipes.serve_model'):
         assert mod in res['modules']
 
@@ -90,6 +93,8 @@ def test_default_device_raises_without_cuda():
         convert.params_from_numpy({'final_norm': [1.0]}, cfg)
     with pytest.raises(device_lib.DeviceError):
         serve_model.build_server(serve_model.parse_args(['--port', '0']))
+    with pytest.raises(device_lib.DeviceError):
+        finetune.build(finetune.parse_args(['--model', 'tiny']))
 
 
 def test_unknown_device_type_raises():
@@ -109,7 +114,24 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 
 def test_every_kernel_source_is_a_library():
-    assert set(_build.sources()) == {'flash_fwd', 'decode_attention'}
+    assert set(_build.sources()) == {'flash_fwd', 'flash_bwd',
+                                     'decode_attention'}
     paths = {_build.library_path(n) for n in _build.sources()}
-    assert len(paths) == 2
+    assert len(paths) == 3
     assert all(p.startswith(_build.BUILD_DIR) for p in paths)
+
+
+def test_shared_header_change_rebuilds_every_library(tmp_path,
+                                                     monkeypatch):
+    """The kernels include csrc/*.cuh; a library's name hashes them, so
+    an edited header cannot leave a stale build in place."""
+    before = {n: _build.library_path(n) for n in _build.sources()}
+    for name in ('flash_fwd.cu', 'mma_common.cuh'):
+        with open(os.path.join(_build.CSRC_DIR, name), 'rb') as f:
+            (tmp_path / name).write_bytes(f.read())
+    monkeypatch.setattr(_build, 'CSRC_DIR', str(tmp_path))
+    same = _build.library_path('flash_fwd')
+    with open(tmp_path / 'mma_common.cuh', 'ab') as f:
+        f.write(b'\n// edited\n')
+    assert same == before['flash_fwd']
+    assert _build.library_path('flash_fwd') != before['flash_fwd']
