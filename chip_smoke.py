@@ -35,6 +35,25 @@ in order (any failure exits non-zero; nothing is caught):
    K2 = K3 = 32 x 3), step time, tokens/s, peak memory, and a CUDA-only
    profile of one more step.
 
+9. K5 (cache_write): bit-exact against ``index_copy_`` at llama3-8b
+   shapes, the rows form over [8, 8192, 8, 128] and the 4097-block pool
+   with scattered rows (8, 72, 512), with kernel, plain, library and
+   bound times.
+10. K4P (decode_attention_paged): W = 1 and W = 9 over shuffled block
+   tables (B 8, 16-token blocks, lengths to 8192) against the f32 plain
+   version, timed beside the JAX package's route (gather + dense K4)
+   and gather + SDPA; W = 1 bit-equal to dense K4 on contiguous tables.
+11. Engine: the engine's prefill logits and greedy tokens at 2 layers,
+   bf16 on the card vs f32 on the CPU; then the ``--slots 8`` replica at
+   llama3-8b (32 layers) answering 12 concurrent requests (a shared
+   1024-token prefix that must hit, two prompts the drafter must draft
+   on), launch counts equal to the engine's dispatch record, TTFT
+   and TPOT per request, output tokens/s, and a profile of one decode
+   dispatch.
+12. Rows: ``decode_steps_rows`` (K5 + dense K4) and ``decode_steps_paged``
+   (K5 + K4-paged) at llama3-8b, B 8, 16 steps on the same content:
+   32 x 16 launches each and equal tokens.
+
 Then one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line. ``--phases`` runs a subset (no
 final lines then). Exits non-zero without printing a result when CUDA
@@ -53,7 +72,8 @@ import urllib.request
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 L2_BYTES = 50 * 2 ** 20
-PHASES = ('k1', 'k4', 'e2e', 'serve', 'k1r', 'bwd', 'train')
+PHASES = ('k1', 'k4', 'e2e', 'serve', 'k1r', 'bwd', 'train', 'k5',
+          'k4p', 'engine', 'rows')
 K1_TOL = {'out': 2e-2, 'lse': 2e-2}
 # K2/K3 in bf16 (P and dS rounded to bf16 before their products) against
 # f32: max |err| over max |ref| per gradient.
@@ -151,6 +171,7 @@ def profile_cuda(torch, fn, label, extra):
     log(label + ' ' + json.dumps(dict(
         extra, wall_ms=wall_ms, device_busy_ms=busy_ms,
         device_idle_share=1 - busy_ms / wall_ms,
+        device_launches=sum(e.count for e in events),
         top=[dict(name=e.key[:80], calls=e.count,
                   ms=e.self_device_time_total / 1e3) for e in top])))
 
@@ -847,6 +868,652 @@ def serve_phase(torch, attention, da):
     return k1_launches, k4_launches
 
 
+# ---------------------------------------------------------------------
+# K5: the per-row cache write
+# ---------------------------------------------------------------------
+
+# llama3-8b's KV row: 8 KV heads x head_dim 128.
+HKV8, HD8 = 8, 128
+# The engine's pool at 8 slots, max_seq 8192 and 16-token blocks.
+POOL_BLOCKS, BLOCK = 8 * 8192 // 16 + 1, 16
+
+
+def _k5_case(torch, da, label, k, v, k_new, v_new, dst, iters):
+    """One K5 case: kernel vs ``_reference_cache_write`` on clones
+    (bit-exact), then kernel, plain and library (``index_copy_``)
+    times and the byte bound (each new row read once and written once,
+    for K and V, plus the indices)."""
+    n = int((dst >= 0).sum())
+    kk, vk = k.clone(), v.clone()
+    kr, vr = k.clone(), v.clone()
+    before = da.CACHE_WRITE.launches
+    da.cache_write(kk, vk, k_new, v_new, dst)
+    torch.cuda.synchronize()
+    assert da.CACHE_WRITE.launches == before + 1
+    da._reference_cache_write(kr, vr, k_new, v_new, dst)
+    exact = torch.equal(kk, kr) and torch.equal(vk, vr)
+    nbytes = 2 * 2 * n * k[0].numel() * k.element_size() + 4 * dst.numel()
+    keep = dst >= 0              # index_copy_ takes only rows it writes
+    idx, k_lib, v_lib = dst[keep].long(), k_new[keep], v_new[keep]
+
+    def kernel():
+        da.cache_write(kk, vk, k_new, v_new, dst)
+
+    def plain():
+        da._reference_cache_write(kr, vr, k_new, v_new, dst)
+
+    def library():
+        kr.index_copy_(0, idx, k_lib)
+        vr.index_copy_(0, idx, v_lib)
+
+    row = dict(case=label, rows=dst.numel(), rows_written=n,
+               view=list(k.shape), bit_exact=exact,
+               kernel_ms=graph_ms(torch, lambda: kernel(), [()], iters),
+               plain_ms=cuda_ms(torch, plain, [()], iters),
+               library_ms=graph_ms(torch, lambda: library(), [()], iters),
+               bound_ms=1e3 * nbytes / PEAK_HBM_BYTES, bound_by='bytes')
+    log('K5 ' + json.dumps(row))
+    assert exact, f'K5 is not bit-exact against index_copy_: {row}'
+    return row
+
+
+def k5_phase(torch, da):
+    """K5 against its plain version, bit-exact, at llama3-8b shapes:
+    the rows form over a [8, 8192, 8, 128] cache (one position per
+    row, one parked past S), and the flat 4097-block pool with a
+    scattered dst of decode (8 rows), verify (72) and prefill-chunk
+    (512) sizes."""
+    gen = torch.Generator(device='cuda').manual_seed(21)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device='cuda',
+                           dtype=torch.bfloat16)
+    b, s = 8, 8192
+    k, v = randn(b * s, HKV8, HD8), randn(b * s, HKV8, HD8)
+    pos = torch.tensor([0, 17, 511, 2047, 4096, 6000, 8191, 8192],
+                       dtype=torch.int32, device='cuda')
+    rows = [_k5_case(torch, da, 'rows', k, v, randn(b, HKV8, HD8),
+                     randn(b, HKV8, HD8), da.rows_dst(pos, s), 200)]
+    del k, v
+    n_rows = POOL_BLOCKS * BLOCK
+    k, v = randn(n_rows, HKV8, HD8), randn(n_rows, HKV8, HD8)
+    for r in (8, 72, 512):
+        dst = torch.randperm(n_rows - BLOCK, generator=gen,
+                             device='cuda')[:r].to(torch.int32) + BLOCK
+        rows.append(_k5_case(torch, da, f'pool R={r}', k, v,
+                             randn(r, HKV8, HD8), randn(r, HKV8, HD8),
+                             dst, 200))
+    del k, v
+    torch.cuda.empty_cache()
+    main_case = rows[1]          # the engine's decode step: 8 rows
+    return dict(max_abs_err=0.0, err_is='bit-exact (torch.equal)',
+                case=main_case['case'], ms=main_case['kernel_ms'],
+                plain_ms=main_case['plain_ms'],
+                bound_ms=main_case['bound_ms'], bound_by='bytes',
+                library_ms=main_case['library_ms'],
+                library='index_copy_ on K and V',
+                cases={r['case']: {key: r[key] for key in (
+                    'kernel_ms', 'plain_ms', 'library_ms', 'bound_ms')}
+                    for r in rows})
+
+
+# ---------------------------------------------------------------------
+# K4-paged: decode (W = 1) and verify (W = 9) through the block table
+# ---------------------------------------------------------------------
+
+
+def k4p_phase(torch, F, da):
+    """K4-paged against the plain version (gather + reference, f32) at
+    B 8, 16-token blocks, a 4097-block pool handed out in shuffled
+    order, lengths mixed up to 8192, W = 1 and W = 9; the JAX package's
+    route (gather + dense K4) and a library route (gather + SDPA with a
+    boolean mask) timed beside it; and the bit-equality of W = 1 with
+    dense K4 on tables that lay rows out contiguously."""
+    from skypilot_torch.serve import kv_pool
+    HQ = 32
+    b, mb = 8, 8192 // BLOCK
+    s = mb * BLOCK
+    scale = HD8 ** -0.5
+    gen = torch.Generator(device='cuda').manual_seed(22)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device='cuda',
+                           dtype=torch.bfloat16)
+    k_pool = randn(POOL_BLOCKS * BLOCK, HKV8, HD8)
+    v_pool = randn(POOL_BLOCKS * BLOCK, HKV8, HD8)
+    ids = torch.randperm(POOL_BLOCKS - 1, generator=gen,
+                         device='cuda')[:b * mb] + 1
+    tables = ids.reshape(b, mb).to(torch.int32).contiguous()
+    k_f32, v_f32 = k_pool.float(), v_pool.float()
+    lens = [1, 17, 300, 2048, 4097, 6000, 8183, 8192]
+    rows = []
+    for w in (1, 9):
+        q = randn(b, w, HQ, HD8)
+        # Verify's base length leaves room for its W positions.
+        lengths = torch.tensor([min(n, s - w + 1) for n in lens],
+                               dtype=torch.int32, device='cuda')
+        before = (da.PAGED_DECODE_ATTENTION.launches,
+                  da.PAGED_VERIFY_ATTENTION.launches)
+        if w == 1:
+            def kernel(q=q, lengths=lengths):
+                return da.paged_decode_attention(
+                    q[:, 0], k_pool, v_pool, tables, lengths, scale,
+                    BLOCK)[:, None]
+
+            def plain(q=q, lengths=lengths):
+                return da._reference_paged_decode_attention(
+                    q[:, 0], k_pool, v_pool, tables, lengths, scale,
+                    BLOCK)[:, None]
+
+            def jax_route(q=q, lengths=lengths):
+                gidx = kv_pool.read_indices(tables, BLOCK)
+                return da.decode_attention(
+                    q[:, 0], da.paged_gather(k_pool, gidx),
+                    da.paged_gather(v_pool, gidx), lengths, scale)
+        else:
+            def kernel(q=q, lengths=lengths):
+                return da.paged_verify_attention(
+                    q, k_pool, v_pool, tables, lengths, scale, BLOCK)
+
+            def plain(q=q, lengths=lengths):
+                return da._reference_paged_verify_attention(
+                    q, k_pool, v_pool, tables, lengths, scale, BLOCK)
+            jax_route = plain      # the JAX verify is the plain einsum
+        out = kernel()
+        torch.cuda.synchronize()
+        launched = (da.PAGED_DECODE_ATTENTION.launches - before[0],
+                    da.PAGED_VERIFY_ATTENTION.launches - before[1])
+        assert launched == ((1, 0) if w == 1 else (0, 1)), launched
+        if w == 1:
+            ref = da._reference_paged_decode_attention(
+                q[:, 0].float(), k_f32, v_f32, tables, lengths, scale,
+                BLOCK)[:, None]
+        else:
+            ref = da._reference_paged_verify_attention(
+                q.float(), k_f32, v_f32, tables, lengths, scale, BLOCK)
+        err = (out.float() - ref).abs().max().item()
+        ok = err <= K4_TOL and bool(torch.isfinite(out.float()).all())
+        spans = [min(max(n + w - 1, 1), s) for n in lengths.tolist()]
+        nbytes = (sum(spans) * 2 * HKV8 * HD8 * 2 + 2 * 2 * q.numel()
+                  + 4 * (b + b * mb))
+        span_mask = (torch.arange(s, device='cuda')[None, None, :] <
+                     (lengths[:, None] + torch.arange(
+                         w, device='cuda')[None, :])[:, :, None])
+
+        def library(q=q, span_mask=span_mask):
+            gidx = kv_pool.read_indices(tables, BLOCK)
+            kd = da.paged_gather(k_pool, gidx).transpose(1, 2)
+            vd = da.paged_gather(v_pool, gidx).transpose(1, 2)
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kd, vd, attn_mask=span_mask[:, None],
+                scale=scale, enable_gqa=True)
+
+        row = dict(B=b, W=w, block_size=BLOCK, pool_blocks=POOL_BLOCKS,
+                   lengths=lengths.tolist(), max_abs_err=err, tol=K4_TOL,
+                   ok=ok, kernel_ms=graph_ms(torch, kernel, [()], 200),
+                   plain_ms=graph_ms(torch, plain, [()], 10),
+                   jax_route_ms=graph_ms(torch, jax_route, [()], 50),
+                   library_ms=graph_ms(torch, library, [()], 20),
+                   library='gather + SDPA (boolean mask, GQA)',
+                   bound_ms=1e3 * nbytes / PEAK_HBM_BYTES, bound_by='bytes')
+        row['gbps'] = nbytes / row['kernel_ms'] / 1e6
+        log('K4P ' + json.dumps(row))
+        rows.append(row)
+        del q, out, ref
+    # Contiguous tables: row b's blocks are 1 + b*mb .. (b+1)*mb, so the
+    # pool holds exactly a dense [B, S] cache.
+    k_dense, v_dense = randn(b, s, HKV8, HD8), randn(b, s, HKV8, HD8)
+    q = randn(b, HQ, HD8)
+    lengths = torch.tensor(lens, dtype=torch.int32, device='cuda')
+    kp = torch.cat([torch.zeros_like(k_dense[0, :BLOCK]),
+                    k_dense.reshape(b * s, HKV8, HD8)])
+    vp = torch.cat([torch.zeros_like(v_dense[0, :BLOCK]),
+                    v_dense.reshape(b * s, HKV8, HD8)])
+    contiguous = (torch.arange(b * mb, device='cuda', dtype=torch.int32)
+                  .reshape(b, mb) + 1)
+    dense = da.decode_attention(q, k_dense, v_dense, lengths, scale)
+    paged = da.paged_decode_attention(q, kp, vp, contiguous, lengths, scale,
+                                      BLOCK)
+    torch.cuda.synchronize()
+    bit_equal = torch.equal(dense, paged)
+    log('K4P_CONTIGUOUS ' + json.dumps(dict(
+        bit_equal_to_dense_k4=bit_equal,
+        max_abs_diff=(dense.float() - paged.float()).abs().max().item())))
+    del k_pool, v_pool, k_f32, v_f32, k_dense, v_dense, kp, vp
+    torch.cuda.empty_cache()
+    bad = [r for r in rows if not r['ok']]
+    assert not bad, f'K4-paged disagrees with its plain version: {bad}'
+    assert bit_equal, 'K4-paged W=1 is not bit-equal to dense K4'
+    main_case, verify = rows
+    keys = ('B', 'W', 'max_abs_err', 'kernel_ms', 'plain_ms',
+            'jax_route_ms', 'library_ms', 'bound_ms')
+    return dict(max_abs_err=max(r['max_abs_err'] for r in rows),
+                ms=main_case['kernel_ms'], plain_ms=main_case['plain_ms'],
+                bound_ms=main_case['bound_ms'], bound_by='bytes',
+                library_ms=main_case['library_ms'],
+                library='gather + SDPA (boolean mask, GQA)',
+                jax_route_ms=main_case['jax_route_ms'],
+                bit_equal_to_dense_k4=bit_equal,
+                verify={k: verify[k] for k in keys})
+
+
+# ---------------------------------------------------------------------
+# Engine: numerics at 2 layers, then the --slots 8 replica at 32
+# ---------------------------------------------------------------------
+
+
+def _engine_numerics(torch):
+    """llama3-8b widths at 2 layers: the engine's prefill
+    (``forward_paged``) first-token logits and the engine's greedy
+    tokens, bf16 on the card against f32 on the CPU with the same
+    weights and prompts."""
+    from skypilot_torch.models import convert, decode, llama
+    from skypilot_torch.serve import batching, kv_pool
+    config = llama.get_config('llama3-8b', n_layers=2)
+    cfg_cpu = dataclasses.replace(config, dtype=torch.float32)
+    params = llama.init_params(config, seed=4, device='cuda')
+    cpu_params = convert.params_from_numpy(
+        convert.params_to_numpy(params), cfg_cpu, device='cpu')
+    gen = torch.Generator().manual_seed(23)
+    prompts = [torch.randint(0, config.vocab_size, (n,),
+                             generator=gen).tolist() for n in (256, 700)]
+    n_new, max_seq = 9, 1024
+
+    def first_logits(p, cfg, dev, prompt):
+        with torch.inference_mode():
+            pool = kv_pool.KVBlockPool(cfg, max_seq // BLOCK + 1, BLOCK,
+                                       device=dev)
+            row = torch.arange(1, max_seq // BLOCK + 1, dtype=torch.int32,
+                               device=dev)
+            out = None
+            for start in range(0, len(prompt), 512):
+                chunk = prompt[start:start + 512]
+                out, _ = decode.forward_paged(
+                    p, torch.tensor([chunk], device=dev), pool.caches, row,
+                    start, len(chunk), cfg, BLOCK)
+        return out[0].float().cpu()
+
+    def engine_tokens(p, cfg):
+        eng = batching.BatchingEngine(p, cfg, slots=2, max_seq=max_seq)
+        try:
+            qs = [eng.submit(pr, n_new) for pr in prompts]
+            toks = []
+            for q in qs:
+                out = []
+                while (t := q.get(timeout=600)) is not None:
+                    assert not isinstance(t, BaseException), t
+                    out.append(t)
+                toks.append(out)
+            return toks
+        finally:
+            eng.close()
+
+    t0 = time.perf_counter()
+    lg = [first_logits(params, config, 'cuda', p) for p in prompts]
+    toks_gpu = engine_tokens(params, config)
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lc = [first_logits(cpu_params, cfg_cpu, 'cpu', p) for p in prompts]
+    toks_cpu = engine_tokens(cpu_params, cfg_cpu)
+    cpu_s = time.perf_counter() - t0
+    rel = max(((a - c).abs().max() / c.abs().max()).item()
+              for a, c in zip(lg, lc))
+    agree = sum(a == c for g, c_ in zip(toks_gpu, toks_cpu)
+                for a, c in zip(g, c_))
+    row = dict(config='llama3-8b', layers=2, prompts=[len(p) for p in
+                                                      prompts],
+               first_token_logits_rel_err=rel, rel_tol=E2E_REL_TOL,
+               greedy_agree=f'{agree}/{n_new * len(prompts)}',
+               gpu_tokens=toks_gpu, cpu_tokens=toks_cpu, gpu_s=gpu_s,
+               cpu_s=cpu_s)
+    log('ENGINE_NUMERICS ' + json.dumps(row))
+    assert all(bool(torch.isfinite(x).all()) for x in lg)
+    assert all(len(t) == n_new for t in toks_gpu), toks_gpu
+    assert rel <= E2E_REL_TOL, f'engine logits disagree: {row}'
+    del params, cpu_params
+
+
+def _sse_post(port, body, timeout=900):
+    """POST /generate with ``stream``: (status, prefix headers, ids,
+    ms to the first token event, ms to the end)."""
+    import http.client
+    conn = http.client.HTTPConnection('127.0.0.1', port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request('POST', '/generate', body=json.dumps(body),
+                     headers={'Content-Type': 'application/json'})
+        resp = conn.getresponse()
+        heads = {h: resp.getheader(h) for h in (
+            'X-Skytpu-Prefix-Hits', 'X-Skytpu-Prefix-Misses')}
+        ids, first_ms = [], None
+        if not body.get('stream'):
+            ids = json.loads(resp.read())['output_ids']
+        else:
+            while True:
+                line = resp.readline()
+                assert line, 'stream ended without [DONE]'
+                line = line.decode().strip()
+                if not line.startswith('data: '):
+                    assert not line.startswith('event:'), line
+                    continue
+                if line == 'data: [DONE]':
+                    break
+                if first_ms is None:
+                    first_ms = 1e3 * (time.perf_counter() - t0)
+                ids.append(int(line[len('data: '):]))
+            resp.read()
+        return (resp.status, heads, ids, first_ms,
+                1e3 * (time.perf_counter() - t0))
+    finally:
+        conn.close()
+
+
+def _first_token(torch, engine, config, prompt):
+    """The engine's first token for a prompt that hits no cached block:
+    its prefill chunks (same buckets, same padding, same kernels)
+    replayed on a private pool, then the argmax of the last chunk's
+    logits, as ``_finish_prefill`` takes it."""
+    from skypilot_torch.models import decode
+    from skypilot_torch.serve import kv_pool
+    n_blk = engine.pool.blocks_for(len(prompt) + 1)
+    pool = kv_pool.KVBlockPool(config, n_blk + 1, engine.block_size,
+                               device='cuda')
+    row = torch.zeros(engine.max_blocks_per_req, dtype=torch.int32)
+    row[:n_blk] = torch.arange(1, n_blk + 1, dtype=torch.int32)
+    row = row.cuda()
+    off = 0
+    with torch.inference_mode():
+        while off < len(prompt):
+            bucket = engine._chunk_bucket(len(prompt) - off)
+            real = min(len(prompt) - off, bucket)
+            chunk = prompt[off:off + real] + [0] * (bucket - real)
+            logits, _ = decode.forward_paged(
+                engine.params, torch.tensor([chunk], device='cuda'),
+                pool.caches, row, off, real, config, engine.block_size)
+            off += real
+    return int(logits[0].argmax())
+
+
+def _draft_prompts(torch, engine, config, rand, need=2, tries=8):
+    """Prompts the engine's drafter must draft on at its first decode
+    dispatch: ``x + [a, b, c] + y + [a, b]`` where c is the model's own
+    first token for that very prompt (found by fixed-point iteration),
+    so the stream's trailing trigram (a, b, c) occurred earlier and the
+    drafter proposes y. Greedy prefill is deterministic, so the
+    replica reproduces c."""
+    found, log_rows = [], []
+    for attempt in range(2 * need):
+        x, (a, b), y = rand(150 + 20 * attempt), rand(2), rand(140)
+        c = rand(1)[0]
+        for it in range(tries):
+            prompt = x + [a, b, c] + y + [a, b]
+            got = _first_token(torch, engine, config, prompt)
+            if got == c:
+                found.append(prompt)
+                break
+            c = got
+        log_rows.append(dict(attempt=attempt, iterations=it + 1,
+                             fixed_point=got == c))
+        if len(found) == need:
+            break
+    log('ENGINE_DRAFT_PROMPTS ' + json.dumps(log_rows))
+    assert len(found) == need, 'no fixed-point first token was found'
+    return found
+
+
+def _profile_engine_dispatch(torch, engine, config, batching):
+    """Where a decode dispatch's time goes: the engine's own step
+    (``decode_steps_paged``, ``steps_per_dispatch`` tokens) on its pool,
+    8 rows at the replica's context lengths, profiled on the card."""
+    lens = [17, 64, 256, 1024, 1064, 1114, 1536, 2048]
+    blocks = [engine.pool.alloc(engine.pool.blocks_for(n + engine.steps))
+              for n in lens]
+    tables = torch.zeros((len(lens), engine.max_blocks_per_req),
+                         dtype=torch.int32)
+    for i, bl in enumerate(blocks):
+        tables[i, :len(bl)] = torch.tensor(bl, dtype=torch.int32)
+    tables = tables.cuda()
+    pos = torch.tensor(lens, dtype=torch.int32, device='cuda')
+    tokens = torch.ones(len(lens), dtype=torch.int32, device='cuda')
+    active = torch.ones(len(lens), dtype=torch.bool, device='cuda')
+
+    def dispatch():
+        with torch.inference_mode():
+            toks, _, _ = batching.decode_steps_paged(
+                engine.params, tokens, engine.caches, tables, pos, active,
+                config, engine.steps, engine.block_size)
+            toks.cpu()
+    dispatch()
+    profile_cuda(torch, dispatch, 'ENGINE_DISPATCH_PROFILE',
+                 dict(rows=len(lens), steps=engine.steps, lengths=lens))
+    for bl in blocks:
+        engine.pool.free(bl)
+
+
+def engine_phase(torch, attention, da):
+    """The engine slice: numerics at 2 layers, then the port's replica
+    at llama3-8b (32 layers, random weights) with ``--slots 8`` and the
+    JAX defaults answering 12 concurrent HTTP requests (prompts of
+    17-2048 tokens; two sharing a 1024-token prefix, the first admitted
+    ahead so the second hits the prefix cache; two built so the drafter
+    drafts at their first dispatch, so a verify runs). Launch counts are
+    zeroed just before and
+    read just after the 12 requests, and must equal the engine's own
+    dispatch record."""
+    import gc
+
+    from skypilot_torch.models import llama
+    from skypilot_torch.recipes import serve_model
+    from skypilot_torch.serve import batching
+    gc.collect()
+    torch.cuda.empty_cache()
+    _engine_numerics(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = serve_model.parse_args(['--model', 'llama3-8b', '--port', '0',
+                                   '--device', 'cuda', '--slots', '8'])
+    config = llama.get_config(args.model)
+    t0 = time.perf_counter()
+    server, _ = serve_model.build_server(args)
+    setup_s = time.perf_counter() - t0
+    engine = server.engine
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        gen = torch.Generator().manual_seed(24)
+
+        def rand(n):
+            return torch.randint(0, config.vocab_size, (n,),
+                                 generator=gen).tolist()
+        drafting = _draft_prompts(torch, engine, config, rand)
+        shared = rand(1024)
+        # Order of submission: the two drafting prompts first (their
+        # first dispatch must have prefill budget left for drafts), the
+        # first shared-prefix request once a verify ran, the other nine
+        # once that request's prefill (and so its prefix blocks) is done.
+        reqs = [{'prompt_ids': p, 'max_new_tokens': 64, 'stream': True}
+                for p in drafting]
+        reqs.append({'prompt_ids': shared + rand(40), 'max_new_tokens': 48,
+                     'stream': True})
+        reqs.append({'prompt_ids': shared + rand(90), 'max_new_tokens': 40,
+                     'stream': True})
+        for i, n in enumerate((17, 64, 256, 512, 1000, 1536, 2048, 700)):
+            reqs.append({'prompt_ids': rand(n),
+                         'max_new_tokens': 32 + 4 * i,
+                         'stream': i % 4 != 1})
+        assert len(reqs) == 12
+        kernels = {'flash_fwd': attention.FLASH_FWD,
+                   'decode_attention': da.DECODE_ATTENTION,
+                   'paged_w1': da.PAGED_DECODE_ATTENTION,
+                   'paged_verify': da.PAGED_VERIFY_ATTENTION,
+                   'cache_write': da.CACHE_WRITE}
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        engine.events.clear()
+        torch.cuda.reset_peak_memory_stats()
+        results = [None] * len(reqs)
+
+        def post(i):
+            results[i] = _sse_post(port, reqs[i])
+
+        def start(idx):
+            for i in idx:
+                threads.append(threading.Thread(target=post, args=(i,)))
+                threads[-1].start()
+
+        def wait_for(what, pred):
+            deadline = time.time() + 600
+            while not any(pred(e) for e in list(engine.events)):
+                assert time.time() < deadline and \
+                    threads[-1].is_alive(), f'never saw {what}'
+                time.sleep(0.01)
+
+        threads = []
+        t_run = time.perf_counter()
+        start([0, 1])
+        wait_for('a verify dispatch', lambda e: e[0] == 'verify')
+        start([2])
+        wait_for('the shared prefix prefilled', lambda e: (
+            e[0] == 'prefill_chunk' and e[2] == e[3]
+            and e[3] == len(reqs[2]['prompt_ids'])))
+        start(range(3, len(reqs)))
+        for t in threads:
+            t.join(timeout=900)
+        assert not any(t.is_alive() for t in threads)
+        run_s = time.perf_counter() - t_run
+        torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in kernels.items()}
+        events = list(engine.events)
+        n_verify = sum(e[0] == 'verify' for e in events)
+        n_decode = sum(e[0] == 'decode' for e in events) - n_verify
+        n_chunks = sum(e[0] == 'prefill_chunk' for e in events)
+        L = config.n_layers
+        want = {'flash_fwd': 0, 'decode_attention': 0,
+                'paged_w1': L * engine.steps * n_decode,
+                'paged_verify': L * n_verify,
+                'cache_write': L * (engine.steps * n_decode + n_verify +
+                                    n_chunks)}
+        n_out = 0
+        for (status, heads, ids, ttft, ms), r in zip(results, reqs):
+            assert status == 200, status
+            assert len(ids) == r['max_new_tokens'], (len(ids), r)
+            assert all(0 <= t < config.vocab_size for t in ids)
+            n_out += len(ids)
+            log('ENGINE_REQ ' + json.dumps(dict(
+                prompt=len(r['prompt_ids']), stream=r['stream'],
+                n_out=len(ids), latency_ms=ms, ttft_ms=ttft,
+                tpot_ms=None if ttft is None else
+                (ms - ttft) / (len(ids) - 1),
+                prefix_hits=int(heads['X-Skytpu-Prefix-Hits']),
+                prefix_misses=int(heads['X-Skytpu-Prefix-Misses']))))
+        hits = int(results[3][1]['X-Skytpu-Prefix-Hits'])
+        verifies = [e for e in events if e[0] == 'verify']
+        log('ENGINE ' + json.dumps(dict(
+            model=args.model, layers=L, slots=args.slots,
+            block_size=engine.block_size, pool_blocks=engine.pool.num_blocks,
+            max_seq=engine.max_seq, draft_k=engine.draft_k,
+            steps_per_dispatch=engine.steps, setup_s=setup_s, run_s=run_s,
+            requests=len(reqs), output_tokens=n_out,
+            output_tokens_per_s=n_out / run_s,
+            decode_dispatches=n_decode, verify_dispatches=n_verify,
+            drafted=sum(e[2] for e in verifies),
+            accepted=sum(e[3] for e in verifies), prefill_chunks=n_chunks,
+            preemptions=sum(e[0] == 'preempt' for e in events),
+            shared_prefix_hits=hits, launches=launches,
+            launches_expected=want,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)))
+        assert hits > 0, 'the shared 1024-token prefix was not reused'
+        assert n_verify > 0, 'no verify dispatch ran'
+        assert launches == want, (launches, want)
+        _profile_engine_dispatch(torch, engine, config, batching)
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.close()
+        thread.join(timeout=30)
+    assert not thread.is_alive() and not engine.thread.is_alive()
+    return launches
+
+
+# ---------------------------------------------------------------------
+# Rows: decode_steps_rows (K5 + dense K4) against its paged twin
+# ---------------------------------------------------------------------
+
+
+def rows_phase(torch, da):
+    """``decode_steps_rows`` at llama3-8b (32 layers, B 8 at mixed
+    positions, 16 steps) over a dense cache of random content, then
+    ``decode_steps_paged`` over a pool holding the same content through
+    contiguous tables: exactly 32 x 16 launches of K5 and dense K4 in
+    the first, of K5 and K4-paged in the second, and equal tokens."""
+    import gc
+
+    from skypilot_torch.models import llama
+    from skypilot_torch.serve import batching
+    gc.collect()
+    torch.cuda.empty_cache()
+    config = llama.get_config('llama3-8b')
+    params = llama.init_params(config, seed=5, device='cuda')
+    b, s, steps, L = 8, 8192, 16, config.n_layers
+    gen = torch.Generator(device='cuda').manual_seed(25)
+    shape = (L, b, s, HKV8, HD8)
+    k = torch.randn(shape, generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    v = torch.randn(shape, generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    pos = torch.tensor([17, 100, 1000, 2047, 4096, 5000, 7000, 8000],
+                       dtype=torch.int32, device='cuda')
+    tokens = torch.randint(0, config.vocab_size, (b,), generator=gen,
+                           device='cuda', dtype=torch.int32)
+    active = torch.ones(b, dtype=torch.bool, device='cuda')
+    mb = s // BLOCK
+    kp = torch.zeros((L, 1 + b * mb, BLOCK, HKV8, HD8), device='cuda',
+                     dtype=torch.bfloat16)
+    vp = torch.zeros_like(kp)
+    kp[:, 1:] = k.reshape(L, b * mb, BLOCK, HKV8, HD8)
+    vp[:, 1:] = v.reshape(L, b * mb, BLOCK, HKV8, HD8)
+    tables = (torch.arange(b * mb, dtype=torch.int32, device='cuda')
+              .reshape(b, mb) + 1)
+    kernels = (da.CACHE_WRITE, da.DECODE_ATTENTION,
+               da.PAGED_DECODE_ATTENTION)
+    out = {}
+    with torch.inference_mode():
+        for name in ('rows', 'paged'):
+            torch.cuda.synchronize()
+            for kern in kernels:
+                kern.launches = 0
+            t0 = time.perf_counter()
+            if name == 'rows':
+                toks, _, new_pos = batching.decode_steps_rows(
+                    params, tokens, (k, v, None, None), pos, active, config,
+                    steps)
+            else:
+                toks, _, new_pos = batching.decode_steps_paged(
+                    params, tokens, (kp, vp, None, None), tables, pos,
+                    active, config, steps, BLOCK)
+            toks = toks.cpu()
+            ms = 1e3 * (time.perf_counter() - t0)
+            out[name] = dict(tokens=toks.tolist(), pos=new_pos.tolist(),
+                             ms_per_step=ms / steps,
+                             launches=[kern.launches for kern in kernels])
+    same = out['rows']['tokens'] == out['paged']['tokens']
+    log('ROWS ' + json.dumps(dict(
+        config='llama3-8b', layers=L, B=b, steps=steps,
+        positions=pos.tolist(), tokens_equal=same,
+        launches_order=['cache_write', 'decode_attention',
+                        'decode_attention_paged'], **out)))
+    n = L * steps
+    assert out['rows']['launches'] == [n, n, 0], out['rows']['launches']
+    assert out['paged']['launches'] == [n, 0, n], out['paged']['launches']
+    assert out['rows']['pos'] == out['paged']['pos'] == \
+        [p + steps for p in pos.tolist()]
+    assert same, 'decode_steps_rows and decode_steps_paged disagree'
+    del params, k, v, kp, vp
+    return n
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument('--phases', default=','.join(PHASES),
@@ -897,6 +1564,14 @@ def main() -> int:
         k2, k3 = bwd_phase(torch, F, attention)
     if 'train' in phases:
         train = train_phase(torch, attention)
+    if 'k5' in phases:
+        k5 = k5_phase(torch, da)
+    if 'k4p' in phases:
+        k4p = k4p_phase(torch, F, da)
+    if 'engine' in phases:
+        eng = engine_phase(torch, attention, da)
+    if 'rows' in phases:
+        rows_n = rows_phase(torch, da)
     if set(phases) != set(PHASES):
         return 0
     kernels = [
@@ -920,7 +1595,19 @@ def main() -> int:
         dict(name='decode_attention', route='cuda',
              source='skypilot_torch/csrc/decode_attention.cu',
              replaces='skypilot_tpu/ops/decode_attention.py:123',
-             launches=k4_n, **k4),
+             launches=k4_n, launches_rows=rows_n, **k4),
+        # The engine slice: launches from its 12-request replica run.
+        dict(name='decode_attention_paged', route='cuda',
+             source='skypilot_torch/csrc/decode_attention.cu',
+             replaces='skypilot_tpu/ops/decode_attention.py:123',
+             launches=eng['paged_w1'] + eng['paged_verify'],
+             launches_decode_w1=eng['paged_w1'],
+             launches_verify=eng['paged_verify'], launches_rows=rows_n,
+             **k4p),
+        dict(name='cache_write', route='cuda',
+             source='skypilot_torch/csrc/decode_attention.cu',
+             replaces='skypilot_tpu/ops/decode_attention.py:389',
+             launches=eng['cache_write'], launches_rows=2 * rows_n, **k5),
     ]
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
     log(json.dumps({'kernels': kernels}))

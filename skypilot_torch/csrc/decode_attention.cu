@@ -1,7 +1,7 @@
-// K4-cuda: single-position decode attention over each row's valid cache
-// prefix, for Hopper (sm_90a).
+// Decode-side kernels for Hopper (sm_90a): K4-cuda (decode attention,
+// dense and paged/verify) and K5-cuda (the per-row KV-cache write).
 //
-// Replaces the TPU kernel skypilot_tpu/ops/decode_attention.py:
+// K4 replaces the TPU kernel skypilot_tpu/ops/decode_attention.py:
 // _decode_attn_kernel (launched by _decode_attention_pallas). Same
 // contract: q [B,Hq,hd], one layer's dense cache k/v [B,S,Hkv,hd], lengths
 // [B] int32 on the device; row b attends keys [0, max(lengths[b], 1)) and
@@ -9,20 +9,49 @@
 // over a flattened [S, Hkv*hd] cache exists only for TPU lane alignment
 // and is not carried over.
 //
-// What bounds it on the H100: memory. Each visible key is 2*Hkv*hd bf16
-// bytes of K and V used for G = Hq/Hkv dot products and G axpys, far
-// below the card's ~295 FLOP/byte balance point, and at batch 1 there is
-// too little work per row to fill 132 SMs with one block per head.
-// Design (split-K flash-decoding): grid (split, kv head, batch row); each
-// block owns one chunk of kChunk keys and loads every K/V row of it once
+// K4-paged is the same kernel reading the block table directly, which the
+// JAX package does as a gather into a contiguous view followed by K4
+// (paged_decode_attention) or a plain einsum (paged_verify_attention):
+// q [B,W,Hq,hd], one layer's flat pool k/v [NB*bs,Hkv,hd], block_tables
+// [B,MB] int32; query j of row b attends logical positions
+// [0, min(max(lengths[b] + j, 1), MB*bs)), and logical position p is pool
+// row table[b][p / bs] * bs + p % bs. W = 1 is decode, W = draft_k + 1 the
+// speculative verify. Only the row address differs from dense K4, so with
+// a table that lays rows out contiguously W = 1 is bit-equal to it: same
+// chunks, same lanes, same order of operations. The gathered view is never
+// built, and no row past a query's span is loaded.
+//
+// What bounds K4 on the H100: memory. Each visible key is 2*Hkv*hd bf16
+// bytes of K and V used for G = Hq/Hkv dot products and G axpys (W*G in
+// verify), far below the card's ~295 FLOP/byte balance point, and at batch
+// 1 there is too little work per row to fill 132 SMs with one block per
+// head. Design (split-K flash-decoding): grid (split, kv head, batch row);
+// each block owns one chunk of kChunk keys and loads every K/V row of it
 // for all G query heads of its group. Blocks whose chunk starts at or past
-// lengths[b] exit at once, so bytes read scale with the actual length, not
-// with S, and the splits put enough blocks in flight at batch 1. Inside a
-// block, hd/8 lanes share one key (16-byte loads, 8 dims per lane), and
-// each lane group keeps an online softmax in the exp2 domain (f32). The
-// block merges its lane groups through shared memory and writes (m, l,
-// acc) partials to f32 scratch that the wrapper allocates; a second kernel
-// merges the valid splits of each (row, head).
+// the row's span exit at once, so bytes read scale with the actual length,
+// not with S, and the splits put enough blocks in flight at batch 1.
+// Inside a block, hd/8 lanes share one key (16-byte loads, 8 dims per
+// lane), and each lane group keeps an online softmax in the exp2 domain
+// (f32). The block merges its lane groups through shared memory and
+// writes (m, l, acc) partials to f32 scratch that the wrapper allocates; a
+// second kernel merges the valid splits of each (row, query, head). In
+// verify, a block walks its W query positions one after the other over
+// the same chunk: the first pass reads the chunk from device memory, the
+// later ones find it in L1/L2 (a first kernel; keeping the chunk in
+// shared memory is later work).
+//
+// K5 replaces the TPU kernel skypilot_tpu/ops/decode_attention.py:
+// _cache_write_kernel (launched by _cache_write_pallas): write R new rows
+// k_new/v_new [R, Hkv, hd] into a flat row view k/v [N, Hkv, hd] at rows
+// dst [R], in place; K and V in one launch. The rows form of the TPU
+// kernel is dst = b * S + pos[b] over [B*S, Hkv, hd]; the paged engine
+// passes flat pool indices. A dst outside [0, N) writes nothing. Rows
+// that share a dst (padded lanes all aimed at the scratch block) race and
+// any one may win, as in XLA's scatter. The TPU kernel's aligned 8-row
+// read-modify-write window and masked-reduction row extraction are TPU
+// layout details and are not carried over. Bound: bytes (each new row is
+// read once and written once); one block per (row, K or V), 16-byte
+// vector copies.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,6 +66,27 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;  // key steps whose loads are issued together
 
+struct DecodeArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const int* lengths;
+  const int* table;  // [B, MB] for the paged form, unused when dense
+  float* part_m;
+  float* part_l;
+  float* part_acc;
+  bf16* out;
+  int S;  // keys a row can hold: the dense S, or MB * bs
+  int Hkv;
+  int W;  // query positions per row (1 when dense)
+  int MB;
+  int bs;
+  int n_split;
+  int chunk;
+  long long k_sb, k_ss, v_sb, v_ss;  // batch (dense only) and row strides
+  float scale_log2;
+};
+
 __device__ __forceinline__ void load8(const bf16* p, float (&f)[8]) {
   uint4 raw = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -48,15 +98,22 @@ __device__ __forceinline__ void load8(const bf16* p, float (&f)[8]) {
   }
 }
 
-template <int HD, int G>
+// Keys query w of row b attends: K4's clamp to [1, S], widened by w.
+__device__ __forceinline__ int span_of(const DecodeArgs& a, int b, int w) {
+  return min(max(a.lengths[b] + w, 1), a.S);
+}
+
+template <bool PAGED>
+__device__ __forceinline__ long long key_row(const DecodeArgs& a, int b,
+                                             int key) {
+  if (!PAGED) return key;
+  const int blk = a.table[(long long)b * a.MB + key / a.bs];
+  return (long long)blk * a.bs + key % a.bs;
+}
+
+template <int HD, int G, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
-    decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const int* __restrict__ lengths,
-                        float* __restrict__ part_m, float* __restrict__ part_l,
-                        float* __restrict__ part_acc, int S, int Hkv,
-                        int n_split, int chunk, long long k_sb, long long k_ss,
-                        long long v_sb, long long v_ss, float scale_log2) {
+    decode_split_kernel(const DecodeArgs a) {
   constexpr int LPK = HD / 8;         // lanes per key
   constexpr int KPW = 32 / LPK;       // keys per warp step
   constexpr int NGROUPS = kWarps * KPW;
@@ -65,183 +122,189 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ __align__(16) float sm_acc[NGROUPS][G][HD];
 
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int len = min(max(lengths[b], 1), S);
-  const int start = split * chunk;
-  if (start >= len) return;  // the merge reads only the valid splits
-  const int end = min(start + chunk, len);
-  const int Hq = Hkv * G;
+  const int nw = PAGED ? a.W : 1;
+  const int start = split * a.chunk;
+  if (start >= span_of(a, b, nw - 1)) return;  // the merge skips it
+  const int Hq = a.Hkv * G;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sub = lane / LPK;  // key slot within the warp step
   const int dl = lane % LPK;   // this lane's 8 dims: [8*dl, 8*dl + 8)
   const int group = warp * KPW + sub;
+  const bf16* kb = a.k + b * a.k_sb + kvh * HD + dl * 8;
+  const bf16* vb = a.v + b * a.v_sb + kvh * HD + dl * 8;
 
-  float qr[G][8];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    load8(q + ((long long)b * Hq + kvh * G + g) * HD + dl * 8, qr[g]);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) qr[g][e] *= scale_log2;
-  }
-  float m_run[G], l_run[G], acc[G][8];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m_run[g] = -INFINITY;
-    l_run[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
-  }
+  for (int w = 0; w < nw; ++w) {
+    const int len = span_of(a, b, w);
+    if (start >= len) continue;  // uniform across the block
+    const int end = min(start + a.chunk, len);
+    const long long qrow0 = ((long long)b * nw + w) * Hq + kvh * G;
 
-  const bf16* kb = k + b * k_sb + kvh * HD + dl * 8;
-  const bf16* vb = v + b * v_sb + kvh * HD + dl * 8;
-  // Trip counts are uniform across the warp (the shuffles below need
-  // every lane); keys past `end` are masked, not skipped.
-  for (int base = start + warp * KPW; base < end;
-       base += NGROUPS * kUnroll) {
-    float kf[kUnroll][8], vf[kUnroll][8];
-    bool ok[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int key = base + u * NGROUPS + sub;
-      ok[u] = key < end;
-      if (ok[u]) {
-        load8(kb + key * k_ss, kf[u]);
-        load8(vb + key * v_ss, vf[u]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) kf[u][e] = vf[u][e] = 0.f;
-      }
-    }
+    float qr[G][8];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      float s[kUnroll];
-      float mx = -INFINITY;
+      load8(a.q + (qrow0 + g) * HD + dl * 8, qr[g]);
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        float d = 0.f;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) d = fmaf(qr[g][e], kf[u][e], d);
-#pragma unroll
-        for (int off = LPK / 2; off > 0; off >>= 1)
-          d += __shfl_xor_sync(0xffffffff, d, off);
-        s[u] = ok[u] ? d : -INFINITY;
-        mx = fmaxf(mx, s[u]);
-      }
-      const float m_new = fmaxf(m_run[g], mx);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = exp2f(m_run[g] - m_use);
-      l_run[g] *= alpha;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[g][e] *= alpha;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const float p = exp2f(s[u] - m_use);
-        l_run[g] += p;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(p, vf[u][e], acc[g][e]);
-      }
-      m_run[g] = m_new;
+      for (int e = 0; e < 8; ++e) qr[g][e] *= a.scale_log2;
     }
-  }
+    float m_run[G], l_run[G], acc[G][8];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      m_run[g] = -INFINITY;
+      l_run[g] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+    }
 
-  // Merge the block's lane groups.
+    // Trip counts are uniform across the warp (the shuffles below need
+    // every lane); keys past `end` are masked, not loaded.
+    for (int base = start + warp * KPW; base < end;
+         base += NGROUPS * kUnroll) {
+      float kf[kUnroll][8], vf[kUnroll][8];
+      bool ok[kUnroll];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (dl == 0) {
-      sm_m[group][g] = m_run[g];
-      sm_l[group][g] = l_run[g];
+      for (int u = 0; u < kUnroll; ++u) {
+        const int key = base + u * NGROUPS + sub;
+        ok[u] = key < end;
+        if (ok[u]) {
+          const long long row = key_row<PAGED>(a, b, key);
+          load8(kb + row * a.k_ss, kf[u]);
+          load8(vb + row * a.v_ss, vf[u]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) kf[u][e] = vf[u][e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float s[kUnroll];
+        float mx = -INFINITY;
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          float d = 0.f;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) d = fmaf(qr[g][e], kf[u][e], d);
+#pragma unroll
+          for (int off = LPK / 2; off > 0; off >>= 1)
+            d += __shfl_xor_sync(0xffffffff, d, off);
+          s[u] = ok[u] ? d : -INFINITY;
+          mx = fmaxf(mx, s[u]);
+        }
+        const float m_new = fmaxf(m_run[g], mx);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = exp2f(m_run[g] - m_use);
+        l_run[g] *= alpha;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[g][e] *= alpha;
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const float p = exp2f(s[u] - m_use);
+          l_run[g] += p;
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            acc[g][e] = fmaf(p, vf[u][e], acc[g][e]);
+        }
+        m_run[g] = m_new;
+      }
     }
+
+    // Merge the block's lane groups.
 #pragma unroll
-    for (int e = 0; e < 8; ++e) sm_acc[group][g][dl * 8 + e] = acc[g][e];
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < G * HD; idx += kThreads) {
-    const int g = idx / HD, d = idx % HD;
-    float M = -INFINITY;
+    for (int g = 0; g < G; ++g) {
+      if (dl == 0) {
+        sm_m[group][g] = m_run[g];
+        sm_l[group][g] = l_run[g];
+      }
 #pragma unroll
-    for (int i = 0; i < NGROUPS; ++i) M = fmaxf(M, sm_m[i][g]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int i = 0; i < NGROUPS; ++i) {
-      const float w = exp2f(sm_m[i][g] - M);  // empty groups: exp2(-inf) = 0
-      L += w * sm_l[i][g];
-      A += w * sm_acc[i][g][d];
+      for (int e = 0; e < 8; ++e) sm_acc[group][g][dl * 8 + e] = acc[g][e];
     }
-    const long long row = ((long long)b * Hq + kvh * G + g) * n_split + split;
-    part_acc[row * HD + d] = A;
-    if (d == 0) {
-      part_m[row] = M;
-      part_l[row] = L;
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < G * HD; idx += kThreads) {
+      const int g = idx / HD, d = idx % HD;
+      float M = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < NGROUPS; ++i) M = fmaxf(M, sm_m[i][g]);
+      float L = 0.f, A = 0.f;
+#pragma unroll
+      for (int i = 0; i < NGROUPS; ++i) {
+        const float wt = exp2f(sm_m[i][g] - M);  // empty groups: 0
+        L += wt * sm_l[i][g];
+        A += wt * sm_acc[i][g][d];
+      }
+      const long long row = (qrow0 + g) * a.n_split + split;
+      a.part_acc[row * HD + d] = A;
+      if (d == 0) {
+        a.part_m[row] = M;
+        a.part_l[row] = L;
+      }
     }
+    __syncthreads();  // the next query position reuses the shared arrays
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(HD)
-    decode_merge_kernel(const float* __restrict__ part_m,
-                        const float* __restrict__ part_l,
-                        const float* __restrict__ part_acc,
-                        const int* __restrict__ lengths, bf16* __restrict__ out,
-                        int S, int Hq, int n_split, int chunk) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int len = min(max(lengths[b], 1), S);
-  const int n = (len + chunk - 1) / chunk;
-  const long long row0 = ((long long)b * Hq + h) * n_split;
+__global__ void __launch_bounds__(HD) decode_merge_kernel(const DecodeArgs a) {
+  const int h = blockIdx.x, w = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
+  const int Hq = gridDim.x;
+  const int n = (span_of(a, b, w) + a.chunk - 1) / a.chunk;
+  const long long qrow = ((long long)b * gridDim.y + w) * Hq + h;
+  const long long row0 = qrow * a.n_split;
   float M = -INFINITY;
-  for (int i = 0; i < n; ++i) M = fmaxf(M, part_m[row0 + i]);
+  for (int i = 0; i < n; ++i) M = fmaxf(M, a.part_m[row0 + i]);
   float L = 0.f, A = 0.f;
   for (int i = 0; i < n; ++i) {
-    const float w = exp2f(part_m[row0 + i] - M);
-    L += w * part_l[row0 + i];
-    A += w * part_acc[(row0 + i) * HD + d];
+    const float wt = exp2f(a.part_m[row0 + i] - M);
+    L += wt * a.part_l[row0 + i];
+    A += wt * a.part_acc[(row0 + i) * HD + d];
   }
-  out[((long long)b * Hq + h) * HD + d] = __float2bfloat16(A / L);
+  a.out[qrow * HD + d] = __float2bfloat16(A / L);
 }
 
-template <int HD, int G>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* lengths, void* out, void* pm, void* pl,
-                   void* pacc, int B, int S, int Hkv, long long k_sb,
-                   long long k_ss, long long v_sb, long long v_ss, int chunk,
-                   float scale_log2, cudaStream_t stream) {
-  const int n_split = (S + chunk - 1) / chunk;
-  decode_split_kernel<HD, G><<<dim3(n_split, Hkv, B), kThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int*>(lengths),
-      static_cast<float*>(pm), static_cast<float*>(pl),
-      static_cast<float*>(pacc), S, Hkv, n_split, chunk, k_sb, k_ss, v_sb,
-      v_ss, scale_log2);
+template <int HD, int G, bool PAGED>
+cudaError_t launch(const DecodeArgs& a, int B, cudaStream_t stream) {
+  decode_split_kernel<HD, G, PAGED>
+      <<<dim3(a.n_split, a.Hkv, B), kThreads, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_merge_kernel<HD><<<dim3(Hkv * G, B), HD, 0, stream>>>(
-      static_cast<const float*>(pm), static_cast<const float*>(pl),
-      static_cast<const float*>(pacc), static_cast<const int*>(lengths),
-      static_cast<bf16*>(out), S, Hkv * G, n_split, chunk);
+  decode_merge_kernel<HD><<<dim3(a.Hkv * G, PAGED ? a.W : 1, B), HD, 0,
+                            stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t dispatch_g(int G, const void* q, const void* k, const void* v,
-                       const void* lengths, void* out, void* pm, void* pl,
-                       void* pacc, int B, int S, int Hkv, long long k_sb,
-                       long long k_ss, long long v_sb, long long v_ss,
-                       int chunk, float scale_log2, cudaStream_t s) {
-  switch (G) {
-    case 1:
-      return launch<HD, 1>(q, k, v, lengths, out, pm, pl, pacc, B, S, Hkv,
-                           k_sb, k_ss, v_sb, v_ss, chunk, scale_log2, s);
-    case 2:
-      return launch<HD, 2>(q, k, v, lengths, out, pm, pl, pacc, B, S, Hkv,
-                           k_sb, k_ss, v_sb, v_ss, chunk, scale_log2, s);
-    case 4:
-      return launch<HD, 4>(q, k, v, lengths, out, pm, pl, pacc, B, S, Hkv,
-                           k_sb, k_ss, v_sb, v_ss, chunk, scale_log2, s);
-    case 8:
-      return launch<HD, 8>(q, k, v, lengths, out, pm, pl, pacc, B, S, Hkv,
-                           k_sb, k_ss, v_sb, v_ss, chunk, scale_log2, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <bool PAGED>
+cudaError_t dispatch(const DecodeArgs& a, int B, int Hq, int HD,
+                     cudaStream_t s) {
+  if (a.Hkv <= 0 || Hq % a.Hkv != 0) return cudaErrorInvalidValue;
+  const int G = Hq / a.Hkv;
+#define SKYPILOT_DECODE_CASE(hd, g)                 \
+  if (HD == hd && G == g) return launch<hd, g, PAGED>(a, B, s);
+  SKYPILOT_DECODE_CASE(64, 1)
+  SKYPILOT_DECODE_CASE(64, 2)
+  SKYPILOT_DECODE_CASE(64, 4)
+  SKYPILOT_DECODE_CASE(64, 8)
+  SKYPILOT_DECODE_CASE(128, 1)
+  SKYPILOT_DECODE_CASE(128, 2)
+  SKYPILOT_DECODE_CASE(128, 4)
+  SKYPILOT_DECODE_CASE(128, 8)
+#undef SKYPILOT_DECODE_CASE
+  return cudaErrorInvalidValue;
+}
+
+// One block per (row r, K or V): copies row_bytes / 16 vectors of 16 bytes.
+__global__ void __launch_bounds__(kThreads)
+    cache_write_kernel(uint8_t* __restrict__ k, uint8_t* __restrict__ v,
+                       const uint8_t* __restrict__ k_new,
+                       const uint8_t* __restrict__ v_new,
+                       const int* __restrict__ dst, long long n_rows,
+                       int row_bytes) {
+  const int r = blockIdx.x;
+  const long long d = dst[r];
+  if (d < 0 || d >= n_rows) return;
+  uint8_t* out = blockIdx.y == 0 ? k : v;
+  const uint8_t* in = blockIdx.y == 0 ? k_new : v_new;
+  const uint4* src = reinterpret_cast<const uint4*>(in + (long long)r * row_bytes);
+  uint4* to = reinterpret_cast<uint4*>(out + d * row_bytes);
+  for (int i = threadIdx.x; i < row_bytes / 16; i += kThreads) to[i] = src[i];
 }
 
 }  // namespace
@@ -251,18 +314,76 @@ extern "C" int skypilot_decode_attention(
     void* out, void* part_m, void* part_l, void* part_acc, int B, int S,
     int Hq, int Hkv, int HD, long long k_sb, long long k_ss, long long v_sb,
     long long v_ss, int chunk, float scale_log2, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
-  const int G = Hq / Hkv;
-  if (HD == 64)
-    return dispatch_g<64>(G, q, k, v, lengths, out, part_m, part_l, part_acc,
-                          B, S, Hkv, k_sb, k_ss, v_sb, v_ss, chunk,
-                          scale_log2, s);
-  if (HD == 128)
-    return dispatch_g<128>(G, q, k, v, lengths, out, part_m, part_l,
-                           part_acc, B, S, Hkv, k_sb, k_ss, v_sb, v_ss,
-                           chunk, scale_log2, s);
-  return cudaErrorInvalidValue;
+  DecodeArgs a{};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.lengths = static_cast<const int*>(lengths);
+  a.table = nullptr;
+  a.part_m = static_cast<float*>(part_m);
+  a.part_l = static_cast<float*>(part_l);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.out = static_cast<bf16*>(out);
+  a.S = S;
+  a.Hkv = Hkv;
+  a.W = 1;
+  a.MB = 0;
+  a.bs = 1;
+  a.chunk = chunk;
+  a.n_split = (S + chunk - 1) / chunk;
+  a.k_sb = k_sb;
+  a.k_ss = k_ss;
+  a.v_sb = v_sb;
+  a.v_ss = v_ss;
+  a.scale_log2 = scale_log2;
+  return dispatch<false>(a, B, Hq, HD, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int skypilot_paged_decode_attention(
+    const void* q, const void* k, const void* v, const void* table,
+    const void* lengths, void* out, void* part_m, void* part_l,
+    void* part_acc, int B, int W, int MB, int bs, int Hq, int Hkv, int HD,
+    long long k_ss, long long v_ss, int chunk, float scale_log2,
+    void* stream) {
+  if (W < 1 || MB < 1 || bs < 1) return cudaErrorInvalidValue;
+  DecodeArgs a{};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.lengths = static_cast<const int*>(lengths);
+  a.table = static_cast<const int*>(table);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_l = static_cast<float*>(part_l);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.out = static_cast<bf16*>(out);
+  a.S = MB * bs;
+  a.Hkv = Hkv;
+  a.W = W;
+  a.MB = MB;
+  a.bs = bs;
+  a.chunk = chunk;
+  a.n_split = (a.S + chunk - 1) / chunk;
+  a.k_sb = 0;
+  a.k_ss = k_ss;
+  a.v_sb = 0;
+  a.v_ss = v_ss;
+  a.scale_log2 = scale_log2;
+  return dispatch<true>(a, B, Hq, HD, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int skypilot_cache_write(void* k, void* v, const void* k_new,
+                                    const void* v_new, const void* dst,
+                                    int n_new, long long n_rows,
+                                    int row_bytes, void* stream) {
+  if (n_new < 0 || row_bytes <= 0 || row_bytes % 16 != 0)
+    return cudaErrorInvalidValue;
+  if (n_new == 0) return cudaSuccess;
+  cache_write_kernel<<<dim3(n_new, 2), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint8_t*>(k), static_cast<uint8_t*>(v),
+      static_cast<const uint8_t*>(k_new), static_cast<const uint8_t*>(v_new),
+      static_cast<const int*>(dst), n_rows, row_bytes);
+  return cudaGetLastError();
 }
 
 extern "C" const char* skypilot_error_string(int code) {

@@ -12,10 +12,14 @@ module, by design:
 - ``pos`` is a Python int, so slicing the cache and building the
   decode lengths never waits on the device;
 - ``decode_tokens_scan`` is a Python loop (no ``lax.scan``) whose
-  argmax stays on the device: no host sync per token.
+  argmax stays on the device: no host sync per token;
+- ``forward_paged`` (the batching engine's prefill chunk) writes the
+  chunk's rows into the pool once, with K5 on the card: that write is
+  both what this chunk's attention reads and the persisted state, where
+  JAX writes in the layer and again after the layer scan.
 
-``kv_int8``, ``forward_paged``, sampling and ``decode_tokens_windowed``
-come with later slices (ROADMAP.md).
+``kv_int8``, adapters in ``forward_paged``, sampling and
+``decode_tokens_windowed`` come with later slices (ROADMAP.md).
 """
 import dataclasses
 import math
@@ -82,6 +86,49 @@ def _masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, t, h, hd)
 
 
+def layer_list(cparams: Params, config: llama.LlamaConfig) -> list:
+    """Per-layer views of the stacked ``[L, ...]`` params."""
+    return [{name: w[i] for name, w in cparams['layers'].items()}
+            for i in range(config.n_layers)]
+
+
+def qkv_projections(config: llama.LlamaConfig, x: torch.Tensor,
+                    lp: Params):
+    """A layer's attention norm and q/k/v projections (+ biases):
+    x [B, T, D] -> q [B, T, H, hd], k/v [B, T, Hkv, hd], before RoPE.
+    Shared by every cached and paged layer body, as the JAX package's
+    four layer-body variants share this math."""
+    b, t, _ = x.shape
+    hd = config.head_dim
+    h = llama._rms_norm(x, lp['attn_norm'], config.norm_eps,
+                        config.norm_offset)
+    q = llama.matmul(h, lp['wq'])
+    k = llama.matmul(h, lp['wk'])
+    v = llama.matmul(h, lp['wv'])
+    if config.qkv_bias:
+        q = q + lp['bq']
+        k = k + lp['bk']
+        v = v + lp['bv']
+    return (q.reshape(b, t, config.n_heads, hd),
+            k.reshape(b, t, config.n_kv_heads, hd),
+            v.reshape(b, t, config.n_kv_heads, hd))
+
+
+def attn_out_and_mlp(config: llama.LlamaConfig, x: torch.Tensor,
+                     attn: torch.Tensor, lp: Params) -> torch.Tensor:
+    """The rest of the layer: output projection and residual, then the
+    gated MLP (f32 norm, the gate activation in f32 then cast back) and
+    its residual. attn [B, T, H, hd] -> y [B, T, D]."""
+    b, t = attn.shape[:2]
+    x = x + llama.matmul(attn.reshape(b, t, -1), lp['wo'])
+    h = llama._rms_norm(x, lp['mlp_norm'], config.norm_eps,
+                        config.norm_offset)
+    gate = llama.mlp_act(config)(
+        llama.matmul(h, lp['w_gate']).float()).to(h.dtype)
+    up = llama.matmul(h, lp['w_up'])
+    return x + llama.matmul(gate * up, lp['w_down'])
+
+
 def _layer_cached(config: llama.LlamaConfig, x: torch.Tensor,
                   layer_params: Params, k_cache: torch.Tensor,
                   v_cache: torch.Tensor, pos: int,
@@ -93,26 +140,14 @@ def _layer_cached(config: llama.LlamaConfig, x: torch.Tensor,
     the JAX layer: f32 norms, the gate activation in f32 then cast
     back."""
     b, t, _ = x.shape
-    nh, nkv, hd = config.n_heads, config.n_kv_heads, config.head_dim
-    mm = llama.matmul
-
-    h = llama._rms_norm(x, layer_params['attn_norm'], config.norm_eps,
-                        config.norm_offset)
-    q = mm(h, layer_params['wq'])
-    k = mm(h, layer_params['wk'])
-    v = mm(h, layer_params['wv'])
-    if config.qkv_bias:
-        q = q + layer_params['bq']
-        k = k + layer_params['bk']
-        v = v + layer_params['bv']
-    q = attention_ops.apply_rope(q.reshape(b, t, nh, hd), angles)
-    k = attention_ops.apply_rope(k.reshape(b, t, nkv, hd), angles)
-    v = v.reshape(b, t, nkv, hd)
+    q, k, v = qkv_projections(config, x, layer_params)
+    q = attention_ops.apply_rope(q, angles)
+    k = attention_ops.apply_rope(k, angles)
 
     k_cache[:, pos:pos + t] = k
     v_cache[:, pos:pos + t] = v
 
-    scale = hd ** -0.5
+    scale = config.head_dim ** -0.5
     if t == 1:
         # Decode step: length-aware attention over the valid prefix.
         lengths = torch.full((b,), pos + 1, dtype=torch.int32,
@@ -127,14 +162,7 @@ def _layer_cached(config: llama.LlamaConfig, x: torch.Tensor,
     else:
         attn = _masked_attention(q, k_cache, v_cache, q_pos=pos,
                                  kv_len=pos + t, scale=scale)
-    x = x + mm(attn.reshape(b, t, nh * hd), layer_params['wo'])
-
-    h = llama._rms_norm(x, layer_params['mlp_norm'], config.norm_eps,
-                        config.norm_offset)
-    gate = llama.mlp_act(config)(
-        mm(h, layer_params['w_gate']).float()).to(h.dtype)
-    up = mm(h, layer_params['w_up'])
-    return x + mm(gate * up, layer_params['w_down'])
+    return attn_out_and_mlp(config, x, attn, layer_params)
 
 
 def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
@@ -165,9 +193,7 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
     x = cparams['embed'][tokens]
     if config.scale_embeddings:
         x = x * torch.tensor(math.sqrt(config.dim), dtype=x.dtype)
-    layers = cparams['layers']
-    for i in range(config.n_layers):
-        layer_params = {name: w[i] for name, w in layers.items()}
+    for i, layer_params in enumerate(layer_list(cparams, config)):
         x = _layer_cached(config, x, layer_params, cache.k[i],
                           cache.v[i], pos, angles, prefill=prefill)
     cache.pos = pos + t
@@ -177,6 +203,82 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
                         config.norm_offset)
     logits = llama.matmul(x, llama.output_head(cparams, config)).float()
     return logits, cache
+
+
+def forward_paged(params: Params, tokens: torch.Tensor, pools,
+                  block_row: torch.Tensor, start: int, real_len: int,
+                  config: llama.LlamaConfig, block_size: int,
+                  adapters=None, adapter_idx=None):
+    """One PREFILL CHUNK of one request, written directly into its
+    paged KV-pool blocks (``serve/kv_pool.py``).
+
+    tokens [1, T] — positions [start, start + T) of the prompt, of
+    which the first ``real_len`` are real (the rest pad the chunk to
+    its bucket; their K/V writes go to the scratch block and their
+    logits are never formed). ``pools`` is the engine's 4-tuple
+    (k, v, None, None) with k/v [L, num_blocks, block_size, Hkv, hd],
+    updated in place; ``block_row`` [MB] int32 is THIS request's block
+    table; ``start``/``real_len`` are host ints.
+
+    Per layer the chunk's rows are written first (K5 on the card), then
+    the row's logical view is gathered from the pool and attended with
+    the causal window mask (``_masked_attention`` with q_pos=start,
+    kv_len=start+real_len): chunk c sees every earlier chunk's keys
+    plus itself causally, and a prefix-cache hit is just a chunk that
+    starts at the hit's offset. The gather stops at the last block
+    that holds a position below kv_len; masked positions would add
+    exactly 0.
+
+    Returns (logits [1, vocab] f32 at the chunk's last real position,
+    pools). Layer math mirrors ``_layer_cached``."""
+    if adapters is not None or adapter_idx is not None:
+        raise NotImplementedError(
+            'forward_paged: adapters come with the multi-LoRA slice '
+            '(ROADMAP.md)')
+    llama.require_dense(config)
+    from skypilot_torch.serve import kv_pool as kv_pool_lib
+    k_pool, v_pool, k_scale, _ = pools
+    if k_scale is not None:
+        raise NotImplementedError(
+            'forward_paged: int8 pools come with the int8 slice '
+            '(ROADMAP.md)')
+    nl, nb, bs = k_pool.shape[:3]
+    if bs != block_size:
+        raise ValueError(f'pool block size {bs} != block_size '
+                         f'{block_size}')
+    nkv, hd = config.n_kv_heads, config.head_dim
+    _, t = tokens.shape
+    if not 0 < real_len <= t:
+        raise ValueError(f'real_len {real_len} outside (0, {t}]')
+    cparams = llama.compute_params(params, config)
+    dev = tokens.device
+    angles = llama._rope_frequencies(
+        config, torch.arange(start, start + t, device=dev))
+    x = llama.embed_tokens(cparams, tokens, config)
+
+    kp = k_pool.view(nl, nb * bs, nkv, hd)
+    vp = v_pool.view(nl, nb * bs, nkv, hd)
+    kv_len = start + real_len
+    gw = kv_pool_lib.chunk_write_indices(block_row, start, real_len, t,
+                                         block_size)              # [T]
+    n_blocks = min(-(-kv_len // block_size), block_row.shape[0])
+    gr = kv_pool_lib.read_indices(block_row[None, :n_blocks],
+                                  block_size)                     # [1, S]
+    for i, lp in enumerate(layer_list(cparams, config)):
+        q, k, v = qkv_projections(config, x, lp)
+        q = attention_ops.apply_rope(q, angles)
+        k = attention_ops.apply_rope(k, angles)
+        da.cache_write(kp[i], vp[i], k[0], v[0], gw)
+        attn = _masked_attention(q, da.paged_gather(kp[i], gr),
+                                 da.paged_gather(vp[i], gr), q_pos=start,
+                                 kv_len=kv_len, scale=hd ** -0.5)
+        x = attn_out_and_mlp(config, x, attn, lp)
+    x_last = llama._rms_norm(x[:, real_len - 1:real_len],
+                             cparams['final_norm'], config.norm_eps,
+                             config.norm_offset)
+    logits = llama.matmul(x_last,
+                          llama.output_head(cparams, config)).float()
+    return logits[:, 0], pools
 
 
 def decode_tokens_scan(params: Params, first: torch.Tensor,

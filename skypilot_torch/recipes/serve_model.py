@@ -1,20 +1,30 @@
 """Model serving replica (stdlib HTTP) — the port of
-``skypilot_tpu/recipes/serve_model.py``, engine-off greedy path.
+``skypilot_tpu/recipes/serve_model.py``.
 
-Exposes ``GET /`` (readiness) and ``POST /generate`` (greedy decode
-through ``models/decode.greedy_generate``: K1-cuda prefill, K4-cuda
-decode on the card). Weights are random, made from seed 0. The port
-listens on ``--port``, default ``SKYTPU_REPLICA_PORT`` or 8080.
+Exposes ``GET /`` (readiness) and ``POST /generate`` (greedy decode;
+``"stream": true`` for server-sent events). Weights are random, made
+from seed 0. The port listens on ``--port``, default
+``SKYTPU_REPLICA_PORT`` or 8080.
 
-    python -m skypilot_torch.recipes.serve_model --model llama3-8b
+    python -m skypilot_torch.recipes.serve_model --model llama3-8b --slots 8
 
-The batching engine (``--slots``), ``--tp``, ``--quant``,
-``--kv-int8``, ``--checkpoint-dir``, tracing spans and the metrics
-publisher are not ported yet (ROADMAP.md).
+With ``--slots N > 0`` requests share the continuous-batching engine
+(``serve/batching.BatchingEngine``: paged KV pool, chunked prefill,
+prefix caching, speculative verify; K5 and K4-paged on the card), tokens
+stream as the engine emits them, and each engine response carries the
+``X-Skytpu-Prefix-Hits/Misses`` headers. With ``--slots 0`` each request
+runs alone through ``models/decode.greedy_generate`` (K1-cuda prefill,
+K4-cuda decode). A body field of a feature not ported yet (sampling,
+adapters, overload control) is answered 400 naming its slice, never
+with a silent greedy answer.
+
+``--tp``, ``--quant``, ``--kv-int8``, ``--checkpoint-dir``, tracing
+spans and the metrics publisher are not ported yet (ROADMAP.md).
 """
 import argparse
 import json
 import os
+import queue
 import threading
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -23,7 +33,10 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from skypilot_torch import device as device_lib
+from skypilot_torch import exceptions
 from skypilot_torch.models import decode, llama
+from skypilot_torch.serve import batching
+from skypilot_torch.serve import prefix_hash
 
 MAX_NEW_TOKENS_CAP = 512
 
@@ -45,12 +58,42 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="where the model runs: 'cuda' (the kernels;"
                              " raises without CUDA) or 'cpu' (the plain "
                              'PyTorch path)')
+    parser.add_argument('--slots', type=int, default=0,
+                        help='enable continuous batching with this many '
+                             'concurrent decode rows (0: one request at '
+                             'a time through greedy_generate)')
+    parser.add_argument('--block-size', type=int, default=16,
+                        help='paged-KV block granularity in tokens')
+    parser.add_argument('--num-blocks', type=int, default=0,
+                        help='KV pool size in blocks; 0 sizes the pool so '
+                             'every row reaches max_seq (no preemption)')
+    parser.add_argument('--max-batched-tokens', type=int, default=2048,
+                        help='per-iteration prefill token budget between '
+                             'decode dispatches')
+    parser.add_argument('--prefix-caching', choices=['on', 'off'],
+                        default='on',
+                        help='automatic prefix caching on the paged pool')
+    parser.add_argument('--speculative', choices=['on', 'off'],
+                        default='on',
+                        help='self-speculative n-gram drafting + batched '
+                             'multi-token verify')
+    parser.add_argument('--draft-k', type=int, default=8,
+                        help='max drafted tokens per row per verify (0 '
+                             'disables speculation)')
     return parser.parse_args(argv)
 
 
+def _number(body, name):
+    x = body.get(name)
+    if x is not None and (isinstance(x, bool)
+                          or not isinstance(x, (int, float))):
+        raise ValueError(f'{name} must be a number, got {x!r}')
+    return x
+
+
 def _parse_body(body, config: llama.LlamaConfig, default_max_new: int):
-    """The request fields of the engine-off path; raises ValueError,
-    KeyError or TypeError on a malformed body (answered 400)."""
+    """The request fields; raises ValueError, KeyError or TypeError on a
+    malformed body (answered 400)."""
     if not isinstance(body, dict):
         raise TypeError(f'body must be a JSON object, got '
                         f'{type(body).__name__}')
@@ -59,22 +102,15 @@ def _parse_body(body, config: llama.LlamaConfig, default_max_new: int):
         raise ValueError('prompt_ids must not be empty')
     max_new = min(int(body.get('max_new_tokens', default_max_new)),
                   MAX_NEW_TOKENS_CAP)
-    temperature = body.get('temperature')
+    temperature = _number(body, 'temperature')
     if temperature is not None:
-        if isinstance(temperature, bool) or \
-                not isinstance(temperature, (int, float)):
-            raise ValueError(f'temperature must be a number, got '
-                             f'{temperature!r}')
         temperature = float(temperature)
         if temperature < 0.0:
             raise ValueError(f'temperature must be >= 0, got '
                              f'{temperature}')
-    top_p = body.get('top_p')
-    if top_p is not None:
-        if isinstance(top_p, bool) or not isinstance(top_p, (int, float)):
-            raise ValueError(f'top_p must be a number, got {top_p!r}')
-        if not 0.0 < float(top_p) <= 1.0:
-            raise ValueError(f'top_p must be in (0, 1], got {top_p}')
+    top_p = _number(body, 'top_p')
+    if top_p is not None and not 0.0 < float(top_p) <= 1.0:
+        raise ValueError(f'top_p must be in (0, 1], got {top_p}')
     seed = body.get('seed')
     if seed is not None and (isinstance(seed, bool)
                              or not isinstance(seed, int)):
@@ -87,30 +123,60 @@ def _parse_body(body, config: llama.LlamaConfig, default_max_new: int):
     eos_id = body.get('eos_id')
     if eos_id is not None:
         eos_id = int(eos_id)
-    adapter = body.get('adapter')
     return dict(prompt_ids=prompt_ids, max_new=max_new,
-                temperature=temperature, response_format=response_format,
-                eos_id=eos_id, adapter=adapter,
+                temperature=temperature, top_p=top_p, seed=seed,
+                response_format=response_format, eos_id=eos_id,
+                adapter=body.get('adapter'), tenant=body.get('tenant'),
+                priority=body.get('priority'),
+                timeout_s=body.get('timeout_s'),
                 stream=bool(body.get('stream')))
+
+
+def _engine_refusal(req) -> Optional[str]:
+    """Why the engine cannot serve this request yet (None: it can): a
+    field of a feature whose slice is not ported, named in the 400."""
+    if (req['temperature'] or 0.0) > 0.0 or req['top_p'] is not None \
+            or req['seed'] is not None \
+            or req['response_format'] is not None:
+        return batching.SAMPLING_SLICE
+    if req['adapter'] is not None:
+        return batching.ADAPTER_SLICE
+    if req['priority'] is not None or req['timeout_s'] is not None \
+            or req['tenant'] not in (None, ''):
+        return batching.OVERLOAD_SLICE
+    return None
 
 
 def build_server(args: argparse.Namespace
                  ) -> Tuple[ThreadingHTTPServer,
                             Callable[..., List[int]]]:
-    """Build the model, warm it up, and bind the HTTP server on
-    ``args.port`` (0 picks a free one). Returns (server, generate);
-    the caller runs ``server.serve_forever()`` and shuts it down."""
+    """Build the model (and the batching engine with ``--slots > 0``),
+    warm it up, and bind the HTTP server on ``args.port`` (0 picks a
+    free one). Returns (server, generate); ``server.engine`` is the
+    engine or None. The caller runs ``server.serve_forever()``, then
+    shuts the server down and closes the engine."""
     dev = device_lib.resolve_device(args.device)
     config = llama.get_config(args.model)
     params = llama.init_params(config, seed=0, device=dev)
     lock = threading.Lock()
+    engine = None
+    if args.slots > 0:
+        engine = batching.BatchingEngine(
+            params, config, slots=args.slots, block_size=args.block_size,
+            num_blocks=args.num_blocks or None,
+            max_num_batched_tokens=args.max_batched_tokens,
+            prefix_caching=args.prefix_caching == 'on',
+            speculative=args.speculative == 'on', draft_k=args.draft_k)
 
     def generate(prompt_ids, max_new, eos_id=None) -> List[int]:
-        """Greedy generation. Requested lengths are bucketed to powers
-        of two (as the JAX replica does, where each length is a
+        """Greedy generation. On the engine, concurrent requests share
+        the decode batch. Without it, requested lengths are bucketed to
+        powers of two (as the JAX replica does, where each length is a
         compile) and truncated; the eos rule is applied on the host to
         the full bucket, which yields the same ids as decoding with
         ``eos_id``."""
+        if engine is not None:
+            return engine.generate(prompt_ids, max_new, eos_id=eos_id)
         tokens = torch.tensor([prompt_ids], dtype=torch.long, device=dev)
         max_new = min(max_new, config.max_seq_len - tokens.shape[1])
         if max_new <= 0:
@@ -133,13 +199,32 @@ def build_server(args: argparse.Namespace
         def log_message(self, fmt, *largs):
             pass
 
-        def _json(self, obj, code=200):
+        def _json(self, obj, code=200, extra_headers=None):
             body = json.dumps(obj).encode()
             self.send_response(code)
             self.send_header('Content-Type', 'application/json')
             self.send_header('Content-Length', str(len(body)))
+            for k, v in (extra_headers or {}).items():
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(body)
+
+        def _engine_error(self, err):
+            """A typed engine failure as an HTTP error: 413 when the
+            pool can never hold the request (the client's shape), 500
+            for anything else (engine death is a replica fault)."""
+            code = 413 if isinstance(
+                err, exceptions.KVPoolExhaustedError) else 500
+            self._json({'error': str(err)}, code)
+
+        @staticmethod
+        def _prefix_headers(req):
+            """Per-request prefix-cache accounting, as the JAX replica
+            sends it to the load balancer."""
+            return {prefix_hash.PREFIX_HITS_HEADER:
+                    str(req.prefix_hit_blocks),
+                    prefix_hash.PREFIX_MISSES_HEADER:
+                    str(req.prefix_miss_blocks)}
 
         def do_GET(self):  # noqa: N802
             if self.path == '/':
@@ -157,6 +242,16 @@ def build_server(args: argparse.Namespace
                                   config, args.max_new_tokens)
             except (ValueError, KeyError, TypeError) as e:
                 self._json({'error': f'bad request: {e}'}, 400)
+                return
+            if engine is not None:
+                refusal = _engine_refusal(req)
+                if refusal is not None:
+                    self._json({'error': refusal}, 400)
+                    return
+                if req['stream']:
+                    self._engine_stream(req)
+                else:
+                    self._engine_json(req)
                 return
             sampled = ((req['temperature'] is not None and
                         req['temperature'] > 0.0) or
@@ -181,6 +276,76 @@ def build_server(args: argparse.Namespace
                 return
             self._json({'output_ids': out})
 
+        def _engine_json(self, body):
+            req = engine.submit_request(body['prompt_ids'],
+                                        body['max_new'],
+                                        eos_id=body['eos_id'])
+            out, err = [], None
+            while True:
+                tok = req.out.get()
+                if tok is None:
+                    break
+                if isinstance(tok, BaseException):
+                    err = tok
+                    continue
+                out.append(tok)
+            if err is not None:
+                self._engine_error(err)
+                return
+            self._json({'output_ids': out},
+                       extra_headers=self._prefix_headers(req))
+
+        def _engine_stream(self, body):
+            """SSE: tokens leave as the engine emits them (per decode
+            dispatch). The status line waits, bounded, for the first
+            queue item: admission (which fills the prefix-cache headers)
+            precedes the first token, and a typed failure can still be
+            answered as an HTTP error."""
+            req = engine.submit_request(body['prompt_ids'],
+                                        body['max_new'],
+                                        eos_id=body['eos_id'])
+            pending = object()
+            try:
+                first = req.out.get(timeout=90)
+            except queue.Empty:
+                first = pending
+            if isinstance(first, BaseException):
+                self._engine_error(first)
+                return
+            self.send_response(200)
+            self.send_header('Content-Type', 'text/event-stream')
+            self.send_header('Cache-Control', 'no-cache')
+            self.send_header('Transfer-Encoding', 'chunked')
+            if first is not pending:
+                for k, v in self._prefix_headers(req).items():
+                    self.send_header(k, v)
+            self.end_headers()
+
+            def chunk(data: bytes):
+                self.wfile.write(f'{len(data):x}\r\n'.encode())
+                self.wfile.write(data + b'\r\n')
+                self.wfile.flush()
+
+            tok = req.out.get() if first is pending else first
+            try:
+                while tok is not None:
+                    if isinstance(tok, BaseException):
+                        # Mid-stream failure: one-line SSE error event.
+                        msg = ' '.join(str(tok).split())
+                        chunk(f'event: error\ndata: {msg}\n\n'.encode())
+                    else:
+                        chunk(f'data: {tok}\n\n'.encode())
+                    tok = req.out.get()
+                chunk(b'data: [DONE]\n\n')
+                self.wfile.write(b'0\r\n\r\n')
+                self.wfile.flush()
+            except OSError:
+                # The client went away: the request decodes to its end
+                # (cancel comes with the overload slice); drain its
+                # queue so this thread ends with it.
+                while tok is not None:
+                    tok = req.out.get()
+
         def _stream_burst(self, out):
             # No engine: stream-compatible response with the whole
             # generation as one event burst.
@@ -194,9 +359,11 @@ def build_server(args: argparse.Namespace
 
     # Warm up before declaring readiness: the first request would
     # otherwise pay the kernel build and the allocator's first growth.
+    # max_new=2 so the engine runs a decode dispatch too.
     generate([1, 2, 3], 2)
     server = ThreadingHTTPServer(('0.0.0.0', args.port), Handler)
     server.daemon_threads = True
+    server.engine = engine
     return server, generate
 
 
@@ -204,11 +371,14 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     server, _ = build_server(args)
     print(f'serve_model ready on :{server.server_address[1]} '
-          f'(model {args.model}, device {args.device})', flush=True)
+          f'(model {args.model}, device {args.device}, slots '
+          f'{args.slots})', flush=True)
     try:
         server.serve_forever()
     finally:
         server.server_close()
+        if server.engine is not None:
+            server.engine.close()
 
 
 if __name__ == '__main__':

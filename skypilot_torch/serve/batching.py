@@ -1,0 +1,1272 @@
+"""Continuous batching over a PAGED KV cache — the port of
+``skypilot_tpu/serve/batching.py`` (its core; greedy decoding).
+
+Concurrent requests share ONE decode batch: new requests are admitted
+between decode dispatches, finished ones retire at once, and KV lives
+in a pool of fixed-size blocks mapped per request through block tables
+(``serve/kv_pool.py``), so admission is bounded by free blocks, not by
+whole free slots. As in the JAX engine:
+
+- prefill is CHUNKED and writes straight into the request's blocks
+  (``models/decode.forward_paged``), interleaved with decode
+  dispatches under a per-iteration token budget;
+- pool exhaustion PREEMPTS the youngest request (blocks freed, request
+  requeued at the front; resume re-prefills prompt + generated, which
+  under greedy decoding reproduces the continuation);
+- automatic PREFIX CACHING pins matching cached blocks at admission
+  and prefills only the suffix (copy-on-write past a mid-block
+  divergence);
+- self-speculative n-gram drafting verifies draft_k + 1 positions per
+  row in one forward (``verify_step_paged``), accepting through the one
+  rule in ``serve/sampling/accept.py``;
+- greedy outputs equal single-stream ``greedy_generate`` token for
+  token (exactly on the CPU in f32; on the card bf16 kernels can flip
+  a near-tie).
+
+The device steps, on the card: each layer writes its new K/V rows with
+K5 (``ops.decode_attention.cache_write``) and attends with K4-paged
+(``paged_decode_attention``, W = 1, or ``paged_verify_attention``,
+W = draft_k + 1), reading the block table directly; the contiguous
+``decode_steps_rows`` twin runs K5 and dense K4. The pool tensors are
+updated IN PLACE, so the in-layer write is also the persisted state
+(the JAX steps write once in the layer and again after the layer
+scan), and a rejected draft needs no undo: its rows sit past the new
+``pos`` and are masked. The host reads tokens once per dispatch; pos
+and tokens stay on the device, and block tables go up as one small
+copy per change.
+
+Not ported yet (each raises ``NotImplementedError`` naming its slice):
+overload control (bounded queues, deadlines, cancel, priorities,
+tenant fair share), multi-LoRA adapters, sampling and grammar masks,
+int8 KV, the metrics gauges and tracing.
+"""
+import array
+import collections
+import itertools
+import logging
+import queue
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from skypilot_torch import exceptions
+from skypilot_torch.models import decode, llama
+from skypilot_torch.ops import decode_attention as da
+from skypilot_torch.serve import kv_pool as kv_pool_lib
+from skypilot_torch.serve import prefix_hash
+from skypilot_torch.serve.sampling import accept_tokens
+
+logger = logging.getLogger(__name__)
+
+Params = Dict[str, Any]
+
+SAMPLING_SLICE = ('sampled decode and grammar masks are not ported yet; '
+                  'they come with the sampling slice (ROADMAP.md)')
+ADAPTER_SLICE = ('LoRA adapters are not ported yet; they come with the '
+                 'multi-LoRA slice (ROADMAP.md)')
+OVERLOAD_SLICE = ('overload control (bounded queues, deadlines, '
+                  'priorities, tenant fair share) is not ported yet; it '
+                  'comes with the overload slice (ROADMAP.md)')
+INT8_SLICE = ('int8 KV is not ported yet; it comes with the int8 slice '
+              '(ROADMAP.md)')
+
+# Self-speculative n-gram drafting (prompt lookup): longest suffix
+# n-gram tried first down to a bigram minimum, and the history scan is
+# bounded so a long prompt cannot turn every proposal into an
+# O(prompt) walk on the engine loop.
+SPEC_MAX_NGRAM = 6
+SPEC_MIN_NGRAM = 2
+SPEC_MATCH_WINDOW = 1024
+
+# Adaptive per-request draft length: trailing acceptance window
+# (verify rounds), shrink/grow thresholds, and the emitted-token
+# cooldown before a collapsed (k=0) request re-probes.
+SPEC_WINDOW_ROUNDS = 8
+SPEC_SHRINK_BELOW = 0.4
+SPEC_COLLAPSE_BELOW = 0.15
+SPEC_GROW_ABOVE = 0.8
+SPEC_REPROBE_TOKENS = 16
+# Re-probe cooldowns double per failed probe, capped at
+# 2**SPEC_BACKOFF_MAX_EXP * SPEC_REPROBE_TOKENS.
+SPEC_BACKOFF_MAX_EXP = 4
+SPEC_PROBE_K = 2
+# Probe-mode proposals (k <= SPEC_PROBE_K) demand a 4-gram match; a
+# request with no verify history yet a trigram.
+SPEC_PROBE_MIN_NGRAM = 4
+SPEC_FIRST_MIN_NGRAM = 3
+# A verify dispatch must carry at least this many drafted tokens, or
+# the batch takes the plain multi-step decode path instead.
+SPEC_MIN_DISPATCH_TOKENS = 4
+
+
+# ---------------------------------------------------------------------
+# Per-row decode primitives
+# ---------------------------------------------------------------------
+
+
+def _rope_rows(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotate-half RoPE for one token per row: x [B, 1, H, D], angles
+    [B, D/2] (each row at its OWN position), in f32, rounded back to
+    x's dtype."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    cos = torch.cos(angles)[:, None, None, :]
+    sin = torch.sin(angles)[:, None, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+def _rope_verify(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotate-half RoPE for a verify window: x [B, W, H, D], angles
+    [B, W, D/2] (each row's W positions at their own offsets)."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+def _attend_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 pos: torch.Tensor, scale: float) -> torch.Tensor:
+    """q [B, 1, H, hd]; k/v [B, S, Hkv, hd]; pos [B] = the index the
+    current token was just written at. Row b attends keys [0, pos_b]
+    (dense K4 on the card: reads scale with each row's context)."""
+    return da.decode_attention(q[:, 0], k, v, pos + 1, scale)[:, None]
+
+
+def _check_greedy(caches, sampling, adapters=None,
+                  adapter_idx=None) -> None:
+    if sampling is not None:
+        raise NotImplementedError(SAMPLING_SLICE)
+    if adapters is not None or adapter_idx is not None:
+        raise NotImplementedError(ADAPTER_SLICE)
+    if caches[2] is not None or caches[3] is not None:
+        raise NotImplementedError(INT8_SLICE)
+
+
+def _logits(cparams: Params, config: llama.LlamaConfig,
+            x: torch.Tensor) -> torch.Tensor:
+    x = llama._rms_norm(x, cparams['final_norm'], config.norm_eps,
+                        config.norm_offset)
+    return llama.matmul(x, llama.output_head(cparams, config)).float()
+
+
+def decode_steps_rows(params: Params, tokens: torch.Tensor, caches,
+                      pos: torch.Tensor, active: torch.Tensor,
+                      config: llama.LlamaConfig, num_steps: int,
+                      sampling=None):
+    """Decode ``num_steps`` tokens for every row at PER-ROW positions.
+
+    tokens [B] int32 (each row's most recent token); ``caches`` =
+    (k, v, None, None) with k/v [L, B, S, Hkv, hd], written in place;
+    pos [B] int32 = next write index per row; active [B] bool —
+    inactive rows still compute but their pos does not advance and
+    their writes keep landing on the same parked cell (a pos outside
+    [0, S) writes nothing). Each layer writes its new row with K5 and
+    attends with dense K4 on the card.
+
+    This is the CONTIGUOUS-cache twin of ``decode_steps_paged``.
+    Returns (out_tokens [B, num_steps] int32, caches, new_pos).
+    """
+    _check_greedy(caches, sampling)
+    llama.require_dense(config)
+    k_cache, v_cache = caches[0], caches[1]
+    cparams = llama.compute_params(params, config)
+    layers = decode.layer_list(cparams, config)
+    hd = config.head_dim
+    tok, cur = tokens, pos
+    out = []
+    for _ in range(num_steps):
+        angles = llama._rope_frequencies(config, cur)        # [B, hd/2]
+        x = llama.embed_tokens(cparams, tok.long(), config)[:, None]
+        for i, lp in enumerate(layers):
+            q, k, v = decode.qkv_projections(config, x, lp)
+            q = _rope_rows(q, angles)
+            k = _rope_rows(k, angles)
+            da.cache_write_rows(k_cache[i], v_cache[i], k[:, 0], v[:, 0],
+                                cur)
+            attn = _attend_rows(q, k_cache[i], v_cache[i], cur,
+                                hd ** -0.5)
+            x = decode.attn_out_and_mlp(config, x, attn, lp)
+        nxt = _logits(cparams, config, x)[:, -1].argmax(-1).to(
+            torch.int32)
+        # Inactive rows: hold the last token and do NOT advance.
+        tok = torch.where(active, nxt, tok)
+        cur = torch.where(active, cur + 1, cur)
+        out.append(tok)
+    return torch.stack(out, dim=1), caches, cur
+
+
+def decode_steps_paged(params: Params, tokens: torch.Tensor, caches,
+                       block_tables: torch.Tensor, pos: torch.Tensor,
+                       active: torch.Tensor, config: llama.LlamaConfig,
+                       num_steps: int, block_size: int,
+                       adapters=None, adapter_idx=None, sampling=None):
+    """Block-table-indirected twin of ``decode_steps_rows`` with
+    identical numerics: ``caches`` = (k, v, None, None) with k/v
+    [L, num_blocks, block_size, Hkv, hd], ``block_tables`` [B, MB]
+    int32. Writes go through ``kv_pool.write_index`` (parked rows and
+    overrun positions land in the scratch block) with K5; attention is
+    ``paged_decode_attention`` (K4-paged, W = 1) over each row's own
+    length, so recycled-block garbage past it contributes exactly 0;
+    an inactive row attends its first key only.
+
+    Returns (out_tokens [B, num_steps] int32, caches, new_pos).
+    """
+    _check_greedy(caches, sampling, adapters, adapter_idx)
+    llama.require_dense(config)
+    k_pool, v_pool = caches[0], caches[1]
+    nl, nb, bs = k_pool.shape[:3]
+    if bs != block_size:
+        raise ValueError(f'pool block size {bs} != {block_size}')
+    cparams = llama.compute_params(params, config)
+    layers = decode.layer_list(cparams, config)
+    nkv, hd = config.n_kv_heads, config.head_dim
+    kp = k_pool.view(nl, nb * bs, nkv, hd)
+    vp = v_pool.view(nl, nb * bs, nkv, hd)
+    tok, cur = tokens, pos
+    out = []
+    for _ in range(num_steps):
+        angles = llama._rope_frequencies(config, cur)        # [B, hd/2]
+        x = llama.embed_tokens(cparams, tok.long(), config)[:, None]
+        widx = kv_pool_lib.write_index(block_tables, cur, block_size)
+        # Inactive rows' outputs are discarded: they attend one key, not
+        # the span their parked position would give them.
+        lens = torch.where(active, cur + 1, 1)
+        for i, lp in enumerate(layers):
+            q, k, v = decode.qkv_projections(config, x, lp)
+            q = _rope_rows(q, angles)
+            k = _rope_rows(k, angles)
+            da.cache_write(kp[i], vp[i], k[:, 0], v[:, 0], widx)
+            attn = da.paged_decode_attention(
+                q[:, 0], kp[i], vp[i], block_tables,
+                lens, hd ** -0.5, block_size)[:, None]
+            x = decode.attn_out_and_mlp(config, x, attn, lp)
+        nxt = _logits(cparams, config, x)[:, -1].argmax(-1).to(
+            torch.int32)
+        # Inactive rows: hold the last token and do NOT advance, so
+        # their next (scratch-redirected) write stays parked.
+        tok = torch.where(active, nxt, tok)
+        cur = torch.where(active, cur + 1, cur)
+        out.append(tok)
+    return torch.stack(out, dim=1), caches, cur
+
+
+def verify_step_paged(params: Params, tokens: torch.Tensor, caches,
+                      block_tables: torch.Tensor, pos: torch.Tensor,
+                      n_real: torch.Tensor, config: llama.LlamaConfig,
+                      width: int, block_size: int, adapters=None,
+                      adapter_idx=None, sampling=None):
+    """Batched multi-token VERIFY forward — the speculative twin of
+    ``decode_steps_paged``: ONE forward carries ``width`` = draft_k + 1
+    query positions per row (the row's current token at ``pos[b]``
+    plus its drafted continuation).
+
+    tokens [B, W] int32 (only the first n_real[b] real — padded lanes
+    write scratch and their outputs are ignored). The drafted K/V is
+    written into the row's blocks up front with K5; a rejection later
+    just leaves those rows past the committed ``pos``, where the
+    length-masked attention never reads them. Attention is
+    ``paged_verify_attention`` (K4-paged, W > 1; query j attends
+    [0, pos + j]).
+
+    Returns (preds [B, W] int32 argmax per position, accepted [B] int32
+    from ``accept_tokens``, new_pos [B], new_tokens [B], caches): live
+    rows advance by accepted + 1, parked rows (n_real 0) stay. A parked
+    row attends only its first key, so its preds carry no meaning.
+    """
+    _check_greedy(caches, sampling, adapters, adapter_idx)
+    llama.require_dense(config)
+    k_pool, v_pool = caches[0], caches[1]
+    nl, nb, bs = k_pool.shape[:3]
+    if bs != block_size:
+        raise ValueError(f'pool block size {bs} != {block_size}')
+    cparams = llama.compute_params(params, config)
+    nkv, hd = config.n_kv_heads, config.head_dim
+    b = tokens.shape[0]
+    kp = k_pool.view(nl, nb * bs, nkv, hd)
+    vp = v_pool.view(nl, nb * bs, nkv, hd)
+    positions = pos[:, None] + torch.arange(width, dtype=torch.int32,
+                                            device=pos.device)[None, :]
+    angles = llama._rope_frequencies(
+        config, positions.reshape(-1)).reshape(b, width, -1)
+    x = llama.embed_tokens(cparams, tokens.long(), config)   # [B, W, D]
+    widx = kv_pool_lib.verify_write_indices(
+        block_tables, pos, n_real, width, block_size).reshape(-1)
+    live = n_real > 0
+    # Parked rows' predictions are never read: they attend from one key.
+    lens = torch.where(live, pos + 1, 1)
+    for i, lp in enumerate(decode.layer_list(cparams, config)):
+        q, k, v = decode.qkv_projections(config, x, lp)
+        q = _rope_verify(q, angles)
+        k = _rope_verify(k, angles)
+        # Padded lanes collide harmlessly on the scratch slot.
+        da.cache_write(kp[i], vp[i], k.reshape(b * width, nkv, hd),
+                       v.reshape(b * width, nkv, hd), widx)
+        attn = da.paged_verify_attention(q, kp[i], vp[i], block_tables,
+                                         lens, hd ** -0.5, block_size)
+        x = decode.attn_out_and_mlp(config, x, attn, lp)
+    preds = _logits(cparams, config, x).argmax(-1).to(torch.int32)
+    accepted = accept_tokens(tokens, preds, n_real)
+    new_pos = torch.where(live, pos + accepted + 1, pos)
+    new_tok = torch.where(
+        live, torch.gather(preds, 1, accepted[:, None].long())[:, 0],
+        tokens[:, 0])
+    return preds, accepted, new_pos, new_tok, caches
+
+
+# ---------------------------------------------------------------------
+# Speculative decoding: n-gram drafting + adaptive draft length (host)
+# ---------------------------------------------------------------------
+
+
+def propose_ngram_draft(tokens: List[int], k: int,
+                        max_ngram: int = SPEC_MAX_NGRAM,
+                        min_ngram: int = SPEC_MIN_NGRAM,
+                        window: int = SPEC_MATCH_WINDOW) -> List[int]:
+    """Self-speculative prompt-lookup drafting: find the most recent
+    EARLIER occurrence of the longest n-gram ending at the current
+    suffix of ``tokens`` (the request's own prompt + generated stream)
+    and propose up to ``k`` tokens that followed it. SEQUENTIAL: each
+    drafted token re-anchors the lookup on the suffix including the
+    tokens drafted so far. The scan is bounded to the trailing
+    ``window`` tokens, searched as a flat int32 byte string with
+    ``bytearray.rfind``. Returns [] when nothing matches."""
+    if k <= 0 or len(tokens) < 2:
+        return []
+    lo = max(0, len(tokens) - window)
+    hist = list(tokens[lo:])
+    buf = bytearray(array.array('i', hist).tobytes())
+    item = array.array('i', [0]).itemsize
+    out: List[int] = []
+    for _ in range(k):
+        n_hist = len(hist)
+        nxt = None
+        for n in range(min(max_ngram, n_hist - 1),
+                       min_ngram - 1, -1):
+            pat = array.array('i', hist[-n:]).tobytes()
+            # The match must END at or before the last-but-one token.
+            idx = buf.rfind(pat, 0, (n_hist - 1) * item)
+            while idx != -1 and idx % item:
+                # Byte-level hits straddling item boundaries are not
+                # token matches — keep searching earlier.
+                idx = buf.rfind(pat, 0, idx + len(pat) - 1)
+            if idx != -1:
+                nxt = hist[idx // item + n]
+                break
+        if nxt is None:
+            break
+        out.append(nxt)
+        hist.append(nxt)
+        buf += array.array('i', [nxt]).tobytes()
+    return out
+
+
+def update_spec_k(cur_k: int, window, draft_k: int) -> int:
+    """Adaptive per-request draft length from a trailing window of
+    (proposed, accepted) verify rounds: collapse to 0 on near-nothing
+    accepted over real evidence, halve under ``SPEC_SHRINK_BELOW``,
+    double (capped at ``draft_k``) above ``SPEC_GROW_ABOVE``."""
+    proposed = sum(p for p, _ in window)
+    if proposed <= 0:
+        return cur_k
+    rate = sum(a for _, a in window) / proposed
+    if proposed >= 8 and rate < SPEC_COLLAPSE_BELOW:
+        return 0
+    if rate < SPEC_SHRINK_BELOW:
+        return cur_k // 2
+    if rate > SPEC_GROW_ABOVE and cur_k < draft_k:
+        return min(draft_k, max(1, cur_k * 2))
+    return cur_k
+
+
+# ---------------------------------------------------------------------
+# Engine
+# ---------------------------------------------------------------------
+
+
+_REQ_SEQ = itertools.count(1)
+
+
+class _Request:
+    def __init__(self, prompt_ids: List[int], max_new: int,
+                 eos_id: Optional[int] = None):
+        self.prompt_ids = prompt_ids
+        self.max_new = max_new
+        self.eos_id = eos_id
+        self.id = next(_REQ_SEQ)
+        # Prefix-cache accounting, filled at admission (cumulative
+        # across re-admissions after preemption): whole KV blocks
+        # reused from the cache vs freshly prefilled; serve_model
+        # sends them as X-Skytpu-Prefix-* response headers.
+        self.prefix_hit_blocks = 0
+        self.prefix_miss_blocks = 0
+        # Admission-time hash chain, reused by _register_prefix.
+        self.chain_hashes: List[bytes] = []
+        self.chain_t0 = -1
+        # Speculative-decoding state: current draft length (None until
+        # admission seeds it), trailing (proposed, accepted) window,
+        # the emitted-token cooldown before a collapsed request
+        # re-probes, and its failed-probe streak. Only EMITTED tokens
+        # ever enter ``generated``.
+        self.spec_k: Optional[int] = None
+        self.spec_window: 'collections.deque' = collections.deque(
+            maxlen=SPEC_WINDOW_ROUNDS)
+        self.spec_cooldown = 0
+        self.spec_fail_streak = 0
+        self.out: 'queue.Queue' = queue.Queue()
+        self.submitted_at = time.time()
+        # Tokens already emitted — preemption resume state: a requeued
+        # request re-prefills prompt + generated.
+        self.generated: List[int] = []
+
+
+class BatchingEngine:
+    """Paged-KV continuous batching around ``decode_steps_paged``.
+
+    ``submit()`` returns a Queue yielding generated token ids (ints)
+    then ``None`` (a typed exception object precedes the ``None`` if
+    the request failed). A background thread admits pending requests
+    into free decode rows when the block pool has room, runs chunked
+    prefill interleaved with whole-batch decode dispatches
+    (``steps_per_dispatch`` tokens each), retires rows the moment they
+    hit their budget (freeing their blocks), and preempts-and-requeues
+    the youngest request when the pool runs dry.
+
+    Knobs (the JAX engine's, same defaults): ``slots`` (decode batch
+    width), ``block_size``, ``num_blocks`` (default: every row can
+    reach ``max_seq``), ``max_num_batched_tokens`` (per-iteration
+    prefill token budget), ``prefill_chunk``, ``prefix_caching``,
+    ``speculative``, ``draft_k``. The engine runs on the params'
+    device. Knobs of features not ported yet raise
+    ``NotImplementedError`` naming their slice; a request that needs
+    sampling is refused at submit.
+    """
+
+    def __init__(self, params: Params, config: llama.LlamaConfig,
+                 slots: int = 8, max_seq: Optional[int] = None,
+                 steps_per_dispatch: int = 8,
+                 kv_int8: bool = False,
+                 block_size: int = 16,
+                 num_blocks: Optional[int] = None,
+                 max_num_batched_tokens: Optional[int] = 2048,
+                 prefill_chunk: int = 512,
+                 prefix_caching: bool = True,
+                 speculative: bool = True,
+                 draft_k: int = 8,
+                 tenant_weights: Optional[Dict[str, float]] = None,
+                 max_queued_requests: Optional[int] = None,
+                 max_queued_tokens: Optional[int] = None,
+                 default_timeout_s: Optional[float] = None,
+                 adapter_registry=None,
+                 adapter_capacity: int = 0,
+                 adapter_preload: Optional[List[str]] = None,
+                 grammar_vocab: Optional[List[Optional[str]]] = None):
+        if kv_int8:
+            raise NotImplementedError(INT8_SLICE)
+        if (tenant_weights or max_queued_requests is not None
+                or max_queued_tokens is not None
+                or default_timeout_s is not None):
+            raise NotImplementedError(OVERLOAD_SLICE)
+        if adapter_registry is not None or adapter_capacity or \
+                adapter_preload:
+            raise NotImplementedError(ADAPTER_SLICE)
+        if grammar_vocab is not None:
+            raise NotImplementedError(SAMPLING_SLICE)
+        llama.require_dense(config)
+        self.params = params
+        self.config = config
+        self.device = params['embed'].device
+        self.slots = slots
+        # max_seq must be block-aligned: the table maps whole blocks.
+        self.max_seq = max_seq or config.max_seq_len
+        self.max_seq = -(-self.max_seq // block_size) * block_size
+        self.block_size = block_size
+        self.max_blocks_per_req = self.max_seq // block_size
+        if num_blocks is None:
+            # Capacity for every row to reach max_seq (+1 for the
+            # scratch block); a smaller pool oversubscribes and the
+            # engine preempts on exhaustion.
+            num_blocks = slots * self.max_blocks_per_req + 1
+        self.steps = steps_per_dispatch
+        self.prefill_chunk = max(1, prefill_chunk)
+        self.max_batched_tokens = max_num_batched_tokens
+        self.prefix_caching = prefix_caching
+        # The verify width is fixed at draft_k + 1 (shorter drafts pad
+        # their lanes to scratch).
+        self.speculative = speculative and draft_k > 0
+        self.draft_k = max(0, draft_k)
+        # Prefill tokens spent in the CURRENT scheduler iteration — the
+        # verify dispatch budgets its draft grants against the rest.
+        self._prefill_spent_iter = 0
+        self.pool = kv_pool_lib.KVBlockPool(config, num_blocks,
+                                            block_size,
+                                            device=self.device)
+        # The engine owns the device tensors; the pool keeps only the
+        # allocator.
+        self.caches = self.pool.caches
+        self.pool.caches = None
+        # Host mirror of the block tables: rows change on the host and
+        # go up as one copy before the next device step that reads them.
+        self._tables_host = torch.zeros(
+            (slots, self.max_blocks_per_req), dtype=torch.int32)
+        self._tables_dirty = False
+        self.block_tables = self._to_device(self._tables_host)
+        self.pos = torch.zeros((slots,), dtype=torch.int32,
+                               device=self.device)
+        self.tokens = torch.zeros((slots,), dtype=torch.int32,
+                                  device=self.device)
+        # Host-side per-row bookkeeping.
+        self.slot_req: List[Optional[_Request]] = [None] * slots
+        self.slot_left = [0] * slots
+        self.slot_len = [0] * slots          # written prompt+generated
+        self.slot_blocks: List[List[int]] = [[] for _ in range(slots)]
+        self.slot_off = [0] * slots          # prompt tokens prefilled
+        self.slot_total = [0] * slots        # prompt length this pass
+        self.slot_seq = [0] * slots          # admission order
+        self._admit_seq = 0
+        self.pending: 'collections.deque[_Request]' = \
+            collections.deque()
+        self._pending_lock = threading.Lock()
+        # Scheduler event log (bounded): admissions, prefill chunks,
+        # decode and verify dispatches, preemptions.
+        self.events: 'collections.deque' = collections.deque(
+            maxlen=4096)
+        self.wake = threading.Event()
+        self._stop = False
+        # Set on engine DEATH (never on clean close): submits after
+        # the loop died get it ahead of their sentinel.
+        self._death_exc: Optional[BaseException] = None
+        self.thread = threading.Thread(target=self._loop, daemon=True)
+        self.thread.start()
+
+    # -- client API -----------------------------------------------------
+
+    def submit(self, prompt_ids: List[int], max_new: int,
+               eos_id: Optional[int] = None, **deferred) -> 'queue.Queue':
+        """Returns a Queue yielding generated ids then None. With
+        ``eos_id``, the row retires the moment it emits that id (the
+        EOS itself is emitted, matching greedy_generate). A request the
+        pool can never hold yields a typed ``KVPoolExhaustedError``
+        before its None. ``deferred`` takes the JAX engine's other
+        request knobs, which raise unless left at their defaults."""
+        return self.submit_request(prompt_ids, max_new, eos_id=eos_id,
+                                   **deferred).out
+
+    def submit_request(self, prompt_ids: List[int], max_new: int,
+                       eos_id: Optional[int] = None,
+                       tenant: Optional[str] = None,
+                       deadline: Optional[float] = None,
+                       priority: str = 'interactive',
+                       adapter: Optional[str] = None,
+                       temperature: float = 0.0,
+                       top_p: float = 1.0,
+                       seed: int = 0,
+                       response_format: Optional[dict] = None
+                       ) -> _Request:
+        """``submit`` returning the request object itself: ``.out`` is
+        the token queue, and after admission (by the first token)
+        ``.prefix_hit_blocks``/``.prefix_miss_blocks`` carry the
+        prefix-cache accounting."""
+        if temperature or top_p != 1.0 or seed or \
+                response_format is not None:
+            raise NotImplementedError(SAMPLING_SLICE)
+        if adapter is not None:
+            raise NotImplementedError(ADAPTER_SLICE)
+        if tenant or deadline is not None or priority != 'interactive':
+            raise NotImplementedError(OVERLOAD_SLICE)
+        max_new = min(max_new, self.max_seq - len(prompt_ids) - 1)
+        req = _Request(list(prompt_ids), max(0, max_new), eos_id=eos_id)
+        if req.max_new == 0 or self._stop:
+            # A DEAD engine fails post-death submits typed.
+            if self._stop and self._death_exc is not None:
+                req.out.put(self._death_exc)
+            req.out.put(None)
+            return req
+        if self.pool.blocks_for(len(prompt_ids) + 1) > \
+                self.pool.usable_blocks:
+            # This prompt alone exceeds the whole pool: fail THIS
+            # request now; transient exhaustion preempts instead.
+            self._fail_request(
+                req, f'prompt of {len(prompt_ids)} tokens needs '
+                f'{self.pool.blocks_for(len(prompt_ids) + 1)} KV '
+                f'blocks but the pool has only '
+                f'{self.pool.usable_blocks} usable '
+                f'(block_size={self.block_size})')
+            return req
+        with self._pending_lock:
+            self.pending.append(req)
+        self.wake.set()
+        # close()/death may have stopped the loop between the _stop
+        # check above and the append: sentinel it here.
+        if self._stop:
+            if self._death_exc is not None:
+                req.out.put(self._death_exc)
+            req.out.put(None)
+        return req
+
+    def generate(self, prompt_ids: List[int], max_new: int,
+                 eos_id: Optional[int] = None) -> List[int]:
+        """Blocking convenience: collect the full generation. Raises
+        the typed error if the request failed."""
+        q = self.submit(prompt_ids, max_new, eos_id=eos_id)
+        out: List[int] = []
+        while True:
+            tok = q.get()
+            if tok is None:
+                return out
+            if isinstance(tok, BaseException):
+                raise tok
+            out.append(tok)
+
+    def close(self):
+        self._stop = True
+        self.wake.set()
+        self.thread.join(timeout=10)
+        if self.thread.is_alive():
+            logger.error(
+                'Batching engine loop thread still alive after close() '
+                'join timeout — a dispatch is likely wedged.')
+
+    # -- device state -----------------------------------------------------
+
+    def _to_device(self, host: torch.Tensor) -> torch.Tensor:
+        """A device copy of a host tensor that never waits on the
+        device: on CUDA, a pinned snapshot copied asynchronously (the
+        caching host allocator keeps it until the copy has run)."""
+        if self.device.type != 'cuda':
+            return host.clone()
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def _h2d(self, data, dtype: torch.dtype) -> torch.Tensor:
+        return self._to_device(torch.tensor(data, dtype=dtype))
+
+    def _sync_tables(self) -> None:
+        if self._tables_dirty:
+            self.block_tables = self._to_device(self._tables_host)
+            self._tables_dirty = False
+
+    # -- scheduling helpers ---------------------------------------------
+
+    def _pop_pending(self) -> Optional[_Request]:
+        with self._pending_lock:
+            try:
+                return self.pending.popleft()
+            except IndexError:
+                return None
+
+    def _push_front(self, req: _Request) -> None:
+        with self._pending_lock:
+            self.pending.appendleft(req)
+
+    def _fail_request(self, req: _Request, msg: str,
+                      exc: Optional[BaseException] = None) -> None:
+        """Typed per-request failure: the REQUEST fails; every other
+        in-flight request keeps decoding."""
+        logger.warning('Batching engine failing request: %s', msg)
+        req.out.put(exc if exc is not None
+                    else exceptions.KVPoolExhaustedError(msg))
+        req.out.put(None)
+
+    def _set_table_row(self, row: int) -> None:
+        blocks = self.slot_blocks[row]
+        self._tables_host[row] = kv_pool_lib.SCRATCH_BLOCK
+        if blocks:
+            self._tables_host[row, :len(blocks)] = torch.tensor(
+                blocks, dtype=torch.int32)
+        self._tables_dirty = True
+
+    def _release_row(self, row: int) -> None:
+        if self.slot_blocks[row]:
+            # One decrement per held block — shared (pinned) prefix
+            # blocks stay alive for their other holders. DEEPEST first,
+            # so released chains enter the cached LRU leaf-first.
+            self.pool.free(list(reversed(self.slot_blocks[row])))
+        self.slot_blocks[row] = []
+        self.slot_req[row] = None
+        self.slot_left[row] = 0
+        self._set_table_row(row)  # stale entries must not alias
+        #                           blocks recycled to other rows
+
+    def _retire(self, row: int) -> None:
+        self._release_row(row)
+
+    def _preempt(self, row: int) -> None:
+        """Reclaim the row's blocks and requeue its request at the
+        FRONT of the pending queue (it keeps its submit time, so it
+        ages toward never-preempted oldest)."""
+        req = self.slot_req[row]
+        self.events.append(('preempt', row, len(req.generated)))
+        logger.info(
+            'KV pool exhausted: preempting request in row %d (%d blocks '
+            'reclaimed, %d tokens generated so far).', row,
+            len(self.slot_blocks[row]), len(req.generated))
+        self._release_row(row)
+        self._push_front(req)
+
+    def _pick_victim(self) -> Optional[int]:
+        """The YOUNGEST admitted row (latest submit time; admission
+        order breaks ties). None while only one row is admitted: the
+        oldest request is never preempted while any other row
+        exists."""
+        rows = [i for i in range(self.slots)
+                if self.slot_req[i] is not None]
+        if len(rows) <= 1:
+            return None
+        return max(rows, key=lambda i: (self.slot_req[i].submitted_at,
+                                        self.slot_seq[i]))
+
+    def _ensure_blocks(self, row: int, target_tokens: int) -> bool:
+        """Grow the row's allocation to cover ``target_tokens``
+        positions, preempting the youngest request on exhaustion.
+        Returns False if the row itself was preempted or failed."""
+        need = self.pool.blocks_for(target_tokens)
+        extra = need - len(self.slot_blocks[row])
+        if extra <= 0:
+            return True
+        while True:
+            got = self.pool.try_alloc(extra)
+            if got is not None:
+                self.slot_blocks[row].extend(got)
+                self._set_table_row(row)
+                return True
+            victim = self._pick_victim()
+            if victim is None:
+                # The only admitted request still cannot grow: the pool
+                # can never satisfy it.
+                req = self.slot_req[row]
+                self._release_row(row)
+                self._fail_request(
+                    req, f'request needs {need} KV blocks but the '
+                    f'pool has only {self.pool.usable_blocks} '
+                    f'usable (block_size={self.block_size})')
+                return False
+            self._preempt(victim)
+            if victim == row:
+                return False
+
+    # -- admission and prefill --------------------------------------------
+
+    def _match_prefix(self, req: _Request, tokens_all: List[int],
+                      t0: int):
+        """Prefix-cache lookup for an admission: returns
+        (pinned_blocks, cow, cached_tokens) — the full-block chain hits
+        (already pinned) and an optional (src_block, shared_tokens)
+        partial hit past them. Reuse is capped at t0 - 1 tokens: the
+        LAST prompt token is always recomputed so its logits seed
+        decoding."""
+        if not self.prefix_caching or t0 < 2:
+            return [], None, 0
+        if req.chain_t0 == t0 and req.chain_hashes:
+            # Re-admission after _unwind_admission: same tokens.
+            hashes = req.chain_hashes
+        else:
+            hashes = prefix_hash.chain_hashes(tokens_all,
+                                              self.block_size)
+            req.chain_hashes = hashes
+            req.chain_t0 = t0
+        matched = self.pool.match(hashes)
+        matched = matched[:(t0 - 1) // self.block_size]
+        cached_tokens = len(matched) * self.block_size
+        parent = hashes[len(matched) - 1] if matched \
+            else prefix_hash.ROOT
+        cow = None
+        rest = tokens_all[cached_tokens:
+                          min(cached_tokens + self.block_size, t0 - 1)]
+        if rest:
+            cow = self.pool.partial_match(parent, rest)
+        if matched:
+            self.pool.pin(matched)
+        return matched, cow, cached_tokens
+
+    def _unwind_admission(self, req: _Request,
+                          blocks: List[int]) -> None:
+        """Admission could not complete (pool momentarily full):
+        release whatever was pinned/allocated — exactly once — and
+        requeue the request at the front."""
+        if blocks:
+            self.pool.free(list(reversed(blocks)))
+        self._push_front(req)
+
+    def _admit_pending(self) -> None:
+        """Token-budget admission: a request is admitted when a decode
+        row is free AND the pool has blocks for its whole prompt (+1
+        for the first generated token). With prefix caching the
+        prompt's hash chain is matched first: hit blocks are PINNED and
+        only the suffix past them is prefilled."""
+        for row in range(self.slots):
+            if self._stop:
+                return
+            if self.slot_req[row] is not None:
+                continue
+            req = self._pop_pending()
+            if req is None:
+                return
+            tokens_all = req.prompt_ids + req.generated
+            t0 = len(tokens_all)
+            need = self.pool.blocks_for(t0 + 1)
+            if need > self.pool.usable_blocks:
+                # A preempted request that grew past a small pool.
+                self._fail_request(
+                    req, f'request of {t0} tokens needs {need} KV '
+                    f'blocks but the pool has only '
+                    f'{self.pool.usable_blocks} usable')
+                continue
+            matched, cow, cached_tokens = self._match_prefix(
+                req, tokens_all, t0)
+            blocks = list(matched)
+            if cow is not None:
+                # Copy-on-write: duplicate the partially-matching cached
+                # block into a private one; prefill resumes at the first
+                # divergent token, overwriting the rest.
+                src, shared = cow
+                self.pool.pin([src])     # eviction-proof during copy
+                got = self.pool.try_alloc(1)
+                if got is None:
+                    self.pool.free([src])
+                    self._unwind_admission(req, blocks)
+                    return
+                kv_pool_lib.copy_pool_block(self.caches, src, got[0])
+                self.pool.free([src])
+                blocks.append(got[0])
+                cached_tokens += shared
+            extra = need - len(blocks)
+            got = self.pool.try_alloc(extra) if extra > 0 else []
+            if got is None:
+                # Not enough free blocks yet: in-flight rows progress
+                # every iteration, so waiting cannot deadlock.
+                self._unwind_admission(req, blocks)
+                return
+            blocks.extend(got)
+            if self.prefix_caching:
+                # Over PROMPT blocks only; a COW partial hit counts as a
+                # miss (the block is copied and partly re-prefilled).
+                hit = len(matched)
+                req.prefix_hit_blocks += hit
+                req.prefix_miss_blocks += max(
+                    0, self.pool.blocks_for(t0) - hit)
+            self.slot_req[row] = req
+            self.slot_blocks[row] = blocks
+            # Cache-hit tokens are ALREADY in the row's blocks.
+            self.slot_off[row] = cached_tokens
+            self.slot_total[row] = t0
+            self.slot_left[row] = 0
+            self.slot_len[row] = 0
+            self._admit_seq += 1
+            self.slot_seq[row] = self._admit_seq
+            self._set_table_row(row)
+            self.events.append(('admit', row, cached_tokens, t0))
+            # Park the lane OUT OF RANGE until prefill finishes: decode
+            # dispatches treat the row as inactive but still write, and
+            # write_index sends past-capacity positions to scratch.
+            self.pos[row] = self.max_seq
+
+    def _chunk_bucket(self, remaining: int) -> int:
+        """Chunk length for a prefill dispatch: the smallest power of
+        two >= the real chunk, capped at ``prefill_chunk``."""
+        real = min(remaining, self.prefill_chunk)
+        bucket = 1
+        while bucket < real:
+            bucket *= 2
+        return min(bucket, self.prefill_chunk)
+
+    def _run_prefill_row(self, row: int) -> int:
+        """One prefill chunk for ``row``; returns the bucket tokens
+        charged (0 if the row has nothing left)."""
+        req = self.slot_req[row]
+        t0 = self.slot_total[row]
+        off = self.slot_off[row]
+        if off >= t0:
+            return 0
+        bucket = self._chunk_bucket(t0 - off)
+        real = min(t0 - off, bucket)
+        # The logical prompt is prompt_ids + generated.
+        n_p = len(req.prompt_ids)
+        if off + real <= n_p:
+            chunk = req.prompt_ids[off:off + real]
+        elif off >= n_p:
+            chunk = req.generated[off - n_p:off - n_p + real]
+        else:
+            chunk = (req.prompt_ids[off:] +
+                     req.generated[:off + real - n_p])
+        padded = chunk + [0] * (bucket - real)
+        self._sync_tables()
+        logits, self.caches = decode.forward_paged(
+            self.params, self._h2d([padded], torch.long), self.caches,
+            self.block_tables[row], off, real, self.config,
+            self.block_size)
+        self.slot_off[row] = off + real
+        self.events.append(('prefill_chunk', row, off + real, t0))
+        if self.slot_off[row] >= t0:
+            self._finish_prefill(row, logits)
+        return bucket
+
+    def _run_prefill_chunks(self) -> bool:
+        """Run prefill chunks for admitted-but-unprefilled rows, oldest
+        admission first, within this iteration's token budget. Chunks
+        beyond the budget wait for the NEXT iteration — a decode
+        dispatch runs in between (the chunked-prefill interleaving).
+        The first chunk of an iteration may overdraft, so a budget
+        smaller than one chunk still makes progress. (The JAX engine
+        splits this budget across tenants; the port serves one.)"""
+        budget = self.max_batched_tokens or float('inf')
+        self._prefill_spent_iter = 0
+        rows = sorted(
+            (i for i in range(self.slots)
+             if self.slot_req[i] is not None
+             and self.slot_off[i] < self.slot_total[i]),
+            key=lambda i: self.slot_seq[i])
+        spent = 0
+        ran_any = False
+        for row in rows:
+            while (self.slot_req[row] is not None
+                   and self.slot_off[row] < self.slot_total[row]
+                   and not self._stop):
+                if spent >= budget:
+                    return ran_any
+                charged = self._run_prefill_row(row)
+                if charged <= 0:
+                    break
+                spent += charged
+                self._prefill_spent_iter = spent
+                ran_any = True
+        return ran_any
+
+    def _register_prefix(self, row: int) -> None:
+        """Publish the row's FULL prompt blocks into the prefix cache.
+        The trailing partial block (still written by decode) is never
+        registered — registered blocks are immutable from here on."""
+        if not self.prefix_caching:
+            return
+        req = self.slot_req[row]
+        t0 = self.slot_total[row]
+        tokens_all = (req.prompt_ids + req.generated)[:t0]
+        if req.chain_t0 == t0 and req.chain_hashes:
+            hashes = req.chain_hashes
+        else:
+            hashes = prefix_hash.chain_hashes(tokens_all,
+                                              self.block_size)
+        blocks = self.slot_blocks[row]
+        parent = prefix_hash.ROOT
+        for i, h in enumerate(hashes):
+            self.pool.register(
+                blocks[i], h, parent,
+                tokens_all[i * self.block_size:(i + 1) * self.block_size])
+            parent = h
+
+    def _finish_prefill(self, row: int, logits: torch.Tensor) -> None:
+        """Last prompt chunk done: its logits seed greedy decoding —
+        the first generated token comes from the prefill itself."""
+        req = self.slot_req[row]
+        t0 = self.slot_total[row]
+        self._register_prefix(row)
+        first = int(logits[0].argmax())   # waits for the prefill
+        self.pos[row] = t0
+        self.tokens[row] = first
+        self.slot_len[row] = t0
+        req.out.put(first)
+        req.generated.append(first)
+        self.slot_left[row] = req.max_new - len(req.generated)
+        if self.slot_left[row] <= 0 or first == req.eos_id:
+            req.out.put(None)
+            self._retire(row)
+
+    # -- decode and speculation ---------------------------------------------
+
+    def _spec_k_for(self, req: _Request) -> int:
+        """Current draft length for a request, seeding new requests at
+        the engine draft_k and re-probing collapsed ones with a
+        1-token draft once their cooldown expires."""
+        if req.spec_k is None:
+            req.spec_k = self.draft_k
+        if req.spec_k == 0 and req.spec_cooldown <= 0:
+            req.spec_k = 1
+            req.spec_window.clear()
+        return req.spec_k
+
+    def _collect_drafts(self, rows: List[int]) -> Dict[int, List[int]]:
+        """Propose n-gram drafts for this dispatch's decode rows under
+        what remains of the per-iteration token budget: every row costs
+        its 1 base token, drafts are granted oldest-first from the
+        remainder after prefill spending (a verify row costs drafted+1
+        budget tokens)."""
+        if not rows:
+            return {}
+        if self.max_batched_tokens is None:
+            left = float('inf')
+        else:
+            left = (self.max_batched_tokens -
+                    self._prefill_spent_iter - len(rows))
+
+        def row_cap(row: int, k: int) -> int:
+            cap = min(k, self.slot_left[row] - 1,
+                      self.max_seq - self.slot_len[row] - 2)
+            if left != float('inf'):
+                cap = min(cap, int(left))
+            return cap
+
+        def draft_stream(req: _Request) -> List[int]:
+            # Only the trailing match window matters.
+            tail = req.generated[-SPEC_MATCH_WINDOW:]
+            short = SPEC_MATCH_WINDOW - len(tail)
+            if short > 0 and req.prompt_ids:
+                tail = req.prompt_ids[-short:] + tail
+            return tail
+
+        drafts: Dict[int, List[int]] = {}
+        min_k = self.draft_k
+        for row in sorted(rows, key=lambda i: self.slot_seq[i]):
+            if left <= 0:
+                break
+            req = self.slot_req[row]
+            k = self._spec_k_for(req)
+            cap = row_cap(row, k)
+            if cap <= 0:
+                continue
+            # Evidence bars: 4-gram for nearly-collapsed requests,
+            # trigram for first-ever proposals, bigram otherwise.
+            if k <= SPEC_PROBE_K:
+                bar = SPEC_PROBE_MIN_NGRAM
+            elif not req.spec_window:
+                bar = SPEC_FIRST_MIN_NGRAM
+            else:
+                bar = SPEC_MIN_NGRAM
+            d = propose_ngram_draft(draft_stream(req), cap,
+                                    min_ngram=bar)
+            if d:
+                drafts[row] = d
+                left -= len(d)
+                min_k = min(min_k, req.spec_k)
+        # Low-value gate, relaxed to the smallest drafting row's k so a
+        # cooldown re-probe (k=1) is never gated out of existence.
+        if drafts and sum(map(len, drafts.values())) < \
+                min(SPEC_MIN_DISPATCH_TOKENS, min_k):
+            return {}
+        if drafts:
+            # Ride-along probes: collapsed rows re-probe for free inside
+            # a verify dispatch that happens anyway.
+            for row in rows:
+                req = self.slot_req[row]
+                if row in drafts or req.spec_k != 0 or left <= 0:
+                    continue
+                cap = row_cap(row, SPEC_PROBE_K)
+                if cap <= 0:
+                    continue
+                d = propose_ngram_draft(draft_stream(req), cap,
+                                        min_ngram=SPEC_PROBE_MIN_NGRAM)
+                if d:
+                    drafts[row] = d
+                    left -= len(d)
+        return drafts
+
+    def _trim_blocks(self, row: int) -> None:
+        """Free the row's whole blocks past its committed frontier
+        (keeping coverage for the next write position): a rejected
+        draft can leave blocks holding nothing but abandoned rows. The
+        table row is re-padded to scratch."""
+        keep = self.pool.blocks_for(min(self.slot_len[row] + 1,
+                                        self.max_seq))
+        extra = self.slot_blocks[row][keep:]
+        if not extra:
+            return
+        self.pool.free(list(reversed(extra)))
+        del self.slot_blocks[row][keep:]
+        self._set_table_row(row)
+
+    def _dispatch_decode(self) -> bool:
+        """One whole-batch dispatch over every row whose prefill is
+        complete: a VERIFY dispatch (width draft_k+1) when any row
+        carries a live n-gram draft, the plain ``steps_per_dispatch``
+        decode otherwise."""
+        def decode_rows():
+            return [i for i in range(self.slots)
+                    if self.slot_req[i] is not None
+                    and self.slot_off[i] >= self.slot_total[i]]
+
+        drafts = self._collect_drafts(decode_rows()) \
+            if self.speculative else {}
+        n = self.steps
+        # Grow allocations for this dispatch's writes up front;
+        # exhaustion preempts the youngest request (possibly a row in
+        # this very list, which then sits the dispatch out).
+        for i in decode_rows():
+            if self.slot_req[i] is None:
+                continue
+            need = min(self.slot_left[i], n)
+            if i in drafts:
+                need = max(need, len(drafts[i]) + 1)
+            self._ensure_blocks(
+                i, min(self.slot_len[i] + need, self.max_seq))
+        active_rows = decode_rows()
+        if not active_rows:
+            return False
+        drafts = {i: d for i, d in drafts.items()
+                  if self.slot_req[i] is not None}
+        if drafts:
+            return self._run_verify_dispatch(active_rows, drafts)
+        # Fixed dispatch length: rows that finish mid-dispatch overrun
+        # harmlessly — their extra tokens are never emitted and their
+        # overrun writes go to unallocated-table/scratch slots.
+        active = self._h2d(
+            [self.slot_req[i] is not None
+             and self.slot_off[i] >= self.slot_total[i]
+             and self.slot_left[i] > 0
+             for i in range(self.slots)], torch.bool)
+        self._sync_tables()
+        toks, self.caches, self.pos = decode_steps_paged(
+            self.params, self.tokens, self.caches, self.block_tables,
+            self.pos, active, self.config, n, self.block_size)
+        self.tokens = toks[:, -1].contiguous()
+        for i in active_rows:
+            if self.slot_left[i] > 0:
+                self.slot_len[i] = min(self.slot_len[i] + n,
+                                       self.max_seq)
+        host_toks = toks.cpu().tolist()   # the dispatch's one sync
+        self.events.append(('decode', len(active_rows)))
+        for i in active_rows:
+            self._emit_tokens(i, host_toks[i][:n])
+        return True
+
+    def _emit_tokens(self, row: int, toks) -> int:
+        """Shared emission tail for decode AND verify dispatches: push
+        tokens to the client in order until EOS or the request's
+        budget, tick the speculation re-probe cooldown, and retire the
+        row when done. Returns the number of tokens emitted."""
+        req = self.slot_req[row]
+        done = False
+        row_emitted = 0
+        for t in toks:
+            if self.slot_left[row] <= 0:
+                break
+            req.out.put(int(t))
+            req.generated.append(int(t))
+            row_emitted += 1
+            self.slot_left[row] -= 1
+            if int(t) == req.eos_id:
+                done = True
+                break
+        req.spec_cooldown = max(0, req.spec_cooldown - row_emitted)
+        if done or self.slot_left[row] <= 0:
+            req.out.put(None)
+            self._retire(row)
+        return row_emitted
+
+    def _run_verify_dispatch(self, active_rows: List[int],
+                             drafts: Dict[int, List[int]]) -> bool:
+        """One speculative VERIFY dispatch: every decode-ready row
+        rides the same ``verify_step_paged`` forward — rows with a
+        draft verify draft+1 positions, draft-less rows decode their 1
+        base token. A rejection at draft position a advances the row's
+        ``pos`` by only a+1, and whole blocks past the committed
+        frontier go back to the pool (``_trim_blocks``). Emission is
+        ``preds[0..a]``."""
+        w = self.draft_k + 1
+        toks = [[0] * w for _ in range(self.slots)]
+        n_real = [0] * self.slots
+        for i in active_rows:
+            req = self.slot_req[i]
+            d = drafts.get(i, ())
+            # generated[-1] is the row's current input token (the host
+            # mirror of self.tokens[i]).
+            toks[i][0] = req.generated[-1]
+            toks[i][1:1 + len(d)] = d
+            n_real[i] = 1 + len(d)
+        self._sync_tables()
+        preds, accepted, self.pos, self.tokens, self.caches = \
+            verify_step_paged(
+                self.params, self._h2d(toks, torch.int32), self.caches,
+                self.block_tables, self.pos,
+                self._h2d(n_real, torch.int32), self.config, w,
+                self.block_size)
+        # The dispatch's one sync: predictions and counts together.
+        host = torch.cat([preds, accepted[:, None]], dim=1).cpu().tolist()
+        proposed_total = 0
+        accepted_total = 0
+        for i in active_rows:
+            req = self.slot_req[i]
+            d = drafts.get(i, [])
+            a = int(host[i][w])
+            if d:
+                proposed_total += len(d)
+                accepted_total += a
+                req.spec_window.append((len(d), a))
+                new_k = update_spec_k(req.spec_k, req.spec_window,
+                                      self.draft_k)
+                if new_k != req.spec_k:
+                    grew = new_k > req.spec_k
+                    req.spec_k = new_k
+                    if new_k == 0:
+                        # Backed-off cooldown: repeated failed probes
+                        # stretch the next one out exponentially.
+                        req.spec_cooldown = (
+                            SPEC_REPROBE_TOKENS *
+                            (2 ** min(req.spec_fail_streak,
+                                      SPEC_BACKOFF_MAX_EXP)))
+                        req.spec_fail_streak += 1
+                        req.spec_window.clear()
+                    elif grew and new_k >= 2:
+                        req.spec_fail_streak = 0
+            # Committed KV: the base token + a accepted drafts; the
+            # device already advanced pos/tokens by exactly this.
+            self.slot_len[i] = min(self.slot_len[i] + a + 1,
+                                   self.max_seq)
+            self._emit_tokens(i, host[i][:a + 1])
+            if self.slot_req[i] is not None and a < len(d):
+                self._trim_blocks(i)
+        # 'decode' first for the interleaving contract (a verify IS
+        # this iteration's decode dispatch); 'verify' carries the
+        # speculation accounting.
+        self.events.append(('decode', len(active_rows)))
+        self.events.append(('verify', len(drafts), proposed_total,
+                            accepted_total))
+        return True
+
+    # -- loop -----------------------------------------------------------
+
+    def _fail_all(self, exc: BaseException) -> None:
+        """Fail-stop for ENGINE death (an unexpected loop exception):
+        unblock every waiter with the fatal exception ahead of its
+        sentinel. Pool exhaustion never comes here."""
+        logger.error('Batching engine died: %r', exc, exc_info=exc)
+        self._drain_all(exc=exc)
+
+    def _drain_all(self, exc: Optional[BaseException] = None) -> None:
+        """Put the None sentinel (after ``exc`` on engine death) on
+        every active and pending request, so no waiter blocks past
+        loop exit; stash ``exc`` for requests submitted later."""
+        if exc is not None:
+            self._death_exc = exc
+        self._stop = True
+        for i, req in enumerate(self.slot_req):
+            if req is not None:
+                if exc is not None:
+                    req.out.put(exc)
+                req.out.put(None)
+                self.slot_req[i] = None
+        while True:
+            req = self._pop_pending()
+            if req is None:
+                return
+            if exc is not None:
+                req.out.put(exc)
+            req.out.put(None)
+
+    def _loop(self) -> None:
+        try:
+            # Grad mode is per thread: the caller's inference_mode does
+            # not reach this one.
+            with torch.inference_mode():
+                self._loop_inner()
+            self._drain_all()
+        except BaseException as e:  # pylint: disable=broad-except
+            self._fail_all(e)
+
+    def _loop_inner(self) -> None:
+        while not self._stop:
+            self._admit_pending()
+            progressed = self._run_prefill_chunks()
+            ran = self._dispatch_decode()
+            if not progressed and not ran:
+                self.wake.wait(timeout=0.5)
+                self.wake.clear()

@@ -15,6 +15,7 @@ from skypilot_torch import device as device_lib
 from skypilot_torch.models import convert, decode, llama
 from skypilot_torch.ops import _build
 from skypilot_torch.recipes import finetune, serve_model
+from skypilot_torch.serve import kv_pool
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(skypilot_torch.__file__)
@@ -57,7 +58,13 @@ print(json.dumps({{'modules': names, 'bad': bad}}))
                 'skypilot_torch.parallel.lora',
                 'skypilot_torch.parallel.train',
                 'skypilot_torch.recipes.finetune',
-                'skypilot_torch.recipes.serve_model'):
+                'skypilot_torch.recipes.serve_model',
+                'skypilot_torch.exceptions',
+                'skypilot_torch.serve.batching',
+                'skypilot_torch.serve.kv_pool',
+                'skypilot_torch.serve.prefix_hash',
+                'skypilot_torch.serve.sampling',
+                'skypilot_torch.serve.sampling.accept'):
         assert mod in res['modules']
 
 
@@ -93,6 +100,11 @@ def test_default_device_raises_without_cuda():
         convert.params_from_numpy({'final_norm': [1.0]}, cfg)
     with pytest.raises(device_lib.DeviceError):
         serve_model.build_server(serve_model.parse_args(['--port', '0']))
+    with pytest.raises(device_lib.DeviceError):
+        serve_model.build_server(serve_model.parse_args(
+            ['--port', '0', '--slots', '2']))
+    with pytest.raises(device_lib.DeviceError):
+        kv_pool.KVBlockPool(cfg, 4, 4)
     with pytest.raises(device_lib.DeviceError):
         finetune.build(finetune.parse_args(['--model', 'tiny']))
 

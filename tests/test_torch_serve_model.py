@@ -126,3 +126,111 @@ def test_refusal_texts_match_the_jax_replica():
         words = text.split()
         # The JAX source splits each message over string literals.
         assert all(w in src for w in words), text
+
+
+# ---------------------------------------------------------------------
+# The --slots replica: requests share the batching engine
+# ---------------------------------------------------------------------
+
+
+@pytest.fixture(scope='module')
+def engine_replica():
+    args = serve_model.parse_args(['--model', 'tiny', '--port', '0',
+                                   '--device', 'cpu', '--slots', '4'])
+    server, _ = serve_model.build_server(args)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield server.server_address[1], server.engine
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.engine.close()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
+    assert not server.engine.thread.is_alive()
+
+
+def _greedy(prompt_ids, max_new):
+    config = llama.get_config('tiny')
+    params = llama.init_params(config, seed=0, device='cpu')
+    return decode.greedy_generate(params, torch.tensor([prompt_ids]),
+                                  config, max_new)[0].tolist()
+
+
+def test_engine_replica_answers_concurrent_requests(engine_replica):
+    port, engine = engine_replica
+    prompts = [[(i * 37 + j * 11) % 500 + 1 for j in range(3 + 5 * i)]
+               for i in range(6)]
+    results = [None] * len(prompts)
+
+    def post(i):
+        results[i] = _request(port, 'POST', '/generate',
+                              {'prompt_ids': prompts[i],
+                               'max_new_tokens': 6 + i,
+                               'stream': i % 2 == 1})
+
+    threads = [threading.Thread(target=post, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    for i, (status, ctype, body) in enumerate(results):
+        assert status == 200
+        want = _greedy(prompts[i], 6 + i)
+        if i % 2:
+            assert ctype == 'text/event-stream'
+            assert body.decode() == ''.join(
+                f'data: {t}\n\n' for t in want) + 'data: [DONE]\n\n'
+        else:
+            assert json.loads(body) == {'output_ids': want}
+    # More requests than slots at once: some waited for a free row.
+    assert sum(e[0] == 'admit' for e in engine.events) >= len(prompts)
+
+
+def test_engine_replica_sets_prefix_headers(engine_replica):
+    port, _ = engine_replica
+    prompt = [(i * 13) % 400 + 2 for i in range(40)]
+    heads = []
+    for _ in range(2):
+        conn = http.client.HTTPConnection('127.0.0.1', port, timeout=60)
+        try:
+            conn.request('POST', '/generate',
+                         body=json.dumps({'prompt_ids': prompt,
+                                          'max_new_tokens': 3}),
+                         headers={'Content-Type': 'application/json'})
+            resp = conn.getresponse()
+            assert resp.status == 200
+            resp.read()
+            heads.append((int(resp.getheader('X-Skytpu-Prefix-Hits')),
+                          int(resp.getheader('X-Skytpu-Prefix-Misses'))))
+        finally:
+            conn.close()
+    # 40 tokens in blocks of 16: the repeat reuses both full blocks.
+    assert heads == [(0, 3), (2, 1)]
+
+
+@pytest.mark.parametrize('field,slice_name', [
+    ({'temperature': 0.7}, 'sampling slice'),
+    ({'top_p': 0.9}, 'sampling slice'),
+    ({'seed': 1}, 'sampling slice'),
+    ({'response_format': {'type': 'json_object'}}, 'sampling slice'),
+    ({'adapter': 'tenant-a'}, 'multi-LoRA slice'),
+    ({'priority': 'batch'}, 'overload slice'),
+    ({'timeout_s': 5}, 'overload slice'),
+    ({'tenant': 'team-b'}, 'overload slice'),
+])
+def test_engine_replica_refuses_deferred_fields(engine_replica, field,
+                                                slice_name):
+    port, _ = engine_replica
+    status, _, raw = _request(port, 'POST', '/generate',
+                              dict({'prompt_ids': [1, 2]}, **field))
+    assert status == 400
+    assert slice_name in json.loads(raw)['error']
+    # Greedy defaults stay served.
+    status, _, _ = _request(port, 'POST', '/generate',
+                            {'prompt_ids': [1, 2], 'temperature': 0,
+                             'tenant': None, 'max_new_tokens': 2})
+    assert status == 200
