@@ -53,6 +53,24 @@ in order (any failure exits non-zero; nothing is caught):
 12. Rows: ``decode_steps_rows`` (K5 + dense K4) and ``decode_steps_paged``
    (K5 + K4-paged) at llama3-8b, B 8, 16 steps on the same content:
    32 x 16 launches each and equal tokens.
+13. K6 (packed_flash_fwd): the head-paired forward against its f32 plain
+   version (shared and paired kv, T < S, non-causal), kernel / plain /
+   K1 / SDPA / bound times at B 8, T 2048, 32/8 heads, head_dim 64; then
+   its entry point ``bench_main()`` with its launches counted.
+14. INT8K: the int8 forms of K4 (dense; paged W = 1 and W = 9, W = 1
+   bit-equal to dense int8 on contiguous tables) and K5 (bit-exact on
+   codes and scales) against their plain versions, with times.
+15. INT8: llama3-8b at 2 layers with int8 weights and int8 KV, bf16 on
+   the card vs f32 on the CPU; the serve_8b point (llama3.1-8b, 32
+   layers, int8 weights and KV, batch 8, 1024-token prompts, 32 new,
+   K1 = 32 and int8 K4 = 32 x 31) beside the same run in bf16; the
+   ``--slots 8 --quant int8 --kv-int8`` replica on the engine's
+   12-request burst (launch counts equal its dispatch record); one
+   engine-off ``--quant int8`` TPOT.
+16. QLoRA: llama3.1-8b (32 layers) over an int8 frozen base, LoRA rank
+   16, seq 2048, batch 4: one warm-up and three counted steps on one
+   fixed batch (K1-RoPE 192, K2 = K3 = 96), falling losses, step time,
+   tokens/s, MFU (4N), peak memory and a profile of one more step.
 
 Then one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line. ``--phases`` runs a subset (no
@@ -73,7 +91,7 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 L2_BYTES = 50 * 2 ** 20
 PHASES = ('k1', 'k4', 'e2e', 'serve', 'k1r', 'bwd', 'train', 'k5',
-          'k4p', 'engine', 'rows')
+          'k4p', 'engine', 'rows', 'k6', 'int8k', 'int8', 'qlora')
 K1_TOL = {'out': 2e-2, 'lse': 2e-2}
 # K2/K3 in bf16 (P and dS rounded to bf16 before their products) against
 # f32: max |err| over max |ref| per gradient.
@@ -1217,7 +1235,7 @@ def _first_token(torch, engine, config, prompt):
     from skypilot_torch.serve import kv_pool
     n_blk = engine.pool.blocks_for(len(prompt) + 1)
     pool = kv_pool.KVBlockPool(config, n_blk + 1, engine.block_size,
-                               device='cuda')
+                               kv_int8=engine.kv_int8, device='cuda')
     row = torch.zeros(engine.max_blocks_per_req, dtype=torch.int32)
     row[:n_blk] = torch.arange(1, n_blk + 1, dtype=torch.int32)
     row = row.cuda()
@@ -1261,7 +1279,7 @@ def _draft_prompts(torch, engine, config, rand, need=2, tries=8):
     return found
 
 
-def _profile_engine_dispatch(torch, engine, config, batching):
+def _profile_engine_dispatch(torch, engine, config, batching, label):
     """Where a decode dispatch's time goes: the engine's own step
     (``decode_steps_paged``, ``steps_per_dispatch`` tokens) on its pool,
     8 rows at the replica's context lengths, profiled on the card."""
@@ -1284,13 +1302,13 @@ def _profile_engine_dispatch(torch, engine, config, batching):
                 config, engine.steps, engine.block_size)
             toks.cpu()
     dispatch()
-    profile_cuda(torch, dispatch, 'ENGINE_DISPATCH_PROFILE',
+    profile_cuda(torch, dispatch, label + '_DISPATCH_PROFILE',
                  dict(rows=len(lens), steps=engine.steps, lengths=lens))
     for bl in blocks:
         engine.pool.free(bl)
 
 
-def engine_phase(torch, attention, da):
+def engine_phase(torch, attention, da, quant=False):
     """The engine slice: numerics at 2 layers, then the port's replica
     at llama3-8b (32 layers, random weights) with ``--slots 8`` and the
     JAX defaults answering 12 concurrent HTTP requests (prompts of
@@ -1299,19 +1317,26 @@ def engine_phase(torch, attention, da):
     drafts at their first dispatch, so a verify runs). Launch counts are
     zeroed just before and
     read just after the 12 requests, and must equal the engine's own
-    dispatch record."""
+    dispatch record. ``quant``: the same burst on ``--quant int8
+    --kv-int8`` (int8 weights, an int8 pool: the int8 forms of K4-paged
+    and K5 must carry every launch), without the 2-layer numerics (the
+    int8 phase has its own)."""
     import gc
 
     from skypilot_torch.models import llama
     from skypilot_torch.recipes import serve_model
     from skypilot_torch.serve import batching
+    label = 'ENGINE_Q8' if quant else 'ENGINE'
     gc.collect()
     torch.cuda.empty_cache()
-    _engine_numerics(torch)
+    if not quant:
+        _engine_numerics(torch)
     gc.collect()
     torch.cuda.empty_cache()
-    args = serve_model.parse_args(['--model', 'llama3-8b', '--port', '0',
-                                   '--device', 'cuda', '--slots', '8'])
+    args = serve_model.parse_args(
+        ['--model', 'llama3-8b', '--port', '0', '--device', 'cuda',
+         '--slots', '8'] + (['--quant', 'int8', '--kv-int8'] if quant
+                            else []))
     config = llama.get_config(args.model)
     t0 = time.perf_counter()
     server, _ = serve_model.build_server(args)
@@ -1343,11 +1368,18 @@ def engine_phase(torch, attention, da):
                          'max_new_tokens': 32 + 4 * i,
                          'stream': i % 4 != 1})
         assert len(reqs) == 12
+        bf16 = {'paged_w1': da.PAGED_DECODE_ATTENTION,
+                'paged_verify': da.PAGED_VERIFY_ATTENTION,
+                'cache_write': da.CACHE_WRITE}
+        q8 = {'paged_w1': da.PAGED_DECODE_ATTENTION_Q8,
+              'paged_verify': da.PAGED_VERIFY_ATTENTION_Q8,
+              'cache_write': da.CACHE_WRITE_Q8}
+        used, other = (q8, bf16) if quant else (bf16, q8)
         kernels = {'flash_fwd': attention.FLASH_FWD,
                    'decode_attention': da.DECODE_ATTENTION,
-                   'paged_w1': da.PAGED_DECODE_ATTENTION,
-                   'paged_verify': da.PAGED_VERIFY_ATTENTION,
-                   'cache_write': da.CACHE_WRITE}
+                   'decode_attention_q8': da.DECODE_ATTENTION_Q8, **used,
+                   **{f'{k}_{"bf16" if quant else "q8"}': v
+                      for k, v in other.items()}}
         torch.cuda.synchronize()
         for k in kernels.values():
             k.launches = 0
@@ -1390,18 +1422,18 @@ def engine_phase(torch, attention, da):
         n_decode = sum(e[0] == 'decode' for e in events) - n_verify
         n_chunks = sum(e[0] == 'prefill_chunk' for e in events)
         L = config.n_layers
-        want = {'flash_fwd': 0, 'decode_attention': 0,
-                'paged_w1': L * engine.steps * n_decode,
-                'paged_verify': L * n_verify,
-                'cache_write': L * (engine.steps * n_decode + n_verify +
-                                    n_chunks)}
+        want = {name: 0 for name in kernels}
+        want.update({'paged_w1': L * engine.steps * n_decode,
+                     'paged_verify': L * n_verify,
+                     'cache_write': L * (engine.steps * n_decode + n_verify +
+                                         n_chunks)})
         n_out = 0
         for (status, heads, ids, ttft, ms), r in zip(results, reqs):
             assert status == 200, status
             assert len(ids) == r['max_new_tokens'], (len(ids), r)
             assert all(0 <= t < config.vocab_size for t in ids)
             n_out += len(ids)
-            log('ENGINE_REQ ' + json.dumps(dict(
+            log(label + '_REQ ' + json.dumps(dict(
                 prompt=len(r['prompt_ids']), stream=r['stream'],
                 n_out=len(ids), latency_ms=ms, ttft_ms=ttft,
                 tpot_ms=None if ttft is None else
@@ -1410,8 +1442,9 @@ def engine_phase(torch, attention, da):
                 prefix_misses=int(heads['X-Skytpu-Prefix-Misses']))))
         hits = int(results[3][1]['X-Skytpu-Prefix-Hits'])
         verifies = [e for e in events if e[0] == 'verify']
-        log('ENGINE ' + json.dumps(dict(
+        log(label + ' ' + json.dumps(dict(
             model=args.model, layers=L, slots=args.slots,
+            quant=args.quant, kv_int8=args.kv_int8,
             block_size=engine.block_size, pool_blocks=engine.pool.num_blocks,
             max_seq=engine.max_seq, draft_k=engine.draft_k,
             steps_per_dispatch=engine.steps, setup_s=setup_s, run_s=run_s,
@@ -1427,7 +1460,7 @@ def engine_phase(torch, attention, da):
         assert hits > 0, 'the shared 1024-token prefix was not reused'
         assert n_verify > 0, 'no verify dispatch ran'
         assert launches == want, (launches, want)
-        _profile_engine_dispatch(torch, engine, config, batching)
+        _profile_engine_dispatch(torch, engine, config, batching, label)
     finally:
         server.shutdown()
         server.server_close()
@@ -1514,6 +1547,630 @@ def rows_phase(torch, da):
     return n
 
 
+# ---------------------------------------------------------------------
+# K6: the head-paired flash forward and its bench entry
+# ---------------------------------------------------------------------
+
+
+def k6_phase(torch, F, attention):
+    """K6 against ``_packed_fwd_plain`` in f32 on the card (shared kv at
+    32/8 heads, paired kv at groups 1, causal T < S, non-causal); at the
+    JAX bench's shape (B 8, T 2048, 32/8 heads, head_dim 64, causal) the
+    kernel, plain, K1 (the JAX bench's comparison), SDPA (timed only)
+    and bound times; then ``bench_main()`` itself, the entry point, with
+    K6's launch count zeroed just before and read just after."""
+    from skypilot_torch.ops import attention_packed as packed
+    gen = torch.Generator(device='cuda').manual_seed(31)
+    # (B, H, Hkv, T, S, D, causal)
+    cases = [(8, 32, 8, 2048, 2048, 64, True), (1, 32, 32, 1024, 1024, 64,
+                                                True),
+             (1, 32, 8, 512, 2048, 128, True),
+             (2, 16, 8, 1024, 1024, 128, False)]
+    rows = []
+    for b, h, hkv, t, s, d, causal in cases:
+        def make(b=b, h=h, hkv=hkv, t=t, s=s, d=d):
+            return tuple(torch.randn(sh, generator=gen, device='cuda',
+                                     dtype=torch.bfloat16)
+                         for sh in ((b, h, t, d), (b, hkv, s, d),
+                                    (b, hkv, s, d)))
+        q, k, v = make()
+        before = packed.PACKED_FWD.launches
+        out, lse = packed.packed_flash_attention_fwd(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert packed.PACKED_FWD.launches == before + 1
+        ref_out, ref_lse = packed._packed_fwd_plain(
+            q.float(), k.float(), v.float(), causal=causal)
+        err_out = (out.float() - ref_out).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        ok = (err_out <= K1_TOL['out'] and err_lse <= K1_TOL['lse']
+              and bool(torch.isfinite(out.float()).all()))
+        pairs = _visible_pairs(t, s) if causal else t * s
+        flops = 4 * b * h * d * pairs
+        nbytes = (2 * (q.numel() + k.numel() + v.numel() + out.numel())
+                  + 4 * lse.numel())
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+        row = dict(B=b, H=h, Hkv=hkv, T=t, S=s, D=d, causal=causal,
+                   max_abs_err_out=err_out, max_abs_err_lse=err_lse,
+                   tol=K1_TOL, ok=ok, bound_ms=1e3 * max(t_ops, t_bytes),
+                   bound_by='operations' if t_ops >= t_bytes else 'bytes',
+                   gflop=flops / 1e9)
+        if len(rows) == 0:
+            inputs = copies_outside_l2(make, nbytes, (q, k, v))
+
+            def kernel(q, k, v):
+                return packed.packed_flash_attention_fwd(q, k, v,
+                                                         causal=True)
+
+            def plain(q, k, v):
+                return packed._packed_fwd_plain(q, k, v, causal=True)
+
+            def k1(q, k, v):
+                return attention.flash_attention_fwd(
+                    q.transpose(1, 2), k.transpose(1, 2),
+                    v.transpose(1, 2), causal=True)
+
+            def library(q, k, v):
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
+            row.update(kernel_ms=graph_ms(torch, kernel, inputs, 20),
+                       plain_ms=graph_ms(torch, plain, inputs[:1], 2),
+                       k1_ms=graph_ms(torch, k1, inputs, 20),
+                       library_ms=graph_ms(torch, library, inputs, 20),
+                       library='SDPA (GQA, causal)')
+            row['tflops'] = flops / row['kernel_ms'] / 1e9
+            row['k1_tflops'] = flops / row['k1_ms'] / 1e9
+            del inputs
+        log('K6 ' + json.dumps(row))
+        rows.append(row)
+        del q, k, v, out, lse, ref_out, ref_lse
+        torch.cuda.empty_cache()
+    bad = [r for r in rows if not r['ok']]
+    assert not bad, f'K6 disagrees with its plain version: {bad}'
+    torch.cuda.synchronize()
+    packed.PACKED_FWD.launches = 0
+    iters = 20
+    bench = packed.bench_main(iters=iters)
+    launches = packed.PACKED_FWD.launches
+    log('K6_BENCH ' + json.dumps(dict(bench, launches=launches,
+                                      launches_expected=iters + 1)))
+    assert launches == iters + 1, launches       # warm-up + timed calls
+    main_case = rows[0]
+    return dict(max_abs_err=max(max(r['max_abs_err_out'],
+                                    r['max_abs_err_lse']) for r in rows),
+                B=8, T=2048, S=2048, H=32, Hkv=8, D=64,
+                ms=main_case['kernel_ms'], plain_ms=main_case['plain_ms'],
+                bound_ms=main_case['bound_ms'],
+                bound_by=main_case['bound_by'],
+                library_ms=main_case['library_ms'],
+                library='SDPA (GQA, causal)', k1_ms=main_case['k1_ms'],
+                bench_main=bench, launches=launches)
+
+
+# ---------------------------------------------------------------------
+# int8 K4 (dense, paged W = 1 and W = 9) and int8 K5
+# ---------------------------------------------------------------------
+
+# Bytes of one key and kv head, K and V with their scales: int8 codes
+# plus two bf16 scales (260 at head_dim 128), against 4 * hd in bf16.
+Q8_KEY_BYTES = 2 * HD8 + 2 * 2
+
+
+def _q8(x):
+    """bf16 rows [..., hd] -> (int8 codes, bf16 scales) as the model
+    writes them."""
+    from skypilot_torch.models import decode
+    return decode._quantize_kv(x)
+
+
+def int8k_phase(torch, F, da):
+    """The int8 forms of K4 and K5 against their plain versions: dense K4
+    on codes + scales (the serve path's batch-1 decode and serve_8b's
+    batch 8 at 1024-token prompts), K4-paged W = 1 and W = 9 over the
+    shuffled 4097-block int8 pool (and W = 1 bit-equal to dense int8 on
+    contiguous tables), K5 bit-exact against ``index_copy_`` on codes and
+    scales. Library column: dequantize + SDPA (K4), ``index_copy_`` x 4
+    (K5); timed only."""
+    from skypilot_torch.serve import kv_pool
+    HQ, S = 32, 8192
+    scale = HD8 ** -0.5
+    gen = torch.Generator(device='cuda').manual_seed(32)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device='cuda',
+                           dtype=torch.bfloat16)
+
+    def dequant(x, sc):
+        return da.dequant_kv(x, sc, torch.bfloat16)
+    out = {}
+    dense_rows = []
+    for label, lens, s in (('serve B1', [2048], S),
+                           ('serve_8b B8', [1024 + 9 * i for i in range(8)],
+                            2048)):
+        b = len(lens)
+
+        def make(b=b, s=s):
+            kq, ks = _q8(randn(b, s, HKV8, HD8))
+            vq, vs = _q8(randn(b, s, HKV8, HD8))
+            return randn(b, HQ, HD8), kq, vq, ks, vs
+        lengths = torch.tensor(lens, dtype=torch.int32, device='cuda')
+        q, kq, vq, ks, vs = make()
+        before = da.DECODE_ATTENTION_Q8.launches
+        got = da.decode_attention(q, kq, vq, lengths, scale, ks, vs)
+        torch.cuda.synchronize()
+        assert da.DECODE_ATTENTION_Q8.launches == before + 1
+        ref = da._reference_decode_attention(
+            q.float(), kq, vq, lengths, scale, ks, vs)
+        err = (got.float() - ref).abs().max().item()
+        nbytes = (sum(lens) * HKV8 * Q8_KEY_BYTES + 2 * 2 * q.numel()
+                  + 4 * b)
+        inputs = copies_outside_l2(make, nbytes, (q, kq, vq, ks, vs))
+        mask = (torch.arange(s, device='cuda')[None, :] <
+                lengths[:, None])[:, None, None, :]
+
+        def kernel(q, kq, vq, ks, vs):
+            return da.decode_attention(q, kq, vq, lengths, scale, ks, vs)
+
+        def plain(q, kq, vq, ks, vs):
+            return da._reference_decode_attention(q, kq, vq, lengths, scale,
+                                                  ks, vs)
+
+        def library(q, kq, vq, ks, vs):
+            return F.scaled_dot_product_attention(
+                q[:, :, None], dequant(kq, ks).transpose(1, 2),
+                dequant(vq, vs).transpose(1, 2), attn_mask=mask,
+                scale=scale, enable_gqa=True)
+        row = dict(case=label, B=b, S=s, lengths=lens, max_abs_err=err,
+                   tol=K4_TOL, ok=err <= K4_TOL and bool(
+                       torch.isfinite(got.float()).all()),
+                   kernel_ms=graph_ms(torch, kernel, inputs, 200),
+                   plain_ms=graph_ms(torch, plain, inputs, 20),
+                   library_ms=graph_ms(torch, library, inputs, 50),
+                   library='dequantize + SDPA (boolean mask, GQA)',
+                   bound_ms=1e3 * nbytes / PEAK_HBM_BYTES, bound_by='bytes')
+        row['gbps'] = nbytes / row['kernel_ms'] / 1e6
+        log('K4Q8 ' + json.dumps(row))
+        dense_rows.append(row)
+        del q, kq, vq, ks, vs, inputs, got, ref
+        torch.cuda.empty_cache()
+
+    # Paged over the engine's pool: 4097 blocks of 16, shuffled tables.
+    b, mb = 8, 8192 // BLOCK
+    s = mb * BLOCK
+    n_rows = POOL_BLOCKS * BLOCK
+    kq, ks = _q8(randn(n_rows, HKV8, HD8)[None])
+    vq, vs = _q8(randn(n_rows, HKV8, HD8)[None])
+    kq, vq, ks, vs = kq[0], vq[0], ks[0], vs[0]
+    ids = torch.randperm(POOL_BLOCKS - 1, generator=gen,
+                         device='cuda')[:b * mb] + 1
+    tables = ids.reshape(b, mb).to(torch.int32).contiguous()
+    lens = [1, 17, 300, 2048, 4097, 6000, 8183, 8192]
+    paged_rows = []
+    for w in (1, 9):
+        q = randn(b, w, HQ, HD8)
+        lengths = torch.tensor([min(n, s - w + 1) for n in lens],
+                               dtype=torch.int32, device='cuda')
+        counts = (da.PAGED_DECODE_ATTENTION_Q8, da.PAGED_VERIFY_ATTENTION_Q8)
+        before = tuple(c.launches for c in counts)
+        if w == 1:
+            def kernel(q=q, lengths=lengths):
+                return da.paged_decode_attention(
+                    q[:, 0], kq, vq, tables, lengths, scale, BLOCK, ks,
+                    vs)[:, None]
+
+            def plain(q=q, lengths=lengths):
+                return da._reference_paged_decode_attention(
+                    q[:, 0], kq, vq, tables, lengths, scale, BLOCK, ks,
+                    vs)[:, None]
+        else:
+            def kernel(q=q, lengths=lengths):
+                return da.paged_verify_attention(
+                    q, kq, vq, tables, lengths, scale, BLOCK, ks, vs)
+
+            def plain(q=q, lengths=lengths):
+                return da._reference_paged_verify_attention(
+                    q, kq, vq, tables, lengths, scale, BLOCK, ks, vs)
+        got = kernel()
+        torch.cuda.synchronize()
+        launched = tuple(c.launches - n for c, n in zip(counts, before))
+        assert launched == ((1, 0) if w == 1 else (0, 1)), launched
+        if w == 1:
+            ref = da._reference_paged_decode_attention(
+                q[:, 0].float(), kq, vq, tables, lengths, scale, BLOCK, ks,
+                vs)[:, None]
+        else:
+            ref = da._reference_paged_verify_attention(
+                q.float(), kq, vq, tables, lengths, scale, BLOCK, ks, vs)
+        err = (got.float() - ref).abs().max().item()
+        spans = [min(max(n + w - 1, 1), s) for n in lengths.tolist()]
+        nbytes = (sum(spans) * HKV8 * Q8_KEY_BYTES + 2 * 2 * q.numel()
+                  + 4 * (b + b * mb))
+        span_mask = (torch.arange(s, device='cuda')[None, None, :] <
+                     (lengths[:, None] + torch.arange(
+                         w, device='cuda')[None, :])[:, :, None])
+
+        def library(q=q, span_mask=span_mask):
+            gidx = kv_pool.read_indices(tables, BLOCK)
+            kd = dequant(da.paged_gather(kq, gidx),
+                         da.paged_gather(ks, gidx)).transpose(1, 2)
+            vd = dequant(da.paged_gather(vq, gidx),
+                         da.paged_gather(vs, gidx)).transpose(1, 2)
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kd, vd, attn_mask=span_mask[:, None],
+                scale=scale, enable_gqa=True)
+        row = dict(case=f'paged W={w}', B=b, W=w, lengths=lengths.tolist(),
+                   max_abs_err=err, tol=K4_TOL,
+                   ok=err <= K4_TOL and bool(torch.isfinite(
+                       got.float()).all()),
+                   kernel_ms=graph_ms(torch, kernel, [()], 200),
+                   plain_ms=graph_ms(torch, plain, [()], 10),
+                   library_ms=graph_ms(torch, library, [()], 20),
+                   library='gather + dequantize + SDPA',
+                   bound_ms=1e3 * nbytes / PEAK_HBM_BYTES, bound_by='bytes')
+        row['gbps'] = nbytes / row['kernel_ms'] / 1e6
+        log('K4PQ8 ' + json.dumps(row))
+        paged_rows.append(row)
+        del q, got, ref
+    # W = 1 over contiguous tables equals dense int8 K4 bit for bit.
+    mb2 = 2048 // BLOCK
+    dk, dks = _q8(randn(b, 2048, HKV8, HD8))
+    dv, dvs = _q8(randn(b, 2048, HKV8, HD8))
+
+    def pool_of(x):      # block 0 scratch, then row b's blocks in order
+        return torch.cat([torch.zeros_like(x[0, :BLOCK]),
+                          x.reshape(b * 2048, *x.shape[2:])])
+    contiguous = (torch.arange(b * mb2, device='cuda', dtype=torch.int32)
+                  .reshape(b, mb2) + 1)
+    q = randn(b, HQ, HD8)
+    lengths = torch.tensor([1, 17, 300, 1024, 1500, 2000, 2047, 2048],
+                           dtype=torch.int32, device='cuda')
+    dense = da.decode_attention(q, dk, dv, lengths, scale, dks, dvs)
+    paged = da.paged_decode_attention(
+        q, pool_of(dk), pool_of(dv), contiguous, lengths, scale, BLOCK,
+        pool_of(dks), pool_of(dvs))
+    torch.cuda.synchronize()
+    bit_equal = torch.equal(dense, paged)
+    log('K4PQ8_CONTIGUOUS ' + json.dumps(dict(
+        bit_equal_to_dense_int8_k4=bit_equal,
+        max_abs_diff=(dense.float() - paged.float()).abs().max().item())))
+    del dk, dks, dv, dvs, dense, paged
+
+    # K5 int8: codes and scales, bit-exact against index_copy_.
+    k5_rows = []
+    for r in (8, 72, 512):
+        dst = torch.randperm(n_rows - BLOCK, generator=gen,
+                             device='cuda')[:r].to(torch.int32) + BLOCK
+        kn, ksn = _q8(randn(1, r, HKV8, HD8))
+        vn, vsn = _q8(randn(1, r, HKV8, HD8))
+        new = (kn[0], vn[0], ksn[0], vsn[0])
+        got = [x.clone() for x in (kq, vq, ks, vs)]
+        want = [x.clone() for x in (kq, vq, ks, vs)]
+        before = da.CACHE_WRITE_Q8.launches
+        da.cache_write(got[0], got[1], new[0], new[1], dst, got[2], got[3],
+                       new[2], new[3])
+        torch.cuda.synchronize()
+        assert da.CACHE_WRITE_Q8.launches == before + 1
+        da._reference_cache_write(want[0], want[1], new[0], new[1], dst,
+                                  want[2], want[3], new[2], new[3])
+        exact = all(torch.equal(a, c) for a, c in zip(got, want))
+        idx = dst.long()
+        nbytes = 2 * 2 * r * HKV8 * (HD8 + 2) + 4 * r
+
+        def kernel():
+            da.cache_write(got[0], got[1], new[0], new[1], dst, got[2],
+                           got[3], new[2], new[3])
+
+        def plain():
+            da._reference_cache_write(want[0], want[1], new[0], new[1], dst,
+                                      want[2], want[3], new[2], new[3])
+
+        def library():
+            for x, n in zip(want, new):
+                x.index_copy_(0, idx, n)
+        row = dict(case=f'pool R={r}', rows=r, bit_exact=exact,
+                   kernel_ms=graph_ms(torch, lambda: kernel(), [()], 200),
+                   plain_ms=cuda_ms(torch, plain, [()], 200),
+                   library_ms=graph_ms(torch, lambda: library(), [()], 200),
+                   library='index_copy_ on K, V and their scales',
+                   bound_ms=1e3 * nbytes / PEAK_HBM_BYTES, bound_by='bytes')
+        log('K5Q8 ' + json.dumps(row))
+        k5_rows.append(row)
+        del got, want
+    del kq, vq, ks, vs
+    torch.cuda.empty_cache()
+    bad = [r for r in dense_rows + paged_rows if not r['ok']]
+    assert not bad, f'int8 K4 disagrees with its plain version: {bad}'
+    assert bit_equal, 'int8 K4-paged W=1 is not bit-equal to dense int8 K4'
+    assert all(r['bit_exact'] for r in k5_rows), k5_rows
+
+    def pick(row):
+        return {k: row[k] for k in ('case', 'max_abs_err', 'kernel_ms',
+                                    'plain_ms', 'library_ms', 'library',
+                                    'bound_ms', 'bound_by') if k in row}
+    out['decode_attention'] = dict(
+        main=pick(dense_rows[1]), serve_b1=pick(dense_rows[0]))
+    out['decode_attention_paged'] = dict(
+        main=pick(paged_rows[0]), verify=pick(paged_rows[1]),
+        bit_equal_to_dense_int8=bit_equal)
+    out['cache_write'] = dict(main=dict(pick(k5_rows[0]), max_abs_err=0.0),
+                              cases={r['case']: pick(r) for r in k5_rows})
+    return out
+
+
+# ---------------------------------------------------------------------
+# int8: numerics, serve_8b, the int8 replica, engine-off TPOT
+# ---------------------------------------------------------------------
+
+
+def _int8_numerics(torch):
+    """llama3-8b widths at 2 layers, int8 weights (``init_quantized`` on
+    the card) and an int8 KV cache: bf16 on the card against the same
+    codes in f32 on the CPU; first-token logits and greedy tokens."""
+    from skypilot_torch.models import convert, decode, llama, quant
+    config = llama.get_config('llama3-8b', n_layers=2)
+    cfg_cpu = dataclasses.replace(config, dtype=torch.float32)
+    params = quant.init_quantized(config, seed=6, device='cuda')
+    cpu_params = convert.params_from_numpy(
+        convert.params_to_numpy(params), cfg_cpu, device='cpu')
+    gen = torch.Generator().manual_seed(33)
+    prompt = torch.randint(0, config.vocab_size, (1, 256), generator=gen)
+    n_new, max_seq = 9, 512
+
+    def first_logits(p, cfg, dev):
+        with torch.inference_mode():
+            cache = decode.init_cache(cfg, 1, max_seq, device=dev,
+                                      kv_int8=True)
+            logits, _ = decode.forward_cached(p, prompt.to(dev), cache,
+                                              cfg, last_only=True,
+                                              prefill=True)
+        return logits[0, -1].float().cpu()
+
+    lg = first_logits(params, config, 'cuda')
+    toks_gpu = decode.greedy_generate(params, prompt.cuda(), config, n_new,
+                                      max_seq=max_seq,
+                                      kv_int8=True)[0].tolist()
+    lc = first_logits(cpu_params, cfg_cpu, 'cpu')
+    toks_cpu = decode.greedy_generate(cpu_params, prompt, cfg_cpu, n_new,
+                                      max_seq=max_seq,
+                                      kv_int8=True)[0].tolist()
+    rel = ((lg - lc).abs().max() / lc.abs().max()).item()
+    agree = sum(a == b for a, b in zip(toks_gpu, toks_cpu))
+    row = dict(config='llama3-8b', layers=2, weights='int8', kv='int8',
+               prompt=256, rel_err=rel, rel_tol=E2E_REL_TOL,
+               greedy_agree=f'{agree}/{n_new}', gpu_tokens=toks_gpu,
+               cpu_tokens=toks_cpu)
+    log('INT8_NUMERICS ' + json.dumps(row))
+    assert bool(torch.isfinite(lg).all()) and lg.shape == lc.shape
+    assert rel <= E2E_REL_TOL, f'int8 logits disagree: {row}'
+    del params, cpu_params
+
+
+def _serve_8b(torch, attention, da):
+    """The JAX bench's serve_8b point through the port's entry points:
+    llama3.1-8b (32 layers), ``init_quantized`` int8 weights, an int8
+    dense KV cache (max_seq 2048), batch 8, 1024-token prompts, 32 new
+    tokens, one ``greedy_generate`` with the launch counts zeroed just
+    before and read just after (K1 = 32 for the one prefill, int8 K4 =
+    32 x 31 decode steps); then the same run with bf16 weights and a
+    bf16 cache beside it."""
+    import gc
+
+    from skypilot_torch.models import decode, llama, quant
+    config = llama.get_config('llama3.1-8b')
+    b, prompt_len, new, max_seq = 8, 1024, 32, 2048
+    gen = torch.Generator().manual_seed(34)
+    prompt = torch.randint(0, config.vocab_size, (b, prompt_len),
+                           generator=gen).cuda()
+    L = config.n_layers
+    counts = {'flash_fwd': attention.FLASH_FWD,
+              'decode_attention': da.DECODE_ATTENTION,
+              'decode_attention_q8': da.DECODE_ATTENTION_Q8}
+    rows = {}
+    for weights in ('int8', 'bf16'):
+        gc.collect()
+        torch.cuda.empty_cache()
+        int8 = weights == 'int8'
+        t0 = time.perf_counter()
+        params = (quant.init_quantized(config, seed=0, device='cuda')
+                  if int8 else llama.init_params(config, seed=0,
+                                                 device='cuda'))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        # What a decode step reads: every weight but the embedding (one
+        # row per token).
+        weight_bytes = sum(x.numel() * x.element_size() for x in _tensors(
+            {k: v for k, v in params.items() if k != 'embed'}))
+
+        def run(n):
+            out = decode.greedy_generate(params, prompt, config, n,
+                                         max_seq=max_seq, kv_int8=int8)
+            return out.cpu()
+        run(2)                                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in counts.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        toks = run(new)
+        total_s = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in counts.items()}
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        run(1)
+        ttft_s = time.perf_counter() - t0
+        want = {'flash_fwd': L, 'decode_attention': 0,
+                'decode_attention_q8': 0}
+        want['decode_attention_q8' if int8 else 'decode_attention'] = \
+            L * (new - 1)
+        tpot_ms = 1e3 * (total_s - ttft_s) / (new - 1)
+        row = dict(model='llama3.1-8b', layers=L, weights=weights,
+                   kv_cache=weights, batch=b, prompt_len=prompt_len,
+                   new_tokens=new, max_seq=max_seq, setup_s=setup_s,
+                   weight_gb=weight_bytes / 1e9, total_s=total_s,
+                   ttft_ms=1e3 * ttft_s, tpot_ms=tpot_ms,
+                   tokens_per_s=b * new / total_s,
+                   decode_tokens_per_s=b * (new - 1) / (total_s - ttft_s),
+                   weight_read_floor_ms=1e3 * weight_bytes / PEAK_HBM_BYTES,
+                   max_memory_allocated_gb=peak / 1e9, launches=launches,
+                   launches_expected=want)
+        log('SERVE_8B ' + json.dumps(row))
+        assert toks.shape == (b, new) and bool(
+            ((toks >= 0) & (toks < config.vocab_size)).all())
+        assert launches == want, (launches, want)
+        if int8:
+            profile_cuda(torch, lambda: run(4), 'SERVE_8B_PROFILE',
+                         dict(weights=weights, new_tokens=4))
+        rows[weights] = row
+        del params
+    return rows
+
+
+def _tensors(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tensors(v)
+        else:
+            yield v
+
+
+def _int8_engine_off(torch, attention, da):
+    """One engine-off TPOT on ``--quant int8`` (int8 weights, a bf16
+    cache as in the JAX replica without the engine): a 1024-token
+    prompt, 32 new tokens, K1 and K4 counted."""
+    from skypilot_torch.models import llama
+    from skypilot_torch.recipes import serve_model
+    args = serve_model.parse_args(['--model', 'llama3-8b', '--port', '0',
+                                   '--device', 'cuda', '--quant', 'int8'])
+    config = llama.get_config(args.model)
+    server, generate = serve_model.build_server(args)
+    try:
+        gen = torch.Generator().manual_seed(35)
+        prompt = torch.randint(0, config.vocab_size, (1024,),
+                               generator=gen).tolist()
+        max_new = 32
+        torch.cuda.synchronize()
+        attention.FLASH_FWD.launches = da.DECODE_ATTENTION.launches = 0
+        t0 = time.perf_counter()
+        ids = generate(prompt, max_new)
+        total_ms = 1e3 * (time.perf_counter() - t0)
+        launches = dict(flash_fwd=attention.FLASH_FWD.launches,
+                        decode_attention=da.DECODE_ATTENTION.launches)
+        t0 = time.perf_counter()
+        generate(prompt, 1)
+        ttft_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        server.server_close()
+    L = config.n_layers
+    want = dict(flash_fwd=L, decode_attention=L * (max_new - 1))
+    row = dict(model=args.model, quant='int8', kv='bf16', prompt=1024,
+               n_out=len(ids), latency_ms=total_ms, ttft_ms=ttft_ms,
+               tpot_ms=(total_ms - ttft_ms) / (max_new - 1),
+               launches=launches, launches_expected=want)
+    log('INT8_ENGINE_OFF ' + json.dumps(row))
+    assert len(ids) == max_new and launches == want, row
+    return row
+
+
+def int8_phase(torch, attention, da):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    _int8_numerics(torch)
+    serve8b = _serve_8b(torch, attention, da)
+    replica = engine_phase(torch, attention, da, quant=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine_off = _int8_engine_off(torch, attention, da)
+    return dict(serve_8b=serve8b, replica=replica, engine_off=engine_off)
+
+
+# ---------------------------------------------------------------------
+# QLoRA: the JAX bench's headline row through the port's train step
+# ---------------------------------------------------------------------
+
+
+def qlora_phase(torch, attention):
+    """``_qlora_probe``'s shape: llama3.1-8b (32 layers), an int8 frozen
+    base (``init_qlora_state``), bf16 LoRA rank 16, seq 2048, batch 4,
+    ``remat_saves='attn'``, the probe's optimizer (clip 1.0, AdamW lr
+    1e-3, b2 0.95); one warm-up step and three counted steps on one
+    fixed batch, the launch counts zeroed just before and read just
+    after (K1-RoPE 2 x 32 x 3 with the checkpoint's recompute, K2 = K3
+    = 32 x 3). The losses must fall."""
+    import gc
+
+    from skypilot_torch.models import llama
+    from skypilot_torch.parallel import train as train_lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq, batch_size, rank, n_steps = 2048, 4, 16, 3
+    config = llama.get_config('llama3.1-8b', max_seq_len=seq,
+                              remat_saves='attn')
+    optimizer = train_lib.AdamW(learning_rate=1e-3, weight_decay=1e-4,
+                                b1=0.9, b2=0.95, eps=1e-8, grad_clip=1.0)
+    t0 = time.perf_counter()
+    state = train_lib.init_qlora_state(config, seed=0, lora_rank=rank,
+                                       optimizer=optimizer, device='cuda')
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    step_fn = train_lib.build_train_step(config, optimizer=optimizer)
+    gen = torch.Generator().manual_seed(36)
+    batch = {'tokens': torch.randint(0, config.vocab_size,
+                                     (batch_size, seq + 1),
+                                     generator=gen).cuda()}
+    t0 = time.perf_counter()
+    state, metrics = step_fn(state, batch)
+    warm = dict(loss=float(metrics['loss']),
+                grad_norm=float(metrics['grad_norm']),
+                ms=1e3 * (time.perf_counter() - t0))
+    kernels = {'flash_fwd': attention.FLASH_FWD,
+               'flash_fwd_rope': attention.FLASH_FWD_ROPE,
+               'flash_bwd_dq': attention.FLASH_BWD_DQ,
+               'flash_bwd_dkv': attention.FLASH_BWD_DKV}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    steps = []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics['loss'])  # waits for the step
+        steps.append(dict(ms=1e3 * (time.perf_counter() - t0), loss=loss,
+                          grad_norm=float(metrics['grad_norm'])))
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    L = config.n_layers
+    want = {'flash_fwd': 0, 'flash_fwd_rope': 2 * L * n_steps,
+            'flash_bwd_dq': L * n_steps, 'flash_bwd_dkv': L * n_steps}
+    total_s = sum(st['ms'] for st in steps) / 1e3
+    tokens_per_s = n_steps * batch_size * seq / total_s
+    losses = [warm['loss']] + [st['loss'] for st in steps]
+    row = dict(model='llama3.1-8b', layers=L, base='int8', lora_rank=rank,
+               seq=seq, batch=batch_size, remat_saves='attn',
+               setup_s=setup_s, warmup=warm, steps=steps,
+               step_ms_mean=1e3 * total_s / n_steps,
+               tokens_per_s=tokens_per_s,
+               mfu_4n=tokens_per_s * 4 * config.num_params() /
+               PEAK_BF16_FLOPS,
+               max_memory_allocated_gb=peak / 1e9, losses=losses,
+               loss_decreasing=all(b < a for a, b in zip(losses,
+                                                          losses[1:])),
+               launches=launches, launches_expected=want)
+    log('QLORA ' + json.dumps(row))
+    assert all(math.isfinite(x) for x in losses), losses
+    assert launches == want, (launches, want)
+    assert row['loss_decreasing'], f'QLoRA losses did not fall: {losses}'
+
+    def one_step():
+        nonlocal state
+        state, m = step_fn(state, batch)
+        float(m['loss'])
+    profile_cuda(torch, one_step, 'QLORA_PROFILE',
+                 dict(model='llama3.1-8b', seq=seq, batch=batch_size))
+    del state, metrics
+    return dict(launches=launches)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument('--phases', default=','.join(PHASES),
@@ -1572,42 +2229,86 @@ def main() -> int:
         eng = engine_phase(torch, attention, da)
     if 'rows' in phases:
         rows_n = rows_phase(torch, da)
+    if 'k6' in phases:
+        k6 = k6_phase(torch, F, attention)
+    if 'int8k' in phases:
+        int8k = int8k_phase(torch, F, da)
+    if 'int8' in phases:
+        int8 = int8_phase(torch, attention, da)
+    if 'qlora' in phases:
+        qlora = qlora_phase(torch, attention)
     if set(phases) != set(PHASES):
         return 0
+    s8 = {w: int8['serve_8b'][w]['launches'] for w in ('int8', 'bf16')}
+    rep = int8['replica']
+    off = int8['engine_off']['launches']
+    k1_launches = dict(
+        serve=k1_n, train_rope=train['launches']['flash_fwd_rope'],
+        qlora_rope=qlora['launches']['flash_fwd_rope'],
+        serve_8b_int8=s8['int8']['flash_fwd'],
+        serve_8b_bf16=s8['bf16']['flash_fwd'],
+        engine_off_int8_weights=off['flash_fwd'])
+    k4_launches = dict(serve=k4_n, rows=rows_n,
+                       serve_8b_bf16=s8['bf16']['decode_attention'],
+                       engine_off_int8_weights=off['decode_attention'],
+                       serve_8b_int8_kv=s8['int8']['decode_attention_q8'])
+    # 'launches' sums every main path's run; the launches_* keys split
+    # it by path, and the int8 forms of K4/K5 (the same templates over
+    # int8 codes) carry their own counts and numbers under 'int8'.
     kernels = [
         # Top-level numbers: the serving path's prefill (no RoPE, B=1,
         # T=S=2048); 'rope': the training step's shape with fused RoPE.
         dict(name='flash_fwd', route='cuda',
              source='skypilot_torch/csrc/flash_fwd.cu',
              replaces='skypilot_tpu/ops/attention.py:170',
-             launches=k1_n + train['launches']['flash_fwd_rope'],
-             launches_serve=k1_n,
-             launches_train_rope=train['launches']['flash_fwd_rope'],
+             launches=sum(k1_launches.values()),
+             **{f'launches_{k}': v for k, v in k1_launches.items()},
              **k1, rope=k1r),
         dict(name='flash_bwd_dq', route='cuda',
              source='skypilot_torch/csrc/flash_bwd.cu',
              replaces='skypilot_tpu/ops/attention.py:263',
-             launches=train['launches']['flash_bwd_dq'], **k2),
+             launches=(train['launches']['flash_bwd_dq'] +
+                       qlora['launches']['flash_bwd_dq']),
+             launches_train=train['launches']['flash_bwd_dq'],
+             launches_qlora=qlora['launches']['flash_bwd_dq'], **k2),
         dict(name='flash_bwd_dkv', route='cuda',
              source='skypilot_torch/csrc/flash_bwd.cu',
              replaces='skypilot_tpu/ops/attention.py:331',
-             launches=train['launches']['flash_bwd_dkv'], **k3),
+             launches=(train['launches']['flash_bwd_dkv'] +
+                       qlora['launches']['flash_bwd_dkv']),
+             launches_train=train['launches']['flash_bwd_dkv'],
+             launches_qlora=qlora['launches']['flash_bwd_dkv'], **k3),
         dict(name='decode_attention', route='cuda',
              source='skypilot_torch/csrc/decode_attention.cu',
              replaces='skypilot_tpu/ops/decode_attention.py:123',
-             launches=k4_n, launches_rows=rows_n, **k4),
-        # The engine slice: launches from its 12-request replica run.
+             launches=sum(k4_launches.values()),
+             **{f'launches_{k}': v for k, v in k4_launches.items()},
+             launches_int8=k4_launches['serve_8b_int8_kv'],
+             **k4, int8=int8k['decode_attention']),
+        # The engine slice: launches from its 12-request replica runs,
+        # bf16 and int8.
         dict(name='decode_attention_paged', route='cuda',
              source='skypilot_torch/csrc/decode_attention.cu',
              replaces='skypilot_tpu/ops/decode_attention.py:123',
-             launches=eng['paged_w1'] + eng['paged_verify'],
+             launches=(eng['paged_w1'] + eng['paged_verify'] +
+                       rep['paged_w1'] + rep['paged_verify'] + rows_n),
              launches_decode_w1=eng['paged_w1'],
              launches_verify=eng['paged_verify'], launches_rows=rows_n,
-             **k4p),
+             launches_int8=rep['paged_w1'] + rep['paged_verify'],
+             launches_int8_decode_w1=rep['paged_w1'],
+             launches_int8_verify=rep['paged_verify'],
+             **k4p, int8=int8k['decode_attention_paged']),
         dict(name='cache_write', route='cuda',
              source='skypilot_torch/csrc/decode_attention.cu',
              replaces='skypilot_tpu/ops/decode_attention.py:389',
-             launches=eng['cache_write'], launches_rows=2 * rows_n, **k5),
+             launches=eng['cache_write'] + rep['cache_write'] + 2 * rows_n,
+             launches_engine=eng['cache_write'], launches_rows=2 * rows_n,
+             launches_int8=rep['cache_write'], **k5,
+             int8=int8k['cache_write']),
+        # Its main path is its entry point, bench_main().
+        dict(name='packed_flash_fwd', route='cuda',
+             source='skypilot_torch/csrc/attention_packed.cu',
+             replaces='skypilot_tpu/ops/attention_packed.py:38', **k6),
     ]
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
     log(json.dumps({'kernels': kernels}))

@@ -1,5 +1,6 @@
 """KV-cache incremental decoding — the port of
-``skypilot_tpu/models/decode.py`` (dense bf16/f32 cache, greedy).
+``skypilot_tpu/models/decode.py`` (dense bf16/f32 or int8 cache,
+greedy).
 
 Prefill runs causal flash attention over the prompt's local q/k/v
 (K1-cuda on the card); each decode step runs ``decode_attention`` over
@@ -18,7 +19,14 @@ module, by design:
   both what this chunk's attention reads and the persisted state, where
   JAX writes in the layer and again after the layer scan.
 
-``kv_int8``, adapters in ``forward_paged``, sampling and
+int8 KV (``init_cache(kv_int8=True)``, int8 pools in ``forward_paged``)
+follows the JAX contract: each new row is quantized per (position, kv
+head) as it is written (``_quantize_kv``, codes bit-equal to JAX's); a
+prefill attends its own exact rows (K1 over the local q/k/v, or the
+chunk's rows spliced over their int8 round trip in ``forward_paged``),
+and later steps read the codes (K4 on codes + scales on the card).
+Weights may be int8 too (``models/quant.py``): ``llama.matmul`` takes
+both forms. Adapters in ``forward_paged``, sampling and
 ``decode_tokens_windowed`` come with later slices (ROADMAP.md).
 """
 import dataclasses
@@ -39,30 +47,61 @@ _NEG_INF = -1e30
 @dataclasses.dataclass
 class KVCache:
     """Mutable KV cache. k/v: [L, B, max_seq, Hkv, hd] in the compute
-    dtype (bf16 or f32); ``pos`` — number of positions already written
-    (the same for every row; ragged batches left-pad).
-    ``forward_cached`` writes new rows into k/v in place and advances
-    ``pos``."""
+    dtype (bf16 or f32), or int8 codes with per-(position, head) bf16
+    ``k_scale``/``v_scale`` [L, B, max_seq, Hkv] when quantized;
+    ``pos`` — number of positions already written (the same for every
+    row; ragged batches left-pad). ``forward_cached`` writes new rows
+    into k/v (and the scales) in place and advances ``pos``."""
     k: torch.Tensor
     v: torch.Tensor
     pos: int = 0
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
 
 def init_cache(config: llama.LlamaConfig, batch: int,
                max_seq: Optional[int] = None,
-               device=None) -> KVCache:
+               device=None, kv_int8: bool = False) -> KVCache:
     """A zeroed cache on ``device`` (default: cuda; raises without
-    it)."""
+    it); ``kv_int8``: int8 codes with bf16 scales."""
     if config.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(
-            f'KV cache dtype {config.dtype}: only bf16/f32 are ported '
-            '(int8 KV comes with the int8 slice, ROADMAP.md)')
+            f'KV cache dtype {config.dtype}: only bf16/f32 (or int8 '
+            'with kv_int8) are ported')
     dev = device_lib.resolve_device(device)
     max_seq = max_seq or config.max_seq_len
     shape = (config.n_layers, batch, max_seq, config.n_kv_heads,
              config.head_dim)
+    if kv_int8:
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=dev),
+            v=torch.zeros(shape, dtype=torch.int8, device=dev),
+            k_scale=torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                device=dev),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                device=dev))
     return KVCache(k=torch.zeros(shape, dtype=config.dtype, device=dev),
                    v=torch.zeros(shape, dtype=config.dtype, device=dev))
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(batch, position, head) symmetric int8: x [B, T, Hkv, hd] ->
+    (codes int8, scales bf16 [B, T, Hkv]). The scale is bf16-rounded
+    BEFORE encoding so codes reconstruct against the stored scale (the
+    rule of ``models/quant.py``); codes equal JAX's bit for bit."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    s = torch.clamp(amax, min=1e-8) / 127.0
+    s = s.to(torch.bfloat16).float()
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    return q.to(torch.int8), s.to(torch.bfloat16)
+
+
+_dequant_kv = da.dequant_kv
 
 
 def _masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -87,8 +126,11 @@ def _masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def layer_list(cparams: Params, config: llama.LlamaConfig) -> list:
-    """Per-layer views of the stacked ``[L, ...]`` params."""
-    return [{name: w[i] for name, w in cparams['layers'].items()}
+    """Per-layer views of the stacked ``[L, ...]`` params (int8
+    ``{'q', 's'}`` pairs sliced pair-wise)."""
+    layers = {name: llama.unbind_layers(w)
+              for name, w in cparams['layers'].items()}
+    return [{name: w[i] for name, w in layers.items()}
             for i in range(config.n_layers)]
 
 
@@ -132,10 +174,12 @@ def attn_out_and_mlp(config: llama.LlamaConfig, x: torch.Tensor,
 def _layer_cached(config: llama.LlamaConfig, x: torch.Tensor,
                   layer_params: Params, k_cache: torch.Tensor,
                   v_cache: torch.Tensor, pos: int,
-                  angles: torch.Tensor,
-                  prefill: bool = False) -> torch.Tensor:
+                  angles: torch.Tensor, prefill: bool = False,
+                  k_scale: Optional[torch.Tensor] = None,
+                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One transformer layer over ``T`` new positions. x: [B, T, D];
-    k_cache/v_cache: this layer's [B, S, Hkv, hd] views, written in
+    k_cache/v_cache: this layer's [B, S, Hkv, hd] views (int8 with
+    ``k_scale``/``v_scale`` [B, S, Hkv] when quantized), written in
     place at [pos, pos + T). Returns y [B, T, D]. Same cast points as
     the JAX layer: f32 norms, the gate activation in f32 then cast
     back."""
@@ -144,24 +188,36 @@ def _layer_cached(config: llama.LlamaConfig, x: torch.Tensor,
     q = attention_ops.apply_rope(q, angles)
     k = attention_ops.apply_rope(k, angles)
 
-    k_cache[:, pos:pos + t] = k
-    v_cache[:, pos:pos + t] = v
+    if k_scale is not None:
+        k_rows, ks_rows = _quantize_kv(k)
+        v_rows, vs_rows = _quantize_kv(v)
+        k_scale[:, pos:pos + t] = ks_rows
+        v_scale[:, pos:pos + t] = vs_rows
+    else:
+        k_rows, v_rows = k, v
+    k_cache[:, pos:pos + t] = k_rows
+    v_cache[:, pos:pos + t] = v_rows
 
     scale = config.head_dim ** -0.5
     if t == 1:
-        # Decode step: length-aware attention over the valid prefix.
+        # Decode step: length-aware attention over the valid prefix
+        # (the int8 codes and scales as they are; the new row included).
         lengths = torch.full((b,), pos + 1, dtype=torch.int32,
                              device=x.device)
         attn = da.decode_attention(q[:, 0], k_cache, v_cache, lengths,
-                                   scale)[:, None]
+                                   scale, k_scale, v_scale)[:, None]
     elif prefill:
         # Prefill at pos 0: the cache holds exactly this chunk, so
-        # causal flash over the LOCAL q/k/v is the whole attention.
+        # causal flash over the LOCAL q/k/v is the whole attention; it
+        # reads the exact rows (quantization error only enters later
+        # decode steps).
         attn = attention_ops.flash_attention(q, k, v, causal=True,
                                              scale=scale)
     else:
-        attn = _masked_attention(q, k_cache, v_cache, q_pos=pos,
-                                 kv_len=pos + t, scale=scale)
+        attn = _masked_attention(
+            q, _dequant_kv(k_cache, k_scale, k.dtype),
+            _dequant_kv(v_cache, v_scale, v.dtype), q_pos=pos,
+            kv_len=pos + t, scale=scale)
     return attn_out_and_mlp(config, x, attn, layer_params)
 
 
@@ -194,8 +250,11 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
     if config.scale_embeddings:
         x = x * torch.tensor(math.sqrt(config.dim), dtype=x.dtype)
     for i, layer_params in enumerate(layer_list(cparams, config)):
-        x = _layer_cached(config, x, layer_params, cache.k[i],
-                          cache.v[i], pos, angles, prefill=prefill)
+        x = _layer_cached(
+            config, x, layer_params, cache.k[i], cache.v[i], pos, angles,
+            prefill=prefill,
+            k_scale=None if cache.k_scale is None else cache.k_scale[i],
+            v_scale=None if cache.v_scale is None else cache.v_scale[i])
     cache.pos = pos + t
     if last_only:
         x = x[:, -1:]
@@ -216,9 +275,10 @@ def forward_paged(params: Params, tokens: torch.Tensor, pools,
     which the first ``real_len`` are real (the rest pad the chunk to
     its bucket; their K/V writes go to the scratch block and their
     logits are never formed). ``pools`` is the engine's 4-tuple
-    (k, v, None, None) with k/v [L, num_blocks, block_size, Hkv, hd],
-    updated in place; ``block_row`` [MB] int32 is THIS request's block
-    table; ``start``/``real_len`` are host ints.
+    (k, v, k_scale, v_scale) with k/v [L, num_blocks, block_size, Hkv,
+    hd] (int8 codes with bf16 scales [L, num_blocks, block_size, Hkv],
+    or the scales None), updated in place; ``block_row`` [MB] int32 is
+    THIS request's block table; ``start``/``real_len`` are host ints.
 
     Per layer the chunk's rows are written first (K5 on the card), then
     the row's logical view is gathered from the pool and attended with
@@ -229,6 +289,12 @@ def forward_paged(params: Params, tokens: torch.Tensor, pools,
     that holds a position below kv_len; masked positions would add
     exactly 0.
 
+    int8 pools: the chunk attends its exact rows (spliced over their
+    int8 round trip in the gathered view), while a LATER chunk reads
+    earlier chunks' codes, so the engine equals the dense int8 path
+    exactly for single-chunk prompts and tracks it past them, as in
+    the JAX package.
+
     Returns (logits [1, vocab] f32 at the chunk's last real position,
     pools). Layer math mirrors ``_layer_cached``."""
     if adapters is not None or adapter_idx is not None:
@@ -237,11 +303,8 @@ def forward_paged(params: Params, tokens: torch.Tensor, pools,
             '(ROADMAP.md)')
     llama.require_dense(config)
     from skypilot_torch.serve import kv_pool as kv_pool_lib
-    k_pool, v_pool, k_scale, _ = pools
-    if k_scale is not None:
-        raise NotImplementedError(
-            'forward_paged: int8 pools come with the int8 slice '
-            '(ROADMAP.md)')
+    k_pool, v_pool, ks_pool, vs_pool = pools
+    quantized = ks_pool is not None
     nl, nb, bs = k_pool.shape[:3]
     if bs != block_size:
         raise ValueError(f'pool block size {bs} != block_size '
@@ -258,6 +321,8 @@ def forward_paged(params: Params, tokens: torch.Tensor, pools,
 
     kp = k_pool.view(nl, nb * bs, nkv, hd)
     vp = v_pool.view(nl, nb * bs, nkv, hd)
+    ksp = ks_pool.view(nl, nb * bs, nkv) if quantized else None
+    vsp = vs_pool.view(nl, nb * bs, nkv) if quantized else None
     kv_len = start + real_len
     gw = kv_pool_lib.chunk_write_indices(block_row, start, real_len, t,
                                          block_size)              # [T]
@@ -268,10 +333,26 @@ def forward_paged(params: Params, tokens: torch.Tensor, pools,
         q, k, v = qkv_projections(config, x, lp)
         q = attention_ops.apply_rope(q, angles)
         k = attention_ops.apply_rope(k, angles)
-        da.cache_write(kp[i], vp[i], k[0], v[0], gw)
-        attn = _masked_attention(q, da.paged_gather(kp[i], gr),
-                                 da.paged_gather(vp[i], gr), q_pos=start,
-                                 kv_len=kv_len, scale=hd ** -0.5)
+        if quantized:
+            k_rows, ks_rows = _quantize_kv(k)
+            v_rows, vs_rows = _quantize_kv(v)
+            da.cache_write(kp[i], vp[i], k_rows[0], v_rows[0], gw,
+                           ksp[i], vsp[i], ks_rows[0], vs_rows[0])
+            kd = _dequant_kv(da.paged_gather(kp[i], gr),
+                             da.paged_gather(ksp[i], gr), k.dtype)
+            vd = _dequant_kv(da.paged_gather(vp[i], gr),
+                             da.paged_gather(vsp[i], gr), v.dtype)
+            # The chunk attends its own exact rows, not their int8 round
+            # trip (later chunks and decode read the codes): splice them
+            # back over their logical positions in the gathered view.
+            end = min(start + t, kd.shape[1])
+            kd[:, start:end] = k[:, :end - start]
+            vd[:, start:end] = v[:, :end - start]
+        else:
+            da.cache_write(kp[i], vp[i], k[0], v[0], gw)
+            kd, vd = da.paged_gather(kp[i], gr), da.paged_gather(vp[i], gr)
+        attn = _masked_attention(q, kd, vd, q_pos=start, kv_len=kv_len,
+                                 scale=hd ** -0.5)
         x = attn_out_and_mlp(config, x, attn, lp)
     x_last = llama._rms_norm(x[:, real_len - 1:real_len],
                              cparams['final_norm'], config.norm_eps,
@@ -306,11 +387,12 @@ def decode_tokens_scan(params: Params, first: torch.Tensor,
 def greedy_generate(params: Params, prompt: torch.Tensor,
                     config: llama.LlamaConfig, max_new_tokens: int,
                     max_seq: Optional[int] = None,
-                    eos_id: Optional[int] = None) -> torch.Tensor:
+                    eos_id: Optional[int] = None,
+                    kv_int8: bool = False) -> torch.Tensor:
     """Greedy decode: prefill the prompt once, then one cached step
     per token. prompt: [B, T0] int on the params' device ->
     [B, <=max_new_tokens] int32 generated ids (rows that hit ``eos_id``
-    are padded with it thereafter)."""
+    are padded with it thereafter). ``kv_int8``: an int8 KV cache."""
     max_seq = max_seq or config.max_seq_len
     b, t0 = prompt.shape
     if t0 + max_new_tokens > max_seq:
@@ -319,7 +401,8 @@ def greedy_generate(params: Params, prompt: torch.Tensor,
     if max_new_tokens <= 0:
         return torch.zeros((b, 0), dtype=torch.int32,
                            device=prompt.device)
-    cache = init_cache(config, b, max_seq, device=prompt.device)
+    cache = init_cache(config, b, max_seq, device=prompt.device,
+                       kv_int8=kv_int8)
     logits, cache = forward_cached(params, prompt, cache, config,
                                    last_only=True, prefill=True)
     nxt = logits[:, -1].argmax(-1).to(torch.int32)

@@ -8,8 +8,11 @@ this one key for key (``models/convert.py``). Here: configs, init,
 the norm/RoPE/activation helpers, the training forward
 (``forward_hidden`` over ``_layer`` with LoRA q/v deltas, attention
 with RoPE fused into the flash kernels) and the loss (``loss_fn``,
-with the chunked fused LM-head + cross-entropy ``_FusedCE``). MoE
-configs and int8 weights raise until their slices (ROADMAP.md).
+with the chunked fused LM-head + cross-entropy ``_FusedCE``). Any
+matmul weight and the LM head may be an int8 ``{'q', 's'}`` pair
+(``models/quant.py``): ``matmul`` and the fused CE take both forms, so
+a LoRA step runs over an int8 frozen base (QLoRA). MoE configs raise
+until their slice (ROADMAP.md).
 
 Under ``config.remat`` each layer runs in ``torch.utils.checkpoint``
 (non-reentrant): only the layer inputs are kept, and backward runs the
@@ -176,7 +179,7 @@ def require_dense(config: LlamaConfig) -> None:
 
 def init_params(config: LlamaConfig, seed: int = 0,
                 dtype: Optional[torch.dtype] = None,
-                device=None) -> Params:
+                device=None, quantize=None) -> Params:
     """Random params in the JAX package's layout (stacked ``[L, ...]``,
     ``[in, out]`` projections): ``normal / sqrt(fan_in)`` drawn in f32
     from an explicit ``torch.Generator`` seeded with ``seed``, then
@@ -187,6 +190,9 @@ def init_params(config: LlamaConfig, seed: int = 0,
     JAX's weights across with ``convert.params_from_numpy`` instead.
     Stacked weights are drawn one layer at a time so the f32 temporary
     is one layer's slice, not the whole stack (8B: ~0.2 GB, not 7.5).
+    ``quantize`` (``quant.quantize_weight``; use ``quant.init_quantized``)
+    turns each matmul weight's layer slice and the LM head into an int8
+    ``{'q', 's'}`` pair as it is drawn, so the wide stack never exists.
     """
     require_dense(config)
     dev = device_lib.resolve_device(device)
@@ -205,6 +211,15 @@ def init_params(config: LlamaConfig, seed: int = 0,
                             dtype=torch.float32) * scale).to(dtype)
 
     def stacked(shape, fan_in):
+        if quantize is not None:
+            out = {'q': torch.empty((L,) + shape, dtype=torch.int8,
+                                    device=dev),
+                   's': torch.empty((L, 1, shape[-1]),
+                                    dtype=torch.bfloat16, device=dev)}
+            for i in range(L):
+                part = quantize(dense(shape, fan_in))
+                out['q'][i], out['s'][i] = part['q'], part['s']
+            return out
         out = torch.empty((L,) + shape, dtype=dtype, device=dev)
         for i in range(L):
             out[i] = dense(shape, fan_in)
@@ -236,6 +251,8 @@ def init_params(config: LlamaConfig, seed: int = 0,
                                                  device=dev)
     if not config.tie_embeddings:
         params['lm_head'] = dense((d, config.vocab_size), d)
+        if quantize is not None:
+            params['lm_head'] = quantize(params['lm_head'])
     return params
 
 
@@ -245,12 +262,20 @@ def init_params(config: LlamaConfig, seed: int = 0,
 
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w for plain weights. int8 ``{'q', 's'}`` weights come with
-    the int8 slice (ROADMAP.md)."""
+    """x @ w for plain or int8 ``{'q', 's'}`` weights (``models/quant``):
+    ``(x @ q.to(x.dtype)) * s``, the per-output-channel scale applied
+    after the product in the product's dtype, JAX's two rounding points.
+    The convert materializes a copy of the weight per call (XLA fuses
+    it into the dot on the TPU; a fused dequant GEMV is ROADMAP.md
+    Queue 2 work). Gradients flow to x, never to the codes."""
     if isinstance(w, dict):
-        raise NotImplementedError(
-            'int8 {q, s} weights are not ported yet (int8 slice in '
-            'ROADMAP.md)')
+        q = w.get('q')
+        if not isinstance(q, torch.Tensor) or q.dtype != torch.int8:
+            raise TypeError('matmul: a {q, s} weight needs int8 codes q, '
+                            f'got {type(q).__name__} '
+                            f'{getattr(q, "dtype", "")}')
+        out = x @ q.to(x.dtype)
+        return out * w['s'].to(out.dtype)
     return x @ w
 
 
@@ -293,15 +318,15 @@ def mlp_act(config: LlamaConfig) -> Callable[[torch.Tensor],
     return lambda x: F.gelu(x, approximate='tanh')
 
 
-def output_head(params: Params, config: LlamaConfig) -> torch.Tensor:
+def output_head(params: Params, config: LlamaConfig):
     """[D, V] output projection — the transposed embedding when the
-    config ties them."""
+    config ties them. An int8 ``{'q', 's'}`` head comes back as it is:
+    consume it with ``matmul`` or the fused CE, not ``@``."""
     if config.tie_embeddings:
         return params['embed'].to(config.dtype).T
     head = params['lm_head']
     if isinstance(head, dict):
-        raise NotImplementedError(
-            'int8 lm_head is not ported yet (int8 slice in ROADMAP.md)')
+        return head
     return head.to(config.dtype)
 
 
@@ -387,12 +412,24 @@ def _require_remat_supported(config: LlamaConfig) -> None:
 
 def compute_params(params: Params, config: LlamaConfig) -> Params:
     """Params in the compute dtype (the leaves themselves when they
-    already are); gradients flow back to f32 masters through it."""
+    already are); gradients flow back to f32 masters through it. int8
+    codes stay int8 (their scales take the compute dtype), as the JAX
+    ``cparams`` rule leaves them."""
     def cast(node):
         if isinstance(node, dict):
             return {k: cast(v) for k, v in node.items()}
-        return node.to(config.dtype)
+        return node if node.dtype == torch.int8 else node.to(config.dtype)
     return cast(params)
+
+
+def unbind_layers(w) -> list:
+    """Per-layer slices of a stacked ``[L, ...]`` leaf or ``{'q', 's'}``
+    pair (``unbind``: its backward stacks the per-layer grads once
+    instead of scattering each into a zeroed [L, ...] buffer)."""
+    if isinstance(w, dict):
+        parts = {k: v.unbind(0) for k, v in w.items()}
+        return [dict(zip(parts, vals)) for vals in zip(*parts.values())]
+    return list(w.unbind(0))
 
 
 def forward_hidden(params: Params, tokens: torch.Tensor,
@@ -414,9 +451,8 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
     angles = _rope_frequencies(config, positions)
     cparams = compute_params(params, config)
     x = embed_tokens(cparams, tokens, config)
-    # unbind (not w[i]): its backward stacks the per-layer grads once
-    # instead of scattering each into a zeroed [L, ...] buffer.
-    layers = {name: w.unbind(0) for name, w in cparams['layers'].items()}
+    layers = {name: unbind_layers(w)
+              for name, w in cparams['layers'].items()}
     loras = None
     if lora is not None:
         loras = {name: w.to(config.dtype).unbind(0)
@@ -467,9 +503,14 @@ class _FusedCE(torch.autograd.Function):
     chunk's dhidden = dlogits @ W^T is produced while its logits are
     live and the [B, T, V] logits never exist at once; backward only
     scales the stored [B, T, D] dhidden (and the [D, V] dW when the head
-    trains) by ``g / denom``. Inputs: hidden [B, T, D], lm_head [D, V],
-    targets [B, T], mask [B, T] f32. Returns the mean NLL over unmasked
-    positions."""
+    trains) by ``g / denom``. Inputs: hidden [B, T, D], lm_head [D, V]
+    (or a frozen int8 ``{'q', 's'}`` pair: QLoRA), targets [B, T], mask
+    [B, T] f32. Returns the mean NLL over unmasked positions.
+
+    An int8 head is converted to the hidden dtype once per call, not
+    once per chunk; its logits are ``(h @ q) * s`` as ``matmul`` forms
+    them, and dhidden is ``(dlogits * s) @ q^T`` (the JAX
+    ``_head_mm_t``)."""
 
     @staticmethod
     def forward(ctx, hidden, lm_head, targets, mask, chunk, train_head):
@@ -477,13 +518,25 @@ class _FusedCE(torch.autograd.Function):
         ns = torch.zeros((), dtype=torch.float32, device=hidden.device)
         ms = torch.zeros((), dtype=torch.float32, device=hidden.device)
         dh = torch.empty_like(hidden)
-        dw = (torch.zeros(lm_head.shape, dtype=torch.float32,
+        quantized = isinstance(lm_head, dict)
+        if quantized:
+            if train_head:
+                raise ValueError('an int8 LM head is frozen: it cannot '
+                                 'train')
+            w = lm_head['q'].to(hidden.dtype)
+            s = lm_head['s'].to(hidden.dtype)
+        else:
+            w, s = lm_head, None
+        dw = (torch.zeros(w.shape, dtype=torch.float32,
                           device=hidden.device) if train_head else None)
         for c0 in range(0, t, chunk):
             h = hidden[:, c0:c0 + chunk]
             tg = targets[:, c0:c0 + chunk]
             mk = mask[:, c0:c0 + chunk]
-            logits = (h @ lm_head).float()  # [B, C, V]
+            logits = h @ w
+            if quantized:
+                logits = logits * s
+            logits = logits.float()  # [B, C, V]
             lse = torch.logsumexp(logits, dim=-1)
             nll = lse - logits.gather(-1, tg[..., None])[..., 0]
             ns = ns + (nll * mk).sum()
@@ -493,13 +546,15 @@ class _FusedCE(torch.autograd.Function):
                               torch.full(tg[..., None].shape, -1.0,
                                          device=dlog.device))
             dlog = (dlog * mk[..., None]).to(h.dtype)
-            dh[:, c0:c0 + chunk] = dlog @ lm_head.T
+            if quantized:
+                dlog = dlog * s
+            dh[:, c0:c0 + chunk] = dlog @ w.T
             if train_head:
                 dw += torch.einsum('bcd,bcv->dv', h.float(), dlog.float())
             del logits, dlog
         denom = torch.clamp(ms, min=1.0)
         ctx.save_for_backward(dh, dw, denom)
-        ctx.head_meta = (lm_head.shape, lm_head.dtype)
+        ctx.head_meta = None if quantized else (w.shape, w.dtype)
         ctx.train_head = train_head
         return ns / denom
 
@@ -510,6 +565,8 @@ class _FusedCE(torch.autograd.Function):
         dhid = dh * scale.to(dh.dtype)
         if ctx.train_head:
             dlm = (dw * scale).to(dh.dtype)
+        elif ctx.head_meta is None:
+            dlm = None  # a frozen int8 head: no gradient
         else:
             shape, dtype = ctx.head_meta
             dlm = torch.zeros(shape, dtype=dtype, device=dh.device)

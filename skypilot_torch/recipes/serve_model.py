@@ -18,8 +18,11 @@ K4-cuda decode). A body field of a feature not ported yet (sampling,
 adapters, overload control) is answered 400 naming its slice, never
 with a silent greedy answer.
 
-``--tp``, ``--quant``, ``--kv-int8``, ``--checkpoint-dir``, tracing
-spans and the metrics publisher are not ported yet (ROADMAP.md).
+``--quant int8`` serves int8 weights (``models/quant.init_quantized``,
+leaf by leaf on the device); ``--kv-int8`` gives the engine an int8 KV
+pool (K4 and K5 run their int8 forms). ``--tp > 1``,
+``--checkpoint-dir``, tracing spans and the metrics publisher are not
+ported yet (ROADMAP.md).
 """
 import argparse
 import json
@@ -34,7 +37,7 @@ import torch
 
 from skypilot_torch import device as device_lib
 from skypilot_torch import exceptions
-from skypilot_torch.models import decode, llama
+from skypilot_torch.models import decode, llama, quant
 from skypilot_torch.serve import batching
 from skypilot_torch.serve import prefix_hash
 
@@ -54,6 +57,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                         default=int(os.environ.get(
                             'SKYTPU_REPLICA_PORT', '8080')))
     parser.add_argument('--max-new-tokens', type=int, default=32)
+    parser.add_argument('--tp', type=int, default=1,
+                        help='tensor-parallel degree for models too '
+                             'big for one chip (shards params + KV '
+                             'cache over the tp mesh axis); not ported '
+                             'yet: only 1 runs')
+    parser.add_argument('--quant', choices=['none', 'int8'],
+                        default='none',
+                        help='weight-only quantization (halves '
+                             'decode weight bandwidth)')
+    parser.add_argument('--kv-int8', action='store_true',
+                        help='int8 KV cache for the batching engine '
+                             '(halves decode HBM traffic)')
     parser.add_argument('--device', default=device_lib.DEFAULT_DEVICE,
                         help="where the model runs: 'cuda' (the kernels;"
                              " raises without CUDA) or 'cpu' (the plain "
@@ -80,7 +95,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument('--draft-k', type=int, default=8,
                         help='max drafted tokens per row per verify (0 '
                              'disables speculation)')
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if args.quant == 'int8' and args.tp > 1:
+        # Reject before the (expensive) init, as the JAX replica does.
+        parser.error('--quant int8 with --tp > 1 is not supported yet')
+    return args
 
 
 def _number(body, name):
@@ -155,14 +174,23 @@ def build_server(args: argparse.Namespace
     free one). Returns (server, generate); ``server.engine`` is the
     engine or None. The caller runs ``server.serve_forever()``, then
     shuts the server down and closes the engine."""
+    if args.tp > 1:
+        raise NotImplementedError(
+            f'--tp {args.tp}: tensor-parallel serving is not ported yet; '
+            'it comes with the sharding items of ROADMAP.md (Queue 1, '
+            'items 15-16)')
     dev = device_lib.resolve_device(args.device)
     config = llama.get_config(args.model)
-    params = llama.init_params(config, seed=0, device=dev)
+    if args.quant == 'int8':
+        params = quant.init_quantized(config, seed=0, device=dev)
+    else:
+        params = llama.init_params(config, seed=0, device=dev)
     lock = threading.Lock()
     engine = None
     if args.slots > 0:
         engine = batching.BatchingEngine(
-            params, config, slots=args.slots, block_size=args.block_size,
+            params, config, slots=args.slots, kv_int8=args.kv_int8,
+            block_size=args.block_size,
             num_blocks=args.num_blocks or None,
             max_num_batched_tokens=args.max_batched_tokens,
             prefix_caching=args.prefix_caching == 'on',
@@ -372,7 +400,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     server, _ = build_server(args)
     print(f'serve_model ready on :{server.server_address[1]} '
           f'(model {args.model}, device {args.device}, slots '
-          f'{args.slots})', flush=True)
+          f'{args.slots}, quant {args.quant}, kv_int8 {args.kv_int8})',
+          flush=True)
     try:
         server.serve_forever()
     finally:

@@ -21,14 +21,23 @@ whole free slots. As in the JAX engine:
   rule in ``serve/sampling/accept.py``;
 - greedy outputs equal single-stream ``greedy_generate`` token for
   token (exactly on the CPU in f32; on the card bf16 kernels can flip
-  a near-tie).
+  a near-tie);
+- int8 KV (``kv_int8``): each new row is quantized per (position, kv
+  head) as it is written, codes and scales, and attention reads the
+  codes. Equality with the dense int8 path holds for prompts within
+  ONE prefill chunk (and up to a prefix-cache hit): a later chunk
+  attends earlier chunks' int8 round trip where a whole-prompt prefill
+  attends exact rows, so multi-chunk int8 prompts track it closely.
+  Weights may be int8 ``{'q', 's'}`` pairs (``models/quant.py``).
 
 The device steps, on the card: each layer writes its new K/V rows with
 K5 (``ops.decode_attention.cache_write``) and attends with K4-paged
 (``paged_decode_attention``, W = 1, or ``paged_verify_attention``,
 W = draft_k + 1), reading the block table directly; the contiguous
-``decode_steps_rows`` twin runs K5 and dense K4. The pool tensors are
-updated IN PLACE, so the in-layer write is also the persisted state
+``decode_steps_rows`` twin runs K5 and dense K4. Over int8 caches the
+same calls take the scales and launch the kernels' int8 forms. The pool
+tensors are updated IN PLACE, so the in-layer write is also the
+persisted state
 (the JAX steps write once in the layer and again after the layer
 scan), and a rejected draft needs no undo: its rows sit past the new
 ``pos`` and are masked. The host reads tokens once per dispatch; pos
@@ -38,7 +47,7 @@ copy per change.
 Not ported yet (each raises ``NotImplementedError`` naming its slice):
 overload control (bounded queues, deadlines, cancel, priorities,
 tenant fair share), multi-LoRA adapters, sampling and grammar masks,
-int8 KV, the metrics gauges and tracing.
+the metrics gauges and tracing.
 """
 import array
 import collections
@@ -69,8 +78,6 @@ ADAPTER_SLICE = ('LoRA adapters are not ported yet; they come with the '
 OVERLOAD_SLICE = ('overload control (bounded queues, deadlines, '
                   'priorities, tenant fair share) is not ported yet; it '
                   'comes with the overload slice (ROADMAP.md)')
-INT8_SLICE = ('int8 KV is not ported yet; it comes with the int8 slice '
-              '(ROADMAP.md)')
 
 # Self-speculative n-gram drafting (prompt lookup): longest suffix
 # n-gram tried first down to a bigram minimum, and the history scan is
@@ -128,21 +135,31 @@ def _rope_verify(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 
 
 def _attend_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 pos: torch.Tensor, scale: float) -> torch.Tensor:
-    """q [B, 1, H, hd]; k/v [B, S, Hkv, hd]; pos [B] = the index the
-    current token was just written at. Row b attends keys [0, pos_b]
-    (dense K4 on the card: reads scale with each row's context)."""
-    return da.decode_attention(q[:, 0], k, v, pos + 1, scale)[:, None]
+                 pos: torch.Tensor, scale: float, k_scale=None,
+                 v_scale=None) -> torch.Tensor:
+    """q [B, 1, H, hd]; k/v [B, S, Hkv, hd] (int8 with scales [B, S,
+    Hkv]); pos [B] = the index the current token was just written at.
+    Row b attends keys [0, pos_b] (dense K4 on the card: reads scale
+    with each row's context)."""
+    return da.decode_attention(q[:, 0], k, v, pos + 1, scale, k_scale,
+                               v_scale)[:, None]
 
 
-def _check_greedy(caches, sampling, adapters=None,
-                  adapter_idx=None) -> None:
+def _check_greedy(sampling, adapters=None, adapter_idx=None) -> None:
     if sampling is not None:
         raise NotImplementedError(SAMPLING_SLICE)
     if adapters is not None or adapter_idx is not None:
         raise NotImplementedError(ADAPTER_SLICE)
-    if caches[2] is not None or caches[3] is not None:
-        raise NotImplementedError(INT8_SLICE)
+
+
+def _new_rows(k: torch.Tensor, v: torch.Tensor, quantized: bool):
+    """A step's new K/V rows [R, Hkv, hd] as the cache stores them:
+    (k, v, None, None), or int8 codes with their scales [R, Hkv]."""
+    if not quantized:
+        return k, v, None, None
+    kq, ks = decode._quantize_kv(k[None])
+    vq, vs = decode._quantize_kv(v[None])
+    return kq[0], vq[0], ks[0], vs[0]
 
 
 def _logits(cparams: Params, config: llama.LlamaConfig,
@@ -159,7 +176,8 @@ def decode_steps_rows(params: Params, tokens: torch.Tensor, caches,
     """Decode ``num_steps`` tokens for every row at PER-ROW positions.
 
     tokens [B] int32 (each row's most recent token); ``caches`` =
-    (k, v, None, None) with k/v [L, B, S, Hkv, hd], written in place;
+    (k, v, k_scale, v_scale) with k/v [L, B, S, Hkv, hd] (int8 with
+    bf16 scales [L, B, S, Hkv], or the scales None), written in place;
     pos [B] int32 = next write index per row; active [B] bool —
     inactive rows still compute but their pos does not advance and
     their writes keep landing on the same parked cell (a pos outside
@@ -169,9 +187,10 @@ def decode_steps_rows(params: Params, tokens: torch.Tensor, caches,
     This is the CONTIGUOUS-cache twin of ``decode_steps_paged``.
     Returns (out_tokens [B, num_steps] int32, caches, new_pos).
     """
-    _check_greedy(caches, sampling)
+    _check_greedy(sampling)
     llama.require_dense(config)
-    k_cache, v_cache = caches[0], caches[1]
+    k_cache, v_cache, ks_cache, vs_cache = caches
+    quantized = ks_cache is not None
     cparams = llama.compute_params(params, config)
     layers = decode.layer_list(cparams, config)
     hd = config.head_dim
@@ -184,10 +203,13 @@ def decode_steps_rows(params: Params, tokens: torch.Tensor, caches,
             q, k, v = decode.qkv_projections(config, x, lp)
             q = _rope_rows(q, angles)
             k = _rope_rows(k, angles)
-            da.cache_write_rows(k_cache[i], v_cache[i], k[:, 0], v[:, 0],
-                                cur)
+            kr, vr, ksr, vsr = _new_rows(k[:, 0], v[:, 0], quantized)
+            scales = ((ks_cache[i], vs_cache[i]) if quantized
+                      else (None, None))
+            da.cache_write_rows(k_cache[i], v_cache[i], kr, vr, cur,
+                                *scales, ksr, vsr)
             attn = _attend_rows(q, k_cache[i], v_cache[i], cur,
-                                hd ** -0.5)
+                                hd ** -0.5, *scales)
             x = decode.attn_out_and_mlp(config, x, attn, lp)
         nxt = _logits(cparams, config, x)[:, -1].argmax(-1).to(
             torch.int32)
@@ -198,33 +220,47 @@ def decode_steps_rows(params: Params, tokens: torch.Tensor, caches,
     return torch.stack(out, dim=1), caches, cur
 
 
+def _flat_pools(caches, block_size: int, config: llama.LlamaConfig):
+    """The pool 4-tuple as flat [L, NB * bs, ...] row views (scales
+    None for a bf16/f32 pool)."""
+    k_pool, v_pool, ks_pool, vs_pool = caches
+    nl, nb, bs = k_pool.shape[:3]
+    if bs != block_size:
+        raise ValueError(f'pool block size {bs} != {block_size}')
+    nkv, hd = config.n_kv_heads, config.head_dim
+    kp = k_pool.view(nl, nb * bs, nkv, hd)
+    vp = v_pool.view(nl, nb * bs, nkv, hd)
+    if ks_pool is None:
+        return kp, vp, None, None
+    return (kp, vp, ks_pool.view(nl, nb * bs, nkv),
+            vs_pool.view(nl, nb * bs, nkv))
+
+
 def decode_steps_paged(params: Params, tokens: torch.Tensor, caches,
                        block_tables: torch.Tensor, pos: torch.Tensor,
                        active: torch.Tensor, config: llama.LlamaConfig,
                        num_steps: int, block_size: int,
                        adapters=None, adapter_idx=None, sampling=None):
     """Block-table-indirected twin of ``decode_steps_rows`` with
-    identical numerics: ``caches`` = (k, v, None, None) with k/v
-    [L, num_blocks, block_size, Hkv, hd], ``block_tables`` [B, MB]
-    int32. Writes go through ``kv_pool.write_index`` (parked rows and
-    overrun positions land in the scratch block) with K5; attention is
+    identical numerics: ``caches`` = (k, v, k_scale, v_scale) with k/v
+    [L, num_blocks, block_size, Hkv, hd] (int8 with bf16 scales
+    [L, num_blocks, block_size, Hkv], or the scales None),
+    ``block_tables`` [B, MB] int32. Writes go through
+    ``kv_pool.write_index`` (parked rows and overrun positions land in
+    the scratch block) with K5; attention is
     ``paged_decode_attention`` (K4-paged, W = 1) over each row's own
     length, so recycled-block garbage past it contributes exactly 0;
     an inactive row attends its first key only.
 
     Returns (out_tokens [B, num_steps] int32, caches, new_pos).
     """
-    _check_greedy(caches, sampling, adapters, adapter_idx)
+    _check_greedy(sampling, adapters, adapter_idx)
     llama.require_dense(config)
-    k_pool, v_pool = caches[0], caches[1]
-    nl, nb, bs = k_pool.shape[:3]
-    if bs != block_size:
-        raise ValueError(f'pool block size {bs} != {block_size}')
+    kp, vp, ksp, vsp = _flat_pools(caches, block_size, config)
+    quantized = ksp is not None
     cparams = llama.compute_params(params, config)
     layers = decode.layer_list(cparams, config)
-    nkv, hd = config.n_kv_heads, config.head_dim
-    kp = k_pool.view(nl, nb * bs, nkv, hd)
-    vp = v_pool.view(nl, nb * bs, nkv, hd)
+    hd = config.head_dim
     tok, cur = tokens, pos
     out = []
     for _ in range(num_steps):
@@ -238,10 +274,12 @@ def decode_steps_paged(params: Params, tokens: torch.Tensor, caches,
             q, k, v = decode.qkv_projections(config, x, lp)
             q = _rope_rows(q, angles)
             k = _rope_rows(k, angles)
-            da.cache_write(kp[i], vp[i], k[:, 0], v[:, 0], widx)
+            kr, vr, ksr, vsr = _new_rows(k[:, 0], v[:, 0], quantized)
+            scales = (ksp[i], vsp[i]) if quantized else (None, None)
+            da.cache_write(kp[i], vp[i], kr, vr, widx, *scales, ksr, vsr)
             attn = da.paged_decode_attention(
                 q[:, 0], kp[i], vp[i], block_tables,
-                lens, hd ** -0.5, block_size)[:, None]
+                lens, hd ** -0.5, block_size, *scales)[:, None]
             x = decode.attn_out_and_mlp(config, x, attn, lp)
         nxt = _logits(cparams, config, x)[:, -1].argmax(-1).to(
             torch.int32)
@@ -276,17 +314,13 @@ def verify_step_paged(params: Params, tokens: torch.Tensor, caches,
     rows advance by accepted + 1, parked rows (n_real 0) stay. A parked
     row attends only its first key, so its preds carry no meaning.
     """
-    _check_greedy(caches, sampling, adapters, adapter_idx)
+    _check_greedy(sampling, adapters, adapter_idx)
     llama.require_dense(config)
-    k_pool, v_pool = caches[0], caches[1]
-    nl, nb, bs = k_pool.shape[:3]
-    if bs != block_size:
-        raise ValueError(f'pool block size {bs} != {block_size}')
+    kp, vp, ksp, vsp = _flat_pools(caches, block_size, config)
+    quantized = ksp is not None
     cparams = llama.compute_params(params, config)
     nkv, hd = config.n_kv_heads, config.head_dim
     b = tokens.shape[0]
-    kp = k_pool.view(nl, nb * bs, nkv, hd)
-    vp = v_pool.view(nl, nb * bs, nkv, hd)
     positions = pos[:, None] + torch.arange(width, dtype=torch.int32,
                                             device=pos.device)[None, :]
     angles = llama._rope_frequencies(
@@ -302,10 +336,14 @@ def verify_step_paged(params: Params, tokens: torch.Tensor, caches,
         q = _rope_verify(q, angles)
         k = _rope_verify(k, angles)
         # Padded lanes collide harmlessly on the scratch slot.
-        da.cache_write(kp[i], vp[i], k.reshape(b * width, nkv, hd),
-                       v.reshape(b * width, nkv, hd), widx)
+        kr, vr, ksr, vsr = _new_rows(k.reshape(b * width, nkv, hd),
+                                     v.reshape(b * width, nkv, hd),
+                                     quantized)
+        scales = (ksp[i], vsp[i]) if quantized else (None, None)
+        da.cache_write(kp[i], vp[i], kr, vr, widx, *scales, ksr, vsr)
         attn = da.paged_verify_attention(q, kp[i], vp[i], block_tables,
-                                         lens, hd ** -0.5, block_size)
+                                         lens, hd ** -0.5, block_size,
+                                         *scales)
         x = decode.attn_out_and_mlp(config, x, attn, lp)
     preds = _logits(cparams, config, x).argmax(-1).to(torch.int32)
     accepted = accept_tokens(tokens, preds, n_real)
@@ -438,10 +476,11 @@ class BatchingEngine:
     width), ``block_size``, ``num_blocks`` (default: every row can
     reach ``max_seq``), ``max_num_batched_tokens`` (per-iteration
     prefill token budget), ``prefill_chunk``, ``prefix_caching``,
-    ``speculative``, ``draft_k``. The engine runs on the params'
-    device. Knobs of features not ported yet raise
-    ``NotImplementedError`` naming their slice; a request that needs
-    sampling is refused at submit.
+    ``speculative``, ``draft_k``, ``kv_int8`` (an int8 pool: codes and
+    bf16 scales). Params may be int8-quantized (``models/quant.py``).
+    The engine runs on the params' device. Knobs of features not ported
+    yet raise ``NotImplementedError`` naming their slice; a request that
+    needs sampling is refused at submit.
     """
 
     def __init__(self, params: Params, config: llama.LlamaConfig,
@@ -463,8 +502,6 @@ class BatchingEngine:
                  adapter_capacity: int = 0,
                  adapter_preload: Optional[List[str]] = None,
                  grammar_vocab: Optional[List[Optional[str]]] = None):
-        if kv_int8:
-            raise NotImplementedError(INT8_SLICE)
         if (tenant_weights or max_queued_requests is not None
                 or max_queued_tokens is not None
                 or default_timeout_s is not None):
@@ -500,8 +537,9 @@ class BatchingEngine:
         # Prefill tokens spent in the CURRENT scheduler iteration — the
         # verify dispatch budgets its draft grants against the rest.
         self._prefill_spent_iter = 0
+        self.kv_int8 = kv_int8
         self.pool = kv_pool_lib.KVBlockPool(config, num_blocks,
-                                            block_size,
+                                            block_size, kv_int8=kv_int8,
                                             device=self.device)
         # The engine owns the device tensors; the pool keeps only the
         # allocator.

@@ -3,7 +3,8 @@ port of ``skypilot_tpu/serve/kv_pool.py``.
 
 KV storage is ONE pool of fixed-size blocks per layer stack
 
-    k/v:    [L, num_blocks, block_size, Hkv, hd]   (bf16 or f32)
+    k/v:    [L, num_blocks, block_size, Hkv, hd]   (bf16 or f32, or int8)
+    scales: [L, num_blocks, block_size, Hkv]       (int8 pool only, bf16)
 
 and each request holds a host-side list of block ids plus a device
 block-table row that maps its logical positions onto pool slots.
@@ -28,8 +29,7 @@ Port differences: the pool tensors are mutable and updated in place
 (the engine writes rows into them with K5; ``copy_pool_block`` copies
 in place), where the JAX pool's arrays are donated through jit. The
 pools start zeroed, so a position that was never written reads as a
-finite 0 (masked attention multiplies it by exactly 0). int8 KV comes
-with the int8 slice (ROADMAP.md).
+finite 0 (masked attention multiplies it by exactly 0).
 """
 import collections
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -132,16 +132,12 @@ class KVBlockPool:
 
     ``caches`` is the engine-facing tuple ``(k, v, k_scale, v_scale)``
     with k/v ``[L, num_blocks, block_size, Hkv, hd]`` in the compute
-    dtype and the scales None (the JAX 4-tuple, whose scale slots hold
-    the int8 pool's scales).
+    dtype and the scales None, or, with ``kv_int8``, int8 codes and bf16
+    scales ``[L, num_blocks, block_size, Hkv]`` (the JAX 4-tuple).
     """
 
     def __init__(self, config: llama.LlamaConfig, num_blocks: int,
                  block_size: int, kv_int8: bool = False, device=None):
-        if kv_int8:
-            raise NotImplementedError(
-                'int8 KV pools are not ported yet; they come with the '
-                'int8 slice (ROADMAP.md Queue 1, "int8")')
         if config.dtype not in (torch.bfloat16, torch.float32):
             raise NotImplementedError(
                 f'KV pool dtype {config.dtype}: only bf16/f32 are '
@@ -158,12 +154,20 @@ class KVBlockPool:
         self.config = config
         self.num_blocks = num_blocks
         self.block_size = block_size
+        self.kv_int8 = kv_int8
         shape = (config.n_layers, num_blocks, block_size,
                  config.n_kv_heads, config.head_dim)
-        self.caches: Optional[Tuple] = (
-            torch.zeros(shape, dtype=config.dtype, device=dev),
-            torch.zeros(shape, dtype=config.dtype, device=dev),
-            None, None)
+        if kv_int8:
+            self.caches: Optional[Tuple] = (
+                torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev),
+                torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev))
+        else:
+            self.caches = (
+                torch.zeros(shape, dtype=config.dtype, device=dev),
+                torch.zeros(shape, dtype=config.dtype, device=dev),
+                None, None)
         self._nbytes = sum(c.numel() * c.element_size()
                            for c in self.caches if c is not None)
         # LIFO free list; block 0 (scratch) is never handed out.
@@ -210,7 +214,7 @@ class KVBlockPool:
 
     @property
     def block_bytes(self) -> float:
-        """Resident bytes per block."""
+        """Resident bytes per block (codes + scales in an int8 pool)."""
         return self.nbytes / self.num_blocks
 
     def blocks_for(self, tokens: int) -> int:
@@ -380,8 +384,8 @@ def copy_pool_block(caches, src: int, dst: int):
     partial-block prefix hit duplicates the cached block into a
     private one, then prefill overwrites from the first divergent
     token. Returns ``caches``."""
-    k, v, _, _ = caches
-    k[:, dst] = k[:, src]
-    v[:, dst] = v[:, src]
+    for c in caches:
+        if c is not None:
+            c[:, dst] = c[:, src]
     return caches
 

@@ -288,9 +288,9 @@ def test_deferred_step_options_raise(models, prefilled):
         tbatching.decode_steps_paged(*args, sampling={'temps': None})
     with pytest.raises(NotImplementedError, match='multi-LoRA'):
         tbatching.decode_steps_paged(*args, adapters={})
-    scales = torch.zeros(1)
-    with pytest.raises(NotImplementedError, match='int8 slice'):
+    with pytest.raises(NotImplementedError, match='sampling slice'):
         tbatching.decode_steps_rows(
             tp, _t(p['first']), (_t(p['dense_k']), _t(p['dense_v']),
-                                 scales, scales),
-            _t(p['pos']), _t(p['active']), tcfg, 1)
+                                 None, None),
+            _t(p['pos']), _t(p['active']), tcfg, 1,
+            sampling={'temps': None})

@@ -12,8 +12,9 @@ import torch
 
 import skypilot_torch
 from skypilot_torch import device as device_lib
-from skypilot_torch.models import convert, decode, llama
+from skypilot_torch.models import convert, decode, llama, quant
 from skypilot_torch.ops import _build
+from skypilot_torch.parallel import train as train_lib
 from skypilot_torch.recipes import finetune, serve_model
 from skypilot_torch.serve import kv_pool
 
@@ -52,8 +53,10 @@ print(json.dumps({{'modules': names, 'bad': bad}}))
     assert res['bad'] == []
     for mod in ('skypilot_torch.device', 'skypilot_torch.models.llama',
                 'skypilot_torch.models.convert',
-                'skypilot_torch.models.decode', 'skypilot_torch.ops._build',
+                'skypilot_torch.models.decode',
+                'skypilot_torch.models.quant', 'skypilot_torch.ops._build',
                 'skypilot_torch.ops.attention',
+                'skypilot_torch.ops.attention_packed',
                 'skypilot_torch.ops.decode_attention',
                 'skypilot_torch.parallel.lora',
                 'skypilot_torch.parallel.train',
@@ -107,6 +110,13 @@ def test_default_device_raises_without_cuda():
         kv_pool.KVBlockPool(cfg, 4, 4)
     with pytest.raises(device_lib.DeviceError):
         finetune.build(finetune.parse_args(['--model', 'tiny']))
+    with pytest.raises(device_lib.DeviceError):
+        quant.init_quantized(cfg)
+    with pytest.raises(device_lib.DeviceError):
+        train_lib.init_qlora_state(cfg, seed=0, lora_rank=4)
+    with pytest.raises(device_lib.DeviceError):
+        serve_model.build_server(serve_model.parse_args(
+            ['--port', '0', '--quant', 'int8']))
 
 
 def test_unknown_device_type_raises():
@@ -127,9 +137,10 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 def test_every_kernel_source_is_a_library():
     assert set(_build.sources()) == {'flash_fwd', 'flash_bwd',
-                                     'decode_attention'}
+                                     'decode_attention',
+                                     'attention_packed'}
     paths = {_build.library_path(n) for n in _build.sources()}
-    assert len(paths) == 3
+    assert len(paths) == 4
     assert all(p.startswith(_build.BUILD_DIR) for p in paths)
 
 

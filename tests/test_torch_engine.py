@@ -212,7 +212,7 @@ def test_speculation_on_equals_off_with_live_verifies(loopy_setup):
 
 
 @pytest.mark.parametrize('kw,slice_name', [
-    (dict(kv_int8=True), 'int8 slice'),
+    (dict(adapter_registry=object()), 'multi-LoRA slice'),
     (dict(max_queued_requests=4), 'overload slice'),
     (dict(max_queued_tokens=64), 'overload slice'),
     (dict(default_timeout_s=1.0), 'overload slice'),

@@ -155,9 +155,13 @@ def test_typed_errors():
         tp.register(a[0], b'h', thash.ROOT, [1, 2, 3, 4])
     with pytest.raises(ValueError, match='num_blocks'):
         tpool.KVBlockPool(tllama.get_config('tiny'), 1, 4, device='cpu')
-    with pytest.raises(NotImplementedError, match='int8'):
-        tpool.KVBlockPool(tllama.get_config('tiny'), 4, 4, kv_int8=True,
-                          device='cpu')
+    # An int8 pool: int8 codes and bf16 scales, counted in its bytes.
+    q8 = tpool.KVBlockPool(tllama.get_config('tiny'), 4, 4, kv_int8=True,
+                           device='cpu')
+    assert [None if c is None else c.dtype for c in q8.caches] == [
+        torch.int8, torch.int8, torch.bfloat16, torch.bfloat16]
+    assert q8.nbytes == sum(c.numel() * c.element_size()
+                            for c in q8.caches)
     assert issubclass(texc.KVBlockError, ValueError)
 
 

@@ -141,5 +141,10 @@ def test_moe_config_raises():
 
 
 def test_int8_weights_raise():
-    with pytest.raises(NotImplementedError, match='int8'):
+    """A {q, s} weight whose codes are not int8 is refused (int8 pairs
+    themselves are ported: tests/test_torch_quant.py)."""
+    with pytest.raises(TypeError, match='int8'):
         tllama.matmul(torch.ones(2, 2), {'q': None, 's': None})
+    with pytest.raises(TypeError, match='int8'):
+        tllama.matmul(torch.ones(2, 2), {'q': torch.ones(2, 2),
+                                         's': torch.ones(1, 2)})
