@@ -81,6 +81,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -159,6 +160,40 @@ def graph_ms(torch, fn, args_list, iters):
     return start.elapsed_time(end) / iters
 
 
+def ptxas_report(log_path):
+    """Each kernel's registers and spills from a library's nvcc log
+    (``-Xptxas -v``): one dict per entry function, its name demangled by
+    ``c++filt`` where the host has it."""
+    entries, cur = [], None
+    with open(log_path, errors='replace') as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                cur = dict(kernel=m.group(1))
+                entries.append(cur)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
+                          r'loads', line)
+            if m:
+                cur.update(spill_stores=int(m.group(1)),
+                           spill_loads=int(m.group(2)))
+            m = re.search(r'Used (\d+) registers', line)
+            if m:
+                cur['registers'] = int(m.group(1))
+    try:
+        names = subprocess.run(
+            ['c++filt'], input='\n'.join(e['kernel'] for e in entries),
+            capture_output=True, text=True, check=True).stdout.splitlines()
+        if len(names) == len(entries):
+            for e, n in zip(entries, names):
+                e['kernel'] = n
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    return entries
+
+
 def copies_outside_l2(make, nbytes, first):
     """``first`` and enough fresh copies of an input set that cycling
     through them overflows L2 twice."""
@@ -186,12 +221,19 @@ def profile_cuda(torch, fn, label, extra):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    # The port's own kernels (csrc/), wherever they rank: PyTorch's own
+    # kernels sit in anonymous namespaces too, but under at::.
+    port = [e for e in events if re.search(
+        r'flash_sm90::|anonymous namespace', e.key) and 'at::' not in e.key]
     log(label + ' ' + json.dumps(dict(
         extra, wall_ms=wall_ms, device_busy_ms=busy_ms,
         device_idle_share=1 - busy_ms / wall_ms,
         device_launches=sum(e.count for e in events),
         top=[dict(name=e.key[:80], calls=e.count,
-                  ms=e.self_device_time_total / 1e3) for e in top])))
+                  ms=e.self_device_time_total / 1e3) for e in top],
+        port_kernels=[dict(name=e.key[:80], calls=e.count,
+                           ms=e.self_device_time_total / 1e3)
+                      for e in port])))
 
 
 # ---------------------------------------------------------------------
@@ -199,18 +241,42 @@ def profile_cuda(torch, fn, label, extra):
 # ---------------------------------------------------------------------
 
 
+def _fused_qkv(torch, gen, b, t, h, hkv, d):
+    """q, k, v as strided views into one [B, T, H + 2 Hkv, D] buffer,
+    the layout a fused qkv projection leaves (checks the tensor maps'
+    strides)."""
+    buf = torch.randn((b, t, h + 2 * hkv, d), generator=gen, device='cuda',
+                      dtype=torch.bfloat16)
+    return buf[:, :, :h], buf[:, :, h:h + hkv], buf[:, :, h + hkv:]
+
+
 def k1_phase(torch, F, attention):
-    H, HKV, D = 32, 8, 128
-    scale = D ** -0.5
-    # (B, T, S): the serve path's prompt lengths (17, 256, 1000, 2048),
-    # batch 4, T < S, and T > S (rows that see no key).
-    cases = [(1, 17, 17), (1, 256, 256), (1, 1000, 1000),
-             (1, 2048, 2048), (4, 2048, 2048), (1, 128, 2048),
-             (1, 1000, 512)]
+    H, HKV = 32, 8
+    # (B, T, S, D, causal, fused): the serve path's prompt lengths (17,
+    # 256, 1000, 2048), batch 4, T < S, and T > S (rows that see no key);
+    # head_dim 64 causal and full; T = S at the 128-row/128-key tile
+    # edges (127, 128, 129) and a long row (4096); q/k/v as views into a
+    # fused qkv buffer.
+    cases = [(1, 17, 17, 128, True, False), (1, 256, 256, 128, True, False),
+             (1, 1000, 1000, 128, True, False),
+             (1, 2048, 2048, 128, True, False),
+             (4, 2048, 2048, 128, True, False),
+             (1, 128, 2048, 128, True, False),
+             (1, 1000, 512, 128, True, False),
+             (1, 2048, 2048, 64, True, False),
+             (1, 2048, 2048, 64, False, False),
+             (1, 127, 127, 128, True, False), (1, 128, 128, 128, True, False),
+             (1, 129, 129, 128, True, False),
+             (1, 4096, 4096, 128, True, False),
+             (2, 1000, 1000, 128, True, True)]
     gen = torch.Generator(device='cuda').manual_seed(11)
     rows = []
-    for b, t, s in cases:
-        def make(b=b, t=t, s=s):
+    for b, t, s, D, causal, fused in cases:
+        scale = D ** -0.5
+
+        def make(b=b, t=t, s=s, D=D, fused=fused):
+            if fused:
+                return _fused_qkv(torch, gen, b, t, H, HKV, D)
             return (torch.randn((b, t, H, D), generator=gen, device='cuda',
                                 dtype=torch.bfloat16),
                     torch.randn((b, s, HKV, D), generator=gen,
@@ -218,11 +284,11 @@ def k1_phase(torch, F, attention):
                     torch.randn((b, s, HKV, D), generator=gen,
                                 device='cuda', dtype=torch.bfloat16))
         q, k, v = make()
-        out, lse = attention.flash_attention_fwd(q, k, v, causal=True,
+        out, lse = attention.flash_attention_fwd(q, k, v, causal=causal,
                                                  scale=scale)
         torch.cuda.synchronize()
         ref_out, ref_lse = attention._flash_fwd_plain(
-            q.float(), k.float(), v.float(), causal=True, scale=scale)
+            q.float(), k.float(), v.float(), causal=causal, scale=scale)
         err_out = (out.float() - ref_out).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
         # Rows that see no key: lse = +1e30 and out = 0 on both sides.
@@ -231,7 +297,8 @@ def k1_phase(torch, F, attention):
         assert not bool(out[empty.transpose(1, 2)].any())
         ok = (err_out <= K1_TOL['out'] and err_lse <= K1_TOL['lse']
               and bool(torch.isfinite(out.float()).all()))
-        flops = 4 * b * H * D * _visible_pairs(t, s)
+        pairs = _visible_pairs(t, s) if causal else t * s
+        flops = 4 * b * H * D * pairs
         nbytes = (2 * (q.numel() + k.numel() + v.numel() + out.numel())
                   + 4 * lse.numel())
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
@@ -240,28 +307,28 @@ def k1_phase(torch, F, attention):
         inputs = copies_outside_l2(make, nbytes, (q, k, v))
         iters = 20 if t * s * b >= 2 ** 22 else 100
         mask = None
-        if t != s:
+        if causal and t != s:
             mask = (torch.arange(s, device='cuda')[None, :] <=
                     torch.arange(t, device='cuda')[:, None] + (s - t))
 
-        def kernel(q, k, v):
-            return attention.flash_attention_fwd(q, k, v, causal=True,
+        def kernel(q, k, v, causal=causal, scale=scale):
+            return attention.flash_attention_fwd(q, k, v, causal=causal,
                                                  scale=scale)
 
-        def plain(q, k, v):
-            return attention._flash_fwd_plain(q, k, v, causal=True,
+        def plain(q, k, v, causal=causal, scale=scale):
+            return attention._flash_fwd_plain(q, k, v, causal=causal,
                                               scale=scale)
 
-        def library(q, k, v):
+        def library(q, k, v, causal=causal, scale=scale, mask=mask):
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                attn_mask=mask, is_causal=mask is None, scale=scale,
-                enable_gqa=True)
+                attn_mask=mask, is_causal=causal and mask is None,
+                scale=scale, enable_gqa=True)
 
         kernel_ms = graph_ms(torch, kernel, inputs, iters)
-        row = dict(B=b, T=t, S=s, max_abs_err_out=err_out,
-                   max_abs_err_lse=err_lse, tol=K1_TOL, ok=ok,
-                   kernel_ms=kernel_ms,
+        row = dict(B=b, T=t, S=s, D=D, causal=causal, fused_qkv=fused,
+                   max_abs_err_out=err_out, max_abs_err_lse=err_lse,
+                   tol=K1_TOL, ok=ok, kernel_ms=kernel_ms,
                    plain_ms=graph_ms(torch, plain, inputs[:2],
                                       max(3, iters // 10)),
                    library_ms=graph_ms(torch, library, inputs, iters),
@@ -274,8 +341,8 @@ def k1_phase(torch, F, attention):
         torch.cuda.empty_cache()
     bad = [r for r in rows if not r['ok']]
     assert not bad, f'K1 disagrees with its plain version: {bad}'
-    main_case = next(r for r in rows if (r['B'], r['T']) == (1, 2048)
-                     and r['S'] == 2048)
+    main_case = next(r for r in rows if (r['B'], r['T'], r['S'], r['D'])
+                     == (1, 2048, 2048, 128) and r['causal'])
     return dict(max_abs_err=max(max(r['max_abs_err_out'],
                                     r['max_abs_err_lse']) for r in rows),
                 ms=main_case['kernel_ms'], plain_ms=main_case['plain_ms'],
@@ -302,9 +369,9 @@ def _attn_inputs(torch, gen, b, t, s, with_do=False):
                              dtype=torch.bfloat16) for sh in shapes)
 
 
-def _llama_tables(torch, attention, t):
+def _llama_tables(torch, attention, t, name='llama3-8b'):
     from skypilot_torch.models import llama
-    config = llama.get_config('llama3-8b')
+    config = llama.get_config(name)
     angles = llama._rope_frequencies(
         config, torch.arange(t, device='cuda'))
     cos, sin = attention.rope_tables(angles)
@@ -312,17 +379,30 @@ def _llama_tables(torch, attention, t):
 
 
 def k1r_phase(torch, F, attention):
-    """K1's fused-RoPE entry against the f32 plain version with the same
-    llama3-8b tables."""
-    H, D = 32, 128
-    scale = D ** -0.5
+    """K1's fused-RoPE entry (the rotation pre-pass, then the mainloop)
+    against the f32 plain version with the same llama3 tables: the
+    training shapes, a tile-edge length, q/k/v as views into a fused qkv
+    buffer (the pre-pass reads them through strides) and head_dim 64
+    with llama3.2-1b's tables."""
+    H, HKV = 32, 8
     gen = torch.Generator(device='cuda').manual_seed(15)
     rows = []
-    for b, t, s in TRAIN_ATTN_CASES:
-        angles, cos, sin = _llama_tables(torch, attention, t)
+    # (B, T, S, D, fused)
+    cases = ([(b, t, s, 128, False) for b, t, s in TRAIN_ATTN_CASES] +
+             [(1, 129, 129, 128, False), (2, 1000, 1000, 128, True),
+              (1, 2048, 2048, 64, False)])
+    for b, t, s, D, fused in cases:
+        scale = D ** -0.5
+        angles, cos, sin = _llama_tables(
+            torch, attention, t, 'llama3-8b' if D == 128 else 'llama3.2-1b')
 
-        def make(b=b, t=t, s=s):
-            return _attn_inputs(torch, gen, b, t, s)
+        def make(b=b, t=t, s=s, D=D, fused=fused):
+            if fused:
+                return _fused_qkv(torch, gen, b, t, H, HKV, D)
+            return tuple(torch.randn(sh, generator=gen, device='cuda',
+                                     dtype=torch.bfloat16)
+                         for sh in ((b, t, H, D), (b, s, HKV, D),
+                                    (b, s, HKV, D)))
         q, k, v = make()
         before = attention.FLASH_FWD.launches
         out, lse = attention.flash_attention_fwd(q, k, v, True, scale, cos,
@@ -342,15 +422,15 @@ def k1r_phase(torch, F, attention):
         inputs = copies_outside_l2(make, nbytes, (q, k, v))
         iters = 10 if b * t >= 2 ** 14 else 30
 
-        def kernel(q, k, v):
+        def kernel(q, k, v, scale=scale, cos=cos, sin=sin):
             return attention.flash_attention_fwd(q, k, v, True, scale, cos,
                                                  sin)
 
-        def plain(q, k, v):
+        def plain(q, k, v, scale=scale, cos=cos, sin=sin):
             return attention._flash_fwd_plain(q, k, v, True, scale, cos,
                                               sin)
 
-        def library(q, k, v):
+        def library(q, k, v, scale=scale, angles=angles):
             qr = attention.apply_rope(q, angles).transpose(1, 2)
             kr = attention.apply_rope(k, angles).transpose(1, 2)
             return F.scaled_dot_product_attention(
@@ -358,7 +438,8 @@ def k1r_phase(torch, F, attention):
                 enable_gqa=True)
 
         kernel_ms = graph_ms(torch, kernel, inputs, iters)
-        row = dict(B=b, T=t, S=s, rope=True, max_abs_err_out=err_out,
+        row = dict(B=b, T=t, S=s, D=D, fused_qkv=fused, rope=True,
+                   max_abs_err_out=err_out,
                    max_abs_err_lse=err_lse, tol=K1_TOL, ok=ok,
                    kernel_ms=kernel_ms,
                    plain_ms=graph_ms(torch, plain, inputs[:1], 2),
@@ -1554,7 +1635,8 @@ def rows_phase(torch, da):
 
 def k6_phase(torch, F, attention):
     """K6 against ``_packed_fwd_plain`` in f32 on the card (shared kv at
-    32/8 heads, paired kv at groups 1, causal T < S, non-causal); at the
+    32/8 heads and at groups 2, paired kv at groups 1, causal T < S,
+    non-causal, T = S = 192 against 128-key tiles); at the
     JAX bench's shape (B 8, T 2048, 32/8 heads, head_dim 64, causal) the
     kernel, plain, K1 (the JAX bench's comparison), SDPA (timed only)
     and bound times; then ``bench_main()`` itself, the entry point, with
@@ -1562,10 +1644,15 @@ def k6_phase(torch, F, attention):
     from skypilot_torch.ops import attention_packed as packed
     gen = torch.Generator(device='cuda').manual_seed(31)
     # (B, H, Hkv, T, S, D, causal)
+    # The last three: GQA groups 2 at head_dim 128, and T = S = 192, a
+    # length the reference's block min(512, T) allows and the kernel's
+    # 128-key tile does not divide (shared and paired kv).
     cases = [(8, 32, 8, 2048, 2048, 64, True), (1, 32, 32, 1024, 1024, 64,
                                                 True),
              (1, 32, 8, 512, 2048, 128, True),
-             (2, 16, 8, 1024, 1024, 128, False)]
+             (2, 16, 8, 1024, 1024, 128, False),
+             (2, 16, 8, 1024, 1024, 128, True),
+             (1, 32, 8, 192, 192, 64, True), (1, 16, 16, 192, 192, 128, True)]
     rows = []
     for b, h, hkv, t, s, d, causal in cases:
         def make(b=b, h=h, hkv=hkv, t=t, s=s, d=d):
@@ -2203,10 +2290,8 @@ def main() -> int:
     libs = _build.build_all()
     log(f'kernels built in {time.perf_counter() - t0:.1f} s')
     for name, path in libs.items():
-        with open(path[:-len('.so')] + '.log', errors='replace') as f:
-            for line in f:
-                if 'registers' in line or 'spill' in line:
-                    log(f'  {name}: {line.strip()}')
+        for entry in ptxas_report(path[:-len('.so')] + '.log'):
+            log('BUILD ' + json.dumps(dict(library=name, **entry)))
     if 'k1' in phases:
         k1 = k1_phase(torch, F, attention)
     if 'k4' in phases:

@@ -21,9 +21,10 @@ Contract of both paths (the TPU kernels'):
   such rows a uniform average instead; the port follows the kernels;
 - fused RoPE (``rope_angles``, T == S): q/k come in un-rotated with
   ``[T, D]`` f32 cos/sin tables (the angles duplicated to full width);
-  each block is rotated in f32 and rounded to the input dtype before
-  the dot (``_rot``), and dq/dk are pulled back through the inverse
-  rotation (``_rot_inv``). Only un-rotated q/k are saved for backward.
+  they are rotated in f32 and rounded to the input dtype before the dot
+  (``_rot``; K1-cuda rotates every row once in a pre-pass of its
+  launch), and dq/dk are pulled back through the inverse rotation
+  (``_rot_inv``). Only un-rotated q/k are saved for backward.
 
 Not ported: the ``remat_policy`` names that let a layer checkpoint keep
 the kernel's out/lse (ROADMAP.md Queue 2); under a plain per-layer
@@ -45,8 +46,9 @@ _FWD_ARGS = ([ctypes.c_int] * 6 + [ctypes.c_longlong] * 12 +
              [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 FLASH_FWD = _build.Kernel('flash_fwd', 'skypilot_flash_fwd',
                           [ctypes.c_void_p] * 5 + _FWD_ARGS)
+# q, k, v, cos, sin, krot (the rotated-k scratch), out, lse.
 FLASH_FWD_ROPE = _build.Kernel('flash_fwd', 'skypilot_flash_fwd_rope',
-                               [ctypes.c_void_p] * 7 + _FWD_ARGS)
+                               [ctypes.c_void_p] * 8 + _FWD_ARGS)
 _BWD_ARGS = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [
     ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int,
     ctypes.c_void_p]
@@ -225,8 +227,8 @@ def _check_cuda(what: str, tensors, dtype=torch.bfloat16) -> None:
         if x.dtype != dtype:
             raise TypeError(f'{what}: the CUDA kernel takes {dtype} '
                             f'{name}, got {x.dtype}')
-        # 16-byte cp.async / vector loads: unit-stride rows, 8-element
-        # aligned row strides, 16-byte aligned base.
+        # TMA tensor maps and 16-byte vector loads: unit-stride rows,
+        # strides of whole 16-byte units, a 16-byte aligned base.
         if (x.dim() != 4 or x.stride(3) != 1
                 or any(st % 8 for st in x.stride()[:3])
                 or x.data_ptr() % 16):
@@ -269,7 +271,9 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool, scale: float, cos=None, sin=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K1-cuda (FLASH_FWD, or FLASH_FWD_ROPE with tables);
-    raises on anything the kernel does not take."""
+    raises on anything the kernel does not take. With tables the kernel
+    first rotates q into ``out`` and k into a scratch it is given, then
+    attends over the rotated copies."""
     b, t, s, h, hkv, d = _check_shapes('flash_attention', q, k, v)
     _check_cuda('flash_attention', (('q', q), ('k', k), ('v', v)))
     _check_rope(t, s, d, cos, sin)
@@ -282,9 +286,10 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   lse.data_ptr(), *tail)
     else:
         _check_tables('flash_attention', q.device, cos, sin)
+        krot = torch.empty((b, s, hkv, d), dtype=k.dtype, device=k.device)
         FLASH_FWD_ROPE(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
-                       lse.data_ptr(), *tail)
+                       cos.data_ptr(), sin.data_ptr(), krot.data_ptr(),
+                       out.data_ptr(), lse.data_ptr(), *tail)
     return out, lse
 
 

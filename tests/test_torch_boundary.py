@@ -2,6 +2,7 @@
 nothing of JAX or the JAX package; entry points never quietly run on
 the CPU; a kernel build that cannot happen raises."""
 import ast
+import glob
 import json
 import os
 import subprocess
@@ -149,7 +150,11 @@ def test_shared_header_change_rebuilds_every_library(tmp_path,
     """The kernels include csrc/*.cuh; a library's name hashes them, so
     an edited header cannot leave a stale build in place."""
     before = {n: _build.library_path(n) for n in _build.sources()}
-    for name in ('flash_fwd.cu', 'mma_common.cuh'):
+    headers = [os.path.basename(p) for p in
+               glob.glob(os.path.join(_build.CSRC_DIR, '*.cuh'))]
+    assert {'mma_common.cuh', 'sm90_common.cuh',
+            'flash_fwd_sm90.cuh'} <= set(headers)
+    for name in ['flash_fwd.cu'] + headers:
         with open(os.path.join(_build.CSRC_DIR, name), 'rb') as f:
             (tmp_path / name).write_bytes(f.read())
     monkeypatch.setattr(_build, 'CSRC_DIR', str(tmp_path))
