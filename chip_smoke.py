@@ -24,16 +24,22 @@ in order (any failure exits non-zero; nothing is caught):
 6. K1R (flash_fwd with fused RoPE): the training shapes (B 1 and 8,
    T = S = 2048, and a ragged 1000) against ``_flash_fwd_plain`` in f32
    with the same llama3-8b tables; library: SDPA after ``apply_rope``.
-7. BWD (flash_bwd_dq, flash_bwd_dkv): the same shapes with RoPE and a
-   T > S case without, against ``_flash_bwd_plain`` in f32 (rows that
-   see no key must get dq exactly 0); library: SDPA's backward.
+7. BWD (flash_bwd_prep, flash_bwd_dq, flash_bwd_dkv): the pre-pass,
+   K2 and K3 through ``flash_attention_bwd`` at the training shapes
+   with RoPE, tile edges, T > S (rows that see no key must get dq
+   exactly 0), full attention, head_dim 64 and a peaked case (q, k x 4),
+   against ``_flash_bwd_plain`` in f32 on the pre-pass's rotated q/k;
+   the dV-sum invariant (sum over keys of dV = sum of dO over the rows
+   that see a key); two calls bit-equal; the pre-pass against
+   ``_bwd_prep_plain`` (its rotated q/k bit-equal); library: SDPA's
+   backward. ``flash_bwd``'s BUILD lines must show no spills.
 8. Train: llama3-8b at 2 layers, bf16 on the card vs f32 on the CPU
    (LoRA loss and adapter gradients, one full-finetune step's loss and
    grad_norm); then ``recipes/finetune`` at llama3-8b, 32 layers, bf16
    base + LoRA rank 16, seq 2048, batch 8: one warm-up step, three
    counted steps (K1-RoPE = 2 x 32 x 3 with the checkpoint's recompute,
-   K2 = K3 = 32 x 3), step time, tokens/s, peak memory, and a CUDA-only
-   profile of one more step.
+   pre-pass = K2 = K3 = 32 x 3), step time, tokens/s, peak memory, and
+   a CUDA-only profile of one more step.
 
 9. K5 (cache_write): bit-exact against ``index_copy_`` at llama3-8b
    shapes, the rows form over [8, 8192, 8, 128] and the 4097-block pool
@@ -69,8 +75,9 @@ in order (any failure exits non-zero; nothing is caught):
    engine-off ``--quant int8`` TPOT.
 16. QLoRA: llama3.1-8b (32 layers) over an int8 frozen base, LoRA rank
    16, seq 2048, batch 4: one warm-up and three counted steps on one
-   fixed batch (K1-RoPE 192, K2 = K3 = 96), falling losses, step time,
-   tokens/s, MFU (4N), peak memory and a profile of one more step.
+   fixed batch (K1-RoPE 192, pre-pass = K2 = K3 = 96), falling losses,
+   step time, tokens/s, MFU (4N), peak memory and a profile of one more
+   step.
 
 Then one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line. ``--phases`` runs a subset (no
@@ -95,8 +102,16 @@ PHASES = ('k1', 'k4', 'e2e', 'serve', 'k1r', 'bwd', 'train', 'k5',
           'k4p', 'engine', 'rows', 'k6', 'int8k', 'int8', 'qlora')
 K1_TOL = {'out': 2e-2, 'lse': 2e-2}
 # K2/K3 in bf16 (P and dS rounded to bf16 before their products) against
-# f32: max |err| over max |ref| per gradient.
+# f32 on the same rotated bf16 q and k: max |err| over max |ref| per
+# gradient.
 BWD_REL_TOL = 3e-2
+# The peaked case (|S| to a few tens) and the dV-sum invariant: with S
+# scaled in f32 only the bf16 rounding of P, dS and the stored gradients
+# remains, random in sign.
+BWD_PEAKED_TOL = 1e-2
+BWD_DV_SUM_TOL = 1e-2
+# The pre-pass's delta against the f32 plain version: summation order.
+PREP_TOL = 1e-5
 K4_TOL = 2e-2
 E2E_REL_TOL = 5e-2
 # bf16 on the card vs f32 on the CPU at 2 layers: relative loss error,
@@ -360,8 +375,8 @@ def k1_phase(torch, F, attention):
 TRAIN_ATTN_CASES = [(1, 2048, 2048), (8, 2048, 2048), (1, 1000, 1000)]
 
 
-def _attn_inputs(torch, gen, b, t, s, with_do=False):
-    H, HKV, D = 32, 8, 128
+def _attn_inputs(torch, gen, b, t, s, with_do=False, d=128):
+    H, HKV, D = 32, 8, d
     shapes = [(b, t, H, D), (b, s, HKV, D), (b, s, HKV, D)]
     if with_do:
         shapes.append((b, t, H, D))
@@ -464,100 +479,181 @@ def k1r_phase(torch, F, attention):
                 library_ms=main_case['library_ms'])
 
 
+# (B, T, S, D, rope, causal, peaked): the training shapes, tile edges
+# (129 against 64-row and 64-key tiles), T > S (rows that see no key),
+# full attention, head_dim 64 with llama3.2-1b's tables, and a "peaked"
+# case whose q and k are scaled x4, so |S| reaches a few tens.
+BWD_CASES = [(1, 2048, 2048, 128, True, True, False),
+             (8, 2048, 2048, 128, True, True, False),
+             (1, 1000, 1000, 128, True, True, False),
+             (2, 129, 129, 128, True, True, False),
+             (1, 1000, 512, 128, False, True, False),
+             (1, 1000, 1000, 128, False, False, False),
+             (8, 2048, 2048, 64, True, True, False),
+             (1, 2048, 2048, 128, True, True, True)]
+
+
+def _dv_sum_error(torch, dv, do, t, s, causal, hkv):
+    """The invariant that needs no reference: per (b, kv head), sum over
+    keys of dV = sum over the group's rows that see a key of dO, exactly
+    when P's rows sum to 1. Returns max |lhs - rhs| / max |rhs|."""
+    b, _, h, d = do.shape
+    seen = torch.ones(t, dtype=torch.bool, device=do.device)
+    if causal:
+        seen = torch.arange(t, device=do.device) + (s - t) >= 0
+    rhs = (do.float() * seen[None, :, None, None]).sum(1).reshape(
+        b, hkv, h // hkv, d).sum(2)
+    lhs = dv.float().sum(1)
+    return ((lhs - rhs).abs().max() / rhs.abs().max()).item()
+
+
 def bwd_phase(torch, F, attention):
-    """K2 (dq) and K3 (dk, dv) against ``_flash_bwd_plain`` in f32 on the
-    same inputs (q/k/v/dO random, out/lse from K1), causal with RoPE;
-    plus a T > S case without RoPE whose first T - S rows see no key."""
-    H, D = 32, 128
-    scale = D ** -0.5
+    """The backward: the pre-pass, K2 (dq) and K3 (dk, dv) through
+    ``flash_attention_bwd`` on K1's out and lse, against the f32 plain
+    version on the pre-pass's own (rotated, bf16) q and k, pulled back
+    through RoPE as the kernels do; the dV-sum invariant; two calls
+    bit-equal; the pre-pass against ``_bwd_prep_plain`` (delta to f32
+    rounding, the rotated q/k bit-equal). Times of the
+    pre-pass, each kernel, the whole backward, the plain version and
+    SDPA's backward beside their bounds."""
+    H, HKV = 32, 8
     gen = torch.Generator(device='cuda').manual_seed(16)
-    cases = [(b, t, s, True) for b, t, s in TRAIN_ATTN_CASES]
-    cases.append((1, 1000, 512, False))
     rows = []
-    for b, t, s, rope in cases:
+    for b, t, s, D, rope, causal, peaked in BWD_CASES:
+        scale = D ** -0.5
         cos = sin = angles = None
         if rope:
-            angles, cos, sin = _llama_tables(torch, attention, t)
+            angles, cos, sin = _llama_tables(
+                torch, attention, t, 'llama3-8b' if D == 128 else
+                'llama3.2-1b')
 
-        def make(b=b, t=t, s=s):
-            q, k, v, do = _attn_inputs(torch, gen, b, t, s, with_do=True)
-            out, lse = attention.flash_attention_fwd(q, k, v, True, scale,
+        def make(b=b, t=t, s=s, D=D, causal=causal, peaked=peaked,
+                 scale=scale, cos=cos, sin=sin):
+            q, k, v, do = _attn_inputs(torch, gen, b, t, s, with_do=True,
+                                       d=D)
+            if peaked:
+                q, k = 4 * q, 4 * k
+            out, lse = attention.flash_attention_fwd(q, k, v, causal, scale,
                                                      cos, sin)
-            delta = (do.float() * out.float()).sum(-1).transpose(
-                1, 2).contiguous()
-            return q, k, v, out, lse, do, delta
-        q, k, v, out, lse, do, delta = make()
-        dq, dk, dv = attention.flash_attention_bwd(q, k, v, out, lse, do,
-                                                   cos, sin, True, scale)
+            delta, qr, kr = attention._bwd_prep_cuda(q, k, out, do, cos,
+                                                     sin)
+            return q, k, v, out, lse, do, delta, qr, kr
+        q, k, v, out, lse, do, delta, qr, kr = make()
+        grads = attention.flash_attention_bwd(q, k, v, out, lse, do, cos,
+                                              sin, causal, scale)
+        again = attention.flash_attention_bwd(q, k, v, out, lse, do, cos,
+                                              sin, causal, scale)
         torch.cuda.synchronize()
-        ref = attention._flash_bwd_plain(q.float(), k.float(), v.float(),
-                                         out.float(), lse, do.float(), cos,
-                                         sin, True, scale)
+        dq, dk, dv = grads
+        bit_equal = all(torch.equal(x, y) for x, y in zip(grads, again))
+        ref = list(attention._flash_bwd_plain(
+            qr.float(), kr.float(), v.float(), out.float(), lse, do.float(),
+            None, None, causal, scale))
+        if rope:
+            ref[0] = attention._rot_inv(ref[0], cos, sin)
+            ref[1] = attention._rot_inv(ref[1], cos, sin)
         rel = {}
-        for name, got, want in zip(('dq', 'dk', 'dv'), (dq, dk, dv), ref):
+        for name, got, want in zip(('dq', 'dk', 'dv'), grads, ref):
             rel[name] = ((got.float() - want).abs().max() /
                          want.abs().max()).item()
-        finite = all(bool(torch.isfinite(x.float()).all())
-                     for x in (dq, dk, dv))
-        ok = finite and max(rel.values()) <= BWD_REL_TOL
-        if t > s:
+        p_delta, p_qr, p_kr = attention._bwd_prep_plain(q, k, out, do, cos,
+                                                        sin)
+        prep_err = ((delta - p_delta).abs().max() /
+                    p_delta.abs().max()).item()
+        rot_equal = torch.equal(qr, p_qr) and torch.equal(kr, p_kr)
+        dv_sum_err = _dv_sum_error(torch, dv, do, t, s, causal, HKV)
+        finite = all(bool(torch.isfinite(x.float()).all()) for x in grads)
+        tol = BWD_PEAKED_TOL if peaked else BWD_REL_TOL
+        ok = (finite and max(rel.values()) <= tol and bit_equal
+              and dv_sum_err <= BWD_DV_SUM_TOL and prep_err <= PREP_TOL
+              and rot_equal)
+        empty_rows = causal and t > s
+        if empty_rows:
             # Rows q_pos < T - S see no key: their dq is exactly 0.
             ok = ok and not bool(dq[:, :t - s].any())
-        vis = _visible_pairs(t, s)
-        io = 2 * (q.numel() + 2 * k.numel() + do.numel()) + 4 * 2 * lse.numel()
-        if rope:
-            io += 4 * (cos.numel() + sin.numel())
-        bounds = {}
-        for name, products, nbytes in (
-                ('dq', 3, io + 2 * q.numel()),
-                ('dkv', 4, io + 4 * k.numel())):
-            t_ops = 2 * products * b * H * D * vis / PEAK_BF16_FLOPS
-            t_bytes = nbytes / PEAK_HBM_BYTES
-            bounds[name] = (1e3 * max(t_ops, t_bytes),
-                            'operations' if t_ops >= t_bytes else 'bytes')
-        inputs = copies_outside_l2(
-            make, io, (q, k, v, out, lse, do, delta))
-        iters = 10 if b * t >= 2 ** 14 else 30
+        row = dict(B=b, T=t, S=s, D=D, rope=rope, causal=causal,
+                   peaked=peaked, rel_err=rel, rel_tol=tol,
+                   dv_sum_err=dv_sum_err, dv_sum_tol=BWD_DV_SUM_TOL,
+                   bit_equal=bit_equal, prep_delta_err=prep_err,
+                   prep_rot_bit_equal=rot_equal, empty_rows_zero=empty_rows,
+                   ok=ok)
+        if not peaked:
+            vis = _visible_pairs(t, s) if causal else t * s
+            n_q, n_k = q.numel(), k.numel()
+            tables = 4 * (cos.numel() + sin.numel()) if rope else 0
+            io = 2 * (n_q + 2 * n_k + do.numel()) + 4 * 2 * lse.numel()
+            io += tables
+            prep_bytes = (2 * 2 * n_q + 4 * lse.numel() + tables +
+                          (2 * 2 * (n_q + n_k) if rope else 0))
+            bounds = {'prep': (1e3 * prep_bytes / PEAK_HBM_BYTES, 'bytes')}
+            for name, products, nbytes in (
+                    ('dq', 3, io + 2 * n_q), ('dkv', 4, io + 4 * n_k)):
+                t_ops = 2 * products * b * H * D * vis / PEAK_BF16_FLOPS
+                t_bytes = nbytes / PEAK_HBM_BYTES
+                bounds[name] = (1e3 * max(t_ops, t_bytes),
+                                'operations' if t_ops >= t_bytes
+                                else 'bytes')
+            inputs = copies_outside_l2(
+                make, io, (q, k, v, out, lse, do, delta, qr, kr))
+            iters = 10 if b * t >= 2 ** 14 else 30
 
-        def one(kernel, outs_like):
-            def run(q, k, v, out, lse, do, delta):
-                outs = tuple(torch.empty_like(x) for x in outs_like)
-                attention._bwd_launch(kernel, q, k, v, do, lse, delta, cos,
-                                      sin, outs, True, scale)
-            return run
+            def one(kernel, outs_like, causal=causal, scale=scale, cos=cos,
+                    sin=sin):
+                def run(q, k, v, out, lse, do, delta, qr, kr):
+                    outs = tuple(torch.empty_like(x) for x in outs_like)
+                    attention._bwd_launch(kernel, qr, kr, v, do, lse, delta,
+                                          cos, sin, outs, causal, scale)
+                return run
 
-        def plain(q, k, v, out, lse, do, delta):
-            return attention._flash_bwd_plain(q, k, v, out, lse, do, cos,
-                                              sin, True, scale)
+            def prep(q, k, v, out, lse, do, delta, qr, kr, cos=cos,
+                     sin=sin):
+                return attention._bwd_prep_cuda(q, k, out, do, cos, sin)
 
-        row = dict(B=b, T=t, S=s, rope=rope, rel_err=rel, rel_tol=BWD_REL_TOL,
-                   ok=ok,
-                   dq_ms=graph_ms(torch, one(attention.FLASH_BWD_DQ, (q,)),
-                                  inputs, iters),
-                   dkv_ms=graph_ms(torch,
-                                   one(attention.FLASH_BWD_DKV, (k, v)),
-                                   inputs, iters),
-                   dq_bound_ms=bounds['dq'][0], dq_bound_by=bounds['dq'][1],
-                   dkv_bound_ms=bounds['dkv'][0],
-                   dkv_bound_by=bounds['dkv'][1])
-        row['plain_ms'] = graph_ms(torch, plain, inputs[:1], 2)
-        row['backward_ms'] = graph_ms(
-            torch, lambda *a: attention.flash_attention_bwd(
-                a[0], a[1], a[2], a[3], a[4], a[5], cos, sin, True, scale),
-            inputs, iters)
-        row['library_ms'] = _sdpa_backward_ms(torch, F, attention, q, k, v,
-                                              do, angles, scale, iters)
+            def prep_plain(q, k, v, out, lse, do, delta, qr, kr, cos=cos,
+                           sin=sin):
+                return attention._bwd_prep_plain(q, k, out, do, cos, sin)
+
+            def whole(q, k, v, out, lse, do, delta, qr, kr, causal=causal,
+                      scale=scale, cos=cos, sin=sin):
+                return attention.flash_attention_bwd(q, k, v, out, lse, do,
+                                                     cos, sin, causal, scale)
+
+            def plain(q, k, v, out, lse, do, delta, qr, kr, causal=causal,
+                      scale=scale, cos=cos, sin=sin):
+                return attention._flash_bwd_plain(q, k, v, out, lse, do,
+                                                  cos, sin, causal, scale)
+
+            row.update(
+                prep_ms=graph_ms(torch, prep, inputs, iters),
+                dq_ms=graph_ms(torch, one(attention.FLASH_BWD_DQ, (q,)),
+                               inputs, iters),
+                dkv_ms=graph_ms(torch, one(attention.FLASH_BWD_DKV, (k, v)),
+                                inputs, iters),
+                backward_ms=graph_ms(torch, whole, inputs, iters),
+                prep_plain_ms=graph_ms(torch, prep_plain, inputs, iters),
+                plain_ms=graph_ms(torch, plain, inputs[:1], 2),
+                library_ms=_sdpa_backward_ms(
+                    torch, F, attention, q, k, v, do, angles, scale, causal,
+                    iters),
+                **{f'{n}_bound_ms': v[0] for n, v in bounds.items()},
+                **{f'{n}_bound_by': v[1] for n, v in bounds.items()})
+            row['dq_tflops'] = 2 * 3 * b * H * D * vis / row['dq_ms'] / 1e9
+            row['dkv_tflops'] = (2 * 4 * b * H * D * vis / row['dkv_ms']
+                                 / 1e9)
+            del inputs
         log('BWD ' + json.dumps(row))
         rows.append(row)
-        del q, k, v, out, lse, do, delta, dq, dk, dv, ref, inputs
+        del q, k, v, out, lse, do, delta, qr, kr, grads, again, ref
         torch.cuda.empty_cache()
     bad = [r for r in rows if not r['ok']]
-    assert not bad, f'K2/K3 disagree with their plain version: {bad}'
-    main_case = next(r for r in rows if r['B'] == 8)
-    common = dict(B=8, T=2048, S=2048, plain_ms=main_case['plain_ms'],
+    assert not bad, f'the backward disagrees with its plain version: {bad}'
+    main_case = next(r for r in rows if r['B'] == 8 and r['D'] == 128)
+    common = dict(B=8, T=2048, S=2048, D=128,
+                  plain_ms=main_case['plain_ms'],
                   plain_of='dq, dk and dv together',
                   library_ms=main_case['library_ms'],
-                  library_of='dq, dk and dv together (SDPA backward)')
+                  library_of='dq, dk and dv together (SDPA backward)',
+                  backward_ms=main_case['backward_ms'])
     dq = dict(common, max_abs_err=max(r['rel_err']['dq'] for r in rows),
               err_is='max |err| / max |ref|', ms=main_case['dq_ms'],
               bound_ms=main_case['dq_bound_ms'],
@@ -568,11 +664,19 @@ def bwd_phase(torch, F, attention):
                err_is='max |err| / max |ref|', ms=main_case['dkv_ms'],
                bound_ms=main_case['dkv_bound_ms'],
                bound_by=main_case['dkv_bound_by'])
-    return dq, dkv
+    prep = dict(B=8, T=2048, S=2048, D=128, rope=True,
+                max_abs_err=max(r['prep_delta_err'] for r in rows),
+                err_is='delta: max |err| / max |ref|; q_rot/k_rot '
+                       'bit-equal to _rot',
+                ms=main_case['prep_ms'],
+                plain_ms=main_case['prep_plain_ms'],
+                bound_ms=main_case['prep_bound_ms'],
+                bound_by=main_case['prep_bound_by'], library_ms=None)
+    return prep, dq, dkv
 
 
 def _sdpa_backward_ms(torch, F, attention, q, k, v, do, angles, scale,
-                      iters):
+                      causal, iters):
     """Device ms of one backward of PyTorch's SDPA (GQA, causal, after
     an external RoPE when ``angles``) through autograd, forward excluded;
     timed only, the port never calls it."""
@@ -583,12 +687,12 @@ def _sdpa_backward_ms(torch, F, attention, q, k, v, do, angles, scale,
             k, angles)
     t, s = q.shape[1], k.shape[1]
     mask = None
-    if t != s:
+    if causal and t != s:
         mask = (torch.arange(s, device='cuda')[None, :] <=
                 torch.arange(t, device='cuda')[:, None] + (s - t))
     out = F.scaled_dot_product_attention(
         qr.transpose(1, 2), kr.transpose(1, 2), v.transpose(1, 2),
-        attn_mask=mask, is_causal=mask is None, scale=scale,
+        attn_mask=mask, is_causal=causal and mask is None, scale=scale,
         enable_gqa=True)
     grad = do.transpose(1, 2)
 
@@ -694,6 +798,7 @@ def train_phase(torch, attention):
                 ms=1e3 * (time.perf_counter() - t0))
     kernels = {'flash_fwd': attention.FLASH_FWD,
                'flash_fwd_rope': attention.FLASH_FWD_ROPE,
+               'flash_bwd_prep': attention.FLASH_BWD_PREP,
                'flash_bwd_dq': attention.FLASH_BWD_DQ,
                'flash_bwd_dkv': attention.FLASH_BWD_DKV}
     n_steps = 3
@@ -718,7 +823,8 @@ def train_phase(torch, attention):
     # (K1) again before K2 and K3.
     fwd_per_layer = 2 if config.remat else 1
     want = {'flash_fwd': 0, 'flash_fwd_rope': fwd_per_layer * L * n_steps,
-            'flash_bwd_dq': L * n_steps, 'flash_bwd_dkv': L * n_steps}
+            'flash_bwd_prep': L * n_steps, 'flash_bwd_dq': L * n_steps,
+            'flash_bwd_dkv': L * n_steps}
     tokens_per_s = n_steps * tokens_per_step / total_s
     # The reference's MFU convention (metrics/goodput.py): 4 N FLOPs per
     # token for a LoRA step over a frozen base (6 N for a full finetune),
@@ -2181,8 +2287,8 @@ def qlora_phase(torch, attention):
     ``remat_saves='attn'``, the probe's optimizer (clip 1.0, AdamW lr
     1e-3, b2 0.95); one warm-up step and three counted steps on one
     fixed batch, the launch counts zeroed just before and read just
-    after (K1-RoPE 2 x 32 x 3 with the checkpoint's recompute, K2 = K3
-    = 32 x 3). The losses must fall."""
+    after (K1-RoPE 2 x 32 x 3 with the checkpoint's recompute, pre-pass
+    = K2 = K3 = 32 x 3). The losses must fall."""
     import gc
 
     from skypilot_torch.models import llama
@@ -2211,6 +2317,7 @@ def qlora_phase(torch, attention):
                 ms=1e3 * (time.perf_counter() - t0))
     kernels = {'flash_fwd': attention.FLASH_FWD,
                'flash_fwd_rope': attention.FLASH_FWD_ROPE,
+               'flash_bwd_prep': attention.FLASH_BWD_PREP,
                'flash_bwd_dq': attention.FLASH_BWD_DQ,
                'flash_bwd_dkv': attention.FLASH_BWD_DKV}
     torch.cuda.synchronize()
@@ -2228,7 +2335,8 @@ def qlora_phase(torch, attention):
     peak = torch.cuda.max_memory_allocated()
     L = config.n_layers
     want = {'flash_fwd': 0, 'flash_fwd_rope': 2 * L * n_steps,
-            'flash_bwd_dq': L * n_steps, 'flash_bwd_dkv': L * n_steps}
+            'flash_bwd_prep': L * n_steps, 'flash_bwd_dq': L * n_steps,
+            'flash_bwd_dkv': L * n_steps}
     total_s = sum(st['ms'] for st in steps) / 1e3
     tokens_per_s = n_steps * batch_size * seq / total_s
     losses = [warm['loss']] + [st['loss'] for st in steps]
@@ -2289,9 +2397,13 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f'kernels built in {time.perf_counter() - t0:.1f} s')
+    bwd_spills = []  # K2/K3 must not spill (checked after the phases)
     for name, path in libs.items():
         for entry in ptxas_report(path[:-len('.so')] + '.log'):
             log('BUILD ' + json.dumps(dict(library=name, **entry)))
+            if name == 'flash_bwd' and (entry.get('spill_stores')
+                                        or entry.get('spill_loads')):
+                bwd_spills.append(entry)
     if 'k1' in phases:
         k1 = k1_phase(torch, F, attention)
     if 'k4' in phases:
@@ -2303,7 +2415,7 @@ def main() -> int:
     if 'k1r' in phases:
         k1r = k1r_phase(torch, F, attention)
     if 'bwd' in phases:
-        k2, k3 = bwd_phase(torch, F, attention)
+        prep, k2, k3 = bwd_phase(torch, F, attention)
     if 'train' in phases:
         train = train_phase(torch, attention)
     if 'k5' in phases:
@@ -2322,6 +2434,7 @@ def main() -> int:
         int8 = int8_phase(torch, attention, da)
     if 'qlora' in phases:
         qlora = qlora_phase(torch, attention)
+    assert not bwd_spills, f'the backward kernels spill: {bwd_spills}'
     if set(phases) != set(PHASES):
         return 0
     s8 = {w: int8['serve_8b'][w]['launches'] for w in ('int8', 'bf16')}
@@ -2349,6 +2462,13 @@ def main() -> int:
              launches=sum(k1_launches.values()),
              **{f'launches_{k}': v for k, v in k1_launches.items()},
              **k1, rope=k1r),
+        dict(name='flash_bwd_prep', route='cuda',
+             source='skypilot_torch/csrc/flash_bwd.cu',
+             replaces='skypilot_tpu/ops/attention.py:505',
+             launches=(train['launches']['flash_bwd_prep'] +
+                       qlora['launches']['flash_bwd_prep']),
+             launches_train=train['launches']['flash_bwd_prep'],
+             launches_qlora=qlora['launches']['flash_bwd_prep'], **prep),
         dict(name='flash_bwd_dq', route='cuda',
              source='skypilot_torch/csrc/flash_bwd.cu',
              replaces='skypilot_tpu/ops/attention.py:263',

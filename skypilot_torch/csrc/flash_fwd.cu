@@ -21,8 +21,9 @@
 //
 // Fused RoPE (skypilot_flash_fwd_rope, the TPU kernel's fuse_rope): q and
 // k arrive UN-rotated with f32 [T, D] cos/sin tables (T == S). A pre-pass
-// kernel rotates every q and k row once (rope8: f32 math rounded to bf16,
-// the TPU kernel's _rot): q into `out` (each block of the mainloop reads
+// kernel rotates every q and k row once (flash_common.cuh's rope_item, f32
+// math rounded to bf16, the TPU kernel's _rot; the backward's pre-pass runs
+// the same code): q into `out` (each block of the mainloop reads
 // its own q rows from there before it overwrites the same rows with its
 // result) and k into `krot`, a [B,S,Hkv,D] scratch the wrapper allocates.
 // The mainloop then reads the rotated tensors by TMA with no rotation of
@@ -30,7 +31,7 @@
 // block that reads it. The entry without tables (skypilot_flash_fwd) is
 // the serving path's and runs no rotation.
 
-#include "flash_fwd_sm90.cuh"  // and mma_common.cuh, for rope8
+#include "flash_fwd_sm90.cuh"  // and flash_common.cuh: the RoPE pre-pass
 
 namespace {
 
@@ -39,44 +40,13 @@ using flash_sm90::bf16;
 constexpr int kBK = 128;  // keys per K/V tile
 constexpr int kRopeThreads = 256;
 
-// One thread rotates the column pairs (8j + i, 8j + i + D/2), i < 8, of
-// one row of q (heads [0, H)) or k (heads [H, H + Hkv)).
 template <int D>
 __global__ void __launch_bounds__(kRopeThreads)
-    rope_prepass(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const float* __restrict__ cosb,
-                 const float* __restrict__ sinb, bf16* __restrict__ qr,
-                 bf16* __restrict__ kr, int B, int T, int H, int Hkv,
-                 long long q_sb, long long q_st, long long q_sh,
-                 long long k_sb, long long k_st, long long k_sh,
-                 long long o_sb, long long o_st, long long o_sh) {
-  constexpr int HALF = D / 16;  // 8-column chunks per half row
-  const long long n = (long long)B * T * (H + Hkv) * HALF;
+    rope_prepass(const flash::RopeArgs a) {
+  const long long n = flash::rope_items<D>(a);
   for (long long i = blockIdx.x * (long long)kRopeThreads + threadIdx.x;
-       i < n; i += (long long)gridDim.x * kRopeThreads) {
-    const int col = int(i % HALF) * 8;
-    long long rest = i / HALF;
-    const int head = int(rest % (H + Hkv));
-    rest /= H + Hkv;
-    const int pos = int(rest % T);
-    const int b = int(rest / T);
-    const bf16* src;
-    bf16* dst;
-    if (head < H) {
-      src = q + b * q_sb + pos * q_st + head * q_sh;
-      dst = qr + b * o_sb + pos * o_st + head * o_sh;
-    } else {
-      const int kh = head - H;
-      src = k + b * k_sb + pos * k_st + kh * k_sh;
-      dst = kr + (((long long)b * T + pos) * Hkv + kh) * D;
-    }
-    uint4 lo = *reinterpret_cast<const uint4*>(src + col);
-    uint4 hi = *reinterpret_cast<const uint4*>(src + col + D / 2);
-    flash::rope8(lo, hi, cosb + (long long)pos * D + col,
-                 sinb + (long long)pos * D + col);
-    *reinterpret_cast<uint4*>(dst + col) = lo;
-    *reinterpret_cast<uint4*>(dst + col + D / 2) = hi;
-  }
+       i < n; i += (long long)gridDim.x * kRopeThreads)
+    flash::rope_item<D>(a, i);
 }
 
 // The mainloop over q [B,T,H,D] and k/v [B,S,Hkv,D] views with the given
@@ -131,14 +101,17 @@ cudaError_t run(const void* q, const void* k, const void* v,
   if (cosb == nullptr)
     return attend<D>(q, qs, k, ks, v, vs, out, os, lse, B, T, S, H, Hkv,
                      scale_log2, causal, stream);
-  const long long n = (long long)B * T * (H + Hkv) * (D / 16);
-  const long long want = (n + kRopeThreads - 1) / kRopeThreads;
+  const flash::RopeArgs ra{static_cast<const bf16*>(q),
+                           static_cast<const bf16*>(k),
+                           static_cast<const float*>(cosb),
+                           static_cast<const float*>(sinb),
+                           static_cast<bf16*>(out), static_cast<bf16*>(krot),
+                           B, T, H, Hkv, qs[0], qs[1], qs[2], ks[0], ks[1],
+                           ks[2], os[0], os[1], os[2]};
+  const long long want =
+      (flash::rope_items<D>(ra) + kRopeThreads - 1) / kRopeThreads;
   const int blocks = int(want < 65535 ? want : 65535);  // grid-stride
-  rope_prepass<D><<<blocks, kRopeThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const float*>(cosb), static_cast<const float*>(sinb),
-      static_cast<bf16*>(out), static_cast<bf16*>(krot), B, T, H, Hkv,
-      qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], os[0], os[1], os[2]);
+  rope_prepass<D><<<blocks, kRopeThreads, 0, stream>>>(ra);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long krs[3] = {(long long)S * Hkv * D, (long long)Hkv * D, D};

@@ -1,6 +1,7 @@
 // The Hopper (sm_90a) flash-attention forward mainloop shared by K1
 // (flash_fwd.cu, one head per block) and K6 (attention_packed.cu, a head
-// pair per block).
+// pair per block); the backward (flash_bwd.cu) reuses its product
+// issuers (issue_qk, issue_pv), exp2 and fragment re-pack.
 //
 // Contract of the mainloop: q rows, k/v keys, out rows of one head are
 // read and written through strides (any [B,T,H,D] or [B,H,T,D] view with
@@ -57,7 +58,7 @@
 
 #include <math.h>
 
-#include "mma_common.cuh"
+#include "flash_common.cuh"
 #include "sm90_common.cuh"
 
 namespace flash_sm90 {
@@ -190,9 +191,24 @@ __device__ __forceinline__ void softmax_tile(
   }
 }
 
-// O *= alpha per row, then P (sc) re-packed as the bf16 A fragments of
-// the next P V: the f32 S fragment of keys 16kk..16kk+15 is exactly the
-// m16n8k16 A fragment, so no data moves between threads.
+// The f32 accumulator fragment of a 64 x BK tile re-packed as the bf16 A
+// fragments of a following wgmma_rs (K = BK): the fragment of columns
+// 16kk..16kk+15 is exactly the m16n8k16 A fragment, so no data moves
+// between threads.
+template <int BK>
+__device__ __forceinline__ void pack_frags(uint32_t (&pa)[BK / 16][4],
+                                          const float (&sc)[BK / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+// O *= alpha per row, then P (sc) re-packed as the A fragments of the
+// next P V.
 template <int D, int BK>
 __device__ __forceinline__ void rescale_pack(float (&o)[D / 2],
                                              uint32_t (&pa)[BK / 16][4],
@@ -205,13 +221,7 @@ __device__ __forceinline__ void rescale_pack(float (&o)[D / 2],
     o[4 * j + 2] *= alpha[1];
     o[4 * j + 3] *= alpha[1];
   }
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-  }
+  pack_frags<BK>(pa, sc);
 }
 
 // PAIRED = false (K1): grid (ceil(T / 128), H, B), one head a block.

@@ -2,29 +2,34 @@
 
 ``flash_attention`` on CUDA tensors launches the hand-written kernels
 that replace the TPU ones: K1-cuda (``csrc/flash_fwd.cu``, for
-``_fwd_kernel``, with or without fused RoPE) forward, and K2-cuda /
-K3-cuda (``csrc/flash_bwd.cu``, for ``_bwd_dq_kernel`` /
-``_bwd_dkv_kernel``) backward, through ``_FlashAttention``, the
-counterpart of the JAX ``custom_vjp``. On CPU tensors the same entry
-points run ``_flash_fwd_plain`` / ``_flash_bwd_plain``, dense f32
-computations under the kernels' contract; any other device raises.
+``_fwd_kernel``, with or without fused RoPE) forward; and backward the
+pre-pass (``csrc/flash_bwd.cu`` ``skypilot_flash_bwd_prep``, for the XLA
+pass that computes delta in ``_bwd_pallas``), then K2-cuda and K3-cuda
+(the same file, for ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``), through
+``_FlashAttention``, the counterpart of the JAX ``custom_vjp``. On CPU
+tensors the same entry points run ``_flash_fwd_plain`` /
+``_flash_bwd_plain`` (on ``_bwd_prep_plain``), dense f32 computations
+under the kernels' contract; any other device raises.
 
 Contract of both paths (the TPU kernels'):
 
 - q ``[B, T, H, D]``, k/v ``[B, S, Hkv, D]``; GQA is native — head
   ``h`` reads KV head ``h // (H // Hkv)``, K/V are never repeated;
 - causal masking is bottom-right aligned: ``q_pos + S - T >= k_pos``;
-- ``lse`` is f32 ``[B, H, T]`` in the log2 domain;
+- ``lse`` is f32 ``[B, H, T]`` in the log2 domain, from scores that
+  ``scale * log2(e)`` multiplies in f32; the backward rebuilds ``P =
+  exp2(s * scale * log2(e) - lse)`` the same way (the TPU kernels fold
+  the scale into a bf16 copy of q or k instead);
 - a row that sees no key (causal with T > S) gets ``out = 0`` and
-  ``lse = +1e30``, so its backward ``P = exp2(s - lse)`` and all its
-  gradients are 0. The dense reference ``dot_product_attention`` gives
-  such rows a uniform average instead; the port follows the kernels;
+  ``lse = +1e30``, so its backward ``P`` and all its gradients are 0.
+  The dense reference ``dot_product_attention`` gives such rows a
+  uniform average instead; the port follows the kernels;
 - fused RoPE (``rope_angles``, T == S): q/k come in un-rotated with
   ``[T, D]`` f32 cos/sin tables (the angles duplicated to full width);
   they are rotated in f32 and rounded to the input dtype before the dot
-  (``_rot``; K1-cuda rotates every row once in a pre-pass of its
-  launch), and dq/dk are pulled back through the inverse rotation
-  (``_rot_inv``). Only un-rotated q/k are saved for backward.
+  (``_rot``; K1-cuda and the backward's pre-pass rotate every row once,
+  with one shared code), and dq/dk are pulled back through the inverse
+  rotation (``_rot_inv``). Only un-rotated q/k are saved for backward.
 
 Not ported: the ``remat_policy`` names that let a layer checkpoint keep
 the kernel's out/lse (ROADMAP.md Queue 2); under a plain per-layer
@@ -56,6 +61,11 @@ FLASH_BWD_DQ = _build.Kernel('flash_bwd', 'skypilot_flash_bwd_dq',
                              _BWD_ARGS)
 FLASH_BWD_DKV = _build.Kernel('flash_bwd', 'skypilot_flash_bwd_dkv',
                               _BWD_ARGS)
+# ptrs (dO, out, q, k, cos, sin, q_rot, k_rot, delta), B, T, S, H, Hkv,
+# D, strides, stream.
+FLASH_BWD_PREP = _build.Kernel(
+    'flash_bwd', 'skypilot_flash_bwd_prep',
+    [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
 FLASH_HEAD_DIMS = (64, 128)
 
 
@@ -175,27 +185,39 @@ def _flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.reshape(b, h, t))
 
 
+def _bwd_prep_plain(q: torch.Tensor, k: torch.Tensor, out: torch.Tensor,
+                    do: torch.Tensor, cos: Optional[torch.Tensor] = None,
+                    sin: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward pre-pass: (delta, q_rot, k_rot). ``delta = rowsum(do
+    * out)`` in f32, ``[B, H, T]`` like lse; with tables q and k rotated
+    by ``_rot`` (the forward's rotation), else q and k as given."""
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    if cos is None:
+        return delta, q, k
+    return delta, _rot(q, cos, sin), _rot(k, cos, sin)
+
+
 def _flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      out: torch.Tensor, lse: torch.Tensor,
                      do: torch.Tensor, cos: Optional[torch.Tensor] = None,
                      sin: Optional[torch.Tensor] = None,
                      causal: bool = True, scale: Optional[float] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Dense f32 (dq, dk, dv) under K2/K3's contract: P is rebuilt as
-    ``exp2(s - lse)`` from the saved log2-domain lse (so a row that saw
-    no key, lse = +1e30, gets zero gradients), ``delta = rowsum(do *
-    out)``, dS = P (dP - delta), the scale applied once to dq/dk, and
-    with ``cos``/``sin`` the gradients pulled back through RoPE. q/k are
-    the un-rotated inputs. Returns gradients in q/k/v's dtypes."""
+    """Dense f32 (dq, dk, dv) under the pre-pass's and K2/K3's contract:
+    delta and the rotated q/k from ``_bwd_prep_plain``, P rebuilt as
+    ``exp2(s * scale * log2(e) - lse)`` from the saved log2-domain lse
+    (so a row that saw no key, lse = +1e30, gets zero gradients), dS = P
+    (dP - delta), the scale applied once to dq/dk, and with ``cos``/
+    ``sin`` the gradients pulled back through RoPE. q/k are the
+    un-rotated inputs. Returns gradients in q/k/v's dtypes."""
     b, t, h, d = q.shape
     _, s, hkv, _ = k.shape
     g = h // hkv
     _check_rope(t, s, d, cos, sin)
     if scale is None:
         scale = d ** -0.5
-    qr, kr = q, k
-    if cos is not None:
-        qr, kr = _rot(q, cos, sin), _rot(k, cos, sin)
+    delta, qr, kr = _bwd_prep_plain(q, k, out, do, cos, sin)
     qf = qr.float().reshape(b, t, hkv, g, d)
     kf, vf = kr.float(), v.float()
     dof = do.float().reshape(b, t, hkv, g, d)
@@ -204,10 +226,8 @@ def _flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits.masked_fill(~_causal_visible(t, s, q.device),
                                     -math.inf)
     p = torch.exp2(logits - lse.float().reshape(b, hkv, g, t)[..., None])
-    delta = (do.float() * out.float()).sum(-1)  # [B, T, H]
-    delta = delta.permute(0, 2, 1).reshape(b, hkv, g, t)[..., None]
     dp = torch.einsum('bthgd,bshd->bhgts', dof, vf)
-    ds = p * (dp - delta)
+    ds = p * (dp - delta.reshape(b, hkv, g, t)[..., None])
     dq = torch.einsum('bhgts,bshd->bthgd', ds, kf).reshape(b, t, h, d)
     dk = torch.einsum('bhgts,bthgd->bshd', ds, qf)
     dv = torch.einsum('bhgts,bthgd->bshd', p, dof)
@@ -293,31 +313,53 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def _bwd_prep_cuda(q, k, out, do, cos, sin
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the pre-pass (FLASH_BWD_PREP) on checked inputs: (delta,
+    q_rot, k_rot) as ``_bwd_prep_plain``; the rotated copies are scratch
+    allocated here, and without tables q and k come back as given."""
+    b, t, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    qr, kr, rot = q, k, [None, None, None, None]
+    if cos is not None:
+        qr = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+        kr = torch.empty((b, s, hkv, d), dtype=k.dtype, device=k.device)
+        rot = [cos.data_ptr(), sin.data_ptr(), qr.data_ptr(), kr.data_ptr()]
+    ptrs = (ctypes.c_void_p * 9)(do.data_ptr(), out.data_ptr(),
+                                 q.data_ptr(), k.data_ptr(), *rot,
+                                 delta.data_ptr())
+    FLASH_BWD_PREP(ptrs, b, t, s, h, hkv, d,
+                   (ctypes.c_longlong * 12)(*_strides(do, out, q, k)),
+                   torch.cuda.current_stream(q.device).cuda_stream)
+    return delta, qr, kr
+
+
 def _flash_bwd_cuda(q, k, v, out, lse, do, cos, sin, causal: bool,
                     scale: float
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K2-cuda then K3-cuda; delta = rowsum(do * out) is one
-    torch pass before them (XLA's pass outside the TPU kernels)."""
-    b, t, s, h, hkv, d = _check_shapes('flash_attention backward', q, k,
-                                       v)
-    _check_cuda('flash_attention backward',
-                (('q', q), ('k', k), ('v', v), ('out', out), ('do', do)))
-    _check_rope(t, s, d, cos, sin)
+    """Launch the pre-pass (delta, and with tables the rotated q/k),
+    then K2-cuda and K3-cuda on its outputs; raises, before any launch,
+    on anything they or their tensor maps do not take (q, k, v, out and
+    do alike)."""
+    what = 'flash_attention backward'
+    b, t, s, h, hkv, d = _check_shapes(what, q, k, v)
     if do.shape != q.shape or out.shape != q.shape:
-        raise ValueError('flash_attention backward: out/do must match q '
-                         f'{tuple(q.shape)}')
+        raise ValueError(f'{what}: out/do must match q {tuple(q.shape)}')
+    _check_cuda(what, (('q', q), ('k', k), ('v', v), ('out', out),
+                       ('do', do)))
+    _check_rope(t, s, d, cos, sin)
     if (lse.shape != (b, h, t) or lse.dtype != torch.float32
             or lse.device != q.device or not lse.is_contiguous()):
-        raise ValueError('flash_attention backward: lse must be f32 '
-                         f'[B, H, T] = {(b, h, t)} contiguous on '
-                         f'{q.device}')
+        raise ValueError(f'{what}: lse must be f32 [B, H, T] = '
+                         f'{(b, h, t)} contiguous on {q.device}')
     if cos is not None:
-        _check_tables('flash_attention backward', q.device, cos, sin)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        _check_tables(what, q.device, cos, sin)
+    delta, qr, kr = _bwd_prep_cuda(q, k, out, do, cos, sin)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    args = (q, k, v, do, lse, delta, cos, sin)
+    args = (qr, kr, v, do, lse, delta, cos, sin)
     _bwd_launch(FLASH_BWD_DQ, *args, (dq,), causal, scale)
     _bwd_launch(FLASH_BWD_DKV, *args, (dk, dv), causal, scale)
     return dq, dk, dv
@@ -325,8 +367,9 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, cos, sin, causal: bool,
 
 def _bwd_launch(kernel: _build.Kernel, q, k, v, do, lse, delta, cos, sin,
                 outs, causal: bool, scale: float) -> None:
-    """One launch of K2 (outs = (dq,)) or K3 (outs = (dk, dv)) on
-    inputs ``_flash_bwd_cuda`` has checked."""
+    """One launch of K2 (outs = (dq,)) or K3 (outs = (dk, dv)) on the
+    pre-pass's outputs (q and k rotated when tables are given; the
+    tables then pull dq/dk back through RoPE)."""
     b, t, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     tables = ([cos.data_ptr(), sin.data_ptr()] if cos is not None
@@ -368,8 +411,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor,
                                    torch.Tensor]:
     """(dq, dk, dv) from the forward's saved (un-rotated) q/k, v, out
-    and lse. CUDA tensors go to K2-cuda and K3-cuda, CPU tensors to
-    ``_flash_bwd_plain``; any other device raises."""
+    and lse. CUDA tensors go to the pre-pass, K2-cuda and K3-cuda, CPU
+    tensors to ``_flash_bwd_plain``; any other device raises."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == 'cuda':
@@ -384,8 +427,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class _FlashAttention(torch.autograd.Function):
     """The ``custom_vjp`` of the JAX ``_flash_attention``: the forward
     saves the un-rotated q/k, v, out, lse and the tables; the backward
-    runs K2 then K3 (the plain version for CPU tensors). cos/sin get no
-    gradient."""
+    runs the pre-pass, K2 then K3 (the plain version for CPU tensors).
+    cos/sin get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, cos, sin, causal, scale):

@@ -152,14 +152,14 @@ def test_shared_header_change_rebuilds_every_library(tmp_path,
     before = {n: _build.library_path(n) for n in _build.sources()}
     headers = [os.path.basename(p) for p in
                glob.glob(os.path.join(_build.CSRC_DIR, '*.cuh'))]
-    assert {'mma_common.cuh', 'sm90_common.cuh',
+    assert {'flash_common.cuh', 'sm90_common.cuh',
             'flash_fwd_sm90.cuh'} <= set(headers)
     for name in ['flash_fwd.cu'] + headers:
         with open(os.path.join(_build.CSRC_DIR, name), 'rb') as f:
             (tmp_path / name).write_bytes(f.read())
     monkeypatch.setattr(_build, 'CSRC_DIR', str(tmp_path))
     same = _build.library_path('flash_fwd')
-    with open(tmp_path / 'mma_common.cuh', 'ab') as f:
+    with open(tmp_path / 'flash_common.cuh', 'ab') as f:
         f.write(b'\n// edited\n')
     assert same == before['flash_fwd']
     assert _build.library_path('flash_fwd') != before['flash_fwd']

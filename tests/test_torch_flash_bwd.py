@@ -14,7 +14,10 @@ held to ``jax.grad`` of the JAX ``flash_attention`` forced onto the
 Pallas kernels in interpret mode. Inputs are made with numpy from a
 seed, in f32 under the conftest's 'highest' matmul precision; the sides
 differ only in summation order and where the scale is applied, a few
-f32 ulps on O(10) values, so rtol = atol = 1e-4.
+f32 ulps on O(10) values, so rtol = atol = 1e-4. Both backwards also
+hold, relative to 1e-4, the sums the card's backward is held to:
+sum_keys dV = sum of dO over the rows that see a key, and without RoPE
+sum_keys dK = 0.
 """
 import jax
 import jax.numpy as jnp
@@ -103,6 +106,47 @@ def test_plain_bwd_matches_pallas_bwd(t, s, rope):
         assert (t_grads[0].numpy()[:, :t - s] == 0).all()
         assert (np.asarray(j_lse)[:, :, 0, :t - s]
                 == tattn.EMPTY_ROW_LSE).all()
+
+
+def _dv_and_dk_sums(dk, dv, do, t, s):
+    """(sum over keys of dV - sum of dO over the group's rows that see a
+    key, per (b, kv head); sum over keys of dK), both in [B, S, Hkv, D]
+    layout. The first is 0 when P's rows sum to 1; the second when, in
+    addition, out = P V (delta = rowsum(dO out)) and no RoPE turns dK."""
+    b, _, h, d = do.shape
+    hkv = dv.shape[2]
+    seen = (np.arange(t) + (s - t) >= 0)[None, :, None, None]
+    rhs = (do * seen).sum(1).reshape(b, hkv, h // hkv, d).sum(2)
+    return dv.sum(1) - rhs, rhs, dk.sum(1)
+
+
+@pytest.mark.parametrize('t,s,rope', CASES)
+def test_bwd_sums_hold_for_plain_and_pallas(t, s, rope):
+    """The invariants the card's backward is held to, with no reference:
+    sum_keys dV = sum over the rows that see a key of dO (exactly when
+    P's rows sum to 1), and, without RoPE, sum_keys dK = 0; for the
+    plain version and for the Pallas kernels on the same inputs."""
+    q, k, v, do, angles = _inputs(7 * t + s, 2, t, s)
+    cos = sin = tcos = tsin = None
+    if rope:
+        cos, sin = _jax_tables(angles)
+        tcos, tsin = tattn.rope_tables(torch.from_numpy(angles))
+    j_out, j_lse = _pallas_fwd(q, k, v, cos, sin)
+    _, j_dk, j_dv = jattn._bwd_pallas(
+        _bhtd(q), _bhtd(k), _bhtd(v), j_out, j_lse[:, :, 0], _bhtd(do),
+        cos, sin, scale=SCALE, causal=True, block_q=128, block_k=128,
+        interpret=True)
+    _, t_dk, t_dv = tattn._flash_bwd_plain(
+        *(torch.from_numpy(x) for x in (q, k, v)),
+        torch.from_numpy(_tbhd(j_out)),
+        torch.from_numpy(np.array(j_lse)[:, :, 0]), torch.from_numpy(do),
+        tcos, tsin, True, SCALE)
+    for dk, dv in ((t_dk.numpy(), t_dv.numpy()),
+                   (_tbhd(j_dk), _tbhd(j_dv))):
+        dv_err, rhs, dk_sum = _dv_and_dk_sums(dk, dv, do, t, s)
+        assert np.abs(dv_err).max() <= 1e-4 * np.abs(rhs).max()
+        if not rope:
+            assert np.abs(dk_sum).max() <= 1e-4 * np.abs(dk).max()
 
 
 @pytest.mark.parametrize('rope', [True, False])
