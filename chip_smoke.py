@@ -14,7 +14,16 @@ in order (any failure exits non-zero; nothing is caught):
    plain, library (``F.scaled_dot_product_attention``, timed only) and
    bound times.
 3. K4 (decode_attention): the serve path's decode shape and a batch of
-   mixed lengths, against the plain version, same columns.
+   mixed lengths, against the plain version (``K4_TOL`` absolute and
+   ``K4_REL_TOL`` per row and query position), same columns with the
+   bound share and the device launches per call (kernel nodes of one
+   call captured in a CUDA graph, which must be one: the splits' merge
+   runs in the same launch); head_dim 64 at groups 1 and 8; a
+   ``LAUNCH_FLOOR`` line (an empty kernel timed in a CUDA graph as the
+   kernels are). Before the phases, ``BUILD`` lines give every kernel's
+   registers, static shared memory and spills; ``K4_BUILD`` sums K4's 64
+   instantiations (none may spill) and checks the wrapper's shared-memory
+   plan against the kernel's own layout for every instantiation.
 4. End-to-end numerics: llama3-8b at full width and 2 layers, bf16 on
    the card against the same weights in f32 on the CPU (plain paths).
 5. Serve: the port's replica at llama3-8b (32 layers, random weights),
@@ -48,7 +57,12 @@ in order (any failure exits non-zero; nothing is caught):
 10. K4P (decode_attention_paged): W = 1 and W = 9 over shuffled block
    tables (B 8, 16-token blocks, lengths to 8192) against the f32 plain
    version, timed beside the JAX package's route (gather + dense K4)
-   and gather + SDPA; W = 1 bit-equal to dense K4 on contiguous tables.
+   and gather + SDPA; W = 1 bit-equal to dense K4 on contiguous tables;
+   B1 at W 2 and 9, head_dim 64 at groups 1 and 8 (W 9), and a 37-page
+   table (MB * bs not a whole number of 64-key tiles); ``K4_GRAPH``: a
+   4-layer sequence of decode and verify calls and a dense call, captured
+   in one CUDA graph and replayed, bit-equal to the same calls made
+   eagerly.
 11. Engine: the engine's prefill logits and greedy tokens at 2 layers,
    bf16 on the card vs f32 on the CPU; then the ``--slots 8`` replica at
    llama3-8b (32 layers) answering 12 concurrent requests (a shared
@@ -64,8 +78,10 @@ in order (any failure exits non-zero; nothing is caught):
    K1 / SDPA / bound times at B 8, T 2048, 32/8 heads, head_dim 64; then
    its entry point ``bench_main()`` with its launches counted.
 14. INT8K: the int8 forms of K4 (dense; paged W = 1 and W = 9, W = 1
-   bit-equal to dense int8 on contiguous tables) and K5 (bit-exact on
-   codes and scales) against their plain versions, with times.
+   bit-equal to dense int8 on contiguous tables; dense head_dim 64 at
+   groups 1 and 8; paged B1 at W 2 and 9; the ``K4_GRAPH`` replay) and
+   K5 (bit-exact on codes and scales) against their plain versions,
+   with times.
 15. INT8: llama3-8b at 2 layers with int8 weights and int8 KV, bf16 on
    the card vs f32 on the CPU; the serve_8b point (llama3.1-8b, 32
    layers, int8 weights and KV, batch 8, 1024-token prompts, 32 new,
@@ -113,6 +129,12 @@ BWD_DV_SUM_TOL = 1e-2
 # The pre-pass's delta against the f32 plain version: summation order.
 PREP_TOL = 1e-5
 K4_TOL = 2e-2
+# K4 against its f32 plain version, per (row, query position): max |err|
+# over max |ref| across its heads and dims. K4_TOL's one absolute bound is
+# as large as a long row's typical output (about sqrt(e / n) at n keys);
+# this holds every row to its own size, so a tile or a split dropped from
+# a long row fails it.
+K4_REL_TOL = 1e-2
 E2E_REL_TOL = 5e-2
 # bf16 on the card vs f32 on the CPU at 2 layers: relative loss error,
 # max |err| / max |ref| per LoRA gradient, relative loss and grad_norm
@@ -197,6 +219,9 @@ def ptxas_report(log_path):
             m = re.search(r'Used (\d+) registers', line)
             if m:
                 cur['registers'] = int(m.group(1))
+            m = re.search(r'(\d+) bytes smem', line)
+            if m:
+                cur['static_smem'] = int(m.group(1))
     try:
         names = subprocess.run(
             ['c++filt'], input='\n'.join(e['kernel'] for e in entries),
@@ -240,9 +265,12 @@ def profile_cuda(torch, fn, label, extra):
     # kernels sit in anonymous namespaces too, but under at::.
     port = [e for e in events if re.search(
         r'flash_sm90::|anonymous namespace', e.key) and 'at::' not in e.key]
+    k4_ms = sum(e.self_device_time_total for e in events
+                if 'decode_kernel' in e.key) / 1e3
     log(label + ' ' + json.dumps(dict(
         extra, wall_ms=wall_ms, device_busy_ms=busy_ms,
         device_idle_share=1 - busy_ms / wall_ms,
+        k4_ms=k4_ms, k4_share=k4_ms / busy_ms if busy_ms else 0.0,
         device_launches=sum(e.count for e in events),
         top=[dict(name=e.key[:80], calls=e.count,
                   ms=e.self_device_time_total / 1e3) for e in top],
@@ -857,6 +885,191 @@ def train_phase(torch, attention):
 # ---------------------------------------------------------------------
 
 
+def launch_floor_ms(torch):
+    """An empty kernel (``torch.cuda._sleep(0)``) timed in a CUDA graph
+    as the kernels are: the least a graph node costs on this card."""
+    return graph_ms(torch, lambda: torch.cuda._sleep(0), [()], 200)
+
+
+def k4_errors(out, ref):
+    """K4's output against its plain version: the max absolute error, and
+    the max over (row, query position) of max |err| / max |ref| across
+    that position's heads and dims (the last two dims)."""
+    diff = (out.float() - ref).abs()
+    rel = diff.amax(dim=(-2, -1)) / ref.abs().amax(dim=(-2, -1)).clamp_min(
+        1e-30)
+    return diff.max().item(), rel.max().item()
+
+
+def graph_launches(torch, fn):
+    """Kernels one call of ``fn`` launches on the card: the kernel nodes
+    of the call captured alone in a CUDA graph (after a warm-up call),
+    read through the driver's cuGraphGetNodes / cuGraphNodeGetType.
+    Returns (kernel nodes, all nodes)."""
+    import ctypes
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL('libcuda.so.1')
+
+    def check(res):
+        assert res == 0, f'CUDA driver error {res}'
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)))
+    kinds = []
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)))
+        kinds.append(kind.value)
+    del graph
+    return sum(k == 0 for k in kinds), len(kinds)   # 0: a kernel node
+
+
+def k4_one_launch(torch, tag, fn):
+    """One K4 call is one kernel and nothing else on the card."""
+    kernels, nodes = graph_launches(torch, fn)
+    assert kernels == nodes == 1, (
+        f'{tag}: one call captured {kernels} kernel nodes of {nodes}')
+    return kernels
+
+
+def k4_graph_check(torch, tag, calls):
+    """K4 inside a captured step: ``calls`` (zero-argument functions, one
+    per layer and form) made eagerly, then captured in one CUDA graph
+    and replayed twice, with an eager call of the first between the
+    replays (it shares the merge counters). Every replayed output must
+    be bit-equal to the eager one."""
+    eager = [f() for f in calls]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [f() for f in calls]
+    checks = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        checks.append(all(torch.equal(a, b) for a, b in zip(outs, eager)))
+        between = calls[0]()
+        torch.cuda.synchronize()
+        checks.append(torch.equal(between, eager[0]))
+    del graph
+    row = dict(calls=len(calls), replays=2, bit_equal=all(checks))
+    log(f'K4_GRAPH {tag} ' + json.dumps(row))
+    assert row['bit_equal'], f'{tag}: K4 replayed in a graph differs'
+    return row
+
+
+def _k4_case(torch, F, da, gen, tag, b, w, hq, hkv, hd, lens, s, q8=False,
+             paged=False):
+    """One K4 case at given shapes (random inputs from ``gen``): the
+    kernel against its plain version in f32 (``K4_TOL``), and kernel,
+    plain, library and bound times with the bound share. Dense takes W 1;
+    paged reads a shuffled pool of 16-row pages through the block table
+    (lengths leave room for the W positions)."""
+    from skypilot_torch.serve import kv_pool
+    scale = hd ** -0.5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device='cuda',
+                           dtype=torch.bfloat16)
+    if paged:
+        mb = -(-s // BLOCK)
+        s = mb * BLOCK
+        n_pages = b * mb + 1
+        k, v = randn(n_pages * BLOCK, hkv, hd), randn(n_pages * BLOCK, hkv,
+                                                      hd)
+        ids = torch.randperm(n_pages - 1, generator=gen,
+                             device='cuda')[:b * mb] + 1
+        tables = ids.reshape(b, mb).to(torch.int32).contiguous()
+        lens = [min(n, s - w + 1) for n in lens]
+        q = randn(b, w, hq, hd)
+    else:
+        k, v = randn(b, s, hkv, hd), randn(b, s, hkv, hd)
+        q = randn(b, hq, hd)
+    ks = vs = None
+    if q8:
+        k, ks = _q8(k[None] if paged else k)
+        v, vs = _q8(v[None] if paged else v)
+        if paged:
+            k, ks, v, vs = k[0], ks[0], v[0], vs[0]
+    lengths = torch.tensor(lens, dtype=torch.int32, device='cuda')
+    if paged:
+        def kernel():
+            return da.paged_verify_attention(q, k, v, tables, lengths, scale,
+                                             BLOCK, ks, vs)
+
+        def plain(q=q):
+            return da._reference_paged_verify_attention(
+                q, k, v, tables, lengths, scale, BLOCK, ks, vs)
+        spans = [min(max(n + w - 1, 1), s) for n in lens]
+        span_mask = (torch.arange(s, device='cuda')[None, None, :] <
+                     (lengths[:, None] + torch.arange(
+                         w, device='cuda')[None, :])[:, :, None])
+
+        def library():
+            gidx = kv_pool.read_indices(tables, BLOCK)
+            kd, vd = da.paged_gather(k, gidx), da.paged_gather(v, gidx)
+            if q8:
+                kd = da.dequant_kv(kd, da.paged_gather(ks, gidx),
+                                   torch.bfloat16)
+                vd = da.dequant_kv(vd, da.paged_gather(vs, gidx),
+                                   torch.bfloat16)
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2),
+                attn_mask=span_mask[:, None], scale=scale, enable_gqa=True)
+        extra_bytes = 4 * (b + b * mb)
+    else:
+        def kernel():
+            return da.decode_attention(q, k, v, lengths, scale, ks, vs)
+
+        def plain(q=q):
+            return da._reference_decode_attention(q, k, v, lengths, scale,
+                                                  ks, vs)
+        spans = [max(n, 1) for n in lens]
+        mask = (torch.arange(s, device='cuda')[None, :] <
+                lengths.clamp(min=1)[:, None])[:, None, None, :]
+
+        def library():
+            kd = da.dequant_kv(k, ks, torch.bfloat16)
+            vd = da.dequant_kv(v, vs, torch.bfloat16)
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
+                attn_mask=mask, scale=scale, enable_gqa=True)
+        extra_bytes = 4 * b
+    out = kernel()
+    torch.cuda.synchronize()
+    if q8:          # codes times scales in f32
+        ref = plain(q.float())
+    elif paged:
+        ref = da._reference_paged_verify_attention(
+            q.float(), k.float(), v.float(), tables, lengths, scale, BLOCK)
+    else:
+        ref = da._reference_decode_attention(q.float(), k.float(),
+                                             v.float(), lengths, scale)
+    err, rel = k4_errors(out, ref)
+    key_bytes = (2 * hd + 4) if q8 else 4 * hd
+    nbytes = sum(spans) * hkv * key_bytes + 4 * q.numel() + extra_bytes
+    row = dict(case=tag, B=b, W=w, Hq=hq, Hkv=hkv, hd=hd, S=s,
+               lengths=lens, int8=q8, paged=paged, max_abs_err=err,
+               tol=K4_TOL, max_rel_err=rel, rel_tol=K4_REL_TOL,
+               ok=err <= K4_TOL and rel <= K4_REL_TOL and bool(
+                   torch.isfinite(out.float()).all()),
+               kernel_ms=graph_ms(torch, kernel, [()], 100),
+               plain_ms=graph_ms(torch, plain, [()], 10),
+               library_ms=graph_ms(torch, library, [()], 20),
+               bound_ms=1e3 * nbytes / PEAK_HBM_BYTES, bound_by='bytes')
+    row['bound_share'] = row['bound_ms'] / row['kernel_ms']
+    log(('K4P' if paged else 'K4') + ('Q8 ' if q8 else ' ') +
+        json.dumps(row))
+    return row
+
+
 def k4_phase(torch, F, da):
     HQ, HKV, HD, S = 32, 8, 128, 8192
     scale = HD ** -0.5
@@ -881,8 +1094,9 @@ def k4_phase(torch, F, da):
         torch.cuda.synchronize()
         ref = da._reference_decode_attention(q.float(), k.float(),
                                              v.float(), lengths, scale)
-        err = (out.float() - ref).abs().max().item()
-        ok = err <= K4_TOL and bool(torch.isfinite(out.float()).all())
+        err, rel = k4_errors(out, ref)
+        ok = (err <= K4_TOL and rel <= K4_REL_TOL
+              and bool(torch.isfinite(out.float()).all()))
         nbytes = (sum(2 * max(n, 1) * HKV * HD * 2 for n in lens)
                   + 2 * 2 * q.numel() + 4 * b)
         bound_ms = 1e3 * nbytes / PEAK_HBM_BYTES
@@ -903,22 +1117,39 @@ def k4_phase(torch, F, da):
 
         kernel_ms = graph_ms(torch, kernel, inputs, 200)
         row = dict(B=b, S=S, lengths=lens, max_abs_err=err, tol=K4_TOL,
-                   ok=ok, kernel_ms=kernel_ms,
+                   max_rel_err=rel, rel_tol=K4_REL_TOL, ok=ok,
+                   kernel_ms=kernel_ms,
                    plain_ms=graph_ms(torch, plain, inputs, 20),
                    library_ms=graph_ms(torch, library, inputs, 50),
-                   bound_ms=bound_ms, gbps=nbytes / kernel_ms / 1e6,
-                   kernel_wall_ms=cuda_ms(torch, kernel, inputs, 200))
+                   bound_ms=bound_ms, bound_share=bound_ms / kernel_ms,
+                   gbps=nbytes / kernel_ms / 1e6,
+                   kernel_wall_ms=cuda_ms(torch, kernel, inputs, 200),
+                   device_launches_per_call=k4_one_launch(
+                       torch, f'K4 B{b}', lambda: kernel(q, k, v)))
         log('K4 ' + json.dumps(row))
         rows.append(row)
         del q, k, v, out, ref, inputs
         torch.cuda.empty_cache()
+    floor = launch_floor_ms(torch)
+    log('LAUNCH_FLOOR ' + json.dumps(dict(
+        kernel='torch.cuda._sleep(0) in a CUDA graph', ms=floor,
+        k4_dense_b1_ms=rows[0]['kernel_ms'],
+        k4_over_floor=rows[0]['kernel_ms'] / floor)))
+    # head_dim 64 at groups 1 and 8 (the other instantiations' shapes).
+    rows += [_k4_case(torch, F, da, gen, f'hd64 G{g} B1', 1, 1, 32,
+                      32 // g, 64, [2048], S) for g in (1, 8)]
     bad = [r for r in rows if not r['ok']]
     assert not bad, f'K4 disagrees with its plain version: {bad}'
     main_case = rows[0]
     return dict(max_abs_err=max(r['max_abs_err'] for r in rows),
+                max_rel_err=max(r['max_rel_err'] for r in rows),
                 ms=main_case['kernel_ms'], plain_ms=main_case['plain_ms'],
                 bound_ms=main_case['bound_ms'], bound_by='bytes',
-                library_ms=main_case['library_ms'])
+                library_ms=main_case['library_ms'],
+                bound_share=main_case['bound_share'],
+                device_launches_per_call=main_case[
+                    'device_launches_per_call'],
+                launch_floor_ms=floor)
 
 
 # ---------------------------------------------------------------------
@@ -1236,8 +1467,9 @@ def k4p_phase(torch, F, da):
         else:
             ref = da._reference_paged_verify_attention(
                 q.float(), k_f32, v_f32, tables, lengths, scale, BLOCK)
-        err = (out.float() - ref).abs().max().item()
-        ok = err <= K4_TOL and bool(torch.isfinite(out.float()).all())
+        err, rel = k4_errors(out, ref)
+        ok = (err <= K4_TOL and rel <= K4_REL_TOL
+              and bool(torch.isfinite(out.float()).all()))
         spans = [min(max(n + w - 1, 1), s) for n in lengths.tolist()]
         nbytes = (sum(spans) * 2 * HKV8 * HD8 * 2 + 2 * 2 * q.numel()
                   + 4 * (b + b * mb))
@@ -1255,13 +1487,17 @@ def k4p_phase(torch, F, da):
 
         row = dict(B=b, W=w, block_size=BLOCK, pool_blocks=POOL_BLOCKS,
                    lengths=lengths.tolist(), max_abs_err=err, tol=K4_TOL,
-                   ok=ok, kernel_ms=graph_ms(torch, kernel, [()], 200),
+                   max_rel_err=rel, rel_tol=K4_REL_TOL, ok=ok,
+                   kernel_ms=graph_ms(torch, kernel, [()], 200),
                    plain_ms=graph_ms(torch, plain, [()], 10),
                    jax_route_ms=graph_ms(torch, jax_route, [()], 50),
                    library_ms=graph_ms(torch, library, [()], 20),
                    library='gather + SDPA (boolean mask, GQA)',
-                   bound_ms=1e3 * nbytes / PEAK_HBM_BYTES, bound_by='bytes')
+                   bound_ms=1e3 * nbytes / PEAK_HBM_BYTES, bound_by='bytes',
+                   device_launches_per_call=k4_one_launch(
+                       torch, f'K4P W{w}', kernel))
         row['gbps'] = nbytes / row['kernel_ms'] / 1e6
+        row['bound_share'] = row['bound_ms'] / row['kernel_ms']
         log('K4P ' + json.dumps(row))
         rows.append(row)
         del q, out, ref
@@ -1284,22 +1520,57 @@ def k4p_phase(torch, F, da):
     log('K4P_CONTIGUOUS ' + json.dumps(dict(
         bit_equal_to_dense_k4=bit_equal,
         max_abs_diff=(dense.float() - paged.float()).abs().max().item())))
-    del k_pool, v_pool, k_f32, v_f32, k_dense, v_dense, kp, vp
+    # K4 inside a captured step: 4 layers (their own q, the pools swapped
+    # on odd layers) of decode and verify calls, then a dense call.
+    calls = []
+    for i in range(4):
+        kl, vl = (k_pool, v_pool) if i % 2 == 0 else (v_pool, k_pool)
+        for w in (1, 9):
+            ql = randn(b, w, HQ, HD8)
+            ll = torch.tensor([min(n, s - w + 1) for n in lens],
+                              dtype=torch.int32, device='cuda')
+            calls.append(lambda ql=ql, kl=kl, vl=vl, ll=ll:
+                         da.paged_verify_attention(ql, kl, vl, tables, ll,
+                                                   scale, BLOCK))
+    calls.append(lambda: da.decode_attention(q, k_dense, v_dense, lengths,
+                                             scale))
+    graph = k4_graph_check(torch, 'bf16', calls)
+    del k_pool, v_pool, k_f32, v_f32, k_dense, v_dense, kp, vp, calls
     torch.cuda.empty_cache()
-    bad = [r for r in rows if not r['ok']]
+    # B1 at W 2 and 9; head_dim 64 at groups 1 and 8 (G 8 at W 9 is 72
+    # query rows: two passes over the span); a table whose MB * bs is
+    # not a whole number of 64-key tiles.
+    extra = [_k4_case(torch, F, da, gen, f'B1 W{w}', 1, w, 32, 8, 128,
+                      [2000], 8192, paged=True) for w in (2, 9)]
+    extra += [_k4_case(torch, F, da, gen, f'hd64 G{g} B1 W9', 1, 9, 32,
+                       32 // g, 64, [2000], 8192, paged=True)
+              for g in (1, 8)]
+    extra.append(_k4_case(torch, F, da, gen, 'hd64 G1 B2 W3 MB37', 2, 3,
+                          8, 8, 64, [5, 590], 37 * BLOCK, paged=True))
+    bad = [r for r in rows + extra if not r['ok']]
     assert not bad, f'K4-paged disagrees with its plain version: {bad}'
     assert bit_equal, 'K4-paged W=1 is not bit-equal to dense K4'
     main_case, verify = rows
-    keys = ('B', 'W', 'max_abs_err', 'kernel_ms', 'plain_ms',
-            'jax_route_ms', 'library_ms', 'bound_ms')
+    keys = ('B', 'W', 'max_abs_err', 'max_rel_err', 'kernel_ms', 'plain_ms',
+            'jax_route_ms', 'library_ms', 'bound_ms', 'bound_share',
+            'device_launches_per_call')
     return dict(max_abs_err=max(r['max_abs_err'] for r in rows),
+                max_rel_err=max(r['max_rel_err'] for r in rows + extra),
                 ms=main_case['kernel_ms'], plain_ms=main_case['plain_ms'],
                 bound_ms=main_case['bound_ms'], bound_by='bytes',
                 library_ms=main_case['library_ms'],
                 library='gather + SDPA (boolean mask, GQA)',
                 jax_route_ms=main_case['jax_route_ms'],
+                bound_share=main_case['bound_share'],
+                device_launches_per_call=main_case[
+                    'device_launches_per_call'],
                 bit_equal_to_dense_k4=bit_equal,
-                verify={k: verify[k] for k in keys})
+                verify={k: verify[k] for k in keys},
+                graph=graph,
+                cases={r['case']: {k: r[k] for k in (
+                    'max_abs_err', 'max_rel_err', 'kernel_ms', 'plain_ms',
+                    'library_ms', 'bound_ms', 'bound_share')}
+                    for r in extra})
 
 
 # ---------------------------------------------------------------------
@@ -1893,7 +2164,7 @@ def int8k_phase(torch, F, da):
         assert da.DECODE_ATTENTION_Q8.launches == before + 1
         ref = da._reference_decode_attention(
             q.float(), kq, vq, lengths, scale, ks, vs)
-        err = (got.float() - ref).abs().max().item()
+        err, rel = k4_errors(got, ref)
         nbytes = (sum(lens) * HKV8 * Q8_KEY_BYTES + 2 * 2 * q.numel()
                   + 4 * b)
         inputs = copies_outside_l2(make, nbytes, (q, kq, vq, ks, vs))
@@ -1913,14 +2184,19 @@ def int8k_phase(torch, F, da):
                 dequant(vq, vs).transpose(1, 2), attn_mask=mask,
                 scale=scale, enable_gqa=True)
         row = dict(case=label, B=b, S=s, lengths=lens, max_abs_err=err,
-                   tol=K4_TOL, ok=err <= K4_TOL and bool(
+                   tol=K4_TOL, max_rel_err=rel, rel_tol=K4_REL_TOL,
+                   ok=err <= K4_TOL and rel <= K4_REL_TOL and bool(
                        torch.isfinite(got.float()).all()),
                    kernel_ms=graph_ms(torch, kernel, inputs, 200),
                    plain_ms=graph_ms(torch, plain, inputs, 20),
                    library_ms=graph_ms(torch, library, inputs, 50),
                    library='dequantize + SDPA (boolean mask, GQA)',
-                   bound_ms=1e3 * nbytes / PEAK_HBM_BYTES, bound_by='bytes')
+                   bound_ms=1e3 * nbytes / PEAK_HBM_BYTES, bound_by='bytes',
+                   device_launches_per_call=k4_one_launch(
+                       torch, f'K4Q8 {label}',
+                       lambda: kernel(q, kq, vq, ks, vs)))
         row['gbps'] = nbytes / row['kernel_ms'] / 1e6
+        row['bound_share'] = row['bound_ms'] / row['kernel_ms']
         log('K4Q8 ' + json.dumps(row))
         dense_rows.append(row)
         del q, kq, vq, ks, vs, inputs, got, ref
@@ -1973,7 +2249,7 @@ def int8k_phase(torch, F, da):
         else:
             ref = da._reference_paged_verify_attention(
                 q.float(), kq, vq, tables, lengths, scale, BLOCK, ks, vs)
-        err = (got.float() - ref).abs().max().item()
+        err, rel = k4_errors(got, ref)
         spans = [min(max(n + w - 1, 1), s) for n in lengths.tolist()]
         nbytes = (sum(spans) * HKV8 * Q8_KEY_BYTES + 2 * 2 * q.numel()
                   + 4 * (b + b * mb))
@@ -1991,15 +2267,19 @@ def int8k_phase(torch, F, da):
                 q.transpose(1, 2), kd, vd, attn_mask=span_mask[:, None],
                 scale=scale, enable_gqa=True)
         row = dict(case=f'paged W={w}', B=b, W=w, lengths=lengths.tolist(),
-                   max_abs_err=err, tol=K4_TOL,
-                   ok=err <= K4_TOL and bool(torch.isfinite(
-                       got.float()).all()),
+                   max_abs_err=err, tol=K4_TOL, max_rel_err=rel,
+                   rel_tol=K4_REL_TOL,
+                   ok=err <= K4_TOL and rel <= K4_REL_TOL and bool(
+                       torch.isfinite(got.float()).all()),
                    kernel_ms=graph_ms(torch, kernel, [()], 200),
                    plain_ms=graph_ms(torch, plain, [()], 10),
                    library_ms=graph_ms(torch, library, [()], 20),
                    library='gather + dequantize + SDPA',
-                   bound_ms=1e3 * nbytes / PEAK_HBM_BYTES, bound_by='bytes')
+                   bound_ms=1e3 * nbytes / PEAK_HBM_BYTES, bound_by='bytes',
+                   device_launches_per_call=k4_one_launch(
+                       torch, f'K4PQ8 W{w}', kernel))
         row['gbps'] = nbytes / row['kernel_ms'] / 1e6
+        row['bound_share'] = row['bound_ms'] / row['kernel_ms']
         log('K4PQ8 ' + json.dumps(row))
         paged_rows.append(row)
         del q, got, ref
@@ -2025,6 +2305,21 @@ def int8k_phase(torch, F, da):
     log('K4PQ8_CONTIGUOUS ' + json.dumps(dict(
         bit_equal_to_dense_int8_k4=bit_equal,
         max_abs_diff=(dense.float() - paged.float()).abs().max().item())))
+    calls = []
+    for i in range(4):
+        pools = (kq, vq, ks, vs) if i % 2 == 0 else (vq, kq, vs, ks)
+        for w in (1, 9):
+            ql = randn(b, w, HQ, HD8)
+            ll = torch.tensor([min(n, s - w + 1) for n in lens],
+                              dtype=torch.int32, device='cuda')
+            calls.append(lambda ql=ql, pools=pools, ll=ll:
+                         da.paged_verify_attention(
+                             ql, pools[0], pools[1], tables, ll, scale,
+                             BLOCK, pools[2], pools[3]))
+    calls.append(lambda: da.decode_attention(q, dk, dv, lengths, scale, dks,
+                                             dvs))
+    graph = k4_graph_check(torch, 'int8', calls)
+    del calls
     del dk, dks, dv, dvs, dense, paged
 
     # K5 int8: codes and scales, bit-exact against index_copy_.
@@ -2070,20 +2365,29 @@ def int8k_phase(torch, F, da):
         del got, want
     del kq, vq, ks, vs
     torch.cuda.empty_cache()
-    bad = [r for r in dense_rows + paged_rows if not r['ok']]
+    # head_dim 64 at groups 1 and 8, dense; B1 at W 2 and 9, paged.
+    extra = [_k4_case(torch, F, da, gen, f'hd64 G{g} B1', 1, 1, 32, 32 // g,
+                      64, [2048], S, q8=True) for g in (1, 8)]
+    extra += [_k4_case(torch, F, da, gen, f'B1 W{w}', 1, w, 32, 8, 128,
+                       [2000], 8192, q8=True, paged=True) for w in (2, 9)]
+    bad = [r for r in dense_rows + paged_rows + extra if not r['ok']]
     assert not bad, f'int8 K4 disagrees with its plain version: {bad}'
     assert bit_equal, 'int8 K4-paged W=1 is not bit-equal to dense int8 K4'
     assert all(r['bit_exact'] for r in k5_rows), k5_rows
 
     def pick(row):
-        return {k: row[k] for k in ('case', 'max_abs_err', 'kernel_ms',
-                                    'plain_ms', 'library_ms', 'library',
-                                    'bound_ms', 'bound_by') if k in row}
+        return {k: row[k] for k in ('case', 'max_abs_err', 'max_rel_err',
+                                    'kernel_ms', 'plain_ms', 'library_ms',
+                                    'library', 'bound_ms', 'bound_by',
+                                    'bound_share', 'device_launches_per_call')
+                if k in row}
     out['decode_attention'] = dict(
-        main=pick(dense_rows[1]), serve_b1=pick(dense_rows[0]))
+        main=pick(dense_rows[1]), serve_b1=pick(dense_rows[0]),
+        cases={r['case']: pick(r) for r in extra[:2]})
     out['decode_attention_paged'] = dict(
         main=pick(paged_rows[0]), verify=pick(paged_rows[1]),
-        bit_equal_to_dense_int8=bit_equal)
+        bit_equal_to_dense_int8=bit_equal, graph=graph,
+        cases={r['case']: pick(r) for r in extra[2:]})
     out['cache_write'] = dict(main=dict(pick(k5_rows[0]), max_abs_err=0.0),
                               cases={r['case']: pick(r) for r in k5_rows})
     return out
@@ -2366,6 +2670,31 @@ def qlora_phase(torch, attention):
     return dict(launches=launches)
 
 
+def k4_smem_plan_check(_build, da):
+    """The wrapper's copy of K4's shared-memory layout
+    (``decode_smem_bytes``, which its checks use before a launch) against
+    the kernel's own (``skypilot_decode_smem_bytes``), for every head_dim
+    x group x int8 x narrow/wide instantiation, dense and paged."""
+    import ctypes
+    fn = _build.load('decode_attention').skypilot_decode_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    checked, bad = 0, []
+    for hd in da.DECODE_HEAD_DIMS:
+        for g in da.DECODE_GROUPS:
+            for q8 in (False, True):
+                for w in (1, 2, 9):          # narrow up to 16 rows, wide
+                    for pages in (0, 4, da.DECODE_MAX_CHUNK // 8):
+                        args = (hd, q8, 32 // g, pages, w * g)
+                        want = fn(hd, int(q8), *args[2:])
+                        got = da.decode_smem_bytes(*args)
+                        checked += 1
+                        if got != want:
+                            bad.append(dict(args=args, python=got,
+                                            kernel=want))
+    return dict(smem_plan_checked=checked, smem_plan_mismatches=bad)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument('--phases', default=','.join(PHASES),
@@ -2397,13 +2726,36 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f'kernels built in {time.perf_counter() - t0:.1f} s')
-    bwd_spills = []  # K2/K3 must not spill (checked after the phases)
+    # K2/K3 and every K4 instantiation must not spill (checked after the
+    # phases).
+    bwd_spills, k4_entries = [], []
     for name, path in libs.items():
         for entry in ptxas_report(path[:-len('.so')] + '.log'):
             log('BUILD ' + json.dumps(dict(library=name, **entry)))
-            if name == 'flash_bwd' and (entry.get('spill_stores')
-                                        or entry.get('spill_loads')):
+            spills = entry.get('spill_stores') or entry.get('spill_loads')
+            if name == 'flash_bwd' and spills:
                 bwd_spills.append(entry)
+            if 'decode_kernel' in entry['kernel']:
+                k4_entries.append(entry)
+    k4_spills = [e for e in k4_entries
+                 if e.get('spill_stores') or e.get('spill_loads')]
+    # Dynamic shared memory of a K4 block at llama3-8b's shapes (Hkv 8,
+    # 16-row pages, the split plan's longest chunk at B8): narrow (W 1)
+    # and wide (W 9) blocks, bf16 and int8.
+    smem_plan = k4_smem_plan_check(_build, da)
+    log('K4_BUILD ' + json.dumps(dict(
+        instantiations=len(k4_entries),
+        max_registers=max((e.get('registers', 0) for e in k4_entries),
+                          default=None),
+        spilling=len(k4_spills),
+        dynamic_smem={f'{"int8" if q8 else "bf16"} W{w}':
+                      da.decode_smem_bytes(128, q8, 8, da.DECODE_MAX_CHUNK
+                                           // 16, 4 * w)
+                      for q8 in (False, True) for w in (1, 9)},
+        **smem_plan)))
+    assert not smem_plan['smem_plan_mismatches'], (
+        'K4: the wrapper\'s shared-memory plan differs from the kernel\'s '
+        f'layout: {smem_plan["smem_plan_mismatches"]}')
     if 'k1' in phases:
         k1 = k1_phase(torch, F, attention)
     if 'k4' in phases:
@@ -2435,6 +2787,9 @@ def main() -> int:
     if 'qlora' in phases:
         qlora = qlora_phase(torch, attention)
     assert not bwd_spills, f'the backward kernels spill: {bwd_spills}'
+    assert len(k4_entries) == 64 and not k4_spills, (
+        f'K4: {len(k4_entries)} instantiations built (64 expected), '
+        f'spilling: {k4_spills}')
     if set(phases) != set(PHASES):
         return 0
     s8 = {w: int8['serve_8b'][w]['launches'] for w in ('int8', 'bf16')}

@@ -1,54 +1,75 @@
 // Decode-side kernels for Hopper (sm_90a): K4-cuda (decode attention,
-// dense and paged/verify) and K5-cuda (the per-row KV-cache write).
+// dense and paged/verify, bf16 and int8 KV) and K5-cuda (the per-row
+// KV-cache write).
 //
 // K4 replaces the TPU kernel skypilot_tpu/ops/decode_attention.py:
-// _decode_attn_kernel (launched by _decode_attention_pallas). Same
-// contract: q [B,Hq,hd], one layer's dense cache k/v [B,S,Hkv,hd], lengths
-// [B] int32 on the device; row b attends keys [0, max(lengths[b], 1)) and
-// the output is [B,Hq,hd] in q's dtype. The TPU kernel's block-diagonal q
-// over a flattened [S, Hkv*hd] cache exists only for TPU lane alignment
-// and is not carried over.
+// _decode_attn_kernel (launched by _decode_attention_pallas), and the JAX
+// package's gather + K4 and plain-einsum verify routes (paged_decode_
+// attention, paged_verify_attention). Contract: q [B,W,Hq,hd] (W = 1 for
+// the dense entries), K/V either a dense cache [B,S,Hkv,hd] read through
+// strides or one layer's flat pool [N,Hkv,hd] read through a block table
+// [B,MB] (logical position p of row b is pool row table[b][p/bs]*bs +
+// p%bs, S = MB*bs); query j of row b attends [0, min(max(lengths[b] + j,
+// 1), S)). W = 1 is decode, W = draft_k + 1 the speculative verify. The
+// output is [B,W,Hq,hd] bf16. int8 KV (the *_q8 entries) holds codes with
+// one bf16 scale per (row, kv head); a code is dequantized as the JAX
+// package's _dequant_kv does (code * scale, exact in f32, rounded once to
+// bf16) before the products.
 //
-// K4-paged is the same kernel reading the block table directly, which the
-// JAX package does as a gather into a contiguous view followed by K4
-// (paged_decode_attention) or a plain einsum (paged_verify_attention):
-// q [B,W,Hq,hd], one layer's flat pool k/v [NB*bs,Hkv,hd], block_tables
-// [B,MB] int32; query j of row b attends logical positions
-// [0, min(max(lengths[b] + j, 1), MB*bs)), and logical position p is pool
-// row table[b][p / bs] * bs + p % bs. W = 1 is decode, W = draft_k + 1 the
-// speculative verify. Only the row address differs from dense K4, so with
-// a table that lays rows out contiguously W = 1 is bit-equal to it: same
-// chunks, same lanes, same order of operations. The gathered view is never
-// built, and no row past a query's span is loaded.
+// What bounds K4 on the H100: bytes. A visible key costs 4*hd bytes of K
+// and V per kv head in bf16 (512 at hd 128) and 2*hd + 4 in int8 (260),
+// used for 4*hd FLOPs per query row: at W*G = 4 rows (llama3-8b decode)
+// or 36 (verify, W = 9) that is far below the card's ~295 FLOP/byte
+// balance point. So the design reads each key once and keeps bytes in
+// flight:
 //
-// What bounds K4 on the H100: memory. Each visible key is 2*Hkv*hd bf16
-// bytes of K and V used for G = Hq/Hkv dot products and G axpys (W*G in
-// verify), far below the card's ~295 FLOP/byte balance point, and at batch
-// 1 there is too little work per row to fill 132 SMs with one block per
-// head. Design (split-K flash-decoding): grid (split, kv head, batch row);
-// each block owns one chunk of kChunk keys and loads every K/V row of it
-// for all G query heads of its group. Blocks whose chunk starts at or past
-// the row's span exit at once, so bytes read scale with the actual length,
-// not with S, and the splits put enough blocks in flight at batch 1.
-// Inside a block, hd/8 lanes share one key (16-byte loads, 8 dims per
-// lane), and each lane group keeps an online softmax in the exp2 domain
-// (f32). The block merges its lane groups through shared memory and
-// writes (m, l, acc) partials to f32 scratch that the wrapper allocates; a
-// second kernel merges the valid splits of each (row, query, head). In
-// verify, a block walks its W query positions one after the other over
-// the same chunk: the first pass reads the chunk from device memory, the
-// later ones find it in L1/L2 (a first kernel; keeping the chunk in
-// shared memory is later work).
-//
-// int8 KV (the *_q8 entries, the same template with a KV element type):
-// k/v hold int8 codes with one bf16 scale per (row, kv head) beside them,
-// as the JAX package's int8 caches and pools do. Each lane loads its 8
-// codes as one 8-byte load; the key's scale is loaded once, by the key's
-// first lane, and shuffled to the others. A code is dequantized as the JAX
-// package's _dequant_kv does in the model dtype (code * scale, exact in
-// f32, rounded once to bf16), then the same f32 softmax runs. An int8 key
-// is 2*hd + 4 bytes of K and V with scales (260 at hd 128) against 4*hd
-// (512) in bf16, so the bound halves.
+// 1. One block per (split, kv head, batch row) reads its span of keys
+//    ONCE for all W*G query rows of the kv head. The products run on the
+//    tensor cores (mma.sync m16n8k16 bf16 -> f32): the query rows, padded
+//    to m-tiles of 16, are A (held in registers), a 16-key slice of a
+//    64-key tile is B (ldmatrix), and P = exp2(S - m) is repacked from the
+//    accumulators into the A operand of P V (V by ldmatrix.trans). The
+//    online softmax runs on the accumulator fragments in f32 (S scaled by
+//    scale*log2e in f32), with one quad shuffle per row per slice and none
+//    per key. Two kernels of one template: narrow (W*G <= 16, one
+//    m-tile: decode) gives each of the 4 warps its own 16 keys of every
+//    tile; wide (verify) gives each warp an m-tile and whole tiles (two
+//    m-tiles: two warps each, 32 keys; more than 4 m-tiles, e.g. G 8 at
+//    W 9, stream the span once per 4). So W costs more tensor-core tiles
+//    and partial rows, not more bytes.
+// 2. Keys arrive by TMA (cp.async.bulk.tensor) into a 3-stage ring of
+//    64-key tiles, with mbarriers; bf16 tiles land 128-byte swizzled
+//    (conflict-free ldmatrix). The map is 4-D, dense [B,S,Hkv,hd] or the
+//    pool [1,N,Hkv,hd], in boxes of min(bs, 16) rows of one kv head; a
+//    paged row comes from the block's span of the table, read once into
+//    shared memory, one entry per page. Past S (dense) a box is
+//    zero-filled; a page past the table reads block 0, whose keys are
+//    masked. No block-wide barrier runs per tile: in the narrow kernel
+//    each warp copies, waits for and refills its own rows of each stage
+//    (its own barrier), so the 4 warps run as 4 pipelines; in the wide
+//    kernel the last warp done with a stage refills it.
+// 3. int8 moves codes and scales, not bf16 copies: the codes by TMA
+//    (swizzled rows), the scale rows of the tile's keys (all kv heads,
+//    contiguous) by cp.async.bulk on the same barrier. Each code is
+//    dequantized once per tile (byte_perm into f32, one cvt per pair,
+//    mul.rn.bf16x2 by the scale): the narrow kernel turns a warp's K codes
+//    straight into the QK^T operands (4 codes a lane per k-step, in a
+//    permuted order of the head dims that q is loaded in too) and its V
+//    codes into bf16 rows for ldmatrix; the wide kernel turns whole tiles
+//    into bf16 tiles. Nothing is shuffled per key.
+// 4. Splits come from shapes alone (ops/decode_attention.py
+//    decode_split_plan: B, Hkv, S, W*G), never from `lengths`, so the call
+//    can be captured in a CUDA graph. Blocks whose split starts at or
+//    past the row's longest span exit at once. The merge is folded into
+//    the same launch: each block writes its (m, l, acc) partials, then
+//    bumps a per-(row, kv head) counter; the block that arrives last
+//    merges the row's valid splits in split order and resets the counter
+//    to 0. One launch per call, and the result does not depend on which
+//    block finished last.
+// 5. One template: decode_kernel<HD, G, PAGED, Q8, WIDE>. Dense and paged
+//    differ only in where a tile's rows come from, so paged W = 1 over a
+//    table that lays rows out contiguously is bit-equal to dense K4 (same
+//    splits, same tiles, same arithmetic), in bf16 and in int8.
 //
 // K5 replaces the TPU kernel skypilot_tpu/ops/decode_attention.py:
 // _cache_write_kernel (launched by _cache_write_pallas): write R new rows
@@ -65,12 +86,13 @@
 // allow. Its int8 form writes the code rows (Hkv*hd bytes) and the scale
 // rows (Hkv*2 bytes) of K and V in the same one launch.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -78,257 +100,726 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;  // key steps whose loads are issued together
+constexpr int kTile = 64;   // keys per tile (ops: DECODE_TILE)
+constexpr int kStages = 3;  // tiles in the ring
+constexpr int kMaxSmem = 232448;
 
 struct DecodeArgs {
-  const void* k;     // bf16, or int8 codes with the Q8 entries
-  const void* v;
-  const bf16* k_scale;  // Q8: one bf16 scale per (row, kv head)
-  const bf16* v_scale;
-  const bf16* q;
-  const int* lengths;
-  const int* table;  // [B, MB] for the paged form, unused when dense
-  float* part_m;
-  float* part_l;
-  float* part_acc;
-  bf16* out;
-  int S;  // keys a row can hold: the dense S, or MB * bs
+  const bf16* q;          // [B, W, Hq, hd]
+  const int* lengths;     // [B]
+  const int* table;       // [B, MB] (paged)
+  const uint8_t* k_scale;  // Q8: bf16 scale rows of Hkv entries
+  const uint8_t* v_scale;
+  float* part_ml;   // [B, Hkv, n_split, W*G, 2]: (m, l) of each partial
+  float* part_acc;  // [B, Hkv, n_split, W*G, hd]
+  int* counters;    // [B, Hkv], 0 between calls
+  bf16* out;        // [B, W, Hq, hd]
+  int S;            // keys a row can hold: dense S, or MB * bs
   int Hkv;
-  int W;  // query positions per row (1 when dense)
+  int W;
   int MB;
-  int bs;
+  int bs;        // page rows (paged)
+  int n_pages;   // pool pages (paged): N / bs
   int n_split;
-  int chunk;
-  // Batch (dense only) and row strides, in elements, of K/V and (Q8)
-  // of their scales.
-  long long k_sb, k_ss, v_sb, v_ss;
-  long long ks_sb, ks_ss, vs_sb, vs_ss;
+  int chunk;     // keys per split, a multiple of kTile
+  long long sc_sb;  // Q8 dense: batch stride of the scales, in elements
   float scale_log2;
 };
 
-__device__ __forceinline__ void load8(const bf16* p, float (&f)[8]) {
-  uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    float2 x = __bfloat1622float2(h2[e]);
-    f[2 * e] = x.x;
-    f[2 * e + 1] = x.y;
-  }
+// Shared memory, from a 1024-byte aligned base. Stages first (bf16: the
+// K tile then the V tile, each hd/64 swizzled 64-row atoms; int8: K and V
+// codes [64][hd] then K and V scale rows [64][Hkv]), then (int8) the
+// dequantized bf16 K/V tiles, then the barriers, the last-block flag and
+// the block's page entries. After the key loop the region before the
+// barriers holds the warps' partials (and, in the merge, per-row (M, L)).
+struct Layout {
+  int stage;   // bytes of one stage
+  int codes;   // int8: bytes of one code tile
+  int bf;      // int8: offset of the bf16 K/V tiles
+  int bar;
+  int flag;
+  int table;
+  int total;
+};
+
+__host__ __device__ inline int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
 }
 
-// 8 int8 codes (one 8-byte load) dequantized as the JAX package's
-// _dequant_kv does in the model dtype: code * scale, exact in f32, rounded
-// once to bf16.
-__device__ __forceinline__ void load8(const int8_t* p, float sc,
-                                      float (&f)[8]) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+// Mirrored by ops/decode_attention.py decode_smem_bytes (chip_smoke.py
+// compares the two through skypilot_decode_smem_bytes).
+__host__ __device__ inline Layout layout(int hd, bool q8, int hkv,
+                                         int max_pages, int rows) {
+  Layout L;
+  const int kv_tile = kTile * hd * 2;
+  L.codes = kTile * hd;
+  L.stage = q8 ? round_up(2 * L.codes + 2 * kTile * hkv * 2, 1024)
+               : 2 * kv_tile;
+  L.bf = kStages * L.stage;
+  // int8: the dequantized bf16 tiles, V only when narrow (the narrow
+  // kernel dequantizes K into registers).
+  int end = L.bf + (q8 ? (rows > 16 ? 2 : 1) * kv_tile : 0);
+  const int merge = kWarps * 16 * (hd + 4) * 4 + kWarps * 16 * 2 * 4;
+  if (merge > end) end = merge;
+  if (rows * 2 * 4 > end) end = rows * 2 * 4;
+  L.bar = round_up(end, 128);
+  L.flag = L.bar + kStages * kWarps * 8;  // a barrier per (stage, warp)
+  L.table = L.flag + round_up(4 * (1 + kStages), 16);  // flag, counters
+  L.total = L.table + max_pages * 4;
+  return L;
+}
+
+// ---------------------------------------------------------------------
+// Warp-level tensor-core primitives
+// ---------------------------------------------------------------------
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d[16 x 8] += a[16 x 16] b[16 x 8], bf16 -> f32. Fragments (g = lane / 4,
+// t = lane % 4): a0 (row g, k 2t..2t+1), a1 (row g+8), a2 (row g, k
+// 2t+8..), a3 (row g+8, k 2t+8..); b0 (k 2t..2t+1, col g), b1 (k 2t+8..);
+// d0, d1 (row g, cols 2t, 2t+1), d2, d3 (row g+8).
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) -> bf16x2, each rounded to nearest even.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// Byte address of (row, col) in a swizzled bf16 tile of kTile rows: hd/64
+// atoms of [kTile][128 B], the 16-byte chunk c of row r at c ^ (r % 8) (the
+// layout TMA writes with the 128-byte swizzle). col is a multiple of 8.
+__device__ __forceinline__ uint32_t tile_addr(uint32_t tile, int row,
+                                              int col) {
+  return tile + (col >> 6) * (kTile * 128) + row * 128 +
+         ((((col >> 3) & 7) ^ (row & 7)) << 4);
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(sm90::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(sm90::smem_u32(bar))
+      : "memory");
+}
+
+// The 4 warps' barrier without __syncthreads' block-wide count.
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 4 int8 codes (one word) -> 2 bf16x2 (code * scale, the exact f32
+// product rounded once, as _dequant_kv): a code byte c becomes the f32
+// 2^23 + (c ^ 0x80), minus 2^23 + 128 gives c exactly; pairs are packed
+// to bf16 (exact: |c| <= 128) and multiplied by the bf16 scale pair sc2
+// with one rounding.
+__device__ __forceinline__ void dequant4(uint32_t w, uint32_t sc2,
+                                         uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
 #pragma unroll
-  for (int e = 0; e < 8; ++e)
-    f[e] = __bfloat162float(__float2bfloat16_rn(float(c[e]) * sc));
+  for (int e = 0; e < 4; ++e)
+    f[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + e)) -
+           8388736.f;
+  lo = mul_bf16x2(pack_bf16(f[0], f[1]), sc2);
+  hi = mul_bf16x2(pack_bf16(f[2], f[3]), sc2);
+}
+
+// 16 codes (16 bytes) -> 8 bf16x2.
+__device__ __forceinline__ void dequant16(const uint4 raw, uint32_t sc2,
+                                          uint32_t (&o)[8]) {
+  dequant4(raw.x, sc2, o[0], o[1]);
+  dequant4(raw.y, sc2, o[2], o[3]);
+  dequant4(raw.z, sc2, o[4], o[5]);
+  dequant4(raw.w, sc2, o[6], o[7]);
+}
+
+// The 16-byte chunk c of int8 code row r in a stage: TMA writes code
+// rows swizzled, 128-byte rows (hd 128) with the 128-byte pattern and
+// 64-byte rows (hd 64) with the 64-byte one.
+template <int HD>
+__device__ __forceinline__ int code_chunk(int r, int c) {
+  return HD == 128 ? c ^ (r & 7) : c ^ ((r >> 1) & 3);
 }
 
 // Keys query w of row b attends: K4's clamp to [1, S], widened by w.
-__device__ __forceinline__ int span_of(const DecodeArgs& a, int b, int w) {
-  return min(max(a.lengths[b] + w, 1), a.S);
+__device__ __forceinline__ int span_of(int len, int w, int S) {
+  return min(max(len + w, 1), S);
 }
 
-template <bool PAGED>
-__device__ __forceinline__ long long key_row(const DecodeArgs& a, int b,
-                                             int key) {
-  if (!PAGED) return key;
-  const int blk = a.table[(long long)b * a.MB + key / a.bs];
-  return (long long)blk * a.bs + key % a.bs;
+// ---------------------------------------------------------------------
+// One warp's slice of one tile: nu 16-key units starting at tile row
+// `first`, for its 16 query rows (A fragments qa), online softmax state
+// (m_run, l_run per row g, g+8 of the m-tile) and accumulator o.
+// ---------------------------------------------------------------------
+
+template <int HD, int NU, bool DQK>
+__device__ __forceinline__ void attend_slice(
+    uint32_t kt, uint32_t vt, int key0, int first, int nu,
+    const uint32_t (&qa)[HD / 16][4], float (&o)[HD / 8][4],
+    float (&m_run)[2], float (&l_run)[2], const int (&span)[2],
+    float scale_log2, int lane, const uint8_t* kc,
+    const uint32_t (&ks2)[2]) {
+  const int t = lane & 3;
+  // k-steps outside, units inside: 2 * nu independent accumulator chains,
+  // and with one unit two more (even and odd k-steps, summed after).
+  constexpr int CH = NU == 1 ? 2 : 1;
+  float s[NU][2][4], s2[2][4];
+#pragma unroll
+  for (int u = 0; u < NU; ++u)
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[u][nb][e] = s2[nb][e] = 0.f;
+  const int krow = first + ((lane >> 4) & 1) * 8 + (lane & 7);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      if (u < nu) {
+        uint32_t b[4];
+        if (DQK) {
+          // Codes of keys first + g and first + g + 8, dims 16 kk + 4 t ..
+          // + 3: the k-step's k = 2t, 2t+1, 2t+8, 2t+9 in the permuted
+          // dim order the A fragments were loaded in.
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = first + 16 * u + (lane >> 2) + 8 * h;
+            const uint32_t w = *reinterpret_cast<const uint32_t*>(
+                kc + r * HD + code_chunk<HD>(r, kk) * 16 + 4 * t);
+            dequant4(w, ks2[h], b[2 * h], b[2 * h + 1]);
+          }
+        } else {
+          ldsm_x4(b, tile_addr(kt, krow + 16 * u,
+                               kk * 16 + ((lane >> 3) & 1) * 8));
+        }
+        float(&acc)[2][4] = (CH == 2 && (kk & 1)) ? s2 : s[u];
+        mma16816(acc[0], qa[kk], b[0], b[1]);
+        mma16816(acc[1], qa[kk], b[2], b[3]);
+      }
+    }
+  }
+  if (CH == 2) {
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[0][nb][e] += s2[nb][e];
+  }
+  // Scale in f32, mask keys past each row's span, row max over the slice.
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int u = 0; u < NU; ++u) {
+    if (u >= nu) break;
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + first + 16 * u + 8 * nb + 2 * t + (e & 1);
+        const int r = e >> 1;
+        const float x =
+            key < span[r] ? s[u][nb][e] * scale_log2 : -INFINITY;
+        s[u][nb][e] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+  }
+  float m_use[2], alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 2));
+    const float m_new = fmaxf(m_run[r], mx[r]);
+    m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = exp2f(m_run[r] - m_use[r]);
+    l_run[r] *= alpha[r];
+    m_run[r] = m_new;
+  }
+  // The accumulator is rescaled only when some row's max moved.
+  if (!__all_sync(0xffffffff, alpha[0] == 1.f && alpha[1] == 1.f)) {
+#pragma unroll
+    for (int nb = 0; nb < HD / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nb][e] *= alpha[e >> 1];
+  }
+#pragma unroll
+  for (int u = 0; u < NU; ++u) {
+    if (u >= nu) break;
+    float p[2][4];
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[nb][e] = exp2f(s[u][nb][e] - m_use[e >> 1]);
+        l_run[e >> 1] += p[nb][e];
+      }
+    const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]),
+                            pack_bf16(p[0][2], p[0][3]),
+                            pack_bf16(p[1][0], p[1][1]),
+                            pack_bf16(p[1][2], p[1][3])};
+    const int vrow = first + 16 * u + ((lane >> 3) & 1) * 8 + (lane & 7);
+#pragma unroll
+    for (int dn = 0; dn < HD / 16; ++dn) {
+      uint32_t b[4];
+      ldsm_x4_t(b, tile_addr(vt, vrow, dn * 16 + ((lane >> 4) & 1) * 8));
+      mma16816(o[2 * dn], pa, b[0], b[1]);
+      mma16816(o[2 * dn + 1], pa, b[2], b[3]);
+    }
+  }
 }
 
-template <int HD, int G, bool PAGED, bool Q8>
-__global__ void __launch_bounds__(kThreads)
-    decode_split_kernel(const DecodeArgs a) {
-  using KV = typename std::conditional<Q8, int8_t, bf16>::type;
-  constexpr int LPK = HD / 8;         // lanes per key
-  constexpr int KPW = 32 / LPK;       // keys per warp step
-  constexpr int NGROUPS = kWarps * KPW;
-  __shared__ float sm_m[NGROUPS][G];
-  __shared__ float sm_l[NGROUPS][G];
-  __shared__ __align__(16) float sm_acc[NGROUPS][G][HD];
+// ---------------------------------------------------------------------
+// K4
+// ---------------------------------------------------------------------
 
+template <int HD, int G, bool PAGED, bool Q8, bool WIDE>
+__global__ void __launch_bounds__(kThreads, 2)
+    decode_kernel(const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap,
+                  const __grid_constant__ DecodeArgs a) {
+  static_assert(HD == 64 || HD == 128, "head_dim");
+  constexpr int KV_TILE = kTile * HD * 2;  // bytes of one bf16 K or V tile
+  constexpr int ATOM = kTile * 128;        // bytes of one 64-column atom
+  constexpr int NS = kStages;
+  // The narrow int8 kernel dequantizes K straight into the products'
+  // operands, in a permuted order of the head dims (the same for q).
+  constexpr bool DQK = Q8 && !WIDE;
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int nw = PAGED ? a.W : 1;
+  const int len = a.lengths[b];
+  const int span_max = span_of(len, a.W - 1, a.S);
   const int start = split * a.chunk;
-  if (start >= span_of(a, b, nw - 1)) return;  // the merge skips it
+  if (start >= span_max) return;  // nothing of this split is visible
+  const int n_valid = (span_max + a.chunk - 1) / a.chunk;
+  const int n_tiles = (min(start + a.chunk, span_max) - start + kTile - 1) /
+                      kTile;
   const int Hq = a.Hkv * G;
+  const int R = a.W * G;  // query rows of this kv head
+  const int MT = (R + 15) / 16;
+  // m-tiles per pass (WIDE: more than 16 query rows, else one m-tile).
+  const int P = !WIDE ? 1 : MT == 2 ? 2 : 4;
+  const int n_pass = (MT + P - 1) / P;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int sub = lane / LPK;  // key slot within the warp step
-  const int dl = lane % LPK;   // this lane's 8 dims: [8*dl, 8*dl + 8)
-  const int group = warp * KPW + sub;
-  const KV* kb = static_cast<const KV*>(a.k) + b * a.k_sb + kvh * HD + dl * 8;
-  const KV* vb = static_cast<const KV*>(a.v) + b * a.v_sb + kvh * HD + dl * 8;
-  // Q8: the scales of this row and kv head, one bf16 per key.
-  const bf16* ksb = Q8 ? a.k_scale + b * a.ks_sb + kvh : nullptr;
-  const bf16* vsb = Q8 ? a.v_scale + b * a.vs_sb + kvh : nullptr;
+  const Layout L =
+      layout(HD, Q8, a.Hkv, PAGED ? a.chunk / a.bs : 0, R);
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar);
+  int* flag = reinterpret_cast<int*>(smem + L.flag);
+  int* tbl = reinterpret_cast<int*>(smem + L.table);
+  int* stage_cnt = flag + 1;  // warps done with each stage's tiles
 
-  for (int w = 0; w < nw; ++w) {
-    const int len = span_of(a, b, w);
-    if (start >= len) continue;  // uniform across the block
-    const int end = min(start + a.chunk, len);
-    const long long qrow0 = ((long long)b * nw + w) * Hq + kvh * G;
-
-    float qr[G][8];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      load8(a.q + (qrow0 + g) * HD + dl * 8, qr[g]);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) qr[g][e] *= a.scale_log2;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int page0 = PAGED ? start / a.bs : 0;
+  if (tid == 0) {
+    sm90::prefetch_tensormap(&kmap);
+    sm90::prefetch_tensormap(&vmap);
+    for (int s = 0; s < NS; ++s) {
+      for (int w = 0; w < kWarps; ++w)
+        sm90::mbar_init(&bars[s * kWarps + w], 1);
+      stage_cnt[s] = 0;
     }
-    float m_run[G], l_run[G], acc[G][8];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      m_run[g] = -INFINITY;
-      l_run[g] = 0.f;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+    sm90::mbar_init_fence();
+  }
+  if (PAGED) {
+    // The block's span of the table, one entry per page; entries past
+    // the table read page 0 (its keys are past every span).
+    const int n_pg = n_tiles * kTile / a.bs;
+    for (int j = tid; j < n_pg; j += kThreads) {
+      const int lp = page0 + j;
+      const int blk = lp < a.MB ? a.table[(long long)b * a.MB + lp] : 0;
+      tbl[j] = min(max(blk, 0), a.n_pages - 1);
     }
+  }
+  if (Q8) {
+    // Scale rows a dense edge tile does not copy must hold finite values
+    // (their codes are zero-filled): zero every stage's scales once.
+    for (int s = 0; s < NS; ++s) {
+      uint32_t* sc =
+          reinterpret_cast<uint32_t*>(smem + s * L.stage + 2 * L.codes);
+      for (int i = tid; i < kTile * a.Hkv; i += kThreads) sc[i] = 0u;
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();
 
-    // Trip counts are uniform across the warp (the shuffles below need
-    // every lane); keys past `end` are masked, not loaded.
-    for (int base = start + warp * KPW; base < end;
-         base += NGROUPS * kUnroll) {
-      float kf[kUnroll][8], vf[kUnroll][8];
-      bool ok[kUnroll];
+  // One warp loads rows [r0, r0 + nr) of tile t of the split (the it-th
+  // tile of the block) into its stage, on barrier `bar`: lane 0 announces
+  // the bytes, then lane j issues copy j. The rows come in boxes of
+  // min(bs, 16) rows (16 dense), each one TMA per 64-column atom of K and
+  // of V, or, int8, one TMA of K and of V codes and one bulk copy of K
+  // and of V scale rows.
+  auto issue = [&](int t, int it, int r0, int nr, uint64_t* bar) {
+    uint8_t* st = smem + (it % NS) * L.stage;
+    const int key0 = start + t * kTile + r0;  // first key of the rows
+    const int box = PAGED ? min(a.bs, 16) : 16;
+    const int sc_row = a.Hkv * 2;  // bytes of one scale row (int8)
+    // Dense int8: rows past S get no scale rows (their codes are zero).
+    const int n_sc = PAGED ? nr : max(min(nr, a.S - key0), 0);
+    if (lane == 0)
+      sm90::mbar_arrive_expect_tx(
+          bar, Q8 ? 2 * nr * HD + 2 * n_sc * sc_row : 4 * nr * HD);
+    __syncwarp();
+    const int j = lane;
+    const int q = Q8 ? j >> 2 : j / (2 * (HD / 64));  // this lane's box
+    if (q >= nr / box) return;
+    const int key = key0 + q * box, r = r0 + q * box;
+    const long long row =
+        PAGED ? (long long)tbl[(key - start) / a.bs] * a.bs + key % a.bs
+              : key;
+    const int batch = PAGED ? 0 : b;
+    const int tensor = j & 1;
+    const CUtensorMap* map = tensor ? &vmap : &kmap;
+    if (!Q8) {
+      const int c = (j >> 1) % (HD / 64);
+      sm90::tma_load_4d(st + tensor * KV_TILE + c * ATOM + r * 128, map,
+                        bar, c * 64, int(row), kvh, batch);
+    } else if ((j & 3) < 2) {
+      sm90::tma_load_4d(st + tensor * L.codes + r * HD, map, bar, 0,
+                        int(row), kvh, batch);
+    } else {
+      const int n = PAGED ? box : max(min(box, a.S - key), 0);
+      if (n > 0)
+        bulk_load(st + 2 * L.codes + tensor * kTile * sc_row + r * sc_row,
+                  (tensor ? a.v_scale : a.k_scale) +
+                      (PAGED ? 0 : b * a.sc_sb * 2) + row * sc_row,
+                  n * sc_row, bar);
+    }
+  };
+  // The narrow kernel: each warp owns rows [16 warp, 16 warp + 16) of
+  // every tile (its keys) and their barrier; the wide one: the whole tile
+  // on one barrier per stage.
+  auto load = [&](int t, int it) {
+    if (WIDE)
+      issue(t, it, 0, kTile, &bars[(it % NS) * kWarps]);
+    else
+      issue(t, it, 16 * warp, 16, &bars[(it % NS) * kWarps + warp]);
+  };
+
+  // int8: 16 codes of K or V, row `row`, columns [16 j, 16 j + 16), into
+  // the bf16 tiles.
+  auto dequant = [&](const uint8_t* st, int which, int row, int j,
+                     uint8_t* tile) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(
+        st + which * L.codes + row * HD + code_chunk<HD>(row, j) * 16);
+    const uint16_t s16 = reinterpret_cast<const uint16_t*>(
+        st + 2 * L.codes + which * kTile * a.Hkv * 2)[row * a.Hkv + kvh];
+    uint32_t d[8];
+    dequant16(raw, uint32_t(s16) * 0x10001u, d);
+    uint8_t* dst = tile + (j >> 2) * ATOM + row * 128;
+    const int sw = row & 7;
+    *reinterpret_cast<uint4*>(dst + ((((2 * j) & 7) ^ sw) << 4)) =
+        make_uint4(d[0], d[1], d[2], d[3]);
+    *reinterpret_cast<uint4*>(dst + ((((2 * j + 1) & 7) ^ sw) << 4)) =
+        make_uint4(d[4], d[5], d[6], d[7]);
+  };
+
+  int it = 0;  // tiles consumed by the block, over all passes
+  for (int pass = 0; pass < n_pass; ++pass) {
+    if (!WIDE || warp == 0)
+      for (int j = 0; j < NS && j < n_tiles; ++j) load(j, it + j);
+
+    // This warp's m-tile and key slice.
+    const int mt = pass * P + warp % P;
+    const int ks = warp / P;
+    const bool active = mt < MT;
+    const int g = lane >> 2, t = lane & 3;
+    uint32_t qa[HD / 16][4];
+    int span[2];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int key = base + u * NGROUPS + sub;
-        ok[u] = key < end;
-        if constexpr (Q8) {
-          const long long row = ok[u] ? key_row<PAGED>(a, b, key) : 0;
-          // One load of each scale per key (the key's first lane), handed
-          // to the key's other lanes by a shuffle.
-          float ksc = 0.f, vsc = 0.f;
-          if (ok[u] && dl == 0) {
-            ksc = __bfloat162float(ksb[row * a.ks_ss]);
-            vsc = __bfloat162float(vsb[row * a.vs_ss]);
+    for (int r = 0; r < 2; ++r) {
+      const int qi = mt * 16 + g + 8 * r;
+      const bool ok = active && qi < R;
+      span[r] = ok ? span_of(len, qi / G, a.S) : 0;
+      const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
+          a.q + (((long long)b * a.W + qi / G) * Hq + kvh * G + qi % G) *
+                    HD);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        if (DQK) {  // k 2t, 2t+1 | 2t+8, 2t+9 = dims 16kk + 4t .. + 3
+          const uint2 x =
+              ok ? *reinterpret_cast<const uint2*>(qrow + kk * 8 + 2 * t)
+                 : make_uint2(0u, 0u);
+          qa[kk][r] = x.x;
+          qa[kk][2 + r] = x.y;
+        } else {
+          qa[kk][r] = ok ? qrow[kk * 8 + t] : 0u;
+          qa[kk][2 + r] = ok ? qrow[kk * 8 + 4 + t] : 0u;
+        }
+      }
+    }
+    float o[HD / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < HD / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nb][e] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+    // No block-wide barrier per tile. Narrow: each warp waits for its
+    // rows and refills them; wide: each warp waits for the tile, and the
+    // last warp done with a stage refills it.
+    for (int tt = 0; tt < n_tiles; ++tt, ++it) {
+      const int stage = it % NS;
+      sm90::mbar_wait(&bars[stage * kWarps + (WIDE ? 0 : warp)],
+                      (it / NS) & 1);
+      uint8_t* st = smem + stage * L.stage;
+      uint32_t kt = sm90::smem_u32(st), vt = kt + KV_TILE;
+      uint32_t ks2[2] = {0u, 0u};
+      if (Q8) {
+        constexpr int CPR = HD / 16;  // 16-code chunks per row
+        uint8_t* bf = smem + L.bf;
+        if (!WIDE) {
+          // Each warp reads only its own 16 keys: it dequantizes their V
+          // rows, and their K codes inside the products.
+#pragma unroll
+          for (int i = 0; i < CPR / 2; ++i) {
+            const int c = lane + 32 * i;
+            dequant(st, 1, 16 * warp + c / CPR, c % CPR, bf);
           }
-          ksc = __shfl_sync(0xffffffff, ksc, lane - dl);
-          vsc = __shfl_sync(0xffffffff, vsc, lane - dl);
-          if (ok[u]) {
-            load8(kb + row * a.k_ss, ksc, kf[u]);
-            load8(vb + row * a.v_ss, vsc, vf[u]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = 16 * warp + (lane >> 2) + 8 * h;
+            ks2[h] = uint32_t(reinterpret_cast<const uint16_t*>(
+                         st + 2 * L.codes)[r * a.Hkv + kvh]) *
+                     0x10001u;
           }
-        } else if (ok[u]) {
-          const long long row = key_row<PAGED>(a, b, key);
-          load8(kb + row * a.k_ss, kf[u]);
-          load8(vb + row * a.v_ss, vf[u]);
-        }
-        if (!ok[u]) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) kf[u][e] = vf[u][e] = 0.f;
+          __syncwarp();
+          vt = sm90::smem_u32(bf);
+        } else {
+#pragma unroll 2
+          for (int i = 0; i < 2 * kTile * CPR / kThreads; ++i) {
+            const int c = tid + i * kThreads;
+            const int which = c / (kTile * CPR);
+            dequant(st, which, c % (kTile * CPR) / CPR, c % CPR,
+                    bf + which * KV_TILE);
+          }
+          named_sync();
+          kt = sm90::smem_u32(bf);
+          vt = kt + KV_TILE;
         }
       }
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float s[kUnroll];
-        float mx = -INFINITY;
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          float d = 0.f;
-#pragma unroll
-          for (int e = 0; e < 8; ++e) d = fmaf(qr[g][e], kf[u][e], d);
-#pragma unroll
-          for (int off = LPK / 2; off > 0; off >>= 1)
-            d += __shfl_xor_sync(0xffffffff, d, off);
-          s[u] = ok[u] ? d : -INFINITY;
-          mx = fmaxf(mx, s[u]);
-        }
-        const float m_new = fmaxf(m_run[g], mx);
-        const float m_use = m_new == -INFINITY ? 0.f : m_new;
-        const float alpha = exp2f(m_run[g] - m_use);
-        l_run[g] *= alpha;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[g][e] *= alpha;
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const float p = exp2f(s[u] - m_use);
-          l_run[g] += p;
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            acc[g][e] = fmaf(p, vf[u][e], acc[g][e]);
-        }
-        m_run[g] = m_new;
+      if (active)
+        attend_slice<HD, WIDE ? 4 : 1, DQK>(
+            kt, vt, start + tt * kTile, ks * 16 * P, P, qa, o, m_run, l_run,
+            span, a.scale_log2, lane, st, ks2);
+      __syncwarp();
+      if (!WIDE) {
+        if (tt + NS < n_tiles) load(tt + NS, it + NS);
+        continue;
       }
-    }
-
-    // Merge the block's lane groups.
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (dl == 0) {
-        sm_m[group][g] = m_run[g];
-        sm_l[group][g] = l_run[g];
+      if (Q8) named_sync();  // before the bf16 tiles are rewritten
+      int last = 0;
+      if (lane == 0) {
+        __threadfence_block();
+        last = (atomicAdd(&stage_cnt[stage], 1) & (kWarps - 1)) ==
+               kWarps - 1;
       }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sm_acc[group][g][dl * 8 + e] = acc[g][e];
+      if (__shfl_sync(0xffffffff, last, 0) && tt + NS < n_tiles)
+        load(tt + NS, it + NS);
     }
     __syncthreads();
-    for (int idx = threadIdx.x; idx < G * HD; idx += kThreads) {
-      const int g = idx / HD, d = idx % HD;
-      float M = -INFINITY;
+
+    // The warps' partials through shared memory, one (M, L, acc) per
+    // query row of the split into the scratch.
 #pragma unroll
-      for (int i = 0; i < NGROUPS; ++i) M = fmaxf(M, sm_m[i][g]);
-      float L = 0.f, A = 0.f;
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] += __shfl_xor_sync(0xffffffff, l_run[r], 1);
+      l_run[r] += __shfl_xor_sync(0xffffffff, l_run[r], 2);
+    }
+    float* w_acc = reinterpret_cast<float*>(smem);
+    float* w_ml = w_acc + kWarps * 16 * (HD + 4);
+    if (active) {
 #pragma unroll
-      for (int i = 0; i < NGROUPS; ++i) {
-        const float wt = exp2f(sm_m[i][g] - M);  // empty groups: 0
-        L += wt * sm_l[i][g];
-        A += wt * sm_acc[i][g][d];
-      }
-      const long long row = (qrow0 + g) * a.n_split + split;
-      a.part_acc[row * HD + d] = A;
-      if (d == 0) {
-        a.part_m[row] = M;
-        a.part_l[row] = L;
+      for (int r = 0; r < 2; ++r) {
+        const int row = g + 8 * r;
+        if (t == 0) {
+          w_ml[(warp * 16 + row) * 2] = m_run[r];
+          w_ml[(warp * 16 + row) * 2 + 1] = l_run[r];
+        }
+#pragma unroll
+        for (int nb = 0; nb < HD / 8; ++nb)
+          *reinterpret_cast<float2*>(
+              &w_acc[(warp * 16 + row) * (HD + 4) + nb * 8 + 2 * t]) =
+              make_float2(o[nb][2 * r], o[nb][2 * r + 1]);
       }
     }
-    __syncthreads();  // the next query position reuses the shared arrays
+    __syncthreads();
+    const int n_ks = kWarps / P;
+    const long long part0 =
+        (((long long)b * a.Hkv + kvh) * a.n_split + split) * R;
+    for (int idx = tid; idx < P * 16 * (HD / 4); idx += kThreads) {
+      const int i = idx / (16 * (HD / 4));
+      const int row = idx / (HD / 4) % 16, d4 = idx % (HD / 4);
+      const int qi = (pass * P + i) * 16 + row;
+      if (qi >= R) continue;
+      float M = -INFINITY;
+      for (int k = 0; k < n_ks; ++k)
+        M = fmaxf(M, w_ml[((k * P + i) * 16 + row) * 2]);
+      const float Mu = M == -INFINITY ? 0.f : M;
+      float Ls = 0.f;
+      float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int k = 0; k < n_ks; ++k) {
+        const int wr = (k * P + i) * 16 + row;
+        const float wt = exp2f(w_ml[wr * 2] - Mu);
+        Ls += wt * w_ml[wr * 2 + 1];
+        const float4 x =
+            *reinterpret_cast<const float4*>(&w_acc[wr * (HD + 4) + 4 * d4]);
+        A.x += wt * x.x;
+        A.y += wt * x.y;
+        A.z += wt * x.z;
+        A.w += wt * x.w;
+      }
+      reinterpret_cast<float4*>(a.part_acc + (part0 + qi) * HD)[d4] = A;
+      if (d4 == 0) {
+        a.part_ml[(part0 + qi) * 2] = M;
+        a.part_ml[(part0 + qi) * 2 + 1] = Ls;
+      }
+    }
+    // The next pass's copies overwrite this region.
+    fence_proxy_async();
+    __syncthreads();
+  }
+
+  // Last block of (b, kvh) to finish merges the valid splits, in split
+  // order, and resets the counter for the next call.
+  __threadfence();
+  __syncthreads();
+  int* counter = a.counters + (long long)b * a.Hkv + kvh;
+  if (tid == 0) *flag = atomicAdd(counter, 1) == n_valid - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  if (tid == 0) *counter = 0;
+  const long long base = ((long long)b * a.Hkv + kvh) * a.n_split * R;
+  float* row_ml = reinterpret_cast<float*>(smem);  // [R][M, 1/L]
+  // Each row's M and L in one pass over its splits (an online max and
+  // sum), one thread a row.
+  for (int qi = tid; qi < R; qi += kThreads) {
+    float M = -INFINITY, Ls = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < n_valid; ++i) {
+      const float2 ml = __ldcg(reinterpret_cast<const float2*>(
+          &a.part_ml[(base + (long long)i * R + qi) * 2]));
+      if (ml.x == -INFINITY) continue;  // no key of the split: l = 0
+      const float m_new = fmaxf(M, ml.x);
+      Ls = Ls * exp2f(M - m_new) + ml.y * exp2f(ml.x - m_new);
+      M = m_new;
+    }
+    row_ml[qi * 2] = M;
+    row_ml[qi * 2 + 1] = 1.f / Ls;
+  }
+  __syncthreads();
+  // Two outputs (4 columns each) a thread at a time, eight splits in
+  // flight for each.
+  constexpr int Q4 = HD / 4;
+  for (int idx = tid; idx < R * Q4; idx += 2 * kThreads) {
+    int qs[2];
+    float4 A[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      qs[k] = min(idx + k * kThreads, R * Q4 - 1);
+      A[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll 8
+    for (int i = 0; i < n_valid; ++i) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int qi = qs[k] / Q4;
+        const long long pr = base + (long long)i * R + qi;
+        const float wt = exp2f(__ldcg(&a.part_ml[pr * 2]) - row_ml[qi * 2]);
+        const float4 x = __ldcg(reinterpret_cast<const float4*>(
+            a.part_acc + pr * HD) + qs[k] % Q4);
+        A[k].x += wt * x.x;
+        A[k].y += wt * x.y;
+        A[k].z += wt * x.z;
+        A[k].w += wt * x.w;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (idx + k * kThreads >= R * Q4) break;
+      const int qi = qs[k] / Q4, d4 = qs[k] % Q4;
+      const float inv = row_ml[qi * 2 + 1];
+      const uint2 packed =
+          make_uint2(pack_bf16(A[k].x * inv, A[k].y * inv),
+                     pack_bf16(A[k].z * inv, A[k].w * inv));
+      bf16* dst = a.out + (((long long)b * a.W + qi / G) * Hq + kvh * G +
+                           qi % G) * HD + 4 * d4;
+      *reinterpret_cast<uint2*>(dst) = packed;
+    }
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(HD) decode_merge_kernel(const DecodeArgs a) {
-  const int h = blockIdx.x, w = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
-  const int Hq = gridDim.x;
-  const int n = (span_of(a, b, w) + a.chunk - 1) / a.chunk;
-  const long long qrow = ((long long)b * gridDim.y + w) * Hq + h;
-  const long long row0 = qrow * a.n_split;
-  float M = -INFINITY;
-  for (int i = 0; i < n; ++i) M = fmaxf(M, a.part_m[row0 + i]);
-  float L = 0.f, A = 0.f;
-  for (int i = 0; i < n; ++i) {
-    const float wt = exp2f(a.part_m[row0 + i] - M);
-    L += wt * a.part_l[row0 + i];
-    A += wt * a.part_acc[(row0 + i) * HD + d];
-  }
-  a.out[qrow * HD + d] = __float2bfloat16(A / L);
-}
-
-template <int HD, int G, bool PAGED, bool Q8>
-cudaError_t launch(const DecodeArgs& a, int B, cudaStream_t stream) {
-  decode_split_kernel<HD, G, PAGED, Q8>
-      <<<dim3(a.n_split, a.Hkv, B), kThreads, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
+template <int HD, int G, bool PAGED, bool Q8, bool WIDE>
+cudaError_t launch(const CUtensorMap& km, const CUtensorMap& vm,
+                   const DecodeArgs& a, int B, cudaStream_t stream) {
+  const Layout L =
+      layout(HD, Q8, a.Hkv, PAGED ? a.chunk / a.bs : 0, a.W * G);
+  const int smem = L.total + 1024;  // alignment slack
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = decode_kernel<HD, G, PAGED, Q8, WIDE>;
+  // The attribute is set once per device (a bit each, devices 0-63).
+  static unsigned long long attr_set = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  decode_merge_kernel<HD><<<dim3(a.Hkv * G, PAGED ? a.W : 1, B), HD, 0,
-                            stream>>>(a);
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(attr_set & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    attr_set |= bit;
+  }
+  kernel<<<dim3(a.n_split, a.Hkv, B), kThreads, smem, stream>>>(km, vm, a);
   return cudaGetLastError();
 }
 
 template <bool PAGED, bool Q8>
-cudaError_t dispatch(const DecodeArgs& a, int B, int Hq, int HD,
+cudaError_t dispatch(const CUtensorMap& km, const CUtensorMap& vm,
+                     const DecodeArgs& a, int B, int Hq, int HD,
                      cudaStream_t s) {
-  if (a.Hkv <= 0 || Hq % a.Hkv != 0) return cudaErrorInvalidValue;
+  if (a.Hkv <= 0 || Hq % a.Hkv != 0 || a.W < 1 || a.chunk < kTile ||
+      a.chunk % kTile != 0 || (long long)a.n_split * a.chunk < a.S)
+    return cudaErrorInvalidValue;
   const int G = Hq / a.Hkv;
-#define SKYPILOT_DECODE_CASE(hd, g)                 \
-  if (HD == hd && G == g) return launch<hd, g, PAGED, Q8>(a, B, s);
+  // One m-tile of query rows (decode up to G * W = 16) or more (verify).
+  const bool wide = a.W * G > 16;
+#define SKYPILOT_DECODE_CASE(hd, g)                                   \
+  if (HD == hd && G == g)                                             \
+    return wide ? launch<hd, g, PAGED, Q8, true>(km, vm, a, B, s)     \
+                : launch<hd, g, PAGED, Q8, false>(km, vm, a, B, s);
   SKYPILOT_DECODE_CASE(64, 1)
   SKYPILOT_DECODE_CASE(64, 2)
   SKYPILOT_DECODE_CASE(64, 4)
@@ -340,6 +831,177 @@ cudaError_t dispatch(const DecodeArgs& a, int B, int Hq, int HD,
 #undef SKYPILOT_DECODE_CASE
   return cudaErrorInvalidValue;
 }
+
+// The tensor map of the int8 codes x[b][row][head][0:hd] (strides in
+// bytes, hd contiguous), described as hd / 2 bf16 so TMA swizzles the
+// rows (128-byte rows by the 128-byte pattern, 64-byte rows by the
+// 64-byte one; see code_chunk): box (hd, box_rows, 1, 1) bytes, rows
+// past `rows` read as zero.
+cudaError_t make_code_map(CUtensorMap* map, const void* base, int hd,
+                          long long rows, int heads, int batch,
+                          long long st_row, long long st_batch,
+                          int box_rows) {
+  sm90::EncodeTiledFn fn = sm90::encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {cuuint64_t(hd / 2), cuuint64_t(rows),
+                              cuuint64_t(heads), cuuint64_t(batch)};
+  const cuuint64_t strides[3] = {cuuint64_t(st_row), cuuint64_t(hd),
+                                 cuuint64_t(st_batch)};
+  const cuuint32_t box[4] = {cuuint32_t(hd / 2), cuuint32_t(box_rows), 1,
+                             1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        hd == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : CU_TENSOR_MAP_SWIZZLE_64B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// K and V maps: dense [B, S, Hkv, hd], or the pool as [1, N, Hkv, hd],
+// with boxes of min(bs, 16) rows of one kv head (16 dense).
+cudaError_t kv_maps(CUtensorMap* km, CUtensorMap* vm, const void* k,
+                    const void* v, bool q8, int HD, long long rows, int Hkv,
+                    int batch, long long k_ss, long long k_sb, long long v_ss,
+                    long long v_sb, int box_rows) {
+  cudaError_t err;
+  if (q8) {
+    if ((err = make_code_map(km, k, HD, rows, Hkv, batch, k_ss, k_sb,
+                             box_rows)) != cudaSuccess)
+      return err;
+    return make_code_map(vm, v, HD, rows, Hkv, batch, v_ss, v_sb, box_rows);
+  }
+  if ((err = sm90::make_map(km, k, HD, int(rows), Hkv, batch, k_ss, HD, k_sb,
+                            box_rows)) != cudaSuccess)
+    return err;
+  return sm90::make_map(vm, v, HD, int(rows), Hkv, batch, v_ss, HD, v_sb,
+                        box_rows);
+}
+
+DecodeArgs common_args(const void* q, const void* lengths, void* out,
+                       void* part_ml, void* part_acc, void* counters, int S,
+                       int Hkv, int chunk, int n_split, float scale_log2) {
+  DecodeArgs a{};
+  a.q = static_cast<const bf16*>(q);
+  a.lengths = static_cast<const int*>(lengths);
+  a.part_ml = static_cast<float*>(part_ml);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.counters = static_cast<int*>(counters);
+  a.out = static_cast<bf16*>(out);
+  a.S = S;
+  a.Hkv = Hkv;
+  a.W = 1;
+  a.bs = 1;
+  a.chunk = chunk;
+  a.n_split = n_split;
+  a.scale_log2 = scale_log2;
+  return a;
+}
+
+}  // namespace
+
+extern "C" int skypilot_decode_attention(
+    const void* q, const void* k, const void* v, const void* lengths,
+    void* out, void* part_ml, void* part_acc, void* counters, int B, int S,
+    int Hq, int Hkv, int HD, long long k_sb, long long k_ss, long long v_sb,
+    long long v_ss, int chunk, int n_split, float scale_log2, void* stream) {
+  const DecodeArgs a = common_args(q, lengths, out, part_ml, part_acc,
+                                   counters, S, Hkv, chunk, n_split,
+                                   scale_log2);
+  CUtensorMap km, vm;
+  cudaError_t err = kv_maps(&km, &vm, k, v, false, HD, S, Hkv, B, k_ss, k_sb,
+                            v_ss, v_sb, 16);
+  if (err != cudaSuccess) return err;
+  return dispatch<false, false>(km, vm, a, B, Hq, HD,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// int8 codes k/v (strides in elements = bytes) with bf16 scales whose
+// rows hold the Hkv heads contiguously (ks_ss == vs_ss == Hkv).
+extern "C" int skypilot_decode_attention_q8(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* lengths, void* out, void* part_ml,
+    void* part_acc, void* counters, int B, int S, int Hq, int Hkv, int HD,
+    long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+    long long ks_sb, long long ks_ss, long long vs_sb, long long vs_ss,
+    int chunk, int n_split, float scale_log2, void* stream) {
+  if (ks_ss != Hkv || vs_ss != Hkv || ks_sb != vs_sb ||
+      (ks_sb * 2) % 16 != 0 || (long long)S * Hkv % 8 != 0)
+    return cudaErrorInvalidValue;
+  DecodeArgs a = common_args(q, lengths, out, part_ml, part_acc, counters, S,
+                             Hkv, chunk, n_split, scale_log2);
+  a.k_scale = static_cast<const uint8_t*>(k_scale);
+  a.v_scale = static_cast<const uint8_t*>(v_scale);
+  a.sc_sb = ks_sb;
+  CUtensorMap km, vm;
+  cudaError_t err = kv_maps(&km, &vm, k, v, true, HD, S, Hkv, B, k_ss, k_sb,
+                            v_ss, v_sb, 16);
+  if (err != cudaSuccess) return err;
+  return dispatch<false, true>(km, vm, a, B, Hq, HD,
+                               static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+cudaError_t paged(const void* q, const void* k, const void* v,
+                  const void* k_scale, const void* v_scale,
+                  const void* table, const void* lengths, void* out,
+                  void* part_ml, void* part_acc, void* counters, int B,
+                  int W, int MB, int bs, long long N, int Hq, int Hkv,
+                  int HD, long long k_ss, long long v_ss, int chunk,
+                  int n_split, float scale_log2, cudaStream_t stream) {
+  if (W < 1 || MB < 1 || bs < 8 || bs > kTile || kTile % bs != 0 ||
+      N < bs || N % bs != 0 || chunk % bs != 0)
+    return cudaErrorInvalidValue;
+  const bool q8 = k_scale != nullptr;
+  DecodeArgs a = common_args(q, lengths, out, part_ml, part_acc, counters,
+                             MB * bs, Hkv, chunk, n_split, scale_log2);
+  a.table = static_cast<const int*>(table);
+  a.W = W;
+  a.MB = MB;
+  a.bs = bs;
+  a.n_pages = int(N / bs);
+  a.k_scale = static_cast<const uint8_t*>(k_scale);
+  a.v_scale = static_cast<const uint8_t*>(v_scale);
+  CUtensorMap km, vm;
+  cudaError_t err = kv_maps(&km, &vm, k, v, q8, HD, N, Hkv, 1, k_ss,
+                            N * k_ss, v_ss, N * v_ss, bs < 16 ? bs : 16);
+  if (err != cudaSuccess) return err;
+  return q8 ? dispatch<true, true>(km, vm, a, B, Hq, HD, stream)
+            : dispatch<true, false>(km, vm, a, B, Hq, HD, stream);
+}
+
+}  // namespace
+
+// Pools [N, Hkv, hd] (row strides in elements), N = pages * bs.
+extern "C" int skypilot_paged_decode_attention(
+    const void* q, const void* k, const void* v, const void* table,
+    const void* lengths, void* out, void* part_ml, void* part_acc,
+    void* counters, int B, int W, int MB, int bs, long long N, int Hq,
+    int Hkv, int HD, long long k_ss, long long v_ss, int chunk, int n_split,
+    float scale_log2, void* stream) {
+  return paged(q, k, v, nullptr, nullptr, table, lengths, out, part_ml,
+               part_acc, counters, B, W, MB, bs, N, Hq, Hkv, HD, k_ss, v_ss,
+               chunk, n_split, scale_log2, static_cast<cudaStream_t>(stream));
+}
+
+// int8 pools with bf16 scale pools [N, Hkv] (contiguous rows).
+extern "C" int skypilot_paged_decode_attention_q8(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* table, const void* lengths, void* out,
+    void* part_ml, void* part_acc, void* counters, int B, int W, int MB,
+    int bs, long long N, int Hq, int Hkv, int HD, long long k_ss,
+    long long v_ss, long long ks_ss, long long vs_ss, int chunk,
+    int n_split, float scale_log2, void* stream) {
+  if (ks_ss != Hkv || vs_ss != Hkv) return cudaErrorInvalidValue;
+  return paged(q, k, v, k_scale, v_scale, table, lengths, out, part_ml,
+               part_acc, counters, B, W, MB, bs, N, Hq, Hkv, HD, k_ss, v_ss,
+               chunk, n_split, scale_log2, static_cast<cudaStream_t>(stream));
+}
+
+namespace {
 
 // K5: one block per (row r, array j). The bf16 form copies 2 arrays (K and
 // V rows), the int8 form 4 (y = 0, 1 the K/V codes, y = 2, 3 their bf16
@@ -395,125 +1057,6 @@ __global__ void __launch_bounds__(kThreads)
     copy_words<uint8_t>(to, from, w);
 }
 
-}  // namespace
-
-namespace {
-
-DecodeArgs dense_args(const void* q, const void* k, const void* v,
-                      const void* lengths, void* out, void* part_m,
-                      void* part_l, void* part_acc, int S, int Hkv,
-                      long long k_sb, long long k_ss, long long v_sb,
-                      long long v_ss, int chunk, float scale_log2) {
-  DecodeArgs a{};
-  a.q = static_cast<const bf16*>(q);
-  a.k = k;
-  a.v = v;
-  a.lengths = static_cast<const int*>(lengths);
-  a.table = nullptr;
-  a.part_m = static_cast<float*>(part_m);
-  a.part_l = static_cast<float*>(part_l);
-  a.part_acc = static_cast<float*>(part_acc);
-  a.out = static_cast<bf16*>(out);
-  a.S = S;
-  a.Hkv = Hkv;
-  a.W = 1;
-  a.MB = 0;
-  a.bs = 1;
-  a.chunk = chunk;
-  a.n_split = (S + chunk - 1) / chunk;
-  a.k_sb = k_sb;
-  a.k_ss = k_ss;
-  a.v_sb = v_sb;
-  a.v_ss = v_ss;
-  a.scale_log2 = scale_log2;
-  return a;
-}
-
-DecodeArgs paged_args(const void* q, const void* k, const void* v,
-                      const void* table, const void* lengths, void* out,
-                      void* part_m, void* part_l, void* part_acc, int W,
-                      int MB, int bs, int Hkv, long long k_ss,
-                      long long v_ss, int chunk, float scale_log2) {
-  DecodeArgs a = dense_args(q, k, v, lengths, out, part_m, part_l, part_acc,
-                            MB * bs, Hkv, 0, k_ss, 0, v_ss, chunk,
-                            scale_log2);
-  a.table = static_cast<const int*>(table);
-  a.W = W;
-  a.MB = MB;
-  a.bs = bs;
-  return a;
-}
-
-}  // namespace
-
-extern "C" int skypilot_decode_attention(
-    const void* q, const void* k, const void* v, const void* lengths,
-    void* out, void* part_m, void* part_l, void* part_acc, int B, int S,
-    int Hq, int Hkv, int HD, long long k_sb, long long k_ss, long long v_sb,
-    long long v_ss, int chunk, float scale_log2, void* stream) {
-  const DecodeArgs a =
-      dense_args(q, k, v, lengths, out, part_m, part_l, part_acc, S, Hkv,
-                 k_sb, k_ss, v_sb, v_ss, chunk, scale_log2);
-  return dispatch<false, false>(a, B, Hq, HD,
-                                static_cast<cudaStream_t>(stream));
-}
-
-// int8 codes k/v with bf16 scales k_scale/v_scale (strides in elements).
-extern "C" int skypilot_decode_attention_q8(
-    const void* q, const void* k, const void* v, const void* k_scale,
-    const void* v_scale, const void* lengths, void* out, void* part_m,
-    void* part_l, void* part_acc, int B, int S, int Hq, int Hkv, int HD,
-    long long k_sb, long long k_ss, long long v_sb, long long v_ss,
-    long long ks_sb, long long ks_ss, long long vs_sb, long long vs_ss,
-    int chunk, float scale_log2, void* stream) {
-  DecodeArgs a = dense_args(q, k, v, lengths, out, part_m, part_l, part_acc,
-                            S, Hkv, k_sb, k_ss, v_sb, v_ss, chunk,
-                            scale_log2);
-  a.k_scale = static_cast<const bf16*>(k_scale);
-  a.v_scale = static_cast<const bf16*>(v_scale);
-  a.ks_sb = ks_sb;
-  a.ks_ss = ks_ss;
-  a.vs_sb = vs_sb;
-  a.vs_ss = vs_ss;
-  return dispatch<false, true>(a, B, Hq, HD,
-                               static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int skypilot_paged_decode_attention(
-    const void* q, const void* k, const void* v, const void* table,
-    const void* lengths, void* out, void* part_m, void* part_l,
-    void* part_acc, int B, int W, int MB, int bs, int Hq, int Hkv, int HD,
-    long long k_ss, long long v_ss, int chunk, float scale_log2,
-    void* stream) {
-  if (W < 1 || MB < 1 || bs < 1) return cudaErrorInvalidValue;
-  const DecodeArgs a =
-      paged_args(q, k, v, table, lengths, out, part_m, part_l, part_acc, W,
-                 MB, bs, Hkv, k_ss, v_ss, chunk, scale_log2);
-  return dispatch<true, false>(a, B, Hq, HD,
-                               static_cast<cudaStream_t>(stream));
-}
-
-// int8 pools with bf16 scale pools [N, Hkv] (row strides in elements).
-extern "C" int skypilot_paged_decode_attention_q8(
-    const void* q, const void* k, const void* v, const void* k_scale,
-    const void* v_scale, const void* table, const void* lengths, void* out,
-    void* part_m, void* part_l, void* part_acc, int B, int W, int MB, int bs,
-    int Hq, int Hkv, int HD, long long k_ss, long long v_ss, long long ks_ss,
-    long long vs_ss, int chunk, float scale_log2, void* stream) {
-  if (W < 1 || MB < 1 || bs < 1) return cudaErrorInvalidValue;
-  DecodeArgs a = paged_args(q, k, v, table, lengths, out, part_m, part_l,
-                            part_acc, W, MB, bs, Hkv, k_ss, v_ss, chunk,
-                            scale_log2);
-  a.k_scale = static_cast<const bf16*>(k_scale);
-  a.v_scale = static_cast<const bf16*>(v_scale);
-  a.ks_ss = ks_ss;
-  a.vs_ss = vs_ss;
-  return dispatch<true, true>(a, B, Hq, HD,
-                              static_cast<cudaStream_t>(stream));
-}
-
-namespace {
-
 cudaError_t cache_write(int n_arrays, void* const* dsts,
                         const void* const* srcs, const int* widths,
                         const void* dst, int n_new, long long n_rows,
@@ -556,6 +1099,14 @@ extern "C" int skypilot_cache_write_q8(
   const void* srcs[4] = {k_new, v_new, ks_new, vs_new};
   const int widths[4] = {row_bytes, row_bytes, scale_bytes, scale_bytes};
   return cache_write(4, dsts, srcs, widths, dst, n_new, n_rows, stream);
+}
+
+// The dynamic shared memory one K4 block asks for (layout plus the
+// alignment slack), for a check of the wrapper's copy of the layout
+// (ops/decode_attention.py decode_smem_bytes).
+extern "C" int skypilot_decode_smem_bytes(int hd, int q8, int hkv,
+                                          int max_pages, int rows) {
+  return layout(hd, q8 != 0, hkv, max_pages, rows).total + 1024;
 }
 
 extern "C" const char* skypilot_error_string(int code) {

@@ -5,14 +5,17 @@ Kernels (``csrc/decode_attention.cu``, hand-written replacements of the
 TPU kernels), each launched for CUDA tensors, with its plain PyTorch
 version beside it for CPU tensors (any other device raises):
 
-- ``decode_attention``: K4-cuda, split-K flash-decoding plus a merge
-  kernel, for a dense cache (replaces ``_decode_attn_kernel``). As in
-  the TPU kernel, a length is clamped to ``max(len, 1)`` (and to S).
+- ``decode_attention``: K4-cuda, split-K flash-decoding for a dense
+  cache (replaces ``_decode_attn_kernel``): 64-key tiles by TMA, the
+  products on the tensor cores, the merge of the splits folded into the
+  same launch. As in the TPU kernel, a length is clamped to
+  ``max(len, 1)`` (and to S).
 - ``paged_decode_attention`` / ``paged_verify_attention``: K4-paged,
   the same kernel reading the block table directly where the JAX
   package gathers every row's pages into a contiguous view first; W = 1
   query position per row (decode) or W = draft_k + 1 (speculative
-  verify, query j attending ``lengths[b] + j`` positions).
+  verify, query j attending ``lengths[b] + j`` positions), all W
+  positions served by one read of each key.
 - ``cache_write``: K5-cuda, R new K/V rows written in place into a flat
   row view at given row indices (replaces ``_cache_write_kernel``);
   ``cache_write_rows`` is the TPU kernel's own rows form
@@ -37,19 +40,32 @@ from skypilot_torch.serve import kv_pool as kv_pool_lib
 
 LOG2E = 1.4426950408889634
 _NEG_INF = -1e30
-# Keys per split block. At batch 1 and 2k context that is ~17 busy
-# blocks per KV head (136 for Llama-3-8B's 8 heads, about one per SM);
-# blocks past a row's length exit at once.
-SPLIT_CHUNK = 128
+# K4's shapes (csrc/decode_attention.cu): keys per tile (kTile), tiles in
+# the shared-memory ring (kStages), the page sizes its per-page copies
+# take (a page is one TMA box, and a 64-key tile holds whole pages), the
+# longest split (its page entries sit in shared memory) and the shared
+# memory a block may use.
+DECODE_TILE = 64
+DECODE_STAGES = 3
+DECODE_PAGE_SIZES = (8, 16, 32, 64)
+DECODE_MAX_CHUNK = 4096
+DECODE_MAX_SMEM = 232448
+# The split plan aims at this many blocks per call: about two waves over
+# the H100's 132 SMs at two blocks each (chosen on the card from 256 to
+# 4096: the fastest, or within noise of it, at the K4 shapes PERF.md
+# lists).
+DECODE_TARGET_BLOCKS = 512
 
 DECODE_ATTENTION = _build.Kernel(
     'decode_attention', 'skypilot_decode_attention',
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 +
-    [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_float,
-                               ctypes.c_void_p])
-_PAGED_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 +
+    [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_int,
+                               ctypes.c_float, ctypes.c_void_p])
+_PAGED_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 +
+               [ctypes.c_longlong] + [ctypes.c_int] * 3 +
                [ctypes.c_longlong] * 2 +
-               [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+               [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                ctypes.c_void_p])
 # One C entry, two counts: decode (W = 1) and speculative verify (W > 1)
 # launches are told apart so a run can match each to its dispatches.
 PAGED_DECODE_ATTENTION = _build.Kernel(
@@ -64,11 +80,13 @@ CACHE_WRITE = _build.Kernel(
 DECODE_ATTENTION_Q8 = _build.Kernel(
     'decode_attention', 'skypilot_decode_attention_q8',
     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 +
-    [ctypes.c_longlong] * 8 + [ctypes.c_int, ctypes.c_float,
-                               ctypes.c_void_p])
-_PAGED_Q8_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 +
+    [ctypes.c_longlong] * 8 + [ctypes.c_int, ctypes.c_int,
+                               ctypes.c_float, ctypes.c_void_p])
+_PAGED_Q8_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 +
+                  [ctypes.c_longlong] + [ctypes.c_int] * 3 +
                   [ctypes.c_longlong] * 4 +
-                  [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                  [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_void_p])
 PAGED_DECODE_ATTENTION_Q8 = _build.Kernel(
     'decode_attention', 'skypilot_paged_decode_attention_q8',
     _PAGED_Q8_ARGS)
@@ -192,6 +210,87 @@ def _reference_cache_write(k, v, k_new, v_new, dst, k_scale=None,
 
 
 # ---------------------------------------------------------------------
+# K4's host-side plan: splits, scratch, shared memory, copy checks
+# ---------------------------------------------------------------------
+
+
+def decode_split_plan(b: int, hkv: int, s: int, rows: int):
+    """``(chunk, n_split)`` of a K4 call from shapes alone: B rows, Hkv
+    kv heads, S keys a row can hold (MB * bs when paged) and ``rows`` =
+    W * G query rows per kv head. Never from ``lengths``, so the call
+    can sit in a CUDA graph.
+
+    Block (split, kv head, row) covers keys [split * chunk, (split + 1)
+    * chunk) of its row, in 64-key tiles; splits are sized so that
+    about ``DECODE_TARGET_BLOCKS`` blocks cover the shape, but never
+    below one tile per 16 query rows (each split writes a partial of
+    ``rows`` x hd floats, which has to stay small beside the keys it
+    read) and never above ``DECODE_MAX_CHUNK``."""
+    tiles = -(-s // DECODE_TILE)
+    want = max(1, -(-DECODE_TARGET_BLOCKS // (b * hkv)))
+    per = max(-(-tiles // want), -(-rows // 16))
+    per = min(per, tiles, DECODE_MAX_CHUNK // DECODE_TILE)
+    chunk = per * DECODE_TILE
+    return chunk, -(-s // chunk)
+
+
+def decode_scratch_shapes(b: int, hkv: int, n_split: int, rows: int,
+                          hd: int):
+    """Shapes of the f32 partials a K4 call writes: (m, l) and acc of
+    each (row, kv head, split, query row)."""
+    return (b, hkv, n_split, rows, 2), (b, hkv, n_split, rows, hd)
+
+
+def decode_smem_bytes(hd: int, q8: bool, hkv: int, max_pages: int,
+                      rows: int) -> int:
+    """Dynamic shared memory of one K4 block (``layout`` in
+    csrc/decode_attention.cu, plus its 1024 bytes of alignment slack)."""
+    def up(x, m):
+        return -(-x // m) * m
+    kv_tile = DECODE_TILE * hd * 2
+    codes = DECODE_TILE * hd
+    stage = (up(2 * codes + 2 * DECODE_TILE * hkv * 2, 1024) if q8
+             else 2 * kv_tile)
+    ns = DECODE_STAGES
+    # int8: the bf16 tiles, V only in the narrow kernel (rows <= 16).
+    end = ns * stage + ((2 if rows > 16 else 1) * kv_tile if q8 else 0)
+    merge = 4 * 16 * (hd + 4) * 4 + 4 * 16 * 2 * 4
+    bar = up(max(end, merge, rows * 8), 128)
+    return bar + ns * 4 * 8 + up(4 * (1 + ns), 16) + max_pages * 4 + 1024
+
+
+# K4's merge counters, one int32 per (row, kv head): the most a call may
+# use, and the buffer of each device.
+DECODE_MAX_COUNTERS = 1 << 16
+_COUNTERS = {}
+
+
+def _counters(dev: torch.device, n: int) -> torch.Tensor:
+    """The int32 counters K4's last-block merge uses, one per (row, kv
+    head), 0 between calls (the last block of each call leaves its
+    counter at 0 again). One buffer per device, made zeroed on the
+    device's first K4 call and never replaced, so a CUDA graph that
+    captured a call keeps pointing at live counters. Every K4 call on a
+    device shares it: calls must run one after another (one stream, or
+    streams ordered by events), as the engine's do."""
+    if n > DECODE_MAX_COUNTERS:
+        raise ValueError(f'decode attention: B * Hkv = {n} exceeds the '
+                         f'{DECODE_MAX_COUNTERS} merge counters')
+    key = (dev.type, dev.index)
+    buf = _COUNTERS.get(key)
+    if buf is None:
+        if dev.type == 'cuda' and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                'decode attention: the merge counters are made on the '
+                "device's first K4 call, which may not be captured; make "
+                'one call before capturing a CUDA graph')
+        buf = torch.zeros(DECODE_MAX_COUNTERS, dtype=torch.int32,
+                          device=dev)
+        _COUNTERS[key] = buf
+    return buf
+
+
+# ---------------------------------------------------------------------
 # CUDA launches
 # ---------------------------------------------------------------------
 
@@ -245,23 +344,69 @@ def _check_kv(what: str, q, k, v, k_scale, v_scale) -> None:
                              f'{tuple(x.shape)} strides {x.stride()}')
 
 
-def _check_rows_kv(what: str, name: str, x: torch.Tensor, hd: int) -> None:
-    """Contiguous [Hkv, hd] rows and aligned vector loads: 16 bytes a
-    lane for bf16, 8 for int8 codes."""
-    align = 16 if x.dtype == torch.bfloat16 else 8
+def _check_tma_kv(what: str, name: str, x: torch.Tensor, hd: int) -> None:
+    """What K4's TMA map of K or V takes: contiguous [Hkv, hd] rows,
+    outer strides that are whole 16-byte units, a 16-byte aligned base
+    and fewer than 2^31 rows."""
+    es = x.element_size()
     if (x.stride(-1) != 1 or x.stride(-2) != hd
-            or any(st % 8 for st in x.stride()[:-2])
-            or x.data_ptr() % align):
+            or any(st * es % 16 for st in x.stride()[:-2])
+            or x.data_ptr() % 16 or x.shape[-3] >= 2 ** 31):
         raise ValueError(f'{what}: {name} needs contiguous [Hkv, hd] '
-                         'rows, 8-element aligned strides and an aligned '
-                         f'base (shape {tuple(x.shape)}, strides '
-                         f'{x.stride()})')
+                         'rows, strides of whole 16-byte units and a '
+                         '16-byte aligned base for the TMA copies (shape '
+                         f'{tuple(x.shape)}, strides {x.stride()}, '
+                         f'dtype {x.dtype})')
+
+
+def _check_scale_rows(what: str, k_scale, v_scale, hkv: int) -> None:
+    """int8 scales are copied a whole row of kv heads at a time
+    (cp.async.bulk): rows of Hkv contiguous entries, whole 16-byte
+    units of batch stride, a 16-byte aligned base, and K and V alike."""
+    for name, x in (('k_scale', k_scale), ('v_scale', v_scale)):
+        if (x.stride(-2) != hkv or any(st * 2 % 16 for st in
+                                       x.stride()[:-2])
+                or x.data_ptr() % 16 or x.stride() != k_scale.stride()):
+            raise ValueError(f'{what}: {name} needs rows of {hkv} '
+                             'contiguous kv heads, batch strides of whole '
+                             '16-byte units, a 16-byte aligned base and '
+                             'the strides of k_scale for the bulk copies '
+                             f'(shape {tuple(x.shape)}, strides '
+                             f'{x.stride()})')
+
+
+def _check_smem(what: str, hd: int, q8: bool, hkv: int, max_pages: int,
+                rows: int) -> None:
+    need = decode_smem_bytes(hd, q8, hkv, max_pages, rows)
+    if need > DECODE_MAX_SMEM:
+        raise ValueError(f'{what}: Hkv {hkv} / rows {rows} need {need} '
+                         'bytes of shared memory per block, more than '
+                         f'the {DECODE_MAX_SMEM} a block may use')
+
+
+def _check_page_size(what: str, block_size: int) -> None:
+    if block_size not in DECODE_PAGE_SIZES:
+        raise ValueError(f'{what}: block_size {block_size} is not a page '
+                         'size the CUDA kernel takes '
+                         f'{DECODE_PAGE_SIZES}: a page is one TMA box and '
+                         f'a {DECODE_TILE}-key tile holds whole pages')
+
+
+def _launch_scratch(dev, b, hkv, s, rows, hd):
+    """The split plan, the partials' scratch and the merge counters of a
+    K4 call."""
+    counters = _counters(dev, b * hkv)
+    chunk, n_split = decode_split_plan(b, hkv, s, rows)
+    ml_shape, acc_shape = decode_scratch_shapes(b, hkv, n_split, rows, hd)
+    part_ml = torch.empty(ml_shape, dtype=torch.float32, device=dev)
+    part_acc = torch.empty(acc_shape, dtype=torch.float32, device=dev)
+    return chunk, n_split, part_ml, part_acc, counters
 
 
 def _decode_attention_cuda(q, k, v, lengths, scale, k_scale=None,
                            v_scale=None):
     """Launch K4-cuda (or its int8 form with scales); raises on anything
-    the kernel does not take."""
+    the kernel does not take, before anything launches."""
     what = 'decode_attention'
     if not all(x.device == q.device for x in (k, v, lengths)):
         raise ValueError('decode_attention: q, k, v, lengths must share a '
@@ -285,26 +430,33 @@ def _decode_attention_cuda(q, k, v, lengths, scale, k_scale=None,
         raise ValueError('decode_attention: q and lengths must be '
                          'contiguous')
     for name, x in (('k', k), ('v', v)):
-        _check_rows_kv(what, name, x, hd)
+        _check_tma_kv(what, name, x, hd)
+    rows = hq // hkv
+    if k_scale is not None:
+        _check_scale_rows(what, k_scale, v_scale, hkv)
+        if s * hkv % 8:
+            raise ValueError(f'{what}: an int8 cache needs S * Hkv a '
+                             f'multiple of 8 (the last tile\'s scale rows '
+                             f'are whole 16-byte units), got S {s}, Hkv '
+                             f'{hkv}')
+    _check_smem(what, hd, k_scale is not None, hkv, 0, rows)
     if q.data_ptr() % 16:
         raise ValueError('decode_attention: q needs a 16-byte aligned base')
-    n_split = -(-s // SPLIT_CHUNK)
+    chunk, n_split, *scratch = _launch_scratch(q.device, b, hkv, s, rows,
+                                               hd)
+    stream = _stream(q)
     out = torch.empty_like(q)
-    part_m = torch.empty((b, hq, n_split), dtype=torch.float32,
-                         device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b, hq, n_split, hd), dtype=torch.float32,
-                           device=q.device)
-    head = (q.data_ptr(), k.data_ptr(), v.data_ptr())
-    parts = (lengths.data_ptr(), out.data_ptr(), part_m.data_ptr(),
-             part_l.data_ptr(), part_acc.data_ptr(), b, s, hq, hkv, hd,
+    parts = (lengths.data_ptr(), out.data_ptr(),
+             *(x.data_ptr() for x in scratch), b, s, hq, hkv, hd,
              k.stride(0), k.stride(1), v.stride(0), v.stride(1))
-    tail = (SPLIT_CHUNK, scale * LOG2E, _stream(q))
+    tail = (chunk, n_split, scale * LOG2E, stream)
     if k_scale is None:
-        DECODE_ATTENTION(*head, *parts, *tail)
+        DECODE_ATTENTION(q.data_ptr(), k.data_ptr(), v.data_ptr(), *parts,
+                         *tail)
     else:
-        DECODE_ATTENTION_Q8(*head, k_scale.data_ptr(), v_scale.data_ptr(),
-                            *parts, k_scale.stride(0), k_scale.stride(1),
+        DECODE_ATTENTION_Q8(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            k_scale.data_ptr(), v_scale.data_ptr(), *parts,
+                            k_scale.stride(0), k_scale.stride(1),
                             v_scale.stride(0), v_scale.stride(1), *tail)
     return out
 
@@ -313,7 +465,7 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, lengths,
                           scale, block_size, k_scale=None, v_scale=None):
     """Launch K4-paged (or its int8 form) for q [B, W, Hq, hd] over one
     layer's flat pools [N, Hkv, hd]; raises on anything the kernel does
-    not take."""
+    not take, before anything launches."""
     what = 'paged_attention'
     dev = q.device
     _check_kv(what, q, k_pool, v_pool, k_scale, v_scale)
@@ -325,31 +477,37 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, lengths,
             k_pool.shape[2] != hd:
         raise ValueError(f'{what}: pools must be [N, Hkv, {hd}], got '
                          f'{tuple(k_pool.shape)}, {tuple(v_pool.shape)}')
-    hkv = k_pool.shape[1]
+    n_rows, hkv = k_pool.shape[0], k_pool.shape[1]
     _check_heads(what, hq, hkv, hd)
-    _check_rows_kv(what, 'k_pool', k_pool, hd)
-    _check_rows_kv(what, 'v_pool', v_pool, hd)
+    _check_page_size(what, block_size)
+    if n_rows < block_size or n_rows % block_size:
+        raise ValueError(f'{what}: pools of {n_rows} rows are not whole '
+                         f'pages of {block_size}')
+    _check_tma_kv(what, 'k_pool', k_pool, hd)
+    _check_tma_kv(what, 'v_pool', v_pool, hd)
+    if k_scale is not None:
+        _check_scale_rows(what, k_scale, v_scale, hkv)
     _check_index(what, 'block_tables', block_tables, dev, 2)
     _check_index(what, 'lengths', lengths, dev, 1)
     mb = block_tables.shape[1]
     if block_tables.shape[0] != b or lengths.shape[0] != b or mb < 1 \
-            or block_size < 1 or w < 1:
+            or w < 1:
         raise ValueError(f'{what}: block_tables {tuple(block_tables.shape)}'
                          f', lengths {tuple(lengths.shape)}, block_size '
                          f'{block_size} do not fit q {tuple(q.shape)}')
-    n_split = -(-(mb * block_size) // SPLIT_CHUNK)
+    rows = w * (hq // hkv)
+    s = mb * block_size
+    chunk, _ = decode_split_plan(b, hkv, s, rows)
+    _check_smem(what, hd, k_scale is not None, hkv, chunk // block_size,
+                rows)
+    chunk, n_split, *scratch = _launch_scratch(dev, b, hkv, s, rows, hd)
+    stream = _stream(q)
     out = torch.empty_like(q)
-    part_m = torch.empty((b, w, hq, n_split), dtype=torch.float32,
-                         device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b, w, hq, n_split, hd), dtype=torch.float32,
-                           device=dev)
-    head = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr())
     parts = (block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), b,
-             w, mb, block_size, hq, hkv, hd, k_pool.stride(0),
-             v_pool.stride(0))
-    tail = (SPLIT_CHUNK, scale * LOG2E, _stream(q))
+             *(x.data_ptr() for x in scratch), b, w, mb, block_size, n_rows,
+             hq, hkv, hd, k_pool.stride(0), v_pool.stride(0))
+    tail = (chunk, n_split, scale * LOG2E, stream)
+    head = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr())
     if k_scale is None:
         kernel = PAGED_DECODE_ATTENTION if w == 1 else PAGED_VERIFY_ATTENTION
         kernel(*head, *parts, *tail)
