@@ -70,6 +70,20 @@ in order (any failure exits non-zero; nothing is caught):
    on), launch counts equal to the engine's dispatch record, TTFT
    and TPOT per request, output tokens/s, and a profile of one decode
    dispatch.
+11b. Sampling: keys and 32-bit random bits at [128256] for 64 (seed,
+   position) pairs bit-equal between the card and the CPU; ``sample_rows``
+   and ``verify_targets`` on the same f32 logits give the CPU's tokens
+   (a flip only where the CPU's top-two gap is under
+   ``SAMPLER_FLIP_GAP``); a chi-square test of 4096 keyed draws on a
+   peaked row; then the ``--slots 8`` replica with a synthetic
+   128256-id grammar vocab answering 12 concurrent requests (4 greedy,
+   6 sampled of which two draft, a regex and a json_schema request):
+   launch counts equal to the dispatch record, constrained outputs that
+   keep their DFA alive and full-match where they ended in EOS; printed
+   beside it: the greedy burst's numbers, the sampler's share of a
+   sampled dispatch, the grammar mask build per new DFA state, the
+   verify mask table's bytes, each seeded request re-run alone, and the
+   drafting ones with speculation off.
 12. Rows: ``decode_steps_rows`` (K5 + dense K4) and ``decode_steps_paged``
    (K5 + K4-paged) at llama3-8b, B 8, 16 steps on the same content:
    32 x 16 launches each and equal tokens.
@@ -115,7 +129,8 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 L2_BYTES = 50 * 2 ** 20
 PHASES = ('k1', 'k4', 'e2e', 'serve', 'k1r', 'bwd', 'train', 'k5',
-          'k4p', 'engine', 'rows', 'k6', 'int8k', 'int8', 'qlora')
+          'k4p', 'engine', 'sampling', 'rows', 'k6', 'int8k', 'int8',
+          'qlora')
 K1_TOL = {'out': 2e-2, 'lse': 2e-2}
 # K2/K3 in bf16 (P and dS rounded to bf16 before their products) against
 # f32 on the same rotated bf16 q and k: max |err| over max |ref| per
@@ -249,7 +264,8 @@ def _visible_pairs(t, s):
 def profile_cuda(torch, fn, label, extra):
     """Where ``fn``'s time goes: the card's busy time (CUDA-only
     profiler, so the host runs almost as unprofiled) against the wall
-    clock, and the kernels that take the most device time."""
+    clock, and the kernels that take the most device time. Returns the
+    busy ms."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -277,6 +293,7 @@ def profile_cuda(torch, fn, label, extra):
         port_kernels=[dict(name=e.key[:80], calls=e.count,
                            ms=e.self_device_time_total / 1e3)
                       for e in port])))
+    return busy_ms
 
 
 # ---------------------------------------------------------------------
@@ -1684,13 +1701,16 @@ def _sse_post(port, body, timeout=900):
         conn.close()
 
 
-def _first_token(torch, engine, config, prompt):
+def _first_token(torch, engine, config, prompt, knobs=None):
     """The engine's first token for a prompt that hits no cached block:
     its prefill chunks (same buckets, same padding, same kernels)
     replayed on a private pool, then the argmax of the last chunk's
-    logits, as ``_finish_prefill`` takes it."""
+    logits, as ``_finish_prefill`` takes it (``knobs``: the request's
+    temperature, top_p and seed, drawn as ``_finish_prefill`` draws a
+    sampled first token)."""
     from skypilot_torch.models import decode
     from skypilot_torch.serve import kv_pool
+    from skypilot_torch.serve.sampling import sample
     n_blk = engine.pool.blocks_for(len(prompt) + 1)
     pool = kv_pool.KVBlockPool(config, n_blk + 1, engine.block_size,
                                kv_int8=engine.kv_int8, device='cuda')
@@ -1707,23 +1727,38 @@ def _first_token(torch, engine, config, prompt):
                 engine.params, torch.tensor([chunk], device='cuda'),
                 pool.caches, row, off, real, config, engine.block_size)
             off += real
+        if knobs is not None:
+            return int(sample.sample_first(
+                logits, knobs['temperature'], knobs['top_p'],
+                _int32(knobs['seed']), len(prompt) - 1))
     return int(logits[0].argmax())
 
 
-def _draft_prompts(torch, engine, config, rand, need=2, tries=8):
+def _int32(seed):
+    """A seed as the engine keeps it: the int32 two's complement of
+    ``seed mod 2**32``."""
+    seed &= 0xFFFFFFFF
+    return seed - (1 << 32) if seed >= 1 << 31 else seed
+
+
+def _draft_prompts(torch, engine, config, rand, need=2, tries=8,
+                   knobs=None, label='ENGINE'):
     """Prompts the engine's drafter must draft on at its first decode
     dispatch: ``x + [a, b, c] + y + [a, b]`` where c is the model's own
     first token for that very prompt (found by fixed-point iteration),
     so the stream's trailing trigram (a, b, c) occurred earlier and the
     drafter proposes y. Greedy prefill is deterministic, so the
-    replica reproduces c."""
+    replica reproduces c; ``knobs`` (one dict per prompt) draw c as
+    the replica draws a seeded sampled first token."""
     found, log_rows = [], []
     for attempt in range(2 * need):
         x, (a, b), y = rand(150 + 20 * attempt), rand(2), rand(140)
         c = rand(1)[0]
         for it in range(tries):
             prompt = x + [a, b, c] + y + [a, b]
-            got = _first_token(torch, engine, config, prompt)
+            got = _first_token(torch, engine, config, prompt,
+                               None if knobs is None
+                               else knobs[len(found)])
             if got == c:
                 found.append(prompt)
                 break
@@ -1732,7 +1767,7 @@ def _draft_prompts(torch, engine, config, rand, need=2, tries=8):
                              fixed_point=got == c))
         if len(found) == need:
             break
-    log('ENGINE_DRAFT_PROMPTS ' + json.dumps(log_rows))
+    log(label + '_DRAFT_PROMPTS ' + json.dumps(log_rows))
     assert len(found) == need, 'no fixed-point first token was found'
     return found
 
@@ -1764,6 +1799,27 @@ def _profile_engine_dispatch(torch, engine, config, batching, label):
                  dict(rows=len(lens), steps=engine.steps, lengths=lens))
     for bl in blocks:
         engine.pool.free(bl)
+
+
+# Each engine burst's end-to-end numbers, by label, for the sampled
+# burst to print beside the greedy one.
+_BURSTS = {}
+
+
+def _median(xs):
+    xs = sorted(x for x in xs if x is not None)
+    return xs[len(xs) // 2] if xs else None
+
+
+def _burst_summary(results, n_out, run_s):
+    """A burst's output tokens/s and its median TTFT and TPOT (ms) over
+    the streamed requests."""
+    return dict(output_tokens_per_s=n_out / run_s,
+                ttft_ms_median=_median(r[3] for r in results),
+                tpot_ms_median=_median(
+                    None if r[3] is None or len(r[2]) < 2
+                    else (r[4] - r[3]) / (len(r[2]) - 1)
+                    for r in results))
 
 
 def engine_phase(torch, attention, da, quant=False):
@@ -1900,6 +1956,7 @@ def engine_phase(torch, attention, da, quant=False):
                 prefix_misses=int(heads['X-Skytpu-Prefix-Misses']))))
         hits = int(results[3][1]['X-Skytpu-Prefix-Hits'])
         verifies = [e for e in events if e[0] == 'verify']
+        _BURSTS[label] = _burst_summary(results, n_out, run_s)
         log(label + ' ' + json.dumps(dict(
             model=args.model, layers=L, slots=args.slots,
             quant=args.quant, kv_int8=args.kv_int8,
@@ -1925,6 +1982,541 @@ def engine_phase(torch, attention, da, quant=False):
         engine.close()
         thread.join(timeout=30)
     assert not thread.is_alive() and not engine.thread.is_alive()
+    return launches
+
+
+# ---------------------------------------------------------------------
+# Sampling: keyed sampled decode, sampled verify, grammar masks
+# ---------------------------------------------------------------------
+
+# (b): a token may differ between the card and the CPU only where the
+# CPU's top-two gap in (gumbel + logit / T) is under this.
+SAMPLER_FLIP_GAP = 1e-5
+# (c): the chi-square test must not reject at this p.
+CHI2_P_MIN = 1e-3
+# Upper 0.001 quantiles of chi-square by degrees of freedom (used where
+# scipy is absent).
+CHI2_999 = {6: 22.458, 10: 29.588}
+SAMPLING_SEEDS = [0, 1, -1, 7, -12345, 2 ** 31 - 1, 2 ** 31, 2 ** 31 + 5,
+                  2 ** 32 - 1, 2746413216]
+
+
+def _sampling_bits(torch):
+    """(a) Keys and 32-bit random bits at [128256] for 64 (seed,
+    position) pairs, bit-equal between the card and the CPU (the CPU
+    path is the one the tests hold to JAX)."""
+    from skypilot_torch.serve.sampling import prng
+    gen = torch.Generator().manual_seed(31)
+    seeds = [_int32(s) for s in SAMPLING_SEEDS] + torch.randint(
+        -2 ** 31, 2 ** 31, (54,), generator=gen).tolist()
+    pos = [0, 1, 2 ** 31 - 1] + torch.randint(
+        0, 8192, (61,), generator=gen).tolist()
+    s_cpu = torch.tensor(seeds, dtype=torch.int32)
+    p_cpu = torch.tensor(pos, dtype=torch.int32)
+    keys_cpu = prng.row_keys(s_cpu, p_cpu)
+    keys_gpu = prng.row_keys(s_cpu.cuda(), p_cpu.cuda())
+    keys_equal = torch.equal(keys_gpu.cpu(), keys_cpu)
+    v = 128256
+    bits_equal, t_ms = True, 0.0
+    for lo in range(0, 64, 16):
+        cpu = prng.random_bits(keys_cpu[lo:lo + 16], (v,))
+        t0 = time.perf_counter()
+        gpu = prng.random_bits(keys_gpu[lo:lo + 16], (v,))
+        torch.cuda.synchronize()
+        t_ms += 1e3 * (time.perf_counter() - t0)
+        bits_equal &= torch.equal(gpu.cpu(), cpu)
+    row = dict(pairs=64, vocab=v, keys_equal=keys_equal,
+               bits_equal=bits_equal, gpu_bits_ms_64_rows=t_ms)
+    log('SAMPLING_BITS ' + json.dumps(row))
+    assert keys_equal and bits_equal, row
+
+
+def _sampler_gaps(torch, logits, temps, tops, seeds, pos, allowed):
+    """The CPU's top-two gap of the quantity each row's token is the
+    argmax of: the logits for greedy rows, gumbel + filtered logit / T
+    for sampled rows."""
+    from skypilot_torch.serve.sampling import prng
+    from skypilot_torch.serve.sampling import sample
+    x = logits.float()
+    if allowed is not None:
+        x = torch.where(allowed, x, sample.NEG_INF)
+    filt = sample._filter_top_p_row(x, tops)
+    noise = prng.gumbel(prng.row_keys(seeds, pos), (x.shape[-1],))
+    score = noise + filt / torch.clamp_min(temps, 1e-6)[:, None]
+    score = torch.where((temps <= 0)[:, None], x, score)
+    top2 = score.topk(2, dim=-1).values
+    return top2[:, 0] - top2[:, 1]
+
+
+def _sampling_sampler(torch):
+    """(b) ``sample_rows`` on [8, V] and ``verify_targets`` on [8, 9, V]
+    seeded f32 logits, temperatures {0, 0.7, 1.0}, top_p {1.0, 0.9} and
+    two masked rows: the card's tokens against the CPU's, flips allowed
+    only under ``SAMPLER_FLIP_GAP``."""
+    from skypilot_torch.serve.sampling import sample
+    v = 128256
+    gen = torch.Generator().manual_seed(32)
+    temps = torch.tensor([0.0, 0.7, 1.0, 0.7, 1.0, 0.0, 1.0, 0.7])
+    tops = torch.tensor([1.0, 0.9, 1.0, 1.0, 0.9, 0.9, 0.9, 1.0])
+    seeds = torch.tensor([_int32(s) for s in SAMPLING_SEEDS[:8]],
+                         dtype=torch.int32)
+    pos = torch.randint(0, 8192, (8,), generator=gen, dtype=torch.int32)
+    rows = []
+    for w in (None, 9):
+        shape = (8, v) if w is None else (8, w, v)
+        logits = 3.0 * torch.randn(shape, generator=gen)
+        allowed = torch.ones(shape, dtype=torch.bool)
+        allowed[1] = torch.rand(shape[1:], generator=gen) < 0.3
+        allowed[6] = torch.rand(shape[1:], generator=gen) < 0.3
+        args = (logits, temps, tops, seeds, pos, allowed)
+        fn = sample.sample_rows if w is None else sample.verify_targets
+        cpu = fn(*args)
+        t0 = time.perf_counter()
+        gpu = fn(*[a.cuda() for a in args])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        gpu = gpu.cpu()
+        if w is None:
+            gaps = _sampler_gaps(torch, logits, temps, tops, seeds, pos,
+                                 allowed)
+        else:
+            per = lambda x: x[:, None].expand(8, w).reshape(-1)  # noqa
+            gaps = _sampler_gaps(
+                torch, logits.reshape(-1, v), per(temps), per(tops),
+                per(seeds), (pos[:, None] + torch.arange(w)).reshape(-1),
+                allowed.reshape(-1, v)).reshape(8, w)
+        flips = gpu != cpu
+        row = dict(shape=list(shape), tokens=int(cpu.numel()),
+                   flips=int(flips.sum()),
+                   flip_gaps=gaps[flips].tolist(),
+                   min_gap=float(gaps.min()), first_call_ms=ms,
+                   masked_in_support=bool(
+                       allowed.reshape(-1, v)[
+                           torch.arange(cpu.numel()),
+                           gpu.reshape(-1).long()].all()))
+        log('SAMPLING_SAMPLER ' + json.dumps(row))
+        rows.append(row)
+        assert bool((gaps[flips] < SAMPLER_FLIP_GAP).all()), row
+        assert row['masked_in_support'], row
+    return rows
+
+
+def _chi2_p(stat, df):
+    try:
+        from scipy import stats
+    except ImportError:
+        return None
+    return float(stats.chi2.sf(stat, df))
+
+
+def _sampling_chi2(torch):
+    """(c) 4096 draws (one request's positions 0..4095, one seed) from a
+    peaked [128256] row on the card against softmax of the filtered
+    logits: ten head tokens and the tail as one bin; at T 0.7 and top_p
+    0.9 the nucleus (taken at T 1, as the sampler takes it) keeps seven
+    heads."""
+    import numpy as np
+
+    from skypilot_torch.serve.sampling import sample
+    v, n = 128256, 4096
+    heads = np.asarray([0.3, 0.2, 0.15, 0.1, 0.07, 0.05, 0.04, 0.03, 0.02,
+                        0.01])
+    probs = np.full(v, (1 - heads.sum()) / (v - len(heads)))
+    probs[:len(heads)] = heads
+    logits = torch.tensor(np.log(probs), dtype=torch.float32).cuda()
+    out = []
+    one = lambda x, dt=torch.float32: torch.tensor(  # noqa: E731
+        [x], dtype=dt, device='cuda')
+    for temp, top_p in ((1.0, 1.0), (0.7, 0.9)):
+        toks = []
+        for lo in range(0, n, 512):
+            m = min(512, n - lo)
+            toks.append(sample.sample_rows(
+                logits[None].expand(m, v),
+                torch.full((m,), temp, device='cuda'),
+                torch.full((m,), top_p, device='cuda'),
+                torch.full((m,), 17, dtype=torch.int32, device='cuda'),
+                torch.arange(lo, lo + m, dtype=torch.int32,
+                             device='cuda')).cpu())
+        toks = torch.cat(toks).numpy()
+        # Softmax of the logits as the sampler filters them, in f64.
+        filt = sample._filter_top_p_row(logits[None], one(top_p))[0]
+        keep = (filt > sample.NEG_INF).cpu().numpy()
+        z = filt.cpu().double().numpy() / temp
+        p = np.where(keep, np.exp(z - z.max()), 0.0)
+        p /= p.sum()
+        bins = np.append(p[:len(heads)], p[len(heads):].sum())
+        counts = np.append(np.bincount(np.minimum(toks, len(heads)),
+                                       minlength=len(heads) + 1)[:-1],
+                           (toks >= len(heads)).sum()).astype(float)
+        live = bins > 0
+        assert counts[~live].sum() == 0, (temp, top_p, counts)
+        exp = bins[live] * n
+        stat = float(((counts[live] - exp) ** 2 / exp).sum())
+        df = int(live.sum()) - 1
+        pval = _chi2_p(stat, df)
+        row = dict(temperature=temp, top_p=top_p, draws=n, bins=int(
+            live.sum()), df=df, chi2=stat, p_value=pval,
+            counts=counts[live].tolist(), expected=exp.tolist())
+        log('SAMPLING_CHI2 ' + json.dumps(row))
+        if pval is not None:
+            assert pval >= CHI2_P_MIN, row
+        else:
+            assert stat < CHI2_999[df], row
+        out.append(row)
+    return out
+
+
+def _grammar_vocab(torch, vocab_size, eos_id):
+    """A synthetic token-text table for llama3's 128256 ids, made from a
+    seed: a JSON lexicon at the first ids, no text at ``eos_id``, and
+    random 1-6 character strings elsewhere (some of which a grammar
+    takes)."""
+    lexicon = (list('0123456789{}[],:"abtrufelsn') +
+               ['true', 'false', 'null', '{"', '":', '",', '"}'])
+    alphabet = list('0123456789abcdefghijklmnopqrstuvwxyz{}[],:" -_.')
+    gen = torch.Generator().manual_seed(33)
+    lens = torch.randint(1, 7, (vocab_size,), generator=gen).tolist()
+    picks = torch.randint(0, len(alphabet), (vocab_size * 6,),
+                          generator=gen).tolist()
+    vocab = [''.join(alphabet[c] for c in picks[6 * i:6 * i + lens[i]])
+             for i in range(vocab_size)]
+    vocab[1:1 + len(lexicon)] = lexicon
+    vocab[0] = None
+    vocab[eos_id] = None
+    return vocab
+
+
+SAMPLING_REGEX = r'\{"id":[0-9]{1,3},"ok":(true|false)\}'
+SAMPLING_SCHEMA = {'type': 'object', 'properties': {
+    'name': {'enum': ['ab', 'ba']}, 'flag': {'type': 'boolean'},
+    'xs': {'type': 'array', 'items': {'type': 'boolean'},
+           'maxItems': 2}}}
+
+
+def _profile_sampled_dispatch(torch, engine, config, batching):
+    """A sampled decode dispatch (the engine's step, 8 rows at the
+    replica's context lengths, every row sampled, no mask) beside the
+    greedy one, and the sampler alone at [8, V] profiled on the card:
+    the sampler's share of the sampled dispatch's busy time."""
+    from skypilot_torch.serve.sampling import sample
+    lens = [17, 64, 256, 1024, 1064, 1114, 1536, 2048]
+    b = len(lens)
+    blocks = [engine.pool.alloc(engine.pool.blocks_for(n + engine.steps))
+              for n in lens]
+    tables = torch.zeros((b, engine.max_blocks_per_req), dtype=torch.int32)
+    for i, bl in enumerate(blocks):
+        tables[i, :len(bl)] = torch.tensor(bl, dtype=torch.int32)
+    tables = tables.cuda()
+    pos = torch.tensor(lens, dtype=torch.int32, device='cuda')
+    tokens = torch.ones(b, dtype=torch.int32, device='cuda')
+    active = torch.ones(b, dtype=torch.bool, device='cuda')
+    knobs = dict(
+        temps=torch.tensor([0.7, 1.0] * 4, device='cuda'),
+        top_ps=torch.tensor([0.9, 1.0] * 4, device='cuda'),
+        seeds=torch.arange(b, dtype=torch.int32, device='cuda'),
+        mask_table=engine._mask_table,
+        mask_idx=torch.zeros(b, dtype=torch.int32, device='cuda'))
+
+    def dispatch(sampling):
+        with torch.inference_mode():
+            toks, _, _ = batching.decode_steps_paged(
+                engine.params, tokens, engine.caches, tables, pos, active,
+                config, engine.steps, engine.block_size, sampling=sampling)
+            toks.cpu()
+    extra = dict(rows=b, steps=engine.steps, lengths=lens)
+    busy = {}
+    for name, sampling in (('greedy', None), ('sampled', knobs)):
+        dispatch(sampling)
+        busy[name] = profile_cuda(
+            torch, lambda s=sampling: dispatch(s),
+            f'SAMPLING_DISPATCH_PROFILE_{name.upper()}', extra)
+    logits = 3.0 * torch.randn(b, config.vocab_size, device='cuda')
+    reps = 16
+
+    def sampler():
+        for _ in range(reps):
+            sample.sample_rows(logits, knobs['temps'], knobs['top_ps'],
+                               knobs['seeds'], pos,
+                               sample.gather_masks(knobs['mask_table'],
+                                                   knobs['mask_idx']))
+        torch.cuda.synchronize()
+    sampler()
+    sampler_busy = profile_cuda(torch, sampler, 'SAMPLING_SAMPLER_PROFILE',
+                                dict(rows=b, vocab=config.vocab_size,
+                                     calls=reps))
+    per_call = sampler_busy / reps
+    row = dict(sampler_ms_per_step=per_call, steps=engine.steps,
+               sampled_dispatch_busy_ms=busy['sampled'],
+               greedy_dispatch_busy_ms=busy['greedy'],
+               sampler_share=engine.steps * per_call / busy['sampled'],
+               busy_difference_share=(busy['sampled'] - busy['greedy']) /
+               busy['sampled'])
+    log('SAMPLING_SHARE ' + json.dumps(row))
+    for bl in blocks:
+        engine.pool.free(bl)
+    return row
+
+
+def _first_divergence(a, b):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def sampling_phase(torch, attention, da):
+    """The sampling slice: (a) keys and bits, (b) the sampler on the same
+    logits, (c) the chi-square test, then (d) the ``--slots 8`` replica
+    at llama3-8b (32 layers, random weights) with a synthetic 128256-id
+    grammar vocab answering 12 concurrent requests: 4 greedy, 6 sampled
+    (two built to draft, so sampled verify runs) and 2 constrained (a
+    regex and a json_schema). Launch counts are zeroed just before and
+    read just after, and must equal the engine's dispatch record; every
+    request is answered, every constrained output keeps its DFA alive
+    and, where it ended in EOS, full-matches. Printed: the burst's
+    tokens/s, TTFT and TPOT beside the greedy ENGINE burst's, the
+    sampler's share of a sampled dispatch, the grammar mask build per
+    new DFA state (timed where the engine builds it in the burst), the
+    verify mask table's bytes, each seeded sampled request re-run alone
+    on the same engine (batch invariance) and alone on a
+    ``--speculative off`` engine with a fresh pool (for the two drafting
+    ones, spec-on against spec-off)."""
+    import gc
+    import os
+    import re
+    import tempfile
+
+    from skypilot_torch.models import llama
+    from skypilot_torch.recipes import serve_model
+    from skypilot_torch.serve import batching
+    from skypilot_torch.serve.sampling import grammar
+    t_phase = time.perf_counter()
+    _sampling_bits(torch)
+    _sampling_sampler(torch)
+    _sampling_chi2(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    config = llama.get_config('llama3-8b')
+    eos = 128009
+    vocab = _grammar_vocab(torch, config.vocab_size, eos)
+    tmp = tempfile.mkdtemp(prefix='skypilot_sampling_')
+    vocab_path = os.path.join(tmp, 'vocab.json')
+    with open(vocab_path, 'w', encoding='utf-8') as f:
+        json.dump(vocab, f)
+    args = serve_model.parse_args(
+        ['--model', 'llama3-8b', '--port', '0', '--device', 'cuda',
+         '--slots', '8', '--grammar-vocab', vocab_path])
+    t0 = time.perf_counter()
+    server, _ = serve_model.build_server(args)
+    setup_s = time.perf_counter() - t0
+    engine = server.engine
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    spec_off = None
+    try:
+        gen = torch.Generator().manual_seed(34)
+
+        def rand(n):
+            return torch.randint(0, config.vocab_size, (n,),
+                                 generator=gen).tolist()
+        knobs = [dict(temperature=0.7, top_p=0.9, seed=1001),
+                 dict(temperature=1.0, top_p=1.0, seed=2 ** 31 + 1002),
+                 dict(temperature=0.7, top_p=1.0, seed=-1003),
+                 dict(temperature=1.0, top_p=0.9, seed=1004),
+                 dict(temperature=0.7, top_p=0.9, seed=1005),
+                 dict(temperature=1.0, top_p=0.9, seed=1006)]
+        drafting = _draft_prompts(torch, engine, config, rand,
+                                  knobs=knobs[:2], label='SAMPLING')
+        reqs = [dict({'prompt_ids': p, 'max_new_tokens': 48,
+                      'stream': True}, **k)
+                for p, k in zip(drafting, knobs[:2])]
+        for i, (n, k) in enumerate(zip((64, 300, 1000, 17), knobs[2:])):
+            reqs.append(dict({'prompt_ids': rand(n),
+                              'max_new_tokens': 32 + 4 * i,
+                              'stream': i % 2 == 0}, **k))
+        for i, n in enumerate((40, 256, 700, 1536)):
+            reqs.append({'prompt_ids': rand(n), 'max_new_tokens': 32 + 4 * i,
+                         'stream': i % 2 == 1})
+        constrained = [
+            ({'type': 'regex', 'pattern': SAMPLING_REGEX},
+             dict(temperature=0.8, seed=77)),
+            ({'type': 'json_schema', 'schema': SAMPLING_SCHEMA},
+             dict(temperature=1.0, top_p=0.9, seed=78))]
+        for (rf, k), n in zip(constrained, (90, 500)):
+            reqs.append(dict({'prompt_ids': rand(n), 'max_new_tokens': 48,
+                              'stream': True, 'eos_id': eos,
+                              'response_format': rf}, **k))
+        assert len(reqs) == 12
+        kernels = {'flash_fwd': attention.FLASH_FWD,
+                   'decode_attention': da.DECODE_ATTENTION,
+                   'paged_w1': da.PAGED_DECODE_ATTENTION,
+                   'paged_verify': da.PAGED_VERIFY_ATTENTION,
+                   'cache_write': da.CACHE_WRITE,
+                   'decode_attention_q8': da.DECODE_ATTENTION_Q8,
+                   'paged_w1_q8': da.PAGED_DECODE_ATTENTION_Q8,
+                   'paged_verify_q8': da.PAGED_VERIFY_ATTENTION_Q8,
+                   'cache_write_q8': da.CACHE_WRITE_Q8}
+        # The grammar mask build per new DFA state, timed where the
+        # engine builds it during the burst (a mask not cached yet).
+        builds = []
+        allowed = grammar.CompiledGrammar.allowed
+
+        def timed_allowed(g, state):
+            if state is None or state in g._masks:
+                return allowed(g, state)
+            t0 = time.perf_counter()
+            mask = allowed(g, state)
+            builds.append(1e3 * (time.perf_counter() - t0))
+            return mask
+        grammar.CompiledGrammar.allowed = timed_allowed
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        engine.events.clear()
+        results = [None] * len(reqs)
+
+        def post(i):
+            results[i] = _sse_post(port, reqs[i])
+
+        threads = []
+
+        def start(idx):
+            for i in idx:
+                threads.append(threading.Thread(target=post, args=(i,)))
+                threads[-1].start()
+
+        t_run = time.perf_counter()
+        start([0, 1])
+        deadline = time.time() + 600
+        while not any(e[0] == 'verify' for e in list(engine.events)):
+            assert time.time() < deadline and threads[-1].is_alive(), \
+                'no sampled verify dispatch ran'
+            time.sleep(0.01)
+        start(range(2, len(reqs)))
+        for t in threads:
+            t.join(timeout=900)
+        assert not any(t.is_alive() for t in threads)
+        run_s = time.perf_counter() - t_run
+        torch.cuda.synchronize()
+        grammar.CompiledGrammar.allowed = allowed
+        launches = {name: k.launches for name, k in kernels.items()}
+        events = list(engine.events)
+        n_verify = sum(e[0] == 'verify' for e in events)
+        steps = sum(e[2] for e in events if e[0] == 'decode' and len(e) == 3)
+        n_decode = sum(e[0] == 'decode' and len(e) == 3 for e in events)
+        n_chunks = sum(e[0] == 'prefill_chunk' for e in events)
+        L = config.n_layers
+        want = {name: 0 for name in kernels}
+        want.update({'paged_w1': L * steps, 'paged_verify': L * n_verify,
+                     'cache_write': L * (steps + n_verify + n_chunks)})
+        n_out, outs = 0, []
+        for (status, heads, ids, ttft, ms), r in zip(results, reqs):
+            assert status == 200, (status, r.get('response_format'))
+            assert all(0 <= t < config.vocab_size for t in ids)
+            if 'response_format' not in r:
+                assert len(ids) == r['max_new_tokens'], (len(ids), r)
+            n_out += len(ids)
+            outs.append(ids)
+            kind = ('constrained' if 'response_format' in r else
+                    'sampled' if r.get('temperature') else 'greedy')
+            log('SAMPLING_REQ ' + json.dumps(dict(
+                kind=kind, prompt=len(r['prompt_ids']), stream=r['stream'],
+                n_out=len(ids), latency_ms=ms, ttft_ms=ttft,
+                tpot_ms=None if ttft is None or len(ids) < 2 else
+                (ms - ttft) / (len(ids) - 1))))
+        # Constrained outputs: every prefix keeps the DFA alive; an
+        # output that ended in EOS full-matches its pattern.
+        checks = []
+        for (rf, _), ids in zip(constrained, outs[-2:]):
+            g = grammar.compile_grammar(rf, engine._grammar_vocab, eos)
+            st, alive = g.start, True
+            for t in ids:
+                st = g.advance(st, t)
+                alive &= st is not None
+            text = ''.join(vocab[t] or '' for t in ids if t != eos)
+            pattern = (rf['pattern'] if rf['type'] == 'regex'
+                       else grammar.schema_to_regex(rf['schema']))
+            ended = bool(ids) and ids[-1] == eos
+            full = re.fullmatch(pattern, text) is not None
+            checks.append(dict(type=rf['type'], n_out=len(ids), text=text,
+                               ended_in_eos=ended, dfa_alive=alive,
+                               full_match=full))
+            assert alive, checks[-1]
+            assert full or not ended, checks[-1]
+        verifies = [e for e in events if e[0] == 'verify']
+        summary = _burst_summary(results, n_out, run_s)
+        log('SAMPLING ' + json.dumps(dict(
+            model=args.model, layers=L, slots=args.slots,
+            block_size=engine.block_size, draft_k=engine.draft_k,
+            steps_per_dispatch=engine.steps, setup_s=setup_s, run_s=run_s,
+            requests=len(reqs), output_tokens=n_out, **summary,
+            decode_dispatches=n_decode, decode_steps=steps,
+            verify_dispatches=n_verify,
+            drafted=sum(e[2] for e in verifies),
+            accepted=sum(e[3] for e in verifies), prefill_chunks=n_chunks,
+            preemptions=sum(e[0] == 'preempt' for e in events),
+            constrained=checks, launches=launches,
+            launches_expected=want)))
+        assert n_verify > 0, 'no sampled verify dispatch ran'
+        assert launches == want, (launches, want)
+        log('SAMPLING_VS_ENGINE ' + json.dumps(dict(
+            sampled_burst=summary,
+            greedy_engine_burst=_BURSTS.get('ENGINE', 'not measured'))))
+        w = engine.draft_k + 1
+        log('SAMPLING_VERIFY_MASK ' + json.dumps(dict(
+            table_shape=[engine.slots + 1, w, config.vocab_size],
+            bytes_per_dispatch_with_a_constrained_row=(
+                (engine.slots + 1) * w * config.vocab_size),
+            note='bool table uploaded by each verify dispatch while a '
+                 'constrained row is admitted')))
+        log('SAMPLING_GRAMMAR ' + json.dumps(dict(
+            vocab=config.vocab_size, new_states=len(builds),
+            build_ms_total=sum(builds),
+            ms_per_new_state=sum(builds) / max(len(builds), 1),
+            ms_max=max(builds, default=None), burst_run_s=run_s)))
+        # Batch invariance on the card: each seeded sampled request alone
+        # on the same engine.
+        inv, alone = [], []
+        for i, r in enumerate(reqs[:6]):
+            alone.append(engine.generate(
+                r['prompt_ids'], r['max_new_tokens'],
+                temperature=r['temperature'], top_p=r['top_p'],
+                seed=r['seed']))
+            inv.append(dict(request=i, drafting=i < 2,
+                            equal=alone[i] == outs[i],
+                            first_divergence=_first_divergence(alone[i],
+                                                               outs[i])))
+        log('SAMPLING_INVARIANCE ' + json.dumps(inv))
+        # Spec-on vs spec-off: the seeded sampled requests, each alone on
+        # an engine with speculation off (same weights, a fresh pool, so
+        # no prefix-cache hit either); the two drafting ones are the
+        # spec-on/spec-off pair.
+        spec_off = batching.BatchingEngine(
+            engine.params, config, slots=args.slots, speculative=False,
+            grammar_vocab=vocab)
+        spec = []
+        for i, r in enumerate(reqs[:6]):
+            off = spec_off.generate(r['prompt_ids'], r['max_new_tokens'],
+                                    temperature=r['temperature'],
+                                    top_p=r['top_p'], seed=r['seed'])
+            spec.append(dict(request=i, drafting=i < 2,
+                             equal=off == outs[i],
+                             first_divergence=_first_divergence(off,
+                                                                outs[i]),
+                             equal_to_alone=off == alone[i]))
+        log('SAMPLING_SPEC_OFF ' + json.dumps(spec))
+        _profile_sampled_dispatch(torch, engine, config, batching)
+    finally:
+        if spec_off is not None:
+            spec_off.close()
+        server.shutdown()
+        server.server_close()
+        engine.close()
+        thread.join(timeout=30)
+    assert not thread.is_alive() and not engine.thread.is_alive()
+    log(f'SAMPLING_PHASE_S {time.perf_counter() - t_phase:.1f}')
     return launches
 
 
@@ -2776,6 +3368,8 @@ def main() -> int:
         k4p = k4p_phase(torch, F, da)
     if 'engine' in phases:
         eng = engine_phase(torch, attention, da)
+    if 'sampling' in phases:
+        smp = sampling_phase(torch, attention, da)
     if 'rows' in phases:
         rows_n = rows_phase(torch, da)
     if 'k6' in phases:
@@ -2796,7 +3390,8 @@ def main() -> int:
     rep = int8['replica']
     off = int8['engine_off']['launches']
     k1_launches = dict(
-        serve=k1_n, train_rope=train['launches']['flash_fwd_rope'],
+        serve=k1_n, sampled=smp['flash_fwd'],
+        train_rope=train['launches']['flash_fwd_rope'],
         qlora_rope=qlora['launches']['flash_fwd_rope'],
         serve_8b_int8=s8['int8']['flash_fwd'],
         serve_8b_bf16=s8['bf16']['flash_fwd'],
@@ -2851,9 +3446,13 @@ def main() -> int:
              source='skypilot_torch/csrc/decode_attention.cu',
              replaces='skypilot_tpu/ops/decode_attention.py:123',
              launches=(eng['paged_w1'] + eng['paged_verify'] +
+                       smp['paged_w1'] + smp['paged_verify'] +
                        rep['paged_w1'] + rep['paged_verify'] + rows_n),
              launches_decode_w1=eng['paged_w1'],
              launches_verify=eng['paged_verify'], launches_rows=rows_n,
+             launches_sampled=smp['paged_w1'] + smp['paged_verify'],
+             launches_sampled_decode_w1=smp['paged_w1'],
+             launches_sampled_verify=smp['paged_verify'],
              launches_int8=rep['paged_w1'] + rep['paged_verify'],
              launches_int8_decode_w1=rep['paged_w1'],
              launches_int8_verify=rep['paged_verify'],
@@ -2861,8 +3460,10 @@ def main() -> int:
         dict(name='cache_write', route='cuda',
              source='skypilot_torch/csrc/decode_attention.cu',
              replaces='skypilot_tpu/ops/decode_attention.py:389',
-             launches=eng['cache_write'] + rep['cache_write'] + 2 * rows_n,
+             launches=(eng['cache_write'] + smp['cache_write'] +
+                       rep['cache_write'] + 2 * rows_n),
              launches_engine=eng['cache_write'], launches_rows=2 * rows_n,
+             launches_sampled=smp['cache_write'],
              launches_int8=rep['cache_write'], **k5,
              int8=int8k['cache_write']),
         # Its main path is its entry point, bench_main().

@@ -1,6 +1,6 @@
 """KV-cache incremental decoding — the port of
 ``skypilot_tpu/models/decode.py`` (dense bf16/f32 or int8 cache,
-greedy).
+greedy and sampled).
 
 Prefill runs causal flash attention over the prompt's local q/k/v
 (K1-cuda on the card); each decode step runs ``decode_attention`` over
@@ -26,8 +26,13 @@ prefill attends its own exact rows (K1 over the local q/k/v, or the
 chunk's rows spliced over their int8 round trip in ``forward_paged``),
 and later steps read the codes (K4 on codes + scales on the card).
 Weights may be int8 too (``models/quant.py``): ``llama.matmul`` takes
-both forms. Adapters in ``forward_paged``, sampling and
-``decode_tokens_windowed`` come with later slices (ROADMAP.md).
+both forms.
+
+Sampling (``sample_generate``) draws from one ``jax.random`` key split
+per step, as the JAX module does, with the port's threefry
+(``serve/sampling/prng.py``): the same key gives JAX's tokens.
+Adapters in ``forward_paged`` and ``decode_tokens_windowed`` come with
+later slices (ROADMAP.md).
 """
 import dataclasses
 import math
@@ -39,6 +44,7 @@ from skypilot_torch import device as device_lib
 from skypilot_torch.models import llama
 from skypilot_torch.ops import attention as attention_ops
 from skypilot_torch.ops import decode_attention as da
+from skypilot_torch.serve.sampling import prng
 
 Params = Dict[str, Any]
 _NEG_INF = -1e30
@@ -423,3 +429,104 @@ def greedy_generate(params: Params, prompt: torch.Tensor,
         done = done | (nxt == eos_id)
         out.append(nxt)
     return torch.stack(out, dim=1)
+
+
+def _filter_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Keep the k highest logits per row (ties at the k-th kept),
+    NEG_INF the rest."""
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.where(logits < kth, _NEG_INF, logits)
+
+
+def _filter_top_p(logits: torch.Tensor, top_p) -> torch.Tensor:
+    """Nucleus filtering over the last axis: keep the smallest prefix
+    of the descending-probability order whose cumulative probability
+    reaches top_p (ties at the cut kept). The top-1 token is always
+    kept (top_p is clamped above 0)."""
+    # Clamped and compared in f32, as the JAX filter does.
+    top_p = torch.tensor(max(float(top_p), 1e-6), dtype=torch.float32).item()
+    sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+    e = torch.exp(sorted_desc - sorted_desc[..., :1])
+    probs = e / e.sum(dim=-1, keepdim=True)
+    cum = torch.cumsum(probs, dim=-1)
+    outside = (cum - probs) >= top_p
+    kth = torch.where(outside, float('inf'), sorted_desc).amin(
+        dim=-1, keepdim=True)
+    return torch.where(logits < kth, _NEG_INF, logits)
+
+
+def sample_token(logits: torch.Tensor, key: torch.Tensor,
+                 temperature: float, top_k: int = 0,
+                 top_p: Optional[float] = None) -> torch.Tensor:
+    """Next ids from [B, V] logits with one key [2] for the whole batch
+    (``jax.random.categorical`` over [B, V]); ``top_k`` 0 is off, and
+    ``temperature <= 0`` is the greedy argmax. Returns int32 [B]."""
+    filtered = logits.float()
+    if top_k:
+        filtered = _filter_top_k(filtered, top_k)
+    if top_p is not None:
+        filtered = _filter_top_p(filtered, top_p)
+    if temperature <= 0.0:
+        return logits.argmax(-1).to(torch.int32)
+    t_safe = max(float(temperature), 1e-6)
+    # Divided in f32 by the f32 temperature, as the JAX step does.
+    t32 = torch.tensor(t_safe, dtype=torch.float32).item()
+    return prng.categorical(key, filtered / t32).to(torch.int32)
+
+
+def sample_tokens_scan(params: Params, first: torch.Tensor,
+                       cache: KVCache, config: llama.LlamaConfig,
+                       num_tokens: int, key: torch.Tensor,
+                       temperature: float, top_k: int = 0,
+                       top_p: Optional[float] = None
+                       ) -> Tuple[torch.Tensor, KVCache]:
+    """The sampling twin of ``decode_tokens_scan``: one cached forward
+    per token, the key split per step (the JAX scan's order). Returns
+    ([B, num_tokens] int32, cache)."""
+    tok = first
+    out = []
+    for _ in range(num_tokens):
+        key, sub = prng.split(key)
+        logits, cache = forward_cached(params, tok[:, None], cache,
+                                       config)
+        tok = sample_token(logits[:, -1], sub, temperature, top_k=top_k,
+                           top_p=top_p)
+        out.append(tok)
+    if not out:
+        return torch.zeros((first.shape[0], 0), dtype=torch.int32,
+                           device=first.device), cache
+    return torch.stack(out, dim=1), cache
+
+
+@torch.inference_mode()
+def sample_generate(params: Params, prompt: torch.Tensor,
+                    config: llama.LlamaConfig, max_new_tokens: int,
+                    key: torch.Tensor, temperature: float = 1.0,
+                    top_k: int = 0, top_p: Optional[float] = None,
+                    max_seq: Optional[int] = None,
+                    kv_int8: bool = False) -> torch.Tensor:
+    """Sampled generation: prefill once, then one cached step per token.
+    ``key`` is a ``jax.random`` key as int64 [2] (``prng.seed_key(s)``
+    is ``PRNGKey(s)``); ``top_p`` None skips the nucleus filter (a
+    full-vocab sort per token is not free). prompt [B, T0] ->
+    [B, max_new_tokens] int32."""
+    max_seq = max_seq or config.max_seq_len
+    b, t0 = prompt.shape
+    if t0 + max_new_tokens > max_seq:
+        raise ValueError(f'prompt {t0} + max_new_tokens {max_new_tokens}'
+                         f' > max_seq {max_seq}')
+    if max_new_tokens <= 0:
+        return torch.zeros((b, 0), dtype=torch.int32,
+                           device=prompt.device)
+    key = torch.as_tensor(key, dtype=torch.int64, device=prompt.device)
+    cache = init_cache(config, b, max_seq, device=prompt.device,
+                       kv_int8=kv_int8)
+    logits, cache = forward_cached(params, prompt, cache, config,
+                                   last_only=True, prefill=True)
+    key, sub = prng.split(key)
+    nxt = sample_token(logits[:, -1], sub, temperature, top_k=top_k,
+                       top_p=top_p)
+    toks, _ = sample_tokens_scan(params, nxt, cache, config,
+                                 max_new_tokens - 1, key, temperature,
+                                 top_k, top_p)
+    return torch.cat([nxt[:, None], toks], dim=1)

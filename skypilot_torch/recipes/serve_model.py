@@ -1,10 +1,10 @@
 """Model serving replica (stdlib HTTP) — the port of
 ``skypilot_tpu/recipes/serve_model.py``.
 
-Exposes ``GET /`` (readiness) and ``POST /generate`` (greedy decode;
-``"stream": true`` for server-sent events). Weights are random, made
-from seed 0. The port listens on ``--port``, default
-``SKYTPU_REPLICA_PORT`` or 8080.
+Exposes ``GET /`` (readiness) and ``POST /generate`` (greedy, sampled
+and grammar-constrained decode; ``"stream": true`` for server-sent
+events). Weights are random, made from seed 0. The port listens on
+``--port``, default ``SKYTPU_REPLICA_PORT`` or 8080.
 
     python -m skypilot_torch.recipes.serve_model --model llama3-8b --slots 8
 
@@ -12,11 +12,17 @@ With ``--slots N > 0`` requests share the continuous-batching engine
 (``serve/batching.BatchingEngine``: paged KV pool, chunked prefill,
 prefix caching, speculative verify; K5 and K4-paged on the card), tokens
 stream as the engine emits them, and each engine response carries the
-``X-Skytpu-Prefix-Hits/Misses`` headers. With ``--slots 0`` each request
-runs alone through ``models/decode.greedy_generate`` (K1-cuda prefill,
-K4-cuda decode). A body field of a feature not ported yet (sampling,
-adapters, overload control) is answered 400 naming its slice, never
-with a silent greedy answer.
+``X-Skytpu-Prefix-Hits/Misses`` headers. The engine serves the body's
+``temperature``, ``top_p``, ``seed`` and ``response_format`` (``--sampling
+on``, the default; ``--grammar-vocab`` names the JSON list of token
+texts that ``response_format`` needs); an unseeded sampled request draws
+its seed from ``os.urandom`` here, and a bad knob or grammar is answered
+400. With ``--slots 0`` each request runs alone through
+``models/decode.greedy_generate`` (K1-cuda prefill, K4-cuda decode), and
+sampled or constrained requests are refused 400, as the JAX replica
+does. A body field of a feature not ported yet (adapters, overload
+control) is answered 400 naming its slice, never with a silent greedy
+answer.
 
 ``--quant int8`` serves int8 weights (``models/quant.init_quantized``,
 leaf by leaf on the device); ``--kv-int8`` gives the engine an int8 KV
@@ -40,6 +46,7 @@ from skypilot_torch import exceptions
 from skypilot_torch.models import decode, llama, quant
 from skypilot_torch.serve import batching
 from skypilot_torch.serve import prefix_hash
+from skypilot_torch.serve.sampling import GrammarError
 
 MAX_NEW_TOKENS_CAP = 512
 
@@ -95,6 +102,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument('--draft-k', type=int, default=8,
                         help='max drafted tokens per row per verify (0 '
                              'disables speculation)')
+    parser.add_argument('--sampling', choices=['on', 'off'],
+                        default=('on' if os.environ.get(
+                            'SKYTPU_ENGINE_SAMPLING', '1')
+                            not in ('0', 'off', 'false') else 'off'),
+                        help='batch-invariant sampled decode on the '
+                             'engine: per-request temperature/top_p/'
+                             'seed as per-row tensors, keyed (seed, '
+                             'position) (off: the engine refuses sampled '
+                             'and constrained requests)')
+    parser.add_argument('--grammar-vocab',
+                        default=os.environ.get(
+                            'SKYTPU_ENGINE_SAMPLING_GRAMMAR_VOCAB', ''),
+                        help='path to a JSON list mapping token id -> '
+                             'token string (null for ids with no text); '
+                             'enables response_format grammar-constrained '
+                             'decoding (empty: such requests are '
+                             'refused)')
     args = parser.parse_args(argv)
     if args.quant == 'int8' and args.tp > 1:
         # Reject before the (expensive) init, as the JAX replica does.
@@ -154,16 +178,43 @@ def _parse_body(body, config: llama.LlamaConfig, default_max_new: int):
 def _engine_refusal(req) -> Optional[str]:
     """Why the engine cannot serve this request yet (None: it can): a
     field of a feature whose slice is not ported, named in the 400."""
-    if (req['temperature'] or 0.0) > 0.0 or req['top_p'] is not None \
-            or req['seed'] is not None \
-            or req['response_format'] is not None:
-        return batching.SAMPLING_SLICE
     if req['adapter'] is not None:
         return batching.ADAPTER_SLICE
     if req['priority'] is not None or req['timeout_s'] is not None \
             or req['tenant'] not in (None, ''):
         return batching.OVERLOAD_SLICE
     return None
+
+
+def _submit_kwargs(req) -> dict:
+    """The engine's request knobs from a parsed body. An unseeded
+    sampled request draws a fresh seed here, on the host: identical
+    requests must not return identical samples, while a client's seed
+    stays reproducible."""
+    seed = req['seed']
+    if seed is None and ((req['temperature'] or 0.0) > 0.0
+                         or req['response_format'] is not None):
+        seed = int.from_bytes(os.urandom(4), 'little')
+    return dict(eos_id=req['eos_id'],
+                temperature=req['temperature'] or 0.0,
+                top_p=1.0 if req['top_p'] is None else float(req['top_p']),
+                seed=0 if seed is None else seed,
+                response_format=req['response_format'])
+
+
+def _load_grammar_vocab(path: str) -> Optional[list]:
+    """The ``--grammar-vocab`` file: a JSON list indexed by token id
+    (null: no text, never legal under a grammar). A malformed file is
+    refused at startup, not on the first constrained request."""
+    if not path:
+        return None
+    with open(path, encoding='utf-8') as f:
+        vocab = json.load(f)
+    if not isinstance(vocab, list):
+        raise SystemExit(
+            f'--grammar-vocab {path} must hold a JSON list (token id -> '
+            f'string or null), got {type(vocab).__name__}')
+    return vocab
 
 
 def build_server(args: argparse.Namespace
@@ -194,7 +245,9 @@ def build_server(args: argparse.Namespace
             num_blocks=args.num_blocks or None,
             max_num_batched_tokens=args.max_batched_tokens,
             prefix_caching=args.prefix_caching == 'on',
-            speculative=args.speculative == 'on', draft_k=args.draft_k)
+            speculative=args.speculative == 'on', draft_k=args.draft_k,
+            sampling=args.sampling == 'on',
+            grammar_vocab=_load_grammar_vocab(args.grammar_vocab))
 
     def generate(prompt_ids, max_new, eos_id=None) -> List[int]:
         """Greedy generation. On the engine, concurrent requests share
@@ -238,12 +291,29 @@ def build_server(args: argparse.Namespace
             self.wfile.write(body)
 
         def _engine_error(self, err):
-            """A typed engine failure as an HTTP error: 413 when the
-            pool can never hold the request (the client's shape), 500
-            for anything else (engine death is a replica fault)."""
-            code = 413 if isinstance(
-                err, exceptions.KVPoolExhaustedError) else 500
+            """A typed engine failure as an HTTP error: 400 for a
+            response_format the grammar compiler refused, 413 when the
+            pool can never hold the request (both the client's shape),
+            500 for anything else (engine death is a replica fault)."""
+            if isinstance(err, GrammarError):
+                code = 400
+            elif isinstance(err, exceptions.KVPoolExhaustedError):
+                code = 413
+            else:
+                code = 500
             self._json({'error': str(err)}, code)
+
+        def _submit(self, body):
+            """The engine request for a parsed body, or None after
+            answering 400 for a knob the engine refuses (a sampled
+            request on a ``--sampling off`` replica)."""
+            try:
+                return engine.submit_request(body['prompt_ids'],
+                                             body['max_new'],
+                                             **_submit_kwargs(body))
+            except ValueError as e:
+                self._json({'error': f'bad request: {e}'}, 400)
+                return None
 
         @staticmethod
         def _prefix_headers(req):
@@ -305,9 +375,9 @@ def build_server(args: argparse.Namespace
             self._json({'output_ids': out})
 
         def _engine_json(self, body):
-            req = engine.submit_request(body['prompt_ids'],
-                                        body['max_new'],
-                                        eos_id=body['eos_id'])
+            req = self._submit(body)
+            if req is None:
+                return
             out, err = [], None
             while True:
                 tok = req.out.get()
@@ -329,9 +399,9 @@ def build_server(args: argparse.Namespace
             queue item: admission (which fills the prefix-cache headers)
             precedes the first token, and a typed failure can still be
             answered as an HTTP error."""
-            req = engine.submit_request(body['prompt_ids'],
-                                        body['max_new'],
-                                        eos_id=body['eos_id'])
+            req = self._submit(body)
+            if req is None:
+                return
             pending = object()
             try:
                 first = req.out.get(timeout=90)
@@ -387,8 +457,11 @@ def build_server(args: argparse.Namespace
 
     # Warm up before declaring readiness: the first request would
     # otherwise pay the kernel build and the allocator's first growth.
-    # max_new=2 so the engine runs a decode dispatch too.
+    # max_new=2 so the engine runs a decode dispatch too, greedy and
+    # sampled.
     generate([1, 2, 3], 2)
+    if engine is not None and engine.sampling:
+        engine.generate([1, 2, 3], 2, temperature=1.0, top_p=0.9, seed=0)
     server = ThreadingHTTPServer(('0.0.0.0', args.port), Handler)
     server.daemon_threads = True
     server.engine = engine

@@ -1,5 +1,6 @@
 """Continuous batching over a PAGED KV cache — the port of
-``skypilot_tpu/serve/batching.py`` (its core; greedy decoding).
+``skypilot_tpu/serve/batching.py`` (its core, sampled decode and
+grammar-constrained decoding).
 
 Concurrent requests share ONE decode batch: new requests are admitted
 between decode dispatches, finished ones retire at once, and KV lives
@@ -12,7 +13,8 @@ whole free slots. As in the JAX engine:
   dispatches under a per-iteration token budget;
 - pool exhaustion PREEMPTS the youngest request (blocks freed, request
   requeued at the front; resume re-prefills prompt + generated, which
-  under greedy decoding reproduces the continuation);
+  reproduces the continuation: greedy rows by the argmax, sampled rows
+  by their (seed, position) keys);
 - automatic PREFIX CACHING pins matching cached blocks at admission
   and prefills only the suffix (copy-on-write past a mid-block
   divergence);
@@ -22,6 +24,20 @@ whole free slots. As in the JAX engine:
 - greedy outputs equal single-stream ``greedy_generate`` token for
   token (exactly on the CPU in f32; on the card bf16 kernels can flip
   a near-tie);
+- SAMPLED decode (``serve/sampling/``): per-request temperature, top_p
+  and seed ride the device steps as per-row tensors, and every draw is
+  keyed by the request's (seed, absolute position) alone, so a
+  request's tokens do not depend on its neighbours, its slot, a
+  preempt-resume or speculation (the verify step realizes each
+  position with the key plain decode would use there). While no
+  admitted row samples or is constrained the steps run greedy, as
+  before;
+- STRUCTURED decoding: a ``response_format`` (regex or JSON schema) is
+  compiled to a character DFA whose per-state token masks the steps
+  gather from a device table (one row per slot, row 0 all-allowed);
+  the host walks the DFA over every emitted token, so a constrained
+  row forces 1-token decode dispatches, and drafts are cut at the first
+  token the grammar refuses;
 - int8 KV (``kv_int8``): each new row is quantized per (position, kv
   head) as it is written, codes and scales, and attention reads the
   codes. Equality with the dense int8 path holds for prompts within
@@ -46,8 +62,8 @@ copy per change.
 
 Not ported yet (each raises ``NotImplementedError`` naming its slice):
 overload control (bounded queues, deadlines, cancel, priorities,
-tenant fair share), multi-LoRA adapters, sampling and grammar masks,
-the metrics gauges and tracing.
+tenant fair share), multi-LoRA adapters, the metrics gauges and
+tracing.
 """
 import array
 import collections
@@ -58,6 +74,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from skypilot_torch import exceptions
@@ -66,13 +83,13 @@ from skypilot_torch.ops import decode_attention as da
 from skypilot_torch.serve import kv_pool as kv_pool_lib
 from skypilot_torch.serve import prefix_hash
 from skypilot_torch.serve.sampling import accept_tokens
+from skypilot_torch.serve.sampling import grammar as grammar_lib
+from skypilot_torch.serve.sampling import sample as sample_lib
 
 logger = logging.getLogger(__name__)
 
 Params = Dict[str, Any]
 
-SAMPLING_SLICE = ('sampled decode and grammar masks are not ported yet; '
-                  'they come with the sampling slice (ROADMAP.md)')
 ADAPTER_SLICE = ('LoRA adapters are not ported yet; they come with the '
                  'multi-LoRA slice (ROADMAP.md)')
 OVERLOAD_SLICE = ('overload control (bounded queues, deadlines, '
@@ -145,11 +162,24 @@ def _attend_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                v_scale)[:, None]
 
 
-def _check_greedy(sampling, adapters=None, adapter_idx=None) -> None:
-    if sampling is not None:
-        raise NotImplementedError(SAMPLING_SLICE)
+def _check_adapters(adapters=None, adapter_idx=None) -> None:
     if adapters is not None or adapter_idx is not None:
         raise NotImplementedError(ADAPTER_SLICE)
+
+
+def _next_tokens(logits: torch.Tensor, cur: torch.Tensor,
+                 sampling) -> torch.Tensor:
+    """Each row's next token from its logits [B, V] at position ``cur``
+    [B] (the index of the token these logits consumed): the argmax when
+    ``sampling`` is None, else ``sample_rows`` keyed (seed, cur) under
+    the row's grammar mask."""
+    if sampling is None:
+        return logits.argmax(-1).to(torch.int32)
+    allowed = sample_lib.gather_masks(sampling['mask_table'],
+                                      sampling['mask_idx'])
+    return sample_lib.sample_rows(logits, sampling['temps'],
+                                  sampling['top_ps'], sampling['seeds'],
+                                  cur, allowed)
 
 
 def _new_rows(k: torch.Tensor, v: torch.Tensor, quantized: bool):
@@ -184,10 +214,15 @@ def decode_steps_rows(params: Params, tokens: torch.Tensor, caches,
     [0, S) writes nothing). Each layer writes its new row with K5 and
     attends with dense K4 on the card.
 
+    ``sampling``: None keeps the greedy argmax; else a dict of per-row
+    knobs (``temps``/``top_ps``/``seeds`` [B]) plus the grammar mask
+    table (``mask_table`` [M, V] bool, ``mask_idx`` [B]; row 0 is
+    all-allowed), and each step's token is ``sample_rows`` keyed
+    (seed, position); ``temperature <= 0`` rows still take the argmax.
+
     This is the CONTIGUOUS-cache twin of ``decode_steps_paged``.
     Returns (out_tokens [B, num_steps] int32, caches, new_pos).
     """
-    _check_greedy(sampling)
     llama.require_dense(config)
     k_cache, v_cache, ks_cache, vs_cache = caches
     quantized = ks_cache is not None
@@ -211,8 +246,8 @@ def decode_steps_rows(params: Params, tokens: torch.Tensor, caches,
             attn = _attend_rows(q, k_cache[i], v_cache[i], cur,
                                 hd ** -0.5, *scales)
             x = decode.attn_out_and_mlp(config, x, attn, lp)
-        nxt = _logits(cparams, config, x)[:, -1].argmax(-1).to(
-            torch.int32)
+        nxt = _next_tokens(_logits(cparams, config, x)[:, -1], cur,
+                           sampling)
         # Inactive rows: hold the last token and do NOT advance.
         tok = torch.where(active, nxt, tok)
         cur = torch.where(active, cur + 1, cur)
@@ -250,11 +285,12 @@ def decode_steps_paged(params: Params, tokens: torch.Tensor, caches,
     the scratch block) with K5; attention is
     ``paged_decode_attention`` (K4-paged, W = 1) over each row's own
     length, so recycled-block garbage past it contributes exactly 0;
-    an inactive row attends its first key only.
+    an inactive row attends its first key only. ``sampling`` as in
+    ``decode_steps_rows``.
 
     Returns (out_tokens [B, num_steps] int32, caches, new_pos).
     """
-    _check_greedy(sampling, adapters, adapter_idx)
+    _check_adapters(adapters, adapter_idx)
     llama.require_dense(config)
     kp, vp, ksp, vsp = _flat_pools(caches, block_size, config)
     quantized = ksp is not None
@@ -281,8 +317,8 @@ def decode_steps_paged(params: Params, tokens: torch.Tensor, caches,
                 q[:, 0], kp[i], vp[i], block_tables,
                 lens, hd ** -0.5, block_size, *scales)[:, None]
             x = decode.attn_out_and_mlp(config, x, attn, lp)
-        nxt = _logits(cparams, config, x)[:, -1].argmax(-1).to(
-            torch.int32)
+        nxt = _next_tokens(_logits(cparams, config, x)[:, -1], cur,
+                           sampling)
         # Inactive rows: hold the last token and do NOT advance, so
         # their next (scratch-redirected) write stays parked.
         tok = torch.where(active, nxt, tok)
@@ -309,12 +345,17 @@ def verify_step_paged(params: Params, tokens: torch.Tensor, caches,
     ``paged_verify_attention`` (K4-paged, W > 1; query j attends
     [0, pos + j]).
 
-    Returns (preds [B, W] int32 argmax per position, accepted [B] int32
-    from ``accept_tokens``, new_pos [B], new_tokens [B], caches): live
-    rows advance by accepted + 1, parked rows (n_real 0) stay. A parked
-    row attends only its first key, so its preds carry no meaning.
+    Returns (preds [B, W] int32, accepted [B] int32 from
+    ``accept_tokens``, new_pos [B], new_tokens [B], caches): ``preds[b,
+    j]`` is the target model's token after position pos[b] + j — the
+    argmax when ``sampling`` is None, else ``verify_targets``' draw
+    with the key plain decode would use at that position (``sampling``
+    as in ``decode_steps_rows``, but its mask table is per position,
+    [M, W, V]). Live rows advance by accepted + 1, parked rows (n_real
+    0) stay. A parked row attends only its first key, so its preds
+    carry no meaning.
     """
-    _check_greedy(sampling, adapters, adapter_idx)
+    _check_adapters(adapters, adapter_idx)
     llama.require_dense(config)
     kp, vp, ksp, vsp = _flat_pools(caches, block_size, config)
     quantized = ksp is not None
@@ -345,7 +386,17 @@ def verify_step_paged(params: Params, tokens: torch.Tensor, caches,
                                          lens, hd ** -0.5, block_size,
                                          *scales)
         x = decode.attn_out_and_mlp(config, x, attn, lp)
-    preds = _logits(cparams, config, x).argmax(-1).to(torch.int32)
+    logits = _logits(cparams, config, x)                    # [B, W, V]
+    if sampling is None:
+        preds = logits.argmax(-1).to(torch.int32)
+    else:
+        # Realizations drawn with the keys plain decode would use at each
+        # position: the maximal-coupling half of accept.py's rule.
+        allowed = sample_lib.gather_masks(sampling['mask_table'],
+                                          sampling['mask_idx'])
+        preds = sample_lib.verify_targets(
+            logits, sampling['temps'], sampling['top_ps'],
+            sampling['seeds'], pos, allowed)
     accepted = accept_tokens(tokens, preds, n_real)
     new_pos = torch.where(live, pos + accepted + 1, pos)
     new_tok = torch.where(
@@ -429,10 +480,26 @@ _REQ_SEQ = itertools.count(1)
 
 class _Request:
     def __init__(self, prompt_ids: List[int], max_new: int,
-                 eos_id: Optional[int] = None):
+                 eos_id: Optional[int] = None,
+                 temperature: float = 0.0,
+                 top_p: float = 1.0,
+                 seed: int = 0,
+                 response_format: Optional[dict] = None):
         self.prompt_ids = prompt_ids
         self.max_new = max_new
         self.eos_id = eos_id
+        # Sampling knobs: temperature 0 is greedy; every draw of this
+        # request is keyed (seed, absolute position) and nothing else.
+        # ``grammar`` (compiled from ``response_format`` at submit) is
+        # walked on the host: ``grammar_state`` is the DFA state after
+        # every EMITTED token, re-derived from ``generated`` at each
+        # admission, so a preempt-resume lands in the same state.
+        self.temperature = float(temperature)
+        self.top_p = float(top_p)
+        self.seed = int(seed)
+        self.response_format = response_format
+        self.grammar = None
+        self.grammar_state = None
         self.id = next(_REQ_SEQ)
         # Prefix-cache accounting, filled at admission (cumulative
         # across re-admissions after preemption): whole KV blocks
@@ -477,10 +544,13 @@ class BatchingEngine:
     reach ``max_seq``), ``max_num_batched_tokens`` (per-iteration
     prefill token budget), ``prefill_chunk``, ``prefix_caching``,
     ``speculative``, ``draft_k``, ``kv_int8`` (an int8 pool: codes and
-    bf16 scales). Params may be int8-quantized (``models/quant.py``).
-    The engine runs on the params' device. Knobs of features not ported
-    yet raise ``NotImplementedError`` naming their slice; a request that
-    needs sampling is refused at submit.
+    bf16 scales), ``sampling`` (sampled and constrained decode; off
+    refuses such requests at submit) and ``grammar_vocab`` (each token
+    id's text, None for ids with none; needed to serve
+    ``response_format`` and as long as the model vocab). Params may be
+    int8-quantized (``models/quant.py``). The engine runs on the params'
+    device. Knobs of features not ported yet raise
+    ``NotImplementedError`` naming their slice.
     """
 
     def __init__(self, params: Params, config: llama.LlamaConfig,
@@ -501,6 +571,7 @@ class BatchingEngine:
                  adapter_registry=None,
                  adapter_capacity: int = 0,
                  adapter_preload: Optional[List[str]] = None,
+                 sampling: bool = True,
                  grammar_vocab: Optional[List[Optional[str]]] = None):
         if (tenant_weights or max_queued_requests is not None
                 or max_queued_tokens is not None
@@ -509,8 +580,6 @@ class BatchingEngine:
         if adapter_registry is not None or adapter_capacity or \
                 adapter_preload:
             raise NotImplementedError(ADAPTER_SLICE)
-        if grammar_vocab is not None:
-            raise NotImplementedError(SAMPLING_SLICE)
         llama.require_dense(config)
         self.params = params
         self.config = config
@@ -538,6 +607,23 @@ class BatchingEngine:
         # verify dispatch budgets its draft grants against the rest.
         self._prefill_spent_iter = 0
         self.kv_int8 = kv_int8
+        # Sampled and structured decoding: while every admitted row is
+        # greedy and unconstrained, ``_sampling_args`` is None and the
+        # steps run their greedy argmax. The mask table [slots + 1, V]
+        # (row 0 all-allowed) is the device half of the grammar
+        # pipeline: the host refreshes a constrained row's line per
+        # emitted token, the steps gather lines by per-row index.
+        self.sampling = bool(sampling)
+        self._grammar_vocab = (tuple(grammar_vocab)
+                               if grammar_vocab else None)
+        if self._grammar_vocab is not None and \
+                len(self._grammar_vocab) != config.vocab_size:
+            raise ValueError(
+                f'grammar_vocab has {len(self._grammar_vocab)} '
+                f'entries but the model vocab is {config.vocab_size}')
+        self._mask_table = torch.ones(
+            (slots + 1, config.vocab_size), dtype=torch.bool,
+            device=self.device) if self.sampling else None
         self.pool = kv_pool_lib.KVBlockPool(config, num_blocks,
                                             block_size, kv_int8=kv_int8,
                                             device=self.device)
@@ -588,7 +674,12 @@ class BatchingEngine:
         EOS itself is emitted, matching greedy_generate). A request the
         pool can never hold yields a typed ``KVPoolExhaustedError``
         before its None. ``deferred`` takes the JAX engine's other
-        request knobs, which raise unless left at their defaults."""
+        request knobs: ``temperature > 0`` samples with keys (seed,
+        position); ``response_format`` ({'type': 'json_schema' |
+        'regex', ...}) constrains decoding to the grammar (it needs the
+        engine's ``grammar_vocab`` and an ``eos_id``; a bad grammar
+        yields a typed ``GrammarError`` before the None). The knobs of
+        features not ported yet raise unless left at their defaults."""
         return self.submit_request(prompt_ids, max_new, eos_id=eos_id,
                                    **deferred).out
 
@@ -606,16 +697,57 @@ class BatchingEngine:
         """``submit`` returning the request object itself: ``.out`` is
         the token queue, and after admission (by the first token)
         ``.prefix_hit_blocks``/``.prefix_miss_blocks`` carry the
-        prefix-cache accounting."""
-        if temperature or top_p != 1.0 or seed or \
-                response_format is not None:
-            raise NotImplementedError(SAMPLING_SLICE)
+        prefix-cache accounting. Bad knobs raise ``ValueError`` here
+        (the replica validates the HTTP body itself, to answer a 400
+        naming the field)."""
         if adapter is not None:
             raise NotImplementedError(ADAPTER_SLICE)
         if tenant or deadline is not None or priority != 'interactive':
             raise NotImplementedError(OVERLOAD_SLICE)
+        if not isinstance(seed, int) or isinstance(seed, bool):
+            raise ValueError(f'seed must be an integer, got {seed!r}')
+        # Keys take uint32(seed), so any int counts mod 2**32; it is kept
+        # as the int32 two's complement of that value, the form the
+        # per-row seed tensor holds.
+        seed &= 0xFFFFFFFF
+        if seed >= 1 << 31:
+            seed -= 1 << 32
+        temperature = float(temperature)
+        top_p = float(top_p)
+        if temperature < 0.0:
+            raise ValueError(
+                f'temperature must be >= 0, got {temperature}')
+        if not 0.0 < top_p <= 1.0:
+            raise ValueError(f'top_p must be in (0, 1], got {top_p}')
+        if not self.sampling and (temperature > 0.0
+                                  or response_format is not None):
+            raise ValueError(
+                'this engine was built with sampling=False and '
+                'cannot serve sampled or constrained requests')
         max_new = min(max_new, self.max_seq - len(prompt_ids) - 1)
-        req = _Request(list(prompt_ids), max(0, max_new), eos_id=eos_id)
+        req = _Request(list(prompt_ids), max(0, max_new), eos_id=eos_id,
+                       temperature=temperature, top_p=top_p, seed=seed,
+                       response_format=response_format)
+        if response_format is not None:
+            # Compiled (cached by grammar hash) here, so a bad grammar
+            # fails this request typed before any KV is touched.
+            try:
+                if self._grammar_vocab is None:
+                    raise grammar_lib.GrammarError(
+                        'this engine serves no structured decoding '
+                        '(start it with a grammar_vocab to serve '
+                        'response_format requests)')
+                if eos_id is None:
+                    raise grammar_lib.GrammarError(
+                        'response_format requires an eos_id (the '
+                        'grammar decides completion by allowing '
+                        'EOS only at accepting states)')
+                req.grammar = grammar_lib.compile_grammar(
+                    response_format, self._grammar_vocab, eos_id)
+            except grammar_lib.GrammarError as e:
+                self._fail_request(
+                    req, f'response_format refused: {e}', exc=e)
+                return req
         if req.max_new == 0 or self._stop:
             # A DEAD engine fails post-death submits typed.
             if self._stop and self._death_exc is not None:
@@ -645,10 +777,10 @@ class BatchingEngine:
         return req
 
     def generate(self, prompt_ids: List[int], max_new: int,
-                 eos_id: Optional[int] = None) -> List[int]:
+                 eos_id: Optional[int] = None, **knobs) -> List[int]:
         """Blocking convenience: collect the full generation. Raises
         the typed error if the request failed."""
-        q = self.submit(prompt_ids, max_new, eos_id=eos_id)
+        q = self.submit(prompt_ids, max_new, eos_id=eos_id, **knobs)
         out: List[int] = []
         while True:
             tok = q.get()
@@ -684,6 +816,96 @@ class BatchingEngine:
         if self._tables_dirty:
             self.block_tables = self._to_device(self._tables_host)
             self._tables_dirty = False
+
+    # -- sampling and grammar ---------------------------------------------
+
+    def _sampling_needed(self) -> bool:
+        return self.sampling and any(
+            r is not None and (r.temperature > 0.0
+                               or r.grammar is not None)
+            for r in self.slot_req)
+
+    def _knob_rows(self) -> Dict[str, torch.Tensor]:
+        """Per-slot temps, top_ps and seeds on the device: empty rows
+        get greedy-neutral values (their lanes are parked, their draws
+        never emitted)."""
+        reqs = self.slot_req
+        return {'temps': self._h2d([r.temperature if r else 0.0
+                                    for r in reqs], torch.float32),
+                'top_ps': self._h2d([r.top_p if r else 1.0
+                                     for r in reqs], torch.float32),
+                'seeds': self._h2d([r.seed if r else 0 for r in reqs],
+                                   torch.int32)}
+
+    def _sampling_args(self):
+        """The decode step's ``sampling`` argument: None while every
+        admitted row is greedy and unconstrained (the greedy step runs),
+        else the per-row knobs and the mask table, constrained rows
+        pointing ``mask_idx`` at their slot's line."""
+        if not self._sampling_needed():
+            return None
+        idx = [i + 1 if r is not None and r.grammar is not None else 0
+               for i, r in enumerate(self.slot_req)]
+        return dict(self._knob_rows(), mask_table=self._mask_table,
+                    mask_idx=self._h2d(idx, torch.int32))
+
+    def _verify_sampling_args(self, toks: List[List[int]],
+                              n_real: List[int]):
+        """The verify step's ``sampling`` argument: the same knobs, but
+        the grammar masks are PER POSITION ([M, W, V]): row r's mask at
+        lane j is the DFA state after its drafts 1..j, walked here
+        along the (grammar-filtered) draft. With no constrained row the
+        table is one all-allowed line, every index 0."""
+        if not self._sampling_needed():
+            return None
+        w = self.draft_k + 1
+        con = [i for i, r in enumerate(self.slot_req)
+               if r is not None and r.grammar is not None]
+        idx = [0] * self.slots
+        if not con:
+            table = torch.ones((1, w, self.config.vocab_size),
+                               dtype=torch.bool, device=self.device)
+        else:
+            host = np.ones((self.slots + 1, w, self.config.vocab_size),
+                           dtype=bool)
+            for i in con:
+                req = self.slot_req[i]
+                idx[i] = i + 1
+                if n_real[i] <= 0:
+                    continue
+                st = req.grammar_state
+                host[i + 1, 0] = req.grammar.allowed(st)
+                for j in range(1, n_real[i]):
+                    st = req.grammar.advance(st, toks[i][j])
+                    host[i + 1, j] = req.grammar.allowed(st)
+            table = self._to_device(torch.from_numpy(host))
+        return dict(self._knob_rows(), mask_table=table,
+                    mask_idx=self._h2d(idx, torch.int32))
+
+    def _refresh_mask_row(self, row: int) -> None:
+        """Copy the row's current grammar mask into its line of the
+        device mask table (one [V] upload per constrained row per
+        emitting dispatch)."""
+        req = self.slot_req[row]
+        if req is None or req.grammar is None:
+            return
+        self._mask_table[row + 1].copy_(self._to_device(torch.from_numpy(
+            req.grammar.allowed(req.grammar_state))))
+
+    @staticmethod
+    def _filter_draft_grammar(req: _Request,
+                              draft: List[int]) -> List[int]:
+        """Cut an n-gram draft at the first token the request's grammar
+        refuses: the verify mask would force the realization off it, so
+        it could only burn lanes."""
+        st = req.grammar_state
+        out: List[int] = []
+        for t in draft:
+            if not req.grammar.allowed(st)[t]:
+                break
+            st = req.grammar.advance(st, t)
+            out.append(t)
+        return out
 
     # -- scheduling helpers ---------------------------------------------
 
@@ -894,6 +1116,15 @@ class BatchingEngine:
             self._admit_seq += 1
             self.slot_seq[row] = self._admit_seq
             self._set_table_row(row)
+            if req.grammar is not None:
+                # The DFA state from the EMITTED stream (empty at first
+                # admission): a resumed request constrains from the state
+                # it was preempted in.
+                st = req.grammar.start
+                for t in req.generated:
+                    st = req.grammar.advance(st, t)
+                req.grammar_state = st
+                self._refresh_mask_row(row)
             self.events.append(('admit', row, cached_tokens, t0))
             # Park the lane OUT OF RANGE until prefill finishes: decode
             # dispatches treat the row as inactive but still write, and
@@ -994,21 +1225,38 @@ class BatchingEngine:
             parent = h
 
     def _finish_prefill(self, row: int, logits: torch.Tensor) -> None:
-        """Last prompt chunk done: its logits seed greedy decoding —
-        the first generated token comes from the prefill itself."""
+        """Last prompt chunk done: its logits seed decoding — the first
+        generated token comes from the prefill itself. A sampled or
+        constrained row draws it keyed at position t0 - 1 (the last
+        prompt token's index), the key decode would use there."""
         req = self.slot_req[row]
         t0 = self.slot_total[row]
         self._register_prefix(row)
-        first = int(logits[0].argmax())   # waits for the prefill
+        if self.sampling and (req.temperature > 0.0
+                              or req.grammar is not None):
+            allowed = None
+            if req.grammar is not None:
+                allowed = self._to_device(torch.from_numpy(
+                    req.grammar.allowed(req.grammar_state)))
+            first = int(sample_lib.sample_first(
+                logits, req.temperature, req.top_p, req.seed, t0 - 1,
+                allowed))
+        else:
+            first = int(logits[0].argmax())   # waits for the prefill
         self.pos[row] = t0
         self.tokens[row] = first
         self.slot_len[row] = t0
         req.out.put(first)
         req.generated.append(first)
+        if req.grammar is not None:
+            req.grammar_state = req.grammar.advance(req.grammar_state,
+                                                    first)
         self.slot_left[row] = req.max_new - len(req.generated)
         if self.slot_left[row] <= 0 or first == req.eos_id:
             req.out.put(None)
             self._retire(row)
+        elif req.grammar is not None:
+            self._refresh_mask_row(row)
 
     # -- decode and speculation ---------------------------------------------
 
@@ -1072,6 +1320,8 @@ class BatchingEngine:
                 bar = SPEC_MIN_NGRAM
             d = propose_ngram_draft(draft_stream(req), cap,
                                     min_ngram=bar)
+            if d and req.grammar is not None:
+                d = self._filter_draft_grammar(req, d)
             if d:
                 drafts[row] = d
                 left -= len(d)
@@ -1093,6 +1343,8 @@ class BatchingEngine:
                     continue
                 d = propose_ngram_draft(draft_stream(req), cap,
                                         min_ngram=SPEC_PROBE_MIN_NGRAM)
+                if d and req.grammar is not None:
+                    d = self._filter_draft_grammar(req, d)
                 if d:
                     drafts[row] = d
                     left -= len(d)
@@ -1125,6 +1377,11 @@ class BatchingEngine:
         drafts = self._collect_drafts(decode_rows()) \
             if self.speculative else {}
         n = self.steps
+        if any(self.slot_req[i].grammar is not None
+               for i in decode_rows()):
+            # Grammar masks advance on the host per emitted token, so a
+            # constrained row forces 1-token dispatches.
+            n = 1
         # Grow allocations for this dispatch's writes up front;
         # exhaustion preempts the youngest request (possibly a row in
         # this very list, which then sits the dispatch out).
@@ -1154,14 +1411,15 @@ class BatchingEngine:
         self._sync_tables()
         toks, self.caches, self.pos = decode_steps_paged(
             self.params, self.tokens, self.caches, self.block_tables,
-            self.pos, active, self.config, n, self.block_size)
+            self.pos, active, self.config, n, self.block_size,
+            sampling=self._sampling_args())
         self.tokens = toks[:, -1].contiguous()
         for i in active_rows:
             if self.slot_left[i] > 0:
                 self.slot_len[i] = min(self.slot_len[i] + n,
                                        self.max_seq)
         host_toks = toks.cpu().tolist()   # the dispatch's one sync
-        self.events.append(('decode', len(active_rows)))
+        self.events.append(('decode', len(active_rows), n))
         for i in active_rows:
             self._emit_tokens(i, host_toks[i][:n])
         return True
@@ -1179,6 +1437,11 @@ class BatchingEngine:
                 break
             req.out.put(int(t))
             req.generated.append(int(t))
+            if req.grammar is not None:
+                # The host half of structured decoding (a None state
+                # falls back to unconstrained).
+                req.grammar_state = req.grammar.advance(
+                    req.grammar_state, int(t))
             row_emitted += 1
             self.slot_left[row] -= 1
             if int(t) == req.eos_id:
@@ -1188,6 +1451,8 @@ class BatchingEngine:
         if done or self.slot_left[row] <= 0:
             req.out.put(None)
             self._retire(row)
+        elif row_emitted and req.grammar is not None:
+            self._refresh_mask_row(row)
         return row_emitted
 
     def _run_verify_dispatch(self, active_rows: List[int],
@@ -1216,7 +1481,8 @@ class BatchingEngine:
                 self.params, self._h2d(toks, torch.int32), self.caches,
                 self.block_tables, self.pos,
                 self._h2d(n_real, torch.int32), self.config, w,
-                self.block_size)
+                self.block_size,
+                sampling=self._verify_sampling_args(toks, n_real))
         # The dispatch's one sync: predictions and counts together.
         host = torch.cat([preds, accepted[:, None]], dim=1).cpu().tolist()
         proposed_total = 0

@@ -279,18 +279,107 @@ def test_single_accept_tokens_definition():
     assert defs[0].endswith(os.path.join('serve', 'sampling', 'accept.py'))
 
 
+def _sampling_args(n_rows, v, width=None, masked=False, seed=0):
+    """A ``sampling`` dict for the device steps on both sides: mixed
+    temperatures (a greedy row among them), top_p and seeds of both
+    signs, and a mask table whose line 1 (row 0's) allows a third of
+    the vocab."""
+    rng = np.random.default_rng(seed)
+    temps = np.asarray([0.8, 0.0, 1.3][:n_rows], np.float32)
+    tops = np.asarray([0.9, 1.0, 0.7][:n_rows], np.float32)
+    seeds = np.asarray([7, -3, 2 ** 31 - 9][:n_rows], np.int32)
+    shape = (n_rows + 1, v) if width is None else (n_rows + 1, width, v)
+    table = np.ones(shape, bool)
+    idx = np.zeros(n_rows, np.int32)
+    if masked:
+        table[1] = rng.random(shape[1:]) < 0.33
+        idx[0] = 1
+    raw = dict(temps=temps, top_ps=tops, seeds=seeds, mask_table=table,
+               mask_idx=idx)
+    return ({k: jnp.asarray(x) for k, x in raw.items()},
+            {k: _t(x) for k, x in raw.items()})
+
+
+@pytest.mark.parametrize('masked', [False, True])
+def test_sampled_decode_steps_paged_matches_jax(models, prefilled,
+                                                masked):
+    jcfg, tcfg, jp, tp = models
+    p = prefilled
+    js, ts = _sampling_args(3, jcfg.vocab_size, masked=masked)
+    jt, _, jpos = jbatching.decode_steps_paged(
+        jp, jnp.asarray(p['first']), _jcaches(p['k_pool'], p['v_pool']),
+        jnp.asarray(p['tables']), jnp.asarray(p['pos']),
+        jnp.asarray(p['active']), jcfg, 4, BS, sampling=js)
+    tt, _, tpos = tbatching.decode_steps_paged(
+        tp, _t(p['first']), _tcaches(p['k_pool'], p['v_pool']),
+        _t(p['tables']), _t(p['pos']), _t(p['active']), tcfg, 4, BS,
+        sampling=ts)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(tpos.numpy(), np.asarray(jpos))
+    if masked:
+        assert ts['mask_table'][1][tt[0].long()].all()
+
+
+def test_sampled_decode_steps_rows_matches_jax(models, prefilled):
+    jcfg, tcfg, jp, tp = models
+    p = prefilled
+    js, ts = _sampling_args(3, jcfg.vocab_size, masked=True, seed=1)
+    jt, _, jpos = jbatching.decode_steps_rows(
+        jp, jnp.asarray(p['first']), _jcaches(p['dense_k'], p['dense_v']),
+        jnp.asarray(p['pos']), jnp.asarray(p['active']), jcfg, 4,
+        sampling=js)
+    tt, _, tpos = tbatching.decode_steps_rows(
+        tp, _t(p['first']), _tcaches(p['dense_k'], p['dense_v']),
+        _t(p['pos']), _t(p['active']), tcfg, 4, sampling=ts)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(tpos.numpy(), np.asarray(jpos))
+
+
+@pytest.mark.parametrize('masked', [False, True])
+def test_sampled_verify_step_paged_matches_jax(models, prefilled, masked):
+    """Drafts taken from the sampled decode's own tokens, so the sampled
+    verify accepts them: the maximal coupling, on both sides."""
+    jcfg, tcfg, jp, tp = models
+    p = prefilled
+    js, ts = _sampling_args(3, jcfg.vocab_size, masked=False, seed=2)
+    want, _, _ = jbatching.decode_steps_paged(
+        jp, jnp.asarray(p['first']), _jcaches(p['k_pool'], p['v_pool']),
+        jnp.asarray(p['tables']), jnp.asarray(p['pos']),
+        jnp.asarray(p['active']), jcfg, 5, BS, sampling=js)
+    draft = np.asarray(want)[:, :3].copy()
+    toks = np.concatenate([p['first'][:, None], draft], 1).astype(np.int32)
+    n_real = np.asarray([4, 2, 0], np.int32)
+    js, ts = _sampling_args(3, jcfg.vocab_size, width=4, masked=masked,
+                            seed=2)
+    jout = jbatching.verify_step_paged(
+        jp, jnp.asarray(toks), _jcaches(p['k_pool'], p['v_pool']),
+        jnp.asarray(p['tables']), jnp.asarray(p['pos']),
+        jnp.asarray(n_real), jcfg, 4, BS, sampling=js)
+    tout = tbatching.verify_step_paged(
+        tp, _t(toks), _tcaches(p['k_pool'], p['v_pool']), _t(p['tables']),
+        _t(p['pos']), _t(n_real), tcfg, 4, BS, sampling=ts)
+    live = n_real > 0
+    np.testing.assert_array_equal(tout[0].numpy()[live],
+                                  np.asarray(jout[0])[live])
+    for got, exp in zip(tout[1:4], jout[1:4]):   # accepted, pos, tok
+        np.testing.assert_array_equal(got.numpy(), np.asarray(exp))
+    if not masked:
+        assert tout[1].tolist() == [3, 1, 0]
+
+
 def test_deferred_step_options_raise(models, prefilled):
+    """Adapters in the device steps come with the multi-LoRA slice."""
     _, tcfg, _, tp = models
     p = prefilled
     args = (tp, _t(p['first']), _tcaches(p['k_pool'], p['v_pool']),
             _t(p['tables']), _t(p['pos']), _t(p['active']), tcfg, 1, BS)
-    with pytest.raises(NotImplementedError, match='sampling slice'):
-        tbatching.decode_steps_paged(*args, sampling={'temps': None})
     with pytest.raises(NotImplementedError, match='multi-LoRA'):
         tbatching.decode_steps_paged(*args, adapters={})
-    with pytest.raises(NotImplementedError, match='sampling slice'):
-        tbatching.decode_steps_rows(
-            tp, _t(p['first']), (_t(p['dense_k']), _t(p['dense_v']),
-                                 None, None),
-            _t(p['pos']), _t(p['active']), tcfg, 1,
-            sampling={'temps': None})
+    with pytest.raises(NotImplementedError, match='multi-LoRA'):
+        tbatching.decode_steps_paged(*args, adapter_idx=_t([0, 0, 0]))
+    with pytest.raises(NotImplementedError, match='multi-LoRA'):
+        tbatching.verify_step_paged(
+            tp, _t(np.zeros((3, 2), np.int32)),
+            _tcaches(p['k_pool'], p['v_pool']), _t(p['tables']),
+            _t(p['pos']), _t(np.ones(3, np.int32)), tcfg, 2, BS,
+            adapters={})

@@ -68,7 +68,10 @@ print(json.dumps({{'modules': names, 'bad': bad}}))
                 'skypilot_torch.serve.kv_pool',
                 'skypilot_torch.serve.prefix_hash',
                 'skypilot_torch.serve.sampling',
-                'skypilot_torch.serve.sampling.accept'):
+                'skypilot_torch.serve.sampling.accept',
+                'skypilot_torch.serve.sampling.grammar',
+                'skypilot_torch.serve.sampling.prng',
+                'skypilot_torch.serve.sampling.sample'):
         assert mod in res['modules']
 
 

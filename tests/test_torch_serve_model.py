@@ -1,9 +1,13 @@
 """The port's serving replica (skypilot_torch/recipes/serve_model.py)
 on the CPU at ``tiny``: built on port 0, served from a thread, driven
 over HTTP, and shut down. Outputs must equal the port's own
-``greedy_generate`` under the replica's power-of-two bucketing."""
+``greedy_generate`` under the replica's power-of-two bucketing; with
+the engine, sampled and constrained requests must equal the engine's
+own answer for the same knobs, and bad knobs, bad grammars and a
+``--sampling off`` replica answer 400."""
 import http.client
 import json
+import re
 import threading
 
 import pytest
@@ -213,10 +217,6 @@ def test_engine_replica_sets_prefix_headers(engine_replica):
 
 
 @pytest.mark.parametrize('field,slice_name', [
-    ({'temperature': 0.7}, 'sampling slice'),
-    ({'top_p': 0.9}, 'sampling slice'),
-    ({'seed': 1}, 'sampling slice'),
-    ({'response_format': {'type': 'json_object'}}, 'sampling slice'),
     ({'adapter': 'tenant-a'}, 'multi-LoRA slice'),
     ({'priority': 'batch'}, 'overload slice'),
     ({'timeout_s': 5}, 'overload slice'),
@@ -234,3 +234,188 @@ def test_engine_replica_refuses_deferred_fields(engine_replica, field,
                             {'prompt_ids': [1, 2], 'temperature': 0,
                              'tenant': None, 'max_new_tokens': 2})
     assert status == 200
+
+
+# ---------------------------------------------------------------------
+# Sampled and constrained requests through the engine
+# ---------------------------------------------------------------------
+
+GV_EOS = 40
+
+
+def _grammar_vocab():
+    """Token texts for the tiny (512) vocab: a JSON lexicon at ids 1..,
+    everything else without text, EOS at 40."""
+    gv = [None] * 512
+    syms = list('0123456789{}[],:."ab') + ['true', 'false', 'null']
+    for i, sym in enumerate(syms, start=1):
+        gv[i] = sym
+    return gv
+
+
+def _replica(argv):
+    args = serve_model.parse_args(['--model', 'tiny', '--port', '0',
+                                   '--device', 'cpu', '--slots', '3']
+                                  + argv)
+    server, _ = serve_model.build_server(args)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread
+
+
+def _stop(server, thread):
+    server.shutdown()
+    server.server_close()
+    server.engine.close()
+    thread.join(timeout=10)
+    assert not thread.is_alive()
+
+
+@pytest.fixture(scope='module')
+def grammar_replica(tmp_path_factory):
+    path = tmp_path_factory.mktemp('vocab') / 'vocab.json'
+    path.write_text(json.dumps(_grammar_vocab()))
+    server, thread = _replica(['--grammar-vocab', str(path)])
+    try:
+        yield server.server_address[1], server.engine
+    finally:
+        _stop(server, thread)
+
+
+def _events(body: bytes):
+    events = [e[len('data: '):] for e in body.decode().split('\n\n') if e]
+    assert events[-1] == '[DONE]', events
+    return [int(e) for e in events[:-1]]
+
+
+@pytest.mark.parametrize('stream', [False, True])
+def test_engine_replica_serves_sampling_fields(engine_replica, stream):
+    port, engine = engine_replica
+    knobs = dict(temperature=0.9, top_p=0.8, seed=2 ** 31 + 17)
+    status, ctype, body = _request(port, 'POST', '/generate', dict(
+        {'prompt_ids': [4, 8, 15, 16], 'max_new_tokens': 9,
+         'stream': stream}, **knobs))
+    assert status == 200
+    got = _events(body) if stream else json.loads(body)['output_ids']
+    assert got == engine.generate([4, 8, 15, 16], 9, **knobs)
+    greedy = engine.generate([4, 8, 15, 16], 9)
+    assert got != greedy
+
+
+def test_unseeded_sampled_requests_draw_their_own_seed(engine_replica):
+    port, _ = engine_replica
+    outs = []
+    for _ in range(2):
+        status, _, body = _request(port, 'POST', '/generate', {
+            'prompt_ids': [1, 2, 3], 'max_new_tokens': 12,
+            'temperature': 1.0})
+        assert status == 200
+        outs.append(json.loads(body)['output_ids'])
+    assert outs[0] != outs[1]
+
+
+@pytest.mark.parametrize('field', [
+    {'temperature': -1}, {'temperature': 'hot'}, {'temperature': True},
+    {'top_p': 0}, {'top_p': 1.5}, {'top_p': 'x'}, {'seed': 1.5},
+    {'seed': True}, {'response_format': 'json'},
+])
+def test_engine_replica_answers_bad_knobs_400(engine_replica, field):
+    port, _ = engine_replica
+    status, _, raw = _request(port, 'POST', '/generate',
+                              dict({'prompt_ids': [1, 2]}, **field))
+    assert status == 400
+    assert next(iter(field)) in json.loads(raw)['error']
+
+
+@pytest.mark.parametrize('stream', [False, True])
+def test_vocab_less_replica_answers_response_format_400(engine_replica,
+                                                        stream):
+    port, _ = engine_replica
+    status, _, raw = _request(port, 'POST', '/generate', {
+        'prompt_ids': [1, 2], 'eos_id': 3, 'stream': stream,
+        'response_format': {'type': 'regex', 'pattern': 'a'}})
+    assert status == 400
+    assert 'grammar_vocab' in json.loads(raw)['error']
+
+
+@pytest.mark.parametrize('stream', [False, True])
+def test_grammar_replica_serves_response_format(grammar_replica, stream):
+    port, _ = grammar_replica
+    gv = _grammar_vocab()
+    status, _, body = _request(port, 'POST', '/generate', {
+        'prompt_ids': [1, 2, 3], 'max_new_tokens': 24, 'eos_id': GV_EOS,
+        'temperature': 0.8, 'seed': 3, 'stream': stream,
+        'response_format': {'type': 'regex',
+                            'pattern': r'\{"a":[0-9]{1,4}\}'}})
+    assert status == 200
+    toks = _events(body) if stream else json.loads(body)['output_ids']
+    text = ''.join(gv[t] or '' for t in toks if t != GV_EOS)
+    assert re.fullmatch(r'\{"a":[0-9]{1,4}\}', text), text
+
+
+def test_grammar_replica_serves_json_schema_greedy(grammar_replica):
+    """An unseeded constrained request at temperature 0 (greedy under
+    the mask) gives JSON that fits its schema."""
+    port, _ = grammar_replica
+    gv = _grammar_vocab()
+    status, _, body = _request(port, 'POST', '/generate', {
+        'prompt_ids': [4, 5, 6], 'max_new_tokens': 24, 'eos_id': GV_EOS,
+        'response_format': {'type': 'json_schema', 'schema': {
+            'type': 'object', 'properties': {'a': {'type': 'boolean'}}}}})
+    assert status == 200
+    toks = json.loads(body)['output_ids']
+    parsed = json.loads(''.join(gv[t] or '' for t in toks if t != GV_EOS))
+    assert isinstance(parsed.get('a'), bool)
+
+
+@pytest.mark.parametrize('rf,extra,needle', [
+    ({'type': 'xml'}, {'eos_id': GV_EOS}, 'type'),
+    ({'type': 'regex', 'pattern': ''}, {'eos_id': GV_EOS}, 'pattern'),
+    ({'type': 'regex', 'pattern': 'a+'}, {}, 'eos_id'),
+])
+def test_grammar_replica_answers_bad_grammars_400(grammar_replica, rf,
+                                                  extra, needle):
+    port, engine = grammar_replica
+    status, _, raw = _request(port, 'POST', '/generate', dict(
+        {'prompt_ids': [1, 2], 'response_format': rf}, **extra))
+    assert status == 400
+    assert needle in json.loads(raw)['error']
+    assert engine.thread.is_alive()
+
+
+def test_sampling_off_replica_refuses_sampled_requests():
+    server, thread = _replica(['--sampling', 'off'])
+    try:
+        port = server.server_address[1]
+        for field in ({'temperature': 0.7},
+                      {'response_format': {'type': 'regex',
+                                           'pattern': 'a'},
+                       'eos_id': 3}):
+            status, _, raw = _request(port, 'POST', '/generate',
+                                      dict({'prompt_ids': [1, 2]},
+                                           **field))
+            assert status == 400
+            assert 'sampling=False' in json.loads(raw)['error']
+        status, _, body = _request(port, 'POST', '/generate', {
+            'prompt_ids': [1, 2, 3], 'max_new_tokens': 4, 'seed': 5,
+            'top_p': 0.5})
+        assert status == 200
+        assert json.loads(body)['output_ids'] == _greedy([1, 2, 3], 4)
+    finally:
+        _stop(server, thread)
+
+
+def test_sampling_flags_read_their_env(monkeypatch, tmp_path):
+    monkeypatch.delenv('SKYTPU_ENGINE_SAMPLING', raising=False)
+    monkeypatch.delenv('SKYTPU_ENGINE_SAMPLING_GRAMMAR_VOCAB',
+                       raising=False)
+    args = serve_model.parse_args([])
+    assert args.sampling == 'on' and args.grammar_vocab == ''
+    monkeypatch.setenv('SKYTPU_ENGINE_SAMPLING', 'off')
+    monkeypatch.setenv('SKYTPU_ENGINE_SAMPLING_GRAMMAR_VOCAB', '/v.json')
+    args = serve_model.parse_args([])
+    assert args.sampling == 'off' and args.grammar_vocab == '/v.json'
+    bad = tmp_path / 'vocab.json'
+    bad.write_text('{"a": 1}')
+    with pytest.raises(SystemExit):
+        serve_model._load_grammar_vocab(str(bad))
