@@ -84,6 +84,26 @@ in order (any failure exits non-zero; nothing is caught):
    sampled dispatch, the grammar mask build per new DFA state, the
    verify mask table's bytes, each seeded request re-run alone, and the
    drafting ones with speculation off.
+11c. Adapters (multi-LoRA and overload control): llama3-8b at 2 layers
+   with two adapters, bf16 on the card vs f32 on the CPU (first-token
+   logits of ``forward_paged`` under each); then the ``--slots 8``
+   replica with ``--adapter-capacity 2`` over lineages written by the
+   port's checkpoint copies ('a' rank 8 bf16 and 'b' 16 preloaded, 'c'
+   16 cold, 'big' 32 over the rank bucket) and ``--max-queued-requests
+   4``: 12 concurrent greedy requests (3 base, 3 per adapter, a 512-token
+   prefix shared by a base and two 'a' requests), launch counts equal to
+   the dispatch record, adapter logits that differ from the base's,
+   no base block reused under an adapter, the cold load evicting an
+   adapter, slot 0 still zeros, 413 for 'big' and 404 for an unknown id,
+   every request equal to its run alone (base rows also on an
+   adapterless engine; a divergence only under ``ADAPTER_FLIP_GAP``);
+   printed beside it: the same prompts on an adapterless engine, the
+   cold load's host read and upload, the LoRA delta's share of a decode
+   dispatch. Then overload on the same replica: 16 requests (4 batch)
+   against the queue bound: evictions and sheds answered 429 with
+   Retry-After, a 504 for an expired ``X-Skytpu-Deadline``, a dropped
+   stream cancelled, the pool back to idle, every completed request equal
+   to its run alone.
 12. Rows: ``decode_steps_rows`` (K5 + dense K4) and ``decode_steps_paged``
    (K5 + K4-paged) at llama3-8b, B 8, 16 steps on the same content:
    32 x 16 launches each and equal tokens.
@@ -129,8 +149,8 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 L2_BYTES = 50 * 2 ** 20
 PHASES = ('k1', 'k4', 'e2e', 'serve', 'k1r', 'bwd', 'train', 'k5',
-          'k4p', 'engine', 'sampling', 'rows', 'k6', 'int8k', 'int8',
-          'qlora')
+          'k4p', 'engine', 'sampling', 'adapters', 'rows', 'k6', 'int8k',
+          'int8', 'qlora')
 K1_TOL = {'out': 2e-2, 'lse': 2e-2}
 # K2/K3 in bf16 (P and dS rounded to bf16 before their products) against
 # f32 on the same rotated bf16 q and k: max |err| over max |ref| per
@@ -1677,7 +1697,8 @@ def _sse_post(port, body, timeout=900):
                      headers={'Content-Type': 'application/json'})
         resp = conn.getresponse()
         heads = {h: resp.getheader(h) for h in (
-            'X-Skytpu-Prefix-Hits', 'X-Skytpu-Prefix-Misses')}
+            'X-Skytpu-Prefix-Hits', 'X-Skytpu-Prefix-Misses',
+            'X-Skytpu-Adapter-Hits', 'X-Skytpu-Adapter-Loads')}
         ids, first_ms = [], None
         if not body.get('stream'):
             ids = json.loads(resp.read())['output_ids']
@@ -1701,36 +1722,49 @@ def _sse_post(port, body, timeout=900):
         conn.close()
 
 
-def _first_token(torch, engine, config, prompt, knobs=None):
-    """The engine's first token for a prompt that hits no cached block:
-    its prefill chunks (same buckets, same padding, same kernels)
-    replayed on a private pool, then the argmax of the last chunk's
-    logits, as ``_finish_prefill`` takes it (``knobs``: the request's
-    temperature, top_p and seed, drawn as ``_finish_prefill`` draws a
-    sampled first token)."""
+def _prefill_logits(torch, engine, config, tokens, adapters=None, slot=0):
+    """The logits [1, V] after ``tokens`` that hit no cached block, as the
+    engine's prefill gives them: its chunks (same buckets, same padding,
+    same kernels) replayed on a private pool of its kind on its device,
+    under the adapter at ``slot`` of ``adapters`` (None: the base
+    model)."""
     from skypilot_torch.models import decode
     from skypilot_torch.serve import kv_pool
-    from skypilot_torch.serve.sampling import sample
-    n_blk = engine.pool.blocks_for(len(prompt) + 1)
+    dev = engine.device
+    n_blk = engine.pool.blocks_for(len(tokens) + 1)
     pool = kv_pool.KVBlockPool(config, n_blk + 1, engine.block_size,
-                               kv_int8=engine.kv_int8, device='cuda')
+                               kv_int8=engine.kv_int8, device=dev)
     row = torch.zeros(engine.max_blocks_per_req, dtype=torch.int32)
     row[:n_blk] = torch.arange(1, n_blk + 1, dtype=torch.int32)
-    row = row.cuda()
+    row = row.to(dev)
+    kw = {} if adapters is None else dict(
+        adapters=adapters,
+        adapter_idx=torch.tensor([slot], dtype=torch.int32, device=dev))
     off = 0
     with torch.inference_mode():
-        while off < len(prompt):
-            bucket = engine._chunk_bucket(len(prompt) - off)
-            real = min(len(prompt) - off, bucket)
-            chunk = prompt[off:off + real] + [0] * (bucket - real)
+        while off < len(tokens):
+            bucket = engine._chunk_bucket(len(tokens) - off)
+            real = min(len(tokens) - off, bucket)
+            chunk = tokens[off:off + real] + [0] * (bucket - real)
             logits, _ = decode.forward_paged(
-                engine.params, torch.tensor([chunk], device='cuda'),
-                pool.caches, row, off, real, config, engine.block_size)
+                engine.params, torch.tensor([chunk], device=dev),
+                pool.caches, row, off, real, config, engine.block_size,
+                **kw)
             off += real
-        if knobs is not None:
-            return int(sample.sample_first(
-                logits, knobs['temperature'], knobs['top_p'],
-                _int32(knobs['seed']), len(prompt) - 1))
+    return logits
+
+
+def _first_token(torch, engine, config, prompt, knobs=None):
+    """The engine's first token for a prompt that hits no cached block:
+    the argmax of its prefill logits, as ``_finish_prefill`` takes it
+    (``knobs``: the request's temperature, top_p and seed, drawn as
+    ``_finish_prefill`` draws a sampled first token)."""
+    from skypilot_torch.serve.sampling import sample
+    logits = _prefill_logits(torch, engine, config, prompt)
+    if knobs is not None:
+        return int(sample.sample_first(
+            logits, knobs['temperature'], knobs['top_p'],
+            _int32(knobs['seed']), len(prompt) - 1))
     return int(logits[0].argmax())
 
 
@@ -2518,6 +2552,666 @@ def sampling_phase(torch, attention, da):
     assert not thread.is_alive() and not engine.thread.is_alive()
     log(f'SAMPLING_PHASE_S {time.perf_counter() - t_phase:.1f}')
     return launches
+
+
+# ---------------------------------------------------------------------
+# Adapters: multi-LoRA and overload control through the engine
+# ---------------------------------------------------------------------
+
+# The lineages' ranks: 'a' and 'b' preloaded, 'c' cold, 'big' over the
+# engine's rank bucket (16).
+ADAPTER_RANKS = {'a': 8, 'b': 16, 'c': 16, 'big': 32}
+# Factor std: at llama3-8b a rank-16 delta on q and v comes to ~0.5 of
+# the base projections' unit scale (B carries the registry's x2 too).
+ADAPTER_FACTOR_STD = 0.03
+# (b): a request's tokens may differ from its solo run's only at a
+# position where the solo run's top-two logit gap is under this (the
+# logits of random llama3-8b weights are ~N(0, 1) over 128256 ids; a
+# batch and a solo run round bf16 GEMMs of different shapes).
+ADAPTER_FLIP_GAP = 0.15
+
+
+def _write_lineages(torch, base, config, ranks, seed):
+    """One committed lineage per adapter under ``base``, written through
+    the port's ``checkpoint`` copies (the JAX writer's format): q/v LoRA
+    factors from a seed, 'a' in bf16 and the rest in f32."""
+    import os
+
+    from skypilot_torch import checkpoint
+    gen = torch.Generator().manual_seed(seed)
+    L, d = config.n_layers, config.dim
+    outs = {'wq': config.n_heads * config.head_dim,
+            'wv': config.n_kv_heads * config.head_dim}
+    for name, r in ranks.items():
+        factors = {}
+        for proj, out in outs.items():
+            factors[f'{proj}_a'] = torch.randn(
+                (L, d, r), generator=gen) * ADAPTER_FACTOR_STD
+            factors[f'{proj}_b'] = torch.randn(
+                (L, r, out), generator=gen) * ADAPTER_FACTOR_STD
+        if name == 'a':
+            factors = {k: v.bfloat16() for k, v in factors.items()}
+        checkpoint.save_tree(os.path.join(base, name), 1,
+                             {'lora': factors})
+
+
+def _adapter_shapes(config):
+    return (config.n_layers, config.dim, config.n_heads * config.head_dim,
+            config.n_kv_heads * config.head_dim)
+
+
+def _logits_after(torch, engine, config, tokens, adapters=None, slot=0):
+    """``_prefill_logits`` as [V] f32 on the host."""
+    return _prefill_logits(torch, engine, config, tokens, adapters,
+                           slot)[0].float().cpu()
+
+
+def _solo_check(torch, label, engine, config, reqs, outs, registry,
+                solo_engine=None):
+    """Rule (b): each request re-run alone (on ``solo_engine``, default
+    the same engine) must give the burst's tokens, or diverge first at a
+    position where the solo run's top-two logit gap (its logits there
+    recomputed by the engine's prefill path under its adapter) is under
+    ``ADAPTER_FLIP_GAP``. Prints every divergence with its position and
+    gap; returns the rows."""
+    from skypilot_torch.serve.adapters import ResidentAdapterSet
+    solo_engine = solo_engine or engine
+    sets, rows = {}, []
+    for i, (r, out) in enumerate(zip(reqs, outs)):
+        adapter = r.get('adapter')
+        solo = solo_engine.generate(r['prompt_ids'], r['max_new_tokens'],
+                                    adapter=adapter)
+        p = _first_divergence(solo, out)
+        row = dict(request=i, adapter=adapter, equal=p is None,
+                   first_divergence=p)
+        if p is not None:
+            assert p < len(solo) and p < len(out), (label, i, solo, out)
+            kw = {}
+            if adapter is not None:
+                if adapter not in sets:
+                    sets[adapter] = ResidentAdapterSet(
+                        registry, 1, _adapter_shapes(config),
+                        device=engine.device)
+                    sets[adapter].preload([adapter])
+                kw = dict(adapters=sets[adapter].buffers(), slot=1)
+            top = _logits_after(torch, engine, config,
+                                r['prompt_ids'] + solo[:p], **kw).topk(2)
+            row.update(solo_token=solo[p], burst_token=out[p],
+                       top2_gap=float(top.values[0] - top.values[1]),
+                       recomputed_argmax=int(top.indices[0]))
+            log(f'{label}_DIVERGENCE ' + json.dumps(row))
+        rows.append(row)
+    bad = [r for r in rows if not r['equal'] and
+           not r['top2_gap'] < ADAPTER_FLIP_GAP]
+    assert not bad, (label, bad)
+    return rows
+
+
+def _adapter_numerics(torch, dev, model):
+    """(g): llama3-8b widths at 2 layers with 2-layer adapters 'a' and
+    'b' (and the base model), bf16 on the card against f32 on the CPU
+    (the plain paths): first-token logits of ``forward_paged`` under each
+    adapter within ``E2E_REL_TOL``, and each adapter's logits differing
+    from the base's."""
+    import shutil
+    import tempfile
+
+    from skypilot_torch.models import convert, decode, llama
+    from skypilot_torch.serve import kv_pool
+    from skypilot_torch.serve.adapters import (AdapterRegistry,
+                                               ResidentAdapterSet)
+    config = llama.get_config(model, n_layers=2)
+    cfg_cpu = dataclasses.replace(config, dtype=torch.float32)
+    params = llama.init_params(config, seed=5, device=dev)
+    cpu_params = convert.params_from_numpy(
+        convert.params_to_numpy(params), cfg_cpu, device='cpu')
+    tmp = tempfile.mkdtemp(prefix='skypilot_adapters2_')
+    try:
+        _write_lineages(torch, tmp, config, {'a': 8, 'b': 16}, seed=46)
+        reg = AdapterRegistry(base_dir=tmp)
+        sets = {}
+        for d in (dev, 'cpu'):
+            sets[d] = ResidentAdapterSet(reg, 2, _adapter_shapes(config),
+                                         device=d)
+            sets[d].preload(['a', 'b'])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gen = torch.Generator().manual_seed(47)
+    prompt = torch.randint(0, config.vocab_size, (300,),
+                           generator=gen).tolist()
+    n_blk = -(-len(prompt) // BLOCK) + 1
+
+    def logits(p, cfg, d, name):
+        slot = 0 if name == 'base' else sets[d].slot(name)
+        with torch.inference_mode():
+            pool = kv_pool.KVBlockPool(cfg, n_blk + 1, BLOCK, device=d)
+            row = torch.arange(1, n_blk + 1, dtype=torch.int32, device=d)
+            out = None
+            for start in range(0, len(prompt), 256):
+                chunk = prompt[start:start + 256]
+                out, _ = decode.forward_paged(
+                    p, torch.tensor([chunk], device=d), pool.caches, row,
+                    start, len(chunk), cfg, BLOCK,
+                    adapters=sets[d].buffers(),
+                    adapter_idx=torch.tensor([slot], dtype=torch.int32,
+                                             device=d))
+        return out[0].float().cpu()
+    rows = {}
+    for name in ('base', 'a', 'b'):
+        g = logits(params, config, dev, name)
+        c = logits(cpu_params, cfg_cpu, 'cpu', name)
+        assert bool(torch.isfinite(g).all())
+        rows[name] = dict(rel_err=((g - c).abs().max() /
+                                   c.abs().max()).item(), gpu=g, cpu=c)
+    row = dict(config=model, layers=2, prompt=len(prompt),
+               rel_tol=E2E_REL_TOL,
+               rel_err={k: v['rel_err'] for k, v in rows.items()},
+               delta_vs_base={k: (rows[k]['cpu'] - rows['base']['cpu']
+                                  ).abs().max().item() for k in ('a', 'b')})
+    log('ADAPTERS_NUMERICS ' + json.dumps(row))
+    assert all(v <= E2E_REL_TOL for v in row['rel_err'].values()), row
+    assert all(v > 1e-2 for v in row['delta_vs_base'].values()), row
+    del params, cpu_params
+
+
+def _http(port, body, headers=None, timeout=900):
+    """POST /generate (not streamed): (status, response headers, body)."""
+    import http.client
+    conn = http.client.HTTPConnection('127.0.0.1', port, timeout=timeout)
+    try:
+        conn.request('POST', '/generate', body=json.dumps(body),
+                     headers=dict({'Content-Type': 'application/json'},
+                                  **(headers or {})))
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def _engine_post(engine, body):
+    """The engine's answer to a request body without HTTP, timed as
+    ``_sse_post`` times a stream: (200, {}, ids, ms to the first token,
+    ms to the end)."""
+    t0 = time.perf_counter()
+    req = engine.submit_request(body['prompt_ids'], body['max_new_tokens'],
+                                adapter=body.get('adapter'))
+    ids, first_ms = [], None
+    while (t := req.out.get(timeout=900)) is not None:
+        assert not isinstance(t, BaseException), t
+        if first_ms is None:
+            first_ms = 1e3 * (time.perf_counter() - t0)
+        ids.append(t)
+    return 200, {}, ids, first_ms, 1e3 * (time.perf_counter() - t0)
+
+
+def _staged_burst(engine, reqs, post):
+    """The adapter burst's submission order: request 0 (base, the shared
+    prefix) first; request 1 (the same prefix under 'a') once 0's
+    prefill is done; request 2 (again under 'a') once 1's is; then the
+    rest at once. Returns (results, wall seconds)."""
+    results = [None] * len(reqs)
+    threads = []
+
+    def run(i):
+        results[i] = post(reqs[i])
+
+    def start(idx):
+        for i in idx:
+            threads.append(threading.Thread(target=run, args=(i,)))
+            threads[-1].start()
+
+    def prefilled(i):
+        n = len(reqs[i]['prompt_ids'])
+        deadline = time.time() + 600
+        while not any(e[0] == 'prefill_chunk' and e[2] == e[3] == n
+                      for e in list(engine.events)):
+            assert time.time() < deadline and threads[-1].is_alive(), \
+                f'request {i} never finished its prefill'
+            time.sleep(0.005)
+
+    t0 = time.perf_counter()
+    start([0])
+    prefilled(0)
+    start([1])
+    prefilled(1)
+    start(range(2, len(reqs)))
+    for t in threads:
+        t.join(timeout=900)
+    assert not any(t.is_alive() for t in threads)
+    return results, time.perf_counter() - t0
+
+
+def _profile_lora(torch, engine, config, batching, card):
+    """The LoRA delta's cost in a decode dispatch: the engine's step (8
+    rows at the replica's context lengths, ``steps_per_dispatch`` steps)
+    without an adapter set and with every row on an adapter slot,
+    profiled on the card, and ``lora_gather_delta`` alone (q and v, every
+    layer, one step's worth at [8, 1, 4096] bf16): its device time and,
+    unprofiled, its wall time (launch-bound on the host)."""
+    from skypilot_torch.models import decode
+    lens = [17, 64, 256, 1024, 1064, 1114, 1536, 2048]
+    b = len(lens)
+    blocks = [engine.pool.alloc(engine.pool.blocks_for(n + engine.steps))
+              for n in lens]
+    tables = torch.zeros((b, engine.max_blocks_per_req), dtype=torch.int32)
+    for i, bl in enumerate(blocks):
+        tables[i, :len(bl)] = torch.tensor(bl, dtype=torch.int32)
+    dev = engine.device
+    tables = tables.to(dev)
+    pos = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tokens = torch.ones(b, dtype=torch.int32, device=dev)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    bufs = engine._adapters.buffers()
+    idx = torch.tensor([1, 2] * 4, dtype=torch.int32, device=dev)
+
+    def dispatch(kw):
+        with torch.inference_mode():
+            toks, _, _ = batching.decode_steps_paged(
+                engine.params, tokens, engine.caches, tables, pos, active,
+                config, engine.steps, engine.block_size, **kw)
+            toks.cpu()
+    extra = dict(rows=b, steps=engine.steps, lengths=lens)
+    busy = {}
+    for name, kw in (('base', {}),
+                     ('adapters', dict(adapters=bufs, adapter_idx=idx))):
+        dispatch(kw)
+        busy[name] = profile_cuda(
+            torch, lambda k=kw: dispatch(k),
+            f'ADAPTERS_DISPATCH_PROFILE_{name.upper()}', extra)
+    h = torch.randn((b, 1, config.dim), device=dev).to(config.dtype)
+    layers = decode.adapter_layers(bufs, config.n_layers)
+    reps = 4
+
+    def deltas():
+        with torch.inference_mode():
+            for _ in range(reps):
+                for ad in layers:
+                    decode.lora_gather_delta(h, ad['wq_a'], ad['wq_b'],
+                                             idx).to(h.dtype)
+                    decode.lora_gather_delta(h, ad['wv_a'], ad['wv_b'],
+                                             idx).to(h.dtype)
+        torch.cuda.synchronize()
+    deltas()
+    t0 = time.perf_counter()
+    deltas()
+    wall = 1e3 * (time.perf_counter() - t0) / reps
+    delta_busy = profile_cuda(torch, deltas, 'ADAPTERS_DELTA_PROFILE',
+                              dict(rows=b, layers=config.n_layers,
+                                   steps=reps))
+    per_step = delta_busy / reps
+    row = dict(card=card, delta_ms_per_step=per_step,
+               delta_host_wall_ms_per_step=wall,
+               steps=engine.steps,
+               adapter_dispatch_busy_ms=busy['adapters'],
+               base_dispatch_busy_ms=busy['base'],
+               delta_share=engine.steps * per_step / busy['adapters'],
+               busy_difference_share=(busy['adapters'] - busy['base']) /
+               busy['adapters'])
+    log('ADAPTERS_SHARE ' + json.dumps(row))
+    for bl in blocks:
+        engine.pool.free(bl)
+    return row
+
+
+def _overload_burst(torch, engine, port, config, rand):
+    """Overload control on the same replica with its queue bound at 4: 8
+    long interactive requests fill the rows (four at a time, so none is
+    shed); then, in order, 2 batch and
+    2 interactive requests fill the queue, 2 more interactive arrivals
+    each evict the youngest queued batch request (429), and 2 more batch
+    arrivals are shed (429); every 429 carries Retry-After >= 1. Returns
+    (bodies, results by index, counts) for the solo check."""
+    bodies = [{'prompt_ids': rand(64), 'max_new_tokens': 64}
+              for _ in range(8)]
+    results = {}
+    threads = []
+
+    def post(i):
+        results[i] = _http(port, bodies[i])
+
+    def submit(i):
+        threads.append(threading.Thread(target=post, args=(i,)))
+        threads[-1].start()
+
+    def wait(what, pred):
+        deadline = time.time() + 300
+        while not pred():
+            assert time.time() < deadline, f'never saw {what}'
+            time.sleep(0.002)
+
+    # Four at a time: the queue holds four.
+    for i in range(8):
+        submit(i)
+        if i % 4 == 3:
+            wait(f'{i + 1} rows busy', lambda n=i + 1: not engine.pending
+                 and sum(r is not None for r in engine.slot_req) == n)
+    order = ['batch', 'batch', 'interactive', 'interactive',
+             'interactive', 'interactive', 'batch', 'batch']
+    # Past the fourth queued request each arrival answers one request at
+    # once: the evicted batch request (the youngest queued first) or
+    # itself, shed.
+    answers = {4: 9, 5: 8, 6: 14, 7: 15}
+    for k, prio in enumerate(order):
+        bodies.append({'prompt_ids': rand(32), 'max_new_tokens': 16,
+                       'priority': prio})
+        submit(len(bodies) - 1)
+        if k < 4:
+            wait(f'{k + 1} queued',
+                 lambda n=k + 1: len(engine.pending) == n)
+        else:
+            wait(f'request {answers[k]} answered',
+                 lambda i=answers[k]: i in results)
+    for t in threads:
+        t.join(timeout=900)
+    assert not any(t.is_alive() for t in threads)
+    statuses = {i: results[i][0] for i in results}
+    refused = [i for i, s in statuses.items() if s == 429]
+    for i in refused:
+        assert int(results[i][1]['Retry-After']) >= 1, results[i]
+    evicted = [i for i in refused
+               if 'shed from the pending queue' in results[i][2]['error']]
+    shed = [i for i in refused if 'pending queue full' in
+            results[i][2]['error']]
+    counts = dict(requests=len(bodies),
+                  batch=sum(b.get('priority') == 'batch' for b in bodies),
+                  refused_429=len(refused), evicted=len(evicted),
+                  shed=len(shed), statuses=statuses)
+    # The two interactive arrivals past the bound each evicted a queued
+    # batch request (the younger first), and both later batch arrivals
+    # were shed.
+    assert sorted(evicted) == [8, 9], counts
+    assert sorted(shed) == [14, 15], counts
+    assert all(statuses[i] == 200 for i in range(14)
+               if i not in evicted), counts
+    return bodies, results, counts
+
+
+def adapters_phase(torch, attention, da, dev='cuda', model='llama3-8b'):
+    """The overload and multi-LoRA slice: (g) numerics at 2 layers, then
+    the ``--slots 8`` replica at llama3-8b (32 layers, random weights,
+    the JAX defaults) with ``--adapter-capacity 2``, lineages 'a' (rank
+    8, bf16) and 'b' (16) preloaded, 'c' (16) cold, 'big' (32, over the
+    bucket), and ``--max-queued-requests 4``. The adapter burst (the
+    queue bound lifted for it): 12 concurrent greedy requests, 3 base and
+    3 each for 'a', 'b' and 'c', prompts of 64-1024 tokens, 32 new each,
+    a base and two 'a' requests sharing a 512-token prefix. Checks: (a)
+    each adapter's first-token logits differ from the base's on the same
+    prompt; (b) every request equals its run alone on the same engine
+    and the base rows their runs on an adapterless engine (a divergence
+    only under ``ADAPTER_FLIP_GAP``); (c) the first 'a' request hits no
+    base block, the second hits the first's; 'c' is loaded cold and its
+    load evicts an adapter; (d) slot 0 all zeros after the cycle; (e)
+    'big' answers 413 and an unknown id 404; (f) launch counts equal to
+    the dispatch record. Beside it: the same prompts as an adapterless
+    burst, the cold load's host read and upload, the delta's share of a
+    decode dispatch. Then overload on the same replica (the bound at 4):
+    evictions, sheds with Retry-After, a 504 for an expired
+    X-Skytpu-Deadline, a dropped stream's cancel, the pool back to idle,
+    and every completed request equal to its solo run. ``dev`` and
+    ``model`` exist to rehearse the phase small on the CPU."""
+    import gc
+    import os
+    import shutil
+    import socket
+    import tempfile
+
+    from skypilot_torch.models import llama
+    from skypilot_torch.recipes import serve_model
+    from skypilot_torch.serve import batching
+    t_phase = time.perf_counter()
+    card = smi_line()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _adapter_numerics(torch, dev, model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    config = llama.get_config(model)
+    tmp = tempfile.mkdtemp(prefix='skypilot_adapters_')
+    t0 = time.perf_counter()
+    _write_lineages(torch, tmp, config, ADAPTER_RANKS, seed=45)
+    write_s = time.perf_counter() - t0
+    args = serve_model.parse_args(
+        ['--model', model, '--port', '0', '--device', dev,
+         '--slots', '8', '--adapter-dir', tmp, '--adapter-capacity', '2',
+         '--preload-adapters', 'a,b', '--max-queued-requests', '4'])
+    t0 = time.perf_counter()
+    server, _ = serve_model.build_server(args)
+    setup_s = time.perf_counter() - t0
+    engine = server.engine
+    registry = engine._adapters.registry
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    plain = None
+    try:
+        assert engine.max_queued_requests == 4
+        idle_free = engine.pool.free_blocks
+        gen = torch.Generator().manual_seed(44)
+
+        def rand(n):
+            return torch.randint(0, config.vocab_size, (n,),
+                                 generator=gen).tolist()
+        shared = rand(512)
+        spec = [(None, shared + rand(40)), ('a', shared + rand(60)),
+                ('a', shared + rand(100)), (None, rand(64)),
+                (None, rand(1024)), ('a', rand(300)), ('b', rand(128)),
+                ('b', rand(700)), ('b', rand(1000)), ('c', rand(90)),
+                ('c', rand(512)), ('c', rand(256))]
+        reqs = []
+        for adapter, prompt in spec:
+            r = {'prompt_ids': prompt, 'max_new_tokens': 32,
+                 'stream': True}
+            if adapter is not None:
+                r['adapter'] = adapter
+            reqs.append(r)
+        # (a): each preloaded adapter moves the first-token logits of a
+        # prompt against the base model's ('c' is checked after its load).
+        resident = engine._adapters
+        probe = rand(200)
+        first = {'base': _logits_after(torch, engine, config, probe)}
+        for name in ('a', 'b'):
+            first[name] = _logits_after(torch, engine, config, probe,
+                                        resident.buffers(),
+                                        resident.slot(name))
+        kernels = {'flash_fwd': attention.FLASH_FWD,
+                   'decode_attention': da.DECODE_ATTENTION,
+                   'paged_w1': da.PAGED_DECODE_ATTENTION,
+                   'paged_verify': da.PAGED_VERIFY_ATTENTION,
+                   'cache_write': da.CACHE_WRITE,
+                   'decode_attention_q8': da.DECODE_ATTENTION_Q8,
+                   'paged_w1_q8': da.PAGED_DECODE_ATTENTION_Q8,
+                   'paged_verify_q8': da.PAGED_VERIFY_ATTENTION_Q8,
+                   'cache_write_q8': da.CACHE_WRITE_Q8}
+
+        def identity(events):
+            steps = sum(e[2] for e in events
+                        if e[0] == 'decode' and len(e) == 3)
+            n_verify = sum(e[0] == 'verify' for e in events)
+            n_chunks = sum(e[0] == 'prefill_chunk' for e in events)
+            L = config.n_layers
+            want = {name: 0 for name in kernels}
+            want.update({'paged_w1': L * steps,
+                         'paged_verify': L * n_verify,
+                         'cache_write': L * (steps + n_verify + n_chunks)})
+            return want, dict(decode_steps=steps, verify_dispatches=n_verify,
+                              prefill_chunks=n_chunks)
+
+        # The adapter burst, with the queue bound lifted.
+        engine.max_queued_requests = None
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        engine.events.clear()
+        results, run_s = _staged_burst(
+            engine, reqs, lambda body: _sse_post(port, body))
+        torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in kernels.items()}
+        events = list(engine.events)
+        want, record = identity(events)
+        engine.max_queued_requests = 4
+        outs, n_out = [], 0
+        for (status, heads, ids, ttft, ms), r in zip(results, reqs):
+            assert status == 200, (status, r.get('adapter'))
+            assert len(ids) == r['max_new_tokens'], (len(ids), r)
+            assert all(0 <= t < config.vocab_size for t in ids)
+            outs.append(ids)
+            n_out += len(ids)
+            log('ADAPTERS_REQ ' + json.dumps(dict(
+                adapter=r.get('adapter'), prompt=len(r['prompt_ids']),
+                n_out=len(ids), latency_ms=ms, ttft_ms=ttft,
+                tpot_ms=None if ttft is None else
+                (ms - ttft) / (len(ids) - 1),
+                prefix_hits=int(heads['X-Skytpu-Prefix-Hits']),
+                adapter_hits=heads['X-Skytpu-Adapter-Hits'],
+                adapter_loads=heads['X-Skytpu-Adapter-Loads'])))
+        hits = [int(res[1]['X-Skytpu-Prefix-Hits']) for res in results]
+        loads = {}
+        for r, res in zip(reqs, results):
+            if r.get('adapter'):
+                loads.setdefault(r['adapter'], []).append(
+                    res[1]['X-Skytpu-Adapter-Loads'])
+        evicts = [e for e in events if e[0] == 'adapter_evict']
+        summary = _burst_summary(results, n_out, run_s)
+        log('ADAPTERS ' + json.dumps(dict(
+            card=card, model=args.model, layers=config.n_layers, slots=args.slots,
+            adapter_capacity=args.adapter_capacity,
+            rank_bucket=engine._adapters.rank_bucket,
+            ranks=ADAPTER_RANKS, lineage_write_s=write_s, setup_s=setup_s,
+            run_s=run_s, requests=len(reqs), output_tokens=n_out, **summary,
+            **record, preemptions=sum(e[0] == 'preempt' for e in events),
+            shared_prefix_hits=hits[:3],
+            adapter_events=[e for e in events
+                            if e[0] in ('adapter_load', 'adapter_evict')],
+            launches=launches, launches_expected=want)))
+        assert launches == want, (launches, want)          # (f)
+        # (c): no base block reused under 'a'; the second 'a' request
+        # reuses the first's 32 prefix blocks; 'c' came in cold and its
+        # load evicted a preloaded adapter.
+        assert hits[:3] == [0, 0, 32], hits
+        assert loads['a'] == loads['b'] == ['0'] * 3, loads
+        assert '1' in loads['c'], loads
+        assert evicts and evicts[0][1][0] in ('a', 'b'), evicts
+        assert ('adapter_load', ('c',)) in events, events
+        # (d): slot 0 is all zeros after the install/evict cycle.
+        assert all(not bool(buf[:, 0].any()) for buf in
+                   engine._adapters.buffers().values())
+        # (a), 'c' now resident.
+        first['c'] = _logits_after(torch, engine, config, probe,
+                                   resident.buffers(), resident.slot('c'))
+        moved = {k: (first[k] - first['base']).abs().max().item()
+                 for k in ('a', 'b', 'c')}
+        log('ADAPTERS_FIRST_LOGITS ' + json.dumps(dict(
+            prompt=len(probe), max_abs_diff_vs_base=moved)))
+        assert all(v > 1e-2 for v in moved.values()), moved
+        # (e)
+        status_big = _http(port, {'prompt_ids': rand(64),
+                                  'max_new_tokens': 4, 'adapter': 'big'})
+        status_unknown = _http(port, {'prompt_ids': rand(64),
+                                      'max_new_tokens': 4,
+                                      'adapter': 'nobody'})
+        log('ADAPTERS_REFUSALS ' + json.dumps(dict(
+            big=status_big[0], big_error=status_big[2]['error'],
+            unknown=status_unknown[0],
+            unknown_error=status_unknown[2]['error'])))
+        assert status_big[0] == 413 and status_unknown[0] == 404
+        times = engine._adapters.load_times['c']
+        log('ADAPTERS_COLD_LOAD ' + json.dumps(dict(
+            card=card, adapter='c', rank=ADAPTER_RANKS['c'],
+            host_read_s=times['read_s'], upload_s=times['upload_s'],
+            ttft_ms_of_c_requests=[res[3] for r, res in zip(reqs, results)
+                                   if r.get('adapter') == 'c'])))
+        # (b)
+        inv = _solo_check(torch, 'ADAPTERS_SOLO', engine, config, reqs,
+                          outs, registry)
+        log('ADAPTERS_SOLO ' + json.dumps(inv))
+        # The adapterless engine on the same weights: the burst's prompts
+        # as base requests, then the base rows alone.
+        plain = batching.BatchingEngine(engine.params, config,
+                                        slots=args.slots)
+        base_reqs = [{k: v for k, v in r.items() if k != 'adapter'}
+                     for r in reqs]
+        plain_results, plain_s = _staged_burst(
+            plain, base_reqs, lambda body: _engine_post(plain, body))
+        plain_summary = _burst_summary(
+            plain_results, sum(len(r[2]) for r in plain_results), plain_s)
+        log('ADAPTERS_VS_ADAPTERLESS ' + json.dumps(dict(
+            card=card, adapter_burst=summary, adapterless_burst=plain_summary,
+            note='the same 12 prompts and submission order, all as base '
+                 'requests, on an engine without an adapter set (same '
+                 'weights, a fresh pool)')))
+        base_idx = [i for i, r in enumerate(reqs) if 'adapter' not in r]
+        plain_rows = _solo_check(
+            torch, 'ADAPTERS_ADAPTERLESS', engine, config,
+            [reqs[i] for i in base_idx], [outs[i] for i in base_idx],
+            registry, solo_engine=plain)
+        log('ADAPTERS_ADAPTERLESS ' + json.dumps(plain_rows))
+        plain.close()
+        plain = None
+        share = _profile_lora(torch, engine, config, batching, card)
+        # Overload on the same replica, its bound back at 4.
+        for k in kernels.values():
+            k.launches = 0
+        engine.events.clear()
+        bodies, res, counts = _overload_burst(torch, engine, port, config,
+                                              rand)
+        torch.cuda.synchronize()
+        o_launches = {name: k.launches for name, k in kernels.items()}
+        o_want, o_record = identity(list(engine.events))
+        assert o_launches == o_want, (o_launches, o_want)
+        status_504 = _http(port, {'prompt_ids': rand(128),
+                                  'max_new_tokens': 16},
+                           headers={'X-Skytpu-Deadline': '0.001'})
+        assert status_504[0] == 504, status_504
+        # A streaming client that drops its connection after 4 tokens.
+        body = json.dumps({'prompt_ids': rand(128), 'max_new_tokens': 256,
+                           'stream': True}).encode()
+        sock = socket.create_connection(('127.0.0.1', port), timeout=300)
+        sock.sendall(b'POST /generate HTTP/1.1\r\nHost: x\r\n'
+                     b'Content-Type: application/json\r\n'
+                     + f'Content-Length: {len(body)}\r\n\r\n'.encode()
+                     + body)
+        buf = b''
+        while buf.count(b'data: ') < 4:
+            chunk = sock.recv(65536)
+            assert chunk, 'the stream ended before 4 tokens'
+            buf += chunk
+        sock.close()
+        deadline = time.time() + 120
+        while not any(e[0] == 'cancel' for e in list(engine.events)):
+            assert time.time() < deadline, 'the dropped stream was not ' \
+                                           'cancelled'
+            time.sleep(0.01)
+        cancels = [e for e in engine.events if e[0] == 'cancel']
+        deadline = time.time() + 120
+        while engine.pool.free_blocks != idle_free or engine.pending:
+            assert time.time() < deadline, (engine.pool.free_blocks,
+                                            idle_free)
+            time.sleep(0.01)
+        done = [i for i in sorted(res) if res[i][0] == 200]
+        o_rows = _solo_check(torch, 'OVERLOAD_SOLO', engine, config,
+                             [bodies[i] for i in done],
+                             [res[i][2]['output_ids'] for i in done],
+                             registry)
+        log('OVERLOAD ' + json.dumps(dict(
+            card=card, max_queued_requests=engine.max_queued_requests, **counts,
+            deadline_504=status_504[0], cancelled=len(cancels),
+            cancel_events=cancels, **o_record, launches=o_launches,
+            launches_expected=o_want, pool_free_blocks=
+            engine.pool.free_blocks, pool_idle_free_blocks=idle_free,
+            completed=len(done),
+            completed_equal_to_solo=sum(r['equal'] for r in o_rows))))
+    finally:
+        if plain is not None:
+            plain.close()
+        server.shutdown()
+        server.server_close()
+        engine.close()
+        thread.join(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert not thread.is_alive() and not engine.thread.is_alive()
+    log(f'ADAPTERS_PHASE_S {time.perf_counter() - t_phase:.1f}')
+    return dict(adapter_burst=launches, overload_burst=o_launches,
+                share=share)
 
 
 # ---------------------------------------------------------------------
@@ -3370,6 +4064,8 @@ def main() -> int:
         eng = engine_phase(torch, attention, da)
     if 'sampling' in phases:
         smp = sampling_phase(torch, attention, da)
+    if 'adapters' in phases:
+        adp = adapters_phase(torch, attention, da)
     if 'rows' in phases:
         rows_n = rows_phase(torch, da)
     if 'k6' in phases:
@@ -3387,6 +4083,7 @@ def main() -> int:
     if set(phases) != set(PHASES):
         return 0
     s8 = {w: int8['serve_8b'][w]['launches'] for w in ('int8', 'bf16')}
+    ad_b, ov_b = adp['adapter_burst'], adp['overload_burst']
     rep = int8['replica']
     off = int8['engine_off']['launches']
     k1_launches = dict(
@@ -3447,12 +4144,18 @@ def main() -> int:
              replaces='skypilot_tpu/ops/decode_attention.py:123',
              launches=(eng['paged_w1'] + eng['paged_verify'] +
                        smp['paged_w1'] + smp['paged_verify'] +
+                       ad_b['paged_w1'] + ad_b['paged_verify'] +
+                       ov_b['paged_w1'] + ov_b['paged_verify'] +
                        rep['paged_w1'] + rep['paged_verify'] + rows_n),
              launches_decode_w1=eng['paged_w1'],
              launches_verify=eng['paged_verify'], launches_rows=rows_n,
              launches_sampled=smp['paged_w1'] + smp['paged_verify'],
              launches_sampled_decode_w1=smp['paged_w1'],
              launches_sampled_verify=smp['paged_verify'],
+             launches_adapters_decode_w1=ad_b['paged_w1'],
+             launches_adapters_verify=ad_b['paged_verify'],
+             launches_overload_decode_w1=ov_b['paged_w1'],
+             launches_overload_verify=ov_b['paged_verify'],
              launches_int8=rep['paged_w1'] + rep['paged_verify'],
              launches_int8_decode_w1=rep['paged_w1'],
              launches_int8_verify=rep['paged_verify'],
@@ -3461,9 +4164,12 @@ def main() -> int:
              source='skypilot_torch/csrc/decode_attention.cu',
              replaces='skypilot_tpu/ops/decode_attention.py:389',
              launches=(eng['cache_write'] + smp['cache_write'] +
+                       ad_b['cache_write'] + ov_b['cache_write'] +
                        rep['cache_write'] + 2 * rows_n),
              launches_engine=eng['cache_write'], launches_rows=2 * rows_n,
              launches_sampled=smp['cache_write'],
+             launches_adapters=ad_b['cache_write'],
+             launches_overload=ov_b['cache_write'],
              launches_int8=rep['cache_write'], **k5,
              int8=int8k['cache_write']),
         # Its main path is its entry point, bench_main().

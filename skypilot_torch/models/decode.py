@@ -31,8 +31,10 @@ both forms.
 Sampling (``sample_generate``) draws from one ``jax.random`` key split
 per step, as the JAX module does, with the port's threefry
 (``serve/sampling/prng.py``): the same key gives JAX's tokens.
-Adapters in ``forward_paged`` and ``decode_tokens_windowed`` come with
-later slices (ROADMAP.md).
+Multi-LoRA serving: ``lora_gather_delta`` is the per-row gathered q/v
+delta that ``forward_paged`` and the engine's device steps add (plain
+torch, f32). ``decode_tokens_windowed`` comes with a later slice
+(ROADMAP.md).
 """
 import dataclasses
 import math
@@ -140,12 +142,44 @@ def layer_list(cparams: Params, config: llama.LlamaConfig) -> list:
             for i in range(config.n_layers)]
 
 
+def lora_gather_delta(h: torch.Tensor, a_slots: torch.Tensor,
+                      b_slots: torch.Tensor,
+                      adapter_idx: torch.Tensor) -> torch.Tensor:
+    """Per-row LoRA delta for mixed-adapter batches (the S-LoRA/Punica
+    gather, ``serve/adapters/``): row ``b`` picks ITS adapter's stacked
+    factors by slot index and applies ``(h @ A) @ B`` in float32, cast
+    by the caller. ``h`` [B, T, d]; ``a_slots`` [C+1, d, R]; ``b_slots``
+    [C+1, R, out]; ``adapter_idx`` [B] int, 0 = the reserved all-zeros
+    slot, so a base-model row's delta is exactly 0. Per-row math only:
+    a row's delta does not depend on its batch-mates. Two batched
+    products, as the JAX package's two einsums (plain torch; on the
+    card cuBLAS in f32, TF32 off unless the caller turned it on)."""
+    idx = adapter_idx.long()
+    mid = torch.bmm(h.float(), a_slots[idx])            # [B, T, R]
+    return torch.bmm(mid, b_slots[idx])                  # [B, T, out]
+
+
+def adapter_layers(adapters: Optional[Params],
+                   n_layers: int) -> list:
+    """Per-layer views of the resident set's stacked ``[L, C+1, ...]``
+    factors (``ResidentAdapterSet.buffers()``); ``None`` per layer when
+    ``adapters`` is None."""
+    if adapters is None:
+        return [None] * n_layers
+    return [{name: buf[i] for name, buf in adapters.items()}
+            for i in range(n_layers)]
+
+
 def qkv_projections(config: llama.LlamaConfig, x: torch.Tensor,
-                    lp: Params):
+                    lp: Params, lora=None):
     """A layer's attention norm and q/k/v projections (+ biases):
     x [B, T, D] -> q [B, T, H, hd], k/v [B, T, Hkv, hd], before RoPE.
     Shared by every cached and paged layer body, as the JAX package's
-    four layer-body variants share this math."""
+    four layer-body variants share this math. ``lora``: None, or
+    (this layer's adapter factors, adapter_idx [B]): the row-gathered
+    deltas (``lora_gather_delta``) are added to q and v after the base
+    projections and before the biases, as in every JAX step; None runs
+    exactly the adapterless math."""
     b, t, _ = x.shape
     hd = config.head_dim
     h = llama._rms_norm(x, lp['attn_norm'], config.norm_eps,
@@ -153,6 +187,12 @@ def qkv_projections(config: llama.LlamaConfig, x: torch.Tensor,
     q = llama.matmul(h, lp['wq'])
     k = llama.matmul(h, lp['wk'])
     v = llama.matmul(h, lp['wv'])
+    if lora is not None:
+        ad, idx = lora
+        q = q + lora_gather_delta(h, ad['wq_a'], ad['wq_b'],
+                                  idx).to(q.dtype)
+        v = v + lora_gather_delta(h, ad['wv_a'], ad['wv_b'],
+                                  idx).to(v.dtype)
     if config.qkv_bias:
         q = q + lp['bq']
         k = k + lp['bk']
@@ -301,12 +341,17 @@ def forward_paged(params: Params, tokens: torch.Tensor, pools,
     exactly for single-chunk prompts and tracks it past them, as in
     the JAX package.
 
+    Adapters (``serve/adapters/``): ``adapters`` is the resident set's
+    stacked factor dict (``[L, C+1, ...]``) and ``adapter_idx`` [1] this
+    row's slot; the q and v deltas are the decode and verify steps'
+    (``qkv_projections``), so prefill under an adapter writes the K/V
+    its decode implies. None for both runs the adapterless math.
+
     Returns (logits [1, vocab] f32 at the chunk's last real position,
     pools). Layer math mirrors ``_layer_cached``."""
-    if adapters is not None or adapter_idx is not None:
-        raise NotImplementedError(
-            'forward_paged: adapters come with the multi-LoRA slice '
-            '(ROADMAP.md)')
+    if (adapters is None) != (adapter_idx is None):
+        raise ValueError('forward_paged: adapters and adapter_idx go '
+                         'together')
     llama.require_dense(config)
     from skypilot_torch.serve import kv_pool as kv_pool_lib
     k_pool, v_pool, ks_pool, vs_pool = pools
@@ -335,8 +380,11 @@ def forward_paged(params: Params, tokens: torch.Tensor, pools,
     n_blocks = min(-(-kv_len // block_size), block_row.shape[0])
     gr = kv_pool_lib.read_indices(block_row[None, :n_blocks],
                                   block_size)                     # [1, S]
+    ads = adapter_layers(adapters, config.n_layers)
     for i, lp in enumerate(layer_list(cparams, config)):
-        q, k, v = qkv_projections(config, x, lp)
+        q, k, v = qkv_projections(
+            config, x, lp,
+            None if ads[i] is None else (ads[i], adapter_idx))
         q = attention_ops.apply_rope(q, angles)
         k = attention_ops.apply_rope(k, angles)
         if quantized:

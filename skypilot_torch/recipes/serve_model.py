@@ -17,12 +17,26 @@ stream as the engine emits them, and each engine response carries the
 on``, the default; ``--grammar-vocab`` names the JSON list of token
 texts that ``response_format`` needs); an unseeded sampled request draws
 its seed from ``os.urandom`` here, and a bad knob or grammar is answered
-400. With ``--slots 0`` each request runs alone through
+400.
+
+Overload control (the JAX replica's): the body's ``timeout_s`` or the
+``X-Skytpu-Deadline`` header (seconds remaining, which wins) becomes an
+absolute deadline on this process's clock; ``tenant`` and ``priority``
+(``interactive`` or ``batch``) ride to the engine; ``--max-queued-
+requests``/``--max-queued-tokens``/``--default-timeout-s`` (env
+``SKYTPU_ENGINE_OVERLOAD_*``) bound it. A shed request answers 429 with
+``Retry-After`` (at least 1 s), an expired one 504, and a streaming
+client that drops its connection cancels its request. Multi-LoRA:
+``--adapter-dir``/``--adapter-capacity``/``--preload-adapters`` (env
+``SKYTPU_ENGINE_ADAPTER_*``) give the engine an adapter registry and
+resident set; the body's ``adapter`` picks one (404 for an unknown id,
+413 for one the engine can never serve), and an adapter response carries
+``X-Skytpu-Adapter-Hits``/``-Loads``.
+
+With ``--slots 0`` each request runs alone through
 ``models/decode.greedy_generate`` (K1-cuda prefill, K4-cuda decode), and
-sampled or constrained requests are refused 400, as the JAX replica
-does. A body field of a feature not ported yet (adapters, overload
-control) is answered 400 naming its slice, never with a silent greedy
-answer.
+sampled, constrained or adapter requests are refused 400, as the JAX
+replica does.
 
 ``--quant int8`` serves int8 weights (``models/quant.init_quantized``,
 leaf by leaf on the device); ``--kv-int8`` gives the engine an int8 KV
@@ -35,6 +49,7 @@ import json
 import os
 import queue
 import threading
+import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, List, Optional, Tuple
@@ -45,7 +60,9 @@ from skypilot_torch import device as device_lib
 from skypilot_torch import exceptions
 from skypilot_torch.models import decode, llama, quant
 from skypilot_torch.serve import batching
+from skypilot_torch.serve import overload as overload_lib
 from skypilot_torch.serve import prefix_hash
+from skypilot_torch.serve.adapters import AdapterRegistry
 from skypilot_torch.serve.sampling import GrammarError
 
 MAX_NEW_TOKENS_CAP = 512
@@ -119,6 +136,47 @@ def parse_args(argv=None) -> argparse.Namespace:
                              'enables response_format grammar-constrained '
                              'decoding (empty: such requests are '
                              'refused)')
+    # Overload control (service YAML `overload:`, stamped as
+    # SKYTPU_ENGINE_OVERLOAD_*): 0 = unbounded / no default deadline.
+    parser.add_argument('--max-queued-requests', type=int,
+                        default=int(os.environ.get(
+                            'SKYTPU_ENGINE_OVERLOAD_MAX_QUEUED_REQUESTS',
+                            '0')),
+                        help='bounded admission: refuse (429) past this '
+                             'many queued requests (0: unbounded)')
+    parser.add_argument('--max-queued-tokens', type=int,
+                        default=int(os.environ.get(
+                            'SKYTPU_ENGINE_OVERLOAD_MAX_QUEUED_TOKENS',
+                            '0')),
+                        help='bounded admission: refuse (429) past this '
+                             'many queued prompt tokens (0: unbounded)')
+    parser.add_argument('--default-timeout-s', type=float,
+                        default=float(os.environ.get(
+                            'SKYTPU_ENGINE_OVERLOAD_DEFAULT_TIMEOUT_S',
+                            '0')),
+                        help='deadline stamped on requests that carry '
+                             'none; expired requests answer 504 (0: no '
+                             'default deadline)')
+    # Multi-LoRA (service YAML `engine.adapters:`, stamped as
+    # SKYTPU_ENGINE_ADAPTER_*).
+    parser.add_argument('--adapter-dir',
+                        default=os.environ.get('SKYTPU_ENGINE_ADAPTER_DIR',
+                                               ''),
+                        help='adapter registry base dir: every '
+                             'subdirectory holding a committed LoRA '
+                             'checkpoint is a servable adapter named by '
+                             'the subdirectory')
+    parser.add_argument('--adapter-capacity', type=int,
+                        default=int(os.environ.get(
+                            'SKYTPU_ENGINE_ADAPTER_CAPACITY', '0')),
+                        help='device-resident adapter slots (LRU with '
+                             'in-flight pinning; 0 disables adapter '
+                             'serving)')
+    parser.add_argument('--preload-adapters',
+                        default=os.environ.get(
+                            'SKYTPU_ENGINE_ADAPTER_PRELOAD', ''),
+                        help='comma-separated adapter ids to load before '
+                             'readiness')
     args = parser.parse_args(argv)
     if args.quant == 'int8' and args.tp > 1:
         # Reject before the (expensive) init, as the JAX replica does.
@@ -166,24 +224,34 @@ def _parse_body(body, config: llama.LlamaConfig, default_max_new: int):
     eos_id = body.get('eos_id')
     if eos_id is not None:
         eos_id = int(eos_id)
+    tenant = body.get('tenant')
+    adapter = body.get('adapter')
+    priority = str(body.get('priority', 'interactive'))
+    if priority not in batching.PRIORITIES:
+        raise ValueError(f'priority must be one of {batching.PRIORITIES}, '
+                         f'got {priority!r}')
     return dict(prompt_ids=prompt_ids, max_new=max_new,
                 temperature=temperature, top_p=top_p, seed=seed,
                 response_format=response_format, eos_id=eos_id,
-                adapter=body.get('adapter'), tenant=body.get('tenant'),
-                priority=body.get('priority'),
-                timeout_s=body.get('timeout_s'),
+                adapter=None if adapter is None else str(adapter),
+                tenant=None if tenant is None else str(tenant),
+                priority=priority,
+                timeout_s=overload_lib.parse_timeout_s(
+                    body.get('timeout_s')),
                 stream=bool(body.get('stream')))
 
 
-def _engine_refusal(req) -> Optional[str]:
-    """Why the engine cannot serve this request yet (None: it can): a
-    field of a feature whose slice is not ported, named in the 400."""
-    if req['adapter'] is not None:
-        return batching.ADAPTER_SLICE
-    if req['priority'] is not None or req['timeout_s'] is not None \
-            or req['tenant'] not in (None, ''):
-        return batching.OVERLOAD_SLICE
-    return None
+def _deadline(headers, req) -> Optional[float]:
+    """The request's absolute deadline on this process's clock: the
+    ``X-Skytpu-Deadline`` header (the load balancer's remaining budget,
+    already decremented for the hop) wins over the body's
+    ``timeout_s``; both are seconds from now, so the balancer's and this
+    replica's clocks never need to agree."""
+    budget = overload_lib.parse_timeout_s(
+        headers.get(overload_lib.DEADLINE_HEADER))
+    if budget is None:
+        budget = req['timeout_s']
+    return None if budget is None else time.time() + budget
 
 
 def _submit_kwargs(req) -> dict:
@@ -195,7 +263,9 @@ def _submit_kwargs(req) -> dict:
     if seed is None and ((req['temperature'] or 0.0) > 0.0
                          or req['response_format'] is not None):
         seed = int.from_bytes(os.urandom(4), 'little')
-    return dict(eos_id=req['eos_id'],
+    return dict(eos_id=req['eos_id'], tenant=req['tenant'],
+                deadline=req['deadline'], priority=req['priority'],
+                adapter=req['adapter'],
                 temperature=req['temperature'] or 0.0,
                 top_p=1.0 if req['top_p'] is None else float(req['top_p']),
                 seed=0 if seed is None else seed,
@@ -239,6 +309,11 @@ def build_server(args: argparse.Namespace
     lock = threading.Lock()
     engine = None
     if args.slots > 0:
+        registry = None
+        if args.adapter_dir and args.adapter_capacity > 0:
+            registry = AdapterRegistry(base_dir=args.adapter_dir)
+        preload = [a.strip() for a in args.preload_adapters.split(',')
+                   if a.strip()]
         engine = batching.BatchingEngine(
             params, config, slots=args.slots, kv_int8=args.kv_int8,
             block_size=args.block_size,
@@ -246,6 +321,12 @@ def build_server(args: argparse.Namespace
             max_num_batched_tokens=args.max_batched_tokens,
             prefix_caching=args.prefix_caching == 'on',
             speculative=args.speculative == 'on', draft_k=args.draft_k,
+            max_queued_requests=args.max_queued_requests or None,
+            max_queued_tokens=args.max_queued_tokens or None,
+            default_timeout_s=args.default_timeout_s or None,
+            adapter_registry=registry,
+            adapter_capacity=args.adapter_capacity,
+            adapter_preload=preload or None,
             sampling=args.sampling == 'on',
             grammar_vocab=_load_grammar_vocab(args.grammar_vocab))
 
@@ -291,17 +372,33 @@ def build_server(args: argparse.Namespace
             self.wfile.write(body)
 
         def _engine_error(self, err):
-            """A typed engine failure as an HTTP error: 400 for a
-            response_format the grammar compiler refused, 413 when the
-            pool can never hold the request (both the client's shape),
-            500 for anything else (engine death is a replica fault)."""
+            """A typed engine failure as an HTTP error, as the JAX
+            replica maps it: client-shaped refusals answer non-5xx so
+            they never trip the balancer's 5xx page — 400 for a
+            response_format the grammar compiler refused, 404 for an
+            unknown adapter, 413 for an adapter the engine can never
+            serve or a request the pool can never hold, 429 with
+            ``Retry-After`` (the engine's drain-rate estimate, at least
+            1 s) for a shed request, 504 for an expired deadline; 500
+            for anything else (engine death is a replica fault)."""
+            headers = None
             if isinstance(err, GrammarError):
                 code = 400
+            elif isinstance(err, exceptions.AdapterNotFoundError):
+                code = 404
+            elif isinstance(err, exceptions.AdapterCapacityError):
+                code = 413
+            elif isinstance(err, exceptions.EngineOverloadedError):
+                code = 429
+                headers = {'Retry-After': str(max(1, int(round(
+                    getattr(err, 'retry_after_s', 1.0)))))}
+            elif isinstance(err, exceptions.DeadlineExceededError):
+                code = 504
             elif isinstance(err, exceptions.KVPoolExhaustedError):
                 code = 413
             else:
                 code = 500
-            self._json({'error': str(err)}, code)
+            self._json({'error': str(err)}, code, extra_headers=headers)
 
         def _submit(self, body):
             """The engine request for a parsed body, or None after
@@ -317,12 +414,20 @@ def build_server(args: argparse.Namespace
 
         @staticmethod
         def _prefix_headers(req):
-            """Per-request prefix-cache accounting, as the JAX replica
-            sends it to the load balancer."""
-            return {prefix_hash.PREFIX_HITS_HEADER:
-                    str(req.prefix_hit_blocks),
-                    prefix_hash.PREFIX_MISSES_HEADER:
-                    str(req.prefix_miss_blocks)}
+            """Per-request prefix-cache accounting, and for an adapter
+            request its residency (hit: resident at admission; load:
+            waited on a cold load), as the JAX replica sends them to
+            the load balancer."""
+            headers = {prefix_hash.PREFIX_HITS_HEADER:
+                       str(req.prefix_hit_blocks),
+                       prefix_hash.PREFIX_MISSES_HEADER:
+                       str(req.prefix_miss_blocks)}
+            if req.adapter is not None:
+                hit = req.adapter_hit is True
+                headers[prefix_hash.ADAPTER_HITS_HEADER] = str(int(hit))
+                headers[prefix_hash.ADAPTER_LOADS_HEADER] = \
+                    str(int(not hit))
+            return headers
 
         def do_GET(self):  # noqa: N802
             if self.path == '/':
@@ -342,10 +447,7 @@ def build_server(args: argparse.Namespace
                 self._json({'error': f'bad request: {e}'}, 400)
                 return
             if engine is not None:
-                refusal = _engine_refusal(req)
-                if refusal is not None:
-                    self._json({'error': refusal}, 400)
-                    return
+                req['deadline'] = _deadline(self.headers, req)
                 if req['stream']:
                     self._engine_stream(req)
                 else:
@@ -438,11 +540,16 @@ def build_server(args: argparse.Namespace
                 self.wfile.write(b'0\r\n\r\n')
                 self.wfile.flush()
             except OSError:
-                # The client went away: the request decodes to its end
-                # (cancel comes with the overload slice); drain its
-                # queue so this thread ends with it.
-                while tok is not None:
-                    tok = req.out.get()
+                # The client went away: cancel the request (its blocks
+                # are freed at the next iteration boundary), then drain
+                # its queue so this thread ends. Bounded gets: the
+                # sentinel may already have been read.
+                engine.cancel(req.id)
+                try:
+                    while tok is not None:
+                        tok = req.out.get(timeout=30)
+                except queue.Empty:
+                    pass
 
         def _stream_burst(self, out):
             # No engine: stream-compatible response with the whole

@@ -1,6 +1,6 @@
 """Continuous batching over a PAGED KV cache — the port of
-``skypilot_tpu/serve/batching.py`` (its core, sampled decode and
-grammar-constrained decoding).
+``skypilot_tpu/serve/batching.py`` (its core, sampled decode,
+grammar-constrained decoding, overload control and multi-LoRA).
 
 Concurrent requests share ONE decode batch: new requests are admitted
 between decode dispatches, finished ones retire at once, and KV lives
@@ -44,7 +44,29 @@ whole free slots. As in the JAX engine:
   ONE prefill chunk (and up to a prefix-cache hit): a later chunk
   attends earlier chunks' int8 round trip where a whole-prompt prefill
   attends exact rows, so multi-chunk int8 prompts track it closely.
-  Weights may be int8 ``{'q', 's'}`` pairs (``models/quant.py``).
+  Weights may be int8 ``{'q', 's'}`` pairs (``models/quant.py``);
+- OVERLOAD CONTROL: per-request deadlines (absolute epoch seconds, or
+  the engine's ``default_timeout_s``) refuse typed
+  (``DeadlineExceededError``) at submit and admission and reap between
+  dispatches; ``cancel`` frees a row's blocks at the next iteration
+  boundary through the preemption reclaim path; ``max_queued_requests``
+  / ``max_queued_tokens`` bound the pending queue with a typed
+  ``EngineOverloadedError`` carrying a drain-rate Retry-After, an
+  interactive arrival evicting the youngest queued batch request
+  first; priority classes pick the preemption victim (lowest priority,
+  youngest) and weight a (tenant, priority) deficit round-robin over
+  the prefill budget;
+- MULTI-LORA: a ``ResidentAdapterSet`` (``serve/adapters/``) holds
+  stacked q/v factors ``[L, C+1, ...]`` (slot 0 all zeros); each row
+  carries its adapter's slot, the three device steps add the
+  row-gathered deltas (``models/decode.lora_gather_delta``) to q and v
+  after the base projections, cold loads read on a thread and install
+  in place between dispatches, a row pins its adapter for its lifetime,
+  and adapter requests' prefix chains are salted by the adapter id
+  (``prefix_hash.adapter_root``) so they never reuse base-model or
+  other adapters' KV. An engine without an adapter set runs exactly the
+  adapterless steps; a base row in an adapter engine gathers slot 0's
+  delta of exactly 0.
 
 The device steps, on the card: each layer writes its new K/V rows with
 K5 (``ops.decode_attention.cache_write``) and attends with K4-paged
@@ -60,10 +82,9 @@ scan), and a rejected draft needs no undo: its rows sit past the new
 and tokens stay on the device, and block tables go up as one small
 copy per change.
 
-Not ported yet (each raises ``NotImplementedError`` naming its slice):
-overload control (bounded queues, deadlines, cancel, priorities,
-tenant fair share), multi-LoRA adapters, the metrics gauges and
-tracing.
+Not ported yet: the metrics gauges and counters and the tracing
+spans (the metrics-and-tracing slice, ROADMAP.md); the engine's
+``events`` log carries what they would count.
 """
 import array
 import collections
@@ -82,6 +103,7 @@ from skypilot_torch.models import decode, llama
 from skypilot_torch.ops import decode_attention as da
 from skypilot_torch.serve import kv_pool as kv_pool_lib
 from skypilot_torch.serve import prefix_hash
+from skypilot_torch.serve.adapters import ResidentAdapterSet
 from skypilot_torch.serve.sampling import accept_tokens
 from skypilot_torch.serve.sampling import grammar as grammar_lib
 from skypilot_torch.serve.sampling import sample as sample_lib
@@ -89,12 +111,6 @@ from skypilot_torch.serve.sampling import sample as sample_lib
 logger = logging.getLogger(__name__)
 
 Params = Dict[str, Any]
-
-ADAPTER_SLICE = ('LoRA adapters are not ported yet; they come with the '
-                 'multi-LoRA slice (ROADMAP.md)')
-OVERLOAD_SLICE = ('overload control (bounded queues, deadlines, '
-                  'priorities, tenant fair share) is not ported yet; it '
-                  'comes with the overload slice (ROADMAP.md)')
 
 # Self-speculative n-gram drafting (prompt lookup): longest suffix
 # n-gram tried first down to a bigram minimum, and the history scan is
@@ -162,11 +178,6 @@ def _attend_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                v_scale)[:, None]
 
 
-def _check_adapters(adapters=None, adapter_idx=None) -> None:
-    if adapters is not None or adapter_idx is not None:
-        raise NotImplementedError(ADAPTER_SLICE)
-
-
 def _next_tokens(logits: torch.Tensor, cur: torch.Tensor,
                  sampling) -> torch.Tensor:
     """Each row's next token from its logits [B, V] at position ``cur``
@@ -190,6 +201,16 @@ def _new_rows(k: torch.Tensor, v: torch.Tensor, quantized: bool):
     kq, ks = decode._quantize_kv(k[None])
     vq, vs = decode._quantize_kv(v[None])
     return kq[0], vq[0], ks[0], vs[0]
+
+
+def _loras(adapters, adapter_idx, config: llama.LlamaConfig) -> list:
+    """Each layer's ``lora`` argument of ``decode.qkv_projections``:
+    (the layer's factors, adapter_idx), or None throughout when the
+    step has no adapter set."""
+    if (adapters is None) != (adapter_idx is None):
+        raise ValueError('adapters and adapter_idx go together')
+    return [None if ad is None else (ad, adapter_idx)
+            for ad in decode.adapter_layers(adapters, config.n_layers)]
 
 
 def _logits(cparams: Params, config: llama.LlamaConfig,
@@ -288,14 +309,20 @@ def decode_steps_paged(params: Params, tokens: torch.Tensor, caches,
     an inactive row attends its first key only. ``sampling`` as in
     ``decode_steps_rows``.
 
+    Multi-adapter serving: ``adapters`` is the resident set's stacked
+    factor dict (``[L, C+1, ...]``) and ``adapter_idx`` [B] each row's
+    slot; the row-gathered LoRA deltas go onto q and v after the base
+    projections (``decode.qkv_projections``). None for both runs exactly
+    the adapterless math.
+
     Returns (out_tokens [B, num_steps] int32, caches, new_pos).
     """
-    _check_adapters(adapters, adapter_idx)
     llama.require_dense(config)
     kp, vp, ksp, vsp = _flat_pools(caches, block_size, config)
     quantized = ksp is not None
     cparams = llama.compute_params(params, config)
     layers = decode.layer_list(cparams, config)
+    loras = _loras(adapters, adapter_idx, config)
     hd = config.head_dim
     tok, cur = tokens, pos
     out = []
@@ -307,7 +334,7 @@ def decode_steps_paged(params: Params, tokens: torch.Tensor, caches,
         # the span their parked position would give them.
         lens = torch.where(active, cur + 1, 1)
         for i, lp in enumerate(layers):
-            q, k, v = decode.qkv_projections(config, x, lp)
+            q, k, v = decode.qkv_projections(config, x, lp, loras[i])
             q = _rope_rows(q, angles)
             k = _rope_rows(k, angles)
             kr, vr, ksr, vsr = _new_rows(k[:, 0], v[:, 0], quantized)
@@ -353,9 +380,10 @@ def verify_step_paged(params: Params, tokens: torch.Tensor, caches,
     as in ``decode_steps_rows``, but its mask table is per position,
     [M, W, V]). Live rows advance by accepted + 1, parked rows (n_real
     0) stay. A parked row attends only its first key, so its preds
-    carry no meaning.
+    carry no meaning. ``adapters``/``adapter_idx`` as in
+    ``decode_steps_paged``: verify applies the identical delta, or
+    speculation would accept drafts against another model.
     """
-    _check_adapters(adapters, adapter_idx)
     llama.require_dense(config)
     kp, vp, ksp, vsp = _flat_pools(caches, block_size, config)
     quantized = ksp is not None
@@ -372,8 +400,9 @@ def verify_step_paged(params: Params, tokens: torch.Tensor, caches,
     live = n_real > 0
     # Parked rows' predictions are never read: they attend from one key.
     lens = torch.where(live, pos + 1, 1)
+    loras = _loras(adapters, adapter_idx, config)
     for i, lp in enumerate(decode.layer_list(cparams, config)):
-        q, k, v = decode.qkv_projections(config, x, lp)
+        q, k, v = decode.qkv_projections(config, x, lp, loras[i])
         q = _rope_verify(q, angles)
         k = _rope_verify(k, angles)
         # Padded lanes collide harmlessly on the scratch slot.
@@ -475,12 +504,23 @@ def update_spec_k(cur_k: int, window, draft_k: int) -> int:
 # ---------------------------------------------------------------------
 
 
+# Priority classes layered on the tenant DRR (overload control):
+# shedding takes batch first, pool-exhaustion preemption takes the
+# lowest-priority-youngest row, and the prefill budget weights
+# interactive classes ahead of batch ones.
+PRIORITIES = ('interactive', 'batch')
+PRIORITY_PREFILL_WEIGHTS = {'interactive': 4.0, 'batch': 1.0}
+
 _REQ_SEQ = itertools.count(1)
 
 
 class _Request:
     def __init__(self, prompt_ids: List[int], max_new: int,
                  eos_id: Optional[int] = None,
+                 tenant: Optional[str] = None,
+                 deadline: Optional[float] = None,
+                 priority: str = 'interactive',
+                 adapter: Optional[str] = None,
                  temperature: float = 0.0,
                  top_p: float = 1.0,
                  seed: int = 0,
@@ -500,7 +540,24 @@ class _Request:
         self.response_format = response_format
         self.grammar = None
         self.grammar_state = None
+        # Multi-LoRA: the adapter this request decodes under (None = the
+        # base model); ``adapter_hit`` is filled at admission: True when
+        # the adapter was already resident, False when the request
+        # waited on a cold load (None for base requests). serve_model
+        # sends it as the X-Skytpu-Adapter-* response headers.
+        self.adapter = adapter
+        self.adapter_hit: Optional[bool] = None
+        # Fair-share key (None = the default tenant) of the prefill
+        # budget's deficit round-robin.
+        self.tenant = tenant
+        # Overload control: ``id`` is the handle ``cancel`` takes,
+        # ``deadline`` an ABSOLUTE epoch second (None = none) enforced
+        # at submit, admission and between dispatches, ``priority`` the
+        # shed/preempt/prefill class.
         self.id = next(_REQ_SEQ)
+        self.deadline = deadline
+        self.priority = priority
+        self.cancelled = False
         # Prefix-cache accounting, filled at admission (cumulative
         # across re-admissions after preemption): whole KV blocks
         # reused from the cache vs freshly prefilled; serve_model
@@ -549,8 +606,19 @@ class BatchingEngine:
     id's text, None for ids with none; needed to serve
     ``response_format`` and as long as the model vocab). Params may be
     int8-quantized (``models/quant.py``). The engine runs on the params'
-    device. Knobs of features not ported yet raise
-    ``NotImplementedError`` naming their slice.
+    device.
+
+    Overload control: ``tenant_weights`` (per-tenant weights of the
+    prefill budget's deficit round-robin; absent tenants weigh 1.0),
+    ``max_queued_requests`` / ``max_queued_tokens`` (bounded admission:
+    past either bound ``submit`` refuses with a typed
+    ``EngineOverloadedError``; None = unbounded) and
+    ``default_timeout_s`` (the deadline stamped on requests that carry
+    none). Multi-LoRA: ``adapter_registry`` (an ``AdapterRegistry``),
+    ``adapter_capacity`` (device-resident adapter slots; 0 serves no
+    adapters) and ``adapter_preload`` (ids installed before the loop
+    starts); the shared rank axis is the resident set's default bucket
+    (16), and a larger rank is refused with ``AdapterCapacityError``.
     """
 
     def __init__(self, params: Params, config: llama.LlamaConfig,
@@ -573,13 +641,6 @@ class BatchingEngine:
                  adapter_preload: Optional[List[str]] = None,
                  sampling: bool = True,
                  grammar_vocab: Optional[List[Optional[str]]] = None):
-        if (tenant_weights or max_queued_requests is not None
-                or max_queued_tokens is not None
-                or default_timeout_s is not None):
-            raise NotImplementedError(OVERLOAD_SLICE)
-        if adapter_registry is not None or adapter_capacity or \
-                adapter_preload:
-            raise NotImplementedError(ADAPTER_SLICE)
         llama.require_dense(config)
         self.params = params
         self.config = config
@@ -606,6 +667,11 @@ class BatchingEngine:
         # Prefill tokens spent in the CURRENT scheduler iteration — the
         # verify dispatch budgets its draft grants against the rest.
         self._prefill_spent_iter = 0
+        # Weighted deficit round-robin over the prefill token budget,
+        # by (tenant, priority) class.
+        self.tenant_weights = dict(tenant_weights or {})
+        self._tenant_deficit: Dict[tuple, float] = {}
+        self._tenant_rr = 0
         self.kv_int8 = kv_int8
         # Sampled and structured decoding: while every admitted row is
         # greedy and unconstrained, ``_sampling_args`` is None and the
@@ -653,8 +719,42 @@ class BatchingEngine:
         self.pending: 'collections.deque[_Request]' = \
             collections.deque()
         self._pending_lock = threading.Lock()
+        # Multi-LoRA: the resident set, each row's gather slot (0 = the
+        # all-zeros base identity) and the requests parked on a cold
+        # load (engine-loop state: _poll_adapter_loads re-queues them
+        # the iteration their weights land).
+        self._adapters: Optional[ResidentAdapterSet] = None
+        self.slot_adapter = [0] * slots
+        self._adapter_wait: List[_Request] = []
+        if adapter_registry is not None and adapter_capacity > 0:
+            wq = params['layers']['wq']
+            wv = params['layers']['wv']
+            if isinstance(wq, dict):     # int8-quantized leaves
+                wq, wv = wq['q'], wv['q']
+            self._adapters = ResidentAdapterSet(
+                adapter_registry, adapter_capacity,
+                (wq.shape[0], wq.shape[1], wq.shape[2], wv.shape[2]),
+                device=self.device)
+            if adapter_preload:
+                # Before the loop starts: a preload list names adapters
+                # the operator expects live at ready time, so anything
+                # unusable raises HERE.
+                self._adapters.preload(adapter_preload)
+        # Overload control: bounded admission and a default deadline.
+        # _queued_tokens mirrors the pending queue's token content
+        # (updated under _pending_lock wherever the deque changes);
+        # _admit_times feeds the drain-rate Retry-After; _cancel_ids
+        # holds ids handed to cancel() until the loop's sweep acts.
+        self.max_queued_requests = max_queued_requests
+        self.max_queued_tokens = max_queued_tokens
+        self.default_timeout_s = default_timeout_s
+        self._queued_tokens = 0
+        self._admit_times: 'collections.deque' = collections.deque(
+            maxlen=256)
+        self._cancel_ids: set = set()
         # Scheduler event log (bounded): admissions, prefill chunks,
-        # decode and verify dispatches, preemptions.
+        # decode and verify dispatches, preemptions, cancels, deadlines,
+        # adapter loads and evictions.
         self.events: 'collections.deque' = collections.deque(
             maxlen=4096)
         self.wake = threading.Event()
@@ -678,8 +778,11 @@ class BatchingEngine:
         position); ``response_format`` ({'type': 'json_schema' |
         'regex', ...}) constrains decoding to the grammar (it needs the
         engine's ``grammar_vocab`` and an ``eos_id``; a bad grammar
-        yields a typed ``GrammarError`` before the None). The knobs of
-        features not ported yet raise unless left at their defaults."""
+        yields a typed ``GrammarError`` before the None). A refused
+        (bounded-admission) request yields a typed
+        ``EngineOverloadedError``, an expired one a
+        ``DeadlineExceededError``, an adapter the engine cannot serve an
+        ``AdapterNotFoundError`` or ``AdapterCapacityError``."""
         return self.submit_request(prompt_ids, max_new, eos_id=eos_id,
                                    **deferred).out
 
@@ -695,15 +798,17 @@ class BatchingEngine:
                        response_format: Optional[dict] = None
                        ) -> _Request:
         """``submit`` returning the request object itself: ``.out`` is
-        the token queue, and after admission (by the first token)
+        the token queue, ``.id`` the handle ``cancel`` takes, and after
+        admission (by the first token)
         ``.prefix_hit_blocks``/``.prefix_miss_blocks`` carry the
-        prefix-cache accounting. Bad knobs raise ``ValueError`` here
-        (the replica validates the HTTP body itself, to answer a 400
-        naming the field)."""
-        if adapter is not None:
-            raise NotImplementedError(ADAPTER_SLICE)
-        if tenant or deadline is not None or priority != 'interactive':
-            raise NotImplementedError(OVERLOAD_SLICE)
+        prefix-cache accounting and ``.adapter_hit`` the adapter's
+        residency. ``deadline`` is an absolute epoch second (None falls
+        back to ``default_timeout_s``). Bad knobs raise ``ValueError``
+        here (the replica validates the HTTP body itself, to answer a
+        400 naming the field)."""
+        if priority not in PRIORITIES:
+            raise ValueError(f'priority must be one of {PRIORITIES}, '
+                             f'got {priority!r}')
         if not isinstance(seed, int) or isinstance(seed, bool):
             raise ValueError(f'seed must be an integer, got {seed!r}')
         # Keys take uint32(seed), so any int counts mod 2**32; it is kept
@@ -724,8 +829,12 @@ class BatchingEngine:
             raise ValueError(
                 'this engine was built with sampling=False and '
                 'cannot serve sampled or constrained requests')
+        if deadline is None and self.default_timeout_s is not None:
+            deadline = time.time() + self.default_timeout_s
         max_new = min(max_new, self.max_seq - len(prompt_ids) - 1)
         req = _Request(list(prompt_ids), max(0, max_new), eos_id=eos_id,
+                       tenant=tenant, deadline=deadline,
+                       priority=priority, adapter=adapter,
                        temperature=temperature, top_p=top_p, seed=seed,
                        response_format=response_format)
         if response_format is not None:
@@ -748,6 +857,30 @@ class BatchingEngine:
                 self._fail_request(
                     req, f'response_format refused: {e}', exc=e)
                 return req
+        if adapter is not None:
+            # Typed refusal for adapters this engine can NEVER serve: no
+            # adapter set, an unknown id, or a rank over the bucket.
+            # Residency is not required: a known adapter cold-loads and
+            # the request is admitted the iteration its weights land.
+            try:
+                if self._adapters is None:
+                    raise exceptions.AdapterCapacityError(
+                        'this engine serves no adapters (start it with '
+                        'an adapter registry and capacity >= 1 to serve '
+                        'LoRA requests)')
+                self._adapters.check_fits(adapter)
+            except exceptions.AdapterError as e:
+                self._fail_request(
+                    req, f'adapter {adapter!r} refused: {e}', exc=e)
+                return req
+        if req.deadline is not None and time.time() >= req.deadline:
+            # Already past its deadline: refuse now rather than queue
+            # work nobody waits for.
+            self._fail_request(
+                req, 'deadline expired before admission',
+                exc=exceptions.DeadlineExceededError(
+                    'deadline expired before admission'))
+            return req
         if req.max_new == 0 or self._stop:
             # A DEAD engine fails post-death submits typed.
             if self._stop and self._death_exc is not None:
@@ -765,8 +898,35 @@ class BatchingEngine:
                 f'{self.pool.usable_blocks} usable '
                 f'(block_size={self.block_size})')
             return req
+        cost = len(req.prompt_ids)
+        victim = None
         with self._pending_lock:
-            self.pending.append(req)
+            reason = self._shed_reason(cost)
+            if reason is not None and req.priority == 'interactive':
+                # Shedding takes batch first: an interactive arrival
+                # evicts the YOUNGEST queued batch request rather than
+                # being refused itself.
+                victim = self._evict_queued_batch()
+                if victim is not None:
+                    reason = None
+            if reason is not None:
+                retry_after = self._retry_after_locked()
+            else:
+                self.pending.append(req)
+                self._queued_tokens += cost
+        if victim is not None:
+            msg = 'shed from the pending queue to admit an interactive ' \
+                  'request'
+            self._fail_request(victim, msg,
+                               exc=exceptions.EngineOverloadedError(
+                                   msg, retry_after_s=self._retry_after()))
+        if reason is not None:
+            self._fail_request(
+                req, f'pending queue full ({reason})',
+                exc=exceptions.EngineOverloadedError(
+                    f'pending queue full ({reason})',
+                    retry_after_s=retry_after))
+            return req
         self.wake.set()
         # close()/death may have stopped the loop between the _stop
         # check above and the append: sentinel it here.
@@ -789,6 +949,19 @@ class BatchingEngine:
             if isinstance(tok, BaseException):
                 raise tok
             out.append(tok)
+
+    def cancel(self, request_id) -> None:
+        """Tear down an in-flight or queued request: its KV blocks are
+        freed at the next iteration boundary through the reclaim path
+        preemption uses, and its token queue gets the None sentinel.
+        Takes the ``_Request`` from ``submit_request`` or its ``.id``;
+        an unknown or finished request is a no-op."""
+        if isinstance(request_id, _Request):
+            request_id.cancelled = True
+        else:
+            with self._pending_lock:
+                self._cancel_ids.add(request_id)
+        self.wake.set()
 
     def close(self):
         self._stop = True
@@ -816,6 +989,19 @@ class BatchingEngine:
         if self._tables_dirty:
             self.block_tables = self._to_device(self._tables_host)
             self._tables_dirty = False
+
+    def _adapter_args(self, idx: Optional[List[int]] = None) -> dict:
+        """The device steps' ``adapters``/``adapter_idx`` keywords:
+        empty while the engine has no adapter set (the steps then run
+        exactly the adapterless math), else the resident set's buffers
+        and each row's slot (``idx`` defaults to the whole batch's;
+        prefill passes its one row's ``[slot]``)."""
+        if self._adapters is None:
+            return {}
+        if idx is None:
+            idx = self.slot_adapter
+        return {'adapters': self._adapters.buffers(),
+                'adapter_idx': self._h2d(idx, torch.int32)}
 
     # -- sampling and grammar ---------------------------------------------
 
@@ -909,21 +1095,76 @@ class BatchingEngine:
 
     # -- scheduling helpers ---------------------------------------------
 
+    @staticmethod
+    def _queue_cost(req: _Request) -> int:
+        """Tokens a PENDING request will prefill when admitted (prompt
+        plus resume tokens): the currency of ``max_queued_tokens``.
+        Stable while queued, so append/pop accounting stays
+        symmetric."""
+        return len(req.prompt_ids) + len(req.generated)
+
     def _pop_pending(self) -> Optional[_Request]:
         with self._pending_lock:
             try:
-                return self.pending.popleft()
+                req = self.pending.popleft()
             except IndexError:
                 return None
+            self._queued_tokens -= self._queue_cost(req)
+            return req
 
     def _push_front(self, req: _Request) -> None:
         with self._pending_lock:
             self.pending.appendleft(req)
+            self._queued_tokens += self._queue_cost(req)
+
+    def _shed_reason(self, cost: int) -> Optional[str]:
+        """Which admission bound a ``cost``-token arrival would trip
+        (None = admit). Caller holds ``_pending_lock``. An empty queue
+        always admits whatever the token bound: one oversized request
+        degrades to FIFO progress, never a permanent refusal."""
+        n_q = len(self.pending)
+        if self.max_queued_requests is not None \
+                and n_q >= self.max_queued_requests:
+            return 'max_queued_requests'
+        if self.max_queued_tokens is not None and n_q > 0 \
+                and self._queued_tokens + cost > self.max_queued_tokens:
+            return 'max_queued_tokens'
+        return None
+
+    def _evict_queued_batch(self) -> Optional[_Request]:
+        """Remove and return the YOUNGEST queued batch-priority request
+        (None if only interactive ones are queued). Caller holds
+        ``_pending_lock``."""
+        for idx in range(len(self.pending) - 1, -1, -1):
+            cand = self.pending[idx]
+            if cand.priority == 'batch':
+                del self.pending[idx]
+                self._queued_tokens -= self._queue_cost(cand)
+                return cand
+        return None
+
+    def _retry_after_locked(self) -> float:
+        """Retry-After from the recent admission drain rate: queue
+        depth over admissions per second in the trailing 30 s, clamped
+        to [1, 60]. Caller holds ``_pending_lock``."""
+        now = time.time()
+        times = [t for t in self._admit_times if t > now - 30.0]
+        if len(times) >= 2 and now > times[0]:
+            rate = len(times) / (now - times[0])
+            est = (len(self.pending) + 1) / max(rate, 1e-6)
+        else:
+            est = 1.0
+        return min(60.0, max(1.0, est))
+
+    def _retry_after(self) -> float:
+        with self._pending_lock:
+            return self._retry_after_locked()
 
     def _fail_request(self, req: _Request, msg: str,
                       exc: Optional[BaseException] = None) -> None:
         """Typed per-request failure: the REQUEST fails; every other
-        in-flight request keeps decoding."""
+        in-flight request keeps decoding. ``exc`` overrides the default
+        ``KVPoolExhaustedError``."""
         logger.warning('Batching engine failing request: %s', msg)
         req.out.put(exc if exc is not None
                     else exceptions.KVPoolExhaustedError(msg))
@@ -938,6 +1179,14 @@ class BatchingEngine:
         self._tables_dirty = True
 
     def _release_row(self, row: int) -> None:
+        req = self.slot_req[row]
+        if self._adapters is not None and req is not None \
+                and req.adapter is not None and self.slot_adapter[row]:
+            # Drop the admission-time pin: the last in-flight row of an
+            # adapter makes it evictable again (still resident, at the
+            # warm end of the LRU).
+            self._adapters.unpin(req.adapter)
+        self.slot_adapter[row] = 0
         if self.slot_blocks[row]:
             # One decrement per held block — shared (pinned) prefix
             # blocks stay alive for their other holders. DEEPEST first,
@@ -966,16 +1215,20 @@ class BatchingEngine:
         self._push_front(req)
 
     def _pick_victim(self) -> Optional[int]:
-        """The YOUNGEST admitted row (latest submit time; admission
-        order breaks ties). None while only one row is admitted: the
-        oldest request is never preempted while any other row
-        exists."""
+        """The LOWEST-PRIORITY-YOUNGEST admitted row: every batch row
+        goes before any interactive one, and within a class the
+        youngest (latest submit time; admission order breaks ties).
+        None while only one row is admitted: the oldest request of the
+        highest admitted class is never preempted while any other row
+        exists, and a preempted request keeps its submit time, so it
+        ages into that protection."""
         rows = [i for i in range(self.slots)
                 if self.slot_req[i] is not None]
         if len(rows) <= 1:
             return None
-        return max(rows, key=lambda i: (self.slot_req[i].submitted_at,
-                                        self.slot_seq[i]))
+        return max(rows, key=lambda i: (
+            PRIORITIES.index(self.slot_req[i].priority),
+            self.slot_req[i].submitted_at, self.slot_seq[i]))
 
     def _ensure_blocks(self, row: int, target_tokens: int) -> bool:
         """Grow the row's allocation to cover ``target_tokens``
@@ -1018,19 +1271,22 @@ class BatchingEngine:
         decoding."""
         if not self.prefix_caching or t0 < 2:
             return [], None, 0
+        root = prefix_hash.adapter_root(req.adapter)
         if req.chain_t0 == t0 and req.chain_hashes:
             # Re-admission after _unwind_admission: same tokens.
             hashes = req.chain_hashes
         else:
+            # Adapter-salted root: KV content depends on the adapter
+            # (the v rows carry its delta), so per-adapter chains never
+            # alias each other's or the base model's.
             hashes = prefix_hash.chain_hashes(tokens_all,
-                                              self.block_size)
+                                              self.block_size, root=root)
             req.chain_hashes = hashes
             req.chain_t0 = t0
         matched = self.pool.match(hashes)
         matched = matched[:(t0 - 1) // self.block_size]
         cached_tokens = len(matched) * self.block_size
-        parent = hashes[len(matched) - 1] if matched \
-            else prefix_hash.ROOT
+        parent = hashes[len(matched) - 1] if matched else root
         cow = None
         rest = tokens_all[cached_tokens:
                           min(cached_tokens + self.block_size, t0 - 1)]
@@ -1049,6 +1305,60 @@ class BatchingEngine:
             self.pool.free(list(reversed(blocks)))
         self._push_front(req)
 
+    def _poll_adapter_loads(self) -> None:
+        """Engine-loop tick of the adapter subsystem: install completed
+        cold loads (logging ``adapter_load``/``adapter_evict`` events),
+        fail the waiters of a failed load typed, drop cancelled and
+        expired waiters, and re-queue the waiters whose adapter just
+        became resident, at the FRONT in their order."""
+        if self._adapters is None:
+            return
+        ready, evicted, _ = self._adapters.poll()
+        if ready:
+            self.events.append(('adapter_load', tuple(ready)))
+        if evicted:
+            self.events.append(('adapter_evict', tuple(evicted)))
+        if not self._adapter_wait:
+            return
+        now = time.time()
+        failures: Dict[str, BaseException] = {}
+        still_waiting: List[_Request] = []
+        admit: List[_Request] = []
+        for req in self._adapter_wait:
+            if req.cancelled:
+                req.out.put(None)
+                continue
+            if req.deadline is not None and now >= req.deadline:
+                self._fail_request(
+                    req, 'deadline expired waiting for adapter cold load',
+                    exc=exceptions.DeadlineExceededError(
+                        f'deadline expired waiting for adapter '
+                        f'{req.adapter!r} to load'))
+                continue
+            if req.adapter not in failures:
+                exc = self._adapters.take_failure(req.adapter)
+                if exc is not None:
+                    failures[req.adapter] = exc if isinstance(
+                        exc, exceptions.AdapterError) else \
+                        exceptions.AdapterError(
+                            f'adapter {req.adapter!r} failed to load: '
+                            f'{exc!r}')
+            if req.adapter in failures:
+                self._fail_request(
+                    req, f'adapter {req.adapter!r} cold load failed',
+                    exc=failures[req.adapter])
+                continue
+            if self._adapters.slot(req.adapter) is not None:
+                admit.append(req)
+            else:
+                # Still loading, or its parked install lost a slot race:
+                # re-kick (idempotent) and keep waiting.
+                self._adapters.ensure_loading(req.adapter)
+                still_waiting.append(req)
+        self._adapter_wait = still_waiting
+        for req in reversed(admit):
+            self._push_front(req)
+
     def _admit_pending(self) -> None:
         """Token-budget admission: a request is admitted when a decode
         row is free AND the pool has blocks for its whole prompt (+1
@@ -1063,6 +1373,26 @@ class BatchingEngine:
             req = self._pop_pending()
             if req is None:
                 return
+            if req.cancelled:
+                # Client gone before admission: sentinel only, no pool.
+                req.out.put(None)
+                continue
+            if req.deadline is not None and time.time() >= req.deadline:
+                self._fail_request(
+                    req, 'deadline expired before admission',
+                    exc=exceptions.DeadlineExceededError(
+                        'deadline expired before admission'))
+                continue
+            if req.adapter is not None and \
+                    self._adapters.slot(req.adapter) is None:
+                # Cold adapter: start the host read and park the request
+                # aside; admission keeps flowing behind it, and
+                # _poll_adapter_loads re-queues it when the weights land.
+                if req.adapter_hit is None:
+                    req.adapter_hit = False
+                self._adapters.ensure_loading(req.adapter)
+                self._adapter_wait.append(req)
+                continue
             tokens_all = req.prompt_ids + req.generated
             t0 = len(tokens_all)
             need = self.pool.blocks_for(t0 + 1)
@@ -1106,6 +1436,18 @@ class BatchingEngine:
                 req.prefix_hit_blocks += hit
                 req.prefix_miss_blocks += max(
                     0, self.pool.blocks_for(t0) - hit)
+            # Drain-rate sample for the Retry-After estimate.
+            self._admit_times.append(time.time())
+            if req.adapter is not None:
+                # Pinned for the row's lifetime, so its slot stays valid
+                # until _release_row unpins. No eviction slips in between
+                # the residency check above and this pin: evictions only
+                # happen in _poll_adapter_loads, on this thread.
+                self.slot_adapter[row] = self._adapters.pin(req.adapter)
+                if req.adapter_hit is None:
+                    req.adapter_hit = True
+            else:
+                self.slot_adapter[row] = 0
             self.slot_req[row] = req
             self.slot_blocks[row] = blocks
             # Cache-hit tokens are ALREADY in the row's blocks.
@@ -1164,21 +1506,39 @@ class BatchingEngine:
         logits, self.caches = decode.forward_paged(
             self.params, self._h2d([padded], torch.long), self.caches,
             self.block_tables[row], off, real, self.config,
-            self.block_size)
+            self.block_size, **self._adapter_args([self.slot_adapter[row]]))
         self.slot_off[row] = off + real
         self.events.append(('prefill_chunk', row, off + real, t0))
         if self.slot_off[row] >= t0:
             self._finish_prefill(row, logits)
         return bucket
 
+    def _tenant_weight(self, tenant: str) -> float:
+        w = self.tenant_weights.get(tenant, 1.0)
+        return w if w > 0 else 1.0
+
+    def _class_weight(self, key: tuple) -> float:
+        """Weight of a ``(tenant, priority)`` DRR class: the tenant's
+        fair-share weight times the priority's prefill weight
+        (interactive ahead of batch)."""
+        tenant, priority = key
+        return (self._tenant_weight(tenant) *
+                PRIORITY_PREFILL_WEIGHTS.get(priority, 1.0))
+
     def _run_prefill_chunks(self) -> bool:
-        """Run prefill chunks for admitted-but-unprefilled rows, oldest
-        admission first, within this iteration's token budget. Chunks
-        beyond the budget wait for the NEXT iteration — a decode
-        dispatch runs in between (the chunked-prefill interleaving).
-        The first chunk of an iteration may overdraft, so a budget
-        smaller than one chunk still makes progress. (The JAX engine
-        splits this budget across tenants; the port serves one.)"""
+        """Run prefill chunks for admitted-but-unprefilled rows within
+        this iteration's token budget. Chunks beyond the budget wait for
+        the NEXT iteration — a decode dispatch runs in between (the
+        chunked-prefill interleaving).
+
+        The budget is split across (tenant, priority) classes by
+        weighted deficit round-robin: each class with pending prefill
+        accrues a weighted share per iteration and spends it in
+        admission order; unspent credit carries over (capped at two
+        budgets), so one tenant's long prompts cannot starve another's
+        TTFT. The first chunk of an iteration may overdraft, so a budget
+        smaller than one chunk still makes progress, and a second,
+        deficit-blind pass keeps the scheduler work-conserving."""
         budget = self.max_batched_tokens or float('inf')
         self._prefill_spent_iter = 0
         rows = sorted(
@@ -1186,20 +1546,60 @@ class BatchingEngine:
              if self.slot_req[i] is not None
              and self.slot_off[i] < self.slot_total[i]),
             key=lambda i: self.slot_seq[i])
-        spent = 0
+        if not rows:
+            return False
+        by_class: Dict[tuple, List[int]] = {}
+        for i in rows:
+            req = self.slot_req[i]
+            by_class.setdefault((req.tenant or '', req.priority),
+                                []).append(i)
+        # Interactive ahead of batch within a tenant; the rotation below
+        # still takes turns across iterations.
+        classes = sorted(by_class,
+                         key=lambda k: (k[0], PRIORITIES.index(k[1])))
+        metered = budget != float('inf')
+        if metered:
+            total_w = sum(self._class_weight(c) for c in classes)
+            for c in classes:
+                self._tenant_deficit[c] = min(
+                    self._tenant_deficit.get(c, 0.0)
+                    + budget * self._class_weight(c) / total_w,
+                    2.0 * budget)
+            # A class with nothing pending banks no credit.
+            for c in list(self._tenant_deficit):
+                if c not in by_class:
+                    del self._tenant_deficit[c]
+        start = self._tenant_rr % len(classes)
+        self._tenant_rr += 1
+        order = classes[start:] + classes[:start]
+        spent = 0.0
         ran_any = False
-        for row in rows:
-            while (self.slot_req[row] is not None
-                   and self.slot_off[row] < self.slot_total[row]
-                   and not self._stop):
-                if spent >= budget:
-                    return ran_any
-                charged = self._run_prefill_row(row)
-                if charged <= 0:
-                    break
-                spent += charged
-                self._prefill_spent_iter = spent
-                ran_any = True
+        for deficit_blind in (False, True):
+            for c in order:
+                for row in by_class[c]:
+                    while (self.slot_req[row] is not None
+                           and self.slot_off[row] < self.slot_total[row]
+                           and not self._stop):
+                        if spent >= budget:
+                            return ran_any
+                        if metered and not deficit_blind and ran_any \
+                                and self._tenant_deficit.get(c, 0.0) < \
+                                self._chunk_bucket(self.slot_total[row] -
+                                                   self.slot_off[row]):
+                            # Credit exhausted: this class waits (its
+                            # credit carries over) while others run.
+                            break
+                        charged = self._run_prefill_row(row)
+                        if charged <= 0:
+                            break
+                        spent += charged
+                        self._prefill_spent_iter = int(spent)
+                        if metered and not deficit_blind:
+                            self._tenant_deficit[c] = \
+                                self._tenant_deficit.get(c, 0.0) - charged
+                        ran_any = True
+            if not metered:
+                break
         return ran_any
 
     def _register_prefix(self, row: int) -> None:
@@ -1211,13 +1611,14 @@ class BatchingEngine:
         req = self.slot_req[row]
         t0 = self.slot_total[row]
         tokens_all = (req.prompt_ids + req.generated)[:t0]
+        root = prefix_hash.adapter_root(req.adapter)
         if req.chain_t0 == t0 and req.chain_hashes:
             hashes = req.chain_hashes
         else:
             hashes = prefix_hash.chain_hashes(tokens_all,
-                                              self.block_size)
+                                              self.block_size, root=root)
         blocks = self.slot_blocks[row]
-        parent = prefix_hash.ROOT
+        parent = root
         for i, h in enumerate(hashes):
             self.pool.register(
                 blocks[i], h, parent,
@@ -1412,7 +1813,7 @@ class BatchingEngine:
         toks, self.caches, self.pos = decode_steps_paged(
             self.params, self.tokens, self.caches, self.block_tables,
             self.pos, active, self.config, n, self.block_size,
-            sampling=self._sampling_args())
+            **self._adapter_args(), sampling=self._sampling_args())
         self.tokens = toks[:, -1].contiguous()
         for i in active_rows:
             if self.slot_left[i] > 0:
@@ -1481,7 +1882,7 @@ class BatchingEngine:
                 self.params, self._h2d(toks, torch.int32), self.caches,
                 self.block_tables, self.pos,
                 self._h2d(n_real, torch.int32), self.config, w,
-                self.block_size,
+                self.block_size, **self._adapter_args(),
                 sampling=self._verify_sampling_args(toks, n_real))
         # The dispatch's one sync: predictions and counts together.
         host = torch.cat([preds, accepted[:, None]], dim=1).cpu().tolist()
@@ -1526,6 +1927,68 @@ class BatchingEngine:
                             accepted_total))
         return True
 
+    # -- overload sweep ---------------------------------------------------
+
+    def _sweep_overload(self) -> None:
+        """Iteration-boundary enforcement of cancellation and deadlines:
+        a cancelled row frees its KV blocks through the reclaim path
+        preemption uses (``_release_row``) and gets its sentinel (a
+        ``cancel`` event); an expired row also gets the typed
+        ``DeadlineExceededError`` (a ``deadline`` event). Queued and
+        adapter-waiting requests are swept by the same rules."""
+        now = time.time()
+        cancel_ids = ()
+        if self._cancel_ids:
+            with self._pending_lock:
+                cancel_ids, self._cancel_ids = self._cancel_ids, set()
+        for row in range(self.slots):
+            req = self.slot_req[row]
+            if req is None:
+                continue
+            if req.id in cancel_ids:
+                req.cancelled = True
+            if req.cancelled:
+                self.events.append(('cancel', row, len(req.generated)))
+                self._release_row(row)
+                req.out.put(None)
+            elif req.deadline is not None and now >= req.deadline:
+                self.events.append(('deadline', row, len(req.generated)))
+                self._release_row(row)
+                self._fail_request(
+                    req, 'deadline expired mid-decode',
+                    exc=exceptions.DeadlineExceededError(
+                        f'deadline expired after {len(req.generated)} '
+                        'generated tokens'))
+        # Requests parked on an adapter cold load sit in neither a slot
+        # nor the queue: mark them; _poll_adapter_loads drops them.
+        for req in self._adapter_wait:
+            if req.id in cancel_ids:
+                req.cancelled = True
+        dropped: List[_Request] = []
+        with self._pending_lock:
+            if self.pending:
+                kept: 'collections.deque[_Request]' = collections.deque()
+                for req in self.pending:
+                    if req.id in cancel_ids:
+                        req.cancelled = True
+                    if req.cancelled or (req.deadline is not None
+                                         and now >= req.deadline):
+                        dropped.append(req)
+                    else:
+                        kept.append(req)
+                if dropped:
+                    self.pending = kept
+                    self._queued_tokens = sum(
+                        self._queue_cost(r) for r in kept)
+        for req in dropped:
+            if req.cancelled:
+                req.out.put(None)
+            else:
+                self._fail_request(
+                    req, 'deadline expired while queued',
+                    exc=exceptions.DeadlineExceededError(
+                        'deadline expired while queued'))
+
     # -- loop -----------------------------------------------------------
 
     def _fail_all(self, exc: BaseException) -> None:
@@ -1548,6 +2011,11 @@ class BatchingEngine:
                     req.out.put(exc)
                 req.out.put(None)
                 self.slot_req[i] = None
+        waiting, self._adapter_wait = self._adapter_wait, []
+        for req in waiting:
+            if exc is not None:
+                req.out.put(exc)
+            req.out.put(None)
         while True:
             req = self._pop_pending()
             if req is None:
@@ -1568,6 +2036,8 @@ class BatchingEngine:
 
     def _loop_inner(self) -> None:
         while not self._stop:
+            self._sweep_overload()
+            self._poll_adapter_loads()
             self._admit_pending()
             progressed = self._run_prefill_chunks()
             ran = self._dispatch_decode()

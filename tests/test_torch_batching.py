@@ -368,18 +368,32 @@ def test_sampled_verify_step_paged_matches_jax(models, prefilled, masked):
 
 
 def test_deferred_step_options_raise(models, prefilled):
-    """Adapters in the device steps come with the multi-LoRA slice."""
+    """The steps' adapter arguments (ported with the multi-LoRA slice) go
+    together: one without the other raises. With both, rows on slot 0 of
+    an all-zeros factor set run exactly the adapterless math."""
     _, tcfg, _, tp = models
     p = prefilled
     args = (tp, _t(p['first']), _tcaches(p['k_pool'], p['v_pool']),
             _t(p['tables']), _t(p['pos']), _t(p['active']), tcfg, 1, BS)
-    with pytest.raises(NotImplementedError, match='multi-LoRA'):
-        tbatching.decode_steps_paged(*args, adapters={})
-    with pytest.raises(NotImplementedError, match='multi-LoRA'):
+    zeros = {name: torch.zeros((tcfg.n_layers, 2) + shape)
+             for name, shape in (('wq_a', (tcfg.dim, 4)),
+                                 ('wq_b', (4, tcfg.n_heads * tcfg.head_dim)),
+                                 ('wv_a', (tcfg.dim, 4)),
+                                 ('wv_b', (4, tcfg.n_kv_heads *
+                                           tcfg.head_dim)))}
+    with pytest.raises(ValueError, match='together'):
+        tbatching.decode_steps_paged(*args, adapters=zeros)
+    with pytest.raises(ValueError, match='together'):
         tbatching.decode_steps_paged(*args, adapter_idx=_t([0, 0, 0]))
-    with pytest.raises(NotImplementedError, match='multi-LoRA'):
+    with pytest.raises(ValueError, match='together'):
         tbatching.verify_step_paged(
             tp, _t(np.zeros((3, 2), np.int32)),
             _tcaches(p['k_pool'], p['v_pool']), _t(p['tables']),
             _t(p['pos']), _t(np.ones(3, np.int32)), tcfg, 2, BS,
-            adapters={})
+            adapters=zeros)
+    want, _, _ = tbatching.decode_steps_paged(*args)
+    args = (tp, _t(p['first']), _tcaches(p['k_pool'], p['v_pool'])) + \
+        args[3:]
+    got, _, _ = tbatching.decode_steps_paged(
+        *args, adapters=zeros, adapter_idx=_t(np.zeros(3, np.int32)))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())

@@ -1,5 +1,6 @@
 """The port's boundaries: skypilot_torch and chip_smoke.py import
-nothing of JAX or the JAX package; entry points never quietly run on
+nothing of JAX, the JAX package or ``ml_dtypes`` (a JAX dependency the
+card's machine lacks); entry points never quietly run on
 the CPU; a kernel build that cannot happen raises."""
 import ast
 import glob
@@ -21,7 +22,7 @@ from skypilot_torch.serve import kv_pool
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(skypilot_torch.__file__)
-FORBIDDEN = ('jax', 'jaxlib', 'skypilot_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'skypilot_tpu', 'ml_dtypes')
 
 
 def _port_sources():
@@ -53,6 +54,13 @@ print(json.dumps({{'modules': names, 'bad': bad}}))
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res['bad'] == []
     for mod in ('skypilot_torch.device', 'skypilot_torch.models.llama',
+                'skypilot_torch.checkpoint',
+                'skypilot_torch.checkpoint.commit',
+                'skypilot_torch.checkpoint.format',
+                'skypilot_torch.serve.adapters',
+                'skypilot_torch.serve.adapters.registry',
+                'skypilot_torch.serve.adapters.resident',
+                'skypilot_torch.serve.overload',
                 'skypilot_torch.models.convert',
                 'skypilot_torch.models.decode',
                 'skypilot_torch.models.quant', 'skypilot_torch.ops._build',

@@ -8,7 +8,9 @@ weights. Sampled and grammar-constrained requests must give the JAX
 engine's tokens, and the sampling contract is held directly: a
 request's tokens are the same alone and beside neighbours, with
 speculation on and off, and across a preempt-resume (each request
-against its own solo run). Knobs of features not ported yet raise."""
+against its own solo run). The overload and multi-LoRA knobs are taken
+(their behavior is held in test_torch_overload.py and
+test_torch_adapters.py)."""
 import dataclasses
 import json
 import re
@@ -228,9 +230,28 @@ def test_speculation_on_equals_off_with_live_verifies(loopy_setup):
     (dict(adapter_preload=['a']), 'multi-LoRA slice'),
 ])
 def test_deferred_engine_knobs_raise(setup, kw, slice_name):
+    """The overload and multi-LoRA knobs, which raised until their slices
+    were ported, are taken as the JAX engine takes them: the engine
+    serves greedy tokens exactly; an adapter knob without both a
+    registry and a capacity builds no adapter set, so an adapter request
+    is refused typed (``AdapterCapacityError``) and nothing raises at
+    construction."""
     config, params = setup
-    with pytest.raises(NotImplementedError, match=slice_name):
-        BatchingEngine(params, config, **kw)
+    engine = _engine(params, config, **kw)
+    try:
+        for name, value in kw.items():
+            if name in ('max_queued_requests', 'max_queued_tokens',
+                        'default_timeout_s'):
+                assert getattr(engine, name) == value
+        assert engine.tenant_weights == kw.get('tenant_weights', {})
+        assert engine._adapters is None, slice_name
+        assert engine.generate([1, 2, 3], 4) == _reference(
+            params, config, [1, 2, 3], 4)
+        q = engine.submit([1, 2, 3], 4, adapter='a')
+        assert isinstance(q.get(timeout=30),
+                          exceptions.AdapterCapacityError)
+    finally:
+        engine.close()
 
 
 @pytest.mark.parametrize('kw,slice_name', [
@@ -240,11 +261,22 @@ def test_deferred_engine_knobs_raise(setup, kw, slice_name):
     (dict(deadline=1e12), 'overload slice'),
 ])
 def test_deferred_request_knobs_raise(setup, kw, slice_name):
+    """The request knobs of the two slices, which raised until they were
+    ported: ``tenant``, ``priority`` and a far ``deadline`` are served
+    token-exact; an ``adapter`` on an engine without an adapter set is
+    refused typed; a priority outside ``PRIORITIES`` raises."""
     config, params = setup
     engine = _engine(params, config)
     try:
-        with pytest.raises(NotImplementedError, match=slice_name):
-            engine.submit([1, 2, 3], 4, **kw)
+        q = engine.submit([1, 2, 3], 4, **kw)
+        if 'adapter' in kw:
+            assert isinstance(q.get(timeout=30),
+                              exceptions.AdapterCapacityError), slice_name
+            assert q.get(timeout=30) is None
+        else:
+            assert _drain(q) == _reference(params, config, [1, 2, 3], 4)
+        with pytest.raises(ValueError, match='priority'):
+            engine.submit([1, 2, 3], 4, **dict(kw, priority='urgent'))
     finally:
         engine.close()
 

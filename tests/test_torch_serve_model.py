@@ -4,7 +4,9 @@ over HTTP, and shut down. Outputs must equal the port's own
 ``greedy_generate`` under the replica's power-of-two bucketing; with
 the engine, sampled and constrained requests must equal the engine's
 own answer for the same knobs, and bad knobs, bad grammars and a
-``--sampling off`` replica answer 400."""
+``--sampling off`` replica answer 400; the overload and adapter fields
+are served (their statuses are held in test_torch_overload.py and
+test_torch_adapters.py)."""
 import http.client
 import json
 import re
@@ -224,11 +226,21 @@ def test_engine_replica_sets_prefix_headers(engine_replica):
 ])
 def test_engine_replica_refuses_deferred_fields(engine_replica, field,
                                                 slice_name):
+    """The fields of the overload and multi-LoRA slices, answered 400
+    until those slices were ported, are served as the JAX replica serves
+    them: ``priority``, ``timeout_s`` and ``tenant`` get the greedy
+    answer, and an ``adapter`` on a replica without ``--adapter-dir`` is
+    refused 413 (the engine can never serve it)."""
     port, _ = engine_replica
     status, _, raw = _request(port, 'POST', '/generate',
-                              dict({'prompt_ids': [1, 2]}, **field))
-    assert status == 400
-    assert slice_name in json.loads(raw)['error']
+                              dict({'prompt_ids': [1, 2],
+                                    'max_new_tokens': 2}, **field))
+    if 'adapter' in field:
+        assert status == 413, slice_name
+        assert 'serves no adapters' in json.loads(raw)['error']
+    else:
+        assert status == 200, slice_name
+        assert json.loads(raw) == {'output_ids': _greedy([1, 2], 2)}
     # Greedy defaults stay served.
     status, _, _ = _request(port, 'POST', '/generate',
                             {'prompt_ids': [1, 2], 'temperature': 0,
