@@ -48,7 +48,14 @@ in order (any failure exits non-zero; nothing is caught):
    base + LoRA rank 16, seq 2048, batch 8: one warm-up step, three
    counted steps (K1-RoPE = 2 x 32 x 3 with the checkpoint's recompute,
    pre-pass = K2 = K3 = 32 x 3), step time, tokens/s, peak memory, and
-   a CUDA-only profile of one more step.
+   a CUDA-only profile of one more step. The recipe's step is
+   instrumented (``OBS_TRAIN``): its registry counts the 4 calls, their
+   tokens and 3 intervals, ``skytpu_mfu_ratio`` is within
+   ``OBS_MFU_REL_TOL`` of this script's 4 N figure over the same
+   interval, the HBM gauges equal ``torch.cuda``'s readings, and a
+   profile trigger armed for 2 steps yields a summary whose CUDA kernel
+   rows hold K1-RoPE (pre-pass and mainloop) 128 times and the backward
+   pre-pass, K2 and K3 64 times each.
 
 9. K5 (cache_write): bit-exact against ``index_copy_`` at llama3-8b
    shapes, the rows form over [8, 8192, 8, 128] and the 4097-block pool
@@ -69,7 +76,15 @@ in order (any failure exits non-zero; nothing is caught):
    1024-token prefix that must hit, two prompts the drafter must draft
    on), launch counts equal to the engine's dispatch record, TTFT
    and TPOT per request, output tokens/s, and a profile of one decode
-   dispatch.
+   dispatch. ``OBS_ENGINE``: the replica's textfile (``SKYTPU_METRICS_DIR``)
+   agrees with the dispatch record and the responses (requests, tokens,
+   prefix hits, drafted and accepted tokens, TTFT count, slots, pool
+   blocks, the HBM gauges); each request, sent with its own
+   ``traceparent``, has ``replica.generate`` and the engine's spans
+   under its trace id; a profile trigger armed as the burst starts
+   yields K4-paged and K5 kernel rows. ``OBS_COST``: the gauge sweep and
+   one dispatch's metric updates in us, a publisher tick in ms, beside
+   the card's name and power limit.
 11b. Sampling: keys and 32-bit random bits at [128256] for 64 (seed,
    position) pairs bit-equal between the card and the CPU; ``sample_rows``
    and ``verify_targets`` on the same f32 logits give the CPU's tokens
@@ -135,10 +150,14 @@ final lines then). Exits non-zero without printing a result when CUDA
 is absent or the ``skypilot_torch`` package is not beside this file.
 """
 import argparse
+import collections
 import dataclasses
+import glob
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -314,6 +333,167 @@ def profile_cuda(torch, fn, label, extra):
                            ms=e.self_device_time_total / 1e3)
                       for e in port])))
     return busy_ms
+
+
+# ---------------------------------------------------------------------
+# Observability: the registry, the textfile, the spans, the profiles
+# ---------------------------------------------------------------------
+
+# The name of this card in the port's peak table
+# (``metrics/goodput.PEAK_BF16_FLOPS``: the same 989e12 as
+# PEAK_BF16_FLOPS here), stamped for the train phase's MFU check only.
+OBS_ACCELERATOR = 'H100-SXM'
+# ``skytpu_mfu_ratio`` against this script's own 4 N figure over the same
+# step interval.
+OBS_MFU_REL_TOL = 0.02
+# The greedy ENGINE burst's output tokens/s in an earlier full run of
+# this script, before the observability checks (H100 80GB HBM3, 700 W),
+# printed beside this run's.
+OBS_REFERENCE_ENGINE_TOKENS_PER_S = 73.14
+
+
+def _obs_dir(name):
+    """A fresh directory ``name`` under this run's state dir."""
+    d = os.path.join(os.environ['SKYTPU_STATE_DIR'], name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def _family(reg, name):
+    """The one series of an unlabeled family in the port's registry
+    (None when the family was never registered)."""
+    fam = {f.name: f for f in reg.families()}.get(name)
+    return None if fam is None else fam.collect()[0][1]
+
+
+def _prom(path):
+    """A published textfile, parsed by the port's ``exposition``:
+    {sample name{labels other than proc}: value}."""
+    from skypilot_torch.metrics import exposition
+    with open(path, encoding='utf-8') as f:
+        fams = exposition.parse_text(f.read())
+    out = {}
+    for fam in fams.values():
+        for smp in fam.samples:
+            labels = ','.join(f'{k}={v}' for k, v in smp.labels
+                              if k != 'proc')
+            out[smp.name + (f'{{{labels}}}' if labels else '')] = smp.value
+    return out
+
+
+def _hbm_check(torch):
+    """``sample_device_memory`` against ``torch.cuda``'s readings taken
+    at the same moment (nothing allocates in between), in its return
+    and in the registry's gauges."""
+    from skypilot_torch import metrics
+    from skypilot_torch.metrics import device as device_metrics
+    torch.cuda.synchronize()
+    rows = device_metrics.sample_device_memory()
+    want = dict(bytes_in_use=torch.cuda.memory_allocated(),
+                peak_bytes_in_use=torch.cuda.max_memory_allocated(),
+                bytes_limit=torch.cuda.mem_get_info()[1])
+    assert [r['device'] for r in rows] == [0], rows
+    got = {k: rows[0][k] for k in want}
+    gauges = {f.name: f for f in metrics.registry().families()}
+    published = {
+        'bytes_in_use': gauges['skytpu_device_hbm_used_bytes'],
+        'peak_bytes_in_use': gauges['skytpu_device_hbm_peak_bytes'],
+        'bytes_limit': gauges['skytpu_device_hbm_limit_bytes']}
+    published = {k: f.labels(device='0').value for k, f in published.items()}
+    assert got == want and published == {k: float(v)
+                                          for k, v in want.items()}, (
+        got, published, want)
+    return got
+
+
+def _kernel_rows(kind, patterns, timeout_s=300):
+    """The on-demand profile's summary (``latest.json``, waited for) and
+    the launches of the port's kernels in it: for each name, the summed
+    count of the CUDA kernel rows (category ``kernel``; host rows never
+    count) whose name holds all of its patterns. Fails when there is no
+    summary or it has no kernel rows."""
+    from skypilot_torch.utils import profiling
+    deadline = time.time() + timeout_s
+    payload = profiling.load_summary()
+    while payload is None and time.time() < deadline:
+        time.sleep(0.1)
+        payload = profiling.load_summary()
+    assert payload is not None, f'no {kind} profile summary was written'
+    assert payload['kind'] == kind, payload['kind']
+    rows = [r for r in payload['rows'] if r['category'] == 'kernel']
+    assert rows, f'the {kind} summary has no CUDA kernel rows: ' + \
+        json.dumps(payload['rows'][:5])
+    counts = {name: sum(r['count'] for r in rows
+                        if all(p in r['name'] for p in pats))
+              for name, pats in patterns.items()}
+    return payload, rows, counts
+
+
+def _time_capture(profiler):
+    """Time a ``StepProfiler``'s capture from outside the package: its
+    ``on_step`` and ``_finish`` are wrapped on the instance. The returned
+    dict gets ``start`` (the capture began), ``finish`` (its steps are
+    done) and ``end`` (stopped, exported, summarized and written), all
+    ``perf_counter`` readings."""
+    times = {}
+    on_step, finish = profiler.on_step, profiler._finish
+
+    def timed_on_step():
+        was = profiler._prof
+        on_step()
+        if was is None and profiler._prof is not None:
+            times['start'] = time.perf_counter()
+
+    def timed_finish():
+        times['finish'] = time.perf_counter()
+        finish()
+        times['end'] = time.perf_counter()
+    profiler.on_step, profiler._finish = timed_on_step, timed_finish
+    return times
+
+
+def _spans_by_trace():
+    """Every span in the port's sink dir, by trace id."""
+    from skypilot_torch import trace
+    out = collections.defaultdict(list)
+    for path in glob.glob(os.path.join(trace.sink_dir(), '*.jsonl')):
+        with open(path, encoding='utf-8') as f:
+            for line in f:
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                out[rec['trace_id']].append(rec)
+    return out
+
+
+def _trace_check(traced, timeout_s=30):
+    """Each traced request's spans: one ``replica.generate`` under the
+    header's span, ``batch.queue_wait``, ``batch.first_token``, >= 1
+    ``batch.prefill`` and >= 1 ``batch.decode`` under it, and nothing
+    else in its trace. Returns span counts by name over the burst."""
+    deadline = time.time() + timeout_s
+    while True:
+        by_trace = _spans_by_trace()
+        done = [any(s['name'] == 'replica.generate'
+                    for s in by_trace.get(tid, ())) for tid, _ in traced]
+        if all(done) or time.time() > deadline:
+            break
+        time.sleep(0.1)
+    names = collections.Counter()
+    for tid, sid in traced:
+        spans = by_trace.get(tid, [])
+        gen = [s for s in spans if s['name'] == 'replica.generate']
+        assert len(gen) == 1 and gen[0]['parent_id'] == sid, (tid, spans)
+        kids = collections.Counter(s['name'] for s in spans
+                                   if s['parent_id'] == gen[0]['span_id'])
+        assert len(spans) == 1 + sum(kids.values()), spans
+        assert (kids['batch.queue_wait'], kids['batch.first_token']) == \
+            (1, 1) and kids['batch.prefill'] >= 1 and \
+            kids['batch.decode'] >= 1 and len(kids) == 4, kids
+        names.update(s['name'] for s in spans)
+    return dict(names)
 
 
 # ---------------------------------------------------------------------
@@ -839,10 +1019,17 @@ def train_phase(torch, attention):
     """The training slice: ``recipes/finetune`` at llama3-8b (32 layers,
     bf16 base + bf16 LoRA rank 16, seq 2048, batch 8, synthetic tokens),
     one warm-up step, then three steps with the kernels' launch counts
-    zeroed just before and read just after."""
+    zeroed just before and read just after. The recipe's step is
+    instrumented: after them its registry must count the steps, tokens
+    and intervals run, its MFU must match this script's own 4 N figure
+    over the same interval, and the HBM gauges ``torch.cuda``'s readings;
+    then a profile trigger armed for 2 steps must yield a summary whose
+    kernel rows hold the flash kernels at twice their per-step launches."""
     import gc
 
+    from skypilot_torch import metrics as metrics_lib
     from skypilot_torch.recipes import finetune
+    from skypilot_torch.utils import profiling
     gc.collect()
     torch.cuda.empty_cache()
     _train_numerics(torch)
@@ -853,10 +1040,28 @@ def train_phase(torch, attention):
         '--lora-rank', '16', '--param-dtype', 'bf16', '--synthetic',
         '--device', 'cuda'])
     t0 = time.perf_counter()
-    config, state, step_fn, batches, dev = finetune.build(args)
+    # MFU resolves the card's peak when the step is instrumented.
+    os.environ['SKYTPU_ACCELERATOR'] = OBS_ACCELERATOR
+    try:
+        config, state, step_fn, batches, dev = finetune.build(args)
+    finally:
+        del os.environ['SKYTPU_ACCELERATOR']
     setup_s = time.perf_counter() - t0
+    os.environ['SKYTPU_PROFILE_DIR'] = _obs_dir('train_profiles')
+    reg = metrics_lib.registry()
+    series = ('skytpu_train_steps_total', 'skytpu_train_tokens_total',
+              'skytpu_train_step_seconds')
+
+    def train_counts():
+        children = [_family(reg, n) for n in series]
+        return [0 if c is None else (c.count if n.endswith('seconds')
+                                     else c.value)
+                for n, c in zip(series, children)]
+    counts0 = train_counts()
+    calls = []       # perf_counter just before each step_fn call
     batch = {'tokens': torch.from_numpy(next(batches)).to(dev)}
     t0 = time.perf_counter()
+    calls.append(t0)
     state, metrics = step_fn(state, batch)
     warm = dict(loss=float(metrics['loss']),
                 grad_norm=float(metrics['grad_norm']),
@@ -875,11 +1080,15 @@ def train_phase(torch, attention):
     for _ in range(n_steps):
         batch = {'tokens': torch.from_numpy(next(batches)).to(dev)}
         t0 = time.perf_counter()
+        calls.append(t0)
         state, metrics = step_fn(state, batch)
         loss = float(metrics['loss'])  # waits for the step
         steps.append(dict(ms=1e3 * (time.perf_counter() - t0), loss=loss,
                           grad_norm=float(metrics['grad_norm'])))
     launches = {name: k.launches for name, k in kernels.items()}
+    counts = [a - b for a, b in zip(train_counts(), counts0)]
+    mfu_gauge = _family(reg, 'skytpu_mfu_ratio').value
+    hbm = _hbm_check(torch)
     peak = torch.cuda.max_memory_allocated()
     tokens_per_step = args.batch * args.seq
     total_s = sum(s['ms'] for s in steps) / 1e3
@@ -911,6 +1120,48 @@ def train_phase(torch, attention):
         b = {'tokens': torch.from_numpy(next(batches)).to(dev)}
         state, m = step_fn(state, b)
         float(m['loss'])
+    # The instrumented step's registry: every call counted, N - 1
+    # intervals observed, and the last compute interval's MFU against
+    # this script's own 4 N figure over the same interval.
+    n_calls = len(calls)
+    mfu_own = (tokens_per_step * 4 * config.num_params() /
+               ((calls[-1] - calls[-2]) * PEAK_BF16_FLOPS))
+    # A capture of 2 steps (it starts at the next call and is written at
+    # the third), beside none of this script's own profiles.
+    t_prof = time.perf_counter()
+    profiling.write_trigger(steps=2)
+    for _ in range(3):
+        one_step()
+    summary, rows, kernel_counts = _kernel_rows('train', {
+        'k1_rope_prepass': ['rope_prepass'],
+        'k1_rope_mainloop': ['flash_sm90', 'fwd_kernel'],
+        'bwd_prep': ['prep_kernel'], 'k2': ['dq_kernel'],
+        'k3': ['dkv_kernel']})
+    prof_s = time.perf_counter() - t_prof
+    k1_per_step = fwd_per_layer * L
+    want_prof = {'k1_rope_prepass': 2 * k1_per_step,
+                 'k1_rope_mainloop': 2 * k1_per_step,
+                 'bwd_prep': 2 * L, 'k2': 2 * L, 'k3': 2 * L}
+    log('OBS_TRAIN ' + json.dumps(dict(
+        steps_total=counts[0], tokens_total=counts[1],
+        step_seconds_count=counts[2],
+        expected=[n_calls, n_calls * tokens_per_step, n_calls - 1],
+        mfu_ratio=mfu_gauge, mfu_own=mfu_own,
+        mfu_rel_err=abs(mfu_gauge - mfu_own) / mfu_own,
+        accelerator=OBS_ACCELERATOR, hbm=hbm,
+        profile_steps=summary['steps'], profile_kernel_rows=len(rows),
+        profile_launches=kernel_counts, profile_launches_expected=want_prof,
+        profile_s=prof_s, profile_top=[dict(name=r['name'][:80],
+                                            count=r['count'],
+                                            ms=r['total_ms'])
+                                       for r in rows[:5]])))
+    assert counts == [n_calls, n_calls * tokens_per_step, n_calls - 1], \
+        counts
+    assert abs(mfu_gauge - mfu_own) <= OBS_MFU_REL_TOL * mfu_own, \
+        (mfu_gauge, mfu_own)
+    assert summary['steps'] == 2 and kernel_counts == want_prof, \
+        (summary['steps'], kernel_counts, want_prof)
+    del os.environ['SKYTPU_PROFILE_DIR']
     profile_cuda(torch, one_step, 'TRAIN_PROFILE',
                  dict(model=args.model, seq=args.seq, batch=args.batch))
     del state, metrics
@@ -1686,7 +1937,7 @@ def _engine_numerics(torch):
     del params, cpu_params
 
 
-def _sse_post(port, body, timeout=900):
+def _sse_post(port, body, timeout=900, headers=None):
     """POST /generate with ``stream``: (status, prefix headers, ids,
     ms to the first token event, ms to the end)."""
     import http.client
@@ -1694,7 +1945,8 @@ def _sse_post(port, body, timeout=900):
     try:
         t0 = time.perf_counter()
         conn.request('POST', '/generate', body=json.dumps(body),
-                     headers={'Content-Type': 'application/json'})
+                     headers={'Content-Type': 'application/json',
+                              **(headers or {})})
         resp = conn.getresponse()
         heads = {h: resp.getheader(h) for h in (
             'X-Skytpu-Prefix-Hits', 'X-Skytpu-Prefix-Misses',
@@ -1840,6 +2092,106 @@ def _profile_engine_dispatch(torch, engine, config, batching, label):
 _BURSTS = {}
 
 
+def _engine_obs(torch, server, engine, published0, traced, results, events,
+                n_out, run_s, capture):
+    """The replica's observability after the 12-request burst: (b) its
+    textfile against the engine's own record, every request's spans under
+    its own trace id, the profile armed at the burst's start holding
+    K4-paged and K5 rows; (c) the host cost of the instrumentation,
+    measured on the live engine from outside the package."""
+    from skypilot_torch import metrics as metrics_lib
+    from skypilot_torch import trace
+    pub = server.publisher
+    pub.publish_once()
+    published = _prom(pub.path)
+
+    def delta(name):
+        return published.get(name, 0.0) - published0.get(name, 0.0)
+    verifies = [e for e in events if e[0] == 'verify']
+    header_hits = [int(r[1]['X-Skytpu-Prefix-Hits']) for r in results]
+    n = len(results)
+    got = dict(
+        requests=delta('skytpu_batch_requests_total'),
+        decode_tokens=delta('skytpu_batch_decode_tokens_total'),
+        prefix_hits=delta('skytpu_batch_prefix_hits_total'),
+        spec_proposed=delta('skytpu_batch_spec_proposed_total'),
+        spec_accepted=delta('skytpu_batch_spec_accepted_total'),
+        ttft_count=delta('skytpu_batch_ttft_seconds_count'),
+        slots=published['skytpu_batch_slots_total'],
+        kv_blocks=published['skytpu_batch_kv_blocks_total'])
+    want = dict(requests=n, decode_tokens=sum(len(r[2]) for r in results),
+                prefix_hits=sum(header_hits),
+                spec_proposed=sum(e[2] for e in verifies),
+                spec_accepted=sum(e[3] for e in verifies), ttft_count=n,
+                slots=engine.slots, kv_blocks=engine.pool.usable_blocks)
+    hbm = {k: published.get(f'skytpu_device_hbm_{k}_bytes{{device=0}}')
+           for k in ('used', 'limit', 'peak')}
+    # The shared 1024-token prefix: 64 blocks for each request that hit.
+    prefix_blocks = 1024 // engine.block_size
+    spans = _trace_check(traced)
+    L = engine.config.n_layers
+    summary, rows, kernel_counts = _kernel_rows('decode', {
+        'k4_paged': ['decode_kernel'], 'k5': ['cache_write_kernel']})
+    # (c) The host cost, per call, on the live engine (the counter and
+    # gauge updates on scratch families of the same kinds, so the
+    # replica's series keep their values).
+    scratch = metrics_lib.Registry()
+    tok_s = scratch.gauge('skytpu_batch_decode_tokens_per_sec')
+    tokens = scratch.counter('skytpu_batch_decode_tokens_total')
+    reps = 200
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        engine._set_gauges()
+    sweep_us = 1e6 * (time.perf_counter() - t0) / reps
+    ctx = trace.SpanContext(os.urandom(16).hex(), os.urandom(8).hex())
+
+    def dispatch_updates(parent):
+        """What one 8-row decode dispatch adds for observability: the
+        profiler's tick, the throughput gauge, a batch.decode span per
+        row, the token counter."""
+        engine._profiler.on_step()
+        t = time.time()
+        tok_s.set(64.0)
+        for row in range(8):
+            trace.record_span('batch.decode', t, t, parent,
+                              attrs={'tokens': 8, 'slot': row})
+        tokens.inc(64)
+    upd = {}
+    for tag, parent in (('untraced', None), ('traced', ctx)):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            dispatch_updates(parent)
+        upd[tag] = 1e6 * (time.perf_counter() - t0) / reps
+    ticks = 20
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        pub.publish_once()
+    tick_ms = 1e3 * (time.perf_counter() - t0) / ticks
+    log('OBS_ENGINE ' + json.dumps(dict(
+        published=got, expected=want, hbm_bytes=hbm,
+        prefix_hit_requests=sum(h > 0 for h in header_hits),
+        spans=spans, profile_steps=summary['steps'],
+        profile_kernel_rows=len(rows), profile_launches=kernel_counts,
+        textfile_bytes=os.path.getsize(pub.path))))
+    # The capture inside the burst: its profiled dispatches, then the
+    # stop, export, summary and write on the engine thread.
+    window_s = capture['finish'] - capture['start']
+    write_s = capture['end'] - capture['finish']
+    log('OBS_COST ' + json.dumps(dict(
+        card=smi_line(), gauge_sweep_us=sweep_us,
+        dispatch_updates_us=upd, publisher_tick_ms=tick_ms,
+        burst_tokens_per_s=n_out / run_s,
+        burst_tokens_per_s_without_capture_write=n_out / (run_s - write_s),
+        capture_window_s=window_s, capture_write_s=write_s,
+        reference_burst_tokens_per_s=OBS_REFERENCE_ENGINE_TOKENS_PER_S)))
+    assert got == want, (got, want)
+    assert got['prefix_hits'] >= prefix_blocks * sum(
+        h > 0 for h in header_hits)
+    assert all(v is not None and v > 0 for v in hbm.values()), hbm
+    assert summary['steps'] == 2 and all(
+        c > 0 and c % L == 0 for c in kernel_counts.values()), kernel_counts
+
+
 def _median(xs):
     xs = sorted(x for x in xs if x is not None)
     return xs[len(xs) // 2] if xs else None
@@ -1868,19 +2220,29 @@ def engine_phase(torch, attention, da, quant=False):
     dispatch record. ``quant``: the same burst on ``--quant int8
     --kv-int8`` (int8 weights, an int8 pool: the int8 forms of K4-paged
     and K5 must carry every launch), without the 2-layer numerics (the
-    int8 phase has its own)."""
+    int8 phase has its own).
+
+    The bf16 burst also holds the replica's observability
+    (``_engine_obs``): each request carries its own ``traceparent``, the
+    replica publishes to ``SKYTPU_METRICS_DIR``, and a profile trigger is
+    armed as the burst starts."""
     import gc
 
     from skypilot_torch.models import llama
     from skypilot_torch.recipes import serve_model
     from skypilot_torch.serve import batching
+    from skypilot_torch.utils import profiling
     label = 'ENGINE_Q8' if quant else 'ENGINE'
+    obs = not quant
     gc.collect()
     torch.cuda.empty_cache()
     if not quant:
         _engine_numerics(torch)
     gc.collect()
     torch.cuda.empty_cache()
+    if obs:
+        os.environ['SKYTPU_METRICS_DIR'] = _obs_dir('engine_metrics')
+        os.environ['SKYTPU_PROFILE_DIR'] = _obs_dir('engine_profiles')
     args = serve_model.parse_args(
         ['--model', 'llama3-8b', '--port', '0', '--device', 'cuda',
          '--slots', '8'] + (['--quant', 'int8', '--kv-int8'] if quant
@@ -1929,6 +2291,11 @@ def engine_phase(torch, attention, da, quant=False):
                    **{f'{k}_{"bf16" if quant else "q8"}': v
                       for k, v in other.items()}}
         torch.cuda.synchronize()
+        traced = [(os.urandom(16).hex(), os.urandom(8).hex())
+                  for _ in reqs]
+        if obs:
+            server.publisher.publish_once()
+            published0 = _prom(server.publisher.path)
         for k in kernels.values():
             k.launches = 0
         engine.events.clear()
@@ -1936,7 +2303,9 @@ def engine_phase(torch, attention, da, quant=False):
         results = [None] * len(reqs)
 
         def post(i):
-            results[i] = _sse_post(port, reqs[i])
+            tid, sid = traced[i]
+            results[i] = _sse_post(port, reqs[i], headers={
+                'traceparent': f'00-{tid}-{sid}-01'} if obs else None)
 
         def start(idx):
             for i in idx:
@@ -1951,6 +2320,9 @@ def engine_phase(torch, attention, da, quant=False):
                 time.sleep(0.01)
 
         threads = []
+        if obs:
+            capture = _time_capture(engine._profiler)
+            profiling.write_trigger(steps=2)
         t_run = time.perf_counter()
         start([0, 1])
         wait_for('a verify dispatch', lambda e: e[0] == 'verify')
@@ -2009,12 +2381,18 @@ def engine_phase(torch, attention, da, quant=False):
         assert hits > 0, 'the shared 1024-token prefix was not reused'
         assert n_verify > 0, 'no verify dispatch ran'
         assert launches == want, (launches, want)
+        if obs:
+            _engine_obs(torch, server, engine, published0, traced, results,
+                        events, n_out, run_s, capture)
         _profile_engine_dispatch(torch, engine, config, batching, label)
     finally:
         server.shutdown()
         server.server_close()
         engine.close()
         thread.join(timeout=30)
+        if obs:
+            del os.environ['SKYTPU_METRICS_DIR']
+            del os.environ['SKYTPU_PROFILE_DIR']
     assert not thread.is_alive() and not engine.thread.is_alive()
     return launches
 
@@ -4000,6 +4378,12 @@ def main() -> int:
         print(f'chip_smoke: the skypilot_torch package is not beside this '
               f'script ({e})', file=sys.stderr)
         return 2
+    # Spans, profiles and published metrics of this run stay inside the
+    # checkout (build/ is ignored by git).
+    state = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         'build', 'smoke_state')
+    shutil.rmtree(state, ignore_errors=True)
+    os.environ['SKYTPU_STATE_DIR'] = state
     smi = smi_line()
     log(f'card: {smi}')
     log(f'torch {torch.__version__} cuda {torch.version.cuda} '

@@ -9,11 +9,15 @@ keeps both in the param dtype). LoRA trains the adapters over a frozen
 base; without LoRA every param trains. ``init_qlora_state`` makes that
 frozen base int8 (QLoRA): the same step runs over it, autograd going
 through ``llama.matmul``'s dequant to the adapters only.
+``instrument_train_step`` wraps a step with the JAX package's step
+metrics, goodput and MFU, the ``train.step`` span and the on-demand
+profiler.
 
 Not here yet (ROADMAP.md): meshes with any axis > 1 (FSDP/TP, the
-``sp`` ring and the ``pp`` pipeline) and ``instrument_train_step``.
+``sp`` ring and the ``pp`` pipeline).
 """
 import dataclasses
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -220,3 +224,126 @@ def build_train_step(config: llama.LlamaConfig,
         return new_state, {'loss': loss.detach(), 'grad_norm': g_norm}
 
     return step
+
+
+def instrument_train_step(step_fn: Callable,
+                          tokens_per_step: Optional[int] = None,
+                          model_config=None,
+                          accelerator: Optional[str] = None,
+                          full_finetune: bool = False
+                          ) -> Callable:
+    """Wrap a ``train_step(state, batch)`` so every call records step
+    time and token throughput into the port's process metrics registry
+    (``skytpu_train_step_seconds`` / ``skytpu_train_tokens_total`` /
+    ``skytpu_train_steps_total`` / ``skytpu_train_tokens_per_sec``) —
+    the port of ``skypilot_tpu.parallel.instrument_train_step``.
+
+    Timing is the interval between successive calls: in a loop that
+    syncs per step (fetching the loss, as ``recipes/finetune`` does),
+    that IS the step time. The first call records nothing, so N calls
+    observe N - 1 intervals. Tokens per step default to
+    ``batch['tokens'].shape`` minus the shifted label column.
+
+    Tracing: inside a trace (the ``SKYTPU_TRACE_CONTEXT`` stamp), every
+    step emits a ``train.step`` span over the SAME interval the
+    histogram observed, and the step's span stays the ambient context
+    until the next call (work recorded between steps nests under it).
+
+    Goodput & MFU: every interval feeds the process goodput accountant —
+    the first as ``compile``, the rest as ``compute``. With
+    ``model_config`` and a card the peak table knows (``accelerator``
+    or the ``SKYTPU_ACCELERATOR`` stamp; ``metrics/goodput.py``) each
+    compute step sets ``skytpu_mfu_ratio`` (4 N FLOPs a token for a
+    frozen-base LoRA step, 6 N with ``full_finetune``) over one card:
+    the port's step runs on one device.
+
+    On-demand profiling: a trigger in the profile dir arms a
+    ``torch.profiler`` capture of the next N steps
+    (``utils/profiling.py``).
+    """
+    from skypilot_torch import trace as trace_lib
+    from skypilot_torch.metrics import goodput as goodput_lib
+    from skypilot_torch.utils import profiling as profiling_lib
+    fams = goodput_lib.train_metrics()
+    step_hist = fams['step_seconds']
+    tokens_total = fams['tokens_total']
+    steps_total = fams['steps_total']
+    tok_s = fams['tokens_per_sec']
+    acct = goodput_lib.accountant()
+    profiler = profiling_lib.StepProfiler('train')
+    model_armed = [False]
+
+    def arm_model(n_tokens: int) -> None:
+        acct.set_model_info(model_config.num_params(), n_tokens,
+                            n_chips=1, accelerator=accelerator,
+                            full_finetune=full_finetune)
+        model_armed[0] = True
+
+    if model_config is not None and tokens_per_step is not None:
+        arm_model(tokens_per_step)
+    last_call: List[Optional[float]] = [None]
+    # Open train.step span: (context, parent, start_wall, ambient token,
+    # step index). Its identity is pre-allocated so work recorded while
+    # it is ambient parents correctly; it is EMITTED when the next call
+    # closes the interval.
+    open_step: List[Optional[tuple]] = [None]
+    step_idx = [0]
+
+    def _tokens_in(batch) -> int:
+        if tokens_per_step is not None:
+            return tokens_per_step
+        try:
+            tokens = batch['tokens']
+            return int(tokens.shape[0] * (tokens.shape[1] - 1))
+        except Exception:  # pylint: disable=broad-except
+            return 0
+
+    def wrapper(state, batch):
+        now = time.perf_counter()
+        now_wall = time.time()
+        n_tokens = _tokens_in(batch)
+        if model_config is not None and not model_armed[0] \
+                and n_tokens:
+            arm_model(n_tokens)
+        if last_call[0] is not None:
+            dt = now - last_call[0]
+            step_hist.observe(dt)
+            acct.observe_step(dt, compile_step=(step_idx[0] == 1))
+            if dt > 0 and n_tokens:
+                tok_s.set(n_tokens / dt)
+            prev = open_step[0]
+            if prev is not None:
+                ctx, parent, start_wall, token, idx = prev
+                trace_lib.reset_current(token)
+                # SAME dt as the histogram observation above.
+                trace_lib.emit_span(ctx, parent, 'train.step',
+                                    start_wall, start_wall + dt,
+                                    attrs={'step': idx,
+                                           'tokens': n_tokens})
+                open_step[0] = None
+        last_call[0] = now
+        parent = trace_lib.current()
+        if parent is not None:
+            ctx = trace_lib.child_context(parent)
+            token = trace_lib.set_current(ctx)
+            open_step[0] = (ctx, parent, now_wall, token, step_idx[0])
+        step_idx[0] += 1
+        steps_total.inc()
+        if n_tokens:
+            tokens_total.inc(n_tokens)
+        profiler.on_step()
+        return step_fn(state, batch)
+
+    # The identity copy by hand (functools.wraps skips attributes the
+    # target lacks): __wrapped__ -> the callable -> its type.
+    target = getattr(step_fn, '__wrapped__', step_fn)
+    wrapper.__name__ = getattr(
+        target, '__name__', type(step_fn).__name__)
+    wrapper.__qualname__ = getattr(
+        target, '__qualname__', wrapper.__name__)
+    wrapper.__doc__ = getattr(target, '__doc__', None)
+    wrapper.__module__ = getattr(
+        target, '__module__', wrapper.__module__)
+    wrapper.__wrapped__ = step_fn
+    wrapper.inner = step_fn
+    return wrapper

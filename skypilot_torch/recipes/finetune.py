@@ -13,11 +13,19 @@ and K3 backward).
     python -m skypilot_torch.recipes.finetune --model tiny --device cpu \\
         --steps 3
 
+The step is wrapped by ``parallel.train.instrument_train_step`` (step
+time, tokens, goodput buckets, MFU, the ``train.step`` span, on-demand
+profiles), and ``main`` publishes the process registry to the host
+agent's textfile dir (``metrics/publish.py``), prices a recovery
+relaunch's stall into goodput and drives the benchmark step callbacks,
+as the JAX recipe does. MFU needs the card's peak: set
+``SKYTPU_ACCELERATOR`` to a name ``metrics/goodput.PEAK_BF16_FLOPS``
+knows.
+
 Not ported yet, and refused with the ROADMAP.md item that brings them:
 ``--tp/--dp/--ep/--sp/--pp`` above 1 and ``--microbatches`` (Queue 1
 items 15-18), ``--checkpoint-dir`` / ``SKYTPU_CHECKPOINT_DIR`` with the
-elastic-resume flags (items 13-14), and the step metrics publisher
-(item 5, ``instrument_train_step``).
+elastic-resume flags (items 13-14).
 """
 import argparse
 import os
@@ -26,7 +34,10 @@ import time
 import numpy as np
 import torch
 
+from skypilot_torch import callbacks
 from skypilot_torch import device as device_lib
+from skypilot_torch.metrics import goodput as goodput_lib
+from skypilot_torch.metrics import publish as publish_lib
 from skypilot_torch.models import llama
 from skypilot_torch.parallel import train as train_lib
 
@@ -102,7 +113,9 @@ def data_iterator(args, vocab_size, rng):
 
 
 def build(args: argparse.Namespace):
-    """(config, state, step_fn, batches, device) for ``args``."""
+    """(config, state, step_fn, batches, device) for ``args``; the step
+    is instrumented (``instrument_train_step``: its calls feed the
+    process metrics registry)."""
     check_args(args)
     dev = device_lib.resolve_device(args.device)
     config = llama.get_config(args.model, max_seq_len=args.seq)
@@ -112,7 +125,10 @@ def build(args: argparse.Namespace):
     state = train_lib.init_train_state(
         config, seed=0, optimizer=optimizer, param_dtype=param_dtype,
         lora_rank=None if args.full_ft else args.lora_rank, device=dev)
-    step_fn = train_lib.build_train_step(config, optimizer=optimizer)
+    step_fn = train_lib.instrument_train_step(
+        train_lib.build_train_step(config, optimizer=optimizer),
+        tokens_per_step=args.batch * args.seq, model_config=config,
+        full_finetune=args.full_ft)
     batches = data_iterator(args, config.vocab_size,
                             np.random.default_rng(0))
     return config, state, step_fn, batches, dev
@@ -125,12 +141,19 @@ def main(argv=None) -> None:
           f'params={config.num_params() / 1e9:.2f}B '
           f'{"full-ft" if args.full_ft else f"lora-rank={args.lora_rank}"}',
           flush=True)
+    publisher = publish_lib.start_publisher('train')
+    # A recovery relaunch: price the dead time since the controller saw
+    # the failure into the goodput `recovery_stall` bucket.
+    goodput_lib.note_recovery_stall_from_env()
+    callbacks.init(total_steps=args.steps)
     tokens_per_step = args.batch * args.seq
     t_start = time.time()
     for step in range(args.steps):
         batch = {'tokens': torch.from_numpy(next(batches)).to(dev)}
+        callbacks.step_begin()
         state, metrics = step_fn(state, batch)
         loss = float(metrics['loss'])  # waits for the step
+        callbacks.step_end()
         if step % args.log_every == 0 or step == args.steps - 1:
             dt = time.time() - t_start
             tps = (step + 1) * tokens_per_step / dt
@@ -138,6 +161,7 @@ def main(argv=None) -> None:
                   f'grad_norm={float(metrics["grad_norm"]):.3f} '
                   f'tokens/s={tps:.0f} tokens/s/chip={tps:.0f}',
                   flush=True)
+    publisher.close()
     print('finetune done.', flush=True)
 
 

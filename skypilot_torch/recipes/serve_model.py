@@ -40,9 +40,19 @@ replica does.
 
 ``--quant int8`` serves int8 weights (``models/quant.init_quantized``,
 leaf by leaf on the device); ``--kv-int8`` gives the engine an int8 KV
-pool (K4 and K5 run their int8 forms). ``--tp > 1``,
-``--checkpoint-dir``, tracing spans and the metrics publisher are not
-ported yet (ROADMAP.md).
+pool (K4 and K5 run their int8 forms).
+
+Observability, as the JAX replica's: the process registry (the engine's
+``skytpu_batch_*`` series and the card's ``skytpu_device_hbm_*`` gauges)
+is published to the host agent's textfile dir (``SKYTPU_METRICS_DIR``,
+else ``$SKYTPU_RUNTIME_DIR/metrics.d``, else
+``$SKYTPU_STATE_DIR/metrics.d``); each request adopts the load
+balancer's ``traceparent`` header and runs under a ``replica.generate``
+span, the engine's ``batch.*`` spans beneath it, written to the
+``replica`` sink under ``SKYTPU_STATE_DIR/trace``; a trigger in the
+profile dir arms a capture of the engine's next decode dispatches.
+
+``--tp > 1`` and ``--checkpoint-dir`` are not ported yet (ROADMAP.md).
 """
 import argparse
 import json
@@ -58,6 +68,8 @@ import torch
 
 from skypilot_torch import device as device_lib
 from skypilot_torch import exceptions
+from skypilot_torch import trace as trace_lib
+from skypilot_torch.metrics import publish as publish_lib
 from skypilot_torch.models import decode, llama, quant
 from skypilot_torch.serve import batching
 from skypilot_torch.serve import overload as overload_lib
@@ -287,14 +299,29 @@ def _load_grammar_vocab(path: str) -> Optional[list]:
     return vocab
 
 
+class ReplicaServer(ThreadingHTTPServer):
+    """The replica's HTTP server; ``server_close`` also stops the
+    process's metrics publisher (``publisher``) and removes its
+    textfile."""
+    daemon_threads = True
+    engine = None
+    publisher = None
+
+    def server_close(self):
+        super().server_close()
+        if self.publisher is not None:
+            self.publisher.close()
+
+
 def build_server(args: argparse.Namespace
-                 ) -> Tuple[ThreadingHTTPServer,
-                            Callable[..., List[int]]]:
+                 ) -> Tuple[ReplicaServer, Callable[..., List[int]]]:
     """Build the model (and the batching engine with ``--slots > 0``),
-    warm it up, and bind the HTTP server on ``args.port`` (0 picks a
-    free one). Returns (server, generate); ``server.engine`` is the
-    engine or None. The caller runs ``server.serve_forever()``, then
-    shuts the server down and closes the engine."""
+    start publishing the process registry, warm up, and bind the HTTP
+    server on ``args.port`` (0 picks a free one). Returns (server,
+    generate); ``server.engine`` is the engine or None. The caller runs
+    ``server.serve_forever()``, then shuts the server down, closes it
+    (which stops the publisher) and closes the engine."""
+    trace_lib.set_component('replica')
     if args.tp > 1:
         raise NotImplementedError(
             f'--tp {args.tp}: tensor-parallel serving is not ported yet; '
@@ -329,6 +356,9 @@ def build_server(args: argparse.Namespace
             adapter_preload=preload or None,
             sampling=args.sampling == 'on',
             grammar_vocab=_load_grammar_vocab(args.grammar_vocab))
+    # The engine's series and the card's memory gauges, to the host
+    # agent's /metrics through the textfile bridge.
+    publisher = publish_lib.start_publisher('replica')
 
     def generate(prompt_ids, max_new, eos_id=None) -> List[int]:
         """Greedy generation. On the engine, concurrent requests share
@@ -446,6 +476,19 @@ def build_server(args: argparse.Namespace
             except (ValueError, KeyError, TypeError) as e:
                 self._json({'error': f'bad request: {e}'}, 400)
                 return
+            # Adopt the load balancer's traceparent hop (attach(None) is
+            # a barrier: an untraced request must not inherit this
+            # process's own launch-time trace context).
+            ctx = trace_lib.parse_traceparent(
+                self.headers.get(trace_lib.TRACEPARENT_HEADER))
+            with trace_lib.attach(ctx), \
+                    trace_lib.span('replica.generate',
+                                   attrs={'prompt_len':
+                                          len(req['prompt_ids']),
+                                          'max_new': req['max_new']}):
+                self._generate_response(req)
+
+        def _generate_response(self, req):
             if engine is not None:
                 req['deadline'] = _deadline(self.headers, req)
                 if req['stream']:
@@ -566,12 +609,17 @@ def build_server(args: argparse.Namespace
     # otherwise pay the kernel build and the allocator's first growth.
     # max_new=2 so the engine runs a decode dispatch too, greedy and
     # sampled.
-    generate([1, 2, 3], 2)
-    if engine is not None and engine.sampling:
-        engine.generate([1, 2, 3], 2, temperature=1.0, top_p=0.9, seed=0)
-    server = ThreadingHTTPServer(('0.0.0.0', args.port), Handler)
-    server.daemon_threads = True
+    try:
+        generate([1, 2, 3], 2)
+        if engine is not None and engine.sampling:
+            engine.generate([1, 2, 3], 2, temperature=1.0, top_p=0.9,
+                            seed=0)
+        server = ReplicaServer(('0.0.0.0', args.port), Handler)
+    except BaseException:
+        publisher.close()
+        raise
     server.engine = engine
+    server.publisher = publisher
     return server, generate
 
 

@@ -82,9 +82,16 @@ scan), and a rejected draft needs no undo: its rows sit past the new
 and tokens stay on the device, and block tables go up as one small
 copy per change.
 
-Not ported yet: the metrics gauges and counters and the tracing
-spans (the metrics-and-tracing slice, ROADMAP.md); the engine's
-``events`` log carries what they would count.
+Observability, as the JAX engine's (docs/observability.md): the
+``skytpu_batch_*`` families of ``_engine_metrics`` (and
+``_adapter_metrics`` on an engine with an adapter registry) are updated
+where the JAX engine updates them, the per-iteration gauge sweep
+(``_set_gauges``) refreshes occupancy, queue, KV-pool and adapter gauges
+and the two windowed ratio gauges, a request submitted inside a trace
+gets ``batch.queue_wait``, ``batch.prefill``, ``batch.first_token`` and
+``batch.decode`` spans under the context captured at submit, and a
+``StepProfiler('decode')`` ticks once per decode or verify dispatch. The
+``events`` log stays beside them.
 """
 import array
 import collections
@@ -99,6 +106,8 @@ import numpy as np
 import torch
 
 from skypilot_torch import exceptions
+from skypilot_torch import metrics as metrics_lib
+from skypilot_torch import trace as trace_lib
 from skypilot_torch.models import decode, llama
 from skypilot_torch.ops import decode_attention as da
 from skypilot_torch.serve import kv_pool as kv_pool_lib
@@ -107,10 +116,17 @@ from skypilot_torch.serve.adapters import ResidentAdapterSet
 from skypilot_torch.serve.sampling import accept_tokens
 from skypilot_torch.serve.sampling import grammar as grammar_lib
 from skypilot_torch.serve.sampling import sample as sample_lib
+from skypilot_torch.utils import profiling as profiling_lib
 
 logger = logging.getLogger(__name__)
 
 Params = Dict[str, Any]
+
+# Trailing windows of the exported prefix hit-ratio and speculative
+# accept-ratio gauges: the evaluation windows of the alert rules that
+# read them.
+PREFIX_RATIO_WINDOW_SECONDS = 900.0
+SPEC_RATIO_WINDOW_SECONDS = 900.0
 
 # Self-speculative n-gram drafting (prompt lookup): longest suffix
 # n-gram tried first down to a bigram minimum, and the history scan is
@@ -582,6 +598,187 @@ class _Request:
         # Tokens already emitted — preemption resume state: a requeued
         # request re-prefills prompt + generated.
         self.generated: List[int] = []
+        self.admitted_once = False
+        self.preemptions = 0
+        # Trace context captured at submit: the engine loop runs on its
+        # own thread, which contextvars do not reach, so the request's
+        # spans are recorded under this (None: untraced, no spans).
+        self.trace_ctx = trace_lib.current()
+
+
+def _engine_metrics():
+    """The engine's metric families, letter for letter the JAX
+    engine's (get-or-create: several engines in one process share
+    them; see docs/observability.md)."""
+    reg = metrics_lib.registry()
+    return {
+        'queue_wait': reg.histogram(
+            'skytpu_batch_queue_wait_seconds',
+            'submit() to admission (first prefill chunk).'),
+        'ttft': reg.histogram(
+            'skytpu_batch_ttft_seconds',
+            'submit() to first generated token.'),
+        'tokens': reg.counter(
+            'skytpu_batch_decode_tokens_total',
+            'Generated tokens emitted to clients.'),
+        'requests': reg.counter(
+            'skytpu_batch_requests_total',
+            'Requests admitted into the decode batch.'),
+        'tok_s': reg.gauge(
+            'skytpu_batch_decode_tokens_per_sec',
+            'Decode throughput of the latest dispatch '
+            '(active rows * steps / wall time).'),
+        'occupancy': reg.gauge(
+            'skytpu_batch_slots_occupied',
+            'Decode rows currently holding a request.'),
+        'slots': reg.gauge(
+            'skytpu_batch_slots_total',
+            'Fixed decode row count of the engine.'),
+        'kv_bytes': reg.gauge(
+            'skytpu_batch_kv_cache_bytes',
+            'Resident KV block-pool allocation of the engine '
+            '(codes + scales) — the HBM the pool pins whether or '
+            'not its blocks are allocated.'),
+        'kv_used': reg.gauge(
+            'skytpu_batch_kv_cache_used_bytes',
+            'Bytes of KV blocks currently allocated to admitted '
+            'requests — real block accounting (allocated blocks x '
+            'bytes/block), not a slot-occupancy estimate.'),
+        'kv_blocks_total': reg.gauge(
+            'skytpu_batch_kv_blocks_total',
+            'Allocatable KV blocks in the pool (excludes the '
+            'reserved scratch block).'),
+        'kv_blocks_used': reg.gauge(
+            'skytpu_batch_kv_blocks_used',
+            'KV blocks currently allocated to admitted requests.'),
+        'preemptions': reg.counter(
+            'skytpu_batch_preemptions_total',
+            'Requests preempted (blocks reclaimed, request '
+            'requeued) because the KV pool ran out of free blocks.'),
+        'kv_cached': reg.gauge(
+            'skytpu_batch_kv_cache_cached_bytes',
+            'Bytes of refcount-0 prefix-cache blocks — RECLAIMABLE '
+            'capacity holding reusable KV content. A pool reading '
+            'full on kv_cache_bytes but mostly cached here is '
+            'healthy, not exhausted.'),
+        'prefix_hits': reg.counter(
+            'skytpu_batch_prefix_hits_total',
+            'KV blocks reused from the prefix cache at admission '
+            '(prefill skipped for their tokens).'),
+        'prefix_misses': reg.counter(
+            'skytpu_batch_prefix_misses_total',
+            'KV blocks freshly allocated and prefilled at admission '
+            '(no cache hit).'),
+        'prefix_cached_blocks': reg.gauge(
+            'skytpu_batch_prefix_cached_blocks',
+            'Refcount-0 blocks currently holding registered '
+            '(reusable) prefix-cache content.'),
+        'spec_proposed': reg.counter(
+            'skytpu_batch_spec_proposed_total',
+            'Draft tokens proposed by the self-speculative n-gram '
+            'drafter and carried into a verify dispatch.'),
+        'spec_accepted': reg.counter(
+            'skytpu_batch_spec_accepted_total',
+            'Proposed draft tokens accepted by verification — the '
+            'argmax match for greedy rows, the speculative-'
+            'sampling rule for sampled rows (each accepted draft '
+            'is one decode forward the engine did not have to '
+            'run).'),
+        'spec_tokens_per_forward': reg.gauge(
+            'skytpu_batch_spec_tokens_per_forward',
+            'Tokens emitted per row by the latest verify dispatch '
+            '(accepted drafts + the bonus token; 1.0 == plain '
+            'decode, draft_k+1 == full acceptance).'),
+        'spec_accept_rate': reg.histogram(
+            'skytpu_batch_spec_accept_rate',
+            'Per-row accepted/proposed fraction of each verify '
+            'round, labeled by decode mode — sampled rows accept '
+            'by the speculative-sampling rule '
+            '(serve/sampling/accept.py), greedy rows by argmax '
+            'match. A sampled-mode distribution sitting far below '
+            'greedy on the same traffic means drafts are being '
+            'rejected by randomness, not by model disagreement.',
+            ('mode',),
+            buckets=(0.1, 0.25, 0.5, 0.75, 0.9, 1.0)),
+        'sampled_requests': reg.counter(
+            'skytpu_batch_sampled_requests_total',
+            'Admitted requests decoding with temperature > 0 '
+            '(counter-keyed sampled decode, serve/sampling/).'),
+        'constrained_requests': reg.counter(
+            'skytpu_batch_constrained_requests_total',
+            'Admitted requests decoding under a response_format '
+            'grammar (structured decoding, serve/sampling/'
+            'grammar.py).'),
+        'shed': reg.counter(
+            'skytpu_batch_shed_total',
+            'Requests refused typed at submit() by bounded '
+            'admission, by reason: which overload knob tripped '
+            '(max_queued_requests / max_queued_tokens) or '
+            'priority_evict (a queued batch request shed to make '
+            'room for an arriving interactive one).',
+            ('reason',)),
+        'cancelled': reg.counter(
+            'skytpu_batch_cancelled_total',
+            'Requests cancelled by the client (broken connection) '
+            '— their KV blocks reclaimed at the next iteration '
+            'boundary through the preemption release path.'),
+        'deadline_exceeded': reg.counter(
+            'skytpu_batch_deadline_exceeded_total',
+            'Requests aborted typed because their end-to-end '
+            'deadline expired at admission or between decode '
+            'iterations (serve_model answers 504).'),
+        'loop_hang': reg.counter(
+            'skytpu_batch_loop_hang_total',
+            'close() observed the engine loop thread still alive '
+            'after its join timeout — a wedged dispatch is holding '
+            'the loop (likely a hung device call).'),
+        'queued_requests': reg.gauge(
+            'skytpu_batch_queued_requests',
+            'Requests waiting in the pending (pre-admission) '
+            'queue.'),
+        'queued_tokens': reg.gauge(
+            'skytpu_batch_queued_tokens',
+            'Prompt + resume tokens held by the pending queue — '
+            'the currency of the max_queued_tokens admission '
+            'bound.'),
+    }
+
+
+def _adapter_metrics():
+    """Adapter-serving metric families (serve/adapters/), registered
+    ONLY by engines built with an adapter registry — an engine
+    serving no adapters must not export fake zero series (the
+    hit-ratio-gauge precedent in _engine_metrics)."""
+    reg = metrics_lib.registry()
+    return {
+        'resident': reg.gauge(
+            'skytpu_batch_adapters_resident',
+            'LoRA adapters currently device-loaded in the stacked '
+            'gather buffers (slot 0, the base-model identity, not '
+            'counted).'),
+        'capacity': reg.gauge(
+            'skytpu_batch_adapters_capacity',
+            'Adapter slots in the stacked gather buffers (fixed at '
+            'engine build; resident == capacity means the next cold '
+            'load must evict).'),
+        'loads': reg.counter(
+            'skytpu_batch_adapter_loads_total',
+            'Adapter cold loads completed and installed into a '
+            'device slot (each one had requests waiting on it or '
+            'was an operator preload).'),
+        'evictions': reg.counter(
+            'skytpu_batch_adapter_evictions_total',
+            'Resident adapters evicted (LRU over refcount-0 '
+            'adapters only — a pinned, in-flight adapter is never '
+            'evicted) to make room for a cold load. A high rate '
+            'with a steady working set is thrash: capacity is too '
+            'small for the adapter mix (the adapter-thrash alert).'),
+        'load_seconds': reg.histogram(
+            'skytpu_batch_adapter_load_seconds',
+            'Cold-load wall time: ensure_loading kick to device '
+            'install — the latency a cold-adapter request pays on '
+            'top of normal queueing (its TTFT floor).'),
+    }
 
 
 class BatchingEngine:
@@ -667,6 +864,17 @@ class BatchingEngine:
         # Prefill tokens spent in the CURRENT scheduler iteration — the
         # verify dispatch budgets its draft grants against the rest.
         self._prefill_spent_iter = 0
+        # Engine-local cumulatives and trailing windows of (ts, a, b)
+        # snapshots (~1/s) behind the two windowed ratio gauges: the
+        # counter FAMILIES are process-global, the ratios this engine's.
+        self._spec_proposed_local = 0
+        self._spec_accepted_local = 0
+        self._spec_window: 'collections.deque' = collections.deque()
+        self._spec_ratio_gauge = None
+        self._prefix_hits_local = 0
+        self._prefix_misses_local = 0
+        self._prefix_window: 'collections.deque' = collections.deque()
+        self._hit_ratio_gauge = None
         # Weighted deficit round-robin over the prefill token budget,
         # by (tenant, priority) class.
         self.tenant_weights = dict(tenant_weights or {})
@@ -716,6 +924,9 @@ class BatchingEngine:
         self.slot_total = [0] * slots        # prompt length this pass
         self.slot_seq = [0] * slots          # admission order
         self._admit_seq = 0
+        # batch.prefill span state: first chunk's wall start, chunks.
+        self._prefill_t0: List[Optional[float]] = [None] * slots
+        self._prefill_chunks = [0] * slots
         self.pending: 'collections.deque[_Request]' = \
             collections.deque()
         self._pending_lock = threading.Lock()
@@ -724,6 +935,7 @@ class BatchingEngine:
         # load (engine-loop state: _poll_adapter_loads re-queues them
         # the iteration their weights land).
         self._adapters: Optional[ResidentAdapterSet] = None
+        self._adapter_metrics = None
         self.slot_adapter = [0] * slots
         self._adapter_wait: List[_Request] = []
         if adapter_registry is not None and adapter_capacity > 0:
@@ -735,11 +947,15 @@ class BatchingEngine:
                 adapter_registry, adapter_capacity,
                 (wq.shape[0], wq.shape[1], wq.shape[2], wv.shape[2]),
                 device=self.device)
+            self._adapter_metrics = _adapter_metrics()
+            self._adapter_metrics['capacity'].set(adapter_capacity)
             if adapter_preload:
                 # Before the loop starts: a preload list names adapters
                 # the operator expects live at ready time, so anything
                 # unusable raises HERE.
                 self._adapters.preload(adapter_preload)
+                self._adapter_metrics['loads'].inc(
+                    self._adapters.resident_count())
         # Overload control: bounded admission and a default deadline.
         # _queued_tokens mirrors the pending queue's token content
         # (updated under _pending_lock wherever the deque changes);
@@ -762,6 +978,12 @@ class BatchingEngine:
         # Set on engine DEATH (never on clean close): submits after
         # the loop died get it ahead of their sentinel.
         self._death_exc: Optional[BaseException] = None
+        self._metrics = _engine_metrics()
+        self._metrics['slots'].set(slots)
+        self._cache_bytes = self.pool.nbytes
+        self._metrics['kv_bytes'].set(self._cache_bytes)
+        self._metrics['kv_blocks_total'].set(self.pool.usable_blocks)
+        self._profiler = profiling_lib.StepProfiler('decode')
         self.thread = threading.Thread(target=self._loop, daemon=True)
         self.thread.start()
 
@@ -876,6 +1098,7 @@ class BatchingEngine:
         if req.deadline is not None and time.time() >= req.deadline:
             # Already past its deadline: refuse now rather than queue
             # work nobody waits for.
+            self._metrics['deadline_exceeded'].inc()
             self._fail_request(
                 req, 'deadline expired before admission',
                 exc=exceptions.DeadlineExceededError(
@@ -915,12 +1138,14 @@ class BatchingEngine:
                 self.pending.append(req)
                 self._queued_tokens += cost
         if victim is not None:
+            self._metrics['shed'].labels(reason='priority_evict').inc()
             msg = 'shed from the pending queue to admit an interactive ' \
                   'request'
             self._fail_request(victim, msg,
                                exc=exceptions.EngineOverloadedError(
                                    msg, retry_after_s=self._retry_after()))
         if reason is not None:
+            self._metrics['shed'].labels(reason=reason).inc()
             self._fail_request(
                 req, f'pending queue full ({reason})',
                 exc=exceptions.EngineOverloadedError(
@@ -968,6 +1193,8 @@ class BatchingEngine:
         self.wake.set()
         self.thread.join(timeout=10)
         if self.thread.is_alive():
+            # A wedged dispatch is holding the loop past the join.
+            self._metrics['loop_hang'].inc()
             logger.error(
                 'Batching engine loop thread still alive after close() '
                 'join timeout — a dispatch is likely wedged.')
@@ -1206,6 +1433,8 @@ class BatchingEngine:
         FRONT of the pending queue (it keeps its submit time, so it
         ages toward never-preempted oldest)."""
         req = self.slot_req[row]
+        req.preemptions += 1
+        self._metrics['preemptions'].inc()
         self.events.append(('preempt', row, len(req.generated)))
         logger.info(
             'KV pool exhausted: preempting request in row %d (%d blocks '
@@ -1313,10 +1542,14 @@ class BatchingEngine:
         became resident, at the FRONT in their order."""
         if self._adapters is None:
             return
-        ready, evicted, _ = self._adapters.poll()
+        ready, evicted, durations = self._adapters.poll()
         if ready:
+            self._adapter_metrics['loads'].inc(len(ready))
+            for sec in durations:
+                self._adapter_metrics['load_seconds'].observe(sec)
             self.events.append(('adapter_load', tuple(ready)))
         if evicted:
+            self._adapter_metrics['evictions'].inc(len(evicted))
             self.events.append(('adapter_evict', tuple(evicted)))
         if not self._adapter_wait:
             return
@@ -1326,9 +1559,11 @@ class BatchingEngine:
         admit: List[_Request] = []
         for req in self._adapter_wait:
             if req.cancelled:
+                self._metrics['cancelled'].inc()
                 req.out.put(None)
                 continue
             if req.deadline is not None and now >= req.deadline:
+                self._metrics['deadline_exceeded'].inc()
                 self._fail_request(
                     req, 'deadline expired waiting for adapter cold load',
                     exc=exceptions.DeadlineExceededError(
@@ -1375,9 +1610,11 @@ class BatchingEngine:
                 return
             if req.cancelled:
                 # Client gone before admission: sentinel only, no pool.
+                self._metrics['cancelled'].inc()
                 req.out.put(None)
                 continue
             if req.deadline is not None and time.time() >= req.deadline:
+                self._metrics['deadline_exceeded'].inc()
                 self._fail_request(
                     req, 'deadline expired before admission',
                     exc=exceptions.DeadlineExceededError(
@@ -1433,9 +1670,28 @@ class BatchingEngine:
                 # Over PROMPT blocks only; a COW partial hit counts as a
                 # miss (the block is copied and partly re-prefilled).
                 hit = len(matched)
+                miss = max(0, self.pool.blocks_for(t0) - hit)
+                self._metrics['prefix_hits'].inc(hit)
+                self._metrics['prefix_misses'].inc(miss)
+                self._prefix_hits_local += hit
+                self._prefix_misses_local += miss
                 req.prefix_hit_blocks += hit
-                req.prefix_miss_blocks += max(
-                    0, self.pool.blocks_for(t0) - hit)
+                req.prefix_miss_blocks += miss
+            if not req.admitted_once:
+                # First admission only: a preempted request's
+                # re-admission delay is service disruption, not queueing.
+                t_admit = time.time()
+                self._metrics['queue_wait'].observe(
+                    t_admit - req.submitted_at)
+                trace_lib.record_span('batch.queue_wait',
+                                      req.submitted_at, t_admit,
+                                      req.trace_ctx, attrs={'slot': row})
+                req.admitted_once = True
+                self._metrics['requests'].inc()
+                if self.sampling and req.temperature > 0.0:
+                    self._metrics['sampled_requests'].inc()
+                if req.grammar is not None:
+                    self._metrics['constrained_requests'].inc()
             # Drain-rate sample for the Retry-After estimate.
             self._admit_times.append(time.time())
             if req.adapter is not None:
@@ -1455,6 +1711,8 @@ class BatchingEngine:
             self.slot_total[row] = t0
             self.slot_left[row] = 0
             self.slot_len[row] = 0
+            self._prefill_t0[row] = None
+            self._prefill_chunks[row] = 0
             self._admit_seq += 1
             self.slot_seq[row] = self._admit_seq
             self._set_table_row(row)
@@ -1492,6 +1750,8 @@ class BatchingEngine:
             return 0
         bucket = self._chunk_bucket(t0 - off)
         real = min(t0 - off, bucket)
+        if self._prefill_t0[row] is None:
+            self._prefill_t0[row] = time.time()
         # The logical prompt is prompt_ids + generated.
         n_p = len(req.prompt_ids)
         if off + real <= n_p:
@@ -1508,6 +1768,7 @@ class BatchingEngine:
             self.block_tables[row], off, real, self.config,
             self.block_size, **self._adapter_args([self.slot_adapter[row]]))
         self.slot_off[row] = off + real
+        self._prefill_chunks[row] += 1
         self.events.append(('prefill_chunk', row, off + real, t0))
         if self.slot_off[row] >= t0:
             self._finish_prefill(row, logits)
@@ -1644,9 +1905,22 @@ class BatchingEngine:
                 allowed))
         else:
             first = int(logits[0].argmax())   # waits for the prefill
+        # The int() above synchronizes, so these are real wall times.
+        t_first = time.time()
+        trace_lib.record_span('batch.prefill', self._prefill_t0[row],
+                              t_first, req.trace_ctx,
+                              attrs={'prompt_len': t0,
+                                     'chunks': self._prefill_chunks[row]})
+        if not req.generated:
+            # A first admission (a resumed request's first token went
+            # out before its preemption).
+            trace_lib.record_span('batch.first_token', req.submitted_at,
+                                  t_first, req.trace_ctx)
+            self._metrics['ttft'].observe(t_first - req.submitted_at)
         self.pos[row] = t0
         self.tokens[row] = first
         self.slot_len[row] = t0
+        self._metrics['tokens'].inc()
         req.out.put(first)
         req.generated.append(first)
         if req.grammar is not None:
@@ -1801,6 +2075,8 @@ class BatchingEngine:
                   if self.slot_req[i] is not None}
         if drafts:
             return self._run_verify_dispatch(active_rows, drafts)
+        # On-demand profiling: one "step" per decode dispatch.
+        self._profiler.on_step()
         # Fixed dispatch length: rows that finish mid-dispatch overrun
         # harmlessly — their extra tokens are never emitted and their
         # overrun writes go to unallocated-table/scratch slots.
@@ -1810,6 +2086,7 @@ class BatchingEngine:
              and self.slot_left[i] > 0
              for i in range(self.slots)], torch.bool)
         self._sync_tables()
+        t_dispatch = time.perf_counter()
         toks, self.caches, self.pos = decode_steps_paged(
             self.params, self.tokens, self.caches, self.block_tables,
             self.pos, active, self.config, n, self.block_size,
@@ -1820,16 +2097,32 @@ class BatchingEngine:
                 self.slot_len[i] = min(self.slot_len[i] + n,
                                        self.max_seq)
         host_toks = toks.cpu().tolist()   # the dispatch's one sync
+        dispatch_s = time.perf_counter() - t_dispatch
+        if dispatch_s > 0:
+            # The sync above makes this real decode wall time for
+            # len(active_rows) * n tokens.
+            self._metrics['tok_s'].set(len(active_rows) * n / dispatch_s)
         self.events.append(('decode', len(active_rows), n))
+        # One batch.decode span per traced request per dispatch, all on
+        # the dispatch's wall window.
+        t_chunk_end = time.time()
+        t_chunk_start = t_chunk_end - dispatch_s
+        emitted = 0
         for i in active_rows:
-            self._emit_tokens(i, host_toks[i][:n])
+            emitted += self._emit_tokens(i, host_toks[i][:n],
+                                         t_chunk_start, t_chunk_end)
+        if emitted:
+            self._metrics['tokens'].inc(emitted)
         return True
 
-    def _emit_tokens(self, row: int, toks) -> int:
+    def _emit_tokens(self, row: int, toks, t_start: float,
+                     t_end: float) -> int:
         """Shared emission tail for decode AND verify dispatches: push
         tokens to the client in order until EOS or the request's
-        budget, tick the speculation re-probe cooldown, and retire the
-        row when done. Returns the number of tokens emitted."""
+        budget, record the request's ``batch.decode`` span over
+        [t_start, t_end], tick the speculation re-probe cooldown, and
+        retire the row when done. Returns the number of tokens
+        emitted."""
         req = self.slot_req[row]
         done = False
         row_emitted = 0
@@ -1848,6 +2141,10 @@ class BatchingEngine:
             if int(t) == req.eos_id:
                 done = True
                 break
+        if row_emitted:
+            trace_lib.record_span(
+                'batch.decode', t_start, t_end, req.trace_ctx,
+                attrs={'tokens': row_emitted, 'slot': row})
         req.spec_cooldown = max(0, req.spec_cooldown - row_emitted)
         if done or self.slot_left[row] <= 0:
             req.out.put(None)
@@ -1876,7 +2173,9 @@ class BatchingEngine:
             toks[i][0] = req.generated[-1]
             toks[i][1:1 + len(d)] = d
             n_real[i] = 1 + len(d)
+        self._profiler.on_step()
         self._sync_tables()
+        t_dispatch = time.perf_counter()
         preds, accepted, self.pos, self.tokens, self.caches = \
             verify_step_paged(
                 self.params, self._h2d(toks, torch.int32), self.caches,
@@ -1886,6 +2185,10 @@ class BatchingEngine:
                 sampling=self._verify_sampling_args(toks, n_real))
         # The dispatch's one sync: predictions and counts together.
         host = torch.cat([preds, accepted[:, None]], dim=1).cpu().tolist()
+        dispatch_s = time.perf_counter() - t_dispatch
+        t_chunk_end = time.time()
+        t_chunk_start = t_chunk_end - dispatch_s
+        emitted = 0
         proposed_total = 0
         accepted_total = 0
         for i in active_rows:
@@ -1895,6 +2198,10 @@ class BatchingEngine:
             if d:
                 proposed_total += len(d)
                 accepted_total += a
+                self._metrics['spec_accept_rate'].labels(
+                    mode='sampled' if (self.sampling
+                                       and req.temperature > 0.0)
+                    else 'greedy').observe(a / len(d))
                 req.spec_window.append((len(d), a))
                 new_k = update_spec_k(req.spec_k, req.spec_window,
                                       self.draft_k)
@@ -1916,15 +2223,28 @@ class BatchingEngine:
             # device already advanced pos/tokens by exactly this.
             self.slot_len[i] = min(self.slot_len[i] + a + 1,
                                    self.max_seq)
-            self._emit_tokens(i, host[i][:a + 1])
+            emitted += self._emit_tokens(i, host[i][:a + 1],
+                                         t_chunk_start, t_chunk_end)
             if self.slot_req[i] is not None and a < len(d):
                 self._trim_blocks(i)
+        if dispatch_s > 0:
+            self._metrics['tok_s'].set(emitted / dispatch_s)
+        if proposed_total:
+            self._metrics['spec_proposed'].inc(proposed_total)
+            self._spec_proposed_local += proposed_total
+        if accepted_total:
+            self._metrics['spec_accepted'].inc(accepted_total)
+        self._spec_accepted_local += accepted_total
+        self._metrics['spec_tokens_per_forward'].set(
+            emitted / max(1, len(active_rows)))
         # 'decode' first for the interleaving contract (a verify IS
         # this iteration's decode dispatch); 'verify' carries the
         # speculation accounting.
         self.events.append(('decode', len(active_rows)))
         self.events.append(('verify', len(drafts), proposed_total,
                             accepted_total))
+        if emitted:
+            self._metrics['tokens'].inc(emitted)
         return True
 
     # -- overload sweep ---------------------------------------------------
@@ -1949,10 +2269,12 @@ class BatchingEngine:
                 req.cancelled = True
             if req.cancelled:
                 self.events.append(('cancel', row, len(req.generated)))
+                self._metrics['cancelled'].inc()
                 self._release_row(row)
                 req.out.put(None)
             elif req.deadline is not None and now >= req.deadline:
                 self.events.append(('deadline', row, len(req.generated)))
+                self._metrics['deadline_exceeded'].inc()
                 self._release_row(row)
                 self._fail_request(
                     req, 'deadline expired mid-decode',
@@ -1982,12 +2304,86 @@ class BatchingEngine:
                         self._queue_cost(r) for r in kept)
         for req in dropped:
             if req.cancelled:
+                self._metrics['cancelled'].inc()
                 req.out.put(None)
             else:
+                self._metrics['deadline_exceeded'].inc()
                 self._fail_request(
                     req, 'deadline expired while queued',
                     exc=exceptions.DeadlineExceededError(
                         'deadline expired while queued'))
+
+    # -- gauges -----------------------------------------------------------
+
+    def _set_gauges(self) -> None:
+        """The per-iteration gauge sweep: occupancy, the pending queue,
+        the pool (used = referenced blocks; cached = refcount-0,
+        reclaimable), resident adapters and the two windowed ratios."""
+        self._metrics['occupancy'].set(sum(
+            1 for r in self.slot_req if r is not None))
+        with self._pending_lock:
+            queued_reqs = len(self.pending)
+            queued_toks = self._queued_tokens
+        self._metrics['queued_requests'].set(queued_reqs)
+        self._metrics['queued_tokens'].set(queued_toks)
+        self._metrics['kv_blocks_used'].set(self.pool.used_blocks)
+        self._metrics['kv_used'].set(
+            self.pool.used_blocks * self.pool.block_bytes)
+        self._metrics['kv_cached'].set(
+            self.pool.cached_blocks * self.pool.block_bytes)
+        self._metrics['prefix_cached_blocks'].set(
+            self.pool.cached_blocks)
+        if self._adapters is not None:
+            self._adapter_metrics['resident'].set(
+                self._adapters.resident_count())
+        if self.prefix_caching:
+            self._hit_ratio_gauge = self._windowed_ratio(
+                self._prefix_window, self._prefix_hits_local,
+                self._prefix_hits_local + self._prefix_misses_local,
+                PREFIX_RATIO_WINDOW_SECONDS, self._hit_ratio_gauge,
+                'skytpu_batch_prefix_hit_ratio',
+                'Fraction of prompt KV blocks served from the prefix '
+                'cache at admission over the trailing window (a '
+                'windowed rate, not a since-boot cumulative — the '
+                'prefix-hit-ratio-low alert needs regressions visible '
+                'within its window).')
+        if self.speculative:
+            self._spec_ratio_gauge = self._windowed_ratio(
+                self._spec_window, self._spec_accepted_local,
+                self._spec_proposed_local, SPEC_RATIO_WINDOW_SECONDS,
+                self._spec_ratio_gauge, 'skytpu_batch_spec_accept_ratio',
+                'Accepted/proposed draft tokens over the trailing '
+                'window (a windowed rate — the spec-accept-rate-low '
+                'alert needs collapses visible within its window). '
+                'LAZY: only exported by a speculative engine that '
+                'proposed drafts in-window.')
+
+    @staticmethod
+    def _windowed_ratio(win, num: int, den: int, window_s: float, gauge,
+                        name: str, help_text: str):
+        """One windowed ratio gauge (the JAX engine's contract): append
+        a (ts, num, den) snapshot at most once a second, prune to
+        ``window_s``, and set ``name`` to the in-window delta ratio.
+        Created lazily (no fake 0 before traffic), re-resolved by
+        get-or-create on every write (a sibling engine's idle sweep may
+        have unregistered the process-global family), and unregistered
+        once the window holds no traffic, so an idle replica exports no
+        frozen ratio. Returns the gauge, or None while idle."""
+        now = time.time()
+        if not win or now - win[-1][0] >= 1.0:
+            win.append((now, num, den))
+        horizon = now - window_s
+        while len(win) > 1 and win[1][0] <= horizon:
+            win.popleft()
+        d_num = num - win[0][1]
+        d_den = den - win[0][2]
+        if d_den <= 0:
+            if gauge is not None:
+                metrics_lib.registry().unregister(name)
+            return None
+        gauge = metrics_lib.registry().gauge(name, help_text)
+        gauge.set(d_num / d_den)
+        return gauge
 
     # -- loop -----------------------------------------------------------
 
@@ -2041,6 +2437,7 @@ class BatchingEngine:
             self._admit_pending()
             progressed = self._run_prefill_chunks()
             ran = self._dispatch_decode()
+            self._set_gauges()
             if not progressed and not ran:
                 self.wake.wait(timeout=0.5)
                 self.wake.clear()

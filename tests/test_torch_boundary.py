@@ -79,7 +79,15 @@ print(json.dumps({{'modules': names, 'bad': bad}}))
                 'skypilot_torch.serve.sampling.accept',
                 'skypilot_torch.serve.sampling.grammar',
                 'skypilot_torch.serve.sampling.prng',
-                'skypilot_torch.serve.sampling.sample'):
+                'skypilot_torch.serve.sampling.sample',
+                'skypilot_torch.callbacks', 'skypilot_torch.metrics',
+                'skypilot_torch.metrics.device',
+                'skypilot_torch.metrics.exposition',
+                'skypilot_torch.metrics.goodput',
+                'skypilot_torch.metrics.publish',
+                'skypilot_torch.metrics.registry', 'skypilot_torch.trace',
+                'skypilot_torch.trace.tracer', 'skypilot_torch.utils',
+                'skypilot_torch.utils.profiling'):
         assert mod in res['modules']
 
 

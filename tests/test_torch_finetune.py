@@ -18,6 +18,13 @@ STEP_LINE = re.compile(r'^step (\d+) loss=([\d.]+) grad_norm=([\d.]+) '
 TINY = ['--model', 'tiny', '--device', 'cpu', '--seq', '64', '--batch', '2']
 
 
+@pytest.fixture(autouse=True)
+def _home(tmp_path, monkeypatch):
+    """The recipe's step callbacks write under ``~/sky_benchmark_dir``:
+    keep them in the test's own directory."""
+    monkeypatch.setenv('HOME', str(tmp_path / 'home'))
+
+
 @pytest.mark.parametrize('extra', [[], ['--full-ft', '--param-dtype',
                                         'f32']])
 def test_main_prints_step_lines(extra, capsys):

@@ -423,29 +423,47 @@ def test_replica_overload_flags_and_env(monkeypatch):
 def test_replica_answers_429_with_retry_after(replica):
     port, engine = replica
     assert engine.max_queued_requests == 1
+    # Once both rows are taken the engine loop waits before its next
+    # decode dispatch until the 429 is in: the fillers cannot finish
+    # and let the queued request in, however slowly this test's own
+    # threads run.
+    release = threading.Event()
+    dispatch = engine._dispatch_decode  # pylint: disable=protected-access
+
+    def held_dispatch():
+        if all(r is not None for r in engine.slot_req):
+            release.wait(timeout=60)
+        return dispatch()
+
+    engine._dispatch_decode = held_dispatch  # pylint: disable=protected-access
     fillers = [threading.Thread(target=_post, args=(
         port, {'prompt_ids': [90 + i, 91 + i], 'max_new_tokens': 56}))
         for i in range(2)]
-    for t in fillers:
-        t.start()
-    deadline = time.time() + 30
-    while sum(r is not None for r in engine.slot_req) < 2:
-        assert time.time() < deadline
-        time.sleep(0.005)
-    queued = threading.Thread(target=_post, args=(
-        port, {'prompt_ids': [1, 2], 'max_new_tokens': 4,
-               'priority': 'batch', 'tenant': 'team-b'}))
-    queued.start()
-    while not engine.pending:
-        assert time.time() < deadline
-        time.sleep(0.005)
-    status, heads, err = _post(port, {'prompt_ids': [3, 4],
-                                      'max_new_tokens': 4,
-                                      'priority': 'batch'})
-    assert status == 429, err
-    assert int(heads['Retry-After']) >= 1
-    for t in fillers + [queued]:
-        t.join(timeout=120)
+    queued = None
+    try:
+        for t in fillers:
+            t.start()
+        deadline = time.time() + 30
+        while sum(r is not None for r in engine.slot_req) < 2:
+            assert time.time() < deadline
+            time.sleep(0.005)
+        queued = threading.Thread(target=_post, args=(
+            port, {'prompt_ids': [1, 2], 'max_new_tokens': 4,
+                   'priority': 'batch', 'tenant': 'team-b'}))
+        queued.start()
+        while not engine.pending:
+            assert time.time() < deadline
+            time.sleep(0.005)
+        status, heads, err = _post(port, {'prompt_ids': [3, 4],
+                                          'max_new_tokens': 4,
+                                          'priority': 'batch'})
+        assert status == 429, err
+        assert int(heads['Retry-After']) >= 1
+    finally:
+        release.set()
+        del engine._dispatch_decode  # pylint: disable=protected-access
+        for t in fillers + ([queued] if queued else []):
+            t.join(timeout=120)
 
 
 @pytest.mark.parametrize('how', ['header', 'body'])
