@@ -61,6 +61,12 @@ in order (any failure exits non-zero; nothing is caught):
    shapes, the rows form over [8, 8192, 8, 128] and the 4097-block pool
    with scattered rows (8, 72, 512), with kernel, plain, library and
    bound times.
+9b. K5F (rope_cache_write): the decode and verify steps' fused RoPE +
+   int8 + cache write, bf16 and int8, at R = 8, 72 and 512 rows over
+   the 4097-block pool with scattered and out-of-range rows, bit-exact
+   against its plain version and against the eager chain it replaced;
+   kernel (graph and eager), plain, replaced-chain and bound times, and
+   the kernels one call launches (1) beside the replaced chain's.
 10. K4P (decode_attention_paged): W = 1 and W = 9 over shuffled block
    tables (B 8, 16-token blocks, lengths to 8192) against the f32 plain
    version, timed beside the JAX package's route (gather + dense K4)
@@ -70,19 +76,34 @@ in order (any failure exits non-zero; nothing is caught):
    4-layer sequence of decode and verify calls and a dense call, captured
    in one CUDA graph and replayed, bit-equal to the same calls made
    eagerly.
+10b. INVARIANCE (Queue 3 R9): the invariant GEMM at every llama3-8b
+   engine shape, bf16 and int8 weights, a fixed row bit-equal at M = 1,
+   8, 72 and 512, within ``MATMUL_TOL`` of f32 and of cuBLAS, with a
+   ``MATMUL_INV`` line per shape (kernel, cuBLAS and bound ms at M = 8,
+   72, 512); every other row op of the engine's path bit-equal for a
+   row (RMSNorm, the LoRA delta, the nucleus threshold, K5F, K4-paged at
+   B 1/8 x W 1/9 in bf16 and int8, dense K4's prefill form at T 1..512,
+   the int8 quantization), each row of a call against the same row in
+   calls of other shapes, the torch forms they replaced printed beside;
+   at 32 layers, bf16 and int8, one decode step's and one verify step's
+   tokens and new K/V rows for each of 8 rows equal to the row's step
+   alone; prefill against decode at one position, printed only.
 11. Engine: the engine's prefill logits and greedy tokens at 2 layers,
    bf16 on the card vs f32 on the CPU; then the ``--slots 8`` replica at
    llama3-8b (32 layers) answering 12 concurrent requests (a shared
    1024-token prefix that must hit, two prompts the drafter must draft
-   on), launch counts equal to the engine's dispatch record, TTFT
-   and TPOT per request, output tokens/s, and a profile of one decode
-   dispatch. ``OBS_ENGINE``: the replica's textfile (``SKYTPU_METRICS_DIR``)
-   agrees with the dispatch record and the responses (requests, tokens,
-   prefix hits, drafted and accepted tokens, TTFT count, slots, pool
-   blocks, the HBM gauges); each request, sent with its own
-   ``traceparent``, has ``replica.generate`` and the engine's spans
-   under its trace id; a profile trigger armed as the burst starts
-   yields K4-paged and K5 kernel rows. ``OBS_COST``: the gauge sweep and
+   on), launch counts equal to the engine's dispatch record (per layer
+   of each decode step and verify one K5F and one K4-paged, of each
+   prefill chunk one K5 and one dense K4; 7 L + 1 GEMMs per forward),
+   TTFT and TPOT per request, output tokens/s, and a profile of one
+   decode dispatch (its device launches per step). ``OBS_ENGINE``: the
+   replica's textfile (``SKYTPU_METRICS_DIR``) agrees with the dispatch
+   record and the responses (requests, tokens, prefix hits, drafted and
+   accepted tokens, TTFT count, slots, pool blocks, the HBM gauges);
+   each request, sent with its own ``traceparent``, has
+   ``replica.generate`` and the engine's spans under its trace id; a
+   profile trigger armed as the burst starts yields K4-paged and K5F
+   kernel rows. ``OBS_COST``: the gauge sweep and
    one dispatch's metric updates in us, a publisher tick in ms, beside
    the card's name and power limit.
 11b. Sampling: keys and 32-bit random bits at [128256] for 64 (seed,
@@ -97,8 +118,8 @@ in order (any failure exits non-zero; nothing is caught):
    keep their DFA alive and full-match where they ended in EOS; printed
    beside it: the greedy burst's numbers, the sampler's share of a
    sampled dispatch, the grammar mask build per new DFA state, the
-   verify mask table's bytes, each seeded request re-run alone, and the
-   drafting ones with speculation off.
+   verify mask table's bytes; each seeded request re-run alone and with
+   speculation off must give the burst's tokens (batch invariance).
 11c. Adapters (multi-LoRA and overload control): llama3-8b at 2 layers
    with two adapters, bf16 on the card vs f32 on the CPU (first-token
    logits of ``forward_paged`` under each); then the ``--slots 8``
@@ -111,7 +132,7 @@ in order (any failure exits non-zero; nothing is caught):
    no base block reused under an adapter, the cold load evicting an
    adapter, slot 0 still zeros, 413 for 'big' and 404 for an unknown id,
    every request equal to its run alone (base rows also on an
-   adapterless engine; a divergence only under ``ADAPTER_FLIP_GAP``);
+   adapterless engine), with no divergence allowed;
    printed beside it: the same prompts on an adapterless engine, the
    cold load's host read and upload, the LoRA delta's share of a decode
    dispatch. Then overload on the same replica: 16 requests (4 batch)
@@ -119,8 +140,8 @@ in order (any failure exits non-zero; nothing is caught):
    Retry-After, a 504 for an expired ``X-Skytpu-Deadline``, a dropped
    stream cancelled, the pool back to idle, every completed request equal
    to its run alone.
-12. Rows: ``decode_steps_rows`` (K5 + dense K4) and ``decode_steps_paged``
-   (K5 + K4-paged) at llama3-8b, B 8, 16 steps on the same content:
+12. Rows: ``decode_steps_rows`` (K5F + dense K4) and ``decode_steps_paged``
+   (K5F + K4-paged) at llama3-8b, B 8, 16 steps on the same content:
    32 x 16 launches each and equal tokens.
 13. K6 (packed_flash_fwd): the head-paired forward against its f32 plain
    version (shared and paired kv, T < S, non-causal), kernel / plain /
@@ -167,9 +188,9 @@ import urllib.request
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 L2_BYTES = 50 * 2 ** 20
-PHASES = ('k1', 'k4', 'e2e', 'serve', 'k1r', 'bwd', 'train', 'k5',
-          'k4p', 'engine', 'sampling', 'adapters', 'rows', 'k6', 'int8k',
-          'int8', 'qlora')
+PHASES = ('k1', 'k4', 'e2e', 'serve', 'k1r', 'bwd', 'train', 'k5', 'k5f',
+          'k4p', 'invariance', 'engine', 'sampling', 'adapters', 'rows',
+          'k6', 'int8k', 'int8', 'qlora')
 K1_TOL = {'out': 2e-2, 'lse': 2e-2}
 # K2/K3 in bf16 (P and dS rounded to bf16 before their products) against
 # f32 on the same rotated bf16 q and k: max |err| over max |ref| per
@@ -189,6 +210,10 @@ K4_TOL = 2e-2
 # this holds every row to its own size, so a tile or a split dropped from
 # a long row fails it.
 K4_REL_TOL = 1e-2
+# K4's prefill form (T 512 over 589-1100 visible keys, outputs about
+# 0.05) against f32: read 0.0011 on the card; K4_TOL would pass a
+# dropped piece of a row.
+K4_PREFILL_TOL = 4e-3
 E2E_REL_TOL = 5e-2
 # bf16 on the card vs f32 on the CPU at 2 layers: relative loss error,
 # max |err| / max |ref| per LoRA gradient, relative loss and grad_norm
@@ -322,11 +347,14 @@ def profile_cuda(torch, fn, label, extra):
         r'flash_sm90::|anonymous namespace', e.key) and 'at::' not in e.key]
     k4_ms = sum(e.self_device_time_total for e in events
                 if 'decode_kernel' in e.key) / 1e3
+    launches = sum(e.count for e in events)
     log(label + ' ' + json.dumps(dict(
         extra, wall_ms=wall_ms, device_busy_ms=busy_ms,
         device_idle_share=1 - busy_ms / wall_ms,
         k4_ms=k4_ms, k4_share=k4_ms / busy_ms if busy_ms else 0.0,
-        device_launches=sum(e.count for e in events),
+        device_launches=launches,
+        **({'device_launches_per_step': launches / extra['steps']}
+           if 'steps' in extra else {}),
         top=[dict(name=e.key[:80], calls=e.count,
                   ms=e.self_device_time_total / 1e3) for e in top],
         port_kernels=[dict(name=e.key[:80], calls=e.count,
@@ -1682,6 +1710,785 @@ def k5_phase(torch, da):
 
 
 # ---------------------------------------------------------------------
+# K5F: the fused RoPE + int8 + cache write of the decode and verify steps
+# ---------------------------------------------------------------------
+
+
+def _replaced_chain(torch, da, q, k, v, angles, kp, vp, dst, ks=None,
+                    vs=None):
+    """The eager chain K5F replaced in the device steps, as they ran it:
+    RoPE of q and of k with cos and sin made from the angles each time,
+    the int8 quantization of k and v, then K5. Returns rotated q."""
+    def rope(x):
+        x1, x2 = x.float().chunk(2, dim=-1)
+        cos = torch.cos(angles)[:, None, :]
+        sin = torch.sin(angles)[:, None, :]
+        return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                         dim=-1).to(x.dtype)
+    qr, kr = rope(q), rope(k)
+    if ks is None:
+        da.cache_write(kp, vp, kr, v, dst)
+    else:
+        kq, kss = da.quantize_kv(kr)
+        vq, vss = da.quantize_kv(v)
+        da.cache_write(kp, vp, kq, vq, dst, ks, vs, kss, vss)
+    return qr
+
+
+def _k5f_case(torch, da, gen, q8, r, iters):
+    """One K5F case: R rows at llama3-8b widths into the 4097-block pool
+    (scattered rows, one dst of -1 and one past the pool), the kernel
+    against its plain version and against the chain it replaced, all
+    bit-exact; then kernel (graph and eager), plain, replaced-chain and
+    bound times, and the kernels one call launches."""
+    from skypilot_torch.models import llama
+    config = llama.get_config('llama3-8b')
+    n_rows = POOL_BLOCKS * BLOCK
+    hq = config.n_heads
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device='cuda',
+                           dtype=torch.bfloat16)
+    q, k, v = randn(r, hq, HD8), randn(r, HKV8, HD8), randn(r, HKV8, HD8)
+    positions = torch.randint(0, 8192, (r,), generator=gen, device='cuda',
+                              dtype=torch.int32)
+    angles = llama._rope_frequencies(config, positions)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    dst = torch.randperm(n_rows - BLOCK, generator=gen,
+                         device='cuda')[:r].to(torch.int32) + BLOCK
+    if r > 2:
+        dst[1], dst[2] = -1, n_rows
+    if q8:
+        pools = [torch.randint(-127, 128, (n_rows, HKV8, HD8), generator=gen,
+                               device='cuda', dtype=torch.int8)
+                 for _ in range(2)]
+        pools += [randn(n_rows, HKV8).abs() for _ in range(2)]
+    else:
+        pools = [randn(n_rows, HKV8, HD8) for _ in range(2)] + [None, None]
+    copies = [[None if x is None else x.clone() for x in pools]
+              for _ in range(2)]
+    kernel_q = da.rope_cache_write(q, k, v, cos, sin, pools[0], pools[1],
+                                   dst, pools[2], pools[3])
+    plain_q = da._reference_rope_cache_write(
+        q, k, v, cos, sin, copies[0][0], copies[0][1], dst, copies[0][2],
+        copies[0][3])
+    chain_q = _replaced_chain(torch, da, q, k, v, angles, copies[1][0],
+                              copies[1][1], dst, copies[1][2], copies[1][3])
+    torch.cuda.synchronize()
+
+    def same(a, b):
+        return all(x is None or torch.equal(x, y) for x, y in zip(a, b))
+    exact = torch.equal(kernel_q, plain_q) and same(pools, copies[0])
+    exact_chain = torch.equal(kernel_q, chain_q) and same(pools, copies[1])
+    n = int(((dst >= 0) & (dst < n_rows)).sum())
+    row_bytes = 2 * HKV8 * (HD8 + 2) if q8 else 2 * HKV8 * HD8 * 2
+    nbytes = (r * (hq + 2 * HKV8) * HD8 * 2 + r * HD8 * 4 + 4 * r +
+              r * hq * HD8 * 2 + n * row_bytes)
+
+    def kernel():
+        return da.rope_cache_write(q, k, v, cos, sin, pools[0], pools[1],
+                                   dst, pools[2], pools[3])
+
+    def plain():
+        return da._reference_rope_cache_write(
+            q, k, v, cos, sin, copies[0][0], copies[0][1], dst,
+            copies[0][2], copies[0][3])
+
+    def chain():
+        return _replaced_chain(torch, da, q, k, v, angles, copies[1][0],
+                               copies[1][1], dst, copies[1][2], copies[1][3])
+    chain_launches, _ = graph_launches(torch, chain)
+    kernel_launches, _ = graph_launches(torch, kernel)
+    row = dict(case=f'{"int8" if q8 else "bf16"} R={r}', rows=r,
+               rows_written=n, bit_exact=exact,
+               bit_exact_to_replaced_chain=exact_chain,
+               kernel_ms=graph_ms(torch, kernel, [()], iters),
+               kernel_eager_ms=cuda_ms(torch, kernel, [()], iters),
+               plain_ms=cuda_ms(torch, plain, [()], iters),
+               replaced_chain_ms=cuda_ms(torch, chain, [()], iters),
+               replaced_chain_graph_ms=graph_ms(torch, chain, [()], iters),
+               launches_per_call=kernel_launches,
+               replaced_chain_launches_per_call=chain_launches,
+               bound_ms=1e3 * nbytes / PEAK_HBM_BYTES, bound_by='bytes')
+    log('K5F ' + json.dumps(row))
+    assert exact and exact_chain, f'K5F is not bit-exact: {row}'
+    assert kernel_launches == 1, row
+    return row
+
+
+def k5f_phase(torch, da):
+    """K5F against its plain version and against the eager chain it
+    replaced, bit-exact, bf16 and int8, at R = 8 (a decode step), 72 (a
+    verify window) and 512 rows over the engine's 4097-block pool with
+    scattered and out-of-range rows; times and the launches a layer."""
+    gen = torch.Generator(device='cuda').manual_seed(31)
+    rows = [_k5f_case(torch, da, gen, q8, r, 200)
+            for q8 in (False, True) for r in (8, 72, 512)]
+    torch.cuda.empty_cache()
+
+    def pick(q8):
+        main = rows[3 if q8 else 0]     # the engine's decode step: 8 rows
+        return dict(max_abs_err=0.0, err_is='bit-exact (torch.equal) to '
+                    'the plain chain and to the replaced eager chain',
+                    case=main['case'], ms=main['kernel_ms'],
+                    plain_ms=main['plain_ms'], bound_ms=main['bound_ms'],
+                    bound_by='bytes', library_ms=main['replaced_chain_ms'],
+                    library='the eager chain K5F replaced (RoPE of q and k, '
+                    'the int8 quantization, K5), eager as the steps ran it',
+                    kernels_per_layer=main['launches_per_call'],
+                    replaced_kernels_per_layer=main[
+                        'replaced_chain_launches_per_call'],
+                    cases={r['case']: {key: r[key] for key in (
+                        'kernel_ms', 'kernel_eager_ms', 'plain_ms',
+                        'replaced_chain_ms', 'replaced_chain_graph_ms',
+                        'bound_ms')} for r in rows
+                        if r['case'].startswith('int8') == q8})
+    return dict(bf16=pick(False), int8=pick(True))
+
+
+# ---------------------------------------------------------------------
+# The serving kernels' launch identities
+# ---------------------------------------------------------------------
+
+
+def _serving_kernels(attention, da):
+    """Every launch count of the engine's device path, by name; the int8
+    forms under ``*_q8``."""
+    from skypilot_torch.ops import matmul_invariant as mi
+    from skypilot_torch.ops import rms_norm as rn
+    from skypilot_torch.ops import top_p as tp
+    return {'flash_fwd': attention.FLASH_FWD,
+            'decode_attention': da.DECODE_ATTENTION,
+            'decode_attention_q8': da.DECODE_ATTENTION_Q8,
+            'verify_attention': da.VERIFY_ATTENTION,
+            'paged_w1': da.PAGED_DECODE_ATTENTION,
+            'paged_verify': da.PAGED_VERIFY_ATTENTION,
+            'paged_w1_q8': da.PAGED_DECODE_ATTENTION_Q8,
+            'paged_verify_q8': da.PAGED_VERIFY_ATTENTION_Q8,
+            'cache_write': da.CACHE_WRITE,
+            'cache_write_q8': da.CACHE_WRITE_Q8,
+            'rope_cache_write': da.ROPE_CACHE_WRITE,
+            'rope_cache_write_q8': da.ROPE_CACHE_WRITE_Q8,
+            'matmul': mi.MATMUL, 'matmul_q8': mi.MATMUL_Q8,
+            'rms_norm': rn.RMS_NORM, 'lora_delta': mi.LORA_DELTA,
+            'top_p_kth': tp.TOP_P_KTH}
+
+
+def _dispatch_record(events):
+    """(decode steps, verify dispatches, prefill chunks) of a run's
+    ``engine.events``."""
+    steps = sum(e[2] for e in events if e[0] == 'decode' and len(e) == 3)
+    n_verify = sum(e[0] == 'verify' for e in events)
+    n_chunks = sum(e[0] == 'prefill_chunk' for e in events)
+    return steps, n_verify, n_chunks
+
+
+def _serving_identity(kernels, n_layers, events, q8=False, lora=False):
+    """The launch counts a run's dispatch record fixes, with ``L``
+    layers: a layer of each decode step and verify dispatch launches one
+    K5F and one K4-paged (W = 1 or W > 1); a layer of each prefill chunk
+    one K5 and one dense K4 in its verify form; every forward (step,
+    verify, chunk) 7 products and 2 norms a layer and the final norm and
+    the LM head; an engine with an
+    adapter set 2 LoRA deltas a layer per forward. ``q8``: int8 weights
+    and pool (the ``*_q8`` forms; dense K4's verify form reads the
+    prefill's bf16 view either way). Every other count 0 (the sampler's
+    ``top_p_kth`` included: a caller whose run samples sets it)."""
+    steps, n_verify, n_chunks = _dispatch_record(events)
+    L, q = n_layers, '_q8' if q8 else ''
+    fwd = steps + n_verify + n_chunks
+    want = {name: 0 for name in kernels}
+    want.update({'paged_w1' + q: L * steps,
+                 'paged_verify' + q: L * n_verify,
+                 'rope_cache_write' + q: L * (steps + n_verify),
+                 'cache_write' + q: L * n_chunks,
+                 'verify_attention': L * n_chunks,
+                 'matmul' + q: (7 * L + 1) * fwd,
+                 'rms_norm': (2 * L + 1) * fwd,
+                 'lora_delta': 2 * L * fwd if lora else 0})
+    return want, dict(decode_steps=steps, verify_dispatches=n_verify,
+                      prefill_chunks=n_chunks)
+
+
+# ---------------------------------------------------------------------
+# INVARIANCE: a row's bits whatever shares its call (Queue 3 R9)
+# ---------------------------------------------------------------------
+
+INV_MS = (1, 8, 9, 72, 512)
+MATMUL_SHAPES = ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
+                 (128256, 4096))
+MATMUL_TOL = 1e-2
+
+
+def _row_bits(torch, fn, x, ms=INV_MS):
+    """``fn`` over the first m rows of x (m in ``ms``) against the same
+    rows of one call over all of x, and 16 rows of x each alone: the
+    number of output elements that differ, by m and for 'alone'. A
+    reduction whose order moved with the call's rows shows on some row
+    even where one random row rounds alike."""
+    full = fn(x)
+    diffs = {m: int((fn(x[:m]).float() != full[:m].float()).sum())
+             for m in ms}
+    picks = torch.linspace(0, x.shape[0] - 1, 16).long().tolist()
+    diffs['alone'] = sum(int((fn(x[i:i + 1]).float() !=
+                              full[i:i + 1].float()).sum()) for i in picks)
+    return diffs
+
+
+def _matmul_lines(torch, mi, gen):
+    """The invariant GEMM at every engine shape: bf16 and int8 weights,
+    a fixed row's bits at M = 1, 8, 72, 512 (with cuBLAS's beside them,
+    printed), the error against f32, and ``MATMUL_INV`` times at M = 8,
+    72, 512 against cuBLAS (``torch.matmul``, timed only) and the bound."""
+    rows, mains = [], {}
+    for n, k in MATMUL_SHAPES:
+        w = (torch.randn((k, n), generator=gen, device='cuda') *
+             k ** -0.5).to(torch.bfloat16)
+        wq = {'q': torch.randint(-127, 128, (k, n), generator=gen,
+                                 device='cuda', dtype=torch.int8),
+              's': (torch.rand((1, n), generator=gen, device='cuda') *
+                    0.02).to(torch.bfloat16)}
+        x = torch.randn((512, k), generator=gen, device='cuda',
+                        dtype=torch.bfloat16)
+        for form, weight in (('bf16', w), ('int8', wq)):
+            y = mi.matmul(x, weight)
+            plain = mi._matmul_plain(x, weight)
+            ref = (x.float() @ weight.float() if form == 'bf16' else
+                   (x.float() @ weight['q'].float()) *
+                   weight['s'].float())
+            err = ((y.float() - ref).abs().max() /
+                   ref.abs().max()).item()
+            abs_err = (y.float() - plain.float()).abs().max().item()
+            err_plain = abs_err / plain.float().abs().max().item()
+            bits = _row_bits(torch, lambda a, wt=weight: mi.matmul(a, wt),
+                             x)
+            cublas = _row_bits(
+                torch, lambda a, wt=weight: mi._matmul_plain(a, wt), x)
+            wbytes = k * n * (2 if form == 'bf16' else 1) + \
+                (0 if form == 'bf16' else 2 * n)
+            times = {}
+            for m in (8, 72, 512):
+                xm = x[:m]
+                nbytes = 2 * m * k + wbytes + 2 * m * n
+                flops = 2 * m * n * k
+                times[m] = dict(
+                    kernel_ms=graph_ms(
+                        torch, lambda a, wt=weight: mi.matmul(a, wt),
+                        [(xm,)], 20),
+                    cublas_ms=graph_ms(
+                        torch, lambda a, wt=weight: mi._matmul_plain(a, wt),
+                        [(xm,)], 20),
+                    bound_ms=1e3 * max(nbytes / PEAK_HBM_BYTES,
+                                       flops / PEAK_BF16_FLOPS),
+                    bound_by='bytes' if nbytes / PEAK_HBM_BYTES >
+                    flops / PEAK_BF16_FLOPS else 'operations')
+            line = dict(N=n, K=k, form=form,
+                        splits=mi.matmul_splits(n, k)[0],
+                        err_vs_f32=err, err_vs_plain=err_plain,
+                        max_abs_err=abs_err,
+                        row_bits_differing=bits,
+                        cublas_row_bits_differing=cublas, times=times)
+            log('MATMUL_INV ' + json.dumps(line))
+            assert err_plain <= MATMUL_TOL and err <= MATMUL_TOL, line
+            assert all(d == 0 for d in bits.values()), line
+            rows.append(line)
+            if (n, k, form) in ((4096, 4096, 'bf16'), (4096, 4096, 'int8')):
+                mains[form] = line
+        del w, wq
+    torch.cuda.empty_cache()
+    return rows, mains
+
+
+def _op_invariance(torch, da, mi, rn, tp, gen):
+    """Every other row op of the engine's path, each row of a call
+    against the same row in calls of other shapes; returns ({op: {shape:
+    differing elements}}, the same for the torch forms they replaced,
+    printed as evidence and not held)."""
+    from skypilot_torch.models import llama
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device='cuda') *
+                scale).to(dtype)
+    held, shown = {}, {}
+    d = 4096
+    wn = randn(d)
+    xn = randn(512, d)
+    held['rms_norm'] = _row_bits(torch, lambda x: rn.rms_norm(x, wn, 1e-5),
+                                 xn)
+    shown['rms_norm_torch'] = _row_bits(
+        torch, lambda x: llama._rms_norm(x, wn, 1e-5), xn)
+    # The int8 quantization of the prefill chunk's rows stays torch: its
+    # reduction is a max, exact in any order.
+    held['quantize_kv'] = _row_bits(
+        torch, lambda x: torch.cat([c.float().flatten(1) for c in
+                                    da.quantize_kv(x)], 1),
+        randn(512, HKV8, HD8))
+    # The LoRA delta: B 1/8 rows of T 1/9/512 positions, against the
+    # same rows of one B 8 x T 512 call.
+    a_sl = randn(3, d, 16, dtype=torch.float32, scale=0.05)
+    b_sl = randn(3, 16, d, dtype=torch.float32, scale=0.05)
+    h = randn(8, 512, d)
+    idx = torch.tensor([1, 2, 0, 1, 2, 0, 1, 2], dtype=torch.int32,
+                       device='cuda')
+    for name, fn in (('lora_delta', mi.lora_gather_delta),
+                     ('lora_bmm_torch', mi._lora_plain)):
+        full = fn(h, a_sl, b_sl, idx)
+        (held if name == 'lora_delta' else shown)[name] = {
+            f'B{b}T{t}': int((fn(h[:b, :t], a_sl, b_sl, idx[:b]) !=
+                              full[:b, :t]).sum())
+            for b in (1, 8) for t in (1, 9, 512)}
+    # The sampler's nucleus threshold over sorted 128256-id rows.
+    vocab = 128256
+    srt = torch.sort(randn(72, vocab, dtype=torch.float32, scale=3.0), -1,
+                     descending=True).values
+    top = torch.full((72,), 0.9, device='cuda')
+    held['top_p_kth'] = _row_bits(torch, lambda x: tp.top_p_kth(
+        x, top[:x.shape[0]]), srt, ms=(1, 8, 9, 72))
+    shown['top_p_kth_torch'] = _row_bits(torch, lambda x: tp._top_p_kth_plain(
+        x, top[:x.shape[0]]), srt, ms=(1, 8, 9, 72))
+    shown['top_p_cumsum_torch'] = _row_bits(
+        torch, lambda x: torch.cumsum(torch.softmax(x, -1), -1), srt,
+        ms=(1, 8, 9, 72))
+    # K5F: R rows (each its own pool row) against the same rows of one
+    # 512-row call: rotated q, written codes/rows and scales.
+    n_rows = 600
+    q, k, v = randn(512, 32, HD8), randn(512, HKV8, HD8), randn(512, HKV8,
+                                                                 HD8)
+    ang = torch.rand((512, HD8 // 2), generator=gen, device='cuda') * 50
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    dst = torch.arange(512, dtype=torch.int32, device='cuda') + 16
+    for q8 in (False, True):
+        def call(r):
+            dt = torch.int8 if q8 else torch.bfloat16
+            kp = torch.zeros((n_rows, HKV8, HD8), dtype=dt, device='cuda')
+            vp = torch.zeros_like(kp)
+            sc = ([torch.zeros((n_rows, HKV8), dtype=torch.bfloat16,
+                               device='cuda') for _ in range(2)] if q8
+                  else [None, None])
+            qo = da.rope_cache_write(q[:r], k[:r], v[:r], cos[:r], sin[:r],
+                                     kp, vp, dst[:r], *sc)
+            return [qo] + [x[16:16 + r] for x in [kp, vp] + sc
+                           if x is not None]
+        full = call(512)
+        held[f'rope_cache_write_{"int8" if q8 else "bf16"}'] = {
+            r: sum(int((a.float() != b[:r].float()).sum())
+                   for a, b in zip(call(r), full)) for r in INV_MS}
+    # K4-paged: 8 rows at engine lengths, W 1 and 9, each row against the
+    # same row alone, and verify's query 0 against decode.
+    nb = 8 * 130 + 1
+    tables = (torch.randperm(nb - 1, generator=gen, device='cuda')
+              .reshape(8, 130) + 1).to(torch.int32)
+    lens = torch.tensor([17, 64, 256, 1024, 1064, 1114, 1536, 2048],
+                        dtype=torch.int32, device='cuda')
+    for q8 in (False, True):
+        if q8:
+            kp = torch.randint(-127, 128, (nb * BLOCK, HKV8, HD8),
+                               generator=gen, device='cuda',
+                               dtype=torch.int8)
+            vp = torch.randint(-127, 128, (nb * BLOCK, HKV8, HD8),
+                               generator=gen, device='cuda',
+                               dtype=torch.int8)
+            sc = [randn(nb * BLOCK, HKV8).abs() * 0.02 for _ in range(2)]
+        else:
+            kp, vp = randn(nb * BLOCK, HKV8, HD8), randn(nb * BLOCK, HKV8,
+                                                          HD8)
+            sc = [None, None]
+        qv = randn(8, 9, 32, HD8)
+
+        def dec(rows):
+            return da.paged_decode_attention(
+                qv[rows, 0].contiguous(), kp, vp, tables[rows], lens[rows],
+                HD8 ** -0.5, BLOCK, *sc)
+
+        def ver(rows):
+            return da.paged_verify_attention(
+                qv[rows].contiguous(), kp, vp, tables[rows], lens[rows],
+                HD8 ** -0.5, BLOCK, *sc)
+        every = list(range(8))
+        d8, v8 = dec(every), ver(every)
+        held[f'k4_paged_{"int8" if q8 else "bf16"}'] = dict(
+            B1W1_vs_B8W1=sum(int((dec([r])[0] != d8[r]).sum())
+                             for r in every),
+            B1W9_vs_B8W9=sum(int((ver([r])[0] != v8[r]).sum())
+                             for r in every),
+            W9q0_vs_W1=int((v8[:, 0] != d8).sum()))
+        del kp, vp
+    # Dense K4's verify form (the prefill chunk): chunks of T rows ending
+    # at position 1099, against the same positions of the 512-row chunk,
+    # and over a view padded from 1104 to 2048 keys.
+    kd, vd = randn(1, 2048, HKV8, HD8), randn(1, 2048, HKV8, HD8)
+    qa = randn(1, 1100, 32, HD8)
+
+    def chunk(t, s):
+        st = 1100 - t
+        return da.verify_attention(
+            qa[:, st:].contiguous(), kd[:, :s], vd[:, :s],
+            torch.tensor([st + 1], dtype=torch.int32, device='cuda'),
+            HD8 ** -0.5)[0]
+
+    def einsum_form(t):
+        st = 1100 - t
+        return da._reference_verify_attention(
+            qa[:, st:], kd[:, :1104], vd[:, :1104],
+            torch.tensor([st + 1], dtype=torch.int32, device='cuda'),
+            HD8 ** -0.5)[0]
+    full, full_m = chunk(512, 1104), einsum_form(512)
+    held['k4_prefill'] = {f'T{t}S{s}': int((chunk(t, s) != full[512 - t:])
+                                           .sum())
+                          for t, s in ((1, 1104), (8, 1104), (9, 1104),
+                                       (72, 1104), (512, 2048))}
+    shown['einsum_attention_torch'] = {
+        f'T{t}': int((einsum_form(t) != full_m[512 - t:]).sum())
+        for t in (1, 8, 9, 72)}
+    shown['matmul_torch'] = 'see MATMUL_INV cublas_row_bits_differing'
+    return held, shown
+
+
+def _step_invariance(torch, batching, config, params, q8, gen):
+    """One decode step and one verify step (W 9) at 32 layers: each row's
+    tokens and new K/V rows among 8 rows against the row's step alone
+    (greedy and sampled rows), and each row's verify query 0 against the
+    decode step's token. Returns (rows, held)."""
+    from skypilot_torch.models import llama
+    L, hkv, hd = config.n_layers, config.n_kv_heads, config.head_dim
+    lens = [17, 64, 256, 1024, 1064, 1114, 1536, 2048]
+    b, w, mb = len(lens), 9, 2048 // BLOCK + 2
+    nb = 1 + b * mb
+    shape = (L, nb, BLOCK, hkv, hd)
+    if q8:
+        kp = torch.randint(-127, 128, shape, generator=gen, device='cuda',
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=gen, device='cuda',
+                           dtype=torch.int8)
+        ks = (torch.rand(shape[:-1], generator=gen, device='cuda') *
+              0.02).to(torch.bfloat16)
+        vs = (torch.rand(shape[:-1], generator=gen, device='cuda') *
+              0.02).to(torch.bfloat16)
+        caches = (kp, vp, ks, vs)
+    else:
+        kp = torch.randn(shape, generator=gen, device='cuda',
+                         dtype=torch.bfloat16)
+        vp = torch.randn(shape, generator=gen, device='cuda',
+                         dtype=torch.bfloat16)
+        caches = (kp, vp, None, None)
+    tables = (torch.randperm(nb - 1, generator=gen, device='cuda')[:b * mb]
+              .reshape(b, mb) + 1).to(torch.int32)
+    pos = torch.tensor(lens, dtype=torch.int32, device='cuda')
+    tokens = torch.randint(0, config.vocab_size, (b, w), generator=gen,
+                           device='cuda', dtype=torch.int32)
+    active = torch.ones(b, dtype=torch.bool, device='cuda')
+    n_real = torch.full((b,), w, dtype=torch.int32, device='cuda')
+    vocab = config.vocab_size
+    knobs = dict(temps=torch.tensor([0.0] * 4 + [0.8] * 4, device='cuda'),
+                 top_ps=torch.tensor([1.0, 1.0, 0.9, 0.9] * 2,
+                                     device='cuda'),
+                 seeds=torch.arange(b, dtype=torch.int32, device='cuda') + 7)
+
+    def sampling(rows, width=None):
+        table = torch.ones((1, vocab) if width is None else
+                           (1, width, vocab), dtype=torch.bool,
+                           device='cuda')
+        return dict({k: v[rows] for k, v in knobs.items()},
+                    mask_table=table,
+                    mask_idx=torch.zeros(len(rows), dtype=torch.int32,
+                                         device='cuda'))
+
+    def new_rows(r, width):
+        """Every layer's K/V (codes and scales) at row r's ``width``
+        write positions."""
+        out = []
+        for p in range(lens[r], lens[r] + width):
+            blk = tables[r, p // BLOCK].item()
+            out.append([x[:, blk, p % BLOCK].clone()
+                        for x in caches if x is not None])
+        return out
+
+    def decode(rows):
+        return batching.decode_steps_paged(
+            params, tokens[rows, 0], caches, tables[rows], pos[rows],
+            active[rows], config, 1, BLOCK, sampling=sampling(rows))[0]
+
+    def verify(rows):
+        return batching.verify_step_paged(
+            params, tokens[rows], caches, tables[rows], pos[rows],
+            n_real[rows], config, w, BLOCK,
+            sampling=sampling(rows, w))[0]
+    every = list(range(b))
+    held, rows_out = {}, []
+    with torch.inference_mode():
+        for name, step, width in (('decode', decode, 1),
+                                  ('verify', verify, w)):
+            batch = step(every).cpu()
+            kv_batch = [new_rows(r, width) for r in every]
+            diffs = []
+            for r in every:
+                alone = step([r]).cpu()
+                kv_alone = new_rows(r, width)
+                kv_equal = all(torch.equal(x, y) for a, c in
+                               zip(kv_batch[r], kv_alone)
+                               for x, y in zip(a, c))
+                tok_equal = torch.equal(alone[0], batch[r])
+                diffs.append(dict(row=r, tokens_equal=tok_equal,
+                                  kv_equal=kv_equal))
+            held[name] = diffs
+            rows_out.append((name, batch))
+    dec, ver = rows_out[0][1], rows_out[1][1]
+    held['verify_q0_equals_decode'] = [bool(dec[r, 0] == ver[r, 0])
+                                      for r in every]
+    del caches, kp, vp
+    return held
+
+
+def _prefill_vs_decode(torch, batching, config, params, gen):
+    """Printed, not held: position 1023 of a 1024-token prompt prefilled
+    in chunks of 512 against the same position reached by prefilling
+    1023 tokens and decoding one: the K/V rows written there (layer 0
+    and the last) and the token."""
+    from skypilot_torch.models import decode as decode_lib
+    L, hkv, hd = config.n_layers, config.n_kv_heads, config.head_dim
+    mb = 1024 // BLOCK + 1
+    shape = (L, 2 * mb + 1, BLOCK, hkv, hd)
+    kp = torch.zeros(shape, dtype=torch.bfloat16, device='cuda')
+    vp = torch.zeros_like(kp)
+    caches = (kp, vp, None, None)
+    prompt = torch.randint(0, config.vocab_size, (1024,), generator=gen,
+                           device='cuda')
+    tabs = [torch.arange(1 + i * mb, 1 + (i + 1) * mb, dtype=torch.int32,
+                         device='cuda') for i in range(2)]
+    with torch.inference_mode():
+        for start in (0, 512):
+            logits, _ = decode_lib.forward_paged(
+                params, prompt[None, start:start + 512], caches, tabs[0],
+                start, 512, config, BLOCK)
+        prefill_tok = int(logits[0].argmax())
+        decode_lib.forward_paged(params, prompt[None, :512], caches,
+                                 tabs[1], 0, 512, config, BLOCK)
+        decode_lib.forward_paged(params, prompt[None, 512:1023], caches,
+                                 tabs[1], 512, 511, config, BLOCK)
+        toks, _, _ = batching.decode_steps_paged(
+            params, prompt[1023:1024].to(torch.int32), caches, tabs[1][None],
+            torch.tensor([1023], dtype=torch.int32, device='cuda'),
+            torch.ones(1, dtype=torch.bool, device='cuda'), config, 1,
+            BLOCK)
+    p = 1023
+    rows = [(tab[p // BLOCK].item(), p % BLOCK) for tab in tabs]
+    kv_equal = {layer: all(torch.equal(x[layer, rows[0][0], rows[0][1]],
+                                       x[layer, rows[1][0], rows[1][1]])
+                           for x in (kp, vp)) for layer in (0, L - 1)}
+    line = dict(position=p, prefill_token=prefill_tok,
+                decode_token=int(toks[0, 0]),
+                tokens_equal=prefill_tok == int(toks[0, 0]),
+                kv_rows_equal_by_layer=kv_equal,
+                note='not part of the contract: a prefill chunk and a '
+                     'decode step attend through other kernels and orders')
+    log('INVARIANCE_PREFILL_VS_DECODE ' + json.dumps(line))
+    del kp, vp
+    return line
+
+
+def _lora_line(torch, mi, gen):
+    """The LoRA delta at a decode step's shape (B 8, T 1, d 4096, rank
+    16, q's 4096 outputs): the kernel against the plain batched products
+    (f32), times and the bound."""
+    b, d, r, n = 8, 4096, 16, 4096
+    h = torch.randn((b, 1, d), generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    a_sl = torch.randn((3, d, r), generator=gen, device='cuda') * 0.03
+    b_sl = torch.randn((3, r, n), generator=gen, device='cuda') * 0.03
+    idx = torch.tensor([1, 2, 0, 1, 2, 0, 1, 2], dtype=torch.int32,
+                       device='cuda')
+    y = mi.lora_gather_delta(h, a_sl, b_sl, idx)
+    ref = mi._lora_plain(h, a_sl, b_sl, idx)
+    err = (y - ref).abs().max().item()
+    # The rows share slots: the function reads each distinct slot's
+    # factors once.
+    u = len(set(idx.tolist()))
+    nbytes = 2 * b * d + 4 * (u * d * r + u * r * n) + 4 * b * n
+    flops = 2 * b * r * (d + n)
+    line = dict(B=b, T=1, d=d, rank=r, out=n, max_abs_err=err,
+                rel_err=err / ref.abs().max().item(),
+                ms=graph_ms(torch, lambda: mi.lora_gather_delta(
+                    h, a_sl, b_sl, idx), [()], 50),
+                plain_ms=graph_ms(torch, lambda: mi._lora_plain(
+                    h, a_sl, b_sl, idx), [()], 50),
+                bound_ms=1e3 * max(nbytes / PEAK_HBM_BYTES,
+                                   flops / PEAK_BF16_FLOPS),
+                bound_by='bytes', library='torch.bmm x 2 (the plain version)')
+    line['library_ms'] = line['plain_ms']
+    log('LORA_DELTA ' + json.dumps(line))
+    assert line['rel_err'] <= 1e-5, line
+    return line
+
+
+# The nucleus threshold against its plain version on the card: a row's
+# cut may differ only where the token between the two cuts has a
+# preceding mass within this of top_p (the two sum in other orders).
+TOP_P_TIE = 1e-5
+
+
+def _top_p_line(torch, tp, gen):
+    """The nucleus threshold at 72 rows of 128256 sorted logits: the
+    kernel against the plain version (the kth logit equal on every row
+    but at a ``TOP_P_TIE`` near-tie of the mass), then times at a decode
+    step's 8 rows and the bound."""
+    rows, vocab = 72, 128256
+    srt = torch.sort(torch.randn((rows, vocab), generator=gen,
+                                 device='cuda') * 3, -1,
+                     descending=True).values
+    top = torch.linspace(0.5, 0.95, rows, device='cuda')
+    kth = tp.top_p_kth(srt, top)
+    ref = tp._top_p_kth_plain(srt, top)
+    e = torch.exp(srt - srt[:, :1])
+    probs = e / e.sum(-1, keepdim=True)
+    before = torch.cumsum(probs, -1) - probs
+    lo, hi = torch.minimum(kth, ref), torch.maximum(kth, ref)
+    between = (srt >= lo) & (srt < hi)
+    ties = (before - top[:, None]).abs()[between]
+    worst = ties.max().item() if ties.numel() else 0.0
+    srt, top, kth, ref = srt[:8], top[:8], kth[:8], ref[:8]
+    rows = 8
+    line = dict(rows=rows, vocab=vocab, rows_checked=72,
+                max_abs_err=(kth - ref).abs().max().item(),
+                differing_cuts=int(between.any(-1).sum()),
+                worst_tie=worst, tie_tol=TOP_P_TIE,
+                ms=graph_ms(torch, lambda: tp.top_p_kth(srt, top), [()], 50),
+                plain_ms=graph_ms(torch, lambda: tp._top_p_kth_plain(
+                    srt, top), [()], 50),
+                bound_ms=1e3 * 4 * rows * (vocab + 2) / PEAK_HBM_BYTES,
+                bound_by='bytes', library_ms=None)
+    log('TOP_P_KTH ' + json.dumps(line))
+    assert worst < TOP_P_TIE, line
+    return line
+
+
+def _rms_norm_line(torch, rn, gen):
+    """RMSNorm at a decode step's 8 rows of 4096: the kernel against the
+    plain version (1e-2 of the output's size: bf16 rounding of sums in
+    another order), times, the bound and the library call
+    (``torch.nn.functional.rms_norm``, timed only)."""
+    from skypilot_torch.ops import rms_norm as rn_mod
+    x = torch.randn((8, 4096), generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    w = torch.randn((4096,), generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    y = rn.rms_norm(x, w, 1e-5)
+    ref = rn_mod._rms_norm_plain(x, w, 1e-5)
+    err = (y.float() - ref.float()).abs().max().item()
+    line = dict(rows=8, dim=4096, max_abs_err=err,
+                rel_err=err / ref.float().abs().max().item(),
+                ms=graph_ms(torch, lambda: rn.rms_norm(x, w, 1e-5), [()],
+                            50),
+                plain_ms=graph_ms(torch, lambda: rn_mod._rms_norm_plain(
+                    x, w, 1e-5), [()], 50),
+                bound_ms=1e3 * (2 * 8 * 4096 * 2 + 2 * 4096) /
+                PEAK_HBM_BYTES, bound_by='bytes',
+                library_ms=graph_ms(torch, lambda: torch.nn.functional
+                                    .rms_norm(x, (4096,), w, 1e-5), [()], 50),
+                library='torch.nn.functional.rms_norm')
+    log('RMS_NORM ' + json.dumps(line))
+    assert line['rel_err'] <= 1e-2, line
+    return line
+
+
+def _prefill_attention_line(torch, da, gen):
+    """Dense K4's verify form at an engine prefill chunk (T 512 ending at
+    position 1099 of a 1104-key view, llama3-8b heads): against the
+    plain version in f32 (``K4_PREFILL_TOL`` absolute and ``K4_REL_TOL``
+    per row and query position), timed beside the plain version on the
+    bf16 inputs (the einsum-and-softmax form of the JAX step, which
+    ``forward_paged`` attended with before) and the bound (q, the
+    visible keys and out; the causal products)."""
+    t, s, st = 512, 1104, 588
+    q = torch.randn((1, t, 32, HD8), generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    k = torch.randn((1, s, HKV8, HD8), generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    v = torch.randn((1, s, HKV8, HD8), generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    start = torch.tensor([st + 1], dtype=torch.int32, device='cuda')
+    out = da.verify_attention(q, k, v, start, HD8 ** -0.5)
+    ref = da._reference_verify_attention(q.float(), k.float(), v.float(),
+                                         start, HD8 ** -0.5)
+    err, rel = k4_errors(out, ref)
+    pairs = sum(st + 1 + i for i in range(t))
+    nbytes = 2 * (2 * t * 32 * HD8 + 2 * (st + t) * HKV8 * HD8)
+    flops = 4 * pairs * 32 * HD8
+    line = dict(T=t, S=s, start=st, max_abs_err=err, tol=K4_PREFILL_TOL,
+                max_rel_err=rel, rel_tol=K4_REL_TOL,
+                ms=graph_ms(torch, lambda: da.verify_attention(
+                    q, k, v, start, HD8 ** -0.5), [()], 10),
+                einsum_form_ms=graph_ms(
+                    torch, lambda: da._reference_verify_attention(
+                        q, k, v, start, HD8 ** -0.5), [()], 10),
+                bound_ms=1e3 * max(nbytes / PEAK_HBM_BYTES,
+                                   flops / PEAK_BF16_FLOPS),
+                bound_by='operations' if flops / PEAK_BF16_FLOPS >
+                nbytes / PEAK_HBM_BYTES else 'bytes')
+    log('K4_PREFILL ' + json.dumps(line))
+    assert err <= K4_PREFILL_TOL and rel <= K4_REL_TOL, line
+    return line
+
+
+def invariance_phase(torch, da):
+    """Queue 3 R9 on the card: (1) the invariant GEMM at every engine
+    shape, bf16 and int8: a fixed row bit-equal at M = 1, 8, 72, 512,
+    within ``MATMUL_TOL`` of f32 and of cuBLAS, ``MATMUL_INV`` times; (2)
+    every other row op of the engine's path bit-equal for a fixed row at
+    its call shapes (the LoRA delta at B 1/8 x T 1/9/512, the nucleus
+    threshold at 1/8/72 rows, K5F at R 1..512, K4-paged at B 1/8 x W 1/9,
+    dense K4's prefill form at T 1..512 and a padded view, rms_norm and
+    the int8 quantization), with the torch forms they replaced printed;
+    (3) at llama3-8b, 32 layers, bf16 and int8 (weights and pool): one
+    decode step's and one verify step's tokens and new K/V rows for each
+    of 8 rows equal to the row's step alone, and verify's query 0 equal
+    to the decode step's token; (4) prefill against decode at one
+    position, printed only."""
+    import gc
+
+    from skypilot_torch.models import llama, quant
+    from skypilot_torch.ops import matmul_invariant as mi
+    from skypilot_torch.ops import rms_norm as rn
+    from skypilot_torch.ops import top_p as tp
+    from skypilot_torch.serve import batching
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device='cuda').manual_seed(41)
+    matmul_rows, mains = _matmul_lines(torch, mi, gen)
+    lora = _lora_line(torch, mi, gen)
+    top_p = _top_p_line(torch, tp, gen)
+    norm = _rms_norm_line(torch, rn, gen)
+    prefill = _prefill_attention_line(torch, da, gen)
+    held, shown = _op_invariance(torch, da, mi, rn, tp, gen)
+    log('INVARIANCE_OPS ' + json.dumps(dict(held=held,
+                                            torch_forms_replaced=shown)))
+    bad = {op: d for op, d in held.items() if any(d.values())}
+    assert not bad, f'row ops that are not batch-invariant: {bad}'
+    config = llama.get_config('llama3-8b')
+    steps = {}
+    for form in ('bf16', 'int8'):
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = (quant.init_quantized(config, seed=6, device='cuda')
+                  if form == 'int8' else
+                  llama.init_params(config, seed=6, device='cuda'))
+        steps[form] = _step_invariance(torch, batching, config, params,
+                                       form == 'int8', gen)
+        log(f'INVARIANCE_STEPS_{form.upper()} ' + json.dumps(steps[form]))
+        if form == 'bf16':
+            _prefill_vs_decode(torch, batching, config, params, gen)
+        del params
+    for form, s in steps.items():
+        for name in ('decode', 'verify'):
+            assert all(r['tokens_equal'] and r['kv_equal'] for r in s[name]), \
+                (form, name, s[name])
+        assert all(s['verify_q0_equals_decode']), (form, s)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f'INVARIANCE_PHASE_S {time.perf_counter() - t_phase:.1f}')
+    return dict(matmul=mains, matmul_rows=matmul_rows, ops=held, lora=lora,
+                top_p=top_p, rms_norm=norm, prefill=prefill)
+
+
+# ---------------------------------------------------------------------
 # K4-paged: decode (W = 1) and verify (W = 9) through the block table
 # ---------------------------------------------------------------------
 
@@ -2097,7 +2904,7 @@ def _engine_obs(torch, server, engine, published0, traced, results, events,
     """The replica's observability after the 12-request burst: (b) its
     textfile against the engine's own record, every request's spans under
     its own trace id, the profile armed at the burst's start holding
-    K4-paged and K5 rows; (c) the host cost of the instrumentation,
+    K4-paged and K5F rows; (c) the host cost of the instrumentation,
     measured on the live engine from outside the package."""
     from skypilot_torch import metrics as metrics_lib
     from skypilot_torch import trace
@@ -2131,7 +2938,7 @@ def _engine_obs(torch, server, engine, published0, traced, results, events,
     spans = _trace_check(traced)
     L = engine.config.n_layers
     summary, rows, kernel_counts = _kernel_rows('decode', {
-        'k4_paged': ['decode_kernel'], 'k5': ['cache_write_kernel']})
+        'k4_paged': ['decode_kernel'], 'k5f': ['rope_cache_write_kernel']})
     # (c) The host cost, per call, on the live engine (the counter and
     # gauge updates on scratch families of the same kinds, so the
     # replica's series keep their values).
@@ -2278,18 +3085,7 @@ def engine_phase(torch, attention, da, quant=False):
                          'max_new_tokens': 32 + 4 * i,
                          'stream': i % 4 != 1})
         assert len(reqs) == 12
-        bf16 = {'paged_w1': da.PAGED_DECODE_ATTENTION,
-                'paged_verify': da.PAGED_VERIFY_ATTENTION,
-                'cache_write': da.CACHE_WRITE}
-        q8 = {'paged_w1': da.PAGED_DECODE_ATTENTION_Q8,
-              'paged_verify': da.PAGED_VERIFY_ATTENTION_Q8,
-              'cache_write': da.CACHE_WRITE_Q8}
-        used, other = (q8, bf16) if quant else (bf16, q8)
-        kernels = {'flash_fwd': attention.FLASH_FWD,
-                   'decode_attention': da.DECODE_ATTENTION,
-                   'decode_attention_q8': da.DECODE_ATTENTION_Q8, **used,
-                   **{f'{k}_{"bf16" if quant else "q8"}': v
-                      for k, v in other.items()}}
+        kernels = _serving_kernels(attention, da)
         torch.cuda.synchronize()
         traced = [(os.urandom(16).hex(), os.urandom(8).hex())
                   for _ in reqs]
@@ -2342,11 +3138,8 @@ def engine_phase(torch, attention, da, quant=False):
         n_decode = sum(e[0] == 'decode' for e in events) - n_verify
         n_chunks = sum(e[0] == 'prefill_chunk' for e in events)
         L = config.n_layers
-        want = {name: 0 for name in kernels}
-        want.update({'paged_w1': L * engine.steps * n_decode,
-                     'paged_verify': L * n_verify,
-                     'cache_write': L * (engine.steps * n_decode + n_verify +
-                                         n_chunks)})
+        want, record = _serving_identity(kernels, L, events, q8=quant)
+        assert record['decode_steps'] == engine.steps * n_decode, record
         n_out = 0
         for (status, heads, ids, ttft, ms), r in zip(results, reqs):
             assert status == 200, status
@@ -2761,15 +3554,7 @@ def sampling_phase(torch, attention, da):
                               'stream': True, 'eos_id': eos,
                               'response_format': rf}, **k))
         assert len(reqs) == 12
-        kernels = {'flash_fwd': attention.FLASH_FWD,
-                   'decode_attention': da.DECODE_ATTENTION,
-                   'paged_w1': da.PAGED_DECODE_ATTENTION,
-                   'paged_verify': da.PAGED_VERIFY_ATTENTION,
-                   'cache_write': da.CACHE_WRITE,
-                   'decode_attention_q8': da.DECODE_ATTENTION_Q8,
-                   'paged_w1_q8': da.PAGED_DECODE_ATTENTION_Q8,
-                   'paged_verify_q8': da.PAGED_VERIFY_ATTENTION_Q8,
-                   'cache_write_q8': da.CACHE_WRITE_Q8}
+        kernels = _serving_kernels(attention, da)
         # The grammar mask build per new DFA state, timed where the
         # engine builds it during the burst (a mask not cached yet).
         builds = []
@@ -2820,9 +3605,12 @@ def sampling_phase(torch, attention, da):
         n_decode = sum(e[0] == 'decode' and len(e) == 3 for e in events)
         n_chunks = sum(e[0] == 'prefill_chunk' for e in events)
         L = config.n_layers
-        want = {name: 0 for name in kernels}
-        want.update({'paged_w1': L * steps, 'paged_verify': L * n_verify,
-                     'cache_write': L * (steps + n_verify + n_chunks)})
+        want, _ = _serving_identity(kernels, L, events)
+        # The nucleus threshold runs once per sampled forward: its count
+        # is data-dependent (a dispatch samples while a sampled row is
+        # admitted), so it is held to be positive, not to a formula.
+        assert launches['top_p_kth'] > 0, launches
+        want['top_p_kth'] = launches['top_p_kth']
         n_out, outs = 0, []
         for (status, heads, ids, ttft, ms), r in zip(results, reqs):
             assert status == 200, (status, r.get('response_format'))
@@ -2901,6 +3689,8 @@ def sampling_phase(torch, attention, da):
                             first_divergence=_first_divergence(alone[i],
                                                                outs[i])))
         log('SAMPLING_INVARIANCE ' + json.dumps(inv))
+        assert all(r['equal'] for r in inv), ('a seeded request differs '
+                                              'from its run alone', inv)
         # Spec-on vs spec-off: the seeded sampled requests, each alone on
         # an engine with speculation off (same weights, a fresh pool, so
         # no prefix-cache hit either); the two drafting ones are the
@@ -2919,6 +3709,8 @@ def sampling_phase(torch, attention, da):
                                                                 outs[i]),
                              equal_to_alone=off == alone[i]))
         log('SAMPLING_SPEC_OFF ' + json.dumps(spec))
+        assert all(r['equal'] for r in spec), ('a request differs from '
+                                               'its spec-off run', spec)
         _profile_sampled_dispatch(torch, engine, config, batching)
     finally:
         if spec_off is not None:
@@ -2942,11 +3734,6 @@ ADAPTER_RANKS = {'a': 8, 'b': 16, 'c': 16, 'big': 32}
 # Factor std: at llama3-8b a rank-16 delta on q and v comes to ~0.5 of
 # the base projections' unit scale (B carries the registry's x2 too).
 ADAPTER_FACTOR_STD = 0.03
-# (b): a request's tokens may differ from its solo run's only at a
-# position where the solo run's top-two logit gap is under this (the
-# logits of random llama3-8b weights are ~N(0, 1) over 128256 ids; a
-# batch and a solo run round bf16 GEMMs of different shapes).
-ADAPTER_FLIP_GAP = 0.15
 
 
 def _write_lineages(torch, base, config, ranks, seed):
@@ -2987,11 +3774,11 @@ def _logits_after(torch, engine, config, tokens, adapters=None, slot=0):
 def _solo_check(torch, label, engine, config, reqs, outs, registry,
                 solo_engine=None):
     """Rule (b): each request re-run alone (on ``solo_engine``, default
-    the same engine) must give the burst's tokens, or diverge first at a
-    position where the solo run's top-two logit gap (its logits there
-    recomputed by the engine's prefill path under its adapter) is under
-    ``ADAPTER_FLIP_GAP``. Prints every divergence with its position and
-    gap; returns the rows."""
+    the same engine) must give the burst's tokens exactly: the engine's
+    rows are batch-invariant on the card. A divergence is printed with
+    its position and the solo run's top-two logit gap there (recomputed
+    by the engine's prefill path under its adapter), then fails the
+    run; returns the rows."""
     from skypilot_torch.serve.adapters import ResidentAdapterSet
     solo_engine = solo_engine or engine
     sets, rows = {}, []
@@ -3019,8 +3806,7 @@ def _solo_check(torch, label, engine, config, reqs, outs, registry,
                        recomputed_argmax=int(top.indices[0]))
             log(f'{label}_DIVERGENCE ' + json.dumps(row))
         rows.append(row)
-    bad = [r for r in rows if not r['equal'] and
-           not r['top2_gap'] < ADAPTER_FLIP_GAP]
+    bad = [r for r in rows if not r['equal']]
     assert not bad, (label, bad)
     return rows
 
@@ -3315,8 +4101,8 @@ def adapters_phase(torch, attention, da, dev='cuda', model='llama3-8b'):
     a base and two 'a' requests sharing a 512-token prefix. Checks: (a)
     each adapter's first-token logits differ from the base's on the same
     prompt; (b) every request equals its run alone on the same engine
-    and the base rows their runs on an adapterless engine (a divergence
-    only under ``ADAPTER_FLIP_GAP``); (c) the first 'a' request hits no
+    and the base rows their runs on an adapterless engine, bit for bit
+    (the rows are batch-invariant); (c) the first 'a' request hits no
     base block, the second hits the first's; 'c' is loaded cold and its
     load evicts an adapter; (d) slot 0 all zeros after the cycle; (e)
     'big' answers 413 and an unknown id 404; (f) launch counts equal to
@@ -3391,28 +4177,11 @@ def adapters_phase(torch, attention, da, dev='cuda', model='llama3-8b'):
             first[name] = _logits_after(torch, engine, config, probe,
                                         resident.buffers(),
                                         resident.slot(name))
-        kernels = {'flash_fwd': attention.FLASH_FWD,
-                   'decode_attention': da.DECODE_ATTENTION,
-                   'paged_w1': da.PAGED_DECODE_ATTENTION,
-                   'paged_verify': da.PAGED_VERIFY_ATTENTION,
-                   'cache_write': da.CACHE_WRITE,
-                   'decode_attention_q8': da.DECODE_ATTENTION_Q8,
-                   'paged_w1_q8': da.PAGED_DECODE_ATTENTION_Q8,
-                   'paged_verify_q8': da.PAGED_VERIFY_ATTENTION_Q8,
-                   'cache_write_q8': da.CACHE_WRITE_Q8}
+        kernels = _serving_kernels(attention, da)
 
         def identity(events):
-            steps = sum(e[2] for e in events
-                        if e[0] == 'decode' and len(e) == 3)
-            n_verify = sum(e[0] == 'verify' for e in events)
-            n_chunks = sum(e[0] == 'prefill_chunk' for e in events)
-            L = config.n_layers
-            want = {name: 0 for name in kernels}
-            want.update({'paged_w1': L * steps,
-                         'paged_verify': L * n_verify,
-                         'cache_write': L * (steps + n_verify + n_chunks)})
-            return want, dict(decode_steps=steps, verify_dispatches=n_verify,
-                              prefill_chunks=n_chunks)
+            return _serving_identity(kernels, config.n_layers, events,
+                                     lora=True)
 
         # The adapter burst, with the queue bound lifted.
         engine.max_queued_requests = None
@@ -3593,7 +4362,7 @@ def adapters_phase(torch, attention, da, dev='cuda', model='llama3-8b'):
 
 
 # ---------------------------------------------------------------------
-# Rows: decode_steps_rows (K5 + dense K4) against its paged twin
+# Rows: decode_steps_rows (K5F + dense K4) against its paged twin
 # ---------------------------------------------------------------------
 
 
@@ -3601,8 +4370,8 @@ def rows_phase(torch, da):
     """``decode_steps_rows`` at llama3-8b (32 layers, B 8 at mixed
     positions, 16 steps) over a dense cache of random content, then
     ``decode_steps_paged`` over a pool holding the same content through
-    contiguous tables: exactly 32 x 16 launches of K5 and dense K4 in
-    the first, of K5 and K4-paged in the second, and equal tokens."""
+    contiguous tables: exactly 32 x 16 launches of K5F and dense K4 in
+    the first, of K5F and K4-paged in the second, and equal tokens."""
     import gc
 
     from skypilot_torch.models import llama
@@ -3631,7 +4400,7 @@ def rows_phase(torch, da):
     vp[:, 1:] = v.reshape(L, b * mb, BLOCK, HKV8, HD8)
     tables = (torch.arange(b * mb, dtype=torch.int32, device='cuda')
               .reshape(b, mb) + 1)
-    kernels = (da.CACHE_WRITE, da.DECODE_ATTENTION,
+    kernels = (da.ROPE_CACHE_WRITE, da.DECODE_ATTENTION,
                da.PAGED_DECODE_ATTENTION)
     out = {}
     with torch.inference_mode():
@@ -3657,7 +4426,7 @@ def rows_phase(torch, da):
     log('ROWS ' + json.dumps(dict(
         config='llama3-8b', layers=L, B=b, steps=steps,
         positions=pos.tolist(), tokens_equal=same,
-        launches_order=['cache_write', 'decode_attention',
+        launches_order=['rope_cache_write', 'decode_attention',
                         'decode_attention_paged'], **out)))
     n = L * steps
     assert out['rows']['launches'] == [n, n, 0], out['rows']['launches']
@@ -4334,11 +5103,23 @@ def qlora_phase(torch, attention):
     return dict(launches=launches)
 
 
+def _matmul_entry(line):
+    """The kernels line's numbers of the invariant GEMM at a decode step
+    (M = 8) of one shape: kernel, cuBLAS (the plain version is the
+    library call) and bound."""
+    t = line['times'][8]
+    return dict(shape=[8, line['K'], line['N']],
+                max_abs_err=line['max_abs_err'], ms=t['kernel_ms'],
+                plain_ms=t['cublas_ms'], bound_ms=t['bound_ms'],
+                bound_by=t['bound_by'], library_ms=t['cublas_ms'])
+
+
 def k4_smem_plan_check(_build, da):
     """The wrapper's copy of K4's shared-memory layout
     (``decode_smem_bytes``, which its checks use before a launch) against
     the kernel's own (``skypilot_decode_smem_bytes``), for every head_dim
-    x group x int8 x narrow/wide instantiation, dense and paged."""
+    x group x int8 instantiation, one m-tile (W x G <= 16) or several,
+    dense and paged, and a 512-row prefill chunk."""
     import ctypes
     fn = _build.load('decode_attention').skypilot_decode_smem_bytes
     fn.argtypes = [ctypes.c_int] * 5
@@ -4347,8 +5128,8 @@ def k4_smem_plan_check(_build, da):
     for hd in da.DECODE_HEAD_DIMS:
         for g in da.DECODE_GROUPS:
             for q8 in (False, True):
-                for w in (1, 2, 9):          # narrow up to 16 rows, wide
-                    for pages in (0, 4, da.DECODE_MAX_CHUNK // 8):
+                for w in (1, 2, 9, 512):
+                    for pages in (0, 4, da.DECODE_CHUNK // 8):
                         args = (hd, q8, 32 // g, pages, w * g)
                         want = fn(hd, int(q8), *args[2:])
                         got = da.decode_smem_bytes(*args)
@@ -4410,8 +5191,7 @@ def main() -> int:
     k4_spills = [e for e in k4_entries
                  if e.get('spill_stores') or e.get('spill_loads')]
     # Dynamic shared memory of a K4 block at llama3-8b's shapes (Hkv 8,
-    # 16-row pages, the split plan's longest chunk at B8): narrow (W 1)
-    # and wide (W 9) blocks, bf16 and int8.
+    # 16-row pages, the split plan's chunk): W 1 and W 9, bf16 and int8.
     smem_plan = k4_smem_plan_check(_build, da)
     log('K4_BUILD ' + json.dumps(dict(
         instantiations=len(k4_entries),
@@ -4419,7 +5199,7 @@ def main() -> int:
                           default=None),
         spilling=len(k4_spills),
         dynamic_smem={f'{"int8" if q8 else "bf16"} W{w}':
-                      da.decode_smem_bytes(128, q8, 8, da.DECODE_MAX_CHUNK
+                      da.decode_smem_bytes(128, q8, 8, da.DECODE_CHUNK
                                            // 16, 4 * w)
                       for q8 in (False, True) for w in (1, 9)},
         **smem_plan)))
@@ -4442,8 +5222,12 @@ def main() -> int:
         train = train_phase(torch, attention)
     if 'k5' in phases:
         k5 = k5_phase(torch, da)
+    if 'k5f' in phases:
+        k5f = k5f_phase(torch, da)
     if 'k4p' in phases:
         k4p = k4p_phase(torch, F, da)
+    if 'invariance' in phases:
+        inv = invariance_phase(torch, da)
     if 'engine' in phases:
         eng = engine_phase(torch, attention, da)
     if 'sampling' in phases:
@@ -4461,8 +5245,8 @@ def main() -> int:
     if 'qlora' in phases:
         qlora = qlora_phase(torch, attention)
     assert not bwd_spills, f'the backward kernels spill: {bwd_spills}'
-    assert len(k4_entries) == 64 and not k4_spills, (
-        f'K4: {len(k4_entries)} instantiations built (64 expected), '
+    assert len(k4_entries) == 32 and not k4_spills, (
+        f'K4: {len(k4_entries)} instantiations built (32 expected), '
         f'spilling: {k4_spills}')
     if set(phases) != set(PHASES):
         return 0
@@ -4481,6 +5265,12 @@ def main() -> int:
                        serve_8b_bf16=s8['bf16']['decode_attention'],
                        engine_off_int8_weights=off['decode_attention'],
                        serve_8b_int8_kv=s8['int8']['decode_attention_q8'])
+    bursts = (eng, smp, ad_b, ov_b, rep)
+    prefill = dict(engine=eng['verify_attention'],
+                   sampled=smp['verify_attention'],
+                   adapters=ad_b['verify_attention'],
+                   overload=ov_b['verify_attention'],
+                   int8=rep['verify_attention'])
     # 'launches' sums every main path's run; the launches_* keys split
     # it by path, and the int8 forms of K4/K5 (the same templates over
     # int8 codes) carry their own counts and numbers under 'int8'.
@@ -4517,10 +5307,12 @@ def main() -> int:
         dict(name='decode_attention', route='cuda',
              source='skypilot_torch/csrc/decode_attention.cu',
              replaces='skypilot_tpu/ops/decode_attention.py:123',
-             launches=sum(k4_launches.values()),
+             launches=sum(k4_launches.values()) + sum(prefill.values()),
              **{f'launches_{k}': v for k, v in k4_launches.items()},
+             **{f'launches_prefill_{k}': v for k, v in prefill.items()},
              launches_int8=k4_launches['serve_8b_int8_kv'],
-             **k4, int8=int8k['decode_attention']),
+             **k4, int8=int8k['decode_attention'],
+             prefill_form=inv['prefill']),
         # The engine slice: launches from its 12-request replica runs,
         # bf16 and int8.
         dict(name='decode_attention_paged', route='cuda',
@@ -4530,7 +5322,8 @@ def main() -> int:
                        smp['paged_w1'] + smp['paged_verify'] +
                        ad_b['paged_w1'] + ad_b['paged_verify'] +
                        ov_b['paged_w1'] + ov_b['paged_verify'] +
-                       rep['paged_w1'] + rep['paged_verify'] + rows_n),
+                       rep['paged_w1_q8'] + rep['paged_verify_q8'] +
+                       rows_n),
              launches_decode_w1=eng['paged_w1'],
              launches_verify=eng['paged_verify'], launches_rows=rows_n,
              launches_sampled=smp['paged_w1'] + smp['paged_verify'],
@@ -4540,22 +5333,79 @@ def main() -> int:
              launches_adapters_verify=ad_b['paged_verify'],
              launches_overload_decode_w1=ov_b['paged_w1'],
              launches_overload_verify=ov_b['paged_verify'],
-             launches_int8=rep['paged_w1'] + rep['paged_verify'],
-             launches_int8_decode_w1=rep['paged_w1'],
-             launches_int8_verify=rep['paged_verify'],
+             launches_int8=rep['paged_w1_q8'] + rep['paged_verify_q8'],
+             launches_int8_decode_w1=rep['paged_w1_q8'],
+             launches_int8_verify=rep['paged_verify_q8'],
              **k4p, int8=int8k['decode_attention_paged']),
+        # K5 now writes the engine's prefill chunks only.
         dict(name='cache_write', route='cuda',
              source='skypilot_torch/csrc/decode_attention.cu',
              replaces='skypilot_tpu/ops/decode_attention.py:389',
              launches=(eng['cache_write'] + smp['cache_write'] +
                        ad_b['cache_write'] + ov_b['cache_write'] +
-                       rep['cache_write'] + 2 * rows_n),
-             launches_engine=eng['cache_write'], launches_rows=2 * rows_n,
+                       rep['cache_write_q8']),
+             launches_engine=eng['cache_write'],
              launches_sampled=smp['cache_write'],
              launches_adapters=ad_b['cache_write'],
              launches_overload=ov_b['cache_write'],
-             launches_int8=rep['cache_write'], **k5,
+             launches_int8=rep['cache_write_q8'], **k5,
              int8=int8k['cache_write']),
+        # K5F: the decode and verify steps' new rows, one launch a layer.
+        dict(name='rope_cache_write', route='cuda',
+             source='skypilot_torch/csrc/decode_attention.cu',
+             replaces='skypilot_tpu/ops/decode_attention.py:389',
+             launches=(eng['rope_cache_write'] + smp['rope_cache_write'] +
+                       ad_b['rope_cache_write'] + ov_b['rope_cache_write'] +
+                       rep['rope_cache_write_q8'] + 2 * rows_n),
+             launches_engine=eng['rope_cache_write'],
+             launches_rows=2 * rows_n,
+             launches_sampled=smp['rope_cache_write'],
+             launches_adapters=ad_b['rope_cache_write'],
+             launches_overload=ov_b['rope_cache_write'],
+             launches_int8=rep['rope_cache_write_q8'], **k5f['bf16'],
+             int8=k5f['int8']),
+        # Not ports of TPU kernels: the batch-invariance repair of the
+        # serving path's products (the JAX package leaves them to XLA)
+        # and of the sampler's nucleus threshold; 'replaces' names the
+        # JAX function each computes.
+        dict(name='matmul_invariant', route='cuda',
+             source='skypilot_torch/csrc/matmul_invariant.cu',
+             replaces='skypilot_tpu/models/llama.py:326',
+             launches=sum(b['matmul'] + b['matmul_q8'] for b in bursts),
+             launches_engine=eng['matmul'], launches_sampled=smp['matmul'],
+             launches_adapters=ad_b['matmul'],
+             launches_overload=ov_b['matmul'],
+             launches_int8=rep['matmul_q8'],
+             **_matmul_entry(inv['matmul']['bf16']),
+             int8=_matmul_entry(inv['matmul']['int8']),
+             shapes=inv['matmul_rows']),
+        dict(name='lora_delta', route='cuda',
+             source='skypilot_torch/csrc/matmul_invariant.cu',
+             replaces='skypilot_tpu/models/decode.py:304',
+             launches=ad_b['lora_delta'] + ov_b['lora_delta'],
+             launches_adapters=ad_b['lora_delta'],
+             launches_overload=ov_b['lora_delta'],
+             **{k: inv['lora'][k] for k in (
+                 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+                 'library_ms')}),
+        dict(name='rms_norm', route='cuda',
+             source='skypilot_torch/csrc/rms_norm.cu',
+             replaces='skypilot_tpu/models/llama.py:339',
+             launches=sum(b['rms_norm'] for b in bursts),
+             launches_engine=eng['rms_norm'], launches_sampled=smp['rms_norm'],
+             launches_adapters=ad_b['rms_norm'],
+             launches_overload=ov_b['rms_norm'],
+             launches_int8=rep['rms_norm'],
+             **{k: inv['rms_norm'][k] for k in (
+                 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+                 'library_ms')}),
+        dict(name='top_p_kth', route='cuda',
+             source='skypilot_torch/csrc/top_p.cu',
+             replaces='skypilot_tpu/serve/sampling/sample.py:35',
+             launches=smp['top_p_kth'], launches_sampled=smp['top_p_kth'],
+             **{k: inv['top_p'][k] for k in (
+                 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+                 'library_ms')}),
         # Its main path is its entry point, bench_main().
         dict(name='packed_flash_fwd', route='cuda',
              source='skypilot_torch/csrc/attention_packed.cu',

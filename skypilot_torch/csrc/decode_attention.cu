@@ -1,18 +1,20 @@
 // Decode-side kernels for Hopper (sm_90a): K4-cuda (decode attention,
-// dense and paged/verify, bf16 and int8 KV) and K5-cuda (the per-row
-// KV-cache write).
+// dense and paged/verify, bf16 and int8 KV), K5-cuda (the per-row
+// KV-cache write) and K5F (K5 fused with the step's RoPE and int8
+// quantization).
 //
 // K4 replaces the TPU kernel skypilot_tpu/ops/decode_attention.py:
 // _decode_attn_kernel (launched by _decode_attention_pallas), and the JAX
 // package's gather + K4 and plain-einsum verify routes (paged_decode_
-// attention, paged_verify_attention). Contract: q [B,W,Hq,hd] (W = 1 for
-// the dense entries), K/V either a dense cache [B,S,Hkv,hd] read through
-// strides or one layer's flat pool [N,Hkv,hd] read through a block table
-// [B,MB] (logical position p of row b is pool row table[b][p/bs]*bs +
-// p%bs, S = MB*bs); query j of row b attends [0, min(max(lengths[b] + j,
-// 1), S)). W = 1 is decode, W = draft_k + 1 the speculative verify. The
-// output is [B,W,Hq,hd] bf16. int8 KV (the *_q8 entries) holds codes with
-// one bf16 scale per (row, kv head); a code is dequantized as the JAX
+// attention, paged_verify_attention). Contract: q [B,W,Hq,hd], K/V either
+// a dense cache [B,S,Hkv,hd] read through strides or one layer's flat pool
+// [N,Hkv,hd] read through a block table [B,MB] (logical position p of row
+// b is pool row table[b][p/bs]*bs + p%bs, S = MB*bs); query j of row b
+// attends [0, min(max(lengths[b] + j, 1), S)). W = 1 is decode, W =
+// draft_k + 1 the speculative verify, and the dense bf16 entry's W = T the
+// engine's prefill chunk (lengths = start + 1). The output is [B,W,Hq,hd]
+// bf16. int8 KV (the *_q8 entries, W = 1 when dense) holds codes with one
+// bf16 scale per (row, kv head); a code is dequantized as the JAX
 // package's _dequant_kv does (code * scale, exact in f32, rounded once to
 // bf16) before the products.
 //
@@ -20,53 +22,55 @@
 // and V per kv head in bf16 (512 at hd 128) and 2*hd + 4 in int8 (260),
 // used for 4*hd FLOPs per query row: at W*G = 4 rows (llama3-8b decode)
 // or 36 (verify, W = 9) that is far below the card's ~295 FLOP/byte
-// balance point. So the design reads each key once and keeps bytes in
-// flight:
+// balance point. So the design keeps bytes in flight:
 //
-// 1. One block per (split, kv head, batch row) reads its span of keys
-//    ONCE for all W*G query rows of the kv head. The products run on the
-//    tensor cores (mma.sync m16n8k16 bf16 -> f32): the query rows, padded
-//    to m-tiles of 16, are A (held in registers), a 16-key slice of a
-//    64-key tile is B (ldmatrix), and P = exp2(S - m) is repacked from the
-//    accumulators into the A operand of P V (V by ldmatrix.trans). The
-//    online softmax runs on the accumulator fragments in f32 (S scaled by
-//    scale*log2e in f32), with one quad shuffle per row per slice and none
-//    per key. Two kernels of one template: narrow (W*G <= 16, one
-//    m-tile: decode) gives each of the 4 warps its own 16 keys of every
-//    tile; wide (verify) gives each warp an m-tile and whole tiles (two
-//    m-tiles: two warps each, 32 keys; more than 4 m-tiles, e.g. G 8 at
-//    W 9, stream the span once per 4). So W costs more tensor-core tiles
-//    and partial rows, not more bytes.
-// 2. Keys arrive by TMA (cp.async.bulk.tensor) into a 3-stage ring of
+// 1. One block per (split, kv head, batch row) reads its span of keys for
+//    the W*G query rows of the kv head, one m-tile of 16 rows a pass (W*G
+//    <= 16, decode: one pass; verify at G 4, W 9: three, the later ones
+//    mostly from L2); a block takes at most 4 passes, so a prefill
+//    chunk's T*G rows spread over groups of blocks. The products run on the tensor cores (mma.sync
+//    m16n8k16 bf16 -> f32): the m-tile's rows are A (held in registers),
+//    a 16-key slice of a 64-key tile is B (ldmatrix), and P = exp2(S - m)
+//    is repacked from the accumulators into the A operand of P V (V by
+//    ldmatrix.trans). Each of the 4 warps owns 16 keys of every tile, with
+//    its own online softmax on the accumulator fragments in f32 (S scaled
+//    by scale*log2e in f32), one quad shuffle per row per slice and none
+//    per key; the warps' states merge in warp order at the end of a pass.
+// 2. Batch invariance: a query row meets its keys in one order whatever
+//    W, B or its m-tile: the same 16-key slices per warp, the same online
+//    updates, the same warp merge and the same split merge, the splits a
+//    constant chunk of keys (ops/decode_attention.py decode_split_plan).
+//    Tiles past a row's span (a longer row of the call) are masked and add
+//    exactly 0. So a row decoded alone, in a batch of 8, or as the first
+//    query of a verify window gets the same bits.
+// 3. Keys arrive by TMA (cp.async.bulk.tensor) into a 3-stage ring of
 //    64-key tiles, with mbarriers; bf16 tiles land 128-byte swizzled
 //    (conflict-free ldmatrix). The map is 4-D, dense [B,S,Hkv,hd] or the
 //    pool [1,N,Hkv,hd], in boxes of min(bs, 16) rows of one kv head; a
 //    paged row comes from the block's span of the table, read once into
 //    shared memory, one entry per page. Past S (dense) a box is
 //    zero-filled; a page past the table reads block 0, whose keys are
-//    masked. No block-wide barrier runs per tile: in the narrow kernel
-//    each warp copies, waits for and refills its own rows of each stage
-//    (its own barrier), so the 4 warps run as 4 pipelines; in the wide
-//    kernel the last warp done with a stage refills it.
-// 3. int8 moves codes and scales, not bf16 copies: the codes by TMA
+//    masked. No block-wide barrier runs per tile: each warp copies, waits
+//    for and refills its own rows of each stage (its own barrier), so the
+//    4 warps run as 4 pipelines.
+// 4. int8 moves codes and scales, not bf16 copies: the codes by TMA
 //    (swizzled rows), the scale rows of the tile's keys (all kv heads,
 //    contiguous) by cp.async.bulk on the same barrier. Each code is
 //    dequantized once per tile (byte_perm into f32, one cvt per pair,
-//    mul.rn.bf16x2 by the scale): the narrow kernel turns a warp's K codes
-//    straight into the QK^T operands (4 codes a lane per k-step, in a
-//    permuted order of the head dims that q is loaded in too) and its V
-//    codes into bf16 rows for ldmatrix; the wide kernel turns whole tiles
-//    into bf16 tiles. Nothing is shuffled per key.
-// 4. Splits come from shapes alone (ops/decode_attention.py
-//    decode_split_plan: B, Hkv, S, W*G), never from `lengths`, so the call
-//    can be captured in a CUDA graph. Blocks whose split starts at or
-//    past the row's longest span exit at once. The merge is folded into
-//    the same launch: each block writes its (m, l, acc) partials, then
-//    bumps a per-(row, kv head) counter; the block that arrives last
-//    merges the row's valid splits in split order and resets the counter
-//    to 0. One launch per call, and the result does not depend on which
-//    block finished last.
-// 5. One template: decode_kernel<HD, G, PAGED, Q8, WIDE>. Dense and paged
+//    mul.rn.bf16x2 by the scale): a warp's K codes straight into the QK^T
+//    operands (4 codes a lane per k-step, in a permuted order of the head
+//    dims that q is loaded in too), its V codes into bf16 rows for
+//    ldmatrix. Nothing is shuffled per key.
+// 5. Splits come from shapes alone, never from `lengths`, so the call can
+//    be captured in a CUDA graph. Blocks whose split starts at or past the
+//    row's longest span exit at once. The merge is folded into the same
+//    launch: each block writes its (m, l, acc) partials, then bumps a
+//    per-(row, kv head, pass group) counter; the block that arrives last
+//    merges the group's rows over the valid splits in split order and
+//    resets the counter to 0. One
+//    launch per call, and the result does not depend on which block
+//    finished last.
+// 6. One template: decode_kernel<HD, G, PAGED, Q8>. Dense and paged
 //    differ only in where a tile's rows come from, so paged W = 1 over a
 //    table that lays rows out contiguously is bit-equal to dense K4 (same
 //    splits, same tiles, same arithmetic), in bf16 and in int8.
@@ -84,7 +88,20 @@
 // read once and written once); one block per (row, array), copying with
 // the widest word (16 bytes at llama3-8b) the row's width and alignment
 // allow. Its int8 form writes the code rows (Hkv*hd bytes) and the scale
-// rows (Hkv*2 bytes) of K and V in the same one launch.
+// rows (Hkv*2 bytes) of K and V in the same one launch. The engine's
+// prefill chunk still writes with K5.
+//
+// K5F (skypilot_rope_cache_write, _q8) is K5 redesigned for the decode and
+// verify steps. It computes what the JAX step computes around the same
+// TPU kernel, where XLA fuses the RoPE and the quantize into the scan.
+// On the H100, K5 alone ran at about 1% of its bytes bound: a launch of a
+// few hundred bytes costs the launch, and before it ran a chain of some
+// 23 eager elementwise launches a layer in bf16 (47 in int8): RoPE of q
+// and k with cos and sin recomputed from the angles, then the
+// quantization. K5F is that whole chain in one launch a layer (cos and sin
+// made once per step): one block per new row rotates the row's q heads
+// (out), rotates its k heads, quantizes k and v when the pool is int8 and
+// writes them in place. Still bound by the launch, not by its bytes.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -92,6 +109,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_sync.cuh"
 #include "sm90_common.cuh"
 
 namespace {
@@ -103,6 +121,14 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;   // keys per tile (ops: DECODE_TILE)
 constexpr int kStages = 3;  // tiles in the ring
 constexpr int kMaxSmem = 232448;
+// m-tiles of query rows (passes) one block takes: a call with more (a
+// prefill chunk's T x G rows) spreads its passes over groups of blocks
+// (ops: DECODE_PASSES_PER_BLOCK). Which block runs a pass changes no bit.
+constexpr int kPassesPerBlock = 4;
+
+__host__ __device__ inline int pass_groups(int rows) {
+  return ((rows + 15) / 16 + kPassesPerBlock - 1) / kPassesPerBlock;
+}
 
 struct DecodeArgs {
   const bf16* q;          // [B, W, Hq, hd]
@@ -156,57 +182,22 @@ __host__ __device__ inline Layout layout(int hd, bool q8, int hkv,
   L.stage = q8 ? round_up(2 * L.codes + 2 * kTile * hkv * 2, 1024)
                : 2 * kv_tile;
   L.bf = kStages * L.stage;
-  // int8: the dequantized bf16 tiles, V only when narrow (the narrow
-  // kernel dequantizes K into registers).
-  int end = L.bf + (q8 ? (rows > 16 ? 2 : 1) * kv_tile : 0);
+  // int8: the dequantized bf16 V tile (K is dequantized into registers).
+  int end = L.bf + (q8 ? kv_tile : 0);
   const int merge = kWarps * 16 * (hd + 4) * 4 + kWarps * 16 * 2 * 4;
   if (merge > end) end = merge;
   if (rows * 2 * 4 > end) end = rows * 2 * 4;
   L.bar = round_up(end, 128);
   L.flag = L.bar + kStages * kWarps * 8;  // a barrier per (stage, warp)
-  L.table = L.flag + round_up(4 * (1 + kStages), 16);  // flag, counters
+  L.table = L.flag + 16;                  // the last-block flag
   L.total = L.table + max_pages * 4;
   return L;
 }
 
-// ---------------------------------------------------------------------
-// Warp-level tensor-core primitives
-// ---------------------------------------------------------------------
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d[16 x 8] += a[16 x 16] b[16 x 8], bf16 -> f32. Fragments (g = lane / 4,
-// t = lane % 4): a0 (row g, k 2t..2t+1), a1 (row g+8), a2 (row g, k
-// 2t+8..), a3 (row g+8, k 2t+8..); b0 (k 2t..2t+1, col g), b1 (k 2t+8..);
-// d0, d1 (row g, cols 2t, 2t+1), d2, d3 (row g+8).
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (lo, hi) -> bf16x2, each rounded to nearest even.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  uint32_t d;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
-  return d;
-}
+using mma::ldsm_x4;
+using mma::ldsm_x4_t;
+using mma::mma16816;
+using mma::pack_bf16;
 
 __device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
   uint32_t d;
@@ -231,11 +222,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
       "r"(sm90::smem_u32(bar))
       : "memory");
-}
-
-// The 4 warps' barrier without __syncthreads' block-wide count.
-__device__ __forceinline__ void named_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
 }
 
 __device__ __forceinline__ void fence_proxy_async() {
@@ -282,80 +268,66 @@ __device__ __forceinline__ int span_of(int len, int w, int S) {
 }
 
 // ---------------------------------------------------------------------
-// One warp's slice of one tile: nu 16-key units starting at tile row
-// `first`, for its 16 query rows (A fragments qa), online softmax state
-// (m_run, l_run per row g, g+8 of the m-tile) and accumulator o.
+// One warp's slice of one tile: the 16 keys at tile row `first`, for its
+// 16 query rows (A fragments qa), online softmax state (m_run, l_run per
+// row g, g+8 of the m-tile) and accumulator o. Every query row's keys meet
+// in this one order (a row's bits do not depend on W, B or its m-tile):
+// the two k-step chains (even, odd) summed, the slice's max, the rescale,
+// P rounded to bf16, P V in one m16n8k16 chain.
 // ---------------------------------------------------------------------
 
-template <int HD, int NU, bool DQK>
+template <int HD, bool DQK>
 __device__ __forceinline__ void attend_slice(
-    uint32_t kt, uint32_t vt, int key0, int first, int nu,
+    uint32_t kt, uint32_t vt, int key0, int first,
     const uint32_t (&qa)[HD / 16][4], float (&o)[HD / 8][4],
     float (&m_run)[2], float (&l_run)[2], const int (&span)[2],
     float scale_log2, int lane, const uint8_t* kc,
     const uint32_t (&ks2)[2]) {
   const int t = lane & 3;
-  // k-steps outside, units inside: 2 * nu independent accumulator chains,
-  // and with one unit two more (even and odd k-steps, summed after).
-  constexpr int CH = NU == 1 ? 2 : 1;
-  float s[NU][2][4], s2[2][4];
+  // Two accumulator chains (even and odd k-steps), summed after.
+  float s[2][4], s2[2][4];
 #pragma unroll
-  for (int u = 0; u < NU; ++u)
+  for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
-    for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[u][nb][e] = s2[nb][e] = 0.f;
+    for (int e = 0; e < 4; ++e) s[nb][e] = s2[nb][e] = 0.f;
   const int krow = first + ((lane >> 4) & 1) * 8 + (lane & 7);
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t b[4];
+    if (DQK) {
+      // Codes of keys first + g and first + g + 8, dims 16 kk + 4 t .. + 3:
+      // the k-step's k = 2t, 2t+1, 2t+8, 2t+9 in the permuted dim order
+      // the A fragments were loaded in.
 #pragma unroll
-    for (int u = 0; u < NU; ++u) {
-      if (u < nu) {
-        uint32_t b[4];
-        if (DQK) {
-          // Codes of keys first + g and first + g + 8, dims 16 kk + 4 t ..
-          // + 3: the k-step's k = 2t, 2t+1, 2t+8, 2t+9 in the permuted
-          // dim order the A fragments were loaded in.
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = first + 16 * u + (lane >> 2) + 8 * h;
-            const uint32_t w = *reinterpret_cast<const uint32_t*>(
-                kc + r * HD + code_chunk<HD>(r, kk) * 16 + 4 * t);
-            dequant4(w, ks2[h], b[2 * h], b[2 * h + 1]);
-          }
-        } else {
-          ldsm_x4(b, tile_addr(kt, krow + 16 * u,
-                               kk * 16 + ((lane >> 3) & 1) * 8));
-        }
-        float(&acc)[2][4] = (CH == 2 && (kk & 1)) ? s2 : s[u];
-        mma16816(acc[0], qa[kk], b[0], b[1]);
-        mma16816(acc[1], qa[kk], b[2], b[3]);
+      for (int h = 0; h < 2; ++h) {
+        const int r = first + (lane >> 2) + 8 * h;
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(
+            kc + r * HD + code_chunk<HD>(r, kk) * 16 + 4 * t);
+        dequant4(w, ks2[h], b[2 * h], b[2 * h + 1]);
       }
+    } else {
+      ldsm_x4(b, tile_addr(kt, krow, kk * 16 + ((lane >> 3) & 1) * 8));
     }
+    float(&acc)[2][4] = (kk & 1) ? s2 : s;
+    mma16816(acc[0], qa[kk], b[0], b[1]);
+    mma16816(acc[1], qa[kk], b[2], b[3]);
   }
-  if (CH == 2) {
 #pragma unroll
-    for (int nb = 0; nb < 2; ++nb)
+  for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[0][nb][e] += s2[nb][e];
-  }
+    for (int e = 0; e < 4; ++e) s[nb][e] += s2[nb][e];
   // Scale in f32, mask keys past each row's span, row max over the slice.
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int u = 0; u < NU; ++u) {
-    if (u >= nu) break;
+  for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
-    for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + first + 16 * u + 8 * nb + 2 * t + (e & 1);
-        const int r = e >> 1;
-        const float x =
-            key < span[r] ? s[u][nb][e] * scale_log2 : -INFINITY;
-        s[u][nb][e] = x;
-        mx[r] = fmaxf(mx[r], x);
-      }
-  }
+    for (int e = 0; e < 4; ++e) {
+      const int key = key0 + first + 8 * nb + 2 * t + (e & 1);
+      const int r = e >> 1;
+      const float x = key < span[r] ? s[nb][e] * scale_log2 : -INFINITY;
+      s[nb][e] = x;
+      mx[r] = fmaxf(mx[r], x);
+    }
   float m_use[2], alpha[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -374,29 +346,25 @@ __device__ __forceinline__ void attend_slice(
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[nb][e] *= alpha[e >> 1];
   }
+  float p[2][4];
 #pragma unroll
-  for (int u = 0; u < NU; ++u) {
-    if (u >= nu) break;
-    float p[2][4];
+  for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
-    for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        p[nb][e] = exp2f(s[u][nb][e] - m_use[e >> 1]);
-        l_run[e >> 1] += p[nb][e];
-      }
-    const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]),
-                            pack_bf16(p[0][2], p[0][3]),
-                            pack_bf16(p[1][0], p[1][1]),
-                            pack_bf16(p[1][2], p[1][3])};
-    const int vrow = first + 16 * u + ((lane >> 3) & 1) * 8 + (lane & 7);
-#pragma unroll
-    for (int dn = 0; dn < HD / 16; ++dn) {
-      uint32_t b[4];
-      ldsm_x4_t(b, tile_addr(vt, vrow, dn * 16 + ((lane >> 4) & 1) * 8));
-      mma16816(o[2 * dn], pa, b[0], b[1]);
-      mma16816(o[2 * dn + 1], pa, b[2], b[3]);
+    for (int e = 0; e < 4; ++e) {
+      p[nb][e] = exp2f(s[nb][e] - m_use[e >> 1]);
+      l_run[e >> 1] += p[nb][e];
     }
+  const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]),
+                          pack_bf16(p[0][2], p[0][3]),
+                          pack_bf16(p[1][0], p[1][1]),
+                          pack_bf16(p[1][2], p[1][3])};
+  const int vrow = first + ((lane >> 3) & 1) * 8 + (lane & 7);
+#pragma unroll
+  for (int dn = 0; dn < HD / 16; ++dn) {
+    uint32_t b[4];
+    ldsm_x4_t(b, tile_addr(vt, vrow, dn * 16 + ((lane >> 4) & 1) * 8));
+    mma16816(o[2 * dn], pa, b[0], b[1]);
+    mma16816(o[2 * dn + 1], pa, b[2], b[3]);
   }
 }
 
@@ -404,7 +372,7 @@ __device__ __forceinline__ void attend_slice(
 // K4
 // ---------------------------------------------------------------------
 
-template <int HD, int G, bool PAGED, bool Q8, bool WIDE>
+template <int HD, int G, bool PAGED, bool Q8>
 __global__ void __launch_bounds__(kThreads, 2)
     decode_kernel(const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap vmap,
@@ -413,10 +381,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   constexpr int KV_TILE = kTile * HD * 2;  // bytes of one bf16 K or V tile
   constexpr int ATOM = kTile * 128;        // bytes of one 64-column atom
   constexpr int NS = kStages;
-  // The narrow int8 kernel dequantizes K straight into the products'
-  // operands, in a permuted order of the head dims (the same for q).
-  constexpr bool DQK = Q8 && !WIDE;
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  // int8 K is dequantized straight into the products' operands, in a
+  // permuted order of the head dims (the same for q).
+  constexpr bool DQK = Q8;
+  const int split = blockIdx.x % a.n_split, kvh = blockIdx.y, b = blockIdx.z;
+  const int group = blockIdx.x / a.n_split;
   const int len = a.lengths[b];
   const int span_max = span_of(len, a.W - 1, a.S);
   const int start = split * a.chunk;
@@ -426,10 +395,11 @@ __global__ void __launch_bounds__(kThreads, 2)
                       kTile;
   const int Hq = a.Hkv * G;
   const int R = a.W * G;  // query rows of this kv head
-  const int MT = (R + 15) / 16;
-  // m-tiles per pass (WIDE: more than 16 query rows, else one m-tile).
-  const int P = !WIDE ? 1 : MT == 2 ? 2 : 4;
-  const int n_pass = (MT + P - 1) / P;
+  // One m-tile of query rows a pass; this block's passes and rows.
+  const int n_pass = (R + 15) / 16;
+  const int pass0 = group * kPassesPerBlock;
+  const int pass1 = min(n_pass, pass0 + kPassesPerBlock);
+  const int q0 = pass0 * 16, q1 = min(R, pass1 * 16);
 
   const Layout L =
       layout(HD, Q8, a.Hkv, PAGED ? a.chunk / a.bs : 0, R);
@@ -439,18 +409,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar);
   int* flag = reinterpret_cast<int*>(smem + L.flag);
   int* tbl = reinterpret_cast<int*>(smem + L.table);
-  int* stage_cnt = flag + 1;  // warps done with each stage's tiles
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int page0 = PAGED ? start / a.bs : 0;
   if (tid == 0) {
     sm90::prefetch_tensormap(&kmap);
     sm90::prefetch_tensormap(&vmap);
-    for (int s = 0; s < NS; ++s) {
-      for (int w = 0; w < kWarps; ++w)
-        sm90::mbar_init(&bars[s * kWarps + w], 1);
-      stage_cnt[s] = 0;
-    }
+    for (int s = 0; s < NS * kWarps; ++s) sm90::mbar_init(&bars[s], 1);
     sm90::mbar_init_fence();
   }
   if (PAGED) {
@@ -518,24 +483,19 @@ __global__ void __launch_bounds__(kThreads, 2)
                   n * sc_row, bar);
     }
   };
-  // The narrow kernel: each warp owns rows [16 warp, 16 warp + 16) of
-  // every tile (its keys) and their barrier; the wide one: the whole tile
-  // on one barrier per stage.
+  // Each warp owns rows [16 warp, 16 warp + 16) of every tile (its keys)
+  // and their barrier.
   auto load = [&](int t, int it) {
-    if (WIDE)
-      issue(t, it, 0, kTile, &bars[(it % NS) * kWarps]);
-    else
-      issue(t, it, 16 * warp, 16, &bars[(it % NS) * kWarps + warp]);
+    issue(t, it, 16 * warp, 16, &bars[(it % NS) * kWarps + warp]);
   };
 
-  // int8: 16 codes of K or V, row `row`, columns [16 j, 16 j + 16), into
-  // the bf16 tiles.
-  auto dequant = [&](const uint8_t* st, int which, int row, int j,
-                     uint8_t* tile) {
+  // int8: 16 V codes of row `row`, columns [16 j, 16 j + 16), into the
+  // bf16 V tile.
+  auto dequant = [&](const uint8_t* st, int row, int j, uint8_t* tile) {
     const uint4 raw = *reinterpret_cast<const uint4*>(
-        st + which * L.codes + row * HD + code_chunk<HD>(row, j) * 16);
+        st + L.codes + row * HD + code_chunk<HD>(row, j) * 16);
     const uint16_t s16 = reinterpret_cast<const uint16_t*>(
-        st + 2 * L.codes + which * kTile * a.Hkv * 2)[row * a.Hkv + kvh];
+        st + 2 * L.codes + kTile * a.Hkv * 2)[row * a.Hkv + kvh];
     uint32_t d[8];
     dequant16(raw, uint32_t(s16) * 0x10001u, d);
     uint8_t* dst = tile + (j >> 2) * ATOM + row * 128;
@@ -547,21 +507,18 @@ __global__ void __launch_bounds__(kThreads, 2)
   };
 
   int it = 0;  // tiles consumed by the block, over all passes
-  for (int pass = 0; pass < n_pass; ++pass) {
-    if (!WIDE || warp == 0)
-      for (int j = 0; j < NS && j < n_tiles; ++j) load(j, it + j);
+  for (int pass = pass0; pass < pass1; ++pass) {
+    for (int j = 0; j < NS && j < n_tiles; ++j) load(j, it + j);
 
-    // This warp's m-tile and key slice.
-    const int mt = pass * P + warp % P;
-    const int ks = warp / P;
-    const bool active = mt < MT;
+    // This pass's m-tile: query rows [16 pass, 16 pass + 16).
+    const int mt = pass;
     const int g = lane >> 2, t = lane & 3;
     uint32_t qa[HD / 16][4];
     int span[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qi = mt * 16 + g + 8 * r;
-      const bool ok = active && qi < R;
+      const bool ok = qi < R;
       span[r] = ok ? span_of(len, qi / G, a.S) : 0;
       const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
           a.q + (((long long)b * a.W + qi / G) * Hq + kvh * G + qi % G) *
@@ -587,67 +544,38 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int e = 0; e < 4; ++e) o[nb][e] = 0.f;
     float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
-    // No block-wide barrier per tile. Narrow: each warp waits for its
-    // rows and refills them; wide: each warp waits for the tile, and the
-    // last warp done with a stage refills it.
+    // No block-wide barrier per tile: each warp waits for its rows and
+    // refills them.
     for (int tt = 0; tt < n_tiles; ++tt, ++it) {
       const int stage = it % NS;
-      sm90::mbar_wait(&bars[stage * kWarps + (WIDE ? 0 : warp)],
-                      (it / NS) & 1);
+      sm90::mbar_wait(&bars[stage * kWarps + warp], (it / NS) & 1);
       uint8_t* st = smem + stage * L.stage;
       uint32_t kt = sm90::smem_u32(st), vt = kt + KV_TILE;
       uint32_t ks2[2] = {0u, 0u};
       if (Q8) {
+        // Each warp reads only its own 16 keys: it dequantizes their V
+        // rows, and their K codes inside the products.
         constexpr int CPR = HD / 16;  // 16-code chunks per row
         uint8_t* bf = smem + L.bf;
-        if (!WIDE) {
-          // Each warp reads only its own 16 keys: it dequantizes their V
-          // rows, and their K codes inside the products.
 #pragma unroll
-          for (int i = 0; i < CPR / 2; ++i) {
-            const int c = lane + 32 * i;
-            dequant(st, 1, 16 * warp + c / CPR, c % CPR, bf);
-          }
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = 16 * warp + (lane >> 2) + 8 * h;
-            ks2[h] = uint32_t(reinterpret_cast<const uint16_t*>(
-                         st + 2 * L.codes)[r * a.Hkv + kvh]) *
-                     0x10001u;
-          }
-          __syncwarp();
-          vt = sm90::smem_u32(bf);
-        } else {
-#pragma unroll 2
-          for (int i = 0; i < 2 * kTile * CPR / kThreads; ++i) {
-            const int c = tid + i * kThreads;
-            const int which = c / (kTile * CPR);
-            dequant(st, which, c % (kTile * CPR) / CPR, c % CPR,
-                    bf + which * KV_TILE);
-          }
-          named_sync();
-          kt = sm90::smem_u32(bf);
-          vt = kt + KV_TILE;
+        for (int i = 0; i < CPR / 2; ++i) {
+          const int c = lane + 32 * i;
+          dequant(st, 16 * warp + c / CPR, c % CPR, bf);
         }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * warp + (lane >> 2) + 8 * h;
+          ks2[h] = uint32_t(reinterpret_cast<const uint16_t*>(
+                       st + 2 * L.codes)[r * a.Hkv + kvh]) *
+                   0x10001u;
+        }
+        __syncwarp();
+        vt = sm90::smem_u32(bf);
       }
-      if (active)
-        attend_slice<HD, WIDE ? 4 : 1, DQK>(
-            kt, vt, start + tt * kTile, ks * 16 * P, P, qa, o, m_run, l_run,
-            span, a.scale_log2, lane, st, ks2);
+      attend_slice<HD, DQK>(kt, vt, start + tt * kTile, 16 * warp, qa, o,
+                            m_run, l_run, span, a.scale_log2, lane, st, ks2);
       __syncwarp();
-      if (!WIDE) {
-        if (tt + NS < n_tiles) load(tt + NS, it + NS);
-        continue;
-      }
-      if (Q8) named_sync();  // before the bf16 tiles are rewritten
-      int last = 0;
-      if (lane == 0) {
-        __threadfence_block();
-        last = (atomicAdd(&stage_cnt[stage], 1) & (kWarps - 1)) ==
-               kWarps - 1;
-      }
-      if (__shfl_sync(0xffffffff, last, 0) && tt + NS < n_tiles)
-        load(tt + NS, it + NS);
+      if (tt + NS < n_tiles) load(tt + NS, it + NS);
     }
     __syncthreads();
 
@@ -660,38 +588,34 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     float* w_acc = reinterpret_cast<float*>(smem);
     float* w_ml = w_acc + kWarps * 16 * (HD + 4);
-    if (active) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = g + 8 * r;
-        if (t == 0) {
-          w_ml[(warp * 16 + row) * 2] = m_run[r];
-          w_ml[(warp * 16 + row) * 2 + 1] = l_run[r];
-        }
-#pragma unroll
-        for (int nb = 0; nb < HD / 8; ++nb)
-          *reinterpret_cast<float2*>(
-              &w_acc[(warp * 16 + row) * (HD + 4) + nb * 8 + 2 * t]) =
-              make_float2(o[nb][2 * r], o[nb][2 * r + 1]);
+    for (int r = 0; r < 2; ++r) {
+      const int row = g + 8 * r;
+      if (t == 0) {
+        w_ml[(warp * 16 + row) * 2] = m_run[r];
+        w_ml[(warp * 16 + row) * 2 + 1] = l_run[r];
       }
+#pragma unroll
+      for (int nb = 0; nb < HD / 8; ++nb)
+        *reinterpret_cast<float2*>(
+            &w_acc[(warp * 16 + row) * (HD + 4) + nb * 8 + 2 * t]) =
+            make_float2(o[nb][2 * r], o[nb][2 * r + 1]);
     }
     __syncthreads();
-    const int n_ks = kWarps / P;
     const long long part0 =
         (((long long)b * a.Hkv + kvh) * a.n_split + split) * R;
-    for (int idx = tid; idx < P * 16 * (HD / 4); idx += kThreads) {
-      const int i = idx / (16 * (HD / 4));
-      const int row = idx / (HD / 4) % 16, d4 = idx % (HD / 4);
-      const int qi = (pass * P + i) * 16 + row;
+    for (int idx = tid; idx < 16 * (HD / 4); idx += kThreads) {
+      const int row = idx / (HD / 4), d4 = idx % (HD / 4);
+      const int qi = mt * 16 + row;
       if (qi >= R) continue;
       float M = -INFINITY;
-      for (int k = 0; k < n_ks; ++k)
-        M = fmaxf(M, w_ml[((k * P + i) * 16 + row) * 2]);
+      for (int k = 0; k < kWarps; ++k)
+        M = fmaxf(M, w_ml[(k * 16 + row) * 2]);
       const float Mu = M == -INFINITY ? 0.f : M;
       float Ls = 0.f;
       float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int k = 0; k < n_ks; ++k) {
-        const int wr = (k * P + i) * 16 + row;
+      for (int k = 0; k < kWarps; ++k) {
+        const int wr = k * 16 + row;
         const float wt = exp2f(w_ml[wr * 2] - Mu);
         Ls += wt * w_ml[wr * 2 + 1];
         const float4 x =
@@ -712,11 +636,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
   }
 
-  // Last block of (b, kvh) to finish merges the valid splits, in split
-  // order, and resets the counter for the next call.
+  // Last block of (b, kvh, group) to finish merges the group's rows over
+  // the valid splits, in split order, and resets the counter for the next
+  // call.
   __threadfence();
   __syncthreads();
-  int* counter = a.counters + (long long)b * a.Hkv + kvh;
+  int* counter = a.counters + ((long long)b * a.Hkv + kvh) * pass_groups(R) +
+                 group;
   if (tid == 0) *flag = atomicAdd(counter, 1) == n_valid - 1;
   __syncthreads();
   if (!*flag) return;
@@ -726,7 +652,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* row_ml = reinterpret_cast<float*>(smem);  // [R][M, 1/L]
   // Each row's M and L in one pass over its splits (an online max and
   // sum), one thread a row.
-  for (int qi = tid; qi < R; qi += kThreads) {
+  for (int qi = q0 + tid; qi < q1; qi += kThreads) {
     float M = -INFINITY, Ls = 0.f;
 #pragma unroll 8
     for (int i = 0; i < n_valid; ++i) {
@@ -744,12 +670,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   // Two outputs (4 columns each) a thread at a time, eight splits in
   // flight for each.
   constexpr int Q4 = HD / 4;
-  for (int idx = tid; idx < R * Q4; idx += 2 * kThreads) {
+  for (int idx = q0 * Q4 + tid; idx < q1 * Q4; idx += 2 * kThreads) {
     int qs[2];
     float4 A[2];
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
-      qs[k] = min(idx + k * kThreads, R * Q4 - 1);
+      qs[k] = min(idx + k * kThreads, q1 * Q4 - 1);
       A[k] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
 #pragma unroll 8
@@ -769,7 +695,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
-      if (idx + k * kThreads >= R * Q4) break;
+      if (idx + k * kThreads >= q1 * Q4) break;
       const int qi = qs[k] / Q4, d4 = qs[k] % Q4;
       const float inv = row_ml[qi * 2 + 1];
       const uint2 packed =
@@ -782,14 +708,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int HD, int G, bool PAGED, bool Q8, bool WIDE>
+template <int HD, int G, bool PAGED, bool Q8>
 cudaError_t launch(const CUtensorMap& km, const CUtensorMap& vm,
                    const DecodeArgs& a, int B, cudaStream_t stream) {
   const Layout L =
       layout(HD, Q8, a.Hkv, PAGED ? a.chunk / a.bs : 0, a.W * G);
   const int smem = L.total + 1024;  // alignment slack
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = decode_kernel<HD, G, PAGED, Q8, WIDE>;
+  auto kernel = decode_kernel<HD, G, PAGED, Q8>;
   // The attribute is set once per device (a bit each, devices 0-63).
   static unsigned long long attr_set = 0;
   int dev = 0;
@@ -802,7 +728,8 @@ cudaError_t launch(const CUtensorMap& km, const CUtensorMap& vm,
     if (err != cudaSuccess) return err;
     attr_set |= bit;
   }
-  kernel<<<dim3(a.n_split, a.Hkv, B), kThreads, smem, stream>>>(km, vm, a);
+  kernel<<<dim3(a.n_split * pass_groups(a.W * G), a.Hkv, B), kThreads, smem,
+           stream>>>(km, vm, a);
   return cudaGetLastError();
 }
 
@@ -814,12 +741,8 @@ cudaError_t dispatch(const CUtensorMap& km, const CUtensorMap& vm,
       a.chunk % kTile != 0 || (long long)a.n_split * a.chunk < a.S)
     return cudaErrorInvalidValue;
   const int G = Hq / a.Hkv;
-  // One m-tile of query rows (decode up to G * W = 16) or more (verify).
-  const bool wide = a.W * G > 16;
-#define SKYPILOT_DECODE_CASE(hd, g)                                   \
-  if (HD == hd && G == g)                                             \
-    return wide ? launch<hd, g, PAGED, Q8, true>(km, vm, a, B, s)     \
-                : launch<hd, g, PAGED, Q8, false>(km, vm, a, B, s);
+#define SKYPILOT_DECODE_CASE(hd, g) \
+  if (HD == hd && G == g) return launch<hd, g, PAGED, Q8>(km, vm, a, B, s);
   SKYPILOT_DECODE_CASE(64, 1)
   SKYPILOT_DECODE_CASE(64, 2)
   SKYPILOT_DECODE_CASE(64, 4)
@@ -902,14 +825,18 @@ DecodeArgs common_args(const void* q, const void* lengths, void* out,
 
 }  // namespace
 
+// W query positions a row (W > 1: the prefill chunk's dense form of the
+// verify, query j attending [0, lengths[b] + j)).
 extern "C" int skypilot_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
-    void* out, void* part_ml, void* part_acc, void* counters, int B, int S,
-    int Hq, int Hkv, int HD, long long k_sb, long long k_ss, long long v_sb,
-    long long v_ss, int chunk, int n_split, float scale_log2, void* stream) {
-  const DecodeArgs a = common_args(q, lengths, out, part_ml, part_acc,
-                                   counters, S, Hkv, chunk, n_split,
-                                   scale_log2);
+    void* out, void* part_ml, void* part_acc, void* counters, int B, int W,
+    int S, int Hq, int Hkv, int HD, long long k_sb, long long k_ss,
+    long long v_sb, long long v_ss, int chunk, int n_split, float scale_log2,
+    void* stream) {
+  if (W < 1) return cudaErrorInvalidValue;
+  DecodeArgs a = common_args(q, lengths, out, part_ml, part_acc, counters, S,
+                             Hkv, chunk, n_split, scale_log2);
+  a.W = W;
   CUtensorMap km, vm;
   cudaError_t err = kv_maps(&km, &vm, k, v, false, HD, S, Hkv, B, k_ss, k_sb,
                             v_ss, v_sb, 16);
@@ -1099,6 +1026,183 @@ extern "C" int skypilot_cache_write_q8(
   const void* srcs[4] = {k_new, v_new, ks_new, vs_new};
   const int widths[4] = {row_bytes, row_bytes, scale_bytes, scale_bytes};
   return cache_write(4, dsts, srcs, widths, dst, n_new, n_rows, stream);
+}
+
+namespace {
+
+// The fused RoPE + int8 + cache write of the decode and verify steps: one
+// block per new row r. q's heads are rotated into q_out; k's heads are
+// rotated and, with v's, written into the pool row dst[r] (bf16, or int8
+// codes with a bf16 scale per kv head), or dropped when dst[r] lies
+// outside [0, N). The math is the plain chain's bit for bit: f32
+// x1 c - x2 s and x1 s + x2 c with each product rounded before the add
+// (the _rn intrinsics: nvcc would contract a*b - c*d into an FMA), then
+// round-to-nearest-even to bf16; int8 as _quantize_kv: amax over hd in f32
+// of the bf16 row, max(amax, 1e-8) / 127 rounded to bf16, codes
+// rint(x / scale) clamped to +-127.
+struct RopeWriteArgs {
+  const bf16* q;      // [R, H, hd]
+  const bf16* k;      // [R, Hkv, hd]
+  const bf16* v;
+  const float* cos;   // [R, hd / 2]
+  const float* sin;
+  const int* dst;     // [R]
+  bf16* q_out;        // [R, H, hd]
+  void* k_pool;       // [N, Hkv, hd] bf16 or int8
+  void* v_pool;
+  bf16* k_scale;      // Q8: [N, Hkv]
+  bf16* v_scale;
+  long long n_rows;
+  int H, Hkv;
+};
+
+constexpr int kRopeThreads = 256;
+
+__device__ __forceinline__ void rot(float x1, float x2, float c, float s,
+                                    float& y1, float& y2) {
+  y1 = __fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s));
+  y2 = __fadd_rn(__fmul_rn(x1, s), __fmul_rn(x2, c));
+}
+
+// One warp writes one kv head of row r: lane l holds dims l + 32 j, the
+// rotated (ROPE) or copied bf16 values of K or V.
+template <int HD, bool Q8>
+__device__ __forceinline__ void write_head(const float (&x)[HD / 32],
+                                           void* pool, bf16* scales,
+                                           long long d, int Hkv, int kvh,
+                                           int lane) {
+  const long long row = d * Hkv + kvh;
+  if (!Q8) {
+    bf16* out = static_cast<bf16*>(pool) + row * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 32; ++j)
+      out[lane + 32 * j] = __float2bfloat16_rn(x[j]);
+    return;
+  }
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < HD / 32; ++j) amax = fmaxf(amax, fabsf(x[j]));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffff, amax, off));
+  const bf16 sb = __float2bfloat16_rn(__fdiv_rn(fmaxf(amax, 1e-8f), 127.f));
+  const float sf = __bfloat162float(sb);
+  int8_t* out = static_cast<int8_t*>(pool) + row * HD;
+#pragma unroll
+  for (int j = 0; j < HD / 32; ++j) {
+    const float c = fminf(fmaxf(rintf(__fdiv_rn(x[j], sf)), -127.f), 127.f);
+    out[lane + 32 * j] = static_cast<int8_t>(c);
+  }
+  if (lane == 0) scales[row] = sb;
+}
+
+template <int HD, bool Q8>
+__global__ void __launch_bounds__(kRopeThreads)
+    rope_cache_write_kernel(const RopeWriteArgs a) {
+  constexpr int HALF = HD / 2;
+  const long long r = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* cs = a.cos + r * HALF;
+  const float* sn = a.sin + r * HALF;
+  // q: every (head, i < hd/2) pair.
+  const bf16* q = a.q + r * a.H * HD;
+  bf16* qo = a.q_out + r * a.H * HD;
+  for (int idx = tid; idx < a.H * HALF; idx += kRopeThreads) {
+    const int h = idx / HALF, i = idx % HALF;
+    float y1, y2;
+    rot(__bfloat162float(q[h * HD + i]), __bfloat162float(q[h * HD + i + HALF]),
+        cs[i], sn[i], y1, y2);
+    qo[h * HD + i] = __float2bfloat16_rn(y1);
+    qo[h * HD + i + HALF] = __float2bfloat16_rn(y2);
+  }
+  const long long d = a.dst[r];
+  if (d < 0 || d >= a.n_rows) return;
+  // k and v: a warp per kv head; lane l holds dims l + 32 j.
+  for (int kvh = warp; kvh < a.Hkv; kvh += kRopeThreads / 32) {
+    const bf16* k = a.k + (r * a.Hkv + kvh) * HD;
+    const bf16* v = a.v + (r * a.Hkv + kvh) * HD;
+    float kx[HD / 32], vx[HD / 32];
+#pragma unroll
+    for (int j = 0; j < HD / 64; ++j) {
+      const int i = lane + 32 * j;  // < HALF
+      float y1, y2;
+      rot(__bfloat162float(k[i]), __bfloat162float(k[i + HALF]), cs[i], sn[i],
+          y1, y2);
+      // The rotated K as the cache stores it: rounded to bf16 first.
+      kx[j] = __bfloat162float(__float2bfloat16_rn(y1));
+      kx[j + HD / 64] = __bfloat162float(__float2bfloat16_rn(y2));
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 32; ++j) vx[j] = __bfloat162float(v[lane + 32 * j]);
+    write_head<HD, Q8>(kx, a.k_pool, a.k_scale, d, a.Hkv, kvh, lane);
+    write_head<HD, Q8>(vx, a.v_pool, a.v_scale, d, a.Hkv, kvh, lane);
+  }
+}
+
+cudaError_t rope_cache_write(const RopeWriteArgs& a, int R, int HD, bool q8,
+                             void* stream) {
+  if (R < 0 || a.H < 1 || a.Hkv < 1 || a.n_rows < 0)
+    return cudaErrorInvalidValue;
+  if (R == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SKYPILOT_ROPE_CASE(hd, q)                                        \
+  if (HD == hd && q8 == q) {                                             \
+    rope_cache_write_kernel<hd, q><<<R, kRopeThreads, 0, st>>>(a);       \
+    return cudaGetLastError();                                           \
+  }
+  SKYPILOT_ROPE_CASE(64, false)
+  SKYPILOT_ROPE_CASE(64, true)
+  SKYPILOT_ROPE_CASE(128, false)
+  SKYPILOT_ROPE_CASE(128, true)
+#undef SKYPILOT_ROPE_CASE
+  return cudaErrorInvalidValue;
+}
+
+RopeWriteArgs rope_args(const void* q, const void* k, const void* v,
+                        const void* cos, const void* sin, const void* dst,
+                        void* q_out, void* k_pool, void* v_pool, int H,
+                        int Hkv, long long n_rows) {
+  RopeWriteArgs a{};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.cos = static_cast<const float*>(cos);
+  a.sin = static_cast<const float*>(sin);
+  a.dst = static_cast<const int*>(dst);
+  a.q_out = static_cast<bf16*>(q_out);
+  a.k_pool = k_pool;
+  a.v_pool = v_pool;
+  a.n_rows = n_rows;
+  a.H = H;
+  a.Hkv = Hkv;
+  return a;
+}
+
+}  // namespace
+
+// q [R, H, hd], k/v [R, Hkv, hd] bf16 (contiguous), cos/sin [R, hd/2] f32,
+// dst [R] int32; q_out [R, H, hd]; pools [N, Hkv, hd] bf16.
+extern "C" int skypilot_rope_cache_write(
+    const void* q, const void* k, const void* v, const void* cos,
+    const void* sin, const void* dst, void* q_out, void* k_pool, void* v_pool,
+    int R, int H, int Hkv, int HD, long long n_rows, void* stream) {
+  return rope_cache_write(rope_args(q, k, v, cos, sin, dst, q_out, k_pool,
+                                    v_pool, H, Hkv, n_rows),
+                          R, HD, false, stream);
+}
+
+// The int8 form: int8 code pools [N, Hkv, hd] and bf16 scale pools
+// [N, Hkv].
+extern "C" int skypilot_rope_cache_write_q8(
+    const void* q, const void* k, const void* v, const void* cos,
+    const void* sin, const void* dst, void* q_out, void* k_pool, void* v_pool,
+    void* k_scale, void* v_scale, int R, int H, int Hkv, int HD,
+    long long n_rows, void* stream) {
+  RopeWriteArgs a = rope_args(q, k, v, cos, sin, dst, q_out, k_pool, v_pool,
+                              H, Hkv, n_rows);
+  a.k_scale = static_cast<bf16*>(k_scale);
+  a.v_scale = static_cast<bf16*>(v_scale);
+  return rope_cache_write(a, R, HD, true, stream);
 }
 
 // The dynamic shared memory one K4 block asks for (layout plus the

@@ -25,16 +25,18 @@ head) as it is written (``_quantize_kv``, codes bit-equal to JAX's); a
 prefill attends its own exact rows (K1 over the local q/k/v, or the
 chunk's rows spliced over their int8 round trip in ``forward_paged``),
 and later steps read the codes (K4 on codes + scales on the card).
-Weights may be int8 too (``models/quant.py``): ``llama.matmul`` takes
-both forms.
+Weights may be int8 too (``models/quant.py``): the serving products
+(``ops/matmul_invariant.matmul``, the M-invariant GEMM on the card; the
+engine-off prompt on ``llama.matmul``) take both forms, with
+``llama.matmul``'s rounding points.
 
 Sampling (``sample_generate``) draws from one ``jax.random`` key split
 per step, as the JAX module does, with the port's threefry
 (``serve/sampling/prng.py``): the same key gives JAX's tokens.
 Multi-LoRA serving: ``lora_gather_delta`` is the per-row gathered q/v
-delta that ``forward_paged`` and the engine's device steps add (plain
-torch, f32). ``decode_tokens_windowed`` comes with a later slice
-(ROADMAP.md).
+delta that ``forward_paged`` and the engine's device steps add (f32;
+on the card a fixed-order kernel). ``decode_tokens_windowed`` comes with
+a later slice (ROADMAP.md).
 """
 import dataclasses
 import math
@@ -46,6 +48,8 @@ from skypilot_torch import device as device_lib
 from skypilot_torch.models import llama
 from skypilot_torch.ops import attention as attention_ops
 from skypilot_torch.ops import decode_attention as da
+from skypilot_torch.ops import matmul_invariant as mi
+from skypilot_torch.ops import rms_norm as rn
 from skypilot_torch.serve.sampling import prng
 
 Params = Dict[str, Any]
@@ -96,41 +100,9 @@ def init_cache(config: llama.LlamaConfig, batch: int,
                    v=torch.zeros(shape, dtype=config.dtype, device=dev))
 
 
-def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-(batch, position, head) symmetric int8: x [B, T, Hkv, hd] ->
-    (codes int8, scales bf16 [B, T, Hkv]). The scale is bf16-rounded
-    BEFORE encoding so codes reconstruct against the stored scale (the
-    rule of ``models/quant.py``); codes equal JAX's bit for bit."""
-    xf = x.float()
-    amax = xf.abs().amax(dim=-1)
-    s = torch.clamp(amax, min=1e-8) / 127.0
-    s = s.to(torch.bfloat16).float()
-    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
-    return q.to(torch.int8), s.to(torch.bfloat16)
-
-
+# Per-(batch, position, head) int8 codes and bf16 scales, and back.
+_quantize_kv = da.quantize_kv
 _dequant_kv = da.dequant_kv
-
-
-def _masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      q_pos: int, kv_len: int,
-                      scale: float) -> torch.Tensor:
-    """q: [B, T, H, hd]; k/v: [B, S, Hkv, hd] (only ``kv_len``
-    positions valid). Causal within the valid window: query at
-    absolute position ``q_pos + i`` sees keys [0, q_pos + i]."""
-    b, t, h, hd = q.shape
-    s = k.shape[1]
-    hkv = k.shape[2]
-    qg = q.reshape(b, t, hkv, h // hkv, hd)
-    logits = torch.einsum('bthgd,bshd->bhgts', qg.float(),
-                          k.float()) * scale
-    key_idx = torch.arange(s, device=q.device)[None, :]
-    query_abs = q_pos + torch.arange(t, device=q.device)[:, None]
-    mask = (key_idx <= query_abs) & (key_idx < kv_len)
-    logits = logits.masked_fill(~mask, _NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum('bhgts,bshd->bthgd', probs.to(v.dtype), v)
-    return out.reshape(b, t, h, hd)
 
 
 def layer_list(cparams: Params, config: llama.LlamaConfig) -> list:
@@ -142,21 +114,13 @@ def layer_list(cparams: Params, config: llama.LlamaConfig) -> list:
             for i in range(config.n_layers)]
 
 
-def lora_gather_delta(h: torch.Tensor, a_slots: torch.Tensor,
-                      b_slots: torch.Tensor,
-                      adapter_idx: torch.Tensor) -> torch.Tensor:
-    """Per-row LoRA delta for mixed-adapter batches (the S-LoRA/Punica
-    gather, ``serve/adapters/``): row ``b`` picks ITS adapter's stacked
-    factors by slot index and applies ``(h @ A) @ B`` in float32, cast
-    by the caller. ``h`` [B, T, d]; ``a_slots`` [C+1, d, R]; ``b_slots``
-    [C+1, R, out]; ``adapter_idx`` [B] int, 0 = the reserved all-zeros
-    slot, so a base-model row's delta is exactly 0. Per-row math only:
-    a row's delta does not depend on its batch-mates. Two batched
-    products, as the JAX package's two einsums (plain torch; on the
-    card cuBLAS in f32, TF32 off unless the caller turned it on)."""
-    idx = adapter_idx.long()
-    mid = torch.bmm(h.float(), a_slots[idx])            # [B, T, R]
-    return torch.bmm(mid, b_slots[idx])                  # [B, T, out]
+# Per-row LoRA delta for mixed-adapter batches (the S-LoRA/Punica
+# gather, ``serve/adapters/``): row b picks ITS adapter's stacked factors
+# by slot index and applies ``(h @ A) @ B`` in float32, cast by the
+# caller; slot 0 is all zeros, so a base-model row's delta is exactly 0.
+# On the card a row's delta does not depend on its batch-mates, bit for
+# bit (``ops/matmul_invariant.py``).
+lora_gather_delta = mi.lora_gather_delta
 
 
 def adapter_layers(adapters: Optional[Params],
@@ -171,7 +135,7 @@ def adapter_layers(adapters: Optional[Params],
 
 
 def qkv_projections(config: llama.LlamaConfig, x: torch.Tensor,
-                    lp: Params, lora=None):
+                    lp: Params, lora=None, matmul=mi.matmul):
     """A layer's attention norm and q/k/v projections (+ biases):
     x [B, T, D] -> q [B, T, H, hd], k/v [B, T, Hkv, hd], before RoPE.
     Shared by every cached and paged layer body, as the JAX package's
@@ -179,14 +143,18 @@ def qkv_projections(config: llama.LlamaConfig, x: torch.Tensor,
     (this layer's adapter factors, adapter_idx [B]): the row-gathered
     deltas (``lora_gather_delta``) are added to q and v after the base
     projections and before the biases, as in every JAX step; None runs
-    exactly the adapterless math."""
+    exactly the adapterless math. The products are the M-invariant GEMM
+    (``ops/matmul_invariant.py``) and the norms ``ops/rms_norm.py``, as in
+    every serving helper here: on the card a row's bits do not depend on
+    the other rows of x. ``matmul``: the engine-off prompt passes
+    ``llama.matmul`` (see ``_layer_cached``)."""
     b, t, _ = x.shape
     hd = config.head_dim
-    h = llama._rms_norm(x, lp['attn_norm'], config.norm_eps,
-                        config.norm_offset)
-    q = llama.matmul(h, lp['wq'])
-    k = llama.matmul(h, lp['wk'])
-    v = llama.matmul(h, lp['wv'])
+    h = rn.rms_norm(x, lp['attn_norm'], config.norm_eps,
+                    config.norm_offset)
+    q = matmul(h, lp['wq'])
+    k = matmul(h, lp['wk'])
+    v = matmul(h, lp['wv'])
     if lora is not None:
         ad, idx = lora
         q = q + lora_gather_delta(h, ad['wq_a'], ad['wq_b'],
@@ -203,18 +171,19 @@ def qkv_projections(config: llama.LlamaConfig, x: torch.Tensor,
 
 
 def attn_out_and_mlp(config: llama.LlamaConfig, x: torch.Tensor,
-                     attn: torch.Tensor, lp: Params) -> torch.Tensor:
+                     attn: torch.Tensor, lp: Params,
+                     matmul=mi.matmul) -> torch.Tensor:
     """The rest of the layer: output projection and residual, then the
     gated MLP (f32 norm, the gate activation in f32 then cast back) and
     its residual. attn [B, T, H, hd] -> y [B, T, D]."""
     b, t = attn.shape[:2]
-    x = x + llama.matmul(attn.reshape(b, t, -1), lp['wo'])
-    h = llama._rms_norm(x, lp['mlp_norm'], config.norm_eps,
-                        config.norm_offset)
+    x = x + matmul(attn.reshape(b, t, -1), lp['wo'])
+    h = rn.rms_norm(x, lp['mlp_norm'], config.norm_eps,
+                    config.norm_offset)
     gate = llama.mlp_act(config)(
-        llama.matmul(h, lp['w_gate']).float()).to(h.dtype)
-    up = llama.matmul(h, lp['w_up'])
-    return x + llama.matmul(gate * up, lp['w_down'])
+        matmul(h, lp['w_gate']).float()).to(h.dtype)
+    up = matmul(h, lp['w_up'])
+    return x + matmul(gate * up, lp['w_down'])
 
 
 def _layer_cached(config: llama.LlamaConfig, x: torch.Tensor,
@@ -228,9 +197,13 @@ def _layer_cached(config: llama.LlamaConfig, x: torch.Tensor,
     ``k_scale``/``v_scale`` [B, S, Hkv] when quantized), written in
     place at [pos, pos + T). Returns y [B, T, D]. Same cast points as
     the JAX layer: f32 norms, the gate activation in f32 then cast
-    back."""
+    back. The prompt (``prefill``) runs its products on ``llama.matmul``
+    (cuBLAS on the card): no batch-invariance contract covers the
+    engine-off path, and at its thousands of rows the invariant GEMM
+    takes about three times as long."""
     b, t, _ = x.shape
-    q, k, v = qkv_projections(config, x, layer_params)
+    matmul = llama.matmul if prefill else mi.matmul
+    q, k, v = qkv_projections(config, x, layer_params, matmul=matmul)
     q = attention_ops.apply_rope(q, angles)
     k = attention_ops.apply_rope(k, angles)
 
@@ -260,11 +233,14 @@ def _layer_cached(config: llama.LlamaConfig, x: torch.Tensor,
         attn = attention_ops.flash_attention(q, k, v, causal=True,
                                              scale=scale)
     else:
-        attn = _masked_attention(
+        # A chunk after earlier positions: query i sees keys [0, pos + i]
+        # (dense K4's verify form on the card, as ``forward_paged``).
+        lengths = torch.full((b,), pos + 1, dtype=torch.int32,
+                             device=x.device)
+        attn = da.verify_attention(
             q, _dequant_kv(k_cache, k_scale, k.dtype),
-            _dequant_kv(v_cache, v_scale, v.dtype), q_pos=pos,
-            kv_len=pos + t, scale=scale)
-    return attn_out_and_mlp(config, x, attn, layer_params)
+            _dequant_kv(v_cache, v_scale, v.dtype), lengths, scale)
+    return attn_out_and_mlp(config, x, attn, layer_params, matmul)
 
 
 def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
@@ -304,9 +280,10 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
     cache.pos = pos + t
     if last_only:
         x = x[:, -1:]
-    x = llama._rms_norm(x, cparams['final_norm'], config.norm_eps,
-                        config.norm_offset)
-    logits = llama.matmul(x, llama.output_head(cparams, config)).float()
+    x = rn.rms_norm(x, cparams['final_norm'], config.norm_eps,
+                    config.norm_offset)
+    matmul = llama.matmul if prefill else mi.matmul
+    logits = matmul(x, llama.output_head(cparams, config)).float()
     return logits, cache
 
 
@@ -327,13 +304,18 @@ def forward_paged(params: Params, tokens: torch.Tensor, pools,
     THIS request's block table; ``start``/``real_len`` are host ints.
 
     Per layer the chunk's rows are written first (K5 on the card), then
-    the row's logical view is gathered from the pool and attended with
-    the causal window mask (``_masked_attention`` with q_pos=start,
-    kv_len=start+real_len): chunk c sees every earlier chunk's keys
-    plus itself causally, and a prefix-cache hit is just a chunk that
-    starts at the hit's offset. The gather stops at the last block
-    that holds a position below kv_len; masked positions would add
-    exactly 0.
+    the row's logical view is gathered from the pool and attended
+    causally from the chunk's start (``da.verify_attention`` with
+    lengths = start + 1: query i sees keys [0, start + i], dense K4 on
+    the card): chunk c sees every earlier chunk's keys plus itself
+    causally, and a prefix-cache hit is just a chunk that starts at the
+    hit's offset. The gather stops at the last block that holds a
+    position below kv_len; masked positions add exactly 0. On the card a
+    position's bits do not depend on the chunk's bucket or start (K4's
+    keys meet in one order, and its splits do not move with S), where the
+    einsum-and-softmax form of the JAX step took other bits per chunk
+    shape. Padded queries past ``real_len`` may see keys past kv_len;
+    their outputs are never read.
 
     int8 pools: the chunk attends its exact rows (spliced over their
     int8 round trip in the gathered view), while a LATER chunk reads
@@ -381,6 +363,7 @@ def forward_paged(params: Params, tokens: torch.Tensor, pools,
     gr = kv_pool_lib.read_indices(block_row[None, :n_blocks],
                                   block_size)                     # [1, S]
     ads = adapter_layers(adapters, config.n_layers)
+    q_start = torch.full((1,), start + 1, dtype=torch.int32, device=dev)
     for i, lp in enumerate(layer_list(cparams, config)):
         q, k, v = qkv_projections(
             config, x, lp,
@@ -405,14 +388,13 @@ def forward_paged(params: Params, tokens: torch.Tensor, pools,
         else:
             da.cache_write(kp[i], vp[i], k[0], v[0], gw)
             kd, vd = da.paged_gather(kp[i], gr), da.paged_gather(vp[i], gr)
-        attn = _masked_attention(q, kd, vd, q_pos=start, kv_len=kv_len,
-                                 scale=hd ** -0.5)
+        attn = da.verify_attention(q, kd, vd, q_start, hd ** -0.5)
         x = attn_out_and_mlp(config, x, attn, lp)
-    x_last = llama._rms_norm(x[:, real_len - 1:real_len],
-                             cparams['final_norm'], config.norm_eps,
-                             config.norm_offset)
-    logits = llama.matmul(x_last,
-                          llama.output_head(cparams, config)).float()
+    x_last = rn.rms_norm(x[:, real_len - 1:real_len],
+                         cparams['final_norm'], config.norm_eps,
+                         config.norm_offset)
+    logits = mi.matmul(x_last,
+                       llama.output_head(cparams, config)).float()
     return logits[:, 0], pools
 
 

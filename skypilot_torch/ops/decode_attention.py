@@ -9,7 +9,9 @@ version beside it for CPU tensors (any other device raises):
   cache (replaces ``_decode_attn_kernel``): 64-key tiles by TMA, the
   products on the tensor cores, the merge of the splits folded into the
   same launch. As in the TPU kernel, a length is clamped to
-  ``max(len, 1)`` (and to S).
+  ``max(len, 1)`` (and to S). ``verify_attention`` is its form with W
+  query positions a row, the engine's prefill chunk (query j attending
+  ``lengths[b] + j`` keys).
 - ``paged_decode_attention`` / ``paged_verify_attention``: K4-paged,
   the same kernel reading the block table directly where the JAX
   package gathers every row's pages into a contiguous view first; W = 1
@@ -18,8 +20,16 @@ version beside it for CPU tensors (any other device raises):
   positions served by one read of each key.
 - ``cache_write``: K5-cuda, R new K/V rows written in place into a flat
   row view at given row indices (replaces ``_cache_write_kernel``);
-  ``cache_write_rows`` is the TPU kernel's own rows form
-  (``dst = b * S + pos[b]``).
+  ``rows_dst`` gives the TPU kernel's own rows form
+  (``dst = b * S + pos[b]``) over a [B * S] view.
+- ``rope_cache_write``: K5F, the decode and verify steps' new rows in one
+  launch a layer: q and k rotated (RoPE from the step's cos and sin), k
+  and v quantized when the pool is int8, and written in place; its plain
+  version is the chain it replaces, bit for bit.
+
+Every K4 form is batch-invariant on the card: a query row's bits do not
+depend on B, W or the rows beside it (``decode_split_plan`` reads S
+alone, and the kernel meets a row's keys in one order).
 
 Each entry also takes int8 KV, as the JAX package's caches and pools
 hold it: int8 codes with one bf16 scale per (row, kv head),
@@ -48,19 +58,26 @@ _NEG_INF = -1e30
 DECODE_TILE = 64
 DECODE_STAGES = 3
 DECODE_PAGE_SIZES = (8, 16, 32, 64)
-DECODE_MAX_CHUNK = 4096
 DECODE_MAX_SMEM = 232448
-# The split plan aims at this many blocks per call: about two waves over
-# the H100's 132 SMs at two blocks each (chosen on the card from 256 to
-# 4096: the fastest, or within noise of it, at the K4 shapes PERF.md
-# lists).
-DECODE_TARGET_BLOCKS = 512
+# Keys per split, the same for every call: a row's keys split at the same
+# points whatever B, W or S, which is what makes K4 batch-invariant. At
+# the engine's S = 8192 a full row is 32 splits, about the blocks a B 8
+# decode at 2048-key contexts needs to fill the card.
+DECODE_CHUNK = 256
+# m-tiles of 16 query rows one K4 block takes (kPassesPerBlock): a call
+# with more spreads them over groups of blocks, each with its own merge
+# counter per (row, kv head).
+DECODE_PASSES_PER_BLOCK = 4
 
+_DENSE_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 +
+               [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_float, ctypes.c_void_p])
+# One C entry, two counts: the dense decode (W = 1) and the prefill
+# chunk's dense verify form (W = T).
 DECODE_ATTENTION = _build.Kernel(
-    'decode_attention', 'skypilot_decode_attention',
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 +
-    [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_int,
-                               ctypes.c_float, ctypes.c_void_p])
+    'decode_attention', 'skypilot_decode_attention', _DENSE_ARGS)
+VERIFY_ATTENTION = _build.Kernel(
+    'decode_attention', 'skypilot_decode_attention', _DENSE_ARGS)
 _PAGED_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 +
                [ctypes.c_longlong] + [ctypes.c_int] * 3 +
                [ctypes.c_longlong] * 2 +
@@ -97,6 +114,14 @@ CACHE_WRITE_Q8 = _build.Kernel(
     'decode_attention', 'skypilot_cache_write_q8',
     [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_longlong,
                              ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+ROPE_CACHE_WRITE = _build.Kernel(
+    'decode_attention', 'skypilot_rope_cache_write',
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_longlong,
+                                                  ctypes.c_void_p])
+ROPE_CACHE_WRITE_Q8 = _build.Kernel(
+    'decode_attention', 'skypilot_rope_cache_write_q8',
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_longlong,
+                                                   ctypes.c_void_p])
 DECODE_HEAD_DIMS = (64, 128)
 DECODE_GROUPS = (1, 2, 4, 8)
 
@@ -104,6 +129,19 @@ DECODE_GROUPS = (1, 2, 4, 8)
 # ---------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------
+
+
+def quantize_kv(x: torch.Tensor):
+    """Per-(..., head) symmetric int8: x [..., Hkv, hd] -> (codes int8,
+    scales bf16 [..., Hkv]). The scale is bf16-rounded BEFORE encoding so
+    codes reconstruct against the stored scale (the rule of
+    ``models/quant.py``); codes equal JAX's bit for bit."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    s = torch.clamp(amax, min=1e-8) / 127.0
+    s = s.to(torch.bfloat16).float()
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    return q.to(torch.int8), s.to(torch.bfloat16)
 
 
 def dequant_kv(x: torch.Tensor, scale, dtype) -> torch.Tensor:
@@ -194,6 +232,32 @@ def _reference_paged_verify_attention(q, k_pool, v_pool, block_tables,
     return _reference_verify_attention(q, kd, vd, lengths, scale)
 
 
+def rope_plain(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """Rotate-half RoPE of rows x [R, H, hd] at their own positions, cos
+    and sin [R, hd/2] f32: in f32, each product rounded before the add,
+    rounded back to x's dtype."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    c, s = cos[:, None, :], sin[:, None, :]
+    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c],
+                     dim=-1).to(x.dtype)
+
+
+def _reference_rope_cache_write(q, k, v, cos, sin, k_pool, v_pool, dst,
+                                k_scale=None, v_scale=None):
+    """The chain K5F replaces: q and k rotated, the new rows quantized
+    when the pool is int8, then K5's plain write. Returns rotated q."""
+    q, k = rope_plain(q, cos, sin), rope_plain(k, cos, sin)
+    if k_scale is None:
+        _reference_cache_write(k_pool, v_pool, k, v, dst)
+    else:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        _reference_cache_write(k_pool, v_pool, kq, vq, dst, k_scale,
+                               v_scale, ks, vs)
+    return q
+
+
 def _reference_cache_write(k, v, k_new, v_new, dst, k_scale=None,
                            v_scale=None, ks_new=None, vs_new=None):
     """``index_copy_`` into the flat views (and the scale views of an
@@ -214,24 +278,21 @@ def _reference_cache_write(k, v, k_new, v_new, dst, k_scale=None,
 # ---------------------------------------------------------------------
 
 
-def decode_split_plan(b: int, hkv: int, s: int, rows: int):
-    """``(chunk, n_split)`` of a K4 call from shapes alone: B rows, Hkv
-    kv heads, S keys a row can hold (MB * bs when paged) and ``rows`` =
-    W * G query rows per kv head. Never from ``lengths``, so the call
-    can sit in a CUDA graph.
+def decode_split_plan(s: int):
+    """``(chunk, n_split)`` of a K4 call over rows of S keys (MB * bs
+    when paged): ``DECODE_CHUNK`` keys a split, never fewer splits than
+    cover S. Never from ``lengths``, so the call can sit in a CUDA graph,
+    and never from B or W (nor G), so a query row's keys split at the same
+    points whatever else shares the call. Block (split, kv head, row)
+    covers keys [split * chunk, (split + 1) * chunk) of its row, in
+    64-key tiles."""
+    return DECODE_CHUNK, -(-s // DECODE_CHUNK)
 
-    Block (split, kv head, row) covers keys [split * chunk, (split + 1)
-    * chunk) of its row, in 64-key tiles; splits are sized so that
-    about ``DECODE_TARGET_BLOCKS`` blocks cover the shape, but never
-    below one tile per 16 query rows (each split writes a partial of
-    ``rows`` x hd floats, which has to stay small beside the keys it
-    read) and never above ``DECODE_MAX_CHUNK``."""
-    tiles = -(-s // DECODE_TILE)
-    want = max(1, -(-DECODE_TARGET_BLOCKS // (b * hkv)))
-    per = max(-(-tiles // want), -(-rows // 16))
-    per = min(per, tiles, DECODE_MAX_CHUNK // DECODE_TILE)
-    chunk = per * DECODE_TILE
-    return chunk, -(-s // chunk)
+
+def decode_pass_groups(rows: int) -> int:
+    """Groups of blocks a K4 call spreads its ``rows`` = W * G query rows
+    over (a block takes ``DECODE_PASSES_PER_BLOCK`` m-tiles of 16)."""
+    return -(-(-(-rows // 16)) // DECODE_PASSES_PER_BLOCK)
 
 
 def decode_scratch_shapes(b: int, hkv: int, n_split: int, rows: int,
@@ -252,30 +313,30 @@ def decode_smem_bytes(hd: int, q8: bool, hkv: int, max_pages: int,
     stage = (up(2 * codes + 2 * DECODE_TILE * hkv * 2, 1024) if q8
              else 2 * kv_tile)
     ns = DECODE_STAGES
-    # int8: the bf16 tiles, V only in the narrow kernel (rows <= 16).
-    end = ns * stage + ((2 if rows > 16 else 1) * kv_tile if q8 else 0)
+    # int8: the dequantized bf16 V tile.
+    end = ns * stage + (kv_tile if q8 else 0)
     merge = 4 * 16 * (hd + 4) * 4 + 4 * 16 * 2 * 4
     bar = up(max(end, merge, rows * 8), 128)
-    return bar + ns * 4 * 8 + up(4 * (1 + ns), 16) + max_pages * 4 + 1024
+    return bar + ns * 4 * 8 + 16 + max_pages * 4 + 1024
 
 
-# K4's merge counters, one int32 per (row, kv head): the most a call may
-# use, and the buffer of each device.
+# K4's merge counters, one int32 per (row, kv head, pass group): the most
+# a call may use, and the buffer of each device.
 DECODE_MAX_COUNTERS = 1 << 16
 _COUNTERS = {}
 
 
 def _counters(dev: torch.device, n: int) -> torch.Tensor:
     """The int32 counters K4's last-block merge uses, one per (row, kv
-    head), 0 between calls (the last block of each call leaves its
-    counter at 0 again). One buffer per device, made zeroed on the
+    head, pass group), 0 between calls (the last block of each call
+    leaves its counter at 0 again). One buffer per device, made zeroed on the
     device's first K4 call and never replaced, so a CUDA graph that
     captured a call keeps pointing at live counters. Every K4 call on a
     device shares it: calls must run one after another (one stream, or
     streams ordered by events), as the engine's do."""
     if n > DECODE_MAX_COUNTERS:
-        raise ValueError(f'decode attention: B * Hkv = {n} exceeds the '
-                         f'{DECODE_MAX_COUNTERS} merge counters')
+        raise ValueError(f'decode attention: B * Hkv * pass groups = {n} '
+                         f'exceeds the {DECODE_MAX_COUNTERS} merge counters')
     key = (dev.type, dev.index)
     buf = _COUNTERS.get(key)
     if buf is None:
@@ -395,8 +456,8 @@ def _check_page_size(what: str, block_size: int) -> None:
 def _launch_scratch(dev, b, hkv, s, rows, hd):
     """The split plan, the partials' scratch and the merge counters of a
     K4 call."""
-    counters = _counters(dev, b * hkv)
-    chunk, n_split = decode_split_plan(b, hkv, s, rows)
+    counters = _counters(dev, b * hkv * decode_pass_groups(rows))
+    chunk, n_split = decode_split_plan(s)
     ml_shape, acc_shape = decode_scratch_shapes(b, hkv, n_split, rows, hd)
     part_ml = torch.empty(ml_shape, dtype=torch.float32, device=dev)
     part_acc = torch.empty(acc_shape, dtype=torch.float32, device=dev)
@@ -405,8 +466,9 @@ def _launch_scratch(dev, b, hkv, s, rows, hd):
 
 def _decode_attention_cuda(q, k, v, lengths, scale, k_scale=None,
                            v_scale=None):
-    """Launch K4-cuda (or its int8 form with scales); raises on anything
-    the kernel does not take, before anything launches."""
+    """Launch K4-cuda (or its int8 form with scales) for q [B, W, Hq, hd]
+    (W > 1 bf16 only); raises on anything the kernel does not take,
+    before anything launches."""
     what = 'decode_attention'
     if not all(x.device == q.device for x in (k, v, lengths)):
         raise ValueError('decode_attention: q, k, v, lengths must share a '
@@ -415,11 +477,14 @@ def _decode_attention_cuda(q, k, v, lengths, scale, k_scale=None,
     if lengths.dtype != torch.int32 or lengths.dim() != 1:
         raise TypeError('decode_attention: lengths must be int32 [B], got '
                         f'{lengths.dtype} {tuple(lengths.shape)}')
-    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError('decode_attention: q [B,Hq,hd], k/v '
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError('decode_attention: q [B,W,Hq,hd], k/v '
                          f'[B,S,Hkv,hd] expected, got {tuple(q.shape)}, '
                          f'{tuple(k.shape)}, {tuple(v.shape)}')
-    b, hq, hd = q.shape
+    b, w, hq, hd = q.shape
+    if w < 1 or (w > 1 and k_scale is not None):
+        raise ValueError(f'decode_attention: W {w} (the int8 form takes '
+                         'W = 1)')
     bk, s, hkv, hdk = k.shape
     if bk != b or hdk != hd or lengths.shape[0] != b or hq % hkv or s < 1:
         raise ValueError('decode_attention: incompatible shapes q '
@@ -431,7 +496,7 @@ def _decode_attention_cuda(q, k, v, lengths, scale, k_scale=None,
                          'contiguous')
     for name, x in (('k', k), ('v', v)):
         _check_tma_kv(what, name, x, hd)
-    rows = hq // hkv
+    rows = w * (hq // hkv)
     if k_scale is not None:
         _check_scale_rows(what, k_scale, v_scale, hkv)
         if s * hkv % 8:
@@ -447,15 +512,17 @@ def _decode_attention_cuda(q, k, v, lengths, scale, k_scale=None,
     stream = _stream(q)
     out = torch.empty_like(q)
     parts = (lengths.data_ptr(), out.data_ptr(),
-             *(x.data_ptr() for x in scratch), b, s, hq, hkv, hd,
-             k.stride(0), k.stride(1), v.stride(0), v.stride(1))
+             *(x.data_ptr() for x in scratch))
+    strides = (k.stride(0), k.stride(1), v.stride(0), v.stride(1))
     tail = (chunk, n_split, scale * LOG2E, stream)
     if k_scale is None:
-        DECODE_ATTENTION(q.data_ptr(), k.data_ptr(), v.data_ptr(), *parts,
-                         *tail)
+        kernel = DECODE_ATTENTION if w == 1 else VERIFY_ATTENTION
+        kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), *parts, b, w, s,
+               hq, hkv, hd, *strides, *tail)
     else:
         DECODE_ATTENTION_Q8(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             k_scale.data_ptr(), v_scale.data_ptr(), *parts,
+                            b, s, hq, hkv, hd, *strides,
                             k_scale.stride(0), k_scale.stride(1),
                             v_scale.stride(0), v_scale.stride(1), *tail)
     return out
@@ -497,7 +564,7 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, lengths,
                          f'{block_size} do not fit q {tuple(q.shape)}')
     rows = w * (hq // hkv)
     s = mb * block_size
-    chunk, _ = decode_split_plan(b, hkv, s, rows)
+    chunk, _ = decode_split_plan(s)
     _check_smem(what, hd, k_scale is not None, hkv, chunk // block_size,
                 rows)
     chunk, n_split, *scratch = _launch_scratch(dev, b, hkv, s, rows, hd)
@@ -616,10 +683,24 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     reference.
     """
     if _route('decode_attention', q) == 'cuda':
-        return _decode_attention_cuda(q, k, v, lengths, float(scale),
-                                      k_scale, v_scale)
+        return _decode_attention_cuda(q[:, None], k, v, lengths,
+                                      float(scale), k_scale, v_scale)[:, 0]
     return _reference_decode_attention(q, k, v, lengths, scale, k_scale,
                                        v_scale)
+
+
+def verify_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, scale: float) -> torch.Tensor:
+    """W query positions a row over a dense bf16/f32 cache: q [B, W, Hq,
+    hd], k/v [B, S, Hkv, hd], lengths [B] int32 — query j of row b
+    attends keys [0, lengths[b] + j). Returns [B, W, Hq, hd]. The
+    engine's prefill chunk over its gathered view (lengths = start + 1:
+    causal from the chunk's start). CUDA: dense K4 with W positions, a
+    query row's bits independent of the chunk's bucket and start; CPU:
+    the plain version."""
+    if _route('verify_attention', q) == 'cuda':
+        return _decode_attention_cuda(q, k, v, lengths, float(scale))
+    return _reference_verify_attention(q, k, v, lengths, scale)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -697,27 +778,83 @@ def cache_write(k: torch.Tensor, v: torch.Tensor, k_new: torch.Tensor,
         _reference_cache_write(k, v, k_new, v_new, dst, *scales)
 
 
+def _rope_cache_write_cuda(q, k, v, cos, sin, k_pool, v_pool, dst,
+                           k_scale, v_scale):
+    """Launch K5F (or its int8 form); raises on anything it does not
+    take."""
+    what = 'rope_cache_write'
+    dev = q.device
+    q8 = k_scale is not None
+    r, hq, hd = q.shape
+    hkv = k.shape[1]
+    pool_dtype = torch.int8 if q8 else torch.bfloat16
+    checks = [('q', q, torch.bfloat16, (r, hq, hd)),
+              ('k', k, torch.bfloat16, (r, hkv, hd)),
+              ('v', v, torch.bfloat16, (r, hkv, hd)),
+              ('cos', cos, torch.float32, (r, hd // 2)),
+              ('sin', sin, torch.float32, (r, hd // 2)),
+              ('k_pool', k_pool, pool_dtype, (k_pool.shape[0], hkv, hd)),
+              ('v_pool', v_pool, pool_dtype, tuple(k_pool.shape))]
+    if q8:
+        checks += [('k_scale', k_scale, torch.bfloat16,
+                    tuple(k_pool.shape[:2])),
+                   ('v_scale', v_scale, torch.bfloat16,
+                    tuple(k_pool.shape[:2]))]
+    for name, x, dtype, shape in checks:
+        if (x.device != dev or x.dtype != dtype or tuple(x.shape) != shape
+                or not x.is_contiguous()):
+            raise TypeError(f'{what}: {name} must be a contiguous {dtype} '
+                            f'{shape} on {dev}, got {x.dtype} '
+                            f'{tuple(x.shape)} on {x.device}')
+    if hd not in DECODE_HEAD_DIMS:
+        raise ValueError(f'{what}: head_dim {hd} not in {DECODE_HEAD_DIMS}')
+    _check_index(what, 'dst', dst, dev, 1)
+    if dst.shape[0] != r:
+        raise ValueError(f'{what}: dst {tuple(dst.shape)} for {r} rows')
+    q_out = torch.empty_like(q)
+    if r == 0:
+        return q_out
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(),
+            sin.data_ptr(), dst.data_ptr(), q_out.data_ptr(),
+            k_pool.data_ptr(), v_pool.data_ptr())
+    tail = (r, hq, hkv, hd, k_pool.shape[0], _stream(q))
+    if q8:
+        ROPE_CACHE_WRITE_Q8(*head, k_scale.data_ptr(), v_scale.data_ptr(),
+                            *tail)
+    else:
+        ROPE_CACHE_WRITE(*head, *tail)
+    return q_out
+
+
+def rope_cache_write(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cos: torch.Tensor, sin: torch.Tensor,
+                     k_pool: torch.Tensor, v_pool: torch.Tensor,
+                     dst: torch.Tensor,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """A decode or verify step's new rows for one layer: q [R, H, hd] and
+    k [R, Hkv, hd] rotated by RoPE at each row's position (cos and sin
+    [R, hd/2] f32, the step's table), k and v [R, Hkv, hd] written IN
+    PLACE into the flat pools [N, Hkv, hd] at rows dst [R] int32 (int8
+    codes with bf16 scales [N, Hkv] when ``k_scale``/``v_scale`` are
+    given: each row quantized per kv head). A dst outside [0, N) writes
+    nothing. Returns the rotated q. CUDA: K5F, one launch; CPU: the
+    chain it replaces (``rope_plain`` on q and k, ``quantize_kv``, the
+    plain ``cache_write``)."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError('rope_cache_write: pass both k_scale and v_scale '
+                         'or neither')
+    if _route('rope_cache_write', q) == 'cuda':
+        return _rope_cache_write_cuda(q, k, v, cos, sin, k_pool, v_pool,
+                                      dst, k_scale, v_scale)
+    return _reference_rope_cache_write(q, k, v, cos, sin, k_pool, v_pool,
+                                       dst, k_scale, v_scale)
+
+
 def rows_dst(pos: torch.Tensor, s: int) -> torch.Tensor:
     """Flat row of each batch row's write position in a [B * S] view:
     ``b * S + pos[b]``, or -1 (no write) where pos is outside [0, S)."""
     b = torch.arange(pos.shape[0], dtype=torch.int32, device=pos.device)
     ok = (pos >= 0) & (pos < s)
     return torch.where(ok, b * s + pos, -1).to(torch.int32)
-
-
-def cache_write_rows(k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     k_new: torch.Tensor, v_new: torch.Tensor,
-                     pos: torch.Tensor,
-                     k_scale: Optional[torch.Tensor] = None,
-                     v_scale: Optional[torch.Tensor] = None,
-                     ks_new: Optional[torch.Tensor] = None,
-                     vs_new: Optional[torch.Tensor] = None) -> None:
-    """The TPU kernel's form: write one new K/V position per row,
-    k/v_cache [B, S, Hkv, hd] (contiguous), k/v_new [B, Hkv, hd], pos
-    [B] int32 — row b writes index pos[b], in place. An int8 cache
-    passes its scales [B, S, Hkv] and the new rows' [B, Hkv]."""
-    b, s = k_cache.shape[:2]
-    flat = [x if x is None else x.view(b * s, *x.shape[2:])
-            for x in (k_cache, v_cache, k_scale, v_scale)]
-    cache_write(flat[0], flat[1], k_new, v_new, rows_dst(pos, s),
-                flat[2], flat[3], ks_new, vs_new)

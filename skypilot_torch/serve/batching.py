@@ -68,12 +68,21 @@ whole free slots. As in the JAX engine:
   adapterless steps; a base row in an adapter engine gathers slot 0's
   delta of exactly 0.
 
-The device steps, on the card: each layer writes its new K/V rows with
-K5 (``ops.decode_attention.cache_write``) and attends with K4-paged
+The device steps, on the card: each layer rotates, quantizes (int8
+pools) and writes its new K/V rows with K5F
+(``ops.decode_attention.rope_cache_write``, one launch a layer, cos and
+sin made once per step) and attends with K4-paged
 (``paged_decode_attention``, W = 1, or ``paged_verify_attention``,
 W = draft_k + 1), reading the block table directly; the contiguous
-``decode_steps_rows`` twin runs K5 and dense K4. Over int8 caches the
-same calls take the scales and launch the kernels' int8 forms. The pool
+``decode_steps_rows`` twin runs K5F and dense K4; a prefill chunk
+(``decode.forward_paged``) writes with K5 and attends with dense K4 in
+its verify form. Over int8 caches the same calls take the scales and
+launch the kernels' int8 forms. Every row op of these steps is
+batch-invariant on the card: a row's tokens and K/V do not depend on
+B, W, its slot or the chunk it was prefilled in (the products through
+``ops/matmul_invariant.py``, the norms through ``ops/rms_norm.py``,
+K4's fixed key order, the sampler's nucleus threshold in
+``ops/top_p.py``). The pool
 tensors are updated IN PLACE, so the in-layer write is also the
 persisted state
 (the JAX steps write once in the layer and again after the layer
@@ -110,6 +119,8 @@ from skypilot_torch import metrics as metrics_lib
 from skypilot_torch import trace as trace_lib
 from skypilot_torch.models import decode, llama
 from skypilot_torch.ops import decode_attention as da
+from skypilot_torch.ops import matmul_invariant as mi
+from skypilot_torch.ops import rms_norm as rn
 from skypilot_torch.serve import kv_pool as kv_pool_lib
 from skypilot_torch.serve import prefix_hash
 from skypilot_torch.serve.adapters import ResidentAdapterSet
@@ -162,25 +173,11 @@ SPEC_MIN_DISPATCH_TOKENS = 4
 # ---------------------------------------------------------------------
 
 
-def _rope_rows(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
-    """Rotate-half RoPE for one token per row: x [B, 1, H, D], angles
-    [B, D/2] (each row at its OWN position), in f32, rounded back to
-    x's dtype."""
-    x1, x2 = x.float().chunk(2, dim=-1)
-    cos = torch.cos(angles)[:, None, None, :]
-    sin = torch.sin(angles)[:, None, None, :]
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
-                     dim=-1).to(x.dtype)
-
-
-def _rope_verify(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
-    """Rotate-half RoPE for a verify window: x [B, W, H, D], angles
-    [B, W, D/2] (each row's W positions at their own offsets)."""
-    x1, x2 = x.float().chunk(2, dim=-1)
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
-                     dim=-1).to(x.dtype)
+def _rope_table(config: llama.LlamaConfig, positions: torch.Tensor):
+    """The step's cos and sin [R, hd/2] f32 at each new row's own
+    position: made once per step, read by every layer's K5F."""
+    angles = llama._rope_frequencies(config, positions)
+    return torch.cos(angles), torch.sin(angles)
 
 
 def _attend_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -209,16 +206,6 @@ def _next_tokens(logits: torch.Tensor, cur: torch.Tensor,
                                   cur, allowed)
 
 
-def _new_rows(k: torch.Tensor, v: torch.Tensor, quantized: bool):
-    """A step's new K/V rows [R, Hkv, hd] as the cache stores them:
-    (k, v, None, None), or int8 codes with their scales [R, Hkv]."""
-    if not quantized:
-        return k, v, None, None
-    kq, ks = decode._quantize_kv(k[None])
-    vq, vs = decode._quantize_kv(v[None])
-    return kq[0], vq[0], ks[0], vs[0]
-
-
 def _loras(adapters, adapter_idx, config: llama.LlamaConfig) -> list:
     """Each layer's ``lora`` argument of ``decode.qkv_projections``:
     (the layer's factors, adapter_idx), or None throughout when the
@@ -231,9 +218,9 @@ def _loras(adapters, adapter_idx, config: llama.LlamaConfig) -> list:
 
 def _logits(cparams: Params, config: llama.LlamaConfig,
             x: torch.Tensor) -> torch.Tensor:
-    x = llama._rms_norm(x, cparams['final_norm'], config.norm_eps,
-                        config.norm_offset)
-    return llama.matmul(x, llama.output_head(cparams, config)).float()
+    x = rn.rms_norm(x, cparams['final_norm'], config.norm_eps,
+                    config.norm_offset)
+    return mi.matmul(x, llama.output_head(cparams, config)).float()
 
 
 def decode_steps_rows(params: Params, tokens: torch.Tensor, caches,
@@ -248,8 +235,8 @@ def decode_steps_rows(params: Params, tokens: torch.Tensor, caches,
     pos [B] int32 = next write index per row; active [B] bool —
     inactive rows still compute but their pos does not advance and
     their writes keep landing on the same parked cell (a pos outside
-    [0, S) writes nothing). Each layer writes its new row with K5 and
-    attends with dense K4 on the card.
+    [0, S) writes nothing). Each layer rotates, quantizes and writes its
+    new row with K5F and attends with dense K4 on the card.
 
     ``sampling``: None keeps the greedy argmax; else a dict of per-row
     knobs (``temps``/``top_ps``/``seeds`` [B]) plus the grammar mask
@@ -265,21 +252,24 @@ def decode_steps_rows(params: Params, tokens: torch.Tensor, caches,
     quantized = ks_cache is not None
     cparams = llama.compute_params(params, config)
     layers = decode.layer_list(cparams, config)
-    hd = config.head_dim
+    b, s = k_cache.shape[1:3]
+    nkv, hd = config.n_kv_heads, config.head_dim
     tok, cur = tokens, pos
     out = []
     for _ in range(num_steps):
-        angles = llama._rope_frequencies(config, cur)        # [B, hd/2]
+        cos, sin = _rope_table(config, cur)                  # [B, hd/2]
         x = llama.embed_tokens(cparams, tok.long(), config)[:, None]
+        dst = da.rows_dst(cur, s)
         for i, lp in enumerate(layers):
             q, k, v = decode.qkv_projections(config, x, lp)
-            q = _rope_rows(q, angles)
-            k = _rope_rows(k, angles)
-            kr, vr, ksr, vsr = _new_rows(k[:, 0], v[:, 0], quantized)
             scales = ((ks_cache[i], vs_cache[i]) if quantized
                       else (None, None))
-            da.cache_write_rows(k_cache[i], v_cache[i], kr, vr, cur,
-                                *scales, ksr, vsr)
+            q = da.rope_cache_write(
+                q[:, 0], k[:, 0], v[:, 0], cos, sin,
+                k_cache[i].view(b * s, nkv, hd),
+                v_cache[i].view(b * s, nkv, hd), dst,
+                *(None if sc is None else sc.view(b * s, nkv)
+                  for sc in scales))[:, None]
             attn = _attend_rows(q, k_cache[i], v_cache[i], cur,
                                 hd ** -0.5, *scales)
             x = decode.attn_out_and_mlp(config, x, attn, lp)
@@ -319,7 +309,8 @@ def decode_steps_paged(params: Params, tokens: torch.Tensor, caches,
     [L, num_blocks, block_size, Hkv], or the scales None),
     ``block_tables`` [B, MB] int32. Writes go through
     ``kv_pool.write_index`` (parked rows and overrun positions land in
-    the scratch block) with K5; attention is
+    the scratch block) with K5F, the new rows' RoPE, int8 quantization
+    and write in one launch a layer; attention is
     ``paged_decode_attention`` (K4-paged, W = 1) over each row's own
     length, so recycled-block garbage past it contributes exactly 0;
     an inactive row attends its first key only. ``sampling`` as in
@@ -343,7 +334,7 @@ def decode_steps_paged(params: Params, tokens: torch.Tensor, caches,
     tok, cur = tokens, pos
     out = []
     for _ in range(num_steps):
-        angles = llama._rope_frequencies(config, cur)        # [B, hd/2]
+        cos, sin = _rope_table(config, cur)                  # [B, hd/2]
         x = llama.embed_tokens(cparams, tok.long(), config)[:, None]
         widx = kv_pool_lib.write_index(block_tables, cur, block_size)
         # Inactive rows' outputs are discarded: they attend one key, not
@@ -351,13 +342,11 @@ def decode_steps_paged(params: Params, tokens: torch.Tensor, caches,
         lens = torch.where(active, cur + 1, 1)
         for i, lp in enumerate(layers):
             q, k, v = decode.qkv_projections(config, x, lp, loras[i])
-            q = _rope_rows(q, angles)
-            k = _rope_rows(k, angles)
-            kr, vr, ksr, vsr = _new_rows(k[:, 0], v[:, 0], quantized)
             scales = (ksp[i], vsp[i]) if quantized else (None, None)
-            da.cache_write(kp[i], vp[i], kr, vr, widx, *scales, ksr, vsr)
+            q = da.rope_cache_write(q[:, 0], k[:, 0], v[:, 0], cos, sin,
+                                    kp[i], vp[i], widx, *scales)
             attn = da.paged_decode_attention(
-                q[:, 0], kp[i], vp[i], block_tables,
+                q, kp[i], vp[i], block_tables,
                 lens, hd ** -0.5, block_size, *scales)[:, None]
             x = decode.attn_out_and_mlp(config, x, attn, lp)
         nxt = _next_tokens(_logits(cparams, config, x)[:, -1], cur,
@@ -382,7 +371,8 @@ def verify_step_paged(params: Params, tokens: torch.Tensor, caches,
 
     tokens [B, W] int32 (only the first n_real[b] real — padded lanes
     write scratch and their outputs are ignored). The drafted K/V is
-    written into the row's blocks up front with K5; a rejection later
+    rotated, quantized (int8 pools) and written into the row's blocks up
+    front with K5F, one launch a layer; a rejection later
     just leaves those rows past the committed ``pos``, where the
     length-masked attention never reads them. Attention is
     ``paged_verify_attention`` (K4-paged, W > 1; query j attends
@@ -404,12 +394,11 @@ def verify_step_paged(params: Params, tokens: torch.Tensor, caches,
     kp, vp, ksp, vsp = _flat_pools(caches, block_size, config)
     quantized = ksp is not None
     cparams = llama.compute_params(params, config)
-    nkv, hd = config.n_kv_heads, config.head_dim
+    nh, nkv, hd = config.n_heads, config.n_kv_heads, config.head_dim
     b = tokens.shape[0]
     positions = pos[:, None] + torch.arange(width, dtype=torch.int32,
                                             device=pos.device)[None, :]
-    angles = llama._rope_frequencies(
-        config, positions.reshape(-1)).reshape(b, width, -1)
+    cos, sin = _rope_table(config, positions.reshape(-1))  # [B*W, hd/2]
     x = llama.embed_tokens(cparams, tokens.long(), config)   # [B, W, D]
     widx = kv_pool_lib.verify_write_indices(
         block_tables, pos, n_real, width, block_size).reshape(-1)
@@ -419,14 +408,12 @@ def verify_step_paged(params: Params, tokens: torch.Tensor, caches,
     loras = _loras(adapters, adapter_idx, config)
     for i, lp in enumerate(decode.layer_list(cparams, config)):
         q, k, v = decode.qkv_projections(config, x, lp, loras[i])
-        q = _rope_verify(q, angles)
-        k = _rope_verify(k, angles)
-        # Padded lanes collide harmlessly on the scratch slot.
-        kr, vr, ksr, vsr = _new_rows(k.reshape(b * width, nkv, hd),
-                                     v.reshape(b * width, nkv, hd),
-                                     quantized)
         scales = (ksp[i], vsp[i]) if quantized else (None, None)
-        da.cache_write(kp[i], vp[i], kr, vr, widx, *scales, ksr, vsr)
+        # Padded lanes collide harmlessly on the scratch slot.
+        q = da.rope_cache_write(
+            q.reshape(b * width, nh, hd), k.reshape(b * width, nkv, hd),
+            v.reshape(b * width, nkv, hd), cos, sin, kp[i], vp[i], widx,
+            *scales).reshape(b, width, nh, hd)
         attn = da.paged_verify_attention(q, kp[i], vp[i], block_tables,
                                          lens, hd ** -0.5, block_size,
                                          *scales)

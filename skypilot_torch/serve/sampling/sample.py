@@ -13,14 +13,17 @@ Grammar masks arrive as a ``[M, V]`` bool table plus per-row indices
 and are gathered on the device (``gather_masks``): row 0 of the table
 is the all-allowed mask, so unconstrained rows share index 0.
 
-This is plain torch on the card as on the CPU: the JAX package has no
-Pallas kernel here. The top-p filter is a row-wise sort; the keys and
-noise are elementwise threefry.
+The JAX package has no Pallas kernel here. The top-p filter is a
+row-wise sort, then the nucleus threshold (``ops/top_p.top_p_kth``: on
+the card a kernel whose sums run in an order set by the row length, so
+a row's cut does not move with the batch); the keys and noise are
+elementwise threefry.
 """
 from typing import Optional
 
 import torch
 
+from skypilot_torch.ops import top_p as top_p_ops
 from skypilot_torch.serve.sampling import prng
 
 # The engine's NEG_INF (finite: arithmetic on it stays NaN-free through
@@ -42,17 +45,9 @@ def _filter_top_p_row(logits: torch.Tensor,
     smallest descending-probability prefix whose cumulative mass
     reaches top_p (ties at the cut kept); the top-1 token is always
     kept (top_p is clamped above 0)."""
-    top_p = torch.clamp_min(top_p.float(), 1e-6)[:, None]
+    top_p = torch.clamp_min(top_p.float(), 1e-6)
     sorted_desc = torch.sort(logits, dim=-1, descending=True).values
-    # jax.nn.softmax: exp(x - max) over its sum.
-    e = torch.exp(sorted_desc - sorted_desc[:, :1])
-    probs = e / e.sum(dim=-1, keepdim=True)
-    cum = torch.cumsum(probs, dim=-1)
-    # Outside the nucleus: the mass before the token already reached
-    # top_p.
-    outside = (cum - probs) >= top_p
-    kth = torch.where(outside, float('inf'), sorted_desc).amin(
-        dim=-1, keepdim=True)
+    kth = top_p_ops.top_p_kth(sorted_desc, top_p)
     return torch.where(logits < kth, NEG_INF, logits)
 
 

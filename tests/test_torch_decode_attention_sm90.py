@@ -2,7 +2,8 @@
 the kernel depends on, and its plain versions against the JAX package,
 on the CPU.
 
-- The split plan (``decode_split_plan``), from shapes alone, for every
+- The split plan (``decode_split_plan``), from S alone (never B, W or
+  G: a row's keys split at the same points in every call), for every
   instantiation (head_dim 64 and 128, groups 1, 2, 4 and 8) at B 1 and
   8, W 1, 2 and 9, and lengths 0, 1, a page edge, a tile edge, S - 1 and
   S: every key of every query's span is covered by exactly one tile of
@@ -70,9 +71,9 @@ def test_split_plan_covers_every_key_once(hd, g, b):
     lengths = [0, 1, PAGE, tda.DECODE_TILE, S - 1, S]
     for w in (1, 2, 9):
         rows = w * g
-        chunk, n_split = tda.decode_split_plan(b, hkv, S, rows)
+        chunk, n_split = tda.decode_split_plan(S)
         assert chunk % tda.DECODE_TILE == 0
-        assert tda.DECODE_TILE <= chunk <= tda.DECODE_MAX_CHUNK
+        assert chunk == tda.DECODE_CHUNK
         assert chunk % PAGE == 0 and (n_split - 1) * chunk < S <= \
             n_split * chunk
         ml_shape, acc_shape = tda.decode_scratch_shapes(b, hkv, n_split,
@@ -102,22 +103,25 @@ def test_split_plan_covers_every_key_once(hd, g, b):
 
 
 def test_plan_reads_shapes_only():
-    """Dense S and paged MB * bs give one plan at W = 1, which is what
-    makes paged W = 1 over a contiguous table bit-equal to dense K4; the
-    plan never sees lengths."""
-    for b, s in ((1, 8192), (8, 8192), (8, 2048), (3, 592)):
-        assert tda.decode_split_plan(b, 8, s, 4) == \
-            tda.decode_split_plan(b, 8, (s // PAGE) * PAGE, 4)
+    """Dense S and paged MB * bs give one plan, which is what makes paged
+    W = 1 over a contiguous table bit-equal to dense K4; the plan never
+    sees lengths, and its chunk is one for every S, so a row's keys split
+    at the same points at any B, W, G or padded S."""
+    for s in (8192, 2048, 592):
+        assert tda.decode_split_plan(s) == \
+            tda.decode_split_plan((s // PAGE) * PAGE)
+    chunks = {tda.decode_split_plan(s)[0] for s in (1, 64, 592, 1104, 8192,
+                                                    131072)}
+    assert chunks == {tda.DECODE_CHUNK}
     # Verify's 36 query rows write 36-row partials: its splits hold at
     # least 3 tiles (one per m-tile of 16 rows).
-    chunk, _ = tda.decode_split_plan(1, 8, S, 36)
-    assert chunk >= 3 * tda.DECODE_TILE
+    assert tda.DECODE_CHUNK >= 3 * tda.DECODE_TILE
 
 
 def test_shared_memory_fits_two_blocks_per_sm():
     """llama3-8b's shapes: a K4 block at W 1 and 9, bf16 and int8, uses
     at most half of an SM's 228 KB, so two blocks share an SM."""
-    chunk, _ = tda.decode_split_plan(8, 8, S, 4)
+    chunk, _ = tda.decode_split_plan(S)
     for q8 in (False, True):
         for w in (1, 9):
             need = tda.decode_smem_bytes(128, q8, 8, chunk // PAGE, 4 * w)
@@ -305,7 +309,7 @@ def test_refuses_dense_int8_with_partial_last_scale_units():
     """Dense int8 at S * Hkv not a multiple of 8 (views of 13 of 16
     positions, so the batch strides are whole units): the last tile's
     scale rows would not be whole 16-byte units."""
-    q = _bf16(1, 4, 64)
+    q = _bf16(1, 1, 4, 64)
     codes = torch.zeros((1, 16, 2, 64), dtype=torch.int8)[:, :13]
     scales = _bf16(1, 16, 2)[:, :13]
     lens = torch.ones((1,), dtype=torch.int32)
@@ -359,4 +363,4 @@ def test_engine_layouts_pass_the_checks():
     tda._check_scale_rows('t', _bf16(n, 8), _bf16(n, 8), 8)
     tda._check_scale_rows('t', _bf16(2, 64, 8), _bf16(2, 64, 8), 8)
     tda._check_page_size('t', PAGE)
-    tda._check_smem('t', 128, True, 8, tda.DECODE_MAX_CHUNK // PAGE, 36)
+    tda._check_smem('t', 128, True, 8, tda.DECODE_CHUNK // PAGE, 36)

@@ -124,7 +124,7 @@ def test_greedy_generate_kv_int8_equals_jax(weights):
 
 def test_forward_cached_int8_matches_jax(f32_models):
     """Prefill (flash over the exact rows), one decode step (attention
-    over codes), a 3-token chunk (the masked path over the dequantized
+    over codes), a 3-token chunk (the chunk path over the dequantized
     cache); the caches' codes and scales."""
     jcfg, tcfg, jp, tp = f32_models
     rng = np.random.default_rng(2)

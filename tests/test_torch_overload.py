@@ -423,16 +423,20 @@ def test_replica_overload_flags_and_env(monkeypatch):
 def test_replica_answers_429_with_retry_after(replica):
     port, engine = replica
     assert engine.max_queued_requests == 1
-    # Once both rows are taken the engine loop waits before its next
-    # decode dispatch until the 429 is in: the fillers cannot finish
-    # and let the queued request in, however slowly this test's own
-    # threads run.
+    # No decode dispatch runs until the 429 is in: while a row is still
+    # free the loop skips its dispatch (and goes on admitting), and once
+    # both rows are taken it waits for the release. So neither filler
+    # can finish and let the queued request in, however slowly this
+    # test's own threads run.
     release = threading.Event()
     dispatch = engine._dispatch_decode  # pylint: disable=protected-access
 
     def held_dispatch():
-        if all(r is not None for r in engine.slot_req):
-            release.wait(timeout=60)
+        if release.is_set():
+            return dispatch()
+        if not all(r is not None for r in engine.slot_req):
+            return False
+        release.wait(timeout=60)
         return dispatch()
 
     engine._dispatch_decode = held_dispatch  # pylint: disable=protected-access
@@ -441,12 +445,14 @@ def test_replica_answers_429_with_retry_after(replica):
         for i in range(2)]
     queued = None
     try:
-        for t in fillers:
-            t.start()
         deadline = time.time() + 30
-        while sum(r is not None for r in engine.slot_req) < 2:
-            assert time.time() < deadline
-            time.sleep(0.005)
+        # One filler at a time: the queue holds one request, so a second
+        # submitted before the first is admitted would be shed.
+        for n, t in enumerate(fillers, 1):
+            t.start()
+            while sum(r is not None for r in engine.slot_req) < n:
+                assert time.time() < deadline
+                time.sleep(0.005)
         queued = threading.Thread(target=_post, args=(
             port, {'prompt_ids': [1, 2], 'max_new_tokens': 4,
                    'priority': 'batch', 'tenant': 'team-b'}))

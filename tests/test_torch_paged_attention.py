@@ -26,6 +26,15 @@ def _launches():
             tda.DECODE_ATTENTION.launches)
 
 
+def _cache_write_rows(k_cache, v_cache, k_new, v_new, pos):
+    """The TPU kernel's rows form through the flat write: row b of
+    k/v_cache [B, S, Hkv, hd] gets its new row at pos[b]."""
+    b, s = k_cache.shape[:2]
+    tda.cache_write(k_cache.view(b * s, *k_cache.shape[2:]),
+                    v_cache.view(b * s, *v_cache.shape[2:]), k_new, v_new,
+                    tda.rows_dst(pos, s))
+
+
 def test_cache_write_rows_bit_equal_to_pallas_and_reference():
     """The positions of tests/test_decode_attention.py: window starts,
     mid-window and the last row."""
@@ -41,8 +50,8 @@ def test_cache_write_rows_bit_equal_to_pallas_and_reference():
     kr, vr = jda._reference_cache_write(*jargs)
     tk, tv = torch.from_numpy(k.copy()), torch.from_numpy(v.copy())
     before = _launches()
-    tda.cache_write_rows(tk, tv, torch.from_numpy(kn), torch.from_numpy(vn),
-                         torch.from_numpy(pos))
+    _cache_write_rows(tk, tv, torch.from_numpy(kn), torch.from_numpy(vn),
+                      torch.from_numpy(pos))
     assert _launches() == before
     for got, want in ((tk, kp), (tk, kr), (tv, vp), (tv, vr)):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -58,8 +67,8 @@ def test_cache_write_rows_drops_positions_outside_the_cache():
     kr, _ = jda._reference_cache_write(*[jnp.asarray(x) for x in
                                          (k, k, kn, kn, pos)])
     tk, tv = torch.from_numpy(k.copy()), torch.from_numpy(k.copy())
-    tda.cache_write_rows(tk, tv, torch.from_numpy(kn), torch.from_numpy(kn),
-                         torch.from_numpy(pos))
+    _cache_write_rows(tk, tv, torch.from_numpy(kn), torch.from_numpy(kn),
+                      torch.from_numpy(pos))
     np.testing.assert_array_equal(tk.numpy(), np.asarray(kr))
     np.testing.assert_array_equal(tda.rows_dst(torch.from_numpy(pos),
                                                16).numpy(), [-1, 19, -1])
