@@ -23,7 +23,10 @@ in order (any failure exits non-zero; nothing is caught):
    kernels are). Before the phases, ``BUILD`` lines give every kernel's
    registers, static shared memory and spills; ``K4_BUILD`` sums K4's 64
    instantiations (none may spill) and checks the wrapper's shared-memory
-   plan against the kernel's own layout for every instantiation.
+   plan against the kernel's own layout for every instantiation;
+   ``MATMUL_BUILD`` shows HGMMA (``cuobjdump -sass``) in each of the
+   invariant GEMM's six instantiations, their registers and spills, and
+   the clusters the card holds at once, each at least the plan's table.
 4. End-to-end numerics: llama3-8b at full width and 2 layers, bf16 on
    the card against the same weights in f32 on the CPU (plain paths).
 5. Serve: the port's replica at llama3-8b (32 layers, random weights),
@@ -77,10 +80,13 @@ in order (any failure exits non-zero; nothing is caught):
    in one CUDA graph and replayed, bit-equal to the same calls made
    eagerly.
 10b. INVARIANCE (Queue 3 R9): the invariant GEMM at every llama3-8b
-   engine shape, bf16 and int8 weights, a fixed row bit-equal at M = 1,
-   8, 72 and 512, within ``MATMUL_TOL`` of f32 and of cuBLAS, with a
-   ``MATMUL_INV`` line per shape (kernel, cuBLAS and bound ms at M = 8,
-   72, 512); every other row op of the engine's path bit-equal for a
+   engine shape, bf16 and int8 weights (and the tied head's transposed
+   form at 4096^2), every row bit-equal at M = 1, 8, 9, 72, 512 and
+   alone, within ``MATMUL_TOL`` of f32 and of cuBLAS, with a
+   ``MATMUL_INV`` line per shape (kernel and cuBLAS ms on cold weights,
+   in a CUDA graph and eagerly, the bound and each M's plan at M = 8,
+   72, 512); the LoRA delta against its plain version, one launch of
+   each of its two kernels a call (``LORA_DELTA``); every other row op of the engine's path bit-equal for a
    row (RMSNorm, the LoRA delta, the nucleus threshold, K5F, K4-paged at
    B 1/8 x W 1/9 in bf16 and int8, dense K4's prefill form at T 1..512,
    the int8 quantization), each row of a call against the same row in
@@ -313,6 +319,26 @@ def ptxas_report(log_path):
     return entries
 
 
+def sass_counts(lib_path, opcode):
+    """Lines of each kernel's SASS in a built library that issue
+    ``opcode`` (``cuobjdump -sass``), by mangled function name; None
+    where the toolkit has no cuobjdump."""
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    if not os.path.isfile(tool):
+        return None
+    out = subprocess.run([tool, '-sass', lib_path], capture_output=True,
+                         text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r'Function : (\S+)', line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur is not None and opcode in line:
+            counts[cur] += 1
+    return counts
+
+
 def copies_outside_l2(make, nbytes, first):
     """``first`` and enough fresh copies of an input set that cycling
     through them overflows L2 twice."""
@@ -347,11 +373,15 @@ def profile_cuda(torch, fn, label, extra):
         r'flash_sm90::|anonymous namespace', e.key) and 'at::' not in e.key]
     k4_ms = sum(e.self_device_time_total for e in events
                 if 'decode_kernel' in e.key) / 1e3
+    # The serving path's invariant GEMM (csrc/matmul_invariant.cu).
+    gemm = [e for e in events if 'matmul_kernel' in e.key]
     launches = sum(e.count for e in events)
     log(label + ' ' + json.dumps(dict(
         extra, wall_ms=wall_ms, device_busy_ms=busy_ms,
         device_idle_share=1 - busy_ms / wall_ms,
         k4_ms=k4_ms, k4_share=k4_ms / busy_ms if busy_ms else 0.0,
+        gemm_ms=sum(e.self_device_time_total for e in gemm) / 1e3,
+        gemm_calls=sum(e.count for e in gemm),
         device_launches=launches,
         **({'device_launches_per_step': launches / extra['steps']}
            if 'steps' in extra else {}),
@@ -1870,7 +1900,8 @@ def _serving_kernels(attention, da):
             'rope_cache_write': da.ROPE_CACHE_WRITE,
             'rope_cache_write_q8': da.ROPE_CACHE_WRITE_Q8,
             'matmul': mi.MATMUL, 'matmul_q8': mi.MATMUL_Q8,
-            'rms_norm': rn.RMS_NORM, 'lora_delta': mi.LORA_DELTA,
+            'rms_norm': rn.RMS_NORM, 'lora_mid': mi.LORA_MID,
+            'lora_delta': mi.LORA_DELTA,
             'top_p_kth': tp.TOP_P_KTH}
 
 
@@ -1890,7 +1921,8 @@ def _serving_identity(kernels, n_layers, events, q8=False, lora=False):
     one K5 and one dense K4 in its verify form; every forward (step,
     verify, chunk) 7 products and 2 norms a layer and the final norm and
     the LM head; an engine with an
-    adapter set 2 LoRA deltas a layer per forward. ``q8``: int8 weights
+    adapter set 2 LoRA deltas a layer per forward, each two launches
+    (``lora_mid``, then ``lora_delta``). ``q8``: int8 weights
     and pool (the ``*_q8`` forms; dense K4's verify form reads the
     prefill's bf16 view either way). Every other count 0 (the sampler's
     ``top_p_kth`` included: a caller whose run samples sets it)."""
@@ -1905,6 +1937,7 @@ def _serving_identity(kernels, n_layers, events, q8=False, lora=False):
                  'verify_attention': L * n_chunks,
                  'matmul' + q: (7 * L + 1) * fwd,
                  'rms_norm': (2 * L + 1) * fwd,
+                 'lora_mid': 2 * L * fwd if lora else 0,
                  'lora_delta': 2 * L * fwd if lora else 0})
     return want, dict(decode_steps=steps, verify_dispatches=n_verify,
                       prefill_chunks=n_chunks)
@@ -1937,65 +1970,92 @@ def _row_bits(torch, fn, x, ms=INV_MS):
 
 def _matmul_lines(torch, mi, gen):
     """The invariant GEMM at every engine shape: bf16 and int8 weights,
-    a fixed row's bits at M = 1, 8, 72, 512 (with cuBLAS's beside them,
-    printed), the error against f32, and ``MATMUL_INV`` times at M = 8,
-    72, 512 against cuBLAS (``torch.matmul``, timed only) and the bound."""
+    a fixed row's bits at M = 1, 8, 9, 72, 512 and alone (with cuBLAS's
+    beside them, printed), the error against f32, and ``MATMUL_INV``
+    times at M = 8, 72, 512 on cold weights (each call a copy of the
+    weight outside L2, as the engine meets a layer's weights, for the
+    kernel and cuBLAS alike: ``torch.matmul``, timed only) in a CUDA
+    graph and eagerly (the host's cost a launch included), beside the
+    bound and each M's plan: bucket tile, segments and form."""
     rows, mains = [], {}
     for n, k in MATMUL_SHAPES:
-        w = (torch.randn((k, n), generator=gen, device='cuda') *
-             k ** -0.5).to(torch.bfloat16)
-        wq = {'q': torch.randint(-127, 128, (k, n), generator=gen,
-                                 device='cuda', dtype=torch.int8),
-              's': (torch.rand((1, n), generator=gen, device='cuda') *
-                    0.02).to(torch.bfloat16)}
+        def make_w(n=n, k=k):
+            return (torch.randn((k, n), generator=gen, device='cuda') *
+                    k ** -0.5).to(torch.bfloat16)
+
+        def make_wq(n=n, k=k):
+            return {'q': torch.randint(-127, 128, (k, n), generator=gen,
+                                       device='cuda', dtype=torch.int8),
+                    's': (torch.rand((1, n), generator=gen, device='cuda') *
+                          0.02).to(torch.bfloat16)}
+        def make_wt(n=n, k=k):  # a tied head's transposed [N, K]
+            return (torch.randn((n, k), generator=gen, device='cuda') *
+                    k ** -0.5).to(torch.bfloat16).T
         x = torch.randn((512, k), generator=gen, device='cuda',
                         dtype=torch.bfloat16)
-        for form, weight in (('bf16', w), ('int8', wq)):
+        forms = [('bf16', make_w), ('int8', make_wq)]
+        if n == k:
+            forms.append(('bf16_t', make_wt))
+        for form, make in forms:
+            weight = make()
             y = mi.matmul(x, weight)
             plain = mi._matmul_plain(x, weight)
-            ref = (x.float() @ weight.float() if form == 'bf16' else
+            ref = (x.float() @ weight.float() if form != 'int8' else
                    (x.float() @ weight['q'].float()) *
                    weight['s'].float())
             err = ((y.float() - ref).abs().max() /
                    ref.abs().max()).item()
             abs_err = (y.float() - plain.float()).abs().max().item()
             err_plain = abs_err / plain.float().abs().max().item()
+            del ref, plain
             bits = _row_bits(torch, lambda a, wt=weight: mi.matmul(a, wt),
                              x)
             cublas = _row_bits(
                 torch, lambda a, wt=weight: mi._matmul_plain(a, wt), x)
-            wbytes = k * n * (2 if form == 'bf16' else 1) + \
-                (0 if form == 'bf16' else 2 * n)
+            wbytes = k * n * (1 if form == 'int8' else 2) + \
+                (2 * n if form == 'int8' else 0)
+            copies = copies_outside_l2(make, wbytes, weight)
             times = {}
             for m in (8, 72, 512):
                 xm = x[:m]
+                args = [(xm, c) for c in copies]
+                for a in args:  # every copy's tensor map before capture
+                    mi.matmul(*a)
                 nbytes = 2 * m * k + wbytes + 2 * m * n
                 flops = 2 * m * n * k
+
+                def kernel(a, wt):
+                    return mi.matmul(a, wt)
+
+                def cublas_call(a, wt):
+                    return mi._matmul_plain(a, wt)
                 times[m] = dict(
-                    kernel_ms=graph_ms(
-                        torch, lambda a, wt=weight: mi.matmul(a, wt),
-                        [(xm,)], 20),
-                    cublas_ms=graph_ms(
-                        torch, lambda a, wt=weight: mi._matmul_plain(a, wt),
-                        [(xm,)], 20),
+                    plan=mi.matmul_launch(m, n, k),
+                    kernel_ms=graph_ms(torch, kernel, args, 20),
+                    cublas_ms=graph_ms(torch, cublas_call, args, 20),
+                    kernel_eager_ms=cuda_ms(torch, kernel, args, 20),
+                    cublas_eager_ms=cuda_ms(torch, cublas_call, args, 20),
+                    weight_copies=len(copies),
                     bound_ms=1e3 * max(nbytes / PEAK_HBM_BYTES,
                                        flops / PEAK_BF16_FLOPS),
                     bound_by='bytes' if nbytes / PEAK_HBM_BYTES >
                     flops / PEAK_BF16_FLOPS else 'operations')
             line = dict(N=n, K=k, form=form,
-                        splits=mi.matmul_splits(n, k)[0],
+                        plan=dict(zip(('seg_tiles', 'n_segs', 'group'),
+                                      mi.matmul_plan(n, k))),
                         err_vs_f32=err, err_vs_plain=err_plain,
                         max_abs_err=abs_err,
                         row_bits_differing=bits,
-                        cublas_row_bits_differing=cublas, times=times)
+                        cublas_row_bits_differing=cublas, times=times,
+                        card=smi_line())
             log('MATMUL_INV ' + json.dumps(line))
             assert err_plain <= MATMUL_TOL and err <= MATMUL_TOL, line
             assert all(d == 0 for d in bits.values()), line
             rows.append(line)
             if (n, k, form) in ((4096, 4096, 'bf16'), (4096, 4096, 'int8')):
                 mains[form] = line
-        del w, wq
-    torch.cuda.empty_cache()
+            del weight, copies
+            torch.cuda.empty_cache()
     return rows, mains
 
 
@@ -2297,9 +2357,16 @@ def _lora_line(torch, mi, gen):
     b_sl = torch.randn((3, r, n), generator=gen, device='cuda') * 0.03
     idx = torch.tensor([1, 2, 0, 1, 2, 0, 1, 2], dtype=torch.int32,
                        device='cuda')
+    before = (mi.LORA_MID.launches, mi.LORA_DELTA.launches)
     y = mi.lora_gather_delta(h, a_sl, b_sl, idx)
+    launches = (mi.LORA_MID.launches - before[0],
+                mi.LORA_DELTA.launches - before[1])
     ref = mi._lora_plain(h, a_sl, b_sl, idx)
     err = (y - ref).abs().max().item()
+    # The kernel's two phases against their plain versions.
+    mid_ref = mi._lora_mid_plain(h, a_sl, idx)
+    phase_err = (mi._lora_out_plain(mid_ref, b_sl, idx) - ref).abs().max(
+        ).item() / ref.abs().max().item()
     # The rows share slots: the function reads each distinct slot's
     # factors once.
     u = len(set(idx.tolist()))
@@ -2307,16 +2374,22 @@ def _lora_line(torch, mi, gen):
     flops = 2 * b * r * (d + n)
     line = dict(B=b, T=1, d=d, rank=r, out=n, max_abs_err=err,
                 rel_err=err / ref.abs().max().item(),
+                plain_phases_rel_err=phase_err,
+                launches_per_call=dict(lora_mid=launches[0],
+                                       lora_delta=launches[1]),
                 ms=graph_ms(torch, lambda: mi.lora_gather_delta(
                     h, a_sl, b_sl, idx), [()], 50),
                 plain_ms=graph_ms(torch, lambda: mi._lora_plain(
                     h, a_sl, b_sl, idx), [()], 50),
                 bound_ms=1e3 * max(nbytes / PEAK_HBM_BYTES,
                                    flops / PEAK_BF16_FLOPS),
-                bound_by='bytes', library='torch.bmm x 2 (the plain version)')
+                bound_by='bytes', library='torch.bmm x 2 (the plain version)',
+                card=smi_line())
     line['library_ms'] = line['plain_ms']
     log('LORA_DELTA ' + json.dumps(line))
-    assert line['rel_err'] <= 1e-5, line
+    assert line['rel_err'] <= 1e-5 and phase_err <= 1e-5, line
+    # One launch of each phase a call: _serving_identity's 2 L + 2 L.
+    assert launches == (1, 1), line
     return line
 
 
@@ -2411,6 +2484,21 @@ def _prefill_attention_line(torch, da, gen):
                                          start, HD8 ** -0.5)
     err, rel = k4_errors(out, ref)
     pairs = sum(st + 1 + i for i in range(t))
+    # The library call for the same work, timed only: SDPA over the
+    # 1104-key view with query i seeing keys 0..st + i (bottom-right
+    # causal over the first st + T keys), K/V repeated for GQA.
+    import torch.nn.functional as F
+    kr = k.repeat_interleave(32 // HKV8, dim=2).transpose(1, 2)
+    vr = v.repeat_interleave(32 // HKV8, dim=2).transpose(1, 2)
+    qt = q.transpose(1, 2)
+    mask = (torch.arange(s, device='cuda')[None, :] <=
+            torch.arange(t, device='cuda')[:, None] + st)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kr, vr, attn_mask=mask,
+                                              scale=HD8 ** -0.5)
+    lib_err = (library().transpose(1, 2).float() - ref.float()).abs().max(
+        ).item()
     nbytes = 2 * (2 * t * 32 * HD8 + 2 * (st + t) * HKV8 * HD8)
     flops = 4 * pairs * 32 * HD8
     line = dict(T=t, S=s, start=st, max_abs_err=err, tol=K4_PREFILL_TOL,
@@ -2420,6 +2508,9 @@ def _prefill_attention_line(torch, da, gen):
                 einsum_form_ms=graph_ms(
                     torch, lambda: da._reference_verify_attention(
                         q, k, v, start, HD8 ** -0.5), [()], 10),
+                library_ms=graph_ms(torch, library, [()], 10),
+                library='F.scaled_dot_product_attention, bool mask, K/V '
+                        'repeated', library_max_abs_err=lib_err,
                 bound_ms=1e3 * max(nbytes / PEAK_HBM_BYTES,
                                    flops / PEAK_BF16_FLOPS),
                 bound_by='operations' if flops / PEAK_BF16_FLOPS >
@@ -2865,32 +2956,83 @@ def _draft_prompts(torch, engine, config, rand, need=2, tries=8,
     return found
 
 
-def _profile_engine_dispatch(torch, engine, config, batching, label):
-    """Where a decode dispatch's time goes: the engine's own step
-    (``decode_steps_paged``, ``steps_per_dispatch`` tokens) on its pool,
-    8 rows at the replica's context lengths, profiled on the card."""
-    lens = [17, 64, 256, 1024, 1064, 1114, 1536, 2048]
-    blocks = [engine.pool.alloc(engine.pool.blocks_for(n + engine.steps))
-              for n in lens]
-    tables = torch.zeros((len(lens), engine.max_blocks_per_req),
-                         dtype=torch.int32)
-    for i, bl in enumerate(blocks):
-        tables[i, :len(bl)] = torch.tensor(bl, dtype=torch.int32)
-    tables = tables.cuda()
-    pos = torch.tensor(lens, dtype=torch.int32, device='cuda')
-    tokens = torch.ones(len(lens), dtype=torch.int32, device='cuda')
-    active = torch.ones(len(lens), dtype=torch.bool, device='cuda')
+# The replica's context lengths of a profiled dispatch's 8 rows, and
+# the profiled prefill chunk (positions 512-1023 of a 1024-token prompt).
+DISPATCH_CONTEXTS = [17, 64, 256, 1024, 1064, 1114, 1536, 2048]
+DISPATCH_PREFILL_START = DISPATCH_PREFILL_ROWS = 512
 
-    def dispatch():
+
+def engine_dispatches(torch, engine, config, batching, decode,
+                      kinds=('decode', 'verify', 'prefill')):
+    """The engine's device dispatches of ``kinds`` on its own pool, as
+    (kind, fn, extra), and the blocks they hold (give them back with
+    ``engine.pool.free``): a decode dispatch (``decode_steps_paged``,
+    ``steps_per_dispatch`` tokens), a verify dispatch
+    (``verify_step_paged``, ``draft_k + 1`` positions a row), both on 8
+    rows at ``DISPATCH_CONTEXTS``, and one prefill chunk
+    (``forward_paged``)."""
+    dev = engine.device
+    lens = DISPATCH_CONTEXTS
+    b, w = len(lens), engine.draft_k + 1
+    ahead = max(engine.steps, w) if 'verify' in kinds else engine.steps
+    held = [engine.pool.alloc(engine.pool.blocks_for(n + ahead))
+            for n in lens]
+    tables = torch.zeros((b, engine.max_blocks_per_req), dtype=torch.int32)
+    for i, bl in enumerate(held):
+        tables[i, :len(bl)] = torch.tensor(bl, dtype=torch.int32)
+    tables = tables.to(dev)
+    pos = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tokens = torch.ones(b, dtype=torch.int32, device=dev)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    drafts = torch.ones((b, w), dtype=torch.int32, device=dev)
+    n_real = torch.full((b,), w, dtype=torch.int32, device=dev)
+    start, rows = DISPATCH_PREFILL_START, DISPATCH_PREFILL_ROWS
+    chunk = torch.ones((1, rows), dtype=torch.int32, device=dev)
+
+    def decode_dispatch():
         with torch.inference_mode():
             toks, _, _ = batching.decode_steps_paged(
                 engine.params, tokens, engine.caches, tables, pos, active,
                 config, engine.steps, engine.block_size)
             toks.cpu()
+
+    def verify_dispatch():
+        with torch.inference_mode():
+            preds = batching.verify_step_paged(
+                engine.params, drafts, engine.caches, tables, pos, n_real,
+                config, w, engine.block_size)[0]
+            preds.cpu()
+
+    def prefill_chunk():
+        with torch.inference_mode():
+            out = decode.forward_paged(
+                engine.params, chunk, engine.caches, table, start, rows,
+                config, engine.block_size)
+            (out[0] if isinstance(out, tuple) else out).cpu()
+
+    if 'prefill' in kinds:
+        prompt = engine.pool.alloc(engine.pool.blocks_for(start + rows))
+        held.append(prompt)
+        table = torch.zeros(engine.max_blocks_per_req, dtype=torch.int32)
+        table[:len(prompt)] = torch.tensor(prompt, dtype=torch.int32)
+        table = table.to(dev)
+    cases = {'decode': (decode_dispatch,
+                        dict(rows=b, steps=engine.steps, lengths=lens)),
+             'verify': (verify_dispatch, dict(rows=b, width=w, lengths=lens)),
+             'prefill': (prefill_chunk, dict(rows=rows, start=start))}
+    return [(k,) + cases[k] for k in kinds], held
+
+
+def _profile_engine_dispatch(torch, engine, config, batching, label):
+    """Where a decode dispatch's time goes: the engine's own step
+    (``decode_steps_paged``, ``steps_per_dispatch`` tokens) on its pool,
+    8 rows at the replica's context lengths, profiled on the card."""
+    from skypilot_torch.models import decode
+    [(_, dispatch, extra)], held = engine_dispatches(
+        torch, engine, config, batching, decode, kinds=('decode',))
     dispatch()
-    profile_cuda(torch, dispatch, label + '_DISPATCH_PROFILE',
-                 dict(rows=len(lens), steps=engine.steps, lengths=lens))
-    for bl in blocks:
+    profile_cuda(torch, dispatch, label + '_DISPATCH_PROFILE', extra)
+    for bl in held:
         engine.pool.free(bl)
 
 
@@ -5190,6 +5332,39 @@ def main() -> int:
                 k4_entries.append(entry)
     k4_spills = [e for e in k4_entries
                  if e.get('spill_stores') or e.get('spill_loads')]
+    # The invariant GEMM is a wgmma kernel: HGMMA in each of its six
+    # instantiations' SASS (bucket x form), with ptxas's registers and
+    # spills.
+    mm_path = libs['matmul_invariant']
+    hgmma = sass_counts(mm_path, 'HGMMA')
+    mm_entries = [e for e in ptxas_report(mm_path[:-len('.so')] + '.log')
+                  if 'matmul_kernel' in e['kernel']]
+    # The clusters of each size the card holds at once, held against the
+    # plan's table (ops/matmul_invariant.MATMUL_CLUSTERS): a call whose
+    # clusters exceed them would run a second wave.
+    import ctypes
+
+    from skypilot_torch.ops import matmul_invariant as mi
+    max_clusters = _build.load('matmul_invariant').skypilot_matmul_max_clusters
+    max_clusters.argtypes = [ctypes.c_int] * 3
+    max_clusters.restype = ctypes.c_int
+    clusters = {f'nwg{w}_{f}': {z: max_clusters(w, fi, z)
+                                for z in mi.MATMUL_CLUSTERS}
+                for w in (1, 2) for fi, f in enumerate(('bf16', 'bf16_t',
+                                                        'int8'))}
+    log('MATMUL_BUILD ' + json.dumps(dict(
+        card=smi, instantiations=len(mm_entries),
+        sass_hgmma_lines=hgmma, entries=mm_entries,
+        max_active_clusters=clusters,
+        plan_clusters=mi.MATMUL_CLUSTERS)))
+    assert len(mm_entries) == 6, mm_entries
+    short = {(inst, z): n for inst, per in clusters.items()
+             for z, n in per.items() if n < mi.MATMUL_CLUSTERS[z]}
+    assert not short, ('the card holds fewer clusters than the GEMM\'s plan '
+                       f'counts on (a second wave): {short}')
+    if hgmma is not None:
+        mm_sass = {f: c for f, c in hgmma.items() if 'matmul_kernel' in f}
+        assert len(mm_sass) == 6 and all(mm_sass.values()), hgmma
     # Dynamic shared memory of a K4 block at llama3-8b's shapes (Hkv 8,
     # 16-row pages, the split plan's chunk): W 1 and W 9, bf16 and int8.
     smem_plan = k4_smem_plan_check(_build, da)
@@ -5382,9 +5557,12 @@ def main() -> int:
         dict(name='lora_delta', route='cuda',
              source='skypilot_torch/csrc/matmul_invariant.cu',
              replaces='skypilot_tpu/models/decode.py:304',
-             launches=ad_b['lora_delta'] + ov_b['lora_delta'],
-             launches_adapters=ad_b['lora_delta'],
-             launches_overload=ov_b['lora_delta'],
+             launches=(ad_b['lora_mid'] + ov_b['lora_mid'] +
+                       ad_b['lora_delta'] + ov_b['lora_delta']),
+             launches_mid=ad_b['lora_mid'] + ov_b['lora_mid'],
+             launches_out=ad_b['lora_delta'] + ov_b['lora_delta'],
+             launches_adapters=ad_b['lora_mid'] + ad_b['lora_delta'],
+             launches_overload=ov_b['lora_mid'] + ov_b['lora_delta'],
              **{k: inv['lora'][k] for k in (
                  'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
                  'library_ms')}),

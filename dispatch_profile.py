@@ -1,0 +1,82 @@
+"""Where the engine's dispatches spend the card's time.
+
+One decode dispatch (8 rows at contexts 17-2048, ``steps_per_dispatch``
+steps), one verify dispatch (the same 8 rows, ``draft_k + 1`` query
+positions each) and one 512-row prefill chunk (positions 512-1023 of a
+1024-token prompt) of the ``--slots 8`` llama3-8b engine, random weights
+from the replica's seed, bf16 and int8 (weights and pool). Each runs once
+to warm up, then once under chip_smoke.py's ``profile_cuda`` (CUDA
+activity only): device busy ms, the invariant GEMM's ms and calls,
+launches, wall ms and the top kernels. The dispatches are chip_smoke.py's
+``engine_dispatches``.
+
+``--root DIR`` imports ``skypilot_torch`` from another checkout (this
+script's ``chip_smoke.py`` still measures), so that two trees are
+measured by the same code in one call on one card::
+
+    python3 dispatch_profile.py [--root DIR] [--forms bf16,int8]
+
+Needs a CUDA card. Prints one ``DISPATCH`` JSON line per (form, kind),
+with the card's name and power limit.
+"""
+import argparse
+import importlib.util
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _chip_smoke():
+    """This checkout's chip_smoke.py, whatever ``--root`` puts first on
+    the path."""
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke', os.path.join(HERE, 'chip_smoke.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--root', default=HERE, help='checkout to import from')
+    parser.add_argument('--forms', default='bf16,int8')
+    args = parser.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+    if not torch.cuda.is_available():
+        print('dispatch_profile: CUDA is not available', file=sys.stderr)
+        return 2
+    from skypilot_torch.models import decode, llama
+    from skypilot_torch.recipes import serve_model
+    from skypilot_torch.serve import batching
+    smoke = _chip_smoke()
+    card = smoke.smi_line()
+    config = llama.get_config('llama3-8b')
+    for form in args.forms.split(','):
+        srv_args = serve_model.parse_args(
+            ['--model', 'llama3-8b', '--port', '0', '--device', 'cuda',
+             '--slots', '8'] + (['--quant', 'int8', '--kv-int8']
+                                if form == 'int8' else []))
+        server, _ = serve_model.build_server(srv_args)
+        engine = server.engine
+        try:
+            cases, held = smoke.engine_dispatches(torch, engine, config,
+                                                  batching, decode)
+            for kind, fn, extra in cases:
+                fn()
+                smoke.profile_cuda(torch, fn, 'DISPATCH', dict(
+                    root=root, form=form, kind=kind, card=card, **extra))
+            for bl in held:
+                engine.pool.free(bl)
+        finally:
+            server.server_close()
+            engine.close()
+        del server, engine
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

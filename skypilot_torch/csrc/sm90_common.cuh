@@ -1,9 +1,13 @@
 // Hopper (sm_90a) primitives of the attention forward mainloop
-// (flash_fwd_sm90.cuh): mbarriers, TMA tensor loads, wgmma with its
-// shared-memory descriptors and fences, setmaxnreg, and the host side of
-// TMA (a 4-D tensor map of a strided bf16 [batch, rows, heads, D]
-// operand). Every shared-memory tile is written by TMA and read by
-// wgmma, both in the async proxy, so no proxy fence is needed.
+// (flash_fwd_sm90.cuh) and the invariant GEMM (matmul_invariant.cu):
+// mbarriers, TMA tensor loads, wgmma with its shared-memory descriptors
+// and fences, setmaxnreg, and the host side of TMA (a 4-D tensor map of a
+// strided bf16 [batch, rows, heads, D] operand; a 2-D map of a bf16 or
+// uint8 matrix). A shared-memory tile written by TMA and read by wgmma
+// stays in the async proxy and needs no proxy fence; a tile written by
+// ordinary stores (the GEMM's widened int8 codes) needs
+// fence_proxy_async() by every writer before the barrier that hands it
+// to wgmma.
 //
 // Shared-memory tiles are written by TMA in the 128-byte swizzle: a tile
 // of R rows and 64 bf16 columns (one 128-byte "atom" row each) holds row
@@ -88,6 +92,23 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// The 2-D form: the box at (c0, c1), innermost first.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// Orders this thread's ordinary shared-memory stores before later reads
+// by the async proxy (wgmma, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
@@ -234,6 +255,45 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64],
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d[64 x N] (+)= A[64 x 16] B[16 x N], both from shared memory, A
+// K-major and B MN-major (a row-major [K, N] tile: N contiguous, in
+// 64-column atoms; the descriptor's LBO is the distance between atoms).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t da,
+                                            uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<128>(float (&d)[64],
+                                                 uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 template <>
 __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
                                                const uint32_t (&a)[4],
@@ -346,6 +406,32 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int D,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a 2-D matrix at `base`: `rows` rows of `cols`
+// elements (bf16, or uint8 when `bytes`), rows `row_bytes` apart, box
+// (box_cols, box_rows), elements past either edge read as zero. swizzle:
+// the 128-byte swizzle wgmma reads (box_cols * element size must then be
+// 128 bytes), else none. row_bytes must be a multiple of 16 and the base
+// 16-byte aligned (the wrappers check both).
+inline cudaError_t make_map_2d(CUtensorMap* map, const void* base, bool bytes,
+                               long long cols, long long rows,
+                               long long row_bytes, int box_cols,
+                               int box_rows, bool swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(row_bytes)};
+  const cuuint32_t box[2] = {cuuint32_t(box_cols), cuuint32_t(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(
+      map,
+      bytes ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

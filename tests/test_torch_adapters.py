@@ -173,6 +173,39 @@ def test_lora_gather_delta_matches_jax():
     assert not got[1].any()
 
 
+@pytest.mark.parametrize('d', [64, 300])
+def test_lora_delta_phases_match_jax_einsums(d):
+    """The CUDA kernel's two phases in their plain versions: ``h @ A``
+    over d-chunks added in order (d 300: a ragged last chunk) against
+    JAX's first einsum, then ``mid @ B`` against its second, and the two
+    chained against JAX's delta; slot 0's rows exactly 0 in each."""
+    from skypilot_torch.ops import matmul_invariant as tmi
+    rng = np.random.default_rng(d)
+    a = rng.standard_normal((3, d, 16)).astype(np.float32)
+    b = rng.standard_normal((3, 16, 40)).astype(np.float32)
+    a[0] = 0.0
+    b[0] = 0.0
+    h = rng.standard_normal((4, 5, d)).astype(np.float32)
+    idx = np.asarray([1, 0, 2, 1], np.int32)
+    ja, jb = jnp.asarray(a)[idx], jnp.asarray(b)[idx]
+    want_mid = np.asarray(jnp.einsum('btd,bdr->btr', jnp.asarray(h), ja))
+    tidx = torch.from_numpy(idx)
+    mid = tmi._lora_mid_plain(torch.from_numpy(h), torch.from_numpy(a),
+                              tidx)
+    np.testing.assert_allclose(mid.numpy(), want_mid, rtol=1e-5,
+                               atol=1e-5 * np.abs(want_mid).max())
+    want_out = np.asarray(jnp.einsum('btr,bro->bto', jnp.asarray(mid.numpy()),
+                                     jb))
+    out = tmi._lora_out_plain(mid, torch.from_numpy(b), tidx)
+    np.testing.assert_allclose(out.numpy(), want_out, rtol=1e-6,
+                               atol=1e-6 * np.abs(want_out).max())
+    want = np.asarray(jdecode.lora_gather_delta(
+        jnp.asarray(h), jnp.asarray(a), jnp.asarray(b), jnp.asarray(idx)))
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+    assert not mid[1].any() and not out[1].any()
+
+
 def _resident_pair(models, tenants):
     """The JAX and port resident sets over the same lineages, both
     adapters preloaded (same slots: claimed in the same order)."""

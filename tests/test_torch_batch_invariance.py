@@ -4,9 +4,13 @@ versions against the code they replaced and against the JAX package.
 
 - ``ops/matmul_invariant``: the plain ``matmul`` is ``llama.matmul``
   bit for bit (bf16, f32, int8 ``{'q', 's'}``) and within 1e-6 of the
-  JAX ``llama.matmul`` in f32; ``matmul_splits`` reads (N, K) alone and
-  always covers K in whole k-tiles; the wrapper refuses what the kernel
-  does not take before anything launches.
+  JAX ``llama.matmul`` in f32; ``matmul_plan`` reads (N, K) alone and
+  always covers K in whole k-tiles; ``matmul_launch`` picks the bucket
+  from M and keeps the segments and their sum order at every M and in
+  both forms; the wrapper refuses what the kernel does not take (TMA's
+  16-byte strides) before anything launches, never encodes a weight's
+  tensor map inside a capture and keeps a live weight's map through a
+  sweep; the plan's prefill grouping follows the engine's chunk.
 - ``decode_split_plan`` reads S alone, with one chunk for every S.
 - ``rope_cache_write``'s plain version is the chain it replaced in the
   device steps (``_rope_rows`` / ``_rope_verify``, ``_new_rows``, the
@@ -46,7 +50,7 @@ ATTN_TOL = dict(rtol=2e-5, atol=2e-5)
 
 def _launches():
     return (tmi.MATMUL.launches, tmi.MATMUL_Q8.launches,
-            tmi.LORA_DELTA.launches, ttp.TOP_P_KTH.launches,
+            tmi.LORA_MID.launches, tmi.LORA_DELTA.launches, ttp.TOP_P_KTH.launches,
             tda.ROPE_CACHE_WRITE.launches, tda.ROPE_CACHE_WRITE_Q8.launches,
             tda.VERIFY_ATTENTION.launches)
 
@@ -93,26 +97,109 @@ ENGINE_SHAPES = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
 
 @pytest.mark.parametrize('n,k', ENGINE_SHAPES)
 def test_matmul_splits_cover_k_from_n_and_k_alone(n, k):
-    """Whole k-tiles per split, every k in exactly one split, at most two
-    waves of the H100's SMs when K is split, and nothing of M in the
-    rule (it takes N and K only)."""
-    splits, k_chunk = tmi.matmul_splits(n, k)
-    tiles = -(-k // tmi.MATMUL_TILE)
-    assert splits >= 1 and k_chunk % tmi.MATMUL_TILE == 0
-    assert (splits - 1) * k_chunk < k <= splits * k_chunk
-    if splits > 1:
-        assert tiles % splits == 0
-        assert k_chunk // tmi.MATMUL_TILE >= tmi.MATMUL_MIN_K_TILES
-        assert -(-n // tmi.MATMUL_TILE) * splits <= tmi.MATMUL_WAVE_BLOCKS
-    assert tmi.matmul_splits(n, k) == (splits, k_chunk)
+    """Whole k-tiles per segment, every k in exactly one segment, the
+    column tiles in one wave of clusters of that many blocks when K is
+    split, groups that divide the segments, and nothing of M in the rule
+    (it takes N and K only)."""
+    seg_tiles, n_segs, group = tmi.matmul_plan(n, k)
+    tiles = -(-k // tmi.MATMUL_BK)
+    assert n_segs >= 1 and seg_tiles >= 1
+    assert (n_segs - 1) * seg_tiles < tiles <= n_segs * seg_tiles
+    assert n_segs % group == 0 and n_segs in tmi.MATMUL_CLUSTERS
+    if n_segs > 1:
+        assert tiles % n_segs == 0
+        assert seg_tiles >= tmi.MATMUL_MIN_K_TILES
+        assert -(-n // tmi.MATMUL_BN) <= tmi.MATMUL_CLUSTERS[n_segs]
+    assert tmi.matmul_plan(n, k) == (seg_tiles, n_segs, group)
 
 
 def test_matmul_splits_at_llama3_8b():
-    """The engine's shapes split as the kernel's comment says: the k/v
-    projections (N 1024) 16 ways, q/o (N 4096) 4, the MLP and the head
-    not at all, the down projection (K 14336) 4."""
-    assert [tmi.matmul_splits(n, k)[0] for n, k in ENGINE_SHAPES[:5]] == \
-        [4, 16, 1, 4, 1]
+    """The engine's shapes split as the kernel's comment says: q/o (N
+    4096, 32 column tiles) and down (K 14336) 2 ways in one group, so a
+    512-row chunk runs them serially with no merge; the k/v projections
+    (N 1024, 8 column tiles) 8 ways in 2 groups; the MLP's gate/up (112
+    column tiles) and the head not at all."""
+    assert [tmi.matmul_plan(n, k)[1] for n, k in ENGINE_SHAPES[:5]] == \
+        [2, 8, 1, 2, 1]
+    assert [tmi.matmul_plan(n, k)[2] for n, k in ENGINE_SHAPES[:5]] == \
+        [2, 4, 1, 2, 1]
+
+
+@pytest.mark.parametrize('m', [1, 8, 9, 63, 64, 65, 72, 128, 129, 512,
+                               4096])
+def test_matmul_bucket_warpgroups_from_m(m):
+    """One 64-row warpgroup a block up to 64 rows, two above: verify's
+    72 rows are one m-tile, so each weight byte is read once a call."""
+    launch = tmi.matmul_launch(m, 4096, 4096)
+    assert launch['nwg'] == tmi.matmul_bucket(m) == (1 if m <= 64 else 2)
+    assert launch['tile'] == [64 * launch['nwg'], tmi.MATMUL_BN,
+                              tmi.MATMUL_BK]
+    rows = launch['nwg'] * tmi.MATMUL_WG_ROWS
+    assert (launch['m_tiles'] - 1) * rows < m <= launch['m_tiles'] * rows
+    if m <= 128:
+        assert launch['m_tiles'] == 1
+
+
+@pytest.mark.parametrize('n,k', ENGINE_SHAPES)
+def test_matmul_launch_covers_every_k_tile_once(n, k):
+    """At every M, in both forms: the segments are the plan's (of (N, K)
+    alone), the blocks of an output tile take every k-tile exactly once
+    and in segment order, and the fixed sum order (segments within a
+    group, then groups) is the same whether a block runs one segment or
+    a whole group."""
+    plan = tmi.matmul_plan(n, k)
+    tiles = -(-k // tmi.MATMUL_BK)
+    orders, forms = set(), set()
+    for m in (1, 8, 9, 72, 512, 2048):
+        launch = tmi.matmul_launch(m, n, k)
+        seg_tiles, n_segs, group = plan
+        assert (launch['seg_tiles'], launch['n_segs'], launch['group']) == \
+            plan
+        run = launch['run']
+        assert run in (1, group)
+        assert launch['blocks_per_tile'] * run == n_segs
+        taken = []
+        order = []
+        for z in range(launch['blocks_per_tile']):
+            block_segs = list(range(z * run, (z + 1) * run))
+            for seg in block_segs:
+                taken += list(range(seg * seg_tiles,
+                                    min(tiles, (seg + 1) * seg_tiles)))
+            # In a block, its segments in order; across blocks, the merge
+            # takes per_group blocks a group, then the groups.
+            order.append(block_segs)
+        assert taken == list(range(tiles))
+        per_group = group // run
+        grouped = tuple(tuple(s for blk in order[g:g + per_group]
+                              for s in blk)
+                        for g in range(0, len(order), per_group))
+        orders.add(grouped)
+        forms.add(launch['form'])
+    assert len(orders) == 1
+    assert orders.pop() == tuple(tuple(range(g, g + plan[2]))
+                                 for g in range(0, plan[1], plan[2]))
+
+
+def test_matmul_forms_at_llama3_8b():
+    """Decode and verify spread K over one cluster a tile (split), in one
+    wave; a 512-row chunk runs each block's group of segments in turn
+    (serial), its clusters in one wave; gate/up, one segment, whole."""
+    for n, k in ENGINE_SHAPES[:4]:
+        single = tmi.matmul_plan(n, k)[1] == 1
+        for m in (8, 72):
+            launch = tmi.matmul_launch(m, n, k)
+            assert launch['run'] == 1, (n, k, m)
+            assert launch['form'] == ('single' if single else 'split')
+            assert launch['n_tiles'] <= tmi.MATMUL_CLUSTERS[
+                launch['blocks_per_tile']]
+        launch = tmi.matmul_launch(512, n, k)
+        assert launch['form'] == ('single' if single else 'serial'), (n, k)
+        if not single:
+            assert (launch['m_tiles'] * launch['n_tiles'] <=
+                    tmi.MATMUL_CLUSTERS[launch['blocks_per_tile']]), (n, k)
+    # q/o and down: one group covers K, so no merge at 512 rows.
+    assert tmi.matmul_launch(512, 4096, 4096)['blocks_per_tile'] == 1
+    assert tmi.matmul_launch(512, 4096, 14336)['blocks_per_tile'] == 1
 
 
 def _refused(fn, exc, match):
@@ -132,6 +219,12 @@ def test_matmul_wrapper_refusals():
              'contiguous')
     _refused(lambda: tmi._matmul_cuda(x[:, :60], w[:60]), ValueError,
              'multiples of 8')
+    # TMA: a row stride of 72 bytes, and a base 2 bytes off 16.
+    xs = torch.zeros((4, 100), dtype=torch.bfloat16)
+    _refused(lambda: tmi._matmul_cuda(xs[:, :64], w), ValueError,
+             '16-byte')
+    _refused(lambda: tmi._matmul_cuda(xs.view(-1)[1:257].view(4, 64), w),
+             ValueError, '16-byte')
     wq = {'q': torch.zeros((64, 24), dtype=torch.int8),
           's': torch.zeros((1, 24), dtype=torch.bfloat16)}
     _refused(lambda: tmi._matmul_cuda(x, wq), TypeError, 'multiple of 16')
@@ -143,15 +236,69 @@ def test_matmul_wrapper_refusals():
         torch.bfloat16), torch.zeros((2,))), TypeError, 'f32')
 
 
-def test_matmul_counters_are_one_buffer_per_device(monkeypatch):
-    monkeypatch.setattr(tmi, '_COUNTERS', {})
-    dev = torch.device('cpu')
-    first = tmi._counters(dev, 8)
-    assert first.numel() == tmi.MATMUL_MAX_COUNTERS
-    assert not bool(first.any())
-    assert tmi._counters(dev, tmi.MATMUL_MAX_COUNTERS) is first
-    with pytest.raises(ValueError, match='counters'):
-        tmi._counters(dev, tmi.MATMUL_MAX_COUNTERS + 1)
+def test_matmul_weight_maps_are_never_encoded_in_a_capture(monkeypatch):
+    """A weight's tensor map is encoded on its first call and kept under
+    (device, pointer, shape, strides, dtype, form); during a CUDA-graph
+    capture a missing map raises, and a kept one is reused."""
+    monkeypatch.setattr(tmi, '_MAPS', {})
+    encoded = []
+
+    def encode(mat, form, k, n, ld):
+        encoded.append((mat.data_ptr(), form, k, n, ld))
+        return bytes(128)
+    monkeypatch.setattr(tmi, '_encode_map', encode)
+    w = torch.zeros((64, 32), dtype=torch.bfloat16)
+    first = tmi._weight_map(w, tmi.FORM_BF16, 64, 32, 32)
+    assert tmi._weight_map(w, tmi.FORM_BF16, 64, 32, 32) is first
+    assert len(encoded) == 1
+    monkeypatch.setattr(tmi, '_capturing', lambda dev: True)
+    assert tmi._weight_map(w, tmi.FORM_BF16, 64, 32, 32) is first
+    with pytest.raises(RuntimeError, match='captured'):
+        tmi._weight_map(w.T.contiguous().T, tmi.FORM_BF16_T, 32, 64, 32)
+    with pytest.raises(RuntimeError, match='captured'):
+        tmi._weight_map(w, tmi.FORM_Q8, 64, 32, 32)
+    assert len(encoded) == 1 and len(tmi._MAPS) == 1
+
+
+def test_matmul_weight_map_sweep_keeps_live_weights(monkeypatch):
+    """Past ``MATMUL_MAX_MAPS`` maps only freed weights' maps go: a live
+    weight's map (and its tied-head view's, kept by the view's base)
+    survives the sweep, so a capture after it still finds both."""
+    monkeypatch.setattr(tmi, '_MAPS', {})
+    monkeypatch.setattr(tmi, 'MATMUL_MAX_MAPS', 3)
+    encoded = []
+
+    def encode(mat, form, k, n, ld):
+        encoded.append(mat.data_ptr())
+        return bytearray(128)
+    monkeypatch.setattr(tmi, '_encode_map', encode)
+    w = torch.zeros((64, 32), dtype=torch.bfloat16)
+    embed = torch.zeros((32, 64), dtype=torch.bfloat16)
+    first = tmi._weight_map(w, tmi.FORM_BF16, 64, 32, 32)
+    head = tmi._weight_map(embed.T, tmi.FORM_BF16_T, 64, 32, 64)
+    for i in range(4):   # weights made and freed, as copies of a timing
+        tmp = torch.zeros((64, 32 + 8 * i), dtype=torch.bfloat16)
+        tmi._weight_map(tmp, tmi.FORM_BF16, 64, 32 + 8 * i, 32 + 8 * i)
+        del tmp
+    assert len(encoded) == 6 and len(tmi._MAPS) == 3
+    n = len(encoded)
+    monkeypatch.setattr(tmi, '_capturing', lambda dev: True)
+    assert tmi._weight_map(w, tmi.FORM_BF16, 64, 32, 32) is first
+    assert tmi._weight_map(embed.T, tmi.FORM_BF16_T, 64, 32, 64) is head
+    assert len(encoded) == n
+
+
+def test_matmul_prefill_m_tiles_follow_the_engine_chunk():
+    """The plan's grouping counts the engine's default prefill chunk in
+    two-warpgroup m-tiles."""
+    import inspect
+
+    from skypilot_torch.serve import batching as tbatching
+    chunk = inspect.signature(tbatching.BatchingEngine).parameters[
+        'prefill_chunk'].default
+    assert (tmi.MATMUL_PREFILL_M_TILES ==
+            -(-chunk // (2 * tmi.MATMUL_WG_ROWS)))
+    assert tmi.matmul_bucket(chunk) == 2
 
 
 # ---------------------------------------------------------------------
