@@ -195,8 +195,8 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 L2_BYTES = 50 * 2 ** 20
 PHASES = ('k1', 'k4', 'e2e', 'serve', 'k1r', 'bwd', 'train', 'k5', 'k5f',
-          'k4p', 'invariance', 'engine', 'sampling', 'adapters', 'rows',
-          'k6', 'int8k', 'int8', 'qlora')
+          'k4p', 'k4pre', 'invariance', 'engine', 'sampling', 'adapters',
+          'rows', 'k6', 'int8k', 'int8', 'qlora')
 K1_TOL = {'out': 2e-2, 'lse': 2e-2}
 # K2/K3 in bf16 (P and dS rounded to bf16 before their products) against
 # f32 on the same rotated bf16 q and k: max |err| over max |ref| per
@@ -373,6 +373,10 @@ def profile_cuda(torch, fn, label, extra):
         r'flash_sm90::|anonymous namespace', e.key) and 'at::' not in e.key]
     k4_ms = sum(e.self_device_time_total for e in events
                 if 'decode_kernel' in e.key) / 1e3
+    # Attention, in a prefill chunk: K4-prefill, or (before it) K4's
+    # W = T form.
+    attn = [e for e in events
+            if 'prefill_kernel' in e.key or 'decode_kernel' in e.key]
     # The serving path's invariant GEMM (csrc/matmul_invariant.cu).
     gemm = [e for e in events if 'matmul_kernel' in e.key]
     launches = sum(e.count for e in events)
@@ -382,6 +386,8 @@ def profile_cuda(torch, fn, label, extra):
         k4_ms=k4_ms, k4_share=k4_ms / busy_ms if busy_ms else 0.0,
         gemm_ms=sum(e.self_device_time_total for e in gemm) / 1e3,
         gemm_calls=sum(e.count for e in gemm),
+        attn_ms=sum(e.self_device_time_total for e in attn) / 1e3,
+        attn_calls=sum(e.count for e in attn),
         device_launches=launches,
         **({'device_launches_per_step': launches / extra['steps']}
            if 'steps' in extra else {}),
@@ -1890,7 +1896,8 @@ def _serving_kernels(attention, da):
     return {'flash_fwd': attention.FLASH_FWD,
             'decode_attention': da.DECODE_ATTENTION,
             'decode_attention_q8': da.DECODE_ATTENTION_Q8,
-            'verify_attention': da.VERIFY_ATTENTION,
+            'prefill_attention': da.PREFILL_ATTENTION,
+            'prefill_attention_q8': da.PREFILL_ATTENTION_Q8,
             'paged_w1': da.PAGED_DECODE_ATTENTION,
             'paged_verify': da.PAGED_VERIFY_ATTENTION,
             'paged_w1_q8': da.PAGED_DECODE_ATTENTION_Q8,
@@ -1918,13 +1925,12 @@ def _serving_identity(kernels, n_layers, events, q8=False, lora=False):
     """The launch counts a run's dispatch record fixes, with ``L``
     layers: a layer of each decode step and verify dispatch launches one
     K5F and one K4-paged (W = 1 or W > 1); a layer of each prefill chunk
-    one K5 and one dense K4 in its verify form; every forward (step,
+    one K5 and one K4-prefill; every forward (step,
     verify, chunk) 7 products and 2 norms a layer and the final norm and
     the LM head; an engine with an
     adapter set 2 LoRA deltas a layer per forward, each two launches
     (``lora_mid``, then ``lora_delta``). ``q8``: int8 weights
-    and pool (the ``*_q8`` forms; dense K4's verify form reads the
-    prefill's bf16 view either way). Every other count 0 (the sampler's
+    and pool (the ``*_q8`` forms). Every other count 0 (the sampler's
     ``top_p_kth`` included: a caller whose run samples sets it)."""
     steps, n_verify, n_chunks = _dispatch_record(events)
     L, q = n_layers, '_q8' if q8 else ''
@@ -1934,7 +1940,7 @@ def _serving_identity(kernels, n_layers, events, q8=False, lora=False):
                  'paged_verify' + q: L * n_verify,
                  'rope_cache_write' + q: L * (steps + n_verify),
                  'cache_write' + q: L * n_chunks,
-                 'verify_attention': L * n_chunks,
+                 'prefill_attention' + q: L * n_chunks,
                  'matmul' + q: (7 * L + 1) * fwd,
                  'rms_norm': (2 * L + 1) * fwd,
                  'lora_mid': 2 * L * fwd if lora else 0,
@@ -2173,9 +2179,10 @@ def _op_invariance(torch, da, mi, rn, tp, gen):
                              for r in every),
             W9q0_vs_W1=int((v8[:, 0] != d8).sum()))
         del kp, vp
-    # Dense K4's verify form (the prefill chunk): chunks of T rows ending
-    # at position 1099, against the same positions of the 512-row chunk,
-    # and over a view padded from 1104 to 2048 keys.
+    # K4-prefill (the prefill chunk): chunks of T rows ending at position
+    # 1099, against the same positions of the 512-row chunk, and over a
+    # view padded from 1104 to 2048 keys (dense) or a table widened from
+    # 69 to 128 pages (paged, bf16 and int8).
     kd, vd = randn(1, 2048, HKV8, HD8), randn(1, 2048, HKV8, HD8)
     qa = randn(1, 1100, 32, HD8)
 
@@ -2185,6 +2192,41 @@ def _op_invariance(torch, da, mi, rn, tp, gen):
             qa[:, st:].contiguous(), kd[:, :s], vd[:, :s],
             torch.tensor([st + 1], dtype=torch.int32, device='cuda'),
             HD8 ** -0.5)[0]
+    kpg, tab = _paged_copy(torch, gen, kd, 128)
+    vpg = torch.zeros_like(kpg)
+    rows = (tab[0].long()[:, None] * BLOCK + torch.arange(
+        BLOCK, device='cuda')).reshape(-1)
+    vpg[rows] = vd[0]
+    (kc, ks), (vc, vs) = da.quantize_kv(kpg), da.quantize_kv(vpg)
+
+    def paged_chunk(t, mb):
+        st = 1100 - t
+        return da.prefill_attention(
+            qa[:, st:].contiguous(), kpg, vpg,
+            torch.tensor([st + 1], dtype=torch.int32, device='cuda'),
+            HD8 ** -0.5, block_table=tab[:, :mb].contiguous(),
+            block_size=BLOCK)[0]
+    full_p = paged_chunk(512, 69)
+    held['k4_prefill_paged'] = {
+        f'T{t}MB{mb}': int((paged_chunk(t, mb) != full_p[512 - t:]).sum())
+        for t, mb in ((1, 69), (8, 69), (9, 69), (72, 69), (512, 128))}
+    # int8: a chunk attends its own exact rows and earlier keys' codes, so
+    # the chunks share a start (1028) and differ in length (a bucket's
+    # padding) and in the table's width.
+    qb = randn(1, 512, 32, HD8)
+
+    def int8_chunk(t, mb):
+        return da.prefill_attention(
+            qb[:, :t].contiguous(), kc, vc,
+            torch.tensor([1029], dtype=torch.int32, device='cuda'),
+            HD8 ** -0.5, block_table=tab[:, :mb].contiguous(),
+            block_size=BLOCK, k_new=kd[:, 1028:1028 + t].contiguous(),
+            v_new=vd[:, 1028:1028 + t].contiguous(), k_scale=ks,
+            v_scale=vs)[0]
+    full_q = int8_chunk(512, 128)
+    held['k4_prefill_paged_int8'] = {
+        f'T{t}MB{mb}': int((int8_chunk(t, mb) != full_q[:t]).sum())
+        for t, mb in ((1, 97), (8, 97), (9, 97), (72, 97), (512, 97))}
 
     def einsum_form(t):
         st = 1100 - t
@@ -2300,10 +2342,11 @@ def _step_invariance(torch, batching, config, params, q8, gen):
 
 
 def _prefill_vs_decode(torch, batching, config, params, gen):
-    """Printed, not held: position 1023 of a 1024-token prompt prefilled
-    in chunks of 512 against the same position reached by prefilling
-    1023 tokens and decoding one: the K/V rows written there (layer 0
-    and the last) and the token."""
+    """Position 1023 of a 1024-token prompt prefilled in chunks of 512
+    against the same position reached by prefilling 1023 tokens and
+    decoding one: the K/V rows written there (layer 0 and the last) and
+    the token (held by ``invariance_phase``: a preempted request
+    re-prefills its tokens and must go on as it would have)."""
     from skypilot_torch.models import decode as decode_lib
     L, hkv, hd = config.n_layers, config.n_kv_heads, config.head_dim
     mb = 1024 // BLOCK + 1
@@ -2338,9 +2381,7 @@ def _prefill_vs_decode(torch, batching, config, params, gen):
     line = dict(position=p, prefill_token=prefill_tok,
                 decode_token=int(toks[0, 0]),
                 tokens_equal=prefill_tok == int(toks[0, 0]),
-                kv_rows_equal_by_layer=kv_equal,
-                note='not part of the contract: a prefill chunk and a '
-                     'decode step attend through other kernels and orders')
+                kv_rows_equal_by_layer=kv_equal)
     log('INVARIANCE_PREFILL_VS_DECODE ' + json.dumps(line))
     del kp, vp
     return line
@@ -2463,31 +2504,66 @@ def _rms_norm_line(torch, rn, gen):
     return line
 
 
-def _prefill_attention_line(torch, da, gen):
-    """Dense K4's verify form at an engine prefill chunk (T 512 ending at
-    position 1099 of a 1104-key view, llama3-8b heads): against the
-    plain version in f32 (``K4_PREFILL_TOL`` absolute and ``K4_REL_TOL``
-    per row and query position), timed beside the plain version on the
-    bf16 inputs (the einsum-and-softmax form of the JAX step, which
-    ``forward_paged`` attended with before) and the bound (q, the
-    visible keys and out; the causal products)."""
-    t, s, st = 512, 1104, 588
+# K4-prefill's lines: T 512 at these (start, view keys); the bit checks
+# at these chunk lengths and starts (100: not a multiple of 16).
+K4_PREFILL_CASES = ((588, 1104), (7680, 8192))
+PREFILL_BIT_TS = (1, 9, 72, 512)
+PREFILL_BIT_STARTS = (0, 100, 588, 7680)
+
+
+def _paged_copy(torch, gen, x, mb):
+    """The rows of a view x [1, S, ...] laid into a pool of ``mb`` + 1
+    pages of BLOCK rows (page 0 left as scratch) in shuffled page order:
+    (pool [N, ...], table [1, mb] int32)."""
+    s = x.shape[1]
+    table = (torch.randperm(mb, generator=gen, device='cuda') + 1).to(
+        torch.int32)[None]
+    pool = torch.zeros(((mb + 1) * BLOCK,) + tuple(x.shape[2:]),
+                       dtype=x.dtype, device='cuda')
+    rows = (table[0].long()[:, None] * BLOCK +
+            torch.arange(BLOCK, device='cuda')).reshape(-1)[:s]
+    pool[rows] = x[0]
+    return pool, table
+
+
+def _prefill_attention_line(torch, da, gen, st, s):
+    """K4-prefill at an engine prefill chunk (T 512 from position ``st``
+    over an ``s``-key view, llama3-8b heads): its paged form (the
+    engine's: the pool, the chunk's rows included, through a shuffled
+    table) against the plain version in f32 (``K4_PREFILL_TOL`` absolute and
+    ``K4_REL_TOL`` per row and query position); its dense form bit-equal
+    to the paged one; timed beside K4's W = T form on the same view (the
+    route before K4-prefill, through ``DECODE_ATTENTION``), the einsum
+    form of the JAX step, SDPA (the library call, timed only) and the
+    bound (q, the visible keys and out; the causal products)."""
+    import torch.nn.functional as F
+    t, scale = 512, HD8 ** -0.5
     q = torch.randn((1, t, 32, HD8), generator=gen, device='cuda',
                     dtype=torch.bfloat16)
     k = torch.randn((1, s, HKV8, HD8), generator=gen, device='cuda',
                     dtype=torch.bfloat16)
     v = torch.randn((1, s, HKV8, HD8), generator=gen, device='cuda',
                     dtype=torch.bfloat16)
-    start = torch.tensor([st + 1], dtype=torch.int32, device='cuda')
-    out = da.verify_attention(q, k, v, start, HD8 ** -0.5)
+    kp, table = _paged_copy(torch, gen, k, -(-s // BLOCK) + 2)
+    vp = torch.zeros_like(kp)
+    vp[(table[0].long()[:, None] * BLOCK + torch.arange(
+        BLOCK, device='cuda')).reshape(-1)[:s]] = v[0]
+    lengths = torch.tensor([st + 1], dtype=torch.int32, device='cuda')
+
+    def paged():
+        return da.prefill_attention(q, kp, vp, lengths, scale,
+                                    block_table=table, block_size=BLOCK)
+
+    def dense():
+        return da.prefill_attention(q, k, v, lengths, scale)
+
+    def before():
+        return da._decode_attention_cuda(q, k, v, lengths, scale)
+    out = paged()
     ref = da._reference_verify_attention(q.float(), k.float(), v.float(),
-                                         start, HD8 ** -0.5)
+                                         lengths, scale)
     err, rel = k4_errors(out, ref)
-    pairs = sum(st + 1 + i for i in range(t))
-    # The library call for the same work, timed only: SDPA over the
-    # 1104-key view with query i seeing keys 0..st + i (bottom-right
-    # causal over the first st + T keys), K/V repeated for GQA.
-    import torch.nn.functional as F
+    b_err, b_rel = k4_errors(before(), ref)
     kr = k.repeat_interleave(32 // HKV8, dim=2).transpose(1, 2)
     vr = v.repeat_interleave(32 // HKV8, dim=2).transpose(1, 2)
     qt = q.transpose(1, 2)
@@ -2496,18 +2572,23 @@ def _prefill_attention_line(torch, da, gen):
 
     def library():
         return F.scaled_dot_product_attention(qt, kr, vr, attn_mask=mask,
-                                              scale=HD8 ** -0.5)
+                                              scale=scale)
     lib_err = (library().transpose(1, 2).float() - ref.float()).abs().max(
         ).item()
+    pairs = sum(st + 1 + i for i in range(t))
     nbytes = 2 * (2 * t * 32 * HD8 + 2 * (st + t) * HKV8 * HD8)
     flops = 4 * pairs * 32 * HD8
     line = dict(T=t, S=s, start=st, max_abs_err=err, tol=K4_PREFILL_TOL,
                 max_rel_err=rel, rel_tol=K4_REL_TOL,
-                ms=graph_ms(torch, lambda: da.verify_attention(
-                    q, k, v, start, HD8 ** -0.5), [()], 10),
+                dense_equals_paged=bool(torch.equal(dense(), out)),
+                ms=graph_ms(torch, paged, [()], 10),
+                dense_ms=graph_ms(torch, dense, [()], 10),
+                before_ms=graph_ms(torch, before, [()], 10),
+                before='K4 W = T (DECODE_ATTENTION), dense view',
+                before_max_abs_err=b_err, before_max_rel_err=b_rel,
                 einsum_form_ms=graph_ms(
                     torch, lambda: da._reference_verify_attention(
-                        q, k, v, start, HD8 ** -0.5), [()], 10),
+                        q, k, v, lengths, scale), [()], 10),
                 library_ms=graph_ms(torch, library, [()], 10),
                 library='F.scaled_dot_product_attention, bool mask, K/V '
                         'repeated', library_max_abs_err=lib_err,
@@ -2517,7 +2598,173 @@ def _prefill_attention_line(torch, da, gen):
                 nbytes / PEAK_HBM_BYTES else 'bytes')
     log('K4_PREFILL ' + json.dumps(line))
     assert err <= K4_PREFILL_TOL and rel <= K4_REL_TOL, line
+    assert line['dense_equals_paged'], line
     return line
+
+
+def _prefill_q8_line(torch, da, gen, st=588, s=1104):
+    """K4-prefill's int8 form at the engine's chunk (T 512 from ``st``,
+    an ``s``-key view quantized per (row, kv head) into a shuffled
+    pool, the chunk's exact bf16 rows from st): against the plain version
+    (gather, dequant, splice, attention) in f32, bit-equal to the bf16
+    form over a bf16 pool holding the dequantized codes, timed beside
+    the plain version and the bound (codes, scales, the chunk's rows,
+    q and out; the causal products)."""
+    t, scale = 512, HD8 ** -0.5
+    q = torch.randn((1, t, 32, HD8), generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    k = torch.randn((1, s, HKV8, HD8), generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    v = torch.randn((1, s, HKV8, HD8), generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    (kc, ks), (vc, vs) = da.quantize_kv(k), da.quantize_kv(v)
+    mb = -(-s // BLOCK) + 2
+    kcp, table = _paged_copy(torch, gen, kc, mb)
+    rows = (table[0].long()[:, None] * BLOCK + torch.arange(
+        BLOCK, device='cuda')).reshape(-1)[:s]
+
+    def like(x):
+        pool = torch.zeros((kcp.shape[0],) + tuple(x.shape[2:]),
+                           dtype=x.dtype, device='cuda')
+        pool[rows] = x[0]
+        return pool
+    vcp, ksp, vsp = like(vc), like(ks), like(vs)
+    k_new = k[:, st:st + t].contiguous()
+    v_new = v[:, st:st + t].contiguous()
+    lengths = torch.tensor([st + 1], dtype=torch.int32, device='cuda')
+    common = dict(block_table=table, block_size=BLOCK, k_new=k_new,
+                  v_new=v_new)
+
+    def kernel():
+        return da.prefill_attention(q, kcp, vcp, lengths, scale,
+                                    k_scale=ksp, v_scale=vsp, **common)
+
+    def plain():
+        return da._reference_prefill_attention(
+            q, kcp, vcp, lengths, scale, k_scale=ksp, v_scale=vsp, **common)
+    out = kernel()
+    # The bf16 form over a bf16 pool holding the dequantized codes, the
+    # chunk's exact rows in place.
+    kb = da.dequant_kv(kcp, ksp, torch.bfloat16)
+    vb = da.dequant_kv(vcp, vsp, torch.bfloat16)
+    kb[rows[st:st + t]] = k_new[0]
+    vb[rows[st:st + t]] = v_new[0]
+    bf = da.prefill_attention(q, kb, vb, lengths, scale, block_table=table,
+                              block_size=BLOCK)
+    ref = da._reference_prefill_attention(
+        q.float(), kcp, vcp, lengths, scale, k_scale=ksp, v_scale=vsp,
+        block_table=table, block_size=BLOCK, k_new=k_new.float(),
+        v_new=v_new.float())
+    err, rel = k4_errors(out, ref)
+    pairs = sum(st + 1 + i for i in range(t))
+    nbytes = (2 * 2 * t * 32 * HD8 + 2 * st * HKV8 * (HD8 + 2) +
+              2 * 2 * t * HKV8 * HD8)
+    flops = 4 * pairs * 32 * HD8
+    line = dict(T=t, S=s, start=st, max_abs_err=err, tol=K4_PREFILL_TOL,
+                max_rel_err=rel, rel_tol=K4_REL_TOL,
+                differing_from_bf16_form=int((out != bf).sum()),
+                ms=graph_ms(torch, kernel, [()], 10),
+                plain_ms=cuda_ms(torch, plain, [()], 10),
+                plain_timed='eager (its gather reads the lengths on the host)',
+                bound_ms=1e3 * max(nbytes / PEAK_HBM_BYTES,
+                                   flops / PEAK_BF16_FLOPS),
+                bound_by='operations' if flops / PEAK_BF16_FLOPS >
+                nbytes / PEAK_HBM_BYTES else 'bytes', library_ms=None)
+    log('K4_PREFILL_Q8 ' + json.dumps(line))
+    assert err <= K4_PREFILL_TOL and rel <= K4_REL_TOL, line
+    assert line['differing_from_bf16_form'] == 0, line
+    return line
+
+
+def _prefill_bits(torch, da, gen):
+    """The bit contract of K4-prefill's bf16 form: every real row of a
+    chunk of T (``PREFILL_BIT_TS``, and a 72-row bucket holding 60 real
+    rows) from each of ``PREFILL_BIT_STARTS`` equal to K4-paged's decode
+    step (W = 1) at the same position over the same pool (8192 keys,
+    shuffled pages), at llama3-8b's heads and at head_dim 64 / 128 x
+    groups 1 / 8: differing elements by case."""
+    s, scale = 8192, HD8 ** -0.5
+    k = torch.randn((1, s, HKV8, HD8), generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    v = torch.randn((1, s, HKV8, HD8), generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    mb = s // BLOCK
+    kp, table = _paged_copy(torch, gen, k, mb)
+    vp = torch.zeros_like(kp)
+    vp[(table[0].long()[:, None] * BLOCK + torch.arange(
+        BLOCK, device='cuda')).reshape(-1)] = v[0]
+    qa = torch.randn((1, 512, 32, HD8), generator=gen, device='cuda',
+                     dtype=torch.bfloat16)
+    cases = [(t, t) for t in PREFILL_BIT_TS] + [(72, 60)]
+    held = {}
+    for st in PREFILL_BIT_STARTS:
+        for t, real in cases:
+            if st + t > s:
+                continue
+            q = qa[:, :t].contiguous()
+            got = da.prefill_attention(
+                q, kp, vp, torch.tensor([st + 1], dtype=torch.int32,
+                                        device='cuda'), scale,
+                block_table=table, block_size=BLOCK)
+            dec = da.paged_decode_attention(
+                q[0, :real].contiguous(), kp, vp,
+                table.expand(real, mb).contiguous(),
+                torch.arange(st + 1, st + 1 + real, dtype=torch.int32,
+                             device='cuda'), scale, BLOCK)
+            held[f'start{st}_T{t}' + ('' if real == t else f'_real{real}')] \
+                = int((got[0, :real] != dec).sum())
+    # The other instantiations the template builds: head_dim 64 and 128 at
+    # groups 1 and 8 (Hq 32), a 72-row chunk from 100 over 1024 keys.
+    for hd, g in ((64, 1), (64, 8), (128, 1), (128, 8)):
+        hkv = 32 // g
+        kx = torch.randn((1, 1024, hkv, hd), generator=gen, device='cuda',
+                         dtype=torch.bfloat16)
+        vx = torch.randn((1, 1024, hkv, hd), generator=gen, device='cuda',
+                         dtype=torch.bfloat16)
+        kpx, tabx = _paged_copy(torch, gen, kx, 1024 // BLOCK)
+        vpx = torch.zeros_like(kpx)
+        vpx[(tabx[0].long()[:, None] * BLOCK + torch.arange(
+            BLOCK, device='cuda')).reshape(-1)] = vx[0]
+        qx = torch.randn((1, 72, 32, hd), generator=gen, device='cuda',
+                         dtype=torch.bfloat16)
+        got = da.prefill_attention(
+            qx, kpx, vpx, torch.tensor([101], dtype=torch.int32,
+                                       device='cuda'), hd ** -0.5,
+            block_table=tabx, block_size=BLOCK)
+        dec = da.paged_decode_attention(
+            qx[0], kpx, vpx, tabx.expand(72, tabx.shape[1]).contiguous(),
+            torch.arange(101, 173, dtype=torch.int32, device='cuda'),
+            hd ** -0.5, BLOCK)
+        held[f'hd{hd}_G{g}_start100_T72'] = int((got[0] != dec).sum())
+    return held
+
+
+def k4pre_phase(torch, da):
+    """K4-prefill on the card: the ``K4_PREFILL`` lines at
+    ``K4_PREFILL_CASES`` (bf16, paged and dense), ``K4_PREFILL_Q8``, and
+    ``K4_PREFILL_BITS`` (every real row against K4-paged's decode step).
+    Returns the kernels-line numbers, bf16 and int8."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device='cuda').manual_seed(43)
+    lines = [_prefill_attention_line(torch, da, gen, st, s)
+             for st, s in K4_PREFILL_CASES]
+    q8 = _prefill_q8_line(torch, da, gen)
+    bits = _prefill_bits(torch, da, gen)
+    log('K4_PREFILL_BITS ' + json.dumps(dict(
+        vs='K4-paged decode step (W = 1), same position and pool',
+        differing_elements=bits)))
+    assert not any(bits.values()), bits
+    torch.cuda.empty_cache()
+    log(f'K4_PREFILL_PHASE_S {time.perf_counter() - t_phase:.1f}')
+    keys = ('max_abs_err', 'ms', 'bound_ms', 'bound_by', 'library_ms')
+    bf16 = dict({key: lines[0][key] for key in keys},
+                plain_ms=lines[0]['einsum_form_ms'],
+                before_ms=lines[0]['before_ms'],
+                cases={f'start{ln["start"]}_S{ln["S"]}': ln for ln in lines},
+                bits=bits)
+    return bf16, dict({key: q8[key] for key in keys}, plain_ms=q8['plain_ms'],
+                      differing_from_bf16_form=q8[
+                          'differing_from_bf16_form'])
 
 
 def invariance_phase(torch, da):
@@ -2527,13 +2774,14 @@ def invariance_phase(torch, da):
     every other row op of the engine's path bit-equal for a fixed row at
     its call shapes (the LoRA delta at B 1/8 x T 1/9/512, the nucleus
     threshold at 1/8/72 rows, K5F at R 1..512, K4-paged at B 1/8 x W 1/9,
-    dense K4's prefill form at T 1..512 and a padded view, rms_norm and
-    the int8 quantization), with the torch forms they replaced printed;
+    K4-prefill at T 1..512 and a padded view or table, dense, paged and
+    int8, rms_norm and the int8 quantization), with the torch forms they
+    replaced printed;
     (3) at llama3-8b, 32 layers, bf16 and int8 (weights and pool): one
     decode step's and one verify step's tokens and new K/V rows for each
     of 8 rows equal to the row's step alone, and verify's query 0 equal
     to the decode step's token; (4) prefill against decode at one
-    position, printed only."""
+    position: the K/V rows at layers 0 and 31 and the token equal."""
     import gc
 
     from skypilot_torch.models import llama, quant
@@ -2547,7 +2795,6 @@ def invariance_phase(torch, da):
     lora = _lora_line(torch, mi, gen)
     top_p = _top_p_line(torch, tp, gen)
     norm = _rms_norm_line(torch, rn, gen)
-    prefill = _prefill_attention_line(torch, da, gen)
     held, shown = _op_invariance(torch, da, mi, rn, tp, gen)
     log('INVARIANCE_OPS ' + json.dumps(dict(held=held,
                                             torch_forms_replaced=shown)))
@@ -2565,18 +2812,20 @@ def invariance_phase(torch, da):
                                        form == 'int8', gen)
         log(f'INVARIANCE_STEPS_{form.upper()} ' + json.dumps(steps[form]))
         if form == 'bf16':
-            _prefill_vs_decode(torch, batching, config, params, gen)
+            pvd = _prefill_vs_decode(torch, batching, config, params, gen)
         del params
     for form, s in steps.items():
         for name in ('decode', 'verify'):
             assert all(r['tokens_equal'] and r['kv_equal'] for r in s[name]), \
                 (form, name, s[name])
         assert all(s['verify_q0_equals_decode']), (form, s)
+    assert pvd['tokens_equal'] and all(
+        pvd['kv_rows_equal_by_layer'].values()), pvd
     gc.collect()
     torch.cuda.empty_cache()
     log(f'INVARIANCE_PHASE_S {time.perf_counter() - t_phase:.1f}')
     return dict(matmul=mains, matmul_rows=matmul_rows, ops=held, lora=lora,
-                top_p=top_p, rms_norm=norm, prefill=prefill)
+                top_p=top_p, rms_norm=norm)
 
 
 # ---------------------------------------------------------------------
@@ -5282,6 +5531,42 @@ def k4_smem_plan_check(_build, da):
     return dict(smem_plan_checked=checked, smem_plan_mismatches=bad)
 
 
+def prefill_smem_plan_check(_build, da):
+    """The wrapper's copies of K4-prefill's shared-memory layout
+    (``prefill_smem_bytes``) and of its partials' size
+    (``prefill_plan``'s scratch) against the kernel's own
+    (``skypilot_prefill_smem_bytes``, ``skypilot_prefill_part_floats``),
+    for each head_dim and group, bf16 and int8, dense and tables of 69,
+    514 and 1026 pages of 16 rows; the largest block must fit."""
+    import ctypes
+    lib = _build.load('prefill_attention')
+    smem = lib.skypilot_prefill_smem_bytes
+    smem.argtypes = [ctypes.c_int] * 4
+    smem.restype = ctypes.c_int
+    part = lib.skypilot_prefill_part_floats
+    part.argtypes = [ctypes.c_int] * 7
+    part.restype = ctypes.c_longlong
+    checked, bad, most = 0, [], 0
+    for hd in da.DECODE_HEAD_DIMS:
+        for g in da.DECODE_GROUPS:
+            for q8 in (False, True):
+                for mb in (0, 69, 514, 1026):
+                    s = 16 * max(mb, 69)
+                    plan = da.prefill_plan(1, 512, 32 // g, g, hd, q8, s, mb)
+                    want = (smem(hd, int(q8), mb, plan['n_split']),
+                            part(1, 512, 32, 32 // g, hd, s, plan['chunk']))
+                    got = (plan['smem'], plan['scratch'])
+                    checked += 1
+                    most = max(most, got[0])
+                    if got != want:
+                        bad.append(dict(args=(hd, g, q8, mb), python=got,
+                                        kernel=want))
+    if most > da.DECODE_MAX_SMEM:
+        bad.append(dict(largest=most, limit=da.DECODE_MAX_SMEM))
+    return dict(smem_plan_checked=checked, smem_plan_mismatches=bad,
+                largest_smem=most)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument('--phases', default=','.join(PHASES),
@@ -5321,7 +5606,7 @@ def main() -> int:
     log(f'kernels built in {time.perf_counter() - t0:.1f} s')
     # K2/K3 and every K4 instantiation must not spill (checked after the
     # phases).
-    bwd_spills, k4_entries = [], []
+    bwd_spills, k4_entries, pre_entries = [], [], []
     for name, path in libs.items():
         for entry in ptxas_report(path[:-len('.so')] + '.log'):
             log('BUILD ' + json.dumps(dict(library=name, **entry)))
@@ -5330,6 +5615,8 @@ def main() -> int:
                 bwd_spills.append(entry)
             if 'decode_kernel' in entry['kernel']:
                 k4_entries.append(entry)
+            if 'prefill_kernel' in entry['kernel']:
+                pre_entries.append(entry)
     k4_spills = [e for e in k4_entries
                  if e.get('spill_stores') or e.get('spill_loads')]
     # The invariant GEMM is a wgmma kernel: HGMMA in each of its six
@@ -5381,6 +5668,19 @@ def main() -> int:
     assert not smem_plan['smem_plan_mismatches'], (
         'K4: the wrapper\'s shared-memory plan differs from the kernel\'s '
         f'layout: {smem_plan["smem_plan_mismatches"]}')
+    pre_plan = prefill_smem_plan_check(_build, da)
+    pre_spills = [e for e in pre_entries
+                  if e.get('spill_stores') or e.get('spill_loads')]
+    log('K4_PREFILL_BUILD ' + json.dumps(dict(
+        instantiations=len(pre_entries),
+        max_registers=max((e.get('registers', 0) for e in pre_entries),
+                          default=None),
+        spilling=len(pre_spills), **pre_plan)))
+    # head_dim x group x (dense bf16, paged bf16, paged int8).
+    assert len(pre_entries) == 24 and not pre_spills, (
+        f'K4-prefill: {len(pre_entries)} instantiations built (24 '
+        f'expected), spilling: {pre_spills}')
+    assert not pre_plan['smem_plan_mismatches'], pre_plan
     if 'k1' in phases:
         k1 = k1_phase(torch, F, attention)
     if 'k4' in phases:
@@ -5401,6 +5701,8 @@ def main() -> int:
         k5f = k5f_phase(torch, da)
     if 'k4p' in phases:
         k4p = k4p_phase(torch, F, da)
+    if 'k4pre' in phases:
+        pre, pre_q8 = k4pre_phase(torch, da)
     if 'invariance' in phases:
         inv = invariance_phase(torch, da)
     if 'engine' in phases:
@@ -5441,11 +5743,10 @@ def main() -> int:
                        engine_off_int8_weights=off['decode_attention'],
                        serve_8b_int8_kv=s8['int8']['decode_attention_q8'])
     bursts = (eng, smp, ad_b, ov_b, rep)
-    prefill = dict(engine=eng['verify_attention'],
-                   sampled=smp['verify_attention'],
-                   adapters=ad_b['verify_attention'],
-                   overload=ov_b['verify_attention'],
-                   int8=rep['verify_attention'])
+    prefill = dict(engine=eng['prefill_attention'],
+                   sampled=smp['prefill_attention'],
+                   adapters=ad_b['prefill_attention'],
+                   overload=ov_b['prefill_attention'])
     # 'launches' sums every main path's run; the launches_* keys split
     # it by path, and the int8 forms of K4/K5 (the same templates over
     # int8 codes) carry their own counts and numbers under 'int8'.
@@ -5482,12 +5783,21 @@ def main() -> int:
         dict(name='decode_attention', route='cuda',
              source='skypilot_torch/csrc/decode_attention.cu',
              replaces='skypilot_tpu/ops/decode_attention.py:123',
-             launches=sum(k4_launches.values()) + sum(prefill.values()),
+             launches=sum(k4_launches.values()),
              **{f'launches_{k}': v for k, v in k4_launches.items()},
-             **{f'launches_prefill_{k}': v for k, v in prefill.items()},
              launches_int8=k4_launches['serve_8b_int8_kv'],
-             **k4, int8=int8k['decode_attention'],
-             prefill_form=inv['prefill']),
+             **k4, int8=int8k['decode_attention']),
+        # K4-prefill: the engine's prefill chunks, one launch a layer.
+        dict(name='prefill_attention', route='cuda',
+             source='skypilot_torch/csrc/prefill_attention.cu',
+             replaces='skypilot_tpu/ops/decode_attention.py:123',
+             launches=sum(prefill.values()),
+             **{f'launches_{k}': v for k, v in prefill.items()}, **pre),
+        dict(name='prefill_attention_q8', route='cuda',
+             source='skypilot_torch/csrc/prefill_attention.cu',
+             replaces='skypilot_tpu/ops/decode_attention.py:123',
+             launches=rep['prefill_attention_q8'],
+             launches_int8=rep['prefill_attention_q8'], **pre_q8),
         # The engine slice: launches from its 12-request replica runs,
         # bf16 and int8.
         dict(name='decode_attention_paged', route='cuda',

@@ -6,8 +6,10 @@ positions each) and one 512-row prefill chunk (positions 512-1023 of a
 1024-token prompt) of the ``--slots 8`` llama3-8b engine, random weights
 from the replica's seed, bf16 and int8 (weights and pool). Each runs once
 to warm up, then once under chip_smoke.py's ``profile_cuda`` (CUDA
-activity only): device busy ms, the invariant GEMM's ms and calls,
-launches, wall ms and the top kernels. The dispatches are chip_smoke.py's
+activity only): device busy ms, the invariant GEMM's ms and calls, the
+attention kernels' ms and calls (``attn_*``: K4, and in a prefill chunk
+K4-prefill or, in a tree before it, K4's W = T form), launches, wall ms
+and the top kernels. The dispatches are chip_smoke.py's
 ``engine_dispatches``.
 
 ``--root DIR`` imports ``skypilot_torch`` from another checkout (this

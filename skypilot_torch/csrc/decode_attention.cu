@@ -109,16 +109,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "decode_common.cuh"
 #include "mma_sync.cuh"
 #include "sm90_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace decode_common;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;   // keys per tile (ops: DECODE_TILE)
 constexpr int kStages = 3;  // tiles in the ring
 constexpr int kMaxSmem = 232448;
 // m-tiles of query rows (passes) one block takes: a call with more (a
@@ -194,26 +194,6 @@ __host__ __device__ inline Layout layout(int hd, bool q8, int hkv,
   return L;
 }
 
-using mma::ldsm_x4;
-using mma::ldsm_x4_t;
-using mma::mma16816;
-using mma::pack_bf16;
-
-__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-// Byte address of (row, col) in a swizzled bf16 tile of kTile rows: hd/64
-// atoms of [kTile][128 B], the 16-byte chunk c of row r at c ^ (r % 8) (the
-// layout TMA writes with the 128-byte swizzle). col is a multiple of 8.
-__device__ __forceinline__ uint32_t tile_addr(uint32_t tile, int row,
-                                              int col) {
-  return tile + (col >> 6) * (kTile * 128) + row * 128 +
-         ((((col >> 3) & 7) ^ (row & 7)) << 4);
-}
-
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           uint32_t bytes, uint64_t* bar) {
   asm volatile(
@@ -226,146 +206,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// 4 int8 codes (one word) -> 2 bf16x2 (code * scale, the exact f32
-// product rounded once, as _dequant_kv): a code byte c becomes the f32
-// 2^23 + (c ^ 0x80), minus 2^23 + 128 gives c exactly; pairs are packed
-// to bf16 (exact: |c| <= 128) and multiplied by the bf16 scale pair sc2
-// with one rounding.
-__device__ __forceinline__ void dequant4(uint32_t w, uint32_t sc2,
-                                         uint32_t& lo, uint32_t& hi) {
-  const uint32_t u = w ^ 0x80808080u;
-  float f[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    f[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + e)) -
-           8388736.f;
-  lo = mul_bf16x2(pack_bf16(f[0], f[1]), sc2);
-  hi = mul_bf16x2(pack_bf16(f[2], f[3]), sc2);
-}
-
-// 16 codes (16 bytes) -> 8 bf16x2.
-__device__ __forceinline__ void dequant16(const uint4 raw, uint32_t sc2,
-                                          uint32_t (&o)[8]) {
-  dequant4(raw.x, sc2, o[0], o[1]);
-  dequant4(raw.y, sc2, o[2], o[3]);
-  dequant4(raw.z, sc2, o[4], o[5]);
-  dequant4(raw.w, sc2, o[6], o[7]);
-}
-
-// The 16-byte chunk c of int8 code row r in a stage: TMA writes code
-// rows swizzled, 128-byte rows (hd 128) with the 128-byte pattern and
-// 64-byte rows (hd 64) with the 64-byte one.
-template <int HD>
-__device__ __forceinline__ int code_chunk(int r, int c) {
-  return HD == 128 ? c ^ (r & 7) : c ^ ((r >> 1) & 3);
-}
-
-// Keys query w of row b attends: K4's clamp to [1, S], widened by w.
-__device__ __forceinline__ int span_of(int len, int w, int S) {
-  return min(max(len + w, 1), S);
-}
-
-// ---------------------------------------------------------------------
-// One warp's slice of one tile: the 16 keys at tile row `first`, for its
-// 16 query rows (A fragments qa), online softmax state (m_run, l_run per
-// row g, g+8 of the m-tile) and accumulator o. Every query row's keys meet
-// in this one order (a row's bits do not depend on W, B or its m-tile):
-// the two k-step chains (even, odd) summed, the slice's max, the rescale,
-// P rounded to bf16, P V in one m16n8k16 chain.
-// ---------------------------------------------------------------------
-
-template <int HD, bool DQK>
-__device__ __forceinline__ void attend_slice(
-    uint32_t kt, uint32_t vt, int key0, int first,
-    const uint32_t (&qa)[HD / 16][4], float (&o)[HD / 8][4],
-    float (&m_run)[2], float (&l_run)[2], const int (&span)[2],
-    float scale_log2, int lane, const uint8_t* kc,
-    const uint32_t (&ks2)[2]) {
-  const int t = lane & 3;
-  // Two accumulator chains (even and odd k-steps), summed after.
-  float s[2][4], s2[2][4];
-#pragma unroll
-  for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nb][e] = s2[nb][e] = 0.f;
-  const int krow = first + ((lane >> 4) & 1) * 8 + (lane & 7);
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t b[4];
-    if (DQK) {
-      // Codes of keys first + g and first + g + 8, dims 16 kk + 4 t .. + 3:
-      // the k-step's k = 2t, 2t+1, 2t+8, 2t+9 in the permuted dim order
-      // the A fragments were loaded in.
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = first + (lane >> 2) + 8 * h;
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(
-            kc + r * HD + code_chunk<HD>(r, kk) * 16 + 4 * t);
-        dequant4(w, ks2[h], b[2 * h], b[2 * h + 1]);
-      }
-    } else {
-      ldsm_x4(b, tile_addr(kt, krow, kk * 16 + ((lane >> 3) & 1) * 8));
-    }
-    float(&acc)[2][4] = (kk & 1) ? s2 : s;
-    mma16816(acc[0], qa[kk], b[0], b[1]);
-    mma16816(acc[1], qa[kk], b[2], b[3]);
-  }
-#pragma unroll
-  for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nb][e] += s2[nb][e];
-  // Scale in f32, mask keys past each row's span, row max over the slice.
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = key0 + first + 8 * nb + 2 * t + (e & 1);
-      const int r = e >> 1;
-      const float x = key < span[r] ? s[nb][e] * scale_log2 : -INFINITY;
-      s[nb][e] = x;
-      mx[r] = fmaxf(mx[r], x);
-    }
-  float m_use[2], alpha[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 2));
-    const float m_new = fmaxf(m_run[r], mx[r]);
-    m_use[r] = m_new == -INFINITY ? 0.f : m_new;
-    alpha[r] = exp2f(m_run[r] - m_use[r]);
-    l_run[r] *= alpha[r];
-    m_run[r] = m_new;
-  }
-  // The accumulator is rescaled only when some row's max moved.
-  if (!__all_sync(0xffffffff, alpha[0] == 1.f && alpha[1] == 1.f)) {
-#pragma unroll
-    for (int nb = 0; nb < HD / 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[nb][e] *= alpha[e >> 1];
-  }
-  float p[2][4];
-#pragma unroll
-  for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      p[nb][e] = exp2f(s[nb][e] - m_use[e >> 1]);
-      l_run[e >> 1] += p[nb][e];
-    }
-  const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]),
-                          pack_bf16(p[0][2], p[0][3]),
-                          pack_bf16(p[1][0], p[1][1]),
-                          pack_bf16(p[1][2], p[1][3])};
-  const int vrow = first + ((lane >> 3) & 1) * 8 + (lane & 7);
-#pragma unroll
-  for (int dn = 0; dn < HD / 16; ++dn) {
-    uint32_t b[4];
-    ldsm_x4_t(b, tile_addr(vt, vrow, dn * 16 + ((lane >> 4) & 1) * 8));
-    mma16816(o[2 * dn], pa, b[0], b[1]);
-    mma16816(o[2 * dn + 1], pa, b[2], b[3]);
-  }
 }
 
 // ---------------------------------------------------------------------
@@ -498,12 +338,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         st + 2 * L.codes + kTile * a.Hkv * 2)[row * a.Hkv + kvh];
     uint32_t d[8];
     dequant16(raw, uint32_t(s16) * 0x10001u, d);
-    uint8_t* dst = tile + (j >> 2) * ATOM + row * 128;
-    const int sw = row & 7;
-    *reinterpret_cast<uint4*>(dst + ((((2 * j) & 7) ^ sw) << 4)) =
-        make_uint4(d[0], d[1], d[2], d[3]);
-    *reinterpret_cast<uint4*>(dst + ((((2 * j + 1) & 7) ^ sw) << 4)) =
-        make_uint4(d[4], d[5], d[6], d[7]);
+    store16(tile, row, j, d);
   };
 
   int it = 0;  // tiles consumed by the block, over all passes
@@ -572,8 +407,13 @@ __global__ void __launch_bounds__(kThreads, 2)
         __syncwarp();
         vt = sm90::smem_u32(bf);
       }
-      attend_slice<HD, DQK>(kt, vt, start + tt * kTile, 16 * warp, qa, o,
-                            m_run, l_run, span, a.scale_log2, lane, st, ks2);
+      attend_slice<HD, DQK>(
+          kt, vt, start + tt * kTile, 16 * warp,
+          [&](int kk, uint32_t(&f)[4]) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) f[e] = qa[kk][e];
+          },
+          o, m_run, l_run, span, a.scale_log2, lane, st, ks2);
       __syncwarp();
       if (tt + NS < n_tiles) load(tt + NS, it + NS);
     }
@@ -581,11 +421,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
     // The warps' partials through shared memory, one (M, L, acc) per
     // query row of the split into the scratch.
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l_run[r] += __shfl_xor_sync(0xffffffff, l_run[r], 1);
-      l_run[r] += __shfl_xor_sync(0xffffffff, l_run[r], 2);
-    }
+    quad_sum(l_run);
     float* w_acc = reinterpret_cast<float*>(smem);
     float* w_ml = w_acc + kWarps * 16 * (HD + 4);
 #pragma unroll
@@ -608,23 +444,9 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int row = idx / (HD / 4), d4 = idx % (HD / 4);
       const int qi = mt * 16 + row;
       if (qi >= R) continue;
-      float M = -INFINITY;
-      for (int k = 0; k < kWarps; ++k)
-        M = fmaxf(M, w_ml[(k * 16 + row) * 2]);
-      const float Mu = M == -INFINITY ? 0.f : M;
-      float Ls = 0.f;
-      float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int k = 0; k < kWarps; ++k) {
-        const int wr = k * 16 + row;
-        const float wt = exp2f(w_ml[wr * 2] - Mu);
-        Ls += wt * w_ml[wr * 2 + 1];
-        const float4 x =
-            *reinterpret_cast<const float4*>(&w_acc[wr * (HD + 4) + 4 * d4]);
-        A.x += wt * x.x;
-        A.y += wt * x.y;
-        A.z += wt * x.z;
-        A.w += wt * x.w;
-      }
+      float M, Ls;
+      float4 A;
+      merge_slices(w_ml, w_acc, HD + 4, row, d4, M, Ls, A);
       reinterpret_cast<float4*>(a.part_acc + (part0 + qi) * HD)[d4] = A;
       if (d4 == 0) {
         a.part_ml[(part0 + qi) * 2] = M;
@@ -658,10 +480,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int i = 0; i < n_valid; ++i) {
       const float2 ml = __ldcg(reinterpret_cast<const float2*>(
           &a.part_ml[(base + (long long)i * R + qi) * 2]));
-      if (ml.x == -INFINITY) continue;  // no key of the split: l = 0
-      const float m_new = fmaxf(M, ml.x);
-      Ls = Ls * exp2f(M - m_new) + ml.y * exp2f(ml.x - m_new);
-      M = m_new;
+      merge_split_l(M, Ls, ml.x, ml.y);
     }
     row_ml[qi * 2] = M;
     row_ml[qi * 2 + 1] = 1.f / Ls;
@@ -684,23 +503,16 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int k = 0; k < 2; ++k) {
         const int qi = qs[k] / Q4;
         const long long pr = base + (long long)i * R + qi;
-        const float wt = exp2f(__ldcg(&a.part_ml[pr * 2]) - row_ml[qi * 2]);
-        const float4 x = __ldcg(reinterpret_cast<const float4*>(
-            a.part_acc + pr * HD) + qs[k] % Q4);
-        A[k].x += wt * x.x;
-        A[k].y += wt * x.y;
-        A[k].z += wt * x.z;
-        A[k].w += wt * x.w;
+        fold_split(A[k], __ldcg(&a.part_ml[pr * 2]), row_ml[qi * 2],
+                   __ldcg(reinterpret_cast<const float4*>(
+                       a.part_acc + pr * HD) + qs[k] % Q4));
       }
     }
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
       if (idx + k * kThreads >= q1 * Q4) break;
       const int qi = qs[k] / Q4, d4 = qs[k] % Q4;
-      const float inv = row_ml[qi * 2 + 1];
-      const uint2 packed =
-          make_uint2(pack_bf16(A[k].x * inv, A[k].y * inv),
-                     pack_bf16(A[k].z * inv, A[k].w * inv));
+      const uint2 packed = finish4(A[k], row_ml[qi * 2 + 1]);
       bf16* dst = a.out + (((long long)b * a.W + qi / G) * Hq + kvh * G +
                            qi % G) * HD + 4 * d4;
       *reinterpret_cast<uint2*>(dst) = packed;

@@ -234,7 +234,8 @@ def _layer_cached(config: llama.LlamaConfig, x: torch.Tensor,
                                              scale=scale)
     else:
         # A chunk after earlier positions: query i sees keys [0, pos + i]
-        # (dense K4's verify form on the card, as ``forward_paged``).
+        # of the cache, its own rows as written (K4-prefill's dense form on
+        # the card, as ``forward_paged``).
         lengths = torch.full((b,), pos + 1, dtype=torch.int32,
                              device=x.device)
         attn = da.verify_attention(
@@ -304,24 +305,23 @@ def forward_paged(params: Params, tokens: torch.Tensor, pools,
     THIS request's block table; ``start``/``real_len`` are host ints.
 
     Per layer the chunk's rows are written first (K5 on the card), then
-    the row's logical view is gathered from the pool and attended
-    causally from the chunk's start (``da.verify_attention`` with
-    lengths = start + 1: query i sees keys [0, start + i], dense K4 on
-    the card): chunk c sees every earlier chunk's keys plus itself
+    the chunk attends causally from its start (``da.prefill_attention``
+    with lengths = start + 1: query i sees keys [0, start + i]) over the
+    pool through ``block_row`` (in int8 its own rows from the chunk's
+    exact k/v). Chunk c sees every earlier chunk's keys plus itself
     causally, and a prefix-cache hit is just a chunk that starts at the
-    hit's offset. The gather stops at the last block that holds a
-    position below kv_len; masked positions add exactly 0. On the card a
-    position's bits do not depend on the chunk's bucket or start (K4's
-    keys meet in one order, and its splits do not move with S), where the
+    hit's offset. On the card that is one K4-prefill launch a layer, with
+    no gathered view, and a position's bits equal K4-paged's decode step
+    at the same position, whatever the chunk's bucket or start; the
     einsum-and-softmax form of the JAX step took other bits per chunk
-    shape. Padded queries past ``real_len`` may see keys past kv_len;
-    their outputs are never read.
+    shape. Padded queries past ``real_len`` see the padding's keys; their
+    outputs are never read.
 
-    int8 pools: the chunk attends its exact rows (spliced over their
-    int8 round trip in the gathered view), while a LATER chunk reads
-    earlier chunks' codes, so the engine equals the dense int8 path
-    exactly for single-chunk prompts and tracks it past them, as in
-    the JAX package.
+    int8 pools: the chunk attends its exact rows (the JAX package's
+    splice over their int8 round trip), while a LATER chunk reads earlier
+    chunks' codes, so the engine equals the dense int8 path exactly for
+    single-chunk prompts and tracks it past them, as in the JAX
+    package.
 
     Adapters (``serve/adapters/``): ``adapters`` is the resident set's
     stacked factor dict (``[L, C+1, ...]``) and ``adapter_idx`` [1] this
@@ -356,12 +356,9 @@ def forward_paged(params: Params, tokens: torch.Tensor, pools,
     vp = v_pool.view(nl, nb * bs, nkv, hd)
     ksp = ks_pool.view(nl, nb * bs, nkv) if quantized else None
     vsp = vs_pool.view(nl, nb * bs, nkv) if quantized else None
-    kv_len = start + real_len
     gw = kv_pool_lib.chunk_write_indices(block_row, start, real_len, t,
                                          block_size)              # [T]
-    n_blocks = min(-(-kv_len // block_size), block_row.shape[0])
-    gr = kv_pool_lib.read_indices(block_row[None, :n_blocks],
-                                  block_size)                     # [1, S]
+    table = block_row[None]
     ads = adapter_layers(adapters, config.n_layers)
     q_start = torch.full((1,), start + 1, dtype=torch.int32, device=dev)
     for i, lp in enumerate(layer_list(cparams, config)):
@@ -375,20 +372,15 @@ def forward_paged(params: Params, tokens: torch.Tensor, pools,
             v_rows, vs_rows = _quantize_kv(v)
             da.cache_write(kp[i], vp[i], k_rows[0], v_rows[0], gw,
                            ksp[i], vsp[i], ks_rows[0], vs_rows[0])
-            kd = _dequant_kv(da.paged_gather(kp[i], gr),
-                             da.paged_gather(ksp[i], gr), k.dtype)
-            vd = _dequant_kv(da.paged_gather(vp[i], gr),
-                             da.paged_gather(vsp[i], gr), v.dtype)
-            # The chunk attends its own exact rows, not their int8 round
-            # trip (later chunks and decode read the codes): splice them
-            # back over their logical positions in the gathered view.
-            end = min(start + t, kd.shape[1])
-            kd[:, start:end] = k[:, :end - start]
-            vd[:, start:end] = v[:, :end - start]
         else:
             da.cache_write(kp[i], vp[i], k[0], v[0], gw)
-            kd, vd = da.paged_gather(kp[i], gr), da.paged_gather(vp[i], gr)
-        attn = da.verify_attention(q, kd, vd, q_start, hd ** -0.5)
+        # The chunk attends its own exact rows: in bf16 as just written, in
+        # int8 not their round trip (later chunks and decode read the
+        # codes).
+        q8 = dict(k_new=k, v_new=v, k_scale=ksp[i],
+                  v_scale=vsp[i]) if quantized else {}
+        attn = da.prefill_attention(q, kp[i], vp[i], q_start, hd ** -0.5,
+                                    block_table=table, block_size=bs, **q8)
         x = attn_out_and_mlp(config, x, attn, lp)
     x_last = rn.rms_norm(x[:, real_len - 1:real_len],
                          cparams['final_norm'], config.norm_eps,

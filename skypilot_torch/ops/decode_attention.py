@@ -9,9 +9,15 @@ version beside it for CPU tensors (any other device raises):
   cache (replaces ``_decode_attn_kernel``): 64-key tiles by TMA, the
   products on the tensor cores, the merge of the splits folded into the
   same launch. As in the TPU kernel, a length is clamped to
-  ``max(len, 1)`` (and to S). ``verify_attention`` is its form with W
-  query positions a row, the engine's prefill chunk (query j attending
-  ``lengths[b] + j`` keys).
+  ``max(len, 1)`` (and to S).
+- ``prefill_attention``: K4-prefill (``csrc/prefill_attention.cu``), the
+  engine's prefill chunk (query j attending ``lengths[b] + j`` keys) in
+  one launch: the pool read through the block table (int8: codes widened
+  in the kernel, the chunk's own exact rows from its start), each split's
+  partial through an f32 scratch the wrapper allocates; each row's
+  arithmetic is K4's, so a bf16 chunk row is bit-equal to K4-paged's
+  decode step at the same position. ``verify_attention`` is its dense
+  form over a contiguous cache.
 - ``paged_decode_attention`` / ``paged_verify_attention``: K4-paged,
   the same kernel reading the block table directly where the JAX
   package gathers every row's pages into a contiguous view first; W = 1
@@ -69,15 +75,12 @@ DECODE_CHUNK = 256
 # counter per (row, kv head).
 DECODE_PASSES_PER_BLOCK = 4
 
-_DENSE_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 +
-               [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_int,
-                                          ctypes.c_float, ctypes.c_void_p])
-# One C entry, two counts: the dense decode (W = 1) and the prefill
-# chunk's dense verify form (W = T).
+# The dense entry, W = 1 (decode) or W > 1 (its verify form, K4's prefill
+# form before K4-prefill).
 DECODE_ATTENTION = _build.Kernel(
-    'decode_attention', 'skypilot_decode_attention', _DENSE_ARGS)
-VERIFY_ATTENTION = _build.Kernel(
-    'decode_attention', 'skypilot_decode_attention', _DENSE_ARGS)
+    'decode_attention', 'skypilot_decode_attention',
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 4 +
+    [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 _PAGED_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 +
                [ctypes.c_longlong] + [ctypes.c_int] * 3 +
                [ctypes.c_longlong] * 2 +
@@ -122,6 +125,26 @@ ROPE_CACHE_WRITE_Q8 = _build.Kernel(
     'decode_attention', 'skypilot_rope_cache_write_q8',
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_longlong,
                                                    ctypes.c_void_p])
+# K4-prefill (csrc/prefill_attention.cu): a bf16 cache, dense or paged,
+# and an int8 pool, each its own count.
+_PREFILL_TAIL = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                 ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+PREFILL_ATTENTION = _build.Kernel(
+    'prefill_attention', 'skypilot_prefill_attention',
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 4 +
+    _PREFILL_TAIL)
+PREFILL_ATTENTION_Q8 = _build.Kernel(
+    'prefill_attention', 'skypilot_prefill_attention_q8',
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 +
+    [ctypes.c_longlong] * 2 + _PREFILL_TAIL)
+# Its block: PREFILL_MTILES m-tiles of 16 query rows, four warps each
+# (one per 16-key slice of a tile for the scores, one per quarter of the
+# head's columns for P V), a ring of PREFILL_STAGES K/V tiles (bf16,
+# int8); each split's partial of a 16-row m-tile (16 x hd f32) goes to a
+# scratch in device memory and is folded at the end.
+PREFILL_MTILES = 3
+PREFILL_THREADS = PREFILL_MTILES * 4 * 32
+PREFILL_STAGES = {False: 2, True: 3}
 DECODE_HEAD_DIMS = (64, 128)
 DECODE_GROUPS = (1, 2, 4, 8)
 
@@ -224,6 +247,32 @@ def _reference_paged_decode_attention(q, k_pool, v_pool, block_tables,
     return _reference_decode_attention(q, kd, vd, lengths, scale)
 
 
+def _reference_prefill_attention(q, k, v, lengths, scale, block_table=None,
+                                 block_size=None, k_new=None, v_new=None,
+                                 k_scale=None, v_scale=None):
+    """The composition K4-prefill replaces: each row's view of the cache
+    (the pool gathered through its table, int8 dequantized in q's dtype),
+    the chunk's exact rows spliced over positions [start, start + T)
+    (start = lengths[b] - 1), then the plain verify attention."""
+    b, t = q.shape[:2]
+    if block_table is not None:
+        last = int(lengths.max()) + t - 1
+        nb = min(block_table.shape[1], -(-last // block_size))
+        kd, vd = _gather_views(q, k, v, block_table[:, :nb], block_size,
+                               k_scale, v_scale)
+    else:
+        kd = dequant_kv(k, k_scale, q.dtype)
+        vd = dequant_kv(v, v_scale, q.dtype)
+    if k_new is not None:
+        kd, vd = kd.clone(), vd.clone()
+        for row, length in enumerate(lengths.tolist()):
+            st = length - 1
+            end = min(st + t, kd.shape[1])
+            kd[row, st:end] = k_new[row, :end - st]
+            vd[row, st:end] = v_new[row, :end - st]
+    return _reference_verify_attention(q, kd, vd, lengths, scale)
+
+
 def _reference_paged_verify_attention(q, k_pool, v_pool, block_tables,
                                       lengths, scale, block_size,
                                       k_scale=None, v_scale=None):
@@ -318,6 +367,38 @@ def decode_smem_bytes(hd: int, q8: bool, hkv: int, max_pages: int,
     merge = 4 * 16 * (hd + 4) * 4 + 4 * 16 * 2 * 4
     bar = up(max(end, merge, rows * 8), 128)
     return bar + ns * 4 * 8 + 16 + max_pages * 4 + 1024
+
+
+def prefill_smem_bytes(hd: int, q8: bool, mb: int, n_split: int) -> int:
+    """Dynamic shared memory of one K4-prefill block (``prefill_layout``
+    in csrc/prefill_attention.cu, plus its 1024 bytes of alignment
+    slack); ``mb``: the table's width (0 dense), ``n_split``: the splits
+    of a row."""
+    mt, tile, ns = PREFILL_MTILES, DECODE_TILE, PREFILL_STAGES[q8]
+    size = ns * 2 * tile * hd * 2 + mt * 16 * hd * 2
+    if q8:
+        size += ns * (2 * tile * hd + 2 * tile * 4)
+    size += mt * 2 * 4 * 32 * 16     # P fragments, two buffers
+    size += mt * 2 * 4 * 16 * 4      # rescale factors
+    size += mt * 4 * 16 * 2 * 4      # the slices' (m, l)
+    size += mt * n_split * 16 * 4    # each split's max per row
+    return size + mb * 4 + 1024
+
+
+def prefill_plan(b: int, t: int, hkv: int, groups: int, hd: int, q8: bool,
+                 s: int, mb: int = 0) -> dict:
+    """A K4-prefill call's launch, from shapes alone (never from lengths,
+    so a graph can hold it): the grid (m-tile groups, kv heads, rows),
+    the block's threads and shared memory, the split (K4's constant
+    ``DECODE_CHUNK`` keys, ``n_split`` over the S = MB * bs keys a row
+    can hold) and the f32 elements of the splits' partials (a 16 x hd
+    tile per block, m-tile and split)."""
+    chunk, n_split = decode_split_plan(s)
+    blocks = -(-(-(-(t * groups) // 16)) // PREFILL_MTILES)
+    return dict(grid=(blocks, hkv, b), threads=PREFILL_THREADS,
+                smem=prefill_smem_bytes(hd, q8, mb, n_split), chunk=chunk,
+                n_split=n_split,
+                scratch=b * hkv * blocks * PREFILL_MTILES * n_split * 16 * hd)
 
 
 # K4's merge counters, one int32 per (row, kv head, pass group): the most
@@ -516,9 +597,8 @@ def _decode_attention_cuda(q, k, v, lengths, scale, k_scale=None,
     strides = (k.stride(0), k.stride(1), v.stride(0), v.stride(1))
     tail = (chunk, n_split, scale * LOG2E, stream)
     if k_scale is None:
-        kernel = DECODE_ATTENTION if w == 1 else VERIFY_ATTENTION
-        kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), *parts, b, w, s,
-               hq, hkv, hd, *strides, *tail)
+        DECODE_ATTENTION(q.data_ptr(), k.data_ptr(), v.data_ptr(), *parts, b,
+                         w, s, hq, hkv, hd, *strides, *tail)
     else:
         DECODE_ATTENTION_Q8(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             k_scale.data_ptr(), v_scale.data_ptr(), *parts,
@@ -583,6 +663,100 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, lengths,
                   else PAGED_VERIFY_ATTENTION_Q8)
         kernel(*head, k_scale.data_ptr(), v_scale.data_ptr(), *parts,
                k_scale.stride(0), v_scale.stride(0), *tail)
+    return out
+
+
+def _prefill_attention_cuda(q, k, v, lengths, scale, block_table,
+                            block_size, k_new, v_new, k_scale, v_scale):
+    """Launch K4-prefill (or its int8 form); raises on anything the
+    kernel does not take, before anything launches."""
+    what = 'prefill_attention'
+    dev = q.device
+    q8 = k_scale is not None
+    _check_kv(what, q, k, v, k_scale, v_scale)
+    if q.dim() != 4 or not q.is_contiguous() or q.data_ptr() % 16:
+        raise ValueError(f'{what}: q must be a contiguous, 16-byte aligned '
+                         f'[B, T, Hq, hd], got {tuple(q.shape)}')
+    b, t, hq, hd = q.shape
+    paged = block_table is not None
+    if k.shape != v.shape or k.dim() != (3 if paged else 4) or \
+            k.shape[-1] != hd:
+        raise ValueError(f'{what}: k/v must be ' +
+                         (f'pools [N, Hkv, {hd}]' if paged else
+                          f'[B, S, Hkv, {hd}]') +
+                         f', got {tuple(k.shape)}, {tuple(v.shape)}')
+    hkv = k.shape[-2]
+    _check_heads(what, hq, hkv, hd)
+    _check_tma_kv(what, 'k', k, hd)
+    _check_tma_kv(what, 'v', v, hd)
+    if k.stride() != v.stride():
+        raise ValueError(f'{what}: k and v must share strides, got '
+                         f'{k.stride()} and {v.stride()}')
+    _check_index(what, 'lengths', lengths, dev, 1)
+    if lengths.shape[0] != b:
+        raise ValueError(f'{what}: lengths {tuple(lengths.shape)} for B {b}')
+    if paged:
+        _check_index(what, 'block_tables', block_table, dev, 2)
+        _check_page_size(what, block_size)
+        n_rows, mb, s = k.shape[0], block_table.shape[1], 0
+        if block_table.shape[0] != b or mb < 1 or \
+                n_rows < block_size or n_rows % block_size:
+            raise ValueError(f'{what}: block_tables '
+                             f'{tuple(block_table.shape)} and block_size '
+                             f'{block_size} do not fit q {tuple(q.shape)} '
+                             f'and pools of {n_rows} rows')
+        strides = (0, k.stride(0), 0, v.stride(0))
+    else:
+        n_rows, mb, s = 0, 0, k.shape[1]
+        if k.shape[0] != b or s < 1:
+            raise ValueError(f'{what}: k/v {tuple(k.shape)} for q '
+                             f'{tuple(q.shape)}')
+        strides = (k.stride(0), k.stride(1), v.stride(0), v.stride(1))
+    if k_new is not None:
+        for name, x in (('k_new', k_new), ('v_new', v_new)):
+            if (x.device != dev or x.dtype != torch.bfloat16 or
+                    tuple(x.shape) != (b, t, hkv, hd) or
+                    not x.is_contiguous() or x.data_ptr() % 16):
+                raise ValueError(f'{what}: {name} must be a contiguous, '
+                                 f'16-byte aligned bf16 {(b, t, hkv, hd)} '
+                                 f'on {dev}, got {x.dtype} '
+                                 f'{tuple(x.shape)} on {x.device}')
+    if q8:
+        if not paged:
+            raise ValueError(f'{what}: the CUDA kernel reads int8 codes from '
+                             'a paged pool only (dequantize a dense cache '
+                             'first)')
+        for name, x in (('k_scale', k_scale), ('v_scale', v_scale)):
+            # Each scale is read as the aligned 4-byte word holding it.
+            if (x.stride(-2) != hkv or x.stride() != k_scale.stride() or
+                    x.data_ptr() % 4 or hkv % 2):
+                raise ValueError(f'{what}: {name} needs rows of {hkv} '
+                                 'contiguous kv heads (an even count), the '
+                                 'strides of k_scale and a 4-byte aligned '
+                                 f'base (shape {tuple(x.shape)}, strides '
+                                 f'{x.stride()})')
+    plan = prefill_plan(b, t, hkv, hq // hkv, hd, q8,
+                        mb * block_size if paged else s, mb)
+    if plan['smem'] > DECODE_MAX_SMEM:
+        raise ValueError(f'{what}: a table of {mb} pages needs '
+                         f'{plan["smem"]} bytes of shared memory per block, '
+                         f'more than the {DECODE_MAX_SMEM} a block may use')
+    out = torch.empty_like(q)
+    part = torch.empty(plan['scratch'], dtype=torch.float32, device=dev)
+    new = ((k_new.data_ptr(), v_new.data_ptr()) if k_new is not None
+           else (None, None))
+    ptrs = (lengths.data_ptr(), block_table.data_ptr() if paged else None,
+            out.data_ptr(), part.data_ptr())
+    tail = (mb, block_size if paged else 0, n_rows, plan['chunk'],
+            scale * LOG2E, _stream(q))
+    if q8:
+        PREFILL_ATTENTION_Q8(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             k_scale.data_ptr(), v_scale.data_ptr(), *new,
+                             *ptrs, b, t, hq, hkv, hd, k.stride(0),
+                             v.stride(0), *tail)
+    else:
+        PREFILL_ATTENTION(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, b,
+                          t, s, hq, hkv, hd, *strides, *tail)
     return out
 
 
@@ -689,18 +863,60 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        v_scale)
 
 
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      lengths: torch.Tensor, scale: float,
+                      block_table: Optional[torch.Tensor] = None,
+                      block_size: Optional[int] = None,
+                      k_new: Optional[torch.Tensor] = None,
+                      v_new: Optional[torch.Tensor] = None,
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """A prefill chunk's attention: q [B, T, Hq, hd], lengths [B] int32
+    — query j of row b sits at position start = lengths[b] - 1 plus j and
+    attends keys [0, lengths[b] + j).
+
+    Keys come from the cache: a dense k/v [B, S, Hkv, hd], or
+    (``block_table`` [B, MB] int32 with ``block_size``) one layer's flat
+    pools [N, Hkv, hd] read through each row's table, the chunk's own rows
+    written there first. An int8 cache holds codes with ``k_scale``/
+    ``v_scale`` ([B, S, Hkv] or [N, Hkv]; the CUDA kernel takes pools
+    only), dequantized in q's dtype, and then ``k_new``/``v_new`` [B, T,
+    Hkv, hd] give the chunk's exact post-RoPE rows for keys from start on
+    (the JAX package's splice over their int8 round trip; a bf16 cache
+    already holds them exactly). Returns [B, T, Hq, hd]. CUDA:
+    K4-prefill, one launch, a row's bits those of K4 over the same keys
+    (bf16: K4-paged's decode step at the same position); CPU: the plain
+    composition it replaces (gather, dequant, splice,
+    ``_reference_verify_attention``)."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError('prefill_attention: pass both k_scale and v_scale '
+                         'or neither')
+    if (block_table is None) != (block_size is None):
+        raise ValueError('prefill_attention: block_table and block_size go '
+                         'together')
+    if (k_new is None) != (v_new is None) or (
+            k_new is not None and k_scale is None):
+        raise ValueError('prefill_attention: k_new and v_new go together, '
+                         'over an int8 cache only')
+    if _route('prefill_attention', q) == 'cuda':
+        return _prefill_attention_cuda(q, k, v, lengths, float(scale),
+                                       block_table, block_size, k_new, v_new,
+                                       k_scale, v_scale)
+    return _reference_prefill_attention(q, k, v, lengths, scale, block_table,
+                                        block_size, k_new, v_new, k_scale,
+                                        v_scale)
+
+
 def verify_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, scale: float) -> torch.Tensor:
     """W query positions a row over a dense bf16/f32 cache: q [B, W, Hq,
     hd], k/v [B, S, Hkv, hd], lengths [B] int32 — query j of row b
-    attends keys [0, lengths[b] + j). Returns [B, W, Hq, hd]. The
-    engine's prefill chunk over its gathered view (lengths = start + 1:
-    causal from the chunk's start). CUDA: dense K4 with W positions, a
-    query row's bits independent of the chunk's bucket and start; CPU:
-    the plain version."""
-    if _route('verify_attention', q) == 'cuda':
-        return _decode_attention_cuda(q, k, v, lengths, float(scale))
-    return _reference_verify_attention(q, k, v, lengths, scale)
+    attends keys [0, lengths[b] + j). Returns [B, W, Hq, hd]. The dense
+    form of ``prefill_attention`` (K4-prefill on the card, a query row's
+    bits independent of the chunk's bucket and start); CPU: the plain
+    version."""
+    return prefill_attention(q, k, v, lengths, scale)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,

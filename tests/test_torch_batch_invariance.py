@@ -17,8 +17,8 @@ versions against the code they replaced and against the JAX package.
   plain K5), bit for bit, bf16 and int8, with rows whose dst is outside
   the pool; against the JAX step's ``_rope_rows`` and ``_quantize_kv``
   within 1e-6 in f32 (cos and sin are XLA's there).
-- ``verify_attention`` (the prefill chunk's dense K4 form) against the
-  JAX ``_masked_attention`` it replaced in ``forward_paged``: f32, 2e-5.
+- ``verify_attention`` (K4-prefill's dense form) against the JAX
+  ``_masked_attention`` it replaced in ``forward_paged``: f32, 2e-5.
 - ``forward_cached``'s products: the engine-off prompt on
   ``llama.matmul``, every later forward on the invariant GEMM.
 - ``top_p_kth``'s plain version is the nucleus filter's old inline
@@ -52,7 +52,7 @@ def _launches():
     return (tmi.MATMUL.launches, tmi.MATMUL_Q8.launches,
             tmi.LORA_MID.launches, tmi.LORA_DELTA.launches, ttp.TOP_P_KTH.launches,
             tda.ROPE_CACHE_WRITE.launches, tda.ROPE_CACHE_WRITE_Q8.launches,
-            tda.VERIFY_ATTENTION.launches)
+            tda.PREFILL_ATTENTION.launches, tda.PREFILL_ATTENTION_Q8.launches)
 
 
 # ---------------------------------------------------------------------

@@ -158,11 +158,12 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 def test_every_kernel_source_is_a_library():
     assert set(_build.sources()) == {'flash_fwd', 'flash_bwd',
                                      'decode_attention',
+                                     'prefill_attention',
                                      'attention_packed',
                                      'matmul_invariant', 'top_p',
                                      'rms_norm'}
     paths = {_build.library_path(n) for n in _build.sources()}
-    assert len(paths) == 7
+    assert len(paths) == 8
     assert all(p.startswith(_build.BUILD_DIR) for p in paths)
 
 
