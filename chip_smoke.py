@@ -87,7 +87,8 @@ in order (any failure exits non-zero; nothing is caught):
    in a CUDA graph and eagerly, the bound and each M's plan at M = 8,
    72, 512); the LoRA delta against its plain version, one launch of
    each of its two kernels a call (``LORA_DELTA``); every other row op of the engine's path bit-equal for a
-   row (RMSNorm, the LoRA delta, the nucleus threshold, K5F, K4-paged at
+   row (RMSNorm alone and fused with the residual add before it, at M
+   1/8/9/72/512; the LoRA delta, the nucleus threshold, K5F, K4-paged at
    B 1/8 x W 1/9 in bf16 and int8, dense K4's prefill form at T 1..512,
    the int8 quantization), each row of a call against the same row in
    calls of other shapes, the torch forms they replaced printed beside;
@@ -379,6 +380,11 @@ def profile_cuda(torch, fn, label, extra):
             if 'prefill_kernel' in e.key or 'decode_kernel' in e.key]
     # The serving path's invariant GEMM (csrc/matmul_invariant.cu).
     gemm = [e for e in events if 'matmul_kernel' in e.key]
+    # The norms (csrc/rms_norm.cu; before the fused form, rms_norm_kernel)
+    # and PyTorch's elementwise adds (the residual adds before the fused
+    # form, and every other torch add).
+    norm = [e for e in events if 'rms_norm_kernel' in e.key]
+    adds = [e for e in events if re.search(r'Functor\w*_add', e.key)]
     launches = sum(e.count for e in events)
     log(label + ' ' + json.dumps(dict(
         extra, wall_ms=wall_ms, device_busy_ms=busy_ms,
@@ -388,6 +394,12 @@ def profile_cuda(torch, fn, label, extra):
         gemm_calls=sum(e.count for e in gemm),
         attn_ms=sum(e.self_device_time_total for e in attn) / 1e3,
         attn_calls=sum(e.count for e in attn),
+        norm_ms=sum(e.self_device_time_total for e in norm) / 1e3,
+        norm_calls=sum(e.count for e in norm),
+        norm_share=(sum(e.self_device_time_total for e in norm) / 1e3 /
+                    busy_ms if busy_ms else 0.0),
+        torch_add_ms=sum(e.self_device_time_total for e in adds) / 1e3,
+        torch_add_calls=sum(e.count for e in adds),
         device_launches=launches,
         **({'device_launches_per_step': launches / extra['steps']}
            if 'steps' in extra else {}),
@@ -1907,7 +1919,8 @@ def _serving_kernels(attention, da):
             'rope_cache_write': da.ROPE_CACHE_WRITE,
             'rope_cache_write_q8': da.ROPE_CACHE_WRITE_Q8,
             'matmul': mi.MATMUL, 'matmul_q8': mi.MATMUL_Q8,
-            'rms_norm': rn.RMS_NORM, 'lora_mid': mi.LORA_MID,
+            'rms_norm': rn.RMS_NORM, 'add_rms_norm': rn.ADD_RMS_NORM,
+            'lora_mid': mi.LORA_MID,
             'lora_delta': mi.LORA_DELTA,
             'top_p_kth': tp.TOP_P_KTH}
 
@@ -1926,8 +1939,10 @@ def _serving_identity(kernels, n_layers, events, q8=False, lora=False):
     layers: a layer of each decode step and verify dispatch launches one
     K5F and one K4-paged (W = 1 or W > 1); a layer of each prefill chunk
     one K5 and one K4-prefill; every forward (step,
-    verify, chunk) 7 products and 2 norms a layer and the final norm and
-    the LM head; an engine with an
+    verify, chunk) 7 products a layer and the LM head, the first layer's
+    attention norm alone (``rms_norm``) and every other norm with the
+    residual add before it (``add_rms_norm``: 2 L, the final norm one of
+    them); an engine with an
     adapter set 2 LoRA deltas a layer per forward, each two launches
     (``lora_mid``, then ``lora_delta``). ``q8``: int8 weights
     and pool (the ``*_q8`` forms). Every other count 0 (the sampler's
@@ -1942,7 +1957,8 @@ def _serving_identity(kernels, n_layers, events, q8=False, lora=False):
                  'cache_write' + q: L * n_chunks,
                  'prefill_attention' + q: L * n_chunks,
                  'matmul' + q: (7 * L + 1) * fwd,
-                 'rms_norm': (2 * L + 1) * fwd,
+                 'rms_norm': fwd,
+                 'add_rms_norm': 2 * L * fwd,
                  'lora_mid': 2 * L * fwd if lora else 0,
                  'lora_delta': 2 * L * fwd if lora else 0})
     return want, dict(decode_steps=steps, verify_dispatches=n_verify,
@@ -2081,6 +2097,10 @@ def _op_invariance(torch, da, mi, rn, tp, gen):
     xn = randn(512, d)
     held['rms_norm'] = _row_bits(torch, lambda x: rn.rms_norm(x, wn, 1e-5),
                                  xn)
+    # The fused form: x and delta side by side, s and y side by side.
+    held['add_rms_norm'] = _row_bits(
+        torch, lambda xd: torch.cat(rn.add_rms_norm(
+            xd[:, 0], xd[:, 1], wn, 1e-5), -1), randn(512, 2, d))
     shown['rms_norm_torch'] = _row_bits(
         torch, lambda x: llama._rms_norm(x, wn, 1e-5), xn)
     # The int8 quantization of the prefill chunk's rows stays torch: its
@@ -2438,18 +2458,16 @@ def _lora_line(torch, mi, gen):
 # cut may differ only where the token between the two cuts has a
 # preceding mass within this of top_p (the two sum in other orders).
 TOP_P_TIE = 1e-5
+# Vocabularies the nucleus threshold is also held at: one warp a block
+# (4096), an odd V, so that every row after the first starts off a 16-byte
+# boundary (128255), and Gemma's (256000, 896 threads a block).
+TOP_P_OTHER_VOCABS = (4096, 128255, 256000)
 
 
-def _top_p_line(torch, tp, gen):
-    """The nucleus threshold at 72 rows of 128256 sorted logits: the
-    kernel against the plain version (the kth logit equal on every row
-    but at a ``TOP_P_TIE`` near-tie of the mass), then times at a decode
-    step's 8 rows and the bound."""
-    rows, vocab = 72, 128256
-    srt = torch.sort(torch.randn((rows, vocab), generator=gen,
-                                 device='cuda') * 3, -1,
-                     descending=True).values
-    top = torch.linspace(0.5, 0.95, rows, device='cuda')
+def _top_p_ties(torch, tp, srt, top):
+    """The kernel's and the plain version's cuts over sorted rows: (rows
+    whose cut differs, the largest distance from top_p of the preceding
+    mass of a logit between the two cuts, the kernel's cuts)."""
     kth = tp.top_p_kth(srt, top)
     ref = tp._top_p_kth_plain(srt, top)
     e = torch.exp(srt - srt[:, :1])
@@ -2458,49 +2476,148 @@ def _top_p_line(torch, tp, gen):
     lo, hi = torch.minimum(kth, ref), torch.maximum(kth, ref)
     between = (srt >= lo) & (srt < hi)
     ties = (before - top[:, None]).abs()[between]
-    worst = ties.max().item() if ties.numel() else 0.0
-    srt, top, kth, ref = srt[:8], top[:8], kth[:8], ref[:8]
-    rows = 8
-    line = dict(rows=rows, vocab=vocab, rows_checked=72,
-                max_abs_err=(kth - ref).abs().max().item(),
-                differing_cuts=int(between.any(-1).sum()),
-                worst_tie=worst, tie_tol=TOP_P_TIE,
-                ms=graph_ms(torch, lambda: tp.top_p_kth(srt, top), [()], 50),
-                plain_ms=graph_ms(torch, lambda: tp._top_p_kth_plain(
-                    srt, top), [()], 50),
-                bound_ms=1e3 * 4 * rows * (vocab + 2) / PEAK_HBM_BYTES,
-                bound_by='bytes', library_ms=None)
+    return (int((kth != ref).sum()),
+            ties.max().item() if ties.numel() else 0.0, kth, ref)
+
+
+def _top_p_line(torch, tp, gen):
+    """The nucleus threshold at 72 rows of 128256 sorted logits: the
+    kernel against the plain version (the kth logit equal on every row
+    but at a ``TOP_P_TIE`` near-tie of the mass), also over logits of
+    standard deviation 40 (a few percent of the e_i under 2^-100, which
+    the kernel divides with ``__fdiv_rn`` in its other loop) and at
+    ``TOP_P_OTHER_VOCABS`` (other plans, and rows that start off a
+    16-byte boundary), then times at a decode step's 8 rows and a verify
+    step's 72, the bound and the plan (cluster, logits a block,
+    threads)."""
+    rows, vocab = 72, 128256
+
+    def sorted_rows(scale, v=vocab):
+        return torch.sort(torch.randn((rows, v), generator=gen,
+                                      device='cuda') * scale, -1,
+                          descending=True).values
+    top = torch.linspace(0.5, 0.95, rows, device='cuda')
+    wide = sorted_rows(40)
+    e = torch.exp(wide - wide[:, :1])
+    tiny_share = ((e > 0) & (e < 2 ** -100)).float().mean().item()
+    del e
+    wide_cuts, wide_worst, _, _ = _top_p_ties(torch, tp, wide, top)
+    del wide
+    others = {}
+    for v in TOP_P_OTHER_VOCABS:
+        cuts, worst_v, _, _ = _top_p_ties(torch, tp, sorted_rows(3, v), top)
+        others[v] = dict(plan=tp.top_p_plan(v), differing_cuts=cuts,
+                         worst_tie=worst_v)
+    srt = sorted_rows(3)
+    differing, worst, kth, ref = _top_p_ties(torch, tp, srt, top)
+
+    def times(m, fn):
+        return graph_ms(torch, lambda: fn(srt[:m], top[:m]), [()], 50)
+
+    def bound(m):
+        return 1e3 * 4 * m * (vocab + 2) / PEAK_HBM_BYTES
+    line = dict(rows=8, vocab=vocab, rows_checked=72,
+                plan=dict(zip(('cluster', 'per_cta', 'threads'),
+                              tp.top_p_plan(vocab))),
+                max_abs_err=(kth[:8] - ref[:8]).abs().max().item(),
+                max_abs_err_72=(kth - ref).abs().max().item(),
+                differing_cuts=differing, worst_tie=worst,
+                tie_tol=TOP_P_TIE,
+                wide=dict(scale=40, tiny_share=tiny_share,
+                          differing_cuts=wide_cuts, worst_tie=wide_worst),
+                other_vocabs=others,
+                ms=times(8, tp.top_p_kth),
+                plain_ms=times(8, tp._top_p_kth_plain),
+                bound_ms=bound(8), bound_by='bytes', library_ms=None,
+                ms_72=times(72, tp.top_p_kth),
+                plain_ms_72=times(72, tp._top_p_kth_plain),
+                bound_ms_72=bound(72),
+                card=smi_line())
     log('TOP_P_KTH ' + json.dumps(line))
-    assert worst < TOP_P_TIE, line
+    assert worst < TOP_P_TIE and wide_worst < TOP_P_TIE, line
+    assert all(o['worst_tie'] < TOP_P_TIE for o in others.values()), line
+    assert tiny_share > 0, line
     return line
 
 
+# Input pairs the 512-row fused norm is timed over: 12 x 8 MB of x and
+# delta, twice the H100's 50 MB of L2.
+NORM_COLD_SETS = 12
+
+
 def _rms_norm_line(torch, rn, gen):
-    """RMSNorm at a decode step's 8 rows of 4096: the kernel against the
-    plain version (1e-2 of the output's size: bf16 rounding of sums in
-    another order), times, the bound and the library call
-    (``torch.nn.functional.rms_norm``, timed only)."""
+    """RMSNorm at a decode step's 8 rows of 4096: the plain-norm form (no
+    delta) against the plain version (1e-2 of the output's size: bf16
+    rounding of sums in another order), times, the bound and the library
+    call (``torch.nn.functional.rms_norm``, timed only). Then the fused
+    form (the residual add with it) at 8 and 512 rows: every s and y
+    bit-equal to torch's add followed by the plain-norm form, within 1e-2
+    of the plain version, its time against torch's add followed by the
+    plain-norm form (``add_plus_new_norm_ms``; the add alone: ``add_ms``;
+    the add and ``F.rms_norm``: ``add_plus_library_norm_ms``), and its
+    bound (x and delta read, s and y written). At 8 rows the inputs stay
+    in L2 between calls, as a decode step's do; at 512 each graph cycles
+    through ``NORM_COLD_SETS`` input pairs, more bytes than L2 holds, so
+    that the time compares with the HBM bound."""
     from skypilot_torch.ops import rms_norm as rn_mod
-    x = torch.randn((8, 4096), generator=gen, device='cuda',
-                    dtype=torch.bfloat16)
-    w = torch.randn((4096,), generator=gen, device='cuda',
-                    dtype=torch.bfloat16)
+    F = torch.nn.functional
+    d = 4096
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device='cuda',
+                           dtype=torch.bfloat16)
+    x, w = randn(8, d), randn(d)
     y = rn.rms_norm(x, w, 1e-5)
     ref = rn_mod._rms_norm_plain(x, w, 1e-5)
     err = (y.float() - ref.float()).abs().max().item()
-    line = dict(rows=8, dim=4096, max_abs_err=err,
+    line = dict(rows=8, dim=d, plan=rn.norm_plan(d, 2), max_abs_err=err,
                 rel_err=err / ref.float().abs().max().item(),
                 ms=graph_ms(torch, lambda: rn.rms_norm(x, w, 1e-5), [()],
                             50),
                 plain_ms=graph_ms(torch, lambda: rn_mod._rms_norm_plain(
                     x, w, 1e-5), [()], 50),
-                bound_ms=1e3 * (2 * 8 * 4096 * 2 + 2 * 4096) /
-                PEAK_HBM_BYTES, bound_by='bytes',
-                library_ms=graph_ms(torch, lambda: torch.nn.functional
-                                    .rms_norm(x, (4096,), w, 1e-5), [()], 50),
+                bound_ms=1e3 * (2 * 8 * d * 2 + 2 * d) / PEAK_HBM_BYTES,
+                bound_by='bytes',
+                library_ms=graph_ms(torch, lambda: F.rms_norm(
+                    x, (d,), w, 1e-5), [()], 50),
                 library='torch.nn.functional.rms_norm')
+    fused = {}
+    for rows in (8, 512):
+        sets = [(randn(rows, d), randn(rows, d))
+                for _ in range(1 if rows == 8 else NORM_COLD_SETS)]
+        xr, dr = sets[0]
+        s, yf = rn.add_rms_norm(xr, dr, w, 1e-5)
+        s_ref = xr + dr
+        y_ref = rn.rms_norm(s_ref, w, 1e-5)
+        y_plain = rn_mod._rms_norm_plain(s_ref, w, 1e-5)
+        f_err = (yf.float() - y_plain.float()).abs().max().item()
+
+        def timed(fn):
+            return graph_ms(torch, fn, sets, 48)
+        fused[rows] = dict(
+            s_elements_differing=int((s != s_ref).sum()),
+            y_elements_differing=int((yf != y_ref).sum()),
+            max_abs_err=f_err,
+            rel_err=f_err / y_plain.float().abs().max().item(),
+            input_sets=len(sets),
+            ms=timed(lambda a, b: rn.add_rms_norm(a, b, w, 1e-5)),
+            add_plus_new_norm_ms=timed(
+                lambda a, b: rn.rms_norm(a + b, w, 1e-5)),
+            add_ms=timed(lambda a, b: a + b),
+            plain_ms=timed(lambda a, b: rn_mod._add_rms_norm_plain(
+                a, b, w, 1e-5, False)),
+            add_plus_library_norm_ms=timed(lambda a, b: F.rms_norm(
+                a + b, (d,), w, 1e-5)),
+            bound_ms=1e3 * (4 * rows * d * 2 + 2 * d) / PEAK_HBM_BYTES,
+            bound_by='bytes', library_ms=None)
+        del sets
+    line.update(fused=fused, card=smi_line())
     log('RMS_NORM ' + json.dumps(line))
     assert line['rel_err'] <= 1e-2, line
+    for f in fused.values():
+        assert f['s_elements_differing'] == 0, line
+        assert f['y_elements_differing'] == 0, line
+        assert f['rel_err'] <= 1e-2, line
     return line
 
 
@@ -2775,8 +2892,11 @@ def invariance_phase(torch, da):
     its call shapes (the LoRA delta at B 1/8 x T 1/9/512, the nucleus
     threshold at 1/8/72 rows, K5F at R 1..512, K4-paged at B 1/8 x W 1/9,
     K4-prefill at T 1..512 and a padded view or table, dense, paged and
-    int8, rms_norm and the int8 quantization), with the torch forms they
-    replaced printed;
+    int8, rms_norm alone and with its residual add, and the int8
+    quantization), with the torch forms they replaced printed; the
+    ``RMS_NORM`` line (the fused form bit-equal to torch's add then the
+    norm, at 8 and 512 rows) and the ``TOP_P_KTH`` line (8 and 72 rows,
+    the cluster plan);
     (3) at llama3-8b, 32 layers, bf16 and int8 (weights and pool): one
     decode step's and one verify step's tokens and new K/V rows for each
     of 8 rows equal to the row's step alone, and verify's query 0 equal
@@ -5604,15 +5724,17 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f'kernels built in {time.perf_counter() - t0:.1f} s')
-    # K2/K3 and every K4 instantiation must not spill (checked after the
-    # phases).
-    bwd_spills, k4_entries, pre_entries = [], [], []
+    # K2/K3, every K4 instantiation and the row kernels (rms_norm, top_p)
+    # must not spill (checked after the phases).
+    bwd_spills, k4_entries, pre_entries, row_spills = [], [], [], []
     for name, path in libs.items():
         for entry in ptxas_report(path[:-len('.so')] + '.log'):
             log('BUILD ' + json.dumps(dict(library=name, **entry)))
             spills = entry.get('spill_stores') or entry.get('spill_loads')
             if name == 'flash_bwd' and spills:
                 bwd_spills.append(entry)
+            if name in ('rms_norm', 'top_p') and spills:
+                row_spills.append(entry)
             if 'decode_kernel' in entry['kernel']:
                 k4_entries.append(entry)
             if 'prefill_kernel' in entry['kernel']:
@@ -5722,6 +5844,7 @@ def main() -> int:
     if 'qlora' in phases:
         qlora = qlora_phase(torch, attention)
     assert not bwd_spills, f'the backward kernels spill: {bwd_spills}'
+    assert not row_spills, f'the norm or nucleus kernels spill: {row_spills}'
     assert len(k4_entries) == 32 and not k4_spills, (
         f'K4: {len(k4_entries)} instantiations built (32 expected), '
         f'spilling: {k4_spills}')
@@ -5887,13 +6010,27 @@ def main() -> int:
              **{k: inv['rms_norm'][k] for k in (
                  'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
                  'library_ms')}),
+        dict(name='add_rms_norm', route='cuda',
+             source='skypilot_torch/csrc/rms_norm.cu',
+             replaces='skypilot_tpu/models/llama.py:339',
+             launches=sum(b['add_rms_norm'] for b in bursts),
+             launches_engine=eng['add_rms_norm'],
+             launches_sampled=smp['add_rms_norm'],
+             launches_adapters=ad_b['add_rms_norm'],
+             launches_overload=ov_b['add_rms_norm'],
+             launches_int8=rep['add_rms_norm'],
+             **{k: inv['rms_norm']['fused'][8][k] for k in (
+                 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+                 'library_ms', 'add_plus_new_norm_ms')},
+             rows_512={k: inv['rms_norm']['fused'][512][k] for k in (
+                 'ms', 'add_plus_new_norm_ms', 'bound_ms', 'input_sets')}),
         dict(name='top_p_kth', route='cuda',
              source='skypilot_torch/csrc/top_p.cu',
              replaces='skypilot_tpu/serve/sampling/sample.py:35',
              launches=smp['top_p_kth'], launches_sampled=smp['top_p_kth'],
              **{k: inv['top_p'][k] for k in (
                  'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
-                 'library_ms')}),
+                 'library_ms', 'ms_72', 'bound_ms_72', 'plan')}),
         # Its main path is its entry point, bench_main().
         dict(name='packed_flash_fwd', route='cuda',
              source='skypilot_torch/csrc/attention_packed.cu',

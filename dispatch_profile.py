@@ -8,8 +8,11 @@ from the replica's seed, bf16 and int8 (weights and pool). Each runs once
 to warm up, then once under chip_smoke.py's ``profile_cuda`` (CUDA
 activity only): device busy ms, the invariant GEMM's ms and calls, the
 attention kernels' ms and calls (``attn_*``: K4, and in a prefill chunk
-K4-prefill or, in a tree before it, K4's W = T form), launches, wall ms
-and the top kernels. The dispatches are chip_smoke.py's
+K4-prefill or, in a tree before it, K4's W = T form), the norms' ms,
+calls and share of busy (``norm_*``: the fused residual add + RMSNorm,
+or in a tree before it the norm alone) and PyTorch's adds
+(``torch_add_*``: there, the residual adds), launches, wall ms and the
+top kernels. The dispatches are chip_smoke.py's
 ``engine_dispatches``.
 
 ``--root DIR`` imports ``skypilot_torch`` from another checkout (this

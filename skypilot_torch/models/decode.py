@@ -135,11 +135,15 @@ def adapter_layers(adapters: Optional[Params],
 
 
 def qkv_projections(config: llama.LlamaConfig, x: torch.Tensor,
-                    lp: Params, lora=None, matmul=mi.matmul):
-    """A layer's attention norm and q/k/v projections (+ biases):
-    x [B, T, D] -> q [B, T, H, hd], k/v [B, T, Hkv, hd], before RoPE.
-    Shared by every cached and paged layer body, as the JAX package's
-    four layer-body variants share this math. ``lora``: None, or
+                    lp: Params, lora=None, matmul=mi.matmul, delta=None):
+    """A layer's residual add and attention norm, and its q/k/v
+    projections (+ biases): x [B, T, D] -> (x + delta, q [B, T, H, hd],
+    k/v [B, T, Hkv, hd]), before RoPE. ``delta``: the residual still to
+    add to x (the previous layer's MLP output, ``attn_out_and_mlp``), or
+    None for the first layer; the add and the norm are one
+    ``ops/rms_norm.add_rms_norm``. Shared by every cached and paged layer
+    body, as the JAX package's four layer-body variants share this math.
+    ``lora``: None, or
     (this layer's adapter factors, adapter_idx [B]): the row-gathered
     deltas (``lora_gather_delta``) are added to q and v after the base
     projections and before the biases, as in every JAX step; None runs
@@ -150,8 +154,8 @@ def qkv_projections(config: llama.LlamaConfig, x: torch.Tensor,
     ``llama.matmul`` (see ``_layer_cached``)."""
     b, t, _ = x.shape
     hd = config.head_dim
-    h = rn.rms_norm(x, lp['attn_norm'], config.norm_eps,
-                    config.norm_offset)
+    x, h = rn.add_rms_norm(x, delta, lp['attn_norm'], config.norm_eps,
+                           config.norm_offset)
     q = matmul(h, lp['wq'])
     k = matmul(h, lp['wk'])
     v = matmul(h, lp['wv'])
@@ -165,37 +169,50 @@ def qkv_projections(config: llama.LlamaConfig, x: torch.Tensor,
         q = q + lp['bq']
         k = k + lp['bk']
         v = v + lp['bv']
-    return (q.reshape(b, t, config.n_heads, hd),
+    return (x, q.reshape(b, t, config.n_heads, hd),
             k.reshape(b, t, config.n_kv_heads, hd),
             v.reshape(b, t, config.n_kv_heads, hd))
 
 
 def attn_out_and_mlp(config: llama.LlamaConfig, x: torch.Tensor,
-                     attn: torch.Tensor, lp: Params,
-                     matmul=mi.matmul) -> torch.Tensor:
-    """The rest of the layer: output projection and residual, then the
-    gated MLP (f32 norm, the gate activation in f32 then cast back) and
-    its residual. attn [B, T, H, hd] -> y [B, T, D]."""
+                     attn: torch.Tensor, lp: Params, matmul=mi.matmul):
+    """The rest of the layer: output projection and its residual add with
+    the MLP's norm (one ``add_rms_norm``), then the gated MLP (f32 norm,
+    the gate activation in f32 then cast back). attn [B, T, H, hd] ->
+    (x [B, T, D] after the attention's residual, the MLP's output [B, T,
+    D]): the MLP's residual is left to the next norm to add
+    (``qkv_projections``' ``delta``, or ``final_norm``)."""
     b, t = attn.shape[:2]
-    x = x + matmul(attn.reshape(b, t, -1), lp['wo'])
-    h = rn.rms_norm(x, lp['mlp_norm'], config.norm_eps,
-                    config.norm_offset)
+    x, h = rn.add_rms_norm(x, matmul(attn.reshape(b, t, -1), lp['wo']),
+                           lp['mlp_norm'], config.norm_eps,
+                           config.norm_offset)
     gate = llama.mlp_act(config)(
         matmul(h, lp['w_gate']).float()).to(h.dtype)
     up = matmul(h, lp['w_up'])
-    return x + matmul(gate * up, lp['w_down'])
+    return x, matmul(gate * up, lp['w_down'])
+
+
+def final_norm(config: llama.LlamaConfig, cparams: Params, x: torch.Tensor,
+               delta: torch.Tensor) -> torch.Tensor:
+    """The last layer's MLP residual and the final norm, in one
+    ``add_rms_norm``: the normed rows the LM head reads."""
+    return rn.add_rms_norm(x, delta, cparams['final_norm'],
+                           config.norm_eps, config.norm_offset)[1]
 
 
 def _layer_cached(config: llama.LlamaConfig, x: torch.Tensor,
+                  delta: Optional[torch.Tensor],
                   layer_params: Params, k_cache: torch.Tensor,
                   v_cache: torch.Tensor, pos: int,
                   angles: torch.Tensor, prefill: bool = False,
                   k_scale: Optional[torch.Tensor] = None,
-                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One transformer layer over ``T`` new positions. x: [B, T, D];
+                  v_scale: Optional[torch.Tensor] = None):
+    """One transformer layer over ``T`` new positions. x: [B, T, D] and
+    ``delta``, the residual still to add to it (None at layer 0);
     k_cache/v_cache: this layer's [B, S, Hkv, hd] views (int8 with
     ``k_scale``/``v_scale`` [B, S, Hkv] when quantized), written in
-    place at [pos, pos + T). Returns y [B, T, D]. Same cast points as
+    place at [pos, pos + T). Returns (x, delta) for the next layer
+    (``attn_out_and_mlp``). Same cast points as
     the JAX layer: f32 norms, the gate activation in f32 then cast
     back. The prompt (``prefill``) runs its products on ``llama.matmul``
     (cuBLAS on the card): no batch-invariance contract covers the
@@ -203,7 +220,8 @@ def _layer_cached(config: llama.LlamaConfig, x: torch.Tensor,
     takes about three times as long."""
     b, t, _ = x.shape
     matmul = llama.matmul if prefill else mi.matmul
-    q, k, v = qkv_projections(config, x, layer_params, matmul=matmul)
+    x, q, k, v = qkv_projections(config, x, layer_params, matmul=matmul,
+                                 delta=delta)
     q = attention_ops.apply_rope(q, angles)
     k = attention_ops.apply_rope(k, angles)
 
@@ -272,17 +290,17 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
     x = cparams['embed'][tokens]
     if config.scale_embeddings:
         x = x * torch.tensor(math.sqrt(config.dim), dtype=x.dtype)
+    delta = None
     for i, layer_params in enumerate(layer_list(cparams, config)):
-        x = _layer_cached(
-            config, x, layer_params, cache.k[i], cache.v[i], pos, angles,
-            prefill=prefill,
+        x, delta = _layer_cached(
+            config, x, delta, layer_params, cache.k[i], cache.v[i], pos,
+            angles, prefill=prefill,
             k_scale=None if cache.k_scale is None else cache.k_scale[i],
             v_scale=None if cache.v_scale is None else cache.v_scale[i])
     cache.pos = pos + t
     if last_only:
-        x = x[:, -1:]
-    x = rn.rms_norm(x, cparams['final_norm'], config.norm_eps,
-                    config.norm_offset)
+        x, delta = x[:, -1:], delta[:, -1:]
+    x = final_norm(config, cparams, x, delta)
     matmul = llama.matmul if prefill else mi.matmul
     logits = matmul(x, llama.output_head(cparams, config)).float()
     return logits, cache
@@ -361,10 +379,11 @@ def forward_paged(params: Params, tokens: torch.Tensor, pools,
     table = block_row[None]
     ads = adapter_layers(adapters, config.n_layers)
     q_start = torch.full((1,), start + 1, dtype=torch.int32, device=dev)
+    delta = None
     for i, lp in enumerate(layer_list(cparams, config)):
-        q, k, v = qkv_projections(
+        x, q, k, v = qkv_projections(
             config, x, lp,
-            None if ads[i] is None else (ads[i], adapter_idx))
+            None if ads[i] is None else (ads[i], adapter_idx), delta=delta)
         q = attention_ops.apply_rope(q, angles)
         k = attention_ops.apply_rope(k, angles)
         if quantized:
@@ -381,10 +400,9 @@ def forward_paged(params: Params, tokens: torch.Tensor, pools,
                   v_scale=vsp[i]) if quantized else {}
         attn = da.prefill_attention(q, kp[i], vp[i], q_start, hd ** -0.5,
                                     block_table=table, block_size=bs, **q8)
-        x = attn_out_and_mlp(config, x, attn, lp)
-    x_last = rn.rms_norm(x[:, real_len - 1:real_len],
-                         cparams['final_norm'], config.norm_eps,
-                         config.norm_offset)
+        x, delta = attn_out_and_mlp(config, x, attn, lp)
+    last = slice(real_len - 1, real_len)
+    x_last = final_norm(config, cparams, x[:, last], delta[:, last])
     logits = mi.matmul(x_last,
                        llama.output_head(cparams, config)).float()
     return logits[:, 0], pools

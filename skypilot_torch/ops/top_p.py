@@ -1,20 +1,44 @@
 """The nucleus threshold of sampled rows (``top_p_kth``), with a row's
 bits independent of the other rows of the call.
 
-CUDA tensors launch ``csrc/top_p.cu`` (one block per row, every sum in
-an order set by the vocabulary size); CPU tensors take the plain
-version, the JAX package's filter as ``serve/sampling/sample.py`` has
-always written it.
+CUDA tensors launch ``csrc/top_p.cu`` (a cluster of ``TOP_P_CLUSTER``
+blocks a row, every sum in an order set by the vocabulary size through
+``top_p_plan``); CPU tensors take the plain version, the JAX package's
+filter as ``serve/sampling/sample.py`` has always written it.
 """
 import ctypes
+from typing import Tuple
 
 import torch
 
 from skypilot_torch.ops import _build
 
 TOP_P_KTH = _build.Kernel('top_p', 'skypilot_top_p_kth',
-                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 +
+                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 +
                           [ctypes.c_void_p])
+# Blocks of a row's cluster (the kernel's kC: the portable cluster size),
+# the logits a thread takes (its kL), and the most threads a block has.
+TOP_P_CLUSTER = 8
+TOP_P_PER_THREAD = 36
+TOP_P_MAX_THREADS = 1024
+
+
+def top_p_plan(v: int) -> Tuple[int, int, int]:
+    """(cluster C, logits a block P, threads a block NT) of a row of ``v``
+    logits: block r of the cluster takes [r P, (r + 1) P) of [0, v),
+    thread t of it [t L, (t + 1) L) of that slice (L =
+    ``TOP_P_PER_THREAD``), and every sum's order follows from these, so
+    from v alone."""
+    if v < 1:
+        raise ValueError(f'top_p_kth: a row of {v} logits')
+    c, per = TOP_P_CLUSTER, TOP_P_PER_THREAD
+    per_cta = -(-v // c)
+    threads = 32 * -(-per_cta // (32 * per))
+    if threads > TOP_P_MAX_THREADS:
+        raise ValueError(f'top_p_kth: a row of {v} logits needs '
+                         f'{threads} threads a block (at most '
+                         f'{TOP_P_MAX_THREADS})')
+    return c, per_cta, threads
 
 
 def _top_p_kth_plain(sorted_desc: torch.Tensor,
@@ -41,11 +65,16 @@ def _top_p_kth_cuda(sorted_desc: torch.Tensor,
                         f'{tuple(sorted_desc.shape)}, {top_p.dtype} '
                         f'{tuple(top_p.shape)}')
     rows, v = sorted_desc.shape
+    if rows > 65535:
+        raise ValueError(f'top_p_kth: {rows} rows (the grid takes at most '
+                         '65535)')
     x = sorted_desc.contiguous()
     p = top_p.contiguous()
     kth = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    _, per_cta, threads = top_p_plan(v)
     if rows:
         TOP_P_KTH(x.data_ptr(), p.data_ptr(), kth.data_ptr(), rows, v,
+                  per_cta, threads,
                   torch.cuda.current_stream(x.device).cuda_stream)
     return kth
 

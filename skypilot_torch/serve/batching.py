@@ -80,7 +80,8 @@ its verify form. Over int8 caches the same calls take the scales and
 launch the kernels' int8 forms. Every row op of these steps is
 batch-invariant on the card: a row's tokens and K/V do not depend on
 B, W, its slot or the chunk it was prefilled in (the products through
-``ops/matmul_invariant.py``, the norms through ``ops/rms_norm.py``,
+``ops/matmul_invariant.py``, each residual add and the norm after
+it in one launch of ``ops/rms_norm.py``,
 K4's fixed key order, the sampler's nucleus threshold in
 ``ops/top_p.py``). The pool
 tensors are updated IN PLACE, so the in-layer write is also the
@@ -120,7 +121,6 @@ from skypilot_torch import trace as trace_lib
 from skypilot_torch.models import decode, llama
 from skypilot_torch.ops import decode_attention as da
 from skypilot_torch.ops import matmul_invariant as mi
-from skypilot_torch.ops import rms_norm as rn
 from skypilot_torch.serve import kv_pool as kv_pool_lib
 from skypilot_torch.serve import prefix_hash
 from skypilot_torch.serve.adapters import ResidentAdapterSet
@@ -217,9 +217,10 @@ def _loras(adapters, adapter_idx, config: llama.LlamaConfig) -> list:
 
 
 def _logits(cparams: Params, config: llama.LlamaConfig,
-            x: torch.Tensor) -> torch.Tensor:
-    x = rn.rms_norm(x, cparams['final_norm'], config.norm_eps,
-                    config.norm_offset)
+            x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """The last layer's MLP residual (``delta``), the final norm and the
+    LM head."""
+    x = decode.final_norm(config, cparams, x, delta)
     return mi.matmul(x, llama.output_head(cparams, config)).float()
 
 
@@ -260,8 +261,9 @@ def decode_steps_rows(params: Params, tokens: torch.Tensor, caches,
         cos, sin = _rope_table(config, cur)                  # [B, hd/2]
         x = llama.embed_tokens(cparams, tok.long(), config)[:, None]
         dst = da.rows_dst(cur, s)
+        delta = None
         for i, lp in enumerate(layers):
-            q, k, v = decode.qkv_projections(config, x, lp)
+            x, q, k, v = decode.qkv_projections(config, x, lp, delta=delta)
             scales = ((ks_cache[i], vs_cache[i]) if quantized
                       else (None, None))
             q = da.rope_cache_write(
@@ -272,8 +274,8 @@ def decode_steps_rows(params: Params, tokens: torch.Tensor, caches,
                   for sc in scales))[:, None]
             attn = _attend_rows(q, k_cache[i], v_cache[i], cur,
                                 hd ** -0.5, *scales)
-            x = decode.attn_out_and_mlp(config, x, attn, lp)
-        nxt = _next_tokens(_logits(cparams, config, x)[:, -1], cur,
+            x, delta = decode.attn_out_and_mlp(config, x, attn, lp)
+        nxt = _next_tokens(_logits(cparams, config, x, delta)[:, -1], cur,
                            sampling)
         # Inactive rows: hold the last token and do NOT advance.
         tok = torch.where(active, nxt, tok)
@@ -340,16 +342,18 @@ def decode_steps_paged(params: Params, tokens: torch.Tensor, caches,
         # Inactive rows' outputs are discarded: they attend one key, not
         # the span their parked position would give them.
         lens = torch.where(active, cur + 1, 1)
+        delta = None
         for i, lp in enumerate(layers):
-            q, k, v = decode.qkv_projections(config, x, lp, loras[i])
+            x, q, k, v = decode.qkv_projections(config, x, lp, loras[i],
+                                                delta=delta)
             scales = (ksp[i], vsp[i]) if quantized else (None, None)
             q = da.rope_cache_write(q[:, 0], k[:, 0], v[:, 0], cos, sin,
                                     kp[i], vp[i], widx, *scales)
             attn = da.paged_decode_attention(
                 q, kp[i], vp[i], block_tables,
                 lens, hd ** -0.5, block_size, *scales)[:, None]
-            x = decode.attn_out_and_mlp(config, x, attn, lp)
-        nxt = _next_tokens(_logits(cparams, config, x)[:, -1], cur,
+            x, delta = decode.attn_out_and_mlp(config, x, attn, lp)
+        nxt = _next_tokens(_logits(cparams, config, x, delta)[:, -1], cur,
                            sampling)
         # Inactive rows: hold the last token and do NOT advance, so
         # their next (scratch-redirected) write stays parked.
@@ -406,8 +410,10 @@ def verify_step_paged(params: Params, tokens: torch.Tensor, caches,
     # Parked rows' predictions are never read: they attend from one key.
     lens = torch.where(live, pos + 1, 1)
     loras = _loras(adapters, adapter_idx, config)
+    delta = None
     for i, lp in enumerate(decode.layer_list(cparams, config)):
-        q, k, v = decode.qkv_projections(config, x, lp, loras[i])
+        x, q, k, v = decode.qkv_projections(config, x, lp, loras[i],
+                                            delta=delta)
         scales = (ksp[i], vsp[i]) if quantized else (None, None)
         # Padded lanes collide harmlessly on the scratch slot.
         q = da.rope_cache_write(
@@ -417,8 +423,8 @@ def verify_step_paged(params: Params, tokens: torch.Tensor, caches,
         attn = da.paged_verify_attention(q, kp[i], vp[i], block_tables,
                                          lens, hd ** -0.5, block_size,
                                          *scales)
-        x = decode.attn_out_and_mlp(config, x, attn, lp)
-    logits = _logits(cparams, config, x)                    # [B, W, V]
+        x, delta = decode.attn_out_and_mlp(config, x, attn, lp)
+    logits = _logits(cparams, config, x, delta)             # [B, W, V]
     if sampling is None:
         preds = logits.argmax(-1).to(torch.int32)
     else:
