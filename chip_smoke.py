@@ -28,11 +28,12 @@ in order (any failure exits non-zero; nothing is caught):
    invariant GEMM's six instantiations, their registers and spills, and
    the clusters the card holds at once, each at least the plan's table.
 4. End-to-end numerics: llama3-8b at full width and 2 layers, bf16 on
-   the card against the same weights in f32 on the CPU (plain paths).
+   the card against the same weights in f32 on the CPU (plain paths);
+   K5F = layers x forwards of the greedy run, K5 = 0.
 5. Serve: the port's replica at llama3-8b (32 layers, random weights),
    four requests over HTTP; the kernels' launch counts are zeroed just
-   before and read just after, and must equal layers x prefills (K1)
-   and layers x decode steps (K4).
+   before and read just after, and must equal layers x prefills (K1),
+   layers x decode steps (K4) and layers x forwards (K5F; K5 0).
 6. K1R (flash_fwd with fused RoPE): the training shapes (B 1 and 8,
    T = S = 2048, and a ragged 1000) against ``_flash_fwd_plain`` in f32
    with the same llama3-8b tables; library: SDPA after ``apply_rope``.
@@ -63,13 +64,20 @@ in order (any failure exits non-zero; nothing is caught):
 9. K5 (cache_write): bit-exact against ``index_copy_`` at llama3-8b
    shapes, the rows form over [8, 8192, 8, 128] and the 4097-block pool
    with scattered rows (8, 72, 512), with kernel, plain, library and
-   bound times.
-9b. K5F (rope_cache_write): the decode and verify steps' fused RoPE +
-   int8 + cache write, bf16 and int8, at R = 8, 72 and 512 rows over
-   the 4097-block pool with scattered and out-of-range rows, bit-exact
-   against its plain version and against the eager chain it replaced;
-   kernel (graph and eager), plain, replaced-chain and bound times, and
-   the kernels one call launches (1) beside the replaced chain's.
+   bound times. No serving path runs it (K5F writes them all).
+9b. K5F (rope_cache_write): every serving forward's fused RoPE + int8 +
+   cache write, bf16 and int8, at R = 8, 72, 512 and 8192 rows (the
+   serve_8b prompt, one 1024-row table for 8 rows of prompt) over the
+   4097-block pool with scattered and out-of-range rows, bit-exact
+   against its plain version and against the eager chain it replaced,
+   and its ``k_out`` rows against the plain rotation; kernel (graph,
+   eager, with ``k_out``), plain, replaced-chain and bound times, and the
+   kernels one call launches (1) beside the replaced chain's. Then
+   ``K5F_PATHS``: at 2 layers, bf16 and int8, three 512-row prefill
+   chunks (the second from a prefix hit's offset) and an 8 x 1024
+   engine-off prompt with four decode steps, pools, caches, logits and
+   the chunks' attention outputs bit-equal to the same paths on K5F's
+   plain version.
 10. K4P (decode_attention_paged): W = 1 and W = 9 over shuffled block
    tables (B 8, 16-token blocks, lengths to 8192) against the f32 plain
    version, timed beside the JAX package's route (gather + dense K4)
@@ -101,7 +109,8 @@ in order (any failure exits non-zero; nothing is caught):
    1024-token prefix that must hit, two prompts the drafter must draft
    on), launch counts equal to the engine's dispatch record (per layer
    of each decode step and verify one K5F and one K4-paged, of each
-   prefill chunk one K5 and one dense K4; 7 L + 1 GEMMs per forward),
+   prefill chunk one K5F and one K4-prefill, K5 none; 7 L + 1 GEMMs per
+   forward),
    TTFT and TPOT per request, output tokens/s, and a profile of one
    decode dispatch (its device launches per step). ``OBS_ENGINE``: the
    replica's textfile (``SKYTPU_METRICS_DIR``) agrees with the dispatch
@@ -162,10 +171,11 @@ in order (any failure exits non-zero; nothing is caught):
 15. INT8: llama3-8b at 2 layers with int8 weights and int8 KV, bf16 on
    the card vs f32 on the CPU; the serve_8b point (llama3.1-8b, 32
    layers, int8 weights and KV, batch 8, 1024-token prompts, 32 new,
-   K1 = 32 and int8 K4 = 32 x 31) beside the same run in bf16; the
+   K1 = 32, int8 K4 = 32 x 31 and int8 K5F = 32 x 32, K5 0; profiles of
+   its prompt and of one decode step) beside the same run in bf16; the
    ``--slots 8 --quant int8 --kv-int8`` replica on the engine's
    12-request burst (launch counts equal its dispatch record); one
-   engine-off ``--quant int8`` TPOT.
+   engine-off ``--quant int8`` TPOT (K5F = 32 x 32).
 16. QLoRA: llama3.1-8b (32 layers) over an int8 frozen base, LoRA rank
    16, seq 2048, batch 4: one warm-up and three counted steps on one
    fixed batch (K1-RoPE 192, pre-pass = K2 = K3 = 96), falling losses,
@@ -352,11 +362,28 @@ def _visible_pairs(t, s):
     return sum(min(max(i + (s - t) + 1, 0), s) for i in range(t))
 
 
-def profile_cuda(torch, fn, label, extra):
+# The K/V write of a serving forward, by kernel name: K5F and K5, and in a
+# tree where a forward still ran it eagerly, the chain around the write
+# (RoPE of q and k with cos and sin recomputed, the int8 quantization of
+# k and v) as PyTorch 2.11's CUDA build names its kernels: cos/sin, the f32
+# products, quotients and differences, the cat of the halves, abs / amax /
+# clamp / round, and the cast to int8. Its casts between bf16 and f32
+# share their kernels with the MLP's and are counted apart (CAST_KERNELS),
+# as are the slice assignments of the old engine-off cache (bf16 copies).
+WRITE_KERNELS = (r'cache_write_kernel|cos_kernel|sin_kernel|'
+                 r'CatArrayBatchedCopy|AbsFunctor|round_kernel|clamp_|'
+                 r'MaxNanFunctor|lambda\(signed char\)|'
+                 r'(Binary|BUnary)Functor<float, float, float, '
+                 r'\S*(Mul|Div)Functor|CUDAFunctor_add<float>')
+CAST_KERNELS = r'direct_copy_kernel_cuda|bfloat16_copy_kernel_cuda'
+
+
+def profile_cuda(torch, fn, label, extra, dump=None):
     """Where ``fn``'s time goes: the card's busy time (CUDA-only
     profiler, so the host runs almost as unprofiled) against the wall
-    clock, and the kernels that take the most device time. Returns the
-    busy ms."""
+    clock, and the kernels that take the most device time. ``dump``: a
+    path to write every kernel's name, calls and ms to. Returns the busy
+    ms."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -385,7 +412,21 @@ def profile_cuda(torch, fn, label, extra):
     # form, and every other torch add).
     norm = [e for e in events if 'rms_norm_kernel' in e.key]
     adds = [e for e in events if re.search(r'Functor\w*_add', e.key)]
+    write = [e for e in events if re.search(WRITE_KERNELS, e.key)]
+    write_ms = sum(e.self_device_time_total for e in write) / 1e3
+    casts = [e for e in events if re.search(CAST_KERNELS, e.key)
+             and e not in write]
     launches = sum(e.count for e in events)
+    if dump:
+        os.makedirs(os.path.dirname(dump), exist_ok=True)
+        with open(dump, 'w') as f:
+            json.dump(dict(extra, label=label, kernels=[
+                dict(name=e.key, calls=e.count,
+                     ms=e.self_device_time_total / 1e3,
+                     write=bool(re.search(WRITE_KERNELS, e.key)))
+                for e in sorted(events,
+                                key=lambda e: -e.self_device_time_total)]),
+                f, indent=1)
     log(label + ' ' + json.dumps(dict(
         extra, wall_ms=wall_ms, device_busy_ms=busy_ms,
         device_idle_share=1 - busy_ms / wall_ms,
@@ -400,6 +441,10 @@ def profile_cuda(torch, fn, label, extra):
                     busy_ms if busy_ms else 0.0),
         torch_add_ms=sum(e.self_device_time_total for e in adds) / 1e3,
         torch_add_calls=sum(e.count for e in adds),
+        write_ms=write_ms, write_calls=sum(e.count for e in write),
+        write_share=write_ms / busy_ms if busy_ms else 0.0,
+        cast_ms=sum(e.self_device_time_total for e in casts) / 1e3,
+        cast_calls=sum(e.count for e in casts),
         device_launches=launches,
         **({'device_launches_per_step': launches / extra['steps']}
            if 'steps' in extra else {}),
@@ -1540,10 +1585,14 @@ def e2e_phase(torch):
                                               prefill=True)
         return logits[0, -1].float().cpu()
 
+    from skypilot_torch.ops import decode_attention as da
     t0 = time.perf_counter()
     lg = first_logits(params, config, 'cuda')
+    da.ROPE_CACHE_WRITE.launches = da.CACHE_WRITE.launches = 0
     toks_gpu = decode.greedy_generate(params, prompt.cuda(), config, n_new,
                                       max_seq=max_seq)[0].tolist()
+    k5f_launches = da.ROPE_CACHE_WRITE.launches
+    k5_launches = da.CACHE_WRITE.launches
     gpu_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     lc = first_logits(cpu_params, cfg_cpu, 'cpu')
@@ -1557,12 +1606,17 @@ def e2e_phase(torch):
                rel_err=rel, rel_tol=E2E_REL_TOL,
                mean_abs_err=(lg - lc).abs().mean().item(),
                greedy_agree=f'{agree}/{n_new}', gpu_tokens=toks_gpu,
-               cpu_tokens=toks_cpu, gpu_s=gpu_s, cpu_s=cpu_s)
+               cpu_tokens=toks_cpu, gpu_s=gpu_s, cpu_s=cpu_s,
+               k5f_launches=k5f_launches,
+               k5f_expected=config.n_layers * n_new, k5_launches=k5_launches)
     log('E2E ' + json.dumps(row))
     assert bool(torch.isfinite(lg).all()) and lg.shape == lc.shape
     assert rel <= E2E_REL_TOL, f'end-to-end logits disagree: {row}'
+    # The prompt and each greedy step write their rows through K5F.
+    assert k5f_launches == config.n_layers * n_new and not k5_launches, row
     del params, cpu_params
     torch.cuda.empty_cache()
+    return k5f_launches
 
 
 # ---------------------------------------------------------------------
@@ -1621,25 +1675,33 @@ def serve_phase(torch, attention, da):
             reqs.append({'prompt_ids': ids, 'max_new_tokens': max_new,
                          'stream': i == 2})
         torch.cuda.synchronize()
-        attention.FLASH_FWD.launches = 0
-        da.DECODE_ATTENTION.launches = 0
+        for kern in (attention.FLASH_FWD, da.DECODE_ATTENTION,
+                     da.ROPE_CACHE_WRITE, da.CACHE_WRITE):
+            kern.launches = 0
         results = [_post(port, r) for r in reqs]
         k1_launches = attention.FLASH_FWD.launches
         k4_launches = da.DECODE_ATTENTION.launches
+        k5f_launches = da.ROPE_CACHE_WRITE.launches
+        k5_launches = da.CACHE_WRITE.launches
         for (status, ids, _), r in zip(results, reqs):
             assert status == 200, status
             assert len(ids) == max_new, (len(ids), max_new)
             assert all(0 <= t < config.vocab_size for t in ids), ids
         # Every prefill layer through K1, every decode layer through K4
-        # (the bucket of 32 is one prefill token + 31 decode steps).
+        # (the bucket of 32 is one prefill token + 31 decode steps), and
+        # every layer of both writes its rows through K5F.
         want_k1 = config.n_layers * len(reqs)
         want_k4 = config.n_layers * len(reqs) * (max_new - 1)
+        want_k5f = config.n_layers * len(reqs) * max_new
         log('SERVE ' + json.dumps(dict(
             k1_launches=k1_launches, k1_expected=want_k1,
             k4_launches=k4_launches, k4_expected=want_k4,
-            setup_s=setup_s)))
+            k5f_launches=k5f_launches, k5f_expected=want_k5f,
+            k5_launches=k5_launches, setup_s=setup_s)))
         assert k1_launches == want_k1, (k1_launches, want_k1)
         assert k4_launches == want_k4, (k4_launches, want_k4)
+        assert k5f_launches == want_k5f and k5_launches == 0, (
+            k5f_launches, want_k5f, k5_launches)
         # TTFT: the same replica's generate() at max_new_tokens=1 (one
         # prefill and its argmax) on the same prompts, after the counted
         # run; per-token time is the rest of the request's latency.
@@ -1665,7 +1727,7 @@ def serve_phase(torch, attention, da):
         server.server_close()
         thread.join(timeout=30)
     assert not thread.is_alive()
-    return k1_launches, k4_launches
+    return k1_launches, k4_launches, k5f_launches
 
 
 # ---------------------------------------------------------------------
@@ -1785,23 +1847,29 @@ def _replaced_chain(torch, da, q, k, v, angles, kp, vp, dst, ks=None,
 
 def _k5f_case(torch, da, gen, q8, r, iters):
     """One K5F case: R rows at llama3-8b widths into the 4097-block pool
-    (scattered rows, one dst of -1 and one past the pool), the kernel
-    against its plain version and against the chain it replaced, all
-    bit-exact; then kernel (graph and eager), plain, replaced-chain and
-    bound times, and the kernels one call launches."""
+    (scattered rows, one dst of -1 and one past the pool), cos and sin a
+    table of P = min(R, 1024) positions that row r reads at r mod P (at R
+    8192 the serve_8b prompt's 8 x 1024), the kernel against its plain
+    version and against the chain it replaced, all bit-exact, and with
+    ``k_out`` the rotated k of every row (the dropped ones too) bit-equal
+    to the plain rotation; then kernel (graph and eager, and with
+    ``k_out``), plain, replaced-chain and bound times, and the kernels
+    one call launches."""
     from skypilot_torch.models import llama
     config = llama.get_config('llama3-8b')
     n_rows = POOL_BLOCKS * BLOCK
     hq = config.n_heads
+    period = min(r, 1024)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device='cuda',
                            dtype=torch.bfloat16)
     q, k, v = randn(r, hq, HD8), randn(r, HKV8, HD8), randn(r, HKV8, HD8)
-    positions = torch.randint(0, 8192, (r,), generator=gen, device='cuda',
-                              dtype=torch.int32)
+    positions = torch.randint(0, 8192, (period,), generator=gen,
+                              device='cuda', dtype=torch.int32)
     angles = llama._rope_frequencies(config, positions)
     cos, sin = torch.cos(angles), torch.sin(angles)
+    row_angles = angles.repeat(r // period, 1)
     dst = torch.randperm(n_rows - BLOCK, generator=gen,
                          device='cuda')[:r].to(torch.int32) + BLOCK
     if r > 2:
@@ -1814,28 +1882,40 @@ def _k5f_case(torch, da, gen, q8, r, iters):
     else:
         pools = [randn(n_rows, HKV8, HD8) for _ in range(2)] + [None, None]
     copies = [[None if x is None else x.clone() for x in pools]
-              for _ in range(2)]
+              for _ in range(3)]
+    k_out = torch.empty_like(k)
     kernel_q = da.rope_cache_write(q, k, v, cos, sin, pools[0], pools[1],
                                    dst, pools[2], pools[3])
     plain_q = da._reference_rope_cache_write(
         q, k, v, cos, sin, copies[0][0], copies[0][1], dst, copies[0][2],
         copies[0][3])
-    chain_q = _replaced_chain(torch, da, q, k, v, angles, copies[1][0],
+    chain_q = _replaced_chain(torch, da, q, k, v, row_angles, copies[1][0],
                               copies[1][1], dst, copies[1][2], copies[1][3])
+    k_out_q = da.rope_cache_write(q, k, v, cos, sin, copies[2][0],
+                                  copies[2][1], dst, copies[2][2],
+                                  copies[2][3], k_out=k_out)
     torch.cuda.synchronize()
+    k_rot = da.rope_plain(k, torch.cos(row_angles), torch.sin(row_angles))
 
     def same(a, b):
         return all(x is None or torch.equal(x, y) for x, y in zip(a, b))
     exact = torch.equal(kernel_q, plain_q) and same(pools, copies[0])
     exact_chain = torch.equal(kernel_q, chain_q) and same(pools, copies[1])
+    exact_k_out = (torch.equal(k_out, k_rot) and torch.equal(k_out_q, plain_q)
+                   and same(copies[2], copies[0]))
     n = int(((dst >= 0) & (dst < n_rows)).sum())
     row_bytes = 2 * HKV8 * (HD8 + 2) if q8 else 2 * HKV8 * HD8 * 2
-    nbytes = (r * (hq + 2 * HKV8) * HD8 * 2 + r * HD8 * 4 + 4 * r +
+    nbytes = (r * (hq + 2 * HKV8) * HD8 * 2 + period * HD8 * 4 + 4 * r +
               r * hq * HD8 * 2 + n * row_bytes)
+    k_out_bytes = r * HKV8 * HD8 * 2
 
     def kernel():
         return da.rope_cache_write(q, k, v, cos, sin, pools[0], pools[1],
                                    dst, pools[2], pools[3])
+
+    def kernel_k_out():
+        return da.rope_cache_write(q, k, v, cos, sin, pools[0], pools[1],
+                                   dst, pools[2], pools[3], k_out=k_out)
 
     def plain():
         return da._reference_rope_cache_write(
@@ -1843,39 +1923,184 @@ def _k5f_case(torch, da, gen, q8, r, iters):
             copies[0][2], copies[0][3])
 
     def chain():
-        return _replaced_chain(torch, da, q, k, v, angles, copies[1][0],
+        return _replaced_chain(torch, da, q, k, v, row_angles, copies[1][0],
                                copies[1][1], dst, copies[1][2], copies[1][3])
     chain_launches, _ = graph_launches(torch, chain)
     kernel_launches, _ = graph_launches(torch, kernel)
     row = dict(case=f'{"int8" if q8 else "bf16"} R={r}', rows=r,
-               rows_written=n, bit_exact=exact,
+               table_rows=period, rows_written=n, bit_exact=exact,
                bit_exact_to_replaced_chain=exact_chain,
+               k_out_bit_exact=exact_k_out,
                kernel_ms=graph_ms(torch, kernel, [()], iters),
                kernel_eager_ms=cuda_ms(torch, kernel, [()], iters),
+               kernel_k_out_ms=graph_ms(torch, kernel_k_out, [()], iters),
                plain_ms=cuda_ms(torch, plain, [()], iters),
                replaced_chain_ms=cuda_ms(torch, chain, [()], iters),
                replaced_chain_graph_ms=graph_ms(torch, chain, [()], iters),
                launches_per_call=kernel_launches,
                replaced_chain_launches_per_call=chain_launches,
-               bound_ms=1e3 * nbytes / PEAK_HBM_BYTES, bound_by='bytes')
+               bound_ms=1e3 * nbytes / PEAK_HBM_BYTES,
+               bound_k_out_ms=1e3 * (nbytes + k_out_bytes) / PEAK_HBM_BYTES,
+               bound_by='bytes')
+    row['bound_share'] = row['bound_ms'] / row['kernel_ms']
+    row['bound_share_k_out'] = row['bound_k_out_ms'] / row['kernel_k_out_ms']
     log('K5F ' + json.dumps(row))
-    assert exact and exact_chain, f'K5F is not bit-exact: {row}'
+    assert exact and exact_chain and exact_k_out, f'K5F not bit-exact: {row}'
     assert kernel_launches == 1, row
     return row
+
+
+def _k5f_paths(torch, da):
+    """Every serving path that writes through K5F against the same path
+    with ``rope_cache_write`` swapped for its plain version (the eager
+    chain those paths ran before K5F), on the card, bit for bit:
+    llama3-8b at full width and 2 layers, random weights, bf16 and int8
+    (weights and KV).
+
+    Engine: three 512-row prefill chunks over a 161-block pool (16-row
+    blocks): request A's positions 0-511, then request B, whose table
+    shares A's first 32 blocks (a prefix hit), from offset 512 and from
+    1024 (real 500: 12 padded rows to the scratch block, which they race
+    for and which is left out). Pools (codes and scales), each chunk's
+    logits and each layer's attention output.
+    Engine-off: the serve_8b prompt's shape (8 x 1024, ``prefill``) and
+    four greedy decode steps through ``forward_cached``: the cache (codes
+    and scales) and every logit. Each K5F run counts L rope_cache_write
+    launches a forward and no cache_write."""
+    from skypilot_torch.models import decode, llama, quant
+    config = llama.get_config('llama3-8b', n_layers=2)
+    dev = 'cuda'
+    L, hkv, hd = config.n_layers, config.n_kv_heads, config.head_dim
+    gen = torch.Generator().manual_seed(36)
+    nb = 161
+    tables = [torch.cat([torch.arange(1, 33), torch.arange(97, 161)]),
+              torch.arange(1, 97)]
+    tables = [t.to(torch.int32).to(dev) for t in tables]
+    prompt = torch.randint(0, config.vocab_size, (1536,), generator=gen)
+    chunks = [(0, 0, 512), (1, 512, 512), (1, 1024, 500)]
+    off_prompt = torch.randint(0, config.vocab_size, (8, 1024),
+                               generator=gen).to(dev)
+    real_write, real_attn = da.rope_cache_write, da.prefill_attention
+    kernels = {'rope_cache_write': da.ROPE_CACHE_WRITE,
+               'rope_cache_write_q8': da.ROPE_CACHE_WRITE_Q8,
+               'cache_write': da.CACHE_WRITE,
+               'cache_write_q8': da.CACHE_WRITE_Q8}
+    out = {}
+    for form in ('bf16', 'int8'):
+        int8 = form == 'int8'
+        params = (quant.init_quantized(config, seed=3, device=dev)
+                  if int8 else llama.init_params(config, seed=3,
+                                                 device=dev))
+        runs = {}
+        for route in ('kernel', 'plain'):
+            attn = []
+
+            def recording(*a, **kw):
+                o = real_attn(*a, **kw)
+                attn.append(o.clone())
+                return o
+            da.prefill_attention = recording
+            if route == 'plain':
+                da.rope_cache_write = da._reference_rope_cache_write
+            for kern in kernels.values():
+                kern.launches = 0
+            try:
+                shape = (L, nb, BLOCK, hkv, hd)
+                pools = tuple(torch.zeros(shape, dtype=torch.int8 if int8
+                                          else config.dtype, device=dev)
+                              for _ in range(2))
+                pools += ((torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                       device=dev),
+                           torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                       device=dev)) if int8
+                          else (None, None))
+                logits = []
+                with torch.inference_mode():
+                    for req, start, real in chunks:
+                        toks = torch.zeros(512, dtype=torch.long)
+                        toks[:real] = prompt[start:start + real]
+                        lg, _ = decode.forward_paged(
+                            params, toks[None].to(dev), pools, tables[req],
+                            start, real, config, BLOCK)
+                        logits.append(lg)
+                    chunk_launches = {n: k.launches
+                                      for n, k in kernels.items()}
+                    cache = decode.init_cache(config, 8, 1040,
+                                              device=dev, kv_int8=int8)
+                    lg, _ = decode.forward_cached(
+                        params, off_prompt, cache, config, last_only=True,
+                        prefill=True)
+                    off_logits = [lg]
+                    for _ in range(4):
+                        tok = lg[:, -1].argmax(-1)[:, None]
+                        lg, _ = decode.forward_cached(params, tok, cache,
+                                                      config)
+                        off_logits.append(lg)
+                torch.cuda.synchronize()
+                # Block 0 is the scratch the padded rows race for.
+                runs[route] = dict(
+                    pools=[x[:, 1:] for x in pools if x is not None],
+                    logits=logits, attn=attn,
+                    cache=[x for x in (cache.k, cache.v, cache.k_scale,
+                                       cache.v_scale) if x is not None],
+                    off_logits=off_logits,
+                    chunk_launches=chunk_launches,
+                    off_launches={n: k.launches - chunk_launches[n]
+                                  for n, k in kernels.items()})
+            finally:
+                da.rope_cache_write, da.prefill_attention = (real_write,
+                                                             real_attn)
+
+        def differing(name):
+            return sum(int((a != b).sum()) for a, b in zip(
+                runs['kernel'][name], runs['plain'][name]))
+        q = '_q8' if int8 else ''
+        want_chunks = {n: 0 for n in kernels}
+        want_chunks['rope_cache_write' + q] = L * len(chunks)
+        want_off = {n: 0 for n in kernels}
+        want_off['rope_cache_write' + q] = L * 5
+        row = dict(form=form, layers=L, chunks=[list(c[1:]) for c in chunks],
+                   engine_off=dict(batch=8, prompt=1024, decode_steps=4),
+                   **{f'{name}_differing': differing(name) for name in (
+                       'pools', 'logits', 'attn', 'cache', 'off_logits')},
+                   attn_outputs=len(runs['kernel']['attn']),
+                   chunk_launches=runs['kernel']['chunk_launches'],
+                   chunk_launches_expected=want_chunks,
+                   engine_off_launches=runs['kernel']['off_launches'],
+                   engine_off_launches_expected=want_off)
+        log('K5F_PATHS ' + json.dumps(row))
+        assert row['attn_outputs'] == L * len(chunks), row
+        assert not any(row[f'{name}_differing'] for name in (
+            'pools', 'logits', 'attn', 'cache', 'off_logits')), row
+        assert row['chunk_launches'] == want_chunks, row
+        assert row['engine_off_launches'] == want_off, row
+        out[form] = row
+        del params, runs
+        torch.cuda.empty_cache()
+    return out
+
+
+K5F_ROWS = (8, 72, 512, 8192)
 
 
 def k5f_phase(torch, da):
     """K5F against its plain version and against the eager chain it
     replaced, bit-exact, bf16 and int8, at R = 8 (a decode step), 72 (a
-    verify window) and 512 rows over the engine's 4097-block pool with
-    scattered and out-of-range rows; times and the launches a layer."""
+    verify window), 512 (a prefill chunk) and 8192 rows (the serve_8b
+    prompt's 8 x 1024) over the engine's 4097-block pool with scattered
+    and out-of-range rows, with and without ``k_out``; times and the
+    launches a layer. Then the serving paths through K5F bit-equal to
+    the same paths on its plain version (``_k5f_paths``)."""
     gen = torch.Generator(device='cuda').manual_seed(31)
-    rows = [_k5f_case(torch, da, gen, q8, r, 200)
-            for q8 in (False, True) for r in (8, 72, 512)]
+    rows = [_k5f_case(torch, da, gen, q8, r, 200 if r < 8192 else 50)
+            for q8 in (False, True) for r in K5F_ROWS]
     torch.cuda.empty_cache()
+    paths = _k5f_paths(torch, da)
 
     def pick(q8):
-        main = rows[3 if q8 else 0]     # the engine's decode step: 8 rows
+        form = 'int8' if q8 else 'bf16'
+        # The engine's decode step: 8 rows.
+        main = next(r for r in rows if r['case'] == f'{form} R=8')
         return dict(max_abs_err=0.0, err_is='bit-exact (torch.equal) to '
                     'the plain chain and to the replaced eager chain',
                     case=main['case'], ms=main['kernel_ms'],
@@ -1887,10 +2112,12 @@ def k5f_phase(torch, da):
                     replaced_kernels_per_layer=main[
                         'replaced_chain_launches_per_call'],
                     cases={r['case']: {key: r[key] for key in (
-                        'kernel_ms', 'kernel_eager_ms', 'plain_ms',
-                        'replaced_chain_ms', 'replaced_chain_graph_ms',
-                        'bound_ms')} for r in rows
-                        if r['case'].startswith('int8') == q8})
+                        'kernel_ms', 'kernel_eager_ms', 'kernel_k_out_ms',
+                        'plain_ms', 'replaced_chain_ms',
+                        'replaced_chain_graph_ms', 'bound_ms',
+                        'bound_k_out_ms')} for r in rows
+                        if r['case'].startswith(form)},
+                    paths_bit_equal=paths[form])
     return dict(bf16=pick(False), int8=pick(True))
 
 
@@ -1938,7 +2165,8 @@ def _serving_identity(kernels, n_layers, events, q8=False, lora=False):
     """The launch counts a run's dispatch record fixes, with ``L``
     layers: a layer of each decode step and verify dispatch launches one
     K5F and one K4-paged (W = 1 or W > 1); a layer of each prefill chunk
-    one K5 and one K4-prefill; every forward (step,
+    one K5F and one K4-prefill (K5 none: no serving path runs it); every
+    forward (step,
     verify, chunk) 7 products a layer and the LM head, the first layer's
     attention norm alone (``rms_norm``) and every other norm with the
     residual add before it (``add_rms_norm``: 2 L, the final norm one of
@@ -1953,8 +2181,7 @@ def _serving_identity(kernels, n_layers, events, q8=False, lora=False):
     want = {name: 0 for name in kernels}
     want.update({'paged_w1' + q: L * steps,
                  'paged_verify' + q: L * n_verify,
-                 'rope_cache_write' + q: L * (steps + n_verify),
-                 'cache_write' + q: L * n_chunks,
+                 'rope_cache_write' + q: L * (steps + n_verify + n_chunks),
                  'prefill_attention' + q: L * n_chunks,
                  'matmul' + q: (7 * L + 1) * fwd,
                  'rms_norm': fwd,
@@ -5385,83 +5612,136 @@ def _int8_numerics(torch):
     del params, cpu_params
 
 
-def _serve_8b(torch, attention, da):
-    """The JAX bench's serve_8b point through the port's entry points:
-    llama3.1-8b (32 layers), ``init_quantized`` int8 weights, an int8
-    dense KV cache (max_seq 2048), batch 8, 1024-token prompts, 32 new
-    tokens, one ``greedy_generate`` with the launch counts zeroed just
-    before and read just after (K1 = 32 for the one prefill, int8 K4 =
-    32 x 31 decode steps); then the same run with bf16 weights and a
-    bf16 cache beside it."""
-    import gc
+SERVE_8B = dict(model='llama3.1-8b', batch=8, prompt_len=1024, new=32,
+                max_seq=2048, seed=34)
 
+
+def serve_8b_point(torch, weights, counts, profile=None):
+    """One form of the JAX bench's serve_8b point through the engine-off
+    entry point: llama3.1-8b (32 layers), ``weights`` 'int8'
+    (``init_quantized`` and an int8 dense cache) or 'bf16', batch 8,
+    1024-token prompts, 32 new tokens: one warm-up, then one
+    ``greedy_generate`` with the ``counts`` (name -> kernel) zeroed just
+    before and read just after, and TTFT as the same call at one new
+    token. ``profile``: a function (label, fn, extra) that profiles the
+    prompt alone and one decode step alone after it. Returns the row
+    (``launches`` as read, ``toks``)."""
     from skypilot_torch.models import decode, llama, quant
-    config = llama.get_config('llama3.1-8b')
-    b, prompt_len, new, max_seq = 8, 1024, 32, 2048
-    gen = torch.Generator().manual_seed(34)
+    cfg = SERVE_8B
+    config = llama.get_config(cfg['model'])
+    b, prompt_len, new, max_seq = (cfg['batch'], cfg['prompt_len'],
+                                   cfg['new'], cfg['max_seq'])
+    gen = torch.Generator().manual_seed(cfg['seed'])
     prompt = torch.randint(0, config.vocab_size, (b, prompt_len),
                            generator=gen).cuda()
-    L = config.n_layers
+    int8 = weights == 'int8'
+    t0 = time.perf_counter()
+    params = (quant.init_quantized(config, seed=0, device='cuda')
+              if int8 else llama.init_params(config, seed=0, device='cuda'))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # What a decode step reads: every weight but the embedding (one row
+    # per token).
+    weight_bytes = sum(x.numel() * x.element_size() for x in _tensors(
+        {k: v for k, v in params.items() if k != 'embed'}))
+
+    def run(n):
+        out = decode.greedy_generate(params, prompt, config, n,
+                                     max_seq=max_seq, kv_int8=int8)
+        return out.cpu()
+    run(2)                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in counts.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    toks = run(new)
+    total_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counts.items()}
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    run(1)
+    ttft_s = time.perf_counter() - t0
+    tpot_ms = 1e3 * (total_s - ttft_s) / (new - 1)
+    row = dict(model=cfg['model'], layers=config.n_layers, weights=weights,
+               kv_cache=weights, batch=b, prompt_len=prompt_len,
+               new_tokens=new, max_seq=max_seq, setup_s=setup_s,
+               weight_gb=weight_bytes / 1e9, total_s=total_s,
+               ttft_ms=1e3 * ttft_s, tpot_ms=tpot_ms,
+               tokens_per_s=b * new / total_s,
+               decode_tokens_per_s=b * (new - 1) / (total_s - ttft_s),
+               weight_read_floor_ms=1e3 * weight_bytes / PEAK_HBM_BYTES,
+               max_memory_allocated_gb=peak / 1e9, launches=launches,
+               toks=toks)
+    if profile is not None:
+        cache = decode.init_cache(config, b, max_seq, device='cuda',
+                                  kv_int8=int8)
+        tok = toks[:, :1].cuda()
+
+        def prefill():
+            with torch.inference_mode():
+                cache.pos = 0
+                logits, _ = decode.forward_cached(
+                    params, prompt, cache, config, last_only=True,
+                    prefill=True)
+                logits.argmax(-1).cpu()
+
+        def step():
+            with torch.inference_mode():
+                cache.pos = prompt_len
+                logits, _ = decode.forward_cached(params, tok, cache,
+                                                  config, last_only=True)
+                logits.argmax(-1).cpu()
+        for kind, fn in (('engine_off_prompt', prefill),
+                         ('engine_off_step', step)):
+            fn()
+            profile(kind, fn, dict(rows=b * (prompt_len if kind ==
+                                             'engine_off_prompt' else 1)))
+        del cache
+    del params
+    return row
+
+
+def _serve_8b(torch, attention, da):
+    """The JAX bench's serve_8b point (``serve_8b_point``), int8 weights
+    and KV, then bf16 beside it, each with its launch counts held: K1 =
+    32 for the one prefill, K4 = 32 x 31 decode steps (the int8 form
+    over int8 KV), and K5F (the int8 form over int8 KV) = 32 x 32, one a
+    layer for the prompt and for each decode step."""
+    import gc
+
+    from skypilot_torch.models import llama
+    config = llama.get_config(SERVE_8B['model'])
+    L, new = config.n_layers, SERVE_8B['new']
     counts = {'flash_fwd': attention.FLASH_FWD,
               'decode_attention': da.DECODE_ATTENTION,
-              'decode_attention_q8': da.DECODE_ATTENTION_Q8}
+              'decode_attention_q8': da.DECODE_ATTENTION_Q8,
+              'rope_cache_write': da.ROPE_CACHE_WRITE,
+              'rope_cache_write_q8': da.ROPE_CACHE_WRITE_Q8,
+              'cache_write': da.CACHE_WRITE,
+              'cache_write_q8': da.CACHE_WRITE_Q8}
     rows = {}
     for weights in ('int8', 'bf16'):
         gc.collect()
         torch.cuda.empty_cache()
         int8 = weights == 'int8'
-        t0 = time.perf_counter()
-        params = (quant.init_quantized(config, seed=0, device='cuda')
-                  if int8 else llama.init_params(config, seed=0,
-                                                 device='cuda'))
-        torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
-        # What a decode step reads: every weight but the embedding (one
-        # row per token).
-        weight_bytes = sum(x.numel() * x.element_size() for x in _tensors(
-            {k: v for k, v in params.items() if k != 'embed'}))
+        q = '_q8' if int8 else ''
 
-        def run(n):
-            out = decode.greedy_generate(params, prompt, config, n,
-                                         max_seq=max_seq, kv_int8=int8)
-            return out.cpu()
-        run(2)                                   # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for k in counts.values():
-            k.launches = 0
-        t0 = time.perf_counter()
-        toks = run(new)
-        total_s = time.perf_counter() - t0
-        launches = {name: k.launches for name, k in counts.items()}
-        peak = torch.cuda.max_memory_allocated()
-        t0 = time.perf_counter()
-        run(1)
-        ttft_s = time.perf_counter() - t0
-        want = {'flash_fwd': L, 'decode_attention': 0,
-                'decode_attention_q8': 0}
-        want['decode_attention_q8' if int8 else 'decode_attention'] = \
-            L * (new - 1)
-        tpot_ms = 1e3 * (total_s - ttft_s) / (new - 1)
-        row = dict(model='llama3.1-8b', layers=L, weights=weights,
-                   kv_cache=weights, batch=b, prompt_len=prompt_len,
-                   new_tokens=new, max_seq=max_seq, setup_s=setup_s,
-                   weight_gb=weight_bytes / 1e9, total_s=total_s,
-                   ttft_ms=1e3 * ttft_s, tpot_ms=tpot_ms,
-                   tokens_per_s=b * new / total_s,
-                   decode_tokens_per_s=b * (new - 1) / (total_s - ttft_s),
-                   weight_read_floor_ms=1e3 * weight_bytes / PEAK_HBM_BYTES,
-                   max_memory_allocated_gb=peak / 1e9, launches=launches,
-                   launches_expected=want)
+        def profile(kind, fn, extra, weights=weights):
+            profile_cuda(torch, fn, 'SERVE_8B_PROFILE',
+                         dict(extra, weights=weights, kind=kind))
+        row = serve_8b_point(torch, weights, counts,
+                             profile if int8 else None)
+        toks = row.pop('toks')
+        want = {name: 0 for name in counts}
+        want.update({'flash_fwd': L, 'decode_attention' + q: L * (new - 1),
+                     'rope_cache_write' + q: L * new})
+        row['launches_expected'] = want
         log('SERVE_8B ' + json.dumps(row))
-        assert toks.shape == (b, new) and bool(
+        assert toks.shape == (SERVE_8B['batch'], new) and bool(
             ((toks >= 0) & (toks < config.vocab_size)).all())
-        assert launches == want, (launches, want)
-        if int8:
-            profile_cuda(torch, lambda: run(4), 'SERVE_8B_PROFILE',
-                         dict(weights=weights, new_tokens=4))
+        assert row['launches'] == want, (row['launches'], want)
         rows[weights] = row
-        del params
     return rows
 
 
@@ -5476,7 +5756,7 @@ def _tensors(tree):
 def _int8_engine_off(torch, attention, da):
     """One engine-off TPOT on ``--quant int8`` (int8 weights, a bf16
     cache as in the JAX replica without the engine): a 1024-token
-    prompt, 32 new tokens, K1 and K4 counted."""
+    prompt, 32 new tokens, K1, K4 and K5F (and K5, none) counted."""
     from skypilot_torch.models import llama
     from skypilot_torch.recipes import serve_model
     args = serve_model.parse_args(['--model', 'llama3-8b', '--port', '0',
@@ -5489,19 +5769,24 @@ def _int8_engine_off(torch, attention, da):
                                generator=gen).tolist()
         max_new = 32
         torch.cuda.synchronize()
-        attention.FLASH_FWD.launches = da.DECODE_ATTENTION.launches = 0
+        counts = dict(flash_fwd=attention.FLASH_FWD,
+                      decode_attention=da.DECODE_ATTENTION,
+                      rope_cache_write=da.ROPE_CACHE_WRITE,
+                      cache_write=da.CACHE_WRITE)
+        for kern in counts.values():
+            kern.launches = 0
         t0 = time.perf_counter()
         ids = generate(prompt, max_new)
         total_ms = 1e3 * (time.perf_counter() - t0)
-        launches = dict(flash_fwd=attention.FLASH_FWD.launches,
-                        decode_attention=da.DECODE_ATTENTION.launches)
+        launches = {name: kern.launches for name, kern in counts.items()}
         t0 = time.perf_counter()
         generate(prompt, 1)
         ttft_ms = 1e3 * (time.perf_counter() - t0)
     finally:
         server.server_close()
     L = config.n_layers
-    want = dict(flash_fwd=L, decode_attention=L * (max_new - 1))
+    want = dict(flash_fwd=L, decode_attention=L * (max_new - 1),
+                rope_cache_write=L * max_new, cache_write=0)
     row = dict(model=args.model, quant='int8', kv='bf16', prompt=1024,
                n_out=len(ids), latency_ms=total_ms, ttft_ms=ttft_ms,
                tpot_ms=(total_ms - ttft_ms) / (max_new - 1),
@@ -5808,9 +6093,9 @@ def main() -> int:
     if 'k4' in phases:
         k4 = k4_phase(torch, F, da)
     if 'e2e' in phases:
-        e2e_phase(torch)
+        e2e_k5f = e2e_phase(torch)
     if 'serve' in phases:
-        k1_n, k4_n = serve_phase(torch, attention, da)
+        k1_n, k4_n, k5f_n = serve_phase(torch, attention, da)
     if 'k1r' in phases:
         k1r = k1r_phase(torch, F, attention)
     if 'bwd' in phases:
@@ -5861,6 +6146,14 @@ def main() -> int:
         serve_8b_int8=s8['int8']['flash_fwd'],
         serve_8b_bf16=s8['bf16']['flash_fwd'],
         engine_off_int8_weights=off['flash_fwd'])
+    k5f_launches = dict(
+        engine=eng['rope_cache_write'], rows=2 * rows_n,
+        sampled=smp['rope_cache_write'], adapters=ad_b['rope_cache_write'],
+        overload=ov_b['rope_cache_write'], int8=rep['rope_cache_write_q8'],
+        serve=k5f_n, e2e=e2e_k5f,
+        serve_8b_bf16=s8['bf16']['rope_cache_write'],
+        serve_8b_int8_kv=s8['int8']['rope_cache_write_q8'],
+        engine_off_int8_weights=off['rope_cache_write'])
     k4_launches = dict(serve=k4_n, rows=rows_n,
                        serve_8b_bf16=s8['bf16']['decode_attention'],
                        engine_off_int8_weights=off['decode_attention'],
@@ -5945,7 +6238,9 @@ def main() -> int:
              launches_int8_decode_w1=rep['paged_w1_q8'],
              launches_int8_verify=rep['paged_verify_q8'],
              **k4p, int8=int8k['decode_attention_paged']),
-        # K5 now writes the engine's prefill chunks only.
+        # K5: no serving path runs it since K5F writes the prefill chunk
+        # too; held by its own phase (k5), its launches on the main paths
+        # counted all the same (0).
         dict(name='cache_write', route='cuda',
              source='skypilot_torch/csrc/decode_attention.cu',
              replaces='skypilot_tpu/ops/decode_attention.py:389',
@@ -5958,20 +6253,13 @@ def main() -> int:
              launches_overload=ov_b['cache_write'],
              launches_int8=rep['cache_write_q8'], **k5,
              int8=int8k['cache_write']),
-        # K5F: the decode and verify steps' new rows, one launch a layer.
+        # K5F: every serving forward's new rows, one launch a layer.
         dict(name='rope_cache_write', route='cuda',
              source='skypilot_torch/csrc/decode_attention.cu',
              replaces='skypilot_tpu/ops/decode_attention.py:389',
-             launches=(eng['rope_cache_write'] + smp['rope_cache_write'] +
-                       ad_b['rope_cache_write'] + ov_b['rope_cache_write'] +
-                       rep['rope_cache_write_q8'] + 2 * rows_n),
-             launches_engine=eng['rope_cache_write'],
-             launches_rows=2 * rows_n,
-             launches_sampled=smp['rope_cache_write'],
-             launches_adapters=ad_b['rope_cache_write'],
-             launches_overload=ov_b['rope_cache_write'],
-             launches_int8=rep['rope_cache_write_q8'], **k5f['bf16'],
-             int8=k5f['int8']),
+             launches=sum(k5f_launches.values()),
+             **{f'launches_{k}': v for k, v in k5f_launches.items()},
+             **k5f['bf16'], int8=k5f['int8']),
         # Not ports of TPU kernels: the batch-invariance repair of the
         # serving path's products (the JAX package leaves them to XLA)
         # and of the sampler's nucleus threshold; 'replaces' names the

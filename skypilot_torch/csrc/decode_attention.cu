@@ -88,20 +88,27 @@
 // read once and written once); one block per (row, array), copying with
 // the widest word (16 bytes at llama3-8b) the row's width and alignment
 // allow. Its int8 form writes the code rows (Hkv*hd bytes) and the scale
-// rows (Hkv*2 bytes) of K and V in the same one launch. The engine's
-// prefill chunk still writes with K5.
+// rows (Hkv*2 bytes) of K and V in the same one launch. No serving path
+// runs K5 any more (K5F writes them all); it stays the one-to-one
+// counterpart of the TPU kernel, held to index_copy_ by its own check.
 //
-// K5F (skypilot_rope_cache_write, _q8) is K5 redesigned for the decode and
-// verify steps. It computes what the JAX step computes around the same
-// TPU kernel, where XLA fuses the RoPE and the quantize into the scan.
-// On the H100, K5 alone ran at about 1% of its bytes bound: a launch of a
-// few hundred bytes costs the launch, and before it ran a chain of some
-// 23 eager elementwise launches a layer in bf16 (47 in int8): RoPE of q
-// and k with cos and sin recomputed from the angles, then the
+// K5F (skypilot_rope_cache_write, _q8) is K5 redesigned for every serving
+// forward: the decode and verify steps, the engine's prefill chunk, and
+// the engine-off prompt and decode step (over the dense cache's flat rows,
+// dst = b * S + pos + t). It computes what the JAX layer computes around
+// the same TPU kernel, where XLA fuses the RoPE and the quantize into the
+// scan. On the H100, K5 alone ran at about 1% of its bytes bound: a launch
+// of a few hundred bytes costs the launch, and before it ran a chain of
+// some 23 eager elementwise launches a layer in bf16 (47 in int8): RoPE of
+// q and k with cos and sin recomputed from the angles, then the
 // quantization. K5F is that whole chain in one launch a layer (cos and sin
-// made once per step): one block per new row rotates the row's q heads
-// (out), rotates its k heads, quantizes k and v when the pool is int8 and
-// writes them in place. Still bound by the launch, not by its bytes.
+// made once per forward, row r reading table row r mod period, so a
+// [B, T] prompt shares one [T] table): one block per new row rotates the
+// row's q heads (out), rotates its k heads (into k_out too when asked, for
+// every row: the int8 chunk and the engine-off prompt attend their exact
+// rotated rows), quantizes k and v when the pool is int8 and writes them in
+// place. Bound by the launch at a step's rows, by its bytes at a prompt's
+// thousands.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -842,30 +849,32 @@ extern "C" int skypilot_cache_write_q8(
 
 namespace {
 
-// The fused RoPE + int8 + cache write of the decode and verify steps: one
-// block per new row r. q's heads are rotated into q_out; k's heads are
-// rotated and, with v's, written into the pool row dst[r] (bf16, or int8
-// codes with a bf16 scale per kv head), or dropped when dst[r] lies
-// outside [0, N). The math is the plain chain's bit for bit: f32
-// x1 c - x2 s and x1 s + x2 c with each product rounded before the add
-// (the _rn intrinsics: nvcc would contract a*b - c*d into an FMA), then
-// round-to-nearest-even to bf16; int8 as _quantize_kv: amax over hd in f32
-// of the bf16 row, max(amax, 1e-8) / 127 rounded to bf16, codes
-// rint(x / scale) clamped to +-127.
+// The fused RoPE + int8 + cache write of every serving path: one block
+// per new row r. q's heads are rotated into q_out; k's heads are rotated
+// (into k_out too, when given, for every row) and, with v's, written into
+// the pool row dst[r] (bf16, or int8 codes with a bf16 scale per kv head),
+// or dropped when dst[r] lies outside [0, N). Row r reads cos and sin row
+// r mod period: a [B * T] prompt shares one [T] table. The math is the
+// plain chain's bit for bit: f32 x1 c - x2 s and x1 s + x2 c with each
+// product rounded before the add (the _rn intrinsics: nvcc would contract
+// a*b - c*d into an FMA), then round-to-nearest-even to bf16; int8 as
+// _quantize_kv: amax over hd in f32 of the bf16 row, max(amax, 1e-8) / 127
+// rounded to bf16, codes rint(x / scale) clamped to +-127.
 struct RopeWriteArgs {
   const bf16* q;      // [R, H, hd]
   const bf16* k;      // [R, Hkv, hd]
   const bf16* v;
-  const float* cos;   // [R, hd / 2]
+  const float* cos;   // [period, hd / 2]
   const float* sin;
   const int* dst;     // [R]
   bf16* q_out;        // [R, H, hd]
+  bf16* k_out;        // [R, Hkv, hd] or null
   void* k_pool;       // [N, Hkv, hd] bf16 or int8
   void* v_pool;
   bf16* k_scale;      // Q8: [N, Hkv]
   bf16* v_scale;
   long long n_rows;
-  int H, Hkv;
+  int H, Hkv, period;
 };
 
 constexpr int kRopeThreads = 256;
@@ -908,14 +917,21 @@ __device__ __forceinline__ void write_head(const float (&x)[HD / 32],
   if (lane == 0) scales[row] = sb;
 }
 
-template <int HD, bool Q8>
+// KOUT: k_out is given (a template argument: a run-time test of it slowed
+// the int8 form's short calls measurably).
+template <int HD, bool Q8, bool KOUT>
 __global__ void __launch_bounds__(kRopeThreads)
     rope_cache_write_kernel(const RopeWriteArgs a) {
   constexpr int HALF = HD / 2;
   const long long r = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* cs = a.cos + r * HALF;
-  const float* sn = a.sin + r * HALF;
+  // The table row; a step's table has a row per new row, and then the
+  // division is skipped (it sits ahead of every load of the q loop).
+  const int trow = a.period == static_cast<int>(gridDim.x)
+                       ? static_cast<int>(blockIdx.x)
+                       : static_cast<int>(blockIdx.x) % a.period;
+  const float* cs = a.cos + trow * HALF;
+  const float* sn = a.sin + trow * HALF;
   // q: every (head, i < hd/2) pair.
   const bf16* q = a.q + r * a.H * HD;
   bf16* qo = a.q_out + r * a.H * HD;
@@ -928,7 +944,8 @@ __global__ void __launch_bounds__(kRopeThreads)
     qo[h * HD + i + HALF] = __float2bfloat16_rn(y2);
   }
   const long long d = a.dst[r];
-  if (d < 0 || d >= a.n_rows) return;
+  const bool write = d >= 0 && d < a.n_rows;  // the same for the block
+  if (!write && !KOUT) return;
   // k and v: a warp per kv head; lane l holds dims l + 32 j.
   for (int kvh = warp; kvh < a.Hkv; kvh += kRopeThreads / 32) {
     const bf16* k = a.k + (r * a.Hkv + kvh) * HD;
@@ -941,9 +958,16 @@ __global__ void __launch_bounds__(kRopeThreads)
       rot(__bfloat162float(k[i]), __bfloat162float(k[i + HALF]), cs[i], sn[i],
           y1, y2);
       // The rotated K as the cache stores it: rounded to bf16 first.
-      kx[j] = __bfloat162float(__float2bfloat16_rn(y1));
-      kx[j + HD / 64] = __bfloat162float(__float2bfloat16_rn(y2));
+      const bf16 b1 = __float2bfloat16_rn(y1), b2 = __float2bfloat16_rn(y2);
+      if (KOUT) {
+        bf16* ko = a.k_out + (r * a.Hkv + kvh) * HD;
+        ko[i] = b1;
+        ko[i + HALF] = b2;
+      }
+      kx[j] = __bfloat162float(b1);
+      kx[j + HD / 64] = __bfloat162float(b2);
     }
+    if (!write) continue;
 #pragma unroll
     for (int j = 0; j < HD / 32; ++j) vx[j] = __bfloat162float(v[lane + 32 * j]);
     write_head<HD, Q8>(kx, a.k_pool, a.k_scale, d, a.Hkv, kvh, lane);
@@ -953,13 +977,16 @@ __global__ void __launch_bounds__(kRopeThreads)
 
 cudaError_t rope_cache_write(const RopeWriteArgs& a, int R, int HD, bool q8,
                              void* stream) {
-  if (R < 0 || a.H < 1 || a.Hkv < 1 || a.n_rows < 0)
+  if (R < 0 || a.H < 1 || a.Hkv < 1 || a.n_rows < 0 || a.period < 1)
     return cudaErrorInvalidValue;
   if (R == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SKYPILOT_ROPE_CASE(hd, q)                                        \
   if (HD == hd && q8 == q) {                                             \
-    rope_cache_write_kernel<hd, q><<<R, kRopeThreads, 0, st>>>(a);       \
+    if (a.k_out != nullptr)                                              \
+      rope_cache_write_kernel<hd, q, true><<<R, kRopeThreads, 0, st>>>(a); \
+    else                                                                 \
+      rope_cache_write_kernel<hd, q, false><<<R, kRopeThreads, 0, st>>>(a); \
     return cudaGetLastError();                                           \
   }
   SKYPILOT_ROPE_CASE(64, false)
@@ -972,8 +999,8 @@ cudaError_t rope_cache_write(const RopeWriteArgs& a, int R, int HD, bool q8,
 
 RopeWriteArgs rope_args(const void* q, const void* k, const void* v,
                         const void* cos, const void* sin, const void* dst,
-                        void* q_out, void* k_pool, void* v_pool, int H,
-                        int Hkv, long long n_rows) {
+                        void* q_out, void* k_out, void* k_pool, void* v_pool,
+                        int H, int Hkv, int period, long long n_rows) {
   RopeWriteArgs a{};
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
@@ -982,24 +1009,28 @@ RopeWriteArgs rope_args(const void* q, const void* k, const void* v,
   a.sin = static_cast<const float*>(sin);
   a.dst = static_cast<const int*>(dst);
   a.q_out = static_cast<bf16*>(q_out);
+  a.k_out = static_cast<bf16*>(k_out);
   a.k_pool = k_pool;
   a.v_pool = v_pool;
   a.n_rows = n_rows;
   a.H = H;
   a.Hkv = Hkv;
+  a.period = period;
   return a;
 }
 
 }  // namespace
 
-// q [R, H, hd], k/v [R, Hkv, hd] bf16 (contiguous), cos/sin [R, hd/2] f32,
-// dst [R] int32; q_out [R, H, hd]; pools [N, Hkv, hd] bf16.
+// q [R, H, hd], k/v [R, Hkv, hd] bf16 (contiguous), cos/sin [period, hd/2]
+// f32 (row r reads row r mod period), dst [R] int32; q_out [R, H, hd];
+// k_out [R, Hkv, hd] or null; pools [N, Hkv, hd] bf16.
 extern "C" int skypilot_rope_cache_write(
     const void* q, const void* k, const void* v, const void* cos,
-    const void* sin, const void* dst, void* q_out, void* k_pool, void* v_pool,
-    int R, int H, int Hkv, int HD, long long n_rows, void* stream) {
-  return rope_cache_write(rope_args(q, k, v, cos, sin, dst, q_out, k_pool,
-                                    v_pool, H, Hkv, n_rows),
+    const void* sin, const void* dst, void* q_out, void* k_out, void* k_pool,
+    void* v_pool, int R, int H, int Hkv, int HD, int period,
+    long long n_rows, void* stream) {
+  return rope_cache_write(rope_args(q, k, v, cos, sin, dst, q_out, k_out,
+                                    k_pool, v_pool, H, Hkv, period, n_rows),
                           R, HD, false, stream);
 }
 
@@ -1007,11 +1038,11 @@ extern "C" int skypilot_rope_cache_write(
 // [N, Hkv].
 extern "C" int skypilot_rope_cache_write_q8(
     const void* q, const void* k, const void* v, const void* cos,
-    const void* sin, const void* dst, void* q_out, void* k_pool, void* v_pool,
-    void* k_scale, void* v_scale, int R, int H, int Hkv, int HD,
-    long long n_rows, void* stream) {
-  RopeWriteArgs a = rope_args(q, k, v, cos, sin, dst, q_out, k_pool, v_pool,
-                              H, Hkv, n_rows);
+    const void* sin, const void* dst, void* q_out, void* k_out, void* k_pool,
+    void* v_pool, void* k_scale, void* v_scale, int R, int H, int Hkv, int HD,
+    int period, long long n_rows, void* stream) {
+  RopeWriteArgs a = rope_args(q, k, v, cos, sin, dst, q_out, k_out, k_pool,
+                              v_pool, H, Hkv, period, n_rows);
   a.k_scale = static_cast<bf16*>(k_scale);
   a.v_scale = static_cast<bf16*>(v_scale);
   return rope_cache_write(a, R, HD, true, stream);

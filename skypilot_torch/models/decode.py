@@ -15,9 +15,13 @@ module, by design:
 - ``decode_tokens_scan`` is a Python loop (no ``lax.scan``) whose
   argmax stays on the device: no host sync per token;
 - ``forward_paged`` (the batching engine's prefill chunk) writes the
-  chunk's rows into the pool once, with K5 on the card: that write is
-  both what this chunk's attention reads and the persisted state, where
-  JAX writes in the layer and again after the layer scan.
+  chunk's rows into the pool once: that write is both what this chunk's
+  attention reads and the persisted state, where JAX writes in the layer
+  and again after the layer scan;
+- every forward's RoPE, int8 quantization and K/V write are one
+  ``da.rope_cache_write`` a layer (K5F on the card), from a cos/sin
+  table made once per forward (``rope_table``), where the JAX layer
+  rotates, quantizes and updates the cache in turn for XLA to fuse.
 
 int8 KV (``init_cache(kv_int8=True)``, int8 pools in ``forward_paged``)
 follows the JAX contract: each new row is quantized per (position, kv
@@ -200,40 +204,50 @@ def final_norm(config: llama.LlamaConfig, cparams: Params, x: torch.Tensor,
                            config.norm_eps, config.norm_offset)[1]
 
 
+def rope_table(config: llama.LlamaConfig, positions: torch.Tensor):
+    """cos and sin [R, hd/2] f32 at ``positions`` [R]: made once per
+    forward, read by every layer's ``rope_cache_write``."""
+    angles = llama._rope_frequencies(config, positions)
+    return torch.cos(angles), torch.sin(angles)
+
+
 def _layer_cached(config: llama.LlamaConfig, x: torch.Tensor,
                   delta: Optional[torch.Tensor],
                   layer_params: Params, k_cache: torch.Tensor,
-                  v_cache: torch.Tensor, pos: int,
-                  angles: torch.Tensor, prefill: bool = False,
+                  v_cache: torch.Tensor, pos: int, cos: torch.Tensor,
+                  sin: torch.Tensor, dst: torch.Tensor,
+                  prefill: bool = False,
                   k_scale: Optional[torch.Tensor] = None,
                   v_scale: Optional[torch.Tensor] = None):
     """One transformer layer over ``T`` new positions. x: [B, T, D] and
     ``delta``, the residual still to add to it (None at layer 0);
     k_cache/v_cache: this layer's [B, S, Hkv, hd] views (int8 with
     ``k_scale``/``v_scale`` [B, S, Hkv] when quantized), written in
-    place at [pos, pos + T). Returns (x, delta) for the next layer
-    (``attn_out_and_mlp``). Same cast points as
+    place at [pos, pos + T): row b * T + t of the layer's
+    ``rope_cache_write`` goes to flat row ``dst`` = b * S + pos + t, its
+    RoPE from row t of the [T, hd/2] ``cos``/``sin``. Returns (x, delta)
+    for the next layer (``attn_out_and_mlp``). Same cast points as
     the JAX layer: f32 norms, the gate activation in f32 then cast
     back. The prompt (``prefill``) runs its products on ``llama.matmul``
     (cuBLAS on the card): no batch-invariance contract covers the
     engine-off path, and at its thousands of rows the invariant GEMM
     takes about three times as long."""
     b, t, _ = x.shape
+    s, nkv, hd = k_cache.shape[1:]
     matmul = llama.matmul if prefill else mi.matmul
     x, q, k, v = qkv_projections(config, x, layer_params, matmul=matmul,
                                  delta=delta)
-    q = attention_ops.apply_rope(q, angles)
-    k = attention_ops.apply_rope(k, angles)
-
-    if k_scale is not None:
-        k_rows, ks_rows = _quantize_kv(k)
-        v_rows, vs_rows = _quantize_kv(v)
-        k_scale[:, pos:pos + t] = ks_rows
-        v_scale[:, pos:pos + t] = vs_rows
-    else:
-        k_rows, v_rows = k, v
-    k_cache[:, pos:pos + t] = k_rows
-    v_cache[:, pos:pos + t] = v_rows
+    # The prompt attends its exact rotated k (quantization error only
+    # enters later steps); the other forms read the cache.
+    k_rot = torch.empty_like(k) if prefill else None
+    q = da.rope_cache_write(
+        q.view(b * t, -1, hd), k.view(b * t, nkv, hd),
+        v.view(b * t, nkv, hd), cos, sin, k_cache.view(b * s, nkv, hd),
+        v_cache.view(b * s, nkv, hd), dst,
+        *(None if sc is None else sc.view(b * s, nkv)
+          for sc in (k_scale, v_scale)),
+        k_out=None if k_rot is None else k_rot.view(b * t, nkv, hd)
+    ).view(b, t, -1, hd)
 
     scale = config.head_dim ** -0.5
     if t == 1:
@@ -248,7 +262,7 @@ def _layer_cached(config: llama.LlamaConfig, x: torch.Tensor,
         # causal flash over the LOCAL q/k/v is the whole attention; it
         # reads the exact rows (quantization error only enters later
         # decode steps).
-        attn = attention_ops.flash_attention(q, k, v, causal=True,
+        attn = attention_ops.flash_attention(q, k_rot, v, causal=True,
                                              scale=scale)
     else:
         # A chunk after earlier positions: query i sees keys [0, pos + i]
@@ -278,14 +292,18 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
     if prefill and cache.pos != 0:
         raise ValueError(f'prefill=True needs an empty cache, pos is '
                          f'{cache.pos}')
-    _, t = tokens.shape
-    if cache.pos + t > cache.k.shape[2]:
+    b, t = tokens.shape
+    s = cache.k.shape[2]
+    if cache.pos + t > s:
         raise ValueError(f'cache overflow: pos {cache.pos} + {t} tokens '
-                         f'> max_seq {cache.k.shape[2]}')
+                         f'> max_seq {s}')
     cparams = llama.compute_params(params, config)
     pos = cache.pos
-    positions = torch.arange(pos, pos + t, device=tokens.device)
-    angles = llama._rope_frequencies(config, positions)
+    dev = tokens.device
+    steps = torch.arange(t, dtype=torch.int32, device=dev)
+    cos, sin = rope_table(config, pos + steps)                  # [T, hd/2]
+    dst = (torch.arange(b, dtype=torch.int32, device=dev)[:, None] * s +
+           pos + steps).view(-1)                                # [B * T]
 
     x = cparams['embed'][tokens]
     if config.scale_embeddings:
@@ -294,7 +312,7 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
     for i, layer_params in enumerate(layer_list(cparams, config)):
         x, delta = _layer_cached(
             config, x, delta, layer_params, cache.k[i], cache.v[i], pos,
-            angles, prefill=prefill,
+            cos, sin, dst, prefill=prefill,
             k_scale=None if cache.k_scale is None else cache.k_scale[i],
             v_scale=None if cache.v_scale is None else cache.v_scale[i])
     cache.pos = pos + t
@@ -322,11 +340,13 @@ def forward_paged(params: Params, tokens: torch.Tensor, pools,
     or the scales None), updated in place; ``block_row`` [MB] int32 is
     THIS request's block table; ``start``/``real_len`` are host ints.
 
-    Per layer the chunk's rows are written first (K5 on the card), then
-    the chunk attends causally from its start (``da.prefill_attention``
-    with lengths = start + 1: query i sees keys [0, start + i]) over the
-    pool through ``block_row`` (in int8 its own rows from the chunk's
-    exact k/v). Chunk c sees every earlier chunk's keys plus itself
+    Per layer the chunk's rows are rotated and written first (one
+    ``rope_cache_write``, K5F on the card, from the chunk's cos/sin table
+    made once), then the chunk attends causally from its start
+    (``da.prefill_attention`` with lengths = start + 1: query i sees keys
+    [0, start + i]) over the pool through ``block_row`` (in int8 its own
+    rows from the chunk's exact k/v). Chunk c sees every earlier chunk's
+    keys plus itself
     causally, and a prefix-cache hit is just a chunk that starts at the
     hit's offset. On the card that is one K4-prefill launch a layer, with
     no gathered view, and a position's bits equal K4-paged's decode step
@@ -366,8 +386,8 @@ def forward_paged(params: Params, tokens: torch.Tensor, pools,
         raise ValueError(f'real_len {real_len} outside (0, {t}]')
     cparams = llama.compute_params(params, config)
     dev = tokens.device
-    angles = llama._rope_frequencies(
-        config, torch.arange(start, start + t, device=dev))
+    cos, sin = rope_table(config, torch.arange(start, start + t,
+                                               device=dev))
     x = llama.embed_tokens(cparams, tokens, config)
 
     kp = k_pool.view(nl, nb * bs, nkv, hd)
@@ -384,19 +404,15 @@ def forward_paged(params: Params, tokens: torch.Tensor, pools,
         x, q, k, v = qkv_projections(
             config, x, lp,
             None if ads[i] is None else (ads[i], adapter_idx), delta=delta)
-        q = attention_ops.apply_rope(q, angles)
-        k = attention_ops.apply_rope(k, angles)
-        if quantized:
-            k_rows, ks_rows = _quantize_kv(k)
-            v_rows, vs_rows = _quantize_kv(v)
-            da.cache_write(kp[i], vp[i], k_rows[0], v_rows[0], gw,
-                           ksp[i], vsp[i], ks_rows[0], vs_rows[0])
-        else:
-            da.cache_write(kp[i], vp[i], k[0], v[0], gw)
         # The chunk attends its own exact rows: in bf16 as just written, in
-        # int8 not their round trip (later chunks and decode read the
-        # codes).
-        q8 = dict(k_new=k, v_new=v, k_scale=ksp[i],
+        # int8 not their round trip (``k_rot``; later chunks and decode
+        # read the codes).
+        k_rot = torch.empty_like(k[0]) if quantized else None
+        q = da.rope_cache_write(
+            q[0], k[0], v[0], cos, sin, kp[i], vp[i], gw,
+            *((ksp[i], vsp[i]) if quantized else (None, None)),
+            k_out=k_rot)[None]
+        q8 = dict(k_new=k_rot[None], v_new=v, k_scale=ksp[i],
                   v_scale=vsp[i]) if quantized else {}
         attn = da.prefill_attention(q, kp[i], vp[i], q_start, hd ** -0.5,
                                     block_table=table, block_size=bs, **q8)

@@ -27,11 +27,14 @@ version beside it for CPU tensors (any other device raises):
 - ``cache_write``: K5-cuda, R new K/V rows written in place into a flat
   row view at given row indices (replaces ``_cache_write_kernel``);
   ``rows_dst`` gives the TPU kernel's own rows form
-  (``dst = b * S + pos[b]``) over a [B * S] view.
-- ``rope_cache_write``: K5F, the decode and verify steps' new rows in one
-  launch a layer: q and k rotated (RoPE from the step's cos and sin), k
-  and v quantized when the pool is int8, and written in place; its plain
-  version is the chain it replaces, bit for bit.
+  (``dst = b * S + pos[b]``) over a [B * S] view. No serving path runs
+  it: each writes through K5F.
+- ``rope_cache_write``: K5F, the new rows of every serving forward (the
+  decode and verify steps, the engine's prefill chunk, the engine-off
+  prompt and decode step) in one launch a layer: q and k rotated (RoPE
+  from the forward's cos and sin table), k and v quantized when the pool
+  is int8, and written in place; the rotated k rows too when asked
+  (``k_out``); its plain version is the chain it replaces, bit for bit.
 
 Every K4 form is batch-invariant on the card: a query row's bits do not
 depend on B, W or the rows beside it (``decode_split_plan`` reads S
@@ -119,11 +122,11 @@ CACHE_WRITE_Q8 = _build.Kernel(
                              ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 ROPE_CACHE_WRITE = _build.Kernel(
     'decode_attention', 'skypilot_rope_cache_write',
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_longlong,
-                                                  ctypes.c_void_p])
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong,
+                                                   ctypes.c_void_p])
 ROPE_CACHE_WRITE_Q8 = _build.Kernel(
     'decode_attention', 'skypilot_rope_cache_write_q8',
-    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_longlong,
+    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_longlong,
                                                    ctypes.c_void_p])
 # K4-prefill (csrc/prefill_attention.cu): a bf16 cache, dense or paged,
 # and an int8 pool, each its own count.
@@ -293,10 +296,17 @@ def rope_plain(x: torch.Tensor, cos: torch.Tensor,
 
 
 def _reference_rope_cache_write(q, k, v, cos, sin, k_pool, v_pool, dst,
-                                k_scale=None, v_scale=None):
+                                k_scale=None, v_scale=None, k_out=None):
     """The chain K5F replaces: q and k rotated, the new rows quantized
-    when the pool is int8, then K5's plain write. Returns rotated q."""
+    when the pool is int8, then K5's plain write. Row r reads cos and sin
+    row r mod their rows. Returns rotated q; rotated k into ``k_out``."""
+    period = cos.shape[0]
+    if period != q.shape[0]:
+        reps = q.shape[0] // period
+        cos, sin = cos.repeat(reps, 1), sin.repeat(reps, 1)
     q, k = rope_plain(q, cos, sin), rope_plain(k, cos, sin)
+    if k_out is not None:
+        k_out.copy_(k)
     if k_scale is None:
         _reference_cache_write(k_pool, v_pool, k, v, dst)
     else:
@@ -995,7 +1005,7 @@ def cache_write(k: torch.Tensor, v: torch.Tensor, k_new: torch.Tensor,
 
 
 def _rope_cache_write_cuda(q, k, v, cos, sin, k_pool, v_pool, dst,
-                           k_scale, v_scale):
+                           k_scale, v_scale, k_out=None):
     """Launch K5F (or its int8 form); raises on anything it does not
     take."""
     what = 'rope_cache_write'
@@ -1003,12 +1013,13 @@ def _rope_cache_write_cuda(q, k, v, cos, sin, k_pool, v_pool, dst,
     q8 = k_scale is not None
     r, hq, hd = q.shape
     hkv = k.shape[1]
+    period = cos.shape[0]
     pool_dtype = torch.int8 if q8 else torch.bfloat16
     checks = [('q', q, torch.bfloat16, (r, hq, hd)),
               ('k', k, torch.bfloat16, (r, hkv, hd)),
               ('v', v, torch.bfloat16, (r, hkv, hd)),
-              ('cos', cos, torch.float32, (r, hd // 2)),
-              ('sin', sin, torch.float32, (r, hd // 2)),
+              ('cos', cos, torch.float32, (period, hd // 2)),
+              ('sin', sin, torch.float32, (period, hd // 2)),
               ('k_pool', k_pool, pool_dtype, (k_pool.shape[0], hkv, hd)),
               ('v_pool', v_pool, pool_dtype, tuple(k_pool.shape))]
     if q8:
@@ -1016,6 +1027,8 @@ def _rope_cache_write_cuda(q, k, v, cos, sin, k_pool, v_pool, dst,
                     tuple(k_pool.shape[:2])),
                    ('v_scale', v_scale, torch.bfloat16,
                     tuple(k_pool.shape[:2]))]
+    if k_out is not None:
+        checks.append(('k_out', k_out, torch.bfloat16, (r, hkv, hd)))
     for name, x, dtype, shape in checks:
         if (x.device != dev or x.dtype != dtype or tuple(x.shape) != shape
                 or not x.is_contiguous()):
@@ -1032,8 +1045,9 @@ def _rope_cache_write_cuda(q, k, v, cos, sin, k_pool, v_pool, dst,
         return q_out
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(),
             sin.data_ptr(), dst.data_ptr(), q_out.data_ptr(),
+            0 if k_out is None else k_out.data_ptr(),
             k_pool.data_ptr(), v_pool.data_ptr())
-    tail = (r, hq, hkv, hd, k_pool.shape[0], _stream(q))
+    tail = (r, hq, hkv, hd, period, k_pool.shape[0], _stream(q))
     if q8:
         ROPE_CACHE_WRITE_Q8(*head, k_scale.data_ptr(), v_scale.data_ptr(),
                             *tail)
@@ -1047,25 +1061,38 @@ def rope_cache_write(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      k_pool: torch.Tensor, v_pool: torch.Tensor,
                      dst: torch.Tensor,
                      k_scale: Optional[torch.Tensor] = None,
-                     v_scale: Optional[torch.Tensor] = None
+                     v_scale: Optional[torch.Tensor] = None,
+                     k_out: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
-    """A decode or verify step's new rows for one layer: q [R, H, hd] and
-    k [R, Hkv, hd] rotated by RoPE at each row's position (cos and sin
-    [R, hd/2] f32, the step's table), k and v [R, Hkv, hd] written IN
-    PLACE into the flat pools [N, Hkv, hd] at rows dst [R] int32 (int8
-    codes with bf16 scales [N, Hkv] when ``k_scale``/``v_scale`` are
-    given: each row quantized per kv head). A dst outside [0, N) writes
-    nothing. Returns the rotated q. CUDA: K5F, one launch; CPU: the
+    """A serving forward's new rows for one layer: q [R, H, hd] and k [R,
+    Hkv, hd] rotated by RoPE at each row's position, k and v [R, Hkv, hd]
+    written IN PLACE into the flat pools [N, Hkv, hd] at rows dst [R]
+    int32 (int8 codes with bf16 scales [N, Hkv] when ``k_scale``/
+    ``v_scale`` are given: each row quantized per kv head). A dst outside
+    [0, N) writes nothing. cos and sin [P, hd/2] f32 are the forward's
+    table: row r is at the position of table row r mod P, so a step passes
+    one row per new row (P = R) and a [B, T] prompt its T positions once.
+    ``k_out`` [R, Hkv, hd] in k's dtype, when given, takes every row's
+    rotated k (the rows dst drops too), as the cache stores it before any
+    quantization. Returns the rotated q. CUDA: K5F, one launch; CPU: the
     chain it replaces (``rope_plain`` on q and k, ``quantize_kv``, the
     plain ``cache_write``)."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError('rope_cache_write: pass both k_scale and v_scale '
                          'or neither')
+    if cos.dim() != 2 or cos.shape[0] < 1 or q.shape[0] % cos.shape[0]:
+        raise ValueError(f'rope_cache_write: cos/sin {tuple(cos.shape)} '
+                         f'must tile the {q.shape[0]} rows')
+    if k_out is not None and (k_out.shape != k.shape
+                              or k_out.dtype != k.dtype):
+        raise ValueError(f'rope_cache_write: k_out {k_out.dtype} '
+                         f'{tuple(k_out.shape)} for k {k.dtype} '
+                         f'{tuple(k.shape)}')
     if _route('rope_cache_write', q) == 'cuda':
         return _rope_cache_write_cuda(q, k, v, cos, sin, k_pool, v_pool,
-                                      dst, k_scale, v_scale)
+                                      dst, k_scale, v_scale, k_out)
     return _reference_rope_cache_write(q, k, v, cos, sin, k_pool, v_pool,
-                                       dst, k_scale, v_scale)
+                                       dst, k_scale, v_scale, k_out)
 
 
 def rows_dst(pos: torch.Tensor, s: int) -> torch.Tensor:

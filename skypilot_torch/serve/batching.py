@@ -75,8 +75,8 @@ sin made once per step) and attends with K4-paged
 (``paged_decode_attention``, W = 1, or ``paged_verify_attention``,
 W = draft_k + 1), reading the block table directly; the contiguous
 ``decode_steps_rows`` twin runs K5F and dense K4; a prefill chunk
-(``decode.forward_paged``) writes with K5 and attends with dense K4 in
-its verify form. Over int8 caches the same calls take the scales and
+(``decode.forward_paged``) writes with K5F too and attends with
+K4-prefill. Over int8 caches the same calls take the scales and
 launch the kernels' int8 forms. Every row op of these steps is
 batch-invariant on the card: a row's tokens and K/V do not depend on
 B, W, its slot or the chunk it was prefilled in (the products through
@@ -173,13 +173,6 @@ SPEC_MIN_DISPATCH_TOKENS = 4
 # ---------------------------------------------------------------------
 
 
-def _rope_table(config: llama.LlamaConfig, positions: torch.Tensor):
-    """The step's cos and sin [R, hd/2] f32 at each new row's own
-    position: made once per step, read by every layer's K5F."""
-    angles = llama._rope_frequencies(config, positions)
-    return torch.cos(angles), torch.sin(angles)
-
-
 def _attend_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  pos: torch.Tensor, scale: float, k_scale=None,
                  v_scale=None) -> torch.Tensor:
@@ -258,7 +251,7 @@ def decode_steps_rows(params: Params, tokens: torch.Tensor, caches,
     tok, cur = tokens, pos
     out = []
     for _ in range(num_steps):
-        cos, sin = _rope_table(config, cur)                  # [B, hd/2]
+        cos, sin = decode.rope_table(config, cur)            # [B, hd/2]
         x = llama.embed_tokens(cparams, tok.long(), config)[:, None]
         dst = da.rows_dst(cur, s)
         delta = None
@@ -336,7 +329,7 @@ def decode_steps_paged(params: Params, tokens: torch.Tensor, caches,
     tok, cur = tokens, pos
     out = []
     for _ in range(num_steps):
-        cos, sin = _rope_table(config, cur)                  # [B, hd/2]
+        cos, sin = decode.rope_table(config, cur)            # [B, hd/2]
         x = llama.embed_tokens(cparams, tok.long(), config)[:, None]
         widx = kv_pool_lib.write_index(block_tables, cur, block_size)
         # Inactive rows' outputs are discarded: they attend one key, not
@@ -402,7 +395,8 @@ def verify_step_paged(params: Params, tokens: torch.Tensor, caches,
     b = tokens.shape[0]
     positions = pos[:, None] + torch.arange(width, dtype=torch.int32,
                                             device=pos.device)[None, :]
-    cos, sin = _rope_table(config, positions.reshape(-1))  # [B*W, hd/2]
+    cos, sin = decode.rope_table(config,
+                                 positions.reshape(-1))     # [B*W, hd/2]
     x = llama.embed_tokens(cparams, tokens.long(), config)   # [B, W, D]
     widx = kv_pool_lib.verify_write_indices(
         block_tables, pos, n_real, width, block_size).reshape(-1)

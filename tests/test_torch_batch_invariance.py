@@ -16,7 +16,9 @@ versions against the code they replaced and against the JAX package.
   device steps (``_rope_rows`` / ``_rope_verify``, ``_new_rows``, the
   plain K5), bit for bit, bf16 and int8, with rows whose dst is outside
   the pool; against the JAX step's ``_rope_rows`` and ``_quantize_kv``
-  within 1e-6 in f32 (cos and sin are XLA's there).
+  within 1e-6 in f32 (cos and sin are XLA's there); its ``k_out`` is the
+  plain rotation of every row, and a table of P rows read at r mod P is
+  the table repeated, bit for bit.
 - ``verify_attention`` (K4-prefill's dense form) against the JAX
   ``_masked_attention`` it replaced in ``forward_paged``: f32, 2e-5.
 - ``forward_cached``'s products: the engine-off prompt on
@@ -480,6 +482,77 @@ def test_rope_cache_write_refusals():
     with pytest.raises(ValueError, match='both k_scale and v_scale'):
         tda.rope_cache_write(q, kv, kv, cs, cs, pool, pool, dst,
                              torch.zeros((n, hkv)))
+
+
+@pytest.mark.parametrize('q8', [False, True], ids=['bf16', 'int8'])
+@pytest.mark.parametrize('period', [12, 4, 1])
+def test_rope_cache_write_k_out_and_table_period(period, q8):
+    """12 rows over a table of ``period`` rows (row r at table row r mod
+    period: a [B, T] prompt's T positions once, a decode step's one): the
+    same rotated q, pools and ``k_out`` as the table repeated to 12 rows,
+    and ``k_out`` the plain rotation of every row's k, bit for bit, the
+    rows whose dst is -1 or past the pool included; the pools equal a
+    call without ``k_out``."""
+    gen = torch.Generator().manual_seed(period + 20 * q8)
+    r, hq, hkv, hd, n = 12, 8, 2, 32, 40
+    q = torch.randn((r, hq, hd), generator=gen).to(torch.bfloat16)
+    k = torch.randn((r, hkv, hd), generator=gen).to(torch.bfloat16)
+    v = torch.randn((r, hkv, hd), generator=gen).to(torch.bfloat16)
+    angles = torch.rand((period, hd // 2), generator=gen) * 300
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    full = (cos.repeat(r // period, 1), sin.repeat(r // period, 1))
+    dst = torch.randperm(n, generator=gen)[:r].to(torch.int32)
+    dst[0], dst[5] = -1, n
+    pools = _pools(n, hkv, hd, q8, gen)
+    runs = []
+    for table, with_k in ((full, True), ((cos, sin), True),
+                          ((cos, sin), False)):
+        p = [None if x is None else x.clone() for x in pools]
+        k_out = torch.full_like(k, float('nan')) if with_k else None
+        qo = tda.rope_cache_write(q, k, v, *table, p[0], p[1], dst, p[2],
+                                  p[3], k_out=k_out)
+        runs.append((qo, p, k_out))
+    for qo, p, _ in runs[1:]:
+        assert torch.equal(qo, runs[0][0])
+        assert all(a is None or torch.equal(a, b)
+                   for a, b in zip(p, runs[0][1]))
+    rot = tda.rope_plain(k, *full)
+    assert torch.equal(runs[0][2], rot) and torch.equal(runs[1][2], rot)
+    assert torch.equal(runs[0][0], tda.rope_plain(q, *full))
+
+
+def test_rope_cache_write_k_out_and_table_refusals():
+    """A ``k_out`` or a table the call cannot take is refused on both
+    routes (the wrapper) and by the CUDA form's own checks, before
+    anything launches."""
+    r, hq, hkv, hd, n = 4, 4, 2, 64, 16
+    q = torch.zeros((r, hq, hd), dtype=torch.bfloat16)
+    kv = torch.zeros((r, hkv, hd), dtype=torch.bfloat16)
+    cs = torch.zeros((r, hd // 2))
+    pool = torch.zeros((n, hkv, hd), dtype=torch.bfloat16)
+    dst = torch.zeros((r,), dtype=torch.int32)
+    _refused(lambda: tda.rope_cache_write(
+        q, kv, kv, cs, cs, pool, pool, dst, k_out=kv[:2].clone()),
+        ValueError, 'k_out')
+    _refused(lambda: tda.rope_cache_write(
+        q, kv, kv, cs, cs, pool, pool, dst, k_out=kv.float()),
+        ValueError, 'k_out')
+    _refused(lambda: tda.rope_cache_write(
+        q, kv, kv, cs[:3].clone(), cs[:3].clone(), pool, pool, dst),
+        ValueError, 'must tile')
+    _refused(lambda: tda.rope_cache_write(
+        q, kv, kv, cs[0], cs[0], pool, pool, dst), ValueError, 'must tile')
+    _refused(lambda: tda._rope_cache_write_cuda(
+        q, kv, kv, cs, cs, pool, pool, dst, None, None,
+        torch.zeros((r, hd, hkv), dtype=torch.bfloat16).transpose(1, 2)),
+        TypeError, 'k_out must be')
+    _refused(lambda: tda._rope_cache_write_cuda(
+        q, kv, kv, cs, cs, pool, pool, dst, None, None,
+        torch.zeros((r, hkv, hd), dtype=torch.int8)), TypeError,
+        'k_out must be')
+    _refused(lambda: tda._rope_cache_write_cuda(
+        q, kv, kv, cs[:2].clone(), cs, pool, pool, dst, None, None),
+        TypeError, 'sin must be')
 
 
 # ---------------------------------------------------------------------

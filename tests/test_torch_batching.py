@@ -216,6 +216,45 @@ def test_forward_paged_chunks_and_prefix_offset_match_jax(models):
                                    np.asarray(exp)[:, 1:], **POOL_TOL)
 
 
+def _count_writes(monkeypatch):
+    """Count ``rope_cache_write`` and ``cache_write`` calls through the
+    module the serving forwards call them from."""
+    from skypilot_torch.ops import decode_attention as tda
+    calls = {'rope_cache_write': 0, 'cache_write': 0}
+    for name in calls:
+        real = getattr(tda, name)
+
+        def counted(*a, _name=name, _real=real, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(tda, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize('int8', [False, True], ids=['f32', 'int8'])
+def test_forward_paged_writes_through_rope_cache_write(models, monkeypatch,
+                                                       int8):
+    """Each chunk's RoPE, quantization and write are one
+    ``rope_cache_write`` a layer (K5F on the card): L calls a chunk, no
+    ``cache_write``; over two chunks, the second at offset 8."""
+    _, tcfg, _, tp = models
+    calls = _count_writes(monkeypatch)
+    shape = (tcfg.n_layers, 4, BS, tcfg.n_kv_heads, tcfg.head_dim)
+    if int8:
+        pools = (torch.zeros(shape, dtype=torch.int8),
+                 torch.zeros(shape, dtype=torch.int8),
+                 torch.zeros(shape[:-1], dtype=torch.bfloat16),
+                 torch.zeros(shape[:-1], dtype=torch.bfloat16))
+    else:
+        pools = (torch.zeros(shape), torch.zeros(shape), None, None)
+    row = torch.tensor([2, 3, 1], dtype=torch.int32)
+    for n, (start, real) in enumerate(((0, 8), (8, 5)), 1):
+        toks = torch.arange(1, 9)[None]
+        tdecode.forward_paged(tp, toks, pools, row, start, real, tcfg, BS)
+        assert calls == {'rope_cache_write': n * tcfg.n_layers,
+                         'cache_write': 0}
+
+
 def _streams(seed, n=40):
     rng = np.random.default_rng(seed)
     out = []

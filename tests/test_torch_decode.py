@@ -67,6 +67,32 @@ def test_forward_cached_logits_match(name):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize('kv_int8', [False, True], ids=['f32', 'int8'])
+def test_forward_cached_writes_through_rope_cache_write(monkeypatch,
+                                                       kv_int8):
+    """The prompt, a decode step and a later chunk each write their rows
+    with one ``rope_cache_write`` a layer (K5F on the card), no
+    ``cache_write``."""
+    from skypilot_torch.ops import decode_attention as tda
+    _, tcfg, _, tp = _models('tiny')
+    calls = {'rope_cache_write': 0, 'cache_write': 0}
+    for name in calls:
+        real = getattr(tda, name)
+
+        def counted(*a, _name=name, _real=real, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(tda, name, counted)
+    cache = tdecode.init_cache(tcfg, 2, 32, device='cpu', kv_int8=kv_int8)
+    for n, (t, kw) in enumerate(((7, dict(prefill=True)), (1, {}),
+                                 (3, {})), 1):
+        tdecode.forward_cached(tp, torch.ones((2, t), dtype=torch.long),
+                               cache, tcfg, **kw)
+        assert calls == {'rope_cache_write': n * tcfg.n_layers,
+                         'cache_write': 0}
+    assert cache.pos == 11
+
+
 def test_forward_cached_last_only():
     jcfg, tcfg, jp, tp = _models('tiny')
     prompt = np.arange(10, dtype=np.int32)[None] * 7

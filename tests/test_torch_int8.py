@@ -387,6 +387,42 @@ def test_forward_paged_int8_matches_jax(models):
     _check_pools(tc, jc)
 
 
+def test_forward_paged_int8_three_chunks_pools_equal_jax(models):
+    """A three-chunk int8 prompt, every layer's RoPE, quantization and
+    write one ``rope_cache_write``: request A's positions 0-7, then
+    request B, which shares A's first block (a prefix hit), from offset 8
+    and from 16 (5 real rows, 3 padded to the scratch block). The pools'
+    codes and scales equal JAX's bit for bit outside the scratch block;
+    each chunk's logits within LOGIT_TOL."""
+    jcfg, tcfg, jp, tp = models
+    rng = np.random.default_rng(16)
+    prompt = rng.integers(0, jcfg.vocab_size, 21).astype(np.int32)
+    nb = 6
+    shape = (jcfg.n_layers, nb, BS, jcfg.n_kv_heads, jcfg.head_dim)
+    zeros = [np.zeros(shape, np.int8), np.zeros(shape, np.int8),
+             np.zeros(shape[:-1], np.float32),
+             np.zeros(shape[:-1], np.float32)]
+    jc, tc = _jcaches(zeros), _tcaches(zeros)
+    rows = [np.asarray([2, 5, 4], np.int32), np.asarray([2, 1, 3], np.int32)]
+    for req, start in ((0, 0), (1, 8), (1, 16)):
+        real = min(8, len(prompt) - start)
+        chunk = np.zeros((1, 8), np.int32)
+        chunk[0, :real] = prompt[start:start + real]
+        jl, jc = jdecode.forward_paged(
+            jp, jnp.asarray(chunk), jc, jnp.asarray(rows[req]),
+            jnp.asarray(start), jnp.asarray(real), jcfg, BS)
+        tl, tc = tdecode.forward_paged(tp, _t(chunk).long(), tc,
+                                       _t(rows[req]), start, real, tcfg, BS)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+    for got, want in zip(tc[:2], jc[:2]):
+        np.testing.assert_array_equal(got.numpy()[:, 1:],
+                                      np.asarray(want)[:, 1:])
+    for got, want in zip(tc[2:], jc[2:]):
+        np.testing.assert_array_equal(
+            got.float().numpy()[:, 1:],
+            np.asarray(want.astype(jnp.float32))[:, 1:])
+
+
 def test_engine_kv_int8_equals_jax_engine(models):
     """Single-chunk prompts (the int8 exactness caveat) and a shared
     prefix that hits the prefix cache: the port's int8-KV engine gives
