@@ -181,6 +181,27 @@ in order (any failure exits non-zero; nothing is caught):
    fixed batch (K1-RoPE 192, pre-pass = K2 = K3 = 96), falling losses,
    step time, tokens/s, MFU (4N), peak memory and a profile of one more
    step.
+17. CKPT (checkpoint and resume; ``build/ckpt_smoke``, its free space
+   checked first against two LoRA saves, deleted at the end):
+   ``recipes/finetune.main`` at the train phase's arguments with
+   ``--checkpoint-dir`` and ``SKYTPU_TASK_ID`` commits step 0 (its bytes
+   equal to the state's, the loop-blocking snapshot seconds, the
+   background write seconds, the ``skytpu_ckpt_*`` and goodput deltas;
+   K1-RoPE 2 x 32, pre-pass = K2 = K3 = 32 for its step); the step
+   restored here into a template from another seed, every leaf's CRC32
+   recomputed from the restored tensors equal to the manifest's; the
+   next step on it and on the restarted iterator's first batch is the
+   reference. A fresh process runs the recipe's module as ``python -m
+   skypilot_torch.recipes.finetune`` does: it prints "resumed from
+   checkpoint at step 1", its step 1 prints the reference's loss and
+   grad_norm, the step it saves equals the reference bit for bit
+   (adapters, moments, counters), its launches are one step's, and its
+   restore seconds come from its goodput. The replica's ``build_server``
+   with ``--checkpoint-dir`` (engine-off and ``--slots 8``) gives the
+   greedy tokens of the same replica over the reference's weights merged
+   in this process (``merge_lora_host``; ``merge_lora``'s on-card merge
+   is printed beside). An int8-base QLoRA state after one step saves
+   and restores with every leaf equal.
 
 Then one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line. ``--phases`` runs a subset (no
@@ -207,7 +228,7 @@ PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 L2_BYTES = 50 * 2 ** 20
 PHASES = ('k1', 'k4', 'e2e', 'serve', 'k1r', 'bwd', 'train', 'k5', 'k5f',
           'k4p', 'k4pre', 'invariance', 'engine', 'sampling', 'adapters',
-          'rows', 'k6', 'int8k', 'int8', 'qlora')
+          'rows', 'k6', 'int8k', 'int8', 'qlora', 'ckpt')
 K1_TOL = {'out': 2e-2, 'lse': 2e-2}
 # K2/K3 in bf16 (P and dS rounded to bf16 before their products) against
 # f32 on the same rotated bf16 q and k: max |err| over max |ref| per
@@ -5899,6 +5920,435 @@ def qlora_phase(torch, attention):
     return dict(launches=launches)
 
 
+# ---------------------------------------------------------------------
+# Checkpoint and resume
+# ---------------------------------------------------------------------
+
+CKPT_TASK = 'ckpt-smoke'
+# The replica's warm-start prompt and its new tokens (a power of two:
+# the engine-off replica's bucket).
+CKPT_PROMPT_LEN, CKPT_NEW = 64, 16
+# The resumed process: one step from the restored step 0, the launch
+# counts of that step, its restore seconds and checkpoint series.
+_CKPT_RESUME = '''
+import json, runpy, sys, time
+argv = json.loads(sys.argv[1])
+sys.argv = ['finetune'] + argv
+t0 = time.perf_counter()
+runpy.run_module('skypilot_torch.recipes.finetune', run_name='__main__',
+                 alter_sys=True)
+from skypilot_torch import metrics
+from skypilot_torch.ops import attention
+fams = {f.name: f for f in metrics.registry().families()}
+print('CKPT_RESUME_PROCESS ' + json.dumps(dict(
+    wall_s=time.perf_counter() - t0,
+    launches={n: getattr(attention, k).launches for n, k in (
+        ('flash_fwd', 'FLASH_FWD'), ('flash_fwd_rope', 'FLASH_FWD_ROPE'),
+        ('flash_bwd_prep', 'FLASH_BWD_PREP'), ('flash_bwd_dq', 'FLASH_BWD_DQ'),
+        ('flash_bwd_dkv', 'FLASH_BWD_DKV'))},
+    goodput={b: fams['skytpu_goodput_seconds_total'].labels(bucket=b).value
+             for b in ('restore', 'checkpoint_save', 'compute', 'compile')},
+    restores_ok=fams['skytpu_ckpt_restores_total'].labels(
+        outcome='ok').value,
+    save_seconds_sum=fams['skytpu_ckpt_save_seconds'].collect()[0][1].sum,
+    bytes_total=fams['skytpu_ckpt_bytes_total'].collect()[0][1].value)),
+    flush=True)
+'''
+
+
+def _ckpt_bytes(config, rank, qlora=False):
+    """The bytes one save of a rank-``rank`` q/v LoRA TrainState writes:
+    the base (bf16, or int8 codes with bf16 per-channel scales for the
+    matmul weights and the head), the adapters (bf16), AdamW's mu (f32)
+    and nu (bf16), and the int32 step and count."""
+    d, L, hd = config.dim, config.n_layers, config.head_dim
+    lora = L * rank * (2 * d + config.n_heads * hd + config.n_kv_heads * hd)
+    base = 2 * config.num_params()
+    if qlora:
+        q, kv, ffn = config.n_heads * hd, config.n_kv_heads * hd, \
+            config.ffn_hidden
+        # wq, wk, wv, wo, w_gate, w_up, w_down as [in, out].
+        for i, o in ((d, q), (d, kv), (d, kv), (q, d), (d, ffn), (d, ffn),
+                     (ffn, d)):
+            base -= L * (2 * i * o - i * o - 2 * o)   # codes 1 B, scales 2 B
+        v = config.vocab_size
+        base -= 2 * d * v - d * v - 2 * v
+    return base + lora * (2 + 4 + 2) + 4 + 4
+
+
+def _checksum_mismatches(native, state, leaves):
+    """Leaves of ``state`` whose dtype, shape or per-shard CRC32,
+    recomputed from the tensors' host bytes, differ from the saved
+    step's manifest (``leaves``)."""
+    import zlib
+
+    import numpy as np
+    bad = []
+    flat = native.flatten(state.checkpoint_tree())
+    for key, leaf in flat.items():
+        arr, name = native.host_leaf(leaf)
+        entry = leaves[key]
+        crc = zlib.crc32(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
+        if (name != entry['dtype'] or list(arr.shape) != entry['shape'] or
+                crc != entry['shards'][0]['checksum']):
+            bad.append(key)
+    return bad, len(flat)
+
+
+def _ckpt_series(reg):
+    """The checkpoint series and goodput's two checkpoint buckets in
+    the process registry."""
+    from skypilot_torch.checkpoint import writer
+    from skypilot_torch.metrics import goodput
+    writer.ckpt_metrics()
+    goodput.accountant()
+    fams = {f.name: f for f in reg.families()}
+    save = fams['skytpu_ckpt_save_seconds'].collect()[0][1]
+    return dict(
+        save_seconds_sum=save.sum, save_seconds_count=save.count,
+        bytes_total=fams['skytpu_ckpt_bytes_total'].collect()[0][1].value,
+        saves_ok=fams['skytpu_ckpt_saves_total'].labels(outcome='ok').value,
+        restores_ok=fams['skytpu_ckpt_restores_total'].labels(
+            outcome='ok').value,
+        last_committed_step=fams[
+            'skytpu_ckpt_last_committed_step'].collect()[0][1].value,
+        goodput_checkpoint_save=fams['skytpu_goodput_seconds_total'].labels(
+            bucket='checkpoint_save').value,
+        goodput_restore=fams['skytpu_goodput_seconds_total'].labels(
+            bucket='restore').value)
+
+
+def _replica_tokens(serve_model, lineage, slots, prompt, model, dev,
+                    params=None):
+    """The greedy tokens of the replica built by ``build_server`` with
+    ``--checkpoint-dir lineage`` (``--slots slots``); with ``params`` its
+    load function hands over those weights instead (the reference)."""
+    args = serve_model.parse_args([
+        '--model', model, '--port', '0', '--device', dev,
+        '--slots', str(slots), '--checkpoint-dir', lineage])
+    real_load = serve_model.load_params
+    if params is not None:
+        serve_model.load_params = lambda *_: params
+    t0 = time.perf_counter()
+    try:
+        server, generate = serve_model.build_server(args)
+    finally:
+        serve_model.load_params = real_load
+    setup_s = time.perf_counter() - t0
+    try:
+        return generate(prompt, CKPT_NEW), setup_s
+    finally:
+        server.server_close()
+        if server.engine is not None:
+            server.engine.close()
+
+
+def ckpt_phase(torch, attention, dev='cuda', model='llama3-8b', seq=2048,
+               batch=8):
+    """Checkpoint and resume at llama3-8b, 32 layers, published widths
+    (module docstring, 17). ``dev``, ``model``, ``seq`` and ``batch``
+    rehearse it on the CPU at a small size, where the wrappers run their
+    plain versions and count no launch."""
+    import gc
+
+    import numpy as np
+
+    from skypilot_torch import checkpoint
+    from skypilot_torch import metrics as metrics_lib
+    from skypilot_torch.checkpoint import native
+    from skypilot_torch.models import decode, llama
+    from skypilot_torch.parallel import lora as lora_lib
+    from skypilot_torch.parallel import train as train_lib
+    from skypilot_torch.recipes import finetune, serve_model
+
+    def sync():
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+
+    def free():
+        gc.collect()
+        if dev == 'cuda':
+            torch.cuda.empty_cache()
+
+    free()
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(root, 'build', 'ckpt_smoke')
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    lineage = os.path.join(base, CKPT_TASK)
+    rank = 16
+    config = llama.get_config(model, max_seq_len=seq)
+    serve_config = llama.get_config(model)
+    lora_bytes = _ckpt_bytes(config, rank)
+    qlora_bytes = _ckpt_bytes(config, rank, qlora=True)
+    # Two LoRA saves (the first process's step 0, the resumed process's
+    # step 1) live at once; the QLoRA lineage comes after they are gone.
+    need = max(2 * lora_bytes, qlora_bytes)
+    free_bytes = shutil.disk_usage(base).free
+    log('CKPT_DISK ' + json.dumps(dict(dir=base, free_bytes=free_bytes,
+                                       need_bytes=need,
+                                       lora_save_bytes=lora_bytes,
+                                       qlora_save_bytes=qlora_bytes)))
+    if free_bytes < need:
+        raise RuntimeError(f'ckpt: {free_bytes} bytes free under {base}, '
+                           f'{need} needed (two {lora_bytes}-byte saves)')
+    os.environ['SKYTPU_TASK_ID'] = CKPT_TASK
+    # The recipe's step callbacks write under ~/sky_benchmark_dir: keep
+    # them inside the checkout.
+    home = os.environ.get('HOME')
+    os.environ['HOME'] = os.path.join(base, 'home')
+    argv = ['--model', model, '--seq', str(seq), '--batch', str(batch),
+            '--lora-rank', str(rank), '--param-dtype', 'bf16', '--synthetic',
+            '--device', dev, '--checkpoint-dir', base,
+            '--checkpoint-interval', '1', '--log-every', '1']
+    kernels = {'flash_fwd': attention.FLASH_FWD,
+               'flash_fwd_rope': attention.FLASH_FWD_ROPE,
+               'flash_bwd_prep': attention.FLASH_BWD_PREP,
+               'flash_bwd_dq': attention.FLASH_BWD_DQ,
+               'flash_bwd_dkv': attention.FLASH_BWD_DKV}
+    # One step's launches (train phase): K1-RoPE twice a layer under the
+    # layer checkpoint, the pre-pass, K2 and K3 once.
+    L = config.n_layers if dev == 'cuda' else 0
+    step_identity = {'flash_fwd': 0,
+                     'flash_fwd_rope': (2 if config.remat else 1) * L,
+                     'flash_bwd_prep': L, 'flash_bwd_dq': L,
+                     'flash_bwd_dkv': L}
+    reg = metrics_lib.registry()
+
+    # 1. The recipe saves: one step, its state committed as step 0. The
+    # loop-blocking part of each maybe_save (snapshot + submit) is timed
+    # around the manager's method; the background write is the
+    # skytpu_ckpt_save_seconds histogram.
+    blocking = []
+    real_maybe_save = native.NativeCheckpointManager.maybe_save
+
+    def timed_maybe_save(self, step, state, force=False):
+        t0 = time.perf_counter()
+        try:
+            return real_maybe_save(self, step, state, force)
+        finally:
+            blocking.append(time.perf_counter() - t0)
+
+    series0 = _ckpt_series(reg)
+    for k in kernels.values():
+        k.launches = 0
+    native.NativeCheckpointManager.maybe_save = timed_maybe_save
+    t0 = time.perf_counter()
+    try:
+        finetune.main(argv + ['--steps', '1'])
+    finally:
+        native.NativeCheckpointManager.maybe_save = real_maybe_save
+    save_run_s = time.perf_counter() - t0
+    launches_save = {n: k.launches for n, k in kernels.items()}
+    series1 = _ckpt_series(reg)
+    delta = {k: series1[k] - series0[k] for k in series1
+             if k != 'last_committed_step'}
+    step_dir = os.path.join(lineage, checkpoint.step_dir_name(0))
+    with open(os.path.join(step_dir, 'manifest.json'), encoding='utf-8') as f:
+        manifest = json.load(f)
+    on_disk = sum(os.path.getsize(os.path.join(step_dir, n))
+                  for n in os.listdir(step_dir) if n.endswith('.bin'))
+    log('CKPT_SAVE ' + json.dumps(dict(
+        card=smi_line(), steps=checkpoint.committed_steps(lineage),
+        bytes=delta['bytes_total'], bytes_on_disk=on_disk,
+        bytes_expected=lora_bytes, leaves=len(manifest['leaves']),
+        snapshot_s=blocking, background_write_s=delta['save_seconds_sum'],
+        writes=delta['save_seconds_count'],
+        goodput_checkpoint_save_s=delta['goodput_checkpoint_save'],
+        run_s=save_run_s, launches=launches_save,
+        launches_expected=step_identity,
+        last_committed_step=series1['last_committed_step'],
+        series_delta=delta)))
+    free()
+    assert checkpoint.committed_steps(lineage) == [0], lineage
+    assert delta['bytes_total'] == on_disk == lora_bytes, (delta, on_disk)
+    assert delta['saves_ok'] == 1 and series1['last_committed_step'] == 0
+    assert launches_save == step_identity, launches_save
+
+    # 2. The saved state, restored in this process into a template drawn
+    # from another seed: every leaf's CRC32 recomputed from the restored
+    # tensors equals the manifest's. The saving process's own next step
+    # on it and on the resumed iterator's first batch is the reference
+    # for the resumed process.
+    args = finetune.parse_args(argv + ['--steps', '2'])
+    optimizer = train_lib.default_optimizer(learning_rate=args.lr)
+    template = train_lib.init_train_state(
+        config, seed=1, optimizer=optimizer, param_dtype=torch.bfloat16,
+        lora_rank=rank, device=dev)
+    mgr = checkpoint.NativeCheckpointManager(lineage)
+    sync()
+    t0 = time.perf_counter()
+    state = mgr.restore(0, template)
+    sync()
+    restore_s = time.perf_counter() - t0
+    info = mgr.last_restore
+    mgr.close()
+    del template
+    free()
+    t0 = time.perf_counter()
+    bad, n_leaves = _checksum_mismatches(native, state, manifest['leaves'])
+    check_s = time.perf_counter() - t0
+    log('CKPT_RESTORE ' + json.dumps(dict(
+        restore_s=restore_s, bytes_read=info['bytes_read'],
+        resharded=info['resharded'], leaves=n_leaves,
+        crc_mismatches=bad, crc_check_s=check_s, step=state.step)))
+    assert not bad and state.step == 1 and not info['resharded'], bad
+    batch = next(finetune.data_iterator(args, config.vocab_size,
+                                        np.random.default_rng(0)))
+    step_fn = train_lib.build_train_step(config, optimizer=optimizer)
+    ref, metrics = step_fn(state, {'tokens': torch.from_numpy(batch).to(dev)})
+    ref_loss, ref_gn = float(metrics['loss']), float(metrics['grad_norm'])
+    ref_bits = {k: native.host_leaf(v)[0] for k, v in native.flatten(
+        ref.checkpoint_tree()).items() if not k.startswith('params/')}
+    # The replica's merge (on the host, f32, one rounding) of the
+    # reference state, and its greedy tokens engine-off and through the
+    # --slots 8 engine (the replica over these weights).
+    gen = torch.Generator().manual_seed(17)
+    prompt = torch.randint(0, serve_config.vocab_size, (CKPT_PROMPT_LEN,),
+                           generator=gen).tolist()
+    t0 = time.perf_counter()
+    host = {'layers': {w: ref.params['layers'][w].cpu() for w in ('wq', 'wv')}}
+    host = lora_lib.merge_lora_host(host, {k: v.cpu()
+                                           for k, v in ref.lora.items()})
+    merge_s = time.perf_counter() - t0
+    params_ref = dict(ref.params)
+    params_ref['layers'] = dict(ref.params['layers'])
+    for w in ('wq', 'wv'):
+        params_ref['layers'][w] = host['layers'][w].to(dev)
+    del host
+    tokens = torch.tensor([prompt], device=dev)
+    want_off = decode.greedy_generate(params_ref, tokens, serve_config,
+                                      CKPT_NEW)[0].tolist()
+    on_device = lora_lib.merge_lora(ref.params, ref.lora)
+    device_merge = decode.greedy_generate(on_device, tokens, serve_config,
+                                          CKPT_NEW)[0].tolist()
+    wq_differ = int((on_device['layers']['wq'] !=
+                     params_ref['layers']['wq']).sum())
+    del on_device
+    free()
+    want_engine, _ = _replica_tokens(serve_model, lineage, 8, prompt,
+                                     model, dev, params=params_ref)
+    del state, ref, metrics, params_ref, step_fn
+    free()
+
+    # 3. A fresh process resumes: the recipe's module run as
+    # `python -m skypilot_torch.recipes.finetune` does, with the same
+    # directory and task id; it restores step 0, runs step 1 and saves it.
+    env = dict(os.environ, SKYTPU_TASK_ID=CKPT_TASK)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-c', _CKPT_RESUME, json.dumps(argv + ['--steps',
+                                                                '2'])],
+        cwd=root, env=env, capture_output=True, text=True, timeout=900)
+    resume_wall_s = time.perf_counter() - t0
+    out = proc.stdout.splitlines()
+    assert proc.returncode == 0, (proc.returncode, proc.stdout[-4000:],
+                                  proc.stderr[-4000:])
+    res = json.loads(next(ln for ln in out if ln.startswith(
+        'CKPT_RESUME_PROCESS '))[len('CKPT_RESUME_PROCESS '):])
+    steps = [ln for ln in out if ln.startswith('step ')]
+    m = re.match(r'^step (\d+) loss=([\d.]+) grad_norm=([\d.]+) ', steps[0])
+    want_line = (f'loss={ref_loss:.4f}', f'grad_norm={ref_gn:.3f}')
+    got_line = (f'loss={m.group(2)}', f'grad_norm={m.group(3)}')
+    resumed = tuple(checkpoint.step_dir_name(s) for s in
+                    checkpoint.committed_steps(lineage))
+    mgr = checkpoint.NativeCheckpointManager(lineage)
+    raw = mgr.restore_latest_raw(keys=('lora', 'opt_state', 'step'))
+    mgr.close()
+    raw_flat = native.flatten(raw)
+    differ = {}
+    for key, want in ref_bits.items():
+        # restore_latest_raw nests opt_state/1/0 as lists of one.
+        got = raw_flat[key.replace('opt_state/1/0', 'opt_state/0/0')]
+        got = native.host_leaf(got)[0]
+        n = int((got != want).sum()) if got.shape == want.shape else -1
+        if n:
+            differ[key] = n
+    log('CKPT_RESUME ' + json.dumps(dict(
+        card=smi_line(), resumed_line=[ln for ln in out
+                                       if ln.startswith('resumed')],
+        step_line=steps[0], reference=dict(loss=ref_loss, grad_norm=ref_gn),
+        steps_on_disk=resumed, process=res, wall_s=resume_wall_s,
+        state_leaves_compared=len(ref_bits), differing_leaves=differ)))
+    assert 'resumed from checkpoint at step 1' in out, out
+    assert len(steps) == 1 and m.group(1) == '1', steps
+    assert got_line == want_line, (got_line, want_line)
+    assert not differ, differ
+    assert res['launches'] == step_identity, res['launches']
+    assert res['restores_ok'] == 1 and res['goodput']['restore'] > 0, res
+
+    # 4. The replica warm-starts from the lineage (now at the resumed
+    # step 1, equal to the reference bit for bit): engine-off and
+    # --slots 8, each equal to the same replica over the in-process
+    # weights.
+    got_off, off_s = _replica_tokens(serve_model, lineage, 0, prompt, model,
+                                     dev)
+    free()
+    got_engine, engine_s = _replica_tokens(serve_model, lineage, 8, prompt,
+                                           model, dev)
+    free()
+    log('CKPT_REPLICA ' + json.dumps(dict(
+        prompt_len=CKPT_PROMPT_LEN, new=CKPT_NEW, engine_off=got_off,
+        engine_off_reference=want_off, slots8=got_engine,
+        slots8_reference=want_engine, setup_s=dict(engine_off=off_s,
+                                                   slots8=engine_s),
+        host_merge_s=merge_s, device_merge_tokens=device_merge,
+        device_merge_equal_positions=sum(a == b for a, b in zip(
+            device_merge, want_off)),
+        device_merge_wq_elements_differing=wq_differ)))
+    assert got_off == want_off, (got_off, want_off)
+    assert got_engine == want_engine, (got_engine, want_engine)
+    shutil.rmtree(lineage)
+
+    # 5. QLoRA: an int8 base + LoRA state after one step, saved and
+    # restored in this process into a template from another seed.
+    qstate = train_lib.init_qlora_state(config, seed=0, lora_rank=rank,
+                                        device=dev)
+    qbatch = {'tokens': torch.from_numpy(batch[:1]).to(dev)}
+    qstate, _ = train_lib.build_train_step(config)(qstate, qbatch)
+    qdir = os.path.join(base, 'qlora')
+    mgr = checkpoint.NativeCheckpointManager(qdir)
+    sync()
+    t0 = time.perf_counter()
+    mgr.save(1, qstate)
+    snap_s = time.perf_counter() - t0
+    mgr.wait()
+    write_s = time.perf_counter() - t0 - snap_s
+    qtemplate = train_lib.init_qlora_state(config, seed=1, lora_rank=rank,
+                                           device=dev)
+    t0 = time.perf_counter()
+    qrestored = mgr.restore(1, qtemplate)
+    sync()
+    qrestore_s = time.perf_counter() - t0
+    mgr.close()
+    del qtemplate
+    want = native.flatten(qstate.checkpoint_tree())
+    got = native.flatten(qrestored.checkpoint_tree())
+    unequal = sorted(k for k in want if not (
+        torch.equal(got[k], want[k]) if isinstance(want[k], torch.Tensor)
+        else np.array_equal(got[k], want[k])))
+    qbytes = sum(os.path.getsize(os.path.join(
+        qdir, checkpoint.step_dir_name(1), n)) for n in os.listdir(
+        os.path.join(qdir, checkpoint.step_dir_name(1))) if n.endswith('.bin'))
+    log('CKPT_QLORA ' + json.dumps(dict(
+        card=smi_line(), bytes=qbytes, bytes_expected=qlora_bytes,
+        leaves=len(want), int8_leaves=sum(
+            1 for v in want.values() if isinstance(v, torch.Tensor) and
+            v.dtype == torch.int8), snapshot_s=snap_s, write_wait_s=write_s,
+        restore_s=qrestore_s, unequal_leaves=unequal)))
+    assert not unequal and qbytes == qlora_bytes, (unequal, qbytes)
+    del qstate, qrestored, want, got
+    free()
+    shutil.rmtree(base)
+    del os.environ['SKYTPU_TASK_ID']
+    if home is None:
+        del os.environ['HOME']
+    else:
+        os.environ['HOME'] = home
+    return dict(launches={n: launches_save[n] + res['launches'][n]
+                          for n in kernels})
+
+
 def _matmul_entry(line):
     """The kernels line's numbers of the invariant GEMM at a decode step
     (M = 8) of one shape: kernel, cuBLAS (the plain version is the
@@ -6128,6 +6578,8 @@ def main() -> int:
         int8 = int8_phase(torch, attention, da)
     if 'qlora' in phases:
         qlora = qlora_phase(torch, attention)
+    if 'ckpt' in phases:
+        ckpt = ckpt_phase(torch, attention)
     assert not bwd_spills, f'the backward kernels spill: {bwd_spills}'
     assert not row_spills, f'the norm or nucleus kernels spill: {row_spills}'
     assert len(k4_entries) == 32 and not k4_spills, (
@@ -6143,6 +6595,7 @@ def main() -> int:
         serve=k1_n, sampled=smp['flash_fwd'],
         train_rope=train['launches']['flash_fwd_rope'],
         qlora_rope=qlora['launches']['flash_fwd_rope'],
+        ckpt_rope=ckpt['launches']['flash_fwd_rope'],
         serve_8b_int8=s8['int8']['flash_fwd'],
         serve_8b_bf16=s8['bf16']['flash_fwd'],
         engine_off_int8_weights=off['flash_fwd'])
@@ -6179,23 +6632,29 @@ def main() -> int:
              source='skypilot_torch/csrc/flash_bwd.cu',
              replaces='skypilot_tpu/ops/attention.py:505',
              launches=(train['launches']['flash_bwd_prep'] +
-                       qlora['launches']['flash_bwd_prep']),
+                       qlora['launches']['flash_bwd_prep'] +
+                       ckpt['launches']['flash_bwd_prep']),
              launches_train=train['launches']['flash_bwd_prep'],
-             launches_qlora=qlora['launches']['flash_bwd_prep'], **prep),
+             launches_qlora=qlora['launches']['flash_bwd_prep'],
+             launches_ckpt=ckpt['launches']['flash_bwd_prep'], **prep),
         dict(name='flash_bwd_dq', route='cuda',
              source='skypilot_torch/csrc/flash_bwd.cu',
              replaces='skypilot_tpu/ops/attention.py:263',
              launches=(train['launches']['flash_bwd_dq'] +
-                       qlora['launches']['flash_bwd_dq']),
+                       qlora['launches']['flash_bwd_dq'] +
+                       ckpt['launches']['flash_bwd_dq']),
              launches_train=train['launches']['flash_bwd_dq'],
-             launches_qlora=qlora['launches']['flash_bwd_dq'], **k2),
+             launches_qlora=qlora['launches']['flash_bwd_dq'],
+             launches_ckpt=ckpt['launches']['flash_bwd_dq'], **k2),
         dict(name='flash_bwd_dkv', route='cuda',
              source='skypilot_torch/csrc/flash_bwd.cu',
              replaces='skypilot_tpu/ops/attention.py:331',
              launches=(train['launches']['flash_bwd_dkv'] +
-                       qlora['launches']['flash_bwd_dkv']),
+                       qlora['launches']['flash_bwd_dkv'] +
+                       ckpt['launches']['flash_bwd_dkv']),
              launches_train=train['launches']['flash_bwd_dkv'],
-             launches_qlora=qlora['launches']['flash_bwd_dkv'], **k3),
+             launches_qlora=qlora['launches']['flash_bwd_dkv'],
+             launches_ckpt=ckpt['launches']['flash_bwd_dkv'], **k3),
         dict(name='decode_attention', route='cuda',
              source='skypilot_torch/csrc/decode_attention.cu',
              replaces='skypilot_tpu/ops/decode_attention.py:123',

@@ -1,75 +1,68 @@
-"""The port's side of the native checkpoint format (``format.py`` and
-``commit.py``, copies of the JAX package's jax-free modules).
+"""The port's native checkpoint subsystem — the JAX package's
+``skypilot_tpu/checkpoint/`` on torch tensors, writing and reading the
+same step directories (keys, dtypes, shard files, manifests, the commit
+marker), so each engine restores what the other saved.
 
-``save_tree`` writes a nested dict of tensors or arrays as one committed
-step, as ``NativeCheckpointManager.save`` does on one process: every
-leaf one shard file, the per-host and merged manifests, then the atomic
-commit. Leaf keys are the dict paths joined with ``/``, byte-identical
-to the JAX writer's ``key_str`` of the same tree, so the JAX registry
-and restore read what this writes and the reverse. The adapter registry
-(``serve/adapters/registry.py``) reads lineages through the same two
-modules.
+- ``format.py``, ``commit.py``, ``retention.py``: copies of the JAX
+  package's jax-free modules (the on-disk format, the atomic
+  write-then-rename commit, ``max_to_keep`` / ``keep_period`` GC);
+- ``writer.py``: the async background writer with bounded queue-depth
+  backpressure and the ``skytpu_ckpt_*`` families;
+- ``native.py``: ``NativeCheckpointManager`` (snapshot to host, async
+  write, the ``checkpoint.save`` fault site, the multi-host commit
+  barrier, template and raw restore).
+
+``save_tree`` writes a tree as one committed step, synchronously,
+through the same manager (one process, no retention): the adapter
+lineages of ``serve/adapters/`` are written with it. Leaf keys are
+``flatten``'s, byte-identical to the JAX writer's ``key_str`` of the
+same tree.
+
+Metrics (the JAX package's names): ``skytpu_ckpt_save_seconds``,
+``skytpu_ckpt_bytes_total``, ``skytpu_ckpt_queue_depth``,
+``skytpu_ckpt_saves_total{outcome}``,
+``skytpu_ckpt_restores_total{outcome}``,
+``skytpu_ckpt_reshard_restores_total``,
+``skytpu_ckpt_last_committed_step``. The orbax engine is not ported
+(``data/checkpoint.py``).
 """
 import os
-from typing import Any, Dict
+from typing import Any
 
-import numpy as np
-import torch
+from skypilot_torch.checkpoint.commit import (committed_steps,
+                                              gc_orphaned_tmp,
+                                              latest_committed_step,
+                                              step_dir_name)
+from skypilot_torch.checkpoint.format import (CheckpointError,
+                                              CheckpointRestoreError)
+from skypilot_torch.checkpoint.native import (NativeCheckpointManager,
+                                              flatten, saved_device_count)
+from skypilot_torch.checkpoint.retention import apply_retention
 
-from skypilot_torch.checkpoint import commit as commit_lib
-from skypilot_torch.checkpoint import format as format_lib
-
-
-def flatten(tree: Any, prefix: str = '') -> Dict[str, Any]:
-    """``key -> leaf`` over nested dicts and lists, keys joined with
-    ``/`` as ``format.key_str`` joins a JAX tree path (dict keys by
-    name, list items by index)."""
-    if isinstance(tree, dict):
-        items = ((str(k), v) for k, v in tree.items())
-    elif isinstance(tree, (list, tuple)):
-        items = ((str(i), v) for i, v in enumerate(tree))
-    else:
-        return {prefix: tree}
-    out: Dict[str, Any] = {}
-    for k, v in items:
-        out.update(flatten(v, f'{prefix}/{k}' if prefix else k))
-    return out
-
-
-def _host_leaf(leaf):
-    """(host numpy array, dtype name) of a tensor or array leaf;
-    bfloat16 tensors as their ``uint16`` bit patterns, named
-    ``bfloat16`` as the JAX writer names them."""
-    if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().contiguous().cpu()
-        if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().view(np.uint16), \
-                format_lib.BF16_NAME
-        arr = t.numpy()
-    else:
-        arr = np.asarray(leaf)
-    return arr, format_lib.dtype_name(arr.dtype)
+__all__ = [
+    'CheckpointError',
+    'CheckpointRestoreError',
+    'NativeCheckpointManager',
+    'apply_retention',
+    'committed_steps',
+    'flatten',
+    'gc_orphaned_tmp',
+    'latest_committed_step',
+    'save_tree',
+    'saved_device_count',
+    'step_dir_name',
+]
 
 
 def save_tree(base_dir: str, step: int, tree: Any) -> str:
     """Write ``tree`` as committed step ``step`` of the lineage at
-    ``base_dir`` (one process, every leaf replicated). Returns the
-    committed step directory."""
-    base_dir = os.path.expanduser(base_dir)
-    os.makedirs(base_dir, exist_ok=True)
-    tmp = os.path.join(base_dir, commit_lib.tmp_dir_name(step))
-    os.makedirs(tmp, exist_ok=True)
-    leaves: Dict[str, Any] = {}
-    for i, (key, leaf) in enumerate(flatten(tree).items()):
-        arr, name = _host_leaf(leaf)
-        entry = format_lib.leaf_entry(name, arr.shape)
-        fname = f'h0_{i:05d}_0.bin'
-        size, crc = format_lib.write_shard_file(tmp, fname, arr)
-        entry['shards'].append({'file': fname,
-                                'index': format_lib.full_index(arr.shape),
-                                'nbytes': size, 'checksum': crc})
-        leaves[key] = entry
-    format_lib.write_host_manifest(tmp, 0, leaves, 1)
-    format_lib.write_manifest(tmp, step,
-                              format_lib.merge_host_manifests(tmp, 1), 1)
-    return commit_lib.commit(base_dir, step)
+    ``base_dir`` and wait for the commit. Returns the committed step
+    directory."""
+    mgr = NativeCheckpointManager(base_dir, max_to_keep=None,
+                                  process_index=0, process_count=1)
+    try:
+        mgr.save(step, tree)
+        mgr.wait()
+    finally:
+        mgr.close()
+    return os.path.join(mgr.path, step_dir_name(step))

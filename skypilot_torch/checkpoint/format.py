@@ -1,12 +1,15 @@
 """On-disk checkpoint format: pytree metadata + shard files — a copy of
 ``skypilot_tpu/checkpoint/format.py`` (numpy only), so the port reads
 and writes the same step directories without importing the JAX
-package. One change: bfloat16 leaves, which the original reads through
+package. Two changes. First, bfloat16 leaves, which the original reads through
 ``ml_dtypes`` (a JAX dependency the port does not have), are read as
 their raw ``uint16`` bit patterns (``dtype_from_name``) and widened
 exactly by ``as_float32``; writers hand them in the same way
-(``leaf_entry``'s ``dtype`` takes the name). Leaf keys and bytes
-are the original's. The text below is the original's.
+(``leaf_entry``'s ``dtype`` takes the name). Second, a shard file is
+read straight into a writable array (``np.fromfile``; the original's
+``np.frombuffer`` of the bytes is read-only, and a restored tensor must
+be one the train step may update). Leaf keys and bytes are the
+original's. The text below is the original's.
 
 A checkpoint step directory holds
 
@@ -135,8 +138,7 @@ def read_shard_file(dirpath: str, entry: Dict[str, Any],
                     dtype: np.dtype,
                     shard_shape: Sequence[int]) -> np.ndarray:
     path = os.path.join(dirpath, entry['file'])
-    with open(path, 'rb') as f:
-        data = f.read()
+    data = np.fromfile(path, dtype=np.uint8)
     if len(data) != entry['nbytes']:
         raise CheckpointRestoreError(
             f'{path}: expected {entry["nbytes"]} bytes, '
@@ -144,7 +146,7 @@ def read_shard_file(dirpath: str, entry: Dict[str, Any],
     if zlib.crc32(data) != entry['checksum']:
         raise CheckpointRestoreError(f'{path}: checksum mismatch '
                                      '(corrupt shard)')
-    return np.frombuffer(data, dtype=dtype).reshape(shard_shape)
+    return data.view(dtype).reshape(shard_shape)
 
 
 def leaf_entry(dtype, shape: Sequence[int],

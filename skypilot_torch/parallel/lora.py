@@ -58,18 +58,28 @@ def merge_lora(params: llama.Params, lora: Lora,
     return merged
 
 
+def _host_f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to('cpu', torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
 def merge_lora_host(params: Dict[str, Any], lora: Dict[str, Any],
                     scale: float = 2.0) -> Dict[str, Any]:
-    """``merge_lora`` on host numpy trees, leaf by leaf, in f32: for
-    checkpoint-restored trees that should not land on one device whole
-    first. Merged leaves keep the base weight's dtype."""
+    """``merge_lora`` on HOST trees, leaf by leaf, in f32 numpy as the
+    JAX ``merge_lora_host`` computes it: for checkpoint-restored trees
+    that should not land on one device whole first. Leaves may be numpy
+    arrays or host tensors (bfloat16 ones included); merged leaves keep
+    the base weight's type and dtype."""
     merged = dict(params)
     layers = dict(params['layers'])
     for w, a, b in (('wq', 'wq_a', 'wq_b'), ('wv', 'wv_a', 'wv_b')):
-        base = np.asarray(layers[w])
-        delta = scale * np.einsum('ldr,lro->ldo',
-                                  np.asarray(lora[a], np.float32),
-                                  np.asarray(lora[b], np.float32))
-        layers[w] = (base.astype(np.float32) + delta).astype(base.dtype)
+        base = layers[w]
+        delta = scale * np.einsum('ldr,lro->ldo', _host_f32(lora[a]),
+                                  _host_f32(lora[b]))
+        out = _host_f32(base) + delta
+        layers[w] = (torch.from_numpy(out).to(base.dtype)
+                     if isinstance(base, torch.Tensor)
+                     else out.astype(np.asarray(base).dtype))
     merged['layers'] = layers
     return merged

@@ -11,15 +11,17 @@ frozen base int8 (QLoRA): the same step runs over it, autograd going
 through ``llama.matmul``'s dequant to the adapters only.
 ``instrument_train_step`` wraps a step with the JAX package's step
 metrics, goodput and MFU, the ``train.step`` span and the on-demand
-profiler.
+profiler. ``TrainState.checkpoint_tree`` maps the state onto the JAX
+``TrainState``'s tree for the native checkpoint engine.
 
 Not here yet (ROADMAP.md): meshes with any axis > 1 (FSDP/TP, the
 ``sp`` ring and the ``pp`` pipeline).
 """
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from skypilot_torch import device as device_lib
@@ -45,6 +47,32 @@ class TrainState:
     opt_state: AdamState
     # When LoRA-finetuning, params are frozen and only `lora` trains.
     lora: Optional[Params] = None
+
+    def checkpoint_tree(self) -> Dict[str, Any]:
+        """The JAX ``TrainState``'s tree, which the native checkpoint
+        engine (``checkpoint/native.py``) writes under its tree-path
+        keys: ``step`` and AdamW's ``count`` as int32 scalars (JAX keeps
+        both as int32 arrays), and the optimizer state nested as
+        ``optax.chain(clip_by_global_norm, adamw)`` nests it — (the
+        clip's empty state, (``ScaleByAdamState(count, mu, nu)``,
+        ``add_decayed_weights``' and ``scale_by_learning_rate``'s empty
+        states)) — so its keys are ``opt_state/1/0/{count,mu,nu}/...``.
+        ``lora`` is None (no leaves) in a full finetune."""
+        opt = self.opt_state
+        adam = {'count': np.asarray(opt.count, np.int32), 'mu': opt.mu,
+                'nu': opt.nu}
+        return {'step': np.asarray(self.step, np.int32),
+                'params': self.params, 'opt_state': ((), (adam, (), ())),
+                'lora': self.lora}
+
+    @classmethod
+    def from_checkpoint_tree(cls, tree: Dict[str, Any]) -> 'TrainState':
+        """Inverse of :meth:`checkpoint_tree`."""
+        adam = tree['opt_state'][1][0]
+        return cls(step=int(tree['step']), params=tree['params'],
+                   opt_state=AdamState(count=int(adam['count']),
+                                       mu=adam['mu'], nu=adam['nu']),
+                   lora=tree['lora'])
 
 
 def _leaves(tree: Params, prefix: Tuple[str, ...] = ()

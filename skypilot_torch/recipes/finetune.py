@@ -22,12 +22,28 @@ as the JAX recipe does. MFU needs the card's peak: set
 ``SKYTPU_ACCELERATOR`` to a name ``metrics/goodput.PEAK_BF16_FLOPS``
 knows.
 
+Checkpoint and resume, as the JAX recipe does them:
+``--checkpoint-dir`` (default ``$SKYTPU_CHECKPOINT_DIR``, the managed
+job's checkpoint base) saves the whole ``TrainState`` every
+``--checkpoint-interval`` steps through the native engine
+(``data/checkpoint.CheckpointManager``, namespaced by
+``SKYTPU_TASK_ID``), and a rerun restores the latest committed step
+before its loop and goes on from the next one ("resumed from checkpoint
+at step N"). The data iterator restarts from its seed on a resume, as
+the JAX recipe's does. ``--elastic`` (the default) keeps the job's
+designed shape in ``design.json`` in the lineage and rescales the
+global batch (and, with ``--elastic-scale-lr``, the learning rate) when
+a relaunch runs on another device count; the port trains on one device.
+
+    python -m skypilot_torch.recipes.finetune --model tiny --device cpu \
+        --steps 4 --checkpoint-dir /tmp/ckpt --checkpoint-interval 2
+
 Not ported yet, and refused with the ROADMAP.md item that brings them:
 ``--tp/--dp/--ep/--sp/--pp`` above 1 and ``--microbatches`` (Queue 1
-items 15-18), ``--checkpoint-dir`` / ``SKYTPU_CHECKPOINT_DIR`` with the
-elastic-resume flags (items 13-14).
+items 15-18).
 """
 import argparse
+import json
 import os
 import time
 
@@ -35,7 +51,9 @@ import numpy as np
 import torch
 
 from skypilot_torch import callbacks
+from skypilot_torch import checkpoint as checkpoint_lib
 from skypilot_torch import device as device_lib
+from skypilot_torch.data import checkpoint as ckpt_facade
 from skypilot_torch.metrics import goodput as goodput_lib
 from skypilot_torch.metrics import publish as publish_lib
 from skypilot_torch.models import llama
@@ -61,9 +79,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument('--data', default=None,
                    help='tokenized dataset (.npy of token ids)')
     p.add_argument('--synthetic', action='store_true', default=None)
+    # Default from the env contract: a managed job declares its
+    # checkpoint base once (task env SKYTPU_CHECKPOINT_DIR).
     p.add_argument('--checkpoint-dir',
-                   default=os.environ.get('SKYTPU_CHECKPOINT_DIR'),
-                   help='not ported (default $SKYTPU_CHECKPOINT_DIR)')
+                   default=os.environ.get('SKYTPU_CHECKPOINT_DIR'))
+    p.add_argument('--checkpoint-interval', type=int, default=50)
+    p.add_argument('--elastic', action='store_true', default=True)
+    p.add_argument('--no-elastic', dest='elastic',
+                   action='store_false')
+    p.add_argument('--elastic-scale-lr', action='store_true',
+                   help='scale the learning rate linearly with the '
+                        'device ratio on an elastic resize')
     p.add_argument('--param-dtype', default='bf16',
                    choices=['bf16', 'f32'])
     p.add_argument('--log-every', type=int, default=10)
@@ -86,11 +112,64 @@ def check_args(args: argparse.Namespace) -> None:
         raise NotImplementedError(
             '--microbatches: pipeline parallelism is not ported '
             '(ROADMAP.md Queue 1 item 18)')
-    if args.checkpoint_dir:
-        raise NotImplementedError(
-            f'--checkpoint-dir / SKYTPU_CHECKPOINT_DIR '
-            f'({args.checkpoint_dir!r}): checkpointing and resume are not '
-            'ported (ROADMAP.md Queue 1 items 13-14)')
+
+
+def _elastic_design(lineage_dir, n_now, global_batch):
+    """The job's DESIGNED shape reference: device count + global
+    batch of the FIRST launch, persisted as ``design.json`` in the
+    checkpoint lineage (atomic write; ignored by the step scanners).
+
+    Rescaling must reference the design, not the last checkpoint's
+    device count: ``--batch`` re-parses as the designed value on every
+    relaunch. The first launch always runs at the designed shape, so
+    recording (devices, batch) when the file is absent on a non-resized
+    run captures the design exactly (the JAX recipe's rule)."""
+    path = os.path.join(lineage_dir, 'design.json')
+    try:
+        with open(path, encoding='utf-8') as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        pass
+    doc = {'device_count': n_now, 'global_batch': global_batch}
+    if os.environ.get('SKYTPU_ELASTIC_RESIZED'):
+        # Resized relaunch of a PRE-elastic lineage (no design file):
+        # best effort is the last checkpoint's device count, and the
+        # guess is not persisted.
+        saved = checkpoint_lib.saved_device_count(lineage_dir)
+        if saved:
+            doc['device_count'] = saved
+        return doc
+    try:
+        os.makedirs(lineage_dir, exist_ok=True)
+        tmp = f'{path}.{os.getpid()}'
+        with open(tmp, 'w', encoding='utf-8') as f:
+            json.dump(doc, f)
+        os.replace(tmp, path)
+    except OSError:
+        pass  # read-only mount: run with the in-memory design
+    return doc
+
+
+def _elastic_resize(args: argparse.Namespace) -> None:
+    """Rescale ``args.batch`` (and with ``--elastic-scale-lr`` the
+    learning rate) from the lineage's designed device count to the one
+    device the port trains on, keeping the per-device batch, as the JAX
+    recipe does before it builds the optimizer and the iterator."""
+    n_now = 1
+    design = _elastic_design(
+        ckpt_facade.task_checkpoint_dir(args.checkpoint_dir), n_now,
+        args.batch)
+    n_design = design['device_count']
+    if not n_design or n_design == n_now:
+        return
+    scaled = max(1, design['global_batch'] * n_now // n_design)
+    resized = os.environ.get('SKYTPU_ELASTIC_RESIZED')
+    print(f'elastic resume: designed for {n_design} chips, running on '
+          f'{n_now}{f" ({resized})" if resized else ""}; '
+          f'global batch {args.batch} -> {scaled}', flush=True)
+    args.batch = scaled
+    if args.elastic_scale_lr:
+        args.lr = args.lr * n_now / n_design
 
 
 def data_iterator(args, vocab_size, rng):
@@ -118,6 +197,8 @@ def build(args: argparse.Namespace):
     process metrics registry)."""
     check_args(args)
     dev = device_lib.resolve_device(args.device)
+    if args.elastic and args.checkpoint_dir:
+        _elastic_resize(args)
     config = llama.get_config(args.model, max_seq_len=args.seq)
     param_dtype = (torch.bfloat16 if args.param_dtype == 'bf16'
                    else torch.float32)
@@ -142,25 +223,43 @@ def main(argv=None) -> None:
           f'{"full-ft" if args.full_ft else f"lora-rank={args.lora_rank}"}',
           flush=True)
     publisher = publish_lib.start_publisher('train')
+    ckpt = None
+    start_step = 0
+    if args.checkpoint_dir:
+        ckpt = ckpt_facade.CheckpointManager(
+            args.checkpoint_dir,
+            save_interval_steps=args.checkpoint_interval)
+        state, start_step = ckpt.restore_or(state)
+        if start_step:
+            info = ckpt.last_restore or {}
+            reshard = (' (resharded onto the current mesh)'
+                       if info.get('resharded') else '')
+            print(f'resumed from checkpoint at step {start_step}{reshard}',
+                  flush=True)
     # A recovery relaunch: price the dead time since the controller saw
     # the failure into the goodput `recovery_stall` bucket.
     goodput_lib.note_recovery_stall_from_env()
     callbacks.init(total_steps=args.steps)
     tokens_per_step = args.batch * args.seq
     t_start = time.time()
-    for step in range(args.steps):
+    for step in range(start_step, args.steps):
         batch = {'tokens': torch.from_numpy(next(batches)).to(dev)}
         callbacks.step_begin()
         state, metrics = step_fn(state, batch)
         loss = float(metrics['loss'])  # waits for the step
         callbacks.step_end()
+        if ckpt is not None:
+            ckpt.maybe_save(step, state)
         if step % args.log_every == 0 or step == args.steps - 1:
             dt = time.time() - t_start
-            tps = (step + 1) * tokens_per_step / dt
+            tps = (step - start_step + 1) * tokens_per_step / dt
             print(f'step {step} loss={loss:.4f} '
                   f'grad_norm={float(metrics["grad_norm"]):.3f} '
                   f'tokens/s={tps:.0f} tokens/s/chip={tps:.0f}',
                   flush=True)
+    if ckpt is not None:
+        ckpt.wait()
+        ckpt.close()
     publisher.close()
     print('finetune done.', flush=True)
 

@@ -52,7 +52,18 @@ span, the engine's ``batch.*`` spans beneath it, written to the
 ``replica`` sink under ``SKYTPU_STATE_DIR/trace``; a trigger in the
 profile dir arms a capture of the engine's next decode dispatches.
 
-``--tp > 1`` and ``--checkpoint-dir`` are not ported yet (ROADMAP.md).
+``--checkpoint-dir`` warm-starts from a finetune lineage (a
+``TrainState`` saved by ``recipes/finetune``, by the port or by the JAX
+package): ``load_params`` restores the latest committed step's
+``params`` and ``lora`` only (``restore_latest_raw``; the optimizer
+moments are never read), merges the adapters into the base on the host
+(``parallel/lora.merge_lora_host``), casts to the compute dtype and
+puts the tree on the device (``--quant int8``: quantized leaf by leaf on
+the way). Point it at the task-id subdirectory that holds the
+``step_*`` dirs; with no committed step there the replica exits naming
+the resolved directory and what it holds.
+
+``--tp > 1`` is not ported yet (ROADMAP.md).
 """
 import argparse
 import json
@@ -69,8 +80,10 @@ import torch
 from skypilot_torch import device as device_lib
 from skypilot_torch import exceptions
 from skypilot_torch import trace as trace_lib
+from skypilot_torch.data.checkpoint import CheckpointManager
 from skypilot_torch.metrics import publish as publish_lib
 from skypilot_torch.models import decode, llama, quant
+from skypilot_torch.parallel import lora as lora_lib
 from skypilot_torch.serve import batching
 from skypilot_torch.serve import overload as overload_lib
 from skypilot_torch.serve import prefix_hash
@@ -189,6 +202,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                             'SKYTPU_ENGINE_ADAPTER_PRELOAD', ''),
                         help='comma-separated adapter ids to load before '
                              'readiness')
+    parser.add_argument('--checkpoint-dir', default=None,
+                        help='restore the latest finetune checkpoint '
+                             'from this dir (a TrainState as saved by '
+                             'recipes/finetune; LoRA adapters are '
+                             'merged into the base). Point at the '
+                             'task-id subdir, e.g. a mounted bucket '
+                             'path.')
     args = parser.parse_args(argv)
     if args.quant == 'int8' and args.tp > 1:
         # Reject before the (expensive) init, as the JAX replica does.
@@ -299,6 +319,60 @@ def _load_grammar_vocab(path: str) -> Optional[list]:
     return vocab
 
 
+def load_params(args: argparse.Namespace, config: llama.LlamaConfig,
+                dev) -> llama.Params:
+    """The replica's weights on ``dev``: random from seed 0, or with
+    ``--checkpoint-dir`` the latest committed finetune step's ``params``
+    with its ``lora`` merged in, in ``config.dtype`` (int8 codes and
+    scales with ``--quant int8``)."""
+    if not args.checkpoint_dir:
+        if args.quant == 'int8':
+            return quant.init_quantized(config, seed=0, device=dev)
+        return llama.init_params(config, seed=0, device=dev)
+    ckpt = CheckpointManager(args.checkpoint_dir, use_task_namespace=False)
+    try:
+        raw = ckpt.restore_latest_raw(keys=('params', 'lora'))
+    finally:
+        ckpt.close()
+    if raw is None:
+        # Name the RESOLVED directory and list what is actually there:
+        # finetune checkpoints are task-id namespaced
+        # (data/checkpoint.task_checkpoint_dir), so the committed steps
+        # usually live one subdirectory below the --checkpoint-dir the
+        # user passed.
+        resolved = ckpt.path
+        try:
+            entries = sorted(os.listdir(resolved))
+        except OSError:
+            entries = []
+        listing = ', '.join(entries[:20]) if entries else '(empty)'
+        raise SystemExit(
+            f'no committed checkpoint found in {resolved} '
+            f'(from --checkpoint-dir {args.checkpoint_dir}); the '
+            f'directory contains: {listing}. Finetune runs '
+            'namespace checkpoints by task id — point '
+            '--checkpoint-dir at the task-id subdirectory that '
+            'holds the step_* dirs.')
+    params = raw['params']
+    if raw.get('lora') is not None:
+        # Serve merged weights — no adapter math in the hot loop —
+        # merged on the host, so the wide tree never sits on the device
+        # twice.
+        params = lora_lib.merge_lora_host(params, raw['lora'])
+    # Serve at the compute dtype: a training checkpoint may hold f32
+    # masters.
+    params = _map_tensors(params, lambda x: x.to(config.dtype))
+    if args.quant == 'int8':
+        return quant.quantize_params_streamed(params, config, device=dev)
+    return _map_tensors(params, lambda x: x.to(dev))
+
+
+def _map_tensors(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
 class ReplicaServer(ThreadingHTTPServer):
     """The replica's HTTP server; ``server_close`` also stops the
     process's metrics publisher (``publisher``) and removes its
@@ -329,10 +403,7 @@ def build_server(args: argparse.Namespace
             'items 15-16)')
     dev = device_lib.resolve_device(args.device)
     config = llama.get_config(args.model)
-    if args.quant == 'int8':
-        params = quant.init_quantized(config, seed=0, device=dev)
-    else:
-        params = llama.init_params(config, seed=0, device=dev)
+    params = load_params(args, config, dev)
     lock = threading.Lock()
     engine = None
     if args.slots > 0:

@@ -57,6 +57,12 @@ print(json.dumps({{'modules': names, 'bad': bad}}))
                 'skypilot_torch.checkpoint',
                 'skypilot_torch.checkpoint.commit',
                 'skypilot_torch.checkpoint.format',
+                'skypilot_torch.checkpoint.native',
+                'skypilot_torch.checkpoint.retention',
+                'skypilot_torch.checkpoint.writer',
+                'skypilot_torch.data', 'skypilot_torch.data.checkpoint',
+                'skypilot_torch.resilience',
+                'skypilot_torch.resilience.faults',
                 'skypilot_torch.serve.adapters',
                 'skypilot_torch.serve.adapters.registry',
                 'skypilot_torch.serve.adapters.resident',

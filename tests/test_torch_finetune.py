@@ -1,7 +1,11 @@
 """The port's finetune recipe (skypilot_torch/recipes/finetune.py) on
 the CPU: it prints the reference recipe's step lines, refuses the
-options this slice does not run, and draws the same batches as the JAX
-recipe's data iterator."""
+options this slice does not run, draws the same batches as the JAX
+recipe's data iterator, saves committed steps under ``--checkpoint-dir``
+(default ``$SKYTPU_CHECKPOINT_DIR``), resumes from the latest one, and
+keeps the JAX recipe's elastic ``design.json``."""
+import json
+import os
 import re
 import types
 
@@ -10,7 +14,12 @@ import pytest
 import torch
 
 from skypilot_tpu.recipes import finetune as jfinetune
+from skypilot_torch import checkpoint as tcheckpoint
 from skypilot_torch import device as device_lib
+from skypilot_torch.checkpoint import native
+from skypilot_torch.data import checkpoint as ckpt_facade
+from skypilot_torch.models import llama
+from skypilot_torch.parallel import train as train_lib
 from skypilot_torch.recipes import finetune
 
 STEP_LINE = re.compile(r'^step (\d+) loss=([\d.]+) grad_norm=([\d.]+) '
@@ -50,17 +59,10 @@ def test_log_every_keeps_first_and_last_step(capsys):
     (['--tp', '2'], 'items 15-18'),
     (['--sp', '2'], 'one device'),
     (['--microbatches', '4'], 'item 18'),
-    (['--checkpoint-dir', '/nonexistent/ckpt'], 'items 13-14'),
 ])
 def test_unported_options_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         finetune.main(TINY + ['--steps', '1'] + argv)
-
-
-def test_checkpoint_dir_env_raises(monkeypatch):
-    monkeypatch.setenv('SKYTPU_CHECKPOINT_DIR', '/nonexistent/ckpt')
-    with pytest.raises(NotImplementedError, match='SKYTPU_CHECKPOINT_DIR'):
-        finetune.main(TINY + ['--steps', '1'])
 
 
 def test_default_device_is_cuda():
@@ -91,3 +93,143 @@ def test_data_file_trains(tmp_path, capsys):
         0, 512, 4096).astype(np.int32))
     finetune.main(TINY + ['--steps', '2', '--data', path])
     assert capsys.readouterr().out.strip().endswith('finetune done.')
+
+
+# ---------------------------------------------------------------------
+# Checkpoint and resume
+# ---------------------------------------------------------------------
+
+
+@pytest.fixture
+def task(monkeypatch):
+    monkeypatch.setenv('SKYTPU_TASK_ID', 'managed-4-0-1')
+    monkeypatch.delenv('SKYTPU_CHECKPOINT_DIR', raising=False)
+    monkeypatch.delenv('SKYTPU_ELASTIC_RESIZED', raising=False)
+    return 'managed-4-0'
+
+
+def test_checkpoint_dir_commits_steps(tmp_path, task, capsys):
+    finetune.main(TINY + ['--steps', '3', '--checkpoint-dir',
+                          str(tmp_path), '--checkpoint-interval', '2'])
+    lineage = str(tmp_path / task)
+    assert tcheckpoint.committed_steps(lineage) == [0, 2]
+    with open(os.path.join(lineage, 'design.json'), encoding='utf-8') as f:
+        assert json.load(f) == {'device_count': 1, 'global_batch': 2}
+    assert 'resumed' not in capsys.readouterr().out
+
+
+def _assert_same_bits(got, want):
+    got = tcheckpoint.flatten(got.checkpoint_tree())
+    want = tcheckpoint.flatten(want.checkpoint_tree())
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_array_equal(native.host_leaf(got[key])[0],
+                                      native.host_leaf(want[key])[0],
+                                      err_msg=key)
+
+
+def test_rerun_resumes_from_the_latest_step(tmp_path, task, monkeypatch,
+                                            capsys):
+    """A rerun restores the latest committed step (the state bit-equal
+    to the saved one), goes on from the next step on the restarted
+    iterator's first batch, and its step equals the port's step on that
+    state and batch."""
+    argv = TINY + ['--checkpoint-dir', str(tmp_path),
+                   '--checkpoint-interval', '1', '--log-every', '1']
+    finetune.main(argv + ['--steps', '2'])
+    capsys.readouterr()
+    lineage = str(tmp_path / task)
+    assert tcheckpoint.committed_steps(lineage) == [0, 1]
+    restored = []
+    real_restore_or = ckpt_facade.CheckpointManager.restore_or
+
+    def spy(self, state):
+        out = real_restore_or(self, state)
+        restored.append(out[0])
+        return out
+
+    monkeypatch.setattr(ckpt_facade.CheckpointManager, 'restore_or', spy)
+    finetune.main(argv + ['--steps', '3'])
+    lines = capsys.readouterr().out.splitlines()
+    assert 'resumed from checkpoint at step 2' in lines
+    steps = [STEP_LINE.match(line) for line in lines
+             if line.startswith('step ')]
+    assert [m.group(1) for m in steps] == ['2']
+    assert tcheckpoint.committed_steps(lineage) == [0, 1, 2]
+    # The restored state is the saved step 1, bit for bit.
+    state = restored[0]
+    assert state.step == 2 and state.opt_state.count == 2
+    saved = tcheckpoint.NativeCheckpointManager(lineage)
+    try:
+        _assert_same_bits(state, saved.restore(1, state))
+        # The next step: the port's step on that state and on the first
+        # batch of the iterator (which restarts from its seed, as the
+        # JAX recipe's does).
+        args = finetune.parse_args(argv + ['--steps', '3'])
+        config = llama.get_config('tiny', max_seq_len=args.seq)
+        batch = next(finetune.data_iterator(args, config.vocab_size,
+                                            np.random.default_rng(0)))
+        step = train_lib.build_train_step(
+            config, optimizer=train_lib.default_optimizer(args.lr))
+        want, metrics = step(state, {'tokens': torch.from_numpy(batch)})
+        assert steps[0].group(2) == f'{float(metrics["loss"]):.4f}'
+        assert steps[0].group(3) == f'{float(metrics["grad_norm"]):.3f}'
+        _assert_same_bits(saved.restore(2, state), want)
+    finally:
+        saved.close()
+
+
+def test_checkpoint_dir_defaults_to_the_env(tmp_path, task, monkeypatch,
+                                            capsys):
+    monkeypatch.setenv('SKYTPU_CHECKPOINT_DIR', str(tmp_path))
+    assert finetune.parse_args([]).checkpoint_dir == str(tmp_path)
+    finetune.main(TINY + ['--steps', '1', '--checkpoint-interval', '1'])
+    assert tcheckpoint.committed_steps(str(tmp_path / task)) == [0]
+    finetune.main(TINY + ['--steps', '2', '--checkpoint-interval', '1'])
+    assert 'resumed from checkpoint at step 1' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize('case', ['fresh', 'existing', 'resized'])
+def test_elastic_design_matches_jax(tmp_path, monkeypatch, case):
+    """``_elastic_design`` writes, reads and guesses the design as the
+    JAX recipe's does; the port's single device then rescales the global
+    batch (and with --elastic-scale-lr the learning rate)."""
+    monkeypatch.delenv('SKYTPU_ELASTIC_RESIZED', raising=False)
+    dirs = {name: str(tmp_path / name) for name in ('jax', 'port')}
+    for lineage in dirs.values():
+        if case == 'existing':
+            os.makedirs(lineage)
+            with open(os.path.join(lineage, 'design.json'), 'w',
+                      encoding='utf-8') as f:
+                json.dump({'device_count': 4, 'global_batch': 8}, f)
+        if case == 'resized':
+            tcheckpoint.save_tree(lineage, 0, {'w': np.zeros(2, np.float32)})
+            with open(os.path.join(lineage, 'step_00000000',
+                                   'manifest.json'), encoding='utf-8') as f:
+                doc = json.load(f)
+            doc['device_count'] = 8
+            with open(os.path.join(lineage, 'step_00000000',
+                                   'manifest.json'), 'w',
+                      encoding='utf-8') as f:
+                json.dump(doc, f)
+    if case == 'resized':
+        monkeypatch.setenv('SKYTPU_ELASTIC_RESIZED', 'v5p-16 -> v5p-8')
+    want = jfinetune._elastic_design(dirs['jax'], 1, 6)  # noqa: SLF001
+    got = finetune._elastic_design(dirs['port'], 1, 6)  # noqa: SLF001
+    assert got == want
+    assert (os.path.exists(os.path.join(dirs['port'], 'design.json')) ==
+            os.path.exists(os.path.join(dirs['jax'], 'design.json')))
+    if case == 'fresh':
+        return
+    monkeypatch.setenv('SKYTPU_TASK_ID', 'port')
+    args = finetune.parse_args(TINY + ['--checkpoint-dir', str(tmp_path),
+                                       '--batch', '6', '--lr', '0.008',
+                                       '--elastic-scale-lr'])
+    finetune.build(args)
+    n_design = want['device_count']
+    assert args.batch == max(1, want['global_batch'] // n_design)
+    assert args.lr == pytest.approx(0.008 / n_design)
+    args = finetune.parse_args(TINY + ['--checkpoint-dir', str(tmp_path),
+                                       '--batch', '6', '--no-elastic'])
+    finetune.build(args)
+    assert args.batch == 6

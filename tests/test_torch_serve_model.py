@@ -6,7 +6,9 @@ the engine, sampled and constrained requests must equal the engine's
 own answer for the same knobs, and bad knobs, bad grammars and a
 ``--sampling off`` replica answer 400; the overload and adapter fields
 are served (their statuses are held in test_torch_overload.py and
-test_torch_adapters.py)."""
+test_torch_adapters.py). ``--checkpoint-dir`` warm-starts from a lineage
+the JAX engine wrote, token-equal to the JAX replica's merged params,
+and a directory with no committed step exits naming it."""
 import http.client
 import json
 import re
@@ -431,3 +433,81 @@ def test_sampling_flags_read_their_env(monkeypatch, tmp_path):
     bad.write_text('{"a": 1}')
     with pytest.raises(SystemExit):
         serve_model._load_grammar_vocab(str(bad))
+
+
+# ---------------------------------------------------------------------
+# --checkpoint-dir: the warm start from a finetune lineage
+# ---------------------------------------------------------------------
+
+
+def _jax_lineage(path):
+    """A LoRA TrainState written by the JAX package's checkpoint engine
+    (the JAX finetune recipe's artifact) with non-zero adapters, and the
+    greedy tokens the JAX replica serves from it: its
+    ``restore_latest_raw`` + ``merge_lora_host`` + cast, then
+    ``greedy_generate``."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from skypilot_tpu.data import checkpoint as jfacade
+    from skypilot_tpu.models import decode as jdecode
+    from skypilot_tpu.models import llama as jllama
+    from skypilot_tpu.parallel import lora as jlora
+    from skypilot_tpu.parallel import mesh as jmesh
+    from skypilot_tpu.parallel import train as jtrain
+    jcfg = jllama.get_config('tiny')
+    mesh = jmesh.make_mesh(jmesh.MeshConfig(), devices=jax.devices()[:1])
+    state, _ = jtrain.init_train_state(jcfg, mesh, jax.random.PRNGKey(5),
+                                       lora_rank=4)
+    rng = np.random.default_rng(6)
+    lora = {k: (jnp.asarray(rng.standard_normal(v.shape) * 0.05, v.dtype)
+                if k.endswith('_b') else v) for k, v in state.lora.items()}
+    state = dataclasses.replace(state, lora=lora)
+    ckpt = jfacade.CheckpointManager(path, use_task_namespace=False,
+                                     process_index=0, process_count=1)
+    ckpt.maybe_save(0, state)
+    ckpt.wait()
+    ckpt.close()
+    raw = jfacade.CheckpointManager(
+        path, use_task_namespace=False).restore_latest_raw(
+            keys=('params', 'lora'))
+    merged = jlora.merge_lora_host(raw['params'], raw['lora'])
+    merged = jax.tree.map(lambda x: jnp.asarray(
+        np.asarray(x).astype(jcfg.dtype)), merged)
+    prompt = jnp.asarray([[5, 9, 200, 3, 1, 77]])
+    base = jdecode.greedy_generate(state.params, prompt, jcfg, 8)
+    want = jdecode.greedy_generate(merged, prompt, jcfg, 8)
+    return np.asarray(prompt)[0].tolist(), np.asarray(want)[0].tolist(), \
+        np.asarray(base)[0].tolist()
+
+
+@pytest.mark.parametrize('slots', ['0', '2'])
+def test_checkpoint_dir_warm_start_matches_the_jax_replica(tmp_path, slots):
+    lineage = str(tmp_path / 'managed-2-0')
+    prompt, want, base = _jax_lineage(lineage)
+    assert want != base  # the adapters move the tokens
+    args = serve_model.parse_args(['--model', 'tiny', '--port', '0',
+                                   '--device', 'cpu', '--slots', slots,
+                                   '--checkpoint-dir', lineage])
+    server, generate = serve_model.build_server(args)
+    try:
+        assert generate(prompt, 8) == want
+    finally:
+        server.server_close()
+        if server.engine is not None:
+            server.engine.close()
+
+
+def test_checkpoint_dir_without_a_step_names_the_resolved_dir(tmp_path):
+    (tmp_path / 'managed-3-0').mkdir()
+    args = serve_model.parse_args(['--model', 'tiny', '--port', '0',
+                                   '--device', 'cpu', '--checkpoint-dir',
+                                   str(tmp_path)])
+    with pytest.raises(SystemExit) as excinfo:
+        serve_model.build_server(args)
+    msg = str(excinfo.value)
+    assert f'no committed checkpoint found in {tmp_path}' in msg
+    assert 'managed-3-0' in msg and 'task-id subdirectory' in msg
