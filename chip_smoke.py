@@ -202,6 +202,24 @@ in order (any failure exits non-zero; nothing is caught):
    in this process (``merge_lora_host``; ``merge_lora``'s on-card merge
    is printed beside). An int8-base QLoRA state after one step saves
    and restores with every leaf equal.
+18. MOE: (a) ``moe_route`` (``csrc/moe_route.cu``, the serving path's
+   router) at mixtral's widths on a decode step's, a verify step's and a
+   512-token chunk's shapes against its plain version on the CPU
+   (experts equal but at a ``MOE_TIE_GAP`` near-tie, f32 gates within
+   ``MOE_GATE_REL_TOL``, slots equal; each token alone bit-equal to the
+   same token in a batch of 512), times beside the bound and the f32
+   matmul + softmax + topk chain (``MOE_ROUTE``); (b) mixtral-8x7b at 2
+   layers, bf16 on the card vs f32 on the CPU (a 64-token prompt's
+   logits within ``E2E_REL_TOL`` on the tokens whose experts agree; the
+   engine's greedy tokens against ``greedy_generate``'s,
+   ``MOE_NUMERICS``); (c) the int8 mixtral-8x7b replica (32 layers,
+   ``--slots 8 --quant int8``) at capacity factor E / k answering 8
+   concurrent requests, launch counts equal to its dispatch record
+   (``moe_route`` L and (4 + 3 E) L + 1 GEMMs a forward), each request
+   equal to its run alone and with speculation off, TTFT, TPOT,
+   tokens/s, peak memory (``MOE_SERVE``, ``MOE_REQ``), a decode
+   dispatch's busy/idle profile (``MOE_DISPATCH_PROFILE``), and the same
+   burst at the config's capacity factor with its dropped slots printed.
 
 Then one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line. ``--phases`` runs a subset (no
@@ -228,7 +246,7 @@ PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 L2_BYTES = 50 * 2 ** 20
 PHASES = ('k1', 'k4', 'e2e', 'serve', 'k1r', 'bwd', 'train', 'k5', 'k5f',
           'k4p', 'k4pre', 'invariance', 'engine', 'sampling', 'adapters',
-          'rows', 'k6', 'int8k', 'int8', 'qlora', 'ckpt')
+          'rows', 'k6', 'int8k', 'int8', 'qlora', 'ckpt', 'moe')
 K1_TOL = {'out': 2e-2, 'lse': 2e-2}
 # K2/K3 in bf16 (P and dS rounded to bf16 before their products) against
 # f32 on the same rotated bf16 q and k: max |err| over max |ref| per
@@ -2151,6 +2169,7 @@ def _serving_kernels(attention, da):
     """Every launch count of the engine's device path, by name; the int8
     forms under ``*_q8``."""
     from skypilot_torch.ops import matmul_invariant as mi
+    from skypilot_torch.ops import moe_route as mr
     from skypilot_torch.ops import rms_norm as rn
     from skypilot_torch.ops import top_p as tp
     return {'flash_fwd': attention.FLASH_FWD,
@@ -2170,6 +2189,7 @@ def _serving_kernels(attention, da):
             'rms_norm': rn.RMS_NORM, 'add_rms_norm': rn.ADD_RMS_NORM,
             'lora_mid': mi.LORA_MID,
             'lora_delta': mi.LORA_DELTA,
+            'moe_route': mr.MOE_ROUTE,
             'top_p_kth': tp.TOP_P_KTH}
 
 
@@ -2182,29 +2202,37 @@ def _dispatch_record(events):
     return steps, n_verify, n_chunks
 
 
-def _serving_identity(kernels, n_layers, events, q8=False, lora=False):
+def _serving_identity(kernels, n_layers, events, q8=False, lora=False,
+                      experts=0, weights_q8=None):
     """The launch counts a run's dispatch record fixes, with ``L``
     layers: a layer of each decode step and verify dispatch launches one
     K5F and one K4-paged (W = 1 or W > 1); a layer of each prefill chunk
     one K5F and one K4-prefill (K5 none: no serving path runs it); every
     forward (step,
-    verify, chunk) 7 products a layer and the LM head, the first layer's
+    verify, chunk) 7 products a layer and the LM head (MoE with
+    ``experts`` E: the 4 attention products and 3 E expert products a
+    layer, and one ``moe_route`` a layer), the first layer's
     attention norm alone (``rms_norm``) and every other norm with the
     residual add before it (``add_rms_norm``: 2 L, the final norm one of
     them); an engine with an
     adapter set 2 LoRA deltas a layer per forward, each two launches
     (``lora_mid``, then ``lora_delta``). ``q8``: int8 weights
-    and pool (the ``*_q8`` forms). Every other count 0 (the sampler's
-    ``top_p_kth`` included: a caller whose run samples sets it)."""
+    and pool (the ``*_q8`` forms); ``weights_q8`` overrides it for the
+    products alone (int8 weights over a bf16 pool). Every other count 0
+    (the sampler's ``top_p_kth`` included: a caller whose run samples
+    sets it)."""
     steps, n_verify, n_chunks = _dispatch_record(events)
     L, q = n_layers, '_q8' if q8 else ''
+    w = '_q8' if (q8 if weights_q8 is None else weights_q8) else ''
     fwd = steps + n_verify + n_chunks
     want = {name: 0 for name in kernels}
     want.update({'paged_w1' + q: L * steps,
                  'paged_verify' + q: L * n_verify,
                  'rope_cache_write' + q: L * (steps + n_verify + n_chunks),
                  'prefill_attention' + q: L * n_chunks,
-                 'matmul' + q: (7 * L + 1) * fwd,
+                 'matmul' + w: ((4 + 3 * experts if experts else 7) * L
+                                + 1) * fwd,
+                 'moe_route': L * fwd if experts else 0,
                  'rms_norm': fwd,
                  'add_rms_norm': 2 * L * fwd,
                  'lora_mid': 2 * L * fwd if lora else 0,
@@ -6349,6 +6377,420 @@ def ckpt_phase(torch, attention, dev='cuda', model='llama3-8b', seq=2048,
                           for n in kernels})
 
 
+# ---------------------------------------------------------------------
+# MoE: the routing kernel, mixtral-8x7b numerics, the int8 mixtral replica
+# ---------------------------------------------------------------------
+
+# (a) A token's experts may differ from the plain version's only where
+# the plain version's gap between two neighbouring probabilities of its
+# top k + 1 is at most this (the kernel sums each f32 logit over D 4096
+# in another order); the f32 gates before their rounding agree to
+# MOE_GATE_REL_TOL wherever the experts agree.
+MOE_TIE_GAP = 1e-5
+MOE_GATE_REL_TOL = 1e-5
+# (a) (groups, tokens a group) of the engine's decode step (8 rows), its
+# verify step (8 rows of draft_k + 1 = 9) and a 512-token prefill chunk.
+MOE_ROUTE_SHAPES = ((8, 1), (8, 9), (1, 512))
+# (b) bf16 on the card against f32 on the CPU: a token's experts may
+# differ at a layer only where the CPU's gap between its k-th and
+# (k+1)-th probability is under this (bf16 activations move the f32
+# router logits by about 1e-2); those tokens' logits are printed, not
+# held to E2E_REL_TOL, and at least MOE_MIN_KEPT of the prompt's tokens
+# must keep their experts.
+MOE_FLIP_GAP = 2e-2
+MOE_MIN_KEPT = 0.75
+# (c) The int8 replica's KV pool: room for 8 rows of the burst and for
+# the decode dispatch profiled at DISPATCH_CONTEXTS.
+MOE_POOL_BLOCKS = 1024
+MOE_PROMPTS = (90, 94, 97, 100, 101, 104, 108, 112)
+MOE_NEW = 32
+PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
+
+
+def _near_ties(torch, probs, k):
+    """Per token of ``probs`` [..., E]: the smallest gap between two
+    neighbours of its sorted top k + 1 (an order or a choice the summation
+    order can flip), and the gap between its k-th and (k+1)-th."""
+    top = probs.sort(-1, descending=True).values[..., :k + 1]
+    return (top[..., :-1] - top[..., 1:]).amin(-1), top[..., k - 1] - top[..., k]
+
+
+def _moe_route_line(torch, mr, gen):
+    """(a) The routing kernel at mixtral's widths (D 4096, E 8, k 2, bf16)
+    on the engine's three call shapes against the plain version on the
+    CPU over the same values: experts equal but at a ``MOE_TIE_GAP``
+    near-tie, f32 gates within ``MOE_GATE_REL_TOL``, slots equal in every
+    group whose experts all agree; each of 512 tokens routed alone
+    bit-equal (experts, gates) to the same token in a call of 512 groups
+    and in one group of 512; times (kernel in a CUDA graph and eagerly,
+    the plain version, the library chain it replaces: f32 ``matmul``,
+    ``softmax``, ``topk``) and the bound."""
+    from skypilot_torch.models import llama
+    cfg = llama.get_config('mixtral-8x7b')
+    d, e, k = cfg.dim, cfg.n_experts, cfg.moe_top_k
+    router = (torch.randn((d, e), generator=gen, device='cuda') /
+              math.sqrt(d)).to(torch.bfloat16)
+    shapes = {}
+    for g, t in MOE_ROUTE_SHAPES:
+        n, cap = g * t, llama.moe_capacity(cfg, t)
+        h = torch.randn((g, t, d), generator=gen,
+                        device='cuda').to(torch.bfloat16)
+        idx, gate, slot, g32 = mr.moe_route(h, router, k, cap, with_f32=True)
+        torch.cuda.synchronize()
+        pidx, _, pslot, pg32 = mr._moe_route_plain(h.cpu(), router.cpu(), k,
+                                                   cap)
+        probs = torch.softmax(h.cpu().float() @ router.cpu().float(), -1)
+        order_gap, kth_gap = _near_ties(torch, probs, k)
+        idx, gate, slot, g32 = (x.cpu() for x in (idx, gate, slot, g32))
+        same = (idx == pidx).all(-1)
+        near = order_gap <= MOE_TIE_GAP
+        unexplained = int((~same & ~near).sum())
+        rel = ((g32 - pg32).abs() / pg32.abs())[same]
+        groups_same = same.all(-1)
+        slot_diff = int((slot != pslot)[groups_same].sum())
+        rounded = bool(torch.equal(gate, g32.to(torch.bfloat16)))
+        copies = [(h.clone(),) for _ in range(4)]
+        cases = dict(
+            ms=graph_ms(torch, lambda x: mr.moe_route(x, router, k, cap),
+                        copies, 50),
+            ms_eager=cuda_ms(torch, lambda x: mr.moe_route(x, router, k, cap),
+                             copies, 50),
+            plain_ms=cuda_ms(torch, lambda x: mr._moe_route_plain(
+                x, router, k, cap), copies, 20),
+            library_ms=graph_ms(torch, lambda x: torch.topk(torch.softmax(
+                torch.matmul(x.float(), router.float()), -1), k, -1),
+                copies, 50))
+        nbytes = n * d * 2 + d * e * 2 + n * k * (4 + 2 + 4 + 4)
+        t_bytes = 1e3 * nbytes / PEAK_HBM_BYTES
+        t_ops = 1e3 * 2 * n * d * e / PEAK_F32_FLOPS
+        shapes[f'{g}x{t}'] = dict(
+            groups=g, tokens=t, cap=cap, near_ties=int(near.sum()),
+            kth_near_ties=int((kth_gap <= MOE_TIE_GAP).sum()),
+            differing_tokens=int((~same).sum()), unexplained=unexplained,
+            max_gate_rel_err=rel.max().item() if rel.numel() else 0.0,
+            max_abs_err=(g32 - pg32).abs()[same].max().item(),
+            slots_differing=slot_diff, gates_rounded_from_f32=rounded,
+            dropped=int((slot < 0).sum()), bound_ms=max(t_bytes, t_ops),
+            bound_by='bytes' if t_bytes >= t_ops else 'operations',
+            **cases)
+        assert unexplained == 0 and slot_diff == 0 and rounded, shapes
+        assert not rel.numel() or rel.max().item() <= MOE_GATE_REL_TOL, \
+            shapes
+        if n == 512:
+            flat = h.view(n, 1, d)
+            alone = [mr.moe_route(flat[j:j + 1], router, k, cap, True)
+                     for j in range(n)]
+            diff = 0
+            for other in (mr.moe_route(flat, router, k, cap, True),
+                          mr.moe_route(flat.view(1, n, d), router, k, cap,
+                                       True)):
+                for part in (0, 1, 3):
+                    mine = torch.cat([a[part].reshape(1, k) for a in alone])
+                    diff += int((mine != other[part].reshape(n, k)).sum())
+            shapes[f'{g}x{t}']['alone_vs_batch_differing'] = diff
+            assert diff == 0, 'a token routed alone differs from its batch'
+    line = dict(card=smi_line(), dim=d, experts=e, top_k=k,
+                tie_gap=MOE_TIE_GAP, gate_rel_tol=MOE_GATE_REL_TOL,
+                **{key: shapes['8x1'][key] for key in (
+                    'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+                    'library_ms')}, shapes=shapes)
+    log('MOE_ROUTE ' + json.dumps(line))
+    return line
+
+
+def _moe_numerics(torch):
+    """(b) mixtral-8x7b at full width and 2 layers (random weights from a
+    seed), bf16 on the card against the same weights in f32 on the CPU:
+    a 64-token prompt's logits through ``forward_cached`` within
+    ``E2E_REL_TOL`` on every token whose experts agree at both layers (a
+    token may take other experts only at a ``MOE_FLIP_GAP`` near-tie of
+    the CPU's router), then, at capacity factor E / k, the paged engine's
+    greedy tokens on the card against ``greedy_generate``'s (equal, or a
+    first divergence where the two tokens' logits are within
+    ``E2E_REL_TOL`` of the largest: the engine's prefill runs other
+    products than the engine-off prompt)."""
+    from skypilot_torch.models import decode, llama
+    from skypilot_torch.ops import moe_route as mr
+    from skypilot_torch.serve import batching
+    config = llama.get_config('mixtral-8x7b', n_layers=2)
+    cfg_cpu = dataclasses.replace(config, dtype=torch.float32)
+    params = llama.init_params(config, seed=6, device='cuda')
+
+    def host(tree):
+        return {key: host(v) if isinstance(v, dict) else v.float().cpu()
+                for key, v in tree.items()}
+    cpu_params = host(params)
+    gen = torch.Generator().manual_seed(29)
+    prompt = torch.randint(0, config.vocab_size, (1, 64), generator=gen)
+    routes = {'cuda': [], 'cpu': []}
+    plain_route = mr.moe_route
+
+    def recording(h, router, k, cap, with_f32=False):
+        out = plain_route(h, router, k, cap, with_f32)
+        rec = {'idx': out[0].cpu().sort(-1).values}
+        if h.device.type == 'cpu':
+            rec['gap'] = _near_ties(torch, torch.softmax(
+                h.float() @ router.float(), -1), k)[1]
+        routes[h.device.type].append(rec)
+        return out
+
+    def logits(p, cfg, dev):
+        with torch.inference_mode():
+            cache = decode.init_cache(cfg, 1, 128, device=dev)
+            out, _ = decode.forward_cached(p, prompt.to(dev), cache, cfg,
+                                           prefill=True)
+        return out[0].float().cpu()
+
+    t0 = time.perf_counter()
+    mr.moe_route = recording
+    try:
+        lg = logits(params, config, 'cuda')
+        gpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lc = logits(cpu_params, cfg_cpu, 'cpu')
+        cpu_s = time.perf_counter() - t0
+    finally:
+        mr.moe_route = plain_route
+    flipped = torch.zeros(64, dtype=torch.bool)
+    flip_gaps = []
+    for a, c in zip(routes['cuda'], routes['cpu']):
+        moved = (a['idx'] != c['idx']).any(-1)[0]
+        flip_gaps += c['gap'][0][moved].tolist()
+        flipped |= moved
+    kept = ~flipped
+    err = (lg - lc).abs()
+    rel = (err[kept].max() / lc[kept].abs().max()).item()
+    del cpu_params
+    prompts = [prompt[0].tolist(), torch.randint(
+        0, config.vocab_size, (40,), generator=gen).tolist()]
+    n_new = 16
+    # Capacity T: the engine's prefill bucket (64 for the 40-token prompt)
+    # and the prompt's own length give the same (empty) drops.
+    config = dataclasses.replace(
+        config, moe_capacity_factor=config.n_experts / config.moe_top_k)
+    eng = batching.BatchingEngine(params, config, slots=2, max_seq=256)
+    try:
+        qs = [eng.submit(p, n_new) for p in prompts]
+        engine_toks = []
+        for q in qs:
+            out = []
+            while (tok := q.get(timeout=600)) is not None:
+                assert not isinstance(tok, BaseException), tok
+                out.append(tok)
+            engine_toks.append(out)
+    finally:
+        eng.close()
+    divergences = []
+    for p, got in zip(prompts, engine_toks):
+        want = decode.greedy_generate(params, torch.tensor([p], device='cuda'),
+                                      config, n_new, max_seq=256)[0].tolist()
+        i = _first_divergence(got, want)
+        if i is None:
+            divergences.append(None)
+            continue
+        with torch.inference_mode():
+            cache = decode.init_cache(config, 1, 256, device='cuda')
+            lgi, _ = decode.forward_cached(
+                params, torch.tensor([p + want[:i]], device='cuda'), cache,
+                config, last_only=True, prefill=True)
+        lgi = lgi[0, -1].float()
+        gap = ((lgi[want[i]] - lgi[got[i]]).abs() /
+               lgi.abs().max()).item()
+        divergences.append(dict(at=i, rel_gap=gap, engine=got[i],
+                                greedy=want[i]))
+    row = dict(config='mixtral-8x7b', layers=2, prompt=64,
+               rel_err=rel, rel_tol=E2E_REL_TOL,
+               max_abs_err=err[kept].max().item(),
+               tokens_kept=int(kept.sum()), tokens_flipped=int(flipped.sum()),
+               flip_gaps=flip_gaps, flip_gap_tol=MOE_FLIP_GAP,
+               rel_err_all_tokens=(err.max() / lc.abs().max()).item(),
+               engine_tokens=engine_toks, divergences=divergences,
+               gpu_s=gpu_s, cpu_s=cpu_s)
+    log('MOE_NUMERICS ' + json.dumps(row))
+    assert bool(torch.isfinite(lg).all()) and lg.shape == lc.shape
+    assert all(g <= MOE_FLIP_GAP for g in flip_gaps), row
+    assert int(kept.sum()) >= MOE_MIN_KEPT * 64, row
+    assert rel <= E2E_REL_TOL, f'MoE logits disagree: {row}'
+    assert all(len(t) == n_new for t in engine_toks), row
+    assert all(dv is None or dv['rel_gap'] <= E2E_REL_TOL
+               for dv in divergences), row
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def _moe_burst(engine, prompts, timeout=900):
+    """Every prompt submitted at once to ``engine``; each one's tokens."""
+    qs = [engine.submit(p, MOE_NEW) for p in prompts]
+    out = []
+    for q in qs:
+        toks = []
+        while (tok := q.get(timeout=timeout)) is not None:
+            assert not isinstance(tok, BaseException), tok
+            toks.append(tok)
+        out.append(toks)
+    return out
+
+
+def moe_phase(torch, attention, da):
+    """The MoE slice on the card: (a) the routing kernel against its plain
+    version (``_moe_route_line``), (b) mixtral-8x7b's numerics at 2 layers
+    (``_moe_numerics``), then (c) the int8 mixtral-8x7b replica (32 layers,
+    ~47 GB of codes from ``init_quantized``) through
+    ``serve_model.build_server`` with ``--slots 8 --quant int8``, its
+    capacity factor set to E / k (cap = T: nothing can drop): 8 concurrent
+    HTTP requests of 90-112 token prompts and 32 new tokens, launch counts
+    zeroed just before and read just after, equal to the dispatch record
+    (a forward: ``moe_route`` L, the invariant GEMM (4 + 3 E) L + 1, K5F,
+    K4-paged and K4-prefill as for llama); TTFT, TPOT, tokens/s, peak
+    memory, a decode dispatch's device busy/idle profile; each request
+    equal to its run alone and to the same burst with speculation off;
+    then the same burst on an engine at the config's capacity factor
+    (2.0), whose dropped slots, as the routing kernel reported them, are
+    printed (JAX's caveat: not held equal)."""
+    import gc
+
+    from skypilot_torch.models import llama
+    from skypilot_torch.ops import moe_route as mr
+    from skypilot_torch.recipes import serve_model
+    from skypilot_torch.serve import batching
+    gen = torch.Generator(device='cuda').manual_seed(31)
+    route = _moe_route_line(torch, mr, gen)
+    numerics = _moe_numerics(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    name = 'mixtral-8x7b'
+    base = llama.CONFIGS[name]
+    llama.CONFIGS[name] = dataclasses.replace(
+        base, moe_capacity_factor=base.n_experts / base.moe_top_k)
+    try:
+        args = serve_model.parse_args(
+            ['--model', name, '--port', '0', '--device', 'cuda', '--slots',
+             '8', '--quant', 'int8', '--num-blocks', str(MOE_POOL_BLOCKS)])
+        t0 = time.perf_counter()
+        server, _ = serve_model.build_server(args)
+        setup_s = time.perf_counter() - t0
+    finally:
+        llama.CONFIGS[name] = base
+    engine = server.engine
+    config = engine.config
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    drops = []
+    plain_route = mr.moe_route
+
+    def counting(h, router, k, cap, with_f32=False):
+        out = plain_route(h, router, k, cap, with_f32)
+        drops.append((out[2] < 0).sum())
+        return out
+    others = []
+    try:
+        rand = torch.Generator().manual_seed(37)
+        prompts = [torch.randint(0, config.vocab_size, (n,),
+                                 generator=rand).tolist()
+                   for n in MOE_PROMPTS]
+        reqs = [{'prompt_ids': p, 'max_new_tokens': MOE_NEW, 'stream': True}
+                for p in prompts]
+        kernels = _serving_kernels(attention, da)
+        torch.cuda.synchronize()
+        for kern in kernels.values():
+            kern.launches = 0
+        engine.events.clear()
+        torch.cuda.reset_peak_memory_stats()
+        results = [None] * len(reqs)
+
+        def post(i):
+            results[i] = _sse_post(port, reqs[i])
+        mr.moe_route = counting
+        try:
+            threads = [threading.Thread(target=post, args=(i,))
+                       for i in range(len(reqs))]
+            t_run = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=900)
+            assert not any(th.is_alive() for th in threads)
+            run_s = time.perf_counter() - t_run
+            torch.cuda.synchronize()
+        finally:
+            mr.moe_route = plain_route
+        launches = {key: kern.launches for key, kern in kernels.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        events = list(engine.events)
+        L, E = config.n_layers, config.n_experts
+        want, record = _serving_identity(kernels, L, events, q8=False,
+                                         experts=E, weights_q8=True)
+        burst_drops = int(sum(x.item() for x in drops))
+        outs, n_out = [], 0
+        for (status, heads, ids, ttft, ms), r in zip(results, reqs):
+            assert status == 200, status
+            assert len(ids) == MOE_NEW and all(
+                0 <= tok < config.vocab_size for tok in ids), ids
+            outs.append(ids)
+            n_out += len(ids)
+            log('MOE_REQ ' + json.dumps(dict(
+                prompt=len(r['prompt_ids']), n_out=len(ids), latency_ms=ms,
+                ttft_ms=ttft, tpot_ms=(ms - ttft) / (len(ids) - 1))))
+        verifies = [ev for ev in events if ev[0] == 'verify']
+        summary = _burst_summary(results, n_out, run_s)
+        # Each request alone on the same engine, then the burst with
+        # speculation off and at the config's capacity factor.
+        solo = [engine.generate(p, MOE_NEW) for p in prompts]
+        small = dict(slots=8, num_blocks=8 * 16 + 1)
+        spec_off = batching.BatchingEngine(engine.params, config,
+                                           speculative=False, **small)
+        others.append(spec_off)
+        off = _moe_burst(spec_off, prompts)
+        binding = batching.BatchingEngine(engine.params, base, **small)
+        others.append(binding)
+        drops.clear()
+        mr.moe_route = counting
+        try:
+            at_cf = _moe_burst(binding, prompts)
+            torch.cuda.synchronize()
+        finally:
+            mr.moe_route = plain_route
+        cf_drops = int(sum(x.item() for x in drops))
+        line = dict(
+            model=name, layers=L, experts=E, top_k=config.moe_top_k,
+            quant='int8', slots=args.slots, capacity_factor=(
+                config.moe_capacity_factor), pool_blocks=MOE_POOL_BLOCKS,
+            setup_s=setup_s, run_s=run_s, requests=len(reqs),
+            output_tokens=n_out, **summary, max_memory_allocated_gb=peak_gb,
+            **record, drafted=sum(ev[2] for ev in verifies),
+            accepted=sum(ev[3] for ev in verifies), dropped_slots=burst_drops,
+            launches=launches, launches_expected=want,
+            solo_equal=sum(a == b for a, b in zip(outs, solo)),
+            spec_off_equal=sum(a == b for a, b in zip(outs, off)),
+            at_capacity_factor=dict(
+                capacity_factor=base.moe_capacity_factor,
+                dropped_slots=cf_drops,
+                requests_equal=sum(a == b for a, b in zip(outs, at_cf))),
+            card=smi_line())
+        log('MOE_SERVE ' + json.dumps(line))
+        assert launches == want, (launches, want)
+        assert burst_drops == 0, line
+        assert outs == solo, 'a request differs from its run alone'
+        assert outs == off, 'a request differs from its spec-off run'
+        _profile_engine_dispatch(torch, engine, config, batching, 'MOE')
+    finally:
+        mr.moe_route = plain_route
+        for other in others:
+            other.close()
+        server.shutdown()
+        server.server_close()
+        engine.close()
+        thread.join(timeout=30)
+    assert not thread.is_alive() and not engine.thread.is_alive()
+    del engine, server, others
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(route=route, numerics=numerics, launches=launches,
+                serve=line)
+
+
 def _matmul_entry(line):
     """The kernels line's numbers of the invariant GEMM at a decode step
     (M = 8) of one shape: kernel, cuBLAS (the plain version is the
@@ -6580,6 +7022,8 @@ def main() -> int:
         qlora = qlora_phase(torch, attention)
     if 'ckpt' in phases:
         ckpt = ckpt_phase(torch, attention)
+    if 'moe' in phases:
+        moe = moe_phase(torch, attention, da)
     assert not bwd_spills, f'the backward kernels spill: {bwd_spills}'
     assert not row_spills, f'the norm or nucleus kernels spill: {row_spills}'
     assert len(k4_entries) == 32 and not k4_spills, (
@@ -6591,6 +7035,7 @@ def main() -> int:
     ad_b, ov_b = adp['adapter_burst'], adp['overload_burst']
     rep = int8['replica']
     off = int8['engine_off']['launches']
+    moe_n = moe['launches']
     k1_launches = dict(
         serve=k1_n, sampled=smp['flash_fwd'],
         train_rope=train['launches']['flash_fwd_rope'],
@@ -6606,16 +7051,18 @@ def main() -> int:
         serve=k5f_n, e2e=e2e_k5f,
         serve_8b_bf16=s8['bf16']['rope_cache_write'],
         serve_8b_int8_kv=s8['int8']['rope_cache_write_q8'],
-        engine_off_int8_weights=off['rope_cache_write'])
+        engine_off_int8_weights=off['rope_cache_write'],
+        moe=moe_n['rope_cache_write'])
     k4_launches = dict(serve=k4_n, rows=rows_n,
                        serve_8b_bf16=s8['bf16']['decode_attention'],
                        engine_off_int8_weights=off['decode_attention'],
                        serve_8b_int8_kv=s8['int8']['decode_attention_q8'])
-    bursts = (eng, smp, ad_b, ov_b, rep)
+    bursts = (eng, smp, ad_b, ov_b, rep, moe_n)
     prefill = dict(engine=eng['prefill_attention'],
                    sampled=smp['prefill_attention'],
                    adapters=ad_b['prefill_attention'],
-                   overload=ov_b['prefill_attention'])
+                   overload=ov_b['prefill_attention'],
+                   moe=moe_n['prefill_attention'])
     # 'launches' sums every main path's run; the launches_* keys split
     # it by path, and the int8 forms of K4/K5 (the same templates over
     # int8 codes) carry their own counts and numbers under 'int8'.
@@ -6683,7 +7130,7 @@ def main() -> int:
                        ad_b['paged_w1'] + ad_b['paged_verify'] +
                        ov_b['paged_w1'] + ov_b['paged_verify'] +
                        rep['paged_w1_q8'] + rep['paged_verify_q8'] +
-                       rows_n),
+                       moe_n['paged_w1'] + moe_n['paged_verify'] + rows_n),
              launches_decode_w1=eng['paged_w1'],
              launches_verify=eng['paged_verify'], launches_rows=rows_n,
              launches_sampled=smp['paged_w1'] + smp['paged_verify'],
@@ -6696,6 +7143,7 @@ def main() -> int:
              launches_int8=rep['paged_w1_q8'] + rep['paged_verify_q8'],
              launches_int8_decode_w1=rep['paged_w1_q8'],
              launches_int8_verify=rep['paged_verify_q8'],
+             launches_moe=moe_n['paged_w1'] + moe_n['paged_verify'],
              **k4p, int8=int8k['decode_attention_paged']),
         # K5: no serving path runs it since K5F writes the prefill chunk
         # too; held by its own phase (k5), its launches on the main paths
@@ -6731,6 +7179,7 @@ def main() -> int:
              launches_adapters=ad_b['matmul'],
              launches_overload=ov_b['matmul'],
              launches_int8=rep['matmul_q8'],
+             launches_moe=moe_n['matmul_q8'],
              **_matmul_entry(inv['matmul']['bf16']),
              int8=_matmul_entry(inv['matmul']['int8']),
              shapes=inv['matmul_rows']),
@@ -6753,7 +7202,7 @@ def main() -> int:
              launches_engine=eng['rms_norm'], launches_sampled=smp['rms_norm'],
              launches_adapters=ad_b['rms_norm'],
              launches_overload=ov_b['rms_norm'],
-             launches_int8=rep['rms_norm'],
+             launches_int8=rep['rms_norm'], launches_moe=moe_n['rms_norm'],
              **{k: inv['rms_norm'][k] for k in (
                  'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
                  'library_ms')}),
@@ -6766,6 +7215,7 @@ def main() -> int:
              launches_adapters=ad_b['add_rms_norm'],
              launches_overload=ov_b['add_rms_norm'],
              launches_int8=rep['add_rms_norm'],
+             launches_moe=moe_n['add_rms_norm'],
              **{k: inv['rms_norm']['fused'][8][k] for k in (
                  'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
                  'library_ms', 'add_plus_new_norm_ms')},
@@ -6778,6 +7228,16 @@ def main() -> int:
              **{k: inv['top_p'][k] for k in (
                  'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
                  'library_ms', 'ms_72', 'bound_ms_72', 'plan')}),
+        # Not a port of a TPU kernel: the MoE router of the serving
+        # forwards, batch-invariant (the JAX package routes with plain
+        # XLA); launches from the int8 mixtral-8x7b replica's burst.
+        dict(name='moe_route', route='cuda',
+             source='skypilot_torch/csrc/moe_route.cu',
+             replaces='skypilot_tpu/models/llama.py:406',
+             launches=moe_n['moe_route'], launches_moe=moe_n['moe_route'],
+             **{k: moe['route'][k] for k in (
+                 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+                 'library_ms')}, shapes=moe['route']['shapes']),
         # Its main path is its entry point, bench_main().
         dict(name='packed_flash_fwd', route='cuda',
              source='skypilot_torch/csrc/attention_packed.cu',

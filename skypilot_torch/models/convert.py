@@ -64,8 +64,8 @@ def tree_from_numpy(tree: Dict[str, Any], dtype: torch.dtype,
 def params_from_numpy(tree: Dict[str, Any], config: llama.LlamaConfig,
                       device=None) -> Params:
     """Nested dict of numpy arrays -> nested dict of tensors on
-    ``device`` (default ``'cuda'``) in ``config.dtype``."""
-    llama.require_dense(config)
+    ``device`` (default ``'cuda'``) in ``config.dtype`` (MoE trees carry
+    ``router`` and the expert stacks like any other leaf)."""
     return tree_from_numpy(tree, config.dtype, device)
 
 

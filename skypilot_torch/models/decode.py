@@ -37,7 +37,9 @@ engine-off prompt on ``llama.matmul``) take both forms, with
 Sampling (``sample_generate``) draws from one ``jax.random`` key split
 per step, as the JAX module does, with the port's threefry
 (``serve/sampling/prng.py``): the same key gives JAX's tokens.
-Multi-LoRA serving: ``lora_gather_delta`` is the per-row gathered q/v
+MoE configs run the routed experts in every forward (``moe_mlp``: the
+routing kernel, then each expert's products). Multi-LoRA serving:
+``lora_gather_delta`` is the per-row gathered q/v
 delta that ``forward_paged`` and the engine's device steps add (f32;
 on the card a fixed-order kernel). ``decode_tokens_windowed`` comes with
 a later slice (ROADMAP.md).
@@ -53,6 +55,7 @@ from skypilot_torch.models import llama
 from skypilot_torch.ops import attention as attention_ops
 from skypilot_torch.ops import decode_attention as da
 from skypilot_torch.ops import matmul_invariant as mi
+from skypilot_torch.ops import moe_route as moe_route_ops
 from skypilot_torch.ops import rms_norm as rn
 from skypilot_torch.serve.sampling import prng
 
@@ -178,18 +181,74 @@ def qkv_projections(config: llama.LlamaConfig, x: torch.Tensor,
             v.reshape(b, t, config.n_kv_heads, hd))
 
 
+def _expert(w, e: int):
+    """Expert ``e``'s [in, out] slice of a layer's expert stack, plain or
+    int8 (``{'q': q[e], 's': s[e]}``)."""
+    if isinstance(w, dict):
+        return {'q': w['q'][e], 's': w['s'][e]}
+    return w[e]
+
+
+def moe_mlp(config: llama.LlamaConfig, h: torch.Tensor, lp: Params,
+            matmul=mi.matmul) -> torch.Tensor:
+    """The routed expert MLP of every serving forward: h [B, T, D] ->
+    [B, T, D], ``llama._moe_mlp``'s output without its aux. Each row of h
+    is one routing group of capacity ``llama.moe_capacity(config, T)``, as
+    in the JAX package (a prefill chunk's bucket is part of T).
+
+    ``ops/moe_route.moe_route`` (one launch a layer on the card) gives
+    each (token, choice) its expert, bf16 gate and capacity slot; the kept
+    tokens are copied into a ``[E, B * C, D]`` dispatch buffer, row
+    ``b * C + slot`` of their expert (dropped ones onto one scratch row
+    past it); each expert's gate, up and down products run on its rows
+    (``matmul``: the invariant GEMM, 3 E launches a layer; the engine-off
+    prompt passes ``llama.matmul``), the activation once over all experts'
+    rows; empty slots are never zeroed, since
+    rows are independent and the combine never reads them. The combine
+    adds the k products ``expert output * gate`` in f32 in ascending
+    choice order and rounds once: each product is exact in f32, so for
+    k = 2 the sum is the JAX einsum's. The dense ``[E, B * C]`` form keeps
+    the launch count fixed and needs no host sync on expert counts."""
+    b, t, d = h.shape
+    n_exp, k = config.n_experts, config.moe_top_k
+    cap = llama.moe_capacity(config, t)
+    idx, gate, slot = moe_route_ops.moe_route(h, lp['router'], k, cap)
+    rows = b * cap
+    first = torch.arange(b, dtype=torch.int32, device=h.device) * cap
+    dest = torch.where(slot >= 0, idx * rows + first[:, None, None] + slot,
+                       n_exp * rows).view(-1).long()
+    xin = h.new_empty((n_exp * rows + 1, d))
+    xin.index_copy_(0, dest, h[:, :, None].expand(b, t, k, d).reshape(-1, d))
+    xe = xin[:n_exp * rows].view(n_exp, rows, d)
+    g = torch.stack([matmul(xe[e], _expert(lp['w_gate'], e))
+                     for e in range(n_exp)])
+    up = torch.stack([matmul(xe[e], _expert(lp['w_up'], e))
+                      for e in range(n_exp)])
+    act = llama.mlp_act(config)(g.float()).to(h.dtype) * up
+    outs = [matmul(act[e], _expert(lp['w_down'], e)) for e in range(n_exp)]
+    outs.append(h.new_zeros((1, d)))      # what a dropped choice reads
+    picked = torch.cat(outs)[dest].view(b, t, k, d)
+    acc = picked[:, :, 0].float() * gate[..., :1].float()
+    for j in range(1, k):
+        acc = acc + picked[:, :, j].float() * gate[..., j:j + 1].float()
+    return acc.to(h.dtype)
+
+
 def attn_out_and_mlp(config: llama.LlamaConfig, x: torch.Tensor,
                      attn: torch.Tensor, lp: Params, matmul=mi.matmul):
     """The rest of the layer: output projection and its residual add with
     the MLP's norm (one ``add_rms_norm``), then the gated MLP (f32 norm,
-    the gate activation in f32 then cast back). attn [B, T, H, hd] ->
-    (x [B, T, D] after the attention's residual, the MLP's output [B, T,
-    D]): the MLP's residual is left to the next norm to add
-    (``qkv_projections``' ``delta``, or ``final_norm``)."""
+    the gate activation in f32 then cast back), or for MoE configs the
+    routed experts (``moe_mlp``). attn [B, T, H, hd] -> (x [B, T, D]
+    after the attention's residual, the MLP's output [B, T, D]): the
+    MLP's residual is left to the next norm to add (``qkv_projections``'
+    ``delta``, or ``final_norm``)."""
     b, t = attn.shape[:2]
     x, h = rn.add_rms_norm(x, matmul(attn.reshape(b, t, -1), lp['wo']),
                            lp['mlp_norm'], config.norm_eps,
                            config.norm_offset)
+    if config.n_experts:
+        return x, moe_mlp(config, h, lp, matmul)
     gate = llama.mlp_act(config)(
         matmul(h, lp['w_gate']).float()).to(h.dtype)
     up = matmul(h, lp['w_up'])
@@ -288,7 +347,6 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
     ``last_only``: project only the final position through the LM
     head. ``prefill``: promise that ``cache.pos == 0`` — the prompt
     then runs causal flash attention over its local q/k/v."""
-    llama.require_dense(config)
     if prefill and cache.pos != 0:
         raise ValueError(f'prefill=True needs an empty cache, pos is '
                          f'{cache.pos}')
@@ -372,7 +430,6 @@ def forward_paged(params: Params, tokens: torch.Tensor, pools,
     if (adapters is None) != (adapter_idx is None):
         raise ValueError('forward_paged: adapters and adapter_idx go '
                          'together')
-    llama.require_dense(config)
     from skypilot_torch.serve import kv_pool as kv_pool_lib
     k_pool, v_pool, ks_pool, vs_pool = pools
     quantized = ks_pool is not None

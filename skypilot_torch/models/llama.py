@@ -11,8 +11,12 @@ with RoPE fused into the flash kernels) and the loss (``loss_fn``,
 with the chunked fused LM-head + cross-entropy ``_FusedCE``). Any
 matmul weight and the LM head may be an int8 ``{'q', 's'}`` pair
 (``models/quant.py``): ``matmul`` and the fused CE take both forms, so
-a LoRA step runs over an int8 frozen base (QLoRA). MoE configs raise
-until their slice (ROADMAP.md).
+a LoRA step runs over an int8 frozen base (QLoRA). MoE configs
+(``n_experts > 0``) replace every layer's MLP with the JAX package's
+top-k routed expert MLP (``_moe_mlp``: static per-row capacity, the
+Switch aux loss), on the CPU: the router has no backward kernel yet, so
+MoE training on a CUDA device raises (ROADMAP.md, "MoE training on the
+card"). MoE serving runs ``models/decode.moe_mlp``.
 
 Under ``config.remat`` each layer runs in ``torch.utils.checkpoint``
 (non-reentrant): only the layer inputs are kept, and backward runs the
@@ -21,6 +25,7 @@ kernel's out/lse across the checkpoint (the JAX ``remat_policy``) and
 the other ``remat_saves`` tokens are later work (ROADMAP.md Queue 2).
 """
 import dataclasses
+import itertools
 import math
 from typing import Any, Callable, Dict, Optional
 
@@ -30,6 +35,7 @@ import torch.utils.checkpoint
 
 from skypilot_torch import device as device_lib
 from skypilot_torch.ops import attention as attention_ops
+from skypilot_torch.ops import moe_route as moe_route_ops
 
 Params = Dict[str, Any]
 
@@ -93,6 +99,16 @@ class LlamaConfig:
             per_layer += (nh + 2 * nkv) * hd
         head = 0 if self.tie_embeddings else v * d
         return v * d + head + self.n_layers * per_layer + d
+
+    def num_active_params(self) -> int:
+        """Params touched per token (``num_params`` for dense configs;
+        for MoE only top_k of the n_experts MLPs): the FLOPs/token
+        basis."""
+        if not self.n_experts:
+            return self.num_params()
+        unused = ((self.n_experts - self.moe_top_k) *
+                  3 * self.dim * self.ffn_hidden * self.n_layers)
+        return self.num_params() - unused
 
 
 CONFIGS: Dict[str, LlamaConfig] = {
@@ -163,13 +179,13 @@ def get_config(name: str, **overrides) -> LlamaConfig:
     return cfg
 
 
-def require_dense(config: LlamaConfig) -> None:
-    """Raise for configs this slice of the port cannot run yet."""
-    if config.n_experts:
-        raise NotImplementedError(
-            f'{config.name}: MoE layers (n_experts={config.n_experts}) '
-            'are not ported yet; they come with the MoE slice in '
-            'ROADMAP.md (Queue 1, "MoE")')
+def moe_capacity(config: LlamaConfig, t: int) -> int:
+    """Per-expert buffer of a routing group of ``t`` tokens:
+    ``min(ceil(top_k * t * capacity_factor / E), t)``, the JAX
+    ``_moe_mlp``'s expression."""
+    return min(int(math.ceil(config.moe_top_k * t *
+                             config.moe_capacity_factor /
+                             config.n_experts)), t)
 
 
 # ---------------------------------------------------------------------
@@ -181,20 +197,22 @@ def init_params(config: LlamaConfig, seed: int = 0,
                 dtype: Optional[torch.dtype] = None,
                 device=None, quantize=None) -> Params:
     """Random params in the JAX package's layout (stacked ``[L, ...]``,
-    ``[in, out]`` projections): ``normal / sqrt(fan_in)`` drawn in f32
+    ``[in, out]`` projections; MoE: ``router [L, D, E]`` and expert
+    stacks ``[L, E, in, out]``): ``normal / sqrt(fan_in)`` drawn in f32
     from an explicit ``torch.Generator`` seeded with ``seed``, then
     cast to ``dtype`` (default ``config.dtype``). Norms init to ones
     (zeros under ``norm_offset``), q/k/v biases to zeros.
 
     The draws differ from ``jax.random`` for the same seed; tests carry
     JAX's weights across with ``convert.params_from_numpy`` instead.
-    Stacked weights are drawn one layer at a time so the f32 temporary
-    is one layer's slice, not the whole stack (8B: ~0.2 GB, not 7.5).
-    ``quantize`` (``quant.quantize_weight``; use ``quant.init_quantized``)
-    turns each matmul weight's layer slice and the LM head into an int8
-    ``{'q', 's'}`` pair as it is drawn, so the wide stack never exists.
+    Stacked weights are drawn one ``[in, out]`` slice at a time (a
+    layer's, an expert's of a layer for MoE stacks), so the f32
+    temporary is one slice, not the whole stack (8B: ~0.2 GB, not 7.5;
+    mixtral's expert: ~0.23 GB). ``quantize`` (``quant.quantize_weight``;
+    use ``quant.init_quantized``) turns each matmul weight's slice and
+    the LM head into an int8 ``{'q', 's'}`` pair as it is drawn, so the
+    wide stack never exists; the router stays wide.
     """
-    require_dense(config)
     dev = device_lib.resolve_device(device)
     dtype = dtype or config.dtype
     d = config.dim
@@ -202,6 +220,7 @@ def init_params(config: LlamaConfig, seed: int = 0,
     nh, nkv = config.n_heads, config.n_kv_heads
     ffn = config.ffn_hidden
     L = config.n_layers
+    E = config.n_experts
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
@@ -210,38 +229,46 @@ def init_params(config: LlamaConfig, seed: int = 0,
         return (torch.randn(shape, generator=gen, device=dev,
                             dtype=torch.float32) * scale).to(dtype)
 
-    def stacked(shape, fan_in):
-        if quantize is not None:
-            out = {'q': torch.empty((L,) + shape, dtype=torch.int8,
+    def stacked(shape, fan_in, wide=False):
+        lead = (L,) + shape[:-2]
+        if quantize is not None and not wide:
+            out = {'q': torch.empty(lead + shape[-2:], dtype=torch.int8,
                                     device=dev),
-                   's': torch.empty((L, 1, shape[-1]),
+                   's': torch.empty(lead + (1, shape[-1]),
                                     dtype=torch.bfloat16, device=dev)}
-            for i in range(L):
-                part = quantize(dense(shape, fan_in))
+            for i in itertools.product(*map(range, lead)):
+                part = quantize(dense(shape[-2:], fan_in))
                 out['q'][i], out['s'][i] = part['q'], part['s']
             return out
-        out = torch.empty((L,) + shape, dtype=dtype, device=dev)
-        for i in range(L):
-            out[i] = dense(shape, fan_in)
+        out = torch.empty(lead + shape[-2:], dtype=dtype, device=dev)
+        for i in itertools.product(*map(range, lead)):
+            out[i] = dense(shape[-2:], fan_in)
         return out
 
     def norm_init(shape):
         fill = torch.zeros if config.norm_offset else torch.ones
         return fill(shape, dtype=dtype, device=dev)
 
+    embed = dense((config.vocab_size, d), d)
+    layers = {
+        'wq': stacked((d, nh * hd), d),
+        'wk': stacked((d, nkv * hd), d),
+        'wv': stacked((d, nkv * hd), d),
+        'wo': stacked((nh * hd, d), nh * hd),
+    }
+    experts = (E,) if E else ()
+    if E:
+        layers['router'] = stacked((d, E), d, wide=True)
+    layers.update({
+        'w_gate': stacked(experts + (d, ffn), d),
+        'w_up': stacked(experts + (d, ffn), d),
+        'w_down': stacked(experts + (ffn, d), ffn),
+        'attn_norm': norm_init((L, d)),
+        'mlp_norm': norm_init((L, d)),
+    })
     params: Params = {
-        'embed': dense((config.vocab_size, d), d),
-        'layers': {
-            'wq': stacked((d, nh * hd), d),
-            'wk': stacked((d, nkv * hd), d),
-            'wv': stacked((d, nkv * hd), d),
-            'wo': stacked((nh * hd, d), nh * hd),
-            'w_gate': stacked((d, ffn), d),
-            'w_up': stacked((d, ffn), d),
-            'w_down': stacked((ffn, d), ffn),
-            'attn_norm': norm_init((L, d)),
-            'mlp_norm': norm_init((L, d)),
-        },
+        'embed': embed,
+        'layers': layers,
         'final_norm': norm_init((d,)),
     }
     if config.qkv_bias:
@@ -335,13 +362,64 @@ def output_head(params: Params, config: LlamaConfig):
 # ---------------------------------------------------------------------
 
 
+def expert_einsum(subscript: str, x: torch.Tensor, w) -> torch.Tensor:
+    """``einsum(subscript, x, w)`` over an expert stack ``w [E, in,
+    out]``, plain or int8 ``{'q': [E, in, out], 's': [E, 1, out]}``: the
+    int8 form is ``einsum(x, q.to(x.dtype)) * s``, the per-(expert,
+    out-channel) scale after the contraction in its dtype (JAX's two
+    rounding points, ``quant.expert_einsum`` there)."""
+    if isinstance(w, dict):
+        out = torch.einsum(subscript, x, w['q'].to(x.dtype))
+        s = w['s'].to(out.dtype)
+        return out * s.reshape(s.shape[0], *([1] * (out.dim() - 2)),
+                               s.shape[-1])
+    return torch.einsum(subscript, x, w)
+
+
+def _moe_mlp(config: LlamaConfig, h: torch.Tensor, layer_params: Params):
+    """The top-k routed expert MLP of the JAX ``_moe_mlp``, in its
+    static-capacity one-hot form: h [B, T, D] -> (out [B, T, D], the
+    Switch aux loss f32). Each batch row is a routing group with
+    per-expert capacity ``moe_capacity(config, T)``; (token, choice)
+    slots go token-major, so earlier tokens win, and overflow is dropped
+    (the residual passes). The f32 router, the gates rounded to h's dtype
+    before the combine, and the dispatch/combine einsums are JAX's; the
+    gates and the aux carry gradients to h and the router. The serving
+    forwards route with ``ops/moe_route`` and run the experts on the
+    invariant GEMM instead (``models/decode.moe_mlp``)."""
+    b, t, _ = h.shape
+    E, k = config.n_experts, config.moe_top_k
+    logits = h.float() @ layer_params['router'].float()
+    probs = torch.softmax(logits, dim=-1)                  # [B, T, E]
+    idx = moe_route_ops.top_k_lower(probs, k)              # [B, T, k]
+    gate = probs.gather(-1, idx)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    sel = F.one_hot(idx, E).float()                        # [B, T, k, E]
+    frac = sel.sum(2).mean((0, 1)) / k
+    aux = E * torch.sum(frac * probs.mean((0, 1)))
+    cap = moe_capacity(config, t)
+    slot = moe_route_ops.capacity_slots(idx, E, cap).long()
+    keep = (slot >= 0).float()
+    disp = (sel * keep[..., None])[..., None] * F.one_hot(
+        slot.clamp(min=0), cap).float()[..., None, :]      # [B, T, k, E, C]
+    comb = (disp * gate[..., None, None]).sum(2).to(h.dtype)
+    disp = disp.sum(2).to(h.dtype)                         # [B, T, E, C]
+    xin = torch.einsum('btec,btd->ebcd', disp, h)
+    g = expert_einsum('ebcd,edf->ebcf', xin, layer_params['w_gate'])
+    up = expert_einsum('ebcd,edf->ebcf', xin, layer_params['w_up'])
+    act = mlp_act(config)(g.float()).to(h.dtype)
+    xout = expert_einsum('ebcf,efd->ebcd', act * up, layer_params['w_down'])
+    return torch.einsum('ebcd,btec->btd', xout, comb), aux
+
+
 def _layer(config: LlamaConfig, x: torch.Tensor, layer_params: Params,
            angles: torch.Tensor, attn_impl,
            lora_params: Optional[Params] = None,
-           lora_scale: float = 1.0) -> torch.Tensor:
-    """One transformer block (dense). x: [B, T, D] -> [B, T, D].
-    LoRA deltas ``((h @ a) @ b) * lora_scale`` join q and v before
-    RoPE, which the attention impl applies."""
+           lora_scale: float = 1.0):
+    """One transformer block. x: [B, T, D] -> ([B, T, D], the MoE aux
+    loss, 0 for a dense block). LoRA deltas ``((h @ a) @ b) *
+    lora_scale`` join q and v before RoPE, which the attention impl
+    applies."""
     b, t, _ = x.shape
     nh, nkv, hd = config.n_heads, config.n_kv_heads, config.head_dim
 
@@ -367,10 +445,14 @@ def _layer(config: LlamaConfig, x: torch.Tensor, layer_params: Params,
 
     h = _rms_norm(x, layer_params['mlp_norm'], config.norm_eps,
                   config.norm_offset)
+    if config.n_experts:
+        out, aux = _moe_mlp(config, h, layer_params)
+        return x + out, aux
     gate = mlp_act(config)(
         matmul(h, layer_params['w_gate']).float()).to(h.dtype)
     up = matmul(h, layer_params['w_up'])
-    return x + matmul(gate * up, layer_params['w_down'])
+    return (x + matmul(gate * up, layer_params['w_down']),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def default_attn_impl():
@@ -432,16 +514,27 @@ def unbind_layers(w) -> list:
     return list(w.unbind(0))
 
 
+def _require_moe_on_cpu(config: LlamaConfig, device: torch.device) -> None:
+    if config.n_experts and device.type == 'cuda':
+        raise NotImplementedError(
+            f'{config.name}: MoE training on a CUDA device is not ported: '
+            "the router's backward has no kernel yet (ROADMAP.md, \"MoE "
+            'training on the card"); MoE serving runs on the card, and this '
+            'forward on the CPU')
+
+
 def forward_hidden(params: Params, tokens: torch.Tensor,
                    config: LlamaConfig,
                    positions: Optional[torch.Tensor] = None,
                    attn_impl=None, lora: Optional[Params] = None,
-                   lora_scale: float = 1.0) -> torch.Tensor:
+                   lora_scale: float = 1.0, with_aux: bool = False):
     """tokens [B, T] int -> final hidden states [B, T, D]
     (post-final-norm, compute dtype). Params may be f32 masters; they
     are cast to ``config.dtype`` where used and gradients flow back to
-    them. ``lora``: optional stacked ``[L, ...]`` adapters."""
-    require_dense(config)
+    them. ``lora``: optional stacked ``[L, ...]`` adapters. With
+    ``with_aux`` returns (hidden, the layer-mean MoE aux loss; 0 for
+    dense configs). MoE configs run on the CPU only."""
+    _require_moe_on_cpu(config, tokens.device)
     _require_remat_supported(config)
     if attn_impl is None:
         attn_impl = default_attn_impl()
@@ -457,19 +550,24 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
     if lora is not None:
         loras = {name: w.to(config.dtype).unbind(0)
                  for name, w in lora.items()}
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i in range(config.n_layers):
         layer_params = {name: w[i] for name, w in layers.items()}
         layer_lora = (None if loras is None else
                       {name: w[i] for name, w in loras.items()})
         if config.remat:
-            x = torch.utils.checkpoint.checkpoint(
+            x, layer_aux = torch.utils.checkpoint.checkpoint(
                 _layer, config, x, layer_params, angles, attn_impl,
                 layer_lora, lora_scale, use_reentrant=False)
         else:
-            x = _layer(config, x, layer_params, angles, attn_impl,
-                       layer_lora, lora_scale)
-    return _rms_norm(x, cparams['final_norm'], config.norm_eps,
-                     config.norm_offset)
+            x, layer_aux = _layer(config, x, layer_params, angles,
+                                  attn_impl, layer_lora, lora_scale)
+        aux = aux + layer_aux
+    hidden = _rms_norm(x, cparams['final_norm'], config.norm_eps,
+                       config.norm_offset)
+    if with_aux:
+        return hidden, aux / config.n_layers
+    return hidden
 
 
 def forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
@@ -577,18 +675,23 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             config: LlamaConfig, lora: Optional[Params] = None,
             lora_scale: float = 1.0, attn_impl=None) -> torch.Tensor:
     """Causal LM cross-entropy over positions predicting
-    ``tokens[:, 1:]`` (mask-aware if the batch has 'loss_mask').
+    ``tokens[:, 1:]`` (mask-aware if the batch has 'loss_mask'), plus
+    ``moe_aux_coef`` times the layer-mean aux loss for MoE configs.
     ``tokens`` is [B, T+1]: the forward runs on the first T."""
     tokens = batch['tokens']
     inputs = tokens[:, :-1]
     targets = tokens[:, 1:]
-    hidden = forward_hidden(params, inputs, config, lora=lora,
-                            lora_scale=lora_scale, attn_impl=attn_impl)
+    hidden, moe_aux = forward_hidden(params, inputs, config, lora=lora,
+                                     lora_scale=lora_scale,
+                                     attn_impl=attn_impl, with_aux=True)
     mask = shifted_loss_mask(batch, targets)
     # The head is frozen exactly when training LoRA adapters: skip its
     # [D, V] gradient then.
-    return loss_from_hidden(params, hidden, targets, mask, config,
-                            train_lm_head=lora is None)
+    ce = loss_from_hidden(params, hidden, targets, mask, config,
+                          train_lm_head=lora is None)
+    if config.n_experts:
+        ce = ce + config.moe_aux_coef * moe_aux
+    return ce
 
 
 def loss_from_hidden(params: Params, hidden: torch.Tensor,

@@ -6,8 +6,10 @@ becomes ``{'q': int8 [..., in, out], 's': bf16 [..., 1, out]}`` with
 ``w ~= q * s``, and ``llama.matmul`` applies it as
 ``(x @ q.to(x.dtype)) * s`` (the scale after the product, exact for
 per-output-channel scaling). Quantized: the stacked layer projections
-(``_LAYER_MATMULS``) and the LM head; the embedding, norms and biases
-stay in the compute dtype. Codes and scales equal the JAX package's bit
+(``_LAYER_MATMULS``, MoE expert stacks ``[L, E, in, out]`` per (layer,
+expert, out-channel), applied by ``expert_einsum`` or per expert slice)
+and the LM head; the embedding, norms, biases and the MoE router stay in
+the compute dtype. Codes and scales equal the JAX package's bit
 for bit: amax in f32 over the contraction axis (-2), ``s = max(amax,
 1e-8) / 127`` rounded to bf16 BEFORE encoding, codes ``clip(round(w /
 s), -127, 127)`` with round-half-to-even (``torch.round`` as
@@ -17,9 +19,9 @@ Port difference: the JAX ``matmul`` lets XLA fuse the int8 -> bf16
 convert into the dot; here the convert materializes a copy of the
 weight per call before cuBLAS (a fused dequant GEMV is later work,
 ROADMAP.md Queue 2). ``[L, in, out]`` stacks are quantized one layer
-slice at a time, so the f32 temporary is one layer's, never the
-stack's (7.5 GB for llama3-8b's ``w_gate``). MoE expert weights come
-with the MoE slice.
+slice at a time (an expert stack one expert of a layer at a time), so
+the f32 temporary is one slice, never the stack's (7.5 GB for
+llama3-8b's ``w_gate``).
 """
 from typing import Any, Dict
 
@@ -65,20 +67,13 @@ def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 matmul = llama.matmul
-
-
-def expert_einsum(subscript: str, x: torch.Tensor, w) -> torch.Tensor:
-    """The MoE dispatch's int8-aware einsum: MoE layers come with the
-    MoE slice."""
-    raise NotImplementedError(
-        'expert_einsum: MoE expert weights are not ported yet; they come '
-        'with the MoE slice in ROADMAP.md (Queue 1, "MoE")')
+expert_einsum = llama.expert_einsum
 
 
 def quantize_params(params: Params, config: llama.LlamaConfig) -> Params:
     """A params tree with the big matmul weights replaced by
-    ``{'q', 's'}`` pairs (the rest shared, not copied)."""
-    llama.require_dense(config)
+    ``{'q', 's'}`` pairs (the rest shared, not copied; the MoE router
+    stays wide)."""
     out = dict(params)
     layers = dict(params['layers'])
     for name in _LAYER_MATMULS:
@@ -110,7 +105,6 @@ def quantize_params_streamed(params: Params, config: llama.LlamaConfig,
     ``'cuda'``) and is quantized there, one layer slice at a time, so
     the wide tree never sits on the card whole. Leaves that stay wide
     are cast to ``config.dtype``."""
-    llama.require_dense(config)
     dev = device_lib.resolve_device(device)
     out = dict(params)
     out['layers'] = {}

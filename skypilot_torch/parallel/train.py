@@ -223,7 +223,6 @@ def build_train_step(config: llama.LlamaConfig,
     state's device. ``grad_norm`` is the global norm of the raw grads,
     before the clip. Metrics stay on the device (no host sync)."""
     optimizer = optimizer or default_optimizer()
-    llama.require_dense(config)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:

@@ -40,7 +40,12 @@ replica does.
 
 ``--quant int8`` serves int8 weights (``models/quant.init_quantized``,
 leaf by leaf on the device); ``--kv-int8`` gives the engine an int8 KV
-pool (K4 and K5 run their int8 forms).
+pool (K4 and K5 run their int8 forms). MoE models serve like any other
+(``--model mixtral-8x7b --quant int8 --slots 8``: ~47 GB of expert codes
+on one card); a model whose weights in the compute dtype exceed one
+card's memory (``SINGLE_CARD_BYTES``: mixtral-8x7b's 93 GB of bf16)
+is refused without ``--quant int8`` before anything is allocated, since
+serving it wide needs sharding (ROADMAP.md Queue 1 item 16).
 
 Observability, as the JAX replica's: the process registry (the engine's
 ``skytpu_batch_*`` series and the card's ``skytpu_device_hbm_*`` gauges)
@@ -91,6 +96,9 @@ from skypilot_torch.serve.adapters import AdapterRegistry
 from skypilot_torch.serve.sampling import GrammarError
 
 MAX_NEW_TOKENS_CAP = 512
+# One card's device memory (an H100's 80 GB): wider weights need the
+# sharded serving of ROADMAP.md Queue 1 item 16.
+SINGLE_CARD_BYTES = 80 * 10 ** 9
 
 SAMPLED_REQUIRES_ENGINE = (
     'sampled/structured decoding (temperature > 0 or response_format) '
@@ -213,6 +221,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.quant == 'int8' and args.tp > 1:
         # Reject before the (expensive) init, as the JAX replica does.
         parser.error('--quant int8 with --tp > 1 is not supported yet')
+    config = llama.CONFIGS.get(args.model)
+    if config is not None and args.quant != 'int8':
+        wide = config.num_params() * config.dtype.itemsize
+        if wide > SINGLE_CARD_BYTES:
+            parser.error(
+                f'--model {args.model}: its {wide / 1e9:.0f} GB of '
+                f'{config.dtype} weights exceed one card '
+                f'({SINGLE_CARD_BYTES / 1e9:.0f} GB); serve it with --quant '
+                'int8 (sharded wide serving is ROADMAP.md Queue 1 item 16)')
     return args
 
 

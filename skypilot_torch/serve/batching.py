@@ -241,7 +241,6 @@ def decode_steps_rows(params: Params, tokens: torch.Tensor, caches,
     This is the CONTIGUOUS-cache twin of ``decode_steps_paged``.
     Returns (out_tokens [B, num_steps] int32, caches, new_pos).
     """
-    llama.require_dense(config)
     k_cache, v_cache, ks_cache, vs_cache = caches
     quantized = ks_cache is not None
     cparams = llama.compute_params(params, config)
@@ -319,7 +318,6 @@ def decode_steps_paged(params: Params, tokens: torch.Tensor, caches,
 
     Returns (out_tokens [B, num_steps] int32, caches, new_pos).
     """
-    llama.require_dense(config)
     kp, vp, ksp, vsp = _flat_pools(caches, block_size, config)
     quantized = ksp is not None
     cparams = llama.compute_params(params, config)
@@ -387,7 +385,6 @@ def verify_step_paged(params: Params, tokens: torch.Tensor, caches,
     ``decode_steps_paged``: verify applies the identical delta, or
     speculation would accept drafts against another model.
     """
-    llama.require_dense(config)
     kp, vp, ksp, vsp = _flat_pools(caches, block_size, config)
     quantized = ksp is not None
     cparams = llama.compute_params(params, config)
@@ -800,9 +797,14 @@ class BatchingEngine:
     ``default_timeout_s`` (the deadline stamped on requests that carry
     none). Multi-LoRA: ``adapter_registry`` (an ``AdapterRegistry``),
     ``adapter_capacity`` (device-resident adapter slots; 0 serves no
-    adapters) and ``adapter_preload`` (ids installed before the loop
-    starts); the shared rank axis is the resident set's default bucket
-    (16), and a larger rank is refused with ``AdapterCapacityError``.
+    adapters), ``adapter_rank_bucket`` (the resident set's shared rank
+    axis: smaller ranks pad to it, a larger one is refused with
+    ``AdapterCapacityError``) and ``adapter_preload`` (ids installed
+    before the loop starts). MoE configs run the routed experts in every
+    device step (``models/decode.moe_mlp``); a prefill chunk's bucket is
+    part of its capacity, so with a binding ``moe_capacity_factor`` a
+    chunked prompt can drop other tokens than a whole-prompt prefill, as
+    in the JAX engine.
     """
 
     def __init__(self, params: Params, config: llama.LlamaConfig,
@@ -822,10 +824,10 @@ class BatchingEngine:
                  default_timeout_s: Optional[float] = None,
                  adapter_registry=None,
                  adapter_capacity: int = 0,
+                 adapter_rank_bucket: int = 16,
                  adapter_preload: Optional[List[str]] = None,
                  sampling: bool = True,
                  grammar_vocab: Optional[List[Optional[str]]] = None):
-        llama.require_dense(config)
         self.params = params
         self.config = config
         self.device = params['embed'].device
@@ -933,7 +935,7 @@ class BatchingEngine:
             self._adapters = ResidentAdapterSet(
                 adapter_registry, adapter_capacity,
                 (wq.shape[0], wq.shape[1], wq.shape[2], wv.shape[2]),
-                device=self.device)
+                rank_bucket=adapter_rank_bucket, device=self.device)
             self._adapter_metrics = _adapter_metrics()
             self._adapter_metrics['capacity'].set(adapter_capacity)
             if adapter_preload:

@@ -348,6 +348,38 @@ def test_mixed_batch_matches_the_jax_engine(models, tenants):
     assert any(e[0] == 'verify' for e in events), 'no verify ran'
 
 
+def test_adapter_rank_bucket_matches_the_jax_engine(models, tmp_path):
+    """``adapter_rank_bucket`` sizes the resident rank axis as the JAX
+    engine's knob does: ranks 4 and 8 pad to a bucket of 8 and serve the
+    JAX engine's tokens, and a rank-16 adapter, above the bucket, is
+    refused typed by both engines."""
+    jcfg, tcfg, jp, tp = models
+    shapes = _shapes(tcfg)
+    _write_jax(tmp_path, 'r4', shapes, rank=4, seed=3)
+    _write_jax(tmp_path, 'r8', shapes, rank=8, seed=4)
+    _write_jax(tmp_path, 'r16', shapes, rank=16, seed=5)
+    jeng = jbatching.BatchingEngine(
+        jp, jcfg, adapter_registry=jadapters.AdapterRegistry(
+            base_dir=str(tmp_path)), adapter_capacity=2,
+        adapter_rank_bucket=8, **ENGINE_KW)
+    teng = _engine(tp, tcfg, AdapterRegistry(base_dir=str(tmp_path)),
+                   capacity=2, adapter_rank_bucket=8)
+    try:
+        assert teng._adapters.rank_bucket == 8
+        assert teng._adapters.buffers()['wq_a'].shape[-1] == 8
+        for adapter, prompt in (('r4', PROMPTS[0]), ('r8', PROMPTS[1])):
+            want = _drain(jeng.submit(prompt, 12, adapter=adapter))
+            assert _drain(teng.submit(prompt, 12, adapter=adapter)) == want
+        jq = jeng.submit(PROMPTS[2], 4, adapter='r16')
+        tq = teng.submit(PROMPTS[2], 4, adapter='r16')
+        assert type(jq.get(timeout=60)).__name__ == 'AdapterCapacityError'
+        assert isinstance(tq.get(timeout=60),
+                          exceptions.AdapterCapacityError)
+    finally:
+        jeng.close()
+        teng.close()
+
+
 def test_mixed_rows_equal_each_row_alone(models, tenants):
     """The port's exactness contract on the CPU: each row of the mixed
     batch emits what a dedicated engine emits for it alone."""

@@ -73,6 +73,7 @@ print(json.dumps({{'modules': names, 'bad': bad}}))
                 'skypilot_torch.ops.attention',
                 'skypilot_torch.ops.attention_packed',
                 'skypilot_torch.ops.decode_attention',
+                'skypilot_torch.ops.moe_route',
                 'skypilot_torch.parallel.lora',
                 'skypilot_torch.parallel.train',
                 'skypilot_torch.recipes.finetune',
@@ -167,9 +168,9 @@ def test_every_kernel_source_is_a_library():
                                      'prefill_attention',
                                      'attention_packed',
                                      'matmul_invariant', 'top_p',
-                                     'rms_norm'}
+                                     'rms_norm', 'moe_route'}
     paths = {_build.library_path(n) for n in _build.sources()}
-    assert len(paths) == 8
+    assert len(paths) == 9
     assert all(p.startswith(_build.BUILD_DIR) for p in paths)
 
 

@@ -136,8 +136,31 @@ def test_numpy_bridge_round_trip(dtype):
 
 
 def test_moe_config_raises():
-    with pytest.raises(NotImplementedError, match='MoE'):
-        tllama.init_params(tllama.get_config('tiny-moe'), device='cpu')
+    """MoE configs are ported: ``init_params('tiny-moe')`` gives the JAX
+    layout, leaf for leaf (``router [L, D, E]``, expert stacks ``[L, E,
+    in, out]``), in shape and dtype (f32 and bf16). The one refusal left
+    for a MoE config is training on a CUDA device, which names its
+    ROADMAP item."""
+    for dtype in (jnp.float32, jnp.bfloat16):
+        jcfg = jllama.get_config('tiny-moe', dtype=dtype)
+        tcfg = tllama.get_config('tiny-moe', dtype=_DTYPES[dtype])
+        want = jax.eval_shape(lambda: jllama.init_params(
+            jcfg, jax.random.PRNGKey(0)))
+        got = tllama.init_params(tcfg, device='cpu')
+        flat = jax.tree_util.tree_leaves_with_path(want)
+        assert len(flat) == len(jax.tree_util.tree_leaves(
+            jax.tree.map(lambda x: 0, got)))
+        for path, leaf in flat:
+            node = got
+            for key in path:
+                node = node[key.key]
+            assert tuple(node.shape) == leaf.shape, path
+            assert leaf.dtype == dtype, path
+            assert node.dtype == _DTYPES[dtype], path
+        assert got['layers']['router'].shape == (2, 128, 4)
+        assert got['layers']['w_down'].shape == (2, 4, 256, 128)
+    with pytest.raises(NotImplementedError, match='MoE training on the card'):
+        tllama._require_moe_on_cpu(tcfg, torch.device('cuda'))
 
 
 def test_int8_weights_raise():

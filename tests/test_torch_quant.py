@@ -199,5 +199,27 @@ def test_matmul_applies_the_scale_after_the_product():
 
 
 def test_expert_einsum_names_the_moe_slice():
-    with pytest.raises(NotImplementedError, match='MoE slice'):
-        tquant.expert_einsum('ed,edo->eo', torch.ones(1), {})
+    """``expert_einsum``, which raised until the MoE slice, against the
+    JAX package's on both of the MoE dispatch's subscripts: plain to
+    f32 summation order; int8 bit-equal in f32 on integer activations
+    (the contraction over int8 codes is then exact in any order, so only
+    the rounding points, the per-(expert, out-channel) scale after the
+    contraction, set the bits)."""
+    rng = np.random.default_rng(12)
+    w = rng.standard_normal((3, 16, 40)).astype(np.float32)
+    for quantized in (False, True):
+        jw, tw = jnp.asarray(w), torch.from_numpy(w)
+        if quantized:
+            jw, tw = jquant.quantize_weight(jw), tquant.quantize_weight(tw)
+        for sub, shape in (('ebcd,edf->ebcf', (3, 2, 5, 16)),
+                           ('ebcf,efd->ebcd', (3, 2, 5, 16))):
+            x = rng.standard_normal(shape).astype(np.float32)
+            want = jquant.expert_einsum(sub, jnp.asarray(x), jw)
+            got = tquant.expert_einsum(sub, torch.from_numpy(x), tw)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-6, atol=1e-6)
+            if quantized:
+                xi = rng.integers(-8, 9, shape).astype(np.float32)
+                want = jquant.expert_einsum(sub, jnp.asarray(xi), jw)
+                got = tquant.expert_einsum(sub, torch.from_numpy(xi), tw)
+                np.testing.assert_array_equal(got.numpy(), np.asarray(want))
