@@ -220,6 +220,23 @@ in order (any failure exits non-zero; nothing is caught):
    tokens/s, peak memory (``MOE_SERVE``, ``MOE_REQ``), a decode
    dispatch's busy/idle profile (``MOE_DISPATCH_PROFILE``), and the same
    burst at the config's capacity factor with its dropped slots printed.
+19. FSDP: a one-node env contract (127.0.0.1, a free port) through
+   ``parallel.distributed.initialize(force=True)`` gives an NCCL group
+   of one rank and the mesh ``fsdp=1``; the train phase's llama3-8b LoRA
+   step (32 layers, seq 2048, batch 8, rank 16) and the qlora phase's
+   QLoRA step (int8 base, batch 4) run through the mesh path
+   (``init_*_state(mesh=...)``, ``build_train_step(mesh=...)``: each
+   layer gathered inside its checkpoint, gradients reduce-scattered,
+   the global masked mean) and through the unsharded step on the same
+   tensors and batch, in turns: one warm-up and three counted steps
+   each. Loss, grad norm, every adapter and moment must be bit-equal
+   after every step; the mesh path's K1-RoPE / K2 / K3 launches equal
+   the train and qlora phases' (2 L, L, L a step) and its gathers,
+   reduce-scatters and all-reduces their identity from L and the
+   sharded leaves; both paths' step times and peak memory
+   (``FSDP_LORA``, ``FSDP_QLORA``). ``FSDP_PLAN``: the llama3-8b bf16
+   full finetune's per-device bytes on the meta device at fsdp 1 and 8
+   (the latter under 80 GB).
 
 Then one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line. ``--phases`` runs a subset (no
@@ -246,7 +263,7 @@ PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 L2_BYTES = 50 * 2 ** 20
 PHASES = ('k1', 'k4', 'e2e', 'serve', 'k1r', 'bwd', 'train', 'k5', 'k5f',
           'k4p', 'k4pre', 'invariance', 'engine', 'sampling', 'adapters',
-          'rows', 'k6', 'int8k', 'int8', 'qlora', 'ckpt', 'moe')
+          'rows', 'k6', 'int8k', 'int8', 'qlora', 'ckpt', 'moe', 'fsdp')
 K1_TOL = {'out': 2e-2, 'lse': 2e-2}
 # K2/K3 in bf16 (P and dS rounded to bf16 before their products) against
 # f32 on the same rotated bf16 q and k: max |err| over max |ref| per
@@ -5949,6 +5966,251 @@ def qlora_phase(torch, attention):
 
 
 # ---------------------------------------------------------------------
+# FSDP over a mesh (world size 1 on the card)
+# ---------------------------------------------------------------------
+
+FSDP_STEPS = 3
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _fsdp_identity(config, layout, n_steps):
+    """The collectives ``n_steps`` mesh steps issue, from L and the
+    sharded leaves: a gather per dim sharded over a data axis of each
+    layer leaf (base and adapters; twice under remat, the checkpoint's
+    recompute gathering again) and of each top-level leaf (the
+    embedding for its lookup, the head for the CE); a reduce-scatter
+    per gathered dim of each trainable leaf; all-reduces: the token
+    count, the loss, one per trainable leaf replicated over a data
+    axis, one per group of (shard axes, dtype) in the global norm."""
+    from skypilot_torch.parallel import sharding
+    data = set(sharding.DATA_AXES)
+
+    def dims(specs):
+        if isinstance(specs, dict):
+            return sum(dims(v) for v in specs.values())
+        return sum(1 for e in specs if data & set(sharding.dim_axes(e)))
+
+    base, lora = layout.layer_specs()
+    passes = 2 if config.remat else 1
+    top = dims({k: v for k, v in layout.params.items() if k != 'layers'})
+    trainable = [spec for _, spec in sharding.map_specs(
+        lambda path, x, spec: [(path, spec)], layout.trainable,
+        layout.trainable, flat=True)]
+    replicated = sum(1 for spec in trainable
+                     if data - set(sharding.spec_axes(spec)))
+    # One dtype across each path's adapters (bf16).
+    groups = len({tuple(a for a in sharding.spec_axes(spec) if a in data)
+                  for spec in trainable} - {()})
+    return {'gathers': n_steps * (passes * config.n_layers *
+                                  (dims(base) + dims(lora)) + top),
+            'reduce_scatters': n_steps * config.n_layers * dims(lora),
+            'all_reduces': n_steps * (2 + replicated + groups)}
+
+
+def _bits_diff(torch, a, b):
+    """Elements that differ between two trees of tensors (0: bit-equal)
+    and the largest |difference|."""
+    from skypilot_torch.parallel import train as train_lib
+    n, worst = 0, 0.0
+    for (pa, x), (pb, y) in zip(train_lib._leaves(a),  # noqa: SLF001
+                                train_lib._leaves(b), strict=True):
+        assert pa == pb
+        n += int((x.view(torch.int16 if x.element_size() == 2 else
+                         torch.int32) !=
+                  y.view(torch.int16 if y.element_size() == 2 else
+                         torch.int32)).sum())
+        worst = max(worst, float((x.float() - y.float()).abs().max()))
+    return n, worst
+
+
+def _fsdp_case(torch, attention, mesh, smi, qlora, dev='cuda'):
+    """One path pair: the mesh step and the unsharded step from the same
+    state (the tensors of ``init_*_state(mesh=...)``, whole at world 1)
+    on one fixed batch, in turns; bit-equality after every step, the
+    mesh path's launches and collectives, step times and peak memory."""
+    import gc
+
+    from skypilot_torch.models import llama
+    from skypilot_torch.parallel import sharding
+    from skypilot_torch.parallel import train as train_lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq, rank = 2048, 16
+    if qlora:
+        name, batch_size = 'llama3.1-8b', 4
+        config = llama.get_config(name, max_seq_len=seq, remat_saves='attn')
+        optimizer = train_lib.AdamW(learning_rate=1e-3, weight_decay=1e-4,
+                                    b1=0.9, b2=0.95, eps=1e-8,
+                                    grad_clip=1.0)
+    else:
+        name, batch_size = 'llama3-8b', 8
+        config = llama.get_config(name, max_seq_len=seq)
+        optimizer = train_lib.default_optimizer()
+    t0 = time.perf_counter()
+    if qlora:
+        state = train_lib.init_qlora_state(
+            config, seed=0, lora_rank=rank, optimizer=optimizer,
+            device=dev, mesh=mesh)
+    else:
+        state = train_lib.init_train_state(
+            config, seed=0, optimizer=optimizer, param_dtype=torch.bfloat16,
+            lora_rank=rank, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # At world 1 every block is the whole leaf: the unsharded state is the
+    # same tensors without the layout.
+    states = {'mesh': state, 'plain': dataclasses.replace(state,
+                                                          layout=None)}
+    fns = {'mesh': train_lib.build_train_step(config, optimizer, mesh=mesh),
+           'plain': train_lib.build_train_step(config, optimizer)}
+    gen = torch.Generator().manual_seed(41 if qlora else 40)
+    batch = {'tokens': torch.randint(0, config.vocab_size,
+                                     (batch_size, seq + 1),
+                                     generator=gen).to(dev)}
+    kernels = {'flash_fwd': attention.FLASH_FWD,
+               'flash_fwd_rope': attention.FLASH_FWD_ROPE,
+               'flash_bwd_prep': attention.FLASH_BWD_PREP,
+               'flash_bwd_dq': attention.FLASH_BWD_DQ,
+               'flash_bwd_dkv': attention.FLASH_BWD_DKV}
+    launches = dict.fromkeys(kernels, 0)
+    collectives = dict.fromkeys(sharding.COLLECTIVES.counts(), 0)
+    times = {'mesh': [], 'plain': []}
+    peak = {'mesh': 0, 'plain': 0}
+    bits = []
+    for i in range(1 + FSDP_STEPS):  # step 0 warms up, uncounted
+        out = {}
+        for path in (('plain', 'mesh') if i % 2 else ('mesh', 'plain')):
+            counted = i > 0 and path == 'mesh'
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if counted:
+                for k in kernels.values():
+                    k.launches = 0
+                sharding.COLLECTIVES.reset()
+            t0 = time.perf_counter()
+            new, m = fns[path](states[path], batch)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            if counted:
+                for n, k in kernels.items():
+                    launches[n] += k.launches
+                for n, c in sharding.COLLECTIVES.counts().items():
+                    collectives[n] += c
+            peak[path] = max(peak[path], torch.cuda.max_memory_allocated())
+            if i > 0:
+                times[path].append(ms)
+            states[path], out[path] = new, m
+        lora_diff = _bits_diff(torch, states['mesh'].lora,
+                               states['plain'].lora)
+        moment_diff = _bits_diff(
+            torch, {'mu': states['mesh'].opt_state.mu,
+                    'nu': states['mesh'].opt_state.nu},
+            {'mu': states['plain'].opt_state.mu,
+             'nu': states['plain'].opt_state.nu})
+        bits.append(dict(
+            step=i, loss=[float(out[p]['loss']) for p in ('mesh', 'plain')],
+            grad_norm=[float(out[p]['grad_norm']) for p in ('mesh',
+                                                            'plain')],
+            loss_equal=bool(torch.equal(out['mesh']['loss'],
+                                        out['plain']['loss'])),
+            grad_norm_equal=bool(torch.equal(out['mesh']['grad_norm'],
+                                             out['plain']['grad_norm'])),
+            lora_elements_differing=lora_diff[0],
+            lora_max_abs_diff=lora_diff[1],
+            moment_elements_differing=moment_diff[0]))
+    L = config.n_layers
+    want = {'flash_fwd': 0, 'flash_fwd_rope': 2 * L * FSDP_STEPS,
+            'flash_bwd_prep': L * FSDP_STEPS, 'flash_bwd_dq': L * FSDP_STEPS,
+            'flash_bwd_dkv': L * FSDP_STEPS}
+    identity = _fsdp_identity(config, state.layout, FSDP_STEPS)
+    mean = {p: sum(t) / len(t) for p, t in times.items()}
+    row = dict(card=smi, model=name, layers=L, seq=seq, batch=batch_size,
+               lora_rank=rank, base='int8' if qlora else 'bf16',
+               mesh=str(mesh), world_size=1,
+               setup_s=setup_s, step_ms=times,
+               step_ms_mean=mean,
+               mesh_over_plain=mean['mesh'] / mean['plain'] - 1,
+               max_memory_allocated_gb={p: v / 1e9 for p, v in peak.items()},
+               bits=bits, launches=launches, launches_expected=want,
+               collectives=collectives, collectives_expected=identity)
+    log(f'FSDP_{"QLORA" if qlora else "LORA"} ' + json.dumps(row))
+    for b in bits:
+        assert all(math.isfinite(x) for x in b['loss'] + b['grad_norm']), b
+        assert b['loss_equal'] and b['grad_norm_equal'], b
+        assert b['lora_elements_differing'] == 0, b
+        assert b['moment_elements_differing'] == 0, b
+    assert launches == want, (launches, want)
+    assert collectives == identity, (collectives, identity)
+    del states, state, fns, new
+    return launches
+
+
+def fsdp_phase(torch, attention, dev='cuda'):
+    """The parallel layer at world size 1 on the card (docstring item
+    19): an NCCL group from the env contract, the mesh path's LoRA and
+    QLoRA steps held bit-equal to the unsharded ones, and the 8B full
+    finetune's plan at fsdp 1 and 8. ``dev='cpu'`` rehearses it (gloo;
+    stub ``torch.cuda``'s calls and shrink the configs)."""
+    import torch.distributed as dist
+
+    from skypilot_torch.models import llama
+    from skypilot_torch.parallel import distributed
+    from skypilot_torch.parallel import mesh as mesh_lib
+    from skypilot_torch.parallel import train as train_lib
+    smi = smi_line()
+    env = {distributed.ENV_NUM_NODES: '1', distributed.ENV_NODE_RANK: '0',
+           distributed.ENV_NODE_IPS: '127.0.0.1',
+           distributed.ENV_COORDINATOR_PORT: str(_free_port()),
+           distributed.ENV_NUM_CHIPS_PER_NODE: '1'}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        # The store rendezvous of init_process_group alone: NCCL builds
+        # its communicators lazily, at a group's first collective.
+        t0 = time.perf_counter()
+        assert distributed.initialize(force=True, device=dev)
+        rendezvous_s = time.perf_counter() - t0
+        mesh = mesh_lib.make_mesh(mesh_lib.auto_mesh_config())
+        log('FSDP_GROUP ' + json.dumps(dict(
+            card=smi, backend=dist.get_backend(),
+            world_size=dist.get_world_size(), rank=dist.get_rank(),
+            mesh=mesh_lib.describe_config(mesh.config),
+            store=distributed.store_address(),
+            rendezvous_s=rendezvous_s)))
+        assert dist.get_backend() == ('nccl' if dev == 'cuda' else 'gloo')
+        assert dist.get_world_size() == 1
+        assert mesh.config == mesh_lib.MeshConfig(fsdp=1)
+        lora = _fsdp_case(torch, attention, mesh, smi, False, dev)
+        qlora = _fsdp_case(torch, attention, mesh, smi, True, dev)
+    finally:
+        distributed.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    config = llama.get_config('llama3-8b')
+    plans = {}
+    for fsdp in (1, 8):
+        plan = train_lib.plan_train_state(
+            config, mesh_lib.MeshConfig(fsdp=fsdp),
+            param_dtype=torch.bfloat16)
+        plans[f'fsdp{fsdp}'] = {k: plan[k] / 1e9 for k in (
+            'state_bytes', 'grad_bytes', 'device_bytes')}
+    log('FSDP_PLAN ' + json.dumps(dict(
+        card=smi, model='llama3-8b', finetune='full', param_dtype='bf16',
+        gb_per_device=plans, activations='not counted')))
+    assert plans['fsdp8']['device_bytes'] < 80, plans
+    return dict(launches={k: lora[k] + qlora[k] for k in lora})
+
+
+# ---------------------------------------------------------------------
 # Checkpoint and resume
 # ---------------------------------------------------------------------
 
@@ -7024,6 +7286,8 @@ def main() -> int:
         ckpt = ckpt_phase(torch, attention)
     if 'moe' in phases:
         moe = moe_phase(torch, attention, da)
+    if 'fsdp' in phases:
+        fsdp = fsdp_phase(torch, attention)
     assert not bwd_spills, f'the backward kernels spill: {bwd_spills}'
     assert not row_spills, f'the norm or nucleus kernels spill: {row_spills}'
     assert len(k4_entries) == 32 and not k4_spills, (
@@ -7040,6 +7304,7 @@ def main() -> int:
         serve=k1_n, sampled=smp['flash_fwd'],
         train_rope=train['launches']['flash_fwd_rope'],
         qlora_rope=qlora['launches']['flash_fwd_rope'],
+        fsdp_rope=fsdp['launches']['flash_fwd_rope'],
         ckpt_rope=ckpt['launches']['flash_fwd_rope'],
         serve_8b_int8=s8['int8']['flash_fwd'],
         serve_8b_bf16=s8['bf16']['flash_fwd'],
@@ -7080,28 +7345,34 @@ def main() -> int:
              replaces='skypilot_tpu/ops/attention.py:505',
              launches=(train['launches']['flash_bwd_prep'] +
                        qlora['launches']['flash_bwd_prep'] +
-                       ckpt['launches']['flash_bwd_prep']),
+                       ckpt['launches']['flash_bwd_prep'] +
+                       fsdp['launches']['flash_bwd_prep']),
              launches_train=train['launches']['flash_bwd_prep'],
              launches_qlora=qlora['launches']['flash_bwd_prep'],
-             launches_ckpt=ckpt['launches']['flash_bwd_prep'], **prep),
+             launches_ckpt=ckpt['launches']['flash_bwd_prep'],
+             launches_fsdp=fsdp['launches']['flash_bwd_prep'], **prep),
         dict(name='flash_bwd_dq', route='cuda',
              source='skypilot_torch/csrc/flash_bwd.cu',
              replaces='skypilot_tpu/ops/attention.py:263',
              launches=(train['launches']['flash_bwd_dq'] +
                        qlora['launches']['flash_bwd_dq'] +
-                       ckpt['launches']['flash_bwd_dq']),
+                       ckpt['launches']['flash_bwd_dq'] +
+                       fsdp['launches']['flash_bwd_dq']),
              launches_train=train['launches']['flash_bwd_dq'],
              launches_qlora=qlora['launches']['flash_bwd_dq'],
-             launches_ckpt=ckpt['launches']['flash_bwd_dq'], **k2),
+             launches_ckpt=ckpt['launches']['flash_bwd_dq'],
+             launches_fsdp=fsdp['launches']['flash_bwd_dq'], **k2),
         dict(name='flash_bwd_dkv', route='cuda',
              source='skypilot_torch/csrc/flash_bwd.cu',
              replaces='skypilot_tpu/ops/attention.py:331',
              launches=(train['launches']['flash_bwd_dkv'] +
                        qlora['launches']['flash_bwd_dkv'] +
-                       ckpt['launches']['flash_bwd_dkv']),
+                       ckpt['launches']['flash_bwd_dkv'] +
+                       fsdp['launches']['flash_bwd_dkv']),
              launches_train=train['launches']['flash_bwd_dkv'],
              launches_qlora=qlora['launches']['flash_bwd_dkv'],
-             launches_ckpt=ckpt['launches']['flash_bwd_dkv'], **k3),
+             launches_ckpt=ckpt['launches']['flash_bwd_dkv'],
+             launches_fsdp=fsdp['launches']['flash_bwd_dkv'], **k3),
         dict(name='decode_attention', route='cuda',
              source='skypilot_torch/csrc/decode_attention.cu',
              replaces='skypilot_tpu/ops/decode_attention.py:123',

@@ -336,7 +336,12 @@ def _listify(node: Any) -> Any:
 
 
 def _write_json(path: str, doc: Dict[str, Any]) -> None:
-    with open(path, 'w', encoding='utf-8') as f:
+    """Write ``doc`` durably and atomically: readers see the whole file
+    or none (rank 0's barrier polls for the other ranks' manifests and
+    reads each as soon as it exists)."""
+    tmp = f'{path}.tmp'
+    with open(tmp, 'w', encoding='utf-8') as f:
         json.dump(doc, f)
         f.flush()
         os.fsync(f.fileno())
+    os.replace(tmp, path)

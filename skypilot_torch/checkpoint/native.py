@@ -1,9 +1,9 @@
 """The native checkpoint engine — the port of
-``skypilot_tpu/checkpoint/native.py`` for one process on one device.
+``skypilot_tpu/checkpoint/native.py``.
 
 Save path (``maybe_save``):
 
-1. snapshot: every leaf of the state's tree is copied to host memory
+1. snapshot: every leaf this process writes is copied to host memory
    (a tensor on the card by one device-to-host copy, a CPU tensor or a
    numpy array by a clone), so the loop may update the live state the
    moment ``maybe_save`` returns; only this blocking part is noted to
@@ -27,20 +27,26 @@ written as their ``uint16`` bits under the name ``bfloat16``, as the
 JAX writer names them.
 
 Processes: ``process_index`` / ``process_count`` come from the
-constructor, else 0 / 1 (``torch.distributed`` comes with ROADMAP
-Queue 1 item 15). Every leaf is whole on each process (sharded training
-is item 16), so rank 0 writes it and the other ranks only write their
-(empty) manifests; the barrier and the per-host manifests are the JAX
-engine's, so its multi-host lineages are what this reads.
+constructor, else from ``parallel/distributed`` (the rank and world size
+of the process group; 0 / 1 without one). A leaf of a state trained
+over a mesh is this rank's block (``parallel/sharding.ShardedLeaf``):
+the rank writes it at its global window (``format.normalize_index``
+form) when it is the block's first replica (``replica_id == 0``, the
+JAX engine's rule), so each block is written once. A whole leaf is
+written by rank 0. The barrier and the per-host manifests are the JAX
+engine's, so either engine reads the other's multi-process lineages.
 
-Restore: template-driven (``restore_or``): each leaf is assembled whole
-from its shard files (``format.assemble_region``; a leaf the JAX engine
-saved in shards over a mesh is reassembled, and ``last_restore``
-records it as ``resharded``) and lands on the template leaf's device
-and dtype; or template-free (``restore_latest_raw``) into nested host
-tensors with optional top-level subtree selection — the serve
+Restore: template-driven (``restore_or``): each template leaf is read
+over its window — a block its rank's window of the saved leaf, a whole
+leaf all of it — from the shard files that overlap it
+(``format.assemble_region``), and lands on the template leaf's device
+and dtype. A restore onto another mesh shape (or from the JAX engine's
+sharding) is re-sliced the same way, and ``last_restore`` records it as
+``resharded``. Or template-free (``restore_latest_raw``) into nested
+host tensors with optional top-level subtree selection — the serve
 warm-start path skips the optimizer moments entirely.
 """
+import dataclasses
 import logging
 import os
 import time
@@ -55,6 +61,8 @@ from skypilot_torch.checkpoint import retention as retention_lib
 from skypilot_torch.checkpoint import writer as writer_lib
 from skypilot_torch.checkpoint.format import (CheckpointError,
                                               CheckpointRestoreError)
+from skypilot_torch.parallel import distributed
+from skypilot_torch.parallel.sharding import ShardedLeaf
 
 logger = logging.getLogger(__name__)
 
@@ -129,8 +137,13 @@ def host_tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 def _device_count(leaves) -> Optional[int]:
-    """Devices the tensors among ``leaves`` live on; None for a tree of
-    host arrays (a device count means nothing there)."""
+    """Devices the state lives on: the mesh's ranks for a sharded state,
+    else the devices of the tensors among ``leaves``; None for a tree
+    of host arrays (a device count means nothing there)."""
+    leaves = list(leaves)
+    for x in leaves:
+        if isinstance(x, ShardedLeaf):
+            return x.mesh.config.num_devices
     devices = {x.device for x in leaves if isinstance(x, torch.Tensor)}
     return len(devices) or None
 
@@ -175,8 +188,10 @@ class NativeCheckpointManager:
         self._max_to_keep = max_to_keep
         self._keep_period = keep_period
         self._barrier_timeout = barrier_timeout
-        self._proc = 0 if process_index is None else process_index
-        self._nprocs = 1 if process_count is None else process_count
+        self._proc = (distributed.process_index() if process_index is None
+                      else process_index)
+        self._nprocs = (distributed.process_count() if process_count is None
+                        else process_count)
         self._metrics = writer_lib.ckpt_metrics()
         self._last_submitted: Optional[int] = None
         # Device count captured at snapshot time (rank 0 writes it into
@@ -311,7 +326,7 @@ class NativeCheckpointManager:
         restored = _map_leaves(
             tree, lambda key, leaf: self._place_leaf(
                 step_dir, key, leaves[key], leaf, stats))
-        rebuild = getattr(type(state), 'from_checkpoint_tree', None)
+        rebuild = getattr(state, 'from_checkpoint_tree', None)
         if rebuild is not None:
             restored = rebuild(restored)
         device_count = _device_count(flat.values())
@@ -334,11 +349,27 @@ class NativeCheckpointManager:
     def _place_leaf(self, step_dir: str, key: str,
                     entry: Dict[str, Any], template_leaf: Any,
                     stats: Dict[str, Any]) -> Any:
-        """Materialize one leaf against the template leaf: assembled
-        whole from every shard file that holds a part of it, then put on
-        a tensor template's device and dtype. A numpy template takes the
-        saved dtype and a scalar its type, as in the JAX engine."""
+        """Materialize one leaf against the template leaf: a block is
+        read over its window (only the overlapping shard files), a whole
+        leaf assembled from every shard file that holds a part of it;
+        either is put on the tensor template's device and dtype. A numpy
+        template takes the saved dtype and a scalar its type, as in the
+        JAX engine."""
         shape = tuple(entry['shape'])
+        if isinstance(template_leaf, ShardedLeaf):
+            if tuple(template_leaf.shape) != shape:
+                raise CheckpointRestoreError(
+                    f'leaf {key!r}: saved shape {list(shape)}, template '
+                    f'{list(template_leaf.shape)}')
+            if entry.get('sharding') != template_leaf.sharding:
+                stats['resharded'] = True
+            host = format_lib.assemble_region(step_dir, key, entry,
+                                              template_leaf.index)
+            stats['bytes_read'] += host.nbytes
+            data = template_leaf.data
+            return dataclasses.replace(
+                template_leaf, data=host_tensor(host, entry['dtype']).to(
+                    device=data.device, dtype=data.dtype))
         shards = entry['shards']
         if len(shards) != 1 or \
                 shards[0]['index'] != format_lib.full_index(shape):
@@ -413,13 +444,19 @@ class NativeCheckpointManager:
         returns, the live state may be updated freely."""
         flat = flatten(_as_tree(state))
         self._snapshot_device_count = _device_count(flat.values())
-        if self._proc != 0:
-            return []  # every leaf is whole here: rank 0 writes it
         payload = []
         for key, leaf in flat.items():
-            arr, name = host_leaf(leaf)
-            payload.append((key, format_lib.leaf_entry(name, arr.shape),
-                            [(format_lib.full_index(arr.shape), arr)]))
+            if isinstance(leaf, ShardedLeaf):
+                if leaf.replica_id != 0:
+                    continue  # another rank writes this block
+                arr, name = host_leaf(leaf.data)
+                payload.append((key, format_lib.leaf_entry(
+                    name, leaf.shape, sharding=leaf.sharding),
+                    [(leaf.index, arr)]))
+            elif self._proc == 0:  # a whole leaf: rank 0 writes it
+                arr, name = host_leaf(leaf)
+                payload.append((key, format_lib.leaf_entry(name, arr.shape),
+                                [(format_lib.full_index(arr.shape), arr)]))
         return payload
 
     def _write_step(self, step: int, payload) -> Tuple[int, bool]:

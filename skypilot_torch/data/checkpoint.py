@@ -60,7 +60,10 @@ def selected_engine(engine: Optional[str] = None) -> str:
 
 
 class CheckpointManager:
-    """Engine-selecting facade (native only in the port)."""
+    """Engine-selecting facade (native only in the port). In a process
+    group every rank makes one over the same directory: the engine takes
+    the rank and the world size from ``parallel/distributed`` and writes
+    the blocks of a state sharded over a mesh (``checkpoint/native``)."""
 
     def __init__(self, base_dir: str, save_interval_steps: int = 100,
                  max_to_keep: Optional[int] = 3,

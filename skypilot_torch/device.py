@@ -15,12 +15,15 @@ class DeviceError(RuntimeError):
     """The requested device is not available in this process."""
 
 
-def resolve_device(device: Union[str, torch.device, None] = None
-                   ) -> torch.device:
+def resolve_device(device: Union[str, torch.device, None] = None,
+                   allow_meta: bool = False) -> torch.device:
     """``device`` (default ``'cuda'``) as a ``torch.device``; raises
     :class:`DeviceError` for CUDA when ``torch.cuda.is_available()``
-    is false, and for any device type other than ``cuda``/``cpu``."""
+    is false, and for any device type other than ``cuda``/``cpu`` (and
+    ``meta``, shapes without storage, where ``allow_meta``)."""
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
+    if allow_meta and dev.type == 'meta':
+        return dev
     if dev.type == 'cuda':
         if not torch.cuda.is_available():
             raise DeviceError(
@@ -34,3 +37,13 @@ def resolve_device(device: Union[str, torch.device, None] = None
         raise DeviceError(f'unsupported device {str(dev)!r}: the port '
                           'runs on cuda (kernels) or cpu (plain path)')
     return dev
+
+
+def generator(device: torch.device, seed: int):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; None on
+    ``meta``, which draws nothing."""
+    if device.type == 'meta':
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen

@@ -25,6 +25,7 @@ kernel's out/lse across the checkpoint (the JAX ``remat_policy``) and
 the other ``remat_saves`` tokens are later work (ROADMAP.md Queue 2).
 """
 import dataclasses
+import functools
 import itertools
 import math
 from typing import Any, Callable, Dict, Optional
@@ -195,7 +196,7 @@ def moe_capacity(config: LlamaConfig, t: int) -> int:
 
 def init_params(config: LlamaConfig, seed: int = 0,
                 dtype: Optional[torch.dtype] = None,
-                device=None, quantize=None) -> Params:
+                device=None, quantize=None, window=None) -> Params:
     """Random params in the JAX package's layout (stacked ``[L, ...]``,
     ``[in, out]`` projections; MoE: ``router [L, D, E]`` and expert
     stacks ``[L, E, in, out]``): ``normal / sqrt(fan_in)`` drawn in f32
@@ -212,8 +213,14 @@ def init_params(config: LlamaConfig, seed: int = 0,
     use ``quant.init_quantized``) turns each matmul weight's slice and
     the LM head into an int8 ``{'q', 's'}`` pair as it is drawn, so the
     wide stack never exists; the router stays wide.
+
+    ``window(path, shape)`` (``parallel/sharding.window_fn``) keeps one
+    block of each leaf: every slice is drawn as above and only the
+    block's part is stored, so a rank of a mesh holds its block of the
+    unsharded init and never the whole tree. ``device='meta'`` gives the
+    shapes and dtypes alone (``train.plan_train_state``).
     """
-    dev = device_lib.resolve_device(device)
+    dev = device_lib.resolve_device(device, allow_meta=True)
     dtype = dtype or config.dtype
     d = config.dim
     hd = config.head_dim
@@ -221,66 +228,143 @@ def init_params(config: LlamaConfig, seed: int = 0,
     ffn = config.ffn_hidden
     L = config.n_layers
     E = config.n_experts
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = device_lib.generator(dev, seed)
+
+    def block(path, shape):
+        if window is None:
+            return tuple(slice(0, n) for n in shape)
+        return window(path, tuple(shape))
 
     def dense(shape, fan_in):
         scale = 1.0 / math.sqrt(fan_in)
         return (torch.randn(shape, generator=gen, device=dev,
                             dtype=torch.float32) * scale).to(dtype)
 
-    def stacked(shape, fan_in, wide=False):
+    def kept(path, x):
+        """x's block as its own storage (x itself when whole)."""
+        sl = block(path, x.shape)
+        whole = all(s.start == 0 and s.stop == n
+                    for s, n in zip(sl, x.shape))
+        return x if whole else x[sl].clone()
+
+    def empty_block(path, shape, dt):
+        sl = block(path, shape)
+        return torch.empty([s.stop - s.start for s in sl], dtype=dt,
+                           device=dev), sl
+
+    def fill(out, sl, lead, i, part):
+        """Stores slice ``i`` (of the lead dims) of a stacked leaf into
+        its block ``out`` (window ``sl``) when the block holds it."""
+        if all(s.start <= j < s.stop for s, j in zip(sl, i)):
+            at = tuple(j - s.start for s, j in zip(sl, i))
+            out[at] = part[sl[len(lead):]]
+
+    def stacked(name, shape, fan_in, wide=False):
         lead = (L,) + shape[:-2]
+        path = ('layers', name)
         if quantize is not None and not wide:
-            out = {'q': torch.empty(lead + shape[-2:], dtype=torch.int8,
-                                    device=dev),
-                   's': torch.empty(lead + (1, shape[-1]),
-                                    dtype=torch.bfloat16, device=dev)}
+            q, q_sl = empty_block(path + ('q',), lead + shape[-2:],
+                                  torch.int8)
+            sc, s_sl = empty_block(path + ('s',), lead + (1, shape[-1]),
+                                   torch.bfloat16)
             for i in itertools.product(*map(range, lead)):
                 part = quantize(dense(shape[-2:], fan_in))
-                out['q'][i], out['s'][i] = part['q'], part['s']
-            return out
-        out = torch.empty(lead + shape[-2:], dtype=dtype, device=dev)
+                fill(q, q_sl, lead, i, part['q'])
+                fill(sc, s_sl, lead, i, part['s'])
+            return {'q': q, 's': sc}
+        out, sl = empty_block(path, lead + shape[-2:], dtype)
         for i in itertools.product(*map(range, lead)):
-            out[i] = dense(shape[-2:], fan_in)
+            fill(out, sl, lead, i, dense(shape[-2:], fan_in))
         return out
 
-    def norm_init(shape):
-        fill = torch.zeros if config.norm_offset else torch.ones
-        return fill(shape, dtype=dtype, device=dev)
+    def norm_init(path, shape):
+        init = torch.zeros if config.norm_offset else torch.ones
+        return kept(path, init(shape, dtype=dtype, device=dev))
 
-    embed = dense((config.vocab_size, d), d)
+    embed = kept(('embed',), dense((config.vocab_size, d), d))
     layers = {
-        'wq': stacked((d, nh * hd), d),
-        'wk': stacked((d, nkv * hd), d),
-        'wv': stacked((d, nkv * hd), d),
-        'wo': stacked((nh * hd, d), nh * hd),
+        'wq': stacked('wq', (d, nh * hd), d),
+        'wk': stacked('wk', (d, nkv * hd), d),
+        'wv': stacked('wv', (d, nkv * hd), d),
+        'wo': stacked('wo', (nh * hd, d), nh * hd),
     }
     experts = (E,) if E else ()
     if E:
-        layers['router'] = stacked((d, E), d, wide=True)
+        layers['router'] = stacked('router', (d, E), d, wide=True)
     layers.update({
-        'w_gate': stacked(experts + (d, ffn), d),
-        'w_up': stacked(experts + (d, ffn), d),
-        'w_down': stacked(experts + (ffn, d), ffn),
-        'attn_norm': norm_init((L, d)),
-        'mlp_norm': norm_init((L, d)),
+        'w_gate': stacked('w_gate', experts + (d, ffn), d),
+        'w_up': stacked('w_up', experts + (d, ffn), d),
+        'w_down': stacked('w_down', experts + (ffn, d), ffn),
+        'attn_norm': norm_init(('layers', 'attn_norm'), (L, d)),
+        'mlp_norm': norm_init(('layers', 'mlp_norm'), (L, d)),
     })
     params: Params = {
         'embed': embed,
         'layers': layers,
-        'final_norm': norm_init((d,)),
+        'final_norm': norm_init(('final_norm',), (d,)),
     }
     if config.qkv_bias:
         for name, width in (('bq', nh * hd), ('bk', nkv * hd),
                             ('bv', nkv * hd)):
-            params['layers'][name] = torch.zeros((L, width), dtype=dtype,
-                                                 device=dev)
+            params['layers'][name] = kept(
+                ('layers', name),
+                torch.zeros((L, width), dtype=dtype, device=dev))
     if not config.tie_embeddings:
-        params['lm_head'] = dense((d, config.vocab_size), d)
+        head = dense((d, config.vocab_size), d)
         if quantize is not None:
-            params['lm_head'] = quantize(params['lm_head'])
+            head = quantize(head)
+            params['lm_head'] = {k: kept(('lm_head', k), v)
+                                 for k, v in head.items()}
+        else:
+            params['lm_head'] = kept(('lm_head',), head)
     return params
+
+
+def param_sharding_rules(config: LlamaConfig) -> Params:
+    """A spec per param over the mesh axes (pp, fsdp, ep, tp), the JAX
+    ``param_sharding_rules`` (``parallel/sharding.py`` reads a spec as
+    JAX reads ``P(...)``).
+
+    TP shards heads / ffn-hidden / vocab; FSDP shards the other big
+    axis (ZeRO-3). Non-expert params fold 'ep' into the fsdp group;
+    expert-stacked weights shard their expert axis over 'ep'. The
+    stacked layer axis is replicated (JAX shards it over 'pp' under
+    pipeline parallelism, which the port does not run yet).
+    """
+    fs = ('fsdp', 'ep')
+    if config.n_experts:
+        mlp_rules = {
+            'router': (None, fs, None),
+            'w_gate': (None, 'ep', 'fsdp', 'tp'),
+            'w_up': (None, 'ep', 'fsdp', 'tp'),
+            'w_down': (None, 'ep', 'tp', 'fsdp'),
+        }
+    else:
+        mlp_rules = {
+            'w_gate': (None, fs, 'tp'),
+            'w_up': (None, fs, 'tp'),
+            'w_down': (None, 'tp', fs),
+        }
+    rules = {
+        'embed': ('tp', fs),
+        'layers': {
+            'wq': (None, fs, 'tp'),
+            'wk': (None, fs, 'tp'),
+            'wv': (None, fs, 'tp'),
+            'wo': (None, 'tp', fs),
+            **mlp_rules,
+            'attn_norm': (None, None),
+            'mlp_norm': (None, None),
+        },
+        'final_norm': (None,),
+    }
+    if config.qkv_bias:
+        rules['layers']['bq'] = (None, 'tp')
+        rules['layers']['bk'] = (None, 'tp')
+        rules['layers']['bv'] = (None, 'tp')
+    if not config.tie_embeddings:
+        rules['lm_head'] = (fs, 'tp')
+    return rules
 
 
 # ---------------------------------------------------------------------
@@ -345,16 +429,25 @@ def mlp_act(config: LlamaConfig) -> Callable[[torch.Tensor],
     return lambda x: F.gelu(x, approximate='tanh')
 
 
-def output_head(params: Params, config: LlamaConfig):
+def output_head(params: Params, config: LlamaConfig, layout=None):
     """[D, V] output projection — the transposed embedding when the
     config ties them. An int8 ``{'q', 's'}`` head comes back as it is:
-    consume it with ``matmul`` or the fused CE, not ``@``."""
+    consume it with ``matmul`` or the fused CE, not ``@``. With a
+    ``layout`` (``parallel/sharding.Layout``) the params are this rank's
+    blocks, and the head is gathered whole here, where it is used."""
     if config.tie_embeddings:
-        return params['embed'].to(config.dtype).T
+        return _whole(layout, 'embed',
+                      params['embed'].to(config.dtype)).T
     head = params['lm_head']
-    if isinstance(head, dict):
-        return head
-    return head.to(config.dtype)
+    if not isinstance(head, dict):
+        head = head.to(config.dtype)
+    return _whole(layout, 'lm_head', head)
+
+
+def _whole(layout, name: str, x):
+    """Top-level param ``name``'s value ``x`` gathered whole over the
+    layout's data axes (``x`` itself without a layout)."""
+    return x if layout is None else layout.gather(x, layout.params[name])
 
 
 # ---------------------------------------------------------------------
@@ -412,6 +505,23 @@ def _moe_mlp(config: LlamaConfig, h: torch.Tensor, layer_params: Params):
     return torch.einsum('ebcd,btec->btd', xout, comb), aux
 
 
+def _gathered_layer(layout, specs, config: LlamaConfig, x: torch.Tensor,
+                    layer_params: Params, angles: torch.Tensor, attn_impl,
+                    lora_params: Optional[Params] = None,
+                    lora_scale: float = 1.0):
+    """``_layer`` on this rank's blocks of one layer: each sharded leaf
+    (and adapter) is gathered whole first. Under remat this runs inside
+    the layer's checkpoint, so its recompute gathers again and only one
+    layer is whole at a time (ZeRO-3); the gathers' backward
+    reduce-scatters the gradients to the blocks. ``specs``: the
+    (params, lora) spec trees of one layer's slices."""
+    layer_params = layout.gather(layer_params, specs[0])
+    if lora_params is not None:
+        lora_params = layout.gather(lora_params, specs[1])
+    return _layer(config, x, layer_params, angles, attn_impl, lora_params,
+                  lora_scale)
+
+
 def _layer(config: LlamaConfig, x: torch.Tensor, layer_params: Params,
            angles: torch.Tensor, attn_impl,
            lora_params: Optional[Params] = None,
@@ -463,10 +573,11 @@ def default_attn_impl():
 
 
 def embed_tokens(cparams: Params, tokens: torch.Tensor,
-                 config: LlamaConfig) -> torch.Tensor:
+                 config: LlamaConfig, layout=None) -> torch.Tensor:
     """Token embedding lookup (+ Gemma's sqrt(dim) scaling) on
-    compute-dtype params."""
-    x = cparams['embed'][tokens]
+    compute-dtype params (with a ``layout``, the table is gathered whole
+    for the lookup)."""
+    x = _whole(layout, 'embed', cparams['embed'])[tokens]
     if config.scale_embeddings:
         x = x * torch.tensor(math.sqrt(config.dim), dtype=x.dtype)
     return x
@@ -514,7 +625,13 @@ def unbind_layers(w) -> list:
     return list(w.unbind(0))
 
 
-def _require_moe_on_cpu(config: LlamaConfig, device: torch.device) -> None:
+def _require_moe_on_cpu(config: LlamaConfig, device: torch.device,
+                        layout=None) -> None:
+    if config.n_experts and layout is not None:
+        raise NotImplementedError(
+            f'{config.name}: MoE training over a mesh is not ported: its '
+            'aux loss and routing need the ep axis (ROADMAP.md, "MoE '
+            'training on the card")')
     if config.n_experts and device.type == 'cuda':
         raise NotImplementedError(
             f'{config.name}: MoE training on a CUDA device is not ported: '
@@ -527,14 +644,21 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
                    config: LlamaConfig,
                    positions: Optional[torch.Tensor] = None,
                    attn_impl=None, lora: Optional[Params] = None,
-                   lora_scale: float = 1.0, with_aux: bool = False):
+                   lora_scale: float = 1.0, with_aux: bool = False,
+                   layout=None):
     """tokens [B, T] int -> final hidden states [B, T, D]
     (post-final-norm, compute dtype). Params may be f32 masters; they
     are cast to ``config.dtype`` where used and gradients flow back to
     them. ``lora``: optional stacked ``[L, ...]`` adapters. With
     ``with_aux`` returns (hidden, the layer-mean MoE aux loss; 0 for
-    dense configs). MoE configs run on the CPU only."""
-    _require_moe_on_cpu(config, tokens.device)
+    dense configs). MoE configs run on the CPU only.
+
+    ``layout`` (``parallel/sharding.Layout``): ``params`` and ``lora``
+    are this rank's blocks; each layer's are gathered inside its
+    checkpointed call (``_gathered_layer``), the embedding where it is
+    looked up. The cast to the compute dtype runs on the blocks, before
+    the gathers (elementwise: the same bits)."""
+    _require_moe_on_cpu(config, tokens.device, layout)
     _require_remat_supported(config)
     if attn_impl is None:
         attn_impl = default_attn_impl()
@@ -543,9 +667,13 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
         positions = torch.arange(t, device=tokens.device)
     angles = _rope_frequencies(config, positions)
     cparams = compute_params(params, config)
-    x = embed_tokens(cparams, tokens, config)
+    x = embed_tokens(cparams, tokens, config, layout)
     layers = {name: unbind_layers(w)
               for name, w in cparams['layers'].items()}
+    body = _layer
+    if layout is not None:
+        body = functools.partial(_gathered_layer, layout,
+                                 layout.layer_specs())
     loras = None
     if lora is not None:
         loras = {name: w.to(config.dtype).unbind(0)
@@ -557,11 +685,11 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
                       {name: w[i] for name, w in loras.items()})
         if config.remat:
             x, layer_aux = torch.utils.checkpoint.checkpoint(
-                _layer, config, x, layer_params, angles, attn_impl,
+                body, config, x, layer_params, angles, attn_impl,
                 layer_lora, lora_scale, use_reentrant=False)
         else:
-            x, layer_aux = _layer(config, x, layer_params, angles,
-                                  attn_impl, layer_lora, lora_scale)
+            x, layer_aux = body(config, x, layer_params, angles,
+                                attn_impl, layer_lora, lora_scale)
         aux = aux + layer_aux
     hidden = _rms_norm(x, cparams['final_norm'], config.norm_eps,
                        config.norm_offset)
@@ -603,7 +731,10 @@ class _FusedCE(torch.autograd.Function):
     scales the stored [B, T, D] dhidden (and the [D, V] dW when the head
     trains) by ``g / denom``. Inputs: hidden [B, T, D], lm_head [D, V]
     (or a frozen int8 ``{'q', 's'}`` pair: QLoRA), targets [B, T], mask
-    [B, T] f32. Returns the mean NLL over unmasked positions.
+    [B, T] f32, and ``count``: the unmasked positions the mean divides
+    by (None: this call's own; a sharded step passes the global count,
+    so each rank's loss is its share of the global masked mean).
+    Returns the mean NLL over unmasked positions.
 
     An int8 head is converted to the hidden dtype once per call, not
     once per chunk; its logits are ``(h @ q) * s`` as ``matmul`` forms
@@ -611,7 +742,8 @@ class _FusedCE(torch.autograd.Function):
     ``_head_mm_t``)."""
 
     @staticmethod
-    def forward(ctx, hidden, lm_head, targets, mask, chunk, train_head):
+    def forward(ctx, hidden, lm_head, targets, mask, chunk, train_head,
+                count=None):
         _, t, _ = hidden.shape
         ns = torch.zeros((), dtype=torch.float32, device=hidden.device)
         ms = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -650,7 +782,7 @@ class _FusedCE(torch.autograd.Function):
             if train_head:
                 dw += torch.einsum('bcd,bcv->dv', h.float(), dlog.float())
             del logits, dlog
-        denom = torch.clamp(ms, min=1.0)
+        denom = torch.clamp(ms if count is None else count, min=1.0)
         ctx.save_for_backward(dh, dw, denom)
         ctx.head_meta = None if quantized else (w.shape, w.dtype)
         ctx.train_head = train_head
@@ -668,27 +800,34 @@ class _FusedCE(torch.autograd.Function):
         else:
             shape, dtype = ctx.head_meta
             dlm = torch.zeros(shape, dtype=dtype, device=dh.device)
-        return dhid, dlm, None, None, None, None
+        return dhid, dlm, None, None, None, None, None
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             config: LlamaConfig, lora: Optional[Params] = None,
-            lora_scale: float = 1.0, attn_impl=None) -> torch.Tensor:
+            lora_scale: float = 1.0, attn_impl=None,
+            layout=None) -> torch.Tensor:
     """Causal LM cross-entropy over positions predicting
     ``tokens[:, 1:]`` (mask-aware if the batch has 'loss_mask'), plus
     ``moe_aux_coef`` times the layer-mean aux loss for MoE configs.
-    ``tokens`` is [B, T+1]: the forward runs on the first T."""
+    ``tokens`` is [B, T+1]: the forward runs on the first T.
+
+    With a ``layout`` the batch is this rank's rows and the params its
+    blocks; the result is this rank's share of the GLOBAL masked mean
+    (its masked NLL sum over the count all-reduced over the data axes),
+    so the shares sum to the loss of the whole batch."""
     tokens = batch['tokens']
     inputs = tokens[:, :-1]
     targets = tokens[:, 1:]
     hidden, moe_aux = forward_hidden(params, inputs, config, lora=lora,
                                      lora_scale=lora_scale,
-                                     attn_impl=attn_impl, with_aux=True)
+                                     attn_impl=attn_impl, with_aux=True,
+                                     layout=layout)
     mask = shifted_loss_mask(batch, targets)
     # The head is frozen exactly when training LoRA adapters: skip its
     # [D, V] gradient then.
     ce = loss_from_hidden(params, hidden, targets, mask, config,
-                          train_lm_head=lora is None)
+                          train_lm_head=lora is None, layout=layout)
     if config.n_experts:
         ce = ce + config.moe_aux_coef * moe_aux
     return ce
@@ -696,11 +835,14 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
 
 def loss_from_hidden(params: Params, hidden: torch.Tensor,
                      targets: torch.Tensor, mask: torch.Tensor,
-                     config: LlamaConfig,
-                     train_lm_head: bool = True) -> torch.Tensor:
-    """Chunked fused LM-head + CE over final hidden states."""
+                     config: LlamaConfig, train_lm_head: bool = True,
+                     layout=None) -> torch.Tensor:
+    """Chunked fused LM-head + CE over final hidden states (with a
+    ``layout``: over the global unmasked count, as ``loss_fn`` says)."""
     t = hidden.shape[1]
     chunk = LOSS_CHUNK if t % LOSS_CHUNK == 0 else t
-    return _FusedCE.apply(hidden, output_head(params, config),
-                          targets.long(), mask.float(), chunk,
-                          train_lm_head)
+    mask = mask.float()
+    count = None if layout is None else layout.data_sum(mask.sum())
+    return _FusedCE.apply(hidden, output_head(params, config, layout),
+                          targets.long(), mask, chunk, train_lm_head,
+                          count)

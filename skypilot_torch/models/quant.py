@@ -87,15 +87,16 @@ def quantize_params(params: Params, config: llama.LlamaConfig) -> Params:
 
 def init_quantized(config: llama.LlamaConfig, seed: int = 0,
                    dtype: torch.dtype = torch.bfloat16,
-                   device=None) -> Params:
+                   device=None, window=None) -> Params:
     """Random params with the matmul weights quantized as they
     materialize, leaf by leaf on ``device`` (default ``'cuda'``): the
     wide tree never exists (llama3-8b's bf16 tree is 16 GB; the int8
     tree ~8.6 GB with its bf16 embedding). The draws are
     ``llama.init_params``'s (same generator, same order), so the result
-    equals ``quantize_params(init_params(config, seed, dtype))``."""
+    equals ``quantize_params(init_params(config, seed, dtype))``;
+    ``window`` keeps one block of each leaf (``llama.init_params``)."""
     return llama.init_params(config, seed, dtype=dtype, device=device,
-                             quantize=quantize_weight)
+                             quantize=quantize_weight, window=window)
 
 
 def quantize_params_streamed(params: Params, config: llama.LlamaConfig,

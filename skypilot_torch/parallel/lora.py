@@ -4,8 +4,8 @@
 Adapters attach to the q/v projections (torchtune's defaults, as in the
 reference recipe ``llm/llama-3_1-finetuning/lora.yaml``), stored
 STACKED over layers like the base weights: ``wq_a`` [L, D, r], ``wq_b``
-[L, r, H*hd], ``wv_a`` [L, D, r], ``wv_b`` [L, r, Hkv*hd]. The sharding
-rules wait for the sharding slice (ROADMAP.md).
+[L, r, H*hd], ``wv_a`` [L, D, r], ``wv_b`` [L, r, Hkv*hd], sharded
+over a mesh by ``lora_sharding_rules``.
 """
 import math
 from typing import Any, Dict
@@ -20,27 +20,50 @@ Lora = Dict[str, Any]
 
 
 def init_lora(config: llama.LlamaConfig, seed: int = 0, rank: int = 16,
-              dtype: torch.dtype = torch.float32, device=None) -> Lora:
+              dtype: torch.dtype = torch.float32, device=None,
+              window=None) -> Lora:
     """Zero B and gaussian A (``normal / sqrt(dim)``, drawn in f32 from
     an explicit ``torch.Generator`` seeded with ``seed``), so the delta
     starts at 0. The draws differ from ``jax.random``; tests carry JAX's
-    adapters across with ``convert.tree_from_numpy``."""
-    dev = device_lib.resolve_device(device)
+    adapters across with ``convert.tree_from_numpy``. ``window`` and
+    ``device='meta'`` as in ``llama.init_params``."""
+    dev = device_lib.resolve_device(device, allow_meta=True)
     L, d = config.n_layers, config.dim
     q_out = config.n_heads * config.head_dim
     v_out = config.n_kv_heads * config.head_dim
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = device_lib.generator(dev, seed)
 
-    def a_init():
-        return (torch.randn((L, d, rank), generator=gen, device=dev,
-                            dtype=torch.float32) / math.sqrt(d)).to(dtype)
+    def kept(name, x):
+        if window is None:
+            return x
+        return x[window((name,), tuple(x.shape))].clone()
+
+    def a_init(name):
+        return kept(name, (torch.randn((L, d, rank), generator=gen,
+                                       device=dev, dtype=torch.float32) /
+                           math.sqrt(d)).to(dtype))
 
     return {
-        'wq_a': a_init(),
-        'wq_b': torch.zeros((L, rank, q_out), dtype=dtype, device=dev),
-        'wv_a': a_init(),
-        'wv_b': torch.zeros((L, rank, v_out), dtype=dtype, device=dev),
+        'wq_a': a_init('wq_a'),
+        'wq_b': kept('wq_b', torch.zeros((L, rank, q_out), dtype=dtype,
+                                         device=dev)),
+        'wv_a': a_init('wv_a'),
+        'wv_b': kept('wv_b', torch.zeros((L, rank, v_out), dtype=dtype,
+                                         device=dev)),
+    }
+
+
+def lora_sharding_rules(config: llama.LlamaConfig) -> Dict[str, Any]:
+    """The JAX ``lora_sharding_rules``: A shards its input dim on fsdp;
+    B shards its output (head) dim on tp, matching the base wq/wv
+    specs. The stacked layer axis is replicated, as the base weights'
+    is."""
+    del config
+    return {
+        'wq_a': (None, 'fsdp', None),
+        'wq_b': (None, None, 'tp'),
+        'wv_a': (None, 'fsdp', None),
+        'wv_b': (None, None, 'tp'),
     }
 
 

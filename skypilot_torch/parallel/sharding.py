@@ -1,0 +1,324 @@
+"""Per-leaf sharding over the data axes of a mesh — the port's
+counterpart of the JAX package's ``NamedSharding`` trees
+(``sharding_tree``, ``skypilot_tpu/parallel/train.py:57-63``).
+
+A spec is written as JAX writes ``P(...)``: one entry per dim, None
+(replicated), an axis name, or a tuple of axis names (sharded over
+their product, the first axis major: ``('fsdp', 'ep')`` shards
+fsdp-major). A rank holds the window of each dim given by its
+coordinate on the dim's axes (:func:`window`); a dim its axes do not
+divide raises, as JAX does.
+
+XLA inserts a sharded program's collectives; here they are explicit.
+:func:`gather` brings a leaf's dims sharded over the data axes
+(``dp``/``fsdp``/``ep``) whole: ``all_gather_into_tensor`` forward and
+``reduce_scatter_tensor`` (sum) backward, the FSDP gradient path that
+DTensor's ``Shard → Replicate`` redistribution does not give (its
+backward slices the replicated gradient without summing across ranks).
+Dims sharded over a model axis (``tp``, ``pp``, ``sp``) stay sharded;
+the train step refuses those axes above 1 until they are ported.
+:func:`all_reduce` sums over a set of axes. ``COLLECTIVES`` counts each
+kind where it is issued, and nowhere else, so a run can hold the
+collectives of a step against their identity.
+
+:class:`Layout` is a state's place on the mesh (the spec trees of its
+params and adapters), and :class:`ShardedLeaf` one local tensor with
+its global shape and window, the form in which the checkpoint engine
+writes and reads a rank's part of a leaf.
+"""
+import dataclasses
+import itertools
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from skypilot_torch.parallel import mesh as mesh_lib
+
+Spec = Tuple[Any, ...]
+DATA_AXES = mesh_lib.data_axes()
+
+
+class Collectives:
+    """Counts of the collectives issued by this module: ``gathers``
+    (forward all-gathers), ``reduce_scatters`` (their backward) and
+    ``all_reduces``."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.gathers = 0
+        self.reduce_scatters = 0
+        self.all_reduces = 0
+
+    def counts(self) -> Dict[str, int]:
+        return {'gathers': self.gathers,
+                'reduce_scatters': self.reduce_scatters,
+                'all_reduces': self.all_reduces}
+
+
+COLLECTIVES = Collectives()
+
+
+def dim_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry, in mesh order (a tuple out of
+    mesh order raises: its rank order would not be the groups')."""
+    if entry is None:
+        return ()
+    axes = (entry,) if isinstance(entry, str) else tuple(entry)
+    unknown = [a for a in axes if a not in mesh_lib.AXES]
+    if unknown:
+        raise ValueError(f'unknown mesh axes {unknown} in spec entry '
+                         f'{entry!r}')
+    if list(axes) != sorted(axes, key=mesh_lib.AXES.index):
+        raise ValueError(f'spec entry {entry!r}: axes must follow the '
+                         f'mesh order {mesh_lib.AXES}')
+    return axes
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """Every axis a spec names, in mesh order."""
+    named = {a for e in spec for a in dim_axes(e)}
+    return tuple(a for a in mesh_lib.AXES if a in named)
+
+
+def local_shape(shape: Sequence[int], spec: Spec,
+                mesh_shape: Dict[str, int]) -> Tuple[int, ...]:
+    """A rank's block shape of a leaf of global ``shape``."""
+    if len(spec) > len(shape):
+        raise ValueError(f'spec {spec} has more entries than shape '
+                         f'{tuple(shape)} has dims')
+    out = []
+    for d, size in enumerate(shape):
+        entry = spec[d] if d < len(spec) else None
+        n = 1
+        for a in dim_axes(entry):
+            n *= mesh_shape[a]
+        if size % n:
+            raise ValueError(
+                f'dim {d} of shape {tuple(shape)} (size {size}) is not '
+                f'divisible by the {n} shards of {entry!r}')
+        out.append(size // n)
+    return tuple(out)
+
+
+def window(mesh, spec: Spec, shape: Sequence[int]) -> List[List[int]]:
+    """This rank's ``[[start, stop], ...]`` of a leaf of global
+    ``shape`` (the checkpoint format's index form)."""
+    block = local_shape(shape, spec, mesh.shape)
+    out = []
+    for d, n in enumerate(block):
+        entry = spec[d] if d < len(spec) else None
+        i = mesh.index(dim_axes(entry))
+        out.append([i * n, (i + 1) * n])
+    return out
+
+
+def local_slice(mesh, spec: Spec, full: torch.Tensor) -> torch.Tensor:
+    """This rank's block of a whole tensor, as its own storage."""
+    win = window(mesh, spec, full.shape)
+    return full[tuple(slice(a, b) for a, b in win)].clone()
+
+
+def replica_id(mesh, spec: Spec) -> int:
+    """This rank's index among the ranks holding the same block (JAX's
+    ``Shard.replica_id``): its position on the axes the spec does not
+    name. Replica 0 writes the block to a checkpoint."""
+    named = spec_axes(spec)
+    return mesh.index([a for a in mesh_lib.AXES if a not in named])
+
+
+def data_axes_of(entry) -> Tuple[str, ...]:
+    return tuple(a for a in dim_axes(entry) if a in DATA_AXES)
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather of dim ``dim`` over ``group`` (forward) and the
+    reduce-scatter (sum) of its gradient back to the block (backward).
+    The collectives stack the ``n`` blocks on a new leading dim, which
+    merges into ``dim``: a view where the blocks are already in place
+    (``dim`` 0, or one block), else one copy. The whole tensor comes
+    back contiguous, in the layout of the unsharded leaf's slice, so the
+    products that read it run as they do on one device."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, n):
+        ctx.group, ctx.dim, ctx.n = group, dim, n
+        x = x.contiguous()
+        out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x, group=group)
+        COLLECTIVES.gathers += 1
+        shape = list(x.shape)
+        shape[dim] *= n
+        return out.view((n,) + tuple(x.shape)).movedim(0, dim).reshape(
+            shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape = list(g.shape)
+        shape[ctx.dim:ctx.dim + 1] = [ctx.n, shape[ctx.dim] // ctx.n]
+        src = g.reshape(shape).movedim(ctx.dim, 0).contiguous()
+        out = torch.empty(src.shape[1:], dtype=src.dtype,
+                          device=src.device)
+        dist.reduce_scatter_tensor(out, src.flatten(0, 1), group=ctx.group)
+        COLLECTIVES.reduce_scatters += 1
+        return out, None, None, None
+
+
+def gather(x: torch.Tensor, mesh, spec: Spec) -> torch.Tensor:
+    """``x`` (this rank's block) with every dim sharded over data axes
+    made whole: one all-gather a dim, over the dim's data axes. Their
+    gradients reduce-scatter back to the block."""
+    for d, entry in enumerate(spec):
+        axes = data_axes_of(entry)
+        if axes:
+            x = _Gather.apply(x, mesh.group(axes), d, mesh.size(axes))
+    return x
+
+
+def gather_tree(tree, mesh, specs):
+    """:func:`gather` over a tree of leaves (an int8 ``{'q', 's'}``
+    pair is a subtree) and its matching spec tree."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, mesh, specs[k]) for k, v in tree.items()}
+    return gather(tree, mesh, specs)
+
+
+def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """Sum ``x`` in place over the ranks that differ on ``axes``."""
+    dist.all_reduce(x, group=mesh.group(tuple(axes)))
+    COLLECTIVES.all_reduces += 1
+    return x
+
+
+def map_specs(fn: Callable, tree, specs, path: Tuple[str, ...] = (),
+              flat: bool = False):
+    """``tree`` with each leaf replaced by ``fn(path, leaf, spec)``; with
+    ``flat``, the concatenation of the lists ``fn`` returns, in
+    sorted-key order."""
+    if isinstance(tree, dict):
+        if flat:
+            return list(itertools.chain.from_iterable(
+                map_specs(fn, tree[k], specs[k], path + (k,), True)
+                for k in sorted(tree)))
+        return {k: map_specs(fn, v, specs[k], path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree, specs)
+
+
+def strip_lead(specs):
+    """A spec tree with each spec's first entry dropped: the specs of
+    one layer's slices of stacked ``[L, ...]`` leaves."""
+    if isinstance(specs, dict):
+        return {k: strip_lead(v) for k, v in specs.items()}
+    return tuple(specs[1:])
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedLeaf:
+    """This rank's block of a leaf: ``data`` is the local tensor,
+    ``shape`` the global shape; ``index`` its window and ``replica_id``
+    its replica (both from the mesh coordinate)."""
+    data: torch.Tensor
+    mesh: Any
+    spec: Spec
+    shape: Tuple[int, ...]
+
+    @property
+    def index(self) -> List[List[int]]:
+        return window(self.mesh, self.spec, self.shape)
+
+    @property
+    def replica_id(self) -> int:
+        return replica_id(self.mesh, self.spec)
+
+    @property
+    def sharding(self) -> str:
+        """Names the mesh plan and spec; a restore compares it with the
+        saved one to tell a reshard."""
+        return (f'mesh={mesh_lib.describe_config(self.mesh.config)} '
+                f'spec={tuple(self.spec)!r}')
+
+
+def global_shape(x: torch.Tensor, spec: Spec,
+                 mesh_shape: Dict[str, int]) -> Tuple[int, ...]:
+    """The global shape of a rank's block ``x``."""
+    out = []
+    for d, n in enumerate(x.shape):
+        entry = spec[d] if d < len(spec) else None
+        for a in dim_axes(entry):
+            n *= mesh_shape[a]
+        out.append(n)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """A train state's place on ``mesh``: the spec trees of its params
+    and (LoRA) adapters. ``trainable`` is the tree the step trains
+    (``train.opt_state_shardings`` puts the moments on its specs)."""
+    mesh: Any
+    params: Dict[str, Any]
+    lora: Optional[Dict[str, Any]] = None
+
+    @property
+    def trainable(self) -> Dict[str, Any]:
+        return self.params if self.lora is None else self.lora
+
+    def gather(self, tree, specs):
+        """:func:`gather_tree` on this layout's mesh."""
+        return gather_tree(tree, self.mesh, specs)
+
+    def layer_specs(self):
+        """(params, lora) spec trees of one layer's slices of the
+        stacked ``[L, ...]`` leaves."""
+        return (strip_lead(self.params['layers']),
+                None if self.lora is None else strip_lead(self.lora))
+
+    def data_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the data axes (a copy; ``x`` is kept)."""
+        return all_reduce(x.clone(), self.mesh, DATA_AXES)
+
+    def local_batch(self, batch: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a global batch: its position on the data
+        axes, ``dp`` major (JAX's ``P(('dp', 'fsdp', 'ep'))``)."""
+        b = mesh_lib.batch_size_per_device(
+            next(iter(batch.values())).shape[0], self.mesh)
+        i = self.mesh.index(DATA_AXES)
+        return {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+
+    def wrap(self, tree, specs):
+        """``tree`` with each tensor leaf as a :class:`ShardedLeaf`."""
+        return map_specs(lambda _, x, s: ShardedLeaf(
+            x, self.mesh, tuple(s), global_shape(x, s, self.mesh.shape)),
+            tree, specs)
+
+
+def window_fn(mesh, specs) -> Callable:
+    """``fn(path, shape) -> tuple of slices``: this rank's window of the
+    leaf at ``path`` (its spec in ``specs``) of global ``shape``, for
+    inits that draw a whole leaf and keep a block."""
+    def fn(path, shape):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        return tuple(slice(a, b) for a, b in window(mesh, spec, shape))
+    return fn
+
+
+def unwrap(tree):
+    """Inverse of :meth:`Layout.wrap`: (plain tree, spec tree or None,
+    mesh or None)."""
+    if isinstance(tree, ShardedLeaf):
+        return tree.data, tree.spec, tree.mesh
+    if isinstance(tree, dict):
+        parts = {k: unwrap(v) for k, v in tree.items()}
+        meshes = [m for _, _, m in parts.values() if m is not None]
+        data = {k: d for k, (d, _, _) in parts.items()}
+        if not meshes:
+            return data, None, None
+        return data, {k: s for k, (_, s, _) in parts.items()}, meshes[0]
+    return tree, None, None

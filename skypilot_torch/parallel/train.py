@@ -1,4 +1,4 @@
-"""One-device train step — the port of ``skypilot_tpu/parallel/train.py``.
+"""The train step — the port of ``skypilot_tpu/parallel/train.py``.
 
 ``build_train_step(config, optimizer, lora_scale)`` returns
 ``step(state, batch) -> (state, {'loss', 'grad_norm'})``: the loss
@@ -14,10 +14,24 @@ metrics, goodput and MFU, the ``train.step`` span and the on-demand
 profiler. ``TrainState.checkpoint_tree`` maps the state onto the JAX
 ``TrainState``'s tree for the native checkpoint engine.
 
-Not here yet (ROADMAP.md): meshes with any axis > 1 (FSDP/TP, the
-``sp`` ring and the ``pp`` pipeline).
+Over a mesh (``parallel/mesh.py``; ``init_train_state(mesh=...)``)
+every leaf of the state is this rank's block under
+``llama.param_sharding_rules`` / ``lora.lora_sharding_rules`` /
+``quantized_sharding_rules`` (``TrainState.layout``), and the step is
+FSDP/DP: the global batch is split over the data axes (dp, fsdp, ep),
+each layer's blocks are gathered inside its checkpointed call and
+their gradients reduce-scattered back (``parallel/sharding.gather``),
+the gradients of leaves replicated over a data axis are all-reduced
+over it, the loss is the global masked mean, the global norm counts
+each element once, and AdamW runs on the blocks.
+``plan_train_state`` gives the per-device bytes of a mesh plan on the
+meta device.
+
+Not here yet (ROADMAP.md): the ``tp`` and ``ep`` axes, the ``sp`` ring
+and the ``pp`` pipeline.
 """
 import dataclasses
+import math
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -26,7 +40,10 @@ import torch
 
 from skypilot_torch import device as device_lib
 from skypilot_torch.models import llama, quant
+from skypilot_torch.parallel import distributed
 from skypilot_torch.parallel import lora as lora_lib
+from skypilot_torch.parallel import mesh as mesh_lib
+from skypilot_torch.parallel import sharding
 
 Params = llama.Params
 
@@ -47,6 +64,9 @@ class TrainState:
     opt_state: AdamState
     # When LoRA-finetuning, params are frozen and only `lora` trains.
     lora: Optional[Params] = None
+    # Over a mesh: the leaves are this rank's blocks, placed by these
+    # specs (None: every leaf whole on one device).
+    layout: Optional[sharding.Layout] = None
 
     def checkpoint_tree(self) -> Dict[str, Any]:
         """The JAX ``TrainState``'s tree, which the native checkpoint
@@ -57,22 +77,38 @@ class TrainState:
         clip's empty state, (``ScaleByAdamState(count, mu, nu)``,
         ``add_decayed_weights``' and ``scale_by_learning_rate``'s empty
         states)) — so its keys are ``opt_state/1/0/{count,mu,nu}/...``.
-        ``lora`` is None (no leaves) in a full finetune."""
+        ``lora`` is None (no leaves) in a full finetune. Over a mesh each
+        tensor leaf is a ``sharding.ShardedLeaf``: the engine writes this
+        rank's block at its global window."""
         opt = self.opt_state
-        adam = {'count': np.asarray(opt.count, np.int32), 'mu': opt.mu,
-                'nu': opt.nu}
+        params, lora, mu, nu = self.params, self.lora, opt.mu, opt.nu
+        lay = self.layout
+        if lay is not None:
+            params = lay.wrap(params, lay.params)
+            lora = None if lora is None else lay.wrap(lora, lay.lora)
+            opt_specs = opt_state_shardings(lay.trainable)
+            mu = lay.wrap(mu, opt_specs['mu'])
+            nu = lay.wrap(nu, opt_specs['nu'])
+        adam = {'count': np.asarray(opt.count, np.int32), 'mu': mu,
+                'nu': nu}
         return {'step': np.asarray(self.step, np.int32),
-                'params': self.params, 'opt_state': ((), (adam, (), ())),
-                'lora': self.lora}
+                'params': params, 'opt_state': ((), (adam, (), ())),
+                'lora': lora}
 
     @classmethod
     def from_checkpoint_tree(cls, tree: Dict[str, Any]) -> 'TrainState':
         """Inverse of :meth:`checkpoint_tree`."""
         adam = tree['opt_state'][1][0]
-        return cls(step=int(tree['step']), params=tree['params'],
-                   opt_state=AdamState(count=int(adam['count']),
-                                       mu=adam['mu'], nu=adam['nu']),
-                   lora=tree['lora'])
+        params, param_specs, mesh = sharding.unwrap(tree['params'])
+        lora, lora_specs, _ = sharding.unwrap(tree['lora'])
+        layout = None if mesh is None else sharding.Layout(
+            mesh, param_specs, lora_specs)
+        return cls(step=int(tree['step']), params=params,
+                   opt_state=AdamState(
+                       count=int(adam['count']),
+                       mu=sharding.unwrap(adam['mu'])[0],
+                       nu=sharding.unwrap(adam['nu'])[0]),
+                   lora=lora, layout=layout)
 
 
 def _leaves(tree: Params, prefix: Tuple[str, ...] = ()
@@ -106,12 +142,28 @@ def _get(tree: Params, path: Tuple[str, ...]) -> torch.Tensor:
     return tree
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: List[torch.Tensor], mesh=None,
+                specs: Optional[List[Any]] = None) -> torch.Tensor:
     """optax ``global_norm``: sqrt of the sum over leaves of sum(g*g),
-    each in the gradient's own dtype."""
+    each in the gradient's own dtype. Over a ``mesh`` the grads are
+    blocks with these ``specs``: each block's sum of squares is summed
+    over the ranks of its shard group (the data axes its spec names; one
+    all-reduce per group and dtype), and a replicated leaf counts once."""
+    sqs = [torch.sum(g * g) for g in grads]
+    if mesh is not None:
+        groups: Dict[Any, List[int]] = {}
+        for i, (sq, spec) in enumerate(zip(sqs, specs)):
+            axes = tuple(a for a in sharding.spec_axes(spec)
+                         if a in sharding.DATA_AXES)
+            if axes:
+                groups.setdefault((axes, sq.dtype), []).append(i)
+        for (axes, _), idx in groups.items():
+            summed = sharding.all_reduce(
+                torch.stack([sqs[i] for i in idx]), mesh, axes)
+            for j, i in enumerate(idx):
+                sqs[i] = summed[j]
     total = None
-    for g in grads:
-        sq = torch.sum(g * g)
+    for sq in sqs:
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -172,60 +224,214 @@ def default_optimizer(learning_rate: float = 3e-4,
                  b1=b1, b2=b2, grad_clip=grad_clip)
 
 
+def quantized_sharding_rules(config: llama.LlamaConfig) -> Params:
+    """``llama.param_sharding_rules`` mapped onto an int8 tree (the JAX
+    ``quantized_sharding_rules``): ``{'q', 's'}`` pairs for the big
+    matmuls and the LM head (``quant.init_quantized``'s structure), the
+    codes on the weight's spec and the scale on ``_scale_spec``."""
+    rules = llama.param_sharding_rules(config)
+    out = dict(rules)
+    layers = dict(rules['layers'])
+    for name in quant._LAYER_MATMULS:  # pylint: disable=protected-access
+        if name in layers:
+            layers[name] = {'q': layers[name],
+                            's': _scale_spec(layers[name])}
+    out['layers'] = layers
+    if 'lm_head' in rules:
+        out['lm_head'] = {'q': rules['lm_head'],
+                          's': _scale_spec(rules['lm_head'])}
+    return out
+
+
+def _scale_spec(spec) -> tuple:
+    """The spec of a quantized weight's per-output-channel scale (the
+    weight's shape with the contracted axis collapsed to 1): the
+    weight's, with that size-1 axis unsharded."""
+    parts = list(spec)
+    if len(parts) >= 2:
+        parts[-2] = None
+    return tuple(parts)
+
+
+def opt_state_shardings(trainable_specs: Params) -> Dict[str, Any]:
+    """The specs of AdamW's state: ``count`` replicated, and each moment
+    on its param's spec BY TREE PATH (``mu``/``nu`` mirror the trainable
+    tree key for key). A shape match would not do: wq and wo share a
+    shape but not a spec (JAX ``opt_state_shardings``)."""
+    return {'count': (), 'mu': trainable_specs, 'nu': trainable_specs}
+
+
+def _layout(config: llama.LlamaConfig, mesh, lora: bool,
+            quantized: bool = False) -> sharding.Layout:
+    """The state's layout on ``mesh`` (a ``mesh.Mesh``, or a
+    ``MeshConfig`` for a plan): refuses the axes the step does not
+    shard over yet."""
+    refuse_later_axes(_mesh_shape(mesh))
+    rules = (quantized_sharding_rules(config) if quantized
+             else llama.param_sharding_rules(config))
+    return sharding.Layout(
+        mesh, rules, lora_lib.lora_sharding_rules(config) if lora else None)
+
+
+def _mesh_shape(mesh) -> Dict[str, int]:
+    return mesh.shape() if isinstance(mesh, mesh_lib.MeshConfig) \
+        else mesh.shape
+
+
+# The ROADMAP.md (Queue 1) item that brings each mesh axis the step
+# does not shard over yet.
+LATER_AXES = {'tp': 'the tp half of item 16',
+              'ep': 'MoE training on the card (after item 16)',
+              'sp': 'item 17 (the sp ring)',
+              'pp': 'item 18 (the pp pipeline)'}
+
+
+def refuse_later_axes(shape: Dict[str, int]) -> None:
+    """Raise for the axes of ``shape`` above 1 that the step does not
+    shard over yet (all but dp and fsdp), naming their items."""
+    wide = {a: n for a, n in shape.items() if a in LATER_AXES and n > 1}
+    if wide:
+        raise NotImplementedError(
+            f'mesh axes {wide}: the port trains over dp and fsdp; '
+            + '; '.join(f'{a} comes with ROADMAP.md Queue 1 '
+                        f'{LATER_AXES[a]}' for a in wide))
+
+
+
+def plan_train_state(config: llama.LlamaConfig, mesh,
+                     optimizer: Optional[AdamW] = None,
+                     param_dtype: torch.dtype = torch.float32,
+                     lora_rank: Optional[int] = None) -> Dict[str, Any]:
+    """The train state's plan over ``mesh`` (a ``mesh.Mesh`` or just a
+    ``MeshConfig``) WITHOUT allocating anything: the state is built on
+    the meta device. Returns ``{'leaves': {key: {shape, spec,
+    local_shape, dtype, bytes}}, 'state_bytes', 'grad_bytes',
+    'device_bytes'}``, bytes per device: the state's blocks, the
+    gradients of the trainable blocks, and their sum (activations not
+    counted). Keys are the checkpoint's (``opt_state/1/0/mu/...``)."""
+    shape = _mesh_shape(mesh)
+    state = init_train_state(config, optimizer=optimizer,
+                             param_dtype=param_dtype, lora_rank=lora_rank,
+                             device='meta')
+    layout = _layout(config, mesh, lora_rank is not None)
+    opt_specs = opt_state_shardings(layout.trainable)
+    trees = [('params', state.params, layout.params),
+             ('lora', state.lora, layout.lora),
+             ('opt_state/1/0/mu', state.opt_state.mu, opt_specs['mu']),
+             ('opt_state/1/0/nu', state.opt_state.nu, opt_specs['nu'])]
+    leaves = {}
+    for prefix, tree, specs in trees:
+        if tree is None:
+            continue
+        for path, x, spec in sharding.map_specs(
+                lambda path, x, spec: [(path, x, spec)], tree, specs,
+                flat=True):
+            local = sharding.local_shape(x.shape, spec, shape)
+            leaves['/'.join((prefix,) + path)] = {
+                'shape': tuple(x.shape), 'spec': tuple(spec),
+                'local_shape': local, 'dtype': str(x.dtype),
+                'bytes': math.prod(local) * x.element_size()}
+    state_bytes = sum(v['bytes'] for v in leaves.values())
+    prefix = 'lora/' if lora_rank is not None else 'params/'
+    grad_bytes = sum(v['bytes'] for k, v in leaves.items()
+                     if k.startswith(prefix))
+    return {'leaves': leaves, 'state_bytes': state_bytes,
+            'grad_bytes': grad_bytes,
+            'device_bytes': state_bytes + grad_bytes}
+
+
 def init_train_state(config: llama.LlamaConfig, seed: int = 0,
                      optimizer: Optional[AdamW] = None,
                      param_dtype: torch.dtype = torch.float32,
                      lora_rank: Optional[int] = None,
-                     device=None) -> TrainState:
+                     device=None, mesh=None) -> TrainState:
     """Random params (``llama.init_params``) in ``param_dtype`` on
     ``device`` (default ``'cuda'``), and with ``lora_rank`` adapters of
-    that rank (``lora.init_lora``, same seed) that alone train."""
+    that rank (``lora.init_lora``, same seed) that alone train.
+
+    With a ``mesh`` every leaf is this rank's block (``layout``): the
+    init draws each slice as the unsharded init does and keeps the
+    block, so the values are the unsharded state's blocks and no rank
+    ever holds the whole tree."""
     optimizer = optimizer or default_optimizer()
-    dev = device_lib.resolve_device(device)
-    params = llama.init_params(config, seed, dtype=param_dtype, device=dev)
+    dev = device_lib.resolve_device(device, allow_meta=True)
+    layout = (None if mesh is None
+              else _layout(config, mesh, lora_rank is not None))
+    window = (None if layout is None
+              else sharding.window_fn(mesh, layout.params))
+    params = llama.init_params(config, seed, dtype=param_dtype, device=dev,
+                               window=window)
     lora = None
     if lora_rank is not None:
-        lora = lora_lib.init_lora(config, seed, rank=lora_rank,
-                                  dtype=param_dtype, device=dev)
+        lora = lora_lib.init_lora(
+            config, seed, rank=lora_rank, dtype=param_dtype, device=dev,
+            window=None if layout is None
+            else sharding.window_fn(mesh, layout.lora))
     return TrainState(step=0, params=params,
                       opt_state=optimizer.init(
                           lora if lora is not None else params),
-                      lora=lora)
+                      lora=lora, layout=layout)
 
 
 def init_qlora_state(config: llama.LlamaConfig, seed: int = 0,
                      lora_rank: int = 16,
                      optimizer: Optional[AdamW] = None,
-                     device=None) -> TrainState:
-    """QLoRA train state on one device (default ``'cuda'``): an int8
-    FROZEN base from ``quant.init_quantized`` (leaf by leaf, so the
-    bf16 tree never exists: ~8.6 GB at llama3-8b instead of 16) paired
-    with bf16 LoRA adapters of ``lora_rank`` and their AdamW state, as
-    the JAX ``init_qlora_state``. Feed it to ``build_train_step`` like
-    ``init_train_state``'s."""
+                     device=None, mesh=None) -> TrainState:
+    """QLoRA train state (default device ``'cuda'``): an int8 FROZEN
+    base from ``quant.init_quantized`` (leaf by leaf, so the bf16 tree
+    never exists: ~8.6 GB at llama3-8b instead of 16) paired with bf16
+    LoRA adapters of ``lora_rank`` and their AdamW state, as the JAX
+    ``init_qlora_state``. With a ``mesh``, this rank's blocks under
+    ``quantized_sharding_rules``, as ``init_train_state`` keeps them.
+    Feed it to ``build_train_step`` like ``init_train_state``'s."""
     optimizer = optimizer or default_optimizer()
     dev = device_lib.resolve_device(device)
-    params = quant.init_quantized(config, seed, device=dev)
-    lora = lora_lib.init_lora(config, seed, rank=lora_rank,
-                              dtype=torch.bfloat16, device=dev)
+    layout = (None if mesh is None
+              else _layout(config, mesh, True, quantized=True))
+    params = quant.init_quantized(
+        config, seed, device=dev,
+        window=None if layout is None
+        else sharding.window_fn(mesh, layout.params))
+    lora = lora_lib.init_lora(
+        config, seed, rank=lora_rank, dtype=torch.bfloat16, device=dev,
+        window=None if layout is None
+        else sharding.window_fn(mesh, layout.lora))
     return TrainState(step=0, params=params,
-                      opt_state=optimizer.init(lora), lora=lora)
+                      opt_state=optimizer.init(lora), lora=lora,
+                      layout=layout)
 
 
 def build_train_step(config: llama.LlamaConfig,
                      optimizer: Optional[AdamW] = None,
-                     lora_scale: float = 2.0
+                     lora_scale: float = 2.0, mesh=None
                      ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                    Tuple[TrainState,
                                          Dict[str, torch.Tensor]]]:
     """The full step: loss -> grad -> clip + AdamW. The batch is
     ``{'tokens': [B, T+1] int}`` (optionally ``'loss_mask'``) on the
     state's device. ``grad_norm`` is the global norm of the raw grads,
-    before the clip. Metrics stay on the device (no host sync)."""
+    before the clip. Metrics stay on the device (no host sync).
+
+    With a ``mesh`` the state must be one made over it
+    (``init_train_state(mesh=...)``), and the batch is the GLOBAL batch,
+    the same on every rank: each rank takes its rows (the data axes, dp
+    major), runs its share of the global masked mean, and the gradients
+    meet as the module docstring says. ``loss`` is the global loss on
+    every rank."""
     optimizer = optimizer or default_optimizer()
+    if mesh is not None:
+        refuse_later_axes(mesh.shape)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        layout = state.layout
+        if (mesh is None) != (layout is None) or (
+                layout is not None and layout.mesh is not mesh):
+            raise ValueError('build_train_step: the state was made over '
+                             f'{getattr(layout, "mesh", None)}, the step '
+                             f'over {mesh}')
+        if layout is not None:
+            batch = layout.local_batch(batch)
         is_lora = state.lora is not None
         trainable = state.lora if is_lora else state.params
         leaves = [(p, x.detach().requires_grad_(True))
@@ -235,11 +441,24 @@ def build_train_step(config: llama.LlamaConfig,
             frozen = _tree((p, x.detach())
                            for p, x in _leaves(state.params))
             loss = llama.loss_fn(frozen, batch, config, lora=tree,
-                                 lora_scale=lora_scale)
+                                 lora_scale=lora_scale, layout=layout)
         else:
-            loss = llama.loss_fn(tree, batch, config)
-        grads = torch.autograd.grad(loss, [x for _, x in leaves])
-        g_norm = global_norm(list(grads))
+            loss = llama.loss_fn(tree, batch, config, layout=layout)
+        grads = list(torch.autograd.grad(loss, [x for _, x in leaves]))
+        specs = None
+        loss = loss.detach()
+        if layout is not None:
+            specs = [_get(layout.trainable, p) for p, _ in leaves]
+            for g, spec in zip(grads, specs):
+                # Summed over the data axes the leaf is replicated on
+                # (its sharded axes were reduce-scattered by the gather).
+                axes = [a for a in sharding.DATA_AXES
+                        if a not in sharding.spec_axes(spec)]
+                if axes:
+                    sharding.all_reduce(g, layout.mesh, axes)
+            loss = layout.data_sum(loss)
+        g_norm = global_norm(grads, None if layout is None
+                             else layout.mesh, specs)
         new_trainable, new_opt = optimizer.update(
             _tree((p, g) for (p, _), g in zip(leaves, grads)),
             state.opt_state, trainable, g_norm)
@@ -247,8 +466,8 @@ def build_train_step(config: llama.LlamaConfig,
             step=state.step + 1,
             params=state.params if is_lora else new_trainable,
             opt_state=new_opt,
-            lora=new_trainable if is_lora else None)
-        return new_state, {'loss': loss.detach(), 'grad_norm': g_norm}
+            lora=new_trainable if is_lora else None, layout=layout)
+        return new_state, {'loss': loss, 'grad_norm': g_norm}
 
     return step
 
@@ -281,8 +500,8 @@ def instrument_train_step(step_fn: Callable,
     ``model_config`` and a card the peak table knows (``accelerator``
     or the ``SKYTPU_ACCELERATOR`` stamp; ``metrics/goodput.py``) each
     compute step sets ``skytpu_mfu_ratio`` (4 N FLOPs a token for a
-    frozen-base LoRA step, 6 N with ``full_finetune``) over one card:
-    the port's step runs on one device.
+    frozen-base LoRA step, 6 N with ``full_finetune``) over the process
+    group's cards (one process per card; 1 without a group).
 
     On-demand profiling: a trigger in the profile dir arms a
     ``torch.profiler`` capture of the next N steps
@@ -302,7 +521,8 @@ def instrument_train_step(step_fn: Callable,
 
     def arm_model(n_tokens: int) -> None:
         acct.set_model_info(model_config.num_params(), n_tokens,
-                            n_chips=1, accelerator=accelerator,
+                            n_chips=distributed.process_count(),
+                            accelerator=accelerator,
                             full_finetune=full_finetune)
         model_armed[0] = True
 

@@ -1,5 +1,5 @@
 """Llama finetuning recipe — the port of
-``skypilot_tpu/recipes/finetune.py`` on one device.
+``skypilot_tpu/recipes/finetune.py``.
 
 LoRA (rank ``--lora-rank`` on q/v over a frozen base) or a full
 finetune (``--full-ft``), AdamW with clip-by-global-norm, on a
@@ -33,17 +33,28 @@ at step N"). The data iterator restarts from its seed on a resume, as
 the JAX recipe's does. ``--elastic`` (the default) keeps the job's
 designed shape in ``design.json`` in the lineage and rescales the
 global batch (and, with ``--elastic-scale-lr``, the learning rate) when
-a relaunch runs on another device count; the port trains on one device.
+a relaunch runs on another device count.
 
     python -m skypilot_torch.recipes.finetune --model tiny --device cpu \
         --steps 4 --checkpoint-dir /tmp/ckpt --checkpoint-interval 2
 
+Several devices: one process per GPU, from the runtime's env contract
+(``parallel/distributed.py``). ``main`` spawns one worker per GPU of
+the host (``SKYTPU_NUM_CHIPS_PER_NODE``, else every visible GPU); the
+workers of every host join one process group at the contract's
+coordinator and train FSDP over a mesh of all of them
+(``auto_mesh_config(dp=--dp)``: what ``--dp`` does not claim goes to
+fsdp). Every rank draws the global batch as a one-process run draws it
+and the step takes its rows; rank 0 prints. On the CPU the workers are
+gloo processes (``SKYTPU_NUM_CHIPS_PER_NODE=2 ... --device cpu``).
+
 Not ported yet, and refused with the ROADMAP.md item that brings them:
-``--tp/--dp/--ep/--sp/--pp`` above 1 and ``--microbatches`` (Queue 1
-items 15-18).
+``--tp``, ``--ep``, ``--sp`` and ``--pp`` above 1 and
+``--microbatches``.
 """
 import argparse
 import json
+import math
 import os
 import time
 
@@ -57,6 +68,8 @@ from skypilot_torch.data import checkpoint as ckpt_facade
 from skypilot_torch.metrics import goodput as goodput_lib
 from skypilot_torch.metrics import publish as publish_lib
 from skypilot_torch.models import llama
+from skypilot_torch.parallel import distributed
+from skypilot_torch.parallel import mesh as mesh_lib
 from skypilot_torch.parallel import train as train_lib
 
 
@@ -71,7 +84,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument('--lora-rank', type=int, default=16)
     p.add_argument('--full-ft', action='store_true',
                    help='full finetune instead of LoRA')
-    for axis in ('tp', 'dp', 'ep', 'sp', 'pp'):
+    p.add_argument('--dp', type=int, default=1,
+                   help='pure data-parallel degree (the rest of the '
+                        'devices go to fsdp)')
+    for axis in ('tp', 'ep', 'sp', 'pp'):
         p.add_argument(f'--{axis}', type=int, default=1,
                        help='mesh axis degree (only 1 is ported)')
     p.add_argument('--microbatches', type=int, default=None,
@@ -101,13 +117,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def check_args(args: argparse.Namespace) -> None:
     """Raise for what this slice of the port does not run."""
-    axes = {a: getattr(args, a) for a in ('tp', 'dp', 'ep', 'sp', 'pp')}
-    wide = {a: n for a, n in axes.items() if n != 1}
-    if wide:
-        raise NotImplementedError(
-            f'mesh axes {wide}: the port trains on one device; FSDP/TP, '
-            'the sp ring and the pp pipeline come with ROADMAP.md Queue 1 '
-            'items 15-18 (sharded training)')
+    train_lib.refuse_later_axes(
+        {a: getattr(args, a) for a in train_lib.LATER_AXES})
     if args.microbatches is not None:
         raise NotImplementedError(
             '--microbatches: pipeline parallelism is not ported '
@@ -150,23 +161,28 @@ def _elastic_design(lineage_dir, n_now, global_batch):
     return doc
 
 
-def _elastic_resize(args: argparse.Namespace) -> None:
+def _elastic_resize(args: argparse.Namespace,
+                    mesh_cfg: mesh_lib.MeshConfig) -> None:
     """Rescale ``args.batch`` (and with ``--elastic-scale-lr`` the
-    learning rate) from the lineage's designed device count to the one
-    device the port trains on, keeping the per-device batch, as the JAX
-    recipe does before it builds the optimizer and the iterator."""
-    n_now = 1
+    learning rate) from the lineage's designed device count to the
+    devices of ``mesh_cfg``, keeping the per-device batch and a multiple
+    of the data-parallel degree, as the JAX recipe does before it
+    builds the optimizer and the iterator."""
+    n_now = mesh_cfg.num_devices
     design = _elastic_design(
         ckpt_facade.task_checkpoint_dir(args.checkpoint_dir), n_now,
         args.batch)
     n_design = design['device_count']
     if not n_design or n_design == n_now:
         return
-    scaled = max(1, design['global_batch'] * n_now // n_design)
+    data_n = math.prod(getattr(mesh_cfg, a) for a in mesh_lib.data_axes())
+    scaled = max(data_n, design['global_batch'] * n_now // n_design
+                 // data_n * data_n)
     resized = os.environ.get('SKYTPU_ELASTIC_RESIZED')
-    print(f'elastic resume: designed for {n_design} chips, running on '
-          f'{n_now}{f" ({resized})" if resized else ""}; '
-          f'global batch {args.batch} -> {scaled}', flush=True)
+    if distributed.process_index() == 0:
+        print(f'elastic resume: designed for {n_design} chips, running on '
+              f'{n_now}{f" ({resized})" if resized else ""}; '
+              f'global batch {args.batch} -> {scaled}', flush=True)
     args.batch = scaled
     if args.elastic_scale_lr:
         args.lr = args.lr * n_now / n_design
@@ -194,20 +210,27 @@ def data_iterator(args, vocab_size, rng):
 def build(args: argparse.Namespace):
     """(config, state, step_fn, batches, device) for ``args``; the step
     is instrumented (``instrument_train_step``: its calls feed the
-    process metrics registry)."""
+    process metrics registry). In a process group the state and the
+    step are over the mesh of every rank (``auto_mesh_config``);
+    alone, on one device."""
     check_args(args)
     dev = device_lib.resolve_device(args.device)
+    num_slices = mesh_lib.num_slices_from_env()
+    mesh_cfg = mesh_lib.auto_mesh_config(dp=args.dp, num_slices=num_slices)
+    mesh = (mesh_lib.make_mesh(mesh_cfg, num_slices=num_slices)
+            if distributed.is_initialized() else None)
     if args.elastic and args.checkpoint_dir:
-        _elastic_resize(args)
+        _elastic_resize(args, mesh_cfg)
     config = llama.get_config(args.model, max_seq_len=args.seq)
     param_dtype = (torch.bfloat16 if args.param_dtype == 'bf16'
                    else torch.float32)
     optimizer = train_lib.default_optimizer(learning_rate=args.lr)
     state = train_lib.init_train_state(
         config, seed=0, optimizer=optimizer, param_dtype=param_dtype,
-        lora_rank=None if args.full_ft else args.lora_rank, device=dev)
+        lora_rank=None if args.full_ft else args.lora_rank, device=dev,
+        mesh=mesh)
     step_fn = train_lib.instrument_train_step(
-        train_lib.build_train_step(config, optimizer=optimizer),
+        train_lib.build_train_step(config, optimizer=optimizer, mesh=mesh),
         tokens_per_step=args.batch * args.seq, model_config=config,
         full_finetune=args.full_ft)
     batches = data_iterator(args, config.vocab_size,
@@ -216,12 +239,48 @@ def build(args: argparse.Namespace):
 
 
 def main(argv=None) -> None:
+    """Train as ``argv`` says: in this process, or, where the host has
+    more than one GPU (process), in one spawned worker per GPU."""
     args = parse_args(argv)
+    check_args(args)
+    device_lib.resolve_device(args.device)  # no CUDA: raise here
+    local_world = distributed.local_world_size(args.device)
+    if local_world > 1 and not distributed.is_initialized():
+        import torch.multiprocessing as mp
+        mp.spawn(_worker, args=(argv, local_world), nprocs=local_world,
+                 join=True)
+        return
+    distributed.initialize(device=args.device)  # no-op for one process
+    train(args)
+
+
+def _worker(local_rank: int, argv, local_world: int) -> None:
+    """One spawned process of a multi-GPU host: join the group, train,
+    leave."""
+    args = parse_args(argv)
+    os.environ.setdefault(distributed.ENV_NUM_CHIPS_PER_NODE,
+                          str(local_world))
+    distributed.initialize(force=True, local_rank=local_rank,
+                           device=args.device)
+    try:
+        train(args)
+    finally:
+        distributed.shutdown()
+
+
+def train(args: argparse.Namespace) -> None:
+    """The training loop of ``args`` in this process (one rank of the
+    group, or the only process). Rank 0 prints."""
     config, state, step_fn, batches, dev = build(args)
-    print(f'devices=1 device={dev} model={args.model} '
-          f'params={config.num_params() / 1e9:.2f}B '
-          f'{"full-ft" if args.full_ft else f"lora-rank={args.lora_rank}"}',
-          flush=True)
+    rank0 = distributed.process_index() == 0
+    n_dev = distributed.process_count()
+    mesh = state.layout.mesh if state.layout is not None else None
+    if rank0:
+        print(f'devices={n_dev} device={dev} model={args.model} '
+              f'params={config.num_params() / 1e9:.2f}B '
+              f'{"full-ft" if args.full_ft else f"lora-rank={args.lora_rank}"}'
+              + (f' mesh={mesh_lib.describe_config(mesh.config)}'
+                 if mesh is not None else ''), flush=True)
     publisher = publish_lib.start_publisher('train')
     ckpt = None
     start_step = 0
@@ -230,7 +289,7 @@ def main(argv=None) -> None:
             args.checkpoint_dir,
             save_interval_steps=args.checkpoint_interval)
         state, start_step = ckpt.restore_or(state)
-        if start_step:
+        if start_step and rank0:
             info = ckpt.last_restore or {}
             reshard = (' (resharded onto the current mesh)'
                        if info.get('resharded') else '')
@@ -239,7 +298,11 @@ def main(argv=None) -> None:
     # A recovery relaunch: price the dead time since the controller saw
     # the failure into the goodput `recovery_stall` bucket.
     goodput_lib.note_recovery_stall_from_env()
-    callbacks.init(total_steps=args.steps)
+    # One writer of the host's step-callback file (the JAX recipe runs one
+    # process per host): the host's first process.
+    if distributed.process_index() % distributed.local_world_size(
+            args.device) == 0:
+        callbacks.init(total_steps=args.steps)
     tokens_per_step = args.batch * args.seq
     t_start = time.time()
     for step in range(start_step, args.steps):
@@ -250,18 +313,20 @@ def main(argv=None) -> None:
         callbacks.step_end()
         if ckpt is not None:
             ckpt.maybe_save(step, state)
-        if step % args.log_every == 0 or step == args.steps - 1:
+        if rank0 and (step % args.log_every == 0 or
+                      step == args.steps - 1):
             dt = time.time() - t_start
             tps = (step - start_step + 1) * tokens_per_step / dt
             print(f'step {step} loss={loss:.4f} '
                   f'grad_norm={float(metrics["grad_norm"]):.3f} '
-                  f'tokens/s={tps:.0f} tokens/s/chip={tps:.0f}',
+                  f'tokens/s={tps:.0f} tokens/s/chip={tps / n_dev:.0f}',
                   flush=True)
     if ckpt is not None:
         ckpt.wait()
         ckpt.close()
     publisher.close()
-    print('finetune done.', flush=True)
+    if rank0:
+        print('finetune done.', flush=True)
 
 
 if __name__ == '__main__':

@@ -416,8 +416,9 @@ def build_server(args: argparse.Namespace
     if args.tp > 1:
         raise NotImplementedError(
             f'--tp {args.tp}: tensor-parallel serving is not ported yet; '
-            'it comes with the sharding items of ROADMAP.md (Queue 1, '
-            'items 15-16)')
+            'it comes with the tp half of item 16 in ROADMAP.md (Queue 1: '
+            'the vocab-sharded embedding, the row-parallel all-reduces, '
+            'decode_shardings and pool_shardings)')
     dev = device_lib.resolve_device(args.device)
     config = llama.get_config(args.model)
     params = load_params(args, config, dev)

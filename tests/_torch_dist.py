@@ -1,0 +1,217 @@
+"""Multi-process runs of the port on the CPU for the parallel tests:
+``run(n, tmp_path, (fn, args), ...)`` starts ``n`` gloo ranks (one
+process each, from a fork server), which meet through a ``file://`` store under
+``tmp_path`` (no ports, so no races between test workers), call each
+``fn(*args)`` in turn in one process group and return the results
+through a file. Imports torch and the port only: the ranks never load
+JAX."""
+import multiprocessing
+import os
+import time
+import traceback
+
+import torch
+
+JOIN_SECONDS = 60
+
+
+def _entry(rank, world, tmp, calls):
+    os.environ.update({'SKYTPU_NUM_NODES': '1', 'SKYTPU_NODE_RANK': '0',
+                       'SKYTPU_NUM_CHIPS_PER_NODE': str(world)})
+    torch.set_num_threads(1)
+    from skypilot_torch.parallel import distributed
+    out = os.path.join(tmp, f'rank{rank}.pt')
+    try:
+        distributed.initialize(force=True, local_rank=rank, device='cpu',
+                               init_method=f'file://{tmp}/store',
+                               timeout_s=JOIN_SECONDS)
+        result = [fn(*args) for fn, args in calls]
+        torch.save({'ok': result}, out)
+    except BaseException:  # reported to the parent, then re-raised
+        torch.save({'error': traceback.format_exc()}, out)
+        raise
+    finally:
+        distributed.shutdown()
+
+
+def run(n, tmp_path, *calls):
+    """``[[fn(*args) for fn, args in calls] on rank r for r in
+    range(n)]``; raises with a rank's traceback if one failed, and if
+    any is still running ``JOIN_SECONDS`` after the start (then
+    killed)."""
+    tmp = str(tmp_path)
+    os.makedirs(tmp, exist_ok=True)
+    # A fork server: started from a fresh interpreter (nothing of this
+    # process, which may run JAX's threads, is forked), it imports torch
+    # and the port once and forks each rank from there, so a rank starts
+    # without importing them again.
+    ctx = multiprocessing.get_context('forkserver')
+    ctx.set_forkserver_preload(['torch', 'skypilot_torch.parallel',
+                                'skypilot_torch.checkpoint', __name__])
+    procs = [ctx.Process(target=_entry, args=(r, n, tmp, calls),
+                         daemon=True) for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + JOIN_SECONDS
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        stuck = [p for p in procs if p.is_alive()]
+        for p in stuck:
+            p.kill()
+            p.join(5)
+    results = []
+    for r in range(n):
+        path = os.path.join(tmp, f'rank{r}.pt')
+        got = torch.load(path, weights_only=False) if os.path.exists(
+            path) else {'error': 'no result'}
+        if 'error' in got:
+            raise AssertionError(f'rank {r} failed:\n{got["error"]}')
+        results.append(got['ok'])
+    assert not stuck, f'{len(stuck)} ranks still running after ' \
+        f'{JOIN_SECONDS} s'
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    return results
+
+
+def blocks(state):
+    """{checkpoint key: (window, f32 numpy block)} of a sharded state's
+    tensor leaves: the parent reassembles the whole leaves."""
+    from skypilot_torch.checkpoint import native
+    out = {}
+    for key, leaf in native.flatten(state.checkpoint_tree()).items():
+        if hasattr(leaf, 'index'):
+            data = leaf.data.detach()
+            data = data if data.dtype == torch.int8 else data.float()
+            out[key] = (leaf.index, data.numpy())
+    return out
+
+
+def _mesh(mesh_kw):
+    from skypilot_torch.parallel import mesh as mesh_lib
+    return mesh_lib.make_mesh(mesh_lib.MeshConfig(**mesh_kw))
+
+
+def mesh_facts(mesh_kw, axes_sets):
+    """This rank's coordinate, its index and group ranks for each set
+    of axes, and a gather round trip: a [4 n, 3] tensor cut to this
+    rank's block over ``('fsdp', 'ep')`` on dim 0 and gathered whole,
+    and the block's gradient of ``sum(whole * (rank + 1))``."""
+    import torch.distributed as dist
+    from skypilot_torch.parallel import sharding
+    mesh = _mesh(mesh_kw)
+    n = mesh.size(('fsdp', 'ep'))
+    full = torch.arange(12 * n, dtype=torch.float32).reshape(4 * n, 3)
+    spec = (('fsdp', 'ep'), None)
+    block = sharding.local_slice(mesh, spec, full).requires_grad_(True)
+    whole = sharding.gather(block, mesh, spec)
+    (whole * (dist.get_rank() + 1)).sum().backward()
+    return {'coordinate': mesh.coordinate,
+            'index': {a: mesh.index(a) for a in axes_sets},
+            'groups': {a: dist.get_process_group_ranks(mesh.group(a))
+                       for a in axes_sets},
+            'gathered_equal': bool(torch.equal(whole.detach(), full)),
+            'block_grad': block.grad.numpy(),
+            'window': sharding.window(mesh, spec, full.shape)}
+
+
+def init_blocks(mesh_kw, kind, seed):
+    """This rank's blocks of ``init_train_state`` (``kind`` 'lora',
+    'full') or ``init_qlora_state`` ('qlora') over the mesh."""
+    from skypilot_torch.models import llama
+    from skypilot_torch.parallel import train
+    cfg = llama.get_config('tiny')
+    mesh = _mesh(mesh_kw)
+    if kind == 'qlora':
+        state = train.init_qlora_state(cfg, seed=seed, lora_rank=4,
+                                       device='cpu', mesh=mesh)
+    else:
+        state = train.init_train_state(
+            cfg, seed=seed, lora_rank=None if kind == 'full' else 4,
+            device='cpu', mesh=mesh)
+    return blocks(state)
+
+
+def restore_blocks(mesh_kw, kind, path):
+    """The latest step under ``path`` restored into this rank's
+    ``kind`` template over the mesh: (blocks, ``last_restore``)."""
+    from skypilot_torch import checkpoint
+    from skypilot_torch.models import llama
+    from skypilot_torch.parallel import train
+    cfg = llama.get_config('tiny')
+    template = train.init_train_state(
+        cfg, seed=0, lora_rank=None if kind == 'full' else 4, device='cpu',
+        mesh=_mesh(mesh_kw))
+    mgr = checkpoint.NativeCheckpointManager(path, barrier_timeout=30)
+    try:
+        state, _ = mgr.restore_or(template)
+    finally:
+        mgr.close()
+    assert state.layout is not None
+    return blocks(state), mgr.last_restore
+
+
+def shard_state(state, cfg, mesh):
+    """A whole (one-device) train state placed on ``mesh``: every leaf
+    cut to this rank's block, the values ``init_train_state(mesh=...)``
+    would hold."""
+    from skypilot_torch.models import quant
+    from skypilot_torch.parallel import sharding, train
+    layout = train._layout(cfg, mesh, state.lora is not None,
+                           quantized=quant.is_quantized(state.params))
+
+    def cut(tree, specs):
+        return None if tree is None else sharding.map_specs(
+            lambda _, x, spec: sharding.local_slice(mesh, spec, x),
+            tree, specs)
+
+    opt = state.opt_state
+    opt_specs = train.opt_state_shardings(layout.trainable)
+    return train.TrainState(
+        step=state.step, params=cut(state.params, layout.params),
+        opt_state=train.AdamState(opt.count, cut(opt.mu, opt_specs['mu']),
+                                  cut(opt.nu, opt_specs['nu'])),
+        lora=cut(state.lora, layout.lora), layout=layout)
+
+
+def train_steps(mesh_kw, cases, save_dir=None):
+    """For each ``(name, state_np, batches)`` case: the whole state (numpy
+    ``params``/``lora`` trees, ``dtype``) placed on the mesh
+    ``MeshConfig(**mesh_kw)``, then one ``build_train_step`` step per
+    global batch (on ``tiny``; with per-layer checkpointing where the
+    name ends in ``_remat``). Returns per case the losses, grad norms,
+    this rank's blocks after the steps and the collectives of the last
+    step. With
+    ``save_dir`` each case's last state is saved (step 1) under
+    ``save_dir/<name>``, every rank writing its part."""
+    from skypilot_torch.models import convert, llama
+    from skypilot_torch.parallel import mesh as mesh_lib
+    from skypilot_torch.parallel import sharding, train
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(**mesh_kw))
+    out = {}
+    for name, state_np, batches in cases:
+        cfg = llama.get_config('tiny', remat=name.endswith('_remat'))
+        whole = convert.train_state_from_numpy(
+            state_np['params'], state_np['lora'], state_np['dtype'],
+            device='cpu')
+        state = shard_state(whole, cfg, mesh)
+        step = train.build_train_step(cfg, mesh=mesh)
+        metrics = []
+        for batch in batches:
+            sharding.COLLECTIVES.reset()
+            state, m = step(state, {k: torch.from_numpy(v)
+                                    for k, v in batch.items()})
+            metrics.append((m['loss'].item(), m['grad_norm'].float().item()))
+        out[name] = {'metrics': metrics, 'blocks': blocks(state),
+                     'collectives': sharding.COLLECTIVES.counts()}
+        if save_dir is not None:
+            from skypilot_torch import checkpoint
+            mgr = checkpoint.NativeCheckpointManager(
+                f'{save_dir}/{name}', barrier_timeout=30)
+            try:
+                mgr.save(1, state)
+                mgr.wait()
+            finally:
+                mgr.close()
+    return out

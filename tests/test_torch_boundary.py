@@ -74,7 +74,11 @@ print(json.dumps({{'modules': names, 'bad': bad}}))
                 'skypilot_torch.ops.attention_packed',
                 'skypilot_torch.ops.decode_attention',
                 'skypilot_torch.ops.moe_route',
+                'skypilot_torch.parallel',
+                'skypilot_torch.parallel.distributed',
                 'skypilot_torch.parallel.lora',
+                'skypilot_torch.parallel.mesh',
+                'skypilot_torch.parallel.sharding',
                 'skypilot_torch.parallel.train',
                 'skypilot_torch.recipes.finetune',
                 'skypilot_torch.recipes.serve_model',

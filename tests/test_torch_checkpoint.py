@@ -359,6 +359,33 @@ def test_rank0_commits_only_after_every_manifest(make_mgr, tmp_path):
     assert m0.restore_latest_raw()['params']['w'].shape == (8, 4)
 
 
+def test_a_manifest_appears_whole(tmp_path, monkeypatch):
+    """Rank 0's barrier reads another rank's manifest as soon as its name
+    exists, so the name must appear only with the whole file."""
+    real_dump = format_lib.json.dump
+    half_written = threading.Event()
+
+    def slow_dump(doc, f):
+        f.write('{')
+        f.flush()
+        half_written.set()
+        time.sleep(0.3)
+        f.seek(0)
+        real_dump(doc, f)
+
+    monkeypatch.setattr(format_lib.json, 'dump', slow_dump)
+    path = tmp_path / format_lib.HOST_MANIFEST_FMT.format(proc=1)
+    t = threading.Thread(target=format_lib.write_host_manifest,
+                         args=(str(tmp_path), 1, {}, 2), daemon=True)
+    t.start()
+    assert half_written.wait(TIMEOUT)
+    assert not path.exists()
+    t.join(TIMEOUT)
+    assert not t.is_alive()
+    monkeypatch.setattr(format_lib.json, 'dump', real_dump)
+    assert format_lib.json.loads(path.read_text())['process_index'] == 1
+
+
 def test_barrier_timeout_leaves_step_uncommitted(make_mgr, tmp_path):
     m0 = make_mgr(process_index=0, process_count=2, barrier_timeout=0.2)
     m0.save(0, _tree())

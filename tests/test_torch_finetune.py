@@ -56,10 +56,10 @@ def test_log_every_keeps_first_and_last_step(capsys):
 
 
 @pytest.mark.parametrize('argv,match', [
-    (['--tp', '2'], 'items 15-18'),
-    (['--sp', '2'], 'one device'),
+    (['--tp', '2'], 'tp half of item 16'),
+    (['--sp', '2'], r'item 17 \(the sp ring\)'),
     (['--microbatches', '4'], 'item 18'),
-])
+], ids=['argv0-items 15-18', 'argv1-one device', 'argv2-item 18'])
 def test_unported_options_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         finetune.main(TINY + ['--steps', '1'] + argv)
