@@ -225,9 +225,10 @@ in order (any failure exits non-zero; nothing is caught):
    of one rank and the mesh ``fsdp=1``; the train phase's llama3-8b LoRA
    step (32 layers, seq 2048, batch 8, rank 16) and the qlora phase's
    QLoRA step (int8 base, batch 4) run through the mesh path
-   (``init_*_state(mesh=...)``, ``build_train_step(mesh=...)``: each
-   layer gathered inside its checkpoint, gradients reduce-scattered,
-   the global masked mean) and through the unsharded step on the same
+   (``init_*_state(mesh=...)``, ``build_train_step(mesh=...)``: the
+   layouts, the global masked mean, the data-axis all-reduces; a gather
+   over a group of one rank issues nothing, so none runs at world 1)
+   and through the unsharded step on the same
    tensors and batch, in turns: one warm-up and three counted steps
    each. Loss, grad norm, every adapter and moment must be bit-equal
    after every step; the mesh path's K1-RoPE / K2 / K3 launches equal
@@ -237,6 +238,35 @@ in order (any failure exits non-zero; nothing is caught):
    (``FSDP_LORA``, ``FSDP_QLORA``). ``FSDP_PLAN``: the llama3-8b bf16
    full finetune's per-device bytes on the meta device at fsdp 1 and 8
    (the latter under 80 GB).
+20. TP: two tensor-parallel ranks on the one card, spawned processes
+   in a gloo group chosen here (NCCL refuses two ranks on one device;
+   gloo carries ``all_reduce`` on CUDA tensors, the only collective tp
+   issues), every tensor and kernel on the card. (a) Serving,
+   llama3-8b at full width and depth (bf16, random weights from seed
+   0): 32 greedy tokens after a 128-token prompt (``greedy_generate
+   (layout=)``) at tp 2 against the same call at tp 1 in this process,
+   then tp 1's tokens fed to tp 2 (``forward_cached(layout=)``, one
+   token a forward): the logits of the prompt's last position and of
+   every decode step within ``TP_LOGIT_REL_TOL`` of tp 1's, and the
+   tokens equal but where tp 1's top-2 margin is under twice that
+   step's max |err| (printed with its position); per rank K1 = L, dense
+   K4 = 31 L, K5F = 32 L, the invariant GEMM (7 L + 1) x 31,
+   ``rms_norm`` 32 and ``add_rms_norm`` 2 L x 32, and (2 L + 1) x 32 +
+   2 x 32 all-reduces over tp; then, uncounted, the invariant GEMM
+   through each of a rank's layer-0 weights and head, dense K4 at its
+   16 / 4 heads and K5F at its 4 kv heads against their plain
+   versions. (b) Training,
+   llama3-8b width at 4 layers, seq 2048, batch 8, rank 16, non-zero
+   adapters: one LoRA and one QLoRA step at tp 2 against the unsharded
+   step on the same weights and batch here (loss, grad norm and every
+   updated adapter within ``TRAIN_TOL``), per rank K1-RoPE 2 L and
+   pre-pass = K2 = K3 = L on a second step, and its collectives against
+   their identity from L (``_tp_train_identity``). Where the machine has
+   two GPUs or more, (a) and (b) again over NCCL with one rank a GPU,
+   and the LoRA step at fsdp 2 (the gathers and reduce-scatters a world
+   of one skips, against ``_fsdp_identity``), each step's ms and
+   tokens/s/chip beside one card's (``TP_SERVE``, ``TP_LORA``,
+   ``TP_QLORA`` lines per backend, ``TP_FSDP_LORA``).
 
 Then one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line. ``--phases`` runs a subset (no
@@ -263,7 +293,8 @@ PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 L2_BYTES = 50 * 2 ** 20
 PHASES = ('k1', 'k4', 'e2e', 'serve', 'k1r', 'bwd', 'train', 'k5', 'k5f',
           'k4p', 'k4pre', 'invariance', 'engine', 'sampling', 'adapters',
-          'rows', 'k6', 'int8k', 'int8', 'qlora', 'ckpt', 'moe', 'fsdp')
+          'rows', 'k6', 'int8k', 'int8', 'qlora', 'ckpt', 'moe', 'fsdp',
+          'tp')
 K1_TOL = {'out': 2e-2, 'lse': 2e-2}
 # K2/K3 in bf16 (P and dS rounded to bf16 before their products) against
 # f32 on the same rotated bf16 q and k: max |err| over max |ref| per
@@ -5972,29 +6003,26 @@ def qlora_phase(torch, attention):
 FSDP_STEPS = 3
 
 
-def _free_port() -> int:
-    import socket
-    with socket.socket() as s:
-        s.bind(('127.0.0.1', 0))
-        return s.getsockname()[1]
-
-
 def _fsdp_identity(config, layout, n_steps):
     """The collectives ``n_steps`` mesh steps issue, from L and the
-    sharded leaves: a gather per dim sharded over a data axis of each
-    layer leaf (base and adapters; twice under remat, the checkpoint's
-    recompute gathering again) and of each top-level leaf (the
-    embedding for its lookup, the head for the CE); a reduce-scatter
-    per gathered dim of each trainable leaf; all-reduces: the token
-    count, the loss, one per trainable leaf replicated over a data
-    axis, one per group of (shard axes, dtype) in the global norm."""
+    sharded leaves: a gather per dim sharded over data axes of more than
+    one rank (a group of one holds the whole dim: nothing is issued) of
+    each layer leaf (base and adapters; twice under remat, the
+    checkpoint's recompute gathering again) and of each top-level leaf
+    (the embedding for its lookup, the head for the CE); a
+    reduce-scatter per gathered dim of each trainable leaf; all-reduces:
+    the token count, the loss, one per trainable leaf replicated over a
+    data axis, one per group of (shard axes, dtype) in the global norm;
+    none over tp (1 here)."""
     from skypilot_torch.parallel import sharding
     data = set(sharding.DATA_AXES)
+    mesh = layout.mesh
 
     def dims(specs):
         if isinstance(specs, dict):
             return sum(dims(v) for v in specs.values())
-        return sum(1 for e in specs if data & set(sharding.dim_axes(e)))
+        return sum(1 for e in specs
+                   if mesh.size(sharding.data_axes_of(e)) > 1)
 
     base, lora = layout.layer_specs()
     passes = 2 if config.remat else 1
@@ -6010,7 +6038,8 @@ def _fsdp_identity(config, layout, n_steps):
     return {'gathers': n_steps * (passes * config.n_layers *
                                   (dims(base) + dims(lora)) + top),
             'reduce_scatters': n_steps * config.n_layers * dims(lora),
-            'all_reduces': n_steps * (2 + replicated + groups)}
+            'all_reduces': n_steps * (2 + replicated + groups),
+            'tp_reduces': 0}
 
 
 def _bits_diff(torch, a, b):
@@ -6166,7 +6195,7 @@ def fsdp_phase(torch, attention, dev='cuda'):
     smi = smi_line()
     env = {distributed.ENV_NUM_NODES: '1', distributed.ENV_NODE_RANK: '0',
            distributed.ENV_NODE_IPS: '127.0.0.1',
-           distributed.ENV_COORDINATOR_PORT: str(_free_port()),
+           distributed.ENV_COORDINATOR_PORT: str(distributed.free_port()),
            distributed.ENV_NUM_CHIPS_PER_NODE: '1'}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
@@ -6208,6 +6237,608 @@ def fsdp_phase(torch, attention, dev='cuda'):
         gb_per_device=plans, activations='not counted')))
     assert plans['fsdp8']['device_bytes'] < 80, plans
     return dict(launches={k: lora[k] + qlora[k] for k in lora})
+
+
+# ---------------------------------------------------------------------
+# TP: tensor parallelism, two ranks on one card (gloo) or a card each
+# ---------------------------------------------------------------------
+
+TP_PROMPT, TP_NEW, TP_SEED = 128, 32, 60
+# Every step's logits at tp 2 against tp 1 on tp 1's tokens (llama3-8b,
+# bf16, 32 layers; the prompt's last position and each decode step): max
+# |err| / max |ref| a step (``E2E_REL_TOL``'s measure and bound). Each
+# layer's two row-parallel sums add the two ranks' bf16 partial
+# products, where tp 1 rounds the whole product once.
+TP_LOGIT_REL_TOL = 5e-2
+TP_TRAIN_LAYERS, TP_RANK, TP_SEQ, TP_BATCH = 4, 16, 2048, 8
+# How long the phase waits for its ranks, and a collective for a rank.
+TP_JOIN_S, TP_COLLECTIVE_S = 600, 300
+
+
+def _tp_counters(attention, da):
+    """The launch counts the tp phase reads: the engine-off serving
+    path's kernels and the training step's."""
+    from skypilot_torch.ops import matmul_invariant as mi
+    from skypilot_torch.ops import rms_norm as rn
+    return {'flash_fwd': attention.FLASH_FWD,
+            'decode_attention': da.DECODE_ATTENTION,
+            'rope_cache_write': da.ROPE_CACHE_WRITE,
+            'matmul': mi.MATMUL, 'rms_norm': rn.RMS_NORM,
+            'add_rms_norm': rn.ADD_RMS_NORM,
+            'flash_fwd_rope': attention.FLASH_FWD_ROPE,
+            'flash_bwd_prep': attention.FLASH_BWD_PREP,
+            'flash_bwd_dq': attention.FLASH_BWD_DQ,
+            'flash_bwd_dkv': attention.FLASH_BWD_DKV}
+
+
+def _tp_counted(torch, counters, fn):
+    """(``fn()``, its ms, the launches and collectives it issued): every
+    count zeroed just before and read just after."""
+    from skypilot_torch.parallel import sharding
+    torch.cuda.synchronize()
+    for k in counters.values():
+        k.launches = 0
+    sharding.COLLECTIVES.reset()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return (out, ms, {n: k.launches for n, k in counters.items()},
+            sharding.COLLECTIVES.counts())
+
+
+def _tp_model(torch, dev, mesh=None):
+    """llama3-8b at 32 layers, bf16, seed 0: (config, its serving layout
+    on ``mesh`` or None, this rank's blocks or the whole model)."""
+    from skypilot_torch.models import decode, llama
+    from skypilot_torch.parallel import sharding
+    config = llama.get_config('llama3-8b')
+    layout = None if mesh is None else decode.serving_layout(config, mesh)
+    params = llama.init_params(
+        config, seed=0, device=dev, window=None if layout is None
+        else sharding.window_fn(mesh, layout.params))
+    return config, layout, params
+
+
+def _tp_path(torch, params, prompt, config, ids, max_seq, layout=None):
+    """Teacher forcing: the logits [len(ids), V or this rank's V / tp]
+    (f32, on the host) of the prompt's last position and then of each of
+    ``ids`` but the last, fed one cached forward a token. Fed tp 1's
+    greedy tokens, every tp computes each step on the same inputs."""
+    from skypilot_torch.models import decode
+    rows = []
+    with torch.inference_mode():
+        cache = decode.init_cache(config, 1, max_seq, device=prompt.device,
+                                  layout=layout)
+        logits, cache = decode.forward_cached(params, prompt, cache, config,
+                                              last_only=True, prefill=True,
+                                              layout=layout)
+        for i, nxt in enumerate(ids):
+            rows.append(logits[0, -1].cpu())
+            if i + 1 < len(ids):
+                logits, cache = decode.forward_cached(
+                    params, torch.tensor([[nxt]], device=prompt.device),
+                    cache, config, last_only=True, layout=layout)
+    return torch.stack(rows)
+
+
+def _tp_logits(torch, parts):
+    """The whole vocabulary's rows from (window, rows) pairs, one per
+    rank; the replicas of a window (data axes) must be bit-equal."""
+    seen = {}
+    for win, rows in parts:
+        win = tuple(win)
+        assert win not in seen or torch.equal(seen[win], rows), win
+        seen[win] = rows
+    return torch.cat([seen[w] for w in sorted(seen)], dim=-1)
+
+
+def _tp_compare(torch, want, got, want_ids, ids):
+    """tp > 1's teacher-forced logits ``got`` against tp 1's ``want``
+    (both [steps, V]), and its greedy ``ids`` against tp 1's: each
+    step's max |err| and max |err| / max |ref|, and where the ids first
+    differ, tp 1's top-2 margin there beside twice that step's max |err|
+    (the most by which the two runs' top-2 gap can differ: a margin
+    above it cannot flip)."""
+    err = (got - want).abs().amax(-1)
+    rel = err / want.abs().amax(-1)
+    first = next((i for i, (a, b) in enumerate(zip(ids, want_ids))
+                  if a != b), None)
+    flip = None
+    if first is not None:
+        top = want[first].topk(2).values
+        flip = dict(position=first, tp1_top2_margin=float(top[0] - top[1]),
+                    step_max_abs_err=float(err[first]),
+                    allowed_margin=2 * float(err[first]))
+    return dict(step_max_abs_err=err.tolist(), step_rel_err=rel.tolist(),
+                max_rel_err=float(rel.max()), ids_equal=ids == want_ids,
+                first_difference=flip)
+
+
+def _tp_rank_kernels(torch, config, layout, params, max_seq, dev):
+    """The serving kernels at this rank's shapes against their plain
+    versions, on seeded decode-step inputs: the invariant GEMM of one row
+    through layer 0's weights and the head (the rank's columns or rows)
+    within ``MATMUL_TOL``; dense K4 at the rank's heads over a
+    ``max_seq`` cache within ``K4_TOL`` and ``K4_REL_TOL``; K5F's rotated
+    q and cache rows bit-equal. Run after the counts were read."""
+    from skypilot_torch.models import decode, llama
+    from skypilot_torch.ops import decode_attention as da
+    from skypilot_torch.ops import matmul_invariant as mi
+    gen = torch.Generator(device=dev).manual_seed(TP_SEED)
+
+    def randn(*shape, dtype=config.dtype):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+    cparams = llama.compute_params(params, config)
+    lp = layout.gather(decode.layer_list(cparams, config)[0],
+                       layout.layer_specs()[0])
+    weights = {k: lp[k] for k in ('wq', 'wk', 'wv', 'wo', 'w_gate', 'w_up',
+                                  'w_down')}
+    weights['lm_head'] = llama.output_head(cparams, config, layout)
+    matmul = {}
+    with torch.inference_mode():
+        for name, w in weights.items():
+            x = randn(1, w.shape[0], dtype=w.dtype)
+            y, plain = mi.matmul(x, w).float(), mi._matmul_plain(x, w).float()
+            matmul[name] = dict(shape=list(w.shape), rel_err=float(
+                (y - plain).abs().max() / plain.abs().max()))
+        hq, hkv = layout.heads(config)
+        hd = config.head_dim
+        scale = hd ** -0.5
+        q, k, v = randn(1, hq, hd), randn(1, max_seq, hkv, hd), randn(
+            1, max_seq, hkv, hd)
+        lengths = torch.tensor([max_seq - 1], dtype=torch.int32, device=dev)
+        k4_err, k4_rel = k4_errors(
+            da.decode_attention(q, k, v, lengths, scale),
+            da._reference_decode_attention(q.float(), k.float(), v.float(),
+                                           lengths, scale))
+        q, k, v = randn(1, hq, hd), randn(1, hkv, hd), randn(1, hkv, hd)
+        angles = torch.rand((1, hd // 2), generator=gen, device=dev) * 6.28
+        cos, sin = torch.cos(angles), torch.sin(angles)
+        pools = [randn(max_seq, hkv, hd) for _ in range(2)]
+        plain_pools = [p.clone() for p in pools]
+        dst = torch.tensor([max_seq - 1], dtype=torch.int32, device=dev)
+        k5f = (torch.equal(
+            da.rope_cache_write(q, k, v, cos, sin, *pools, dst),
+            da._reference_rope_cache_write(q, k, v, cos, sin, *plain_pools,
+                                           dst))
+            and all(torch.equal(a, b) for a, b in zip(pools, plain_pools)))
+    return dict(matmul=matmul, heads=[hq, hkv],
+                k4=dict(max_abs_err=k4_err, max_rel_err=k4_rel),
+                k5f_bit_equal=k5f)
+
+
+def _tp_serve(torch, counters, dev, mesh=None, forced=None):
+    """llama3-8b (``_tp_model``; this rank's blocks over ``mesh``):
+    ``greedy_generate``'s 32 tokens after a 128-token prompt with their
+    launches, collectives and ms; ``_tp_path``'s logits on ``forced``
+    (tp 1's tokens; without them, these); over a mesh,
+    ``_tp_rank_kernels``."""
+    from skypilot_torch.models import decode
+    config, layout, params = _tp_model(torch, dev, mesh)
+    gen = torch.Generator().manual_seed(TP_SEED)
+    prompt = torch.randint(0, config.vocab_size, (1, TP_PROMPT),
+                           generator=gen).to(dev)
+    max_seq = TP_PROMPT + TP_NEW
+    with torch.inference_mode():
+        cache = decode.init_cache(config, 1, max_seq, device=dev,
+                                  layout=layout)
+        decode.forward_cached(params, prompt, cache, config, last_only=True,
+                              prefill=True, layout=layout)  # warm-up
+        ids, ms, launches, coll = _tp_counted(
+            torch, counters, lambda: decode.greedy_generate(
+                params, prompt, config, TP_NEW, max_seq=max_seq,
+                layout=layout))
+    ids = ids[0].cpu().tolist()
+    out = dict(window=((0, config.vocab_size) if layout is None
+                       else layout.vocab_window(config.vocab_size)),
+               rows=_tp_path(torch, params, prompt, config,
+                             ids if forced is None else forced, max_seq,
+                             layout),
+               ids=ids, ms=ms, launches=launches, collectives=coll,
+               layers=config.n_layers)
+    if layout is not None:
+        out['kernels'] = _tp_rank_kernels(torch, config, layout, params,
+                                          max_seq, dev)
+    return out
+
+
+def _tp_adapters(torch, config, dtype, dev, window=None):
+    """Non-zero adapters (A at the init's scale, B at 0.02), drawn whole
+    on the CPU from ``TP_SEED`` and cut to ``window``'s blocks."""
+    L, d = config.n_layers, config.dim
+    shapes = {'wq_a': (L, d, TP_RANK),
+              'wq_b': (L, TP_RANK, config.n_heads * config.head_dim),
+              'wv_a': (L, d, TP_RANK),
+              'wv_b': (L, TP_RANK, config.n_kv_heads * config.head_dim)}
+    gen = torch.Generator().manual_seed(TP_SEED)
+    out = {}
+    for name in sorted(shapes):
+        x = torch.randn(shapes[name], generator=gen) * (
+            0.02 if name.endswith('_b') else d ** -0.5)
+        if window is not None:
+            x = x[window((name,), shapes[name])]
+        out[name] = x.to(dtype).contiguous().to(dev)
+    return out
+
+
+def _tp_train(torch, counters, qlora, dev, mesh=None):
+    """llama3-8b width at ``TP_TRAIN_LAYERS`` layers, seq 2048, batch 8,
+    LoRA rank 16 over a bf16 (``qlora``: int8) base from seed 0 with
+    ``_tp_adapters``: the first step's loss, grad norm and updated
+    adapters (this rank's blocks and windows over ``mesh``), then a
+    second step's ms, launches and collectives; on a mesh with no
+    ``tp``, the collectives' identity (``_fsdp_identity``)."""
+    import gc
+
+    from skypilot_torch.models import llama
+    from skypilot_torch.parallel import sharding
+    from skypilot_torch.parallel import train as train_lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq, batch_size = TP_SEQ, TP_BATCH
+    config = llama.get_config('llama3-8b', n_layers=TP_TRAIN_LAYERS,
+                              max_seq_len=seq)
+    if qlora:
+        state = train_lib.init_qlora_state(config, seed=0, lora_rank=TP_RANK,
+                                           device=dev, mesh=mesh)
+    else:
+        state = train_lib.init_train_state(
+            config, seed=0, param_dtype=torch.bfloat16, lora_rank=TP_RANK,
+            device=dev, mesh=mesh)
+    state.lora = _tp_adapters(
+        torch, config, torch.bfloat16, dev, None if mesh is None
+        else sharding.window_fn(mesh, state.layout.lora))
+    step_fn = train_lib.build_train_step(config, mesh=mesh)
+    gen = torch.Generator().manual_seed(TP_SEED + int(qlora))
+    batch = {'tokens': torch.randint(0, config.vocab_size,
+                                     (batch_size, seq + 1),
+                                     generator=gen).to(dev)}
+    state, m = step_fn(state, batch)
+    lora = (state.lora if state.layout is None else
+            state.layout.wrap(state.lora, state.layout.lora))
+    adapters = {k: ((None, v.float().cpu()) if state.layout is None else
+                    (v.index, v.data.float().cpu())) for k, v in lora.items()}
+    first = dict(loss=float(m['loss']), grad_norm=float(m['grad_norm']))
+    _, ms, launches, coll = _tp_counted(
+        torch, counters, lambda: step_fn(state, batch))
+    out = dict(first=first, adapters=adapters, ms=ms, launches=launches,
+               collectives=coll, tokens=batch_size * seq,
+               layers=config.n_layers,
+               chunks=-(-seq // llama.LOSS_CHUNK)
+               if seq % llama.LOSS_CHUNK == 0 else 1)
+    if mesh is not None and mesh.shape['tp'] == 1:
+        out['collectives_expected'] = _fsdp_identity(config, state.layout,
+                                                     1)
+    del state
+    return out
+
+
+def _tp_join(torch, rank, world, backend, store, dev='cuda'):
+    """Join a spawned rank's ``backend`` group (gloo: every rank on card
+    0, the group made here; nccl: card ``rank``, through
+    ``parallel.distributed.initialize``); the rank's device."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from skypilot_torch.parallel import distributed
+    if backend == 'gloo':
+        if dev == 'cuda':
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            'gloo', init_method=f'file://{store}', rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=TP_COLLECTIVE_S))
+    else:
+        os.environ.update({distributed.ENV_NUM_NODES: '1',
+                           distributed.ENV_NODE_RANK: '0',
+                           distributed.ENV_NUM_CHIPS_PER_NODE: str(world)})
+        distributed.initialize(force=True, local_rank=rank, device='cuda',
+                               init_method=f'file://{store}',
+                               timeout_s=TP_COLLECTIVE_S)
+    assert dist.get_backend() == backend, dist.get_backend()
+    return (torch.device('cuda', torch.cuda.current_device())
+            if dev == 'cuda' else torch.device(dev))
+
+
+def _tp_rank(target, rank, world, backend, store, out, dev, args):
+    """One spawned rank: joins the group (``_tp_join``), saves
+    ``target(torch, rank, world, device, *args)``'s results (or the
+    traceback) to ``out`` and leaves the group."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        dev = _tp_join(torch, rank, world, backend, store, dev)
+        torch.save({'ok': target(torch, rank, world, dev, *args)}, out)
+    except BaseException:
+        torch.save({'error': traceback.format_exc()}, out)
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _tp_cases(torch, rank, world, dev, forced):
+    """A tp rank's cases over the mesh ``tp = world``: the serving run
+    (teacher-forced on tp 1's ``forced`` tokens) and the LoRA and QLoRA
+    steps; over NCCL also the LoRA step at ``fsdp = world``, whose
+    gathers and reduce-scatters a world of one skips. ``dev`` cpu
+    rehearses it (gloo)."""
+    import gc
+
+    import torch.distributed as dist
+
+    from skypilot_torch.ops import attention
+    from skypilot_torch.ops import decode_attention as da
+    from skypilot_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(tp=world))
+    counters = _tp_counters(attention, da)
+    res = {'device': str(dev),
+           'serve': _tp_serve(torch, counters, dev, mesh, forced)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    res['lora'] = _tp_train(torch, counters, False, dev, mesh)
+    res['qlora'] = _tp_train(torch, counters, True, dev, mesh)
+    if dist.get_backend() == 'nccl':
+        res['fsdp_lora'] = _tp_train(
+            torch, counters, False, dev,
+            mesh_lib.make_mesh(mesh_lib.MeshConfig(fsdp=world)))
+    return res
+
+
+def _tp_spawn(backend, world, dev='cuda', target=_tp_cases, args=()):
+    """Every rank's results (``_tp_rank`` of ``target``), or raise with a
+    failed rank's traceback; a rank still running after ``TP_JOIN_S`` is
+    killed and fails the phase."""
+    import multiprocessing
+
+    import torch
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        'build', f'tp_{target.__name__.strip("_")}_'
+                        f'{backend}{world}')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ctx = multiprocessing.get_context('spawn')
+    outs = [os.path.join(root, f'rank{r}.pt') for r in range(world)]
+    procs = [ctx.Process(target=_tp_rank, args=(
+        target, r, world, backend, os.path.join(root, 'store'), outs[r], dev,
+        args)) for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + TP_JOIN_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        stuck = [p.pid for p in procs if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    results = []
+    for r, path in enumerate(outs):
+        got = (torch.load(path, weights_only=False) if os.path.exists(path)
+               else {'error': f'no result (exit code {procs[r].exitcode})'})
+        assert 'error' not in got, f'tp rank {r} ({backend}): {got["error"]}'
+        results.append(got['ok'])
+    assert not stuck, f'tp ranks {stuck} ({backend}) ran past {TP_JOIN_S} s'
+    return results, time.perf_counter() - t0
+
+
+def _tp_serve_identity(L, world):
+    """Per rank, ``greedy_generate``'s 32 tokens after a 128-token prompt:
+    the prompt (K1 a layer, cuBLAS products) and 31 decode steps (dense K4
+    a layer, 7 L + 1 invariant GEMMs), K5F a layer of every forward, one
+    ``rms_norm`` and 2 L ``add_rms_norm`` a forward; over tp the lookup
+    and two row-parallel sums a layer each forward, and the max and its
+    lowest id each token."""
+    fwd = TP_NEW
+    launches = {'flash_fwd': L, 'decode_attention': L * (fwd - 1),
+                'rope_cache_write': L * fwd,
+                'matmul': (7 * L + 1) * (fwd - 1), 'rms_norm': fwd,
+                'add_rms_norm': 2 * L * fwd, 'flash_fwd_rope': 0,
+                'flash_bwd_prep': 0, 'flash_bwd_dq': 0, 'flash_bwd_dkv': 0}
+    tp = (2 * L + 1) * fwd + 2 * fwd if world > 1 else 0
+    return launches, {'gathers': 0, 'reduce_scatters': 0, 'all_reduces': 0,
+                      'tp_reduces': tp}
+
+
+def _tp_train_identity(L, chunks, world):
+    """Per rank, one LoRA (or QLoRA) step at seq 2048 under remat: K1-RoPE
+    2 L (forward and recompute), pre-pass = K2 = K3 = L. Collectives on
+    the mesh ``tp = world``: no gather (the data axes hold one rank);
+    all-reduces: the token count, the loss, the 4 adapters (the A
+    factors' partial gradients over tp in the same call), a norm group
+    for the A factors and one for the tp-sharded B factors; over tp: the
+    lookup, 2 row-parallel sums a layer in the forward and 1 in the
+    recompute (the checkpoint stops recomputing once the tensors the
+    backward keeps are rebuilt, and the sum after w_down feeds none of
+    them), 2 L - 1 *f* gradients (the first layer's attention input
+    needs none: nothing before it trains), a chunk's max and (sum,
+    target logit) pair, and the CE's dhidden once. Unsharded: no
+    collective."""
+    launches = {'flash_fwd': 0, 'decode_attention': 0, 'rope_cache_write': 0,
+                'matmul': 0, 'rms_norm': 0, 'add_rms_norm': 0,
+                'flash_fwd_rope': 2 * L, 'flash_bwd_prep': L,
+                'flash_bwd_dq': L, 'flash_bwd_dkv': L}
+    if world == 1:
+        coll = dict(gathers=0, reduce_scatters=0, all_reduces=0,
+                    tp_reduces=0)
+    else:
+        coll = dict(gathers=0, reduce_scatters=0, all_reduces=2 + 4 + 2,
+                    tp_reduces=1 + 2 * L + L + (2 * L - 1) +
+                    2 * chunks + 1)
+    return launches, coll
+
+
+def _tp_assemble(torch, parts):
+    """The whole tensor from (window, block) pairs (``None`` window: the
+    whole tensor); replicas of one window must be bit-equal."""
+    if parts[0][0] is None:
+        return parts[0][1]
+    shape = [max(w[d][1] for w, _ in parts) for d in range(len(parts[0][0]))]
+    out = torch.full(shape, float('nan'))
+    for win, data in parts:
+        at = tuple(slice(a, b) for a, b in win)
+        seen = out[at]
+        assert torch.isnan(seen).all() or torch.equal(seen, data), win
+        out[at] = data
+    assert not torch.isnan(out).any()
+    return out
+
+
+def _tp_check(torch, smi, backend, ref, ranks, spawn_s):
+    """Hold one backend's ranks against tp 1 (``ref``); log a line per
+    case."""
+    world = len(ranks)
+    serve = [r['serve'] for r in ranks]
+    ids = serve[0]['ids']
+    cmp = _tp_compare(torch, ref['serve']['rows'], _tp_logits(
+        torch, [(s['window'], s['rows']) for s in serve]),
+        ref['serve']['ids'], ids)
+    flip = cmp['first_difference']
+    L = ref['serve']['layers']
+    launches_want, coll_want = _tp_serve_identity(L, world)
+    kernels = [s['kernels'] for s in serve]
+    row = dict(card=smi, backend=backend, world_size=world,
+               devices=[r['device'] for r in ranks], model='llama3-8b',
+               layers=L, prompt=TP_PROMPT, new_tokens=TP_NEW,
+               last_logits_max_abs_err=cmp['step_max_abs_err'][0],
+               last_logits_rel_err=cmp['step_rel_err'][0],
+               step_rel_err=cmp['step_rel_err'],
+               max_step_rel_err=cmp['max_rel_err'],
+               rel_tol=TP_LOGIT_REL_TOL, ids_equal=cmp['ids_equal'],
+               first_difference=flip, generate_ms=[s['ms'] for s in serve],
+               generate_ms_tp1=ref['serve']['ms'],
+               launches=[s['launches'] for s in serve],
+               launches_expected=launches_want,
+               collectives=[s['collectives'] for s in serve],
+               collectives_expected=coll_want, rank_kernels=kernels,
+               tol=dict(matmul=MATMUL_TOL, k4=K4_TOL, k4_rel=K4_REL_TOL,
+                        k5f='bit-equal'), ranks_s=spawn_s)
+    log('TP_SERVE ' + json.dumps(row))
+    assert cmp['max_rel_err'] <= TP_LOGIT_REL_TOL, row
+    assert all(s['ids'] == ids for s in serve), [s['ids'] for s in serve]
+    assert flip is None or (flip['tp1_top2_margin'] <=
+                            flip['allowed_margin']), row
+    for s in serve:
+        assert s['launches'] == launches_want, (s['launches'], launches_want)
+        assert s['collectives'] == coll_want, (s['collectives'], coll_want)
+    for k in kernels:
+        assert all(m['rel_err'] <= MATMUL_TOL for m in k['matmul'].values())
+        assert (k['k4']['max_abs_err'] <= K4_TOL and
+                k['k4']['max_rel_err'] <= K4_REL_TOL), k
+        assert k['k5f_bit_equal'], k
+    for case in ('lora', 'qlora', 'fsdp_lora'):
+        if case not in ranks[0]:
+            continue
+        cases = [r[case] for r in ranks]
+        want = ref['qlora' if case == 'qlora' else 'lora']
+        firsts = [c['first'] for c in cases]
+        assert all(f == firsts[0] for f in firsts), firsts
+        loss_rel = abs(firsts[0]['loss'] - want['first']['loss']) / abs(
+            want['first']['loss'])
+        gn_rel = abs(firsts[0]['grad_norm'] - want['first']['grad_norm']) / \
+            abs(want['first']['grad_norm'])
+        adapters = {}
+        for k, (_, whole) in want['adapters'].items():
+            got = _tp_assemble(torch, [c['adapters'][k] for c in cases])
+            adapters[k] = float((got - whole).abs().max()) / float(
+                whole.abs().max())
+        launches_want, coll_want = _tp_train_identity(
+            want['layers'], want['chunks'], world)
+        if case == 'fsdp_lora':
+            coll_want = cases[0]['collectives_expected']
+        ms = [c['ms'] for c in cases]
+        step_s = max(ms) / 1e3
+        row = dict(card=smi, backend=backend, world_size=world,
+                   mesh=f'fsdp{world}' if case == 'fsdp_lora'
+                   else f'tp{world}',
+                   model='llama3-8b', layers=want['layers'], seq=TP_SEQ,
+                   batch=TP_BATCH, lora_rank=TP_RANK,
+                   base='int8' if case == 'qlora' else 'bf16',
+                   loss=[firsts[0]['loss'], want['first']['loss']],
+                   grad_norm=[firsts[0]['grad_norm'],
+                              want['first']['grad_norm']],
+                   loss_rel_err=loss_rel, grad_norm_rel_err=gn_rel,
+                   adapter_rel_err=adapters, tol=TRAIN_TOL,
+                   step_ms=ms, step_ms_one_card=want['ms'],
+                   tokens_per_s_per_chip=(want['tokens'] / step_s /
+                                          (world if backend == 'nccl'
+                                           else 1)),
+                   tokens_per_s_one_card=want['tokens'] / (want['ms'] / 1e3),
+                   chips=world if backend == 'nccl' else 1,
+                   launches=[c['launches'] for c in cases],
+                   launches_expected=launches_want,
+                   collectives=[c['collectives'] for c in cases],
+                   collectives_expected=coll_want)
+        log(f'TP_{case.upper()} ' + json.dumps(row))
+        assert loss_rel <= TRAIN_TOL['loss'], row
+        assert gn_rel <= TRAIN_TOL['grad'], row
+        assert all(v <= TRAIN_TOL['grad'] for v in adapters.values()), row
+        for c in cases:
+            assert c['launches'] == launches_want, (c['launches'],
+                                                    launches_want)
+            assert c['collectives'] == coll_want, (c['collectives'],
+                                                   coll_want)
+    total = {}
+    for r in ranks:
+        for part in ('serve', 'lora', 'qlora', 'fsdp_lora'):
+            for n, v in r.get(part, {'launches': {}})['launches'].items():
+                total[n] = total.get(n, 0) + v
+    return total
+
+
+def tp_phase(torch, attention, da, dev='cuda'):
+    """Tensor parallelism on the card (docstring item 20): tp 1 in this
+    process, then two tp ranks sharing the card over gloo, and over
+    NCCL a card each where the machine has two cards or more (with the
+    LoRA step at fsdp 2 beside them). Returns the launches of every
+    rank's counted runs, by kernel. ``dev='cpu'`` rehearses it (stub
+    ``torch.cuda``'s calls and shrink the configs; the kernel counts
+    read 0 there)."""
+    import gc
+    smi = smi_line()
+    n_gpus = torch.cuda.device_count()
+    log('TP_BACKEND ' + json.dumps(dict(
+        card=smi, gpus=n_gpus, one_card='gloo',
+        why=('NCCL refuses two ranks on one device; gloo carries '
+             'all_reduce (the only collective tp issues) on CUDA tensors, '
+             'so both ranks run every tensor and kernel on the card'),
+        several_cards='nccl' if n_gpus >= 2 else None)))
+    counters = _tp_counters(attention, da)
+    device = torch.device('cuda', 0) if dev == 'cuda' else torch.device(dev)
+    ref = {'serve': _tp_serve(torch, counters, device)}
+    assert ref['serve']['launches'] == _tp_serve_identity(
+        ref['serve']['layers'], 1)[0], ref['serve']
+    # tp 1's path is its own greedy one: each step's argmax is its token.
+    assert ref['serve']['rows'].argmax(-1).tolist() == ref['serve']['ids']
+    gc.collect()
+    torch.cuda.empty_cache()
+    for case in ('lora', 'qlora'):
+        ref[case] = _tp_train(torch, counters, case == 'qlora', device)
+        assert ref[case]['launches'] == _tp_train_identity(
+            ref[case]['layers'], ref[case]['chunks'], 1)[0], ref[case]
+    gc.collect()
+    torch.cuda.empty_cache()
+    forced = (ref['serve']['ids'],)
+    ranks, spawn_s = _tp_spawn('gloo', 2, dev, args=forced)
+    total = _tp_check(torch, smi, 'gloo', ref, ranks, spawn_s)
+    if n_gpus >= 2:
+        ranks, spawn_s = _tp_spawn('nccl', 2, args=forced)
+        nccl = _tp_check(torch, smi, 'nccl', ref, ranks, spawn_s)
+        total = {k: total[k] + nccl[k] for k in total}
+    else:
+        log('TP_NCCL ' + json.dumps(dict(
+            card=smi, gpus=n_gpus,
+            skipped='the machine has one GPU: NCCL needs a GPU a rank')))
+    return dict(launches=total)
 
 
 # ---------------------------------------------------------------------
@@ -7288,6 +7919,8 @@ def main() -> int:
         moe = moe_phase(torch, attention, da)
     if 'fsdp' in phases:
         fsdp = fsdp_phase(torch, attention)
+    if 'tp' in phases:
+        tp = tp_phase(torch, attention, da)
     assert not bwd_spills, f'the backward kernels spill: {bwd_spills}'
     assert not row_spills, f'the norm or nucleus kernels spill: {row_spills}'
     assert len(k4_entries) == 32 and not k4_spills, (
@@ -7300,12 +7933,14 @@ def main() -> int:
     rep = int8['replica']
     off = int8['engine_off']['launches']
     moe_n = moe['launches']
+    tp_n = tp['launches']   # both ranks of each backend's tp run
     k1_launches = dict(
         serve=k1_n, sampled=smp['flash_fwd'],
         train_rope=train['launches']['flash_fwd_rope'],
         qlora_rope=qlora['launches']['flash_fwd_rope'],
         fsdp_rope=fsdp['launches']['flash_fwd_rope'],
         ckpt_rope=ckpt['launches']['flash_fwd_rope'],
+        tp=tp_n['flash_fwd'], tp_rope=tp_n['flash_fwd_rope'],
         serve_8b_int8=s8['int8']['flash_fwd'],
         serve_8b_bf16=s8['bf16']['flash_fwd'],
         engine_off_int8_weights=off['flash_fwd'])
@@ -7317,8 +7952,8 @@ def main() -> int:
         serve_8b_bf16=s8['bf16']['rope_cache_write'],
         serve_8b_int8_kv=s8['int8']['rope_cache_write_q8'],
         engine_off_int8_weights=off['rope_cache_write'],
-        moe=moe_n['rope_cache_write'])
-    k4_launches = dict(serve=k4_n, rows=rows_n,
+        moe=moe_n['rope_cache_write'], tp=tp_n['rope_cache_write'])
+    k4_launches = dict(serve=k4_n, rows=rows_n, tp=tp_n['decode_attention'],
                        serve_8b_bf16=s8['bf16']['decode_attention'],
                        engine_off_int8_weights=off['decode_attention'],
                        serve_8b_int8_kv=s8['int8']['decode_attention_q8'])
@@ -7346,33 +7981,39 @@ def main() -> int:
              launches=(train['launches']['flash_bwd_prep'] +
                        qlora['launches']['flash_bwd_prep'] +
                        ckpt['launches']['flash_bwd_prep'] +
-                       fsdp['launches']['flash_bwd_prep']),
+                       fsdp['launches']['flash_bwd_prep'] +
+                       tp_n['flash_bwd_prep']),
              launches_train=train['launches']['flash_bwd_prep'],
              launches_qlora=qlora['launches']['flash_bwd_prep'],
              launches_ckpt=ckpt['launches']['flash_bwd_prep'],
-             launches_fsdp=fsdp['launches']['flash_bwd_prep'], **prep),
+             launches_fsdp=fsdp['launches']['flash_bwd_prep'],
+             launches_tp=tp_n['flash_bwd_prep'], **prep),
         dict(name='flash_bwd_dq', route='cuda',
              source='skypilot_torch/csrc/flash_bwd.cu',
              replaces='skypilot_tpu/ops/attention.py:263',
              launches=(train['launches']['flash_bwd_dq'] +
                        qlora['launches']['flash_bwd_dq'] +
                        ckpt['launches']['flash_bwd_dq'] +
-                       fsdp['launches']['flash_bwd_dq']),
+                       fsdp['launches']['flash_bwd_dq'] +
+                       tp_n['flash_bwd_dq']),
              launches_train=train['launches']['flash_bwd_dq'],
              launches_qlora=qlora['launches']['flash_bwd_dq'],
              launches_ckpt=ckpt['launches']['flash_bwd_dq'],
-             launches_fsdp=fsdp['launches']['flash_bwd_dq'], **k2),
+             launches_fsdp=fsdp['launches']['flash_bwd_dq'],
+             launches_tp=tp_n['flash_bwd_dq'], **k2),
         dict(name='flash_bwd_dkv', route='cuda',
              source='skypilot_torch/csrc/flash_bwd.cu',
              replaces='skypilot_tpu/ops/attention.py:331',
              launches=(train['launches']['flash_bwd_dkv'] +
                        qlora['launches']['flash_bwd_dkv'] +
                        ckpt['launches']['flash_bwd_dkv'] +
-                       fsdp['launches']['flash_bwd_dkv']),
+                       fsdp['launches']['flash_bwd_dkv'] +
+                       tp_n['flash_bwd_dkv']),
              launches_train=train['launches']['flash_bwd_dkv'],
              launches_qlora=qlora['launches']['flash_bwd_dkv'],
              launches_ckpt=ckpt['launches']['flash_bwd_dkv'],
-             launches_fsdp=fsdp['launches']['flash_bwd_dkv'], **k3),
+             launches_fsdp=fsdp['launches']['flash_bwd_dkv'],
+             launches_tp=tp_n['flash_bwd_dkv'], **k3),
         dict(name='decode_attention', route='cuda',
              source='skypilot_torch/csrc/decode_attention.cu',
              replaces='skypilot_tpu/ops/decode_attention.py:123',
@@ -7445,7 +8086,9 @@ def main() -> int:
         dict(name='matmul_invariant', route='cuda',
              source='skypilot_torch/csrc/matmul_invariant.cu',
              replaces='skypilot_tpu/models/llama.py:326',
-             launches=sum(b['matmul'] + b['matmul_q8'] for b in bursts),
+             launches=(sum(b['matmul'] + b['matmul_q8'] for b in bursts) +
+                       tp_n['matmul']),
+             launches_tp=tp_n['matmul'],
              launches_engine=eng['matmul'], launches_sampled=smp['matmul'],
              launches_adapters=ad_b['matmul'],
              launches_overload=ov_b['matmul'],
@@ -7469,7 +8112,8 @@ def main() -> int:
         dict(name='rms_norm', route='cuda',
              source='skypilot_torch/csrc/rms_norm.cu',
              replaces='skypilot_tpu/models/llama.py:339',
-             launches=sum(b['rms_norm'] for b in bursts),
+             launches=sum(b['rms_norm'] for b in bursts) + tp_n['rms_norm'],
+             launches_tp=tp_n['rms_norm'],
              launches_engine=eng['rms_norm'], launches_sampled=smp['rms_norm'],
              launches_adapters=ad_b['rms_norm'],
              launches_overload=ov_b['rms_norm'],
@@ -7480,7 +8124,9 @@ def main() -> int:
         dict(name='add_rms_norm', route='cuda',
              source='skypilot_torch/csrc/rms_norm.cu',
              replaces='skypilot_tpu/models/llama.py:339',
-             launches=sum(b['add_rms_norm'] for b in bursts),
+             launches=(sum(b['add_rms_norm'] for b in bursts) +
+                       tp_n['add_rms_norm']),
+             launches_tp=tp_n['add_rms_norm'],
              launches_engine=eng['add_rms_norm'],
              launches_sampled=smp['add_rms_norm'],
              launches_adapters=ad_b['add_rms_norm'],

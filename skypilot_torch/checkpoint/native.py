@@ -50,7 +50,8 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -390,13 +391,18 @@ class NativeCheckpointManager:
             return type(template_leaf)(host.item())
         return host
 
-    def restore_latest_raw(self, keys: Optional[Sequence[str]] = None
+    def restore_latest_raw(self, keys: Optional[Sequence[str]] = None,
+                           window: Optional[Callable] = None
                            ) -> Optional[Any]:
         """Template-free restore of the latest committed step: host
         tensors (numpy has no bfloat16) in the saved tree structure.
         ``keys`` selects top-level subtrees (e.g. ``('params', 'lora')``)
         — unselected subtrees (the optimizer moments) are never read
-        from storage."""
+        from storage. ``window(path, shape)`` (the leaf's key split on
+        '/', its saved shape) gives the slices of the block to read, or
+        None for the whole leaf: only the shard files that overlap a
+        block are read (a tensor-parallel replica reads its own
+        blocks)."""
         step = self.latest_step()
         if step is None:
             self._metrics['restores_total'].labels(
@@ -411,9 +417,13 @@ class NativeCheckpointManager:
                 top = key.split('/', 1)[0]
                 if keys is not None and top not in keys:
                     continue
-                flat[key] = host_tensor(
-                    format_lib.assemble_leaf(step_dir, key, entry),
-                    entry['dtype'])
+                block = None if window is None else window(
+                    tuple(key.split('/')), tuple(entry['shape']))
+                host = (format_lib.assemble_leaf(step_dir, key, entry)
+                        if block is None else format_lib.assemble_region(
+                            step_dir, key, entry,
+                            [[sl.start, sl.stop] for sl in block]))
+                flat[key] = host_tensor(host, entry['dtype'])
         except Exception:
             self._metrics['restores_total'].labels(
                 outcome='error').inc()

@@ -20,7 +20,7 @@ Usage in a training loop::
 """
 import os
 import re
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 from skypilot_torch import checkpoint as checkpoint_lib
 
@@ -99,13 +99,15 @@ class CheckpointManager:
         return self._impl.restore_or(state)
 
     def restore_latest_raw(self,
-                           keys: Optional[Sequence[str]] = None
+                           keys: Optional[Sequence[str]] = None,
+                           window: Optional[Callable] = None
                            ) -> Optional[Any]:
         """Restore the latest checkpoint WITHOUT a template — host
         tensors in the saved tree structure. ``keys`` selects top-level
         subtrees (e.g. ``('params', 'lora')``), so serving never reads
-        the optimizer moments."""
-        return self._impl.restore_latest_raw(keys=keys)
+        the optimizer moments; ``window`` reads blocks
+        (``NativeCheckpointManager.restore_latest_raw``)."""
+        return self._impl.restore_latest_raw(keys=keys, window=window)
 
     @property
     def last_restore(self) -> Optional[dict]:

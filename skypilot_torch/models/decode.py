@@ -84,17 +84,21 @@ class KVCache:
 
 def init_cache(config: llama.LlamaConfig, batch: int,
                max_seq: Optional[int] = None,
-               device=None, kv_int8: bool = False) -> KVCache:
+               device=None, kv_int8: bool = False,
+               layout=None) -> KVCache:
     """A zeroed cache on ``device`` (default: cuda; raises without
-    it); ``kv_int8``: int8 codes with bf16 scales."""
+    it); ``kv_int8``: int8 codes with bf16 scales. With a serving
+    ``layout`` (:func:`serving_layout`) it holds this rank's
+    ``n_kv_heads / tp`` kv heads (``decode_shardings``' cache spec)."""
     if config.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(
             f'KV cache dtype {config.dtype}: only bf16/f32 (or int8 '
             'with kv_int8) are ported')
     dev = device_lib.resolve_device(device)
     max_seq = max_seq or config.max_seq_len
-    shape = (config.n_layers, batch, max_seq, config.n_kv_heads,
-             config.head_dim)
+    nkv = (config.n_kv_heads if layout is None
+           else layout.heads(config)[1])
+    shape = (config.n_layers, batch, max_seq, nkv, config.head_dim)
     if kv_int8:
         return KVCache(
             k=torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -142,7 +146,8 @@ def adapter_layers(adapters: Optional[Params],
 
 
 def qkv_projections(config: llama.LlamaConfig, x: torch.Tensor,
-                    lp: Params, lora=None, matmul=mi.matmul, delta=None):
+                    lp: Params, lora=None, matmul=mi.matmul, delta=None,
+                    layout=None):
     """A layer's residual add and attention norm, and its q/k/v
     projections (+ biases): x [B, T, D] -> (x + delta, q [B, T, H, hd],
     k/v [B, T, Hkv, hd]), before RoPE. ``delta``: the residual still to
@@ -158,9 +163,13 @@ def qkv_projections(config: llama.LlamaConfig, x: torch.Tensor,
     (``ops/matmul_invariant.py``) and the norms ``ops/rms_norm.py``, as in
     every serving helper here: on the card a row's bits do not depend on
     the other rows of x. ``matmul``: the engine-off prompt passes
-    ``llama.matmul`` (see ``_layer_cached``)."""
+    ``llama.matmul`` (see ``_layer_cached``). ``layout``: a serving
+    layout at ``tp`` > 1, whose weights are the rank's q/k/v columns:
+    the rank's heads come back."""
     b, t, _ = x.shape
     hd = config.head_dim
+    nh, nkv = ((config.n_heads, config.n_kv_heads) if layout is None
+               else layout.heads(config))
     x, h = rn.add_rms_norm(x, delta, lp['attn_norm'], config.norm_eps,
                            config.norm_offset)
     q = matmul(h, lp['wq'])
@@ -176,9 +185,8 @@ def qkv_projections(config: llama.LlamaConfig, x: torch.Tensor,
         q = q + lp['bq']
         k = k + lp['bk']
         v = v + lp['bv']
-    return (x, q.reshape(b, t, config.n_heads, hd),
-            k.reshape(b, t, config.n_kv_heads, hd),
-            v.reshape(b, t, config.n_kv_heads, hd))
+    return (x, q.reshape(b, t, nh, hd), k.reshape(b, t, nkv, hd),
+            v.reshape(b, t, nkv, hd))
 
 
 def _expert(w, e: int):
@@ -235,16 +243,21 @@ def moe_mlp(config: llama.LlamaConfig, h: torch.Tensor, lp: Params,
 
 
 def attn_out_and_mlp(config: llama.LlamaConfig, x: torch.Tensor,
-                     attn: torch.Tensor, lp: Params, matmul=mi.matmul):
+                     attn: torch.Tensor, lp: Params, matmul=mi.matmul,
+                     layout=None):
     """The rest of the layer: output projection and its residual add with
     the MLP's norm (one ``add_rms_norm``), then the gated MLP (f32 norm,
     the gate activation in f32 then cast back), or for MoE configs the
     routed experts (``moe_mlp``). attn [B, T, H, hd] -> (x [B, T, D]
     after the attention's residual, the MLP's output [B, T, D]): the
     MLP's residual is left to the next norm to add (``qkv_projections``'
-    ``delta``, or ``final_norm``)."""
+    ``delta``, or ``final_norm``). ``layout`` (``tp`` > 1): the rank's
+    heads, rows of wo and w_down and columns of gate and up; each
+    row-parallel product is summed over ``tp``
+    (``layout.reduce_from_tp``)."""
     b, t = attn.shape[:2]
-    x, h = rn.add_rms_norm(x, matmul(attn.reshape(b, t, -1), lp['wo']),
+    g = (lambda y: y) if layout is None else layout.reduce_from_tp
+    x, h = rn.add_rms_norm(x, g(matmul(attn.reshape(b, t, -1), lp['wo'])),
                            lp['mlp_norm'], config.norm_eps,
                            config.norm_offset)
     if config.n_experts:
@@ -252,7 +265,7 @@ def attn_out_and_mlp(config: llama.LlamaConfig, x: torch.Tensor,
     gate = llama.mlp_act(config)(
         matmul(h, lp['w_gate']).float()).to(h.dtype)
     up = matmul(h, lp['w_up'])
-    return x, matmul(gate * up, lp['w_down'])
+    return x, g(matmul(gate * up, lp['w_down']))
 
 
 def final_norm(config: llama.LlamaConfig, cparams: Params, x: torch.Tensor,
@@ -277,7 +290,7 @@ def _layer_cached(config: llama.LlamaConfig, x: torch.Tensor,
                   sin: torch.Tensor, dst: torch.Tensor,
                   prefill: bool = False,
                   k_scale: Optional[torch.Tensor] = None,
-                  v_scale: Optional[torch.Tensor] = None):
+                  v_scale: Optional[torch.Tensor] = None, layout=None):
     """One transformer layer over ``T`` new positions. x: [B, T, D] and
     ``delta``, the residual still to add to it (None at layer 0);
     k_cache/v_cache: this layer's [B, S, Hkv, hd] views (int8 with
@@ -290,12 +303,13 @@ def _layer_cached(config: llama.LlamaConfig, x: torch.Tensor,
     back. The prompt (``prefill``) runs its products on ``llama.matmul``
     (cuBLAS on the card): no batch-invariance contract covers the
     engine-off path, and at its thousands of rows the invariant GEMM
-    takes about three times as long."""
+    takes about three times as long. ``layout``: a serving layout; the
+    layer runs on the rank's heads (``attn_out_and_mlp``)."""
     b, t, _ = x.shape
     s, nkv, hd = k_cache.shape[1:]
     matmul = llama.matmul if prefill else mi.matmul
     x, q, k, v = qkv_projections(config, x, layer_params, matmul=matmul,
-                                 delta=delta)
+                                 delta=delta, layout=layout)
     # The prompt attends its exact rotated k (quantization error only
     # enters later steps); the other forms read the cache.
     k_rot = torch.empty_like(k) if prefill else None
@@ -332,12 +346,12 @@ def _layer_cached(config: llama.LlamaConfig, x: torch.Tensor,
         attn = da.verify_attention(
             q, _dequant_kv(k_cache, k_scale, k.dtype),
             _dequant_kv(v_cache, v_scale, v.dtype), lengths, scale)
-    return attn_out_and_mlp(config, x, attn, layer_params, matmul)
+    return attn_out_and_mlp(config, x, attn, layer_params, matmul, layout)
 
 
 def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
                    config: llama.LlamaConfig, last_only: bool = False,
-                   prefill: bool = False
+                   prefill: bool = False, layout=None
                    ) -> Tuple[torch.Tensor, KVCache]:
     """Run ``tokens`` [B, T] at absolute positions
     [cache.pos, cache.pos + T), writing their K/V into ``cache`` in
@@ -346,7 +360,15 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
 
     ``last_only``: project only the final position through the LM
     head. ``prefill``: promise that ``cache.pos == 0`` — the prompt
-    then runs causal flash attention over its local q/k/v."""
+    then runs causal flash attention over its local q/k/v.
+
+    ``layout`` (:func:`serving_layout`): ``params`` are this rank's
+    blocks and ``cache`` holds its kv heads (``init_cache(layout=)``);
+    each layer's dims sharded over a data axis are gathered whole for
+    the layer (as ``llama._gathered_layer`` does), the layers run on the
+    rank's heads and ffn columns, the embedding on its vocabulary
+    window, and the logits come back as this rank's vocabulary columns
+    (``layout.vocab_window``; :func:`greedy_token` picks across them)."""
     if prefill and cache.pos != 0:
         raise ValueError(f'prefill=True needs an empty cache, pos is '
                          f'{cache.pos}')
@@ -363,23 +385,64 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
     dst = (torch.arange(b, dtype=torch.int32, device=dev)[:, None] * s +
            pos + steps).view(-1)                                # [B * T]
 
-    x = cparams['embed'][tokens]
-    if config.scale_embeddings:
-        x = x * torch.tensor(math.sqrt(config.dim), dtype=x.dtype)
+    x = llama.embed_tokens(cparams, tokens, config, layout)
+    specs = None if layout is None else layout.layer_specs()[0]
     delta = None
     for i, layer_params in enumerate(layer_list(cparams, config)):
+        if layout is not None:
+            layer_params = layout.gather(layer_params, specs)
         x, delta = _layer_cached(
             config, x, delta, layer_params, cache.k[i], cache.v[i], pos,
             cos, sin, dst, prefill=prefill,
             k_scale=None if cache.k_scale is None else cache.k_scale[i],
-            v_scale=None if cache.v_scale is None else cache.v_scale[i])
+            v_scale=None if cache.v_scale is None else cache.v_scale[i],
+            layout=layout)
     cache.pos = pos + t
     if last_only:
         x, delta = x[:, -1:], delta[:, -1:]
     x = final_norm(config, cparams, x, delta)
     matmul = llama.matmul if prefill else mi.matmul
-    logits = matmul(x, llama.output_head(cparams, config)).float()
+    logits = matmul(x, llama.output_head(cparams, config, layout)).float()
     return logits, cache
+
+
+def serving_layout(config: llama.LlamaConfig, mesh):
+    """The params' place on ``mesh`` for serving (``decode_shardings``'
+    param specs): raises where ``tp`` does not split the heads."""
+    from skypilot_torch.parallel import sharding
+    sharding.tp_heads(config, mesh.shape['tp'])
+    return sharding.Layout(mesh, decode_shardings(config)[0])
+
+
+def decode_shardings(config: llama.LlamaConfig, shard_batch: bool = True,
+                     kv_int8: bool = False):
+    """(param specs, cache specs) for sharded serving — the JAX
+    ``decode_shardings`` (``skypilot_tpu/models/decode.py:518``) as spec
+    tuples: the params on ``llama.param_sharding_rules`` (heads and ffn
+    over ``tp``, the fsdp group ZeRO-style), the cache's kv-head axis
+    over ``tp`` and, with ``shard_batch``, its batch over the data axes
+    (False for a single-request replica). ``pos`` is replicated."""
+    batch_axes = ('dp', 'fsdp', 'ep') if shard_batch else None
+    kv = (None, batch_axes, None, 'tp', None)
+    scale = (None, batch_axes, None, 'tp') if kv_int8 else None
+    return (llama.param_sharding_rules(config),
+            KVCache(k=kv, v=kv, pos=(), k_scale=scale, v_scale=scale))
+
+
+def greedy_token(logits: torch.Tensor, layout=None) -> torch.Tensor:
+    """The greedy ids of ``logits`` [..., V] as int32 (``argmax``; the
+    first of equal maxima). With a ``layout`` at ``tp`` > 1 the logits
+    are this rank's vocabulary columns: the maximum is all-reduced over
+    ``tp``, then the lowest global id that holds it (MIN), so every rank
+    gets ``argmax``'s id over the whole vocabulary."""
+    if layout is None or layout.tp == 1:
+        return logits.argmax(-1).to(torch.int32)
+    top = layout.tp_max(logits.amax(-1))
+    hit = logits == top[..., None]
+    lo = layout.vocab_window(logits.shape[-1] * layout.tp)[0]
+    first = torch.where(hit.any(-1), hit.int().argmax(-1) + lo,
+                        logits.shape[-1] * layout.tp)
+    return layout.tp_min(first).to(torch.int32)
 
 
 def forward_paged(params: Params, tokens: torch.Tensor, pools,
@@ -483,18 +546,19 @@ def forward_paged(params: Params, tokens: torch.Tensor, pools,
 
 def decode_tokens_scan(params: Params, first: torch.Tensor,
                        cache: KVCache, config: llama.LlamaConfig,
-                       num_tokens: int
+                       num_tokens: int, layout=None
                        ) -> Tuple[torch.Tensor, KVCache]:
     """Greedy-decode ``num_tokens`` further tokens: one cached forward
     per token, the argmax kept on the device (the loop never waits on
     it). first: [B] the most recent token per row. Returns
-    ([B, num_tokens] int32 generated ids, cache)."""
+    ([B, num_tokens] int32 generated ids, cache). ``layout``: as
+    ``forward_cached``'s."""
     tok = first
     out = []
     for _ in range(num_tokens):
         logits, cache = forward_cached(params, tok[:, None], cache,
-                                       config)
-        tok = logits[:, -1].argmax(-1).to(torch.int32)
+                                       config, layout=layout)
+        tok = greedy_token(logits[:, -1], layout)
         out.append(tok)
     if not out:
         return torch.zeros((first.shape[0], 0), dtype=torch.int32,
@@ -507,11 +571,14 @@ def greedy_generate(params: Params, prompt: torch.Tensor,
                     config: llama.LlamaConfig, max_new_tokens: int,
                     max_seq: Optional[int] = None,
                     eos_id: Optional[int] = None,
-                    kv_int8: bool = False) -> torch.Tensor:
+                    kv_int8: bool = False, layout=None) -> torch.Tensor:
     """Greedy decode: prefill the prompt once, then one cached step
     per token. prompt: [B, T0] int on the params' device ->
     [B, <=max_new_tokens] int32 generated ids (rows that hit ``eos_id``
-    are padded with it thereafter). ``kv_int8``: an int8 KV cache."""
+    are padded with it thereafter). ``kv_int8``: an int8 KV cache.
+    ``layout`` (:func:`serving_layout`): ``params`` are this rank's
+    blocks, and every rank of the mesh runs this call in lockstep on the
+    same prompt; each gets the ids."""
     max_seq = max_seq or config.max_seq_len
     b, t0 = prompt.shape
     if t0 + max_new_tokens > max_seq:
@@ -521,13 +588,14 @@ def greedy_generate(params: Params, prompt: torch.Tensor,
         return torch.zeros((b, 0), dtype=torch.int32,
                            device=prompt.device)
     cache = init_cache(config, b, max_seq, device=prompt.device,
-                       kv_int8=kv_int8)
+                       kv_int8=kv_int8, layout=layout)
     logits, cache = forward_cached(params, prompt, cache, config,
-                                   last_only=True, prefill=True)
-    nxt = logits[:, -1].argmax(-1).to(torch.int32)
+                                   last_only=True, prefill=True,
+                                   layout=layout)
+    nxt = greedy_token(logits[:, -1], layout)
     if eos_id is None:
         toks, _ = decode_tokens_scan(params, nxt, cache, config,
-                                     max_new_tokens - 1)
+                                     max_new_tokens - 1, layout)
         return torch.cat([nxt[:, None], toks], dim=1)
     done = nxt == eos_id
     out = [nxt]
@@ -535,8 +603,9 @@ def greedy_generate(params: Params, prompt: torch.Tensor,
         if bool(done.all()):
             break
         logits, cache = forward_cached(params, nxt[:, None], cache,
-                                       config, last_only=True)
-        nxt = logits[:, -1].argmax(-1).to(torch.int32)
+                                       config, last_only=True,
+                                       layout=layout)
+        nxt = greedy_token(logits[:, -1], layout)
         # Per-row: once a row emitted EOS it keeps emitting EOS.
         nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
         done = done | (nxt == eos_id)

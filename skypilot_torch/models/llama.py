@@ -18,6 +18,12 @@ Switch aux loss), on the CPU: the router has no backward kernel yet, so
 MoE training on a CUDA device raises (ROADMAP.md, "MoE training on the
 card"). MoE serving runs ``models/decode.moe_mlp``.
 
+With a ``layout`` (``parallel/sharding.Layout``) the params are a
+rank's blocks on a mesh: each layer's dims sharded over the data axes
+are gathered inside its call, and over ``tp`` the layer runs
+Megatron-style on the rank's heads and ffn columns (``_layer``), the
+embedding and the fused CE on its vocabulary window.
+
 Under ``config.remat`` each layer runs in ``torch.utils.checkpoint``
 (non-reentrant): only the layer inputs are kept, and backward runs the
 layer's forward again — the flash forward kernel included. Keeping the
@@ -434,7 +440,8 @@ def output_head(params: Params, config: LlamaConfig, layout=None):
     config ties them. An int8 ``{'q', 's'}`` head comes back as it is:
     consume it with ``matmul`` or the fused CE, not ``@``. With a
     ``layout`` (``parallel/sharding.Layout``) the params are this rank's
-    blocks, and the head is gathered whole here, where it is used."""
+    blocks, and the head is gathered over the data axes here, where it is
+    used; at ``tp`` > 1 it is the rank's vocabulary columns [D, V/tp]."""
     if config.tie_embeddings:
         return _whole(layout, 'embed',
                       params['embed'].to(config.dtype)).T
@@ -509,32 +516,48 @@ def _gathered_layer(layout, specs, config: LlamaConfig, x: torch.Tensor,
                     layer_params: Params, angles: torch.Tensor, attn_impl,
                     lora_params: Optional[Params] = None,
                     lora_scale: float = 1.0):
-    """``_layer`` on this rank's blocks of one layer: each sharded leaf
-    (and adapter) is gathered whole first. Under remat this runs inside
-    the layer's checkpoint, so its recompute gathers again and only one
-    layer is whole at a time (ZeRO-3); the gathers' backward
-    reduce-scatters the gradients to the blocks. ``specs``: the
-    (params, lora) spec trees of one layer's slices."""
+    """``_layer`` on this rank's blocks of one layer: each leaf (and
+    adapter) sharded over a data axis is gathered whole first. Under
+    remat this runs inside the layer's checkpoint, so its recompute
+    gathers again and only one layer is whole at a time (ZeRO-3); the
+    gathers' backward reduce-scatters the gradients to the blocks.
+    ``specs``: the (params, lora) spec trees of one layer's slices. Dims
+    sharded over ``tp`` stay the rank's: the block runs Megatron-style
+    (``_layer``'s ``layout``)."""
     layer_params = layout.gather(layer_params, specs[0])
     if lora_params is not None:
         lora_params = layout.gather(lora_params, specs[1])
     return _layer(config, x, layer_params, angles, attn_impl, lora_params,
-                  lora_scale)
+                  lora_scale, layout)
 
 
 def _layer(config: LlamaConfig, x: torch.Tensor, layer_params: Params,
            angles: torch.Tensor, attn_impl,
            lora_params: Optional[Params] = None,
-           lora_scale: float = 1.0):
+           lora_scale: float = 1.0, layout=None):
     """One transformer block. x: [B, T, D] -> ([B, T, D], the MoE aux
     loss, 0 for a dense block). LoRA deltas ``((h @ a) @ b) *
     lora_scale`` join q and v before RoPE, which the attention impl
-    applies."""
-    b, t, _ = x.shape
-    nh, nkv, hd = config.n_heads, config.n_kv_heads, config.head_dim
+    applies.
 
-    h = _rms_norm(x, layer_params['attn_norm'], config.norm_eps,
-                  config.norm_offset)
+    With a ``layout`` at ``tp`` > 1 the weights are the rank's columns
+    of q/k/v, gate and up (and their biases, and the adapters' B) and
+    its rows of wo and w_down: the block runs on the rank's heads and
+    ffn columns, with *f* (``layout.copy_to_tp``) on the normed input
+    and *g* (``layout.reduce_from_tp``) after wo and after w_down. The
+    adapters' A products read the same *f*-wrapped input, so their
+    gradients come back partial, one part per rank's columns of B
+    (``train.build_train_step`` sums them over ``tp``); the norms'
+    gradients come back whole."""
+    b, t, _ = x.shape
+    hd = config.head_dim
+    nh, nkv = ((config.n_heads, config.n_kv_heads) if layout is None
+               else layout.heads(config))
+    f = (lambda y: y) if layout is None else layout.copy_to_tp
+    g = (lambda y: y) if layout is None else layout.reduce_from_tp
+
+    h = f(_rms_norm(x, layer_params['attn_norm'], config.norm_eps,
+                    config.norm_offset))
     q = matmul(h, layer_params['wq'])
     k = matmul(h, layer_params['wk'])
     v = matmul(h, layer_params['wv'])
@@ -551,17 +574,18 @@ def _layer(config: LlamaConfig, x: torch.Tensor, layer_params: Params,
         q = q + dq.reshape(b, t, nh, hd).to(q.dtype)
         v = v + dv.reshape(b, t, nkv, hd).to(v.dtype)
     attn = attn_impl(q, k, v, angles).reshape(b, t, nh * hd)
-    x = x + matmul(attn, layer_params['wo'])
+    x = x + g(matmul(attn, layer_params['wo']))
 
     h = _rms_norm(x, layer_params['mlp_norm'], config.norm_eps,
                   config.norm_offset)
     if config.n_experts:
         out, aux = _moe_mlp(config, h, layer_params)
         return x + out, aux
+    h = f(h)
     gate = mlp_act(config)(
         matmul(h, layer_params['w_gate']).float()).to(h.dtype)
     up = matmul(h, layer_params['w_up'])
-    return (x + matmul(gate * up, layer_params['w_down']),
+    return (x + g(matmul(gate * up, layer_params['w_down'])),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
@@ -575,9 +599,19 @@ def default_attn_impl():
 def embed_tokens(cparams: Params, tokens: torch.Tensor,
                  config: LlamaConfig, layout=None) -> torch.Tensor:
     """Token embedding lookup (+ Gemma's sqrt(dim) scaling) on
-    compute-dtype params (with a ``layout``, the table is gathered whole
-    for the lookup)."""
-    x = _whole(layout, 'embed', cparams['embed'])[tokens]
+    compute-dtype params. With a ``layout`` the table is gathered whole
+    over the data axes for the lookup; at ``tp`` > 1 each rank holds a
+    window of the vocabulary rows, looks up the ids inside it, writes
+    zeros for the others and the ranks' rows are summed
+    (``layout.reduce_from_tp``): exact, since one rank gives each row."""
+    table = _whole(layout, 'embed', cparams['embed'])
+    if layout is None or layout.tp == 1:
+        x = table[tokens]
+    else:
+        lo, hi = layout.vocab_window(config.vocab_size)
+        inside = (tokens >= lo) & (tokens < hi)
+        rows = table[torch.where(inside, tokens - lo, 0)]
+        x = layout.reduce_from_tp(rows.masked_fill(~inside[..., None], 0))
     if config.scale_embeddings:
         x = x * torch.tensor(math.sqrt(config.dim), dtype=x.dtype)
     return x
@@ -739,11 +773,20 @@ class _FusedCE(torch.autograd.Function):
     An int8 head is converted to the hidden dtype once per call, not
     once per chunk; its logits are ``(h @ q) * s`` as ``matmul`` forms
     them, and dhidden is ``(dlogits * s) @ q^T`` (the JAX
-    ``_head_mm_t``)."""
+    ``_head_mm_t``).
+
+    ``layout`` (``tp`` > 1): the head is this rank's vocabulary columns
+    (``layout.vocab_window``; an int8 head's scale with them). A chunk's
+    row max is all-reduced with MAX over ``tp``, then its sums of exps
+    and its targets' logits (each from the rank whose window holds the
+    target, zeros elsewhere) in one SUM; each rank's dhidden is its
+    columns' part, summed over ``tp`` once after the last chunk. A
+    trained head's dW stays the rank's block, and the loss is the whole
+    loss on every rank."""
 
     @staticmethod
     def forward(ctx, hidden, lm_head, targets, mask, chunk, train_head,
-                count=None):
+                count=None, layout=None):
         _, t, _ = hidden.shape
         ns = torch.zeros((), dtype=torch.float32, device=hidden.device)
         ms = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -757,6 +800,9 @@ class _FusedCE(torch.autograd.Function):
             s = lm_head['s'].to(hidden.dtype)
         else:
             w, s = lm_head, None
+        if layout is not None:
+            lo = layout.vocab_window(w.shape[1] * layout.tp)[0]
+            targets = targets - lo
         dw = (torch.zeros(w.shape, dtype=torch.float32,
                           device=hidden.device) if train_head else None)
         for c0 in range(0, t, chunk):
@@ -767,14 +813,17 @@ class _FusedCE(torch.autograd.Function):
             if quantized:
                 logits = logits * s
             logits = logits.float()  # [B, C, V]
-            lse = torch.logsumexp(logits, dim=-1)
-            nll = lse - logits.gather(-1, tg[..., None])[..., 0]
+            if layout is None:
+                lse = torch.logsumexp(logits, dim=-1)
+                nll = lse - logits.gather(-1, tg[..., None])[..., 0]
+                hot = torch.full(tg[..., None].shape, -1.0,
+                                 device=logits.device)
+            else:
+                lse, nll, tg, hot = _tp_lse_nll(layout, logits, tg)
             ns = ns + (nll * mk).sum()
             ms = ms + mk.sum()
             dlog = torch.exp(logits.sub_(lse[..., None]))
-            dlog.scatter_add_(-1, tg[..., None],
-                              torch.full(tg[..., None].shape, -1.0,
-                                         device=dlog.device))
+            dlog.scatter_add_(-1, tg[..., None], hot)
             dlog = (dlog * mk[..., None]).to(h.dtype)
             if quantized:
                 dlog = dlog * s
@@ -782,6 +831,8 @@ class _FusedCE(torch.autograd.Function):
             if train_head:
                 dw += torch.einsum('bcd,bcv->dv', h.float(), dlog.float())
             del logits, dlog
+        if layout is not None:
+            layout.tp_sum(dh)
         denom = torch.clamp(ms if count is None else count, min=1.0)
         ctx.save_for_backward(dh, dw, denom)
         ctx.head_meta = None if quantized else (w.shape, w.dtype)
@@ -800,7 +851,23 @@ class _FusedCE(torch.autograd.Function):
         else:
             shape, dtype = ctx.head_meta
             dlm = torch.zeros(shape, dtype=dtype, device=dh.device)
-        return dhid, dlm, None, None, None, None, None
+        return dhid, dlm, None, None, None, None, None, None
+
+
+def _tp_lse_nll(layout, logits: torch.Tensor, tg: torch.Tensor):
+    """One chunk's (lse, nll) over the vocabulary sharded on ``tp``:
+    ``logits`` [B, C, V/tp] this rank's columns, ``tg`` the targets
+    less the window's start. Returns them with the targets clamped into
+    the window and the one-hot's [B, C, 1] f32 entries (-1 where the
+    target is this rank's, 0 elsewhere) for the softmax gradient."""
+    inside = (tg >= 0) & (tg < logits.shape[-1])
+    tg = tg.clamp(0, logits.shape[-1] - 1)
+    m = layout.tp_max(logits.amax(-1))
+    sumexp, picked = layout.tp_sum(torch.stack([
+        torch.exp(logits - m[..., None]).sum(-1),
+        logits.gather(-1, tg[..., None])[..., 0].masked_fill(~inside, 0)]))
+    lse = m + torch.log(sumexp)
+    return lse, lse - picked, tg, -inside.float()[..., None]
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
@@ -843,6 +910,7 @@ def loss_from_hidden(params: Params, hidden: torch.Tensor,
     chunk = LOSS_CHUNK if t % LOSS_CHUNK == 0 else t
     mask = mask.float()
     count = None if layout is None else layout.data_sum(mask.sum())
+    tp = layout if layout is not None and layout.tp > 1 else None
     return _FusedCE.apply(hidden, output_head(params, config, layout),
                           targets.long(), mask, chunk, train_lm_head,
-                          count)
+                          count, tp)

@@ -22,6 +22,7 @@ Env contract (set by the on-cluster runtime,
 import datetime
 import logging
 import os
+import socket
 from typing import Optional
 
 import torch
@@ -65,6 +66,13 @@ def store_address() -> str:
     port = os.environ.get(ENV_COORDINATOR_PORT,
                           str(COORDINATOR_PORT_DEFAULT))
     return coordinator_address() or f'127.0.0.1:{port}'
+
+
+def free_port() -> int:
+    """A TCP port free on this host now, for a one-host store."""
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
 
 
 def local_world_size(device='cuda') -> int:

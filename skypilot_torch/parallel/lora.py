@@ -67,6 +67,12 @@ def lora_sharding_rules(config: llama.LlamaConfig) -> Dict[str, Any]:
     }
 
 
+# The adapters whose gradient a tp rank gets in part: the A factors are
+# replicated over tp, but each rank's gradient of A comes back through
+# its own columns of B (``llama._layer``), so the step sums it over tp.
+TP_PARTIAL_GRADS = ('wq_a', 'wv_a')
+
+
 def merge_lora(params: llama.Params, lora: Lora,
                scale: float = 2.0) -> llama.Params:
     """Fold the adapters into the base wq/wv (for export or serving):

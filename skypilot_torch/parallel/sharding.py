@@ -1,6 +1,7 @@
-"""Per-leaf sharding over the data axes of a mesh — the port's
-counterpart of the JAX package's ``NamedSharding`` trees
-(``sharding_tree``, ``skypilot_tpu/parallel/train.py:57-63``).
+"""Per-leaf sharding over a mesh — the port's counterpart of the JAX
+package's ``NamedSharding`` trees (``sharding_tree``,
+``skypilot_tpu/parallel/train.py:57-63``) and of the collectives GSPMD
+derives from them.
 
 A spec is written as JAX writes ``P(...)``: one entry per dim, None
 (replicated), an axis name, or a tuple of axis names (sharded over
@@ -14,17 +15,24 @@ XLA inserts a sharded program's collectives; here they are explicit.
 (``dp``/``fsdp``/``ep``) whole: ``all_gather_into_tensor`` forward and
 ``reduce_scatter_tensor`` (sum) backward, the FSDP gradient path that
 DTensor's ``Shard → Replicate`` redistribution does not give (its
-backward slices the replicated gradient without summing across ranks).
-Dims sharded over a model axis (``tp``, ``pp``, ``sp``) stay sharded;
-the train step refuses those axes above 1 until they are ported.
-:func:`all_reduce` sums over a set of axes. ``COLLECTIVES`` counts each
-kind where it is issued, and nowhere else, so a run can hold the
-collectives of a step against their identity.
+backward slices the replicated gradient without summing across ranks);
+over a group of one rank the block is the whole dim, and nothing is
+issued. Dims sharded over ``tp`` stay sharded: a layer runs
+Megatron-style on the rank's heads and ffn columns, between
+:meth:`Layout.copy_to_tp` (Megatron's *f*: identity forward, all-reduce
+over ``tp`` backward) and :meth:`Layout.reduce_from_tp` (*g*: all-reduce
+forward, identity backward). Every ``tp`` collective is an
+``all_reduce``, never an all-gather, so a gloo group can carry it
+between ranks that share one GPU. At ``tp`` 1 both return their input
+and issue nothing. :func:`all_reduce` sums over a set of axes.
+``COLLECTIVES`` counts each kind where it is issued, and nowhere else,
+so a run can hold the collectives of a step against their identity.
 
 :class:`Layout` is a state's place on the mesh (the spec trees of its
-params and adapters), and :class:`ShardedLeaf` one local tensor with
-its global shape and window, the form in which the checkpoint engine
-writes and reads a rank's part of a leaf.
+params and adapters, the rank's ``tp`` coordinate and head counts), and
+:class:`ShardedLeaf` one local tensor with its global shape and window,
+the form in which the checkpoint engine writes and reads a rank's part
+of a leaf.
 """
 import dataclasses
 import itertools
@@ -41,8 +49,9 @@ DATA_AXES = mesh_lib.data_axes()
 
 class Collectives:
     """Counts of the collectives issued by this module: ``gathers``
-    (forward all-gathers), ``reduce_scatters`` (their backward) and
-    ``all_reduces``."""
+    (forward all-gathers), ``reduce_scatters`` (their backward),
+    ``all_reduces`` (over data axes) and ``tp_reduces`` (the all-reduces
+    over ``tp``: *f*, *g*, the vocab-sharded lookup, loss and argmax)."""
 
     def __init__(self):
         self.reset()
@@ -51,11 +60,13 @@ class Collectives:
         self.gathers = 0
         self.reduce_scatters = 0
         self.all_reduces = 0
+        self.tp_reduces = 0
 
     def counts(self) -> Dict[str, int]:
         return {'gathers': self.gathers,
                 'reduce_scatters': self.reduce_scatters,
-                'all_reduces': self.all_reduces}
+                'all_reduces': self.all_reduces,
+                'tp_reduces': self.tp_reduces}
 
 
 COLLECTIVES = Collectives()
@@ -169,11 +180,12 @@ class _Gather(torch.autograd.Function):
 
 def gather(x: torch.Tensor, mesh, spec: Spec) -> torch.Tensor:
     """``x`` (this rank's block) with every dim sharded over data axes
-    made whole: one all-gather a dim, over the dim's data axes. Their
-    gradients reduce-scatter back to the block."""
+    made whole: one all-gather a dim, over the dim's data axes when they
+    hold more than one rank. Their gradients reduce-scatter back to the
+    block."""
     for d, entry in enumerate(spec):
         axes = data_axes_of(entry)
-        if axes:
+        if axes and mesh.size(axes) > 1:
             x = _Gather.apply(x, mesh.group(axes), d, mesh.size(axes))
     return x
 
@@ -191,6 +203,56 @@ def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     dist.all_reduce(x, group=mesh.group(tuple(axes)))
     COLLECTIVES.all_reduces += 1
     return x
+
+
+def tp_all_reduce(x: torch.Tensor, mesh,
+                  op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce ``x`` in place over this rank's ``tp`` group."""
+    dist.all_reduce(x, op=op, group=mesh.group(('tp',)))
+    COLLECTIVES.tp_reduces += 1
+    return x
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Megatron's *f*: the identity forward; the gradient all-reduced
+    over ``tp`` backward (each rank's column-parallel products give a
+    part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tp_all_reduce(g.clone(memory_format=torch.contiguous_format),
+                             ctx.mesh), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Megatron's *g*: the row-parallel partial sums all-reduced over
+    ``tp`` forward; the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return tp_all_reduce(x.clone(memory_format=torch.contiguous_format),
+                             mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tp_heads(config, tp: int) -> Tuple[int, int]:
+    """(query heads, kv heads) of one ``tp`` rank. A Megatron layer
+    splits whole heads, so both counts must divide by ``tp`` (GSPMD
+    would split inside a head)."""
+    if config.n_heads % tp or config.n_kv_heads % tp:
+        raise ValueError(
+            f'{config.name}: {config.n_heads} query / {config.n_kv_heads} '
+            f'kv heads do not split over tp {tp}: each tp rank runs whole '
+            'heads')
+    return config.n_heads // tp, config.n_kv_heads // tp
 
 
 def map_specs(fn: Callable, tree, specs, path: Tuple[str, ...] = (),
@@ -256,9 +318,10 @@ def global_shape(x: torch.Tensor, spec: Spec,
 
 @dataclasses.dataclass(frozen=True)
 class Layout:
-    """A train state's place on ``mesh``: the spec trees of its params
-    and (LoRA) adapters. ``trainable`` is the tree the step trains
-    (``train.opt_state_shardings`` puts the moments on its specs)."""
+    """A state's place on ``mesh``: the spec trees of its params and
+    (LoRA) adapters. ``trainable`` is the tree the step trains
+    (``train.opt_state_shardings`` puts the moments on its specs). A
+    serving layout (``models/decode.py``) has the params' specs alone."""
     mesh: Any
     params: Dict[str, Any]
     lora: Optional[Dict[str, Any]] = None
@@ -276,6 +339,51 @@ class Layout:
         stacked ``[L, ...]`` leaves."""
         return (strip_lead(self.params['layers']),
                 None if self.lora is None else strip_lead(self.lora))
+
+    @property
+    def tp(self) -> int:
+        """The ``tp`` size of the mesh (1: no tensor parallelism)."""
+        return self.mesh.shape['tp']
+
+    @property
+    def tp_index(self) -> int:
+        """This rank's coordinate on ``tp``."""
+        return self.mesh.coordinate['tp']
+
+    def heads(self, config) -> Tuple[int, int]:
+        """(query heads, kv heads) of this rank (:func:`tp_heads`)."""
+        return tp_heads(config, self.tp)
+
+    def vocab_window(self, vocab: int) -> Tuple[int, int]:
+        """[start, stop) of the vocabulary rows this rank holds."""
+        n = vocab // self.tp
+        return self.tp_index * n, (self.tp_index + 1) * n
+
+    def tp_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed in place over this rank's ``tp`` group."""
+        return tp_all_reduce(x, self.mesh)
+
+    def tp_max(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` maxed in place over this rank's ``tp`` group."""
+        return tp_all_reduce(x, self.mesh, dist.ReduceOp.MAX)
+
+    def tp_min(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` minimized in place over this rank's ``tp`` group."""
+        return tp_all_reduce(x, self.mesh, dist.ReduceOp.MIN)
+
+    def copy_to_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """*f* on ``x`` (``x`` itself at tp 1)."""
+        return x if self.tp == 1 else _CopyToTP.apply(x, self.mesh)
+
+    def reduce_from_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """*g* on ``x`` (``x`` itself at tp 1). Every caller hands it a
+        fresh product, so with no autograd to record (serving) ``x`` is
+        summed in place, without the Function's copy."""
+        if self.tp == 1:
+            return x
+        if not torch.is_grad_enabled():
+            return self.tp_sum(x)
+        return _ReduceFromTP.apply(x, self.mesh)
 
     def data_sum(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the data axes (a copy; ``x`` is kept)."""

@@ -18,17 +18,22 @@ Over a mesh (``parallel/mesh.py``; ``init_train_state(mesh=...)``)
 every leaf of the state is this rank's block under
 ``llama.param_sharding_rules`` / ``lora.lora_sharding_rules`` /
 ``quantized_sharding_rules`` (``TrainState.layout``), and the step is
-FSDP/DP: the global batch is split over the data axes (dp, fsdp, ep),
-each layer's blocks are gathered inside its checkpointed call and
-their gradients reduce-scattered back (``parallel/sharding.gather``),
-the gradients of leaves replicated over a data axis are all-reduced
-over it, the loss is the global masked mean, the global norm counts
-each element once, and AdamW runs on the blocks.
-``plan_train_state`` gives the per-device bytes of a mesh plan on the
-meta device.
+FSDP/DP over the data axes and Megatron tensor parallel over ``tp``:
+the global batch is split over the data axes (dp, fsdp, ep; the ranks
+of a ``tp`` group take the same rows), each layer's blocks are gathered
+over the data axes inside its checkpointed call and their gradients
+reduce-scattered back (``parallel/sharding.gather``), each layer runs on
+the rank's heads and ffn columns between *f* and *g*, the embedding and
+the fused CE run on the rank's vocabulary window
+(``models/llama.py``), the gradients of leaves replicated over a data
+axis are all-reduced over it (and the adapters' A factors, whose
+gradients come back partial, over ``tp`` too), the loss is the global
+masked mean, the global norm counts each element once, and AdamW runs
+on the blocks. ``plan_train_state`` gives the per-device bytes of a
+mesh plan on the meta device.
 
-Not here yet (ROADMAP.md): the ``tp`` and ``ep`` axes, the ``sp`` ring
-and the ``pp`` pipeline.
+Not here yet (ROADMAP.md): the ``ep`` axis, the ``sp`` ring and the
+``pp`` pipeline.
 """
 import dataclasses
 import math
@@ -147,14 +152,16 @@ def global_norm(grads: List[torch.Tensor], mesh=None,
     """optax ``global_norm``: sqrt of the sum over leaves of sum(g*g),
     each in the gradient's own dtype. Over a ``mesh`` the grads are
     blocks with these ``specs``: each block's sum of squares is summed
-    over the ranks of its shard group (the data axes its spec names; one
-    all-reduce per group and dtype), and a replicated leaf counts once."""
+    over the ranks of its shard group (the data axes its spec names, and
+    ``tp`` where it is above 1; one all-reduce per group and dtype), and
+    a replicated leaf counts once."""
     sqs = [torch.sum(g * g) for g in grads]
     if mesh is not None:
         groups: Dict[Any, List[int]] = {}
         for i, (sq, spec) in enumerate(zip(sqs, specs)):
             axes = tuple(a for a in sharding.spec_axes(spec)
-                         if a in sharding.DATA_AXES)
+                         if a in sharding.DATA_AXES or
+                         (a == 'tp' and mesh.shape['tp'] > 1))
             if axes:
                 groups.setdefault((axes, sq.dtype), []).append(i)
         for (axes, _), idx in groups.items():
@@ -265,8 +272,9 @@ def _layout(config: llama.LlamaConfig, mesh, lora: bool,
             quantized: bool = False) -> sharding.Layout:
     """The state's layout on ``mesh`` (a ``mesh.Mesh``, or a
     ``MeshConfig`` for a plan): refuses the axes the step does not
-    shard over yet."""
+    shard over yet, and a ``tp`` that does not split the heads."""
     refuse_later_axes(_mesh_shape(mesh))
+    sharding.tp_heads(config, _mesh_shape(mesh)['tp'])
     rules = (quantized_sharding_rules(config) if quantized
              else llama.param_sharding_rules(config))
     return sharding.Layout(
@@ -280,19 +288,18 @@ def _mesh_shape(mesh) -> Dict[str, int]:
 
 # The ROADMAP.md (Queue 1) item that brings each mesh axis the step
 # does not shard over yet.
-LATER_AXES = {'tp': 'the tp half of item 16',
-              'ep': 'MoE training on the card (after item 16)',
+LATER_AXES = {'ep': '"MoE training on the card, with ep"',
               'sp': 'item 17 (the sp ring)',
               'pp': 'item 18 (the pp pipeline)'}
 
 
 def refuse_later_axes(shape: Dict[str, int]) -> None:
     """Raise for the axes of ``shape`` above 1 that the step does not
-    shard over yet (all but dp and fsdp), naming their items."""
+    shard over yet (all but dp, fsdp and tp), naming their items."""
     wide = {a: n for a, n in shape.items() if a in LATER_AXES and n > 1}
     if wide:
         raise NotImplementedError(
-            f'mesh axes {wide}: the port trains over dp and fsdp; '
+            f'mesh axes {wide}: the port trains over dp, fsdp and tp; '
             + '; '.join(f'{a} comes with ROADMAP.md Queue 1 '
                         f'{LATER_AXES[a]}' for a in wide))
 
@@ -449,11 +456,16 @@ def build_train_step(config: llama.LlamaConfig,
         loss = loss.detach()
         if layout is not None:
             specs = [_get(layout.trainable, p) for p, _ in leaves]
-            for g, spec in zip(grads, specs):
+            tp_partial = layout.tp > 1 and is_lora
+            for (path, _), g, spec in zip(leaves, grads, specs):
                 # Summed over the data axes the leaf is replicated on
-                # (its sharded axes were reduce-scattered by the gather).
+                # (its sharded axes were reduce-scattered by the gather),
+                # and over tp for the adapters' A factors: each rank's
+                # part comes through its own columns of B.
                 axes = [a for a in sharding.DATA_AXES
                         if a not in sharding.spec_axes(spec)]
+                if tp_partial and path[-1] in lora_lib.TP_PARTIAL_GRADS:
+                    axes.append('tp')
                 if axes:
                     sharding.all_reduce(g, layout.mesh, axes)
             loss = layout.data_sum(loss)

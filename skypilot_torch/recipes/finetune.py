@@ -42,15 +42,16 @@ Several devices: one process per GPU, from the runtime's env contract
 (``parallel/distributed.py``). ``main`` spawns one worker per GPU of
 the host (``SKYTPU_NUM_CHIPS_PER_NODE``, else every visible GPU); the
 workers of every host join one process group at the contract's
-coordinator and train FSDP over a mesh of all of them
-(``auto_mesh_config(dp=--dp)``: what ``--dp`` does not claim goes to
-fsdp). Every rank draws the global batch as a one-process run draws it
-and the step takes its rows; rank 0 prints. On the CPU the workers are
-gloo processes (``SKYTPU_NUM_CHIPS_PER_NODE=2 ... --device cpu``).
+coordinator and train over a mesh of all of them
+(``auto_mesh_config(dp=--dp, tp=--tp)``: what ``--dp`` and ``--tp`` do
+not claim goes to fsdp): FSDP/DP over the data axes, Megatron tensor
+parallel over ``tp`` (``parallel/train.py``). Every rank draws the
+global batch as a one-process run draws it and the step takes its rows;
+rank 0 prints. On the CPU the workers are gloo processes
+(``SKYTPU_NUM_CHIPS_PER_NODE=2 ... --device cpu [--tp 2]``).
 
 Not ported yet, and refused with the ROADMAP.md item that brings them:
-``--tp``, ``--ep``, ``--sp`` and ``--pp`` above 1 and
-``--microbatches``.
+``--ep``, ``--sp`` and ``--pp`` above 1 and ``--microbatches``.
 """
 import argparse
 import json
@@ -87,7 +88,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument('--dp', type=int, default=1,
                    help='pure data-parallel degree (the rest of the '
                         'devices go to fsdp)')
-    for axis in ('tp', 'ep', 'sp', 'pp'):
+    p.add_argument('--tp', type=int, default=1,
+                   help='tensor-parallel degree (Megatron layers over the '
+                        'heads and ffn columns, the vocabulary sharded)')
+    for axis in ('ep', 'sp', 'pp'):
         p.add_argument(f'--{axis}', type=int, default=1,
                        help='mesh axis degree (only 1 is ported)')
     p.add_argument('--microbatches', type=int, default=None,
@@ -216,7 +220,8 @@ def build(args: argparse.Namespace):
     check_args(args)
     dev = device_lib.resolve_device(args.device)
     num_slices = mesh_lib.num_slices_from_env()
-    mesh_cfg = mesh_lib.auto_mesh_config(dp=args.dp, num_slices=num_slices)
+    mesh_cfg = mesh_lib.auto_mesh_config(dp=args.dp, tp=args.tp,
+                                         num_slices=num_slices)
     mesh = (mesh_lib.make_mesh(mesh_cfg, num_slices=num_slices)
             if distributed.is_initialized() else None)
     if args.elastic and args.checkpoint_dir:

@@ -43,9 +43,10 @@ leaf by leaf on the device); ``--kv-int8`` gives the engine an int8 KV
 pool (K4 and K5 run their int8 forms). MoE models serve like any other
 (``--model mixtral-8x7b --quant int8 --slots 8``: ~47 GB of expert codes
 on one card); a model whose weights in the compute dtype exceed one
-card's memory (``SINGLE_CARD_BYTES``: mixtral-8x7b's 93 GB of bf16)
-is refused without ``--quant int8`` before anything is allocated, since
-serving it wide needs sharding (ROADMAP.md Queue 1 item 16).
+card's memory per rank (``SINGLE_CARD_BYTES``: mixtral-8x7b's 93 GB of
+bf16) is refused without ``--quant int8`` before anything is allocated;
+bf16 MoE across cards comes with ROADMAP.md Queue 1's "MoE training on
+the card, with ep".
 
 Observability, as the JAX replica's: the process registry (the engine's
 ``skytpu_batch_*`` series and the card's ``skytpu_device_hbm_*`` gauges)
@@ -68,10 +69,25 @@ the way). Point it at the task-id subdirectory that holds the
 ``step_*`` dirs; with no committed step there the replica exits naming
 the resolved directory and what it holds.
 
-``--tp > 1`` is not ported yet (ROADMAP.md).
+``--tp N`` serves engine-off (``--slots 0``, bf16 weights, as the JAX
+replica allows) over the mesh JAX builds: ``auto_mesh_config(tp=N)``
+over every GPU the process sees (``SKYTPU_NUM_CHIPS_PER_NODE``, else
+the GPU count; on the CPU, gloo processes), so ``--tp 2`` on four GPUs
+is fsdp 2 x tp 2 with the batch replicated. One process per GPU: this
+one is rank 0 (it binds HTTP and publishes), and it spawns the others.
+Each rank holds its blocks of the weights (a random init streamed per
+leaf, or a checkpoint read through its window with the LoRA merge done
+per window on the host) and of the KV cache. For each request rank 0
+hands the prompt and length to the other ranks through a host queue,
+then every rank runs ``models/decode.greedy_generate(layout=)`` in
+lockstep: no rank waits inside a collective while the replica is idle.
+
+    SKYTPU_NUM_CHIPS_PER_NODE=2 python -m skypilot_torch.recipes.serve_model \
+        --model tiny --device cpu --tp 2 --port 8080
 """
 import argparse
 import json
+import multiprocessing
 import os
 import queue
 import threading
@@ -88,7 +104,10 @@ from skypilot_torch import trace as trace_lib
 from skypilot_torch.data.checkpoint import CheckpointManager
 from skypilot_torch.metrics import publish as publish_lib
 from skypilot_torch.models import decode, llama, quant
+from skypilot_torch.parallel import distributed
 from skypilot_torch.parallel import lora as lora_lib
+from skypilot_torch.parallel import mesh as mesh_lib
+from skypilot_torch.parallel import sharding
 from skypilot_torch.serve import batching
 from skypilot_torch.serve import overload as overload_lib
 from skypilot_torch.serve import prefix_hash
@@ -96,9 +115,11 @@ from skypilot_torch.serve.adapters import AdapterRegistry
 from skypilot_torch.serve.sampling import GrammarError
 
 MAX_NEW_TOKENS_CAP = 512
-# One card's device memory (an H100's 80 GB): wider weights need the
-# sharded serving of ROADMAP.md Queue 1 item 16.
+# One card's device memory (an H100's 80 GB): a rank's share of the
+# weights (1 / --tp of them) must fit it.
 SINGLE_CARD_BYTES = 80 * 10 ** 9
+# How long a --tp replica's collectives and its ranks' start may wait.
+TP_TIMEOUT_S = 600
 
 SAMPLED_REQUIRES_ENGINE = (
     'sampled/structured decoding (temperature > 0 or response_format) '
@@ -117,8 +138,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument('--tp', type=int, default=1,
                         help='tensor-parallel degree for models too '
                              'big for one chip (shards params + KV '
-                             'cache over the tp mesh axis); not ported '
-                             'yet: only 1 runs')
+                             'cache over the tp mesh axis; one process '
+                             'per GPU, engine-off)')
     parser.add_argument('--quant', choices=['none', 'int8'],
                         default='none',
                         help='weight-only quantization (halves '
@@ -221,15 +242,27 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.quant == 'int8' and args.tp > 1:
         # Reject before the (expensive) init, as the JAX replica does.
         parser.error('--quant int8 with --tp > 1 is not supported yet')
+    if args.slots > 0 and args.tp > 1:
+        parser.error('--slots (continuous batching) with --tp > 1 is not '
+                     'supported yet: the engine cache is unsharded and '
+                     'would replicate per device')
     config = llama.CONFIGS.get(args.model)
+    if config is not None and config.n_experts and args.tp > 1:
+        parser.error(f'--model {args.model} with --tp > 1: MoE across '
+                     'cards comes with ROADMAP.md Queue 1 "MoE training '
+                     'on the card, with ep"')
     if config is not None and args.quant != 'int8':
         wide = config.num_params() * config.dtype.itemsize
-        if wide > SINGLE_CARD_BYTES:
+        if wide / args.tp > SINGLE_CARD_BYTES:
+            remedy = ('--quant int8 (bf16 MoE across cards comes with '
+                      'ROADMAP.md Queue 1 "MoE training on the card, with '
+                      'ep")' if config.n_experts else
+                      '--quant int8 or a larger --tp')
             parser.error(
                 f'--model {args.model}: its {wide / 1e9:.0f} GB of '
                 f'{config.dtype} weights exceed one card '
-                f'({SINGLE_CARD_BYTES / 1e9:.0f} GB); serve it with --quant '
-                'int8 (sharded wide serving is ROADMAP.md Queue 1 item 16)')
+                f'({SINGLE_CARD_BYTES / 1e9:.0f} GB) at --tp {args.tp}; '
+                f'serve it with {remedy}')
     return args
 
 
@@ -337,18 +370,28 @@ def _load_grammar_vocab(path: str) -> Optional[list]:
 
 
 def load_params(args: argparse.Namespace, config: llama.LlamaConfig,
-                dev) -> llama.Params:
+                dev, layout=None) -> llama.Params:
     """The replica's weights on ``dev``: random from seed 0, or with
     ``--checkpoint-dir`` the latest committed finetune step's ``params``
     with its ``lora`` merged in, in ``config.dtype`` (int8 codes and
-    scales with ``--quant int8``)."""
+    scales with ``--quant int8``). With a serving ``layout``
+    (``decode.serving_layout``) each leaf is this rank's block: the
+    random init draws each slice as the unsharded init does and keeps
+    the block, and a checkpoint is read through the rank's windows (the
+    adapters whole, cut to the windows of wq and wv for the merge)."""
+    window = (None if layout is None
+              else sharding.window_fn(layout.mesh, layout.params))
     if not args.checkpoint_dir:
         if args.quant == 'int8':
             return quant.init_quantized(config, seed=0, device=dev)
-        return llama.init_params(config, seed=0, device=dev)
+        return llama.init_params(config, seed=0, device=dev, window=window)
     ckpt = CheckpointManager(args.checkpoint_dir, use_task_namespace=False)
     try:
-        raw = ckpt.restore_latest_raw(keys=('params', 'lora'))
+        raw = ckpt.restore_latest_raw(
+            keys=('params', 'lora'),
+            window=None if window is None else
+            lambda path, shape: (window(path[1:], shape)
+                                 if path[0] == 'params' else None))
     finally:
         ckpt.close()
     if raw is None:
@@ -375,13 +418,30 @@ def load_params(args: argparse.Namespace, config: llama.LlamaConfig,
         # Serve merged weights — no adapter math in the hot loop —
         # merged on the host, so the wide tree never sits on the device
         # twice.
-        params = lora_lib.merge_lora_host(params, raw['lora'])
+        lora = raw['lora']
+        if window is not None:
+            lora = _lora_window(lora, config, window)
+        params = lora_lib.merge_lora_host(params, lora)
     # Serve at the compute dtype: a training checkpoint may hold f32
     # masters.
     params = _map_tensors(params, lambda x: x.to(config.dtype))
     if args.quant == 'int8':
         return quant.quantize_params_streamed(params, config, device=dev)
     return _map_tensors(params, lambda x: x.to(dev))
+
+
+def _lora_window(lora, config: llama.LlamaConfig, window):
+    """The adapters cut to the windows of the base weights they merge
+    into: A's rows to wq's (wv's) input window, B's columns to its
+    output window."""
+    out = dict(lora)
+    for w, a, b, heads in (('wq', 'wq_a', 'wq_b', config.n_heads),
+                           ('wv', 'wv_a', 'wv_b', config.n_kv_heads)):
+        lead, rows, cols = window(('layers', w), (
+            config.n_layers, config.dim, heads * config.head_dim))
+        out[a] = lora[a][lead, rows].contiguous()
+        out[b] = lora[b][lead, :, cols].contiguous()
+    return out
 
 
 def _map_tensors(tree, fn):
@@ -393,15 +453,98 @@ def _map_tensors(tree, fn):
 class ReplicaServer(ThreadingHTTPServer):
     """The replica's HTTP server; ``server_close`` also stops the
     process's metrics publisher (``publisher``) and removes its
-    textfile."""
+    textfile, and a ``--tp`` replica's other ranks (``tp_ranks``)."""
     daemon_threads = True
     engine = None
     publisher = None
+    tp_ranks = None
 
     def server_close(self):
         super().server_close()
         if self.publisher is not None:
             self.publisher.close()
+        if self.tp_ranks is not None:
+            self.tp_ranks.close()
+
+
+def _tp_model(args: argparse.Namespace, local_rank: int, world: int,
+              init_method: str):
+    """Join the ``--tp`` replica's process group as ``local_rank`` and
+    build this rank's part of the model: (config, serving layout,
+    params, device)."""
+    os.environ[distributed.ENV_NUM_CHIPS_PER_NODE] = str(world)
+    distributed.initialize(force=True, local_rank=local_rank,
+                           device=args.device, init_method=init_method,
+                           timeout_s=TP_TIMEOUT_S)
+    dev = device_lib.resolve_device(args.device)
+    config = llama.get_config(args.model)
+    mesh = mesh_lib.make_mesh(mesh_lib.auto_mesh_config(world, tp=args.tp))
+    layout = decode.serving_layout(config, mesh)
+    return config, layout, load_params(args, config, dev, layout), dev
+
+
+def _tp_rank(local_rank: int, world: int, args: argparse.Namespace,
+             init_method: str, requests) -> None:
+    """A ``--tp`` replica's rank other than 0: waits on the host queue
+    ``requests`` for (prompt ids, new tokens) and runs each in lockstep
+    with the other ranks; None, or rank 0's process gone, ends it."""
+    config, layout, params, dev = _tp_model(args, local_rank, world,
+                                            init_method)
+    parent = multiprocessing.parent_process()
+    try:
+        while True:
+            try:
+                req = requests.get(timeout=1.0)
+            except queue.Empty:
+                if parent.is_alive():
+                    continue
+                break
+            if req is None:
+                break
+            prompt_ids, n_new = req
+            decode.greedy_generate(
+                params, torch.tensor([prompt_ids], dtype=torch.long,
+                                     device=dev),
+                config, max_new_tokens=n_new, layout=layout)
+    finally:
+        distributed.shutdown()
+
+
+class TPRanks:
+    """Rank 0's handle on the other ranks of a ``--tp`` replica: one
+    spawned process per GPU past the first, each with a host queue of
+    requests (:func:`_tp_rank`). ``submit`` hands every rank a request
+    before rank 0 enters the collectives of its own run; ``close`` stops
+    them and leaves the process group."""
+
+    def __init__(self, args: argparse.Namespace, world: int):
+        init_method = f'tcp://127.0.0.1:{distributed.free_port()}'
+        ctx = multiprocessing.get_context('spawn')
+        self.queues = [ctx.Queue() for _ in range(1, world)]
+        self.procs = [ctx.Process(target=_tp_rank, daemon=True,
+                                  args=(r, world, args, init_method, q))
+                      for r, q in zip(range(1, world), self.queues)]
+        for p in self.procs:
+            p.start()
+        self.model = _tp_model(args, 0, world, init_method)
+
+    def submit(self, prompt_ids: List[int], n_new: int) -> None:
+        dead = [p.pid for p in self.procs if not p.is_alive()]
+        if dead:
+            raise RuntimeError(f'--tp replica: ranks {dead} have exited')
+        for q in self.queues:
+            q.put((list(prompt_ids), n_new))
+
+    def close(self) -> None:
+        for q in self.queues:
+            q.put(None)
+        # Every rank leaves the group at once: NCCL's teardown waits for
+        # the peers, so joining them first would wait forever.
+        distributed.shutdown()
+        for p in self.procs:
+            p.join(TP_TIMEOUT_S)
+            if p.is_alive():
+                p.kill()
 
 
 def build_server(args: argparse.Namespace
@@ -413,15 +556,14 @@ def build_server(args: argparse.Namespace
     ``server.serve_forever()``, then shuts the server down, closes it
     (which stops the publisher) and closes the engine."""
     trace_lib.set_component('replica')
+    tp_ranks, layout = None, None
     if args.tp > 1:
-        raise NotImplementedError(
-            f'--tp {args.tp}: tensor-parallel serving is not ported yet; '
-            'it comes with the tp half of item 16 in ROADMAP.md (Queue 1: '
-            'the vocab-sharded embedding, the row-parallel all-reduces, '
-            'decode_shardings and pool_shardings)')
-    dev = device_lib.resolve_device(args.device)
-    config = llama.get_config(args.model)
-    params = load_params(args, config, dev)
+        tp_ranks = TPRanks(args, distributed.local_world_size(args.device))
+        config, layout, params, dev = tp_ranks.model
+    else:
+        dev = device_lib.resolve_device(args.device)
+        config = llama.get_config(args.model)
+        params = load_params(args, config, dev)
     lock = threading.Lock()
     engine = None
     if args.slots > 0:
@@ -467,8 +609,11 @@ def build_server(args: argparse.Namespace
             bucket *= 2
         bucket = min(bucket, config.max_seq_len - tokens.shape[1])
         with lock:
+            if tp_ranks is not None:
+                tp_ranks.submit(prompt_ids, bucket)
             out = decode.greedy_generate(params, tokens, config,
-                                         max_new_tokens=bucket)
+                                         max_new_tokens=bucket,
+                                         layout=layout)
         out = out[0, :max_new].tolist()
         if eos_id is not None and eos_id in out:
             out = out[:out.index(eos_id) + 1]
@@ -706,9 +851,12 @@ def build_server(args: argparse.Namespace
         server = ReplicaServer(('0.0.0.0', args.port), Handler)
     except BaseException:
         publisher.close()
+        if tp_ranks is not None:
+            tp_ranks.close()
         raise
     server.engine = engine
     server.publisher = publisher
+    server.tp_ranks = tp_ranks
     return server, generate
 
 
@@ -717,8 +865,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     server, _ = build_server(args)
     print(f'serve_model ready on :{server.server_address[1]} '
           f'(model {args.model}, device {args.device}, slots '
-          f'{args.slots}, quant {args.quant}, kv_int8 {args.kv_int8})',
-          flush=True)
+          f'{args.slots}, quant {args.quant}, kv_int8 {args.kv_int8}, '
+          f'tp {args.tp})', flush=True)
     try:
         server.serve_forever()
     finally:

@@ -389,3 +389,16 @@ def copy_pool_block(caches, src: int, dst: int):
             c[:, dst] = c[:, src]
     return caches
 
+
+
+def pool_shardings(config, kv_int8: bool = False):
+    """The specs of the pool 4-tuple — the JAX ``pool_shardings``
+    (``skypilot_tpu/serve/kv_pool.py:469``) as spec tuples: the kv-head
+    axis over ``tp`` and the blocks replicated (blocks are shared across
+    requests; only the head axis shards naturally, as in
+    ``models/decode.decode_shardings``). Like JAX's, no engine calls it
+    yet (the engine refuses ``--tp > 1``)."""
+    del config
+    kv = (None, None, None, 'tp', None)
+    scale = (None, None, None, 'tp') if kv_int8 else None
+    return (kv, kv, scale, scale)

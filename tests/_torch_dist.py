@@ -176,7 +176,8 @@ def shard_state(state, cfg, mesh):
 
 
 def train_steps(mesh_kw, cases, save_dir=None):
-    """For each ``(name, state_np, batches)`` case: the whole state (numpy
+    """For each ``(name, state_np, batches)`` case (or ``(name, state_np,
+    batches, config overrides)``): the whole state (numpy
     ``params``/``lora`` trees, ``dtype``) placed on the mesh
     ``MeshConfig(**mesh_kw)``, then one ``build_train_step`` step per
     global batch (on ``tiny``; with per-layer checkpointing where the
@@ -190,8 +191,9 @@ def train_steps(mesh_kw, cases, save_dir=None):
     from skypilot_torch.parallel import sharding, train
     mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(**mesh_kw))
     out = {}
-    for name, state_np, batches in cases:
-        cfg = llama.get_config('tiny', remat=name.endswith('_remat'))
+    for name, state_np, batches, *kw in cases:
+        cfg = llama.get_config('tiny', remat=name.endswith('_remat'),
+                               **(kw[0] if kw else {}))
         whole = convert.train_state_from_numpy(
             state_np['params'], state_np['lora'], state_np['dtype'],
             device='cpu')
@@ -214,4 +216,84 @@ def train_steps(mesh_kw, cases, save_dir=None):
                 mgr.wait()
             finally:
                 mgr.close()
+    return out
+
+
+def tp_primitives(n_rows=4, n_in=6, n_out=8, seed=0):
+    """Megatron's *f* and *g* over this rank's ``tp`` group (the mesh
+    ``tp`` = world): a column-parallel product ``f(x) @ W[:, cols]`` and
+    a row-parallel one ``g(X[:, cols] @ W2[cols])`` on the same seeded
+    tensors on every rank, each loss ``sum(y * c)`` with ``c`` cut like
+    ``y``. Returns the rank's outputs and gradients, its window and the
+    collectives each pass issued."""
+    import torch.distributed as dist
+    from skypilot_torch.parallel import mesh as mesh_lib
+    from skypilot_torch.parallel import sharding
+    tp = dist.get_world_size()
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(tp=tp))
+    layout = sharding.Layout(mesh, {})
+    gen = torch.Generator().manual_seed(seed)
+    x, w, c = (torch.randn(s, generator=gen) for s in (
+        (n_rows, n_in), (n_in, n_out), (n_rows, n_out)))
+    big_x, w2, c2 = (torch.randn(s, generator=gen) for s in (
+        (n_rows, n_out), (n_out, n_in), (n_rows, n_in)))
+    r, k = layout.tp_index, n_out // tp
+    cols = slice(r * k, (r + 1) * k)
+    out = {'cols': (cols.start, cols.stop)}
+    x = x.requires_grad_(True)
+    w_r = w[:, cols].clone().requires_grad_(True)
+    sharding.COLLECTIVES.reset()
+    y = layout.copy_to_tp(x) @ w_r
+    out['f_forward'] = sharding.COLLECTIVES.counts()['tp_reduces']
+    (y * c[:, cols]).sum().backward()
+    out['f_backward'] = sharding.COLLECTIVES.counts()['tp_reduces'] - \
+        out['f_forward']
+    out.update(col_y=y.detach(), col_dx=x.grad, col_dw=w_r.grad)
+    x_r = big_x[:, cols].clone().requires_grad_(True)
+    w2_r = w2[cols].clone().requires_grad_(True)
+    sharding.COLLECTIVES.reset()
+    y2 = layout.reduce_from_tp(x_r @ w2_r)
+    out['g_forward'] = sharding.COLLECTIVES.counts()['tp_reduces']
+    (y2 * c2).sum().backward()
+    out['g_backward'] = sharding.COLLECTIVES.counts()['tp_reduces'] - \
+        out['g_forward']
+    out.update(row_y=y2.detach(), row_dx=x_r.grad, row_dw=w2_r.grad)
+    return out
+
+
+def serve_ranks(mesh_kw, params_np, prompt, n_new, cfg_kw=None):
+    """The whole numpy params cut to this rank's blocks on the mesh
+    ``MeshConfig(**mesh_kw)``; ``forward_cached(layout=)`` on the prompt
+    (prefill), then one decode step, and ``greedy_generate(layout=)``.
+    Returns this rank's vocabulary window, both logits (its columns),
+    the ids and each call's ``tp`` all-reduces."""
+    from skypilot_torch.models import convert, decode, llama
+    from skypilot_torch.parallel import mesh as mesh_lib
+    from skypilot_torch.parallel import sharding
+    cfg = llama.get_config('tiny', **(cfg_kw or {}))
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(**mesh_kw))
+    layout = decode.serving_layout(cfg, mesh)
+    params = sharding.map_specs(
+        lambda _, x, spec: sharding.local_slice(mesh, spec, x),
+        convert.params_from_numpy(params_np, cfg, device='cpu'),
+        layout.params)
+    tokens = torch.tensor(prompt, dtype=torch.long)
+    out = {'window': layout.vocab_window(cfg.vocab_size)}
+    with torch.inference_mode():
+        cache = decode.init_cache(cfg, tokens.shape[0], 64, device='cpu',
+                                  layout=layout)
+        out['cache_heads'] = cache.k.shape[3]
+        sharding.COLLECTIVES.reset()
+        logits, cache = decode.forward_cached(params, tokens, cache, cfg,
+                                              prefill=True, layout=layout)
+        out['prefill_tp_reduces'] = sharding.COLLECTIVES.tp_reduces
+        step = decode.greedy_token(logits[:, -1], layout)
+        out['first'] = step
+        step_logits, _ = decode.forward_cached(params, step[:, None], cache,
+                                               cfg, layout=layout)
+        sharding.COLLECTIVES.reset()
+        out['ids'] = decode.greedy_generate(params, tokens, cfg, n_new,
+                                            max_seq=64, layout=layout)
+        out['generate_tp_reduces'] = sharding.COLLECTIVES.tp_reduces
+    out.update(prefill=logits, step=step_logits)
     return out

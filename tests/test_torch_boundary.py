@@ -1,5 +1,5 @@
-"""The port's boundaries: skypilot_torch and chip_smoke.py import
-nothing of JAX, the JAX package or ``ml_dtypes`` (a JAX dependency the
+"""The port's boundaries: skypilot_torch, chip_smoke.py and tp_cards.py
+import nothing of JAX, the JAX package or ``ml_dtypes`` (a JAX dependency the
 card's machine lacks); entry points never quietly run on
 the CPU; a kernel build that cannot happen raises."""
 import ast
@@ -31,6 +31,7 @@ def _port_sources():
             if f.endswith('.py'):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, 'chip_smoke.py')
+    yield os.path.join(REPO, 'tp_cards.py')
 
 
 def test_importing_every_module_loads_no_jax():

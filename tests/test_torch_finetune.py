@@ -56,7 +56,7 @@ def test_log_every_keeps_first_and_last_step(capsys):
 
 
 @pytest.mark.parametrize('argv,match', [
-    (['--tp', '2'], 'tp half of item 16'),
+    (['--ep', '2'], 'MoE training on the card, with ep'),
     (['--sp', '2'], r'item 17 \(the sp ring\)'),
     (['--microbatches', '4'], 'item 18'),
 ], ids=['argv0-items 15-18', 'argv1-one device', 'argv2-item 18'])

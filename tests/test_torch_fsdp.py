@@ -218,13 +218,13 @@ def test_sharded_steps_match_jax_and_one_process(results, name, kind):
 # group.
 COLLECTIVES = {
     'lora': {'gathers': 9 * 2 + 2, 'reduce_scatters': 2 * 2,
-             'all_reduces': 2 + 4 + 1},
+             'all_reduces': 2 + 4 + 1, 'tp_reduces': 0},
     'full': {'gathers': 7 * 2 + 2, 'reduce_scatters': 7 * 2 + 2,
-             'all_reduces': 2 + 12 + 1},
+             'all_reduces': 2 + 12 + 1, 'tp_reduces': 0},
     'qlora': {'gathers': 11 * 2 + 2, 'reduce_scatters': 2 * 2,
-              'all_reduces': 2 + 4 + 1},
+              'all_reduces': 2 + 4 + 1, 'tp_reduces': 0},
     'lora_remat': {'gathers': 2 * 9 * 2 + 2, 'reduce_scatters': 2 * 2,
-                   'all_reduces': 2 + 4 + 1},
+                   'all_reduces': 2 + 4 + 1, 'tp_reduces': 0},
 }
 
 
@@ -474,8 +474,9 @@ def test_8b_full_finetune_plan(fsdp, fits):
 
 def test_step_refuses_model_axes():
     cfg = tllama.get_config('tiny')
-    fake = type('M', (), {'shape': tmesh.MeshConfig(tp=2).shape()})()
-    with pytest.raises(NotImplementedError, match='tp half of item 16'):
+    fake = type('M', (), {'shape': tmesh.MeshConfig(ep=2).shape()})()
+    with pytest.raises(NotImplementedError,
+                       match='MoE training on the card, with ep'):
         ttrain.build_train_step(cfg, mesh=fake)
 
 

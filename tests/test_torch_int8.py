@@ -568,9 +568,8 @@ def test_replica_quant_int8_kv_int8():
 def test_replica_quant_refusals():
     with pytest.raises(SystemExit):
         serve_model.parse_args(['--quant', 'int8', '--tp', '2'])
-    with pytest.raises(NotImplementedError, match='--tp'):
-        serve_model.build_server(serve_model.parse_args(
-            ['--tp', '2', '--device', 'cpu', '--port', '0']))
+    with pytest.raises(SystemExit):
+        serve_model.parse_args(['--slots', '2', '--tp', '2'])
 
 
 def test_int8_pool_bytes_count_codes_and_scales():

@@ -1,0 +1,358 @@
+#!/usr/bin/env python3
+"""Tensor parallelism across cards: the finetune recipe and the
+engine-off replica at llama3-8b, one process per GPU over NCCL, against
+one card.
+
+    python3 tp_cards.py [--recipe-tp 1,2,4] [--replicas 1:1,2:2,2:4]
+        [--steps 10] [--decode-profile 16]
+
+``--recipe-tp``: for each T, ``recipes/finetune.py --model llama3-8b
+--seq 2048 --batch 8 --lora-rank 16 --synthetic --tp T`` with
+``SKYTPU_NUM_CHIPS_PER_NODE`` = T (the mesh ``tp = T``); the step times
+come from the recipe's cumulative tokens/s lines (steps 1-5, after step
+0's warm-up), and once step 5 prints a profile of two steps is armed
+(``utils/profiling.write_trigger``): one rank writes the device ms of
+every kernel it ran, NCCL's by name (``TP_RECIPE`` lines; the profiles
+under ``chiprun_out/tp_cards/``).
+
+``--replicas``: for each ``tp:chips``, ``recipes/serve_model.py --model
+llama3-8b --tp tp`` with ``SKYTPU_NUM_CHIPS_PER_NODE`` = chips (``2:4``
+is fsdp 2 x tp 2), three 128-token prompts (random ids from a seed)
+asking 1 and 32 new tokens: TTFT (the 1-token request), TPOT (the
+32-token request less the 1-token one, over 31), and each request's ids
+against the first replica's (tp 1). Then teacher forcing: the first
+replica's ids fed through tp 1 in this process and through each other
+mesh on spawned ranks (NCCL, ``chip_smoke._tp_path``), so each step's
+logits compare on the same inputs: every step's max |err| against tp
+1, and where a replica's ids first differ, tp 1's top-2 margin there
+beside twice that step's max |err| (``chip_smoke._tp_compare``;
+``TP_REPLICA`` lines).
+
+``--decode-profile N``: where a tp 2 decode step's time goes. Two
+ranks on two cards build llama3-8b's blocks (seed 0), prefill a
+128-token prompt and time N decode steps (``forward_cached(layout=)``
+and ``greedy_token``, synchronized after each), then rank 0 profiles 4
+more (CPU and CUDA activity): the device's busy ms and NCCL's, and the
+host ops that take the most time of their own (``TP_DECODE_PROFILE``
+line; tp 1 on one card beside it, the same steps).
+
+Needs a CUDA card for each rank; run from the repo's root, beside
+``chip_smoke.py``, whose tp helpers it uses. Prints the cards' names and
+power limits (``nvidia-smi``) on every line.
+"""
+import argparse
+import contextlib
+import gc
+import json
+import os
+import re
+import signal
+import subprocess
+import sys
+import time
+import urllib.request
+
+import chip_smoke
+from skypilot_torch.parallel import distributed
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(ROOT, 'chiprun_out', 'tp_cards')
+TOKENS_PER_STEP = 8 * 2048
+PROMPT, NEW, SEED = 128, 32, 61
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cards() -> list:
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+
+
+def _env(chips: int) -> dict:
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith('SKYTPU_')}
+    env.update(SKYTPU_NUM_CHIPS_PER_NODE=str(chips), PYTHONPATH=ROOT,
+               SKYTPU_STATE_DIR=os.path.join(OUT, 'state'))
+    return env
+
+
+def _tail(path: str) -> str:
+    with open(path, encoding='utf-8', errors='replace') as f:
+        return f.read()[-4000:]
+
+
+def recipe(tp: int, steps: int) -> dict:
+    """One recipe run at ``--tp tp`` on ``tp`` cards: per-step seconds,
+    losses, tokens/s per chip, and the profiled rank's kernel ms."""
+    from skypilot_torch.utils import profiling
+    prof = os.path.join(OUT, f'profile_tp{tp}')
+    os.makedirs(prof, exist_ok=True)
+    env = _env(tp)
+    env.update(SKYTPU_PROFILE_DIR=prof,
+               SKYTPU_COORDINATOR_ADDRESS=f'127.0.0.1:{distributed.free_port()}')
+    argv = [sys.executable, '-m', 'skypilot_torch.recipes.finetune',
+            '--model', 'llama3-8b', '--seq', '2048', '--batch', '8',
+            '--lora-rank', '16', '--synthetic', '--steps', str(steps),
+            '--log-every', '1', '--tp', str(tp)]
+    t0 = time.perf_counter()
+    err_path = os.path.join(OUT, f'recipe_tp{tp}.stderr')
+    with open(err_path, 'w', encoding='utf-8') as err:
+        proc = subprocess.Popen(argv, cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE, stderr=err,
+                                text=True)
+        lines = []
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith('step 5 '):
+                profiling.write_trigger(prof, steps=2)
+    assert proc.wait() == 0, _tail(err_path)
+    wall = time.perf_counter() - t0
+    done = {}
+    for line in lines:
+        m = re.match(r'step (\d+) loss=(\S+) grad_norm=(\S+) tokens/s=(\d+)',
+                     line)
+        if m:
+            k = int(m.group(1))
+            done[k] = (float(m.group(2)),
+                       (k + 1) * TOKENS_PER_STEP / int(m.group(4)))
+    step_s = [done[k][1] - done[k - 1][1] for k in range(1, 6)]
+    mean = sum(step_s) / len(step_s)
+    summary = profiling.load_summary(prof)
+    kernels = None
+    if summary is not None:
+        rows = [r for r in summary['rows'] if r['category'] == 'kernel']
+        nccl = [r for r in rows if 'nccl' in r['name'].lower()]
+        kernels = dict(
+            steps=summary['steps'],
+            kernel_ms=sum(r['total_ms'] for r in rows) / summary['steps'],
+            nccl_ms=sum(r['total_ms'] for r in nccl) / summary['steps'],
+            nccl=[dict(name=r['name'][:80], ms=r['total_ms'] /
+                       summary['steps'], count=r['count'] / summary['steps'])
+                  for r in nccl],
+            top=[dict(name=r['name'][:80], ms=r['total_ms'] /
+                      summary['steps'])
+                 for r in sorted(rows, key=lambda r: -r['total_ms'])[:8]])
+    return dict(tp=tp, chips=tp, head=lines[0], losses=[done[k][0]
+                                                       for k in sorted(done)],
+                step_s=step_s, step_s_mean=mean,
+                tokens_per_s_per_chip=TOKENS_PER_STEP / mean / tp,
+                profiled_rank=kernels, wall_s=wall)
+
+
+def _post(port: int, prompt: list, n: int) -> tuple:
+    body = json.dumps({'prompt_ids': prompt, 'max_new_tokens': n}).encode()
+    req = urllib.request.Request(f'http://127.0.0.1:{port}/generate',
+                                 data=body,
+                                 headers={'Content-Type': 'application/json'})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        ids = json.loads(resp.read())['output_ids']
+    return ids, 1e3 * (time.perf_counter() - t0)
+
+
+def replica(tp: int, chips: int, prompts: list) -> dict:
+    """The replica at ``--tp tp`` over ``chips`` cards: each prompt's
+    ids at 32 new tokens, TTFT and TPOT per prompt."""
+    port = distributed.free_port()
+    argv = [sys.executable, '-m', 'skypilot_torch.recipes.serve_model',
+            '--model', 'llama3-8b', '--tp', str(tp), '--port', str(port)]
+    t0 = time.perf_counter()
+    err_path = os.path.join(OUT, f'replica_tp{tp}_chips{chips}.stderr')
+    err = open(err_path, 'w', encoding='utf-8')
+    proc = subprocess.Popen(argv, cwd=ROOT, env=_env(chips),
+                            stdout=subprocess.PIPE, stderr=err, text=True)
+    try:
+        ready = proc.stdout.readline()
+        assert 'ready' in ready, _tail(err_path)
+        setup_s = time.perf_counter() - t0
+        _post(port, prompts[0], NEW)  # the first request's allocations
+        rows = []
+        for prompt in prompts:
+            _, ttft = _post(port, prompt, 1)
+            ids, full = _post(port, prompt, NEW)
+            rows.append(dict(ids=ids, ttft_ms=ttft,
+                             tpot_ms=(full - ttft) / (NEW - 1)))
+        proc.send_signal(signal.SIGINT)
+        proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        err.close()
+    return dict(tp=tp, chips=chips, setup_s=setup_s, requests=rows)
+
+
+def _decode_steps(config, layout, params, dev, n: int,
+                  profile: bool) -> dict:
+    """llama3-8b's blocks (``chip_smoke._tp_model``): a 128-token
+    prefill, ``n`` timed decode steps, then 4 more, recorded by
+    ``torch.profiler`` with ``profile``."""
+    import torch
+
+    from skypilot_torch.models import decode
+    gen = torch.Generator().manual_seed(SEED)
+    prompt = torch.randint(0, config.vocab_size, (1, PROMPT),
+                           generator=gen).to(dev)
+    out = {}
+    with torch.inference_mode():
+        cache = decode.init_cache(config, 1, PROMPT + n + 8, device=dev,
+                                  layout=layout)
+        logits, cache = decode.forward_cached(params, prompt, cache, config,
+                                              prefill=True, layout=layout)
+        tok = decode.greedy_token(logits[:, -1], layout)
+
+        def step():
+            nonlocal tok, cache
+            logits, cache = decode.forward_cached(params, tok[:, None],
+                                                  cache, config,
+                                                  layout=layout)
+            tok = decode.greedy_token(logits[:, -1], layout)
+        step()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        out['step_ms'] = ms
+        # Every rank runs the 4 steps (their collectives pair up); one
+        # records them.
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) if profile else \
+            contextlib.nullcontext()
+        with prof:
+            for _ in range(4):
+                step()
+            torch.cuda.synchronize()
+        if profile:
+            ev = prof.key_averages()
+            cuda = [e for e in ev
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            host = [e for e in ev
+                    if e.device_type == torch.autograd.DeviceType.CPU]
+            out.update(
+                busy_ms_per_step=sum(e.self_device_time_total
+                                     for e in cuda) / 1e3 / 4,
+                nccl_ms_per_step=sum(e.self_device_time_total for e in cuda
+                                     if 'nccl' in e.key.lower()) / 1e3 / 4,
+                host_self_ms_per_step=[
+                    dict(name=e.key[:70], calls=e.count / 4,
+                         ms=e.self_cpu_time_total / 1e3 / 4)
+                    for e in sorted(host,
+                                    key=lambda e: -e.self_cpu_time_total)
+                    [:12]])
+    return out
+
+
+def _decode_rank(torch, rank: int, world: int, dev, n: int) -> dict:
+    from skypilot_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(tp=world))
+    config, layout, params = chip_smoke._tp_model(torch, dev, mesh)
+    return _decode_steps(config, layout, params, dev, n, profile=rank == 0)
+
+
+def decode_profile(n: int) -> dict:
+    """``_decode_steps`` at tp 1 on card 0, then at tp 2 on two cards."""
+    import torch
+    config, _, params = chip_smoke._tp_model(torch, 'cuda')
+    one = _decode_steps(config, None, params, 'cuda', n, profile=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, _ = chip_smoke._tp_spawn('nccl', 2, target=_decode_rank,
+                                    args=(n,))
+    return dict(tp1=one, tp2=ranks)
+
+
+def _forced_rank(torch, rank: int, world: int, dev, tp: int, prompts: list,
+                 ids: list) -> dict:
+    """This rank's vocabulary window and its teacher-forced logits
+    (``chip_smoke._tp_path``) for each prompt on tp 1's ``ids``, over the
+    mesh the replica builds (``auto_mesh_config(tp=tp)`` over the
+    world)."""
+    from skypilot_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh(mesh_lib.auto_mesh_config(world, tp=tp))
+    config, layout, params = chip_smoke._tp_model(torch, dev, mesh)
+    return dict(window=layout.vocab_window(config.vocab_size), rows=[
+        chip_smoke._tp_path(torch, params, torch.tensor([p], device=dev),
+                            config, i, config.max_seq_len, layout)
+        for p, i in zip(prompts, ids)])
+
+
+def forced(rows: list, prompts: list) -> None:
+    """Teacher forcing for the replicas ``rows`` (the first at tp 1 on
+    one card): tp 1's logits on its own ids, then each other replica's
+    mesh on the same ids; each request gains ``vs_tp1``."""
+    import torch
+    ids = [r['ids'] for r in rows[0]['requests']]
+    config, _, params = chip_smoke._tp_model(torch, 'cuda')
+    want = [chip_smoke._tp_path(torch, params,
+                                torch.tensor([p], device='cuda'), config, i,
+                                config.max_seq_len)
+            for p, i in zip(prompts, ids)]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for req, w in zip(rows[0]['requests'], want):
+        req['tp1_path_is_greedy'] = w.argmax(-1).tolist() == req['ids']
+    for row in rows[1:]:
+        ranks, _ = chip_smoke._tp_spawn(
+            'nccl', row['chips'], target=_forced_rank,
+            args=(row['tp'], prompts, ids))
+        for i, req in enumerate(row['requests']):
+            got = chip_smoke._tp_logits(
+                torch, [(r['window'], r['rows'][i]) for r in ranks])
+            req['vs_tp1'] = chip_smoke._tp_compare(torch, want[i], got,
+                                                   ids[i], req['ids'])
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--recipe-tp', default='1,2,4')
+    parser.add_argument('--replicas', default='1:1,2:2,2:4')
+    parser.add_argument('--steps', type=int, default=10)
+    parser.add_argument('--decode-profile', type=int, default=16)
+    args = parser.parse_args()
+    os.makedirs(OUT, exist_ok=True)
+    smi = cards()
+    log('TP_CARDS ' + json.dumps(dict(cards=smi)))
+    base = None
+    for tp in [int(t) for t in args.recipe_tp.split(',') if t]:
+        row = recipe(tp, args.steps)
+        if base is None:
+            base = row
+        row.update(cards=smi[:tp],
+                   per_chip_vs_one_card=row['tokens_per_s_per_chip'] /
+                   base['tokens_per_s_per_chip'])
+        log('TP_RECIPE ' + json.dumps(row))
+    if args.decode_profile:
+        row = decode_profile(args.decode_profile)
+        log('TP_DECODE_PROFILE ' + json.dumps(dict(cards=smi[:2], **row)))
+    import random
+    rand = random.Random(SEED)
+    prompts = [[rand.randrange(128256) for _ in range(PROMPT)]
+               for _ in range(3)]
+    rows = []
+    for spec in [s for s in args.replicas.split(',') if s]:
+        tp, chips = map(int, spec.split(':'))
+        rows.append(replica(tp, chips, prompts))
+    assert not rows or (rows[0]['tp'], rows[0]['chips']) == (1, 1), \
+        'the first replica is the reference: 1:1'
+    if rows:
+        forced(rows, prompts)
+    for row in rows:
+        for got, want in zip(row['requests'], rows[0]['requests']):
+            got['ids_equal_first'] = got['ids'] == want['ids']
+        row['cards'] = smi[:row['chips']]
+        log('TP_REPLICA ' + json.dumps(row))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())
