@@ -267,6 +267,31 @@ in order (any failure exits non-zero; nothing is caught):
    of one skips, against ``_fsdp_identity``), each step's ms and
    tokens/s/chip beside one card's (``TP_SERVE``, ``TP_LORA``,
    ``TP_QLORA`` lines per backend, ``TP_FSDP_LORA``).
+21. MOE_TRAIN (``moe_train``, run right after MOE): (a) the training
+   router at G 4 x T 2048 (D 4096, E 8, k 2): ``route_for_training``'s
+   kernel pair (``moe_route`` with its probabilities forward,
+   ``moe_route_bwd`` backward) against the plain autograd chain on the
+   card: experts equal but at ``MOE_TIE_GAP`` near-ties, slots equal,
+   probabilities and gates within ``MOE_GATE_REL_TOL``, dlogits within
+   ``MOE_BWD_REL_TOL``, h's and the router's gradients within
+   ``MOE_DH_REL_TOL``; times and bounds of both kernels
+   (``MOE_ROUTE_TRAIN``). (b) mixtral-8x7b width, bf16 on the card
+   against f32 on the CPU: the LoRA loss and adapter gradients at 2
+   layers, the full step's loss, gradient norm and router gradient at
+   1 layer, within ``TRAIN_TOL`` (``MOE_TRAIN_NUMERICS``). (c) The main
+   path: the int8 QLoRA step at full width and depth (32 layers, seq
+   2048, batch 4), launch counts zeroed just before and read just after
+   3 steps (K1-RoPE and ``moe_route`` 2 L, pre-pass = K2 = K3 =
+   ``moe_route_bwd`` = L a step), step ms, tokens/s, MFU on the active
+   parameters, peak memory, the dropped share (``MOE_QLORA``). (d) Two
+   gloo ranks sharing the card, mixtral-8x7b width at 2 layers: a probe
+   of gloo's ``all_to_all_single`` on CUDA tensors, then the LoRA step
+   at ep 2 (if the probe passed) and at tp 2 against one rank within
+   ``TRAIN_TOL``, launches and collectives against their identities
+   (``MOE_EP``, ``MOE_TP``), and the tp 2 forward teacher-forced on tp
+   1's greedy tokens within ``TP_LOGIT_REL_TOL`` on every step that
+   routed each token to tp 1's experts (a step that did not, at most a
+   quarter of them, only at ``MOE_FLIP_GAP`` near-ties; ``MOE_TP_SERVE``).
 
 Then one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line. ``--phases`` runs a subset (no
@@ -293,8 +318,8 @@ PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 L2_BYTES = 50 * 2 ** 20
 PHASES = ('k1', 'k4', 'e2e', 'serve', 'k1r', 'bwd', 'train', 'k5', 'k5f',
           'k4p', 'k4pre', 'invariance', 'engine', 'sampling', 'adapters',
-          'rows', 'k6', 'int8k', 'int8', 'qlora', 'ckpt', 'moe', 'fsdp',
-          'tp')
+          'rows', 'k6', 'int8k', 'int8', 'qlora', 'ckpt', 'moe', 'moe_train',
+          'fsdp', 'tp')
 K1_TOL = {'out': 2e-2, 'lse': 2e-2}
 # K2/K3 in bf16 (P and dS rounded to bf16 before their products) against
 # f32 on the same rotated bf16 q and k: max |err| over max |ref| per
@@ -6039,7 +6064,7 @@ def _fsdp_identity(config, layout, n_steps):
                                   (dims(base) + dims(lora)) + top),
             'reduce_scatters': n_steps * config.n_layers * dims(lora),
             'all_reduces': n_steps * (2 + replicated + groups),
-            'tp_reduces': 0}
+            'tp_reduces': 0, 'all_to_alls': 0}
 
 
 def _bits_diff(torch, a, b):
@@ -6462,13 +6487,15 @@ def _tp_adapters(torch, config, dtype, dev, window=None):
     return out
 
 
-def _tp_train(torch, counters, qlora, dev, mesh=None):
-    """llama3-8b width at ``TP_TRAIN_LAYERS`` layers, seq 2048, batch 8,
-    LoRA rank 16 over a bf16 (``qlora``: int8) base from seed 0 with
-    ``_tp_adapters``: the first step's loss, grad norm and updated
-    adapters (this rank's blocks and windows over ``mesh``), then a
-    second step's ms, launches and collectives; on a mesh with no
-    ``tp``, the collectives' identity (``_fsdp_identity``)."""
+def _tp_train(torch, counters, qlora, dev, mesh=None, model='llama3-8b',
+              layers=TP_TRAIN_LAYERS, batch_size=TP_BATCH):
+    """``model``'s width at ``layers`` layers (llama3-8b at
+    ``TP_TRAIN_LAYERS``), seq 2048, batch 8, LoRA rank 16 over a bf16
+    (``qlora``: int8) base from seed 0 with ``_tp_adapters``: the first
+    step's loss, grad norm and updated adapters (this rank's blocks and
+    windows over ``mesh``), then a second step's ms, launches and
+    collectives; for a dense model on a mesh with no ``tp``, the
+    collectives' identity (``_fsdp_identity``)."""
     import gc
 
     from skypilot_torch.models import llama
@@ -6476,9 +6503,8 @@ def _tp_train(torch, counters, qlora, dev, mesh=None):
     from skypilot_torch.parallel import train as train_lib
     gc.collect()
     torch.cuda.empty_cache()
-    seq, batch_size = TP_SEQ, TP_BATCH
-    config = llama.get_config('llama3-8b', n_layers=TP_TRAIN_LAYERS,
-                              max_seq_len=seq)
+    seq = TP_SEQ
+    config = llama.get_config(model, n_layers=layers, max_seq_len=seq)
     if qlora:
         state = train_lib.init_qlora_state(config, seed=0, lora_rank=TP_RANK,
                                            device=dev, mesh=mesh)
@@ -6507,7 +6533,7 @@ def _tp_train(torch, counters, qlora, dev, mesh=None):
                layers=config.n_layers,
                chunks=-(-seq // llama.LOSS_CHUNK)
                if seq % llama.LOSS_CHUNK == 0 else 1)
-    if mesh is not None and mesh.shape['tp'] == 1:
+    if mesh is not None and mesh.shape['tp'] == 1 and not config.n_experts:
         out['collectives_expected'] = _fsdp_identity(config, state.layout,
                                                      1)
     del state
@@ -6646,7 +6672,7 @@ def _tp_serve_identity(L, world):
                 'flash_bwd_prep': 0, 'flash_bwd_dq': 0, 'flash_bwd_dkv': 0}
     tp = (2 * L + 1) * fwd + 2 * fwd if world > 1 else 0
     return launches, {'gathers': 0, 'reduce_scatters': 0, 'all_reduces': 0,
-                      'tp_reduces': tp}
+                      'tp_reduces': tp, 'all_to_alls': 0}
 
 
 def _tp_train_identity(L, chunks, world):
@@ -6669,11 +6695,11 @@ def _tp_train_identity(L, chunks, world):
                 'flash_bwd_dq': L, 'flash_bwd_dkv': L}
     if world == 1:
         coll = dict(gathers=0, reduce_scatters=0, all_reduces=0,
-                    tp_reduces=0)
+                    tp_reduces=0, all_to_alls=0)
     else:
         coll = dict(gathers=0, reduce_scatters=0, all_reduces=2 + 4 + 2,
                     tp_reduces=1 + 2 * L + L + (2 * L - 1) +
-                    2 * chunks + 1)
+                    2 * chunks + 1, all_to_alls=0)
     return launches, coll
 
 
@@ -7684,6 +7710,608 @@ def moe_phase(torch, attention, da):
                 serve=line)
 
 
+# ---------------------------------------------------------------------
+# MoE training: the router's kernel pair, mixtral-8x7b numerics, the
+# full-depth QLoRA step, and ep 2 / tp 2 on two gloo ranks
+# ---------------------------------------------------------------------
+
+# (a) The training shapes of the router: G batch rows of T tokens
+# (mixtral-8x7b at seq 2048, batch 4); slot scans walk T k entries.
+MOE_TRAIN_ROUTE_SHAPE = (4, 2048)
+# (a) dlogits (f32) of the backward kernel against its plain version on
+# the same inputs: max |err| / max |ref| (summation order only); h's
+# gradient (bf16 on both sides: one rounding each) and the router's
+# (bf16) of the kernel pair against the plain autograd chain on the
+# tokens whose experts agree: max |err| / max |ref|.
+MOE_BWD_REL_TOL = 1e-5
+MOE_DH_REL_TOL = 1e-2
+# (c) The full-depth QLoRA step: seq 2048, batch 4 (codes ~47 GB, layer
+# inputs ~2.2 GB, one layer's recompute and backward ~13 GB), rank 16.
+MOE_QLORA_BATCH, MOE_QLORA_STEPS = 4, 3
+# (d) ep 2 and tp 2 at mixtral-8x7b width, 2 layers, batch 2 (ep 2: one
+# row a rank), seq 2048; the tp 2 forward's prompt and tokens.
+MOE_DIST_LAYERS, MOE_DIST_BATCH = 2, 2
+
+
+def _moe_route_train_line(torch, mr, gen):
+    """(a) The training router at mixtral-8x7b's widths (D 4096, E 8, k 2,
+    bf16) on ``MOE_TRAIN_ROUTE_SHAPE``, the kernel pair
+    (``route_for_training``: ``moe_route`` with probabilities, then
+    ``moe_route_bwd`` and the router product) against the plain autograd
+    chain on the card over the same values: experts equal but at a
+    ``MOE_TIE_GAP`` near-tie, slots equal to ``capacity_slots`` of the
+    kernel's experts, probabilities and gates within ``MOE_GATE_REL_TOL``;
+    random gate and probability cotangents (zero on tokens whose experts
+    differ): dlogits within ``MOE_BWD_REL_TOL`` of the plain backward on
+    the kernel's own outputs, h's and the router's gradients within
+    ``MOE_DH_REL_TOL`` of the chain's. Times: the forward kernel, the
+    backward kernel, their plain versions and the library chains (the
+    f32 matmul, softmax and topk forward; its autograd backward to h),
+    with the bytes bound of each."""
+    from skypilot_torch.models import llama
+    cfg = llama.get_config('mixtral-8x7b')
+    d, e, k = cfg.dim, cfg.n_experts, cfg.moe_top_k
+    g, t = MOE_TRAIN_ROUTE_SHAPE
+    n, cap = g * t, llama.moe_capacity(cfg, t)
+    router = (torch.randn((d, e), generator=gen, device='cuda') /
+              math.sqrt(d)).to(torch.bfloat16)
+    h = torch.randn((g, t, d), generator=gen, device='cuda').to(
+        torch.bfloat16)
+    hk = h.clone().requires_grad_(True)
+    rk = router.clone().requires_grad_(True)
+    idx, gate, slot, probs = mr.route_for_training(hk, rk, k, cap)
+    hp = h.clone().requires_grad_(True)
+    rp = router.clone().requires_grad_(True)
+    pidx, _, _, pgate, pprobs = mr._route_plain(hp, rp, k, cap)
+    order_gap, _ = _near_ties(torch, pprobs.detach(), k)
+    same = (idx == pidx).all(-1)
+    unexplained = int((~same & ~(order_gap <= MOE_TIE_GAP)).sum())
+    slots_differing = int((slot != mr.capacity_slots(idx, e, cap)).sum())
+    gate_rel = ((gate - pgate).abs() / pgate.abs())[same].max().item()
+    prob_rel = ((probs - pprobs).abs() / pprobs.abs()).max().item()
+    dgate = torch.randn(gate.shape, generator=gen, device='cuda') * \
+        same[..., None]
+    dprobs = torch.randn(probs.shape, generator=gen, device='cuda') * \
+        same[..., None]
+    torch.autograd.backward([gate, probs], [dgate, dprobs])
+    torch.autograd.backward([pgate, pprobs], [dgate, dprobs])
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() /
+                b.float().abs().max()).item()
+    p_d, i_d = probs.detach(), idx
+    dl, dh = mr.moe_route_bwd(p_d, i_d, dgate, dprobs, router,
+                              torch.bfloat16)
+    pdl, pdh = mr._moe_route_bwd_plain(p_d, i_d, dgate, dprobs, router,
+                                       torch.bfloat16)
+    errs = dict(dlogits_rel_err=rel(dl, pdl), dh_vs_plain_rel_err=rel(dh, pdh),
+                dh_rel_err=rel(hk.grad, hp.grad),
+                drouter_rel_err=rel(rk.grad, rp.grad))
+    copies = [(h.clone(),) for _ in range(4)]
+    bwd_in = [(p_d.clone(), i_d.clone(), dgate.clone(), dprobs.clone())
+              for _ in range(4)]
+
+    def chain(x):
+        lg = torch.matmul(x.float(), router.float())
+        p = torch.softmax(lg, -1)
+        v, _ = torch.topk(p, k, -1)
+        return v / v.sum(-1, keepdim=True), p
+    xs = [h.clone().requires_grad_(True) for _ in range(4)]
+    outs = [chain(x) for x in xs]
+    fwd = dict(
+        ms=cuda_ms(torch, lambda x: mr._moe_route_cuda(x, router, k, cap,
+                                                       with_probs=True),
+                   copies, 50),
+        plain_ms=cuda_ms(torch, lambda x: mr._route_plain(x, router, k, cap),
+                         copies, 20),
+        library_ms=cuda_ms(torch, chain, copies, 50))
+    bwd = dict(
+        ms=cuda_ms(torch, lambda *a: mr.moe_route_bwd(*a, router,
+                                                       torch.bfloat16),
+                   bwd_in, 50),
+        plain_ms=cuda_ms(torch, lambda *a: mr._moe_route_bwd_plain(
+            *a, router, torch.bfloat16), bwd_in, 20),
+        library_ms=cuda_ms(torch, lambda x, o: torch.autograd.grad(
+            o, x, (dgate, dprobs), retain_graph=True),
+            list(zip(xs, outs)), 20))
+    fwd_bytes = n * d * 2 + d * e * 2 + n * k * (4 + 2 + 4 + 4) + n * e * 4
+    bwd_bytes = (n * e * 4 * 2 + n * k * 4 * 2 + d * e * 2 + n * e * 4 +
+                 n * d * 2)
+    ops = 2 * n * d * e
+    for part, nbytes in ((fwd, fwd_bytes), (bwd, bwd_bytes)):
+        t_bytes = 1e3 * nbytes / PEAK_HBM_BYTES
+        t_ops = 1e3 * ops / PEAK_F32_FLOPS
+        part.update(bound_ms=max(t_bytes, t_ops),
+                    bound_by='bytes' if t_bytes >= t_ops else 'operations')
+    line = dict(card=smi_line(), groups=g, tokens=t, dim=d, experts=e,
+                top_k=k, cap=cap, differing_tokens=int((~same).sum()),
+                unexplained=unexplained, slots_differing=slots_differing,
+                max_gate_rel_err=gate_rel, max_prob_rel_err=prob_rel,
+                dropped=int((slot < 0).sum()), **errs,
+                tol=dict(tie_gap=MOE_TIE_GAP, gate_rel=MOE_GATE_REL_TOL,
+                         dlogits_rel=MOE_BWD_REL_TOL,
+                         dh_rel=MOE_DH_REL_TOL),
+                forward=dict(fwd, max_abs_err=(gate - pgate).abs()[same]
+                             .max().item()),
+                backward=dict(bwd, max_abs_err=(dl - pdl).abs().max()
+                              .item()))
+    log('MOE_ROUTE_TRAIN ' + json.dumps(line))
+    assert unexplained == 0 and slots_differing == 0, line
+    assert gate_rel <= MOE_GATE_REL_TOL and prob_rel <= MOE_GATE_REL_TOL, \
+        line
+    assert errs['dlogits_rel_err'] <= MOE_BWD_REL_TOL, line
+    assert all(errs[key] <= MOE_DH_REL_TOL for key in (
+        'dh_vs_plain_rel_err', 'dh_rel_err', 'drouter_rel_err')), line
+    return line
+
+
+def _moe_train_numerics(torch):
+    """(b) mixtral-8x7b width, bf16 on the card against the same weights
+    in f32 on the CPU (plain paths), one 256-token row, no remat: at 2
+    layers the LoRA loss and every adapter gradient (rank 16, non-zero
+    B); at 1 layer the full step's loss and gradient norm, and the
+    router's gradient, from autograd (the step's update itself is the
+    dense one's). The CPU routes each layer's tokens to the experts the
+    card chose (its own top k is counted where it differs, a near-tie
+    that the bf16 activations move, about 2% of tokens at random
+    weights): a token sent to another expert has another output, which
+    the gradients would carry everywhere after it. The choices
+    themselves are ``MOE_ROUTE_TRAIN``'s to hold."""
+    import gc
+
+    from skypilot_torch.models import convert, llama
+    from skypilot_torch.ops import moe_route as mr
+    from skypilot_torch.parallel import lora as lora_lib
+    from skypilot_torch.parallel import train as train_lib
+    gen = torch.Generator().manual_seed(43)
+    tokens = torch.randint(0, 32000, (1, 257), generator=gen)
+    route, own_top_k = mr.route_for_training, mr.top_k_lower
+    chosen, moved = [], [0]
+
+    def recording(h, router, k, cap):
+        out = route(h, router, k, cap)
+        chosen.append(out[0].detach().long().cpu())
+        return out
+
+    def forced(probs, k):
+        want = chosen.pop(0)
+        mine = own_top_k(probs, k)
+        moved[0] += int((mine.sort(-1).values != want.sort(-1).values)
+                        .any(-1).sum())
+        return want
+
+    def run(params, cfg, dev, lora=None):
+        p = {key: v for key, v in params.items()}
+        leaves = lora if lora is not None else p
+        for path, x in train_lib._leaves(leaves):  # noqa: SLF001
+            node = leaves
+            for key in path[:-1]:
+                node = node[key]
+            node[path[-1]] = x.detach().to(dev, cfg.dtype).requires_grad_(
+                True)
+        loss = llama.loss_fn(p, {'tokens': tokens.to(dev)}, cfg, lora=lora,
+                             lora_scale=2.0)
+        flat = train_lib._leaves(leaves)  # noqa: SLF001
+        grads = torch.autograd.grad(loss, [x for _, x in flat])
+        return loss.item(), {'/'.join(path): gr.float().cpu()
+                             for (path, _), gr in zip(flat, grads)}
+
+    rows = {}
+    for layers, kind in ((2, 'lora'), (1, 'full')):
+        config = llama.get_config('mixtral-8x7b', n_layers=layers,
+                                  remat=False)
+        cfg_cpu = dataclasses.replace(config, dtype=torch.float32)
+        params = llama.init_params(config, seed=4, device='cuda')
+        cpu_params = convert.params_from_numpy(
+            convert.params_to_numpy(params), cfg_cpu, device='cpu')
+        lora = None
+        if kind == 'lora':
+            lora = lora_lib.init_lora(config, seed=5, rank=16,
+                                      dtype=torch.bfloat16, device='cuda')
+            for name in ('wq_b', 'wv_b'):
+                lora[name] = (0.02 * torch.randn(
+                    lora[name].shape, generator=gen)).to('cuda',
+                                                         torch.bfloat16)
+        moved[0] = 0
+        t0 = time.perf_counter()
+        mr.route_for_training = recording
+        try:
+            gpu_loss, gpu_grads = run(params, config, 'cuda', None if lora
+                                      is None else dict(lora))
+        finally:
+            mr.route_for_training = route
+        gpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mr.top_k_lower = forced
+        try:
+            cpu_loss, cpu_grads = run(cpu_params, cfg_cpu, 'cpu', None if
+                                      lora is None else {
+                                          key: v.float().cpu()
+                                          for key, v in lora.items()})
+        finally:
+            mr.top_k_lower = own_top_k
+        cpu_s = time.perf_counter() - t0
+        assert not chosen, 'the CPU routed fewer layers than the card'
+        row = dict(layers=layers, loss=[gpu_loss, cpu_loss],
+                   loss_rel_err=abs(gpu_loss - cpu_loss) / abs(cpu_loss),
+                   cpu_top_k_differs=moved[0], gpu_s=gpu_s, cpu_s=cpu_s)
+        if kind == 'lora':
+            row['lora_grad_rel_err'] = {
+                key: ((gpu_grads[key] - g).abs().max() /
+                      g.abs().max()).item()
+                for key, g in cpu_grads.items()}
+        else:
+            norms = [train_lib.global_norm(list(gr.values())).item()
+                     for gr in (gpu_grads, cpu_grads)]
+            router = 'layers/router'
+            row.update(grad_norm=norms,
+                       grad_norm_rel_err=abs(norms[0] - norms[1]) /
+                       norms[1],
+                       router_grad_rel_err=(
+                           (gpu_grads[router] - cpu_grads[router])
+                           .abs().max() / cpu_grads[router].abs().max())
+                       .item())
+        rows[kind] = row
+        del params, cpu_params, lora, gpu_grads, cpu_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    line = dict(config='mixtral-8x7b', B=1, T=256, lora_rank=16, **rows,
+                tol=TRAIN_TOL, card=smi_line())
+    log('MOE_TRAIN_NUMERICS ' + json.dumps(line))
+    lo, ft = rows['lora'], rows['full']
+    assert math.isfinite(lo['loss'][0]) and math.isfinite(ft['loss'][0])
+    assert lo['loss_rel_err'] <= TRAIN_TOL['loss'], line
+    assert max(lo['lora_grad_rel_err'].values()) <= TRAIN_TOL['grad'], line
+    assert ft['loss_rel_err'] <= TRAIN_TOL['full_ft'], line
+    assert ft['grad_norm_rel_err'] <= TRAIN_TOL['full_ft'], line
+    assert ft['router_grad_rel_err'] <= TRAIN_TOL['grad'], line
+    return line
+
+
+def _moe_train_kernels(attention):
+    """The launch counts of an MoE training step: the attention kernels
+    and the router's pair."""
+    from skypilot_torch.ops import moe_route as mr
+    return {'flash_fwd_rope': attention.FLASH_FWD_ROPE,
+            'flash_bwd_prep': attention.FLASH_BWD_PREP,
+            'flash_bwd_dq': attention.FLASH_BWD_DQ,
+            'flash_bwd_dkv': attention.FLASH_BWD_DKV,
+            'moe_route': mr.MOE_ROUTE, 'moe_route_bwd': mr.MOE_ROUTE_BWD}
+
+
+def _moe_step_launches(L, n_steps=1):
+    """An MoE LoRA step under remat: K1-RoPE and ``moe_route`` 2 L
+    (forward and recompute), pre-pass = K2 = K3 = ``moe_route_bwd`` =
+    L."""
+    return {'flash_fwd_rope': 2 * L * n_steps, 'flash_bwd_prep': L * n_steps,
+            'flash_bwd_dq': L * n_steps, 'flash_bwd_dkv': L * n_steps,
+            'moe_route': 2 * L * n_steps, 'moe_route_bwd': L * n_steps}
+
+
+def _moe_qlora(torch, attention):
+    """(c) The main path: mixtral-8x7b QLoRA at full width and depth (32
+    layers, int8 frozen base from ``init_qlora_state``, bf16 LoRA rank
+    16, seq 2048, batch ``MOE_QLORA_BATCH``, remat), one warm-up step,
+    then ``MOE_QLORA_STEPS`` steps with every launch count zeroed just
+    before and read just after (``_moe_step_launches``): step ms,
+    tokens/s, MFU on ``num_active_params`` (4 N a token: a frozen
+    base), peak memory, and the share of (token, choice) entries the
+    capacity dropped."""
+    import gc
+
+    from skypilot_torch.models import llama
+    from skypilot_torch.ops import moe_route as mr
+    from skypilot_torch.parallel import train as train_lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq, batch_size = 2048, MOE_QLORA_BATCH
+    config = llama.get_config('mixtral-8x7b', max_seq_len=seq)
+    t0 = time.perf_counter()
+    state = train_lib.init_qlora_state(config, seed=0, lora_rank=16,
+                                       device='cuda')
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    step_fn = train_lib.build_train_step(config)
+    gen = torch.Generator().manual_seed(47)
+    batch = {'tokens': torch.randint(0, config.vocab_size,
+                                     (batch_size, seq + 1),
+                                     generator=gen).cuda()}
+    t0 = time.perf_counter()
+    state, metrics = step_fn(state, batch)
+    warm = dict(loss=float(metrics['loss']),
+                grad_norm=float(metrics['grad_norm']),
+                ms=1e3 * (time.perf_counter() - t0))
+    kernels = _moe_train_kernels(attention)
+    drops = []
+    launch = mr._moe_route_cuda
+
+    def counting(h, router, k, cap, with_probs=False):
+        out = launch(h, router, k, cap, with_probs)
+        drops.append((out[2] < 0).sum())
+        return out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.values():
+        kern.launches = 0
+    steps = []
+    mr._moe_route_cuda = counting
+    try:
+        for _ in range(MOE_QLORA_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics['loss'])  # waits for the step
+            steps.append(dict(ms=1e3 * (time.perf_counter() - t0),
+                              loss=loss,
+                              grad_norm=float(metrics['grad_norm'])))
+    finally:
+        mr._moe_route_cuda = launch
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    L = config.n_layers
+    want = _moe_step_launches(L, MOE_QLORA_STEPS)
+    total_s = sum(st['ms'] for st in steps) / 1e3
+    tokens_per_s = MOE_QLORA_STEPS * batch_size * seq / total_s
+    entries = len(drops) * batch_size * seq * config.moe_top_k
+    losses = [warm['loss']] + [st['loss'] for st in steps]
+    row = dict(model='mixtral-8x7b', layers=L, base='int8', lora_rank=16,
+               seq=seq, batch=batch_size, remat=config.remat,
+               capacity_factor=config.moe_capacity_factor,
+               setup_s=setup_s, warmup=warm, steps=steps,
+               step_ms_mean=1e3 * total_s / MOE_QLORA_STEPS,
+               tokens_per_s=tokens_per_s,
+               active_params=config.num_active_params(),
+               mfu_4n_active=tokens_per_s * 4 * config.num_active_params() /
+               PEAK_BF16_FLOPS,
+               max_memory_allocated_gb=peak / 1e9, losses=losses,
+               dropped_share=int(sum(x.item() for x in drops)) / entries,
+               launches=launches, launches_expected=want, card=smi_line())
+    log('MOE_QLORA ' + json.dumps(row))
+    assert all(math.isfinite(x) for x in losses), losses
+    assert launches == want, (launches, want)
+    assert all(n > 0 for n in launches.values()), launches
+    del state, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, row=row)
+
+
+def _moe_dist_identity(L, chunks, mesh_kind):
+    """One MoE LoRA step's collectives at mixtral-8x7b under remat (L
+    layers, ``chunks`` CE chunks). ep 2 (a data group of 2): a gather of
+    each layer's dense leaves sharded over fsdp x ep (wq, wk, wv, wo,
+    router) forward and in the recompute, and of embed and head; no
+    reduce-scatter (the adapters' A factors are not sharded over ep);
+    all-reduces: the token count, the loss, the aux statistics forward,
+    in the recompute and backward, the 4 adapters, one norm group; 6 L
+    exchanges (dispatch and combine forward, recompute and backward).
+    tp 2 (a data group of 1): the dense tp identity
+    (``_tp_train_identity``) plus one *f* a layer backward for the
+    gates; no aux all-reduce and no exchange. One rank: nothing."""
+    if mesh_kind == 'ep2':
+        return dict(gathers=2 * 5 * L + 2, reduce_scatters=0,
+                    all_reduces=2 + 3 * L + 4 + 1, tp_reduces=0,
+                    all_to_alls=6 * L)
+    coll = _tp_train_identity(L, chunks, 2 if mesh_kind == 'tp2' else 1)[1]
+    if mesh_kind == 'tp2':
+        coll['tp_reduces'] += L
+    return coll
+
+
+def _moe_serve(torch, counters, dev, mesh=None, forced=None):
+    """mixtral-8x7b width at ``MOE_DIST_LAYERS`` layers (bf16, seed 0;
+    this rank's blocks over ``mesh``): ``greedy_generate``'s
+    ``TP_NEW`` tokens after a ``TP_PROMPT``-token prompt, then the
+    teacher-forced logits of ``_tp_path`` on ``forced`` (tp 1's tokens;
+    without them, these), with each of its routing calls' experts and
+    the gap between each token's k-th and (k+1)-th probability."""
+    from skypilot_torch.models import decode, llama
+    from skypilot_torch.ops import moe_route as mr
+    from skypilot_torch.parallel import sharding
+    config = llama.get_config('mixtral-8x7b', n_layers=MOE_DIST_LAYERS)
+    layout = None if mesh is None else decode.serving_layout(config, mesh)
+    params = llama.init_params(
+        config, seed=0, device=dev, window=None if layout is None
+        else sharding.window_fn(mesh, layout.params))
+    gen = torch.Generator().manual_seed(TP_SEED)
+    prompt = torch.randint(0, config.vocab_size, (1, TP_PROMPT),
+                           generator=gen).to(dev)
+    max_seq = TP_PROMPT + TP_NEW
+    with torch.inference_mode():
+        ids, ms, launches, coll = _tp_counted(
+            torch, counters, lambda: decode.greedy_generate(
+                params, prompt, config, TP_NEW, max_seq=max_seq,
+                layout=layout))
+    ids = ids[0].cpu().tolist()
+    routes, route = [], mr.moe_route
+
+    def recording(h, router, k, cap, with_f32=False):
+        out = route(h, router, k, cap, with_f32)
+        probs = torch.softmax(h.float() @ router.float(), -1)
+        routes.append(dict(idx=out[0].sort(-1).values.cpu(),
+                           gap=_near_ties(torch, probs, k)[1].cpu()))
+        return out
+    mr.moe_route = recording
+    try:
+        rows = _tp_path(torch, params, prompt, config,
+                        ids if forced is None else forced, max_seq, layout)
+    finally:
+        mr.moe_route = route
+    out = dict(window=((0, config.vocab_size) if layout is None
+                       else layout.vocab_window(config.vocab_size)),
+               rows=rows, routes=routes, ids=ids, ms=ms, launches=launches,
+               collectives=coll)
+    del params
+    return out
+
+
+def _moe_rank_cases(torch, rank, world, dev, forced):
+    """One of two gloo ranks sharing the card: whether gloo carries
+    ``all_to_all_single`` on CUDA tensors (a probe exchange, checked);
+    if it does, the LoRA step at ep 2; the LoRA step at tp 2; the tp 2
+    forward teacher-forced on tp 1's ``forced`` tokens."""
+    import gc
+
+    import torch.distributed as dist
+
+    from skypilot_torch.ops import attention
+    from skypilot_torch.ops import decode_attention as da
+    from skypilot_torch.parallel import mesh as mesh_lib
+    counters = dict(_tp_counters(attention, da),
+                    **_moe_train_kernels(attention))
+    x = torch.arange(4, dtype=torch.float32, device=dev) + 10 * rank
+    out = torch.empty_like(x)
+    try:
+        dist.all_to_all_single(out, x)
+        probe = dict(ok=out.tolist() == [0.0 + 2 * rank, 1.0 + 2 * rank,
+                                         10.0 + 2 * rank, 11.0 + 2 * rank])
+    except RuntimeError as e:  # the capability probe, reported as such
+        probe = dict(ok=False, error=str(e)[:300])
+    res = {'device': str(dev), 'a2a_probe': probe}
+    train = dict(model='mixtral-8x7b', layers=MOE_DIST_LAYERS,
+                 batch_size=MOE_DIST_BATCH)
+    if probe['ok']:
+        res['ep2'] = _tp_train(torch, counters, False, dev, mesh_lib.make_mesh(
+            mesh_lib.MeshConfig(ep=world)), **train)
+        gc.collect()
+        torch.cuda.empty_cache()
+    tp = mesh_lib.make_mesh(mesh_lib.MeshConfig(tp=world))
+    res['tp2'] = _tp_train(torch, counters, False, dev, tp, **train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res['serve'] = _moe_serve(torch, counters, dev, tp, forced)
+    return res
+
+
+def _moe_dist(torch, attention, dev='cuda'):
+    """(d) ep 2 and tp 2 on two gloo ranks sharing the card
+    (``_moe_rank_cases``) against one rank here: each LoRA step's loss,
+    grad norm and updated adapters within ``TRAIN_TOL``, its launches
+    (``_moe_step_launches``) and collectives (``_moe_dist_identity``);
+    the tp 2 forward's teacher-forced logits within
+    ``TP_LOGIT_REL_TOL`` of tp 1's on the steps that routed alike. Where gloo refuses the exchange on
+    CUDA tensors, a ``MOE_EP`` line says so and ep runs over NCCL on
+    four cards only (``tp_cards.py --moe``)."""
+    import gc
+
+    from skypilot_torch.ops import decode_attention as da
+    smi = smi_line()
+    counters = dict(_tp_counters(attention, da),
+                    **_moe_train_kernels(attention))
+    device = torch.device('cuda', 0) if dev == 'cuda' else torch.device(dev)
+    train = dict(model='mixtral-8x7b', layers=MOE_DIST_LAYERS,
+                 batch_size=MOE_DIST_BATCH)
+    ref = _tp_train(torch, counters, False, device, **train)
+    assert ref['launches'] == dict({n: 0 for n in counters},
+                                   **_moe_step_launches(ref['layers'])), \
+        ref['launches']
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = _moe_serve(torch, counters, device)
+    assert serve['rows'].argmax(-1).tolist() == serve['ids']
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, spawn_s = _tp_spawn('gloo', 2, dev, target=_moe_rank_cases,
+                               args=(serve['ids'],))
+    probe = [r['a2a_probe'] for r in ranks]
+    L = ref['layers']
+    total = {}
+    for case in ('ep2', 'tp2'):
+        if case not in ranks[0]:
+            log('MOE_EP ' + json.dumps(dict(
+                card=smi, backend='gloo', a2a_probe=probe,
+                skipped='gloo does not carry all_to_all_single on CUDA '
+                        'tensors: ep runs over NCCL on four cards '
+                        '(tp_cards.py --moe)')))
+            continue
+        cases = [r[case] for r in ranks]
+        firsts = [c['first'] for c in cases]
+        assert all(f == firsts[0] for f in firsts), firsts
+        loss_rel = abs(firsts[0]['loss'] - ref['first']['loss']) / abs(
+            ref['first']['loss'])
+        gn_rel = abs(firsts[0]['grad_norm'] - ref['first']['grad_norm']) / \
+            abs(ref['first']['grad_norm'])
+        adapters = {}
+        for k, (_, whole) in ref['adapters'].items():
+            got = _tp_assemble(torch, [c['adapters'][k] for c in cases])
+            adapters[k] = float((got - whole).abs().max()) / float(
+                whole.abs().max())
+        want_l = dict({n: 0 for n in counters}, **_moe_step_launches(L))
+        want_c = _moe_dist_identity(L, ref['chunks'], case)
+        row = dict(card=smi, backend='gloo', world_size=2, mesh=case,
+                   model='mixtral-8x7b', layers=L, seq=TP_SEQ,
+                   batch=MOE_DIST_BATCH, lora_rank=TP_RANK,
+                   loss=[firsts[0]['loss'], ref['first']['loss']],
+                   grad_norm=[firsts[0]['grad_norm'],
+                              ref['first']['grad_norm']],
+                   loss_rel_err=loss_rel, grad_norm_rel_err=gn_rel,
+                   adapter_rel_err=adapters, tol=TRAIN_TOL,
+                   step_ms=[c['ms'] for c in cases],
+                   step_ms_one_rank=ref['ms'], a2a_probe=probe,
+                   launches=[c['launches'] for c in cases],
+                   launches_expected=want_l,
+                   collectives=[c['collectives'] for c in cases],
+                   collectives_expected=want_c, ranks_s=spawn_s)
+        log(f'MOE_{case[:2].upper()} ' + json.dumps(row))
+        assert loss_rel <= TRAIN_TOL['loss'], row
+        assert gn_rel <= TRAIN_TOL['grad'], row
+        assert all(v <= TRAIN_TOL['grad'] for v in adapters.values()), row
+        for c in cases:
+            assert c['launches'] == want_l, (c['launches'], want_l)
+            assert c['collectives'] == want_c, (c['collectives'], want_c)
+            for n, v in c['launches'].items():
+                total[n] = total.get(n, 0) + v
+    parts = [r['serve'] for r in ranks]
+    cmp = _tp_compare(torch, serve['rows'], _tp_logits(
+        torch, [(s['window'], s['rows']) for s in parts]), serve['ids'],
+        parts[0]['ids'])
+    flip = cmp['first_difference']
+    # A step whose forward sent a token to other experts than tp 1 did
+    # (at a near-tie the row-parallel sums' rounding moves) computes
+    # another function: its logits are printed, not held to the bound.
+    assert len(serve['routes']) == len(parts[0]['routes'])
+    flipped, gaps = set(), []
+    for i, (a, b) in enumerate(zip(serve['routes'], parts[0]['routes'])):
+        moved = (a['idx'] != b['idx']).any(-1)
+        if bool(moved.any()):
+            flipped.add(i // MOE_DIST_LAYERS)
+            gaps += a['gap'][moved].tolist()
+    kept = [r for i, r in enumerate(cmp['step_rel_err']) if i not in flipped]
+    row = dict(card=smi, backend='gloo', world_size=2, model='mixtral-8x7b',
+               layers=MOE_DIST_LAYERS, prompt=TP_PROMPT, new_tokens=TP_NEW,
+               max_step_rel_err=max(kept), rel_tol=TP_LOGIT_REL_TOL,
+               step_rel_err=cmp['step_rel_err'],
+               steps_routed_differently=sorted(flipped), flip_gaps=gaps,
+               flip_gap_tol=MOE_FLIP_GAP, ids_equal=cmp['ids_equal'],
+               first_difference=flip,
+               generate_ms=[s['ms'] for s in parts],
+               generate_ms_tp1=serve['ms'],
+               tp_reduces=[s['collectives']['tp_reduces'] for s in parts])
+    log('MOE_TP_SERVE ' + json.dumps(row))
+    assert max(kept) <= TP_LOGIT_REL_TOL, row
+    assert all(g <= MOE_FLIP_GAP for g in gaps), row
+    assert len(flipped) <= len(cmp['step_rel_err']) // 4, row
+    assert all(s['ids'] == parts[0]['ids'] for s in parts)
+    assert flip is None or (flip['tp1_top2_margin'] <=
+                            flip['allowed_margin']), row
+    return dict(launches=total, a2a_probe=probe)
+
+
+def moe_train_phase(torch, attention):
+    """MoE training on the card: (a) the router's kernel pair at training
+    shapes (``_moe_route_train_line``), (b) mixtral-8x7b numerics against
+    f32 on the CPU (``_moe_train_numerics``), (c) the full-depth int8
+    QLoRA step, the main path (``_moe_qlora``), (d) ep 2 and tp 2 on two
+    gloo ranks (``_moe_dist``)."""
+    from skypilot_torch.ops import moe_route as mr
+    gen = torch.Generator(device='cuda').manual_seed(41)
+    route = _moe_route_train_line(torch, mr, gen)
+    numerics = _moe_train_numerics(torch)
+    qlora = _moe_qlora(torch, attention)
+    dist_ = _moe_dist(torch, attention)
+    return dict(route=route, numerics=numerics, qlora=qlora['row'],
+                launches=qlora['launches'], dist=dist_)
+
+
 def _matmul_entry(line):
     """The kernels line's numbers of the invariant GEMM at a decode step
     (M = 8) of one shape: kernel, cuBLAS (the plain version is the
@@ -7755,6 +8383,15 @@ def prefill_smem_plan_check(_build, da):
         bad.append(dict(largest=most, limit=da.DECODE_MAX_SMEM))
     return dict(smem_plan_checked=checked, smem_plan_mismatches=bad,
                 largest_smem=most)
+
+
+def timed(phase, *args):
+    """``phase(*args)``, with a ``PHASE_S`` line of its seconds."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log('PHASE_S ' + json.dumps(dict(phase=phase.__name__,
+                                     s=time.perf_counter() - t0)))
+    return out
 
 
 def main() -> int:
@@ -7874,53 +8511,55 @@ def main() -> int:
         f'expected), spilling: {pre_spills}')
     assert not pre_plan['smem_plan_mismatches'], pre_plan
     if 'k1' in phases:
-        k1 = k1_phase(torch, F, attention)
+        k1 = timed(k1_phase, torch, F, attention)
     if 'k4' in phases:
-        k4 = k4_phase(torch, F, da)
+        k4 = timed(k4_phase, torch, F, da)
     if 'e2e' in phases:
-        e2e_k5f = e2e_phase(torch)
+        e2e_k5f = timed(e2e_phase, torch)
     if 'serve' in phases:
-        k1_n, k4_n, k5f_n = serve_phase(torch, attention, da)
+        k1_n, k4_n, k5f_n = timed(serve_phase, torch, attention, da)
     if 'k1r' in phases:
-        k1r = k1r_phase(torch, F, attention)
+        k1r = timed(k1r_phase, torch, F, attention)
     if 'bwd' in phases:
-        prep, k2, k3 = bwd_phase(torch, F, attention)
+        prep, k2, k3 = timed(bwd_phase, torch, F, attention)
     if 'train' in phases:
-        train = train_phase(torch, attention)
+        train = timed(train_phase, torch, attention)
     if 'k5' in phases:
-        k5 = k5_phase(torch, da)
+        k5 = timed(k5_phase, torch, da)
     if 'k5f' in phases:
-        k5f = k5f_phase(torch, da)
+        k5f = timed(k5f_phase, torch, da)
     if 'k4p' in phases:
-        k4p = k4p_phase(torch, F, da)
+        k4p = timed(k4p_phase, torch, F, da)
     if 'k4pre' in phases:
-        pre, pre_q8 = k4pre_phase(torch, da)
+        pre, pre_q8 = timed(k4pre_phase, torch, da)
     if 'invariance' in phases:
-        inv = invariance_phase(torch, da)
+        inv = timed(invariance_phase, torch, da)
     if 'engine' in phases:
-        eng = engine_phase(torch, attention, da)
+        eng = timed(engine_phase, torch, attention, da)
     if 'sampling' in phases:
-        smp = sampling_phase(torch, attention, da)
+        smp = timed(sampling_phase, torch, attention, da)
     if 'adapters' in phases:
-        adp = adapters_phase(torch, attention, da)
+        adp = timed(adapters_phase, torch, attention, da)
     if 'rows' in phases:
-        rows_n = rows_phase(torch, da)
+        rows_n = timed(rows_phase, torch, da)
     if 'k6' in phases:
-        k6 = k6_phase(torch, F, attention)
+        k6 = timed(k6_phase, torch, F, attention)
     if 'int8k' in phases:
-        int8k = int8k_phase(torch, F, da)
+        int8k = timed(int8k_phase, torch, F, da)
     if 'int8' in phases:
-        int8 = int8_phase(torch, attention, da)
+        int8 = timed(int8_phase, torch, attention, da)
     if 'qlora' in phases:
-        qlora = qlora_phase(torch, attention)
+        qlora = timed(qlora_phase, torch, attention)
     if 'ckpt' in phases:
-        ckpt = ckpt_phase(torch, attention)
+        ckpt = timed(ckpt_phase, torch, attention)
     if 'moe' in phases:
-        moe = moe_phase(torch, attention, da)
+        moe = timed(moe_phase, torch, attention, da)
+    if 'moe_train' in phases:
+        mt = timed(moe_train_phase, torch, attention)
     if 'fsdp' in phases:
-        fsdp = fsdp_phase(torch, attention)
+        fsdp = timed(fsdp_phase, torch, attention)
     if 'tp' in phases:
-        tp = tp_phase(torch, attention, da)
+        tp = timed(tp_phase, torch, attention, da)
     assert not bwd_spills, f'the backward kernels spill: {bwd_spills}'
     assert not row_spills, f'the norm or nucleus kernels spill: {row_spills}'
     assert len(k4_entries) == 32 and not k4_spills, (
@@ -7933,6 +8572,8 @@ def main() -> int:
     rep = int8['replica']
     off = int8['engine_off']['launches']
     moe_n = moe['launches']
+    mt_n = mt['launches']   # the full-depth MoE QLoRA step's
+    mt_d = mt['dist']['launches']   # both gloo ranks' ep 2 and tp 2 steps
     tp_n = tp['launches']   # both ranks of each backend's tp run
     k1_launches = dict(
         serve=k1_n, sampled=smp['flash_fwd'],
@@ -7940,6 +8581,8 @@ def main() -> int:
         qlora_rope=qlora['launches']['flash_fwd_rope'],
         fsdp_rope=fsdp['launches']['flash_fwd_rope'],
         ckpt_rope=ckpt['launches']['flash_fwd_rope'],
+        moe_train_rope=mt_n['flash_fwd_rope'],
+        moe_dist_rope=mt_d.get('flash_fwd_rope', 0),
         tp=tp_n['flash_fwd'], tp_rope=tp_n['flash_fwd_rope'],
         serve_8b_int8=s8['int8']['flash_fwd'],
         serve_8b_bf16=s8['bf16']['flash_fwd'],
@@ -7982,12 +8625,15 @@ def main() -> int:
                        qlora['launches']['flash_bwd_prep'] +
                        ckpt['launches']['flash_bwd_prep'] +
                        fsdp['launches']['flash_bwd_prep'] +
-                       tp_n['flash_bwd_prep']),
+                       tp_n['flash_bwd_prep'] + mt_n['flash_bwd_prep'] +
+                       mt_d.get('flash_bwd_prep', 0)),
              launches_train=train['launches']['flash_bwd_prep'],
              launches_qlora=qlora['launches']['flash_bwd_prep'],
              launches_ckpt=ckpt['launches']['flash_bwd_prep'],
              launches_fsdp=fsdp['launches']['flash_bwd_prep'],
-             launches_tp=tp_n['flash_bwd_prep'], **prep),
+             launches_tp=tp_n['flash_bwd_prep'],
+             launches_moe_train=mt_n['flash_bwd_prep'],
+             launches_moe_dist=mt_d.get('flash_bwd_prep', 0), **prep),
         dict(name='flash_bwd_dq', route='cuda',
              source='skypilot_torch/csrc/flash_bwd.cu',
              replaces='skypilot_tpu/ops/attention.py:263',
@@ -7995,12 +8641,15 @@ def main() -> int:
                        qlora['launches']['flash_bwd_dq'] +
                        ckpt['launches']['flash_bwd_dq'] +
                        fsdp['launches']['flash_bwd_dq'] +
-                       tp_n['flash_bwd_dq']),
+                       tp_n['flash_bwd_dq'] + mt_n['flash_bwd_dq'] +
+                       mt_d.get('flash_bwd_dq', 0)),
              launches_train=train['launches']['flash_bwd_dq'],
              launches_qlora=qlora['launches']['flash_bwd_dq'],
              launches_ckpt=ckpt['launches']['flash_bwd_dq'],
              launches_fsdp=fsdp['launches']['flash_bwd_dq'],
-             launches_tp=tp_n['flash_bwd_dq'], **k2),
+             launches_tp=tp_n['flash_bwd_dq'],
+             launches_moe_train=mt_n['flash_bwd_dq'],
+             launches_moe_dist=mt_d.get('flash_bwd_dq', 0), **k2),
         dict(name='flash_bwd_dkv', route='cuda',
              source='skypilot_torch/csrc/flash_bwd.cu',
              replaces='skypilot_tpu/ops/attention.py:331',
@@ -8008,12 +8657,15 @@ def main() -> int:
                        qlora['launches']['flash_bwd_dkv'] +
                        ckpt['launches']['flash_bwd_dkv'] +
                        fsdp['launches']['flash_bwd_dkv'] +
-                       tp_n['flash_bwd_dkv']),
+                       tp_n['flash_bwd_dkv'] + mt_n['flash_bwd_dkv'] +
+                       mt_d.get('flash_bwd_dkv', 0)),
              launches_train=train['launches']['flash_bwd_dkv'],
              launches_qlora=qlora['launches']['flash_bwd_dkv'],
              launches_ckpt=ckpt['launches']['flash_bwd_dkv'],
              launches_fsdp=fsdp['launches']['flash_bwd_dkv'],
-             launches_tp=tp_n['flash_bwd_dkv'], **k3),
+             launches_tp=tp_n['flash_bwd_dkv'],
+             launches_moe_train=mt_n['flash_bwd_dkv'],
+             launches_moe_dist=mt_d.get('flash_bwd_dkv', 0), **k3),
         dict(name='decode_attention', route='cuda',
              source='skypilot_torch/csrc/decode_attention.cu',
              replaces='skypilot_tpu/ops/decode_attention.py:123',
@@ -8151,10 +8803,28 @@ def main() -> int:
         dict(name='moe_route', route='cuda',
              source='skypilot_torch/csrc/moe_route.cu',
              replaces='skypilot_tpu/models/llama.py:406',
-             launches=moe_n['moe_route'], launches_moe=moe_n['moe_route'],
+             launches=(moe_n['moe_route'] + mt_n['moe_route'] +
+                       mt_d.get('moe_route', 0)),
+             launches_moe=moe_n['moe_route'],
+             launches_moe_train=mt_n['moe_route'],
+             launches_moe_dist=mt_d.get('moe_route', 0),
              **{k: moe['route'][k] for k in (
                  'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
-                 'library_ms')}, shapes=moe['route']['shapes']),
+                 'library_ms')}, shapes=moe['route']['shapes'],
+             training=mt['route']['forward']),
+        # Not a port of a TPU kernel: the backward of the training router
+        # (JAX differentiates its XLA router by autograd); launches from
+        # the full-depth mixtral-8x7b QLoRA steps and the ep 2 / tp 2
+        # ranks' steps.
+        dict(name='moe_route_bwd', route='cuda',
+             source='skypilot_torch/csrc/moe_route.cu',
+             replaces='skypilot_tpu/models/llama.py:406',
+             launches=mt_n['moe_route_bwd'] + mt_d.get('moe_route_bwd', 0),
+             launches_moe_train=mt_n['moe_route_bwd'],
+             launches_moe_dist=mt_d.get('moe_route_bwd', 0),
+             **{k: mt['route']['backward'][k] for k in (
+                 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+                 'library_ms')}),
         # Its main path is its entry point, bench_main().
         dict(name='packed_flash_fwd', route='cuda',
              source='skypilot_torch/csrc/attention_packed.cu',

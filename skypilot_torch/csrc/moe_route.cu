@@ -6,8 +6,11 @@
 //   gate_j = p[idx_j] / max(sum_j p[idx_j], 1e-9), rounded to bf16
 //   slot = the (token, choice)'s place in expert idx's buffer of its
 //          routing group (a row g of h), token-major, or -1 past cap
+//   probs = p, f32, where the caller asks for it (the training forward;
+//          the serving calls pass null and write nothing more)
 // (skypilot_tpu/models/llama.py _moe_mlp's router and capacity, whose
-// plain form, ops/moe_route._moe_route_plain, runs on the CPU).
+// plain form, ops/moe_route._moe_route_plain, runs on the CPU), and the
+// router's backward (moe_route_bwd, at the end of this file).
 //
 // Not a port of a TPU kernel: the JAX package routes with plain XLA
 // (an f32 dot, softmax, lax.top_k and a cumsum). It is a repair. The
@@ -91,7 +94,8 @@ __global__ void __launch_bounds__(kThreads)
                  const __nv_bfloat16* __restrict__ router,
                  int* __restrict__ idx, __nv_bfloat16* __restrict__ gate,
                  float* __restrict__ gate_f32, int* __restrict__ slot,
-                 int* __restrict__ counters, int T, int D, int k, int cap) {
+                 float* __restrict__ probs, int* __restrict__ counters,
+                 int T, int D, int k, int cap) {
   __shared__ float part[kWarps][E];
   const int g = blockIdx.y;
   const int t = blockIdx.x;
@@ -143,6 +147,10 @@ __global__ void __launch_bounds__(kThreads)
     }
 #pragma unroll
     for (int e = 0; e < E; ++e) p[e] = p[e] / s;
+    if (probs != nullptr) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) probs[tok * E + e] = p[e];
+    }
     unsigned used = 0;
     int pick[kMaxK];
     float val[kMaxK];
@@ -208,14 +216,15 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int E>
 int launch(const void* h, const void* router, void* idx, void* gate,
-           void* gate_f32, void* slot, void* counters, int G, int T, int D,
-           int k, int cap, cudaStream_t stream) {
+           void* gate_f32, void* slot, void* probs, void* counters, int G,
+           int T, int D, int k, int cap, cudaStream_t stream) {
   const dim3 grid(T, G);
   route_kernel<E><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(h),
       static_cast<const __nv_bfloat16*>(router), static_cast<int*>(idx),
       static_cast<__nv_bfloat16*>(gate), static_cast<float*>(gate_f32),
-      static_cast<int*>(slot), static_cast<int*>(counters), T, D, k, cap);
+      static_cast<int*>(slot), static_cast<float*>(probs),
+      static_cast<int*>(counters), T, D, k, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -223,30 +232,216 @@ int launch(const void* h, const void* router, void* idx, void* gate,
 
 // h [G, T, D] bf16, router [D, E] bf16 (E in 2, 4, 8, 16; 16-byte
 // aligned); outputs [G, T, k]: idx int32, gate bf16,
-// gate_f32 (f32 before the rounding), slot int32; counters:
-// G int32 zeros, left zero. Returns a cudaError_t.
+// gate_f32 (f32 before the rounding), slot int32; probs [G, T, E] f32
+// or null; counters: G int32 zeros, left zero. Returns a cudaError_t.
 extern "C" int skypilot_moe_route(const void* h, const void* router,
                                   void* idx, void* gate, void* gate_f32,
-                                  void* slot, void* counters, int G, int T,
-                                  int D, int E, int k, int cap,
-                                  void* stream) {
+                                  void* slot, void* probs, void* counters,
+                                  int G, int T, int D, int E, int k,
+                                  int cap, void* stream) {
   if (G <= 0 || T <= 0) return 0;
   if (D < 1 || k < 1 || k > kMaxK || k > E || cap < 1 || G > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (E) {
     case 2:
-      return launch<2>(h, router, idx, gate, gate_f32, slot, counters, G, T,
-                       D, k, cap, s);
+      return launch<2>(h, router, idx, gate, gate_f32, slot, probs,
+                       counters, G, T, D, k, cap, s);
     case 4:
-      return launch<4>(h, router, idx, gate, gate_f32, slot, counters, G, T,
-                       D, k, cap, s);
+      return launch<4>(h, router, idx, gate, gate_f32, slot, probs,
+                       counters, G, T, D, k, cap, s);
     case 8:
-      return launch<8>(h, router, idx, gate, gate_f32, slot, counters, G, T,
-                       D, k, cap, s);
+      return launch<8>(h, router, idx, gate, gate_f32, slot, probs,
+                       counters, G, T, D, k, cap, s);
     case 16:
-      return launch<16>(h, router, idx, gate, gate_f32, slot, counters, G,
-                        T, D, k, cap, s);
+      return launch<16>(h, router, idx, gate, gate_f32, slot, probs,
+                        counters, G, T, D, k, cap, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+namespace {
+
+// ---------------------------------------------------------------------
+// moe_route_bwd: the router's backward for the training forward, which
+// routes with the kernel above (its probs output). Per token n of the
+// N = G * T tokens, from p [N, E] f32, idx [N, k], and the gradients of
+// the f32 gates dgate [N, k] and of the probabilities dprobs [N, E] (the
+// aux loss's; null reads as zeros), with s = sum_j p[idx_j] (the
+// forward's max(s, 1e-9) never binds: s >= p_max >= 1 / E):
+//   dp_e = dprobs_e + sum_j [idx_j = e] dgate_j / s
+//          - [e in top k] sum_j dgate_j p[idx_j] / s^2
+//   dlogits_e = p_e (dp_e - sum_m p_m dp_m)          (softmax's vjp)
+//   dh[n, d] = sum_e dlogits_e router[d, e], f32 in ascending e, rounded
+//              to bf16 (h's gradient through the f32 logits)
+// The router's own gradient, h^T @ dlogits, is a reduction over every
+// token: a plain product after this kernel (ops/moe_route.py).
+//
+// Not a port of a TPU kernel: JAX differentiates its XLA router
+// (skypilot_tpu/models/llama.py:406-426) by autograd. The kernel is the
+// backward of the forward kernel above, so nothing of the plain chain
+// (f32 matmul, softmax, top_k, gather, normalize) runs on the card.
+//
+// Bound: bytes at E 8. dh is [N, D] bf16 (64 MB at N 8192, D 4096: 20
+// us at 3.35 TB/s); the rest is N (2 E + 2 k) 4 bytes in and N E 4 out.
+// Its 2 N D E f32 flops take 8 us at 67 TFLOP/s. Design: block (r, c)
+// owns columns [1024 c, 1024 c + 1024) of tokens [16 r, 16 r + 16):
+// threads t < 16 first take token t's dlogits into shared memory (column
+// block 0 also writes them out), then each thread keeps its four router
+// rows (4 E floats) in registers for the block's tokens and stores four
+// dh values (8 bytes) a token, a warp's stores 256 contiguous bytes. The
+// router (64 KB at E 8) is read once a block, from L2.
+
+constexpr int kBwdTok = 16;   // tokens a block
+constexpr int kBwdCols = 4;   // dh columns a thread
+
+template <int E>
+__global__ void __launch_bounds__(kThreads)
+    route_bwd_kernel(const float* __restrict__ probs,
+                     const int* __restrict__ idx,
+                     const float* __restrict__ dgate,
+                     const float* __restrict__ dprobs,
+                     const __nv_bfloat16* __restrict__ router,
+                     float* __restrict__ dlogits,
+                     __nv_bfloat16* __restrict__ dh, long long N, int D,
+                     int k) {
+  __shared__ float sdl[kBwdTok][E];
+  const long long n0 = static_cast<long long>(blockIdx.x) * kBwdTok;
+  if (threadIdx.x < kBwdTok) {
+    const long long n = n0 + threadIdx.x;
+    float dl[E];
+    if (n < N) {
+      float p[E], dp[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        p[e] = probs[n * E + e];
+        dp[e] = dprobs != nullptr ? dprobs[n * E + e] : 0.f;
+      }
+      int pick[kMaxK];
+      float dg[kMaxK];
+      float s = 0.f, gp = 0.f;
+#pragma unroll
+      for (int j = 0; j < kMaxK; ++j) {
+        if (j < k) {
+          pick[j] = idx[n * k + j];
+          dg[j] = dgate[n * k + j];
+          float pj = 0.f;
+#pragma unroll
+          for (int e = 0; e < E; ++e) pj = pick[j] == e ? p[e] : pj;
+          s += pj;
+          gp = fmaf(dg[j], pj, gp);
+        }
+      }
+      const float inv = 1.f / s;
+      const float sub = gp * inv * inv;
+#pragma unroll
+      for (int j = 0; j < kMaxK; ++j) {
+        if (j < k) {
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            if (pick[j] == e) dp[e] += dg[j] * inv - sub;
+        }
+      }
+      float dot = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) dot = fmaf(p[e], dp[e], dot);
+#pragma unroll
+      for (int e = 0; e < E; ++e) dl[e] = p[e] * (dp[e] - dot);
+      if (blockIdx.y == 0) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) dlogits[n * E + e] = dl[e];
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) dl[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) sdl[threadIdx.x][e] = dl[e];
+  }
+  __syncthreads();
+  const int d0 = (blockIdx.y * kThreads + threadIdx.x) * kBwdCols;
+  if (d0 >= D) return;
+  float r[kBwdCols][E];
+  {
+    // Rows d0 .. d0 + 3: 4 E contiguous bf16 (8 E bytes, a multiple of
+    // 16 at a 16-byte aligned router), as E / 2 vector loads.
+    const uint4* v = reinterpret_cast<const uint4*>(
+        router + static_cast<long long>(d0) * E);
+    float* flat = &r[0][0];
+#pragma unroll
+    for (int i = 0; i < E / 2; ++i) {
+      const uint4 w = __ldg(v + i);
+      unpack(w.x, flat + 8 * i);
+      unpack(w.y, flat + 8 * i + 2);
+      unpack(w.z, flat + 8 * i + 4);
+      unpack(w.w, flat + 8 * i + 6);
+    }
+  }
+  const long long last = N - n0 < kBwdTok ? N - n0 : kBwdTok;
+  for (int t = 0; t < last; ++t) {
+    float acc[kBwdCols];
+#pragma unroll
+    for (int c = 0; c < kBwdCols; ++c) {
+      acc[c] = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[c] = fmaf(sdl[t][e], r[c][e], acc[c]);
+    }
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(acc[0], acc[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(acc[2], acc[3]);
+    uint2 out;
+    out.x = *reinterpret_cast<const uint32_t*>(&lo);
+    out.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(dh + (n0 + t) * D + d0) = out;
+  }
+}
+
+template <int E>
+int launch_bwd(const void* probs, const void* idx, const void* dgate,
+               const void* dprobs, const void* router, void* dlogits,
+               void* dh, long long N, int D, int k, cudaStream_t stream) {
+  const int per_block = kThreads * kBwdCols;
+  const dim3 grid(static_cast<unsigned>((N + kBwdTok - 1) / kBwdTok),
+                  (D + per_block - 1) / per_block);
+  route_bwd_kernel<E><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(probs), static_cast<const int*>(idx),
+      static_cast<const float*>(dgate), static_cast<const float*>(dprobs),
+      static_cast<const __nv_bfloat16*>(router),
+      static_cast<float*>(dlogits), static_cast<__nv_bfloat16*>(dh), N, D,
+      k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// probs [N, E] f32, idx [N, k] int32, dgate [N, k] f32, dprobs [N, E]
+// f32 or null, router [D, E] bf16 (E in 2, 4, 8, 16; 16-byte aligned;
+// D a multiple of 4); outputs dlogits [N, E] f32 and dh [N, D] bf16.
+// Returns a cudaError_t.
+extern "C" int skypilot_moe_route_bwd(const void* probs, const void* idx,
+                                      const void* dgate, const void* dprobs,
+                                      const void* router, void* dlogits,
+                                      void* dh, long long N, int D, int E,
+                                      int k, void* stream) {
+  if (N <= 0) return 0;
+  if (D < 4 || D % 4 || k < 1 || k > kMaxK || k > E ||
+      (N + kBwdTok - 1) / kBwdTok > 2147483647LL ||
+      (D + kThreads * kBwdCols - 1) / (kThreads * kBwdCols) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (E) {
+    case 2:
+      return launch_bwd<2>(probs, idx, dgate, dprobs, router, dlogits, dh,
+                           N, D, k, s);
+    case 4:
+      return launch_bwd<4>(probs, idx, dgate, dprobs, router, dlogits, dh,
+                           N, D, k, s);
+    case 8:
+      return launch_bwd<8>(probs, idx, dgate, dprobs, router, dlogits, dh,
+                           N, D, k, s);
+    case 16:
+      return launch_bwd<16>(probs, idx, dgate, dprobs, router, dlogits, dh,
+                            N, D, k, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -198,7 +198,7 @@ def _expert(w, e: int):
 
 
 def moe_mlp(config: llama.LlamaConfig, h: torch.Tensor, lp: Params,
-            matmul=mi.matmul) -> torch.Tensor:
+            matmul=mi.matmul, layout=None) -> torch.Tensor:
     """The routed expert MLP of every serving forward: h [B, T, D] ->
     [B, T, D], ``llama._moe_mlp``'s output without its aux. Each row of h
     is one routing group of capacity ``llama.moe_capacity(config, T)``, as
@@ -216,7 +216,11 @@ def moe_mlp(config: llama.LlamaConfig, h: torch.Tensor, lp: Params,
     adds the k products ``expert output * gate`` in f32 in ascending
     choice order and rounds once: each product is exact in f32, so for
     k = 2 the sum is the JAX einsum's. The dense ``[E, B * C]`` form keeps
-    the launch count fixed and needs no host sync on expert counts."""
+    the launch count fixed and needs no host sync on expert counts.
+    ``layout`` (``tp`` > 1): the expert stacks are the rank's ffn columns
+    of gate and up and rows of down; the router runs whole on every rank,
+    and the combined output is summed over ``tp`` once
+    (``layout.reduce_from_tp``)."""
     b, t, d = h.shape
     n_exp, k = config.n_experts, config.moe_top_k
     cap = llama.moe_capacity(config, t)
@@ -239,7 +243,8 @@ def moe_mlp(config: llama.LlamaConfig, h: torch.Tensor, lp: Params,
     acc = picked[:, :, 0].float() * gate[..., :1].float()
     for j in range(1, k):
         acc = acc + picked[:, :, j].float() * gate[..., j:j + 1].float()
-    return acc.to(h.dtype)
+    acc = acc.to(h.dtype)
+    return acc if layout is None else layout.reduce_from_tp(acc)
 
 
 def attn_out_and_mlp(config: llama.LlamaConfig, x: torch.Tensor,
@@ -261,7 +266,7 @@ def attn_out_and_mlp(config: llama.LlamaConfig, x: torch.Tensor,
                            lp['mlp_norm'], config.norm_eps,
                            config.norm_offset)
     if config.n_experts:
-        return x, moe_mlp(config, h, lp, matmul)
+        return x, moe_mlp(config, h, lp, matmul, layout)
     gate = llama.mlp_act(config)(
         matmul(h, lp['w_gate']).float()).to(h.dtype)
     up = matmul(h, lp['w_up'])

@@ -14,9 +14,9 @@ matmul weight and the LM head may be an int8 ``{'q', 's'}`` pair
 a LoRA step runs over an int8 frozen base (QLoRA). MoE configs
 (``n_experts > 0``) replace every layer's MLP with the JAX package's
 top-k routed expert MLP (``_moe_mlp``: static per-row capacity, the
-Switch aux loss), on the CPU: the router has no backward kernel yet, so
-MoE training on a CUDA device raises (ROADMAP.md, "MoE training on the
-card"). MoE serving runs ``models/decode.moe_mlp``.
+Switch aux loss over the global batch), routed on the card by the
+``moe_route`` kernels (``ops/moe_route.route_for_training``), its experts
+sharded over ``ep``. MoE serving runs ``models/decode.moe_mlp``.
 
 With a ``layout`` (``parallel/sharding.Layout``) the params are a
 rank's blocks on a mesh: each layer's dims sharded over the data axes
@@ -476,40 +476,95 @@ def expert_einsum(subscript: str, x: torch.Tensor, w) -> torch.Tensor:
     return torch.einsum(subscript, x, w)
 
 
-def _moe_mlp(config: LlamaConfig, h: torch.Tensor, layer_params: Params):
-    """The top-k routed expert MLP of the JAX ``_moe_mlp``, in its
-    static-capacity one-hot form: h [B, T, D] -> (out [B, T, D], the
-    Switch aux loss f32). Each batch row is a routing group with
-    per-expert capacity ``moe_capacity(config, T)``; (token, choice)
-    slots go token-major, so earlier tokens win, and overflow is dropped
-    (the residual passes). The f32 router, the gates rounded to h's dtype
-    before the combine, and the dispatch/combine einsums are JAX's; the
-    gates and the aux carry gradients to h and the router. The serving
-    forwards route with ``ops/moe_route`` and run the experts on the
-    invariant GEMM instead (``models/decode.moe_mlp``)."""
-    b, t, _ = h.shape
+def _moe_aux(config: LlamaConfig, idx: torch.Tensor, probs: torch.Tensor,
+             layout=None) -> torch.Tensor:
+    """The Switch aux loss of JAX's ``_moe_mlp``: ``E * sum(frac * pm)``,
+    ``frac`` the share of (token, choice) entries each expert took and
+    ``pm`` its mean probability, both means over the GLOBAL batch.
+
+    With a ``layout`` whose data group holds n > 1 ranks, each rank sums
+    its [E] counts and probabilities and the two are summed over the data
+    axes in one all-reduce whose backward sums the gradient too
+    (``layout.data_sum_grad``); the rank returns aux / n. The step
+    reports ``layout.data_sum`` of the ranks' losses, which counts aux
+    once, and the gradient of aux / n reaching the sum is summed over the
+    n ranks on its way back, so each rank's probabilities get the whole
+    d aux / d pm: the summed loss and the summed router gradient are the
+    one-process step's. ``tp`` ranks compute it alike, as they do the
+    router."""
     E, k = config.n_experts, config.moe_top_k
-    logits = h.float() @ layer_params['router'].float()
-    probs = torch.softmax(logits, dim=-1)                  # [B, T, E]
-    idx = moe_route_ops.top_k_lower(probs, k)              # [B, T, k]
-    gate = probs.gather(-1, idx)
-    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
-    sel = F.one_hot(idx, E).float()                        # [B, T, k, E]
-    frac = sel.sum(2).mean((0, 1)) / k
-    aux = E * torch.sum(frac * probs.mean((0, 1)))
+    counts = F.one_hot(idx.long(), E).sum((0, 1, 2)).to(probs.dtype)
+    stats = torch.stack([counts, probs.sum((0, 1))])
+    n, ranks = idx.shape[0] * idx.shape[1], 1
+    if layout is not None and layout.data_size > 1:
+        stats = layout.data_sum_grad(stats)
+        ranks = layout.data_size
+    n *= ranks
+    frac = stats[0] / (n * k)
+    return E * torch.sum(frac * (stats[1] / n)) / ranks
+
+
+def _moe_mlp(config: LlamaConfig, h: torch.Tensor, layer_params: Params,
+             layout=None):
+    """The top-k routed expert MLP of the JAX ``_moe_mlp``: h [B, T, D]
+    -> (out [B, T, D], the Switch aux loss f32, :func:`_moe_aux`). Each
+    batch row is a routing group with per-expert capacity
+    ``moe_capacity(config, T)``; (token, choice) slots go token-major, so
+    earlier tokens win, and overflow is dropped (the residual passes).
+
+    The f32 router (``route_for_training``: the ``moe_route`` kernels on
+    the card, deterministic, so a layer's recompute under remat routes
+    as its forward did), the gates rounded to h's dtype before the
+    combine, and the capacity are JAX's; its one-hot dispatch and combine
+    einsums are done as gathers that move the same values (the serving
+    form, ``models/decode.moe_mlp``): each kept (token, choice) copies
+    its row of h into row ``b C + slot`` of its expert's part of a zeroed
+    ``[E, B C, D]`` buffer, the expert products run on the whole buffer
+    (``expert_einsum``, plain or int8 stacks), and the combine reads each
+    choice's output row back (a dropped one reads a zero row) and adds
+    the k products ``out * gate`` in f32, rounded once. The gates and the
+    aux carry gradients to h and the router.
+
+    ``layout``: the expert stacks are this rank's ``[E / ep, D, F / tp]``
+    (``w_down`` ``[E / ep, F / tp, D]``) blocks. Over ``ep`` the buffer
+    goes to the experts' ranks and their outputs come back
+    (``layout.to_experts`` / ``from_experts``, one all-to-all each way).
+    Over ``tp`` the experts run on the rank's ffn columns between *f* on
+    the dispatched rows' source (h) and one *g* after the combine. The
+    router runs whole on every tp rank outside them, and so would sum
+    its h gradient tp times under an *f*; but each rank's combine gives
+    the gates only its columns' part of their gradient, so the gates
+    pass through an *f* of their own (a [B, T, k] all-reduce
+    backward)."""
+    b, t, d = h.shape
+    E, k = config.n_experts, config.moe_top_k
     cap = moe_capacity(config, t)
-    slot = moe_route_ops.capacity_slots(idx, E, cap).long()
-    keep = (slot >= 0).float()
-    disp = (sel * keep[..., None])[..., None] * F.one_hot(
-        slot.clamp(min=0), cap).float()[..., None, :]      # [B, T, k, E, C]
-    comb = (disp * gate[..., None, None]).sum(2).to(h.dtype)
-    disp = disp.sum(2).to(h.dtype)                         # [B, T, E, C]
-    xin = torch.einsum('btec,btd->ebcd', disp, h)
-    g = expert_einsum('ebcd,edf->ebcf', xin, layer_params['w_gate'])
-    up = expert_einsum('ebcd,edf->ebcf', xin, layer_params['w_up'])
+    idx, gate, slot, probs = moe_route_ops.route_for_training(
+        h, layer_params['router'], k, cap)
+    aux = _moe_aux(config, idx, probs, layout)
+    f = (lambda y: y) if layout is None else layout.copy_to_tp
+    rows = b * cap
+    first = torch.arange(b, dtype=torch.int32, device=h.device) * cap
+    dest = torch.where(slot >= 0, idx * rows + first[:, None, None] + slot,
+                       E * rows).view(-1).long()
+    src = f(h)[:, :, None].expand(b, t, k, d).reshape(-1, d)
+    xin = h.new_zeros((E * rows + 1, d)).index_copy(0, dest, src)
+    xe = xin[:E * rows].view(E, rows, d)
+    if layout is not None:
+        xe = layout.to_experts(xe)
+    g = expert_einsum('erd,edf->erf', xe, layer_params['w_gate'])
+    up = expert_einsum('erd,edf->erf', xe, layer_params['w_up'])
     act = mlp_act(config)(g.float()).to(h.dtype)
-    xout = expert_einsum('ebcf,efd->ebcd', act * up, layer_params['w_down'])
-    return torch.einsum('ebcd,btec->btd', xout, comb), aux
+    xout = expert_einsum('erf,efd->erd', act * up, layer_params['w_down'])
+    if layout is not None:
+        xout = layout.from_experts(xout)
+    picked = torch.cat([xout.reshape(E * rows, d), xout.new_zeros((1, d))]
+                       )[dest].view(b, t, k, d)
+    weight = f(gate).to(h.dtype).float()
+    out = (picked.float() * weight[..., None]).sum(2).to(h.dtype)
+    if layout is not None:
+        out = layout.reduce_from_tp(out)
+    return out, aux
 
 
 def _gathered_layer(layout, specs, config: LlamaConfig, x: torch.Tensor,
@@ -579,7 +634,7 @@ def _layer(config: LlamaConfig, x: torch.Tensor, layer_params: Params,
     h = _rms_norm(x, layer_params['mlp_norm'], config.norm_eps,
                   config.norm_offset)
     if config.n_experts:
-        out, aux = _moe_mlp(config, h, layer_params)
+        out, aux = _moe_mlp(config, h, layer_params, layout)
         return x + out, aux
     h = f(h)
     gate = mlp_act(config)(
@@ -659,21 +714,6 @@ def unbind_layers(w) -> list:
     return list(w.unbind(0))
 
 
-def _require_moe_on_cpu(config: LlamaConfig, device: torch.device,
-                        layout=None) -> None:
-    if config.n_experts and layout is not None:
-        raise NotImplementedError(
-            f'{config.name}: MoE training over a mesh is not ported: its '
-            'aux loss and routing need the ep axis (ROADMAP.md, "MoE '
-            'training on the card")')
-    if config.n_experts and device.type == 'cuda':
-        raise NotImplementedError(
-            f'{config.name}: MoE training on a CUDA device is not ported: '
-            "the router's backward has no kernel yet (ROADMAP.md, \"MoE "
-            'training on the card"); MoE serving runs on the card, and this '
-            'forward on the CPU')
-
-
 def forward_hidden(params: Params, tokens: torch.Tensor,
                    config: LlamaConfig,
                    positions: Optional[torch.Tensor] = None,
@@ -685,14 +725,13 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
     are cast to ``config.dtype`` where used and gradients flow back to
     them. ``lora``: optional stacked ``[L, ...]`` adapters. With
     ``with_aux`` returns (hidden, the layer-mean MoE aux loss; 0 for
-    dense configs). MoE configs run on the CPU only.
+    dense configs).
 
     ``layout`` (``parallel/sharding.Layout``): ``params`` and ``lora``
     are this rank's blocks; each layer's are gathered inside its
     checkpointed call (``_gathered_layer``), the embedding where it is
     looked up. The cast to the compute dtype runs on the blocks, before
     the gathers (elementwise: the same bits)."""
-    _require_moe_on_cpu(config, tokens.device, layout)
     _require_remat_supported(config)
     if attn_impl is None:
         attn_impl = default_attn_impl()

@@ -17,16 +17,20 @@ XLA inserts a sharded program's collectives; here they are explicit.
 DTensor's ``Shard → Replicate`` redistribution does not give (its
 backward slices the replicated gradient without summing across ranks);
 over a group of one rank the block is the whole dim, and nothing is
-issued. Dims sharded over ``tp`` stay sharded: a layer runs
-Megatron-style on the rank's heads and ffn columns, between
-:meth:`Layout.copy_to_tp` (Megatron's *f*: identity forward, all-reduce
-over ``tp`` backward) and :meth:`Layout.reduce_from_tp` (*g*: all-reduce
-forward, identity backward). Every ``tp`` collective is an
-``all_reduce``, never an all-gather, so a gloo group can carry it
-between ranks that share one GPU. At ``tp`` 1 both return their input
-and issue nothing. :func:`all_reduce` sums over a set of axes.
-``COLLECTIVES`` counts each kind where it is issued, and nowhere else,
-so a run can hold the collectives of a step against their identity.
+issued. A dim sharded over ``ep`` alone is an expert stack's expert
+axis: it stays the rank's experts, and the tokens travel to them
+instead (:meth:`Layout.to_experts` and :meth:`Layout.from_experts`, an
+``all_to_all_single`` over ``ep`` each way: JAX's GShard dispatch).
+Dims sharded over ``tp`` stay sharded: a layer runs Megatron-style on
+the rank's heads and ffn columns, between :meth:`Layout.copy_to_tp`
+(Megatron's *f*: identity forward, all-reduce over ``tp`` backward) and
+:meth:`Layout.reduce_from_tp` (*g*: all-reduce forward, identity
+backward). Every ``tp`` collective is an ``all_reduce``, never an
+all-gather, so a gloo group can carry it between ranks that share one
+GPU. At ``tp`` 1 both return their input and issue nothing.
+:func:`all_reduce` sums over a set of axes. ``COLLECTIVES`` counts each
+kind where it is issued, and nowhere else, so a run can hold the
+collectives of a step against their identity.
 
 :class:`Layout` is a state's place on the mesh (the spec trees of its
 params and adapters, the rank's ``tp`` coordinate and head counts), and
@@ -50,8 +54,9 @@ DATA_AXES = mesh_lib.data_axes()
 class Collectives:
     """Counts of the collectives issued by this module: ``gathers``
     (forward all-gathers), ``reduce_scatters`` (their backward),
-    ``all_reduces`` (over data axes) and ``tp_reduces`` (the all-reduces
-    over ``tp``: *f*, *g*, the vocab-sharded lookup, loss and argmax)."""
+    ``all_reduces`` (over data axes), ``tp_reduces`` (the all-reduces
+    over ``tp``: *f*, *g*, the vocab-sharded lookup, loss and argmax)
+    and ``all_to_alls`` (the MoE exchanges over ``ep``, each way)."""
 
     def __init__(self):
         self.reset()
@@ -61,12 +66,14 @@ class Collectives:
         self.reduce_scatters = 0
         self.all_reduces = 0
         self.tp_reduces = 0
+        self.all_to_alls = 0
 
     def counts(self) -> Dict[str, int]:
         return {'gathers': self.gathers,
                 'reduce_scatters': self.reduce_scatters,
                 'all_reduces': self.all_reduces,
-                'tp_reduces': self.tp_reduces}
+                'tp_reduces': self.tp_reduces,
+                'all_to_alls': self.all_to_alls}
 
 
 COLLECTIVES = Collectives()
@@ -144,6 +151,12 @@ def data_axes_of(entry) -> Tuple[str, ...]:
     return tuple(a for a in dim_axes(entry) if a in DATA_AXES)
 
 
+def is_expert_axis(entry) -> bool:
+    """A spec entry of ``ep`` alone: an expert stack's expert axis (the
+    dense leaves fold ``ep`` into their fsdp group, ``('fsdp', 'ep')``)."""
+    return entry == 'ep'
+
+
 class _Gather(torch.autograd.Function):
     """All-gather of dim ``dim`` over ``group`` (forward) and the
     reduce-scatter (sum) of its gradient back to the block (backward).
@@ -182,8 +195,10 @@ def gather(x: torch.Tensor, mesh, spec: Spec) -> torch.Tensor:
     """``x`` (this rank's block) with every dim sharded over data axes
     made whole: one all-gather a dim, over the dim's data axes when they
     hold more than one rank. Their gradients reduce-scatter back to the
-    block."""
+    block. An expert axis (:func:`is_expert_axis`) stays the rank's."""
     for d, entry in enumerate(spec):
+        if is_expert_axis(entry):
+            continue
         axes = data_axes_of(entry)
         if axes and mesh.size(axes) > 1:
             x = _Gather.apply(x, mesh.group(axes), d, mesh.size(axes))
@@ -203,6 +218,52 @@ def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     dist.all_reduce(x, group=mesh.group(tuple(axes)))
     COLLECTIVES.all_reduces += 1
     return x
+
+
+class _DataSum(torch.autograd.Function):
+    """A sum over the data axes forward whose backward sums the gradient
+    over them too: each rank's share of a function of the sum sends its
+    part of the gradient to every rank's addend."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return all_reduce(x.clone(), mesh, DATA_AXES)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(memory_format=torch.contiguous_format),
+                          ctx.mesh, DATA_AXES), None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` over ``group`` in equal blocks of dim 0:
+    block j goes to the group's rank j, and block i of the result came
+    from rank i. Its adjoint is the same exchange, so the backward sends
+    the gradient's blocks back the same way."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    COLLECTIVES.all_to_alls += 1
+    return out
+
+
+def all_to_all(x: torch.Tensor, mesh, axes: Sequence[str] = ('ep',)
+               ) -> torch.Tensor:
+    """:class:`_AllToAll` over the ranks that differ on ``axes``."""
+    return _AllToAll.apply(x, mesh.group(tuple(axes)))
 
 
 def tp_all_reduce(x: torch.Tensor, mesh,
@@ -388,6 +449,49 @@ class Layout:
     def data_sum(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the data axes (a copy; ``x`` is kept)."""
         return all_reduce(x.clone(), self.mesh, DATA_AXES)
+
+    @property
+    def data_size(self) -> int:
+        """The ranks of a data group (dp x fsdp x ep)."""
+        return self.mesh.size(DATA_AXES)
+
+    def data_sum_grad(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the data axes, its gradient summed over them
+        too (:class:`_DataSum`); ``x`` itself on a data group of one."""
+        return x if self.data_size == 1 else _DataSum.apply(x, self.mesh)
+
+    @property
+    def ep(self) -> int:
+        """The ``ep`` size of the mesh (1: every rank holds every
+        expert)."""
+        return self.mesh.shape['ep']
+
+    def to_experts(self, x: torch.Tensor) -> torch.Tensor:
+        """An MoE dispatch buffer ``[E, R, ...]`` (this rank's R slot
+        rows of every expert) to ``[E / ep, ep R, ...]``: the rank's
+        experts with the rows of every rank of its ``ep`` group, in ``ep``
+        order (JAX's ``P('ep', ('dp', 'fsdp'))`` on the dispatch). One
+        all-to-all over ``ep``; ``x`` itself at ep 1."""
+        ep = self.ep
+        if ep == 1:
+            return x
+        e, r = x.shape[:2]
+        y = all_to_all(x, self.mesh)            # [ep (source), E/ep, R, ..]
+        return y.view((ep, e // ep) + tuple(x.shape[1:])).transpose(
+            0, 1).reshape((e // ep, ep * r) + tuple(x.shape[2:]))
+
+    def from_experts(self, y: torch.Tensor) -> torch.Tensor:
+        """Inverse of :meth:`to_experts`: the experts' output rows sent
+        back to the ranks whose tokens they are, ``[E / ep, ep R, ...]``
+        to ``[E, R, ...]``."""
+        ep = self.ep
+        if ep == 1:
+            return y
+        el, rr = y.shape[:2]
+        rest = tuple(y.shape[2:])
+        blocks = y.view((el, ep, rr // ep) + rest).transpose(0, 1)
+        return all_to_all(blocks, self.mesh).view((ep * el, rr // ep) +
+                                                  rest)
 
     def local_batch(self, batch: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:

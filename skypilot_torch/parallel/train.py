@@ -18,22 +18,26 @@ Over a mesh (``parallel/mesh.py``; ``init_train_state(mesh=...)``)
 every leaf of the state is this rank's block under
 ``llama.param_sharding_rules`` / ``lora.lora_sharding_rules`` /
 ``quantized_sharding_rules`` (``TrainState.layout``), and the step is
-FSDP/DP over the data axes and Megatron tensor parallel over ``tp``:
-the global batch is split over the data axes (dp, fsdp, ep; the ranks
-of a ``tp`` group take the same rows), each layer's blocks are gathered
-over the data axes inside its checkpointed call and their gradients
-reduce-scattered back (``parallel/sharding.gather``), each layer runs on
-the rank's heads and ffn columns between *f* and *g*, the embedding and
-the fused CE run on the rank's vocabulary window
-(``models/llama.py``), the gradients of leaves replicated over a data
-axis are all-reduced over it (and the adapters' A factors, whose
-gradients come back partial, over ``tp`` too), the loss is the global
-masked mean, the global norm counts each element once, and AdamW runs
-on the blocks. ``plan_train_state`` gives the per-device bytes of a
-mesh plan on the meta device.
+FSDP/DP over the data axes, Megatron tensor parallel over ``tp`` and
+expert parallel over ``ep``: the global batch is split over the data
+axes (dp, fsdp, ep; the ranks of a ``tp`` group take the same rows),
+each layer's blocks are gathered over the data axes inside its
+checkpointed call and their gradients reduce-scattered back
+(``parallel/sharding.gather``), but for the expert stacks' expert axis,
+which stays the rank's: an MoE layer sends its dispatched tokens to the
+experts' ranks over ``ep`` and their outputs back, and its aux loss
+takes its means over the global batch (``models/llama.py``
+``_moe_mlp``); each layer runs on the rank's heads and ffn columns
+between *f* and *g*, the embedding and the fused CE run on the rank's
+vocabulary window, the gradients of leaves replicated over a data axis
+are all-reduced over it (an expert stack, sharded over ``ep``, over
+``dp`` only; the adapters' A factors, whose gradients come back
+partial, over ``tp`` too), the loss is the global masked mean, the
+global norm counts each element once, and AdamW runs on the blocks.
+``plan_train_state`` gives the per-device bytes of a mesh plan on the
+meta device.
 
-Not here yet (ROADMAP.md): the ``ep`` axis, the ``sp`` ring and the
-``pp`` pipeline.
+Not here yet (ROADMAP.md): the ``sp`` ring and the ``pp`` pipeline.
 """
 import dataclasses
 import math
@@ -288,21 +292,19 @@ def _mesh_shape(mesh) -> Dict[str, int]:
 
 # The ROADMAP.md (Queue 1) item that brings each mesh axis the step
 # does not shard over yet.
-LATER_AXES = {'ep': '"MoE training on the card, with ep"',
-              'sp': 'item 17 (the sp ring)',
+LATER_AXES = {'sp': 'item 17 (the sp ring)',
               'pp': 'item 18 (the pp pipeline)'}
 
 
 def refuse_later_axes(shape: Dict[str, int]) -> None:
     """Raise for the axes of ``shape`` above 1 that the step does not
-    shard over yet (all but dp, fsdp and tp), naming their items."""
+    shard over yet (all but dp, fsdp, ep and tp), naming their items."""
     wide = {a: n for a, n in shape.items() if a in LATER_AXES and n > 1}
     if wide:
         raise NotImplementedError(
-            f'mesh axes {wide}: the port trains over dp, fsdp and tp; '
+            f'mesh axes {wide}: the port trains over dp, fsdp, ep and tp; '
             + '; '.join(f'{a} comes with ROADMAP.md Queue 1 '
                         f'{LATER_AXES[a]}' for a in wide))
-
 
 
 def plan_train_state(config: llama.LlamaConfig, mesh,

@@ -91,7 +91,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument('--tp', type=int, default=1,
                    help='tensor-parallel degree (Megatron layers over the '
                         'heads and ffn columns, the vocabulary sharded)')
-    for axis in ('ep', 'sp', 'pp'):
+    p.add_argument('--ep', type=int, default=1,
+                   help='expert-parallel degree (an MoE model\'s experts '
+                        'split over it; a data axis elsewhere)')
+    for axis in ('sp', 'pp'):
         p.add_argument(f'--{axis}', type=int, default=1,
                        help='mesh axis degree (only 1 is ported)')
     p.add_argument('--microbatches', type=int, default=None,
@@ -220,8 +223,8 @@ def build(args: argparse.Namespace):
     check_args(args)
     dev = device_lib.resolve_device(args.device)
     num_slices = mesh_lib.num_slices_from_env()
-    mesh_cfg = mesh_lib.auto_mesh_config(dp=args.dp, tp=args.tp,
-                                         num_slices=num_slices)
+    mesh_cfg = mesh_lib.auto_mesh_config(dp=args.dp, ep=args.ep,
+                                         tp=args.tp, num_slices=num_slices)
     mesh = (mesh_lib.make_mesh(mesh_cfg, num_slices=num_slices)
             if distributed.is_initialized() else None)
     if args.elastic and args.checkpoint_dir:

@@ -42,11 +42,11 @@ replica does.
 leaf by leaf on the device); ``--kv-int8`` gives the engine an int8 KV
 pool (K4 and K5 run their int8 forms). MoE models serve like any other
 (``--model mixtral-8x7b --quant int8 --slots 8``: ~47 GB of expert codes
-on one card); a model whose weights in the compute dtype exceed one
-card's memory per rank (``SINGLE_CARD_BYTES``: mixtral-8x7b's 93 GB of
-bf16) is refused without ``--quant int8`` before anything is allocated;
-bf16 MoE across cards comes with ROADMAP.md Queue 1's "MoE training on
-the card, with ep".
+on one card; ``--model mixtral-8x7b --tp 2``: bf16, each rank its ffn
+columns of every expert, 46.7 GB); a model whose weights in the compute
+dtype exceed one card's memory per rank (``SINGLE_CARD_BYTES``:
+mixtral-8x7b's 93 GB of bf16 at ``--tp 1``) is refused without
+``--quant int8`` or a larger ``--tp`` before anything is allocated.
 
 Observability, as the JAX replica's: the process registry (the engine's
 ``skytpu_batch_*`` series and the card's ``skytpu_device_hbm_*`` gauges)
@@ -247,22 +247,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                      'supported yet: the engine cache is unsharded and '
                      'would replicate per device')
     config = llama.CONFIGS.get(args.model)
-    if config is not None and config.n_experts and args.tp > 1:
-        parser.error(f'--model {args.model} with --tp > 1: MoE across '
-                     'cards comes with ROADMAP.md Queue 1 "MoE training '
-                     'on the card, with ep"')
     if config is not None and args.quant != 'int8':
         wide = config.num_params() * config.dtype.itemsize
         if wide / args.tp > SINGLE_CARD_BYTES:
-            remedy = ('--quant int8 (bf16 MoE across cards comes with '
-                      'ROADMAP.md Queue 1 "MoE training on the card, with '
-                      'ep")' if config.n_experts else
-                      '--quant int8 or a larger --tp')
             parser.error(
                 f'--model {args.model}: its {wide / 1e9:.0f} GB of '
                 f'{config.dtype} weights exceed one card '
                 f'({SINGLE_CARD_BYTES / 1e9:.0f} GB) at --tp {args.tp}; '
-                f'serve it with {remedy}')
+                'serve it with --quant int8 or a larger --tp')
     return args
 
 

@@ -116,12 +116,12 @@ def mesh_facts(mesh_kw, axes_sets):
             'window': sharding.window(mesh, spec, full.shape)}
 
 
-def init_blocks(mesh_kw, kind, seed):
+def init_blocks(mesh_kw, kind, seed, model='tiny'):
     """This rank's blocks of ``init_train_state`` (``kind`` 'lora',
     'full') or ``init_qlora_state`` ('qlora') over the mesh."""
     from skypilot_torch.models import llama
     from skypilot_torch.parallel import train
-    cfg = llama.get_config('tiny')
+    cfg = llama.get_config(model)
     mesh = _mesh(mesh_kw)
     if kind == 'qlora':
         state = train.init_qlora_state(cfg, seed=seed, lora_rank=4,
@@ -133,13 +133,13 @@ def init_blocks(mesh_kw, kind, seed):
     return blocks(state)
 
 
-def restore_blocks(mesh_kw, kind, path):
+def restore_blocks(mesh_kw, kind, path, model='tiny'):
     """The latest step under ``path`` restored into this rank's
     ``kind`` template over the mesh: (blocks, ``last_restore``)."""
     from skypilot_torch import checkpoint
     from skypilot_torch.models import llama
     from skypilot_torch.parallel import train
-    cfg = llama.get_config('tiny')
+    cfg = llama.get_config(model)
     template = train.init_train_state(
         cfg, seed=0, lora_rank=None if kind == 'full' else 4, device='cpu',
         mesh=_mesh(mesh_kw))
@@ -180,8 +180,8 @@ def train_steps(mesh_kw, cases, save_dir=None):
     batches, config overrides)``): the whole state (numpy
     ``params``/``lora`` trees, ``dtype``) placed on the mesh
     ``MeshConfig(**mesh_kw)``, then one ``build_train_step`` step per
-    global batch (on ``tiny``; with per-layer checkpointing where the
-    name ends in ``_remat``). Returns per case the losses, grad norms,
+    global batch (on ``tiny``, or the overrides' ``model``; with
+    per-layer checkpointing where the name ends in ``_remat``). Returns per case the losses, grad norms,
     this rank's blocks after the steps and the collectives of the last
     step. With
     ``save_dir`` each case's last state is saved (step 1) under
@@ -192,8 +192,9 @@ def train_steps(mesh_kw, cases, save_dir=None):
     mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(**mesh_kw))
     out = {}
     for name, state_np, batches, *kw in cases:
-        cfg = llama.get_config('tiny', remat=name.endswith('_remat'),
-                               **(kw[0] if kw else {}))
+        kw = dict(kw[0]) if kw else {}
+        cfg = llama.get_config(kw.pop('model', 'tiny'),
+                               remat=name.endswith('_remat'), **kw)
         whole = convert.train_state_from_numpy(
             state_np['params'], state_np['lora'], state_np['dtype'],
             device='cpu')
@@ -261,7 +262,30 @@ def tp_primitives(n_rows=4, n_in=6, n_out=8, seed=0):
     return out
 
 
-def serve_ranks(mesh_kw, params_np, prompt, n_new, cfg_kw=None):
+def moe_aux(mesh_kw, params_np, tokens):
+    """``tiny-moe``'s whole numpy params cut to this rank's blocks on the
+    mesh: ``forward_hidden(with_aux=True, layout=)`` on this rank's rows
+    of the global ``tokens``. Returns the rank's aux share and the
+    exchanges it issued."""
+    from skypilot_torch.models import convert, llama
+    from skypilot_torch.parallel import sharding, train
+    cfg = llama.get_config('tiny-moe')
+    mesh = _mesh(mesh_kw)
+    layout = train._layout(cfg, mesh, False)
+    params = sharding.map_specs(
+        lambda _, x, spec: sharding.local_slice(mesh, spec, x),
+        convert.params_from_numpy(params_np, cfg, device='cpu'),
+        layout.params)
+    rows = layout.local_batch({'t': torch.from_numpy(tokens)})['t']
+    sharding.COLLECTIVES.reset()
+    with torch.no_grad():
+        _, aux = llama.forward_hidden(params, rows, cfg, with_aux=True,
+                                      layout=layout)
+    return {'aux': aux.item(), 'collectives': sharding.COLLECTIVES.counts()}
+
+
+def serve_ranks(mesh_kw, params_np, prompt, n_new, cfg_kw=None,
+                model='tiny'):
     """The whole numpy params cut to this rank's blocks on the mesh
     ``MeshConfig(**mesh_kw)``; ``forward_cached(layout=)`` on the prompt
     (prefill), then one decode step, and ``greedy_generate(layout=)``.
@@ -270,7 +294,7 @@ def serve_ranks(mesh_kw, params_np, prompt, n_new, cfg_kw=None):
     from skypilot_torch.models import convert, decode, llama
     from skypilot_torch.parallel import mesh as mesh_lib
     from skypilot_torch.parallel import sharding
-    cfg = llama.get_config('tiny', **(cfg_kw or {}))
+    cfg = llama.get_config(model, **(cfg_kw or {}))
     mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(**mesh_kw))
     layout = decode.serving_layout(cfg, mesh)
     params = sharding.map_specs(

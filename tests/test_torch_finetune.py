@@ -56,13 +56,53 @@ def test_log_every_keeps_first_and_last_step(capsys):
 
 
 @pytest.mark.parametrize('argv,match', [
-    (['--ep', '2'], 'MoE training on the card, with ep'),
+    (['--pp', '2'], r'item 18 \(the pp pipeline\)'),
     (['--sp', '2'], r'item 17 \(the sp ring\)'),
     (['--microbatches', '4'], 'item 18'),
 ], ids=['argv0-items 15-18', 'argv1-one device', 'argv2-item 18'])
 def test_unported_options_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         finetune.main(TINY + ['--steps', '1'] + argv)
+
+
+def test_recipe_trains_tiny_moe_over_ep(tmp_path):
+    """``SKYTPU_NUM_CHIPS_PER_NODE=2 python -m ...finetune --model tiny-moe
+    --device cpu --ep 2`` spawns two gloo workers on the mesh ``ep=2``
+    (two of the four experts each); rank 0 alone prints, and its losses
+    are the one-process run's within rtol 1e-5 (the same global
+    batches)."""
+    import socket
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if not k.startswith(
+        ('SKYTPU_', 'JAX', 'XLA'))}
+    env.update(HOME=str(tmp_path),
+               SKYTPU_COORDINATOR_ADDRESS=f'127.0.0.1:{port}',
+               SKYTPU_STATE_DIR=str(tmp_path / 'state'),
+               PYTHONPATH=repo, OMP_NUM_THREADS='1')
+    argv = ['--model', 'tiny-moe', '--device', 'cpu', '--seq', '32',
+            '--batch', '4', '--steps', '2', '--log-every', '1']
+
+    def losses(extra, chips):
+        env['SKYTPU_NUM_CHIPS_PER_NODE'] = chips
+        out = subprocess.run(
+            [sys.executable, '-m', 'skypilot_torch.recipes.finetune'] +
+            argv + extra, capture_output=True, text=True, env=env,
+            timeout=120, cwd=repo, check=True).stdout.splitlines()
+        assert out[-1] == 'finetune done.' and \
+            out.count('finetune done.') == 1
+        return out[0], [float(re.search(r'loss=(\S+)', line).group(1))
+                        for line in out if line.startswith('step ')]
+    head, ep = losses(['--ep', '2'], '2')
+    assert head.startswith('devices=2 device=cpu model=tiny-moe')
+    assert head.endswith('mesh=2c:ep2')
+    _, one = losses([], '1')
+    assert len(ep) == 2
+    np.testing.assert_allclose(ep, one, rtol=1e-5)
 
 
 def test_default_device_is_cuda():

@@ -215,16 +215,20 @@ def test_sharded_steps_match_jax_and_one_process(results, name, kind):
 # dim is the fsdp one) and for embed and lm_head; a reduce-scatter per
 # trainable gathered leaf; all-reduces: the token count, the loss, one
 # per trainable leaf replicated over a data axis, one for the norm's
-# group.
+# group. No exchange over ep (a dense model).
 COLLECTIVES = {
     'lora': {'gathers': 9 * 2 + 2, 'reduce_scatters': 2 * 2,
-             'all_reduces': 2 + 4 + 1, 'tp_reduces': 0},
+             'all_reduces': 2 + 4 + 1, 'tp_reduces': 0,
+             'all_to_alls': 0},
     'full': {'gathers': 7 * 2 + 2, 'reduce_scatters': 7 * 2 + 2,
-             'all_reduces': 2 + 12 + 1, 'tp_reduces': 0},
+             'all_reduces': 2 + 12 + 1, 'tp_reduces': 0,
+             'all_to_alls': 0},
     'qlora': {'gathers': 11 * 2 + 2, 'reduce_scatters': 2 * 2,
-              'all_reduces': 2 + 4 + 1, 'tp_reduces': 0},
+              'all_reduces': 2 + 4 + 1, 'tp_reduces': 0,
+              'all_to_alls': 0},
     'lora_remat': {'gathers': 2 * 9 * 2 + 2, 'reduce_scatters': 2 * 2,
-                   'all_reduces': 2 + 4 + 1, 'tp_reduces': 0},
+                   'all_reduces': 2 + 4 + 1, 'tp_reduces': 0,
+                   'all_to_alls': 0},
 }
 
 
@@ -473,11 +477,19 @@ def test_8b_full_finetune_plan(fsdp, fits):
 
 
 def test_step_refuses_model_axes():
+    """The axes the step does not shard over yet name their items; ep
+    (expert parallelism) is taken."""
     cfg = tllama.get_config('tiny')
+    for axis, match in (('sp', r'item 17 \(the sp ring\)'),
+                        ('pp', r'item 18 \(the pp pipeline\)')):
+        fake = type('M', (), {'shape': tmesh.MeshConfig(
+            **{axis: 2}).shape()})()
+        with pytest.raises(NotImplementedError, match=match):
+            ttrain.build_train_step(cfg, mesh=fake)
+    assert 'ep' not in ttrain.LATER_AXES
+    ttrain.refuse_later_axes(tmesh.MeshConfig(ep=2).shape())
     fake = type('M', (), {'shape': tmesh.MeshConfig(ep=2).shape()})()
-    with pytest.raises(NotImplementedError,
-                       match='MoE training on the card, with ep'):
-        ttrain.build_train_step(cfg, mesh=fake)
+    assert callable(ttrain.build_train_step(cfg, mesh=fake))
 
 
 def test_recipe_spawns_one_worker_per_device(tmp_path):

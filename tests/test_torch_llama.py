@@ -135,12 +135,12 @@ def test_numpy_bridge_round_trip(dtype):
         np.testing.assert_array_equal(got, leaf.astype(np.float32))
 
 
-def test_moe_config_raises():
+def test_moe_config_raises(tmp_path):
     """MoE configs are ported: ``init_params('tiny-moe')`` gives the JAX
     layout, leaf for leaf (``router [L, D, E]``, expert stacks ``[L, E,
-    in, out]``), in shape and dtype (f32 and bf16). The one refusal left
-    for a MoE config is training on a CUDA device, which names its
-    ROADMAP item."""
+    in, out]``), in shape and dtype (f32 and bf16). No refusal is left
+    for a MoE config: over a one-rank layout (a gloo group of one) the
+    forward equals the unsharded one, its aux too."""
     for dtype in (jnp.float32, jnp.bfloat16):
         jcfg = jllama.get_config('tiny-moe', dtype=dtype)
         tcfg = tllama.get_config('tiny-moe', dtype=_DTYPES[dtype])
@@ -159,8 +159,26 @@ def test_moe_config_raises():
             assert node.dtype == _DTYPES[dtype], path
         assert got['layers']['router'].shape == (2, 128, 4)
         assert got['layers']['w_down'].shape == (2, 4, 256, 128)
-    with pytest.raises(NotImplementedError, match='MoE training on the card'):
-        tllama._require_moe_on_cpu(tcfg, torch.device('cuda'))
+    import torch.distributed as dist
+
+    from skypilot_torch.parallel import mesh as tmesh
+    from skypilot_torch.parallel import train as ttrain
+    cfg = tllama.get_config('tiny-moe')
+    params = tllama.init_params(cfg, seed=2, device='cpu')
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 16)))
+    want, want_aux = tllama.forward_hidden(params, tokens, cfg,
+                                           with_aux=True)
+    dist.init_process_group('gloo', init_method=f'file://{tmp_path}/store',
+                            rank=0, world_size=1)
+    try:
+        layout = ttrain._layout(cfg, tmesh.make_mesh(tmesh.MeshConfig()),
+                                False)
+        got, aux = tllama.forward_hidden(params, tokens, cfg, with_aux=True,
+                                         layout=layout)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, want) and torch.equal(aux, want_aux)
 
 
 def test_int8_weights_raise():

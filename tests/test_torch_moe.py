@@ -137,6 +137,75 @@ def test_route_indices_and_slots_match_jax(moe, shape, cf):
     np.testing.assert_allclose(gate.numpy(), jgate, rtol=1e-5)
 
 
+def _jax_router(h, router, k):
+    """JAX ``_moe_mlp``'s f32 router up to the normalized gates: (gate
+    [B, T, k], probs [B, T, E]) as functions of h and the router."""
+    logits = h.astype(jnp.float32) @ router.astype(jnp.float32)
+    probs = jax.nn.softmax(logits, axis=-1)
+    gate, _ = jax.lax.top_k(probs, k)
+    return gate / jnp.maximum(gate.sum(-1, keepdims=True), 1e-9), probs
+
+
+@pytest.mark.parametrize('case', ['random', 'near-tie-overflow'])
+def test_router_backward_matches_jax_vjp(moe, case):
+    """The router's backward (``moe_route_bwd``'s plain version, then
+    the router product) against ``jax.vjp`` of JAX's router at random
+    gate and probability cotangents; the Function (on the CPU: the
+    kernels' plain versions) and the plain autograd chain give the same.
+    ``near-tie-overflow``: expert 3's router column is expert 1's plus
+    1e-4 noise and the capacity is 2, so choices overflow. Gradients
+    within 1e-5 of each leaf's largest entry (f32 sums in another
+    order); idx and slots equal."""
+    jcfg, tcfg, jp, _ = moe
+    rng = np.random.default_rng(21)
+    b, t, k = 2, 12, jcfg.moe_top_k
+    h = _hidden(rng, b, t, jcfg.dim)
+    router = np.array(jp['layers']['router'][0])
+    cap = 6
+    if case != 'random':
+        router[:, 3] = router[:, 1] + 1e-4 * rng.standard_normal(jcfg.dim)
+        cap = 2
+    dgate = rng.standard_normal((b, t, k)).astype(np.float32)
+    dprobs = rng.standard_normal((b, t, jcfg.n_experts)).astype(np.float32)
+    (jgate, jprobs), vjp = jax.vjp(
+        lambda x, r: _jax_router(x, r, k), jnp.asarray(h),
+        jnp.asarray(router))
+    jdh, jdr = vjp((jnp.asarray(dgate), jnp.asarray(dprobs)))
+    _, _, jslot = _jax_route(jnp.asarray(h), jnp.asarray(router),
+                             dataclasses.replace(
+                                 jcfg, moe_capacity_factor=cap * jcfg.n_experts
+                                 / (k * t)))
+    th, tr = torch.from_numpy(h), torch.from_numpy(router)
+    routes = {'function': lambda x, r: moe_route._RouteForTraining.apply(
+        x, r, k, cap), 'plain': lambda x, r: moe_route.route_for_training(
+            x, r, k, cap)}
+    for name, route in routes.items():
+        x, r = th.clone().requires_grad_(True), tr.clone().requires_grad_(
+            True)
+        idx, gate, slot, probs = route(x, r)
+        np.testing.assert_array_equal(slot.numpy(), jslot)
+        np.testing.assert_allclose(gate.detach().numpy(), np.asarray(jgate),
+                                   rtol=1e-5, err_msg=name)
+        np.testing.assert_allclose(probs.detach().numpy(),
+                                   np.asarray(jprobs), rtol=1e-5, atol=1e-7)
+        ((gate * torch.from_numpy(dgate)).sum() +
+         (probs * torch.from_numpy(dprobs)).sum()).backward()
+        for got, want in ((x.grad, jdh), (r.grad, jdr)):
+            want = np.asarray(want)
+            err = np.abs(got.numpy() - want).max()
+            assert err <= 1e-5 * np.abs(want).max(), (name, err)
+    # The backward kernel's plain version alone, with no dprobs.
+    dl, dh = moe_route.moe_route_bwd(probs.detach(), idx,
+                                     torch.from_numpy(dgate), None, tr,
+                                     torch.float32)
+    (_, _), vjp = jax.vjp(lambda x: _jax_router(x, jnp.asarray(router), k),
+                          jnp.asarray(h))
+    (want,) = vjp((jnp.asarray(dgate), jnp.zeros_like(jprobs)))
+    want = np.asarray(want)
+    assert np.abs(dh.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    assert dl.shape == (b, t, jcfg.n_experts)
+
+
 def test_route_ties_go_to_the_lower_expert(moe):
     """Experts 1 and 3 carry the same router column, so every token's
     probabilities tie exactly between them: ``lax.top_k`` keeps the
@@ -254,16 +323,59 @@ def test_lora_train_step_matches_jax():
         np.testing.assert_allclose(got[name], ref, rtol=0, atol=1e-4)
 
 
-def test_moe_training_on_cuda_names_the_roadmap_item():
-    """The router has no backward kernel yet: a CUDA MoE forward for
-    training is refused (not run on the plain version)."""
-    cfg = tllama.get_config('tiny-moe')
-    with pytest.raises(NotImplementedError,
-                       match='MoE training on the card'):
-        tllama._require_moe_on_cpu(cfg, torch.device('cuda'))
-    tllama._require_moe_on_cpu(cfg, torch.device('cpu'))
-    tllama._require_moe_on_cpu(tllama.get_config('tiny'),
-                               torch.device('cuda'))
+def test_moe_training_on_cuda_names_the_roadmap_item(moe, monkeypatch):
+    """A CUDA MoE forward for training routes through the kernels'
+    Function (``moe_route`` with its probabilities forward,
+    ``moe_route_bwd`` backward), never the plain autograd chain, and the
+    kernels' wrappers raise on what they do not take. The tensors here
+    are on the CPU, so the card is stood in for: ``_on_card`` says yes,
+    and each wrapper's launch is replaced by its plain version,
+    recorded."""
+    jcfg, tcfg, jp, tp = moe
+    calls = []
+
+    def fwd(h, router, k, cap, with_probs=False):
+        calls.append(('moe_route', with_probs))
+        return moe_route._route_plain(h, router, k, cap)
+
+    def bwd(*args):
+        calls.append(('moe_route_bwd',))
+        return moe_route._moe_route_bwd_plain(*args)
+
+    def plain(*_):
+        raise AssertionError('the plain chain ran for a card tensor')
+    monkeypatch.setattr(moe_route, '_on_card', lambda x: True)
+    monkeypatch.setattr(moe_route, '_moe_route_cuda', fwd)
+    monkeypatch.setattr(moe_route, '_moe_route_bwd_cuda', bwd)
+    monkeypatch.setattr(moe_route, '_route_train_plain', plain)
+    h = torch.from_numpy(_hidden(np.random.default_rng(2), 2, 16,
+                                 tcfg.dim)).requires_grad_(True)
+    layer = {k: v[0].detach().clone().requires_grad_(True)
+             for k, v in tp['layers'].items()}
+    out, aux = tllama._moe_mlp(tcfg, h, layer)
+    (out.square().sum() + aux).backward()
+    assert calls == [('moe_route', True), ('moe_route_bwd',)]
+    assert h.grad is not None and layer['router'].grad is not None
+    monkeypatch.undo()
+    # The wrappers' refusals, checked before anything reaches the card.
+    bf = torch.zeros((1, 4, 64), dtype=torch.bfloat16)
+    r8 = torch.zeros((64, 8), dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match='bf16 h'):
+        moe_route._moe_route_cuda(bf.float(), r8, 2, 4)
+    with pytest.raises(ValueError, match='E 3'):
+        moe_route._moe_route_cuda(bf, r8[:, :3], 2, 4)
+    with pytest.raises(ValueError, match='k 9'):
+        moe_route._moe_route_cuda(bf, torch.zeros((64, 16),
+                                                  dtype=torch.bfloat16), 9, 4)
+    probs = torch.full((1, 4, 8), 0.125)
+    idx = torch.zeros((1, 4, 2), dtype=torch.int32)
+    with pytest.raises(TypeError, match='moe_route_bwd'):
+        moe_route._moe_route_bwd_cuda(probs, idx, torch.zeros(1, 4, 2),
+                                      None, r8, torch.float32)
+    with pytest.raises(ValueError, match='E 3'):
+        moe_route._moe_route_bwd_cuda(probs[..., :3], idx,
+                                      torch.zeros(1, 4, 2), None, r8[:, :3],
+                                      torch.bfloat16)
 
 
 @pytest.mark.parametrize('quantized', [False, True], ids=['f32', 'int8'])
@@ -495,12 +607,17 @@ def test_convert_carries_the_moe_keys(moe):
 
 
 def test_replica_refuses_wide_mixtral_before_allocating():
+    """bf16 mixtral-8x7b (93 GB) is refused on one card; int8 on one
+    card and bf16 at ``--tp 2`` (46.7 GB a rank) are taken."""
     with pytest.raises(SystemExit):
         serve_model.parse_args(['--model', 'mixtral-8x7b', '--device',
                                 'cpu'])
     args = serve_model.parse_args(['--model', 'mixtral-8x7b', '--quant',
                                    'int8', '--device', 'cpu'])
     assert args.quant == 'int8'
+    args = serve_model.parse_args(['--model', 'mixtral-8x7b', '--tp', '2',
+                                   '--device', 'cpu'])
+    assert args.tp == 2 and args.quant != 'int8'
 
 
 def test_replica_serves_tiny_moe_from_a_checkpoint(moe, tmp_path):

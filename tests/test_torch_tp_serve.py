@@ -1,7 +1,9 @@
 """Tensor-parallel serving (``models/decode.py``'s ``layout=`` paths,
 ``serve/kv_pool.pool_shardings``, ``recipes/serve_model.py --tp``) on
 gloo ranks, against the JAX package's sharded ``forward_cached`` and
-the port's one-process (tp 1) path, with the weights exported to numpy.
+the port's one-process (tp 1) path, with the weights exported to numpy;
+``tiny`` and the MoE ``tiny-moe`` (the router whole on every rank, each
+expert's ffn columns split, one *g* after the combine).
 
 One process group of 4 ranks runs the mesh ``dp=2 x tp=2`` (each data
 replica a tp 2 pair) and ``fsdp=2 x tp=2`` (each layer's blocks
@@ -50,14 +52,35 @@ JAX_MESHES = {'dp2_tp2': dict(tp=2), 'fsdp2_tp2': dict(fsdp=2, tp=2)}
 N_NEW = 6
 
 
+MODELS = ('tiny', 'tiny-moe')
+
+
 @functools.lru_cache(maxsize=None)
 def _results(tmp):
-    jcfg = jllama.get_config('tiny')
-    tcfg = tllama.get_config('tiny')
+    prompt = np.random.default_rng(3).integers(0, 512, (2, 10)).astype(
+        np.int32)
+    refs = {model: _reference(model, prompt) for model in MODELS}
+    ranks = _torch_dist.run(
+        4, os.path.join(tmp, 'store'),
+        *[(_torch_dist.serve_ranks, (MESHES[name], refs[model][0], prompt,
+                                     N_NEW, None, model))
+          for model in MODELS for name in sorted(MESHES)])
+    out = {}
+    for i, (model, name) in enumerate(
+            (m, n) for m in MODELS for n in sorted(MESHES)):
+        out.setdefault(model, {'one': refs[model][1], 'jax': refs[model][2],
+                               'ranks': {}})
+        out[model]['ranks'][name] = [r[i] for r in ranks]
+    return out
+
+
+def _reference(model, prompt):
+    """(numpy params, the port's tp 1 logits and ids, JAX's sharded
+    logits on each mesh shape) of ``model``."""
+    jcfg = jllama.get_config(model)
+    tcfg = tllama.get_config(model)
     params_np = jax.tree.map(np.asarray, jllama.init_params(
         jcfg, jax.random.PRNGKey(0)))
-    rng = np.random.default_rng(3)
-    prompt = rng.integers(0, 512, (2, 10)).astype(np.int32)
     # The port at tp 1.
     whole = convert.params_from_numpy(params_np, tcfg, device='cpu')
     tokens = torch.from_numpy(prompt).long()
@@ -88,13 +111,7 @@ def _results(tmp):
         step, _ = fwd(params, jnp.asarray(first.numpy()[:, None],
                                           jnp.int32), cache, jcfg)
         jax_out[name] = {'prefill': np.asarray(pre), 'step': np.asarray(step)}
-    ranks = _torch_dist.run(
-        4, os.path.join(tmp, 'store'),
-        *[(_torch_dist.serve_ranks, (MESHES[name], params_np, prompt, N_NEW))
-          for name in sorted(MESHES)])
-    return {'one': one, 'jax': jax_out,
-            'ranks': {name: [r[i] for r in ranks]
-                      for i, name in enumerate(sorted(MESHES))}}
+    return params_np, one, jax_out
 
 
 @pytest.fixture(scope='module')
@@ -118,18 +135,36 @@ def _assemble(ranks, key):
 @pytest.mark.parametrize('key', ['prefill', 'step'])
 @pytest.mark.parametrize('name', sorted(MESHES))
 def test_sharded_forward_cached_matches_jax_and_tp1(results, name, key):
-    got = _assemble(results['ranks'][name], key)
-    np.testing.assert_allclose(got, results['jax'][name][key], **LOGIT_TOL)
-    np.testing.assert_allclose(got, results['one'][key], **LOGIT_TOL)
+    res = results['tiny']
+    got = _assemble(res['ranks'][name], key)
+    np.testing.assert_allclose(got, res['jax'][name][key], **LOGIT_TOL)
+    np.testing.assert_allclose(got, res['one'][key], **LOGIT_TOL)
+
+
+@pytest.mark.parametrize('key', ['prefill', 'step'])
+@pytest.mark.parametrize('name', sorted(MESHES))
+def test_moe_forward_cached_and_greedy_match_jax_and_tp1(results, name,
+                                                         key):
+    """tiny-moe at tp 2: logits as ``tiny``'s are held, greedy ids equal
+    tp 1's, and 2 L + 1 tp all-reduces a forward (the MoE layer's *g*
+    after its combine in the place of the dense one)."""
+    res = results['tiny-moe']
+    got = _assemble(res['ranks'][name], key)
+    np.testing.assert_allclose(got, res['jax'][name][key], **LOGIT_TOL)
+    np.testing.assert_allclose(got, res['one'][key], **LOGIT_TOL)
+    L = tllama.get_config('tiny-moe').n_layers
+    for r in res['ranks'][name]:
+        np.testing.assert_array_equal(r['ids'].numpy(), res['one']['ids'])
+        assert r['prefill_tp_reduces'] == 2 * L + 1
 
 
 @pytest.mark.parametrize('name', sorted(MESHES))
 def test_greedy_ids_equal_tp1(results, name):
-    for r in results['ranks'][name]:
-        np.testing.assert_array_equal(r['ids'].numpy(),
-                                      results['one']['ids'])
+    res = results['tiny']
+    for r in res['ranks'][name]:
+        np.testing.assert_array_equal(r['ids'].numpy(), res['one']['ids'])
         np.testing.assert_array_equal(r['first'].numpy(),
-                                      results['one']['ids'][:, 0])
+                                      res['one']['ids'][:, 0])
 
 
 @pytest.mark.parametrize('name', sorted(MESHES))
@@ -138,7 +173,7 @@ def test_tp_reduces_and_cache_heads(results, name):
     w_down each layer) and 2 a token (the max, then its lowest id); the
     cache holds a rank's n_kv_heads / tp heads."""
     L = tllama.get_config('tiny').n_layers
-    for r in results['ranks'][name]:
+    for r in results['tiny']['ranks'][name]:
         assert r['prefill_tp_reduces'] == 2 * L + 1
         assert r['generate_tp_reduces'] == N_NEW * (2 * L + 1 + 2)
         assert r['cache_heads'] == 1
@@ -169,11 +204,15 @@ def test_decode_and_pool_shardings_equal_jax():
 
 
 def test_replica_tp_refusals():
+    """bf16 mixtral-8x7b at ``--tp 2`` is taken (46.7 GB a rank); at tp 1
+    it is refused (93 GB)."""
     for argv in (['--slots', '2', '--tp', '2'],
                  ['--quant', 'int8', '--tp', '2'],
-                 ['--model', 'mixtral-8x7b', '--tp', '2']):
+                 ['--model', 'mixtral-8x7b', '--tp', '1']):
         with pytest.raises(SystemExit):
             serve_model.parse_args(argv)
+    assert serve_model.parse_args(['--model', 'mixtral-8x7b', '--tp',
+                                   '2']).tp == 2
     fake = type('M', (), {'shape': {'tp': 2}})()
     with pytest.raises(ValueError, match='gemma-2b: 8 query / 1 kv heads'):
         tdecode.serving_layout(tllama.get_config('gemma-2b'), fake)

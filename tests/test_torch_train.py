@@ -272,10 +272,11 @@ def test_train_state_bridge_round_trip():
 
 
 def test_unported_remat_saves_and_moe_raise():
-    """The remat_saves tokens other than 'attn' raise. MoE training is
-    ported for the CPU (its loss runs on tiny-moe's own params), and
-    what still raises is MoE training on a CUDA device, naming its
-    ROADMAP item."""
+    """The remat_saves tokens other than 'attn' raise. MoE training runs
+    (its loss on tiny-moe's own params here); on a CUDA device it routes
+    through the ``moe_route`` kernels, whose wrapper refuses what they do
+    not take: an f32 config such as tiny-moe's raises there, before any
+    launch."""
     _, tcfg = _configs('tiny')
     tokens = {'tokens': torch.zeros((1, 9), dtype=torch.long)}
     params = tllama.init_params(tcfg, device='cpu')
@@ -285,5 +286,8 @@ def test_unported_remat_saves_and_moe_raise():
     moe = tllama.get_config('tiny-moe')
     loss = tllama.loss_fn(tllama.init_params(moe, device='cpu'), tokens, moe)
     assert bool(torch.isfinite(loss))
-    with pytest.raises(NotImplementedError, match='MoE training on the card'):
-        tllama._require_moe_on_cpu(moe, torch.device('cuda'))
+    from skypilot_torch.ops import moe_route
+    router = torch.zeros((moe.dim, moe.n_experts), dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match='bf16 h'):
+        moe_route._moe_route_cuda(torch.zeros((1, 8, moe.dim)), router,
+                                  moe.moe_top_k, 8, with_probs=True)

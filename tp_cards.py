@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Tensor parallelism across cards: the finetune recipe and the
-engine-off replica at llama3-8b, one process per GPU over NCCL, against
-one card.
+"""Tensor and expert parallelism across cards: the finetune recipe and
+the engine-off replica at llama3-8b, one process per GPU over NCCL,
+against one card; with ``--moe``, mixtral-8x7b's recipe over ``ep`` and
+its bf16 replica over ``tp``.
 
     python3 tp_cards.py [--recipe-tp 1,2,4] [--replicas 1:1,2:2,2:4]
         [--steps 10] [--decode-profile 16]
+    python3 tp_cards.py --recipe-tp '' --replicas '' --decode-profile 0 \
+        --moe ep4,ep2tp2 --moe-replica-tp 2
 
 ``--recipe-tp``: for each T, ``recipes/finetune.py --model llama3-8b
 --seq 2048 --batch 8 --lora-rank 16 --synthetic --tp T`` with
@@ -36,6 +39,19 @@ more (CPU and CUDA activity): the device's busy ms and NCCL's, and the
 host ops that take the most time of their own (``TP_DECODE_PROFILE``
 line; tp 1 on one card beside it, the same steps).
 
+``--moe``: for each mesh (``ep4``: ``--ep 4``; ``ep2tp2``: ``--ep 2
+--tp 2``), ``recipes/finetune.py --model mixtral-8x7b --seq 2048
+--lora-rank 16 --synthetic`` on four cards, one batch row a data rank
+(``--batch`` = the data group: 4 and 2), as ``--recipe-tp`` times it:
+step seconds and tokens/s/chip, unprofiled (a profile armed on a rank
+of the ep 4 recipe ended in SIGSEGV); then the recipe's exchange (the
+67 MB dispatch buffer over the mesh's ``ep`` group, 192 a step) timed
+alone on the four cards with CUDA events (``MOE_RECIPE`` lines).
+``--moe-replica-tp T``: ``recipes/serve_model.py --model mixtral-8x7b
+--tp T`` (bf16, 46.7 GB a rank at T 2) on T cards, three 128-token
+prompts: TTFT, TPOT and ids (``MOE_REPLICA``; no one-card reference:
+bf16 mixtral does not fit one card).
+
 Needs a CUDA card for each rank; run from the repo's root, beside
 ``chip_smoke.py``, whose tp helpers it uses. Prints the cards' names and
 power limits (``nvidia-smi``) on every line.
@@ -57,7 +73,6 @@ from skypilot_torch.parallel import distributed
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, 'chiprun_out', 'tp_cards')
-TOKENS_PER_STEP = 8 * 2048
 PROMPT, NEW, SEED = 128, 32, 61
 
 
@@ -85,29 +100,39 @@ def _tail(path: str) -> str:
         return f.read()[-4000:]
 
 
-def recipe(tp: int, steps: int) -> dict:
-    """One recipe run at ``--tp tp`` on ``tp`` cards: per-step seconds,
-    losses, tokens/s per chip, and the profiled rank's kernel ms."""
+def recipe(tp: int, steps: int, model: str = 'llama3-8b', ep: int = 1,
+           batch: int = 8, profile: bool = True) -> dict:
+    """One recipe run at ``--tp tp --ep ep`` on ``tp * ep`` cards:
+    per-step seconds, losses, tokens/s per chip, and (``profile``) the
+    profiled rank's kernel ms. Its output lines go to
+    ``recipe_<tag>.stdout`` as they come."""
     from skypilot_torch.utils import profiling
-    prof = os.path.join(OUT, f'profile_tp{tp}')
+    chips = tp * ep
+    tag = f'{model}_ep{ep}_tp{tp}' if ep > 1 else f'tp{tp}'
+    prof = os.path.join(OUT, f'profile_{tag}')
     os.makedirs(prof, exist_ok=True)
-    env = _env(tp)
+    env = _env(chips)
     env.update(SKYTPU_PROFILE_DIR=prof,
                SKYTPU_COORDINATOR_ADDRESS=f'127.0.0.1:{distributed.free_port()}')
     argv = [sys.executable, '-m', 'skypilot_torch.recipes.finetune',
-            '--model', 'llama3-8b', '--seq', '2048', '--batch', '8',
+            '--model', model, '--seq', '2048', '--batch', str(batch),
             '--lora-rank', '16', '--synthetic', '--steps', str(steps),
-            '--log-every', '1', '--tp', str(tp)]
+            '--log-every', '1', '--tp', str(tp), '--ep', str(ep)]
+    tokens_per_step = batch * 2048
     t0 = time.perf_counter()
-    err_path = os.path.join(OUT, f'recipe_tp{tp}.stderr')
-    with open(err_path, 'w', encoding='utf-8') as err:
+    err_path = os.path.join(OUT, f'recipe_{tag}.stderr')
+    with open(err_path, 'w', encoding='utf-8') as err, \
+            open(err_path[:-len('stderr')] + 'stdout', 'w',
+                 encoding='utf-8') as out:
         proc = subprocess.Popen(argv, cwd=ROOT, env=env,
                                 stdout=subprocess.PIPE, stderr=err,
                                 text=True)
         lines = []
         for line in proc.stdout:
             lines.append(line.rstrip())
-            if line.startswith('step 5 '):
+            out.write(line)
+            out.flush()
+            if profile and line.startswith('step 5 '):
                 profiling.write_trigger(prof, steps=2)
     assert proc.wait() == 0, _tail(err_path)
     wall = time.perf_counter() - t0
@@ -118,10 +143,10 @@ def recipe(tp: int, steps: int) -> dict:
         if m:
             k = int(m.group(1))
             done[k] = (float(m.group(2)),
-                       (k + 1) * TOKENS_PER_STEP / int(m.group(4)))
+                       (k + 1) * tokens_per_step / int(m.group(4)))
     step_s = [done[k][1] - done[k - 1][1] for k in range(1, 6)]
     mean = sum(step_s) / len(step_s)
-    summary = profiling.load_summary(prof)
+    summary = profiling.load_summary(prof) if profile else None
     kernels = None
     if summary is not None:
         rows = [r for r in summary['rows'] if r['category'] == 'kernel']
@@ -136,11 +161,56 @@ def recipe(tp: int, steps: int) -> dict:
             top=[dict(name=r['name'][:80], ms=r['total_ms'] /
                       summary['steps'])
                  for r in sorted(rows, key=lambda r: -r['total_ms'])[:8]])
-    return dict(tp=tp, chips=tp, head=lines[0], losses=[done[k][0]
-                                                       for k in sorted(done)],
+    return dict(model=model, tp=tp, ep=ep, chips=chips, batch=batch,
+                head=lines[0], losses=[done[k][0] for k in sorted(done)],
                 step_s=step_s, step_s_mean=mean,
-                tokens_per_s_per_chip=TOKENS_PER_STEP / mean / tp,
+                tokens_per_s_per_chip=tokens_per_step / mean / chips,
                 profiled_rank=kernels, wall_s=wall)
+
+
+def _exchange_rank(torch, rank: int, world: int, dev, ep: int,
+                   tp: int) -> dict:
+    """The MoE dispatch exchange of the recipe at ``ep`` x ``tp`` (one
+    batch row a data rank): mixtral-8x7b's ``[E, C, D]`` bf16 buffer
+    (8 x 1024 x 4096, 67 MB) through ``Layout.to_experts`` over the
+    mesh's ``ep`` group, 20 times after 3 warm-ups, timed with CUDA
+    events; and ``all_to_all_single`` of the same buffer alone."""
+    import torch.distributed as dist
+
+    from skypilot_torch.parallel import mesh as mesh_lib
+    from skypilot_torch.parallel import sharding
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(
+        fsdp=world // (ep * tp), ep=ep, tp=tp))
+    layout = sharding.Layout(mesh, {})
+    x = torch.randn((8, 1024, 4096), device=dev).to(torch.bfloat16)
+    out = torch.empty_like(x)
+    group = mesh.group(('ep',))
+    res = {}
+    for name, fn in (('to_experts', lambda: layout.to_experts(x)),
+                     ('all_to_all_single', lambda: dist.all_to_all_single(
+                         out, x, group=group))):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        res[f'{name}_ms'] = start.elapsed_time(end) / 20
+    res['bytes'] = x.numel() * x.element_size()
+    res['bus_gb_s'] = (res['bytes'] * (ep - 1) / ep /
+                       (res['all_to_all_single_ms'] / 1e3) / 1e9)
+    return res
+
+
+def exchanges(ep: int, tp: int) -> dict:
+    """``_exchange_rank`` on four cards over NCCL: each rank's ms."""
+    ranks, _ = chip_smoke._tp_spawn('nccl', 4, target=_exchange_rank,
+                                    args=(ep, tp))
+    return dict(ep=ep, tp=tp, ranks=ranks)
 
 
 def _post(port: int, prompt: list, n: int) -> tuple:
@@ -154,14 +224,16 @@ def _post(port: int, prompt: list, n: int) -> tuple:
     return ids, 1e3 * (time.perf_counter() - t0)
 
 
-def replica(tp: int, chips: int, prompts: list) -> dict:
-    """The replica at ``--tp tp`` over ``chips`` cards: each prompt's
-    ids at 32 new tokens, TTFT and TPOT per prompt."""
+def replica(tp: int, chips: int, prompts: list,
+            model: str = 'llama3-8b') -> dict:
+    """The replica of ``model`` at ``--tp tp`` over ``chips`` cards: each
+    prompt's ids at 32 new tokens, TTFT and TPOT per prompt."""
     port = distributed.free_port()
     argv = [sys.executable, '-m', 'skypilot_torch.recipes.serve_model',
-            '--model', 'llama3-8b', '--tp', str(tp), '--port', str(port)]
+            '--model', model, '--tp', str(tp), '--port', str(port)]
     t0 = time.perf_counter()
-    err_path = os.path.join(OUT, f'replica_tp{tp}_chips{chips}.stderr')
+    err_path = os.path.join(OUT, f'replica_{model}_tp{tp}_chips{chips}'
+                            '.stderr')
     err = open(err_path, 'w', encoding='utf-8')
     proc = subprocess.Popen(argv, cwd=ROOT, env=_env(chips),
                             stdout=subprocess.PIPE, stderr=err, text=True)
@@ -183,7 +255,8 @@ def replica(tp: int, chips: int, prompts: list) -> dict:
             proc.kill()
             proc.communicate()
         err.close()
-    return dict(tp=tp, chips=chips, setup_s=setup_s, requests=rows)
+    return dict(model=model, tp=tp, chips=chips, setup_s=setup_s,
+                requests=rows)
 
 
 def _decode_steps(config, layout, params, dev, n: int,
@@ -318,6 +391,9 @@ def main() -> int:
     parser.add_argument('--replicas', default='1:1,2:2,2:4')
     parser.add_argument('--steps', type=int, default=10)
     parser.add_argument('--decode-profile', type=int, default=16)
+    parser.add_argument('--moe', default='',
+                        help='mixtral-8x7b recipe meshes: ep4, ep2tp2')
+    parser.add_argument('--moe-replica-tp', type=int, default=0)
     args = parser.parse_args()
     os.makedirs(OUT, exist_ok=True)
     smi = cards()
@@ -331,6 +407,24 @@ def main() -> int:
                    per_chip_vs_one_card=row['tokens_per_s_per_chip'] /
                    base['tokens_per_s_per_chip'])
         log('TP_RECIPE ' + json.dumps(row))
+    moe_meshes = {'ep4': (4, 1), 'ep2tp2': (2, 2)}
+    for name in [m for m in args.moe.split(',') if m]:
+        ep, tp = moe_meshes[name]
+        row = recipe(tp, args.steps, model='mixtral-8x7b', ep=ep, batch=ep,
+                     profile=False)
+        row.update(cards=smi[:ep * tp], mesh=name,
+                   exchange=exchanges(ep, tp),
+                   exchanges_a_step=6 * 32)
+        log('MOE_RECIPE ' + json.dumps(row))
+    if args.moe_replica_tp:
+        import random
+        rand = random.Random(SEED)
+        prompts = [[rand.randrange(32000) for _ in range(PROMPT)]
+                   for _ in range(3)]
+        row = replica(args.moe_replica_tp, args.moe_replica_tp, prompts,
+                      model='mixtral-8x7b')
+        row['cards'] = smi[:args.moe_replica_tp]
+        log('MOE_REPLICA ' + json.dumps(row))
     if args.decode_profile:
         row = decode_profile(args.decode_profile)
         log('TP_DECODE_PROFILE ' + json.dumps(dict(cards=smi[:2], **row)))
