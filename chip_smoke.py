@@ -181,13 +181,14 @@ in order (any failure exits non-zero; nothing is caught):
    fixed batch (K1-RoPE 192, pre-pass = K2 = K3 = 96), falling losses,
    step time, tokens/s, MFU (4N), peak memory and a profile of one more
    step.
-17. CKPT (checkpoint and resume; ``build/ckpt_smoke``, its free space
-   checked first against two LoRA saves, deleted at the end):
-   ``recipes/finetune.main`` at the train phase's arguments with
+17. CKPT (checkpoint and resume at llama3-8b's widths cut to
+   ``CKPT_LAYERS`` = 8 layers; ``build/ckpt_smoke``, its
+   free space checked first against two LoRA saves, deleted at the
+   end): ``recipes/finetune.main`` at the train phase's arguments with
    ``--checkpoint-dir`` and ``SKYTPU_TASK_ID`` commits step 0 (its bytes
    equal to the state's, the loop-blocking snapshot seconds, the
    background write seconds, the ``skytpu_ckpt_*`` and goodput deltas;
-   K1-RoPE 2 x 32, pre-pass = K2 = K3 = 32 for its step); the step
+   K1-RoPE 2 L, pre-pass = K2 = K3 = L for its step); the step
    restored here into a template from another seed, every leaf's CRC32
    recomputed from the restored tensors equal to the manifest's; the
    next step on it and on the restarted iterator's first batch is the
@@ -292,6 +293,29 @@ in order (any failure exits non-zero; nothing is caught):
    1's greedy tokens within ``TP_LOGIT_REL_TOL`` on every step that
    routed each token to tp 1's experts (a step that did not, at most a
    quarter of them, only at ``MOE_FLIP_GAP`` near-ties; ``MOE_TP_SERVE``).
+22. SP: sequence parallelism. A probe of gloo's ``send``/``recv`` on
+   CUDA tensors, in two ranks of their own (``SP_P2P_PROBE``; the
+   phase's exchanges stage CUDA tensors through the host on a gloo group
+   whatever it says). K1, the pre-pass, K2 and K3 at the ring's block
+   shape (B 1, T = S = 4096, H 32, Hkv 8, D 128), the diagonal block
+   causal and an earlier one full, against their plain versions in f32.
+   Two ranks at sp 2 sharing the card over gloo: ``ring_attention`` on
+   their halves of a T 8192 sequence, out and gradients against K1/K2/K3
+   on the whole sequence here; per rank i, K1 = i + 1 a ring forward,
+   pre-pass = K2 = K3 = i + 1 a backward, (k, v) sent once forward and
+   (k, v, dk, dv), (dk, dv) backward (``SP_RING``). Then the LoRA and
+   QLoRA steps at llama3-8b width, 4 layers, seq 8192, batch 2 against
+   sp 1 here within ``TRAIN_TOL``, K1 = 2 L (i + 1) with the remat
+   recompute, pre-pass = K2 = K3 = L (i + 1), the ring's sends, step
+   ms and peak memory (``SP_LORA``, ``SP_QLORA``).
+23. PP: pipeline parallelism. Two stages at pp 2 sharing the card over
+   gloo, the LoRA step at llama3-8b width, 4 layers, seq 2048, batch 8
+   in 4 microbatches under GPipe and 1F1B against the unpipelined step
+   here within ``TRAIN_TOL``: per stage K1-RoPE 2 (3 on 1F1B's first
+   stage) and pre-pass = K2 = K3 = 1 a layer a microbatch, M sends a
+   stage, step ms, peak memory (``PP_GPIPE``, ``PP_1F1B``); then 8
+   microbatches of the same size, whose 1F1B peak may not exceed the 4
+   microbatches' (``PP_MEMORY``).
 
 Then one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line. ``--phases`` runs a subset (no
@@ -319,7 +343,7 @@ L2_BYTES = 50 * 2 ** 20
 PHASES = ('k1', 'k4', 'e2e', 'serve', 'k1r', 'bwd', 'train', 'k5', 'k5f',
           'k4p', 'k4pre', 'invariance', 'engine', 'sampling', 'adapters',
           'rows', 'k6', 'int8k', 'int8', 'qlora', 'ckpt', 'moe', 'moe_train',
-          'fsdp', 'tp')
+          'fsdp', 'tp', 'sp', 'pp')
 K1_TOL = {'out': 2e-2, 'lse': 2e-2}
 # K2/K3 in bf16 (P and dS rounded to bf16 before their products) against
 # f32 on the same rotated bf16 q and k: max |err| over max |ref| per
@@ -6026,6 +6050,8 @@ def qlora_phase(torch, attention):
 # ---------------------------------------------------------------------
 
 FSDP_STEPS = 3
+# The point-to-point counts of a step that sends nothing over sp or pp.
+NO_P2P = dict(ring_sends=0, pp_sends=0, host_staged=0)
 
 
 def _fsdp_identity(config, layout, n_steps):
@@ -6064,7 +6090,7 @@ def _fsdp_identity(config, layout, n_steps):
                                   (dims(base) + dims(lora)) + top),
             'reduce_scatters': n_steps * config.n_layers * dims(lora),
             'all_reduces': n_steps * (2 + replicated + groups),
-            'tp_reduces': 0, 'all_to_alls': 0}
+            'tp_reduces': 0, 'all_to_alls': 0, **NO_P2P}
 
 
 def _bits_diff(torch, a, b):
@@ -6488,14 +6514,17 @@ def _tp_adapters(torch, config, dtype, dev, window=None):
 
 
 def _tp_train(torch, counters, qlora, dev, mesh=None, model='llama3-8b',
-              layers=TP_TRAIN_LAYERS, batch_size=TP_BATCH):
+              layers=TP_TRAIN_LAYERS, batch_size=TP_BATCH, seq=TP_SEQ,
+              step_kw=None):
     """``model``'s width at ``layers`` layers (llama3-8b at
     ``TP_TRAIN_LAYERS``), seq 2048, batch 8, LoRA rank 16 over a bf16
     (``qlora``: int8) base from seed 0 with ``_tp_adapters``: the first
     step's loss, grad norm and updated adapters (this rank's blocks and
-    windows over ``mesh``), then a second step's ms, launches and
-    collectives; for a dense model on a mesh with no ``tp``, the
-    collectives' identity (``_fsdp_identity``)."""
+    windows over ``mesh``), then a second step's ms, launches,
+    collectives and peak memory; for a dense model on a mesh with no
+    ``tp``, ``sp`` or ``pp``, the collectives' identity
+    (``_fsdp_identity``). ``step_kw`` goes to ``build_train_step`` (a
+    pipeline's microbatches and schedule)."""
     import gc
 
     from skypilot_torch.models import llama
@@ -6503,7 +6532,6 @@ def _tp_train(torch, counters, qlora, dev, mesh=None, model='llama3-8b',
     from skypilot_torch.parallel import train as train_lib
     gc.collect()
     torch.cuda.empty_cache()
-    seq = TP_SEQ
     config = llama.get_config(model, n_layers=layers, max_seq_len=seq)
     if qlora:
         state = train_lib.init_qlora_state(config, seed=0, lora_rank=TP_RANK,
@@ -6515,7 +6543,8 @@ def _tp_train(torch, counters, qlora, dev, mesh=None, model='llama3-8b',
     state.lora = _tp_adapters(
         torch, config, torch.bfloat16, dev, None if mesh is None
         else sharding.window_fn(mesh, state.layout.lora))
-    step_fn = train_lib.build_train_step(config, mesh=mesh)
+    step_fn = train_lib.build_train_step(config, mesh=mesh,
+                                         **(step_kw or {}))
     gen = torch.Generator().manual_seed(TP_SEED + int(qlora))
     batch = {'tokens': torch.randint(0, config.vocab_size,
                                      (batch_size, seq + 1),
@@ -6526,14 +6555,17 @@ def _tp_train(torch, counters, qlora, dev, mesh=None, model='llama3-8b',
     adapters = {k: ((None, v.float().cpu()) if state.layout is None else
                     (v.index, v.data.float().cpu())) for k, v in lora.items()}
     first = dict(loss=float(m['loss']), grad_norm=float(m['grad_norm']))
+    torch.cuda.reset_peak_memory_stats()
     _, ms, launches, coll = _tp_counted(
         torch, counters, lambda: step_fn(state, batch))
     out = dict(first=first, adapters=adapters, ms=ms, launches=launches,
                collectives=coll, tokens=batch_size * seq,
                layers=config.n_layers,
                chunks=-(-seq // llama.LOSS_CHUNK)
-               if seq % llama.LOSS_CHUNK == 0 else 1)
-    if mesh is not None and mesh.shape['tp'] == 1 and not config.n_experts:
+               if seq % llama.LOSS_CHUNK == 0 else 1,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    if (mesh is not None and not config.n_experts and
+            mesh.size(('tp', 'sp', 'pp')) == 1):
         out['collectives_expected'] = _fsdp_identity(config, state.layout,
                                                      1)
     del state
@@ -6672,7 +6704,7 @@ def _tp_serve_identity(L, world):
                 'flash_bwd_prep': 0, 'flash_bwd_dq': 0, 'flash_bwd_dkv': 0}
     tp = (2 * L + 1) * fwd + 2 * fwd if world > 1 else 0
     return launches, {'gathers': 0, 'reduce_scatters': 0, 'all_reduces': 0,
-                      'tp_reduces': tp, 'all_to_alls': 0}
+                      'tp_reduces': tp, 'all_to_alls': 0, **NO_P2P}
 
 
 def _tp_train_identity(L, chunks, world):
@@ -6695,11 +6727,11 @@ def _tp_train_identity(L, chunks, world):
                 'flash_bwd_dq': L, 'flash_bwd_dkv': L}
     if world == 1:
         coll = dict(gathers=0, reduce_scatters=0, all_reduces=0,
-                    tp_reduces=0, all_to_alls=0)
+                    tp_reduces=0, all_to_alls=0, **NO_P2P)
     else:
         coll = dict(gathers=0, reduce_scatters=0, all_reduces=2 + 4 + 2,
                     tp_reduces=1 + 2 * L + L + (2 * L - 1) +
-                    2 * chunks + 1, all_to_alls=0)
+                    2 * chunks + 1, all_to_alls=0, **NO_P2P)
     return launches, coll
 
 
@@ -6868,18 +6900,454 @@ def tp_phase(torch, attention, da, dev='cuda'):
 
 
 # ---------------------------------------------------------------------
+# Sequence and pipeline parallelism
+# ---------------------------------------------------------------------
+
+# The ring alone: a rank's shard (B, T / sp, H, Hkv, D) at llama3-8b's
+# heads, over sp 2: T = 8192.
+SP_RING = (1, 4096, 32, 8, 128)
+# The sp steps: llama3-8b width, SP_LAYERS layers, seq SP_SEQ, batch
+# SP_BATCH; the pp steps: PP_LAYERS layers, seq PP_SEQ, batch PP_BATCH in
+# PP_MICRO microbatches, and for the memory check PP_MEM_MICRO
+# microbatches of the same size.
+SP_LAYERS, SP_SEQ, SP_BATCH = 4, 8192, 2
+PP_LAYERS, PP_SEQ, PP_BATCH, PP_MICRO, PP_MEM_MICRO = 4, 2048, 8, 4, 8
+SP_SEED = 62
+
+
+def _attention_counters(attention):
+    """The launch counts of the training attention: K1 plain and with
+    RoPE, the pre-pass, K2, K3."""
+    return {'flash_fwd': attention.FLASH_FWD,
+            'flash_fwd_rope': attention.FLASH_FWD_ROPE,
+            'flash_bwd_prep': attention.FLASH_BWD_PREP,
+            'flash_bwd_dq': attention.FLASH_BWD_DQ,
+            'flash_bwd_dkv': attention.FLASH_BWD_DKV}
+
+
+def _ring_inputs(torch, dev, world):
+    """The whole sequence's q, k, v and dout (bf16, seeded on the host,
+    the same on every rank): ``SP_RING``'s shard times ``world``."""
+    b, t, h, hkv, d = SP_RING
+    gen = torch.Generator().manual_seed(SP_SEED)
+    shapes = ((b, t * world, h, d), (b, t * world, hkv, d),
+              (b, t * world, hkv, d), (b, t * world, h, d))
+    return [torch.randn(s, generator=gen).to(dev, torch.bfloat16)
+            for s in shapes]
+
+
+def _p2p_probe_rank(torch, rank, world, dev):
+    """Whether gloo's ``send``/``recv`` carry a CUDA tensor as it is: rank
+    0 sends [0, 1, 2, 3] + 10 to rank 1. Run in ranks of their own, so a
+    crash reads as the probe's answer (``_p2p_probe``)."""
+    import torch.distributed as dist
+    x = torch.arange(4, dtype=torch.float32, device=dev) + 10
+    try:
+        if rank == 0:
+            dist.send(x, 1)
+            return dict(ok=True)
+        y = torch.zeros_like(x)
+        dist.recv(y, 0)
+        torch.cuda.synchronize()
+        return dict(ok=y.tolist() == [10.0, 11.0, 12.0, 13.0],
+                    got=y.tolist())
+    except RuntimeError as e:  # the capability probe, reported as such
+        return dict(ok=False, error=str(e)[:300])
+
+
+def _p2p_probe(dev):
+    """``_p2p_probe_rank`` on two gloo ranks sharing the card: each rank's
+    answer, or the failure of the ranks themselves. Not what the phase
+    runs on: the exchange functions stage CUDA tensors through the host
+    on every gloo group (``comm.p2p``)."""
+    try:
+        ranks, _ = _tp_spawn('gloo', 2, dev, target=_p2p_probe_rank)
+        return [r for r in ranks]
+    except AssertionError as e:  # a rank that died: the probe's answer
+        return [dict(ok=False, ranks_failed=str(e)[-300:])]
+
+
+def _sp_ring_rank(torch, rank, world, dev):
+    """``ring_attention`` on this rank's shard of ``_ring_inputs`` over
+    the mesh ``sp = world``: forward and backward each counted (launches,
+    point-to-point sends, ms) after a warm-up; the rank's out and
+    gradients on the host."""
+    from skypilot_torch.ops import attention
+    from skypilot_torch.ops import ring_attention
+    from skypilot_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(sp=world))
+    group = mesh.group(('sp',))
+    counters = _attention_counters(attention)
+    t = SP_RING[1]
+    at = slice(mesh.coordinate['sp'] * t, (mesh.coordinate['sp'] + 1) * t)
+    q, k, v, dout = (x[:, at].contiguous()
+                     for x in _ring_inputs(torch, dev, world))
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    out = ring_attention.ring_attention(q, k, v, group)   # warm-up
+    out.backward(dout)
+    for x in (q, k, v):
+        x.grad = None
+    out, fwd_ms, fwd_l, fwd_c = _tp_counted(
+        torch, counters, lambda: ring_attention.ring_attention(q, k, v,
+                                                               group))
+    _, bwd_ms, bwd_l, bwd_c = _tp_counted(
+        torch, counters, lambda: out.backward(dout))
+    return dict(device=str(dev), sp_index=mesh.coordinate['sp'],
+                window=(at.start, at.stop),
+                out=out.detach().float().cpu(),
+                grads=[x.grad.float().cpu() for x in (q, k, v)],
+                forward=dict(ms=fwd_ms, launches=fwd_l, collectives=fwd_c),
+                backward=dict(ms=bwd_ms, launches=bwd_l, collectives=bwd_c))
+
+
+def _sp_rank_cases(torch, rank, world, dev):
+    """One of ``world`` ranks at ``sp = world`` sharing the card: the
+    ring alone, then the LoRA and QLoRA steps at seq ``SP_SEQ``."""
+    from skypilot_torch.ops import attention
+    from skypilot_torch.parallel import mesh as mesh_lib
+    counters = _attention_counters(attention)
+    res = {'ring': _sp_ring_rank(torch, rank, world, dev)}
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(sp=world))
+    train = dict(layers=SP_LAYERS, batch_size=SP_BATCH, seq=SP_SEQ)
+    for case in ('lora', 'qlora'):
+        res[case] = _tp_train(torch, counters, case == 'qlora', dev, mesh,
+                              **train)
+        res[case]['sp_index'] = mesh.coordinate['sp']
+    return res
+
+
+def _ring_whole(torch, attention, dev, world):
+    """The whole sequence of ``_ring_inputs`` through K1, the pre-pass,
+    K2 and K3 (causal), timed: the ring's reference."""
+    q, k, v, dout = _ring_inputs(torch, dev, world)
+    args = [(q, k, v)]
+    out, lse = attention.flash_attention_fwd(q, k, v, causal=True)
+    grads = attention.flash_attention_bwd(q, k, v, out, lse, dout,
+                                          causal=True)
+    fwd_ms = cuda_ms(torch, lambda a, b, c: attention.flash_attention_fwd(
+        a, b, c, causal=True), args, 5)
+    bwd_ms = cuda_ms(torch, lambda a, b, c: attention.flash_attention_bwd(
+        a, b, c, out, lse, dout, causal=True), args, 5)
+    return dict(out=out.float().cpu(), grads=[g.float().cpu()
+                                                for g in grads],
+                fwd_ms=fwd_ms, bwd_ms=bwd_ms)
+
+
+def _ring_blocks(torch, attention, dev):
+    """K1, the pre-pass, K2 and K3 at the ring's block shape (T = S =
+    ``SP_RING``'s T / sp), diagonal (causal) and earlier (full) blocks,
+    against their plain versions in f32 on the same inputs (max |err|
+    over max |ref| per output), with the kernels' and plain times."""
+    b, t, h, hkv, d = SP_RING
+    gen = torch.Generator().manual_seed(SP_SEED + 1)
+    q, k, v, dout = (torch.randn(s, generator=gen).to(dev, torch.bfloat16)
+                     for s in ((b, t, h, d), (b, t, hkv, d), (b, t, hkv, d),
+                               (b, t, h, d)))
+    rows = {}
+    for name, causal in (('diagonal', True), ('earlier', False)):
+        out, lse = attention.flash_attention_fwd(q, k, v, causal=causal)
+        grads = attention.flash_attention_bwd(q, k, v, out, lse, dout,
+                                              causal=causal)
+        p_out, p_lse = attention._flash_fwd_plain(
+            q.float(), k.float(), v.float(), causal=causal)
+        p_grads = attention._flash_bwd_plain(
+            q.float(), k.float(), v.float(), out.float(), lse, dout.float(),
+            causal=causal)
+        rel = {n: float((a.float() - r.float()).abs().max() /
+                        r.float().abs().max())
+               for n, a, r in zip(('dq', 'dk', 'dv'), grads, p_grads)}
+        rows[name] = dict(
+            out_max_abs_err=float((out.float() - p_out.float()).abs().max()),
+            out_rel_err=float((out.float() - p_out.float()).abs().max() /
+                              p_out.float().abs().max()),
+            lse_max_abs_err=float((lse - p_lse).abs().max()),
+            grad_rel_err=rel,
+            fwd_ms=cuda_ms(torch, lambda a, c=causal: attention
+                           .flash_attention_fwd(a, k, v, causal=c),
+                           [(q,)], 5),
+            bwd_ms=cuda_ms(torch, lambda a, c=causal, o=out, l_=lse:
+                           attention.flash_attention_bwd(
+                               a, k, v, o, l_, dout, causal=c), [(q,)], 5),
+            plain_fwd_ms=cuda_ms(torch, lambda a, c=causal: attention
+                                 ._flash_fwd_plain(a, k, v, causal=c),
+                                 [(q,)], 2))
+        del p_grads, p_out, p_lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _rel(torch, got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _sp_ring_identity(n, i, layers=1, passes=1):
+    """Rank ``i`` of ``n``: K1 (no RoPE) ``i + 1`` a ring forward, the
+    pre-pass, K2, K3 ``i + 1`` a ring backward."""
+    return {'flash_fwd': layers * passes * (i + 1), 'flash_fwd_rope': 0,
+            'flash_bwd_prep': layers * (i + 1),
+            'flash_bwd_dq': layers * (i + 1),
+            'flash_bwd_dkv': layers * (i + 1)}
+
+
+def sp_phase(torch, attention, dev='cuda'):
+    """Sequence parallelism on the card (docstring item 22): a probe of
+    gloo's send/recv on CUDA tensors; the ring's blocks on K1/K2/K3
+    against their plain versions; two ranks at sp 2 sharing the card over
+    gloo (the exchanges staged through the host): the ring alone at
+    llama3-8b's heads against K1/K2/K3 on the whole sequence, then the
+    LoRA and QLoRA steps at seq 8192 against sp 1 here. Returns the
+    ranks' launches of the steps, by kernel."""
+    import gc
+    smi = smi_line()
+    probe = _p2p_probe(dev)
+    log('SP_P2P_PROBE ' + json.dumps(dict(
+        card=smi, backend='gloo', send_recv_cuda=probe,
+        runs_on='host-staged exchanges (comm.p2p) on every gloo '
+                'group; NCCL sends device memory')))
+    counters = _attention_counters(attention)
+    device = torch.device('cuda', 0) if dev == 'cuda' else torch.device(dev)
+    blocks = _ring_blocks(torch, attention, device)
+    whole = _ring_whole(torch, attention, device, 2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = dict(layers=SP_LAYERS, batch_size=SP_BATCH, seq=SP_SEQ)
+    ref = {c: _tp_train(torch, counters, c == 'qlora', device, **train)
+           for c in ('lora', 'qlora')}
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, spawn_s = _tp_spawn('gloo', 2, dev, target=_sp_rank_cases)
+    rings = sorted((r['ring'] for r in ranks), key=lambda r: r['sp_index'])
+    out = torch.cat([r['out'] for r in rings], dim=1)
+    grads = [torch.cat([r['grads'][j] for r in rings], dim=1)
+             for j in range(3)]
+    row = dict(card=smi, backend='gloo', world_size=2,
+               shard=dict(zip(('B', 'T_local', 'H', 'Hkv', 'D'), SP_RING)),
+               out_rel_err=_rel(torch, out, whole['out']),
+               grad_rel_err={n: _rel(torch, g, w) for n, g, w in zip(
+                   ('dq', 'dk', 'dv'), grads, whole['grads'])},
+               tol=dict(out=K1_TOL['out'], grad=BWD_REL_TOL),
+               ring_ms={r['sp_index']: dict(fwd=r['forward']['ms'],
+                                            bwd=r['backward']['ms'])
+                        for r in rings},
+               whole_sequence_ms=dict(fwd=whole['fwd_ms'],
+                                      bwd=whole['bwd_ms']),
+               launches={r['sp_index']: dict(
+                   forward=r['forward']['launches'],
+                   backward=r['backward']['launches']) for r in rings},
+               ring_sends={r['sp_index']: dict(
+                   forward=r['forward']['collectives']['ring_sends'],
+                   backward=r['backward']['collectives']['ring_sends'])
+                   for r in rings},
+               blocks=blocks, block_tol=dict(
+                   out=K1_TOL['out'], lse=K1_TOL['lse'], grad=BWD_REL_TOL),
+               ranks_s=spawn_s)
+    log('SP_RING ' + json.dumps(row))
+    assert row['out_rel_err'] <= K1_TOL['out'], row
+    assert all(e <= BWD_REL_TOL for e in row['grad_rel_err'].values()), row
+    for b in blocks.values():
+        assert b['out_max_abs_err'] <= K1_TOL['out'], b
+        assert b['lse_max_abs_err'] <= K1_TOL['lse'], b
+        assert all(e <= BWD_REL_TOL for e in b['grad_rel_err'].values()), b
+    for r in rings:
+        i = r['sp_index']
+        want = _sp_ring_identity(2, i)
+        fwd = {k: want[k] if k.startswith('flash_fwd') else 0 for k in want}
+        bwd = {k: 0 if k.startswith('flash_fwd') else want[k] for k in want}
+        assert r['forward']['launches'] == fwd, (i, r['forward'])
+        assert r['backward']['launches'] == bwd, (i, r['backward'])
+        assert r['forward']['collectives']['ring_sends'] == 2
+        assert r['backward']['collectives']['ring_sends'] == 6
+    total = {}
+    for case in ('lora', 'qlora'):
+        cases = sorted((r[case] for r in ranks), key=lambda c: c['sp_index'])
+        want = ref[case]
+        firsts = [c['first'] for c in cases]
+        assert all(f == firsts[0] for f in firsts), firsts
+        loss_rel = abs(firsts[0]['loss'] - want['first']['loss']) / abs(
+            want['first']['loss'])
+        gn_rel = abs(firsts[0]['grad_norm'] - want['first']['grad_norm']) / \
+            abs(want['first']['grad_norm'])
+        adapters = {}
+        for k, (_, whole_a) in want['adapters'].items():
+            got = _tp_assemble(torch, [c['adapters'][k] for c in cases])
+            adapters[k] = _rel(torch, got, whole_a)
+        L = want['layers']
+        # Under remat each layer's ring runs forward twice (the
+        # checkpoint's recompute) and backward once.
+        launches_want = [_sp_ring_identity(2, c['sp_index'], L, 2)
+                         for c in cases]
+        sends_want = L * (2 * 2 + 4 + 2)
+        step_s = max(c['ms'] for c in cases) / 1e3
+        row = dict(card=smi, backend='gloo', world_size=2, mesh='sp2',
+                   model='llama3-8b', layers=L, seq=SP_SEQ, batch=SP_BATCH,
+                   lora_rank=TP_RANK,
+                   base='int8' if case == 'qlora' else 'bf16',
+                   loss=[firsts[0]['loss'], want['first']['loss']],
+                   grad_norm=[firsts[0]['grad_norm'],
+                              want['first']['grad_norm']],
+                   loss_rel_err=loss_rel, grad_norm_rel_err=gn_rel,
+                   adapter_rel_err=adapters, tol=TRAIN_TOL,
+                   step_ms=[c['ms'] for c in cases],
+                   step_ms_sp1=want['ms'],
+                   tokens_per_s_sp1=want['tokens'] / (want['ms'] / 1e3),
+                   tokens_per_s_sp2_one_card=want['tokens'] / step_s,
+                   peak_gb=[c['peak_bytes'] / 1e9 for c in cases],
+                   peak_gb_sp1=want['peak_bytes'] / 1e9,
+                   launches=[c['launches'] for c in cases],
+                   launches_expected=launches_want,
+                   collectives=[c['collectives'] for c in cases],
+                   ring_sends_expected=sends_want)
+        log(f'SP_{case.upper()} ' + json.dumps(row))
+        assert loss_rel <= TRAIN_TOL['loss'], row
+        assert gn_rel <= TRAIN_TOL['grad'], row
+        assert all(v <= TRAIN_TOL['grad'] for v in adapters.values()), row
+        for c, lw in zip(cases, launches_want):
+            assert c['launches'] == lw, (c['launches'], lw)
+            assert c['collectives']['ring_sends'] == sends_want, c
+            assert c['collectives']['all_reduces'] == 2 + 4 + 1, c
+            for n, v in c['launches'].items():
+                total[n] = total.get(n, 0) + v
+    return dict(launches=total)
+
+
+def _pp_rank_cases(torch, rank, world, dev):
+    """One of ``world`` stages at ``pp = world`` sharing the card: the
+    LoRA step under GPipe and 1F1B at ``PP_MICRO`` microbatches, then at
+    ``PP_MEM_MICRO`` microbatches of the same size (peak memory)."""
+    from skypilot_torch.ops import attention
+    from skypilot_torch.parallel import mesh as mesh_lib
+    counters = _attention_counters(attention)
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(pp=world))
+    res = {'stage': mesh.coordinate['pp']}
+    mb = PP_BATCH // PP_MICRO
+    for schedule in ('gpipe', '1f1b'):
+        for micro in (PP_MICRO, PP_MEM_MICRO):
+            res[schedule, micro] = _tp_train(
+                torch, counters, False, dev, mesh, layers=PP_LAYERS,
+                batch_size=mb * micro, seq=PP_SEQ,
+                step_kw=dict(pipeline_microbatches=micro,
+                             pipeline_schedule=schedule))
+    return res
+
+
+def _pp_identity(stage, pp, schedule, layers, micro):
+    """Stage ``stage``'s launches a step under remat: K1-RoPE twice a
+    layer a microbatch (forward and the checkpoint's recompute), three
+    times on 1F1B's stages before the last (its forward keeps no graph,
+    and the backward runs it again), the pre-pass, K2 and K3 once."""
+    local = layers // pp
+    fwd = 3 if schedule == '1f1b' and stage < pp - 1 else 2
+    return {'flash_fwd': 0, 'flash_fwd_rope': fwd * local * micro,
+            'flash_bwd_prep': local * micro, 'flash_bwd_dq': local * micro,
+            'flash_bwd_dkv': local * micro}
+
+
+def pp_phase(torch, attention, dev='cuda'):
+    """Pipeline parallelism on the card (docstring item 23): two stages at
+    pp 2 sharing the card over gloo, the LoRA step at llama3-8b width
+    under GPipe and 1F1B against the unpipelined step here; each stage's
+    launches, sends and peak memory, which under 1F1B must not grow with
+    the microbatches. Returns the stages' launches, by kernel."""
+    import gc
+    smi = smi_line()
+    counters = _attention_counters(attention)
+    device = torch.device('cuda', 0) if dev == 'cuda' else torch.device(dev)
+    ref = _tp_train(torch, counters, False, device, layers=PP_LAYERS,
+                    batch_size=PP_BATCH, seq=PP_SEQ)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, spawn_s = _tp_spawn('gloo', 2, dev, target=_pp_rank_cases)
+    ranks = sorted(ranks, key=lambda r: r['stage'])
+    total = {}
+    peaks = {}
+    for schedule in ('gpipe', '1f1b'):
+        for micro in (PP_MICRO, PP_MEM_MICRO):
+            cases = [r[schedule, micro] for r in ranks]
+            peaks[schedule, micro] = [c['peak_bytes'] for c in cases]
+            launches_want = [_pp_identity(r['stage'], 2, schedule,
+                                          PP_LAYERS, micro) for r in ranks]
+            for c, lw in zip(cases, launches_want):
+                assert c['launches'] == lw, (schedule, micro, c['launches'],
+                                             lw)
+                assert c['collectives']['pp_sends'] == micro, c
+                for n, v in c['launches'].items():
+                    total[n] = total.get(n, 0) + v
+            if micro != PP_MICRO:
+                continue
+            firsts = [c['first'] for c in cases]
+            assert all(f == firsts[0] for f in firsts), firsts
+            loss_rel = abs(firsts[0]['loss'] - ref['first']['loss']) / abs(
+                ref['first']['loss'])
+            gn_rel = abs(firsts[0]['grad_norm'] -
+                         ref['first']['grad_norm']) / abs(
+                ref['first']['grad_norm'])
+            adapters = {}
+            for k, (_, whole_a) in ref['adapters'].items():
+                got = _tp_assemble(torch, [c['adapters'][k] for c in cases])
+                adapters[k] = _rel(torch, got, whole_a)
+            step_s = max(c['ms'] for c in cases) / 1e3
+            row = dict(card=smi, backend='gloo', world_size=2, mesh='pp2',
+                       schedule=schedule, microbatches=micro,
+                       model='llama3-8b', layers=PP_LAYERS, seq=PP_SEQ,
+                       batch=PP_BATCH, lora_rank=TP_RANK,
+                       loss=[firsts[0]['loss'], ref['first']['loss']],
+                       grad_norm=[firsts[0]['grad_norm'],
+                                  ref['first']['grad_norm']],
+                       loss_rel_err=loss_rel, grad_norm_rel_err=gn_rel,
+                       adapter_rel_err=adapters, tol=TRAIN_TOL,
+                       step_ms=[c['ms'] for c in cases],
+                       step_ms_unpipelined=ref['ms'],
+                       tokens_per_s_pp2_one_card=ref['tokens'] / step_s,
+                       launches=[c['launches'] for c in cases],
+                       launches_expected=launches_want,
+                       collectives=[c['collectives'] for c in cases],
+                       peak_gb=[c['peak_bytes'] / 1e9 for c in cases],
+                       peak_gb_unpipelined=ref['peak_bytes'] / 1e9)
+            log(f'PP_{schedule.upper()} ' + json.dumps(row))
+            assert loss_rel <= TRAIN_TOL['loss'], row
+            assert gn_rel <= TRAIN_TOL['grad'], row
+            assert all(v <= TRAIN_TOL['grad'] for v in adapters.values()), \
+                row
+    mem = dict(card=smi, microbatch_rows=PP_BATCH // PP_MICRO,
+               microbatches=[PP_MICRO, PP_MEM_MICRO],
+               peak_gb={f'{s}_m{m}': [b / 1e9 for b in v]
+                        for (s, m), v in peaks.items()})
+    log('PP_MEMORY ' + json.dumps(mem))
+    # 1F1B keeps at most 2 (pp - i) - 1 stage inputs, whatever the
+    # microbatch count: its peak may not grow with it (a microbatch's
+    # activation is 16 MB here; allow one of slack for the allocator).
+    slack = (PP_BATCH // PP_MICRO) * PP_SEQ * 4096 * 2
+    for a, b in zip(peaks['1f1b', PP_MICRO], peaks['1f1b', PP_MEM_MICRO]):
+        assert b <= a + slack, mem
+    return dict(launches=total)
+
+
+# ---------------------------------------------------------------------
 # Checkpoint and resume
 # ---------------------------------------------------------------------
 
 CKPT_TASK = 'ckpt-smoke'
+# The checkpoint phase's depth: llama3-8b's widths at 8 of its 32 layers
+# (a 5.60 GB LoRA save), so that the whole script keeps to its time
+# limit with the sp and pp phases (at 32 layers the phase took 275 s on
+# an H100). Both of the phase's processes run it as a model of its own
+# name (``_register_cut``).
+CKPT_LAYERS = 8
 # The replica's warm-start prompt and its new tokens (a power of two:
 # the engine-off replica's bucket).
 CKPT_PROMPT_LEN, CKPT_NEW = 64, 16
 # The resumed process: one step from the restored step 0, the launch
-# counts of that step, its restore seconds and checkpoint series.
+# counts of that step, its restore seconds and checkpoint series. Its
+# arguments: the recipe's argv, and the [model, layers] of the cut model
+# that argv names (``_register_cut``) or null.
 _CKPT_RESUME = '''
-import json, runpy, sys, time
-argv = json.loads(sys.argv[1])
+import dataclasses, json, os, runpy, sys, time
+argv, cut = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+if cut:
+    from skypilot_torch.models import llama
+    name = '%s-%dl' % tuple(cut)
+    llama.CONFIGS[name] = dataclasses.replace(
+        llama.CONFIGS[cut[0]], name=name, n_layers=cut[1])
 sys.argv = ['finetune'] + argv
 t0 = time.perf_counter()
 runpy.run_module('skypilot_torch.recipes.finetune', run_name='__main__',
@@ -6991,11 +7459,37 @@ def _replica_tokens(serve_model, lineage, slots, prompt, model, dev,
 
 
 def ckpt_phase(torch, attention, dev='cuda', model='llama3-8b', seq=2048,
-               batch=8):
-    """Checkpoint and resume at llama3-8b, 32 layers, published widths
-    (module docstring, 17). ``dev``, ``model``, ``seq`` and ``batch``
-    rehearse it on the CPU at a small size, where the wrappers run their
-    plain versions and count no launch."""
+               batch=8, layers=CKPT_LAYERS):
+    """Checkpoint and resume at llama3-8b's published widths, cut to
+    ``layers`` layers (module docstring, 17; None: the model's own depth)
+    in this process and in the resumed one. ``dev``, ``model``, ``seq``
+    and ``batch`` rehearse it on the CPU at a small size, where the
+    wrappers run their plain versions and count no launch."""
+    from skypilot_torch.models import llama
+    if layers is None:
+        return _ckpt_phase(torch, attention, dev, model, seq, batch, None)
+    name = _register_cut(llama, model, layers)
+    try:
+        return _ckpt_phase(torch, attention, dev, name, seq, batch,
+                           [model, layers])
+    finally:
+        del llama.CONFIGS[name]
+
+
+def _register_cut(llama, model, layers):
+    """Register ``model`` cut to ``layers`` layers as a model of its own,
+    ``'{model}-{layers}l'`` (the name the recipe and the replica take as
+    ``--model``), and return that name. ``_CKPT_RESUME`` registers it
+    the same way from its arguments."""
+    name = f'{model}-{layers}l'
+    llama.CONFIGS[name] = dataclasses.replace(
+        llama.CONFIGS[model], name=name, n_layers=layers)
+    return name
+
+
+def _ckpt_phase(torch, attention, dev, model, seq, batch, cut):
+    """``ckpt_phase`` for the model ``model`` of ``llama.CONFIGS``;
+    ``cut`` is ``[base model, layers]`` where ``model`` is a cut one."""
     import gc
 
     import numpy as np
@@ -7184,8 +7678,8 @@ def ckpt_phase(torch, attention, dev='cuda', model='llama3-8b', seq=2048,
     env = dict(os.environ, SKYTPU_TASK_ID=CKPT_TASK)
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, '-c', _CKPT_RESUME, json.dumps(argv + ['--steps',
-                                                                '2'])],
+        [sys.executable, '-c', _CKPT_RESUME,
+         json.dumps(argv + ['--steps', '2']), json.dumps(cut)],
         cwd=root, env=env, capture_output=True, text=True, timeout=900)
     resume_wall_s = time.perf_counter() - t0
     out = proc.stdout.splitlines()
@@ -8090,7 +8584,7 @@ def _moe_dist_identity(L, chunks, mesh_kind):
     if mesh_kind == 'ep2':
         return dict(gathers=2 * 5 * L + 2, reduce_scatters=0,
                     all_reduces=2 + 3 * L + 4 + 1, tp_reduces=0,
-                    all_to_alls=6 * L)
+                    all_to_alls=6 * L, **NO_P2P)
     coll = _tp_train_identity(L, chunks, 2 if mesh_kind == 'tp2' else 1)[1]
     if mesh_kind == 'tp2':
         coll['tp_reduces'] += L
@@ -8560,6 +9054,10 @@ def main() -> int:
         fsdp = timed(fsdp_phase, torch, attention)
     if 'tp' in phases:
         tp = timed(tp_phase, torch, attention, da)
+    if 'sp' in phases:
+        sp = timed(sp_phase, torch, attention)['launches']
+    if 'pp' in phases:
+        pp = timed(pp_phase, torch, attention)['launches']
     assert not bwd_spills, f'the backward kernels spill: {bwd_spills}'
     assert not row_spills, f'the norm or nucleus kernels spill: {row_spills}'
     assert len(k4_entries) == 32 and not k4_spills, (
@@ -8584,6 +9082,7 @@ def main() -> int:
         moe_train_rope=mt_n['flash_fwd_rope'],
         moe_dist_rope=mt_d.get('flash_fwd_rope', 0),
         tp=tp_n['flash_fwd'], tp_rope=tp_n['flash_fwd_rope'],
+        sp=sp['flash_fwd'], pp_rope=pp['flash_fwd_rope'],
         serve_8b_int8=s8['int8']['flash_fwd'],
         serve_8b_bf16=s8['bf16']['flash_fwd'],
         engine_off_int8_weights=off['flash_fwd'])
@@ -8626,14 +9125,18 @@ def main() -> int:
                        ckpt['launches']['flash_bwd_prep'] +
                        fsdp['launches']['flash_bwd_prep'] +
                        tp_n['flash_bwd_prep'] + mt_n['flash_bwd_prep'] +
-                       mt_d.get('flash_bwd_prep', 0)),
+                       mt_d.get('flash_bwd_prep', 0) + sp['flash_bwd_prep'] +
+                       pp['flash_bwd_prep']),
              launches_train=train['launches']['flash_bwd_prep'],
              launches_qlora=qlora['launches']['flash_bwd_prep'],
              launches_ckpt=ckpt['launches']['flash_bwd_prep'],
              launches_fsdp=fsdp['launches']['flash_bwd_prep'],
              launches_tp=tp_n['flash_bwd_prep'],
              launches_moe_train=mt_n['flash_bwd_prep'],
-             launches_moe_dist=mt_d.get('flash_bwd_prep', 0), **prep),
+             launches_moe_dist=mt_d.get('flash_bwd_prep', 0),
+             launches_sp=sp['flash_bwd_prep'],
+             launches_pp=pp['flash_bwd_prep'],
+             **prep),
         dict(name='flash_bwd_dq', route='cuda',
              source='skypilot_torch/csrc/flash_bwd.cu',
              replaces='skypilot_tpu/ops/attention.py:263',
@@ -8642,14 +9145,18 @@ def main() -> int:
                        ckpt['launches']['flash_bwd_dq'] +
                        fsdp['launches']['flash_bwd_dq'] +
                        tp_n['flash_bwd_dq'] + mt_n['flash_bwd_dq'] +
-                       mt_d.get('flash_bwd_dq', 0)),
+                       mt_d.get('flash_bwd_dq', 0) + sp['flash_bwd_dq'] +
+                       pp['flash_bwd_dq']),
              launches_train=train['launches']['flash_bwd_dq'],
              launches_qlora=qlora['launches']['flash_bwd_dq'],
              launches_ckpt=ckpt['launches']['flash_bwd_dq'],
              launches_fsdp=fsdp['launches']['flash_bwd_dq'],
              launches_tp=tp_n['flash_bwd_dq'],
              launches_moe_train=mt_n['flash_bwd_dq'],
-             launches_moe_dist=mt_d.get('flash_bwd_dq', 0), **k2),
+             launches_moe_dist=mt_d.get('flash_bwd_dq', 0),
+             launches_sp=sp['flash_bwd_dq'],
+             launches_pp=pp['flash_bwd_dq'],
+             **k2),
         dict(name='flash_bwd_dkv', route='cuda',
              source='skypilot_torch/csrc/flash_bwd.cu',
              replaces='skypilot_tpu/ops/attention.py:331',
@@ -8658,14 +9165,18 @@ def main() -> int:
                        ckpt['launches']['flash_bwd_dkv'] +
                        fsdp['launches']['flash_bwd_dkv'] +
                        tp_n['flash_bwd_dkv'] + mt_n['flash_bwd_dkv'] +
-                       mt_d.get('flash_bwd_dkv', 0)),
+                       mt_d.get('flash_bwd_dkv', 0) + sp['flash_bwd_dkv'] +
+                       pp['flash_bwd_dkv']),
              launches_train=train['launches']['flash_bwd_dkv'],
              launches_qlora=qlora['launches']['flash_bwd_dkv'],
              launches_ckpt=ckpt['launches']['flash_bwd_dkv'],
              launches_fsdp=fsdp['launches']['flash_bwd_dkv'],
              launches_tp=tp_n['flash_bwd_dkv'],
              launches_moe_train=mt_n['flash_bwd_dkv'],
-             launches_moe_dist=mt_d.get('flash_bwd_dkv', 0), **k3),
+             launches_moe_dist=mt_d.get('flash_bwd_dkv', 0),
+             launches_sp=sp['flash_bwd_dkv'],
+             launches_pp=pp['flash_bwd_dkv'],
+             **k3),
         dict(name='decode_attention', route='cuda',
              source='skypilot_torch/csrc/decode_attention.cu',
              replaces='skypilot_tpu/ops/decode_attention.py:123',

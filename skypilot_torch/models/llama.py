@@ -22,7 +22,11 @@ With a ``layout`` (``parallel/sharding.Layout``) the params are a
 rank's blocks on a mesh: each layer's dims sharded over the data axes
 are gathered inside its call, and over ``tp`` the layer runs
 Megatron-style on the rank's heads and ffn columns (``_layer``), the
-embedding and the fused CE on its vocabulary window.
+embedding and the fused CE on its vocabulary window. Over ``sp`` the
+tokens are the rank's positions of each row: RoPE runs at their global
+positions and attention is the ring (``attention_impl``), and an MoE
+layer routes the whole row (``_row_slots``). A pipeline stage
+(``parallel/pipeline.py``) runs its own layers through ``run_layers``.
 
 Under ``config.remat`` each layer runs in ``torch.utils.checkpoint``
 (non-reentrant): only the layer inputs are kept, and backward runs the
@@ -43,6 +47,7 @@ import torch.utils.checkpoint
 from skypilot_torch import device as device_lib
 from skypilot_torch.ops import attention as attention_ops
 from skypilot_torch.ops import moe_route as moe_route_ops
+from skypilot_torch.ops import ring_attention as ring_attention_ops
 
 Params = Dict[str, Any]
 
@@ -326,7 +331,8 @@ def init_params(config: LlamaConfig, seed: int = 0,
     return params
 
 
-def param_sharding_rules(config: LlamaConfig) -> Params:
+def param_sharding_rules(config: LlamaConfig,
+                         pipeline: bool = False) -> Params:
     """A spec per param over the mesh axes (pp, fsdp, ep, tp), the JAX
     ``param_sharding_rules`` (``parallel/sharding.py`` reads a spec as
     JAX reads ``P(...)``).
@@ -334,40 +340,43 @@ def param_sharding_rules(config: LlamaConfig) -> Params:
     TP shards heads / ffn-hidden / vocab; FSDP shards the other big
     axis (ZeRO-3). Non-expert params fold 'ep' into the fsdp group;
     expert-stacked weights shard their expert axis over 'ep'. The
-    stacked layer axis is replicated (JAX shards it over 'pp' under
-    pipeline parallelism, which the port does not run yet).
+    stacked layer axis is replicated, except under pipeline parallelism
+    (``pipeline=True``), where it shards over 'pp' so each stage holds
+    its own ``L / pp`` layers (``parallel/pipeline.py``). No spec names
+    'sp': every ``sp`` rank holds the same blocks.
     """
+    pl = 'pp' if pipeline else None
     fs = ('fsdp', 'ep')
     if config.n_experts:
         mlp_rules = {
-            'router': (None, fs, None),
-            'w_gate': (None, 'ep', 'fsdp', 'tp'),
-            'w_up': (None, 'ep', 'fsdp', 'tp'),
-            'w_down': (None, 'ep', 'tp', 'fsdp'),
+            'router': (pl, fs, None),
+            'w_gate': (pl, 'ep', 'fsdp', 'tp'),
+            'w_up': (pl, 'ep', 'fsdp', 'tp'),
+            'w_down': (pl, 'ep', 'tp', 'fsdp'),
         }
     else:
         mlp_rules = {
-            'w_gate': (None, fs, 'tp'),
-            'w_up': (None, fs, 'tp'),
-            'w_down': (None, 'tp', fs),
+            'w_gate': (pl, fs, 'tp'),
+            'w_up': (pl, fs, 'tp'),
+            'w_down': (pl, 'tp', fs),
         }
     rules = {
         'embed': ('tp', fs),
         'layers': {
-            'wq': (None, fs, 'tp'),
-            'wk': (None, fs, 'tp'),
-            'wv': (None, fs, 'tp'),
-            'wo': (None, 'tp', fs),
+            'wq': (pl, fs, 'tp'),
+            'wk': (pl, fs, 'tp'),
+            'wv': (pl, fs, 'tp'),
+            'wo': (pl, 'tp', fs),
             **mlp_rules,
-            'attn_norm': (None, None),
-            'mlp_norm': (None, None),
+            'attn_norm': (pl, None),
+            'mlp_norm': (pl, None),
         },
         'final_norm': (None,),
     }
     if config.qkv_bias:
-        rules['layers']['bq'] = (None, 'tp')
-        rules['layers']['bk'] = (None, 'tp')
-        rules['layers']['bv'] = (None, 'tp')
+        rules['layers']['bq'] = (pl, 'tp')
+        rules['layers']['bk'] = (pl, 'tp')
+        rules['layers']['bv'] = (pl, 'tp')
     if not config.tie_embeddings:
         rules['lm_head'] = (fs, 'tp')
     return rules
@@ -482,11 +491,12 @@ def _moe_aux(config: LlamaConfig, idx: torch.Tensor, probs: torch.Tensor,
     ``frac`` the share of (token, choice) entries each expert took and
     ``pm`` its mean probability, both means over the GLOBAL batch.
 
-    With a ``layout`` whose data group holds n > 1 ranks, each rank sums
-    its [E] counts and probabilities and the two are summed over the data
-    axes in one all-reduce whose backward sums the gradient too
-    (``layout.data_sum_grad``); the rank returns aux / n. The step
-    reports ``layout.data_sum`` of the ranks' losses, which counts aux
+    With a ``layout`` whose batch's tokens are split over n > 1 ranks
+    (the data axes and ``sp``, ``layout.token_axes``), each rank sums its
+    [E] counts and probabilities and the two are summed over those axes
+    in one all-reduce whose backward sums the gradient too
+    (``layout.token_sum_grad``); the rank returns aux / n. The step
+    reports ``layout.token_sum`` of the ranks' losses, which counts aux
     once, and the gradient of aux / n reaching the sum is summed over the
     n ranks on its way back, so each rank's probabilities get the whole
     d aux / d pm: the summed loss and the summed router gradient are the
@@ -496,9 +506,9 @@ def _moe_aux(config: LlamaConfig, idx: torch.Tensor, probs: torch.Tensor,
     counts = F.one_hot(idx.long(), E).sum((0, 1, 2)).to(probs.dtype)
     stats = torch.stack([counts, probs.sum((0, 1))])
     n, ranks = idx.shape[0] * idx.shape[1], 1
-    if layout is not None and layout.data_size > 1:
-        stats = layout.data_sum_grad(stats)
-        ranks = layout.data_size
+    if layout is not None and layout.token_ranks > 1:
+        stats = layout.token_sum_grad(stats)
+        ranks = layout.token_ranks
     n *= ranks
     frac = stats[0] / (n * k)
     return E * torch.sum(frac * (stats[1] / n)) / ranks
@@ -535,12 +545,24 @@ def _moe_mlp(config: LlamaConfig, h: torch.Tensor, layer_params: Params,
     its h gradient tp times under an *f*; but each rank's combine gives
     the gates only its columns' part of their gradient, so the gates
     pass through an *f* of their own (a [B, T, k] all-reduce
-    backward)."""
+    backward).
+
+    At ``sp`` > 1, h is the rank's ``T / sp`` positions of each row, and
+    the routing group is still the whole row (:func:`_row_slots`): the
+    capacity is the global T's and the slots are the row's."""
     b, t, d = h.shape
     E, k = config.n_experts, config.moe_top_k
-    cap = moe_capacity(config, t)
-    idx, gate, slot, probs = moe_route_ops.route_for_training(
-        h, layer_params['router'], k, cap)
+    sp = 1 if layout is None else layout.sp
+    cap = moe_capacity(config, t * sp)
+    if sp == 1:
+        idx, gate, slot, probs = moe_route_ops.route_for_training(
+            h, layer_params['router'], k, cap)
+    else:
+        # Routed without a drop (no expert takes more than t entries of
+        # t tokens), then given the row's slots.
+        idx, gate, slot, probs = moe_route_ops.route_for_training(
+            h, layer_params['router'], k, t)
+        slot = _row_slots(layout, idx, slot, E, cap)
     aux = _moe_aux(config, idx, probs, layout)
     f = (lambda y: y) if layout is None else layout.copy_to_tp
     rows = b * cap
@@ -565,6 +587,27 @@ def _moe_mlp(config: LlamaConfig, h: torch.Tensor, layer_params: Params,
     if layout is not None:
         out = layout.reduce_from_tp(out)
     return out, aux
+
+
+def _row_slots(layout, idx: torch.Tensor, slot: torch.Tensor, n_experts: int,
+               cap: int) -> torch.Tensor:
+    """The slots of the rank's (token, choice) entries in their WHOLE
+    rows at ``sp`` > 1: JAX routes a row as one group, token-major, so an
+    entry's slot is its slot among the rank's entries (``slot``, routed
+    with no drop) plus the row's entries for the same expert on the
+    ``sp`` ranks before it. Each rank's [B, E] counts go into its row of
+    a zeroed [sp, B, E] tensor, summed over ``sp`` in one all-reduce;
+    the exclusive prefix over the ranks gives the offsets. Entries at
+    ``cap`` or past it are dropped (-1), as JAX drops them."""
+    b = idx.shape[0]
+    one_hot = F.one_hot(idx.long(), n_experts)          # [B, t, k, E]
+    counts = torch.zeros((layout.sp, b, n_experts), dtype=torch.float32,
+                         device=idx.device)
+    counts[layout.sp_index] = one_hot.sum((1, 2)).float()
+    counts = layout.sp_sum(counts)
+    offset = counts[:layout.sp_index].sum(0).to(torch.int32)   # [B, E]
+    row = slot + offset.gather(1, idx.reshape(b, -1).long()).view(idx.shape)
+    return torch.where(row < cap, row, -1).to(torch.int32)
 
 
 def _gathered_layer(layout, specs, config: LlamaConfig, x: torch.Tensor,
@@ -714,6 +757,74 @@ def unbind_layers(w) -> list:
     return list(w.unbind(0))
 
 
+def rank_angles(config: LlamaConfig, t: int, device,
+                layout=None) -> torch.Tensor:
+    """RoPE angles ``[t, head_dim / 2]`` of the rank's ``t`` positions
+    of a row: ``0 .. t - 1``, or at ``sp`` > 1 the global positions of
+    its shard, ``sp_index t + (0 .. t - 1)`` (JAX's ``local_angles``)."""
+    start = 0 if layout is None or layout.sp == 1 else layout.sp_index * t
+    return _rope_frequencies(config, torch.arange(start, start + t,
+                                                  device=device))
+
+
+def attention_impl(layout=None):
+    """The layers' attention: causal flash attention with fused RoPE, or
+    at ``sp`` > 1 ring attention over the rank's ``sp`` group with RoPE
+    applied first at the global positions (``attention.apply_rope``, as
+    JAX's ``make_ring_attention_impl``); its blocks run on the same
+    kernels."""
+    if layout is None or layout.sp == 1:
+        return default_attn_impl()
+    group = layout.mesh.group(('sp',))
+
+    def impl(q, k, v, ang):
+        return ring_attention_ops.ring_attention(
+            attention_ops.apply_rope(q, ang), attention_ops.apply_rope(k, ang),
+            v, group)
+    return impl
+
+
+def run_layers(config: LlamaConfig, x: torch.Tensor, layers: Params,
+               angles: torch.Tensor, attn_impl,
+               lora: Optional[Params] = None, lora_scale: float = 1.0,
+               layout=None):
+    """``x`` [B, T, D] through the stacked layers ``layers`` (compute
+    dtype; with a ``layout`` this rank's blocks, gathered a layer at a
+    time inside its call) and ``lora`` (the matching adapters), each
+    layer under ``torch.utils.checkpoint`` when ``config.remat``. The
+    stack is as deep as its leaves (a pipeline stage's ``L / pp``).
+    Returns (x, the sum of the layers' MoE aux losses)."""
+    stack = {name: unbind_layers(w) for name, w in layers.items()}
+    body = _layer
+    if layout is not None:
+        body = functools.partial(_gathered_layer, layout,
+                                 layout.layer_specs())
+    loras = None
+    if lora is not None:
+        loras = {name: w.to(config.dtype).unbind(0)
+                 for name, w in lora.items()}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(len(next(iter(stack.values())))):
+        layer_params = {name: w[i] for name, w in stack.items()}
+        layer_lora = (None if loras is None else
+                      {name: w[i] for name, w in loras.items()})
+        if config.remat:
+            x, layer_aux = torch.utils.checkpoint.checkpoint(
+                body, config, x, layer_params, angles, attn_impl,
+                layer_lora, lora_scale, use_reentrant=False)
+        else:
+            x, layer_aux = body(config, x, layer_params, angles,
+                                attn_impl, layer_lora, lora_scale)
+        aux = aux + layer_aux
+    return x, aux
+
+
+def final_norm(cparams: Params, x: torch.Tensor,
+               config: LlamaConfig) -> torch.Tensor:
+    return _rms_norm(x, cparams['final_norm'], config.norm_eps,
+                     config.norm_offset)
+
+
 def forward_hidden(params: Params, tokens: torch.Tensor,
                    config: LlamaConfig,
                    positions: Optional[torch.Tensor] = None,
@@ -731,41 +842,20 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
     are this rank's blocks; each layer's are gathered inside its
     checkpointed call (``_gathered_layer``), the embedding where it is
     looked up. The cast to the compute dtype runs on the blocks, before
-    the gathers (elementwise: the same bits)."""
+    the gathers (elementwise: the same bits). At ``sp`` > 1 ``tokens``
+    are the rank's shard of each row: RoPE runs at their global
+    positions and attention is the ring (:func:`attention_impl`)."""
     _require_remat_supported(config)
     if attn_impl is None:
-        attn_impl = default_attn_impl()
+        attn_impl = attention_impl(layout)
     _, t = tokens.shape
-    if positions is None:
-        positions = torch.arange(t, device=tokens.device)
-    angles = _rope_frequencies(config, positions)
+    angles = (rank_angles(config, t, tokens.device, layout)
+              if positions is None else _rope_frequencies(config, positions))
     cparams = compute_params(params, config)
     x = embed_tokens(cparams, tokens, config, layout)
-    layers = {name: unbind_layers(w)
-              for name, w in cparams['layers'].items()}
-    body = _layer
-    if layout is not None:
-        body = functools.partial(_gathered_layer, layout,
-                                 layout.layer_specs())
-    loras = None
-    if lora is not None:
-        loras = {name: w.to(config.dtype).unbind(0)
-                 for name, w in lora.items()}
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for i in range(config.n_layers):
-        layer_params = {name: w[i] for name, w in layers.items()}
-        layer_lora = (None if loras is None else
-                      {name: w[i] for name, w in loras.items()})
-        if config.remat:
-            x, layer_aux = torch.utils.checkpoint.checkpoint(
-                body, config, x, layer_params, angles, attn_impl,
-                layer_lora, lora_scale, use_reentrant=False)
-        else:
-            x, layer_aux = body(config, x, layer_params, angles,
-                                attn_impl, layer_lora, lora_scale)
-        aux = aux + layer_aux
-    hidden = _rms_norm(x, cparams['final_norm'], config.norm_eps,
-                       config.norm_offset)
+    x, aux = run_layers(config, x, cparams['layers'], angles, attn_impl, lora,
+                        lora_scale, layout)
+    hidden = final_norm(cparams, x, config)
     if with_aux:
         return hidden, aux / config.n_layers
     return hidden
@@ -918,10 +1008,11 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     ``moe_aux_coef`` times the layer-mean aux loss for MoE configs.
     ``tokens`` is [B, T+1]: the forward runs on the first T.
 
-    With a ``layout`` the batch is this rank's rows and the params its
-    blocks; the result is this rank's share of the GLOBAL masked mean
-    (its masked NLL sum over the count all-reduced over the data axes),
-    so the shares sum to the loss of the whole batch."""
+    With a ``layout`` the batch is this rank's rows (at ``sp`` > 1 its
+    positions of them) and the params its blocks; the result is this
+    rank's share of the GLOBAL masked mean (its masked NLL sum over the
+    count all-reduced over the data axes and ``sp``), so the shares sum
+    to the loss of the whole batch."""
     tokens = batch['tokens']
     inputs = tokens[:, :-1]
     targets = tokens[:, 1:]
@@ -942,13 +1033,16 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
 def loss_from_hidden(params: Params, hidden: torch.Tensor,
                      targets: torch.Tensor, mask: torch.Tensor,
                      config: LlamaConfig, train_lm_head: bool = True,
-                     layout=None) -> torch.Tensor:
+                     layout=None, count=None) -> torch.Tensor:
     """Chunked fused LM-head + CE over final hidden states (with a
-    ``layout``: over the global unmasked count, as ``loss_fn`` says)."""
+    ``layout``: over the global unmasked count, as ``loss_fn`` says).
+    ``count``: the count to divide by, where the caller has it (a
+    pipeline's microbatch divides by the whole batch's)."""
     t = hidden.shape[1]
     chunk = LOSS_CHUNK if t % LOSS_CHUNK == 0 else t
     mask = mask.float()
-    count = None if layout is None else layout.data_sum(mask.sum())
+    if count is None and layout is not None:
+        count = layout.token_sum(mask.sum())
     tp = layout if layout is not None and layout.tp > 1 else None
     return _FusedCE.apply(hidden, output_head(params, config, layout),
                           targets.long(), mask, chunk, train_lm_head,

@@ -1,6 +1,6 @@
-"""Parallelism: the process mesh, the sharded train step, LoRA, the
-distributed bootstrap — the port of ``skypilot_tpu/parallel`` for
-what is ported (the ``pp`` pipeline is ROADMAP.md Queue 1 item 18).
+"""Parallelism: the process mesh, the sharded train step, the
+pipeline schedules, LoRA, the distributed bootstrap — the port of
+``skypilot_tpu/parallel``.
 """
 from skypilot_torch.parallel.mesh import (
     MeshConfig,
@@ -20,6 +20,7 @@ from skypilot_torch.parallel.train import (
 )
 from skypilot_torch.parallel import distributed
 from skypilot_torch.parallel import lora
+from skypilot_torch.parallel import pipeline
 
 __all__ = [
     'MeshConfig',
@@ -33,6 +34,7 @@ __all__ = [
     'instrument_train_step',
     'lora',
     'make_mesh',
+    'pipeline',
     'plan_train_state',
     'replan_mesh_config',
     'rescale_global_batch',

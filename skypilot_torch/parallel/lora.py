@@ -53,17 +53,20 @@ def init_lora(config: llama.LlamaConfig, seed: int = 0, rank: int = 16,
     }
 
 
-def lora_sharding_rules(config: llama.LlamaConfig) -> Dict[str, Any]:
+def lora_sharding_rules(config: llama.LlamaConfig,
+                        pipeline: bool = False) -> Dict[str, Any]:
     """The JAX ``lora_sharding_rules``: A shards its input dim on fsdp;
     B shards its output (head) dim on tp, matching the base wq/wv
     specs. The stacked layer axis is replicated, as the base weights'
-    is."""
+    is, or under pipeline parallelism (``pipeline=True``) sharded over
+    'pp' like theirs."""
     del config
+    pl = 'pp' if pipeline else None
     return {
-        'wq_a': (None, 'fsdp', None),
-        'wq_b': (None, None, 'tp'),
-        'wv_a': (None, 'fsdp', None),
-        'wv_b': (None, None, 'tp'),
+        'wq_a': (pl, 'fsdp', None),
+        'wq_b': (pl, None, 'tp'),
+        'wv_a': (pl, 'fsdp', None),
+        'wv_b': (pl, None, 'tp'),
     }
 
 

@@ -32,6 +32,17 @@ GPU. At ``tp`` 1 both return their input and issue nothing.
 kind where it is issued, and nowhere else, so a run can hold the
 collectives of a step against their identity.
 
+The model axes that cut a batch row rather than a layer: ``sp`` splits
+each row's tokens, so a layer's sums over tokens (the loss's count, the
+MoE aux's means) and the gradients of every leaf run over the data axes
+and ``sp`` together (:attr:`Layout.token_axes`); attention crosses the
+ranks of ``sp`` as a ring (``ops/ring_attention.py``), whose K/V blocks
+go to the next rank by ``comm.ring_exchange``. ``pp`` splits the stacked
+``[L, ...]`` layers into stages (``parallel/pipeline.py``), whose
+activations and their gradients go between neighbouring stages by
+``comm.pp_exchange``. Both are point-to-point (``skypilot_torch/
+comm.py``), counted in the same ``COLLECTIVES``.
+
 :class:`Layout` is a state's place on the mesh (the spec trees of its
 params and adapters, the rank's ``tp`` coordinate and head counts), and
 :class:`ShardedLeaf` one local tensor with its global shape and window,
@@ -45,38 +56,23 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from skypilot_torch.comm import COLLECTIVES
 from skypilot_torch.parallel import mesh as mesh_lib
 
 Spec = Tuple[Any, ...]
 DATA_AXES = mesh_lib.data_axes()
+# The process groups that :meth:`Layout.make_groups` has used once.
+_WARM = set()
 
 
-class Collectives:
-    """Counts of the collectives issued by this module: ``gathers``
-    (forward all-gathers), ``reduce_scatters`` (their backward),
-    ``all_reduces`` (over data axes), ``tp_reduces`` (the all-reduces
-    over ``tp``: *f*, *g*, the vocab-sharded lookup, loss and argmax)
-    and ``all_to_alls`` (the MoE exchanges over ``ep``, each way)."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self) -> None:
-        self.gathers = 0
-        self.reduce_scatters = 0
-        self.all_reduces = 0
-        self.tp_reduces = 0
-        self.all_to_alls = 0
-
-    def counts(self) -> Dict[str, int]:
-        return {'gathers': self.gathers,
-                'reduce_scatters': self.reduce_scatters,
-                'all_reduces': self.all_reduces,
-                'tp_reduces': self.tp_reduces,
-                'all_to_alls': self.all_to_alls}
+def _group_device(group) -> str:
+    """Where a collective on ``group`` puts its tensors: the card for
+    NCCL, the host for gloo."""
+    if dist.get_backend(group) == 'nccl':
+        return f'cuda:{torch.cuda.current_device()}'
+    return 'cpu'
 
 
-COLLECTIVES = Collectives()
 
 
 def dim_axes(entry) -> Tuple[str, ...]:
@@ -220,20 +216,20 @@ def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     return x
 
 
-class _DataSum(torch.autograd.Function):
-    """A sum over the data axes forward whose backward sums the gradient
-    over them too: each rank's share of a function of the sum sends its
-    part of the gradient to every rank's addend."""
+class _TokenSum(torch.autograd.Function):
+    """A sum over ``axes`` forward whose backward sums the gradient over
+    them too: each rank's share of a function of the sum sends its part
+    of the gradient to every rank's addend."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return all_reduce(x.clone(), mesh, DATA_AXES)
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_reduce(x.clone(), mesh, axes)
 
     @staticmethod
     def backward(ctx, g):
         return all_reduce(g.clone(memory_format=torch.contiguous_format),
-                          ctx.mesh, DATA_AXES), None
+                          ctx.mesh, ctx.axes), None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -446,19 +442,111 @@ class Layout:
             return self.tp_sum(x)
         return _ReduceFromTP.apply(x, self.mesh)
 
-    def data_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the data axes (a copy; ``x`` is kept)."""
-        return all_reduce(x.clone(), self.mesh, DATA_AXES)
+    @property
+    def token_axes(self) -> Tuple[str, ...]:
+        """The axes a batch's tokens are split over: the data axes (its
+        rows) and, above 1, ``sp`` (each row's positions)."""
+        return DATA_AXES + (('sp',) if self.sp > 1 else ())
+
+    def token_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over :attr:`token_axes` (a copy; ``x`` is kept)."""
+        return all_reduce(x.clone(), self.mesh, self.token_axes)
+
+    def loss_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' loss shares ``x`` summed into the loss: over the
+        token axes, and over ``pp`` where it is above 1 (the last stage
+        holds the CE, every stage its layers' MoE aux)."""
+        axes = self.token_axes + (('pp',) if self.pp > 1 else ())
+        return all_reduce(x.clone(), self.mesh, axes)
 
     @property
-    def data_size(self) -> int:
-        """The ranks of a data group (dp x fsdp x ep)."""
-        return self.mesh.size(DATA_AXES)
+    def token_ranks(self) -> int:
+        """The ranks that split a batch's tokens (dp x fsdp x ep x sp)."""
+        return self.mesh.size(self.token_axes)
 
-    def data_sum_grad(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the data axes, its gradient summed over them
-        too (:class:`_DataSum`); ``x`` itself on a data group of one."""
-        return x if self.data_size == 1 else _DataSum.apply(x, self.mesh)
+    def token_sum_grad(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over :attr:`token_axes`, its gradient summed over
+        them too (:class:`_TokenSum`); ``x`` itself on one rank."""
+        if self.token_ranks == 1:
+            return x
+        return _TokenSum.apply(x, self.mesh, self.token_axes)
+
+    @property
+    def sp(self) -> int:
+        """The ``sp`` size of the mesh (1: whole rows on each rank)."""
+        return self.mesh.shape['sp']
+
+    @property
+    def sp_index(self) -> int:
+        """This rank's coordinate on ``sp``: its rows' positions are
+        ``[sp_index T / sp, (sp_index + 1) T / sp)``."""
+        return self.mesh.coordinate['sp']
+
+    def sp_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed in place over this rank's ``sp`` group."""
+        return all_reduce(x, self.mesh, ('sp',))
+
+    @property
+    def pp(self) -> int:
+        """The ``pp`` size of the mesh (1: every layer on each rank)."""
+        return self.mesh.shape['pp']
+
+    @property
+    def pp_index(self) -> int:
+        """This rank's stage: its ``L / pp`` layers follow those of stage
+        ``pp_index - 1``."""
+        return self.mesh.coordinate['pp']
+
+    def grad_axes(self, spec: Spec, tp_partial: bool = False
+                  ) -> Tuple[str, ...]:
+        """The axes over which the gradient of a trainable leaf with
+        ``spec`` is summed after the backward: the token axes it is
+        replicated on (its sharded data axes were reduce-scattered by
+        the gather), ``pp`` where it is replicated over stages (the
+        embedding and the head: one stage computes their gradient), and
+        ``tp`` for a ``tp_partial`` one (``lora.TP_PARTIAL_GRADS``)."""
+        named = spec_axes(spec)
+        axes = {a for a in self.token_axes if a not in named}
+        if self.pp > 1 and 'pp' not in named:
+            axes.add('pp')
+        if tp_partial:
+            axes.add('tp')
+        return tuple(a for a in mesh_lib.AXES if a in axes)
+
+    def norm_axes(self, spec: Spec) -> Tuple[str, ...]:
+        """The axes over which the squares of a gradient block with
+        ``spec`` are summed for the global norm: the data axes it names,
+        and ``tp`` and ``pp`` where they are above 1 (a replicated leaf
+        counts once)."""
+        return tuple(a for a in spec_axes(spec)
+                     if a in DATA_AXES or (a in ('tp', 'pp') and
+                                           self.mesh.shape[a] > 1))
+
+    def make_groups(self) -> None:
+        """Make, in one order on every rank, each process group a step
+        may use: the gathers', the gradient sums' and the norm's (from
+        the specs), and the fixed ones (``tp``, ``sp``, ``pp``, ``ep``,
+        the token axes). A pipeline stage reaches its groups in an order
+        of its own (the first stage alone embeds), and making a group is
+        a collective call, so they are all made up front; each is then
+        used once, so that an NCCL communicator exists before the
+        point-to-point calls on it."""
+        sets = {('tp',), ('sp',), ('pp',), ('ep',), DATA_AXES,
+                self.token_axes}
+        for tree in (self.params, self.lora):
+            if tree is None:
+                continue
+            for spec in map_specs(lambda _, s, __: [tuple(s)], tree, tree,
+                                  flat=True):
+                sets.update(data_axes_of(e) for e in spec)
+                sets.update((self.grad_axes(spec), self.grad_axes(spec, True),
+                             self.norm_axes(spec)))
+        for axes in sorted(a for a in sets if a):
+            group = self.mesh.group(axes)
+            if id(group) not in _WARM:
+                dist.all_reduce(torch.zeros(1, device=_group_device(group)),
+                                group=group)
+                _WARM.add(id(group))
 
     @property
     def ep(self) -> int:
@@ -493,14 +581,45 @@ class Layout:
         return all_to_all(blocks, self.mesh).view((ep * el, rr // ep) +
                                                   rest)
 
-    def local_batch(self, batch: Dict[str, torch.Tensor]
+    def local_batch(self, batch: Dict[str, torch.Tensor],
+                    micro: Optional[int] = None
                     ) -> Dict[str, torch.Tensor]:
-        """This rank's rows of a global batch: its position on the data
-        axes, ``dp`` major (JAX's ``P(('dp', 'fsdp', 'ep'))``)."""
-        b = mesh_lib.batch_size_per_device(
-            next(iter(batch.values())).shape[0], self.mesh)
+        """This rank's part of a global batch of ``[B, T + 1]`` token
+        rows (and their ``loss_mask``): its rows, by its position on the
+        data axes, ``dp`` major (JAX's ``P(('dp', 'fsdp', 'ep'))``), and
+        at ``sp`` > 1 its ``T / sp`` positions of each, with the next
+        token after them, so that ``tokens[:, :-1]`` are its inputs and
+        ``tokens[:, 1:]`` their targets (JAX's ``P(..., 'sp')`` on the
+        inputs and targets). With ``micro`` (a pipeline's microbatch
+        count M) the rows are taken microbatch by microbatch: microbatch
+        m is the global rows ``[m B / M, (m + 1) B / M)``, as JAX splits
+        them, and the rank's part of it is its position's share of them;
+        the rank's rows come out microbatch-major."""
+        first = next(iter(batch.values()))
+        n = self.mesh.size(DATA_AXES)
         i = self.mesh.index(DATA_AXES)
-        return {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+        if micro is None:
+            b = mesh_lib.batch_size_per_device(first.shape[0], self.mesh)
+            out = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+        else:
+            rows = first.shape[0]
+            if rows % (micro * n):
+                raise ValueError(
+                    f'batch {rows} not divisible by num_micro={micro} x '
+                    f'the data-parallel degree {n}')
+            b = rows // (micro * n)
+            out = {k: v.reshape((micro, n, b) + tuple(v.shape[1:]))[:, i]
+                   .reshape((micro * b,) + tuple(v.shape[1:]))
+                   for k, v in batch.items()}
+        if self.sp > 1:
+            t = first.shape[1] - 1
+            if t % self.sp:
+                raise ValueError(f'sequence {t} not divisible by sp='
+                                 f'{self.sp}')
+            n = t // self.sp
+            j = self.sp_index * n
+            out = {k: v[:, j:j + n + 1] for k, v in out.items()}
+        return out
 
     def wrap(self, tree, specs):
         """``tree`` with each tensor leaf as a :class:`ShardedLeaf`."""

@@ -37,7 +37,15 @@ global norm counts each element once, and AdamW runs on the blocks.
 ``plan_train_state`` gives the per-device bytes of a mesh plan on the
 meta device.
 
-Not here yet (ROADMAP.md): the ``sp`` ring and the ``pp`` pipeline.
+Over ``sp`` each rank takes its ``T / sp`` positions of its rows
+(``Layout.local_batch``) and attention is the ring
+(``ops/ring_attention.py``); the params are replicated over ``sp``, so
+their gradients, the loss's count and the MoE aux's means are summed
+over ``sp`` as over the data axes (``Layout.token_axes``). Over ``pp``
+the stacked layers shard into stages and the step runs a GPipe or 1F1B
+schedule of ``pipeline_microbatches`` microbatches
+(``parallel/pipeline.py``); the embedding and head gradients, computed
+on one stage, are summed over ``pp``.
 """
 import dataclasses
 import math
@@ -52,6 +60,7 @@ from skypilot_torch.models import llama, quant
 from skypilot_torch.parallel import distributed
 from skypilot_torch.parallel import lora as lora_lib
 from skypilot_torch.parallel import mesh as mesh_lib
+from skypilot_torch.parallel import pipeline as pipeline_lib
 from skypilot_torch.parallel import sharding
 
 Params = llama.Params
@@ -151,26 +160,26 @@ def _get(tree: Params, path: Tuple[str, ...]) -> torch.Tensor:
     return tree
 
 
-def global_norm(grads: List[torch.Tensor], mesh=None,
+def global_norm(grads: List[torch.Tensor],
+                layout: Optional[sharding.Layout] = None,
                 specs: Optional[List[Any]] = None) -> torch.Tensor:
     """optax ``global_norm``: sqrt of the sum over leaves of sum(g*g),
-    each in the gradient's own dtype. Over a ``mesh`` the grads are
+    each in the gradient's own dtype. With a ``layout`` the grads are
     blocks with these ``specs``: each block's sum of squares is summed
-    over the ranks of its shard group (the data axes its spec names, and
-    ``tp`` where it is above 1; one all-reduce per group and dtype), and
-    a replicated leaf counts once."""
+    over the ranks of its shard group (``Layout.norm_axes``: the data
+    axes its spec names, and ``tp`` and ``pp`` where they are above 1;
+    one all-reduce per group and dtype), and a replicated leaf counts
+    once."""
     sqs = [torch.sum(g * g) for g in grads]
-    if mesh is not None:
+    if layout is not None:
         groups: Dict[Any, List[int]] = {}
         for i, (sq, spec) in enumerate(zip(sqs, specs)):
-            axes = tuple(a for a in sharding.spec_axes(spec)
-                         if a in sharding.DATA_AXES or
-                         (a == 'tp' and mesh.shape['tp'] > 1))
+            axes = layout.norm_axes(spec)
             if axes:
                 groups.setdefault((axes, sq.dtype), []).append(i)
         for (axes, _), idx in groups.items():
             summed = sharding.all_reduce(
-                torch.stack([sqs[i] for i in idx]), mesh, axes)
+                torch.stack([sqs[i] for i in idx]), layout.mesh, axes)
             for j, i in enumerate(idx):
                 sqs[i] = summed[j]
     total = None
@@ -235,12 +244,14 @@ def default_optimizer(learning_rate: float = 3e-4,
                  b1=b1, b2=b2, grad_clip=grad_clip)
 
 
-def quantized_sharding_rules(config: llama.LlamaConfig) -> Params:
+def quantized_sharding_rules(config: llama.LlamaConfig,
+                             pipeline: bool = False) -> Params:
     """``llama.param_sharding_rules`` mapped onto an int8 tree (the JAX
     ``quantized_sharding_rules``): ``{'q', 's'}`` pairs for the big
     matmuls and the LM head (``quant.init_quantized``'s structure), the
-    codes on the weight's spec and the scale on ``_scale_spec``."""
-    rules = llama.param_sharding_rules(config)
+    codes on the weight's spec and the scale on ``_scale_spec``; the
+    stacked layer axis over 'pp' with ``pipeline``."""
+    rules = llama.param_sharding_rules(config, pipeline=pipeline)
     out = dict(rules)
     layers = dict(rules['layers'])
     for name in quant._LAYER_MATMULS:  # pylint: disable=protected-access
@@ -275,36 +286,24 @@ def opt_state_shardings(trainable_specs: Params) -> Dict[str, Any]:
 def _layout(config: llama.LlamaConfig, mesh, lora: bool,
             quantized: bool = False) -> sharding.Layout:
     """The state's layout on ``mesh`` (a ``mesh.Mesh``, or a
-    ``MeshConfig`` for a plan): refuses the axes the step does not
-    shard over yet, and a ``tp`` that does not split the heads."""
-    refuse_later_axes(_mesh_shape(mesh))
-    sharding.tp_heads(config, _mesh_shape(mesh)['tp'])
-    rules = (quantized_sharding_rules(config) if quantized
-             else llama.param_sharding_rules(config))
+    ``MeshConfig`` for a plan): refuses a ``tp`` that does not split the
+    heads and a ``pp`` that does not split the layers; at ``pp`` > 1 the
+    stacked layer axis shards over it."""
+    shape = _mesh_shape(mesh)
+    sharding.tp_heads(config, shape['tp'])
+    pipeline = shape['pp'] > 1
+    if pipeline:
+        pipeline_lib.validate_pipeline_config(config, shape)
+    rules = (quantized_sharding_rules(config, pipeline) if quantized
+             else llama.param_sharding_rules(config, pipeline))
     return sharding.Layout(
-        mesh, rules, lora_lib.lora_sharding_rules(config) if lora else None)
+        mesh, rules,
+        lora_lib.lora_sharding_rules(config, pipeline) if lora else None)
 
 
 def _mesh_shape(mesh) -> Dict[str, int]:
     return mesh.shape() if isinstance(mesh, mesh_lib.MeshConfig) \
         else mesh.shape
-
-
-# The ROADMAP.md (Queue 1) item that brings each mesh axis the step
-# does not shard over yet.
-LATER_AXES = {'sp': 'item 17 (the sp ring)',
-              'pp': 'item 18 (the pp pipeline)'}
-
-
-def refuse_later_axes(shape: Dict[str, int]) -> None:
-    """Raise for the axes of ``shape`` above 1 that the step does not
-    shard over yet (all but dp, fsdp, ep and tp), naming their items."""
-    wide = {a: n for a, n in shape.items() if a in LATER_AXES and n > 1}
-    if wide:
-        raise NotImplementedError(
-            f'mesh axes {wide}: the port trains over dp, fsdp, ep and tp; '
-            + '; '.join(f'{a} comes with ROADMAP.md Queue 1 '
-                        f'{LATER_AXES[a]}' for a in wide))
 
 
 def plan_train_state(config: llama.LlamaConfig, mesh,
@@ -412,7 +411,9 @@ def init_qlora_state(config: llama.LlamaConfig, seed: int = 0,
 
 def build_train_step(config: llama.LlamaConfig,
                      optimizer: Optional[AdamW] = None,
-                     lora_scale: float = 2.0, mesh=None
+                     lora_scale: float = 2.0, mesh=None,
+                     pipeline_microbatches: Optional[int] = None,
+                     pipeline_schedule: str = 'gpipe'
                      ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                    Tuple[TrainState,
                                          Dict[str, torch.Tensor]]]:
@@ -423,13 +424,21 @@ def build_train_step(config: llama.LlamaConfig,
 
     With a ``mesh`` the state must be one made over it
     (``init_train_state(mesh=...)``), and the batch is the GLOBAL batch,
-    the same on every rank: each rank takes its rows (the data axes, dp
-    major), runs its share of the global masked mean, and the gradients
-    meet as the module docstring says. ``loss`` is the global loss on
-    every rank."""
+    the same on every rank: each rank takes its part (its rows on the
+    data axes, dp major, and its positions on ``sp``), runs its share of
+    the global masked mean, and the gradients meet as the module
+    docstring says. ``loss`` is the global loss on every rank. A ``pp``
+    axis above 1 runs the layers as a pipeline of
+    ``pipeline_microbatches`` microbatches (default ``2 pp``) under
+    ``pipeline_schedule``, ``'gpipe'`` or ``'1f1b'``
+    (``parallel/pipeline.py``); an unknown schedule raises ValueError,
+    and 1F1B with MoE or ``sp`` NotImplementedError, as in JAX."""
     optimizer = optimizer or default_optimizer()
-    if mesh is not None:
-        refuse_later_axes(mesh.shape)
+    num_micro = None
+    if mesh is not None and mesh.shape['pp'] > 1:
+        pipeline_lib.validate_pipeline_config(config, mesh.shape)
+        pipeline_lib.check_schedule(config, mesh.shape, pipeline_schedule)
+        num_micro = pipeline_microbatches or 2 * mesh.shape['pp']
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -440,39 +449,39 @@ def build_train_step(config: llama.LlamaConfig,
                              f'{getattr(layout, "mesh", None)}, the step '
                              f'over {mesh}')
         if layout is not None:
-            batch = layout.local_batch(batch)
+            batch = layout.local_batch(batch, num_micro)
         is_lora = state.lora is not None
         trainable = state.lora if is_lora else state.params
         leaves = [(p, x.detach().requires_grad_(True))
                   for p, x in _leaves(trainable)]
         tree = _tree(leaves)
-        if is_lora:
-            frozen = _tree((p, x.detach())
-                           for p, x in _leaves(state.params))
-            loss = llama.loss_fn(frozen, batch, config, lora=tree,
-                                 lora_scale=lora_scale, layout=layout)
+        frozen = (_tree((p, x.detach()) for p, x in _leaves(state.params))
+                  if is_lora else tree)
+        if num_micro is not None:
+            loss, grads = pipeline_lib.value_and_grad(
+                config, frozen, tree if is_lora else None, batch, layout,
+                [x for _, x in leaves], num_micro, pipeline_schedule,
+                lora_scale)
         else:
-            loss = llama.loss_fn(tree, batch, config, layout=layout)
-        grads = list(torch.autograd.grad(loss, [x for _, x in leaves]))
+            loss = llama.loss_fn(frozen, batch, config,
+                                 lora=tree if is_lora else None,
+                                 lora_scale=lora_scale, layout=layout)
+            grads = list(torch.autograd.grad(loss, [x for _, x in leaves]))
         specs = None
         loss = loss.detach()
         if layout is not None:
             specs = [_get(layout.trainable, p) for p, _ in leaves]
             tp_partial = layout.tp > 1 and is_lora
             for (path, _), g, spec in zip(leaves, grads, specs):
-                # Summed over the data axes the leaf is replicated on
-                # (its sharded axes were reduce-scattered by the gather),
-                # and over tp for the adapters' A factors: each rank's
-                # part comes through its own columns of B.
-                axes = [a for a in sharding.DATA_AXES
-                        if a not in sharding.spec_axes(spec)]
-                if tp_partial and path[-1] in lora_lib.TP_PARTIAL_GRADS:
-                    axes.append('tp')
+                # Summed over the axes the leaf is replicated on (the A
+                # factors' over tp too: each rank's part comes through its
+                # own columns of B).
+                axes = layout.grad_axes(spec, tp_partial and path[-1] in
+                                        lora_lib.TP_PARTIAL_GRADS)
                 if axes:
                     sharding.all_reduce(g, layout.mesh, axes)
-            loss = layout.data_sum(loss)
-        g_norm = global_norm(grads, None if layout is None
-                             else layout.mesh, specs)
+            loss = layout.loss_sum(loss)
+        g_norm = global_norm(grads, layout, specs)
         new_trainable, new_opt = optimizer.update(
             _tree((p, g) for (p, _), g in zip(leaves, grads)),
             state.opt_state, trainable, g_norm)

@@ -43,15 +43,16 @@ Several devices: one process per GPU, from the runtime's env contract
 the host (``SKYTPU_NUM_CHIPS_PER_NODE``, else every visible GPU); the
 workers of every host join one process group at the contract's
 coordinator and train over a mesh of all of them
-(``auto_mesh_config(dp=--dp, tp=--tp)``: what ``--dp`` and ``--tp`` do
-not claim goes to fsdp): FSDP/DP over the data axes, Megatron tensor
-parallel over ``tp`` (``parallel/train.py``). Every rank draws the
-global batch as a one-process run draws it and the step takes its rows;
-rank 0 prints. On the CPU the workers are gloo processes
-(``SKYTPU_NUM_CHIPS_PER_NODE=2 ... --device cpu [--tp 2]``).
-
-Not ported yet, and refused with the ROADMAP.md item that brings them:
-``--ep``, ``--sp`` and ``--pp`` above 1 and ``--microbatches``.
+(``auto_mesh_config(dp=--dp, ep=--ep, tp=--tp, sp=--sp, pp=--pp)``:
+what they do not claim goes to fsdp): FSDP/DP over the data axes,
+Megatron tensor parallel over ``tp``, expert parallel over ``ep``, ring
+attention over ``sp`` and a pipeline of ``--microbatches`` microbatches
+(default 2 pp; GPipe, as JAX's recipe runs it) over ``pp``
+(``parallel/train.py``, ``parallel/pipeline.py``). Every rank draws the
+global batch as a one-process run draws it and the step takes its rows
+and, over ``sp``, its positions of them; rank 0 prints. On the CPU the
+workers are gloo processes (``SKYTPU_NUM_CHIPS_PER_NODE=2 ... --device
+cpu [--tp 2 | --sp 2 | --pp 2 --microbatches 4]``).
 """
 import argparse
 import json
@@ -71,6 +72,7 @@ from skypilot_torch.metrics import publish as publish_lib
 from skypilot_torch.models import llama
 from skypilot_torch.parallel import distributed
 from skypilot_torch.parallel import mesh as mesh_lib
+from skypilot_torch.parallel import pipeline as pipeline_lib
 from skypilot_torch.parallel import train as train_lib
 
 
@@ -94,11 +96,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument('--ep', type=int, default=1,
                    help='expert-parallel degree (an MoE model\'s experts '
                         'split over it; a data axis elsewhere)')
-    for axis in ('sp', 'pp'):
-        p.add_argument(f'--{axis}', type=int, default=1,
-                       help='mesh axis degree (only 1 is ported)')
+    p.add_argument('--sp', type=int, default=1,
+                   help='sequence-parallel degree (ring attention)')
+    p.add_argument('--pp', type=int, default=1,
+                   help='pipeline-parallel degree')
     p.add_argument('--microbatches', type=int, default=None,
-                   help='pipeline microbatches (not ported)')
+                   help='pipeline microbatches (default 2*pp)')
     p.add_argument('--data', default=None,
                    help='tokenized dataset (.npy of token ids)')
     p.add_argument('--synthetic', action='store_true', default=None)
@@ -123,13 +126,12 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def check_args(args: argparse.Namespace) -> None:
-    """Raise for what this slice of the port does not run."""
-    train_lib.refuse_later_axes(
-        {a: getattr(args, a) for a in train_lib.LATER_AXES})
-    if args.microbatches is not None:
-        raise NotImplementedError(
-            '--microbatches: pipeline parallelism is not ported '
-            '(ROADMAP.md Queue 1 item 18)')
+    """Raise, before any worker starts, for the pipeline configurations
+    JAX refuses: layers that ``--pp`` does not split, and MoE with
+    ``--sp`` inside a pipeline."""
+    if args.pp > 1:
+        pipeline_lib.validate_pipeline_config(
+            llama.get_config(args.model), {'pp': args.pp, 'sp': args.sp})
 
 
 def _elastic_design(lineage_dir, n_now, global_batch):
@@ -224,7 +226,8 @@ def build(args: argparse.Namespace):
     dev = device_lib.resolve_device(args.device)
     num_slices = mesh_lib.num_slices_from_env()
     mesh_cfg = mesh_lib.auto_mesh_config(dp=args.dp, ep=args.ep,
-                                         tp=args.tp, num_slices=num_slices)
+                                         tp=args.tp, sp=args.sp, pp=args.pp,
+                                         num_slices=num_slices)
     mesh = (mesh_lib.make_mesh(mesh_cfg, num_slices=num_slices)
             if distributed.is_initialized() else None)
     if args.elastic and args.checkpoint_dir:
@@ -238,7 +241,9 @@ def build(args: argparse.Namespace):
         lora_rank=None if args.full_ft else args.lora_rank, device=dev,
         mesh=mesh)
     step_fn = train_lib.instrument_train_step(
-        train_lib.build_train_step(config, optimizer=optimizer, mesh=mesh),
+        train_lib.build_train_step(
+            config, optimizer=optimizer, mesh=mesh,
+            pipeline_microbatches=args.microbatches),
         tokens_per_step=args.batch * args.seq, model_config=config,
         full_finetune=args.full_ft)
     batches = data_iterator(args, config.vocab_size,

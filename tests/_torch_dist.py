@@ -175,15 +175,20 @@ def shard_state(state, cfg, mesh):
         lora=cut(state.lora, layout.lora), layout=layout)
 
 
+# Overrides of a ``train_steps`` case that go to ``build_train_step``.
+STEP_KEYS = ('pipeline_microbatches', 'pipeline_schedule')
+
+
 def train_steps(mesh_kw, cases, save_dir=None):
     """For each ``(name, state_np, batches)`` case (or ``(name, state_np,
     batches, config overrides)``): the whole state (numpy
     ``params``/``lora`` trees, ``dtype``) placed on the mesh
     ``MeshConfig(**mesh_kw)``, then one ``build_train_step`` step per
     global batch (on ``tiny``, or the overrides' ``model``; with
-    per-layer checkpointing where the name ends in ``_remat``). Returns per case the losses, grad norms,
-    this rank's blocks after the steps and the collectives of the last
-    step. With
+    per-layer checkpointing where the name ends in ``_remat``; the
+    overrides' ``STEP_KEYS`` go to the step). Returns per case the
+    losses, grad norms, this rank's blocks after the steps and the
+    collectives of the last step. With
     ``save_dir`` each case's last state is saved (step 1) under
     ``save_dir/<name>``, every rank writing its part."""
     from skypilot_torch.models import convert, llama
@@ -193,13 +198,14 @@ def train_steps(mesh_kw, cases, save_dir=None):
     out = {}
     for name, state_np, batches, *kw in cases:
         kw = dict(kw[0]) if kw else {}
+        step_kw = {k: kw.pop(k) for k in STEP_KEYS if k in kw}
         cfg = llama.get_config(kw.pop('model', 'tiny'),
                                remat=name.endswith('_remat'), **kw)
         whole = convert.train_state_from_numpy(
             state_np['params'], state_np['lora'], state_np['dtype'],
             device='cpu')
         state = shard_state(whole, cfg, mesh)
-        step = train.build_train_step(cfg, mesh=mesh)
+        step = train.build_train_step(cfg, mesh=mesh, **step_kw)
         metrics = []
         for batch in batches:
             sharding.COLLECTIVES.reset()
@@ -321,3 +327,74 @@ def serve_ranks(mesh_kw, params_np, prompt, n_new, cfg_kw=None,
         out['generate_tp_reduces'] = sharding.COLLECTIVES.tp_reduces
     out.update(prefill=logits, step=step_logits)
     return out
+
+
+def ring_rank(q, k, v, dout):
+    """Ring attention over the ``sp = world`` group on this rank's
+    positions of the whole numpy q, k, v ``[B, T, H(kv), D]``: its out
+    and the gradients of ``sum(out * dout)`` for its q, k and v, with the
+    kernels' launches and the point-to-point counts of the call."""
+    import torch.distributed as dist
+    from skypilot_torch.ops import ring_attention
+    from skypilot_torch.parallel import mesh as mesh_lib
+    from skypilot_torch.parallel import sharding
+    n = dist.get_world_size()
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(sp=n))
+    t = q.shape[1] // n
+    at = slice(mesh.coordinate['sp'] * t, (mesh.coordinate['sp'] + 1) * t)
+    ql, kl, vl = (torch.from_numpy(np_x[:, at].copy()).requires_grad_(True)
+                  for np_x in (q, k, v))
+    sharding.COLLECTIVES.reset()
+    out = ring_attention.ring_attention(ql, kl, vl, mesh.group(('sp',)))
+    forward = sharding.COLLECTIVES.counts()
+    (out * torch.from_numpy(dout[:, at].copy())).sum().backward()
+    return {'window': (at.start, at.stop), 'out': out.detach().numpy(),
+            'dq': ql.grad.numpy(), 'dk': kl.grad.numpy(),
+            'dv': vl.grad.numpy(), 'forward': forward,
+            'total': sharding.COLLECTIVES.counts()}
+
+
+def moe_row_slots(h, router, k, cap):
+    """The MoE routing of this rank's ``sp = world`` shard of the whole
+    numpy ``h [B, T, D]`` over ``router [D, E]``: (idx, slot) with slots
+    in the whole rows (``llama._row_slots``), -1 where dropped."""
+    import torch.distributed as dist
+    from skypilot_torch.models import llama
+    from skypilot_torch.ops import moe_route
+    from skypilot_torch.parallel import mesh as mesh_lib
+    from skypilot_torch.parallel import sharding
+    n = dist.get_world_size()
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(sp=n))
+    layout = sharding.Layout(mesh, {})
+    t = h.shape[1] // n
+    hl = torch.from_numpy(h[:, layout.sp_index * t:
+                            (layout.sp_index + 1) * t].copy())
+    idx, _, slot, _ = moe_route.route_for_training(
+        hl, torch.from_numpy(router), k, t)
+    slot = llama._row_slots(layout, idx, slot, router.shape[1], cap)
+    return idx.numpy(), slot.numpy()
+
+
+def pipeline_kept(n_layers, micro):
+    """The 1F1B rounds of a full step of ``tiny`` at ``n_layers`` over
+    ``pp = world`` and ``micro`` microbatches of one row, as
+    ``build_train_step`` runs them: the most stage inputs this rank kept
+    at once (``pipeline._one_f_one_b``'s result)."""
+    import torch.distributed as dist
+    from skypilot_torch.models import llama
+    from skypilot_torch.parallel import mesh as mesh_lib
+    from skypilot_torch.parallel import pipeline, train
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(pp=dist.get_world_size()))
+    cfg = llama.get_config('tiny', n_layers=n_layers)
+    state = train.init_train_state(cfg, seed=0, device='cpu', mesh=mesh)
+    tokens = torch.randint(0, cfg.vocab_size, (micro, 17),
+                           generator=torch.Generator().manual_seed(0))
+    layout = state.layout
+    batch = layout.local_batch({'tokens': tokens}, micro)
+    layout.make_groups()
+    leaves = [(p, x.detach().requires_grad_(True))
+              for p, x in train._leaves(state.params)]
+    stage = pipeline._Stage(cfg, train._tree(leaves), None, batch, layout,
+                            micro, 2.0, [x for _, x in leaves])
+    return pipeline._one_f_one_b(stage, mesh.group(('pp',)), cfg.dtype,
+                                 tokens.device)

@@ -318,7 +318,8 @@ def test_ep_collectives_per_step(results, mesh_name, name):
     assert tllama.get_config(MODEL).n_layers == L
     want = dict(zip(('gathers', 'reduce_scatters', 'all_reduces',
                      'tp_reduces', 'all_to_alls'),
-                    COLLECTIVES[mesh_name, name]))
+                    COLLECTIVES[mesh_name, name]),
+                ring_sends=0, pp_sends=0, host_staged=0)
     for r in results(_group_of(mesh_name))[mesh_name]:
         assert r[name]['collectives'] == want
 

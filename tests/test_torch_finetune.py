@@ -55,13 +55,18 @@ def test_log_every_keeps_first_and_last_step(capsys):
     assert steps == ['0', '3']
 
 
-@pytest.mark.parametrize('argv,match', [
-    (['--pp', '2'], r'item 18 \(the pp pipeline\)'),
-    (['--sp', '2'], r'item 17 \(the sp ring\)'),
-    (['--microbatches', '4'], 'item 18'),
+@pytest.mark.parametrize('argv,error,match', [
+    (['--model', 'tiny-moe', '--pp', '2', '--sp', '2'], NotImplementedError,
+     'MoE \\+ sequence parallelism inside a pipeline'),
+    (['--pp', '4'], ValueError, 'n_layers=2 not divisible by pp=4'),
+    (['--model', 'tiny-moe', '--pp', '3', '--sp', '2'], ValueError,
+     'n_layers=2 not divisible by pp=3'),
 ], ids=['argv0-items 15-18', 'argv1-one device', 'argv2-item 18'])
-def test_unported_options_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_options_raise(argv, error, match):
+    """``--sp``, ``--pp`` and ``--microbatches`` run (the gloo runs of
+    ``test_torch_sp.py`` and ``test_torch_pp.py``); the recipe refuses,
+    before a worker starts, the pipelines JAX refuses."""
+    with pytest.raises(error, match=match):
         finetune.main(TINY + ['--steps', '1'] + argv)
 
 

@@ -215,20 +215,21 @@ def test_sharded_steps_match_jax_and_one_process(results, name, kind):
 # dim is the fsdp one) and for embed and lm_head; a reduce-scatter per
 # trainable gathered leaf; all-reduces: the token count, the loss, one
 # per trainable leaf replicated over a data axis, one for the norm's
-# group. No exchange over ep (a dense model).
+# group. No exchange over ep (a dense model), and nothing point to point.
+NO_P2P = {'ring_sends': 0, 'pp_sends': 0, 'host_staged': 0}
 COLLECTIVES = {
     'lora': {'gathers': 9 * 2 + 2, 'reduce_scatters': 2 * 2,
              'all_reduces': 2 + 4 + 1, 'tp_reduces': 0,
-             'all_to_alls': 0},
+             'all_to_alls': 0, **NO_P2P},
     'full': {'gathers': 7 * 2 + 2, 'reduce_scatters': 7 * 2 + 2,
              'all_reduces': 2 + 12 + 1, 'tp_reduces': 0,
-             'all_to_alls': 0},
+             'all_to_alls': 0, **NO_P2P},
     'qlora': {'gathers': 11 * 2 + 2, 'reduce_scatters': 2 * 2,
               'all_reduces': 2 + 4 + 1, 'tp_reduces': 0,
-              'all_to_alls': 0},
+              'all_to_alls': 0, **NO_P2P},
     'lora_remat': {'gathers': 2 * 9 * 2 + 2, 'reduce_scatters': 2 * 2,
                    'all_reduces': 2 + 4 + 1, 'tp_reduces': 0,
-                   'all_to_alls': 0},
+                   'all_to_alls': 0, **NO_P2P},
 }
 
 
@@ -417,13 +418,20 @@ def test_sharding_rules_equal_jax():
             for k in ref:
                 same(port[k], ref[k])
     for name in ('tiny', 'qwen2.5-1.5b', 'gemma-2b', 'mixtral-8x7b'):
-        same(tllama.param_sharding_rules(tllama.get_config(name)),
-             jllama.param_sharding_rules(jllama.get_config(name)))
-        same(ttrain.quantized_sharding_rules(tllama.get_config(name)),
-             jtrain.quantized_sharding_rules(jllama.get_config(name)))
+        for pipeline in (False, True):
+            same(tllama.param_sharding_rules(tllama.get_config(name),
+                                             pipeline=pipeline),
+                 jllama.param_sharding_rules(jllama.get_config(name),
+                                             pipeline=pipeline))
+            same(ttrain.quantized_sharding_rules(tllama.get_config(name),
+                                                 pipeline=pipeline),
+                 jtrain.quantized_sharding_rules(jllama.get_config(name),
+                                                 pipeline=pipeline))
     cfg = tllama.get_config('tiny')
-    same(tlora.lora_sharding_rules(cfg),
-         jlora.lora_sharding_rules(jllama.get_config('tiny')))
+    for pipeline in (False, True):
+        same(tlora.lora_sharding_rules(cfg, pipeline=pipeline),
+             jlora.lora_sharding_rules(jllama.get_config('tiny'),
+                                       pipeline=pipeline))
     assert ttrain._scale_spec((None, ('fsdp', 'ep'), 'tp')) == \
         tuple(jtrain._scale_spec(P(None, ('fsdp', 'ep'), 'tp')))
 
@@ -477,19 +485,26 @@ def test_8b_full_finetune_plan(fsdp, fits):
 
 
 def test_step_refuses_model_axes():
-    """The axes the step does not shard over yet name their items; ep
-    (expert parallelism) is taken."""
-    cfg = tllama.get_config('tiny')
-    for axis, match in (('sp', r'item 17 \(the sp ring\)'),
-                        ('pp', r'item 18 \(the pp pipeline\)')):
-        fake = type('M', (), {'shape': tmesh.MeshConfig(
-            **{axis: 2}).shape()})()
+    """The step takes every mesh axis (ep, sp, pp and their products); it
+    refuses only what JAX refuses: 1F1B with MoE or sp, MoE with sp
+    inside a pipeline, and layers that pp does not split."""
+    cfg, moe = tllama.get_config('tiny'), tllama.get_config('tiny-moe')
+
+    def fake(**axes):
+        return type('M', (), {'shape': tmesh.MeshConfig(**axes).shape()})()
+    for axes in (dict(ep=2), dict(sp=2), dict(pp=2), dict(pp=2, sp=2),
+                 dict(pp=2, tp=2, sp=2)):
+        assert callable(ttrain.build_train_step(cfg, mesh=fake(**axes)))
+    assert callable(ttrain.build_train_step(moe, mesh=fake(sp=2, ep=2)))
+    for model, axes, schedule, match in (
+            (moe, dict(pp=2), '1f1b', 'MoE'),
+            (cfg, dict(pp=2, sp=2), '1f1b', 'sequence parallelism'),
+            (moe, dict(pp=2, sp=2), 'gpipe', 'sequence parallelism')):
         with pytest.raises(NotImplementedError, match=match):
-            ttrain.build_train_step(cfg, mesh=fake)
-    assert 'ep' not in ttrain.LATER_AXES
-    ttrain.refuse_later_axes(tmesh.MeshConfig(ep=2).shape())
-    fake = type('M', (), {'shape': tmesh.MeshConfig(ep=2).shape()})()
-    assert callable(ttrain.build_train_step(cfg, mesh=fake))
+            ttrain.build_train_step(model, mesh=fake(**axes),
+                                    pipeline_schedule=schedule)
+    with pytest.raises(ValueError, match='n_layers=2 not divisible by pp=4'):
+        ttrain.build_train_step(cfg, mesh=fake(pp=4))
 
 
 def test_recipe_spawns_one_worker_per_device(tmp_path):

@@ -348,7 +348,8 @@ def test_tp_collectives_per_step(results, mesh_name, name):
             'all_reduces': reduces,
             'tp_reduces': tp_identity(tllama.get_config('tiny', **cfg_kw),
                                       kind, name.endswith('_remat')),
-            'all_to_alls': 0}
+            'all_to_alls': 0, 'ring_sends': 0, 'pp_sends': 0,
+            'host_staged': 0}
     for r in results(_group_of(mesh_name))[mesh_name]:
         assert r[name]['collectives'] == want
 

@@ -52,6 +52,30 @@ alone on the four cards with CUDA events (``MOE_RECIPE`` lines).
 prompts: TTFT, TPOT and ids (``MOE_REPLICA``; no one-card reference:
 bf16 mixtral does not fit one card).
 
+``--sp S,...``: sequence parallelism over NCCL, a card a rank:
+llama3-8b (32 layers, bf16 base, LoRA rank 16, random weights from seed
+0), one row of ``--sp-seq`` tokens (32768), at sp 1 on one card and at
+each S on S cards: the first step's loss, ``--train-steps`` timed steps
+(host clock, synchronized), tokens/s per chip, each rank's peak memory,
+and the ring's exchanges timed alone on every rank with CUDA events
+(one layer's (k, v), and the backward's (k, v, dk, dv)), summed to a
+step's (``SP_CARDS`` lines). ``--pp P,...``: pipeline parallelism the
+same way, seq 2048, a global batch of 16 rows: GPipe at 8 and 16
+microbatches and 1F1B at 16 on P cards (``--pp-schedules`` picks
+them), each stage's peak memory, and the bubble: 1 - (the unpipelined
+step on one card / P) / the pipelined step, beside (P - 1) / (M + P -
+1) (``PP_CARDS`` lines; the one-card step once, ``PP_ONE_CARD``).
+``--profile-probe RUNS``: the recipe's on-demand profile
+(``write_trigger`` at step 5, two steps) with ``PYTHONFAULTHANDLER=1``
+for each run named: ``sp2`` (``--sp 2``, two cards, seq 8192),
+``mixtral_ep1`` (mixtral-8x7b at ``--ep 1``, four cards, fsdp 4),
+``one_card`` (llama3-8b at seq 8192 on one card), ``tp2`` and
+``fsdp2`` (llama3-8b, seq 2048, 8 rows, on two cards: the meshes whose
+profiles worked in earlier runs); each run's exit code,
+its fault handler's report if it crashed, and the profile's kernel
+rows; ``gloo_sp2``: one sp 2 step captured by ``torch.profiler`` on
+two gloo ranks sharing a card (``PROFILE_PROBE`` lines).
+
 Needs a CUDA card for each rank; run from the repo's root, beside
 ``chip_smoke.py``, whose tp helpers it uses. Prints the cards' names and
 power limits (``nvidia-smi``) on every line.
@@ -74,6 +98,8 @@ from skypilot_torch.parallel import distributed
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, 'chiprun_out', 'tp_cards')
 PROMPT, NEW, SEED = 128, 32, 61
+# --pp's runs: seq and global batch rows.
+PP_SEQ, PP_BATCH = 2048, 16
 
 
 def log(*a):
@@ -166,6 +192,253 @@ def recipe(tp: int, steps: int, model: str = 'llama3-8b', ep: int = 1,
                 step_s=step_s, step_s_mean=mean,
                 tokens_per_s_per_chip=tokens_per_step / mean / chips,
                 profiled_rank=kernels, wall_s=wall)
+
+
+def _train_rank(torch, rank: int, world: int, dev, mesh_kw: dict,
+                seq: int, batch: int, steps: int, step_kw: dict) -> dict:
+    """llama3-8b (32 layers, bf16 base, LoRA rank 16, seed 0) on the mesh
+    ``mesh_kw`` of ``world`` ranks: one warm-up step (its loss), then
+    ``steps`` steps timed on the host clock, each ending in a sync; the
+    rank's peak memory over them, its coordinate and the last step's
+    collectives."""
+    import numpy as np
+
+    from skypilot_torch.models import llama
+    from skypilot_torch.parallel import mesh as mesh_lib
+    from skypilot_torch.parallel import sharding
+    from skypilot_torch.parallel import train as train_lib
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(**mesh_kw))
+    config = llama.get_config('llama3-8b', max_seq_len=seq)
+    state = train_lib.init_train_state(
+        config, seed=0, param_dtype=torch.bfloat16, lora_rank=16,
+        device=dev, mesh=mesh)
+    step = train_lib.build_train_step(config, mesh=mesh, **step_kw)
+    tokens = np.random.default_rng(SEED).integers(
+        0, config.vocab_size, (batch, seq + 1))
+    data = {'tokens': torch.from_numpy(tokens).to(dev)}
+    state, m = step(state, data)
+    first = float(m['loss'])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for _ in range(steps):
+        sharding.COLLECTIVES.reset()
+        t0 = time.perf_counter()
+        state, m = step(state, data)
+        float(m['loss'])
+        step_s.append(time.perf_counter() - t0)
+    return dict(coordinate=mesh.coordinate, layers=config.n_layers,
+                loss=first,
+                last_loss=float(m['loss']), step_s=step_s,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                collectives=sharding.COLLECTIVES.counts())
+
+
+def _ring_exchange_rank(torch, rank: int, world: int, dev,
+                        seq: int) -> dict:
+    """The ring's exchanges at sp = ``world`` for one row of ``seq``
+    tokens at llama3-8b's 8 kv heads, alone, 20 times after 3 warm-ups,
+    timed with CUDA events: a ring forward's (k, v) bf16, and a ring
+    backward's (k, v, dk, dv) with f32 sums and last (dk, dv)."""
+    from skypilot_torch import comm
+    from skypilot_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(sp=world))
+    group = mesh.group(('sp',))
+    shape = (1, seq // world, 8, 128)
+    kv = [torch.randn(shape, device=dev).to(torch.bfloat16)
+          for _ in range(2)]
+    sums = [torch.randn(shape, device=dev) for _ in range(2)]
+    res = {}
+    for name, parts in (('kv', kv), ('kv_dkdv', kv + sums),
+                        ('dkdv', sums)):
+        for _ in range(3):
+            comm.ring_exchange(parts, group)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            comm.ring_exchange(parts, group)
+        end.record()
+        torch.cuda.synchronize()
+        res[f'{name}_ms'] = start.elapsed_time(end) / 20
+        res[f'{name}_bytes'] = sum(x.numel() * x.element_size()
+                                   for x in parts)
+    return res
+
+
+def sp_cards(sizes: list, seq: int, steps: int, smi: list) -> None:
+    """``SP_CARDS``: sp 1 on one card, then each of ``sizes``."""
+    base = None
+    for sp in [1] + sizes:
+        ranks, spawn_s = chip_smoke._tp_spawn(
+            'nccl', sp, target=_train_rank,
+            args=(dict(sp=sp), seq, 1, steps, {}))
+        mean = max(sum(r['step_s']) / len(r['step_s']) for r in ranks)
+        row = dict(cards=smi[:sp], sp=sp, model='llama3-8b',
+                   layers=ranks[0]['layers'],
+                   seq=seq, batch=1, lora_rank=16,
+                   loss=[r['loss'] for r in ranks],
+                   step_s=[r['step_s'] for r in ranks], step_s_mean=mean,
+                   tokens_per_s_per_chip=seq / mean / sp,
+                   peak_gb=[r['peak_gb'] for r in ranks],
+                   collectives=ranks[0]['collectives'], ranks_s=spawn_s)
+        if sp > 1:
+            ex, _ = chip_smoke._tp_spawn('nccl', sp,
+                                         target=_ring_exchange_rank,
+                                         args=(seq,))
+            # A step per layer: the ring forward twice (remat), its
+            # backward once.
+            per_layer = [2 * (sp - 1) * e['kv_ms'] +
+                         (sp - 1) * e['kv_dkdv_ms'] + e['dkdv_ms']
+                         for e in ex]
+            row.update(exchange=ex, ring_exchange_ms_per_step=[
+                ranks[0]['layers'] * x for x in per_layer])
+        if base is None:
+            base = row
+        row['loss_rel_vs_sp1'] = abs(row['loss'][0] - base['loss'][0]) / \
+            abs(base['loss'][0])
+        row['per_chip_vs_one_card'] = (row['tokens_per_s_per_chip'] /
+                                       base['tokens_per_s_per_chip'])
+        log('SP_CARDS ' + json.dumps(row))
+
+
+def pp_cards(sizes: list, schedules: list, steps: int, smi: list) -> None:
+    """``PP_ONE_CARD`` then ``PP_CARDS`` for each pp and schedule."""
+    batch, seq = PP_BATCH, PP_SEQ
+    ranks, _ = chip_smoke._tp_spawn('nccl', 1, target=_train_rank,
+                                    args=(dict(), seq, batch, steps, {}))
+    one = sum(ranks[0]['step_s']) / len(ranks[0]['step_s'])
+    one_loss = ranks[0]['loss']
+    log('PP_ONE_CARD ' + json.dumps(dict(
+        cards=smi[:1], model='llama3-8b', layers=ranks[0]['layers'],
+        seq=seq, batch=batch,
+        step_s=ranks[0]['step_s'], step_s_mean=one,
+        peak_gb=ranks[0]['peak_gb'], loss=ranks[0]['loss'],
+        tokens_per_s=batch * seq / one)))
+    for pp in sizes:
+        for spec in schedules:
+            schedule, micro = spec.split(':')
+            micro = int(micro)
+            ranks, spawn_s = chip_smoke._tp_spawn(
+                'nccl', pp, target=_train_rank,
+                args=(dict(pp=pp), seq, batch, steps,
+                      dict(pipeline_microbatches=micro,
+                           pipeline_schedule=schedule)))
+            ranks = sorted(ranks, key=lambda r: r['coordinate']['pp'])
+            mean = max(sum(r['step_s']) / len(r['step_s']) for r in ranks)
+            log('PP_CARDS ' + json.dumps(dict(
+                cards=smi[:pp], pp=pp, schedule=schedule, microbatches=micro,
+                model='llama3-8b', layers=ranks[0]['layers'], seq=seq,
+                batch=batch, loss=[r['loss'] for r in ranks],
+                loss_rel_vs_one_card=abs(ranks[0]['loss'] - one_loss) /
+                abs(one_loss),
+                step_s=[r['step_s'] for r in ranks], step_s_mean=mean,
+                tokens_per_s_per_chip=batch * seq / mean / pp,
+                stage_peak_gb=[r['peak_gb'] for r in ranks],
+                pp_sends=[r['collectives']['pp_sends'] for r in ranks],
+                bubble_measured=1 - (one / pp) / mean,
+                bubble_schedule=(pp - 1) / (micro + pp - 1),
+                ranks_s=spawn_s)))
+
+
+PROBE_RUNS = {
+    'sp2': (2, ['--model', 'llama3-8b', '--seq', '8192', '--batch', '2',
+                '--sp', '2']),
+    'mixtral_ep1': (4, ['--model', 'mixtral-8x7b', '--seq', '2048',
+                        '--batch', '4', '--ep', '1']),
+    'one_card': (1, ['--model', 'llama3-8b', '--seq', '8192', '--batch',
+                     '2']),
+    'tp2': (2, ['--model', 'llama3-8b', '--seq', '2048', '--batch', '8',
+                '--tp', '2']),
+    'fsdp2': (2, ['--model', 'llama3-8b', '--seq', '2048', '--batch',
+                  '8']),
+}
+
+
+def _profiled_rank(torch, rank: int, world: int, dev, sp: int) -> dict:
+    """One step of llama3-8b at 4 layers, seq 8192, batch 1 over ``sp``
+    (ranks sharing the card over gloo) captured by ``torch.profiler``
+    (``profiling.capture_trace``) after a warm-up step: the trace's
+    device rows."""
+    from skypilot_torch.models import llama
+    from skypilot_torch.parallel import mesh as mesh_lib
+    from skypilot_torch.parallel import train as train_lib
+    from skypilot_torch.utils import profiling
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(sp=sp))
+    config = llama.get_config('llama3-8b', n_layers=4, max_seq_len=8192)
+    state = train_lib.init_train_state(
+        config, seed=0, param_dtype=torch.bfloat16, lora_rank=16,
+        device=dev, mesh=mesh)
+    step = train_lib.build_train_step(config, mesh=mesh)
+    data = {'tokens': torch.randint(0, config.vocab_size, (1, 8193),
+                                    generator=torch.Generator().manual_seed(
+                                        SEED)).to(dev)}
+    state, _ = step(state, data)
+    trace = os.path.join(OUT, f'probe_gloo_rank{rank}')
+    with profiling.capture_trace(trace) as out:
+        state, m = step(state, data)
+        float(m['loss'])
+    rows = profiling.summarize_trace(out)
+    return dict(rows=len(rows), device_ms=sum(r.total_ms for r in rows))
+
+
+def profile_probe(smi: list, runs: list) -> None:
+    """``PROFILE_PROBE``: the recipe's on-demand profile under the fault
+    handler for each of ``runs`` (``PROBE_RUNS``: ``--sp 2`` on two cards,
+    mixtral-8x7b ``--ep 1`` on four, the one-card step at seq 8192), and
+    ``gloo_sp2``: a profiled sp 2 step on two gloo ranks sharing a
+    card."""
+    from skypilot_torch.utils import profiling
+    if 'gloo_sp2' in runs:
+        try:
+            ranks, _ = chip_smoke._tp_spawn('gloo', 2, target=_profiled_rank,
+                                            args=(2,))
+            got = dict(exit_code=0, ranks=ranks)
+        except AssertionError as e:   # a rank that crashed: the answer
+            got = dict(exit_code=None, error=str(e)[-600:])
+        log('PROFILE_PROBE ' + json.dumps(dict(cards=smi[:1],
+                                               run='gloo_sp2', **got)))
+    for tag in [r for r in runs if r in PROBE_RUNS]:
+        chips, extra = PROBE_RUNS[tag]
+        prof = os.path.join(OUT, f'probe_{tag}')
+        os.makedirs(prof, exist_ok=True)
+        env = _env(chips)
+        env.update(SKYTPU_PROFILE_DIR=prof, PYTHONFAULTHANDLER='1',
+                   TORCH_SHOW_CPP_STACKTRACES='1',
+                   SKYTPU_COORDINATOR_ADDRESS=(
+                       f'127.0.0.1:{distributed.free_port()}'))
+        argv = [sys.executable, '-m', 'skypilot_torch.recipes.finetune',
+                '--lora-rank', '16', '--synthetic', '--steps', '9',
+                '--log-every', '1'] + extra
+        err_path = os.path.join(OUT, f'probe_{tag}.stderr')
+        with open(err_path, 'w', encoding='utf-8') as err:
+            proc = subprocess.Popen(argv, cwd=ROOT, env=env,
+                                    stdout=subprocess.PIPE, stderr=err,
+                                    text=True)
+            lines = []
+            for line in proc.stdout:
+                lines.append(line.rstrip())
+                if line.startswith('step 5 '):
+                    profiling.write_trigger(prof, steps=2)
+            rc = proc.wait()
+        text = _tail(err_path)
+        fault = text[text.find('Fatal Python error'):][:3000] \
+            if 'Fatal Python error' in text else None
+        summary = profiling.load_summary(prof)
+        rows = [] if summary is None else [
+            r for r in summary['rows'] if r['category'] == 'kernel']
+        log('PROFILE_PROBE ' + json.dumps(dict(
+            cards=smi[:chips], run=tag, argv=extra, exit_code=rc,
+            steps_printed=sum(line.startswith('step ') for line in lines),
+            fault=fault, profiled=summary is not None,
+            profile_steps=None if summary is None else summary['steps'],
+            kernel_ms=None if summary is None else sum(
+                r['total_ms'] for r in rows) / summary['steps'],
+            top=[dict(name=r['name'][:80], ms=r['total_ms'] /
+                      summary['steps'])
+                 for r in sorted(rows, key=lambda r: -r['total_ms'])[:10]]
+            if summary else None)))
 
 
 def _exchange_rank(torch, rank: int, world: int, dev, ep: int,
@@ -394,10 +667,28 @@ def main() -> int:
     parser.add_argument('--moe', default='',
                         help='mixtral-8x7b recipe meshes: ep4, ep2tp2')
     parser.add_argument('--moe-replica-tp', type=int, default=0)
+    parser.add_argument('--sp', default='',
+                        help='sequence-parallel sizes, e.g. 2,4')
+    parser.add_argument('--sp-seq', type=int, default=32768)
+    parser.add_argument('--pp', default='',
+                        help='pipeline-parallel sizes, e.g. 2,4')
+    parser.add_argument('--pp-schedules', default='gpipe:8,gpipe:16,1f1b:16',
+                        help='schedule:microbatches for each --pp')
+    parser.add_argument('--train-steps', type=int, default=3)
+    parser.add_argument('--profile-probe', default='',
+                        help='comma list of PROBE_RUNS keys and gloo_sp2')
     args = parser.parse_args()
     os.makedirs(OUT, exist_ok=True)
     smi = cards()
     log('TP_CARDS ' + json.dumps(dict(cards=smi)))
+    if args.sp:
+        sp_cards([int(x) for x in args.sp.split(',')], args.sp_seq,
+                 args.train_steps, smi)
+    if args.pp:
+        pp_cards([int(x) for x in args.pp.split(',')],
+                 args.pp_schedules.split(','), args.train_steps, smi)
+    if args.profile_probe:
+        profile_probe(smi, args.profile_probe.split(','))
     base = None
     for tp in [int(t) for t in args.recipe_tp.split(',') if t]:
         row = recipe(tp, args.steps)
